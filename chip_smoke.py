@@ -1,23 +1,30 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's main path once on one CUDA card.
+"""Drive the PyTorch + CUDA port's paths once on one CUDA card.
 
     python3 chip_smoke.py            # from the repository root, one card
 
-The main path is the RNS-BFV eval-resident ciphertext x ciphertext multiply
-with the 1-row hybrid relinearization, at N = 2^14, L = 4 Q-primes, M = 5
-P-primes, K = 2 auxiliary primes, t = 256, a batch of 128 ciphertexts.
-Phases, each of which raises (and so exits non-zero) on any failure:
+The paths are those of RNS-BFV (models/bfv_rns.py) at N = 2^14, L = 4
+Q-primes, M = 5 P-primes, K = 2 auxiliary primes, t = 256, a batch of 128
+ciphertexts, and its linear pipeline at N = 2^12, L = 2, M = 3, a batch of
+1024.  Phases, each of which raises (and so exits non-zero) on any failure:
 
   1. toolchain and card: torch, CUDA, nvcc; the kernels built from csrc/;
-  2. each of the five kernels against its plain PyTorch version on the card,
-     bit for bit, at the main path's shapes (batch 8) and at n = 256;
-  3. the slice: keygen -> hybrid relin key -> encrypt 128 plaintext pairs ->
-     to_evals -> mul_e -> from_evals -> decrypt, with every launch counter
-     set to 0 before and read after; the decrypted product is held against
-     an independent numpy FFT negacyclic product for every coefficient;
-  4. timing with CUDA events: a chain of 8 mul_e at batch 128 (ct-mul/s,
-     peak device memory) and each kernel against its plain version at the
-     main path's shapes.
+  2. each of the nine kernel entries against its plain PyTorch version on
+     the card, bit for bit, at the paths' shapes (batch 8) and at n = 256;
+  3. the eval-resident path: keygen -> hybrid relin key -> encrypt 128
+     plaintext pairs -> to_evals -> mul_e -> from_evals -> decrypt;
+  4. the coefficient-domain and gadget paths on the same ciphertexts: mul
+     with the gadget key, mul with the hybrid key, to_evals -> gadget mul_e
+     -> from_evals, key_switch to a second key (decrypted under it), and the
+     stacked tensor (tensor_mul_multi, held against tensor_mul4);
+  5. the linear pipeline: pt_to_evals, to_evals x 2, one
+     mul_pt_e(add_e(., .), em) step;
+     every launch counter is set to 0 before each path of 3-5 and read after
+     it, and every decrypted result is held against an independent numpy FFT
+     negacyclic product for every coefficient;
+  6. timing with CUDA events: chains of 8 (hybrid mul_e, gadget mul_e, mul,
+     the linear step) and each kernel variant against its plain version at
+     the paths' shapes, beside the least time the card could take (bound).
 
 It prints each finding on a line of its own, then the kernels' JSON record,
 the card's name and power limit, and as its last line
@@ -34,7 +41,14 @@ import torch
 
 SEED = 20240614
 N, L, M, T, BATCH, CHAIN = 1 << 14, 4, 5, 256, 128, 8
+LIN_N, LIN_L, LIN_M, LIN_BATCH = 1 << 12, 2, 3, 1024
 PARITY_BATCH = 8
+# the bound's denominators: device memory rate of the H100 SXM data sheet,
+# and 64 INT32 lanes per SM per clock (4 partitions x 16, the Hopper
+# architecture's figure) times the SM count and the maximum SM clock that
+# the card in hand reports
+MEMORY_BYTES_PER_S = 3.35e12
+INT32_LANES_PER_SM = 64
 
 
 def say(*parts) -> None:
@@ -44,6 +58,11 @@ def say(*parts) -> None:
 def run(cmd) -> str:
     return subprocess.run(cmd, capture_output=True, text=True,
                           check=True).stdout.strip()
+
+
+def smi(field: str) -> str:
+    return run(["nvidia-smi", f"--query-gpu={field}",
+                "--format=csv,noheader"]).splitlines()[0].strip()
 
 
 def time_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -80,26 +99,31 @@ def main() -> None:
         sys.exit("chip_smoke: no CUDA card (torch.cuda.is_available() is "
                  "False); nothing was run")
     from fhe_study_tpu_torch.models import bfv_rns as R
-    from fhe_study_tpu_torch.ops import _cuda
+    from fhe_study_tpu_torch.ops import _cuda, ntt, ntt_cuda
     from fhe_study_tpu_torch.utils import kernel_check, prng
 
     dev = torch.device("cuda", 0)
 
     # 1. toolchain and card ------------------------------------------------
-    smi = run(["nvidia-smi", "--query-gpu=name,power.limit",
-               "--format=csv,noheader"]).splitlines()[0].strip()
-    card = f"{torch.cuda.get_device_name(0)} ({smi})"
+    name_limit = smi("name,power.limit")
+    card = f"{torch.cuda.get_device_name(0)} ({name_limit})"
     nvcc = run([_cuda._nvcc(), "--version"]).splitlines()[-1]
     say(f"toolchain: python {sys.version.split()[0]}, torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}, nvcc: {nvcc}")
     say(f"card: {card}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sm_mhz = float(smi("clocks.max.sm").split()[0])
+    int_ops_per_s = sms * INT32_LANES_PER_SM * sm_mhz * 1e6
+    say(f"bound: bytes over {MEMORY_BYTES_PER_S / 1e12} TB/s, integer "
+        f"operations over {sms} SMs x {INT32_LANES_PER_SM} lanes x "
+        f"{sm_mhz:.0f} MHz = {int_ops_per_s / 1e12:.2f} T/s")
     t0 = time.perf_counter()
     _cuda.library()
     build_s = time.perf_counter() - t0
-    say(f"build: {len(_cuda.KERNELS)} kernels from fhe_study_tpu_torch/csrc "
-        f"in {build_s:.1f} s -> {_cuda.build_dir()}")
+    say(f"build: {len(_cuda.KERNELS)} kernel entries from "
+        f"fhe_study_tpu_torch/csrc in {build_s:.1f} s -> {_cuda.build_dir()}")
     for line in _cuda.build_log().splitlines():
-        if "Used" in line or "Compiling entry" in line:
+        if "Used" in line or "Compiling entry" in line or "spill" in line:
             say("  ptxas:", line.split("ptxas info    :")[-1].strip())
 
     # 2. kernels against their plain versions ------------------------------
@@ -121,91 +145,226 @@ def main() -> None:
             got, want = case.kernel(), case.plain()
             torch.cuda.synchronize()
             check(case, got, want)
+    missing = [k for k, v in checked.items() if v == 0]
+    if missing:
+        raise RuntimeError(f"kernels with no parity case: {missing}")
     say(f"parity: kernel == plain (torch.equal) for "
         f"{sum(checked.values())} variants at n={N} and n=256, batch "
         f"{PARITY_BATCH}: {checked}")
 
-    # 3. the slice at full width -------------------------------------------
+    # 3-5. the paths at full width -----------------------------------------
+    path_launches = {}
+
+    def drive(label: str, expects: tuple, fn):
+        """Run one path with the launch counters set to 0 just before and
+        read just after; every kernel it should go through must have been
+        launched."""
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = _cuda.launches()
+        path_launches[label] = counts
+        unlaunched = [k for k in expects if counts[k] == 0]
+        if unlaunched:
+            raise RuntimeError(f"{label}: never launched {unlaunched}")
+        say(f"path: {label} in {seconds:.2f} s (host clock, first call); "
+            f"launches { {k: v for k, v in counts.items() if v} }")
+        return out
+
+    def verify(label: str, rec, ref, what: str) -> None:
+        got = rec.cpu().numpy()
+        bad = int((got != ref).sum()) if got.shape == ref.shape else ref.size
+        if bad:
+            raise RuntimeError(f"{label}: {bad} of {ref.size} decrypted "
+                               f"coefficients differ from {what}")
+        say(f"verify: {label}: decrypted == {what} for all {ref.shape[0]} x "
+            f"{ref.shape[1]} coefficients")
+
     param = R.RnsParam(n=N, t=T, L=L, M=M)
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    torch.cuda.synchronize()
-    _cuda.reset_launches()
-    t0 = time.perf_counter()
-    sk, pk = R.new_key(gen, param, dev)
-    hk = R.hybrid_rlk1(gen, param, sk)
-    m1, m2 = (prng.uniform_mod(gen, (BATCH, N), T, dev) for _ in range(2))
-    c1, c2 = (R.encrypt(gen, param, pk, m, batch=(BATCH,)) for m in (m1, m2))
-    x, y = R.to_evals(param, c1), R.to_evals(param, c2)
-    ce = R.mul_e(param, hk, x, y)
-    rec = R.decrypt(param, sk, R.from_evals(param, ce))
-    torch.cuda.synchronize()
-    slice_s = time.perf_counter() - t0
-    launches = _cuda.launches()
-    say(f"slice: keygen -> encrypt -> to_evals -> mul_e -> from_evals -> "
-        f"decrypt at N={N} L={L} M={M} K=2 t={T} B={BATCH} in {slice_s:.2f} s "
-        f"(host clock, first call); launches {launches}")
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise RuntimeError(f"kernels never launched on the main path: "
-                           f"{missing}")
+    st = {}
+
+    def eval_path():
+        st["sk"], st["pk"] = R.new_key(gen, param, dev)
+        st["hk"] = R.hybrid_rlk1(gen, param, st["sk"])
+        st["m"] = [prng.uniform_mod(gen, (BATCH, N), T, dev)
+                   for _ in range(2)]
+        st["c"] = [R.encrypt(gen, param, st["pk"], m, batch=(BATCH,))
+                   for m in st["m"]]
+        st["e"] = [R.to_evals(param, c) for c in st["c"]]
+        ce = R.mul_e(param, st["hk"], *st["e"])
+        return ce, R.decrypt(param, st["sk"], R.from_evals(param, ce))
+
+    shape = f"N={N} L={L} M={M} K=2 t={T} B={BATCH}"
+    ce, rec = drive(
+        f"keygen -> encrypt -> to_evals -> mul_e (HRLK) -> from_evals -> "
+        f"decrypt at {shape}",
+        ("ntt_multi", "tensor_eval4", "ks_contract", "base_extend",
+         "ext_ntt"), eval_path)
     for name, v in zip(("e0q", "e1q", "e0p", "e1p"), ce):
         want = (len(param.qs) if name.endswith("q") else len(param.ps),
                 BATCH, N)
         if tuple(v.shape) != want or v.dtype != torch.int32:
             raise RuntimeError(f"CTE.{name}: {tuple(v.shape)} {v.dtype}")
-    ref, fft_err = negacyclic_reference(m1.cpu().numpy(), m2.cpu().numpy(), T)
-    got = rec.cpu().numpy()
-    bad = int((got != ref).sum())
-    if got.shape != ref.shape or bad:
-        raise RuntimeError(f"decrypted product: {bad} of {ref.size} "
-                           "coefficients differ from the host reference")
-    say(f"slice: decrypted product == numpy FFT negacyclic reference for all "
-        f"{BATCH} x {N} coefficients (FFT rounding error {fft_err:.2e})")
+    sk, hk, (c1, c2), (x, y) = st["sk"], st["hk"], st["c"], st["e"]
+    m1, m2 = (m.cpu().numpy() for m in st["m"])
+    product, fft_err = negacyclic_reference(m1, m2, T)
+    fft = f"the numpy FFT negacyclic product (rounding error {fft_err:.2e})"
+    verify("mul_e (HRLK)", rec, product, fft)
 
-    # 4. timing ------------------------------------------------------------
-    _cuda.reset_launches()
-    R.mul_e(param, hk, x, y)
-    per_mul = _cuda.launches()
+    rlk = R.rlk_key(gen, param, sk)
+    sk2, _ = R.new_key(gen, param, dev)
+    ksk = R.ksk_key(gen, param, sk, sk2)
 
-    def chain():
-        c = x
-        for _ in range(CHAIN):
-            c = R.mul_e(param, hk, c, y)
-        return c
+    rec = drive(f"mul (RLK) -> decrypt at {shape}",
+                ("tensor_mul4", "base_extend", "ks_fused", "ntt_multi"),
+                lambda: R.decrypt(param, sk, R.mul(param, rlk, c1, c2)))
+    verify("mul (RLK)", rec, product, fft)
+    rec = drive(f"mul (HRLK) -> decrypt at {shape}",
+                ("tensor_mul4", "base_extend", "ntt_multi", "ks_contract"),
+                lambda: R.decrypt(param, sk, R.mul(param, hk, c1, c2)))
+    verify("mul (HRLK)", rec, product, fft)
+    rec = drive(
+        f"to_evals -> mul_e (RLK) -> from_evals -> decrypt at {shape}",
+        ("ntt_multi", "tensor_eval4", "base_extend", "ks_fused_eval",
+         "ext_ntt"),
+        lambda: R.decrypt(param, sk, R.from_evals(param, R.mul_e(
+            param, rlk, R.to_evals(param, c1), R.to_evals(param, c2)))))
+    verify("mul_e (RLK)", rec, product, fft)
+    rec = drive(f"key_switch -> decrypt under the second key at {shape}",
+                ("ks_fused", "ntt_multi"),
+                lambda: R.decrypt(param, sk2, R.key_switch(param, ksk, c1)))
+    verify("key_switch", rec, m1, "the plaintext that was encrypted")
+    t_q = (T,) * L
+    stacked = drive(
+        f"tensor_mul_multi on the stacked ciphertext pair at {shape}",
+        ("tensor_mul",),
+        lambda: ntt.tensor_mul_multi(
+            torch.stack([c1.c0, c1.c1, c2.c0, c2.c1], dim=-2), param.qs,
+            scale=t_q))
+    x4 = torch.stack([c1.c0, c1.c1, c2.c0, c2.c1], dim=-2)
+    if not torch.equal(stacked, ntt_cuda.tensor_mul_plain(x4, param.qs,
+                                                          scale=t_q)):
+        raise RuntimeError("tensor_mul_multi != its plain version on the "
+                           "stacked ciphertexts")
+    if not torch.equal(stacked, ntt.tensor_mul4(*c1, *c2, param.qs,
+                                                scale=t_q)):
+        raise RuntimeError("tensor_mul_multi != tensor_mul4 on the same "
+                           "ciphertexts")
+    say("verify: tensor_mul_multi == tensor_mul_plain == tensor_mul4 "
+        "(torch.equal) on the ciphertexts whose product decrypt-verified in "
+        "mul above")
 
-    chain()                                       # warm up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    runs = [time_ms(chain, 1, warmup=0) for _ in range(3)]
-    peak = torch.cuda.max_memory_allocated()
-    best = min(runs)
-    rate = BATCH * CHAIN / (best / 1e3)
-    say(f"timing: chain of {CHAIN} mul_e at B={BATCH}: runs "
-        f"{[round(r, 3) for r in runs]} ms, best {best:.3f} ms = "
-        f"{best / CHAIN:.3f} ms per mul_e = {rate:.1f} ct-mul/s; peak device "
-        f"memory {peak / 2**30:.2f} GiB; launches per mul_e {per_mul} "
-        f"[{card}]")
-    # a kernel's ms (and plain_ms): one call of each of its variants at the
-    # main path's shapes, summed
+    lin = R.RnsParam(n=LIN_N, t=T, L=LIN_L, M=LIN_M)
+    lin_shape = f"N={LIN_N} L={LIN_L} M={LIN_M} t={T} B={LIN_BATCH}"
+
+    def linear_step():
+        st["lsk"], pk = R.new_key(gen, lin, dev)
+        st["lm"] = [prng.uniform_mod(gen, (LIN_BATCH, LIN_N), T, dev)
+                    for _ in range(2)]
+        cts = [R.encrypt(gen, lin, pk, m, batch=(LIN_BATCH,))
+               for m in st["lm"]]
+        st["lem"] = R.pt_to_evals(lin, st["lm"][1])
+        st["le"] = [R.to_evals(lin, c) for c in cts]
+        step = R.mul_pt_e(lin, R.add_e(lin, *st["le"]), st["lem"])
+        return R.decrypt(lin, st["lsk"], R.from_evals(lin, step))
+
+    rec = drive(f"linear: pt_to_evals, to_evals x 2, mul_pt_e(add_e) -> "
+                f"from_evals -> decrypt at {lin_shape}",
+                ("ntt_multi", "ext_ntt"), linear_step)
+    lm1, lm2 = (m.cpu().numpy() for m in st["lm"])
+    product, fft_err = negacyclic_reference((lm1 + lm2) % T, lm2, T)
+    verify("linear step (m1 + m2) * m2", rec, product,
+           f"the numpy FFT negacyclic product (rounding error {fft_err:.2e})")
+
+    launches = {k.name: sum(c[k.name] for c in path_launches.values())
+                for k in _cuda.KERNELS}
+    never = [k for k, v in launches.items() if v == 0]
+    if never:
+        raise RuntimeError(f"kernels launched on no path: {never}")
+
+    # 6. timing ------------------------------------------------------------
+    def chain_of(step, start):
+        def chain():
+            c = start
+            for _ in range(CHAIN):
+                c = step(c)
+            return c
+        return chain
+
+    def per_op_launches(fn) -> dict:
+        _cuda.reset_launches()
+        fn()
+        return {k: v for k, v in _cuda.launches().items() if v}
+
+    chains = [
+        ("mul_e (HRLK)", "ct-mul/s", BATCH,
+         lambda c: R.mul_e(param, hk, c, y), x),
+        ("mul_e (RLK)", "ct-mul/s", BATCH,
+         lambda c: R.mul_e(param, rlk, c, y), x),
+        ("mul (RLK)", "ct-mul/s", BATCH,
+         lambda c: R.mul(param, rlk, c, c2), c1),
+        ("mul (HRLK)", "ct-mul/s", BATCH,
+         lambda c: R.mul(param, hk, c, c2), c1),
+        ("linear mul_pt_e(add_e)", "ops/s", LIN_BATCH,
+         lambda c: R.mul_pt_e(lin, R.add_e(lin, c, st["le"][1]), st["lem"]),
+         st["le"][0]),
+    ]
+    for label, unit, batch, step, start in chains:
+        per_op = per_op_launches(lambda: step(start))
+        chain = chain_of(step, start)
+        chain()                                       # warm up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        runs = [time_ms(chain, 1, warmup=0) for _ in range(3)]
+        peak = torch.cuda.max_memory_allocated()
+        best = min(runs)
+        say(f"timing: chain of {CHAIN} {label} at B={batch}: runs "
+            f"{[round(r, 3) for r in runs]} ms, best {best:.3f} ms = "
+            f"{best / CHAIN:.3f} ms per op = "
+            f"{batch * CHAIN / (best / 1e3):.1f} {unit}; peak device memory "
+            f"{peak / 2**30:.2f} GiB; launches per op {per_op} [{card}]")
+    # a kernel's ms, plain_ms and bound_ms: one call of each of its variants
+    # at the paths' shapes, summed
     ms = {k.name: 0.0 for k in _cuda.KERNELS}
-    plain_ms = dict(ms)
+    plain_ms, byte_ms, op_ms, bound_ms = dict(ms), dict(ms), dict(ms), dict(ms)
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
-    for case in kernel_check.cases(param, BATCH, dev, gen):
+    for case in (kernel_check.cases(param, BATCH, dev, gen)
+                 + kernel_check.linear_cases(lin, LIN_BATCH, dev, gen)):
         check(case, case.kernel(), case.plain())
         k_ms = time_ms(case.kernel, 10)
         p_ms = time_ms(case.plain, 3)
+        b_ms = case.bytes / MEMORY_BYTES_PER_S * 1e3
+        o_ms = case.ops / int_ops_per_s * 1e3
         ms[case.name] += k_ms
         plain_ms[case.name] += p_ms
-        say(f"timing: {case.name:12s} {case.label:40s} kernel {k_ms:8.3f} ms"
-            f"  plain {p_ms:9.3f} ms  [{card}]")
+        byte_ms[case.name] += b_ms
+        op_ms[case.name] += o_ms
+        bound_ms[case.name] += max(b_ms, o_ms)
+        say(f"timing: {case.name:13s} {case.label:48s} kernel {k_ms:8.3f} ms"
+            f"  plain {p_ms:9.3f} ms  bound {max(b_ms, o_ms):7.4f} ms "
+            f"(bytes {b_ms:.4f}, operations {o_ms:.4f})  [{card}]")
+
+    say(f"parity: kernel == plain (torch.equal) for all "
+        f"{sum(checked.values())} variants, those at the full batch of each "
+        f"path (B={BATCH} at n={N}; B={LIN_BATCH} at n={LIN_N}) included: "
+        f"{checked}")
 
     record = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": k.replaces, "launches": launches[k.name],
          "max_abs_err": err[k.name], "ms": ms[k.name],
-         "plain_ms": plain_ms[k.name]} for k in _cuda.KERNELS]}
+         "plain_ms": plain_ms[k.name], "bound_ms": bound_ms[k.name],
+         "bound_by": ("operations" if op_ms[k.name] >= byte_ms[k.name]
+                      else "bytes"),
+         # no PyTorch call computes a modular NTT, an RNS base conversion or
+         # a gadget contraction
+         "library_ms": None} for k in _cuda.KERNELS]}
     say(json.dumps(record))
-    say(smi)
+    say(name_limit)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -20,6 +20,11 @@ constexpr int kMaxSrc = 15;
 constexpr int kMinLogN = 8;
 constexpr int kMaxLogN = 14;
 constexpr int kChainThreads = 512;
+// The fused kernels keep per-thread partial results (one or two words per
+// coefficient a thread owns) in registers across a stage chain, so they run
+// wider blocks: at n = 2^14 a thread owns n / kFusedThreads coefficients.
+constexpr int kFusedThreads = 1024;
+constexpr int kFusedPer = (1 << kMaxLogN) / kFusedThreads;
 
 __device__ __forceinline__ uint32_t addmod(uint32_t a, uint32_t b, uint32_t q) {
   const uint32_t s = a + b;
@@ -64,7 +69,10 @@ __device__ __forceinline__ PrimeRow prime_row(const uint32_t* cons, int p) {
 
 // Forward negacyclic NTT of a[0, 2^logn) in shared memory, in place: stage
 // s has m = 2^s groups of 2t lanes (t = n >> (s+1)); group i multiplies its
-// second half by w[m + i].  Ends with a barrier.
+// second half by w[m + i].  With NPOLY > 1 it transforms that many
+// polynomials laid end to end (all modulo the same prime) in one chain, so
+// they share its barriers.  Ends with a barrier.
+template <int NPOLY = 1>
 __device__ inline void forward_chain(uint32_t* a, int logn,
                                      const uint32_t* w, const uint32_t* wsh,
                                      uint32_t q) {
@@ -73,13 +81,15 @@ __device__ inline void forward_chain(uint32_t* a, int logn,
     const int lt = logn - 1 - s;
     const int t = 1 << lt;
     const int m = 1 << s;
-    for (int k = threadIdx.x; k < half; k += blockDim.x) {
+    for (int kk = threadIdx.x; kk < NPOLY * half; kk += blockDim.x) {
+      const int k = NPOLY == 1 ? kk : kk & (half - 1);
+      uint32_t* poly = NPOLY == 1 ? a : a + ((kk >> (logn - 1)) << logn);
       const int i = k >> lt;
       const int idx = (i << (lt + 1)) | (k & (t - 1));
-      const uint32_t u = a[idx];
-      const uint32_t v = shoup_mul(a[idx + t], w[m + i], wsh[m + i], q);
-      a[idx] = addmod(u, v, q);
-      a[idx + t] = submod(u, v, q);
+      const uint32_t u = poly[idx];
+      const uint32_t v = shoup_mul(poly[idx + t], w[m + i], wsh[m + i], q);
+      poly[idx] = addmod(u, v, q);
+      poly[idx + t] = submod(u, v, q);
     }
     __syncthreads();
   }
@@ -87,7 +97,9 @@ __device__ inline void forward_chain(uint32_t* a, int logn,
 
 // Inverse (Gentleman-Sande) chain without the n^-1 scale: stage s has
 // t = 2^s and m = n >> (s+1) groups; the difference of group i is
-// multiplied by winv[m + i].  Ends with a barrier.
+// multiplied by winv[m + i].  NPOLY as in forward_chain.  Ends with a
+// barrier.
+template <int NPOLY = 1>
 __device__ inline void inverse_chain(uint32_t* a, int logn,
                                      const uint32_t* winv,
                                      const uint32_t* winvsh, uint32_t q) {
@@ -96,13 +108,16 @@ __device__ inline void inverse_chain(uint32_t* a, int logn,
     const int lt = s;
     const int t = 1 << lt;
     const int m = half >> s;
-    for (int k = threadIdx.x; k < half; k += blockDim.x) {
+    for (int kk = threadIdx.x; kk < NPOLY * half; kk += blockDim.x) {
+      const int k = NPOLY == 1 ? kk : kk & (half - 1);
+      uint32_t* poly = NPOLY == 1 ? a : a + ((kk >> (logn - 1)) << logn);
       const int i = k >> lt;
       const int idx = (i << (lt + 1)) | (k & (t - 1));
-      const uint32_t u = a[idx];
-      const uint32_t v = a[idx + t];
-      a[idx] = addmod(u, v, q);
-      a[idx + t] = shoup_mul(submod(u, v, q), winv[m + i], winvsh[m + i], q);
+      const uint32_t u = poly[idx];
+      const uint32_t v = poly[idx + t];
+      poly[idx] = addmod(u, v, q);
+      poly[idx + t] =
+          shoup_mul(submod(u, v, q), winv[m + i], winvsh[m + i], q);
     }
     __syncthreads();
   }

@@ -5,9 +5,14 @@
 //   fhe_tensor_eval4   <- tensor_eval4_u32  (_tensor_eval_kernel)
 //   fhe_ks_contract    <- ks_contract_u32   (_ks_kernel_multi, fwd=False)
 //   fhe_ext_ntt        <- ext_ntt_u32       (_ext_ntt_kernel)
+//   fhe_tensor_mul4    <- tensor_mul4_u32   (_tensor4_kernel), and through
+//                         operand strides tensor_mul_u32 (_tensor_kernel_multi)
+//   fhe_ks_fused       <- ks_fused_u32      (_ks_kernel_multi, fwd=True)
+//   fhe_ks_fused_eval  <- ks_fused_eval_u32 (_ks_eval_kernel)
 //
-// Layout: one thread block per (prime, polynomial) — and per product or key
-// half where a kernel emits several — holds its whole length-n polynomial
+// Layout of the first four: one thread block per (prime, polynomial) — and
+// per product or key half where a kernel emits several — holds its whole
+// length-n polynomial
 // (n = 2^8 .. 2^14, at most 64 KB) in dynamic shared memory and runs all
 // log n butterfly stages there, so device memory sees one read of the
 // operands and one write of the result.  Twiddles come from per-prime [L, n]
@@ -22,6 +27,18 @@
 // 3 blocks per SM.  A faster layout
 // (registers across stages, fewer barriers, cp.async/TMA prefetch) is later
 // work; this one is simple and exact.
+//
+// The last three start from coefficient-domain operands and run forward
+// chains, pointwise products and inverse chains in one launch, one block per
+// (prime, polynomial), with every evaluation-domain value on chip.  A block
+// cannot hold all of its polynomials in shared memory at once (64 KB each at
+// n = 2^14 against 227 KB), so each thread keeps the running products of the
+// coefficients it owns in registers (at most kFusedPer words per array)
+// while shared memory is reused for the next forward chain.  They do the
+// fewest transforms the function needs (7 for the tensor, R + 2 and R + 4 for
+// the key switches) and stay bound by the chains' shared-memory traffic and
+// barriers like the others; one block per SM is resident (192 KB of shared
+// memory, or the register arrays of 1024 threads).
 //
 // Every entry point launches on the given stream and returns
 // cudaGetLastError(); a refused launch never runs, so the caller raises.
@@ -173,9 +190,235 @@ __global__ void ext_ntt_kernel(const uint32_t* __restrict__ x,
   for (int i = threadIdx.x; i < n; i += blockDim.x) out[orow + i] = a[i];
 }
 
+// The coefficients thread t owns for the pointwise passes of the fused
+// kernels: i = t + j * blockDim.x for j < n / blockDim.x <= kFusedPer.  The
+// loops over j are fully unrolled so the per-thread arrays stay in registers.
+#define FHE_OWNED(j, i, n)                                          \
+  _Pragma("unroll") for (int j = 0; j < kFusedPer; ++j)             \
+    for (int i = threadIdx.x + j * blockDim.x; i < (n); i = (n))
+
+// Row (p, b) of an operand into shared memory; with a source basis (e.ls > 0)
+// the operand holds e.ls source rows and the unsigned HPS conversion to
+// destination prime p runs on the way in (as in K5).
+__device__ __forceinline__ void load_operand(uint32_t* dst,
+                                             const uint32_t* x, long long sl,
+                                             int p, int n,
+                                             const ExtTable& e) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    if (e.ls == 0) {
+      dst[i] = x[p * sl + i];
+    } else {
+      uint32_t ys[kMaxSrc];
+      const uint32_t alpha =
+          ext_lift(x + i, static_cast<size_t>(sl), e, false, ys);
+      dst[i] = ext_to(ys, alpha, p, e);
+    }
+  }
+}
+
+// K6: the degree-2 tensor of four coefficient-domain operands, one block per
+// (b, p): forward chains of x0, y0, y1 side by side in three shared-memory
+// buffers, x0*y0 and x0*y1 into registers, the forward chain of x1 in the
+// freed first buffer, then (x0*y0, x0*y1 + x1*y0, x1*y1) back into the three
+// buffers, their inverse chains side by side and the final multiply by
+// n^-1 * 2^32 * scale (the products are Montgomery products of plain
+// residues, a factor 2^-32 each).  Operand rows may be strided views (row
+// (p, b) at p * sl + b * sb), which is how the stacked form [L, B, 4, n] of
+// tensor_mul_u32 comes in.
+__global__ void __launch_bounds__(kFusedThreads)
+tensor_mul4_kernel(const uint32_t* __restrict__ x0,
+                   const uint32_t* __restrict__ x1,
+                   const uint32_t* __restrict__ y0,
+                   const uint32_t* __restrict__ y1, Strides st,
+                   uint32_t* __restrict__ out,
+                   const uint32_t* __restrict__ ext,
+                   const uint32_t* __restrict__ tw,
+                   const uint32_t* __restrict__ tw_sh,
+                   const uint32_t* __restrict__ twinv,
+                   const uint32_t* __restrict__ twinv_sh,
+                   const uint32_t* __restrict__ cons, int Ls, int Ld, int B,
+                   int logn) {
+  extern __shared__ uint32_t a[];
+  const int n = 1 << logn;
+  const int b = blockIdx.x;
+  const int p = blockIdx.y;
+  const PrimeRow c = prime_row(cons, p);
+  const ExtTable e{ext, Ls, Ld};
+  const uint32_t* w = tw + static_cast<size_t>(p) * n;
+  const uint32_t* wsh = tw_sh + static_cast<size_t>(p) * n;
+  uint32_t* s0 = a;
+  uint32_t* s1 = a + n;
+  uint32_t* s2 = a + 2 * n;
+  load_operand(s0, x0 + b * st.b[0], st.l[0], p, n, e);
+  load_operand(s1, y0 + b * st.b[2], st.l[2], p, n, e);
+  load_operand(s2, y1 + b * st.b[3], st.l[3], p, n, e);
+  __syncthreads();
+  forward_chain<3>(a, logn, w, wsh, c.q);
+  uint32_t p0[kFusedPer], p1[kFusedPer];
+  FHE_OWNED(j, i, n) {
+    const uint32_t v = s0[i];
+    p0[j] = mont_mul(v, s1[i], c.q, c.nq);
+    p1[j] = mont_mul(v, s2[i], c.q, c.nq);
+  }
+  __syncthreads();
+  load_operand(s0, x1 + b * st.b[1], st.l[1], p, n, e);
+  __syncthreads();
+  forward_chain(s0, logn, w, wsh, c.q);
+  FHE_OWNED(j, i, n) {
+    const uint32_t v = s0[i];
+    const uint32_t mid =
+        addmod(p1[j], mont_mul(v, s1[i], c.q, c.nq), c.q);
+    const uint32_t hi = mont_mul(v, s2[i], c.q, c.nq);
+    s0[i] = p0[j];
+    s1[i] = mid;
+    s2[i] = hi;
+  }
+  __syncthreads();
+  inverse_chain<3>(a, logn, twinv + static_cast<size_t>(p) * n,
+                   twinv_sh + static_cast<size_t>(p) * n, c.q);
+  const size_t orow = (static_cast<size_t>(p) * B + b) * 3 * n;
+  for (int i = threadIdx.x; i < 3 * n; i += blockDim.x) {
+    out[orow + i] = shoup_mul(a[i], c.fin, c.fin_sh, c.q);
+  }
+}
+
+// The gadget contraction shared by K7 and K8, for one (b, p): digit row r is
+// limb r of the ciphertext reduced mod this prime by `reps` conditional
+// subtractions (as the reference does; reps covers max(src) / min(primes)),
+// transformed forward in `work`, and multiplied into the two accumulators
+// against the key rows kb[r, p] and ka[r, p] (canonical eval-domain
+// residues, so each Montgomery product carries a factor 2^-32).  c points at
+// limb 0 of polynomial b; limb r starts r * sl words on.
+__device__ __forceinline__ void ks_accumulate(
+    const uint32_t* c, long long sl, const uint32_t* kb, const uint32_t* ka,
+    int R, int Lp, int p, int reps, uint32_t* work, int logn,
+    const uint32_t* w, const uint32_t* wsh, const PrimeRow& pr,
+    uint32_t (&acc0)[kFusedPer], uint32_t (&acc1)[kFusedPer]) {
+  const int n = 1 << logn;
+#pragma unroll
+  for (int j = 0; j < kFusedPer; ++j) acc0[j] = acc1[j] = 0;
+  for (int r = 0; r < R; ++r) {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      uint32_t v = c[r * sl + i];
+      for (int k = 0; k < reps; ++k) v = v >= pr.q ? v - pr.q : v;
+      work[i] = v;
+    }
+    __syncthreads();
+    forward_chain(work, logn, w, wsh, pr.q);
+    const size_t krow = (static_cast<size_t>(r) * Lp + p) * n;
+    FHE_OWNED(j, i, n) {
+      const uint32_t d = work[i];
+      acc0[j] = addmod(acc0[j], mont_mul(d, kb[krow + i], pr.q, pr.nq), pr.q);
+      acc1[j] = addmod(acc1[j], mont_mul(d, ka[krow + i], pr.q, pr.nq), pr.q);
+    }
+    __syncthreads();
+  }
+}
+
+// K7: gadget key switch from limb residues, one block per (b, p): the
+// contraction above, then for each key half the inverse chain and the final
+// multiply by n^-1 * 2^32.  Output [2, Lp, B, n].
+__global__ void __launch_bounds__(kFusedThreads)
+ks_fused_kernel(const uint32_t* __restrict__ c, long long sl, long long sb,
+                const uint32_t* __restrict__ kb,
+                const uint32_t* __restrict__ ka, uint32_t* __restrict__ out,
+                const uint32_t* __restrict__ tw,
+                const uint32_t* __restrict__ tw_sh,
+                const uint32_t* __restrict__ twinv,
+                const uint32_t* __restrict__ twinv_sh,
+                const uint32_t* __restrict__ cons, int R, int Lp, int B,
+                int logn, int reps) {
+  extern __shared__ uint32_t a[];
+  const int n = 1 << logn;
+  const int b = blockIdx.x;
+  const int p = blockIdx.y;
+  const PrimeRow pr = prime_row(cons, p);
+  uint32_t acc0[kFusedPer], acc1[kFusedPer];
+  ks_accumulate(c + b * sb, sl, kb, ka, R, Lp, p, reps, a, logn,
+                tw + static_cast<size_t>(p) * n,
+                tw_sh + static_cast<size_t>(p) * n, pr, acc0, acc1);
+  for (int h = 0; h < 2; ++h) {
+    FHE_OWNED(j, i, n) a[i] = h == 0 ? acc0[j] : acc1[j];
+    __syncthreads();
+    inverse_chain(a, logn, twinv + static_cast<size_t>(p) * n,
+                  twinv_sh + static_cast<size_t>(p) * n, pr.q);
+    const size_t orow = ((static_cast<size_t>(h) * Lp + p) * B + b) * n;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      out[orow + i] = shoup_mul(a[i], pr.fin, pr.fin_sh, pr.q);
+    }
+    __syncthreads();
+  }
+}
+
+// K8: gadget relinearization of an eval-resident ciphertext, one block per
+// (b, p): the contraction above; then for each half the forward chain of
+// the add operand (c0 or c1), e = acc * (2^32 mod q) + NTT(add) — the
+// re-lift undoes the Montgomery products' 2^-32 before the eval-domain add
+// — written out as the eval-domain result, and its inverse chain times the
+// plain n^-1 as the coefficient-domain result.  Output [4, Lp, B, n]:
+// (e0, e1, r0, r1).  `lift` holds 2^32 mod q as its final multiplier.
+__global__ void __launch_bounds__(kFusedThreads)
+ks_fused_eval_kernel(const uint32_t* __restrict__ c, long long sl,
+                     long long sb, const uint32_t* __restrict__ kb,
+                     const uint32_t* __restrict__ ka,
+                     const uint32_t* __restrict__ add0, long long al0,
+                     long long ab0, const uint32_t* __restrict__ add1,
+                     long long al1, long long ab1,
+                     uint32_t* __restrict__ out,
+                     const uint32_t* __restrict__ tw,
+                     const uint32_t* __restrict__ tw_sh,
+                     const uint32_t* __restrict__ twinv,
+                     const uint32_t* __restrict__ twinv_sh,
+                     const uint32_t* __restrict__ cons,
+                     const uint32_t* __restrict__ lift, int R, int Lp, int B,
+                     int logn, int reps) {
+  extern __shared__ uint32_t a[];
+  const int n = 1 << logn;
+  const int b = blockIdx.x;
+  const int p = blockIdx.y;
+  const PrimeRow pr = prime_row(cons, p);
+  const PrimeRow rl = prime_row(lift, p);
+  const uint32_t* w = tw + static_cast<size_t>(p) * n;
+  const uint32_t* wsh = tw_sh + static_cast<size_t>(p) * n;
+  uint32_t acc0[kFusedPer], acc1[kFusedPer];
+  ks_accumulate(c + b * sb, sl, kb, ka, R, Lp, p, reps, a, logn, w, wsh, pr,
+                acc0, acc1);
+  const size_t plane = static_cast<size_t>(Lp) * B * n;
+  const size_t row = (static_cast<size_t>(p) * B + b) * n;
+  for (int h = 0; h < 2; ++h) {
+    const uint32_t* add = h == 0 ? add0 + p * al0 + b * ab0
+                                 : add1 + p * al1 + b * ab1;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) a[i] = add[i];
+    __syncthreads();
+    forward_chain(a, logn, w, wsh, pr.q);
+    FHE_OWNED(j, i, n) {
+      const uint32_t acc = h == 0 ? acc0[j] : acc1[j];
+      const uint32_t ev =
+          addmod(shoup_mul(acc, rl.fin, rl.fin_sh, pr.q), a[i], pr.q);
+      out[h * plane + row + i] = ev;
+      a[i] = ev;
+    }
+    __syncthreads();
+    inverse_chain(a, logn, twinv + static_cast<size_t>(p) * n,
+                  twinv_sh + static_cast<size_t>(p) * n, pr.q);
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      out[(2 + h) * plane + row + i] =
+          shoup_mul(a[i], pr.fin, pr.fin_sh, pr.q);
+    }
+    __syncthreads();
+  }
+}
+
+#undef FHE_OWNED
+
 int chain_threads(int logn) {
   const int half = 1 << (logn - 1);
   return half < kChainThreads ? half : kChainThreads;
+}
+
+int fused_threads(int logn) {
+  const int half = 1 << (logn - 1);
+  return half < kFusedThreads ? half : kFusedThreads;
 }
 
 bool bad_logn(int logn) { return logn < kMinLogN || logn > kMaxLogN; }
@@ -244,5 +487,66 @@ extern "C" int fhe_ext_ntt(const uint32_t* x, uint32_t* out,
   if (err != cudaSuccess) return static_cast<int>(err);
   ext_ntt_kernel<<<dim3(B, Ld), chain_threads(logn), smem, stream>>>(
       x, out, ext, tw, tw_sh, Ls, Ld, B, logn);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int fhe_tensor_mul4(const uint32_t* x0, const uint32_t* x1,
+                               const uint32_t* y0, const uint32_t* y1,
+                               long long sl0, long long sb0, long long sl1,
+                               long long sb1, long long sl2, long long sb2,
+                               long long sl3, long long sb3, uint32_t* out,
+                               const uint32_t* ext, const uint32_t* tw,
+                               const uint32_t* tw_sh, const uint32_t* twinv,
+                               const uint32_t* twinv_sh, const uint32_t* cons,
+                               int Ls, int Ld, int B, int logn,
+                               cudaStream_t stream) {
+  if (bad_logn(logn) || Ls < 0 || Ls > kMaxSrc) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = 3 * sizeof(uint32_t) << logn;
+  cudaError_t err = allow_smem(tensor_mul4_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Strides st{{sl0, sl1, sl2, sl3}, {sb0, sb1, sb2, sb3}};
+  tensor_mul4_kernel<<<dim3(B, Ld), fused_threads(logn), smem, stream>>>(
+      x0, x1, y0, y1, st, out, ext, tw, tw_sh, twinv, twinv_sh, cons, Ls, Ld,
+      B, logn);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int fhe_ks_fused(const uint32_t* c, long long sl, long long sb,
+                            const uint32_t* kb, const uint32_t* ka,
+                            uint32_t* out, const uint32_t* tw,
+                            const uint32_t* tw_sh, const uint32_t* twinv,
+                            const uint32_t* twinv_sh, const uint32_t* cons,
+                            int R, int Lp, int B, int logn, int reps,
+                            cudaStream_t stream) {
+  if (bad_logn(logn) || R < 1 || reps < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = sizeof(uint32_t) << logn;
+  cudaError_t err = allow_smem(ks_fused_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ks_fused_kernel<<<dim3(B, Lp), fused_threads(logn), smem, stream>>>(
+      c, sl, sb, kb, ka, out, tw, tw_sh, twinv, twinv_sh, cons, R, Lp, B,
+      logn, reps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int fhe_ks_fused_eval(
+    const uint32_t* c, long long sl, long long sb, const uint32_t* kb,
+    const uint32_t* ka, const uint32_t* add0, long long al0, long long ab0,
+    const uint32_t* add1, long long al1, long long ab1, uint32_t* out,
+    const uint32_t* tw, const uint32_t* tw_sh, const uint32_t* twinv,
+    const uint32_t* twinv_sh, const uint32_t* cons, const uint32_t* lift,
+    int R, int Lp, int B, int logn, int reps, cudaStream_t stream) {
+  if (bad_logn(logn) || R < 1 || reps < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = sizeof(uint32_t) << logn;
+  cudaError_t err = allow_smem(ks_fused_eval_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ks_fused_eval_kernel<<<dim3(B, Lp), fused_threads(logn), smem, stream>>>(
+      c, sl, sb, kb, ka, add0, al0, ab0, add1, al1, ab1, out, tw, tw_sh,
+      twinv, twinv_sh, cons, lift, R, Lp, B, logn, reps);
   return static_cast<int>(cudaGetLastError());
 }

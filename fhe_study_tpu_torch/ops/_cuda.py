@@ -148,7 +148,26 @@ BASE_EXTEND = Kernel("base_extend", "fhe_base_extend", _EXT_CU,
 EXT_NTT = Kernel("ext_ntt", "fhe_ext_ntt", _NTT_CU,
                  "fhe_study_tpu/ops/ntt_pallas.py:905",
                  PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT)
-KERNELS = (NTT_MULTI, TENSOR_EVAL4, KS_CONTRACT, BASE_EXTEND, EXT_NTT)
+_TENSOR_MUL4_ARGS = (PTR, PTR, PTR, PTR, *([I64] * 8), PTR, PTR, PTR, PTR, PTR,
+                     PTR, PTR, INT, INT, INT, INT)
+TENSOR_MUL4 = Kernel("tensor_mul4", "fhe_tensor_mul4", _NTT_CU,
+                     "fhe_study_tpu/ops/ntt_pallas.py:677",
+                     *_TENSOR_MUL4_ARGS)
+# the stacked-operand form: the same __global__ function, fed row strides
+TENSOR_MUL = Kernel("tensor_mul", "fhe_tensor_mul4", _NTT_CU,
+                    "fhe_study_tpu/ops/ntt_pallas.py:604",
+                    *_TENSOR_MUL4_ARGS)
+KS_FUSED = Kernel("ks_fused", "fhe_ks_fused", _NTT_CU,
+                  "fhe_study_tpu/ops/ntt_pallas.py:1103",
+                  PTR, I64, I64, PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR,
+                  INT, INT, INT, INT, INT)
+KS_FUSED_EVAL = Kernel("ks_fused_eval", "fhe_ks_fused_eval", _NTT_CU,
+                       "fhe_study_tpu/ops/ntt_pallas.py:1216",
+                       PTR, I64, I64, PTR, PTR, PTR, I64, I64, PTR, I64, I64,
+                       PTR, PTR, PTR, PTR, PTR, PTR, PTR,
+                       INT, INT, INT, INT, INT)
+KERNELS = (NTT_MULTI, TENSOR_EVAL4, KS_CONTRACT, BASE_EXTEND, EXT_NTT,
+           TENSOR_MUL4, TENSOR_MUL, KS_FUSED, KS_FUSED_EVAL)
 
 
 def reset_launches() -> None:

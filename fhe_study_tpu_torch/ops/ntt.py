@@ -8,7 +8,7 @@ every intermediate value — matches the JAX package bit for bit.
 Residue tensors are int32 [L, ..., n], row i modulo qs[i].  Each transform
 dispatches by the device of its inputs (ops/_cuda.on_cuda): CUDA tensors
 launch the kernels of ops/ntt_cuda.py, CPU tensors run their plain PyTorch
-versions there.
+versions there.  Names and return contracts are the reference's.
 """
 
 from functools import lru_cache
@@ -106,6 +106,30 @@ def tensor_eval4(x0, x1, y0, y1, dst: tuple, scale: tuple | None = None):
     return fn(x0, x1, y0, y1, dst, scale=scale)
 
 
+def tensor_mul4(x0, x1, y0, y1, dst: tuple, scale: tuple | None = None,
+                src: tuple | None = None):
+    """Degree-2 tensor of four separate COEFFICIENT-domain operands:
+    returns [Ld, ..., 3, n] coefficient-domain
+    scale * (x0y0, x0y1 + x1y0, x1y1).  Without ``src`` the operands are
+    [Ld, ..., n] residues mod dst; with it they are [Ls, ..., n] over ``src``
+    and the unsigned HPS extension src -> dst runs first (inside the kernel
+    on the card)."""
+    fn = (ntt_cuda.tensor_mul4_kernel if _cuda.on_cuda(x0, x1, y0, y1)
+          else ntt_cuda.tensor_mul4_plain)
+    return fn(x0, x1, y0, y1, dst, scale=scale, src=src)
+
+
+def tensor_mul_multi(x4, qs: tuple, scale: tuple | None = None):
+    """tensor_mul4 on one stacked operand x4 [L, ..., 4, n] holding
+    (x0, x1, y0, y1); returns [L, ..., 3, n]."""
+    if x4.shape[-2] != 4 or x4.shape[0] != len(qs):
+        raise ValueError(f"x4 has shape {tuple(x4.shape)} for {len(qs)} "
+                         "primes; need [L, ..., 4, n]")
+    fn = (ntt_cuda.tensor_mul_kernel if _cuda.on_cuda(x4)
+          else ntt_cuda.tensor_mul_plain)
+    return fn(x4, qs, scale=scale)
+
+
 def ext_ntt(x, src: tuple, dst: tuple):
     """x [Ls, ..., P, n] coefficient residues over src -> [Ld, ..., P, n]
     canonical eval residues over dst: unsigned HPS extension fused with the
@@ -122,3 +146,23 @@ def ks_contract_multi(edm, kb, ka, primes: tuple):
     fn = (ntt_cuda.ks_contract_kernel if _cuda.on_cuda(edm, kb, ka)
           else ntt_cuda.ks_contract_plain)
     return fn(edm, kb, ka, primes)
+
+
+def ks_fused_multi(c_limbs, kb, ka, primes: tuple, src_primes: tuple):
+    """Gadget key switch from limb residues: c_limbs [R, ..., n] (row i below
+    src_primes[i]), kb/ka [R, Lp, n] eval-domain key rows.  Returns (r0, r1),
+    each [Lp, ..., n] coefficient domain:
+    r = INTT(sum_i NTT([c_i] mod p_j) * k_ij)."""
+    fn = (ntt_cuda.ks_fused_kernel if _cuda.on_cuda(c_limbs, kb, ka)
+          else ntt_cuda.ks_fused_plain)
+    return fn(c_limbs, kb, ka, primes, src_primes)
+
+
+def ks_fused_eval(c_limbs, kb, ka, primes: tuple, src_primes: tuple, adds):
+    """Eval-resident gadget key switch: as ks_fused_multi, plus adds =
+    (c0, c1) coefficient-domain [Lp, ..., n].  Returns (e0, e1, r0, r1):
+    e = NTT(c) + sum_i NTT(d_i) * k_i (eval domain), r = INTT(e)."""
+    fn = (ntt_cuda.ks_fused_eval_kernel
+          if _cuda.on_cuda(c_limbs, kb, ka, *adds)
+          else ntt_cuda.ks_fused_eval_plain)
+    return fn(c_limbs, kb, ka, primes, src_primes, adds)

@@ -6,6 +6,10 @@ fhe_study_tpu/ops/ntt_pallas.py.
   K2 tensor_eval4  <- ntt_pallas.tensor_eval4_u32
   K3 ks_contract   <- ntt_pallas.ks_contract_u32
   K5 ext_ntt       <- ntt_pallas.ext_ntt_u32
+  K6 tensor_mul4   <- ntt_pallas.tensor_mul4_u32
+     tensor_mul    <- ntt_pallas.tensor_mul_u32 (K6's kernel on row strides)
+  K7 ks_fused      <- ntt_pallas.ks_fused_u32
+  K8 ks_fused_eval <- ntt_pallas.ks_fused_eval_u32
 
 Host tables per prime set: the [L, n] bit-reversed roots (forward) or
 inverse roots with their Shoup companions floor(w * 2^32 / q), and one row of
@@ -157,6 +161,54 @@ def ext_ntt_plain(x, src: tuple, dst: tuple):
     return ntt_multi_plain(ext_cuda.base_extend_fused_plain(x, src, dst), dst)
 
 
+def tensor_mul4_plain(x0, x1, y0, y1, dst: tuple, scale=None, src=None):
+    four = torch.stack([x0, x1, y0, y1], dim=-2)
+    if src is not None:
+        four = ext_cuda.base_extend_fused_plain(four, src, dst)
+    e = ntt_multi_plain(four, dst)
+    return tensor_eval4_plain(*(e[..., i, :] for i in range(4)), dst,
+                              scale=scale)
+
+
+def tensor_mul_plain(x4, qs: tuple, scale=None):
+    return tensor_mul4_plain(*(x4[..., i, :] for i in range(4)), qs,
+                             scale=scale)
+
+
+def digit_reps(primes: tuple, src_primes: tuple) -> int:
+    """Conditional subtractions that bring a limb residue below any prime
+    of ``primes`` (the reference's count)."""
+    return (max(src_primes) - 1) // min(primes) + 1
+
+
+def _ks_acc_plain(c_limbs, kb, ka, primes: tuple, src_primes: tuple):
+    """sum_r NTT([c_r] mod p_j) * k[r, j] for both key halves, int64
+    eval-domain [Lp, batch.., n]."""
+    R, Lp = c_limbs.shape[0], len(primes)
+    qv = qvec(primes, c_limbs.ndim, c_limbs.device)         # [Lp, 1.., 1]
+    d = c_limbs.long()[:, None].expand((R, Lp) + tuple(c_limbs.shape[1:]))
+    for _ in range(digit_reps(primes, src_primes)):
+        d = torch.where(d >= qv[None], d - qv[None], d)
+    ed = ntt_multi_plain(d.transpose(0, 1), primes).transpose(0, 1).long()
+    return tuple((ed * _key_mid(k, ed.ndim).long() % qv[None]).sum(0) % qv
+                 for k in (kb, ka))
+
+
+def ks_fused_plain(c_limbs, kb, ka, primes: tuple, src_primes: tuple):
+    return tuple(ntt_multi_plain(acc, primes, inverse=True) for acc in
+                 _ks_acc_plain(c_limbs, kb, ka, primes, src_primes))
+
+
+def ks_fused_eval_plain(c_limbs, kb, ka, primes: tuple, src_primes: tuple,
+                        adds):
+    qv = qvec(primes, c_limbs.ndim, c_limbs.device)
+    es = [((acc + ntt_multi_plain(add, primes).long()) % qv).int()
+          for acc, add in zip(_ks_acc_plain(c_limbs, kb, ka, primes,
+                                            src_primes), adds)]
+    return (es[0], es[1], ntt_multi_plain(es[0], primes, inverse=True),
+            ntt_multi_plain(es[1], primes, inverse=True))
+
+
 # -- kernel wrappers --------------------------------------------------------
 
 def ntt_multi_kernel(x, qs: tuple, inverse: bool = False, fin=None):
@@ -182,19 +234,34 @@ def ntt_multi_kernel(x, qs: tuple, inverse: bool = False, fin=None):
     return out
 
 
+def _row_views(names, tensors, rows: int, device) -> list:
+    """Operands [rows, B.., n] of one shape, possibly strided views with a
+    contiguous last axis, each as a [rows, B, n] view (no copy)."""
+    shape = tensors[0].shape
+    views = []
+    for name, v in zip(names, tensors):
+        _cuda.check(v, name, device, rows=True)
+        if v.shape != shape or v.shape[0] != rows:
+            raise ValueError(f"{name} has shape {tuple(v.shape)}; need "
+                             f"{tuple(shape)} with {rows} rows")
+        views.append(v.view(rows, -1, shape[-1]))
+    return views
+
+
+_OPERANDS = ("x0", "x1", "y0", "y1")
+
+
+def _row_strides(views) -> list:
+    return [s for v in views for s in (v.stride(0), v.stride(1))]
+
+
 def tensor_eval4_kernel(x0, x1, y0, y1, dst: tuple, scale=None):
     """K2: one block per (prime, polynomial, product).  Operands may be
     strided views ([Ld, B.., n] with a contiguous last axis)."""
     dev = x0.device
     Ld, n = len(dst), x0.shape[-1]
     logn = _cuda.log2_degree(n)
-    views = []
-    for name, v in zip(("x0", "x1", "y0", "y1"), (x0, x1, y0, y1)):
-        _cuda.check(v, name, dev, rows=True)
-        if v.shape != x0.shape or v.shape[0] != Ld:
-            raise ValueError(f"{name} has shape {tuple(v.shape)}; need "
-                             f"{tuple(x0.shape)} with {Ld} rows")
-        views.append(v.view(Ld, -1, n))
+    views = _row_views(_OPERANDS, (x0, x1, y0, y1), Ld, dev)
     B = views[0].shape[1]
     out = torch.empty((Ld,) + tuple(x0.shape[1:-1]) + (3, n),
                       dtype=torch.int32, device=dev)
@@ -203,8 +270,8 @@ def tensor_eval4_kernel(x0, x1, y0, y1, dst: tuple, scale=None):
     dst = tuple(dst)
     tw = _twiddles(dst, n, True, dev)
     cons = _prime_rows(dst, _tensor_fin(dst, n, scale), dev)
-    strides = [s for v in views for s in (v.stride(0), v.stride(1))]
-    _cuda.TENSOR_EVAL4.launch(dev, *(v.data_ptr() for v in views), *strides,
+    _cuda.TENSOR_EVAL4.launch(dev, *(v.data_ptr() for v in views),
+                              *_row_strides(views),
                               out.data_ptr(), tw[0].data_ptr(),
                               tw[1].data_ptr(), cons.data_ptr(), Ld, B, logn)
     return out
@@ -258,3 +325,112 @@ def ext_ntt_kernel(x, src: tuple, dst: tuple):
                          tw[0].data_ptr(), tw[1].data_ptr(), Ls, Ld, B, logn)
     return out
 
+
+def _tensor_mul4_launch(kernel, x0, x1, y0, y1, dst: tuple, scale, src):
+    dev = x0.device
+    dst = tuple(dst)
+    Ld, n = len(dst), x0.shape[-1]
+    logn = _cuda.log2_degree(n)
+    if src is not None:
+        src = tuple(src)
+        ext_cuda._check_src(src)
+    views = _row_views(_OPERANDS, (x0, x1, y0, y1),
+                       Ld if src is None else len(src), dev)
+    B = views[0].shape[1]
+    out = torch.empty((Ld,) + tuple(x0.shape[1:-1]) + (3, n),
+                      dtype=torch.int32, device=dev)
+    if B == 0:
+        return out
+    tab = None if src is None else ext_cuda.kernel_table(src, dst, None, dev)
+    tw, twinv = _twiddles(dst, n, False, dev), _twiddles(dst, n, True, dev)
+    cons = _prime_rows(dst, _tensor_fin(dst, n, scale), dev)
+    kernel.launch(dev, *(v.data_ptr() for v in views), *_row_strides(views),
+                  out.data_ptr(), None if tab is None else tab.data_ptr(),
+                  tw[0].data_ptr(), tw[1].data_ptr(), twinv[0].data_ptr(),
+                  twinv[1].data_ptr(), cons.data_ptr(),
+                  0 if src is None else len(src), Ld, B, logn)
+    return out
+
+
+def tensor_mul4_kernel(x0, x1, y0, y1, dst: tuple, scale=None, src=None):
+    """K6: one block per (dst prime, polynomial).  Operands [Ld, B.., n], or
+    [Ls, B.., n] over ``src`` with the extension src -> dst run in the
+    kernel; they may be strided views."""
+    return _tensor_mul4_launch(_cuda.TENSOR_MUL4, x0, x1, y0, y1, dst, scale,
+                               src)
+
+
+def tensor_mul_kernel(x4, qs: tuple, scale=None):
+    """The stacked form [L, B.., 4, n]: K6's kernel on the four row views."""
+    if x4.ndim < 3 or x4.shape[-2] != 4:
+        raise ValueError(f"x4 has shape {tuple(x4.shape)}; need [L, .., 4, n]")
+    return _tensor_mul4_launch(_cuda.TENSOR_MUL,
+                               *(x4[..., i, :] for i in range(4)), qs, scale,
+                               None)
+
+
+def _ks_operands(c_limbs, kb, ka, primes: tuple):
+    """Checks shared by K7 and K8; returns the [R, B, n] view of c_limbs."""
+    dev = c_limbs.device
+    R, n = c_limbs.shape[0], c_limbs.shape[-1]
+    (c,) = _row_views(("c_limbs",), (c_limbs,), R, dev)
+    for name, k in (("kb", kb), ("ka", ka)):
+        _cuda.check(k, name, dev)
+        if tuple(k.shape) != (R, len(primes), n):
+            raise ValueError(f"{name} has shape {tuple(k.shape)}, expected "
+                             f"{(R, len(primes), n)}")
+    return c
+
+
+def ks_fused_kernel(c_limbs, kb, ka, primes: tuple, src_primes: tuple):
+    """K7: one block per (prime, polynomial).  c_limbs [R, B.., n] may be a
+    strided view; kb/ka [R, Lp, n]."""
+    dev = c_limbs.device
+    primes = tuple(primes)
+    Lp, n = len(primes), c_limbs.shape[-1]
+    logn = _cuda.log2_degree(n)
+    c = _ks_operands(c_limbs, kb, ka, primes)
+    R, B = c.shape[0], c.shape[1]
+    out = torch.empty((2, Lp) + tuple(c_limbs.shape[1:]), dtype=torch.int32,
+                      device=dev)
+    if B > 0:
+        tw, twinv = (_twiddles(primes, n, inv, dev) for inv in (False, True))
+        cons = _prime_rows(primes, _tensor_fin(primes, n, None), dev)
+        _cuda.KS_FUSED.launch(dev, c.data_ptr(), c.stride(0), c.stride(1),
+                              kb.data_ptr(), ka.data_ptr(), out.data_ptr(),
+                              tw[0].data_ptr(), tw[1].data_ptr(),
+                              twinv[0].data_ptr(), twinv[1].data_ptr(),
+                              cons.data_ptr(), R, Lp, B, logn,
+                              digit_reps(primes, src_primes))
+    return out[0], out[1]
+
+
+def ks_fused_eval_kernel(c_limbs, kb, ka, primes: tuple, src_primes: tuple,
+                         adds):
+    """K8: one block per (prime, polynomial).  c_limbs [R, B.., n] and the
+    two ``adds`` [Lp, B.., n] may be strided views.  Returns (e0, e1, r0, r1),
+    each [Lp, B.., n]."""
+    dev = c_limbs.device
+    primes = tuple(primes)
+    Lp, n = len(primes), c_limbs.shape[-1]
+    logn = _cuda.log2_degree(n)
+    c = _ks_operands(c_limbs, kb, ka, primes)
+    R, B = c.shape[0], c.shape[1]
+    a0, a1 = _row_views(("adds[0]", "adds[1]"), adds, Lp, dev)
+    if tuple(adds[0].shape[1:]) != tuple(c_limbs.shape[1:]):
+        raise ValueError(f"adds have shape {tuple(adds[0].shape)} against "
+                         f"c_limbs {tuple(c_limbs.shape)}")
+    out = torch.empty((4, Lp) + tuple(c_limbs.shape[1:]), dtype=torch.int32,
+                      device=dev)
+    if B > 0:
+        tw, twinv = (_twiddles(primes, n, inv, dev) for inv in (False, True))
+        cons = _prime_rows(primes, _default_fin(primes, n, True, None), dev)
+        lift = _prime_rows(primes, tuple(R32 % q for q in primes), dev)
+        _cuda.KS_FUSED_EVAL.launch(
+            dev, c.data_ptr(), c.stride(0), c.stride(1), kb.data_ptr(),
+            ka.data_ptr(), a0.data_ptr(), a0.stride(0), a0.stride(1),
+            a1.data_ptr(), a1.stride(0), a1.stride(1), out.data_ptr(),
+            tw[0].data_ptr(), tw[1].data_ptr(), twinv[0].data_ptr(),
+            twinv[1].data_ptr(), cons.data_ptr(), lift.data_ptr(), R, Lp, B,
+            logn, digit_reps(primes, src_primes))
+    return out[0], out[1], out[2], out[3]

@@ -1,7 +1,7 @@
 """Carry the JAX package's RNS-BFV state into the port and back.
 
-The JAX package's ``SecretKey``, ``PublicKey``, ``HRLK``, ``CT`` and ``CTE``
-hold u32 or u64 residue arrays.  ``to_port`` turns one of them, given as any
+The JAX package's ``SecretKey``, ``PublicKey``, ``RLK``, ``HRLK``, ``CT`` and
+``CTE`` hold u32 or u64 residue arrays.  ``to_port`` turns one of them, given as any
 NamedTuple of array-likes of the same name (``numpy.asarray`` reads a jax
 array without this module importing jax), into the port's NamedTuple of int32
 tensors on a given device; ``to_numpy`` turns a port tensor or NamedTuple
@@ -15,7 +15,8 @@ import torch
 from ..models import bfv_rns
 
 KINDS = {k.__name__: k for k in (bfv_rns.SecretKey, bfv_rns.PublicKey,
-                                 bfv_rns.HRLK, bfv_rns.CT, bfv_rns.CTE)}
+                                 bfv_rns.RLK, bfv_rns.HRLK, bfv_rns.CT,
+                                 bfv_rns.CTE)}
 
 
 def to_tensor(a, device) -> torch.Tensor:
@@ -31,7 +32,7 @@ def to_tensor(a, device) -> torch.Tensor:
 
 
 def to_port(obj, device):
-    """A reference SecretKey/PublicKey/HRLK/CT/CTE -> the port's."""
+    """A reference SecretKey/PublicKey/RLK/HRLK/CT/CTE -> the port's."""
     kind = KINDS.get(type(obj).__name__)
     if kind is None or len(obj) != len(kind._fields):
         raise TypeError(f"cannot carry {type(obj).__name__} across; "

@@ -1,11 +1,19 @@
 """Each CUDA kernel against its plain PyTorch version, at main-path shapes.
 
 ``cases`` builds, on one device and from one seeded generator, the inputs
-that ``bfv_rns.mul_e``'s path hands each kernel wrapper (K1 ``ntt_multi``,
-K2 ``tensor_eval4``, K3 ``ks_contract``, K4 ``base_extend``, K5 ``ext_ntt``)
+that the paths of ``models/bfv_rns.py`` (``mul_e`` with either relin key,
+``mul``, ``key_switch``) hand each kernel wrapper of ``ops/_cuda.KERNELS``
 for a parameter set and a batch, and pairs a call of the wrapper with a call
-of its plain version on the same tensors.  ``chip_smoke.py`` and the
+of its plain version on the same tensors; ``linear_cases`` does the same
+for the linear pipeline (``to_evals``, ``pt_to_evals``, ``from_evals``) at
+its own parameter set.  ``chip_smoke.py`` and the
 card-marked tests run them on the card and require equal outputs.
+
+Each case also carries the least work its function needs on these inputs,
+for a lower bound on its time: ``bytes`` moved through device memory (every
+input and table read once, every output written once) and ``ops``, 32-bit
+integer operations, from the primitives of ``csrc/modarith.cuh`` counted
+by hand (the *_OPS constants) and the fewest transforms the function can do.
 """
 
 import math
@@ -19,11 +27,44 @@ from ..ops import ntt_cuda as nc
 from . import prng
 
 
+BUTTERFLY_OPS = 11      # one Shoup product, one addmod, one submod
+MONT_OPS = 9            # 3 multiplies (one wide), carry add, correction
+SHOUP_OPS = 5           # mul.hi, 2 mul.lo, subtract, correction
+ADD_OPS = 3             # addmod or submod
+WIDE_MAC_OPS = 4        # 32 x 64-bit multiply-add of the fixed-point alpha
+
+
 class Case(NamedTuple):
     name: str                   # the kernel, as in ops/_cuda.KERNELS
     label: str                  # the variant and its shapes
     kernel: Callable[[], object]
     plain: Callable[[], object]
+    bytes: int                  # least device-memory traffic
+    ops: int                    # least integer operations
+
+
+def _ntt_ops(n: int, transforms: int) -> int:
+    return transforms * (n // 2) * (n.bit_length() - 1) * BUTTERFLY_OPS
+
+
+def _ext_ops(coeffs: int, ls: int, ld: int, epilogue: bool = False) -> int:
+    """HPS conversion of ``coeffs`` coefficients from ls to ld primes."""
+    per = (ls * (SHOUP_OPS + WIDE_MAC_OPS)
+           + ld * (ls * (SHOUP_OPS + ADD_OPS) + SHOUP_OPS + ADD_OPS)
+           + (ld * (ADD_OPS + SHOUP_OPS) if epilogue else 0))
+    return coeffs * per
+
+
+def _ks_ops(n: int, polys: int, R: int, Lp: int, reps: int,
+            fused_eval: bool) -> int:
+    """Gadget key switch of ``polys`` ciphertexts from limb residues."""
+    rows = polys * Lp
+    ops = (_ntt_ops(n, rows * (R + 2))
+           + rows * n * (R * 2 * reps + 2 * R * (MONT_OPS + ADD_OPS)
+                         + 2 * SHOUP_OPS))
+    if fused_eval:
+        ops += _ntt_ops(n, rows * 2) + rows * n * 2 * (SHOUP_OPS + ADD_OPS)
+    return ops
 
 
 def _flat(out) -> tuple:
@@ -67,37 +108,123 @@ def cases(param, batch: int, device, gen: torch.Generator) -> list:
     acc = res(both, (batch, n))
     qinv = tuple(pow(math.prod(qs), -1, p) for p in ps)
     pinv = tuple(pow(math.prod(ks), -1, q) for q in qs)
+    ct = [res(qs, (batch, n)) for _ in range(4)]     # two CTs' components
+    x4 = res(qs, (batch, 4, n))
+    out3 = res(qs, (batch, 3, n))                    # _scale_to_q's output
+    gb, ga = (torch.stack([res(qs, (n,)) for _ in range(L)])
+              for _ in range(2))                     # gadget key [L, L, n]
+    reps = nc.digit_reps(qs, qs)
     shape = f"B={batch} n={n}"
+    M, K, LK = len(ps), len(ks), len(both)
+    rows = batch * n                      # coefficients of one [B, n] limb
+    tw = 2 * n                            # root table + companions, a prime
 
-    def pair(name, label, kern, plain, *args, **kw):
-        return Case(name, f"{label} {shape}",
-                    lambda: kern(*args, **kw), lambda: plain(*args, **kw))
+    def pair(name, label, words, ops, kern, plain, *args, **kw):
+        return Case(name, f"{label} {shape}", lambda: kern(*args, **kw),
+                    lambda: plain(*args, **kw), 4 * words, ops)
+
+    def tensor_work(ld, ls=None):
+        """K6 / tensor_mul: words moved and operations for ld primes."""
+        src_rows = ld if ls is None else ls
+        words = 4 * src_rows * rows + 3 * ld * rows + 2 * tw * ld
+        ops = (_ntt_ops(n, 7 * ld * batch)
+               + ld * rows * (4 * MONT_OPS + ADD_OPS + 3 * SHOUP_OPS)
+               + (0 if ls is None else _ext_ops(4 * rows, ls, ld)))
+        return words, ops
 
     return [
-        pair("ntt_multi", "forward Q", nc.ntt_multi_kernel,
+        pair("ntt_multi", "forward Q", 2 * 2 * L * rows + tw * L,
+             _ntt_ops(n, 2 * L * batch), nc.ntt_multi_kernel,
              nc.ntt_multi_plain, x2q, qs),
-        pair("ntt_multi", "inverse Q with fin=t/n", nc.ntt_multi_kernel,
-             nc.ntt_multi_plain, x2q, qs, inverse=True, fin=ninv_t),
-        pair("ntt_multi", "forward QK Montgomery", nc.ntt_multi_kernel,
-             nc.ntt_multi_plain, digits, both, fin=mont),
-        pair("tensor_eval4", "Q strided views", nc.tensor_eval4_kernel,
-             nc.tensor_eval4_plain, eq[0][..., 0, :], eq[0][..., 1, :],
-             eq[1][..., 0, :], eq[1][..., 1, :], qs, scale=t_q),
-        pair("tensor_eval4", "P strided views", nc.tensor_eval4_kernel,
-             nc.tensor_eval4_plain, ep[0][..., 0, :], ep[0][..., 1, :],
-             ep[1][..., 0, :], ep[1][..., 1, :], ps, scale=t_p),
-        pair("ks_contract", "R=1 over QK", nc.ks_contract_kernel,
-             nc.ks_contract_plain, edm, kb, ka, both),
-        pair("base_extend", "Q->K unsigned", ext.base_extend_fused_kernel,
+        pair("ntt_multi", "inverse Q with fin=t/n",
+             2 * 2 * L * rows + tw * L,
+             _ntt_ops(n, 2 * L * batch) + 2 * L * rows * SHOUP_OPS,
+             nc.ntt_multi_kernel, nc.ntt_multi_plain, x2q, qs, inverse=True,
+             fin=ninv_t),
+        pair("ntt_multi", "forward QK Montgomery", 2 * LK * rows + tw * LK,
+             _ntt_ops(n, LK * batch) + LK * rows * SHOUP_OPS,
+             nc.ntt_multi_kernel, nc.ntt_multi_plain, digits, both,
+             fin=mont),
+        *(pair("tensor_eval4", f"{tag} strided views",
+               7 * ld * rows + tw * ld,
+               _ntt_ops(n, 3 * ld * batch)
+               + ld * rows * (4 * MONT_OPS + ADD_OPS + 3 * SHOUP_OPS),
+               nc.tensor_eval4_kernel, nc.tensor_eval4_plain,
+               e[0][..., 0, :], e[0][..., 1, :], e[1][..., 0, :],
+               e[1][..., 1, :], primes, scale=sc)
+          for tag, ld, e, primes, sc in (("Q", L, eq, qs, t_q),
+                                         ("P", M, ep, ps, t_p))),
+        pair("ks_contract", "R=1 over QK", 3 * LK * rows + 2 * LK * n + tw * LK,
+             _ntt_ops(n, 2 * LK * batch)
+             + LK * rows * 2 * (MONT_OPS + SHOUP_OPS),
+             nc.ks_contract_kernel, nc.ks_contract_plain, edm, kb, ka, both),
+        pair("base_extend", "Q->K unsigned", (L + K) * rows,
+             _ext_ops(rows, L, K), ext.base_extend_fused_kernel,
              ext.base_extend_fused_plain, c2, qs, ks),
-        pair("base_extend", "Q->P (w - ext)*Q^-1",
-             ext.base_extend_fused_kernel, ext.base_extend_fused_plain,
-             w_q, qs, ps, w=w_p, sub_mul=qinv),
-        pair("base_extend", "P->Q centered", ext.base_extend_fused_kernel,
+        pair("base_extend", "Q->P (w - ext)*Q^-1", 3 * (L + 2 * M) * rows,
+             _ext_ops(3 * rows, L, M, True), ext.base_extend_fused_kernel,
+             ext.base_extend_fused_plain, w_q, qs, ps, w=w_p, sub_mul=qinv),
+        pair("base_extend", "P->Q centered", 3 * (M + L) * rows,
+             _ext_ops(3 * rows, M, L), ext.base_extend_fused_kernel,
              ext.base_extend_fused_plain, r_p, ps, qs, centered=True),
         pair("base_extend", "K->Q centered (w - ext)*P^-1",
+             (K + 2 * L) * rows, _ext_ops(rows, K, L, True),
              ext.base_extend_fused_kernel, ext.base_extend_fused_plain,
              acc[L:], ks, qs, centered=True, w=acc[:L], sub_mul=pinv),
-        pair("ext_ntt", "Q->P", nc.ext_ntt_kernel, nc.ext_ntt_plain,
-             x2q, qs, ps),
+        pair("ext_ntt", "Q->P", 2 * (L + M) * rows + tw * M,
+             _ext_ops(2 * rows, L, M) + _ntt_ops(n, 2 * M * batch),
+             nc.ext_ntt_kernel, nc.ext_ntt_plain, x2q, qs, ps),
+        pair("tensor_mul4", "Q basis", *tensor_work(L),
+             nc.tensor_mul4_kernel, nc.tensor_mul4_plain, *ct, qs,
+             scale=t_q),
+        pair("tensor_mul4", "P basis, Q->P inside", *tensor_work(M, L),
+             nc.tensor_mul4_kernel, nc.tensor_mul4_plain, *ct, ps,
+             scale=t_p, src=qs),
+        pair("tensor_mul", "stacked Q", *tensor_work(L),
+             nc.tensor_mul_kernel, nc.tensor_mul_plain, x4, qs, scale=t_q),
+        pair("ks_fused", "R=L over Q, strided c2",
+             3 * L * rows + 2 * L * L * n + 2 * tw * L,
+             _ks_ops(n, batch, L, L, reps, False), nc.ks_fused_kernel,
+             nc.ks_fused_plain, out3[..., 2, :], gb, ga, qs, qs),
+        pair("ks_fused_eval", "R=L over Q, strided c2 and adds",
+             7 * L * rows + 2 * L * L * n + 2 * tw * L,
+             _ks_ops(n, batch, L, L, reps, True), nc.ks_fused_eval_kernel,
+             nc.ks_fused_eval_plain, out3[..., 2, :], gb, ga, qs, qs,
+             (out3[..., 0, :], out3[..., 1, :])),
+    ]
+
+
+def linear_cases(param, batch: int, device, gen: torch.Generator) -> list:
+    """One Case per kernel variant of the linear pipeline (``to_evals``,
+    ``pt_to_evals``, ``from_evals``): it launches only the transform and the
+    fused extension, at its own ring degree, basis sizes and batch."""
+    qs, ps, n = param.qs, param.ps, param.n
+    L, M, rows, tw = len(qs), len(ps), batch * n, 2 * n
+    x2q = prng.uniform_mod_multi(gen, (batch, 2, n), qs, device)
+    ninv = tuple(pow(n, -1, q) for q in qs)
+    shape = f"B={batch} n={n}"
+
+    def pair(name, label, words, ops, kern, plain, *args, **kw):
+        return Case(name, f"{label} {shape}", lambda: kern(*args, **kw),
+                    lambda: plain(*args, **kw), 4 * words, ops)
+
+    return [
+        pair("ntt_multi", "linear: forward Q", 2 * 2 * L * rows + tw * L,
+             _ntt_ops(n, 2 * L * batch), nc.ntt_multi_kernel,
+             nc.ntt_multi_plain, x2q, qs),
+        *(pair("ntt_multi", f"linear: plaintext forward {tag} Montgomery",
+               2 * ld * rows + tw * ld,
+               _ntt_ops(n, ld * batch) + ld * rows * SHOUP_OPS,
+               nc.ntt_multi_kernel, nc.ntt_multi_plain,
+               prng.uniform_mod_multi(gen, (batch, n), primes, device),
+               primes, fin=tuple((1 << 32) % p for p in primes))
+          for tag, ld, primes in (("Q", L, qs), ("P", M, ps))),
+        pair("ntt_multi", "linear: inverse Q with fin=1/n",
+             2 * 2 * L * rows + tw * L,
+             _ntt_ops(n, 2 * L * batch) + 2 * L * rows * SHOUP_OPS,
+             nc.ntt_multi_kernel, nc.ntt_multi_plain, x2q, qs, inverse=True,
+             fin=ninv),
+        pair("ext_ntt", "linear: Q->P", 2 * (L + M) * rows + tw * M,
+             _ext_ops(2 * rows, L, M) + _ntt_ops(n, 2 * M * batch),
+             nc.ext_ntt_kernel, nc.ext_ntt_plain, x2q, qs, ps),
     ]

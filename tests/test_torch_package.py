@@ -38,23 +38,37 @@ class Ban:
 
 
 sys.meta_path.insert(0, Ban())
-import fhe_study_tpu_torch.models.bfv_rns
-import fhe_study_tpu_torch.utils.interop
-import fhe_study_tpu_torch.utils.kernel_check
+import importlib
+import pkgutil
+import fhe_study_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(fhe_study_tpu_torch.__path__,
+                                               "fhe_study_tpu_torch.")]
+for name in names + ["chip_smoke"]:
+    importlib.import_module(name)
+import pathlib
+root = pathlib.Path(fhe_study_tpu_torch.__file__).parent
+files = {".".join(("fhe_study_tpu_torch",)
+                  + f.relative_to(root).with_suffix("").parts)
+         for f in root.rglob("*.py") if f.name != "__init__.py"}
+walked = {m for m in names if m not in
+          {".".join(("fhe_study_tpu_torch",) + d.relative_to(root).parts)
+           for d in root.rglob("*") if d.is_dir()}}
+assert walked == files, walked ^ files
 bad = [m for m in sys.modules if m.split(".")[0] in BANNED]
 assert not bad, bad
 """
 
 
 def test_import_loads_no_jax():
-    """Importing the port with jax and the JAX package made unimportable."""
+    """Importing every module of the port, and chip_smoke.py, with jax and
+    the JAX package made unimportable."""
     res = subprocess.run([sys.executable, "-c", NO_JAX], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
 
 
 def test_sources_import_no_jax():
-    for f in PKG.rglob("*.py"):
+    for f in [*PKG.rglob("*.py"), REPO / "chip_smoke.py"]:
         for line in f.read_text().splitlines():
             words = line.split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:
@@ -74,6 +88,7 @@ def test_kernel_wrappers_take_only_cuda_tensors():
     version (that is the dispatcher's choice, by device, alone)."""
     qs = primes.ntt_primes(4, 30, 1 << 16)
     x = torch.zeros((4, 1, 256), dtype=torch.int32)
+    keys = torch.zeros((4, 4, 256), dtype=torch.int32)
     calls = [
         lambda: ntt_cuda.ntt_multi_kernel(x, qs),
         lambda: ntt_cuda.tensor_eval4_kernel(x, x, x, x, qs),
@@ -81,12 +96,41 @@ def test_kernel_wrappers_take_only_cuda_tensors():
                                             x[None, :, 0], qs),
         lambda: ntt_cuda.ext_ntt_kernel(x, qs, qs),
         lambda: ext_cuda.base_extend_fused_kernel(x, qs, qs),
+        lambda: ntt_cuda.tensor_mul4_kernel(x, x, x, x, qs),
+        lambda: ntt_cuda.tensor_mul4_kernel(x, x, x, x, qs, src=qs),
+        lambda: ntt_cuda.tensor_mul_kernel(keys[:, None], qs),
+        lambda: ntt_cuda.ks_fused_kernel(x, keys, keys, qs, qs),
+        lambda: ntt_cuda.ks_fused_eval_kernel(x, keys, keys, qs, qs, (x, x)),
     ]
     before = _cuda.launches()
     for call in calls:
-        with pytest.raises(ValueError, match="CUDA"):
+        with pytest.raises(ValueError, match="take CUDA tensors"):
             call()
     assert _cuda.launches() == before
+
+
+def test_every_kernel_names_its_plain_version_and_its_pallas_kernel():
+    """Nine entries; each has a wrapper and a plain version beside it, and
+    ``replaces`` is the file:line of the ``def`` of an existing function of
+    the JAX package that reaches ``pl.pallas_call``."""
+    pallas = {"ntt_multi": "ntt_multi_u32", "tensor_eval4": "tensor_eval4_u32",
+              "ks_contract": "ks_contract_u32",
+              "base_extend": "base_extend_fused", "ext_ntt": "ext_ntt_u32",
+              "tensor_mul4": "tensor_mul4_u32", "tensor_mul": "tensor_mul_u32",
+              "ks_fused": "ks_fused_u32", "ks_fused_eval": "ks_fused_eval_u32"}
+    assert [k.name for k in _cuda.KERNELS] == list(pallas)
+    assert set(_cuda.launches()) == set(pallas)
+    for k in _cuda.KERNELS:
+        mod = ext_cuda if k.name == "base_extend" else ntt_cuda
+        stem = "base_extend_fused" if k.name == "base_extend" else k.name
+        assert callable(getattr(mod, stem + "_kernel"))
+        assert callable(getattr(mod, stem + "_plain"))
+        assert (REPO / k.source).is_file()
+        path, line = k.replaces.rsplit(":", 1)
+        src = (REPO / path).read_text().splitlines()
+        assert src[int(line) - 1].startswith(f"def {pallas[k.name]}("), \
+            (k.name, src[int(line) - 1])
+        assert "pallas_call" in (REPO / path).read_text()
 
 
 def test_kernels_refuse_unsupported_ring_degrees():
