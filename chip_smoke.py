@@ -5,11 +5,15 @@
 
 The paths are those of RNS-BFV (models/bfv_rns.py) at N = 2^14, L = 4
 Q-primes, M = 5 P-primes, K = 2 auxiliary primes, t = 256, a batch of 128
-ciphertexts, and its linear pipeline at N = 2^12, L = 2, M = 3, a batch of
-1024.  Phases, each of which raises (and so exits non-zero) on any failure:
+ciphertexts, its linear pipeline at N = 2^12, L = 2, M = 3, a batch of
+1024, and TFHE programmable bootstrapping (models/tfhe/bootstrap.py) at
+N = 1024, K = 1, t = 8, a batch of 64, blind-rotation gadget 4096^2,
+key-switch gadget 16^8: the full chain of 1024 CMux steps and the
+keyswitch-first pipeline over a short key of 700.  Phases, each of which
+raises (and so exits non-zero) on any failure:
 
   1. toolchain and card: torch, CUDA, nvcc; the kernels built from csrc/;
-  2. each of the nine kernel entries against its plain PyTorch version on
+  2. each of the eleven kernel entries against its plain PyTorch version on
      the card, bit for bit, at the paths' shapes (batch 8) and at n = 256;
   3. the eval-resident path: keygen -> hybrid relin key -> encrypt 128
      plaintext pairs -> to_evals -> mul_e -> from_evals -> decrypt;
@@ -24,7 +28,16 @@ ciphertexts, and its linear pipeline at N = 2^12, L = 2, M = 3, a batch of
      negacyclic product for every coefficient;
   6. timing with CUDA events: chains of 8 (hybrid mul_e, gadget mul_e, mul,
      the linear step) and each kernel variant against its plain version at
-     the paths' shapes, beside the least time the card could take (bound).
+     the paths' shapes, beside the least time the card could take (bound);
+  7. the TFHE full-chain path: tglwe.new_key -> new_bootstrapping_key ->
+     precompute_btk_evals -> encrypt_uniform of 64 messages -> bootstrap ->
+     decrypt and decode, all 64 held against the messages; the fused chain
+     held against the step-by-step chain (fused=False) on the card;
+  8. the short path: new_short_bootstrapping_key(n_lwe=700) ->
+     bootstrap_short twice, the second on the output of the first;
+  9. TFHE timing: a chain of 3 bootstraps of each pipeline, each fed the
+     last one's output, as bootstraps/s; the key switch and the sample
+     extraction apart; the two TFHE kernels beside plain and bound.
 
 It prints each finding on a line of its own, then the kernels' JSON record,
 the card's name and power limit, and as its last line
@@ -43,6 +56,8 @@ SEED = 20240614
 N, L, M, T, BATCH, CHAIN = 1 << 14, 4, 5, 256, 128, 8
 LIN_N, LIN_L, LIN_M, LIN_BATCH = 1 << 12, 2, 3, 1024
 PARITY_BATCH = 8
+TFHE_N, TFHE_K, TFHE_T, TFHE_BATCH, TFHE_CHAIN = 1024, 1, 8, 64, 3
+TFHE_BETA, TFHE_L, TFHE_BETA_KS, TFHE_L_KS, TFHE_N_LWE = 4096, 2, 16, 8, 700
 # the bound's denominators: device memory rate of the H100 SXM data sheet,
 # and 64 INT32 lanes per SM per clock (4 partitions x 16, the Hopper
 # architecture's figure) times the SM count and the maximum SM clock that
@@ -95,10 +110,14 @@ def negacyclic_reference(a: np.ndarray, b: np.ndarray, t: int):
 
 
 def main() -> None:
+    wall0 = time.perf_counter()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA card (torch.cuda.is_available() is "
                  "False); nothing was run")
+    from fhe_study_tpu_torch.arith.params import TORUS_Q, RingParam
     from fhe_study_tpu_torch.models import bfv_rns as R
+    from fhe_study_tpu_torch.models.gfhe.glwe import ERR_SIGMA, Param
+    from fhe_study_tpu_torch.models.tfhe import bootstrap, tglwe, tlwe
     from fhe_study_tpu_torch.ops import _cuda, ntt, ntt_cuda
     from fhe_study_tpu_torch.utils import kernel_check, prng
 
@@ -145,12 +164,24 @@ def main() -> None:
             got, want = case.kernel(), case.plain()
             torch.cuda.synchronize()
             check(case, got, want)
+    tfhe_parity = [
+        *kernel_check.tfhe_cases(TFHE_N, TFHE_K, TFHE_BETA, TFHE_L, TFHE_N,
+                                 PARITY_BATCH, dev, gen),
+        *kernel_check.tfhe_cases(TFHE_N, TFHE_K, TFHE_BETA, TFHE_L,
+                                 TFHE_N_LWE, PARITY_BATCH, dev, gen),
+        *kernel_check.tfhe_cases(256, 1, 256, 3, 256, PARITY_BATCH, dev, gen)]
+    for case in tfhe_parity:
+        got, want = case.kernel(), case.plain()
+        torch.cuda.synchronize()
+        check(case, got, want)
+    del tfhe_parity, case, got, want
     missing = [k for k, v in checked.items() if v == 0]
     if missing:
         raise RuntimeError(f"kernels with no parity case: {missing}")
     say(f"parity: kernel == plain (torch.equal) for "
-        f"{sum(checked.values())} variants at n={N} and n=256, batch "
-        f"{PARITY_BATCH}: {checked}")
+        f"{sum(checked.values())} variants at n={N} and n=256 (batch "
+        f"{PARITY_BATCH}) and, for the TFHE kernels, at n={TFHE_N} over "
+        f"{TFHE_N} and {TFHE_N_LWE} steps and at n=256: {checked}")
 
     # 3-5. the paths at full width -----------------------------------------
     path_launches = {}
@@ -280,12 +311,6 @@ def main() -> None:
     verify("linear step (m1 + m2) * m2", rec, product,
            f"the numpy FFT negacyclic product (rounding error {fft_err:.2e})")
 
-    launches = {k.name: sum(c[k.name] for c in path_launches.values())
-                for k in _cuda.KERNELS}
-    never = [k for k, v in launches.items() if v == 0]
-    if never:
-        raise RuntimeError(f"kernels launched on no path: {never}")
-
     # 6. timing ------------------------------------------------------------
     def chain_of(step, start):
         def chain():
@@ -332,11 +357,11 @@ def main() -> None:
     ms = {k.name: 0.0 for k in _cuda.KERNELS}
     plain_ms, byte_ms, op_ms, bound_ms = dict(ms), dict(ms), dict(ms), dict(ms)
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
-    for case in (kernel_check.cases(param, BATCH, dev, gen)
-                 + kernel_check.linear_cases(lin, LIN_BATCH, dev, gen)):
+
+    def time_case(case) -> None:
         check(case, case.kernel(), case.plain())
-        k_ms = time_ms(case.kernel, 10)
-        p_ms = time_ms(case.plain, 3)
+        k_ms = time_ms(case.kernel, case.kernel_reps)
+        p_ms = time_ms(case.plain, case.plain_reps, warmup=case.plain_warmup)
         b_ms = case.bytes / MEMORY_BYTES_PER_S * 1e3
         o_ms = case.ops / int_ops_per_s * 1e3
         ms[case.name] += k_ms
@@ -348,10 +373,177 @@ def main() -> None:
             f"  plain {p_ms:9.3f} ms  bound {max(b_ms, o_ms):7.4f} ms "
             f"(bytes {b_ms:.4f}, operations {o_ms:.4f})  [{card}]")
 
+    for case in (kernel_check.cases(param, BATCH, dev, gen)
+                 + kernel_check.linear_cases(lin, LIN_BATCH, dev, gen)):
+        time_case(case)
+    # the BFV state is done with: free it, so that the TFHE phases' peak
+    # memory is their own
+    del case, chains, step, start, chain, sk, sk2, hk, rlk, ksk, c1, c2
+    del x, y, ce, rec, stacked, x4
+    st.clear()
+    torch.cuda.empty_cache()
+
+    # 7. TFHE: the full chain ------------------------------------------------
+    tp = Param(ERR_SIGMA, RingParam(TORUS_Q, TFHE_N), TFHE_K, TFHE_T)
+    gadget = dict(beta=TFHE_BETA, l=TFHE_L, beta_ks=TFHE_BETA_KS,
+                  l_ks=TFHE_L_KS)
+    tshape = (f"N={TFHE_N} K={TFHE_K} t={TFHE_T} B={TFHE_BATCH} "
+              f"beta={TFHE_BETA} l={TFHE_L} beta_ks={TFHE_BETA_KS} "
+              f"l_ks={TFHE_L_KS}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    table = bootstrap.compute_lookup_table_standard(tp, dev)
+    msgs = torch.arange(TFHE_BATCH, device=dev) % (TFHE_T // 2)
+    ts = {}
+
+    def decoded(s_key, ct):
+        return tlwe.decode(tp, tlwe.decrypt(tp.lwe(), s_key, ct))
+
+    def verify_messages(label: str, got) -> None:
+        bad = int((got != msgs).sum())
+        if tuple(got.shape) != (TFHE_BATCH,) or bad:
+            raise RuntimeError(f"{label}: {bad} of {TFHE_BATCH} bootstrapped "
+                               "messages differ from the ones encrypted")
+        say(f"verify: {label}: decode(decrypt) == m for all {TFHE_BATCH} "
+            "messages")
+
+    def full_path():
+        s, _ = tglwe.new_key(gen, tp, dev)
+        ts["s_flat"] = tglwe.sk_to_tlwe(s)
+        ts["btk"], s_out = bootstrap.new_bootstrapping_key(
+            gen, tp, s, s_lwe_out=ts["s_flat"], **gadget)
+        ts["s"] = s
+        ts["evals"] = bootstrap.precompute_btk_evals(tp, ts["btk"])
+        ts["c"] = tlwe.encrypt_uniform(gen, tp.lwe(), ts["s_flat"],
+                                       tlwe.encode(tp, msgs),
+                                       batch=(TFHE_BATCH,))
+        out = bootstrap.bootstrap(tp, ts["btk"], table, ts["c"],
+                                  mode="standard", btk_evals=ts["evals"],
+                                  **gadget)
+        return out, decoded(s_out, out)
+
+    out, got = drive(f"tglwe.new_key -> new_bootstrapping_key -> "
+                     f"precompute_btk_evals -> encrypt_uniform -> bootstrap "
+                     f"-> decrypt at {tshape}", ("ntt", "blind_rotate"),
+                     full_path)
+    if int(ts["c"].a.max()) <= 1 << 60:
+        raise RuntimeError("the ciphertext masks are not uniform")
+    if tuple(out.a.shape) != (TFHE_BATCH, tp.kn) or out.a.dtype != torch.int64:
+        raise RuntimeError(f"bootstrap output: {tuple(out.a.shape)}")
+    verify_messages(f"bootstrap ({TFHE_N} CMux steps)", got)
+    s_flat, btk, evals, ct = ts["s_flat"], ts["btk"], ts["evals"], ts["c"]
+
+    stepwise = drive(
+        f"blind_rotation(fused=False), {TFHE_N} steps of cmux_evals, at "
+        f"{tshape}", ("ntt_multi",),
+        lambda: bootstrap.blind_rotation(
+            tp, btk, table, ct, TFHE_BETA, TFHE_L, btk_evals=evals,
+            fused=False))
+    fused = bootstrap.blind_rotation(tp, btk, table, ct, TFHE_BETA, TFHE_L,
+                                     btk_evals=evals)
+    if not (torch.equal(fused.a, stepwise.a)
+            and torch.equal(fused.b, stepwise.b)):
+        raise RuntimeError("blind_rotate kernel != the step-by-step chain")
+    say(f"verify: blind_rotate (one launch) == {TFHE_N} steps of cmux_evals "
+        f"(torch.equal) on the {TFHE_BATCH} ciphertexts")
+    del stepwise, fused
+
+    # 8. TFHE: the keyswitch-first pipeline ---------------------------------
+    def short_path():
+        ts["sbtk"] = bootstrap.new_short_bootstrapping_key(
+            gen, tp, ts["s"], n_lwe=TFHE_N_LWE, **gadget)
+        ts["sevals"] = bootstrap.precompute_short_btk_evals(tp, ts["sbtk"])
+        first = bootstrap.bootstrap_short(tp, ts["sbtk"], table, ct,
+                                          btk_evals=ts["sevals"], **gadget)
+        second = bootstrap.bootstrap_short(tp, ts["sbtk"], table, first,
+                                           btk_evals=ts["sevals"], **gadget)
+        return decoded(s_flat, first), decoded(s_flat, second)
+
+    got1, got2 = drive(
+        f"new_short_bootstrapping_key(n_lwe={TFHE_N_LWE}) -> "
+        f"precompute_short_btk_evals -> bootstrap_short x 2 -> decrypt at "
+        f"{tshape}", ("ntt", "blind_rotate"), short_path)
+    verify_messages(f"bootstrap_short ({TFHE_N_LWE} CMux steps)", got1)
+    verify_messages("bootstrap_short of its own output", got2)
+    sbtk, sevals = ts["sbtk"], ts["sevals"]
+
+    launches = {k.name: sum(c[k.name] for c in path_launches.values())
+                for k in _cuda.KERNELS}
+    never = [k for k, v in launches.items() if v == 0]
+    if never:
+        raise RuntimeError(f"kernels launched on no path: {never}")
+
+    # 9. TFHE timing ---------------------------------------------------------
+    def chain_of_bootstraps(step):
+        def chain():
+            c = ct
+            for _ in range(TFHE_CHAIN):
+                c = step(c)
+            return c
+        return chain
+
+    pipelines = [
+        (f"bootstrap ({TFHE_N} steps)", lambda c: bootstrap.bootstrap(
+            tp, btk, table, c, mode="standard", btk_evals=evals, **gadget)),
+        (f"bootstrap_short ({TFHE_N_LWE} steps)",
+         lambda c: bootstrap.bootstrap_short(tp, sbtk, table, c,
+                                             btk_evals=sevals, **gadget)),
+    ]
+    for label, step in pipelines:
+        per_op = per_op_launches(lambda: step(ct))
+        chain = chain_of_bootstraps(step)
+        verify_messages(f"chain of {TFHE_CHAIN} {label}",
+                        decoded(s_flat, chain()))          # and warm up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        runs = [time_ms(chain, 1, warmup=0) for _ in range(3)]
+        peak = torch.cuda.max_memory_allocated()
+        best = min(runs)
+        say(f"timing: chain of {TFHE_CHAIN} {label} at B={TFHE_BATCH}: runs "
+            f"{[round(r, 3) for r in runs]} ms, best {best:.3f} ms = "
+            f"{best / TFHE_CHAIN:.3f} ms per batch = "
+            f"{best / TFHE_CHAIN / TFHE_BATCH:.4f} ms per bootstrap = "
+            f"{TFHE_BATCH * TFHE_CHAIN / (best / 1e3):.1f} bootstraps/s; "
+            f"peak device memory {peak / 2**30:.2f} GiB; launches per "
+            f"bootstrap {per_op} [{card}]")
+    # the parts of a bootstrap outside the blind-rotation kernel
+    rotated = bootstrap.blind_rotation(tp, btk, table, ct, TFHE_BETA, TFHE_L,
+                                       btk_evals=evals)
+    extracted = tglwe.sample_extraction(tp, rotated, 0)
+    parts = [
+        ("blind_rotation (mod switch, table rotation, the kernel)",
+         lambda: bootstrap.blind_rotation(tp, btk, table, ct, TFHE_BETA,
+                                          TFHE_L, btk_evals=evals)),
+        ("sample_extraction",
+         lambda: tglwe.sample_extraction(tp, rotated, 0)),
+        (f"tlwe.key_switch {tp.kn} -> {tp.kn}",
+         lambda: tlwe.key_switch(tp.lwe(), TFHE_BETA_KS, TFHE_L_KS,
+                                 tlwe.KSK(btk.ksk_a, btk.ksk_b), extracted)),
+        (f"tlwe.key_switch {tp.kn} -> {TFHE_N_LWE}",
+         lambda: tlwe.key_switch(tp.lwe(), TFHE_BETA_KS, TFHE_L_KS,
+                                 tlwe.KSK(sbtk.ksk_a, sbtk.ksk_b), ct)),
+    ]
+    for label, fn in parts:
+        torch.cuda.reset_peak_memory_stats()
+        say(f"timing: part {label} at B={TFHE_BATCH}: {time_ms(fn, 3):.3f} "
+            f"ms; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    del rotated, extracted, parts, pipelines
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    for case in kernel_check.ntt_cases(TFHE_N, TFHE_K, TFHE_L, TFHE_N, dev,
+                                       gen):
+        time_case(case)
+    for steps in (TFHE_N, TFHE_N_LWE):
+        time_case(kernel_check.blind_rotate_case(
+            TFHE_N, TFHE_K, TFHE_BETA, TFHE_L, steps, TFHE_BATCH, dev, gen))
+    step_ops = kernel_check.cmux_step_ops(TFHE_N, TFHE_K + 1, TFHE_L)
+    say(f"work: one CMux step on one ciphertext at N={TFHE_N}, C="
+        f"{TFHE_K + 1}, l={TFHE_L}: {sum(step_ops.values())} 32-bit integer "
+        f"operations {step_ops}")
+
     say(f"parity: kernel == plain (torch.equal) for all "
         f"{sum(checked.values())} variants, those at the full batch of each "
-        f"path (B={BATCH} at n={N}; B={LIN_BATCH} at n={LIN_N}) included: "
-        f"{checked}")
+        f"path (B={BATCH} at n={N}; B={LIN_BATCH} at n={LIN_N}; "
+        f"B={TFHE_BATCH} at n={TFHE_N}) included: {checked}")
 
     record = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
@@ -360,10 +552,11 @@ def main() -> None:
          "plain_ms": plain_ms[k.name], "bound_ms": bound_ms[k.name],
          "bound_by": ("operations" if op_ms[k.name] >= byte_ms[k.name]
                       else "bytes"),
-         # no PyTorch call computes a modular NTT, an RNS base conversion or
-         # a gadget contraction
+         # no PyTorch call computes a modular NTT, an RNS base conversion,
+         # a gadget contraction or a chain of CMux steps
          "library_ms": None} for k in _cuda.KERNELS]}
     say(json.dumps(record))
+    say(f"wall: {time.perf_counter() - wall0:.1f} s in all")
     say(name_limit)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,11 +9,12 @@
 //                         operand strides tensor_mul_u32 (_tensor_kernel_multi)
 //   fhe_ks_fused       <- ks_fused_u32      (_ks_kernel_multi, fwd=True)
 //   fhe_ks_fused_eval  <- ks_fused_eval_u32 (_ks_eval_kernel)
+//   fhe_ntt            <- ntt_u32           (_ntt_kernel): one scalar prime,
+//                         a flat batch, 64-bit words in and out
 //
-// Layout of the first four: one thread block per (prime, polynomial) — and
-// per product or key half where a kernel emits several — holds its whole
-// length-n polynomial
-// (n = 2^8 .. 2^14, at most 64 KB) in dynamic shared memory and runs all
+// Layout of the first four and of fhe_ntt: one thread block per (prime,
+// polynomial) — and per product or key half where a kernel emits several —
+// holds its whole length-n polynomial (n = 2^8 .. 2^14, at most 64 KB) in dynamic shared memory and runs all
 // log n butterfly stages there, so device memory sees one read of the
 // operands and one write of the result.  Twiddles come from per-prime [L, n]
 // bit-reversed tables with Shoup companions (no per-stage tables: the TPU
@@ -72,6 +73,37 @@ __global__ void ntt_multi_kernel(const uint32_t* __restrict__ x,
   }
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     out[row + i] = use_fin ? shoup_mul(a[i], c.fin, c.fin_sh, c.q) : a[i];
+  }
+}
+
+// K9: forward or inverse transform (the inverse times n^-1) of a flat batch
+// [B, n] under one prime, one block per polynomial.  The torus code keeps
+// its residues in 64-bit words, so the kernel reads and writes int64 (the
+// value is the low word; the high word of the output is zero): no cast
+// passes over device memory around it.  Same chains as K1, so bound the same
+// way: shared-memory traffic and barriers, not the 16 bytes a coefficient.
+__global__ void ntt_kernel(const long long* __restrict__ x,
+                           long long* __restrict__ out,
+                           const uint32_t* __restrict__ tw,
+                           const uint32_t* __restrict__ tw_sh,
+                           const uint32_t* __restrict__ cons, int logn,
+                           int inverse) {
+  extern __shared__ uint32_t a[];
+  const int n = 1 << logn;
+  const size_t row = static_cast<size_t>(blockIdx.x) * n;
+  const PrimeRow c = prime_row(cons, 0);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    a[i] = static_cast<uint32_t>(x[row + i]);
+  }
+  __syncthreads();
+  if (inverse) {
+    inverse_chain(a, logn, tw, tw_sh, c.q);
+  } else {
+    forward_chain(a, logn, tw, tw_sh, c.q);
+  }
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const uint32_t v = inverse ? shoup_mul(a[i], c.fin, c.fin_sh, c.q) : a[i];
+    out[row + i] = static_cast<long long>(v);
   }
 }
 
@@ -438,6 +470,18 @@ extern "C" int fhe_ntt_multi(const uint32_t* x, uint32_t* out,
   if (err != cudaSuccess) return static_cast<int>(err);
   ntt_multi_kernel<<<dim3(B, L), chain_threads(logn), smem, stream>>>(
       x, out, tw, tw_sh, cons, B, logn, inverse, use_fin);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int fhe_ntt(const long long* x, long long* out, const uint32_t* tw,
+                       const uint32_t* tw_sh, const uint32_t* cons, int B,
+                       int logn, int inverse, cudaStream_t stream) {
+  if (bad_logn(logn) || B < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(uint32_t) << logn;
+  cudaError_t err = allow_smem(ntt_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ntt_kernel<<<B, chain_threads(logn), smem, stream>>>(x, out, tw, tw_sh, cons,
+                                                       logn, inverse);
   return static_cast<int>(cudaGetLastError());
 }
 

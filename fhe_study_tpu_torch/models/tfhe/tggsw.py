@@ -1,0 +1,220 @@
+"""TGGSW + TGLev over torus polynomials — the counterpart of
+fhe_study_tpu/models/tfhe/tggsw.py.
+
+    TGLev(a=[..., l, K, N], b=[..., l, N])
+    TGGSW(a=[..., K+1, l, K, N], b=[..., K+1, l, N])
+
+The external product TGGSW ⊠ TGLWE is the bootstrapping workhorse: it
+decomposes the (K+1) ciphertext polys into l digit polys each and contracts
+the (K+1)·l grid of polynomial products (TorusRing.contract), or, with the
+key pre-transformed (``TGGSWEvals``), multiplies in the eval domain of the
+two CRT primes.
+"""
+
+from typing import NamedTuple
+
+import torch
+
+from ...arith import tn
+from ...arith.ring import TorusRing
+from ...ops import modops, ntt
+from ...ops.modops32 import qvec
+from ..gfhe import glwe as G
+from ..gfhe.glwe import GLWE, Param
+from .tlwe import TORUS_MAX, _tlev_scales
+
+
+class TGLev(NamedTuple):
+    a: torch.Tensor  # [..., l, K, N]
+    b: torch.Tensor  # [..., l, N]
+
+
+class TGGSW(NamedTuple):
+    a: torch.Tensor  # [..., K+1, l, K, N]
+    b: torch.Tensor  # [..., K+1, l, N]
+
+
+# -- TGLev ------------------------------------------------------------------
+
+def tglev_encode(param: Param, m):
+    return tn.as_torus(m)
+
+
+def tglev_decode(param: Param, p):
+    return modops.coerce_u64(p, param.t)
+
+
+def _tglev_msgs(beta: int, l: int, m, device):
+    scales = _tlev_scales(beta, l, device)                     # [l]
+    return tn.as_torus(m, device)[..., None, :] * scales[:, None]  # [.., l, N]
+
+
+def tglev_encrypt_s(gen: torch.Generator, param: Param, beta: int, l: int, s,
+                    m, batch=()) -> TGLev:
+    ct = G.encrypt_s(gen, param, s, _tglev_msgs(beta, l, m, s.device),
+                     batch=tuple(batch) + (l,))
+    return TGLev(a=ct.a, b=ct.b)
+
+
+def tglev_encrypt(gen: torch.Generator, param: Param, beta: int, l: int, pk,
+                  m, batch=()) -> TGLev:
+    ct = G.encrypt(gen, param, pk, _tglev_msgs(beta, l, m, pk.b.device),
+                   batch=tuple(batch) + (l,))
+    return TGLev(a=ct.a, b=ct.b)
+
+
+def tglev_decrypt(param: Param, s, c: TGLev, beta: int):
+    pt = G.decrypt(param, s, GLWE(a=c.a[..., 0, :, :], b=c.b[..., 0, :]))
+    return tn.mul_div_round(pt, beta, TORUS_MAX)
+
+
+def tglev_mul_vec(param: Param, c: TGLev, v) -> GLWE:
+    """sum_i TGLWE_i · v_i, v: [..., l, N]."""
+    ring = TorusRing(param.ring.n)
+    b = ring.contract(c.b, v)
+    a = ring.contract(torch.movedim(c.a, -2, 0), v)
+    return GLWE(a=torch.movedim(a, 0, -2), b=b)
+
+
+# -- TGGSW ------------------------------------------------------------------
+
+def _row_msgs(param: Param, beta: int, l: int, s, m):
+    """Rows j < K hold -s_j·m (a polynomial product), row K holds m; each at
+    the l gadget scales: [..., K+1, l, N]."""
+    ring = TorusRing(param.ring.n)
+    m = tn.as_torus(m, s.device)
+    neg_sm = ring.mul(ring.neg(s), m[..., None, :])            # [..., K, N]
+    rows = torch.cat([neg_sm, m[..., None, :]], dim=-2)        # [..., K+1, N]
+    scales = _tlev_scales(beta, l, s.device)
+    return rows[..., :, None, :] * scales[:, None]
+
+
+def encrypt_s_with(param: Param, beta: int, l: int, s, m, a, e) -> TGGSW:
+    """encrypt_s from given draws: masks a [..., K+1, l, K, N], noise
+    e [..., K+1, l, N]."""
+    ct = G.encrypt_s_with(param, s, _row_msgs(param, beta, l, s, m), a, e)
+    return TGGSW(a=ct.a, b=ct.b)
+
+
+def encrypt_s(gen: torch.Generator, param: Param, beta: int, l: int, s, m,
+              batch=()) -> TGGSW:
+    """One batched GLWE encryption over the (K+1, l) grid."""
+    ct = G.encrypt_s(gen, param, s, _row_msgs(param, beta, l, s, m),
+                     batch=tuple(batch) + (param.k + 1, l))
+    return TGGSW(a=ct.a, b=ct.b)
+
+
+def decrypt(param: Param, s, c: TGGSW, beta: int):
+    return tglev_decrypt(
+        param, s, TGLev(a=c.a[..., -1, :, :, :], b=c.b[..., -1, :, :]), beta)
+
+
+def _digits(c: GLWE, beta: int, l: int):
+    """[a | b] decomposed: [..., K+1, l, N]."""
+    ab = torch.cat([c.a, c.b[..., None, :]], dim=-2)          # [..., K+1, N]
+    return torch.movedim(tn.decompose(ab, beta, l), 0, -2)
+
+
+def external_product(param: Param, beta: int, l: int, g: TGGSW,
+                     c: GLWE) -> GLWE:
+    """TGGSW ⊠ TGLWE: decompose [a | b] -> (K+1, l) digit polys, contract
+    against the key grid in one fused reduce."""
+    ring = TorusRing(param.ring.n)
+    k, n = param.k, param.ring.n
+    d = _digits(c, beta, l)
+    batch = torch.broadcast_shapes(d.shape[:-3], g.b.shape[:-3])
+    M = (k + 1) * l
+    d_flat = d.expand(batch + d.shape[-3:]).reshape(batch + (M, n))
+    gb = g.b.expand(batch + g.b.shape[-3:]).reshape(batch + (M, n))
+    out_b = ring.contract(gb, d_flat)
+    ga = g.a.expand(batch + g.a.shape[-4:]).reshape(batch + (M, k, n))
+    out_a = ring.contract(torch.movedim(ga, -2, 0), d_flat)   # [k, ..., n]
+    return GLWE(a=torch.movedim(out_a, 0, -2), b=out_b)
+
+
+def cmux(param: Param, beta: int, l: int, bit: TGGSW, c1: GLWE,
+         c2: GLWE) -> GLWE:
+    """c1 + bit ⊠ (c2 - c1)."""
+    prod = external_product(param, beta, l, bit, G.sub(param, c2, c1))
+    return G.add(param, c1, prod)
+
+
+# ---------------------------------------------------------------------------
+# Fast path: TGGSW keys pre-transformed to the CRT-NTT domain.
+#
+# The generic external product re-transforms the key polynomials at every
+# call.  Here the key is kept as 32-bit limbs per CRT prime in the eval
+# domain; digits are small (< beta <= 2^12), so they need only ONE limb, and
+# the convolution bound (K+1)·l·n·beta·2^32 stays under the 2-prime CRT
+# capacity.
+# ---------------------------------------------------------------------------
+
+class TGGSWEvals(NamedTuple):
+    """[..., K+1(row), l, K+1(col), 2(limb), N] int32 per CRT prime, plain
+    eval domain, each with its Shoup companion plane floor(w * 2^32 / p).
+    The companions span the whole u32 range: their int32 holds the bits
+    (the blind-rotation kernel reads them as uint32_t; the plain versions
+    multiply exactly in int64 and do not need them)."""
+    ev1: torch.Tensor
+    ev2: torch.Tensor
+    ev1s: torch.Tensor
+    ev2s: torch.Tensor
+
+
+def _u32_bits(x):
+    """int64 values in [0, 2^32) -> the int32 of the same low bits."""
+    return torch.where(x >= (1 << 31), x - (1 << 32), x).int()
+
+
+def precompute_evals(param: Param, g: TGGSW) -> TGGSWEvals:
+    """Transform a TGGSW (any leading batch dims) into eval-domain 32-bit
+    limbs under both CRT primes, plus the Shoup planes."""
+    p1, p2 = ntt.CRT_PRIMES_TFHE
+    ab = torch.cat([g.a, g.b[..., None, :]], dim=-2)   # [.., K+1r, l, K+1c, N]
+    limbs = torch.stack([ab & 0xFFFFFFFF, tn.shr(ab, 32)], dim=-2)
+    del ab
+    out = []
+    for p in (p1, p2):
+        ev = ntt.ntt(limbs % p, p)
+        out.append((ev.int(), _u32_bits(ev * (1 << 32) // p)))
+    return TGGSWEvals(out[0][0], out[1][0], out[0][1], out[1][1])
+
+
+def external_product_evals(param: Param, gev: TGGSWEvals, c: GLWE,
+                           beta: int, l: int) -> GLWE:
+    """TGGSW ⊠ TGLWE with a pre-transformed key: forward-NTT only the (K+1)·l
+    digit polys (single limb), reduce over the grid in the eval domain,
+    inverse transforms, exact CRT recombination mod 2^64.  Both primes ride
+    the multi-prime transforms (one launch per direction)."""
+    pq = ntt.CRT_PRIMES_TFHE
+    p1, p2 = pq
+    k, n = param.k, param.ring.n
+    # conv bound: (K+1)·l·n·beta·2^32 must stay under p1·p2/2 ≈ 2^58.4
+    if (k + 1) * l * n * beta >= (1 << 26):
+        raise ValueError("CRT capacity exceeded")
+    d = _digits(c, beta, l)                                  # [..., K+1, l, N]
+    if beta <= min(pq):
+        # digits are unsigned in [0, beta): already reduced mod both primes
+        dd = torch.stack([d, d]).int()
+    else:
+        dd = torch.stack([d % p1, d % p2]).int()
+    ed = ntt.ntt_multi(dd, pq).long()                        # [2, .., r, l, N]
+    ev = torch.stack([gev.ev1, gev.ev2]).long()              # [2, r, l, c, 2, N]
+    edx = ed[..., :, :, None, None, :]                       # [2, .., r, l, 1, 1, N]
+    extra = edx.ndim - ev.ndim          # ciphertext batch dims absent in the key
+    if extra > 0:
+        ev = ev.reshape(ev.shape[:1] + (1,) * extra + ev.shape[1:])
+    # exact products in int64 (both factors < 2^30), then the contraction
+    # over the (row, level) grid: at most (K+1)·l < 2^26 terms below 2^30
+    prod = edx * ev % qvec(pq, edx.ndim, edx.device)
+    s = prod.sum((-5, -4)) % qvec(pq, edx.ndim - 2, edx.device)
+    r = ntt.intt_multi(s.int(), pq).long()      # [2, ..., K+1c, 2limb, N]
+    gk = ntt.crt_lift_centered(r[0], r[1], p1, p2)
+    out = gk[..., 0, :] + gk[..., 1, :] * (1 << 32)          # wrapping
+    return GLWE(a=out[..., :k, :], b=out[..., k, :])
+
+
+def cmux_evals(param: Param, beta: int, l: int, gev: TGGSWEvals,
+               c1: GLWE, c2: GLWE) -> GLWE:
+    prod = external_product_evals(param, gev, G.sub(param, c2, c1), beta, l)
+    return G.add(param, c1, prod)

@@ -166,8 +166,16 @@ KS_FUSED_EVAL = Kernel("ks_fused_eval", "fhe_ks_fused_eval", _NTT_CU,
                        PTR, I64, I64, PTR, PTR, PTR, I64, I64, PTR, I64, I64,
                        PTR, PTR, PTR, PTR, PTR, PTR, PTR,
                        INT, INT, INT, INT, INT)
+NTT = Kernel("ntt", "fhe_ntt", _NTT_CU,
+             "fhe_study_tpu/ops/ntt_pallas.py:1296",
+             PTR, PTR, PTR, PTR, PTR, INT, INT, INT)
+BLIND_ROTATE = Kernel("blind_rotate", "fhe_blind_rotate",
+                      "fhe_study_tpu_torch/csrc/blind_rotate_cuda.cu",
+                      "fhe_study_tpu/ops/blind_rotate_pallas.py:392",
+                      *([PTR] * 12), *([INT] * 6))
 KERNELS = (NTT_MULTI, TENSOR_EVAL4, KS_CONTRACT, BASE_EXTEND, EXT_NTT,
-           TENSOR_MUL4, TENSOR_MUL, KS_FUSED, KS_FUSED_EVAL)
+           TENSOR_MUL4, TENSOR_MUL, KS_FUSED, KS_FUSED_EVAL, NTT,
+           BLIND_ROTATE)
 
 
 def reset_launches() -> None:
@@ -192,16 +200,16 @@ def on_cuda(*tensors) -> bool:
 
 
 def check(t: torch.Tensor, name: str, device: torch.device,
-          rows: bool = False) -> None:
-    """A kernel operand: int32 on CUDA ``device``, contiguous (or, with
+          rows: bool = False, dtype: torch.dtype = torch.int32) -> None:
+    """A kernel operand: ``dtype`` on CUDA ``device``, contiguous (or, with
     rows=True, contiguous along the last axis only)."""
     if t.device.type != "cuda":
         raise ValueError(f"{name} is on {t.device}: the kernels take CUDA "
                          "tensors (CPU tensors go to the plain versions)")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.int32:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected torch.int32")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
     if rows:
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: the last axis must be contiguous")
@@ -209,10 +217,13 @@ def check(t: torch.Tensor, name: str, device: torch.device,
         raise ValueError(f"{name} must be contiguous")
 
 
+MIN_LOG_N, MAX_LOG_N = 8, 14      # kMinLogN, kMaxLogN of csrc/modarith.cuh
+
+
 def log2_degree(n: int) -> int:
     """log2 n for the ring degrees the kernels support (2^8 .. 2^14)."""
     logn = n.bit_length() - 1
-    if n != 1 << logn or not 8 <= logn <= 14:
+    if n != 1 << logn or not MIN_LOG_N <= logn <= MAX_LOG_N:
         raise ValueError(f"ring degree {n}: the CUDA kernels support "
                          "n = 2^8 .. 2^14")
     return logn

@@ -1,0 +1,130 @@
+"""The whole TFHE blind rotation as one kernel — ``csrc/blind_rotate_cuda.cu``
+— with its launch wrapper and plain PyTorch version; the counterpart of
+fhe_study_tpu/ops/blind_rotate_pallas.py.
+
+  K10 blind_rotate <- blind_rotate_pallas.blind_rotate_fused
+
+    acc <- acc + BSK_j ⊠ (acc · X^{-h_j} - acc)      for every step j
+
+``blind_rotate_fused`` dispatches by the device of its tensors: CUDA
+tensors launch the kernel (one launch for the whole chain), CPU tensors
+walk the chain step by step in int64 torch (``blind_rotate_plain``, which
+also is what the kernel is held against on the card).
+"""
+
+import torch
+
+from ..arith import tn
+from . import _cuda, ntt_cuda
+from . import ntt as ntt_mod
+from .modops32 import qvec
+
+# dynamic shared memory one block may use on sm_90
+_SMEM_LIMIT = 232448
+
+
+def _smem_bytes(C: int, l: int, n: int) -> int:
+    """The kernel's shared memory: the 64-bit accumulator, the digit polys
+    of both primes and the contracted columns of both primes."""
+    return C * n * 8 + (2 * C * l + 4 * C) * n * 4
+
+
+def supported(param, beta: int, l: int) -> bool:
+    """Static conditions under which the fused chain applies: the
+    reference's, with the kernel's own range of ring degrees and its shared
+    memory in place of the TPU's lane count."""
+    n = param.ring.n
+    p1, p2 = ntt_mod.CRT_PRIMES_TFHE
+    w = beta.bit_length() - 1
+    return (n & (n - 1) == 0
+            and _cuda.MIN_LOG_N <= n.bit_length() - 1 <= _cuda.MAX_LOG_N
+            and beta == (1 << w) and 1 <= w and w * l <= 64
+            and beta <= min(p1, p2)
+            and (param.k + 1) * l * n * beta < (1 << 26)
+            # a primitive 2n-th root under both primes
+            and all((p - 1) % (2 * n) == 0 for p in (p1, p2))
+            and _smem_bytes(param.k + 1, l, n) <= _SMEM_LIMIT)
+
+
+def _check_shapes(shifts, acc0, ev1, ev1s, ev2, ev2s, n: int, w: int):
+    steps, B = shifts.shape
+    C = acc0.shape[1]
+    l = ev1.shape[2]
+    if tuple(acc0.shape) != (B, C, n):
+        raise ValueError(f"acc0 has shape {tuple(acc0.shape)}, expected "
+                         f"{(B, C, n)}")
+    for name, e in (("ev1", ev1), ("ev1s", ev1s), ("ev2", ev2),
+                    ("ev2s", ev2s)):
+        if tuple(e.shape) != (steps, C, l, C, 2, n):
+            raise ValueError(f"{name} has shape {tuple(e.shape)}, expected "
+                             f"{(steps, C, l, C, 2, n)}")
+    if not (1 <= w and w * l <= 64 and (1 << w) <= min(
+            ntt_mod.CRT_PRIMES_TFHE)):
+        raise ValueError(f"digit width w={w} with l={l} levels")
+    return steps, B, C, l
+
+
+def blind_rotate_plain(shifts, acc0, ev1, ev1s, ev2, ev2s, n: int, w: int):
+    """The chain step by step in int64 torch; the kernel's signature.  The
+    Shoup planes are not needed: (digit * key) mod p is exact in int64."""
+    steps, B, C, l = _check_shapes(shifts, acc0, ev1, ev1s, ev2, ev2s, n, w)
+    pq = ntt_mod.CRT_PRIMES_TFHE
+    qv = qvec(pq, 5, acc0.device)                  # against [2, B, C, 2, n]
+    acc = acc0
+    for j in range(steps):
+        rot = tn.left_rotate(acc, shifts[j][:, None], n)
+        d = tn.decompose_base_pow2(rot - acc, w, l)             # [l, B, C, n]
+        d = torch.movedim(d, 0, 2)                              # [B, C, l, n]
+        ed = ntt_cuda.ntt_multi_plain(torch.stack([d, d]).int(), pq).long()
+        ev = torch.stack([ev1[j], ev2[j]]).long()[:, None]  # [2,1,r,l,c,2,n]
+        prod = ed[:, :, :, :, None, None, :] * ev % qv[:, :, :, None, None]
+        s = prod.sum((2, 3)) % qv                               # [2,B,c,2,n]
+        r = ntt_cuda.ntt_multi_plain(s.int(), pq, inverse=True).long()
+        gk = ntt_mod.crt_lift_centered(r[0], r[1], *pq)         # [B,c,2,n]
+        acc = acc + gk[..., 0, :] + gk[..., 1, :] * (1 << 32)
+    return acc
+
+
+def blind_rotate_kernel(shifts, acc0, ev1, ev1s, ev2, ev2s, n: int, w: int):
+    """K10: one block per ciphertext, the whole chain in one launch.
+    shifts int32 [steps, B] in [0, 2n); acc0 int64 [B, C, n]; ev1, ev1s,
+    ev2, ev2s int32 [steps, C, l, C, 2, n].  Returns int64 [B, C, n]."""
+    dev = acc0.device
+    _cuda.check(shifts, "shifts", dev)
+    _cuda.check(acc0, "acc0", dev, dtype=torch.int64)
+    for name, e in (("ev1", ev1), ("ev1s", ev1s), ("ev2", ev2),
+                    ("ev2s", ev2s)):
+        _cuda.check(e, name, dev)
+    steps, B, C, l = _check_shapes(shifts, acc0, ev1, ev1s, ev2, ev2s, n, w)
+    logn = _cuda.log2_degree(n)
+    if _smem_bytes(C, l, n) > _SMEM_LIMIT:
+        raise ValueError(f"C={C}, l={l}, n={n} needs {_smem_bytes(C, l, n)} "
+                         f"bytes of shared memory (limit {_SMEM_LIMIT})")
+    out = torch.empty_like(acc0)
+    if B == 0:
+        return out
+    if steps == 0:
+        return out.copy_(acc0)
+    p1, p2 = pq = ntt_mod.CRT_PRIMES_TFHE
+    tw = ntt_cuda._twiddles(pq, n, False, dev)
+    twinv = ntt_cuda._twiddles(pq, n, True, dev)
+    cons = ntt_cuda._prime_rows(
+        (p1, p2, p2), (pow(n, -1, p1), pow(n, -1, p2), pow(p1, -1, p2)), dev)
+    _cuda.BLIND_ROTATE.launch(
+        dev, shifts.data_ptr(), acc0.data_ptr(), ev1.data_ptr(),
+        ev1s.data_ptr(), ev2.data_ptr(), ev2s.data_ptr(), out.data_ptr(),
+        tw[0].data_ptr(), tw[1].data_ptr(), twinv[0].data_ptr(),
+        twinv[1].data_ptr(), cons.data_ptr(), steps, B, C, l, w, logn)
+    return out
+
+
+def blind_rotate_fused(shifts, acc0, ev1, ev1s, ev2, ev2s, n: int, w: int):
+    """Run the full CMux chain: shifts [steps, B] int32 step-j rotation
+    amounts (2N - a'_j) mod 2N, acc0 [B, C, N] int64 initial accumulator,
+    ev1/ev2 [steps, C, l, C, 2, N] int32 eval-domain key with Shoup planes
+    ev1s/ev2s (tggsw.precompute_evals), w = log2(beta).  Returns
+    [B, C, N] int64."""
+    fn = (blind_rotate_kernel
+          if _cuda.on_cuda(shifts, acc0, ev1, ev1s, ev2, ev2s)
+          else blind_rotate_plain)
+    return fn(shifts, acc0, ev1, ev1s, ev2, ev2s, n, w)

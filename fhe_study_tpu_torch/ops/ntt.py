@@ -1,5 +1,6 @@
-"""Negacyclic multi-prime NTT over RNS residues (Cooley-Tukey forward,
-Gentleman-Sande inverse) — the main-path subset of fhe_study_tpu/ops/ntt.py.
+"""Negacyclic NTT (Cooley-Tukey forward, Gentleman-Sande inverse): the
+multi-prime transforms over RNS residues and the single-prime transform of
+the torus code — the ported subset of fhe_study_tpu/ops/ntt.py.
 
 The root tables are computed on the host with Python integers and cached,
 bit-reversed exactly as the reference stores them, so every butterfly — and
@@ -9,11 +10,15 @@ Residue tensors are int32 [L, ..., n], row i modulo qs[i].  Each transform
 dispatches by the device of its inputs (ops/_cuda.on_cuda): CUDA tensors
 launch the kernels of ops/ntt_cuda.py, CPU tensors run their plain PyTorch
 versions there.  Names and return contracts are the reference's.
+
+The single-prime ``ntt`` / ``intt`` / ``negacyclic_mul`` take int64 [..., n]
+values in [0, q) and return the same, like the reference's u64 functions.
 """
 
 from functools import lru_cache
 
 import numpy as np
+import torch
 
 from . import _cuda, ntt_cuda
 from .modops32 import (addmod as _addmod_v, qvec as _qvec,  # noqa: F401
@@ -65,6 +70,52 @@ class NttPlan:
 @lru_cache(maxsize=None)
 def get_plan(q: int, n: int) -> NttPlan:
     return NttPlan(q, n)
+
+
+# NTT-friendly primes p = 1 (mod 2^27) for exact integer convolutions by CRT
+# (n up to 2^26); the first two are above 2^30.
+CRT_PRIMES = (2013265921, 1811939329, 469762049)
+
+# The pair below 2^30 of the TFHE eval-domain path (tggsw's pre-transformed
+# keys and the blind-rotation kernel).  Capacity p1*p2/2 ~ 2^58.4, so the
+# convolution bound is (K+1)*l*n*beta < 2^26.
+CRT_PRIMES_TFHE = (998244353, 754974721)
+
+
+def _single(a, q: int, inverse: bool):
+    if a.shape[-1] == 1:
+        return a
+    if _cuda.on_cuda(a):
+        # raises for q >= 2^31 or n outside 2^8 .. 2^14, as every kernel does
+        return ntt_cuda.ntt_kernel(a.contiguous(), q, inverse=inverse)
+    return ntt_cuda.ntt_plain(a, q, inverse=inverse)
+
+
+def ntt(a, q: int):
+    """Forward negacyclic NTT over the last axis; a int64 [..., n] in
+    [0, q)."""
+    return _single(a, q, False)
+
+
+def intt(a, q: int):
+    """Inverse negacyclic NTT over the last axis, times n^-1."""
+    return _single(a, q, True)
+
+
+def negacyclic_mul(a, b, q: int):
+    """Polynomial product in Z_q[X]/(X^n+1): NTT, pointwise, INTT."""
+    return intt(ntt(a, q) * ntt(b, q) % q, q)
+
+
+def crt_lift_centered(r1, r2, p1: int, p2: int):
+    """The integer in (-p1*p2/2, p1*p2/2] with residues r1 mod p1 and r2 mod
+    p2 (Garner), as int64 (p1*p2 < 2^62).  Every value is below 2^62, so the
+    signed compare is the reference's unsigned one."""
+    inv = pow(p1, -1, p2)
+    delta = (r2 - r1 % p2) % p2 * inv % p2
+    g = r1 + p1 * delta                       # in [0, p1*p2)
+    m = p1 * p2
+    return torch.where(g > m // 2, g - m, g)
 
 
 def mulmod_v(a, b, qv):

@@ -10,6 +10,7 @@ fhe_study_tpu/ops/ntt_pallas.py.
      tensor_mul    <- ntt_pallas.tensor_mul_u32 (K6's kernel on row strides)
   K7 ks_fused      <- ntt_pallas.ks_fused_u32
   K8 ks_fused_eval <- ntt_pallas.ks_fused_eval_u32
+  K9 ntt           <- ntt_pallas.ntt_u32 (one prime, int64 words in and out)
 
 Host tables per prime set: the [L, n] bit-reversed roots (forward) or
 inverse roots with their Shoup companions floor(w * 2^32 / q), and one row of
@@ -127,6 +128,15 @@ def ntt_multi_plain(x, qs: tuple, inverse: bool = False, fin=None):
     return r.int()
 
 
+def ntt_plain(x, q: int, inverse: bool = False):
+    """Single-prime transform of int64 [..., n] values in [0, q); the
+    inverse times n^-1.  Returns int64."""
+    r = _chain_plain(x.long()[None], (q,), inverse)[0]
+    if inverse:
+        r = r * pow(x.shape[-1], -1, q) % q
+    return r
+
+
 def tensor_eval4_plain(x0, x1, y0, y1, dst: tuple, scale=None):
     qv = qvec(dst, x0.ndim, x0.device)
     a0, a1, b0, b1 = (v.long() for v in (x0, x1, y0, y1))
@@ -231,6 +241,26 @@ def ntt_multi_kernel(x, qs: tuple, inverse: bool = False, fin=None):
                            tw[0].data_ptr(), tw[1].data_ptr(),
                            cons.data_ptr(), L, B, logn, int(inverse),
                            int(fin is not None))
+    return out
+
+
+def ntt_kernel(x, q: int, inverse: bool = False):
+    """K9: one block per polynomial of the flat batch; x int64 [..., n] with
+    values in [0, q), q < 2^31.  Returns int64 of the same shape."""
+    dev = x.device
+    _cuda.check(x, "x", dev, dtype=torch.int64)
+    if not 1 < q < (1 << 31):
+        raise ValueError(f"modulus {q}: the kernel needs q < 2^31")
+    n = x.shape[-1]
+    logn = _cuda.log2_degree(n)
+    out = torch.empty_like(x)
+    B = x.numel() // n
+    if B == 0:
+        return out
+    tw = _twiddles((q,), n, inverse, dev)
+    cons = _prime_rows((q,), _default_fin((q,), n, inverse, None), dev)
+    _cuda.NTT.launch(dev, x.data_ptr(), out.data_ptr(), tw[0].data_ptr(),
+                     tw[1].data_ptr(), cons.data_ptr(), B, logn, int(inverse))
     return out
 
 

@@ -1,4 +1,4 @@
-"""Carry the JAX package's RNS-BFV state into the port and back.
+"""Carry the JAX package's RNS-BFV and TFHE state into the port and back.
 
 The JAX package's ``SecretKey``, ``PublicKey``, ``RLK``, ``HRLK``, ``CT`` and
 ``CTE`` hold u32 or u64 residue arrays.  ``to_port`` turns one of them, given as any
@@ -7,16 +7,30 @@ array without this module importing jax), into the port's NamedTuple of int32
 tensors on a given device; ``to_numpy`` turns a port tensor or NamedTuple
 back into numpy u32 for comparison.  Every residue is below 2^31 (all primes
 are), so the int32 bits equal the u32 ones; anything else raises.
+
+The torus schemes' tuples (``TLWE``, ``GLWE``, ``TGGSW``, ``TGGSWEvals``,
+the TLWE ``KSK``, ``BootstrappingKey``, ``ShortBootstrappingKey``) hold u64
+torus words and, in ``TGGSWEvals``, u32 words that span the whole range (the
+Shoup planes): ``bits_to_tensor`` carries those bit for bit (uint64 -> int64,
+uint32 -> int32, a numpy ``view``), and ``bits_to_numpy`` brings them back.
 """
 
 import numpy as np
 import torch
 
 from ..models import bfv_rns
+from ..models.gfhe import glwe
+from ..models.tfhe import bootstrap, tggsw, tlwe
 
 KINDS = {k.__name__: k for k in (bfv_rns.SecretKey, bfv_rns.PublicKey,
                                  bfv_rns.RLK, bfv_rns.HRLK, bfv_rns.CT,
                                  bfv_rns.CTE)}
+# carried bit for bit: the fields are torus words or full-range u32 words
+BIT_KINDS = {k.__name__: k for k in (
+    tlwe.TLWE, glwe.GLWE, tggsw.TGGSW, tggsw.TGGSWEvals, tlwe.KSK,
+    bootstrap.BootstrappingKey, bootstrap.ShortBootstrappingKey)}
+_SIGNED = {np.dtype(np.uint64): np.int64, np.dtype(np.uint32): np.int32}
+_UNSIGNED = {torch.int64: np.uint64, torch.int32: np.uint32}
 
 
 def to_tensor(a, device) -> torch.Tensor:
@@ -31,13 +45,38 @@ def to_tensor(a, device) -> torch.Tensor:
                             ).to(device)
 
 
+def bits_to_tensor(a, device) -> torch.Tensor:
+    """uint64 (or uint32) array -> int64 (int32) tensor of the same bits."""
+    a = np.array(a)                    # a writable, contiguous copy
+    signed = _SIGNED.get(a.dtype)
+    if signed is None:
+        raise TypeError(f"bit-preserving carry takes uint64 or uint32, got "
+                        f"{a.dtype}")
+    return torch.from_numpy(a.view(signed)).to(device)
+
+
+def bits_to_numpy(x):
+    """int64 (int32) tensor -> numpy uint64 (uint32) of the same bits; a
+    NamedTuple -> tuple of them."""
+    if isinstance(x, torch.Tensor):
+        unsigned = _UNSIGNED.get(x.dtype)
+        if unsigned is None:
+            raise TypeError(f"bit-preserving carry takes int64 or int32, "
+                            f"got {x.dtype}")
+        return x.detach().cpu().contiguous().numpy().view(unsigned)
+    return tuple(bits_to_numpy(f) for f in x)
+
+
 def to_port(obj, device):
-    """A reference SecretKey/PublicKey/RLK/HRLK/CT/CTE -> the port's."""
-    kind = KINDS.get(type(obj).__name__)
+    """A reference NamedTuple -> the port's of the same name: residues for
+    the RNS-BFV kinds, bit for bit for the torus kinds."""
+    name = type(obj).__name__
+    kind, carry = ((KINDS[name], to_tensor) if name in KINDS else
+                   (BIT_KINDS.get(name), bits_to_tensor))
     if kind is None or len(obj) != len(kind._fields):
-        raise TypeError(f"cannot carry {type(obj).__name__} across; "
-                        f"known: {sorted(KINDS)}")
-    return kind(*(to_tensor(f, device) for f in obj))
+        raise TypeError(f"cannot carry {name} across; known: "
+                        f"{sorted([*KINDS, *BIT_KINDS])}")
+    return kind(*(carry(f, device) for f in obj))
 
 
 def to_numpy(x):

@@ -6,7 +6,9 @@ that the paths of ``models/bfv_rns.py`` (``mul_e`` with either relin key,
 for a parameter set and a batch, and pairs a call of the wrapper with a call
 of its plain version on the same tensors; ``linear_cases`` does the same
 for the linear pipeline (``to_evals``, ``pt_to_evals``, ``from_evals``) at
-its own parameter set.  ``chip_smoke.py`` and the
+its own parameter set, and ``tfhe_cases`` for the two kernels of the TFHE
+bootstrap (the single-prime transform at the shapes of key generation, the
+whole-chain blind rotation).  ``chip_smoke.py`` and the
 card-marked tests run them on the card and require equal outputs.
 
 Each case also carries the least work its function needs on these inputs,
@@ -22,7 +24,10 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..models.hybrid_ks import ks_ext_primes
+from ..models.tfhe.tggsw import _u32_bits
+from ..ops import blind_rotate_cuda as brc
 from ..ops import ext_cuda as ext
+from ..ops import ntt as ntt_mod
 from ..ops import ntt_cuda as nc
 from . import prng
 
@@ -32,6 +37,7 @@ MONT_OPS = 9            # 3 multiplies (one wide), carry add, correction
 SHOUP_OPS = 5           # mul.hi, 2 mul.lo, subtract, correction
 ADD_OPS = 3             # addmod or submod
 WIDE_MAC_OPS = 4        # 32 x 64-bit multiply-add of the fixed-point alpha
+ADD64_OPS = 2           # 64-bit add, subtract or negate: two 32-bit ops
 
 
 class Case(NamedTuple):
@@ -41,6 +47,9 @@ class Case(NamedTuple):
     plain: Callable[[], object]
     bytes: int                  # least device-memory traffic
     ops: int                    # least integer operations
+    kernel_reps: int = 10       # timed repetitions of the kernel ...
+    plain_reps: int = 3         # ... and of the plain version
+    plain_warmup: int = 1       # untimed calls of the plain version first
 
 
 def _ntt_ops(n: int, transforms: int) -> int:
@@ -228,3 +237,99 @@ def linear_cases(param, batch: int, device, gen: torch.Generator) -> list:
              _ext_ops(2 * rows, L, M) + _ntt_ops(n, 2 * M * batch),
              nc.ext_ntt_kernel, nc.ext_ntt_plain, x2q, qs, ps),
     ]
+
+
+def cmux_step_ops(n: int, C: int, l: int) -> dict:
+    """32-bit integer operations of ONE CMux step of the blind rotation on
+    one ciphertext (C = K + 1 polynomials, l digits each), by part:
+
+      rotate   C*n words: negate and subtract in 64 bits, then l digits of a
+               shift (two words) and a mask;
+      forward  2 primes x C*l polynomials x (n/2) log n butterflies;
+      contract 2 primes x 2C columns x C*l Shoup products and modular adds
+               per coefficient;
+      inverse  2 primes x 2C polynomials x (n/2) log n butterflies;
+      crt      C*n words x 2 limbs: two n^-1 Shoup products, the reduction
+               of r1 mod p2 (2), a modular subtract, the Shoup product by
+               p1^-1, the 32 x 32 -> 64 multiply-add, the centering compare
+               and subtract (2 x 64-bit), the limb shift and add; then the
+               64-bit accumulate.
+    """
+    return {
+        "rotate": C * n * (2 * ADD64_OPS + l * 3),
+        "forward": _ntt_ops(n, 2 * C * l),
+        "contract": 2 * 2 * C * n * C * l * (SHOUP_OPS + ADD_OPS),
+        "inverse": _ntt_ops(n, 2 * 2 * C),
+        "crt": C * n * (2 * (3 * SHOUP_OPS + 2 + ADD_OPS + WIDE_MAC_OPS
+                             + 2 * ADD64_OPS + ADD64_OPS) + ADD64_OPS),
+    }
+
+
+def _pair(name, label, nbytes, ops, kern, plain, *args, **kw) -> Case:
+    return Case(name, label, lambda: kern(*args, **kw),
+                lambda: plain(*args, **kw), nbytes, ops)
+
+
+def ntt_cases(n: int, k: int, l: int, steps: int, device,
+              gen: torch.Generator) -> list:
+    """The single-prime transform at the shapes that generating and
+    pre-transforming ``steps`` TGGSW keys (ring degree n, K = k, l levels)
+    gives it: ``precompute_evals`` under the two 30-bit primes, forward;
+    ``TorusRing._contract_crt`` under the two 31-bit primes, forward on both
+    operands and inverse on the contracted sums; and ``tn.mul_crt`` of one
+    ciphertext's polynomials, forward on the four 16-bit limbs."""
+    C = k + 1
+
+    def case(label, p, shp, inverse):
+        x = prng.uniform_mod(gen, shp + (n,), p, device)
+        polys = x.numel() // n
+        return _pair("ntt", f"{label} {list(shp)} n={n} p={p}",
+                     2 * 8 * polys * n + 8 * n,
+                     _ntt_ops(n, polys) + (polys * n * SHOUP_OPS
+                                           if inverse else 0),
+                     nc.ntt_kernel, nc.ntt_plain, x, p, inverse=inverse)
+
+    p1, p2 = ntt_mod.CRT_PRIMES_TFHE
+    c1, c2 = ntt_mod.CRT_PRIMES[:2]
+    return [
+        case("evals fwd", p1, (steps, C, l, C, 2), False),
+        case("evals fwd", p2, (steps, C, l, C, 2), False),
+        case("contract fwd x", c1, (steps, C, l, k, 4), False),
+        case("contract fwd y", c2, (k, 4), False),
+        case("contract inv", c1, (steps, C, l), True),
+        case("contract inv", c2, (steps, C, l), True),
+        case("mul_crt fwd", c1, (C, 4), False),
+    ]
+
+
+def blind_rotate_case(n: int, k: int, beta: int, l: int, steps: int,
+                      batch: int, device, gen: torch.Generator) -> Case:
+    """The whole-chain blind rotation of ``batch`` ciphertexts over
+    ``steps`` CMux steps, on random keys, shifts and accumulators (any
+    eval-domain residues do: the arithmetic is exact)."""
+    C, w = k + 1, beta.bit_length() - 1
+    p1, p2 = ntt_mod.CRT_PRIMES_TFHE
+    key = (steps, C, l, C, 2, n)
+    ev1 = prng.uniform_mod(gen, key, p1, device)
+    ev2 = prng.uniform_mod(gen, key, p2, device)
+    ev1s, ev2s = (_u32_bits(e * (1 << 32) // p)
+                  for e, p in ((ev1, p1), (ev2, p2)))
+    shifts = prng.uniform_mod(gen, (steps, batch), 2 * n, device).int()
+    acc0 = prng.uniform_u64(gen, (batch, C, n), device)
+    # the plain chain takes seconds at full width: timed once, no warm-up
+    return _pair(
+        "blind_rotate", f"steps={steps} B={batch} n={n} beta={beta} l={l}",
+        4 * 4 * ev1.numel() + 2 * 8 * acc0.numel() + 4 * shifts.numel()
+        + 4 * 4 * 2 * n,
+        steps * batch * sum(cmux_step_ops(n, C, l).values()),
+        brc.blind_rotate_kernel, brc.blind_rotate_plain,
+        shifts, acc0, ev1.int(), ev1s, ev2.int(), ev2s, n, w)._replace(
+            kernel_reps=3, plain_reps=1, plain_warmup=0)
+
+
+def tfhe_cases(n: int, k: int, beta: int, l: int, steps: int, batch: int,
+               device, gen: torch.Generator) -> list:
+    """One Case per variant of the two TFHE kernels at the shapes a
+    bootstrap gives them."""
+    return [*ntt_cases(n, k, l, steps, device, gen),
+            blind_rotate_case(n, k, beta, l, steps, batch, device, gen)]

@@ -4,8 +4,10 @@
     python3 fhe_study_tpu_torch/utils/kernel_times.py [--tree DIR] [--batch 128]
 
 Times one call of every case of ``utils/kernel_check.cases`` (N = 2^14,
-L = 4, M = 5, t = 256) with CUDA events and prints one line a case and the
-sum a kernel.  ``--tree`` names another checkout whose ``fhe_study_tpu_torch``
+L = 4, M = 5, t = 256) and, where the checkout has them, of
+``utils/kernel_check.tfhe_cases`` (N = 1024, K = 1, beta = 4096, l = 2,
+1024 steps, 64 ciphertexts, and the blind rotation over 700 steps) with
+CUDA events and prints one line a case and the sum a kernel.  ``--tree`` names another checkout whose ``fhe_study_tpu_torch``
 is timed instead of this one, so two commits can be compared on one card in
 one go: run it on the parent, the change, the change and the parent.
 Run it as a file, not with -m, so that the package it imports is the one
@@ -38,8 +40,13 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(1)
     param = R.RnsParam(n=1 << 14, t=256, L=4, M=5)
+    cases = kernel_check.cases(param, args.batch, dev, gen)
+    if hasattr(kernel_check, "tfhe_cases"):       # absent in older checkouts
+        cases += kernel_check.tfhe_cases(1024, 1, 4096, 2, 1024, 64, dev, gen)
+        cases.append(kernel_check.blind_rotate_case(1024, 1, 4096, 2, 700, 64,
+                                                    dev, gen))
     sums = {}
-    for case in kernel_check.cases(param, args.batch, dev, gen):
+    for case in cases:
         case.kernel()
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)

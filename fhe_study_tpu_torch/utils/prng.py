@@ -7,7 +7,11 @@ differ: threefry there, the generator's own here):
   * ternary: round-half-away of U[-1, 1), i.e. {-1, 0, 1} with probabilities
     (.25, .5, .25), the reference's distribution;
   * gaussian_int: Normal(0, sigma) in float64, rounded half away from zero;
-  * uniform_mod / uniform_mod_multi: uniform residues in [0, q).
+  * uniform_mod / uniform_mod_multi: uniform residues in [0, q);
+  * uniform_u64: uniform over the whole torus, as int64 holding the u64 bits
+    (two 32-bit draws, high and low);
+  * gaussian_torus: gaussian_int wrapped mod 2^64 (the int64 value is
+    already the two's-complement bits).
 
 Draws happen on the generator's device and land on ``device``; so a CPU
 generator gives the same numbers whatever card the data goes to.
@@ -46,6 +50,19 @@ def gaussian_int(gen: torch.Generator, shape, sigma: float, device):
     g = sigma * torch.randn(tuple(shape), generator=gen, dtype=torch.float64,
                             device=gen.device)
     return round_half_away(g).long().to(device)
+
+
+def uniform_u64(gen: torch.Generator, shape, device):
+    """Uniform over the full u64 range, as the int64 of the same bits."""
+    hi, lo = (torch.randint(0, 1 << 32, tuple(shape), generator=gen,
+                            dtype=torch.int64, device=gen.device)
+              for _ in range(2))
+    return (hi * (1 << 32) + lo).to(device)   # the multiply wraps, as u64 does
+
+
+def gaussian_torus(gen: torch.Generator, shape, sigma: float, device):
+    """Rounded gaussian wrapped mod 2^64 (torus noise), int64 bits."""
+    return gaussian_int(gen, shape, sigma, device)
 
 
 def split(gen: torch.Generator, n: int) -> list:

@@ -12,8 +12,11 @@ import numpy as np
 import pytest
 import torch
 
+from fhe_study_tpu_torch.arith.params import TORUS_Q, RingParam
 from fhe_study_tpu_torch.models import bfv_rns as R
-from fhe_study_tpu_torch.ops import _cuda, ntt_cuda
+from fhe_study_tpu_torch.models.gfhe.glwe import ERR_SIGMA, Param
+from fhe_study_tpu_torch.models.tfhe import bootstrap, tglwe, tlwe
+from fhe_study_tpu_torch.ops import _cuda, blind_rotate_cuda, ntt, ntt_cuda
 from fhe_study_tpu_torch.utils import kernel_check
 
 pytestmark = pytest.mark.cuda
@@ -129,3 +132,83 @@ def test_wrappers_check_dtype_and_layout(cuda):
     with pytest.raises(ValueError, match="last axis"):
         ntt_cuda.ks_fused_eval_kernel(x, keys, keys, qs, qs,
                                       (x, x.transpose(1, 2)))
+
+
+@pytest.mark.parametrize("n,k,beta,l,steps", [(256, 1, 256, 3, 40),
+                                              (1024, 1, 4096, 2, 48),
+                                              (1024, 1, 256, 3, 16),
+                                              (256, 2, 256, 2, 24)])
+def test_tfhe_kernels_match_plain(cuda, n, k, beta, l, steps):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    for case in kernel_check.tfhe_cases(n, k, beta, l, steps, 3, cuda, gen):
+        got, want = case.kernel(), case.plain()
+        torch.cuda.synchronize()
+        assert kernel_check.equal(got, want), (case.name, case.label)
+
+
+def _bootstraps(param, device, seed=8, batch=4, n_lwe=160):
+    """bootstrap and two composed bootstrap_short on draws that are the same
+    on any device; returns the ciphertexts and the decoded messages."""
+    gen = torch.Generator().manual_seed(seed)
+    kw = dict(beta=4096, l=2, beta_ks=16, l_ks=8)
+    table = bootstrap.compute_lookup_table_standard(param, device)
+    s, _ = tglwe.new_key(gen, param, device)
+    s_flat = tglwe.sk_to_tlwe(s)
+    btk, _ = bootstrap.new_bootstrapping_key(gen, param, s, s_lwe_out=s_flat,
+                                             **kw)
+    sbtk = bootstrap.new_short_bootstrapping_key(gen, param, s, n_lwe=n_lwe,
+                                                 **kw)
+    m = torch.arange(batch, device=device) % (param.t // 2)
+    c = tlwe.encrypt_uniform(gen, param.lwe(), s_flat, tlwe.encode(param, m),
+                             batch=(batch,))
+    outs = [bootstrap.bootstrap(param, btk, table, c, **kw)]
+    outs.append(bootstrap.bootstrap_short(param, sbtk, table, c, **kw))
+    outs.append(bootstrap.bootstrap_short(param, sbtk, table, outs[-1], **kw))
+    recs = [tlwe.decode(param, tlwe.decrypt(param.lwe(), s_flat, o))
+            for o in outs]
+    return m, outs, recs
+
+
+def test_bootstrap_on_card_matches_cpu(cuda):
+    param = Param(ERR_SIGMA, RingParam(TORUS_Q, 256), 1, 8)
+    _cuda.reset_launches()
+    m, outs, recs = _bootstraps(param, cuda)
+    torch.cuda.synchronize()
+    counts = _cuda.launches()
+    assert counts["ntt"] > 0 and counts["blind_rotate"] == 3, counts
+    _, outs_cpu, recs_cpu = _bootstraps(param, torch.device("cpu"))
+    for got, want in zip(outs, outs_cpu):
+        assert torch.equal(got.a.cpu(), want.a)
+        assert torch.equal(got.b.cpu(), want.b)
+    for rec, rec_cpu in zip(recs, recs_cpu):
+        assert torch.equal(rec.cpu(), rec_cpu) and torch.equal(rec, m)
+
+
+def test_tfhe_wrappers_check_dtype_and_layout(cuda):
+    x = torch.zeros((4, 2, 256), dtype=torch.int64, device=cuda)
+    q = 998244353
+    with pytest.raises(TypeError, match="int64"):
+        ntt_cuda.ntt_kernel(x.int(), q)
+    with pytest.raises(ValueError, match="contiguous"):
+        ntt_cuda.ntt_kernel(x.transpose(0, 1), q)
+    with pytest.raises(ValueError, match="2\\^31"):
+        ntt_cuda.ntt_kernel(x, (1 << 31) + 11)
+    with pytest.raises(ValueError, match="2\\^8 .. 2\\^14"):
+        ntt_cuda.ntt_kernel(x[..., :128].contiguous(), q)
+    # the dispatching transform raises too: no plain version on the card
+    with pytest.raises(ValueError, match="2\\^8 .. 2\\^14"):
+        ntt.ntt(x[..., :128].contiguous(), q)
+    with pytest.raises(ValueError, match="2\\^31"):
+        ntt.intt(x, (1 << 31) + 11)
+    shifts = torch.zeros((3, 1), dtype=torch.int32, device=cuda)
+    acc0 = torch.zeros((1, 2, 256), dtype=torch.int64, device=cuda)
+    ev = torch.zeros((3, 2, 2, 2, 2, 256), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="int32"):
+        blind_rotate_cuda.blind_rotate_kernel(shifts.long(), acc0, ev, ev, ev,
+                                              ev, 256, 12)
+    with pytest.raises(ValueError, match="ev2 has shape"):
+        blind_rotate_cuda.blind_rotate_kernel(shifts, acc0, ev, ev, ev[:2],
+                                              ev, 256, 12)
+    out = blind_rotate_cuda.blind_rotate_kernel(shifts, acc0, ev, ev, ev, ev,
+                                                256, 12)
+    assert torch.equal(out, acc0)         # a zero key leaves the accumulator

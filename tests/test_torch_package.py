@@ -16,7 +16,9 @@ from fhe_study_tpu.ops.primes import ntt_primes as jprimes
 from fhe_study_tpu.utils.rounding import round_half_away as jround
 
 from fhe_study_tpu_torch.models import bfv_rns
-from fhe_study_tpu_torch.ops import _cuda, ext_cuda, ntt, ntt_cuda, primes
+from fhe_study_tpu_torch.models.tfhe import tggsw, tlwe
+from fhe_study_tpu_torch.ops import (_cuda, blind_rotate_cuda, ext_cuda, ntt,
+                                     ntt_cuda, primes)
 from fhe_study_tpu_torch.utils import interop, prng
 from fhe_study_tpu_torch.utils.rounding import round_half_away
 
@@ -101,6 +103,12 @@ def test_kernel_wrappers_take_only_cuda_tensors():
         lambda: ntt_cuda.tensor_mul_kernel(keys[:, None], qs),
         lambda: ntt_cuda.ks_fused_kernel(x, keys, keys, qs, qs),
         lambda: ntt_cuda.ks_fused_eval_kernel(x, keys, keys, qs, qs, (x, x)),
+        lambda: ntt_cuda.ntt_kernel(x.long(), qs[0]),
+        lambda: blind_rotate_cuda.blind_rotate_kernel(
+            torch.zeros((3, 1), dtype=torch.int32),
+            torch.zeros((1, 2, 256), dtype=torch.int64),
+            *(torch.zeros((3, 2, 2, 2, 2, 256), dtype=torch.int32),) * 4,
+            256, 12),
     ]
     before = _cuda.launches()
     for call in calls:
@@ -110,18 +118,20 @@ def test_kernel_wrappers_take_only_cuda_tensors():
 
 
 def test_every_kernel_names_its_plain_version_and_its_pallas_kernel():
-    """Nine entries; each has a wrapper and a plain version beside it, and
+    """Eleven entries; each has a wrapper and a plain version beside it, and
     ``replaces`` is the file:line of the ``def`` of an existing function of
     the JAX package that reaches ``pl.pallas_call``."""
     pallas = {"ntt_multi": "ntt_multi_u32", "tensor_eval4": "tensor_eval4_u32",
               "ks_contract": "ks_contract_u32",
               "base_extend": "base_extend_fused", "ext_ntt": "ext_ntt_u32",
               "tensor_mul4": "tensor_mul4_u32", "tensor_mul": "tensor_mul_u32",
-              "ks_fused": "ks_fused_u32", "ks_fused_eval": "ks_fused_eval_u32"}
+              "ks_fused": "ks_fused_u32", "ks_fused_eval": "ks_fused_eval_u32",
+              "ntt": "ntt_u32", "blind_rotate": "blind_rotate_fused"}
     assert [k.name for k in _cuda.KERNELS] == list(pallas)
     assert set(_cuda.launches()) == set(pallas)
     for k in _cuda.KERNELS:
-        mod = ext_cuda if k.name == "base_extend" else ntt_cuda
+        mod = {"base_extend": ext_cuda,
+               "blind_rotate": blind_rotate_cuda}.get(k.name, ntt_cuda)
         stem = "base_extend_fused" if k.name == "base_extend" else k.name
         assert callable(getattr(mod, stem + "_kernel"))
         assert callable(getattr(mod, stem + "_plain"))
@@ -242,3 +252,45 @@ def test_interop_round_trip_and_range_check():
         interop.to_tensor(np.array([0.5]), "cpu")
     with pytest.raises(TypeError, match="cannot carry"):
         interop.to_port((a, a), "cpu")
+
+
+def test_interop_carries_torus_words_and_shoup_planes_bit_for_bit():
+    """u64 torus words above 2^63 and u32 words above 2^31 keep their bits
+    (the residue path refuses them); scalars keep their shape."""
+    w = np.array([0, 1, (1 << 63) - 1, 1 << 63, (1 << 64) - 1], np.uint64)
+    ct = interop.to_port(tlwe.TLWE(w, w[3]), "cpu")
+    assert isinstance(ct, tlwe.TLWE) and ct.a.dtype == torch.int64
+    assert ct.a.tolist() == [0, 1, (1 << 63) - 1, -(1 << 63), -1]
+    assert tuple(ct.b.shape) == ()
+    for got, want in zip(interop.bits_to_numpy(ct), (w, w[3])):
+        np.testing.assert_array_equal(got, want)
+    planes = np.array([0, (1 << 31) - 1, 1 << 31, (1 << 32) - 1], np.uint32)
+    ev = interop.to_port(tggsw.TGGSWEvals(*(planes,) * 4), "cpu")
+    assert ev.ev1s.dtype == torch.int32
+    assert ev.ev1s.tolist() == [0, (1 << 31) - 1, -(1 << 31), -1]
+    np.testing.assert_array_equal(interop.bits_to_numpy(ev.ev2s), planes)
+    with pytest.raises(TypeError, match="uint64 or uint32"):
+        interop.bits_to_tensor(np.array([1], np.int64), "cpu")
+    with pytest.raises(TypeError, match="int64 or int32"):
+        interop.bits_to_numpy(torch.zeros(2))
+    assert set(interop.BIT_KINDS) == {
+        "TLWE", "GLWE", "TGGSW", "TGGSWEvals", "KSK", "BootstrappingKey",
+        "ShortBootstrappingKey"}
+
+
+def test_build_is_one_command_over_every_source(bare_loader, monkeypatch):
+    """One compiler command names every .cu file; the log keeps it."""
+    fake = bare_loader / "cuda" / "bin" / "nvcc"
+    fake.parent.mkdir(parents=True)
+    fake.write_text("#!/bin/sh\nwhile [ $# -gt 1 ]; do\n"
+                    "  [ \"$1\" = -o ] && out=$2\n  shift\ndone\n"
+                    "echo built > $out\n")
+    fake.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(bare_loader / "cuda"))
+    with pytest.raises(OSError):            # the fake library is no ELF file
+        _cuda.library()
+    log = (_cuda.build_dir() / "build.log").read_text().splitlines()
+    cus = sorted(p.name for p in _cuda.CSRC.iterdir() if p.suffix == ".cu")
+    assert len(cus) == 3 and len(log) == 1
+    assert [w.rsplit("/", 1)[-1] for w in log[0].split()[-3:]] == cus
+    assert " -shared " in log[0]
