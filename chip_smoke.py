@@ -6,15 +6,19 @@
 The paths are those of RNS-BFV (models/bfv_rns.py) at N = 2^14, L = 4
 Q-primes, M = 5 P-primes, K = 2 auxiliary primes, t = 256, a batch of 128
 ciphertexts, its linear pipeline at N = 2^12, L = 2, M = 3, a batch of
-1024, and TFHE programmable bootstrapping (models/tfhe/bootstrap.py) at
+1024, TFHE programmable bootstrapping (models/tfhe/bootstrap.py) at
 N = 1024, K = 1, t = 8, a batch of 64, blind-rotation gadget 4096^2,
-key-switch gadget 16^8: the full chain of 1024 CMux steps and the
-keyswitch-first pipeline over a short key of 700.  Phases, each of which
-raises (and so exits non-zero) on any failure:
+key-switch gadget 16^8 (the full chain of 1024 CMux steps and the
+keyswitch-first pipeline over a short key of 700), RNS-CKKS
+(models/ckks/ckks_rns.py with models/hybrid_ks.py and models/galois.py) at
+N = 2^13, L = 4 primes of 30 bits, delta = 2^28, K = 2, a batch of 32, and
+the NTT mode: a chain of 8 ntt_multi over 9 primes, B = 64, N = 2^14.
+Phases, each of which raises (and so exits non-zero) on any failure:
 
   1. toolchain and card: torch, CUDA, nvcc; the kernels built from csrc/;
-  2. each of the eleven kernel entries against its plain PyTorch version on
-     the card, bit for bit, at the paths' shapes (batch 8) and at n = 256;
+  2. each of the first eleven kernel entries against its plain PyTorch
+     version on the card, bit for bit, at the paths' shapes (batch 8) and at
+     n = 256;
   3. the eval-resident path: keygen -> hybrid relin key -> encrypt 128
      plaintext pairs -> to_evals -> mul_e -> from_evals -> decrypt;
   4. the coefficient-domain and gadget paths on the same ciphertexts: mul
@@ -23,10 +27,10 @@ raises (and so exits non-zero) on any failure:
      stacked tensor (tensor_mul_multi, held against tensor_mul4);
   5. the linear pipeline: pt_to_evals, to_evals x 2, one
      mul_pt_e(add_e(., .), em) step;
-     every launch counter is set to 0 before each path of 3-5 and read after
-     it, and every decrypted result is held against an independent numpy FFT
+     every launch counter is set to 0 before each path and read after it,
+     and every decrypted result is held against an independent numpy FFT
      negacyclic product for every coefficient;
-  6. timing with CUDA events: chains of 8 (hybrid mul_e, gadget mul_e, mul,
+  6. timing with CUDA events: chains of 4 (hybrid mul_e, gadget mul_e, mul,
      the linear step) and each kernel variant against its plain version at
      the paths' shapes, beside the least time the card could take (bound);
   7. the TFHE full-chain path: tglwe.new_key -> new_bootstrapping_key ->
@@ -37,7 +41,35 @@ raises (and so exits non-zero) on any failure:
      bootstrap_short twice, the second on the output of the first;
   9. TFHE timing: a chain of 3 bootstraps of each pipeline, each fed the
      last one's output, as bootstraps/s; the key switch and the sample
-     extraction apart; the two TFHE kernels beside plain and bound.
+     extraction apart; the two TFHE kernels beside plain and bound;
+ 10. the last three entries (base_extend_sum, ntt_smem_ceiling, alu_rate)
+     against their plain versions, base_extend_sum also against the whole
+     conversion, and the variants of earlier kernels that RNS-CKKS launches
+     (K3 over R = 4 rows, K7 and K1 over the extended basis of 6 primes, K6
+     without a scale, K4 from 2 to 4 primes), bit for bit, at N = 2^13 (the
+     measuring loops at N = 2^14) and n = 256; the SASS instruction counts
+     of the alu_rate loops read back from the build (the instruction rates
+     of phase 12 and the bounds of phase 13 use these, not recorded ones);
+ 11. RNS-CKKS at full width, keys generated on the card: new_key ->
+     hybrid_rlk -> encode and encrypt two slot vectors -> add -> mul_hybrid
+     -> decrypt_to_coeffs -> decode, held against (z1 + z2) * z1 in all
+     32 x 4096 slots (atol 1e-2); on the same ciphertexts rotate_hybrid, and
+     eight rotate_hoisted from one hoist_digits, each decoded and held
+     against the slots moved by galois.ckks_slot_perm; the contraction-only
+     base extension driven on that path's own accumulator; the gadget
+     keyring (GaloisKeys.for_rotations, conj=True) on a CKKS ciphertext at
+     delta = 2^55 and on a batched RNS-BFV ciphertext (bfv_batch, t = 65537,
+     exact); mul_hybrid2 at L = 7, delta = q_6 q_5, through the 3-limb
+     decrypt;
+ 12. the NTT mode: the chain of 8 ntt_multi, 3 times, as butterflies/s
+     (utils/profiling.ntt_roofline) beside the shared-memory ceiling at
+     B = 64 and on a full card, and the alu_rate operations' issue rates;
+     the last timed launch of every one of these is held against the plain
+     version (the ceiling's on four polynomials, an alu_rate launch as 64
+     shorter ones, the first of which is held against plain);
+ 13. timing: the CKKS step as a chain (add + mul_hybrid, 3 iterations, the
+     padded output fed back) as ops/s, eight rotations hoisted against
+     eight unhoisted, and every variant of phase 10 beside plain and bound.
 
 It prints each finding on a line of its own, then the kernels' JSON record,
 the card's name and power limit, and as its last line
@@ -53,17 +85,27 @@ import numpy as np
 import torch
 
 SEED = 20240614
-N, L, M, T, BATCH, CHAIN = 1 << 14, 4, 5, 256, 128, 8
+N, L, M, T, BATCH, CHAIN = 1 << 14, 4, 5, 256, 128, 4
 LIN_N, LIN_L, LIN_M, LIN_BATCH = 1 << 12, 2, 3, 1024
 PARITY_BATCH = 8
 TFHE_N, TFHE_K, TFHE_T, TFHE_BATCH, TFHE_CHAIN = 1024, 1, 8, 64, 3
 TFHE_BETA, TFHE_L, TFHE_BETA_KS, TFHE_L_KS, TFHE_N_LWE = 4096, 2, 16, 8, 700
+CK_N, CK_L, CK_K, CK_DELTA, CK_BATCH, CK_ITERS = 1 << 13, 4, 2, 2.0 ** 28, 32, 3
+CK_STEPS = (1, 2, 3, 5, 7, 11, 13, 17)       # the eight hoisted rotations
+CK2_L, CK2_BATCH = 7, 4                      # the double-prime scale
+CK_GADGET_DELTA, CK_GADGET_BATCH, BATCH_T = 2.0 ** 55, 4, 65537
+NTT_L, NTT_B, NTT_CHAIN, NTT_ITERS = 9, 64, 8, 3
+CEILING_REPS, ALU_ROUNDS = 64, 1 << 16
 # the bound's denominators: device memory rate of the H100 SXM data sheet,
-# and 64 INT32 lanes per SM per clock (4 partitions x 16, the Hopper
-# architecture's figure) times the SM count and the maximum SM clock that
-# the card in hand reports
+# and the SM's issue rate, 128 thread-instructions a clock (one
+# warp-instruction a clock in each of 4 partitions; the data sheet's float32
+# rate is the same 128 multiply-adds), times the SM count and the maximum SM
+# clock that the card in hand reports.  The two integer pipes together (64
+# lanes each: IMAD on one, IADD3/LOP3/ISETP/SEL on the other) can take no
+# more, so no mix of 32-bit integer instructions issues faster
 MEMORY_BYTES_PER_S = 3.35e12
-INT32_LANES_PER_SM = 64
+INSTR_PER_SM_CLOCK = 128
+ALU_SHORT_ROUNDS = 1024      # the timed alu_rate launch is held in such pieces
 
 
 def say(*parts) -> None:
@@ -115,11 +157,17 @@ def main() -> None:
         sys.exit("chip_smoke: no CUDA card (torch.cuda.is_available() is "
                  "False); nothing was run")
     from fhe_study_tpu_torch.arith.params import TORUS_Q, RingParam
+    from fhe_study_tpu_torch.models import bfv_batch, galois
     from fhe_study_tpu_torch.models import bfv_rns as R
+    from fhe_study_tpu_torch.models import hybrid_ks as H
+    from fhe_study_tpu_torch.models.ckks import ckks_rns as C
     from fhe_study_tpu_torch.models.gfhe.glwe import ERR_SIGMA, Param
     from fhe_study_tpu_torch.models.tfhe import bootstrap, tglwe, tlwe
-    from fhe_study_tpu_torch.ops import _cuda, ntt, ntt_cuda
-    from fhe_study_tpu_torch.utils import kernel_check, prng
+    from fhe_study_tpu_torch.ops import (_cuda, alu_bench, ext_cuda, ntt,
+                                         ntt_cuda)
+    from fhe_study_tpu_torch.ops.primes import ntt_primes
+    from fhe_study_tpu_torch.utils import (kernel_check, profiling, prng,
+                                           sass_counts)
 
     dev = torch.device("cuda", 0)
 
@@ -132,10 +180,14 @@ def main() -> None:
     say(f"card: {card}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     sm_mhz = float(smi("clocks.max.sm").split()[0])
-    int_ops_per_s = sms * INT32_LANES_PER_SM * sm_mhz * 1e6
+    int_ops_per_s = sms * INSTR_PER_SM_CLOCK * sm_mhz * 1e6
     say(f"bound: bytes over {MEMORY_BYTES_PER_S / 1e12} TB/s, integer "
-        f"operations over {sms} SMs x {INT32_LANES_PER_SM} lanes x "
-        f"{sm_mhz:.0f} MHz = {int_ops_per_s / 1e12:.2f} T/s")
+        f"instructions (SASS counts of the primitives: "
+        f"{kernel_check.BUTTERFLY_OPS} a butterfly, {kernel_check.MONT_OPS} a "
+        f"Montgomery product, {kernel_check.SHOUP_OPS} a Shoup product, "
+        f"{kernel_check.ADD_OPS} a modular add) over {sms} SMs x "
+        f"{INSTR_PER_SM_CLOCK} issued a clock x {sm_mhz:.0f} MHz = "
+        f"{int_ops_per_s / 1e12:.2f} T/s")
     t0 = time.perf_counter()
     _cuda.library()
     build_s = time.perf_counter() - t0
@@ -149,13 +201,16 @@ def main() -> None:
     err = {k.name: 0 for k in _cuda.KERNELS}
     checked = {k.name: 0 for k in _cuda.KERNELS}
 
-    def check(case, got, want) -> None:
+    def hold(name: str, label: str, got, want) -> None:
         diff = kernel_check.max_abs_err(got, want)
         if not kernel_check.equal(got, want):
-            raise RuntimeError(f"{case.name} [{case.label}]: kernel != plain "
+            raise RuntimeError(f"{name} [{label}]: kernel != plain "
                                f"(max |diff| {diff})")
-        err[case.name] = max(err[case.name], diff)
-        checked[case.name] += 1
+        err[name] = max(err[name], diff)
+        checked[name] += 1
+
+    def check(case, got, want) -> None:
+        hold(case.name, case.label, got, want)
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     for n in (N, 256):
@@ -175,9 +230,6 @@ def main() -> None:
         torch.cuda.synchronize()
         check(case, got, want)
     del tfhe_parity, case, got, want
-    missing = [k for k, v in checked.items() if v == 0]
-    if missing:
-        raise RuntimeError(f"kernels with no parity case: {missing}")
     say(f"parity: kernel == plain (torch.equal) for "
         f"{sum(checked.values())} variants at n={N} and n=256 (batch "
         f"{PARITY_BATCH}) and, for the TFHE kernels, at n={TFHE_N} over "
@@ -358,12 +410,22 @@ def main() -> None:
     plain_ms, byte_ms, op_ms, bound_ms = dict(ms), dict(ms), dict(ms), dict(ms)
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
 
+    case_ms, timed_chains = {}, []
+
     def time_case(case) -> None:
         check(case, case.kernel(), case.plain())
         k_ms = time_ms(case.kernel, case.kernel_reps)
+        case_ms[case.label] = k_ms
+        if case.butterflies:
+            timed_chains.append(case)
         p_ms = time_ms(case.plain, case.plain_reps, warmup=case.plain_warmup)
         b_ms = case.bytes / MEMORY_BYTES_PER_S * 1e3
         o_ms = case.ops / int_ops_per_s * 1e3
+        if k_ms < max(b_ms, o_ms):
+            raise RuntimeError(
+                f"{case.name} [{case.label}]: the kernel's {k_ms:.4f} ms is "
+                f"under its bound (bytes {b_ms:.4f} ms, instructions "
+                f"{o_ms:.4f} ms): the bound is no bound")
         ms[case.name] += k_ms
         plain_ms[case.name] += p_ms
         byte_ms[case.name] += b_ms
@@ -371,7 +433,7 @@ def main() -> None:
         bound_ms[case.name] += max(b_ms, o_ms)
         say(f"timing: {case.name:13s} {case.label:48s} kernel {k_ms:8.3f} ms"
             f"  plain {p_ms:9.3f} ms  bound {max(b_ms, o_ms):7.4f} ms "
-            f"(bytes {b_ms:.4f}, operations {o_ms:.4f})  [{card}]")
+            f"(bytes {b_ms:.4f}, instructions {o_ms:.4f})  [{card}]")
 
     for case in (kernel_check.cases(param, BATCH, dev, gen)
                  + kernel_check.linear_cases(lin, LIN_BATCH, dev, gen)):
@@ -466,12 +528,6 @@ def main() -> None:
     verify_messages("bootstrap_short of its own output", got2)
     sbtk, sevals = ts["sbtk"], ts["sevals"]
 
-    launches = {k.name: sum(c[k.name] for c in path_launches.values())
-                for k in _cuda.KERNELS}
-    never = [k for k, v in launches.items() if v == 0]
-    if never:
-        raise RuntimeError(f"kernels launched on no path: {never}")
-
     # 9. TFHE timing ---------------------------------------------------------
     def chain_of_bootstraps(step):
         def chain():
@@ -540,10 +596,446 @@ def main() -> None:
         f"{TFHE_K + 1}, l={TFHE_L}: {sum(step_ops.values())} 32-bit integer "
         f"operations {step_ops}")
 
+    del sbtk, sevals, btk, evals, ct, ts
+    torch.cuda.empty_cache()
+
+    # 10. the last three kernels and the CKKS variants, against plain --------
+    cp = C.Param(n=CK_N, L=CK_L, delta=CK_DELTA)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    for n in (CK_N, 256):
+        small = C.Param(n=n, L=CK_L, delta=CK_DELTA)
+        for case in (kernel_check.ckks_cases(small, PARITY_BATCH, CK_K, dev,
+                                             gen)
+                     + kernel_check.ext_sum_cases(n, PARITY_BATCH, dev, gen)
+                     + kernel_check.bench_cases(2 * n if n == CK_N else n,
+                                                PARITY_BATCH, dev, gen)):
+            got, want = case.kernel(), case.plain()
+            torch.cuda.synchronize()
+            check(case, got, want)
+    del case, got, want
+    missing = [k for k, v in checked.items() if v == 0]
+    if missing:
+        raise RuntimeError(f"kernels with no parity case: {missing}")
+    say(f"parity: kernel == plain (torch.equal) for the CKKS variants, "
+        f"base_extend_sum (also == the whole conversion, unsigned and "
+        f"centered) and the measuring loops at n={CK_N} (loops: n={2 * CK_N})"
+        f" and n=256, batch {PARITY_BATCH}: {checked}")
+    sass = sass_counts.loop_counts(sass_counts.disassemble())
+    sass_per = {op: sass[op]["per_word_round"] for op in alu_bench.OPS}
+    for op in alu_bench.OPS:
+        same = ("as recorded" if sass_per[op] == alu_bench.OP_COUNTS[op] else
+                f"NOT the recorded {alu_bench.OP_COUNTS[op]}: another "
+                f"compiler; this build's count is used below")
+        say(f"sass: alu_rate {op:10s} {sass_per[op]:.4f} instructions a "
+            f"{'butterfly' if op == 'butterfly' else 'word'} and round in "
+            f"this build ({same}): {sass[op]['loop']}")
+
+    # 11. RNS-CKKS at full width ---------------------------------------------
+    cshape = (f"N={CK_N} L={CK_L} K={CK_K} "
+              f"delta=2^{round(np.log2(CK_DELTA))} B={CK_BATCH}")
+    rng = np.random.default_rng(SEED)
+    z1, z2 = (rng.uniform(-1, 1, (CK_BATCH, CK_N // 2)) for _ in range(2))
+    zero = torch.zeros((CK_BATCH, CK_N // 2), dtype=torch.float64, device=dev)
+    cs = {}
+
+    def on_card(a):
+        return torch.from_numpy(a).to(dev)
+
+    def slots_of(p, key, c):
+        rr, ri = C.decode(p, C.decrypt_to_coeffs(p, key, c))
+        return rr.cpu().numpy() + 1j * ri.cpu().numpy()
+
+    def verify_slots(label: str, got, want, atol: float) -> None:
+        worst = float(np.abs(got - want).max())
+        if (got.shape != want.shape or not np.isfinite(got).all()
+                or not np.allclose(got, want, atol=atol)):
+            raise RuntimeError(f"{label}: decoded slots differ from the "
+                               f"plaintext result by up to {worst:.3e} "
+                               f"(atol {atol})")
+        say(f"verify: {label}: decoded == plaintext in all {want.shape[0]} x "
+            f"{want.shape[1]} slots (max |diff| {worst:.3e}, atol {atol})")
+
+    def ckks_path():
+        cs["sk"], cs["pk"] = C.new_key(gen, cp, dev)
+        cs["hrlk"] = C.hybrid_rlk(gen, cp, cs["sk"], K=CK_K)
+        cs["c"] = [C.encrypt(gen, cp, cs["pk"],
+                             C.encode(cp, on_card(z), zero),
+                             batch=(CK_BATCH,)) for z in (z1, z2)]
+        c1, c2 = cs["c"]
+        out, p2 = C.mul_hybrid(cp, cs["hrlk"], c1, C.add(cp, c1, c2))
+        return out, p2, slots_of(p2, cs["sk"], out)
+
+    out, p2, got = drive(
+        f"ckks: new_key -> hybrid_rlk -> encode, encrypt x 2 -> add -> "
+        f"mul_hybrid -> decrypt_to_coeffs -> decode at {cshape}",
+        ("ntt_multi", "tensor_mul4", "ks_fused", "base_extend"), ckks_path)
+    if (p2.L != CK_L - 1 or tuple(out.c0.shape) != (CK_L - 1, CK_BATCH, CK_N)
+            or out.c0.dtype != torch.int32):
+        raise RuntimeError(f"mul_hybrid output: {p2}, {tuple(out.c0.shape)}")
+    verify_slots("add + mul_hybrid", got, ((z1 + z2) * z1).astype(complex),
+                 1e-2)
+    csk, hrlk, (c1, c2) = cs["sk"], cs["hrlk"], cs["c"]
+
+    def moved(z, g):
+        perm, conj = galois.ckks_slot_perm(CK_N, g)
+        return np.where(conj, z[:, perm].conj(), z[:, perm]).astype(complex)
+
+    t0 = time.perf_counter()
+    gs = [galois.rotation_element(CK_N, k) for k in CK_STEPS]
+    for g in gs:
+        galois.eval_perm_on(CK_N, g, dev)
+        galois._map_on(CK_N, g, dev)
+    say(f"host: eval_perm and galois_map of {len(gs)} Galois elements at "
+        f"n={CK_N} in {time.perf_counter() - t0:.2f} s (Python integers, "
+        "cached per (n, g); outside every timed window)")
+
+    def rotations():
+        cs["hgk"] = [H.galois_key_hybrid(gen, cp, csk, g, K=CK_K)
+                     for g in gs]
+        first = H.rotate_hybrid(cp, cs["hgk"][0], c1, gs[0])
+        cs["edm"] = H.hoist_digits(cp, c1.c1, K=CK_K)
+        hoisted = [H.rotate_hoisted(cp, k, c1, g, cs["edm"])
+                   for k, g in zip(cs["hgk"], gs)]
+        return ([slots_of(cp, csk, first)]
+                + [slots_of(cp, csk, r) for r in hoisted])
+
+    rot = drive(f"ckks rotations: galois_key_hybrid x {len(gs)} -> "
+                f"rotate_hybrid; hoist_digits -> rotate_hoisted x {len(gs)} "
+                f"-> decode at {cshape}",
+                ("ntt_multi", "ks_fused", "ks_contract", "base_extend"),
+                rotations)
+    verify_slots(f"rotate_hybrid by {CK_STEPS[0]}", rot[0],
+                 moved(z1, gs[0]), 1e-2)
+    for k, g, got in zip(CK_STEPS, gs, rot[1:]):
+        verify_slots(f"rotate_hoisted by {k}", got, moved(z1, g), 1e-2)
+    hgk, edm = cs["hgk"], cs["edm"]
+
+    # base_extend_sum: no function of either package calls it (the hoisted
+    # rotations it was written for go through the whole conversion), so it
+    # is driven through its dispatcher, on the accumulator that this path's
+    # key switch hands the P-division
+    ks = H.ks_ext_primes(cp, CK_K)
+    acc0, _ = ntt.ks_fused_multi(c1.c1, hrlk.b, hrlk.a, cp.qs + ks, cp.qs)
+
+    def ext_sum_path():
+        ys, alpha = ext_cuda.lift_plain(acc0[CK_L:], ks, True)
+        return ext_cuda.base_extend_sum(ys.int(), alpha.int(), ks, cp.qs)
+
+    got = drive(f"base_extend_sum on the (ys, alpha) of the key switch's "
+                f"auxiliary residues [{CK_K}, {CK_BATCH}, {CK_N}]",
+                ("base_extend_sum",), ext_sum_path)
+    if not torch.equal(got, ext_cuda.base_extend_fused(acc0[CK_L:], ks, cp.qs,
+                                                       centered=True)):
+        raise RuntimeError("base_extend_sum != the whole centered conversion "
+                           "on the path's accumulator")
+    say("verify: base_extend_sum == base_extend_fused (torch.equal) on the "
+        "accumulator of the multiply that decoded right above")
+    del acc0, got
+
+    # the gadget keyring: its noise, ~ n sqrt(L) * 2^30 * sigma a hop in a
+    # slot, does not shrink with P, so CKKS needs a larger scale for it
+    # (3-limb decrypt) and the reference's own test of it holds |z| <= 10 to
+    # atol 0.5; batched RNS-BFV is exact
+    gp = C.Param(n=CK_N, L=CK_L, delta=CK_GADGET_DELTA)
+    zg = (rng.uniform(-10, 10, (CK_GADGET_BATCH, CK_N // 2))
+          + 1j * rng.uniform(-10, 10, (CK_GADGET_BATCH, CK_N // 2)))
+
+    def keyring_ckks():
+        sk, pk = C.new_key(gen, gp, dev)
+        c = C.encrypt(gen, gp, pk, C.encode(gp, on_card(zg.real.copy()),
+                                            on_card(zg.imag.copy())),
+                      batch=(CK_GADGET_BATCH,))
+        ring = galois.GaloisKeys.for_rotations(gen, gp, sk, steps=[1, 2],
+                                               conj=True)
+        return (slots_of(gp, sk, ring.rotate(gp, c, 3)),
+                slots_of(gp, sk, ring.conjugate(gp, c)))
+
+    got3, gotc = drive(
+        f"ckks keyring: GaloisKeys.for_rotations(steps=[1, 2], conj=True) -> "
+        f"rotate by 3 (two hops), conjugate at N={CK_N} L={CK_L} delta=2^55 "
+        f"B={CK_GADGET_BATCH}", ("ntt_multi", "ks_fused"), keyring_ckks)
+    verify_slots("GaloisKeys.rotate by 3", got3,
+                 moved(zg, galois.rotation_element(CK_N, 3)), 0.5)
+    verify_slots("GaloisKeys.conjugate", gotc, zg.conj(), 0.5)
+
+    bp = R.RnsParam(n=CK_N, t=BATCH_T, L=L, M=M)
+    bslots = rng.integers(0, BATCH_T, (CK_GADGET_BATCH, 2, CK_N // 2))
+
+    def keyring_bfv():
+        sk, pk = R.new_key(gen, bp, dev)
+        m = bfv_batch.batch_encode(BATCH_T, CK_N, on_card(bslots))
+        c = R.encrypt(gen, bp, pk, m, batch=(CK_GADGET_BATCH,))
+        ring = galois.GaloisKeys.for_rotations(gen, bp, sk, steps=[1, 2],
+                                               conj=True)
+        return [bfv_batch.batch_decode(BATCH_T, CK_N, R.decrypt(bp, sk, r))
+                for r in (ring.rotate(bp, c, 3), ring.conjugate(bp, c))]
+
+    rot3, swapped = drive(
+        f"bfv batching: batch_encode -> encrypt -> GaloisKeys rotate by 3, "
+        f"conjugate -> decrypt -> batch_decode at N={CK_N} t={BATCH_T} L={L} "
+        f"M={M} B={CK_GADGET_BATCH}", ("ntt", "ntt_multi", "ks_fused"),
+        keyring_bfv)
+    for label, got, want in (("row rotation by 3", rot3,
+                              np.roll(bslots, -3, axis=-1)),
+                             ("row swap", swapped, bslots[:, ::-1])):
+        if not np.array_equal(got.cpu().numpy(), want):
+            raise RuntimeError(f"bfv batching: {label} moved the slots wrong")
+        say(f"verify: bfv batching: {label} == the slots moved, all "
+            f"{want.shape[0]} x 2 x {want.shape[2]}")
+    del rot3, swapped
+
+    p7 = C.Param(n=CK_N, L=CK2_L, delta=1.0)
+    p7 = C.Param(n=CK_N, L=CK2_L, delta=C.delta2(p7))
+    za, zb = (rng.uniform(-1, 1, (CK2_BATCH, CK_N // 2)) for _ in range(2))
+
+    def double_scale():
+        sk, pk = C.new_key(gen, p7, dev)
+        hk = C.hybrid_rlk(gen, p7, sk, K=CK_K)
+        z0 = zero[:CK2_BATCH]
+        ca, cb = (C.encrypt(gen, p7, pk, C.encode(p7, on_card(z), z0),
+                            batch=(CK2_BATCH,)) for z in (za, zb))
+        out, p5 = C.mul_hybrid2(p7, hk, ca, cb)
+        return p5, slots_of(p5, sk, out)
+
+    p5, got = drive(
+        f"ckks double-prime scale: new_key -> hybrid_rlk -> encrypt x 2 -> "
+        f"mul_hybrid2 -> 3-limb decrypt_to_coeffs -> decode at N={CK_N} "
+        f"L={CK2_L} delta=q6*q5 B={CK2_BATCH}",
+        ("ntt_multi", "tensor_mul4", "ks_fused", "base_extend"), double_scale)
+    if p5.L != CK2_L - 2 or p5.delta <= 2.0 ** 40:
+        raise RuntimeError(f"mul_hybrid2 parameters: {p5}")
+    verify_slots("mul_hybrid2", got, (za * zb).astype(complex), 1e-9)
+
+    # 12. the NTT mode -------------------------------------------------------
+    nqs = ntt_primes(NTT_L, 30, 1 << 16)
+    a0 = prng.uniform_mod_multi(gen, (NTT_B, N), nqs, dev)
+    resident = {n: alu_bench.resident_blocks(dev, n=n) for n in (N, CK_N)}
+    alu_shape = {op: (sms * alu_bench.resident_blocks(dev, op=op)[0], 1024)
+                 for op in alu_bench.OPS}
+    nb = {}
+
+    def ntt_chain(x):
+        for _ in range(NTT_CHAIN):
+            x = ntt.ntt_multi(x, nqs)
+        return x
+
+    def ntt_mode():
+        cur = ntt_chain(a0)                                  # warm up
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        cur = a0
+        for _ in range(NTT_ITERS):
+            cur = ntt_chain(cur)           # chained: no cache can serve it
+        end.record()
+        torch.cuda.synchronize()
+        nb["dt"] = start.elapsed_time(end) / 1e3
+        nb["ceiling_64"] = alu_bench.ntt_smem_ceiling(
+            dev, n=N, B=NTT_B, reps=CEILING_REPS)
+        nb["ceiling"] = {n: alu_bench.ntt_smem_ceiling(
+            dev, n=n, B=resident[n][0] * sms, reps=CEILING_REPS)
+            for n in (N, CK_N)}
+        nb["alu"] = {op: alu_bench.alu_rate(op, dev, rounds=ALU_ROUNDS,
+                                            shape=alu_shape[op])
+                     for op in alu_bench.OPS}
+        return cur
+
+    cur = drive(f"ntt mode: chain of {NTT_CHAIN} ntt_multi x {NTT_ITERS} over "
+                f"{NTT_L} primes, B={NTT_B}, N={N}; the shared-memory "
+                f"ceiling; the alu_rate operations",
+                ("ntt_multi", "ntt_smem_ceiling", "alu_rate"), ntt_mode)
+    if not torch.equal(ntt.intt_multi(ntt.ntt_multi(a0, nqs), nqs), a0):
+        raise RuntimeError("ntt mode: intt_multi(ntt_multi(x)) != x")
+    head = a0[:, :2].contiguous()
+    if not torch.equal(ntt.ntt_multi(head, nqs),
+                       ntt_cuda.ntt_multi_plain(head, nqs)):
+        raise RuntimeError("ntt mode: ntt_multi != its plain version")
+    if tuple(cur.shape) != (NTT_L, NTT_B, N) or int(cur.max()) >= max(nqs):
+        raise RuntimeError("ntt mode: the chain's output left its range")
+    say(f"verify: ntt mode: intt_multi(ntt_multi(x)) == x on all {NTT_L} x "
+        f"{NTT_B} polynomials; the first link == its plain version")
+    # the launches whose rates are printed below, held against the plain
+    # versions: the ceiling's last timed launch on its first and last two
+    # polynomials (each block is one polynomial) ...
+    for r in (nb["ceiling_64"], *nb["ceiling"].values()):
+        (xin,), rows = r["operands"], [0, 1, r["B"] - 2, r["B"] - 1]
+        hold("ntt_smem_ceiling",
+             f"the timed launch, reps={r['reps']} B={r['B']} n={r['n']}",
+             r["out"][rows],
+             alu_bench.ntt_smem_ceiling_plain(xin[rows], r["q"], r["reps"]))
+    # ... and each alu_rate's as a chain of shorter launches on the same
+    # grid, the first of which is held against the plain version on the
+    # words of the first and the last block
+    for op, r in nb["alu"].items():
+        x, y, yp = r["operands"]
+        threads = x.numel() // alu_bench.ALU_PER_THREAD
+        cols = torch.cat([torch.arange(alu_bench.ALU_THREADS),
+                          torch.arange(threads - alu_bench.ALU_THREADS,
+                                       threads)]).to(dev)
+
+        def part(v):
+            words = v.reshape(alu_bench.ALU_PER_THREAD, -1)
+            return words[:, cols].contiguous()
+
+        cur = alu_bench.alu_rate_kernel(x, y, yp, op, ALU_SHORT_ROUNDS)
+        hold("alu_rate", f"{op} rounds={ALU_SHORT_ROUNDS} on {list(x.shape)}, "
+             f"first and last block", part(cur),
+             alu_bench.alu_rate_plain(part(x), part(y), part(yp), op,
+                                      ALU_SHORT_ROUNDS))
+        for _ in range(r["rounds"] // ALU_SHORT_ROUNDS - 1):
+            cur = alu_bench.alu_rate_kernel(cur, y, yp, op, ALU_SHORT_ROUNDS)
+        hold("alu_rate", f"{op}: the timed launch, rounds={r['rounds']} on "
+             f"{list(x.shape)} == {r['rounds'] // ALU_SHORT_ROUNDS} launches "
+             f"of {ALU_SHORT_ROUNDS}", r["out"], cur)
+    say(f"verify: the timed launches of the measuring loops: the ceiling's "
+        f"(reps={CEILING_REPS}) == plain on 4 polynomials of each of 3 "
+        f"configurations; every alu_rate's (rounds={ALU_ROUNDS}) == "
+        f"{ALU_ROUNDS // ALU_SHORT_ROUNDS} launches of {ALU_SHORT_ROUNDS} "
+        f"rounds, whose first == plain on the first and last block")
+    roof = profiling.ntt_roofline(NTT_L * NTT_B * NTT_CHAIN * NTT_ITERS, N,
+                                  nb["dt"], dtype_bytes=4)
+    rep = roof.report()
+    ceil_bf = {n: c["butterflies_per_sec"] for n, c in nb["ceiling"].items()}
+    say(f"ntt mode: {roof.butterflies_per_sec:.4e} butterflies/s over "
+        f"{nb['dt'] * 1e3:.3f} ms ({nb['dt'] * 1e3 / NTT_ITERS / NTT_CHAIN:.4f}"
+        f" ms a link of {NTT_L * NTT_B} transforms); as device-memory "
+        f"traffic of an unfused chain {rep['hbm_gbps']:.1f} GB/s = "
+        f"{rep['hbm_fraction_of_peak']:.3f} of "
+        f"{profiling.H100_MEMORY_BYTES_PER_S / 1e12} TB/s; "
+        f"{roof.butterflies_per_sec / ceil_bf[N]:.3f} of the shared-memory "
+        f"ceiling [{card}]")
+    say(f"ceiling: forward_chain resident in shared memory, reps="
+        f"{CEILING_REPS}, n={N}: B={NTT_B} (64 of {sms} SMs busy) "
+        f"{nb['ceiling_64']['butterflies_per_sec']:.4e} butterflies/s; "
+        f"B={resident[N][0] * sms} ({resident[N][0]} resident blocks x {sms} "
+        f"SMs) {ceil_bf[N]:.4e}; at n={CK_N}, B={resident[CK_N][0] * sms}: "
+        f"{ceil_bf[CK_N]:.4e}.  This is the ceiling of the package's own "
+        f"chain, not of the card: a chain that kept several stages in "
+        f"registers would beat it [{card}]")
+    clock = sm_mhz * 1e6
+    for op in alu_bench.OPS:
+        r = nb["alu"][op]
+        per_clk = r["elems_per_s"] / (sms * clock)
+        say(f"alu_rate: {op:10s} {r['elems_per_s']:.4e} "
+            f"{'butterflies' if op == 'butterfly' else 'words'}/s on "
+            f"{list(alu_shape[op])} words, rounds={r['rounds']}: "
+            f"{per_clk:.2f} a clock and SM at {sm_mhz:.0f} MHz = "
+            f"{per_clk * sass_per[op]:.1f} SASS instructions "
+            f"({sass_per[op]:.4f} each in this build) of the "
+            f"{INSTR_PER_SM_CLOCK} an SM can issue [{card}]")
+    bf_issue = nb["alu"]["butterfly"]["elems_per_s"]
+    bf_bound = int_ops_per_s / kernel_check.BUTTERFLY_OPS
+    say(f"ceiling: the butterfly alone, in registers, issues at "
+        f"{bf_issue:.4e} butterflies/s, {bf_issue / bf_bound:.3f} of the "
+        f"bound's {bf_bound:.4e} ({kernel_check.BUTTERFLY_OPS} instructions "
+        f"at {INSTR_PER_SM_CLOCK} a clock and SM); the shared-memory chain "
+        f"reaches {ceil_bf[N] / bf_issue:.3f} of the butterfly's rate")
+
+    launches = {k.name: sum(c[k.name] for c in path_launches.values())
+                for k in _cuda.KERNELS}
+    never = [k for k, v in launches.items() if v == 0]
+    if never:
+        raise RuntimeError(f"kernels launched on no path: {never}")
+
+    # 13. CKKS timing --------------------------------------------------------
+    def pad(a):
+        return torch.cat([a, a[-1:]], dim=0)
+
+    def ckks_step(b):
+        out = C.mul_hybrid(cp, hrlk, c1, C.add(cp, c1, b))[0]
+        return C.CT(pad(out.c0), pad(out.c1))
+
+    def ckks_chain():
+        cur = c2
+        for _ in range(CK_ITERS):
+            cur = ckks_step(cur)       # the padded copy feeds the next step
+        return cur
+
+    per_op = per_op_launches(lambda: ckks_step(c2))
+    ckks_chain()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs = [time_ms(ckks_chain, 1, warmup=0) for _ in range(3)]
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = min(runs) / CK_ITERS
+    say(f"timing: ckks add + mul_hybrid, {CK_ITERS} chained steps at "
+        f"{cshape}: runs {[round(r, 3) for r in runs]} ms, best "
+        f"{min(runs):.3f} ms = {step_ms:.3f} ms a step = "
+        f"{CK_BATCH / (step_ms / 1e3):.1f} ops/s; peak device memory "
+        f"{peak / 2**30:.2f} GiB; launches a step {per_op} [{card}]")
+    # where the step's device time goes: one profiled chain, its kernels'
+    # own times by name against the chain's CUDA-event time above
+    with profiling.trace(str(_cuda.BUILD_ROOT.parent / "torch_trace")) as prof:
+        ckks_chain()
+        torch.cuda.synchronize()
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0), reverse=True)
+    if not rows:
+        say("profile: torch.profiler recorded no device time on this "
+            "machine; the step's breakdown was not measured")
+    else:
+        busy = sum(r[0] for r in rows)
+        ours = sum(r[0] for r in rows if "fhe" in r[2])
+        say(f"profile: {CK_ITERS} ckks steps: {sum(r[1] for r in rows)} "
+            f"device kernels busy {busy:.3f} ms of the chain's "
+            f"{min(runs):.3f} ms (idle share {1 - busy / min(runs):.2f}); "
+            f"the package's kernels {ours:.3f} ms, torch's elementwise and "
+            f"copy kernels {busy - ours:.3f} ms [{card}]")
+        for ms_, count, key in rows[:6]:
+            say(f"profile:   {ms_:7.3f} ms in {count:4d} launches of "
+                f"{key[:90]}")
+    for label, fn in (
+            ("unhoisted (rotate_hybrid)",
+             lambda: [H.rotate_hybrid(cp, k, c1, g)
+                      for k, g in zip(hgk, gs)]),
+            ("hoisted (hoist_digits + rotate_hoisted)",
+             lambda: [H.rotate_hoisted(cp, k, c1, g,
+                                       H.hoist_digits(cp, c1.c1, K=CK_K)
+                                       if i == 0 else edm)
+                      for i, (k, g) in enumerate(zip(hgk, gs))])):
+        fn()
+        runs = [time_ms(fn, 1, warmup=0) for _ in range(3)]
+        say(f"timing: {len(gs)} rotations of one ciphertext batch, {label}: "
+            f"runs {[round(r, 3) for r in runs]} ms, best {min(runs):.3f} ms "
+            f"= {min(runs) / len(gs):.3f} ms a rotation; launches "
+            f"{per_op_launches(fn)} [{card}]")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    before = dict(ms)
+    ckks_cases = kernel_check.ckks_cases(cp, CK_BATCH, CK_K, dev, gen)
+    for case in ckks_cases:
+        time_case(case)
+    # kernels of one step: K6, K7 and the two P-divisions (K4)
+    in_step = {"tensor_mul4": 1, "ks_fused": 1, "base_extend": 2}
+    kernel_ms = sum((ms[k] - before[k]) * c for k, c in in_step.items())
+    say(f"timing: ckks step: its {sum(in_step.values())} kernel launches "
+        f"take {kernel_ms:.3f} ms of the step's {step_ms:.3f} ms; the "
+        f"remainder ({step_ms - kernel_ms:.3f} ms) is the plain-torch adds, "
+        f"the modulus drop, the pad and launch gaps [{card}]")
+    for case in (kernel_check.ext_sum_cases(CK_N, CK_BATCH, dev, gen)
+                 + kernel_check.bench_cases(N, NTT_B, dev, gen, reps=8,
+                                            rounds=ALU_SHORT_ROUNDS,
+                                            counts=sass_per)):
+        if case.timed:
+            time_case(case)
+        else:                                    # kernel against kernel
+            check(case, case.kernel(), case.plain())
+    # each stage-chain kernel's butterflies/s against the ceiling at its n
+    for case in timed_chains:
+        n = case.n
+        say(f"ceiling: {case.name:13s} {case.label:48s} "
+            f"{case.butterflies / (case_ms[case.label] / 1e3):.4e} "
+            f"butterflies/s = "
+            f"{case.butterflies / (case_ms[case.label] / 1e3) / ceil_bf[n]:.3f}"
+            f" of the shared-memory ceiling at n={n}")
+
     say(f"parity: kernel == plain (torch.equal) for all "
         f"{sum(checked.values())} variants, those at the full batch of each "
         f"path (B={BATCH} at n={N}; B={LIN_BATCH} at n={LIN_N}; "
-        f"B={TFHE_BATCH} at n={TFHE_N}) included: {checked}")
+        f"B={TFHE_BATCH} at n={TFHE_N}; B={CK_BATCH} at n={CK_N}) included: "
+        f"{checked}")
 
     record = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
@@ -553,7 +1045,9 @@ def main() -> None:
          "bound_by": ("operations" if op_ms[k.name] >= byte_ms[k.name]
                       else "bytes"),
          # no PyTorch call computes a modular NTT, an RNS base conversion,
-         # a gadget contraction or a chain of CMux steps
+         # a gadget contraction or a chain of CMux steps; the measuring
+         # loops iterate one operation in registers or shared memory, which
+         # no tensor call does
          "library_ms": None} for k in _cuda.KERNELS]}
     say(json.dumps(record))
     say(f"wall: {time.perf_counter() - wall0:.1f} s in all")

@@ -1,0 +1,186 @@
+// Hopper kernels of the two measuring loops — replace
+// fhe_study_tpu/ops/vpu_bench.py::ntt_vmem_ceiling (_ntt_repeat_kernel) and
+// ::alu_rate (_alu_kernel).  Neither is on an FHE path: they measure what the
+// card gives the instruction sequences that the other kernels issue.
+//
+//   fhe_ntt_smem_ceiling (K12): `reps` forward stage chains on a polynomial
+//     that stays in shared memory: one load, one store, device memory out of
+//     the way.  The loop calls forward_chain of modarith.cuh, the function
+//     K1 calls, at K1's block size, so the rate is the ceiling of the
+//     package's own chain (shared-memory traffic, integer issue and the
+//     log n barriers of a chain), not of the card: a chain that keeps
+//     several stages in registers would beat it.
+//   fhe_alu_rate (K13): each thread keeps kAluPer independent words in
+//     registers and applies one operation `iters * kAluUnroll` times, each
+//     round feeding the next, then stores once.  What bounds it is the issue
+//     rate of the operation's instructions, which is what it measures.  An
+//     empty asm statement after each round keeps the compiler from folding
+//     rounds together; utils/sass_counts.py reads the loop's instructions
+//     back from the built library.
+
+#include "modarith.cuh"
+
+namespace fhe {
+namespace {
+
+__global__ void ntt_repeat_kernel(const uint32_t* __restrict__ x,
+                                  uint32_t* __restrict__ out,
+                                  const uint32_t* __restrict__ tw,
+                                  const uint32_t* __restrict__ tw_sh,
+                                  uint32_t q, int logn, int reps) {
+  extern __shared__ uint32_t a[];
+  const int n = 1 << logn;
+  const size_t row = static_cast<size_t>(blockIdx.x) * n;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) a[i] = x[row + i];
+  __syncthreads();
+  for (int r = 0; r < reps; ++r) forward_chain(a, logn, tw, tw_sh, q);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) out[row + i] = a[i];
+}
+
+constexpr int kAluThreads = 256;
+constexpr int kAluPer = 4;      // ALU_PER_THREAD of ops/alu_bench.py
+constexpr int kAluUnroll = 16;  // ALU_UNROLL of ops/alu_bench.py
+
+enum AluOp {
+  kAdd = 0,     // x + y                      (mod 2^32)
+  kMul,         // x * y                      (mod 2^32)
+  kAddmod,      // x + y mod q
+  kShoupLazy,   // x*y - hi(x*yp)*q           (mod 2^32), in [0, 2q)
+  kShoupMul,    // shoup_mul of modarith.cuh: the lazy value corrected
+  kMontMul,     // mont_mul of modarith.cuh
+  kButterfly,   // one forward butterfly on the word pairs (2k, 2k+1)
+  kAluOps
+};
+
+template <int OP>
+__device__ __forceinline__ void alu_round(uint32_t (&x)[kAluPer],
+                                          const uint32_t (&y)[kAluPer],
+                                          const uint32_t (&yp)[kAluPer],
+                                          uint32_t q, uint32_t nq) {
+  if (OP == kButterfly) {
+#pragma unroll
+    for (int k = 0; k < kAluPer; k += 2) {
+      const uint32_t u = x[k];
+      const uint32_t v = shoup_mul(x[k + 1], y[k], yp[k], q);
+      x[k] = addmod(u, v, q);
+      x[k + 1] = submod(u, v, q);
+    }
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < kAluPer; ++k) {
+    if (OP == kAdd) x[k] = x[k] + y[k];
+    if (OP == kMul) x[k] = x[k] * y[k];
+    if (OP == kAddmod) x[k] = addmod(x[k], y[k], q);
+    if (OP == kShoupLazy) x[k] = x[k] * y[k] - __umulhi(x[k], yp[k]) * q;
+    if (OP == kShoupMul) x[k] = shoup_mul(x[k], y[k], yp[k], q);
+    if (OP == kMontMul) x[k] = mont_mul(x[k], y[k], q, nq);
+  }
+}
+
+// Word k of thread t lies at k * threads + t: neighbouring threads read
+// neighbouring words.
+template <int OP>
+__global__ void __launch_bounds__(kAluThreads)
+    alu_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
+               const uint32_t* __restrict__ yp, uint32_t* __restrict__ out,
+               long long threads, int iters, uint32_t q, uint32_t nq) {
+  const long long t =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  uint32_t xs[kAluPer], ys[kAluPer], yps[kAluPer];
+#pragma unroll
+  for (int k = 0; k < kAluPer; ++k) {
+    xs[k] = x[k * threads + t];
+    ys[k] = y[k * threads + t];
+    yps[k] = yp[k * threads + t];
+  }
+#pragma unroll 1
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int u = 0; u < kAluUnroll; ++u) {
+      alu_round<OP>(xs, ys, yps, q, nq);
+#pragma unroll
+      for (int k = 0; k < kAluPer; ++k) asm volatile("" : "+r"(xs[k]));
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kAluPer; ++k) out[k * threads + t] = xs[k];
+}
+
+using AluKernel = void (*)(const uint32_t*, const uint32_t*, const uint32_t*,
+                           uint32_t*, long long, int, uint32_t, uint32_t);
+
+AluKernel alu_entry(int op) {
+  switch (op) {
+    case kAdd: return alu_kernel<kAdd>;
+    case kMul: return alu_kernel<kMul>;
+    case kAddmod: return alu_kernel<kAddmod>;
+    case kShoupLazy: return alu_kernel<kShoupLazy>;
+    case kShoupMul: return alu_kernel<kShoupMul>;
+    case kMontMul: return alu_kernel<kMontMul>;
+    case kButterfly: return alu_kernel<kButterfly>;
+    default: return nullptr;
+  }
+}
+
+bool bad_logn(int logn) { return logn < kMinLogN || logn > kMaxLogN; }
+
+}  // namespace
+}  // namespace fhe
+
+using namespace fhe;
+
+extern "C" int fhe_ntt_smem_ceiling(const uint32_t* x, uint32_t* out,
+                                    const uint32_t* tw, const uint32_t* tw_sh,
+                                    unsigned q, int B, int logn, int reps,
+                                    cudaStream_t stream) {
+  if (bad_logn(logn) || B < 1 || reps < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = sizeof(uint32_t) << logn;
+  cudaError_t err = allow_smem(ntt_repeat_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ntt_repeat_kernel<<<B, chain_threads(logn), smem, stream>>>(
+      x, out, tw, tw_sh, q, logn, reps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// `threads` must be a multiple of kAluThreads; the wrapper sees to it.
+extern "C" int fhe_alu_rate(const uint32_t* x, const uint32_t* y,
+                            const uint32_t* yp, uint32_t* out,
+                            long long threads, int iters, int op, unsigned q,
+                            unsigned nq, cudaStream_t stream) {
+  AluKernel kernel = alu_entry(op);
+  if (kernel == nullptr || threads < kAluThreads ||
+      threads % kAluThreads != 0 || iters < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  kernel<<<static_cast<unsigned>(threads / kAluThreads), kAluThreads, 0,
+           stream>>>(x, y, yp, out, threads, iters, q, nq);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of one measuring kernel that the card in use holds at once:
+// op >= 0 names an alu_rate operation, op < 0 the ceiling loop at ring
+// degree 2^logn.  Writes blocks per SM and the SM count.
+extern "C" int fhe_bench_resident(int op, int logn, int* per_sm, int* sms) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (op >= 0) {
+    AluKernel kernel = alu_entry(op);
+    if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
+                                                        kAluThreads, 0);
+    return static_cast<int>(err);
+  }
+  if (bad_logn(logn)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(uint32_t) << logn;
+  err = allow_smem(ntt_repeat_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, ntt_repeat_kernel, chain_threads(logn), smem);
+  return static_cast<int>(err);
+}

@@ -175,6 +175,13 @@ __device__ __forceinline__ uint32_t ext_to(const uint32_t* ys, uint32_t alpha,
   return submod(acc, shoup_mul(alpha, e.dst(j, 1), e.dst(j, 2), d), d);
 }
 
+// Threads of a block that runs one stage chain: one a butterfly, at most
+// kChainThreads.
+inline int chain_threads(int logn) {
+  const int half = 1 << (logn - 1);
+  return half < kChainThreads ? half : kChainThreads;
+}
+
 // Opt a kernel into more than 48 KB of dynamic shared memory.
 template <typename Kernel>
 __host__ cudaError_t allow_smem(Kernel kernel, size_t bytes) {

@@ -443,11 +443,6 @@ ks_fused_eval_kernel(const uint32_t* __restrict__ c, long long sl,
 
 #undef FHE_OWNED
 
-int chain_threads(int logn) {
-  const int half = 1 << (logn - 1);
-  return half < kChainThreads ? half : kChainThreads;
-}
-
 int fused_threads(int logn) {
   const int half = 1 << (logn - 1);
   return half < kFusedThreads ? half : kFusedThreads;

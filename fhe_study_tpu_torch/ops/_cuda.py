@@ -95,6 +95,7 @@ def build_log() -> str:
 
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
+U32 = ctypes.c_uint
 I64 = ctypes.c_longlong
 
 
@@ -173,9 +174,19 @@ BLIND_ROTATE = Kernel("blind_rotate", "fhe_blind_rotate",
                       "fhe_study_tpu_torch/csrc/blind_rotate_cuda.cu",
                       "fhe_study_tpu/ops/blind_rotate_pallas.py:392",
                       *([PTR] * 12), *([INT] * 6))
+BASE_EXTEND_SUM = Kernel("base_extend_sum", "fhe_base_extend_sum", _EXT_CU,
+                         "fhe_study_tpu/ops/ext_pallas.py:207",
+                         PTR, PTR, PTR, PTR, INT, INT, I64)
+_BENCH_CU = "fhe_study_tpu_torch/csrc/bench_cuda.cu"
+NTT_SMEM_CEILING = Kernel("ntt_smem_ceiling", "fhe_ntt_smem_ceiling",
+                          _BENCH_CU, "fhe_study_tpu/ops/vpu_bench.py:168",
+                          PTR, PTR, PTR, PTR, U32, INT, INT, INT)
+ALU_RATE = Kernel("alu_rate", "fhe_alu_rate", _BENCH_CU,
+                  "fhe_study_tpu/ops/vpu_bench.py:86",
+                  PTR, PTR, PTR, PTR, I64, INT, INT, U32, U32)
 KERNELS = (NTT_MULTI, TENSOR_EVAL4, KS_CONTRACT, BASE_EXTEND, EXT_NTT,
            TENSOR_MUL4, TENSOR_MUL, KS_FUSED, KS_FUSED_EVAL, NTT,
-           BLIND_ROTATE)
+           BLIND_ROTATE, BASE_EXTEND_SUM, NTT_SMEM_CEILING, ALU_RATE)
 
 
 def reset_launches() -> None:

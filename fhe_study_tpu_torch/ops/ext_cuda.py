@@ -1,6 +1,8 @@
-"""RNS fast base extension (HPS conversion): the CUDA kernel
-``csrc/ext_cuda.cu`` (K4) beside its plain PyTorch version — the
-counterpart of fhe_study_tpu/ops/ext_pallas.py::base_extend_fused.
+"""RNS fast base extension (HPS conversion): the CUDA kernels of
+``csrc/ext_cuda.cu`` beside their plain PyTorch versions — K4, the
+counterpart of fhe_study_tpu/ops/ext_pallas.py::base_extend_fused, and K11,
+that of ::base_extend_sum (the last line below alone, from given ys and
+alpha).
 
 For every coefficient, with S = prod(src):
   y_i   = x_i * (S/s_i)^-1 mod s_i
@@ -88,27 +90,46 @@ def _check_epilogue(w, sub_mul) -> None:
         raise ValueError("w and sub_mul go together")
 
 
-def base_extend_fused_plain(x, src: tuple, dst: tuple, centered: bool = False,
-                            w=None, sub_mul: tuple | None = None):
-    """Plain int64 version: x [Ls, ..., n] -> [Ld, ..., n] int32."""
+def lift_plain(x, src: tuple, centered: bool = False):
+    """First half of the conversion, int64: (ys [Ls, ..., n], alpha
+    [..., n]) with y_i = x_i * (S/s_i)^-1 mod s_i and alpha the 2^59
+    fixed-point quotient (rounded when centered)."""
     _check_src(src)
-    _check_epilogue(w, sub_mul)
-    src, dst = tuple(src), tuple(dst)
     dev, nd = x.device, x.ndim
-    tab, smod = _ext_table(src, dst)
-    sv, dv = qvec(src, nd, dev), qvec(dst, nd, dev)
-    ys = x.long() * qvec(_hat_inv(src), nd, dev) % sv         # [Ls, ...]
+    ys = x.long() * qvec(_hat_inv(src), nd, dev) % qvec(src, nd, dev)
     cfix = qvec([(1 << 59) // s for s in src], nd, dev)
     alpha = ((ys * cfix).sum(0) + ((1 << 58) if centered else 0)) >> 59
-    acc = torch.zeros((len(dst),) + x.shape[1:], dtype=torch.int64,
+    return ys, alpha
+
+
+def base_extend_sum_plain(ys, alpha, src: tuple, dst: tuple):
+    """Plain int64 version of the second half: ys [Ls, ..., n] (below s_i),
+    alpha [..., n] -> sum_i ys_i * (S/s_i) - alpha * S per dst prime,
+    [Ld, ..., n] int32."""
+    _check_src(src)
+    src, dst = tuple(src), tuple(dst)
+    dev, nd = ys.device, ys.ndim
+    tab, smod = _ext_table(src, dst)
+    dv = qvec(dst, nd, dev)
+    ys = ys.long()
+    acc = torch.zeros((len(dst),) + ys.shape[1:], dtype=torch.int64,
                       device=dev)
     for i in range(len(src)):
         acc = acc + ys[i] * qvec(tab[i], nd, dev) % dv         # < Ls * d
-    ext = (acc - alpha * qvec(smod, nd, dev)) % dv
+    return ((acc - alpha.long() * qvec(smod, nd, dev)) % dv).int()
+
+
+def base_extend_fused_plain(x, src: tuple, dst: tuple, centered: bool = False,
+                            w=None, sub_mul: tuple | None = None):
+    """Plain int64 version: x [Ls, ..., n] -> [Ld, ..., n] int32."""
+    _check_epilogue(w, sub_mul)
+    src, dst = tuple(src), tuple(dst)
+    ext = base_extend_sum_plain(*lift_plain(x, src, centered), src, dst)
     if sub_mul is not None:
-        c = qvec([int(v) % d for v, d in zip(sub_mul, dst)], nd, dev)
-        ext = (w.long() - ext) % dv * c % dv
-    return ext.int()
+        dv = qvec(dst, x.ndim, x.device)
+        c = qvec([int(v) % d for v, d in zip(sub_mul, dst)], x.ndim, x.device)
+        ext = ((w.long() - ext) % dv * c % dv).int()
+    return ext
 
 
 def base_extend_fused_kernel(x, src: tuple, dst: tuple,
@@ -148,3 +169,34 @@ def base_extend_fused(x, src: tuple, dst: tuple, centered: bool = False,
     fn = (base_extend_fused_kernel if _cuda.on_cuda(*ts)
           else base_extend_fused_plain)
     return fn(x, src, dst, centered=centered, w=w, sub_mul=sub_mul)
+
+
+def base_extend_sum_kernel(ys, alpha, src: tuple, dst: tuple):
+    """K11 on CUDA int32 tensors: one thread per coefficient."""
+    _check_src(src)
+    dev = ys.device
+    _cuda.check(ys, "ys", dev)
+    _cuda.check(alpha, "alpha", dev)
+    if ys.shape[0] != len(src) or alpha.shape != ys.shape[1:]:
+        raise ValueError(f"ys {tuple(ys.shape)} and alpha "
+                         f"{tuple(alpha.shape)} for {len(src)} primes: need "
+                         "[Ls, ..., n] and [..., n]")
+    out = torch.empty((len(dst),) + ys.shape[1:], dtype=torch.int32,
+                      device=dev)
+    total = alpha.numel()
+    if total == 0:
+        return out
+    tab = kernel_table(tuple(src), tuple(dst), None, dev)
+    _cuda.BASE_EXTEND_SUM.launch(dev, ys.data_ptr(), alpha.data_ptr(),
+                                 out.data_ptr(), tab.data_ptr(), len(src),
+                                 len(dst), total)
+    return out
+
+
+def base_extend_sum(ys, alpha, src: tuple, dst: tuple):
+    """The contraction alone, for a caller that holds (ys, alpha) already
+    (int32 [Ls, ..., n] below s_i, and int32 [..., n] below Ls + 1) ->
+    [Ld, ..., n] int32: sum_i ys_i * (S/s_i) - alpha * S per dst prime."""
+    fn = (base_extend_sum_kernel if _cuda.on_cuda(ys, alpha)
+          else base_extend_sum_plain)
+    return fn(ys, alpha, src, dst)

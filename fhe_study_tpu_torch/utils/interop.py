@@ -1,7 +1,11 @@
-"""Carry the JAX package's RNS-BFV and TFHE state into the port and back.
+"""Carry the JAX package's RNS-BFV, RNS-CKKS and TFHE state into the port and
+back.
 
-The JAX package's ``SecretKey``, ``PublicKey``, ``RLK``, ``HRLK``, ``CT`` and
-``CTE`` hold u32 or u64 residue arrays.  ``to_port`` turns one of them, given as any
+The JAX package's RNS-BFV ``SecretKey``, ``PublicKey``, ``RLK``, ``HRLK``,
+``CT`` and ``CTE``, its RNS-CKKS ``SecretKey``, ``PublicKey`` and ``CT`` and
+the ``HybridKSK`` of hybrid key switching hold u32 or u64 residue arrays;
+kinds of one name are told apart by the module that defines them
+(``bfv_rns`` or ``ckks_rns`` in both packages).  ``to_port`` turns one of them, given as any
 NamedTuple of array-likes of the same name (``numpy.asarray`` reads a jax
 array without this module importing jax), into the port's NamedTuple of int32
 tensors on a given device; ``to_numpy`` turns a port tensor or NamedTuple
@@ -18,13 +22,21 @@ uint32 -> int32, a numpy ``view``), and ``bits_to_numpy`` brings them back.
 import numpy as np
 import torch
 
-from ..models import bfv_rns
+from ..models import bfv_rns, hybrid_ks
+from ..models.ckks import ckks_rns
 from ..models.gfhe import glwe
 from ..models.tfhe import bootstrap, tggsw, tlwe
 
-KINDS = {k.__name__: k for k in (bfv_rns.SecretKey, bfv_rns.PublicKey,
-                                 bfv_rns.RLK, bfv_rns.HRLK, bfv_rns.CT,
-                                 bfv_rns.CTE)}
+def _key(kind) -> tuple:
+    """(last part of the defining module, name) of a NamedTuple type: the
+    same for a kind of the JAX package and its counterpart here."""
+    return kind.__module__.rsplit(".", 1)[-1], kind.__name__
+
+
+KINDS = {_key(k): k for k in (
+    bfv_rns.SecretKey, bfv_rns.PublicKey, bfv_rns.RLK, bfv_rns.HRLK,
+    bfv_rns.CT, bfv_rns.CTE, ckks_rns.SecretKey, ckks_rns.PublicKey,
+    ckks_rns.CT, hybrid_ks.HybridKSK)}
 # carried bit for bit: the fields are torus words or full-range u32 words
 BIT_KINDS = {k.__name__: k for k in (
     tlwe.TLWE, glwe.GLWE, tggsw.TGGSW, tggsw.TGGSWEvals, tlwe.KSK,
@@ -68,14 +80,15 @@ def bits_to_numpy(x):
 
 
 def to_port(obj, device):
-    """A reference NamedTuple -> the port's of the same name: residues for
-    the RNS-BFV kinds, bit for bit for the torus kinds."""
+    """A reference NamedTuple -> the port's of the same name (and module):
+    residues for the RNS kinds, bit for bit for the torus kinds."""
     name = type(obj).__name__
-    kind, carry = ((KINDS[name], to_tensor) if name in KINDS else
+    kind, carry = ((KINDS[_key(type(obj))], to_tensor)
+                   if _key(type(obj)) in KINDS else
                    (BIT_KINDS.get(name), bits_to_tensor))
     if kind is None or len(obj) != len(kind._fields):
         raise TypeError(f"cannot carry {name} across; known: "
-                        f"{sorted([*KINDS, *BIT_KINDS])}")
+                        f"{sorted(['.'.join(k) for k in KINDS] + [*BIT_KINDS])}")
     return kind(*(carry(f, device) for f in obj))
 
 

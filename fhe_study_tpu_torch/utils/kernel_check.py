@@ -8,14 +8,23 @@ of its plain version on the same tensors; ``linear_cases`` does the same
 for the linear pipeline (``to_evals``, ``pt_to_evals``, ``from_evals``) at
 its own parameter set, and ``tfhe_cases`` for the two kernels of the TFHE
 bootstrap (the single-prime transform at the shapes of key generation, the
-whole-chain blind rotation).  ``chip_smoke.py`` and the
-card-marked tests run them on the card and require equal outputs.
+whole-chain blind rotation), ``ckks_cases`` for the variants that RNS-CKKS
+and the hybrid rotations (``models/ckks/ckks_rns.py``, ``models/hybrid_ks.py``)
+launch, ``ext_sum_cases`` for the contraction-only base extension and
+``bench_cases`` for the two measuring loops of ``ops/alu_bench.py``.
+``chip_smoke.py`` and the card-marked tests run them on the card and require
+equal outputs.
 
 Each case also carries the least work its function needs on these inputs,
 for a lower bound on its time: ``bytes`` moved through device memory (every
 input and table read once, every output written once) and ``ops``, 32-bit
-integer operations, from the primitives of ``csrc/modarith.cuh`` counted
-by hand (the *_OPS constants) and the fewest transforms the function can do.
+integer instructions: the fewest transforms and products the function can do,
+each counted as the SASS instructions that the compiler makes of the
+primitives of ``csrc/modarith.cuh`` (the *_OPS constants, read from the
+``alu_rate`` loops by ``utils/sass_counts.py``).  Divided by the card's issue
+rate (128 thread-instructions a clock and SM: one warp-instruction a clock in
+each of the four partitions, which is also the float32 rate of the data
+sheet), that is a time no kernel made of these primitives can beat.
 """
 
 import math
@@ -25,18 +34,26 @@ import torch
 
 from ..models.hybrid_ks import ks_ext_primes
 from ..models.tfhe.tggsw import _u32_bits
+from ..ops import alu_bench
 from ..ops import blind_rotate_cuda as brc
 from ..ops import ext_cuda as ext
 from ..ops import ntt as ntt_mod
 from ..ops import ntt_cuda as nc
+from ..ops.primes import ntt_primes
 from . import prng
 
 
-BUTTERFLY_OPS = 11      # one Shoup product, one addmod, one submod
-MONT_OPS = 9            # 3 multiplies (one wide), carry add, correction
-SHOUP_OPS = 5           # mul.hi, 2 mul.lo, subtract, correction
-ADD_OPS = 3             # addmod or submod
-WIDE_MAC_OPS = 4        # 32 x 64-bit multiply-add of the fixed-point alpha
+# SASS instructions of each primitive, as ops/alu_bench.OP_COUNTS records them
+# from the built loops (a test holds the two together) ...
+BUTTERFLY_OPS = 13      # a Shoup product, the sum's and the difference's
+                        # compare, select and add, one add more
+MONT_OPS = 8            # 3 multiplies (one wide), 3 adds, compare, select
+SHOUP_OPS = 6           # mul.hi, 2 mul.lo (one with the subtract), compare,
+                        # select, add
+ADD_OPS = 3             # addmod or submod: compare, select, three-input add
+# ... and of the two that no loop measures, counted by hand at their least
+WIDE_MAC_OPS = 2        # 32 x 64-bit multiply-add of the fixed-point alpha:
+                        # two wide multiply-adds
 ADD64_OPS = 2           # 64-bit add, subtract or negate: two 32-bit ops
 
 
@@ -50,10 +67,25 @@ class Case(NamedTuple):
     kernel_reps: int = 10       # timed repetitions of the kernel ...
     plain_reps: int = 3         # ... and of the plain version
     plain_warmup: int = 1       # untimed calls of the plain version first
+    butterflies: int = 0        # those of its stage chains, where it has any
+    n: int = 0                  # the ring degree of those chains
+    timed: bool = True          # False: kernel against kernel, only compared
+
+
+def _butterflies(n: int, transforms: int) -> int:
+    return transforms * (n // 2) * (n.bit_length() - 1)
 
 
 def _ntt_ops(n: int, transforms: int) -> int:
-    return transforms * (n // 2) * (n.bit_length() - 1) * BUTTERFLY_OPS
+    return _butterflies(n, transforms) * BUTTERFLY_OPS
+
+
+def _with_butterflies(cases: list, n: int, transforms: list) -> list:
+    """The cases with the butterflies of their transforms filled in (one
+    count of transforms a case, 0 for a kernel without a stage chain)."""
+    assert len(cases) == len(transforms)
+    return [c._replace(butterflies=_butterflies(n, t), n=n if t else 0)
+            for c, t in zip(cases, transforms)]
 
 
 def _ext_ops(coeffs: int, ls: int, ld: int, epilogue: bool = False) -> int:
@@ -141,7 +173,7 @@ def cases(param, batch: int, device, gen: torch.Generator) -> list:
                + (0 if ls is None else _ext_ops(4 * rows, ls, ld)))
         return words, ops
 
-    return [
+    return _with_butterflies([
         pair("ntt_multi", "forward Q", 2 * 2 * L * rows + tw * L,
              _ntt_ops(n, 2 * L * batch), nc.ntt_multi_kernel,
              nc.ntt_multi_plain, x2q, qs),
@@ -200,7 +232,9 @@ def cases(param, batch: int, device, gen: torch.Generator) -> list:
              _ks_ops(n, batch, L, L, reps, True), nc.ks_fused_eval_kernel,
              nc.ks_fused_eval_plain, out3[..., 2, :], gb, ga, qs, qs,
              (out3[..., 0, :], out3[..., 1, :])),
-    ]
+    ], n, [b * batch for b in (
+        2 * L, 2 * L, LK, 3 * L, 3 * M, 2 * LK, 0, 0, 0, 0, 2 * M, 7 * L,
+        7 * M, 7 * L, (L + 2) * L, (L + 4) * L)])
 
 
 def linear_cases(param, batch: int, device, gen: torch.Generator) -> list:
@@ -333,3 +367,130 @@ def tfhe_cases(n: int, k: int, beta: int, l: int, steps: int, batch: int,
     bootstrap gives them."""
     return [*ntt_cases(n, k, l, steps, device, gen),
             blind_rotate_case(n, k, beta, l, steps, batch, device, gen)]
+
+
+def ckks_cases(param, batch: int, K: int, device,
+               gen: torch.Generator) -> list:
+    """One Case per kernel variant that ``mul_hybrid``, ``hoist_digits``,
+    ``rotate_hybrid`` and ``rotate_hoisted`` launch and the BFV paths do not:
+    ``param`` is a ckks_rns.Param (L primes), K the number of auxiliary
+    primes."""
+    qs, L, n = param.qs, param.L, param.n
+    ks = ks_ext_primes(param, K)
+    both = qs + ks
+    LK, rows, tw = L + K, batch * n, 2 * n
+
+    def res(primes, shape):
+        return prng.uniform_mod_multi(gen, shape, primes, device)
+
+    shape = f"B={batch} n={n}"
+    ct = [res(qs, (batch, n)) for _ in range(4)]
+    d3 = res(qs, (batch, 3, n))                  # the tensor's output
+    kb, ka = (torch.stack([res(both, (n,)) for _ in range(L)])
+              for _ in range(2))                 # hybrid key [L, L+K, n]
+    digits = res(both, (L, batch, n))            # hoist_digits' operand
+    edm = torch.stack([res(both, (batch, n)) for _ in range(L)])
+    acc = res(both, (batch, n))
+    pinv = tuple(pow(math.prod(ks), -1, q) for q in qs)
+    reps = nc.digit_reps(both, qs)
+    return _with_butterflies([
+        _pair("tensor_mul4", f"CKKS: Q basis, no scale {shape}",
+              4 * (7 * L * rows + 2 * tw * L),
+              _ntt_ops(n, 7 * L * batch)
+              + L * rows * (4 * MONT_OPS + ADD_OPS + 3 * SHOUP_OPS),
+              nc.tensor_mul4_kernel, nc.tensor_mul4_plain, *ct, qs),
+        _pair("ks_fused", f"CKKS: R={L} over QK ({LK} primes), strided d2 "
+              f"{shape}", 4 * ((L + 2 * LK) * rows + 2 * L * LK * n
+                               + 2 * tw * LK),
+              _ks_ops(n, batch, L, LK, reps, False), nc.ks_fused_kernel,
+              nc.ks_fused_plain, d3[..., 2, :], kb, ka, both, qs),
+        _pair("ntt_multi", f"CKKS: hoisted digits forward QK Montgomery, "
+              f"{L} rows {shape}", 4 * (2 * LK * L * rows + tw * LK),
+              _ntt_ops(n, LK * L * batch) + LK * L * rows * SHOUP_OPS,
+              nc.ntt_multi_kernel, nc.ntt_multi_plain, digits, both,
+              fin=tuple((1 << 32) % p for p in both)),
+        _pair("ks_contract", f"CKKS: R={L} over QK {shape}",
+              4 * ((L + 2) * LK * rows + 2 * L * LK * n + tw * LK),
+              _ntt_ops(n, 2 * LK * batch)
+              + LK * rows * 2 * (L * (MONT_OPS + ADD_OPS) + SHOUP_OPS),
+              nc.ks_contract_kernel, nc.ks_contract_plain, edm, kb, ka, both),
+        _pair("base_extend", f"CKKS: K->Q centered (w - ext)*P^-1 {shape}",
+              4 * (K + 2 * L) * rows, _ext_ops(rows, K, L, True),
+              ext.base_extend_fused_kernel, ext.base_extend_fused_plain,
+              acc[L:], ks, qs, centered=True, w=acc[:L], sub_mul=pinv),
+    ], n, [b * batch for b in (7 * L, (L + 2) * LK, LK * L, 2 * LK, 0)])
+
+
+def _ext_sum_pair(x, src: tuple, dst: tuple, centered: bool,
+                  label: str) -> list:
+    """K11 on the (ys, alpha) of x against its plain version, and against
+    the whole conversion (K4) of x: two Cases."""
+    ys, alpha = ext.lift_plain(x, src, centered)
+    ys, alpha = ys.int(), alpha.int()
+    coeffs = alpha.numel()
+    ls, ld = len(src), len(dst)
+    nbytes = 4 * (ls + 1 + ld) * coeffs
+    ops = coeffs * ld * (ls * (SHOUP_OPS + ADD_OPS) + SHOUP_OPS + ADD_OPS)
+    tag = "centered" if centered else "unsigned"
+    return [
+        _pair("base_extend_sum", f"{label} {tag}", nbytes, ops,
+              ext.base_extend_sum_kernel, ext.base_extend_sum_plain, ys,
+              alpha, src, dst),
+        Case("base_extend_sum", f"{label} {tag} == the whole conversion",
+             lambda: ext.base_extend_sum_kernel(ys, alpha, src, dst),
+             lambda: ext.base_extend_fused_kernel(x, src, dst,
+                                                  centered=centered),
+             nbytes, ops, timed=False),
+    ]
+
+
+def ext_sum_cases(n: int, batch: int, device, gen: torch.Generator,
+                  L: int = 4, M: int = 5, K: int = 2) -> list:
+    """The contraction-only base extension at the hoisting shapes (src = the
+    K auxiliary primes, dst = Q, [K, batch, n]) and at the BFV shapes (Q ->
+    P, [L, batch, 3, n]), unsigned and centered."""
+    primes = ntt_primes(L + M, 30, 1 << 16)
+    qs, ps = primes[:L], primes[L:]
+    ks = ntt_primes(K, 30, 1 << 16, skip=L)
+    x_k = prng.uniform_mod_multi(gen, (batch, n), ks, device)
+    x_q = prng.uniform_mod_multi(gen, (batch, 3, n), qs, device)
+    out = []
+    for centered in (False, True):
+        out += _ext_sum_pair(x_k, ks, qs, centered,
+                             f"K->Q [{K}, {batch}, {n}]")
+        out += _ext_sum_pair(x_q, qs, ps, centered,
+                             f"Q->P [{L}, {batch}, 3, {n}]")
+    return out
+
+
+def bench_cases(n: int, batch: int, device, gen: torch.Generator,
+                reps: int = 2, rounds: int = 64, counts: dict | None = None
+                ) -> list:
+    """The two measuring loops against their plain versions: the ceiling
+    loop on [batch, n] over ``reps`` chains, and every ``alu_rate`` operation
+    over ``rounds`` rounds on the reference's [256, 1024] words.  ``counts``
+    are the instructions a word and round of each operation's loop (those of
+    the build in hand, from ``utils/sass_counts.py``; by default the recorded
+    ``alu_bench.OP_COUNTS``)."""
+    counts = alu_bench.OP_COUNTS if counts is None else counts
+    q = alu_bench.ALU_Q
+    x = prng.uniform_mod(gen, (batch, n), q, device).int()
+    shape = (256, 1024)
+    ax = prng.uniform_mod(gen, shape, q, device)
+    ay = prng.uniform_mod(gen, shape, q - 1, device) + 1
+    ayp = ay * (1 << 32) // q                    # below 2^32: its u32 bits
+    ax, ay, ayp = ax.int(), ay.int(), _u32_bits(ayp)
+    words = ax.numel()
+    out = [_pair("ntt_smem_ceiling", f"reps={reps} B={batch} n={n}",
+                 4 * (2 * batch * n + 2 * n), _ntt_ops(n, batch * reps),
+                 alu_bench.ntt_smem_ceiling_kernel,
+                 alu_bench.ntt_smem_ceiling_plain, x, q, reps)._replace(
+                     butterflies=_butterflies(n, batch * reps), n=n)]
+    for op in alu_bench.OPS:
+        units = words // 2 if op == "butterfly" else words
+        out.append(_pair(
+            "alu_rate", f"{op} rounds={rounds} on {list(shape)}",
+            4 * 4 * words, int(units * rounds * counts[op]),
+            alu_bench.alu_rate_kernel, alu_bench.alu_rate_plain, ax, ay, ayp,
+            op, rounds)._replace(plain_reps=1, plain_warmup=0))
+    return out

@@ -6,9 +6,11 @@
 Times one call of every case of ``utils/kernel_check.cases`` (N = 2^14,
 L = 4, M = 5, t = 256) and, where the checkout has them, of
 ``utils/kernel_check.tfhe_cases`` (N = 1024, K = 1, beta = 4096, l = 2,
-1024 steps, 64 ciphertexts, and the blind rotation over 700 steps) with
-CUDA events and prints one line a case and the sum a kernel.  ``--tree`` names another checkout whose ``fhe_study_tpu_torch``
-is timed instead of this one, so two commits can be compared on one card in
+1024 steps, 64 ciphertexts, and the blind rotation over 700 steps),
+``ckks_cases`` (N = 2^13, L = 4, K = 2, 32 ciphertexts), ``ext_sum_cases`` and
+``bench_cases`` with CUDA events and prints one line a case and the sum a
+kernel.  ``--tree`` names another checkout whose ``fhe_study_tpu_torch`` is
+timed instead of this one, so two commits can be compared on one card in
 one go: run it on the parent, the change, the change and the parent.
 Run it as a file, not with -m, so that the package it imports is the one
 under ``--tree``.  Needs one CUDA card and nvcc.
@@ -45,6 +47,14 @@ def main() -> None:
         cases += kernel_check.tfhe_cases(1024, 1, 4096, 2, 1024, 64, dev, gen)
         cases.append(kernel_check.blind_rotate_case(1024, 1, 4096, 2, 700, 64,
                                                     dev, gen))
+    if hasattr(kernel_check, "ckks_cases"):
+        from fhe_study_tpu_torch.models.ckks import ckks_rns as C
+        cases += kernel_check.ckks_cases(
+            C.Param(n=1 << 13, L=4, delta=2.0 ** 28), 32, 2, dev, gen)
+        cases += [c for c in kernel_check.ext_sum_cases(1 << 13, 32, dev, gen)
+                  if c.timed]
+        cases += kernel_check.bench_cases(1 << 14, 64, dev, gen, reps=8,
+                                          rounds=1024)
     sums = {}
     for case in cases:
         case.kernel()

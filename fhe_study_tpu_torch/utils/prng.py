@@ -6,6 +6,7 @@ differ: threefry there, the generator's own here):
   * binary: uniform bits {0, 1};
   * ternary: round-half-away of U[-1, 1), i.e. {-1, 0, 1} with probabilities
     (.25, .5, .25), the reference's distribution;
+  * sparse_ternary: exactly h nonzeros with random signs on the last axis;
   * gaussian_int: Normal(0, sigma) in float64, rounded half away from zero;
   * uniform_mod / uniform_mod_multi: uniform residues in [0, q);
   * uniform_u64: uniform over the whole torus, as int64 holding the u64 bits
@@ -43,6 +44,22 @@ def ternary(gen: torch.Generator, shape, device):
     u = torch.rand(tuple(shape), generator=gen, dtype=torch.float64,
                    device=gen.device) * 2.0 - 1.0
     return round_half_away(u).long().to(device)
+
+
+def sparse_ternary(gen: torch.Generator, shape, h: int, device):
+    """{-1, 0, 1} with EXACTLY h nonzeros (random signs) along the last axis,
+    as int64: the sparse-secret distribution of the CKKS bootstrapping
+    literature (Hamming weight h, typically 64)."""
+    n = shape[-1]
+    if not 0 < h <= n:
+        raise ValueError(f"Hamming weight h={h} outside 1 .. n={n}")
+    k_perm, k_sign = split(gen, 2)
+    # the ranks of uniform draws are a uniform permutation of each row, so
+    # exactly h of them lie below h
+    perm = torch.rand(tuple(shape), generator=k_perm, dtype=torch.float64,
+                      device=gen.device).argsort(dim=-1)
+    signs = 2 * uniform_mod(k_sign, shape, 2, gen.device) - 1
+    return torch.where(perm < h, signs, torch.zeros_like(signs)).to(device)
 
 
 def gaussian_int(gen: torch.Generator, shape, sigma: float, device):

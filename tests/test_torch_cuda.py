@@ -14,9 +14,13 @@ import torch
 
 from fhe_study_tpu_torch.arith.params import TORUS_Q, RingParam
 from fhe_study_tpu_torch.models import bfv_rns as R
+from fhe_study_tpu_torch.models import galois
+from fhe_study_tpu_torch.models import hybrid_ks as H
+from fhe_study_tpu_torch.models.ckks import ckks_rns as C
 from fhe_study_tpu_torch.models.gfhe.glwe import ERR_SIGMA, Param
 from fhe_study_tpu_torch.models.tfhe import bootstrap, tglwe, tlwe
-from fhe_study_tpu_torch.ops import _cuda, blind_rotate_cuda, ntt, ntt_cuda
+from fhe_study_tpu_torch.ops import (_cuda, alu_bench, blind_rotate_cuda,
+                                     ext_cuda, ntt, ntt_cuda)
 from fhe_study_tpu_torch.utils import kernel_check
 
 pytestmark = pytest.mark.cuda
@@ -212,3 +216,77 @@ def test_tfhe_wrappers_check_dtype_and_layout(cuda):
     out = blind_rotate_cuda.blind_rotate_kernel(shifts, acc0, ev, ev, ev, ev,
                                                 256, 12)
     assert torch.equal(out, acc0)         # a zero key leaves the accumulator
+
+
+@pytest.mark.parametrize("n", [256, 1 << 13])
+def test_ckks_and_bench_kernels_match_plain(cuda, n):
+    """The variants RNS-CKKS launches, base_extend_sum (also against the
+    whole conversion) and the two measuring loops, bit for bit."""
+    param = C.Param(n=n, L=4, delta=2.0 ** 28)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    for case in (kernel_check.ckks_cases(param, 2, 2, cuda, gen)
+                 + kernel_check.ext_sum_cases(n, 2, cuda, gen)
+                 + kernel_check.bench_cases(n, 3, cuda, gen)):
+        got, want = case.kernel(), case.plain()
+        torch.cuda.synchronize()
+        assert kernel_check.equal(got, want), (case.name, case.label)
+
+
+def _ckks(param, device, seed=10, batch=2):
+    """Path A on draws that are the same on any device: multiply, a hybrid
+    and a hoisted rotation, the gadget keyring's conjugation."""
+    gen = torch.Generator().manual_seed(seed)
+    z = torch.rand((2, batch, param.n // 2), generator=gen,
+                   dtype=torch.float64) * 2 - 1
+    sk, pk = C.new_key(gen, param, device)
+    hrlk = C.hybrid_rlk(gen, param, sk)
+    zero = torch.zeros_like(z[0]).to(device)
+    c = [C.encrypt(gen, param, pk, C.encode(param, zi.to(device), zero),
+                   batch=(batch,)) for zi in z]
+    out, p2 = C.mul_hybrid(param, hrlk, c[0], C.add(param, *c))
+    g = galois.rotation_element(param.n, 3)
+    hgk = H.galois_key_hybrid(gen, param, sk, g)
+    rot = H.rotate_hybrid(param, hgk, c[0], g)
+    hoisted = H.rotate_hoisted(param, hgk, c[0], g,
+                               H.hoist_digits(param, c[0].c1))
+    ring = galois.GaloisKeys.for_rotations(gen, param, sk, steps=[1],
+                                           conj=True)
+    conj = ring.conjugate(param, c[0])
+    rr, _ = C.decode(p2, C.decrypt_to_coeffs(p2, sk, out))
+    return z, [*out, *rot, *hoisted, *conj], rr
+
+
+def test_ckks_on_card_matches_cpu(cuda):
+    param = C.Param(n=1024, L=4, delta=2.0 ** 28)
+    _cuda.reset_launches()
+    z, outs, rr = _ckks(param, cuda)
+    torch.cuda.synchronize()
+    counts = _cuda.launches()
+    for name in ("ntt_multi", "tensor_mul4", "ks_fused", "ks_contract",
+                 "base_extend"):
+        assert counts[name] > 0, counts
+    _, outs_cpu, rr_cpu = _ckks(param, torch.device("cpu"))
+    for got, want in zip(outs, outs_cpu):
+        assert torch.equal(got.cpu(), want)
+    # the decode is float64 on both: the card's FFT rounds the same sums
+    np.testing.assert_allclose(rr.cpu().numpy(), rr_cpu.numpy(), atol=1e-9)
+    np.testing.assert_allclose(rr_cpu.numpy(),
+                               ((z[0] + z[1]) * z[0]).numpy(), atol=1e-2)
+
+
+def test_bench_wrappers_check_and_measure(cuda):
+    x = torch.zeros((4, 1024), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="int32"):
+        alu_bench.alu_rate_kernel(x.long(), x, x, "add", 16)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        alu_bench.alu_rate_kernel(x, x, x, "add", 8)
+    with pytest.raises(ValueError, match="2\\^8 .. 2\\^14"):
+        alu_bench.ntt_smem_ceiling_kernel(x[:, :128].contiguous(), 12289, 1)
+    with pytest.raises(ValueError, match="alpha"):
+        ext_cuda.base_extend_sum_kernel(x, x, (12289, 40961), (65537,))
+    per_sm, sms = alu_bench.resident_blocks(cuda, n=1 << 14)
+    assert per_sm >= 1 and sms >= 1
+    r = alu_bench.ntt_smem_ceiling(cuda, n=1024, B=sms, reps=4)
+    assert r["butterflies_per_sec"] > 0 and "cpu" not in r["device"]
+    r = alu_bench.alu_rate("butterfly", cuda, rounds=64)
+    assert r["elems_per_s"] > 0 and r["rounds"] == 64

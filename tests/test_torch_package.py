@@ -15,10 +15,11 @@ from fhe_study_tpu.ops import ntt as jntt
 from fhe_study_tpu.ops.primes import ntt_primes as jprimes
 from fhe_study_tpu.utils.rounding import round_half_away as jround
 
-from fhe_study_tpu_torch.models import bfv_rns
+from fhe_study_tpu_torch.models import bfv_rns, hybrid_ks
+from fhe_study_tpu_torch.models.ckks import ckks_rns
 from fhe_study_tpu_torch.models.tfhe import tggsw, tlwe
-from fhe_study_tpu_torch.ops import (_cuda, blind_rotate_cuda, ext_cuda, ntt,
-                                     ntt_cuda, primes)
+from fhe_study_tpu_torch.ops import (_cuda, alu_bench, blind_rotate_cuda,
+                                     ext_cuda, ntt, ntt_cuda, primes)
 from fhe_study_tpu_torch.utils import interop, prng
 from fhe_study_tpu_torch.utils.rounding import round_half_away
 
@@ -109,6 +110,9 @@ def test_kernel_wrappers_take_only_cuda_tensors():
             torch.zeros((1, 2, 256), dtype=torch.int64),
             *(torch.zeros((3, 2, 2, 2, 2, 256), dtype=torch.int32),) * 4,
             256, 12),
+        lambda: ext_cuda.base_extend_sum_kernel(x, x[0], qs, qs),
+        lambda: alu_bench.ntt_smem_ceiling_kernel(x[0], qs[0], 1),
+        lambda: alu_bench.alu_rate_kernel(keys, keys, keys, "add", 16),
     ]
     before = _cuda.launches()
     for call in calls:
@@ -118,7 +122,7 @@ def test_kernel_wrappers_take_only_cuda_tensors():
 
 
 def test_every_kernel_names_its_plain_version_and_its_pallas_kernel():
-    """Eleven entries; each has a wrapper and a plain version beside it, and
+    """Fourteen entries; each has a wrapper and a plain version beside it, and
     ``replaces`` is the file:line of the ``def`` of an existing function of
     the JAX package that reaches ``pl.pallas_call``."""
     pallas = {"ntt_multi": "ntt_multi_u32", "tensor_eval4": "tensor_eval4_u32",
@@ -126,12 +130,16 @@ def test_every_kernel_names_its_plain_version_and_its_pallas_kernel():
               "base_extend": "base_extend_fused", "ext_ntt": "ext_ntt_u32",
               "tensor_mul4": "tensor_mul4_u32", "tensor_mul": "tensor_mul_u32",
               "ks_fused": "ks_fused_u32", "ks_fused_eval": "ks_fused_eval_u32",
-              "ntt": "ntt_u32", "blind_rotate": "blind_rotate_fused"}
+              "ntt": "ntt_u32", "blind_rotate": "blind_rotate_fused",
+              "base_extend_sum": "base_extend_sum",
+              "ntt_smem_ceiling": "ntt_vmem_ceiling", "alu_rate": "alu_rate"}
     assert [k.name for k in _cuda.KERNELS] == list(pallas)
     assert set(_cuda.launches()) == set(pallas)
     for k in _cuda.KERNELS:
-        mod = {"base_extend": ext_cuda,
-               "blind_rotate": blind_rotate_cuda}.get(k.name, ntt_cuda)
+        mod = {"base_extend": ext_cuda, "base_extend_sum": ext_cuda,
+               "blind_rotate": blind_rotate_cuda,
+               "ntt_smem_ceiling": alu_bench,
+               "alu_rate": alu_bench}.get(k.name, ntt_cuda)
         stem = "base_extend_fused" if k.name == "base_extend" else k.name
         assert callable(getattr(mod, stem + "_kernel"))
         assert callable(getattr(mod, stem + "_plain"))
@@ -252,6 +260,19 @@ def test_interop_round_trip_and_range_check():
         interop.to_tensor(np.array([0.5]), "cpu")
     with pytest.raises(TypeError, match="cannot carry"):
         interop.to_port((a, a), "cpu")
+    # kinds of one name are told apart by their module; HybridKSK's u32
+    # planes cross as int32 under the same range check
+    for kind in (ckks_rns.CT, ckks_rns.PublicKey, hybrid_ks.HybridKSK):
+        got = interop.to_port(kind(a.astype(np.uint32), a), "cpu")
+        assert type(got) is kind and got[0].dtype == torch.int32
+        for back in interop.to_numpy(got):
+            np.testing.assert_array_equal(back, a)
+    assert type(interop.to_port(ckks_rns.SecretKey(a), "cpu")) \
+        is ckks_rns.SecretKey
+    assert type(interop.to_port(bfv_rns.SecretKey(a), "cpu")) \
+        is bfv_rns.SecretKey
+    with pytest.raises(ValueError, match="2\\^31"):
+        interop.to_port(hybrid_ks.HybridKSK(a, a + (1 << 31)), "cpu")
 
 
 def test_interop_carries_torus_words_and_shoup_planes_bit_for_bit():
@@ -291,6 +312,6 @@ def test_build_is_one_command_over_every_source(bare_loader, monkeypatch):
         _cuda.library()
     log = (_cuda.build_dir() / "build.log").read_text().splitlines()
     cus = sorted(p.name for p in _cuda.CSRC.iterdir() if p.suffix == ".cu")
-    assert len(cus) == 3 and len(log) == 1
-    assert [w.rsplit("/", 1)[-1] for w in log[0].split()[-3:]] == cus
+    assert len(cus) == 4 and len(log) == 1
+    assert [w.rsplit("/", 1)[-1] for w in log[0].split()[-4:]] == cus
     assert " -shared " in log[0]
