@@ -12,26 +12,38 @@
 //   fhe_ntt            <- ntt_u32           (_ntt_kernel): one scalar prime,
 //                         a flat batch, 64-bit words in and out
 //
-// Layout of the first four and of fhe_ntt: one thread block per (prime,
-// polynomial) — and per product or key half where a kernel emits several —
-// holds its whole length-n polynomial (n = 2^8 .. 2^14, at most 64 KB) in dynamic shared memory and runs all
-// log n butterfly stages there, so device memory sees one read of the
-// operands and one write of the result.  Twiddles come from per-prime [L, n]
-// bit-reversed tables with Shoup companions (no per-stage tables: the TPU
-// needed those only to avoid gathers under its (8, 128) tiling).
+// Layout of fhe_ntt_multi, fhe_ks_contract and fhe_ntt: one thread block
+// per (prime, polynomial), and per key half where a kernel emits two, holds
+// its whole length-n polynomial (n = 2^8 .. 2^14, at most 64 KB) in dynamic
+// shared memory and runs all log n butterfly stages there
+// (modarith.cuh::forward_chain / inverse_chain), so device memory sees one
+// read of the operands and one write of the result.  Twiddles come from
+// per-prime [L, n] bit-reversed tables with Shoup companions (no per-stage
+// tables: the TPU needed those only to avoid gathers under its (8, 128)
+// tiling).  What bounds them: at n = 2^14 a block moves 128 KB through device
+// memory but does 14 * 8192 butterflies, each two shared-memory loads and
+// stores, two twiddle loads and 13 integer instructions, and a barrier a
+// stage; on the H100 such a chain reaches a third of the butterfly's issue
+// rate (K12 measures it), and K1 and K3 17-19% of their issue bound.
 //
-// What bounds it: at n = 2^14 a block moves 128 KB through device memory
-// but does 14 * 8192 butterflies, each two shared-memory loads and stores,
-// two twiddle loads and ~10 integer ops, so a kernel is bound by
-// shared-memory traffic, integer issue and the 14 barriers of its chain,
-// not by device memory; 64 KB of shared memory a block caps residency at
-// 3 blocks per SM.  A faster layout
-// (registers across stages, fewer barriers, cp.async/TMA prefetch) is later
-// work; this one is simple and exact.
+// fhe_tensor_eval4 (K2) and fhe_ext_ntt (K5) run the register-resident
+// chain of radix_chain.cuh instead: four stages a pass on 16 words a thread
+// in registers, ceil(log n / 4) - 1 exchanges through swizzled shared memory
+// (3 barriers at n = 2^14 where the chain above takes 14), the twiddles of a
+// pass in vector loads, the products or the base conversion straight into
+// the registers of the first pass.  One block of at most 256 threads per
+// polynomial, each thread playing up to 4 virtual threads, 3 blocks an SM at
+// n = 2^14.  They read 41-50% of their issue bound on an H100 80GB HBM3 at
+// 700 W (PERF.md); what is left is the instructions beyond the counted
+// butterflies (shared-memory words and their addresses, twiddle loads, K5's
+// constant loads and its conversion recomputed for each destination) and
+// the latency around the barriers.  Carrying that chain to the kernels above
+// is the next step.
 //
-// The last three start from coefficient-domain operands and run forward
-// chains, pointwise products and inverse chains in one launch, one block per
-// (prime, polynomial), with every evaluation-domain value on chip.  A block
+// fhe_tensor_mul4, fhe_ks_fused and fhe_ks_fused_eval start from
+// coefficient-domain operands and run forward chains, pointwise products and
+// inverse chains in one launch, one block per (prime, polynomial), with
+// every evaluation-domain value on chip.  A block
 // cannot hold all of its polynomials in shared memory at once (64 KB each at
 // n = 2^14 against 227 KB), so each thread keeps the running products of the
 // coefficients it owns in registers (at most kFusedPer words per array)
@@ -44,7 +56,11 @@
 // Every entry point launches on the given stream and returns
 // cudaGetLastError(); a refused launch never runs, so the caller raises.
 
+#include <climits>
+#include <cstdint>
+
 #include "modarith.cuh"
+#include "radix_chain.cuh"
 
 namespace fhe {
 namespace {
@@ -107,52 +123,97 @@ __global__ void ntt_kernel(const long long* __restrict__ x,
   }
 }
 
-// K2: product k of the degree-2 tensor of eval-domain operands, one block
-// per (b, p, k): k = 0 -> x0*y0, 1 -> x0*y1 + x1*y0, 2 -> x1*y1 as
-// Montgomery products (a factor 2^-32 each), then the inverse chain and the
-// final multiply by n^-1 * 2^32 * scale.  Operand rows may be strided views:
-// row (p, b) of operand o starts at p * sl[o] + b * sb[o].
+// Operand rows may be strided views: row (p, b) of operand o starts at
+// p * l[o] + b * b[o] words.
 struct Strides {
   long long l[4], b[4];
 };
 
-__global__ void tensor_eval4_kernel(const uint32_t* __restrict__ x0,
-                                    const uint32_t* __restrict__ x1,
-                                    const uint32_t* __restrict__ y0,
-                                    const uint32_t* __restrict__ y1,
-                                    Strides st, uint32_t* __restrict__ out,
-                                    const uint32_t* __restrict__ twinv,
-                                    const uint32_t* __restrict__ twinv_sh,
-                                    const uint32_t* __restrict__ cons, int B,
-                                    int logn) {
+// K2: product k of the degree-2 tensor of eval-domain operands, one block
+// per (p, b, k), k fastest so that the three blocks reading one row pair run
+// side by side and share it in L2: k = 0 -> x0*y0, 1 -> x0*y1 + x1*y0,
+// 2 -> x1*y1 as Montgomery products (a factor 2^-32 each) straight into the
+// registers of the first pass of the register-resident inverse chain
+// (radix_chain.cuh: stage bits 0..3 on 16 contiguous words, read as uint4
+// when every row is 16-byte aligned, `vec`), its other passes through shared
+// memory, and the final multiply by n^-1 * 2^32 * scale folded into the last
+// pass, whose stores are coalesced (lanes on consecutive words).
+__device__ __forceinline__ void operand_words(uint32_t (&d)[4],
+                                              const uint32_t* p, bool vec) {
+  if (vec) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+    d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) d[j] = __ldg(p + j);
+  }
+}
+
+template <int LOGN>
+__global__ void __launch_bounds__(kRadixThreads, kRadixBlocks)
+tensor_eval4_kernel(const uint32_t* __restrict__ x0,
+                    const uint32_t* __restrict__ x1,
+                    const uint32_t* __restrict__ y0,
+                    const uint32_t* __restrict__ y1, Strides st,
+                    uint32_t* __restrict__ out,
+                    const uint32_t* __restrict__ twinv,
+                    const uint32_t* __restrict__ twinv_sh,
+                    const uint32_t* __restrict__ cons, int B, int vec) {
+  using S = RadixShape<LOGN>;
+  constexpr int n = S::n;
+  constexpr int last = S::passes - 1;
+  constexpr int cl = S::inv_c(last);
   extern __shared__ uint32_t a[];
-  const int n = 1 << logn;
-  const int b = blockIdx.x;
-  const int p = blockIdx.y;
-  const int k = blockIdx.z;
+  const int k = blockIdx.x % 3;
+  const int pb = blockIdx.x / 3;             // p * B + b
+  const int b = pb % B;
+  const int p = pb / B;
   const PrimeRow c = prime_row(cons, p);
+  const uint32_t* w = twinv + static_cast<size_t>(p) * n;
+  const uint32_t* wsh = twinv_sh + static_cast<size_t>(p) * n;
   const uint32_t* r0 = x0 + p * st.l[0] + b * st.b[0];
   const uint32_t* r1 = x1 + p * st.l[1] + b * st.b[1];
   const uint32_t* s0 = y0 + p * st.l[2] + b * st.b[2];
   const uint32_t* s1 = y1 + p * st.l[3] + b * st.b[3];
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    uint32_t v;
-    if (k == 0) {
-      v = mont_mul(r0[i], s0[i], c.q, c.nq);
-    } else if (k == 1) {
-      v = addmod(mont_mul(r0[i], s1[i], c.q, c.nq),
-                 mont_mul(r1[i], s0[i], c.q, c.nq), c.q);
-    } else {
-      v = mont_mul(r1[i], s1[i], c.q, c.nq);
+  // k = 1 sums two products; k = 0 and 2 take one, from (r0, s0) or (r1, s1)
+  const uint32_t* u0 = k == 2 ? r1 : r0;
+  const uint32_t* v0 = k == 0 ? s0 : s1;
+#pragma unroll 1
+  for (int g = 0; g < S::groups; ++g) {
+    const int base = (threadIdx.x + g * S::threads) << kRadixBits;
+    uint32_t x[kRadix];
+#pragma unroll
+    for (int j = 0; j < kRadix; j += 4) {
+      uint32_t A[4], Bw[4];
+      operand_words(A, u0 + base + j, vec != 0);
+      operand_words(Bw, v0 + base + j, vec != 0);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) x[j + i] = mont_mul(A[i], Bw[i], c.q, c.nq);
+      if (k == 1) {
+        operand_words(A, r1 + base + j, vec != 0);
+        operand_words(Bw, s0 + base + j, vec != 0);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          x[j + i] = addmod(x[j + i], mont_mul(A[i], Bw[i], c.q, c.nq), c.q);
+        }
+      }
     }
-    a[i] = v;
+    radix_pass<LOGN, 0, true>(x, base, w, wsh, c.q);
+    radix_store<0>(a, x, base);
   }
   __syncthreads();
-  inverse_chain(a, logn, twinv + static_cast<size_t>(p) * n,
-                twinv_sh + static_cast<size_t>(p) * n, c.q);
-  const size_t orow = ((static_cast<size_t>(p) * B + b) * 3 + k) * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    out[orow + i] = shoup_mul(a[i], c.fin, c.fin_sh, c.q);
+  RadixPasses<LOGN, 1, last, true>::run(a, w, wsh, c.q);
+  uint32_t* o = out + static_cast<size_t>(blockIdx.x) * n;
+#pragma unroll 1
+  for (int g = 0; g < S::groups; ++g) {
+    const int base = radix_base(threadIdx.x + g * S::threads, cl);
+    uint32_t x[kRadix];
+    radix_load<cl>(x, a, base);
+    radix_pass<LOGN, last, true>(x, base, w, wsh, c.q);
+#pragma unroll
+    for (int j = 0; j < kRadix; ++j) {
+      o[base + (j << cl)] = shoup_mul(x[j], c.fin, c.fin_sh, c.q);
+    }
   }
 }
 
@@ -193,33 +254,93 @@ __global__ void ks_contract_kernel(const uint32_t* __restrict__ edm,
   }
 }
 
+// K5's conversion of one coefficient to destination prime j, bit for bit
+// ext_lift + ext_to of modarith.cuh.  With LS > 0 (the source counts the
+// paths use) the y_i stay in LS registers; the generic form (LS = 0, any
+// e.ls up to kMaxSrc) keeps no per-thread array and computes each y_i twice.
+template <int LS>
+__device__ __forceinline__ uint32_t ext_coeff(const uint32_t* x, size_t stride,
+                                              const ExtTable& e, int j) {
+  const uint32_t d = e.dst(j, 0);
+  uint64_t acc = 0;
+  uint32_t sum = 0;
+  if constexpr (LS > 0) {
+    uint32_t ys[LS];
+#pragma unroll
+    for (int i = 0; i < LS; ++i) {
+      ys[i] = shoup_mul(x[i * stride], e.src(i, 1), e.src(i, 2), e.src(i, 0));
+      acc += static_cast<uint64_t>(ys[i]) *
+             (static_cast<uint64_t>(e.src(i, 3)) |
+              (static_cast<uint64_t>(e.src(i, 4)) << 32));
+    }
+#pragma unroll
+    for (int i = 0; i < LS; ++i) {
+      sum = addmod(sum, shoup_mul(ys[i], e.tab(i, j, 0), e.tab(i, j, 1), d), d);
+    }
+  } else {
+    for (int i = 0; i < e.ls; ++i) {
+      const uint32_t y =
+          shoup_mul(x[i * stride], e.src(i, 1), e.src(i, 2), e.src(i, 0));
+      acc += static_cast<uint64_t>(y) *
+             (static_cast<uint64_t>(e.src(i, 3)) |
+              (static_cast<uint64_t>(e.src(i, 4)) << 32));
+    }
+    for (int i = 0; i < e.ls; ++i) {
+      const uint32_t y =
+          shoup_mul(x[i * stride], e.src(i, 1), e.src(i, 2), e.src(i, 0));
+      sum = addmod(sum, shoup_mul(y, e.tab(i, j, 0), e.tab(i, j, 1), d), d);
+    }
+  }
+  const uint32_t alpha = static_cast<uint32_t>(acc >> 59);
+  return submod(sum, shoup_mul(alpha, e.dst(j, 1), e.dst(j, 2), d), d);
+}
+
 // K5: unsigned HPS extension of rows [Ls, B, n] to destination prime p,
-// fused with its forward transform, one block per (b, p).  The
-// destination-independent half (y_i and alpha) is recomputed by every
-// destination block.
-__global__ void ext_ntt_kernel(const uint32_t* __restrict__ x,
-                               uint32_t* __restrict__ out,
-                               const uint32_t* __restrict__ ext,
-                               const uint32_t* __restrict__ tw,
-                               const uint32_t* __restrict__ tw_sh, int Ls,
-                               int Ld, int B, int logn) {
+// fused with its forward transform, one block per (b, p), p fastest so that
+// the Ld blocks reading one polynomial's source rows run side by side and
+// share them in L2.  The conversion writes straight into the registers of
+// the first pass of the register-resident forward chain (radix_chain.cuh:
+// stage bits log n - 1 .. log n - 4, so lanes read consecutive words of each
+// source row); the last pass leaves the result in shared memory, read out
+// as coalesced uint4 rows.  Every destination block recomputes the y_i and
+// alpha: sharing them would keep (Ls + 1) n words per polynomial on chip
+// (320 KB at n = 2^14, Ls = 4) or send them through device memory.
+template <int LOGN, int LS>
+__global__ void __launch_bounds__(kRadixThreads, kRadixBlocks)
+ext_ntt_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
+               const uint32_t* __restrict__ ext,
+               const uint32_t* __restrict__ tw,
+               const uint32_t* __restrict__ tw_sh, int Ls, int Ld, int B) {
+  using S = RadixShape<LOGN>;
+  constexpr int n = S::n;
+  constexpr int c0 = S::fwd_c(0);
   extern __shared__ uint32_t a[];
-  const int n = 1 << logn;
-  const int b = blockIdx.x;
-  const int p = blockIdx.y;
-  const ExtTable e{ext, Ls, Ld};
+  const int p = blockIdx.x % Ld;
+  const int b = blockIdx.x / Ld;
+  const ExtTable e{ext, LS > 0 ? LS : Ls, Ld};
+  const uint32_t q = e.dst(p, 0);
+  const uint32_t* w = tw + static_cast<size_t>(p) * n;
+  const uint32_t* wsh = tw_sh + static_cast<size_t>(p) * n;
+  const uint32_t* row = x + static_cast<size_t>(b) * n;
   const size_t stride = static_cast<size_t>(B) * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    uint32_t ys[kMaxSrc];
-    const uint32_t alpha =
-        ext_lift(x + static_cast<size_t>(b) * n + i, stride, e, false, ys);
-    a[i] = ext_to(ys, alpha, p, e);
+#pragma unroll 1
+  for (int g = 0; g < S::groups; ++g) {
+    const int base = threadIdx.x + g * S::threads;    // radix_base(v, c0)
+    uint32_t r[kRadix];
+#pragma unroll
+    for (int j = 0; j < kRadix; ++j) {
+      r[j] = ext_coeff<LS>(row + base + (j << c0), stride, e, p);
+    }
+    radix_pass<LOGN, 0, false>(r, base, w, wsh, q);
+    radix_store<c0>(a, r, base);
   }
   __syncthreads();
-  forward_chain(a, logn, tw + static_cast<size_t>(p) * n,
-                tw_sh + static_cast<size_t>(p) * n, e.dst(p, 0));
-  const size_t orow = (static_cast<size_t>(p) * B + b) * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) out[orow + i] = a[i];
+  RadixPasses<LOGN, 1, S::passes, false>::run(a, w, wsh, q);
+  uint4* o = reinterpret_cast<uint4*>(out + (static_cast<size_t>(p) * B + b) * n);
+  for (int i = threadIdx.x; i < n / 4; i += S::threads) {
+    const int sw = radix_swizzle(4 * i);
+    o[i] = make_uint4(a[sw], a[sw ^ 1], a[sw ^ 2], a[sw ^ 3]);
+  }
 }
 
 // The coefficients thread t owns for the pointwise passes of the fused
@@ -450,6 +571,54 @@ int fused_threads(int logn) {
 
 bool bad_logn(int logn) { return logn < kMinLogN || logn > kMaxLogN; }
 
+// Launch of a radix-chain kernel at n = 2^LOGN: the host's plan
+// (ops/ntt_cuda.py::_radix_plan) hands in the block size and shared-memory
+// bytes, which must be this build's.
+template <int LOGN, typename Kernel, typename... Args>
+int radix_launch(Kernel kernel, int threads, int smem, int blocks,
+                 cudaStream_t stream, Args... args) {
+  using S = RadixShape<LOGN>;
+  if (threads != S::threads || smem != S::n * static_cast<int>(sizeof(uint32_t))) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (blocks > 0) kernel<<<blocks, threads, smem, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+struct TensorEval4Launch {
+  template <int LOGN, typename... Args>
+  static int run(Args... args) {
+    return radix_launch<LOGN>(tensor_eval4_kernel<LOGN>, args...);
+  }
+};
+
+template <int LS>
+struct ExtNttLaunch {
+  struct F {
+    template <int LOGN, typename... Args>
+    static int run(Args... args) {
+      return radix_launch<LOGN>(ext_ntt_kernel<LOGN, LS>, args...);
+    }
+  };
+};
+
+// F::run<logn>(args...) for the ring degrees the kernels take.
+template <typename F, typename... Args>
+int by_logn(int logn, Args... args) {
+  switch (logn) {
+    case 8: return F::template run<8>(args...);
+    case 9: return F::template run<9>(args...);
+    case 10: return F::template run<10>(args...);
+    case 11: return F::template run<11>(args...);
+    case 12: return F::template run<12>(args...);
+    case 13: return F::template run<13>(args...);
+    case 14: return F::template run<14>(args...);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 }  // namespace fhe
 
@@ -488,15 +657,21 @@ extern "C" int fhe_tensor_eval4(const uint32_t* x0, const uint32_t* x1,
                                 const uint32_t* twinv,
                                 const uint32_t* twinv_sh,
                                 const uint32_t* cons, int Ld, int B, int logn,
-                                cudaStream_t stream) {
-  if (bad_logn(logn)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(uint32_t) << logn;
-  cudaError_t err = allow_smem(tensor_eval4_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+                                int threads, int smem, cudaStream_t stream) {
   const Strides st{{sl0, sl1, sl2, sl3}, {sb0, sb1, sb2, sb3}};
-  tensor_eval4_kernel<<<dim3(B, Ld, 3), chain_threads(logn), smem, stream>>>(
-      x0, x1, y0, y1, st, out, twinv, twinv_sh, cons, B, logn);
-  return static_cast<int>(cudaGetLastError());
+  // uint4 operand loads need every row 16-byte aligned
+  const uint32_t* rows[4] = {x0, x1, y0, y1};
+  bool vec = true;
+  for (int o = 0; o < 4; ++o) {
+    vec = vec && reinterpret_cast<uintptr_t>(rows[o]) % 16 == 0 &&
+          st.l[o] % 4 == 0 && st.b[o] % 4 == 0;
+  }
+  const long long blocks = 3LL * Ld * B;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  return by_logn<TensorEval4Launch>(logn, threads, smem,
+                                    static_cast<int>(blocks), stream, x0, x1,
+                                    y0, y1, st, out, twinv, twinv_sh, cons, B,
+                                    static_cast<int>(vec));
 }
 
 extern "C" int fhe_ks_contract(const uint32_t* edm, const uint32_t* kb,
@@ -517,16 +692,24 @@ extern "C" int fhe_ks_contract(const uint32_t* edm, const uint32_t* kb,
 extern "C" int fhe_ext_ntt(const uint32_t* x, uint32_t* out,
                            const uint32_t* ext, const uint32_t* tw,
                            const uint32_t* tw_sh, int Ls, int Ld, int B,
-                           int logn, cudaStream_t stream) {
-  if (bad_logn(logn) || Ls > kMaxSrc) {
+                           int logn, int threads, int smem,
+                           cudaStream_t stream) {
+  const long long blocks = static_cast<long long>(Ld) * B;
+  if (Ls < 1 || Ls > kMaxSrc || blocks > INT_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = sizeof(uint32_t) << logn;
-  cudaError_t err = allow_smem(ext_ntt_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ext_ntt_kernel<<<dim3(B, Ld), chain_threads(logn), smem, stream>>>(
-      x, out, ext, tw, tw_sh, Ls, Ld, B, logn);
-  return static_cast<int>(cudaGetLastError());
+  const int nb = static_cast<int>(blocks);
+  switch (Ls) {
+    case 2:
+      return by_logn<ExtNttLaunch<2>::F>(logn, threads, smem, nb, stream, x,
+                                         out, ext, tw, tw_sh, Ls, Ld, B);
+    case 4:
+      return by_logn<ExtNttLaunch<4>::F>(logn, threads, smem, nb, stream, x,
+                                         out, ext, tw, tw_sh, Ls, Ld, B);
+    default:
+      return by_logn<ExtNttLaunch<0>::F>(logn, threads, smem, nb, stream, x,
+                                         out, ext, tw, tw_sh, Ls, Ld, B);
+  }
 }
 
 extern "C" int fhe_tensor_mul4(const uint32_t* x0, const uint32_t* x1,

@@ -1,0 +1,224 @@
+// Register-resident stage chains of the negacyclic NTT: the forward
+// (Cooley-Tukey) and inverse (Gentleman-Sande, without n^-1) chains of
+// modarith.cuh, regrouped so that a thread runs kRadixBits stages on
+// kRadix = 16 coefficients held in registers between two exchanges through
+// shared memory.  Only K2 (tensor_eval4) and K5 (ext_ntt) call them; the
+// one-stage-a-barrier chains of modarith.cuh stay for the other kernels.
+//
+// Element a of the polynomial has log n bits.  A pass holds bits
+// [c, c + 4) of a in registers: virtual thread v owns the 16 elements
+// base(v, c) | (k << c), k < 16, where base spreads v's bits over the other
+// bits in ascending order, so lanes of a warp differ in the lowest bits
+// outside [c, c + 4).  The pass runs the stages whose bits lie in
+// [c, c + 4) and that no earlier pass ran: the forward chain walks the bits
+// from log n - 1 down to 0 (passes at c = log n - 4, log n - 8, ..., the last
+// at c = 0 over the bits left), the inverse chain from 0 up (c = 0, 4, ...,
+// the last at c = log n - 4 over the bits left), so every log n from 8 to 14
+// takes ceil(log n / 4) passes and ceil(log n / 4) - 1 exchanges, against the
+// log n barriers of the one-stage chain.
+//
+// Twiddles: stage bit j of either chain multiplies by w[(n >> (j + 1)) +
+// (a >> (j + 1))] of the bit-reversed [L, n] table (roots or inverse roots,
+// with Shoup companions), so the 2^(3 - u) twiddles of stage u of a pass lie
+// side by side and aligned: one uint4, uint2 or word load each of the root
+// and its companion, 15 pairs a pass against 2 loads a butterfly before.
+//
+// Shared memory holds the n words under a XOR swizzle of the low 5 bits by
+// bits 5..8 (radix_swizzle); every access of every pass, and the coalesced
+// read-out of K5, then hits 32 distinct banks (ops/ntt_cuda.py::_radix_plan
+// and its CPU test check the maps; the swizzle is a bijection on every
+// aligned block of 512 words).
+//
+// The butterfly stays the fully reduced one of modarith.cuh (shoup_mul,
+// addmod, submod on canonical residues), so every output equals the plain
+// versions' bit for bit, whatever the grouping of the stages.
+#pragma once
+
+#include "modarith.cuh"
+
+namespace fhe {
+
+constexpr int kRadixBits = 4;
+constexpr int kRadix = 1 << kRadixBits;
+// A block runs at most kRadixThreads threads, each playing n / (16 *
+// threads) virtual threads one after the other (4 at n = 2^14), so that only
+// 16 coefficients are live in its registers at a time; kRadixBlocks such
+// blocks fit an SM (3 x 64 KB of shared memory at n = 2^14, and up to 85
+// registers a thread, which K5's conversion needs beside its 16 words).
+constexpr int kRadixThreads = 256;
+constexpr int kRadixBlocks = 3;
+
+__host__ __device__ constexpr int radix_min(int a, int b) {
+  return a < b ? a : b;
+}
+
+__host__ __device__ constexpr int radix_max(int a, int b) {
+  return a > b ? a : b;
+}
+
+// The pass structure at n = 2^LOGN (mirrored by ops/ntt_cuda.py::_radix_plan).
+template <int LOGN>
+struct RadixShape {
+  static constexpr int n = 1 << LOGN;
+  static constexpr int passes = (LOGN + kRadixBits - 1) / kRadixBits;
+  static constexpr int vthreads = n >> kRadixBits;
+  static constexpr int threads = radix_min(vthreads, kRadixThreads);
+  static constexpr int groups = vthreads / threads;
+  // forward pass p: register bits [c, c + 4), stages u = uhi, ..., 0
+  __host__ __device__ static constexpr int fwd_c(int p) {
+    return radix_max(LOGN - kRadixBits * (p + 1), 0);
+  }
+  __host__ __device__ static constexpr int fwd_uhi(int p) {
+    return LOGN - kRadixBits * p - 1 - fwd_c(p);
+  }
+  // inverse pass p: register bits [c, c + 4), stages u = ulo, ..., 3
+  __host__ __device__ static constexpr int inv_c(int p) {
+    return radix_min(kRadixBits * p, LOGN - kRadixBits);
+  }
+  __host__ __device__ static constexpr int inv_ulo(int p) {
+    return kRadixBits * p - inv_c(p);
+  }
+};
+
+// Shared-memory word of element a: bits 0..4 XORed with h ^ (h << 1),
+// h = bits 5..8 (linear, so swizzle(x ^ y) = swizzle(x) ^ swizzle(y)).
+__host__ __device__ constexpr int radix_swizzle(int a) {
+  return a ^ ((((a >> 5) & 15) ^ (((a >> 5) & 15) << 1)) & 31);
+}
+
+// First element of virtual thread v in a pass that holds bits [c, c + 4).
+__device__ __forceinline__ int radix_base(int v, int c) {
+  return (v & ((1 << c) - 1)) | ((v >> c) << (c + kRadixBits));
+}
+
+// Shared-memory word of element base | (k << C), from sb = swizzle(base):
+// the part of the offset above bit 4 lies in bits that are 0 in sb, so it
+// is an add (an immediate of the load) and only the low bits need a XOR.
+template <int C, int K>
+__device__ __forceinline__ int radix_word(int sb) {
+  constexpr int off = radix_swizzle(K << C);
+  return (sb ^ (off & 31)) + (off & ~31);
+}
+
+template <int C>
+__device__ __forceinline__ void radix_load(uint32_t (&x)[kRadix],
+                                           const uint32_t* a, int base) {
+  const int sb = radix_swizzle(base);
+#define FHE_LD(K) x[K] = a[radix_word<C, K>(sb)];
+  FHE_LD(0) FHE_LD(1) FHE_LD(2) FHE_LD(3) FHE_LD(4) FHE_LD(5) FHE_LD(6)
+  FHE_LD(7) FHE_LD(8) FHE_LD(9) FHE_LD(10) FHE_LD(11) FHE_LD(12) FHE_LD(13)
+  FHE_LD(14) FHE_LD(15)
+#undef FHE_LD
+}
+
+template <int C>
+__device__ __forceinline__ void radix_store(uint32_t* a,
+                                            const uint32_t (&x)[kRadix],
+                                            int base) {
+  const int sb = radix_swizzle(base);
+#define FHE_ST(K) a[radix_word<C, K>(sb)] = x[K];
+  FHE_ST(0) FHE_ST(1) FHE_ST(2) FHE_ST(3) FHE_ST(4) FHE_ST(5) FHE_ST(6)
+  FHE_ST(7) FHE_ST(8) FHE_ST(9) FHE_ST(10) FHE_ST(11) FHE_ST(12) FHE_ST(13)
+  FHE_ST(14) FHE_ST(15)
+#undef FHE_ST
+}
+
+// W consecutive words from p, aligned to W words, in one load.
+template <int W>
+__device__ __forceinline__ void radix_words(uint32_t (&d)[W],
+                                            const uint32_t* p) {
+  if constexpr (W == 8) {
+    const uint4 lo = __ldg(reinterpret_cast<const uint4*>(p));
+    const uint4 hi = __ldg(reinterpret_cast<const uint4*>(p) + 1);
+    d[0] = lo.x; d[1] = lo.y; d[2] = lo.z; d[3] = lo.w;
+    d[4] = hi.x; d[5] = hi.y; d[6] = hi.z; d[7] = hi.w;
+  } else if constexpr (W == 4) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+    d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
+  } else if constexpr (W == 2) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    d[0] = v.x; d[1] = v.y;
+  } else {
+    d[0] = __ldg(p);
+  }
+}
+
+// Stage u of a pass: pairs (k, k | 2^u) for k without bit u; pair k takes
+// twiddle k >> (u + 1) of the 2^(3 - u) at w (wsh: their Shoup companions).
+template <int U, bool INV>
+__device__ __forceinline__ void radix_stage(uint32_t (&x)[kRadix],
+                                            const uint32_t* w,
+                                            const uint32_t* wsh, uint32_t q) {
+  constexpr int W = 8 >> U;
+  uint32_t t[W], ts[W];
+  radix_words<W>(t, w);
+  radix_words<W>(ts, wsh);
+#pragma unroll
+  for (int k = 0; k < kRadix; ++k) {
+    if (k & (1 << U)) continue;
+    const int k2 = k | (1 << U);
+    const int j = k >> (U + 1);
+    const uint32_t u = x[k];
+    if constexpr (INV) {
+      const uint32_t v = x[k2];
+      x[k] = addmod(u, v, q);
+      x[k2] = shoup_mul(submod(u, v, q), t[j], ts[j], q);
+    } else {
+      const uint32_t v = shoup_mul(x[k2], t[j], ts[j], q);
+      x[k] = addmod(u, v, q);
+      x[k2] = submod(u, v, q);
+    }
+  }
+}
+
+// The stages of pass P on the registers of the virtual thread at base:
+// stage u at bit c + u reads its twiddles from (n >> (c + u + 1)) +
+// ((base >> (c + 4)) << (3 - u)).
+template <int LOGN, int P, bool INV>
+__device__ __forceinline__ void radix_pass(uint32_t (&x)[kRadix], int base,
+                                           const uint32_t* w,
+                                           const uint32_t* wsh, uint32_t q) {
+  using S = RadixShape<LOGN>;
+  constexpr int c = INV ? S::inv_c(P) : S::fwd_c(P);
+  const int hb = base >> (c + kRadixBits);
+#define FHE_AT(U) ((S::n >> (c + (U) + 1)) + (hb << (3 - (U))))
+  if constexpr (INV) {
+    constexpr int ulo = S::inv_ulo(P);
+    if constexpr (ulo <= 0) radix_stage<0, true>(x, w + FHE_AT(0), wsh + FHE_AT(0), q);
+    if constexpr (ulo <= 1) radix_stage<1, true>(x, w + FHE_AT(1), wsh + FHE_AT(1), q);
+    if constexpr (ulo <= 2) radix_stage<2, true>(x, w + FHE_AT(2), wsh + FHE_AT(2), q);
+    radix_stage<3, true>(x, w + FHE_AT(3), wsh + FHE_AT(3), q);
+  } else {
+    constexpr int uhi = S::fwd_uhi(P);
+    if constexpr (uhi >= 3) radix_stage<3, false>(x, w + FHE_AT(3), wsh + FHE_AT(3), q);
+    if constexpr (uhi >= 2) radix_stage<2, false>(x, w + FHE_AT(2), wsh + FHE_AT(2), q);
+    if constexpr (uhi >= 1) radix_stage<1, false>(x, w + FHE_AT(1), wsh + FHE_AT(1), q);
+    radix_stage<0, false>(x, w + FHE_AT(0), wsh + FHE_AT(0), q);
+  }
+#undef FHE_AT
+}
+
+// Passes P .. END - 1, each from shared memory through registers back to
+// shared memory, each ending with a barrier.
+template <int LOGN, int P, int END, bool INV>
+struct RadixPasses {
+  __device__ __forceinline__ static void run(uint32_t* a, const uint32_t* w,
+                                             const uint32_t* wsh, uint32_t q) {
+    if constexpr (P < END) {
+      using S = RadixShape<LOGN>;
+      constexpr int c = INV ? S::inv_c(P) : S::fwd_c(P);
+#pragma unroll 1
+      for (int g = 0; g < S::groups; ++g) {
+        const int base = radix_base(threadIdx.x + g * S::threads, c);
+        uint32_t x[kRadix];
+        radix_load<c>(x, a, base);
+        radix_pass<LOGN, P, INV>(x, base, w, wsh, q);
+        radix_store<c>(a, x, base);
+      }
+      __syncthreads();
+      RadixPasses<LOGN, P + 1, END, INV>::run(a, w, wsh, q);
+    }
+  }
+};
+
+}  // namespace fhe

@@ -16,6 +16,7 @@ version, and the kernel wrappers (``check``) refuse CPU tensors.
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from functools import lru_cache
@@ -93,6 +94,51 @@ def build_log() -> str:
     return (build_dir() / "build.log").read_text()
 
 
+def ptxas_report(log: str) -> list:
+    """Per entry function of a build log, in order: its mangled ``name``,
+    ``kernel`` (the name with its integer template arguments, as
+    ``ext_ntt_kernel<14, 4>``), and ptxas's ``registers``, ``stack`` frame
+    bytes, ``spill_stores`` and ``spill_loads`` bytes."""
+    entries, props = [], {}
+    current = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = {"name": m.group(1), "kernel": _kernel_label(m.group(1))}
+            entries.append(current)
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = {"name": m.group(1)}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and current is not None and props.get("name") == current["name"]:
+            current.update(stack=int(m.group(1)),
+                           spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current is not None:
+            current["registers"] = int(m.group(1))
+    return entries
+
+
+def _kernel_label(mangled: str) -> str:
+    """The innermost name of an Itanium-mangled function and its integer
+    template arguments."""
+    pos = 3 if mangled.startswith("_ZN") else 2
+    name = mangled
+    while (m := re.match(r"\d+", mangled[pos:])):
+        start = pos + m.end()
+        name = mangled[start:start + int(m.group())]
+        pos = start + int(m.group())
+    args = re.match(r"I((?:Li-?\d+E)+)E", mangled[pos:])
+    if not args:
+        return name
+    return f"{name}<{', '.join(re.findall(r'Li(-?\d+)E', args.group(1)))}>"
+
+
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
 U32 = ctypes.c_uint
@@ -139,7 +185,7 @@ NTT_MULTI = Kernel("ntt_multi", "fhe_ntt_multi", _NTT_CU,
 TENSOR_EVAL4 = Kernel("tensor_eval4", "fhe_tensor_eval4", _NTT_CU,
                       "fhe_study_tpu/ops/ntt_pallas.py:794",
                       PTR, PTR, PTR, PTR, *([I64] * 8),
-                      PTR, PTR, PTR, PTR, INT, INT, INT)
+                      PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT)
 KS_CONTRACT = Kernel("ks_contract", "fhe_ks_contract", _NTT_CU,
                      "fhe_study_tpu/ops/ntt_pallas.py:1273",
                      PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT)
@@ -148,7 +194,7 @@ BASE_EXTEND = Kernel("base_extend", "fhe_base_extend", _EXT_CU,
                      PTR, PTR, PTR, PTR, INT, INT, I64, INT)
 EXT_NTT = Kernel("ext_ntt", "fhe_ext_ntt", _NTT_CU,
                  "fhe_study_tpu/ops/ntt_pallas.py:905",
-                 PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT)
+                 PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT)
 _TENSOR_MUL4_ARGS = (PTR, PTR, PTR, PTR, *([I64] * 8), PTR, PTR, PTR, PTR, PTR,
                      PTR, PTR, INT, INT, INT, INT)
 TENSOR_MUL4 = Kernel("tensor_mul4", "fhe_tensor_mul4", _NTT_CU,

@@ -24,6 +24,7 @@ chip_smoke.py and the card-marked tests.
 """
 
 from functools import lru_cache
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -88,6 +89,46 @@ def _tensor_fin(dst: tuple, n: int, scale: tuple | None) -> tuple:
     return tuple(pow(n, -1, q) * (R32 % q) % q
                  * (1 if scale is None else int(scale[j])) % q
                  for j, q in enumerate(dst))
+
+
+# -- the register-resident chains of K2 and K5 ------------------------------
+
+RADIX_BITS = 4          # kRadixBits of csrc/radix_chain.cuh: 16 words a thread
+RADIX_THREADS = 256     # kRadixThreads: the most threads a block runs
+
+
+class RadixPass(NamedTuple):
+    c: int              # the pass holds bits [c, c + RADIX_BITS) in registers
+    stages: tuple       # the stages it runs, as u (stage bit c + u), in order
+
+
+class RadixPlan(NamedTuple):
+    logn: int
+    threads: int        # a block
+    groups: int         # virtual threads a thread plays one after the other
+    smem_bytes: int     # the polynomial, swizzled, in shared memory
+    forward: tuple      # RadixPass per pass: stage bits log n - 1 .. 0
+    inverse: tuple      # RadixPass per pass: stage bits 0 .. log n - 1
+
+
+@lru_cache(maxsize=None)
+def _radix_plan(logn: int) -> RadixPlan:
+    """The pass structure of csrc/radix_chain.cuh's RadixShape<logn>: the
+    forward chain's passes at c = log n - 4, log n - 8, .., then c = 0 over
+    the bits left; the inverse chain's at c = 0, 4, .., then c = log n - 4
+    over the bits left.  The wrappers hand the kernels ``threads`` and
+    ``smem_bytes``, which the kernels check against their own."""
+    r = RADIX_BITS
+    fwd, inv = [], []
+    for p in range(-(-logn // r)):
+        c = max(logn - r * (p + 1), 0)
+        fwd.append(RadixPass(c, tuple(range(logn - r * p - 1 - c, -1, -1))))
+        c = min(r * p, logn - r)
+        inv.append(RadixPass(c, tuple(range(r * p - c, r))))
+    vthreads = 1 << (logn - r)
+    threads = min(vthreads, RADIX_THREADS)
+    return RadixPlan(logn, threads, vthreads // threads, 4 << logn,
+                     tuple(fwd), tuple(inv))
 
 
 # -- plain versions ---------------------------------------------------------
@@ -286,7 +327,8 @@ def _row_strides(views) -> list:
 
 
 def tensor_eval4_kernel(x0, x1, y0, y1, dst: tuple, scale=None):
-    """K2: one block per (prime, polynomial, product).  Operands may be
+    """K2: one block per (prime, polynomial, product), on the
+    register-resident inverse chain (``_radix_plan``).  Operands may be
     strided views ([Ld, B.., n] with a contiguous last axis)."""
     dev = x0.device
     Ld, n = len(dst), x0.shape[-1]
@@ -300,10 +342,12 @@ def tensor_eval4_kernel(x0, x1, y0, y1, dst: tuple, scale=None):
     dst = tuple(dst)
     tw = _twiddles(dst, n, True, dev)
     cons = _prime_rows(dst, _tensor_fin(dst, n, scale), dev)
+    plan = _radix_plan(logn)
     _cuda.TENSOR_EVAL4.launch(dev, *(v.data_ptr() for v in views),
                               *_row_strides(views),
                               out.data_ptr(), tw[0].data_ptr(),
-                              tw[1].data_ptr(), cons.data_ptr(), Ld, B, logn)
+                              tw[1].data_ptr(), cons.data_ptr(), Ld, B, logn,
+                              plan.threads, plan.smem_bytes)
     return out
 
 
@@ -335,7 +379,8 @@ def ks_contract_kernel(edm, kb, ka, primes: tuple):
 
 
 def ext_ntt_kernel(x, src: tuple, dst: tuple):
-    """K5: one block per (dst prime, polynomial)."""
+    """K5: one block per (dst prime, polynomial), on the register-resident
+    forward chain (``_radix_plan``); any source basis of 1 .. 15 primes."""
     dev = x.device
     _cuda.check(x, "x", dev)
     ext_cuda._check_src(src)
@@ -351,8 +396,10 @@ def ext_ntt_kernel(x, src: tuple, dst: tuple):
     src, dst = tuple(src), tuple(dst)
     tab = ext_cuda.kernel_table(src, dst, None, dev)
     tw = _twiddles(dst, n, False, dev)
+    plan = _radix_plan(logn)
     _cuda.EXT_NTT.launch(dev, x.data_ptr(), out.data_ptr(), tab.data_ptr(),
-                         tw[0].data_ptr(), tw[1].data_ptr(), Ls, Ld, B, logn)
+                         tw[0].data_ptr(), tw[1].data_ptr(), Ls, Ld, B, logn,
+                         plan.threads, plan.smem_bytes)
     return out
 
 

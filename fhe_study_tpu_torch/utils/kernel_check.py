@@ -273,6 +273,39 @@ def linear_cases(param, batch: int, device, gen: torch.Generator) -> list:
     ]
 
 
+def radix_cases(logn: int, batch: int, device, gen: torch.Generator) -> list:
+    """K2 and K5, the two kernels on the register-resident chains, at ring
+    degree 2^logn on a small batch (compared only, not timed): K2 on
+    contiguous operands, on the strided views of a stacked pair, and on rows
+    that are not 16-byte aligned (its word-by-word load); K5 from 2 and 4
+    source primes (the counts it instantiates) and from 1, 3 and 5 (its
+    generic form) to 5 destination primes."""
+    n = 1 << logn
+    primes = ntt_primes(10, 30, 1 << 16)
+    qs, ps = primes[:4], primes[4:9]
+
+    def res(basis, shape):
+        return prng.uniform_mod_multi(gen, shape, basis, device)
+
+    pair = res(qs, (batch, 2, n))
+    ragged = res(qs, (batch, n + 1))[..., 1:]        # rows at odd offsets
+    operands = {"contiguous": [res(qs, (batch, n)) for _ in range(4)],
+                "strided views": [pair[..., 0, :], pair[..., 1, :],
+                                  pair[..., 1, :], pair[..., 0, :]],
+                "unaligned rows": [ragged, ragged, pair[..., 0, :], ragged]}
+    scale = tuple(range(3, 3 + len(qs)))
+    out = [_pair("tensor_eval4", f"{label} B={batch} n={n}", 0, 0,
+                 nc.tensor_eval4_kernel, nc.tensor_eval4_plain, *ops, qs,
+                 scale=scale)._replace(timed=False)
+           for label, ops in operands.items()]
+    for ls in (1, 2, 3, 4, 5):
+        src = (qs + primes[9:])[:ls]
+        out.append(_pair("ext_ntt", f"{ls} -> {len(ps)} primes B={batch} "
+                         f"n={n}", 0, 0, nc.ext_ntt_kernel, nc.ext_ntt_plain,
+                         res(src, (batch, n)), src, ps)._replace(timed=False))
+    return out
+
+
 def cmux_step_ops(n: int, C: int, l: int) -> dict:
     """32-bit integer operations of ONE CMux step of the blind rotation on
     one ciphertext (C = K + 1 polynomials, l digits each), by part:

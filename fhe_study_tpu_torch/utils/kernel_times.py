@@ -4,7 +4,8 @@
     python3 fhe_study_tpu_torch/utils/kernel_times.py [--tree DIR] [--batch 128]
 
 Times one call of every case of ``utils/kernel_check.cases`` (N = 2^14,
-L = 4, M = 5, t = 256) and, where the checkout has them, of
+L = 4, M = 5, t = 256), of ``linear_cases`` (N = 2^12, L = 2, M = 3, 1024
+ciphertexts) and, where the checkout has them, of
 ``utils/kernel_check.tfhe_cases`` (N = 1024, K = 1, beta = 4096, l = 2,
 1024 steps, 64 ciphertexts, and the blind rotation over 700 steps),
 ``ckks_cases`` (N = 2^13, L = 4, K = 2, 32 ciphertexts), ``ext_sum_cases`` and
@@ -14,6 +15,11 @@ timed instead of this one, so two commits can be compared on one card in
 one go: run it on the parent, the change, the change and the parent.
 Run it as a file, not with -m, so that the package it imports is the one
 under ``--tree``.  Needs one CUDA card and nvcc.
+
+Then it times the BFV chains of chip_smoke.py's phase 6 the same way (a
+chain of 4 of ``mul_e`` and ``mul`` with either relin key at B = 128, and of
+the linear step at N = 2^12, B = 1024; best of 3 after a warm-up), on keys
+and ciphertexts drawn from one seed, and prints ms an op.
 """
 
 import argparse
@@ -43,6 +49,8 @@ def main() -> None:
     gen = torch.Generator(device=dev).manual_seed(1)
     param = R.RnsParam(n=1 << 14, t=256, L=4, M=5)
     cases = kernel_check.cases(param, args.batch, dev, gen)
+    cases += kernel_check.linear_cases(R.RnsParam(n=1 << 12, t=256, L=2, M=3),
+                                       1024, dev, gen)
     if hasattr(kernel_check, "tfhe_cases"):       # absent in older checkouts
         cases += kernel_check.tfhe_cases(1024, 1, 4096, 2, 1024, 64, dev, gen)
         cases.append(kernel_check.blind_rotate_case(1024, 1, 4096, 2, 700, 64,
@@ -72,6 +80,55 @@ def main() -> None:
     print(f"tree {args.tree} [{card}]: "
           + ", ".join(f"{k} {v:.4f}" for k, v in sums.items())
           + f"; all {sum(sums.values()):.4f} ms", flush=True)
+    per_op = bfv_chains(R, dev, 4)
+    print(f"chains {args.tree} [{card}]: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in per_op.items())
+          + " ms an op", flush=True)
+
+
+def bfv_chains(R, dev, chain: int) -> dict:
+    """ms an op of each BFV chain of chip_smoke.py's phase 6, best of 3."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    param = R.RnsParam(n=1 << 14, t=256, L=4, M=5)
+    lin = R.RnsParam(n=1 << 12, t=256, L=2, M=3)
+    sk, pk = R.new_key(gen, param, dev)
+    hk, rlk = R.hybrid_rlk1(gen, param, sk), R.rlk_key(gen, param, sk)
+    c1, c2 = (R.encrypt(gen, param, pk,
+                        torch.randint(0, 256, (128, param.n), device=dev),
+                        batch=(128,)) for _ in range(2))
+    x, y = R.to_evals(param, c1), R.to_evals(param, c2)
+    _, lpk = R.new_key(gen, lin, dev)
+    lm = [torch.randint(0, 256, (1024, lin.n), device=dev) for _ in range(2)]
+    le = [R.to_evals(lin, R.encrypt(gen, lin, lpk, m, batch=(1024,)))
+          for m in lm]
+    lem = R.pt_to_evals(lin, lm[1])
+    steps = {
+        "mul_e (HRLK)": (lambda c: R.mul_e(param, hk, c, y), x),
+        "mul_e (RLK)": (lambda c: R.mul_e(param, rlk, c, y), x),
+        "mul (RLK)": (lambda c: R.mul(param, rlk, c, c2), c1),
+        "mul (HRLK)": (lambda c: R.mul(param, hk, c, c2), c1),
+        "linear step": (lambda c: R.mul_pt_e(lin, R.add_e(lin, c, le[1]),
+                                             lem), le[0]),
+    }
+    out = {}
+    for label, (step, start) in steps.items():
+        def run():
+            c = start
+            for _ in range(chain):
+                c = step(c)
+        run()
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            begin = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            begin.record()
+            run()
+            end.record()
+            torch.cuda.synchronize()
+            runs.append(begin.elapsed_time(end))
+        out[label] = min(runs) / chain
+    return out
 
 
 if __name__ == "__main__":

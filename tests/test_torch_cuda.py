@@ -43,6 +43,30 @@ def test_kernels_match_plain(cuda, n):
         assert kernel_check.equal(got, want), (case.name, case.label)
 
 
+@pytest.mark.parametrize("logn", range(_cuda.MIN_LOG_N, _cuda.MAX_LOG_N + 1))
+def test_radix_kernels_match_plain_at_every_degree(cuda, logn):
+    """K2 and K5 on the register-resident chains: each log n has its own
+    pass structure; K2 on contiguous, strided and unaligned rows, K5 from
+    every source count it instantiates and its generic form."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    cases = kernel_check.radix_cases(logn, 3, cuda, gen)
+    assert {c.name for c in cases} == {"tensor_eval4", "ext_ntt"}
+    for case in cases:
+        got, want = case.kernel(), case.plain()
+        torch.cuda.synchronize()
+        assert kernel_check.equal(got, want), (case.name, case.label)
+
+
+def test_radix_kernels_have_no_stack_frame_or_spills(cuda):
+    report = _cuda.ptxas_report(_cuda.build_log())
+    radix = [r for r in report
+             if r["kernel"].split("<")[0] in ("tensor_eval4_kernel",
+                                              "ext_ntt_kernel")]
+    assert len(radix) == 7 * 4, [r["kernel"] for r in radix]
+    for r in radix:
+        assert (r["stack"], r["spill_stores"], r["spill_loads"]) == (0, 0, 0), r
+
+
 def test_linear_kernels_match_plain(cuda):
     param = R.RnsParam(n=256, t=256, L=2, M=3)
     gen = torch.Generator(device=cuda).manual_seed(6)
