@@ -18,11 +18,14 @@ Phases, each of which raises (and so exits non-zero) on any failure:
   1. toolchain and card: torch, CUDA, nvcc; the kernels built from csrc/;
   2. each of the first eleven kernel entries against its plain PyTorch
      version on the card, bit for bit, at the paths' shapes (batch 8) and at
-     n = 256; the two kernels on the register-resident chains
-     (tensor_eval4, ext_ntt) at every n from 2^8 to 2^14 on a batch of 3,
-     K2 on contiguous, strided and unaligned rows, K5 from 1 to 5 source
-     primes; ptxas's registers, stack frame and spills of every kernel
-     (phase 1), which must show neither for those two;
+     n = 256; the redesigned kernels at every n from 2^8 to 2^14 on a batch
+     of 3 (kernel_check.radix_cases): K1 forward and inverse, with and
+     without fin, on contiguous and word-offset rows; K2 on contiguous,
+     strided and unaligned rows; K5 from 1 to 5 source primes; K4 from 1, 2,
+     3, 4, 5 and 15 source primes to 1, 4 and 5, unsigned and centered, with
+     and without the epilogue, on a row length that is no multiple of 4 and
+     on unaligned rows; ptxas's registers, stack frame and spills of every
+     kernel (phase 1), which must show neither for K1, K2, K4 and K5;
   3. the eval-resident path: keygen -> hybrid relin key -> encrypt 128
      plaintext pairs -> to_evals -> mul_e -> from_evals -> decrypt;
   4. the coefficient-domain and gadget paths on the same ciphertexts: mul
@@ -70,7 +73,10 @@ Phases, each of which raises (and so exits non-zero) on any failure:
      B = 64 and on a full card, and the alu_rate operations' issue rates;
      the last timed launch of every one of these is held against the plain
      version (the ceiling's on four polynomials, an alu_rate launch as 64
-     shorter ones, the first of which is held against plain);
+     shorter ones, the first of which is held against plain); a link's
+     share of its issue bound beside its share of the ceiling (K1 runs the
+     register-resident chain, which that ceiling does not bound), the
+     host's enqueue time a link, and a link's time on the device alone;
  13. timing: the CKKS step as a chain (add + mul_hybrid, 3 iterations, the
      padded output fed back) as ops/s, eight rotations hoisted against
      eight unhoisted, and every variant of phase 10 beside plain and bound.
@@ -110,7 +116,10 @@ CEILING_REPS, ALU_ROUNDS = 64, 1 << 16
 MEMORY_BYTES_PER_S = 3.35e12
 INSTR_PER_SM_CLOCK = 128
 ALU_SHORT_ROUNDS = 1024      # the timed alu_rate launch is held in such pieces
-RADIX_KERNELS = {"tensor_eval4", "ext_ntt"}   # on csrc/radix_chain.cuh
+# the redesigned kernels: K1, K2 and K5 on csrc/radix_chain.cuh, K4 (and K5)
+# with the source count at compile time; ptxas must give no instance of them
+# a stack frame or spills
+RADIX_KERNELS = {"ntt_multi", "tensor_eval4", "ext_ntt", "base_extend"}
 RADIX_BATCH = 3              # the small odd batch of their every-degree sweep
 
 
@@ -211,8 +220,8 @@ def main() -> None:
             f"bytes spill stores, {r.get('spill_loads')} bytes spill loads")
     if spilled or not radix_entries:
         raise RuntimeError(f"ptxas gave a stack frame or spills to {spilled}: "
-                           "the register-resident chains must stay in "
-                           "registers")
+                           "the redesigned kernels must keep their words "
+                           "in registers")
     say(f"ptxas: no stack frame and no spills in the {len(radix_entries)} "
         f"instances of {sorted(RADIX_KERNELS)}")
 
@@ -257,10 +266,14 @@ def main() -> None:
             torch.cuda.synchronize()
             check(case, got, want)
             radix_checked += 1
-    say(f"parity: tensor_eval4 (contiguous, strided, unaligned rows) and "
-        f"ext_ntt (from 1 to 5 source primes) == plain (torch.equal) at every "
-        f"n = 2^{_cuda.MIN_LOG_N} .. 2^{_cuda.MAX_LOG_N}, batch {RADIX_BATCH}:"
-        f" {radix_checked} variants")
+    say(f"parity: ntt_multi (forward and inverse, with and without fin, "
+        f"contiguous and word-offset rows), tensor_eval4 (contiguous, strided, "
+        f"unaligned rows), ext_ntt (from 1 to 5 source primes) and "
+        f"base_extend (from {kernel_check.EXT_SWEEP_LS} to "
+        f"{kernel_check.EXT_SWEEP_LD} primes, unsigned and centered, with and "
+        f"without the epilogue, vector and word forms) == plain (torch.equal) "
+        f"at every n = 2^{_cuda.MIN_LOG_N} .. 2^{_cuda.MAX_LOG_N}, batch "
+        f"{RADIX_BATCH}: {radix_checked} variants")
     del tfhe_parity, case, got, want
     say(f"parity: kernel == plain (torch.equal) for "
         f"{sum(checked.values())} variants at n={N} and n=256 (batch "
@@ -843,6 +856,7 @@ def main() -> None:
     # 12. the NTT mode -------------------------------------------------------
     nqs = ntt_primes(NTT_L, 30, 1 << 16)
     a0 = prng.uniform_mod_multi(gen, (NTT_B, N), nqs, dev)
+    busy = torch.zeros(1 << 28, dtype=torch.int32, device=dev)   # 1 GiB
     resident = {n: alu_bench.resident_blocks(dev, n=n) for n in (N, CK_N)}
     alu_shape = {op: (sms * alu_bench.resident_blocks(dev, op=op)[0], 1024)
                  for op in alu_bench.OPS}
@@ -853,18 +867,31 @@ def main() -> None:
             x = ntt.ntt_multi(x, nqs)
         return x
 
-    def ntt_mode():
-        cur = ntt_chain(a0)                                  # warm up
+    def timed_chain(ahead: bool):
+        """Seconds of NTT_ITERS chains on the device, and on the host's
+        clock the seconds it took to enqueue them; with ahead, the chains
+        queue behind device work that outlasts their enqueueing, so the
+        device runs them back to back (their own time)."""
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if ahead:
+            for _ in range(16):
+                busy.add_(1)
         start.record()
+        t0 = time.perf_counter()
         cur = a0
         for _ in range(NTT_ITERS):
             cur = ntt_chain(cur)           # chained: no cache can serve it
+        host = time.perf_counter() - t0
         end.record()
         torch.cuda.synchronize()
-        nb["dt"] = start.elapsed_time(end) / 1e3
+        return cur, start.elapsed_time(end) / 1e3, host
+
+    def ntt_mode():
+        cur = ntt_chain(a0)                                  # warm up
+        cur, nb["dt"], nb["host"] = timed_chain(False)
+        nb["device_dt"] = timed_chain(True)[1]
         nb["ceiling_64"] = alu_bench.ntt_smem_ceiling(
             dev, n=N, B=NTT_B, reps=CEILING_REPS)
         nb["ceiling"] = {n: alu_bench.ntt_smem_ceiling(
@@ -879,6 +906,7 @@ def main() -> None:
                 f"{NTT_L} primes, B={NTT_B}, N={N}; the shared-memory "
                 f"ceiling; the alu_rate operations",
                 ("ntt_multi", "ntt_smem_ceiling", "alu_rate"), ntt_mode)
+    del busy
     if not torch.equal(ntt.intt_multi(ntt.ntt_multi(a0, nqs), nqs), a0):
         raise RuntimeError("ntt mode: intt_multi(ntt_multi(x)) != x")
     head = a0[:, :2].contiguous()
@@ -939,14 +967,33 @@ def main() -> None:
         f"{profiling.H100_MEMORY_BYTES_PER_S / 1e12} TB/s; "
         f"{roof.butterflies_per_sec / ceil_bf[N]:.3f} of the shared-memory "
         f"ceiling [{card}]")
+    # the link's own bound: its butterflies at the issue rate, or its rows
+    # and root tables through device memory
+    links = NTT_ITERS * NTT_CHAIN
+    link_ms = nb["dt"] * 1e3 / links
+    device_ms = nb["device_dt"] * 1e3 / links
+    link_op_ms = (NTT_L * NTT_B * (N // 2) * (N.bit_length() - 1)
+                  * kernel_check.BUTTERFLY_OPS / int_ops_per_s * 1e3)
+    link_byte_ms = (4 * (2 * NTT_L * NTT_B * N + 2 * NTT_L * N)
+                    / MEMORY_BYTES_PER_S * 1e3)
+    link_bound = max(link_op_ms, link_byte_ms)
+    say(f"ntt mode: a link {link_ms:.4f} ms against its bound "
+        f"{link_bound:.4f} ms (instructions {link_op_ms:.4f}, bytes "
+        f"{link_byte_ms:.4f}): {link_bound / link_ms:.3f} of the issue bound, "
+        f"{roof.butterflies_per_sec / ceil_bf[N]:.3f} of the shared-memory "
+        f"ceiling, which bounds the one-stage chain and no longer K1's; the "
+        f"host took {nb['host'] * 1e3 / links:.4f} ms to enqueue a link; on "
+        f"the device alone (queued behind device work) a link takes "
+        f"{device_ms:.4f} ms, {link_bound / device_ms:.3f} of the issue "
+        f"bound [{card}]")
     say(f"ceiling: forward_chain resident in shared memory, reps="
         f"{CEILING_REPS}, n={N}: B={NTT_B} (64 of {sms} SMs busy) "
         f"{nb['ceiling_64']['butterflies_per_sec']:.4e} butterflies/s; "
         f"B={resident[N][0] * sms} ({resident[N][0]} resident blocks x {sms} "
         f"SMs) {ceil_bf[N]:.4e}; at n={CK_N}, B={resident[CK_N][0] * sms}: "
-        f"{ceil_bf[CK_N]:.4e}.  This is the ceiling of the package's own "
-        f"chain, not of the card: a chain that kept several stages in "
-        f"registers would beat it [{card}]")
+        f"{ceil_bf[CK_N]:.4e}.  This is the ceiling of the package's "
+        f"one-stage chain (K3, K6-K9), not of the card: the register-resident "
+        f"chain of K1, K2 and K5 is not bound by it [{card}]")
     clock = sm_mhz * 1e6
     for op in alu_bench.OPS:
         r = nb["alu"][op]
@@ -1057,8 +1104,9 @@ def main() -> None:
         else:                                    # kernel against kernel
             check(case, case.kernel(), case.plain())
     # each kernel on the one-stage chain: its butterflies/s against that
-    # chain's ceiling at its n (K2 and K5 run the register-resident chain,
-    # which that ceiling does not bound: their share of the bound is above)
+    # chain's ceiling at its n (K1, K2 and K5 run the register-resident
+    # chain, which that ceiling does not bound: their share of the bound is
+    # above)
     for case in timed_chains:
         if case.name in RADIX_KERNELS:
             continue

@@ -8,49 +8,171 @@
 // with the optional epilogue out_j = (w_j - out_j) * c_j mod d_j (the BFV
 // t/Q scaling and the hybrid relinearization's P-division).
 //
-// Layout: the op is fully per coefficient, so one thread owns one
-// coefficient: it reads its Ls source residues (neighbouring threads read
-// neighbouring words of each source row — coalesced), keeps the y_i in
-// registers, forms the 64-bit alpha natively and writes its Ld outputs.
-// What bounds it: (Ls + Ld) words in and Ld (+ Ld of w) out per
-// coefficient against ~(Ls * Ld) Shoup products, about 10 integer ops per
-// byte at Ls = 4, Ld = 5 — near the card's memory/issue balance point; the
-// conversion is one pass over device memory with no intermediate arrays.
+// K4's layout: the op is fully per coefficient.  One instance per source
+// count LS = 1 .. 15 keeps the y_i of a thread in LS registers (fully
+// unrolled: no run-time-indexed array, so no local memory).  In its vector
+// form (VEC, when the coefficient count is a multiple of 4 and x, w and out
+// are 16-byte aligned) a thread owns 4 consecutive coefficients: one uint4
+// load from each of the LS source rows and the Ld rows of w, one uint4 store
+// to each of the Ld output rows, and each constant read once for the 4; the
+// word form (any count and alignment) owns one coefficient, lanes on
+// consecutive words.  Each block first stages the packed table (at most
+// 5 (Ls + Ld) + 2 Ls Ld words) into shared memory, so no constant is read
+// from device memory per coefficient.  What bounds it: Ls words in (and Ld
+// of w) and Ld out per coefficient against ~(Ls * Ld) Shoup products, about
+// 5 instructions a byte at Ls = 4, Ld = 5 where the H100 issues 10 for each
+// byte its memory moves: the bytes.
+// The arithmetic is ext_lift + ext_to of modarith.cuh (Shoup products, the
+// 64-bit alpha), bit for bit.
+
+#include <cstdint>
 
 #include "modarith.cuh"
 
 namespace fhe {
 namespace {
 
-__global__ void base_extend_kernel(const uint32_t* __restrict__ x,
-                                   const uint32_t* __restrict__ w,
-                                   uint32_t* __restrict__ out,
-                                   const uint32_t* __restrict__ ext, int Ls,
-                                   int Ld, long long total, int centered) {
-  const ExtTable e{ext, Ls, Ld};
+constexpr int kThreads = 256;
+constexpr long long kMaxBlocks = 132LL * 16;  // grid-stride beyond this
+constexpr int kExtVec = 4;                    // coefficients a thread (VEC)
+
+// Words of the packed table of an Ls -> Ld conversion (ExtTable's layout).
+__host__ __device__ constexpr int ext_words(int ls, int ld) {
+  return 5 * (ls + ld) + 2 * ls * ld;
+}
+
+template <int K>
+__device__ __forceinline__ void load_coeffs(uint32_t (&d)[K],
+                                            const uint32_t* p) {
+  if constexpr (K == 4) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+    d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
+  } else {
+    d[0] = __ldg(p);
+  }
+}
+
+template <int K>
+__device__ __forceinline__ void store_coeffs(uint32_t* p,
+                                             const uint32_t (&d)[K]) {
+  if constexpr (K == 4) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(d[0], d[1], d[2], d[3]);
+  } else {
+    p[0] = d[0];
+  }
+}
+
+template <int LS, int VEC>
+__global__ void __launch_bounds__(kThreads)
+base_extend_kernel(const uint32_t* __restrict__ x,
+                   const uint32_t* __restrict__ w,
+                   uint32_t* __restrict__ out,
+                   const uint32_t* __restrict__ ext, int Ld, long long total,
+                   int centered) {
+  constexpr int K = VEC != 0 ? kExtVec : 1;
+  extern __shared__ uint32_t tab[];
+  for (int i = threadIdx.x; i < ext_words(LS, Ld); i += blockDim.x) {
+    tab[i] = ext[i];
+  }
+  __syncthreads();
+  const ExtTable e{tab, LS, Ld};
+  const long long units = total / K;             // VEC: total % 4 == 0
   const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long c = static_cast<long long>(blockIdx.x) * blockDim.x +
+  for (long long u = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
-       c < total; c += step) {
-    uint32_t ys[kMaxSrc];
-    const uint32_t alpha = ext_lift(x + c, total, e, centered != 0, ys);
-    for (int j = 0; j < Ld; ++j) {
-      uint32_t v = ext_to(ys, alpha, j, e);
-      if (w != nullptr) {
-        const uint32_t d = e.dst(j, 0);
-        v = shoup_mul(submod(w[j * total + c], v, d), e.dst(j, 3),
-                      e.dst(j, 4), d);
+       u < units; u += step) {
+    const long long c = u * K;
+    uint32_t y[LS][K];
+    uint64_t acc[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) acc[k] = centered ? (1ull << 58) : 0ull;
+#pragma unroll
+    for (int i = 0; i < LS; ++i) {
+      load_coeffs<K>(y[i], x + i * total + c);
+      const uint32_t s = e.src(i, 0), h = e.src(i, 1), hsh = e.src(i, 2);
+      const uint64_t cfix = static_cast<uint64_t>(e.src(i, 3)) |
+                            (static_cast<uint64_t>(e.src(i, 4)) << 32);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        y[i][k] = shoup_mul(y[i][k], h, hsh, s);
+        acc[k] += static_cast<uint64_t>(y[i][k]) * cfix;
       }
-      out[j * total + c] = v;
     }
+    uint32_t alpha[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) alpha[k] = static_cast<uint32_t>(acc[k] >> 59);
+    for (int j = 0; j < Ld; ++j) {
+      const uint32_t d = e.dst(j, 0);
+      uint32_t v[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) v[k] = 0;
+#pragma unroll
+      for (int i = 0; i < LS; ++i) {
+        const uint32_t t = e.tab(i, j, 0), tsh = e.tab(i, j, 1);
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          v[k] = addmod(v[k], shoup_mul(y[i][k], t, tsh, d), d);
+        }
+      }
+      const uint32_t sm = e.dst(j, 1), smsh = e.dst(j, 2);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        v[k] = submod(v[k], shoup_mul(alpha[k], sm, smsh, d), d);
+      }
+      if (w != nullptr) {
+        uint32_t wv[K];
+        load_coeffs<K>(wv, w + j * total + c);
+        const uint32_t cm = e.dst(j, 3), cmsh = e.dst(j, 4);
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          v[k] = shoup_mul(submod(wv[k], v[k], d), cm, cmsh, d);
+        }
+      }
+      store_coeffs<K>(out + j * total + c, v);
+    }
+  }
+}
+
+unsigned grid_for(long long threads) {
+  const long long blocks = (threads + kThreads - 1) / kThreads;
+  return static_cast<unsigned>(blocks > kMaxBlocks ? kMaxBlocks : blocks);
+}
+
+bool misaligned(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 != 0;
+}
+
+// The instance of K4 for Ls source primes (LS = 1 .. kMaxSrc).
+template <int LS = 1>
+int base_extend_launch(int Ls, int vec, const uint32_t* x, const uint32_t* w,
+                       uint32_t* out, const uint32_t* ext, int Ld,
+                       long long total, int centered, cudaStream_t stream) {
+  if constexpr (LS > kMaxSrc) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (Ls != LS) {
+      return base_extend_launch<LS + 1>(Ls, vec, x, w, out, ext, Ld, total,
+                                        centered, stream);
+    }
+    const size_t smem = sizeof(uint32_t) * ext_words(LS, Ld);
+    if (vec) {
+      base_extend_kernel<LS, 1><<<grid_for(total / kExtVec), kThreads, smem,
+                                  stream>>>(x, w, out, ext, Ld, total,
+                                            centered);
+    } else {
+      base_extend_kernel<LS, 0><<<grid_for(total), kThreads, smem, stream>>>(
+          x, w, out, ext, Ld, total, centered);
+    }
+    return static_cast<int>(cudaGetLastError());
   }
 }
 
 // K11 — replaces ext_pallas.py::base_extend_sum (_ext_kernel): the second
 // half of the conversion alone, for a caller that holds (ys, alpha) already:
-// out_j = sum_i ys_i * (S/s_i) - alpha * S  (mod d_j).  Same layout as above
-// (one thread per coefficient, the Ls words in registers) and the same packed
-// table; Ls + 1 words in and Ld out per coefficient against Ls * Ld Shoup
+// out_j = sum_i ys_i * (S/s_i) - alpha * S  (mod d_j).  K4's layout before its
+// redesign: one thread per coefficient, the table read from device memory,
+// the y_i in an array indexed by the run-time Ls (ptxas puts it in local
+// memory).  Ls + 1 words in and Ld out per coefficient against Ls * Ld Shoup
 // products, so bytes bound it while Ld stays small.
 __global__ void base_extend_sum_kernel(const uint32_t* __restrict__ ys,
                                        const uint32_t* __restrict__ alpha,
@@ -69,29 +191,27 @@ __global__ void base_extend_sum_kernel(const uint32_t* __restrict__ ys,
   }
 }
 
-constexpr int kThreads = 256;
-constexpr long long kMaxBlocks = 132LL * 16;  // grid-stride beyond this
-
-unsigned grid_for(long long total) {
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  return static_cast<unsigned>(blocks > kMaxBlocks ? kMaxBlocks : blocks);
-}
-
 }  // namespace
 }  // namespace fhe
 
 using namespace fhe;
 
+// vec: the vector form (total % 4 == 0 and x, w, out 16-byte aligned, as
+// ops/ext_cuda.py::_ext_vec decides); refused otherwise.
 extern "C" int fhe_base_extend(const uint32_t* x, const uint32_t* w,
                                uint32_t* out, const uint32_t* ext, int Ls,
-                               int Ld, long long total, int centered,
+                               int Ld, long long total, int centered, int vec,
                                cudaStream_t stream) {
-  if (Ls < 1 || Ls > kMaxSrc || total < 1) {
+  if (Ls < 1 || Ls > kMaxSrc || Ld < 1 || total < 1 ||
+      sizeof(uint32_t) * ext_words(Ls, Ld) > 48 * 1024) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  base_extend_kernel<<<grid_for(total), kThreads, 0, stream>>>(
-      x, w, out, ext, Ls, Ld, total, centered);
-  return static_cast<int>(cudaGetLastError());
+  if (vec && (total % kExtVec != 0 || misaligned(x) || misaligned(out) ||
+              (w != nullptr && misaligned(w)))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return base_extend_launch(Ls, vec, x, w, out, ext, Ld, total, centered,
+                            stream);
 }
 
 extern "C" int fhe_base_extend_sum(const uint32_t* ys, const uint32_t* alpha,

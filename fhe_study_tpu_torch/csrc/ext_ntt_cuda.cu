@@ -1,0 +1,147 @@
+// K5: the Hopper kernel of the base extension fused with the forward
+// transform,
+//   fhe_ext_ntt <- fhe_study_tpu/ops/ntt_pallas.py::ext_ntt_u32
+//                  (_ext_ntt_kernel)
+// on the register-resident chain of radix_chain.cuh; ntt_cuda.cu's header
+// says what bounds the chain kernels.  Its own translation unit, so that its
+// 21 unrolled instances (per log n and source count) compile beside the
+// others.
+//
+// The entry launches on the given stream and returns cudaGetLastError(); a
+// refused launch never runs, so the caller raises.
+
+#include <climits>
+#include <cstdint>
+
+#include "modarith.cuh"
+#include "radix_chain.cuh"
+
+namespace fhe {
+namespace {
+
+// K5's conversion of one coefficient to destination prime j, bit for bit
+// ext_lift + ext_to of modarith.cuh.  With LS > 0 (the source counts the
+// paths use) the y_i stay in LS registers; the generic form (LS = 0, any
+// e.ls up to kMaxSrc) keeps no per-thread array and computes each y_i twice.
+template <int LS>
+__device__ __forceinline__ uint32_t ext_coeff(const uint32_t* x, size_t stride,
+                                              const ExtTable& e, int j) {
+  const uint32_t d = e.dst(j, 0);
+  uint64_t acc = 0;
+  uint32_t sum = 0;
+  if constexpr (LS > 0) {
+    uint32_t ys[LS];
+#pragma unroll
+    for (int i = 0; i < LS; ++i) {
+      ys[i] = shoup_mul(x[i * stride], e.src(i, 1), e.src(i, 2), e.src(i, 0));
+      acc += static_cast<uint64_t>(ys[i]) *
+             (static_cast<uint64_t>(e.src(i, 3)) |
+              (static_cast<uint64_t>(e.src(i, 4)) << 32));
+    }
+#pragma unroll
+    for (int i = 0; i < LS; ++i) {
+      sum = addmod(sum, shoup_mul(ys[i], e.tab(i, j, 0), e.tab(i, j, 1), d), d);
+    }
+  } else {
+    for (int i = 0; i < e.ls; ++i) {
+      const uint32_t y =
+          shoup_mul(x[i * stride], e.src(i, 1), e.src(i, 2), e.src(i, 0));
+      acc += static_cast<uint64_t>(y) *
+             (static_cast<uint64_t>(e.src(i, 3)) |
+              (static_cast<uint64_t>(e.src(i, 4)) << 32));
+    }
+    for (int i = 0; i < e.ls; ++i) {
+      const uint32_t y =
+          shoup_mul(x[i * stride], e.src(i, 1), e.src(i, 2), e.src(i, 0));
+      sum = addmod(sum, shoup_mul(y, e.tab(i, j, 0), e.tab(i, j, 1), d), d);
+    }
+  }
+  const uint32_t alpha = static_cast<uint32_t>(acc >> 59);
+  return submod(sum, shoup_mul(alpha, e.dst(j, 1), e.dst(j, 2), d), d);
+}
+
+// K5: unsigned HPS extension of rows [Ls, B, n] to destination prime p,
+// fused with its forward transform, one block per (b, p), p fastest so that
+// the Ld blocks reading one polynomial's source rows run side by side and
+// share them in L2.  The conversion writes straight into the registers of
+// the first pass of the register-resident forward chain (radix_chain.cuh:
+// stage bits log n - 1 .. log n - 4, so lanes read consecutive words of each
+// source row); the last pass leaves the result in shared memory, read out
+// as coalesced uint4 rows.  Every destination block recomputes the y_i and
+// alpha: sharing them would keep (Ls + 1) n words per polynomial on chip
+// (320 KB at n = 2^14, Ls = 4) or send them through device memory.
+template <int LOGN, int LS>
+__global__ void __launch_bounds__(kRadixThreads, kRadixBlocks)
+ext_ntt_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
+               const uint32_t* __restrict__ ext,
+               const uint32_t* __restrict__ tw,
+               const uint32_t* __restrict__ tw_sh, int Ls, int Ld, int B) {
+  using S = RadixShape<LOGN>;
+  constexpr int n = S::n;
+  constexpr int c0 = S::fwd_c(0);
+  extern __shared__ uint32_t a[];
+  const int p = blockIdx.x % Ld;
+  const int b = blockIdx.x / Ld;
+  const ExtTable e{ext, LS > 0 ? LS : Ls, Ld};
+  const uint32_t q = e.dst(p, 0);
+  const uint32_t* w = tw + static_cast<size_t>(p) * n;
+  const uint32_t* wsh = tw_sh + static_cast<size_t>(p) * n;
+  const uint32_t* row = x + static_cast<size_t>(b) * n;
+  const size_t stride = static_cast<size_t>(B) * n;
+#pragma unroll 1
+  for (int g = 0; g < S::groups; ++g) {
+    const int base = threadIdx.x + g * S::threads;    // radix_base(v, c0)
+    uint32_t r[kRadix];
+#pragma unroll
+    for (int j = 0; j < kRadix; ++j) {
+      r[j] = ext_coeff<LS>(row + base + (j << c0), stride, e, p);
+    }
+    radix_pass<LOGN, 0, false>(r, base, w, wsh, q);
+    radix_store<c0>(a, r, base);
+  }
+  __syncthreads();
+  RadixPasses<LOGN, 1, S::passes, false>::run(a, w, wsh, q);
+  uint4* o = reinterpret_cast<uint4*>(out + (static_cast<size_t>(p) * B + b) * n);
+  for (int i = threadIdx.x; i < n / 4; i += S::threads) {
+    const int sw = radix_swizzle(4 * i);
+    o[i] = make_uint4(a[sw], a[sw ^ 1], a[sw ^ 2], a[sw ^ 3]);
+  }
+}
+
+template <int LS>
+struct ExtNttLaunch {
+  struct F {
+    template <int LOGN, typename... Args>
+    static int run(Args... args) {
+      return radix_launch<LOGN>(ext_ntt_kernel<LOGN, LS>, args...);
+    }
+  };
+};
+
+}  // namespace
+}  // namespace fhe
+
+using namespace fhe;
+
+extern "C" int fhe_ext_ntt(const uint32_t* x, uint32_t* out,
+                           const uint32_t* ext, const uint32_t* tw,
+                           const uint32_t* tw_sh, int Ls, int Ld, int B,
+                           int logn, int threads, int smem,
+                           cudaStream_t stream) {
+  const long long blocks = static_cast<long long>(Ld) * B;
+  if (Ls < 1 || Ls > kMaxSrc || blocks > INT_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int nb = static_cast<int>(blocks);
+  switch (Ls) {
+    case 2:
+      return by_logn<ExtNttLaunch<2>::F>(logn, threads, smem, nb, stream, x,
+                                         out, ext, tw, tw_sh, Ls, Ld, B);
+    case 4:
+      return by_logn<ExtNttLaunch<4>::F>(logn, threads, smem, nb, stream, x,
+                                         out, ext, tw, tw_sh, Ls, Ld, B);
+    default:
+      return by_logn<ExtNttLaunch<0>::F>(logn, threads, smem, nb, stream, x,
+                                         out, ext, tw, tw_sh, Ls, Ld, B);
+  }
+}

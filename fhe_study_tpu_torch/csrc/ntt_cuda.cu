@@ -1,10 +1,11 @@
 // Hopper kernels of the negacyclic transforms on the RNS-BFV main path.
 //
-// Each kernel replaces one Pallas kernel of fhe_study_tpu/ops/ntt_pallas.py:
-//   fhe_ntt_multi      <- ntt_multi_u32     (_ntt_kernel_multi)
+// Each kernel replaces one Pallas kernel of fhe_study_tpu/ops/ntt_pallas.py
+// (K1, fhe_ntt_multi <- ntt_multi_u32, lives in csrc/ntt_multi_cuda.cu and
+// K5, fhe_ext_ntt <- ext_ntt_u32, in csrc/ext_ntt_cuda.cu: each in its own
+// translation unit, so that their unrolled instances compile in parallel):
 //   fhe_tensor_eval4   <- tensor_eval4_u32  (_tensor_eval_kernel)
 //   fhe_ks_contract    <- ks_contract_u32   (_ks_kernel_multi, fwd=False)
-//   fhe_ext_ntt        <- ext_ntt_u32       (_ext_ntt_kernel)
 //   fhe_tensor_mul4    <- tensor_mul4_u32   (_tensor4_kernel), and through
 //                         operand strides tensor_mul_u32 (_tensor_kernel_multi)
 //   fhe_ks_fused       <- ks_fused_u32      (_ks_kernel_multi, fwd=True)
@@ -12,10 +13,10 @@
 //   fhe_ntt            <- ntt_u32           (_ntt_kernel): one scalar prime,
 //                         a flat batch, 64-bit words in and out
 //
-// Layout of fhe_ntt_multi, fhe_ks_contract and fhe_ntt: one thread block
-// per (prime, polynomial), and per key half where a kernel emits two, holds
-// its whole length-n polynomial (n = 2^8 .. 2^14, at most 64 KB) in dynamic
-// shared memory and runs all log n butterfly stages there
+// Layout of fhe_ks_contract and fhe_ntt: one thread block per (prime,
+// polynomial), and per key half where a kernel emits two, holds its whole
+// length-n polynomial (n = 2^8 .. 2^14, at most 64 KB) in dynamic shared
+// memory and runs all log n butterfly stages there
 // (modarith.cuh::forward_chain / inverse_chain), so device memory sees one
 // read of the operands and one write of the result.  Twiddles come from
 // per-prime [L, n] bit-reversed tables with Shoup companions (no per-stage
@@ -24,21 +25,19 @@
 // memory but does 14 * 8192 butterflies, each two shared-memory loads and
 // stores, two twiddle loads and 13 integer instructions, and a barrier a
 // stage; on the H100 such a chain reaches a third of the butterfly's issue
-// rate (K12 measures it), and K1 and K3 17-19% of their issue bound.
+// rate (K12 measures it), and K3 17-19% of its issue bound.
 //
-// fhe_tensor_eval4 (K2) and fhe_ext_ntt (K5) run the register-resident
-// chain of radix_chain.cuh instead: four stages a pass on 16 words a thread
-// in registers, ceil(log n / 4) - 1 exchanges through swizzled shared memory
+// fhe_tensor_eval4 (K2), like K1 and K5, runs the register-resident chain
+// of radix_chain.cuh instead: four stages a pass on 16 words a thread in
+// registers, ceil(log n / 4) - 1 exchanges through swizzled shared memory
 // (3 barriers at n = 2^14 where the chain above takes 14), the twiddles of a
-// pass in vector loads, the products or the base conversion straight into
-// the registers of the first pass.  One block of at most 256 threads per
-// polynomial, each thread playing up to 4 virtual threads, 3 blocks an SM at
-// n = 2^14.  They read 41-50% of their issue bound on an H100 80GB HBM3 at
-// 700 W (PERF.md); what is left is the instructions beyond the counted
-// butterflies (shared-memory words and their addresses, twiddle loads, K5's
-// constant loads and its conversion recomputed for each destination) and
-// the latency around the barriers.  Carrying that chain to the kernels above
-// is the next step.
+// pass in vector loads, its products straight into the registers of the
+// first pass.  One block of at most 256 threads per polynomial, each thread
+// playing up to 4 virtual threads, 3 blocks an SM at n = 2^14.  K2 and K5
+// read 41-50% of their issue bound on an H100 80GB HBM3 at 700 W (PERF.md);
+// what is left is the instructions beyond the counted butterflies
+// (shared-memory words and their addresses, twiddle loads) and the latency
+// around the barriers.  K3 and K6-K8 are the next to move onto that chain.
 //
 // fhe_tensor_mul4, fhe_ks_fused and fhe_ks_fused_eval start from
 // coefficient-domain operands and run forward chains, pointwise products and
@@ -65,39 +64,13 @@
 namespace fhe {
 namespace {
 
-// K1: forward or inverse transform of rows [L, B, n], one block per (b, p),
-// then an optional per-prime final Shoup multiply (n^-1, scale, 2^32, ...).
-__global__ void ntt_multi_kernel(const uint32_t* __restrict__ x,
-                                 uint32_t* __restrict__ out,
-                                 const uint32_t* __restrict__ tw,
-                                 const uint32_t* __restrict__ tw_sh,
-                                 const uint32_t* __restrict__ cons, int B,
-                                 int logn, int inverse, int use_fin) {
-  extern __shared__ uint32_t a[];
-  const int n = 1 << logn;
-  const int p = blockIdx.y;
-  const size_t row = (static_cast<size_t>(p) * B + blockIdx.x) * n;
-  const PrimeRow c = prime_row(cons, p);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) a[i] = x[row + i];
-  __syncthreads();
-  const uint32_t* w = tw + static_cast<size_t>(p) * n;
-  const uint32_t* wsh = tw_sh + static_cast<size_t>(p) * n;
-  if (inverse) {
-    inverse_chain(a, logn, w, wsh, c.q);
-  } else {
-    forward_chain(a, logn, w, wsh, c.q);
-  }
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    out[row + i] = use_fin ? shoup_mul(a[i], c.fin, c.fin_sh, c.q) : a[i];
-  }
-}
-
 // K9: forward or inverse transform (the inverse times n^-1) of a flat batch
 // [B, n] under one prime, one block per polynomial.  The torus code keeps
 // its residues in 64-bit words, so the kernel reads and writes int64 (the
 // value is the low word; the high word of the output is zero): no cast
-// passes over device memory around it.  Same chains as K1, so bound the same
-// way: shared-memory traffic and barriers, not the 16 bytes a coefficient.
+// passes over device memory around it.  It runs the one-stage chains, so it
+// is bound by shared-memory traffic and barriers, not the 16 bytes a
+// coefficient.
 __global__ void ntt_kernel(const long long* __restrict__ x,
                            long long* __restrict__ out,
                            const uint32_t* __restrict__ tw,
@@ -138,17 +111,6 @@ struct Strides {
 // when every row is 16-byte aligned, `vec`), its other passes through shared
 // memory, and the final multiply by n^-1 * 2^32 * scale folded into the last
 // pass, whose stores are coalesced (lanes on consecutive words).
-__device__ __forceinline__ void operand_words(uint32_t (&d)[4],
-                                              const uint32_t* p, bool vec) {
-  if (vec) {
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-    d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
-  } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) d[j] = __ldg(p + j);
-  }
-}
-
 template <int LOGN>
 __global__ void __launch_bounds__(kRadixThreads, kRadixBlocks)
 tensor_eval4_kernel(const uint32_t* __restrict__ x0,
@@ -251,95 +213,6 @@ __global__ void ks_contract_kernel(const uint32_t* __restrict__ edm,
   const size_t orow = ((static_cast<size_t>(h) * Lp + p) * B + b) * n;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     out[orow + i] = shoup_mul(a[i], c.fin, c.fin_sh, c.q);
-  }
-}
-
-// K5's conversion of one coefficient to destination prime j, bit for bit
-// ext_lift + ext_to of modarith.cuh.  With LS > 0 (the source counts the
-// paths use) the y_i stay in LS registers; the generic form (LS = 0, any
-// e.ls up to kMaxSrc) keeps no per-thread array and computes each y_i twice.
-template <int LS>
-__device__ __forceinline__ uint32_t ext_coeff(const uint32_t* x, size_t stride,
-                                              const ExtTable& e, int j) {
-  const uint32_t d = e.dst(j, 0);
-  uint64_t acc = 0;
-  uint32_t sum = 0;
-  if constexpr (LS > 0) {
-    uint32_t ys[LS];
-#pragma unroll
-    for (int i = 0; i < LS; ++i) {
-      ys[i] = shoup_mul(x[i * stride], e.src(i, 1), e.src(i, 2), e.src(i, 0));
-      acc += static_cast<uint64_t>(ys[i]) *
-             (static_cast<uint64_t>(e.src(i, 3)) |
-              (static_cast<uint64_t>(e.src(i, 4)) << 32));
-    }
-#pragma unroll
-    for (int i = 0; i < LS; ++i) {
-      sum = addmod(sum, shoup_mul(ys[i], e.tab(i, j, 0), e.tab(i, j, 1), d), d);
-    }
-  } else {
-    for (int i = 0; i < e.ls; ++i) {
-      const uint32_t y =
-          shoup_mul(x[i * stride], e.src(i, 1), e.src(i, 2), e.src(i, 0));
-      acc += static_cast<uint64_t>(y) *
-             (static_cast<uint64_t>(e.src(i, 3)) |
-              (static_cast<uint64_t>(e.src(i, 4)) << 32));
-    }
-    for (int i = 0; i < e.ls; ++i) {
-      const uint32_t y =
-          shoup_mul(x[i * stride], e.src(i, 1), e.src(i, 2), e.src(i, 0));
-      sum = addmod(sum, shoup_mul(y, e.tab(i, j, 0), e.tab(i, j, 1), d), d);
-    }
-  }
-  const uint32_t alpha = static_cast<uint32_t>(acc >> 59);
-  return submod(sum, shoup_mul(alpha, e.dst(j, 1), e.dst(j, 2), d), d);
-}
-
-// K5: unsigned HPS extension of rows [Ls, B, n] to destination prime p,
-// fused with its forward transform, one block per (b, p), p fastest so that
-// the Ld blocks reading one polynomial's source rows run side by side and
-// share them in L2.  The conversion writes straight into the registers of
-// the first pass of the register-resident forward chain (radix_chain.cuh:
-// stage bits log n - 1 .. log n - 4, so lanes read consecutive words of each
-// source row); the last pass leaves the result in shared memory, read out
-// as coalesced uint4 rows.  Every destination block recomputes the y_i and
-// alpha: sharing them would keep (Ls + 1) n words per polynomial on chip
-// (320 KB at n = 2^14, Ls = 4) or send them through device memory.
-template <int LOGN, int LS>
-__global__ void __launch_bounds__(kRadixThreads, kRadixBlocks)
-ext_ntt_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
-               const uint32_t* __restrict__ ext,
-               const uint32_t* __restrict__ tw,
-               const uint32_t* __restrict__ tw_sh, int Ls, int Ld, int B) {
-  using S = RadixShape<LOGN>;
-  constexpr int n = S::n;
-  constexpr int c0 = S::fwd_c(0);
-  extern __shared__ uint32_t a[];
-  const int p = blockIdx.x % Ld;
-  const int b = blockIdx.x / Ld;
-  const ExtTable e{ext, LS > 0 ? LS : Ls, Ld};
-  const uint32_t q = e.dst(p, 0);
-  const uint32_t* w = tw + static_cast<size_t>(p) * n;
-  const uint32_t* wsh = tw_sh + static_cast<size_t>(p) * n;
-  const uint32_t* row = x + static_cast<size_t>(b) * n;
-  const size_t stride = static_cast<size_t>(B) * n;
-#pragma unroll 1
-  for (int g = 0; g < S::groups; ++g) {
-    const int base = threadIdx.x + g * S::threads;    // radix_base(v, c0)
-    uint32_t r[kRadix];
-#pragma unroll
-    for (int j = 0; j < kRadix; ++j) {
-      r[j] = ext_coeff<LS>(row + base + (j << c0), stride, e, p);
-    }
-    radix_pass<LOGN, 0, false>(r, base, w, wsh, q);
-    radix_store<c0>(a, r, base);
-  }
-  __syncthreads();
-  RadixPasses<LOGN, 1, S::passes, false>::run(a, w, wsh, q);
-  uint4* o = reinterpret_cast<uint4*>(out + (static_cast<size_t>(p) * B + b) * n);
-  for (int i = threadIdx.x; i < n / 4; i += S::threads) {
-    const int sw = radix_swizzle(4 * i);
-    o[i] = make_uint4(a[sw], a[sw ^ 1], a[sw ^ 2], a[sw ^ 3]);
   }
 }
 
@@ -571,22 +444,6 @@ int fused_threads(int logn) {
 
 bool bad_logn(int logn) { return logn < kMinLogN || logn > kMaxLogN; }
 
-// Launch of a radix-chain kernel at n = 2^LOGN: the host's plan
-// (ops/ntt_cuda.py::_radix_plan) hands in the block size and shared-memory
-// bytes, which must be this build's.
-template <int LOGN, typename Kernel, typename... Args>
-int radix_launch(Kernel kernel, int threads, int smem, int blocks,
-                 cudaStream_t stream, Args... args) {
-  using S = RadixShape<LOGN>;
-  if (threads != S::threads || smem != S::n * static_cast<int>(sizeof(uint32_t))) {
-    return static_cast<int>(cudaErrorInvalidConfiguration);
-  }
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (blocks > 0) kernel<<<blocks, threads, smem, stream>>>(args...);
-  return static_cast<int>(cudaGetLastError());
-}
-
 struct TensorEval4Launch {
   template <int LOGN, typename... Args>
   static int run(Args... args) {
@@ -594,48 +451,10 @@ struct TensorEval4Launch {
   }
 };
 
-template <int LS>
-struct ExtNttLaunch {
-  struct F {
-    template <int LOGN, typename... Args>
-    static int run(Args... args) {
-      return radix_launch<LOGN>(ext_ntt_kernel<LOGN, LS>, args...);
-    }
-  };
-};
-
-// F::run<logn>(args...) for the ring degrees the kernels take.
-template <typename F, typename... Args>
-int by_logn(int logn, Args... args) {
-  switch (logn) {
-    case 8: return F::template run<8>(args...);
-    case 9: return F::template run<9>(args...);
-    case 10: return F::template run<10>(args...);
-    case 11: return F::template run<11>(args...);
-    case 12: return F::template run<12>(args...);
-    case 13: return F::template run<13>(args...);
-    case 14: return F::template run<14>(args...);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
 }  // namespace
 }  // namespace fhe
 
 using namespace fhe;
-
-extern "C" int fhe_ntt_multi(const uint32_t* x, uint32_t* out,
-                             const uint32_t* tw, const uint32_t* tw_sh,
-                             const uint32_t* cons, int L, int B, int logn,
-                             int inverse, int use_fin, cudaStream_t stream) {
-  if (bad_logn(logn)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(uint32_t) << logn;
-  cudaError_t err = allow_smem(ntt_multi_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ntt_multi_kernel<<<dim3(B, L), chain_threads(logn), smem, stream>>>(
-      x, out, tw, tw_sh, cons, B, logn, inverse, use_fin);
-  return static_cast<int>(cudaGetLastError());
-}
 
 extern "C" int fhe_ntt(const long long* x, long long* out, const uint32_t* tw,
                        const uint32_t* tw_sh, const uint32_t* cons, int B,
@@ -687,29 +506,6 @@ extern "C" int fhe_ks_contract(const uint32_t* edm, const uint32_t* kb,
   ks_contract_kernel<<<dim3(B, Lp, 2), chain_threads(logn), smem, stream>>>(
       edm, kb, ka, out, twinv, twinv_sh, cons, R, Lp, B, logn);
   return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int fhe_ext_ntt(const uint32_t* x, uint32_t* out,
-                           const uint32_t* ext, const uint32_t* tw,
-                           const uint32_t* tw_sh, int Ls, int Ld, int B,
-                           int logn, int threads, int smem,
-                           cudaStream_t stream) {
-  const long long blocks = static_cast<long long>(Ld) * B;
-  if (Ls < 1 || Ls > kMaxSrc || blocks > INT_MAX) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int nb = static_cast<int>(blocks);
-  switch (Ls) {
-    case 2:
-      return by_logn<ExtNttLaunch<2>::F>(logn, threads, smem, nb, stream, x,
-                                         out, ext, tw, tw_sh, Ls, Ld, B);
-    case 4:
-      return by_logn<ExtNttLaunch<4>::F>(logn, threads, smem, nb, stream, x,
-                                         out, ext, tw, tw_sh, Ls, Ld, B);
-    default:
-      return by_logn<ExtNttLaunch<0>::F>(logn, threads, smem, nb, stream, x,
-                                         out, ext, tw, tw_sh, Ls, Ld, B);
-  }
 }
 
 extern "C" int fhe_tensor_mul4(const uint32_t* x0, const uint32_t* x1,

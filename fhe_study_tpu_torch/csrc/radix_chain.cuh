@@ -2,8 +2,9 @@
 // (Cooley-Tukey) and inverse (Gentleman-Sande, without n^-1) chains of
 // modarith.cuh, regrouped so that a thread runs kRadixBits stages on
 // kRadix = 16 coefficients held in registers between two exchanges through
-// shared memory.  Only K2 (tensor_eval4) and K5 (ext_ntt) call them; the
-// one-stage-a-barrier chains of modarith.cuh stay for the other kernels.
+// shared memory.  K1 (ntt_multi, csrc/ntt_multi_cuda.cu), K2 (tensor_eval4)
+// and K5 (ext_ntt) run them; the one-stage-a-barrier chains of modarith.cuh
+// stay for K3, K6-K9 and K12.
 //
 // Element a of the polynomial has log n bits.  A pass holds bits
 // [c, c + 4) of a in registers: virtual thread v owns the 16 elements
@@ -25,7 +26,7 @@
 //
 // Shared memory holds the n words under a XOR swizzle of the low 5 bits by
 // bits 5..8 (radix_swizzle); every access of every pass, and the coalesced
-// read-out of K5, then hits 32 distinct banks (ops/ntt_cuda.py::_radix_plan
+// read-out of K1's and K5's forward chains, then hits 32 distinct banks (ops/ntt_cuda.py::_radix_plan
 // and its CPU test check the maps; the swizzle is a bijection on every
 // aligned block of 512 words).
 //
@@ -220,5 +221,49 @@ struct RadixPasses {
     }
   }
 };
+
+// Four consecutive operand words at p: one uint4 load when p is 16-byte
+// aligned (vec), four word loads otherwise.
+__device__ __forceinline__ void operand_words(uint32_t (&d)[4],
+                                              const uint32_t* p, bool vec) {
+  if (vec) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+    d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) d[j] = __ldg(p + j);
+  }
+}
+
+// Launch of a radix-chain kernel at n = 2^LOGN: the host's plan
+// (ops/ntt_cuda.py::_radix_plan) hands in the block size and shared-memory
+// bytes, which must be this build's.
+template <int LOGN, typename Kernel, typename... Args>
+int radix_launch(Kernel kernel, int threads, int smem, int blocks,
+                 cudaStream_t stream, Args... args) {
+  using S = RadixShape<LOGN>;
+  if (threads != S::threads || smem != S::n * static_cast<int>(sizeof(uint32_t))) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (blocks > 0) kernel<<<blocks, threads, smem, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// F::run<logn>(args...) for the ring degrees the kernels take.
+template <typename F, typename... Args>
+int by_logn(int logn, Args... args) {
+  switch (logn) {
+    case 8: return F::template run<8>(args...);
+    case 9: return F::template run<9>(args...);
+    case 10: return F::template run<10>(args...);
+    case 11: return F::template run<11>(args...);
+    case 12: return F::template run<12>(args...);
+    case 13: return F::template run<13>(args...);
+    case 14: return F::template run<14>(args...);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
 
 }  // namespace fhe

@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels: build, load, launch, and dispatch by device.
 
 The sources under ``fhe_study_tpu_torch/csrc/`` are compiled by ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, loaded with
+``sm_90a``, each ``.cu`` file in its own process and all of them at once,
+then linked into one shared library with a plain C interface, loaded with
 ``ctypes``.  The build runs once, at the first launch, into
 ``_build/torch_kernels/<hash of the sources and flags>/``; nothing is built
 when a module is imported.  A missing ``nvcc`` or a failed build raises with
@@ -19,6 +20,8 @@ import os
 import re
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from functools import lru_cache
 from pathlib import Path
 
@@ -26,8 +29,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "_build" / "torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas=-v", "-c")
+LINK_FLAGS = (*ARCH, "-shared")
 LIB_NAME = "libfhe_kernels.so"
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 
@@ -57,29 +62,49 @@ def _sources() -> list:
 
 def build_dir() -> Path:
     """Build directory keyed by the sources' content and the flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for p in _sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
+def _run(cmd: list) -> tuple:
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    return cmd, res, time.perf_counter() - t0
+
+
 @lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernel library."""
+    """Build (once per source hash) and load the kernel library: one
+    ``nvcc -c`` process per ``.cu`` file, all started together, then one
+    link.  ``build.log`` keeps every command, its output (ptxas's register
+    report) and its seconds, in that order."""
     out = build_dir()
     so = out / LIB_NAME
     if not so.is_file():
         out.mkdir(parents=True, exist_ok=True)
-        tmp = out / f"{LIB_NAME}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(p) for p in _sources() if p.suffix == ".cu")]
-        res = subprocess.run(cmd, capture_output=True, text=True, check=False)
-        (out / "build.log").write_text(
-            " ".join(cmd) + "\n" + res.stdout + res.stderr)
-        if res.returncode != 0:
-            raise KernelBuildError(
-                f"nvcc exited with {res.returncode}:\n{res.stderr.strip()}")
+        nvcc, tag = _nvcc(), os.getpid()
+        cus = [p for p in _sources() if p.suffix == ".cu"]
+        objs = [out / f"{p.stem}.{tag}.o" for p in cus]
+        with ThreadPoolExecutor(max_workers=len(cus)) as pool:
+            steps = list(pool.map(_run, [[nvcc, *COMPILE_FLAGS, "-o", str(o),
+                                          str(p)] for p, o in zip(cus, objs)]))
+        tmp = out / f"{LIB_NAME}.{tag}.tmp"
+        if all(res.returncode == 0 for _, res, _ in steps):
+            steps.append(_run([nvcc, *LINK_FLAGS, "-o", str(tmp),
+                               *(str(o) for o in objs)]))
+        (out / "build.log").write_text("".join(
+            " ".join(cmd) + "\n" + res.stdout + res.stderr
+            + f"-- {sec:.1f} s\n" for cmd, res, sec in steps))
+        for o in objs:
+            o.unlink(missing_ok=True)
+        for _, res, _ in steps:
+            if res.returncode != 0:
+                raise KernelBuildError(
+                    f"nvcc exited with {res.returncode}:\n"
+                    f"{res.stderr.strip()}")
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     lib.fhe_error_string.argtypes = [ctypes.c_int]
@@ -179,9 +204,10 @@ class Kernel:
 
 _NTT_CU = "fhe_study_tpu_torch/csrc/ntt_cuda.cu"
 _EXT_CU = "fhe_study_tpu_torch/csrc/ext_cuda.cu"
-NTT_MULTI = Kernel("ntt_multi", "fhe_ntt_multi", _NTT_CU,
+NTT_MULTI = Kernel("ntt_multi", "fhe_ntt_multi",
+                   "fhe_study_tpu_torch/csrc/ntt_multi_cuda.cu",
                    "fhe_study_tpu/ops/ntt_pallas.py:404",
-                   PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT)
+                   PTR, PTR, PTR, PTR, PTR, *([INT] * 8))
 TENSOR_EVAL4 = Kernel("tensor_eval4", "fhe_tensor_eval4", _NTT_CU,
                       "fhe_study_tpu/ops/ntt_pallas.py:794",
                       PTR, PTR, PTR, PTR, *([I64] * 8),
@@ -191,8 +217,9 @@ KS_CONTRACT = Kernel("ks_contract", "fhe_ks_contract", _NTT_CU,
                      PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT)
 BASE_EXTEND = Kernel("base_extend", "fhe_base_extend", _EXT_CU,
                      "fhe_study_tpu/ops/ext_pallas.py:133",
-                     PTR, PTR, PTR, PTR, INT, INT, I64, INT)
-EXT_NTT = Kernel("ext_ntt", "fhe_ext_ntt", _NTT_CU,
+                     PTR, PTR, PTR, PTR, INT, INT, I64, INT, INT)
+EXT_NTT = Kernel("ext_ntt", "fhe_ext_ntt",
+                 "fhe_study_tpu_torch/csrc/ext_ntt_cuda.cu",
                  "fhe_study_tpu/ops/ntt_pallas.py:905",
                  PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT)
 _TENSOR_MUL4_ARGS = (PTR, PTR, PTR, PTR, *([I64] * 8), PTR, PTR, PTR, PTR, PTR,
@@ -272,6 +299,11 @@ def check(t: torch.Tensor, name: str, device: torch.device,
             raise ValueError(f"{name}: the last axis must be contiguous")
     elif not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def aligned(t: torch.Tensor) -> bool:
+    """t's data starts on a 16-byte boundary (the kernels' uint4 words)."""
+    return t.data_ptr() % 16 == 0
 
 
 MIN_LOG_N, MAX_LOG_N = 8, 14      # kMinLogN, kMaxLogN of csrc/modarith.cuh

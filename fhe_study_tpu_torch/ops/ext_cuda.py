@@ -132,10 +132,22 @@ def base_extend_fused_plain(x, src: tuple, dst: tuple, centered: bool = False,
     return ext
 
 
+EXT_VEC = 4        # kExtVec of csrc/ext_cuda.cu: coefficients a thread (vec)
+
+
+def _ext_vec(total: int, *tensors) -> bool:
+    """Whether K4 takes its vector form (4 coefficients a thread in uint4
+    words) for ``total`` coefficients a row: total % 4 == 0 and every row of
+    x, w and out on a 16-byte boundary; the kernel refuses it otherwise and
+    runs its word form on any shape.  Its instance is the source count."""
+    return total % EXT_VEC == 0 and all(_cuda.aligned(t) for t in tensors)
+
+
 def base_extend_fused_kernel(x, src: tuple, dst: tuple,
                              centered: bool = False, w=None,
                              sub_mul: tuple | None = None):
-    """K4 on CUDA int32 tensors: one thread per coefficient."""
+    """K4 on CUDA int32 tensors: one instance per source count, 4
+    consecutive coefficients a thread where ``_ext_vec`` allows it."""
     _check_src(src)
     _check_epilogue(w, sub_mul)
     dev = x.device
@@ -154,10 +166,11 @@ def base_extend_fused_kernel(x, src: tuple, dst: tuple,
         return out
     tab = kernel_table(tuple(src), tuple(dst),
                        None if sub_mul is None else tuple(sub_mul), dev)
+    vec = _ext_vec(total, x, out, *(() if w is None else (w,)))
     _cuda.BASE_EXTEND.launch(
         dev, x.data_ptr(), None if w is None else w.data_ptr(),
         out.data_ptr(), tab.data_ptr(), len(src), len(dst), total,
-        int(centered))
+        int(centered), int(vec))
     return out
 
 

@@ -91,7 +91,7 @@ def _tensor_fin(dst: tuple, n: int, scale: tuple | None) -> tuple:
                  for j, q in enumerate(dst))
 
 
-# -- the register-resident chains of K2 and K5 ------------------------------
+# -- the register-resident chains of K1, K2 and K5 --------------------------
 
 RADIX_BITS = 4          # kRadixBits of csrc/radix_chain.cuh: 16 words a thread
 RADIX_THREADS = 256     # kRadixThreads: the most threads a block runs
@@ -263,7 +263,9 @@ def ks_fused_eval_plain(c_limbs, kb, ka, primes: tuple, src_primes: tuple,
 # -- kernel wrappers --------------------------------------------------------
 
 def ntt_multi_kernel(x, qs: tuple, inverse: bool = False, fin=None):
-    """K1: one block per (prime, polynomial)."""
+    """K1: one block per (prime, polynomial), on the register-resident
+    chain (``_radix_plan``); the inverse reads its rows as uint4 when x is
+    16-byte aligned and word by word otherwise."""
     dev = x.device
     _cuda.check(x, "x", dev)
     L, n = x.shape[0], x.shape[-1]
@@ -278,10 +280,12 @@ def ntt_multi_kernel(x, qs: tuple, inverse: bool = False, fin=None):
         return out
     tw = _twiddles(qs, n, inverse, dev)
     cons = _prime_rows(qs, fin, dev)
+    plan = _radix_plan(logn)
     _cuda.NTT_MULTI.launch(dev, x.data_ptr(), out.data_ptr(),
                            tw[0].data_ptr(), tw[1].data_ptr(),
                            cons.data_ptr(), L, B, logn, int(inverse),
-                           int(fin is not None))
+                           int(fin is not None), int(_cuda.aligned(x)),
+                           plan.threads, plan.smem_bytes)
     return out
 
 

@@ -273,20 +273,62 @@ def linear_cases(param, batch: int, device, gen: torch.Generator) -> list:
     ]
 
 
+def _offset_word(t: torch.Tensor) -> torch.Tensor:
+    """t's values in a contiguous tensor whose data starts one word past the
+    allocator's alignment (so not on a 16-byte boundary)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+EXT_SWEEP_LS = (1, 2, 3, 4, 5, 15)      # K4's source counts in the sweep
+EXT_SWEEP_LD = (1, 4, 5)                # and its destination counts
+
+
 def radix_cases(logn: int, batch: int, device, gen: torch.Generator) -> list:
-    """K2 and K5, the two kernels on the register-resident chains, at ring
-    degree 2^logn on a small batch (compared only, not timed): K2 on
-    contiguous operands, on the strided views of a stacked pair, and on rows
-    that are not 16-byte aligned (its word-by-word load); K5 from 2 and 4
-    source primes (the counts it instantiates) and from 1, 3 and 5 (its
-    generic form) to 5 destination primes."""
+    """The redesigned kernels at ring degree 2^logn on a small batch
+    (compared only, not timed): K1, K2 and K5 on the register-resident
+    chains, whose pass structure differs with log n, and K4, whose instance
+    differs with the source count.
+
+      K1: forward (without fin, and with the Montgomery 2^32) and inverse
+          (the default n^-1, and an explicit fin), each on a contiguous
+          batch and on a contiguous tensor offset by one word (the
+          inverse's word-by-word first pass);
+      K2: contiguous operands, the strided views of a stacked pair, and rows
+          that are not 16-byte aligned (its word-by-word load);
+      K5: from 2 and 4 source primes (the counts it instantiates) and from
+          1, 3 and 5 (its generic form) to 5 destination primes;
+      K4: from each of EXT_SWEEP_LS to each of EXT_SWEEP_LD primes, unsigned
+          and centered, with and without the (w - ext) * c epilogue, on
+          [Ls, batch, n] (the vector form); per source count also on a row
+          length of n - 1 (total % 4 != 0) and on an unaligned x and w (both
+          the word form)."""
     n = 1 << logn
-    primes = ntt_primes(10, 30, 1 << 16)
+    primes = ntt_primes(24, 30, 1 << 16)
     qs, ps = primes[:4], primes[4:9]
 
     def res(basis, shape):
         return prng.uniform_mod_multi(gen, shape, basis, device)
 
+    def compared(name, label, kern, plain, *args, **kw):
+        return _pair(name, f"{label} B={batch} n={n}", 0, 0, kern, plain,
+                     *args, **kw)._replace(timed=False)
+
+    out = []
+    mont = tuple((1 << 32) % q for q in qs)
+    t_n = tuple(pow(n, -1, q) * 256 % q for q in qs)
+    for layout, make in (("contiguous", lambda t: t),
+                         ("offset by one word", _offset_word)):
+        x = make(res(qs, (batch, n)))
+        for label, kw in (("forward", {}),
+                          ("forward fin=2^32", dict(fin=mont)),
+                          ("inverse", dict(inverse=True)),
+                          ("inverse fin=t/n", dict(inverse=True, fin=t_n))):
+            out.append(compared("ntt_multi", f"{label}, {layout}",
+                                nc.ntt_multi_kernel, nc.ntt_multi_plain, x,
+                                qs, **kw))
     pair = res(qs, (batch, 2, n))
     ragged = res(qs, (batch, n + 1))[..., 1:]        # rows at odd offsets
     operands = {"contiguous": [res(qs, (batch, n)) for _ in range(4)],
@@ -294,15 +336,44 @@ def radix_cases(logn: int, batch: int, device, gen: torch.Generator) -> list:
                                   pair[..., 1, :], pair[..., 0, :]],
                 "unaligned rows": [ragged, ragged, pair[..., 0, :], ragged]}
     scale = tuple(range(3, 3 + len(qs)))
-    out = [_pair("tensor_eval4", f"{label} B={batch} n={n}", 0, 0,
-                 nc.tensor_eval4_kernel, nc.tensor_eval4_plain, *ops, qs,
-                 scale=scale)._replace(timed=False)
-           for label, ops in operands.items()]
+    out += [compared("tensor_eval4", label, nc.tensor_eval4_kernel,
+                     nc.tensor_eval4_plain, *ops, qs, scale=scale)
+            for label, ops in operands.items()]
     for ls in (1, 2, 3, 4, 5):
         src = (qs + primes[9:])[:ls]
-        out.append(_pair("ext_ntt", f"{ls} -> {len(ps)} primes B={batch} "
-                         f"n={n}", 0, 0, nc.ext_ntt_kernel, nc.ext_ntt_plain,
-                         res(src, (batch, n)), src, ps)._replace(timed=False))
+        out.append(compared("ext_ntt", f"{ls} -> {len(ps)} primes",
+                            nc.ext_ntt_kernel, nc.ext_ntt_plain,
+                            res(src, (batch, n)), src, ps))
+    for ls in EXT_SWEEP_LS:
+        src = primes[24 - ls:]                       # apart from ps
+        x = res(src, (batch, n))
+        for ld in EXT_SWEEP_LD:
+            dst = ps[:ld]
+            w = res(dst, (batch, n))
+            sub_mul = tuple(range(5, 5 + ld))
+            for centered in (False, True):
+                for epi in ({}, dict(w=w, sub_mul=sub_mul)):
+                    out.append(compared(
+                        "base_extend",
+                        f"{ls} -> {ld} primes, "
+                        f"{'centered' if centered else 'unsigned'}"
+                        f"{', epilogue' if epi else ''}",
+                        ext.base_extend_fused_kernel,
+                        ext.base_extend_fused_plain, x, src, dst,
+                        centered=centered, **epi))
+        dst = ps[:max(EXT_SWEEP_LD)]
+        tail = res(src, (batch, n - 1))
+        out.append(compared(
+            "base_extend", f"{ls} -> {len(dst)} primes, rows of n - 1, "
+            "centered, epilogue", ext.base_extend_fused_kernel,
+            ext.base_extend_fused_plain, tail, src, dst, centered=True,
+            w=res(dst, (batch, n - 1)), sub_mul=tuple(range(5, 5 + len(dst)))))
+        out.append(compared(
+            "base_extend", f"{ls} -> {len(dst)} primes, unaligned x and w, "
+            "epilogue", ext.base_extend_fused_kernel,
+            ext.base_extend_fused_plain, _offset_word(x), src, dst,
+            w=_offset_word(res(dst, (batch, n))),
+            sub_mul=tuple(range(5, 5 + len(dst)))))
     return out
 
 

@@ -10,11 +10,16 @@ ciphertexts) and, where the checkout has them, of
 1024 steps, 64 ciphertexts, and the blind rotation over 700 steps),
 ``ckks_cases`` (N = 2^13, L = 4, K = 2, 32 ciphertexts), ``ext_sum_cases`` and
 ``bench_cases`` with CUDA events and prints one line a case and the sum a
-kernel.  ``--tree`` names another checkout whose ``fhe_study_tpu_torch`` is
+kernel.  Each case is timed twice: as called (``--reps`` calls back to
+back, so the device waits whenever the host's launch path is slower than
+the kernel) and on the device alone (the same calls queued behind device
+work that outlasts their enqueueing), beside the host's seconds to enqueue a
+call.  ``--tree`` names another checkout whose ``fhe_study_tpu_torch`` is
 timed instead of this one, so two commits can be compared on one card in
 one go: run it on the parent, the change, the change and the parent.
 Run it as a file, not with -m, so that the package it imports is the one
-under ``--tree``.  Needs one CUDA card and nvcc.
+under ``--tree``.  Needs one CUDA card and nvcc.  It first builds that
+checkout's kernels and prints the build's seconds.
 
 Then it times the BFV chains of chip_smoke.py's phase 6 the same way (a
 chain of 4 of ``mul_e`` and ``mul`` with either relin key at B = 128, and of
@@ -26,6 +31,7 @@ import argparse
 import pathlib
 import subprocess
 import sys
+import time
 
 import torch
 
@@ -40,11 +46,16 @@ def main() -> None:
         sys.exit("kernel_times: no CUDA card")
     sys.path.insert(0, args.tree)
     from fhe_study_tpu_torch.models import bfv_rns as R
+    from fhe_study_tpu_torch.ops import _cuda
     from fhe_study_tpu_torch.utils import kernel_check
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
+    t0 = time.perf_counter()
+    _cuda.library()
+    print(f"build {args.tree}: {time.perf_counter() - t0:.1f} s -> "
+          f"{_cuda.build_dir()}", flush=True)
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(1)
     param = R.RnsParam(n=1 << 14, t=256, L=4, M=5)
@@ -63,27 +74,48 @@ def main() -> None:
                   if c.timed]
         cases += kernel_check.bench_cases(1 << 14, 64, dev, gen, reps=8,
                                           rounds=1024)
-    sums = {}
+    busy = torch.zeros(1 << 28, dtype=torch.int32, device=dev)    # 1 GiB
+    sums, alone = {}, {}
     for case in cases:
         case.kernel()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(args.reps):
-            case.kernel()
-        end.record()
-        torch.cuda.synchronize()
-        ms = start.elapsed_time(end) / args.reps
+        ms = events_ms(case.kernel, args.reps)
+        device_ms, host_ms = events_ms(case.kernel, args.reps, busy)
         sums[case.name] = sums.get(case.name, 0.0) + ms
-        print(f"{case.name:13s} {case.label:48s} {ms:8.4f} ms", flush=True)
-    print(f"tree {args.tree} [{card}]: "
-          + ", ".join(f"{k} {v:.4f}" for k, v in sums.items())
-          + f"; all {sum(sums.values()):.4f} ms", flush=True)
+        alone[case.name] = alone.get(case.name, 0.0) + device_ms
+        print(f"{case.name:13s} {case.label:48s} {ms:8.4f} ms; on the device "
+              f"alone {device_ms:8.4f} ms; host enqueue {host_ms:.4f} ms a "
+              "call", flush=True)
+    del busy
+    for label, by in (("", sums), (" (device alone)", alone)):
+        print(f"tree {args.tree}{label} [{card}]: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in by.items())
+              + f"; all {sum(by.values()):.4f} ms", flush=True)
     per_op = bfv_chains(R, dev, 4)
     print(f"chains {args.tree} [{card}]: "
           + ", ".join(f"{k} {v:.4f}" for k, v in per_op.items())
           + " ms an op", flush=True)
+
+
+def events_ms(fn, reps: int, busy=None):
+    """ms a call of ``reps`` calls of fn by CUDA events.  With ``busy`` (a
+    device tensor), the calls queue behind 16 passes over it, enough device
+    work for the host to enqueue them all first, and the result is
+    (device ms a call, host ms to enqueue a call)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    if busy is not None:
+        for _ in range(16):
+            busy.add_(1)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / reps
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    return ms if busy is None else (ms, host)
 
 
 def bfv_chains(R, dev, chain: int) -> dict:

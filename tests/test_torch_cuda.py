@@ -45,12 +45,16 @@ def test_kernels_match_plain(cuda, n):
 
 @pytest.mark.parametrize("logn", range(_cuda.MIN_LOG_N, _cuda.MAX_LOG_N + 1))
 def test_radix_kernels_match_plain_at_every_degree(cuda, logn):
-    """K2 and K5 on the register-resident chains: each log n has its own
-    pass structure; K2 on contiguous, strided and unaligned rows, K5 from
-    every source count it instantiates and its generic form."""
+    """The redesigned kernels: K1, K2 and K5 on the register-resident
+    chains, where each log n has its own pass structure (K1 both ways, with
+    and without fin, on aligned and word-offset rows; K2 on contiguous,
+    strided and unaligned rows; K5 from every source count it instantiates
+    and its generic form), and K4 from 1..5 and 15 source primes in its
+    vector and word forms."""
     gen = torch.Generator(device=cuda).manual_seed(11)
     cases = kernel_check.radix_cases(logn, 3, cuda, gen)
-    assert {c.name for c in cases} == {"tensor_eval4", "ext_ntt"}
+    assert {c.name for c in cases} == {"ntt_multi", "tensor_eval4",
+                                       "ext_ntt", "base_extend"}
     for case in cases:
         got, want = case.kernel(), case.plain()
         torch.cuda.synchronize()
@@ -58,13 +62,44 @@ def test_radix_kernels_match_plain_at_every_degree(cuda, logn):
 
 
 def test_radix_kernels_have_no_stack_frame_or_spills(cuda):
+    """Every instance of the redesigned kernels: K2 and K1 (both ways) per
+    log n, K5 per log n and source count form, K4 per source count and
+    form."""
     report = _cuda.ptxas_report(_cuda.build_log())
-    radix = [r for r in report
-             if r["kernel"].split("<")[0] in ("tensor_eval4_kernel",
-                                              "ext_ntt_kernel")]
-    assert len(radix) == 7 * 4, [r["kernel"] for r in radix]
+    counts = {"tensor_eval4_kernel": 7, "ext_ntt_kernel": 7 * 3,
+              "ntt_multi_kernel": 7 * 2, "base_extend_kernel": 15 * 2}
+    radix = [r for r in report if r["kernel"].split("<")[0] in counts]
+    for name, count in counts.items():
+        assert sum(r["kernel"].split("<")[0] == name for r in radix) == count
     for r in radix:
         assert (r["stack"], r["spill_stores"], r["spill_loads"]) == (0, 0, 0), r
+
+
+def test_redesigned_kernels_refuse_another_plan(cuda):
+    """K1 refuses a block size or shared memory other than its build's and
+    uint4 loads from an unaligned row; K4 its vector form on a row length
+    that is no multiple of 4 or an unaligned row.  Each refusal raises."""
+    qs = R.RnsParam(n=256, t=256, L=4, M=5).qs
+    x = torch.zeros((4, 2, 256), dtype=torch.int32, device=cuda)
+    tw = ntt_cuda._twiddles(qs, 256, True, cuda)
+    cons = ntt_cuda._prime_rows(qs, None, cuda)
+    plan = ntt_cuda._radix_plan(8)
+    for threads, smem, vec, src in ((plan.threads * 2, plan.smem_bytes, 1, x),
+                                    (plan.threads, plan.smem_bytes * 2, 1, x),
+                                    (plan.threads, plan.smem_bytes, 1,
+                                     x.view(-1)[1:])):
+        with pytest.raises(RuntimeError, match="fhe_ntt_multi"):
+            _cuda.NTT_MULTI.launch(cuda, src.data_ptr(), x.data_ptr(),
+                                   tw[0].data_ptr(), tw[1].data_ptr(),
+                                   cons.data_ptr(), 4, 1, 8, 1, 1, vec,
+                                   threads, smem)
+    tab = ext_cuda.kernel_table(qs, qs[:2], None, cuda)
+    out = torch.zeros((2, 2, 256), dtype=torch.int32, device=cuda)
+    for src, total in ((x, 511), (x.view(-1)[1:], 508)):
+        with pytest.raises(RuntimeError, match="fhe_base_extend"):
+            _cuda.BASE_EXTEND.launch(cuda, src.data_ptr(), None,
+                                     out.data_ptr(), tab.data_ptr(), 4, 2,
+                                     total, 0, 1)
 
 
 def test_linear_kernels_match_plain(cuda):

@@ -300,7 +300,8 @@ def test_interop_carries_torus_words_and_shoup_planes_bit_for_bit():
 
 
 def test_build_is_one_command_over_every_source(bare_loader, monkeypatch):
-    """One compiler command names every .cu file; the log keeps it."""
+    """One compiler process per .cu file, then one link command over every
+    file's object; the log keeps every command, compiles first."""
     fake = bare_loader / "cuda" / "bin" / "nvcc"
     fake.parent.mkdir(parents=True)
     fake.write_text("#!/bin/sh\nwhile [ $# -gt 1 ]; do\n"
@@ -312,6 +313,14 @@ def test_build_is_one_command_over_every_source(bare_loader, monkeypatch):
         _cuda.library()
     log = (_cuda.build_dir() / "build.log").read_text().splitlines()
     cus = sorted(p.name for p in _cuda.CSRC.iterdir() if p.suffix == ".cu")
-    assert len(cus) == 4 and len(log) == 1
-    assert [w.rsplit("/", 1)[-1] for w in log[0].split()[-4:]] == cus
-    assert " -shared " in log[0]
+    cmds = [line for line in log if not line.startswith("-- ")]
+    assert len(cus) == 6 and len(cmds) == 7
+    assert all(line.endswith(" s") for line in log if line.startswith("-- "))
+    assert [line.rsplit("/", 1)[-1] for line in cmds[:6]] == cus
+    assert all(" -c " in line and " -shared " not in line
+               for line in cmds[:6])
+    link = cmds[6].split()
+    assert " -shared " in cmds[6] and " -c " not in cmds[6]
+    assert [w.rsplit("/", 1)[-1].split(".")[0] for w in link[-6:]] == \
+        [c.removesuffix(".cu") for c in cus]
+    assert not list(_cuda.build_dir().glob("*.o"))     # objects cleaned up

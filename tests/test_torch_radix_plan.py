@@ -1,11 +1,14 @@
-"""The pass plan of the register-resident chains that K2 (tensor_eval4) and
-K5 (ext_ntt) run on the card (csrc/radix_chain.cuh, mirrored by
-ops/ntt_cuda.py::_radix_plan), checked on the CPU at every ring degree the
-kernels take: every stage is run once and in order, a block fits the H100,
-a torch emulation of the plan's element, twiddle and shared-memory maps
-equals the plain transform bit for bit in both directions, and every warp's
-shared-memory access hits 32 distinct banks.  Also the parser of ptxas's
-register report that chip_smoke.py reads.  Tolerance 0 throughout.
+"""The pass plan of the register-resident chains that K1 (ntt_multi), K2
+(tensor_eval4) and K5 (ext_ntt) run on the card (csrc/radix_chain.cuh,
+mirrored by ops/ntt_cuda.py::_radix_plan), checked on the CPU at every ring
+degree the kernels take: every stage is run once and in order, a block fits
+the H100, a torch emulation of the plan's element, twiddle and shared-memory
+maps equals the plain transform bit for bit in both directions, K1's own
+maps (its first pass from a row in device memory, the forward's uint4
+read-out and the inverse's stores, each with fin) equal ntt_multi_plain,
+and every warp's shared-memory access hits 32 distinct banks.  Also the
+parser of ptxas's register report that chip_smoke.py reads.  Tolerance 0
+throughout.
 """
 
 import numpy as np
@@ -78,39 +81,77 @@ def test_plan_fits_a_block(logn):
     assert 3 * (plan.smem_bytes + 1024) <= 233472 and 3 * plan.threads <= 2048
 
 
-def _emulate(x, q: int, logn: int, inverse: bool):
-    """The kernel's data flow on one polynomial: the first pass reads the
-    operand, each pass runs its stages on [n/16, 16] registers, passes
-    exchange through a swizzled shared-memory buffer, the last pass's
-    registers are the output (the inverse without n^-1)."""
+def _run_pass(regs, el, ps, roots, q: int, logn: int, inverse: bool):
+    """The stages of one pass on the [n/16, 16] registers of every virtual
+    thread (el: the elements they hold), in place."""
+    n = 1 << logn
+    for u in ps.stages:
+        j = ps.c + u
+        k = torch.arange(16)
+        lo = k[(k >> u) & 1 == 0]
+        hi = lo | (1 << u)
+        ti = _twiddle_index(logn, ps.c, u, el)
+        # the kernel's contiguous, aligned read equals the chain's index
+        assert torch.equal(ti, (n >> (j + 1)) + (el[:, lo] >> (j + 1)))
+        assert bool((ti[:, 0] % (8 >> u) == 0).all())
+        w = roots[ti]
+        a, b = regs[:, lo], regs[:, hi]
+        if inverse:
+            regs[:, lo], regs[:, hi] = (a + b) % q, (a - b) % q * w % q
+        else:
+            v = b * w % q
+            regs[:, lo], regs[:, hi] = (a + v) % q, (a - v) % q
+
+
+def _lanes_consecutive(addr) -> bool:
+    """[virtual threads, 16] word addresses: for each of the 16 accesses the
+    lanes of every warp (16 at n = 2^8, where a block is half a warp) touch
+    consecutive words (coalesced)."""
+    warps = addr.reshape(-1, min(32, addr.shape[0]), 16)
+    return bool((warps[:, 1:] - warps[:, :-1] == 1).all())
+
+
+def _emulate(x, q: int, logn: int, inverse: bool, fin: int = 1):
+    """The kernels' data flow on one row x of device memory: each pass runs
+    its stages on [n/16, 16] registers, passes exchange through a swizzled
+    shared-memory buffer.  The forward's first pass reads word
+    base + (j << c0) of the row, base = v (K1; K5 converts the same words),
+    and its result leaves shared memory as uint4 rows (row i: the swizzled
+    words of 4i .. 4i + 3) times fin; the inverse's first pass reads the 16
+    contiguous words from base = 16 v (K1; K2 forms its products there), and
+    its last pass stores its registers times fin to base + (j << c), lanes
+    on consecutive words."""
     n = 1 << logn
     plan = nc._radix_plan(logn)
     roots = nc._roots_plain((q,), n, inverse, torch.device("cpu"))[0]
     smem = torch.full((n,), -1, dtype=torch.int64)
     passes = plan.inverse if inverse else plan.forward
+    v = torch.arange(n >> nc.RADIX_BITS)[:, None]
+    k = torch.arange(16)[None]
+    out = torch.full((n,), -1, dtype=torch.int64)
     for i, ps in enumerate(passes):
         el = _elements(logn, ps.c)
-        regs = x[el] if i == 0 else smem[_swizzle(el)]
-        assert int(regs.min()) >= 0                   # written by a pass
-        for u in ps.stages:
-            j = ps.c + u
-            k = torch.arange(16)
-            lo = k[(k >> u) & 1 == 0]
-            hi = lo | (1 << u)
-            ti = _twiddle_index(logn, ps.c, u, el)
-            # the kernel's contiguous, aligned read equals the chain's index
-            assert torch.equal(ti, (n >> (j + 1)) + (el[:, lo] >> (j + 1)))
-            assert bool((ti[:, 0] % (8 >> u) == 0).all())
-            w = roots[ti]
-            a, b = regs[:, lo], regs[:, hi]
-            if inverse:
-                regs[:, lo], regs[:, hi] = (a + b) % q, (a - b) % q * w % q
+        if i == 0:
+            addr = 16 * v + k if inverse else v + (k << (logn - 4))
+            assert torch.equal(addr, el)
+            if inverse:                               # uint4-aligned words
+                assert bool((addr[:, ::4] % 4 == 0).all())
             else:
-                v = b * w % q
-                regs[:, lo], regs[:, hi] = (a + v) % q, (a - v) % q
-        smem[_swizzle(el)] = regs
-    out = torch.empty(n, dtype=torch.int64)
-    out[el] = regs
+                assert _lanes_consecutive(addr)
+            regs = x[addr]
+        else:
+            regs = smem[_swizzle(el)]
+        _run_pass(regs, el, ps, roots, q, logn, inverse)
+        if inverse and i == len(passes) - 1:
+            assert _lanes_consecutive(el)
+            out[el] = regs * fin % q
+        else:
+            smem[_swizzle(el)] = regs
+    if not inverse:
+        sw = _swizzle(4 * torch.arange(n // 4))
+        rows = torch.stack([smem[sw ^ t] for t in range(4)], dim=1)
+        out = (rows * fin % q).reshape(n)
+    assert int(out.min()) >= 0
     return out
 
 
@@ -124,6 +165,19 @@ def test_emulated_plan_equals_plain_both_ways(logn):
         assert torch.equal(_emulate(x[0], q, logn, False), fwd)
         inv = nc.ntt_multi_plain(x, (q,), inverse=True, fin=(1,)).long()[0]
         assert torch.equal(_emulate(x[0], q, logn, True), inv)
+
+
+@pytest.mark.parametrize("logn", LOGNS)
+def test_k1_maps_with_fin_equal_plain(logn):
+    n = 1 << logn
+    rng = np.random.default_rng(100 + logn)
+    for q in PRIMES:
+        x = torch.from_numpy(rng.integers(0, q, (1, n)))
+        fin = int(rng.integers(1, q))
+        for inverse in (False, True):
+            want = nc.ntt_multi_plain(x, (q,), inverse=inverse,
+                                      fin=(fin,)).long()[0]
+            assert torch.equal(_emulate(x[0], q, logn, inverse, fin), want)
 
 
 def _banks_hit(words) -> int:
@@ -141,7 +195,7 @@ def test_shared_memory_accesses_hit_distinct_banks(logn):
         el = _elements(logn, ps.c)
         for warp in el.split(32):                 # virtual threads, in lanes
             assert _banks_hit(_swizzle(warp).T) == 1
-    # K5's read-out: lane l of a warp reads words 4l .. 4l + 3
+    # K1's and K5's read-out: lane l of a warp reads words 4l .. 4l + 3
     out = _swizzle(torch.arange(n).reshape(-1, 32, 4))
     assert _banks_hit(out.permute(0, 2, 1).reshape(-1, 32)) == 1
 
