@@ -24,8 +24,11 @@ Phases, each of which raises (and so exits non-zero) on any failure:
      strided and unaligned rows; K5 from 1 to 5 source primes; K4 from 1, 2,
      3, 4, 5 and 15 source primes to 1, 4 and 5, unsigned and centered, with
      and without the epilogue, on a row length that is no multiple of 4 and
-     on unaligned rows; ptxas's registers, stack frame and spills of every
-     kernel (phase 1), which must show neither for K1, K2, K4 and K5;
+     on unaligned rows; K3 from 1, 2, 4 and 9 digit rows over 2 and 6
+     primes, aligned and word-offset; K6 (and tensor_mul) with and without a
+     scale on contiguous, strided, stacked and unaligned rows and from 1 to
+     5 source primes; ptxas's registers, stack frame and spills of every
+     kernel (phase 1), which must show neither for K1-K6;
   3. the eval-resident path: keygen -> hybrid relin key -> encrypt 128
      plaintext pairs -> to_evals -> mul_e -> from_evals -> decrypt;
   4. the coefficient-domain and gadget paths on the same ciphertexts: mul
@@ -116,10 +119,12 @@ CEILING_REPS, ALU_ROUNDS = 64, 1 << 16
 MEMORY_BYTES_PER_S = 3.35e12
 INSTR_PER_SM_CLOCK = 128
 ALU_SHORT_ROUNDS = 1024      # the timed alu_rate launch is held in such pieces
-# the redesigned kernels: K1, K2 and K5 on csrc/radix_chain.cuh, K4 (and K5)
-# with the source count at compile time; ptxas must give no instance of them
-# a stack frame or spills
-RADIX_KERNELS = {"ntt_multi", "tensor_eval4", "ext_ntt", "base_extend"}
+# the redesigned kernels: K1, K2, K3, K5 and K6 (tensor_mul4 and, on row
+# strides, tensor_mul) on csrc/radix_chain.cuh, K4 (and K5, K6) with the
+# source count at compile time; ptxas must give no instance of them a stack
+# frame or spills
+RADIX_KERNELS = {"ntt_multi", "tensor_eval4", "ks_contract", "ext_ntt",
+                 "base_extend", "tensor_mul4", "tensor_mul"}
 RADIX_BATCH = 3              # the small odd batch of their every-degree sweep
 
 
@@ -257,8 +262,8 @@ def main() -> None:
         got, want = case.kernel(), case.plain()
         torch.cuda.synchronize()
         check(case, got, want)
-    # the two kernels on the register-resident chains, at every ring degree
-    # they take: each log n has its own pass structure
+    # the kernels on the register-resident chains, at every ring degree they
+    # take: each log n has its own pass structure
     radix_checked = 0
     for logn in range(_cuda.MIN_LOG_N, _cuda.MAX_LOG_N + 1):
         for case in kernel_check.radix_cases(logn, RADIX_BATCH, dev, gen):
@@ -268,7 +273,11 @@ def main() -> None:
             radix_checked += 1
     say(f"parity: ntt_multi (forward and inverse, with and without fin, "
         f"contiguous and word-offset rows), tensor_eval4 (contiguous, strided, "
-        f"unaligned rows), ext_ntt (from 1 to 5 source primes) and "
+        f"unaligned rows), ks_contract ({kernel_check.KS_SWEEP_R} digit rows "
+        f"over {kernel_check.KS_SWEEP_LP} primes, aligned and word-offset), "
+        f"tensor_mul4 and tensor_mul (with and without a scale; contiguous, "
+        f"strided, stacked and unaligned rows; from 1 to 5 source primes), "
+        f"ext_ntt (from 1 to 5 source primes) and "
         f"base_extend (from {kernel_check.EXT_SWEEP_LS} to "
         f"{kernel_check.EXT_SWEEP_LD} primes, unsigned and centered, with and "
         f"without the epilogue, vector and word forms) == plain (torch.equal) "
@@ -992,8 +1001,8 @@ def main() -> None:
         f"B={resident[N][0] * sms} ({resident[N][0]} resident blocks x {sms} "
         f"SMs) {ceil_bf[N]:.4e}; at n={CK_N}, B={resident[CK_N][0] * sms}: "
         f"{ceil_bf[CK_N]:.4e}.  This is the ceiling of the package's "
-        f"one-stage chain (K3, K6-K9), not of the card: the register-resident "
-        f"chain of K1, K2 and K5 is not bound by it [{card}]")
+        f"one-stage chain (K7-K9), not of the card: the register-resident "
+        f"chain of K1-K3, K5 and K6 is not bound by it [{card}]")
     clock = sm_mhz * 1e6
     for op in alu_bench.OPS:
         r = nb["alu"][op]
@@ -1104,7 +1113,7 @@ def main() -> None:
         else:                                    # kernel against kernel
             check(case, case.kernel(), case.plain())
     # each kernel on the one-stage chain: its butterflies/s against that
-    # chain's ceiling at its n (K1, K2 and K5 run the register-resident
+    # chain's ceiling at its n (K1-K3, K5 and K6 run the register-resident
     # chain, which that ceiling does not bound: their share of the bound is
     # above)
     for case in timed_chains:

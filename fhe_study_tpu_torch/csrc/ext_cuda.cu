@@ -22,8 +22,8 @@
 // of w) and Ld out per coefficient against ~(Ls * Ld) Shoup products, about
 // 5 instructions a byte at Ls = 4, Ld = 5 where the H100 issues 10 for each
 // byte its memory moves: the bytes.
-// The arithmetic is ext_lift + ext_to of modarith.cuh (Shoup products, the
-// 64-bit alpha), bit for bit.
+// The arithmetic is ext_coeff's of modarith.cuh (Shoup products, the 64-bit
+// alpha; 2^58 added to its sum when centered), bit for bit.
 
 #include <cstdint>
 
@@ -136,10 +136,6 @@ base_extend_kernel(const uint32_t* __restrict__ x,
 unsigned grid_for(long long threads) {
   const long long blocks = (threads + kThreads - 1) / kThreads;
   return static_cast<unsigned>(blocks > kMaxBlocks ? kMaxBlocks : blocks);
-}
-
-bool misaligned(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 != 0;
 }
 
 // The instance of K4 for Ls source primes (LS = 1 .. kMaxSrc).

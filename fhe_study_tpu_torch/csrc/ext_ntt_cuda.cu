@@ -19,47 +19,6 @@
 namespace fhe {
 namespace {
 
-// K5's conversion of one coefficient to destination prime j, bit for bit
-// ext_lift + ext_to of modarith.cuh.  With LS > 0 (the source counts the
-// paths use) the y_i stay in LS registers; the generic form (LS = 0, any
-// e.ls up to kMaxSrc) keeps no per-thread array and computes each y_i twice.
-template <int LS>
-__device__ __forceinline__ uint32_t ext_coeff(const uint32_t* x, size_t stride,
-                                              const ExtTable& e, int j) {
-  const uint32_t d = e.dst(j, 0);
-  uint64_t acc = 0;
-  uint32_t sum = 0;
-  if constexpr (LS > 0) {
-    uint32_t ys[LS];
-#pragma unroll
-    for (int i = 0; i < LS; ++i) {
-      ys[i] = shoup_mul(x[i * stride], e.src(i, 1), e.src(i, 2), e.src(i, 0));
-      acc += static_cast<uint64_t>(ys[i]) *
-             (static_cast<uint64_t>(e.src(i, 3)) |
-              (static_cast<uint64_t>(e.src(i, 4)) << 32));
-    }
-#pragma unroll
-    for (int i = 0; i < LS; ++i) {
-      sum = addmod(sum, shoup_mul(ys[i], e.tab(i, j, 0), e.tab(i, j, 1), d), d);
-    }
-  } else {
-    for (int i = 0; i < e.ls; ++i) {
-      const uint32_t y =
-          shoup_mul(x[i * stride], e.src(i, 1), e.src(i, 2), e.src(i, 0));
-      acc += static_cast<uint64_t>(y) *
-             (static_cast<uint64_t>(e.src(i, 3)) |
-              (static_cast<uint64_t>(e.src(i, 4)) << 32));
-    }
-    for (int i = 0; i < e.ls; ++i) {
-      const uint32_t y =
-          shoup_mul(x[i * stride], e.src(i, 1), e.src(i, 2), e.src(i, 0));
-      sum = addmod(sum, shoup_mul(y, e.tab(i, j, 0), e.tab(i, j, 1), d), d);
-    }
-  }
-  const uint32_t alpha = static_cast<uint32_t>(acc >> 59);
-  return submod(sum, shoup_mul(alpha, e.dst(j, 1), e.dst(j, 2), d), d);
-}
-
 // K5: unsigned HPS extension of rows [Ls, B, n] to destination prime p,
 // fused with its forward transform, one block per (b, p), p fastest so that
 // the Ld blocks reading one polynomial's source rows run side by side and
@@ -67,7 +26,9 @@ __device__ __forceinline__ uint32_t ext_coeff(const uint32_t* x, size_t stride,
 // the first pass of the register-resident forward chain (radix_chain.cuh:
 // stage bits log n - 1 .. log n - 4, so lanes read consecutive words of each
 // source row); the last pass leaves the result in shared memory, read out
-// as coalesced uint4 rows.  Every destination block recomputes the y_i and
+// as coalesced uint4 rows.  The conversion is ext_coeff<LS> of
+// modarith.cuh: instances for LS = 2 and 4, and the generic LS = 0.  Every
+// destination block recomputes the y_i and
 // alpha: sharing them would keep (Ls + 1) n words per polynomial on chip
 // (320 KB at n = 2^14, Ls = 4) or send them through device memory.
 template <int LOGN, int LS>

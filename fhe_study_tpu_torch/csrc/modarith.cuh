@@ -1,6 +1,8 @@
 // Device code shared by the RNS kernels: exact arithmetic mod q < 2^31 on
 // 32-bit lanes, the negacyclic NTT stage chains of one polynomial held in
-// shared memory, and the per-coefficient HPS base conversion.
+// shared memory (one stage a barrier: K7, K8, K9 and K12 run them; K1-K6 run
+// the register-resident regrouping of radix_chain.cuh), and the
+// per-coefficient HPS base conversion.
 //
 // Every residue is canonical in [0, q) with q < 2^31 (the package stores
 // them as int32; the kernels read the same bits as uint32_t).  The stage
@@ -20,9 +22,10 @@ constexpr int kMaxSrc = 15;
 constexpr int kMinLogN = 8;
 constexpr int kMaxLogN = 14;
 constexpr int kChainThreads = 512;
-// The fused kernels keep per-thread partial results (one or two words per
-// coefficient a thread owns) in registers across a stage chain, so they run
-// wider blocks: at n = 2^14 a thread owns n / kFusedThreads coefficients.
+// The fused key-switching kernels (K7, K8) keep per-thread partial results
+// (one or two words per coefficient a thread owns) in registers across a
+// stage chain, so they run wider blocks: at n = 2^14 a thread owns
+// n / kFusedThreads coefficients.
 constexpr int kFusedThreads = 1024;
 constexpr int kFusedPer = (1 << kMaxLogN) / kFusedThreads;
 
@@ -69,27 +72,21 @@ __device__ __forceinline__ PrimeRow prime_row(const uint32_t* cons, int p) {
 
 // Forward negacyclic NTT of a[0, 2^logn) in shared memory, in place: stage
 // s has m = 2^s groups of 2t lanes (t = n >> (s+1)); group i multiplies its
-// second half by w[m + i].  With NPOLY > 1 it transforms that many
-// polynomials laid end to end (all modulo the same prime) in one chain, so
-// they share its barriers.  Ends with a barrier.
-template <int NPOLY = 1>
-__device__ inline void forward_chain(uint32_t* a, int logn,
-                                     const uint32_t* w, const uint32_t* wsh,
-                                     uint32_t q) {
+// second half by w[m + i].  Ends with a barrier.
+__device__ inline void forward_chain(uint32_t* a, int logn, const uint32_t* w,
+                                     const uint32_t* wsh, uint32_t q) {
   const int half = 1 << (logn - 1);
   for (int s = 0; s < logn; ++s) {
     const int lt = logn - 1 - s;
     const int t = 1 << lt;
     const int m = 1 << s;
-    for (int kk = threadIdx.x; kk < NPOLY * half; kk += blockDim.x) {
-      const int k = NPOLY == 1 ? kk : kk & (half - 1);
-      uint32_t* poly = NPOLY == 1 ? a : a + ((kk >> (logn - 1)) << logn);
+    for (int k = threadIdx.x; k < half; k += blockDim.x) {
       const int i = k >> lt;
       const int idx = (i << (lt + 1)) | (k & (t - 1));
-      const uint32_t u = poly[idx];
-      const uint32_t v = shoup_mul(poly[idx + t], w[m + i], wsh[m + i], q);
-      poly[idx] = addmod(u, v, q);
-      poly[idx + t] = submod(u, v, q);
+      const uint32_t u = a[idx];
+      const uint32_t v = shoup_mul(a[idx + t], w[m + i], wsh[m + i], q);
+      a[idx] = addmod(u, v, q);
+      a[idx + t] = submod(u, v, q);
     }
     __syncthreads();
   }
@@ -97,9 +94,7 @@ __device__ inline void forward_chain(uint32_t* a, int logn,
 
 // Inverse (Gentleman-Sande) chain without the n^-1 scale: stage s has
 // t = 2^s and m = n >> (s+1) groups; the difference of group i is
-// multiplied by winv[m + i].  NPOLY as in forward_chain.  Ends with a
-// barrier.
-template <int NPOLY = 1>
+// multiplied by winv[m + i].  Ends with a barrier.
 __device__ inline void inverse_chain(uint32_t* a, int logn,
                                      const uint32_t* winv,
                                      const uint32_t* winvsh, uint32_t q) {
@@ -108,16 +103,13 @@ __device__ inline void inverse_chain(uint32_t* a, int logn,
     const int lt = s;
     const int t = 1 << lt;
     const int m = half >> s;
-    for (int kk = threadIdx.x; kk < NPOLY * half; kk += blockDim.x) {
-      const int k = NPOLY == 1 ? kk : kk & (half - 1);
-      uint32_t* poly = NPOLY == 1 ? a : a + ((kk >> (logn - 1)) << logn);
+    for (int k = threadIdx.x; k < half; k += blockDim.x) {
       const int i = k >> lt;
       const int idx = (i << (lt + 1)) | (k & (t - 1));
-      const uint32_t u = poly[idx];
-      const uint32_t v = poly[idx + t];
-      poly[idx] = addmod(u, v, q);
-      poly[idx + t] =
-          shoup_mul(submod(u, v, q), winv[m + i], winvsh[m + i], q);
+      const uint32_t u = a[idx];
+      const uint32_t v = a[idx + t];
+      a[idx] = addmod(u, v, q);
+      a[idx + t] = shoup_mul(submod(u, v, q), winv[m + i], winvsh[m + i], q);
     }
     __syncthreads();
   }
@@ -143,28 +135,8 @@ struct ExtTable {
   }
 };
 
-// First half of the conversion of one coefficient, independent of the
-// destination prime: y_i = x_i * Qhat_i^-1 mod s_i into ys, and
-// alpha = (sum_i y_i * floor(2^59/s_i) [+ 2^58 when centered]) >> 59 —
-// the reference's 2^59 fixed point, bit for bit.
-__device__ __forceinline__ uint32_t ext_lift(const uint32_t* x, size_t stride,
-                                             const ExtTable& e, bool centered,
-                                             uint32_t* ys) {
-  uint64_t acc = centered ? (1ull << 58) : 0ull;
-  for (int i = 0; i < e.ls; ++i) {
-    const uint32_t y =
-        shoup_mul(x[i * stride], e.src(i, 1), e.src(i, 2), e.src(i, 0));
-    ys[i] = y;
-    const uint64_t cfix =
-        static_cast<uint64_t>(e.src(i, 3)) |
-        (static_cast<uint64_t>(e.src(i, 4)) << 32);
-    acc += static_cast<uint64_t>(y) * cfix;
-  }
-  return static_cast<uint32_t>(acc >> 59);
-}
-
-// Second half, for destination prime j: sum_i y_i * (S/s_i) - alpha * S
-// mod d_j.
+// Second half of the conversion, for destination prime j, from the y_i of
+// one coefficient: sum_i y_i * (S/s_i) - alpha * S mod d_j.
 __device__ __forceinline__ uint32_t ext_to(const uint32_t* ys, uint32_t alpha,
                                            int j, const ExtTable& e) {
   const uint32_t d = e.dst(j, 0);
@@ -175,11 +147,59 @@ __device__ __forceinline__ uint32_t ext_to(const uint32_t* ys, uint32_t alpha,
   return submod(acc, shoup_mul(alpha, e.dst(j, 1), e.dst(j, 2), d), d);
 }
 
+// The unsigned conversion of one coefficient (source row i at x[i * stride])
+// to destination prime j: y_i = x_i * Qhat_i^-1 mod s_i, alpha = (sum_i y_i
+// * floor(2^59/s_i)) >> 59 (the reference's 2^59 fixed point, bit for bit),
+// then as ext_to.  With LS > 0 the y_i stay in LS registers (the source
+// count at compile time: no run-time-indexed array, so no local memory); the
+// generic form (LS = 0, any e.ls up to kMaxSrc) keeps no per-thread array:
+// one loop takes each y_i into both sums, and stays a loop (short code where
+// it is inlined many times).  K5 and K6 run it on their way into the
+// forward chain.
+template <int LS>
+__device__ __forceinline__ uint32_t ext_coeff(const uint32_t* x, size_t stride,
+                                              const ExtTable& e, int j) {
+  const uint32_t d = e.dst(j, 0);
+  uint64_t acc = 0;
+  uint32_t sum = 0;
+  if constexpr (LS > 0) {
+    uint32_t ys[LS];
+#pragma unroll
+    for (int i = 0; i < LS; ++i) {
+      ys[i] = shoup_mul(x[i * stride], e.src(i, 1), e.src(i, 2), e.src(i, 0));
+      acc += static_cast<uint64_t>(ys[i]) *
+             (static_cast<uint64_t>(e.src(i, 3)) |
+              (static_cast<uint64_t>(e.src(i, 4)) << 32));
+    }
+#pragma unroll
+    for (int i = 0; i < LS; ++i) {
+      sum = addmod(sum, shoup_mul(ys[i], e.tab(i, j, 0), e.tab(i, j, 1), d), d);
+    }
+  } else {
+#pragma unroll 1
+    for (int i = 0; i < e.ls; ++i) {
+      const uint32_t y =
+          shoup_mul(x[i * stride], e.src(i, 1), e.src(i, 2), e.src(i, 0));
+      acc += static_cast<uint64_t>(y) *
+             (static_cast<uint64_t>(e.src(i, 3)) |
+              (static_cast<uint64_t>(e.src(i, 4)) << 32));
+      sum = addmod(sum, shoup_mul(y, e.tab(i, j, 0), e.tab(i, j, 1), d), d);
+    }
+  }
+  const uint32_t alpha = static_cast<uint32_t>(acc >> 59);
+  return submod(sum, shoup_mul(alpha, e.dst(j, 1), e.dst(j, 2), d), d);
+}
+
 // Threads of a block that runs one stage chain: one a butterfly, at most
 // kChainThreads.
 inline int chain_threads(int logn) {
   const int half = 1 << (logn - 1);
   return half < kChainThreads ? half : kChainThreads;
+}
+
+// p is not on a 16-byte boundary (no uint4 words there).
+inline bool misaligned(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 != 0;
 }
 
 // Opt a kernel into more than 48 KB of dynamic shared memory.

@@ -1,56 +1,50 @@
 // Hopper kernels of the negacyclic transforms on the RNS-BFV main path.
 //
-// Each kernel replaces one Pallas kernel of fhe_study_tpu/ops/ntt_pallas.py
-// (K1, fhe_ntt_multi <- ntt_multi_u32, lives in csrc/ntt_multi_cuda.cu and
-// K5, fhe_ext_ntt <- ext_ntt_u32, in csrc/ext_ntt_cuda.cu: each in its own
-// translation unit, so that their unrolled instances compile in parallel):
+// Each kernel replaces one Pallas kernel of fhe_study_tpu/ops/ntt_pallas.py.
+// Five live in translation units of their own, so that their unrolled
+// instances compile in parallel: K1 fhe_ntt_multi <- ntt_multi_u32
+// (csrc/ntt_multi_cuda.cu), K3 fhe_ks_contract <- ks_contract_u32
+// (csrc/ks_contract_cuda.cu), K5 fhe_ext_ntt <- ext_ntt_u32
+// (csrc/ext_ntt_cuda.cu) and K6 fhe_tensor_mul4 <- tensor_mul4_u32 and
+// tensor_mul_u32 (csrc/tensor_mul4_cuda.cu).  Here:
 //   fhe_tensor_eval4   <- tensor_eval4_u32  (_tensor_eval_kernel)
-//   fhe_ks_contract    <- ks_contract_u32   (_ks_kernel_multi, fwd=False)
-//   fhe_tensor_mul4    <- tensor_mul4_u32   (_tensor4_kernel), and through
-//                         operand strides tensor_mul_u32 (_tensor_kernel_multi)
 //   fhe_ks_fused       <- ks_fused_u32      (_ks_kernel_multi, fwd=True)
 //   fhe_ks_fused_eval  <- ks_fused_eval_u32 (_ks_eval_kernel)
 //   fhe_ntt            <- ntt_u32           (_ntt_kernel): one scalar prime,
 //                         a flat batch, 64-bit words in and out
 //
-// Layout of fhe_ks_contract and fhe_ntt: one thread block per (prime,
-// polynomial), and per key half where a kernel emits two, holds its whole
-// length-n polynomial (n = 2^8 .. 2^14, at most 64 KB) in dynamic shared
-// memory and runs all log n butterfly stages there
-// (modarith.cuh::forward_chain / inverse_chain), so device memory sees one
-// read of the operands and one write of the result.  Twiddles come from
-// per-prime [L, n] bit-reversed tables with Shoup companions (no per-stage
-// tables: the TPU needed those only to avoid gathers under its (8, 128)
-// tiling).  What bounds them: at n = 2^14 a block moves 128 KB through device
-// memory but does 14 * 8192 butterflies, each two shared-memory loads and
-// stores, two twiddle loads and 13 integer instructions, and a barrier a
-// stage; on the H100 such a chain reaches a third of the butterfly's issue
-// rate (K12 measures it), and K3 17-19% of its issue bound.
-//
-// fhe_tensor_eval4 (K2), like K1 and K5, runs the register-resident chain
-// of radix_chain.cuh instead: four stages a pass on 16 words a thread in
+// fhe_tensor_eval4 (K2), like K1, K3, K5 and K6, runs the register-resident
+// chain of radix_chain.cuh: four stages a pass on 16 words a thread in
 // registers, ceil(log n / 4) - 1 exchanges through swizzled shared memory
-// (3 barriers at n = 2^14 where the chain above takes 14), the twiddles of a
-// pass in vector loads, its products straight into the registers of the
+// (3 barriers at n = 2^14 where the one-stage chain takes 14), the twiddles
+// of a pass in vector loads, its products straight into the registers of the
 // first pass.  One block of at most 256 threads per polynomial, each thread
 // playing up to 4 virtual threads, 3 blocks an SM at n = 2^14.  K2 and K5
 // read 41-50% of their issue bound on an H100 80GB HBM3 at 700 W (PERF.md);
 // what is left is the instructions beyond the counted butterflies
 // (shared-memory words and their addresses, twiddle loads) and the latency
-// around the barriers.  K3 and K6-K8 are the next to move onto that chain.
+// around the barriers.
 //
-// fhe_tensor_mul4, fhe_ks_fused and fhe_ks_fused_eval start from
-// coefficient-domain operands and run forward chains, pointwise products and
-// inverse chains in one launch, one block per (prime, polynomial), with
-// every evaluation-domain value on chip.  A block
-// cannot hold all of its polynomials in shared memory at once (64 KB each at
-// n = 2^14 against 227 KB), so each thread keeps the running products of the
-// coefficients it owns in registers (at most kFusedPer words per array)
-// while shared memory is reused for the next forward chain.  They do the
-// fewest transforms the function needs (7 for the tensor, R + 2 and R + 4 for
-// the key switches) and stay bound by the chains' shared-memory traffic and
-// barriers like the others; one block per SM is resident (192 KB of shared
-// memory, or the register arrays of 1024 threads).
+// fhe_ntt (K9), fhe_ks_fused (K7) and fhe_ks_fused_eval (K8) run the
+// one-stage chains of modarith.cuh (forward_chain / inverse_chain): a block
+// holds its whole length-n polynomial (n = 2^8 .. 2^14, at most 64 KB) in
+// dynamic shared memory and runs all log n butterfly stages there, a barrier
+// a stage, so device memory sees one read of the operands and one write of
+// the result.  Twiddles come from per-prime [L, n] bit-reversed tables with
+// Shoup companions (no per-stage tables: the TPU needed those only to avoid
+// gathers under its (8, 128) tiling).  What bounds them: each butterfly's two
+// shared-memory loads and stores, two twiddle loads and 13 integer
+// instructions, and a barrier a stage; on the H100 such a chain reaches a
+// third of the butterfly's issue rate (K12 measures it).
+//
+// K7 and K8 start from limb residues and run R forward chains, the key
+// contraction and the inverse chains in one launch, one block per (prime,
+// polynomial).  A block cannot hold all of its polynomials in shared memory
+// at once (64 KB each at n = 2^14 against 227 KB), so each thread keeps the
+// running sums of the coefficients it owns in registers (at most kFusedPer
+// words per array) while shared memory is reused for the next forward chain;
+// 1024 threads a block, one block an SM.  They are the next to move onto the
+// register-resident chain.
 //
 // Every entry point launches on the given stream and returns
 // cudaGetLastError(); a refused launch never runs, so the caller raises.
@@ -95,12 +89,6 @@ __global__ void ntt_kernel(const long long* __restrict__ x,
     out[row + i] = static_cast<long long>(v);
   }
 }
-
-// Operand rows may be strided views: row (p, b) of operand o starts at
-// p * l[o] + b * b[o] words.
-struct Strides {
-  long long l[4], b[4];
-};
 
 // K2: product k of the degree-2 tensor of eval-domain operands, one block
 // per (p, b, k), k fastest so that the three blocks reading one row pair run
@@ -179,134 +167,12 @@ tensor_eval4_kernel(const uint32_t* __restrict__ x0,
   }
 }
 
-// K3: key-switch contraction on hoisted digits, one block per (b, p, half):
-// sum_r edm[r, p, b] * key[r, p] as Montgomery products (digits arrive
-// lifted by 2^32, so each product is the plain d * k), then the inverse
-// chain and n^-1.  Output [2, Lp, B, n]: half 0 from kb, half 1 from ka.
-__global__ void ks_contract_kernel(const uint32_t* __restrict__ edm,
-                                   const uint32_t* __restrict__ kb,
-                                   const uint32_t* __restrict__ ka,
-                                   uint32_t* __restrict__ out,
-                                   const uint32_t* __restrict__ twinv,
-                                   const uint32_t* __restrict__ twinv_sh,
-                                   const uint32_t* __restrict__ cons, int R,
-                                   int Lp, int B, int logn) {
-  extern __shared__ uint32_t a[];
-  const int n = 1 << logn;
-  const int b = blockIdx.x;
-  const int p = blockIdx.y;
-  const int h = blockIdx.z;
-  const PrimeRow c = prime_row(cons, p);
-  const uint32_t* key = h == 0 ? kb : ka;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    uint32_t acc = 0;
-    for (int r = 0; r < R; ++r) {
-      const size_t d = ((static_cast<size_t>(r) * Lp + p) * B + b) * n + i;
-      const size_t kk = (static_cast<size_t>(r) * Lp + p) * n + i;
-      acc = addmod(acc, mont_mul(edm[d], key[kk], c.q, c.nq), c.q);
-    }
-    a[i] = acc;
-  }
-  __syncthreads();
-  inverse_chain(a, logn, twinv + static_cast<size_t>(p) * n,
-                twinv_sh + static_cast<size_t>(p) * n, c.q);
-  const size_t orow = ((static_cast<size_t>(h) * Lp + p) * B + b) * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    out[orow + i] = shoup_mul(a[i], c.fin, c.fin_sh, c.q);
-  }
-}
-
 // The coefficients thread t owns for the pointwise passes of the fused
 // kernels: i = t + j * blockDim.x for j < n / blockDim.x <= kFusedPer.  The
 // loops over j are fully unrolled so the per-thread arrays stay in registers.
 #define FHE_OWNED(j, i, n)                                          \
   _Pragma("unroll") for (int j = 0; j < kFusedPer; ++j)             \
     for (int i = threadIdx.x + j * blockDim.x; i < (n); i = (n))
-
-// Row (p, b) of an operand into shared memory; with a source basis (e.ls > 0)
-// the operand holds e.ls source rows and the unsigned HPS conversion to
-// destination prime p runs on the way in (as in K5).
-__device__ __forceinline__ void load_operand(uint32_t* dst,
-                                             const uint32_t* x, long long sl,
-                                             int p, int n,
-                                             const ExtTable& e) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    if (e.ls == 0) {
-      dst[i] = x[p * sl + i];
-    } else {
-      uint32_t ys[kMaxSrc];
-      const uint32_t alpha =
-          ext_lift(x + i, static_cast<size_t>(sl), e, false, ys);
-      dst[i] = ext_to(ys, alpha, p, e);
-    }
-  }
-}
-
-// K6: the degree-2 tensor of four coefficient-domain operands, one block per
-// (b, p): forward chains of x0, y0, y1 side by side in three shared-memory
-// buffers, x0*y0 and x0*y1 into registers, the forward chain of x1 in the
-// freed first buffer, then (x0*y0, x0*y1 + x1*y0, x1*y1) back into the three
-// buffers, their inverse chains side by side and the final multiply by
-// n^-1 * 2^32 * scale (the products are Montgomery products of plain
-// residues, a factor 2^-32 each).  Operand rows may be strided views (row
-// (p, b) at p * sl + b * sb), which is how the stacked form [L, B, 4, n] of
-// tensor_mul_u32 comes in.
-__global__ void __launch_bounds__(kFusedThreads)
-tensor_mul4_kernel(const uint32_t* __restrict__ x0,
-                   const uint32_t* __restrict__ x1,
-                   const uint32_t* __restrict__ y0,
-                   const uint32_t* __restrict__ y1, Strides st,
-                   uint32_t* __restrict__ out,
-                   const uint32_t* __restrict__ ext,
-                   const uint32_t* __restrict__ tw,
-                   const uint32_t* __restrict__ tw_sh,
-                   const uint32_t* __restrict__ twinv,
-                   const uint32_t* __restrict__ twinv_sh,
-                   const uint32_t* __restrict__ cons, int Ls, int Ld, int B,
-                   int logn) {
-  extern __shared__ uint32_t a[];
-  const int n = 1 << logn;
-  const int b = blockIdx.x;
-  const int p = blockIdx.y;
-  const PrimeRow c = prime_row(cons, p);
-  const ExtTable e{ext, Ls, Ld};
-  const uint32_t* w = tw + static_cast<size_t>(p) * n;
-  const uint32_t* wsh = tw_sh + static_cast<size_t>(p) * n;
-  uint32_t* s0 = a;
-  uint32_t* s1 = a + n;
-  uint32_t* s2 = a + 2 * n;
-  load_operand(s0, x0 + b * st.b[0], st.l[0], p, n, e);
-  load_operand(s1, y0 + b * st.b[2], st.l[2], p, n, e);
-  load_operand(s2, y1 + b * st.b[3], st.l[3], p, n, e);
-  __syncthreads();
-  forward_chain<3>(a, logn, w, wsh, c.q);
-  uint32_t p0[kFusedPer], p1[kFusedPer];
-  FHE_OWNED(j, i, n) {
-    const uint32_t v = s0[i];
-    p0[j] = mont_mul(v, s1[i], c.q, c.nq);
-    p1[j] = mont_mul(v, s2[i], c.q, c.nq);
-  }
-  __syncthreads();
-  load_operand(s0, x1 + b * st.b[1], st.l[1], p, n, e);
-  __syncthreads();
-  forward_chain(s0, logn, w, wsh, c.q);
-  FHE_OWNED(j, i, n) {
-    const uint32_t v = s0[i];
-    const uint32_t mid =
-        addmod(p1[j], mont_mul(v, s1[i], c.q, c.nq), c.q);
-    const uint32_t hi = mont_mul(v, s2[i], c.q, c.nq);
-    s0[i] = p0[j];
-    s1[i] = mid;
-    s2[i] = hi;
-  }
-  __syncthreads();
-  inverse_chain<3>(a, logn, twinv + static_cast<size_t>(p) * n,
-                   twinv_sh + static_cast<size_t>(p) * n, c.q);
-  const size_t orow = (static_cast<size_t>(p) * B + b) * 3 * n;
-  for (int i = threadIdx.x; i < 3 * n; i += blockDim.x) {
-    out[orow + i] = shoup_mul(a[i], c.fin, c.fin_sh, c.q);
-  }
-}
 
 // The gadget contraction shared by K7 and K8, for one (b, p): digit row r is
 // limb r of the ciphertext reduced mod this prime by `reps` conditional
@@ -491,44 +357,6 @@ extern "C" int fhe_tensor_eval4(const uint32_t* x0, const uint32_t* x1,
                                     static_cast<int>(blocks), stream, x0, x1,
                                     y0, y1, st, out, twinv, twinv_sh, cons, B,
                                     static_cast<int>(vec));
-}
-
-extern "C" int fhe_ks_contract(const uint32_t* edm, const uint32_t* kb,
-                               const uint32_t* ka, uint32_t* out,
-                               const uint32_t* twinv,
-                               const uint32_t* twinv_sh, const uint32_t* cons,
-                               int R, int Lp, int B, int logn,
-                               cudaStream_t stream) {
-  if (bad_logn(logn)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(uint32_t) << logn;
-  cudaError_t err = allow_smem(ks_contract_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ks_contract_kernel<<<dim3(B, Lp, 2), chain_threads(logn), smem, stream>>>(
-      edm, kb, ka, out, twinv, twinv_sh, cons, R, Lp, B, logn);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int fhe_tensor_mul4(const uint32_t* x0, const uint32_t* x1,
-                               const uint32_t* y0, const uint32_t* y1,
-                               long long sl0, long long sb0, long long sl1,
-                               long long sb1, long long sl2, long long sb2,
-                               long long sl3, long long sb3, uint32_t* out,
-                               const uint32_t* ext, const uint32_t* tw,
-                               const uint32_t* tw_sh, const uint32_t* twinv,
-                               const uint32_t* twinv_sh, const uint32_t* cons,
-                               int Ls, int Ld, int B, int logn,
-                               cudaStream_t stream) {
-  if (bad_logn(logn) || Ls < 0 || Ls > kMaxSrc) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t smem = 3 * sizeof(uint32_t) << logn;
-  cudaError_t err = allow_smem(tensor_mul4_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const Strides st{{sl0, sl1, sl2, sl3}, {sb0, sb1, sb2, sb3}};
-  tensor_mul4_kernel<<<dim3(B, Ld), fused_threads(logn), smem, stream>>>(
-      x0, x1, y0, y1, st, out, ext, tw, tw_sh, twinv, twinv_sh, cons, Ls, Ld,
-      B, logn);
-  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int fhe_ks_fused(const uint32_t* c, long long sl, long long sb,

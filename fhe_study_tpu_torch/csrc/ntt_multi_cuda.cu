@@ -117,10 +117,6 @@ struct NttMultiLaunch {
   }
 };
 
-bool misaligned(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 != 0;
-}
-
 }  // namespace
 }  // namespace fhe
 

@@ -2,9 +2,11 @@
 // (Cooley-Tukey) and inverse (Gentleman-Sande, without n^-1) chains of
 // modarith.cuh, regrouped so that a thread runs kRadixBits stages on
 // kRadix = 16 coefficients held in registers between two exchanges through
-// shared memory.  K1 (ntt_multi, csrc/ntt_multi_cuda.cu), K2 (tensor_eval4)
-// and K5 (ext_ntt) run them; the one-stage-a-barrier chains of modarith.cuh
-// stay for K3, K6-K9 and K12.
+// shared memory.  K1 (ntt_multi, csrc/ntt_multi_cuda.cu), K2 (tensor_eval4,
+// csrc/ntt_cuda.cu), K3 (ks_contract, csrc/ks_contract_cuda.cu), K5
+// (ext_ntt, csrc/ext_ntt_cuda.cu) and K6 (tensor_mul4 and tensor_mul,
+// csrc/tensor_mul4_cuda.cu) run them; the one-stage-a-barrier chains of
+// modarith.cuh stay for K7-K9 and K12.
 //
 // Element a of the polynomial has log n bits.  A pass holds bits
 // [c, c + 4) of a in registers: virtual thread v owns the 16 elements
@@ -16,7 +18,9 @@
 // at c = 0 over the bits left), the inverse chain from 0 up (c = 0, 4, ...,
 // the last at c = log n - 4 over the bits left), so every log n from 8 to 14
 // takes ceil(log n / 4) passes and ceil(log n / 4) - 1 exchanges, against the
-// log n barriers of the one-stage chain.
+// log n barriers of the one-stage chain.  The forward chain's last pass and
+// the inverse chain's first both hold bits 0..3, so a virtual thread owns the
+// same 16 elements in the two (K6 forms its products there, in registers).
 //
 // Twiddles: stage bit j of either chain multiplies by w[(n >> (j + 1)) +
 // (a >> (j + 1))] of the bit-reversed [L, n] table (roots or inverse roots,
@@ -45,7 +49,9 @@ constexpr int kRadix = 1 << kRadixBits;
 // threads) virtual threads one after the other (4 at n = 2^14), so that only
 // 16 coefficients are live in its registers at a time; kRadixBlocks such
 // blocks fit an SM (3 x 64 KB of shared memory at n = 2^14, and up to 85
-// registers a thread, which K5's conversion needs beside its 16 words).
+// registers a thread, which K5's conversion needs beside its 16 words).  A
+// kernel that holds more polynomials on chip (K6: three buffers, 192 KB at
+// n = 2^14, one block an SM) names its own thread count in RadixShape.
 constexpr int kRadixThreads = 256;
 constexpr int kRadixBlocks = 3;
 
@@ -57,13 +63,14 @@ __host__ __device__ constexpr int radix_max(int a, int b) {
   return a > b ? a : b;
 }
 
-// The pass structure at n = 2^LOGN (mirrored by ops/ntt_cuda.py::_radix_plan).
-template <int LOGN>
+// The pass structure at n = 2^LOGN on blocks of at most THREADS threads
+// (mirrored by ops/ntt_cuda.py::_radix_plan).
+template <int LOGN, int THREADS = kRadixThreads>
 struct RadixShape {
   static constexpr int n = 1 << LOGN;
   static constexpr int passes = (LOGN + kRadixBits - 1) / kRadixBits;
   static constexpr int vthreads = n >> kRadixBits;
-  static constexpr int threads = radix_min(vthreads, kRadixThreads);
+  static constexpr int threads = radix_min(vthreads, THREADS);
   static constexpr int groups = vthreads / threads;
   // forward pass p: register bits [c, c + 4), stages u = uhi, ..., 0
   __host__ __device__ static constexpr int fwd_c(int p) {
@@ -200,26 +207,49 @@ __device__ __forceinline__ void radix_pass(uint32_t (&x)[kRadix], int base,
 }
 
 // Passes P .. END - 1, each from shared memory through registers back to
-// shared memory, each ending with a barrier.
-template <int LOGN, int P, int END, bool INV>
+// shared memory, each ending with a barrier; with NB > 1 on NB polynomials
+// under the same prime, buffer i at a + i * n, one after another inside each
+// pass (a run-time loop: one copy of the pass's code, which measured faster
+// on K6 than the three side by side with shared twiddle loads).
+template <int LOGN, int P, int END, bool INV, int THREADS = kRadixThreads,
+          int NB = 1>
 struct RadixPasses {
   __device__ __forceinline__ static void run(uint32_t* a, const uint32_t* w,
                                              const uint32_t* wsh, uint32_t q) {
     if constexpr (P < END) {
-      using S = RadixShape<LOGN>;
+      using S = RadixShape<LOGN, THREADS>;
       constexpr int c = INV ? S::inv_c(P) : S::fwd_c(P);
 #pragma unroll 1
       for (int g = 0; g < S::groups; ++g) {
         const int base = radix_base(threadIdx.x + g * S::threads, c);
-        uint32_t x[kRadix];
-        radix_load<c>(x, a, base);
-        radix_pass<LOGN, P, INV>(x, base, w, wsh, q);
-        radix_store<c>(a, x, base);
+#pragma unroll 1
+        for (int i = 0; i < NB; ++i) {
+          uint32_t x[kRadix];
+          radix_load<c>(x, a + i * S::n, base);
+          radix_pass<LOGN, P, INV>(x, base, w, wsh, q);
+          radix_store<c>(a + i * S::n, x, base);
+        }
       }
       __syncthreads();
-      RadixPasses<LOGN, P + 1, END, INV>::run(a, w, wsh, q);
+      RadixPasses<LOGN, P + 1, END, INV, THREADS, NB>::run(a, w, wsh, q);
     }
   }
+};
+
+// p as a value the compiler cannot see through: loads through the result
+// are neither merged with loads made before this point nor moved above it,
+// so one phase's device-memory words and twiddles stay out of the registers
+// of the phase before.
+template <typename T>
+__device__ __forceinline__ T* radix_opaque(T* p) {
+  asm volatile("" : "+l"(p));
+  return p;
+}
+
+// Operand rows may be strided views: row (p, b) of operand o starts at
+// p * l[o] + b * b[o] words.
+struct Strides {
+  long long l[4], b[4];
 };
 
 // Four consecutive operand words at p: one uint4 load when p is 16-byte
@@ -235,14 +265,17 @@ __device__ __forceinline__ void operand_words(uint32_t (&d)[4],
   }
 }
 
-// Launch of a radix-chain kernel at n = 2^LOGN: the host's plan
+// Launch of a radix-chain kernel at n = 2^LOGN on blocks of at most THREADS
+// threads holding NBUF polynomials in shared memory: the host's plan
 // (ops/ntt_cuda.py::_radix_plan) hands in the block size and shared-memory
 // bytes, which must be this build's.
-template <int LOGN, typename Kernel, typename... Args>
+template <int LOGN, int THREADS = kRadixThreads, int NBUF = 1,
+          typename Kernel, typename... Args>
 int radix_launch(Kernel kernel, int threads, int smem, int blocks,
                  cudaStream_t stream, Args... args) {
-  using S = RadixShape<LOGN>;
-  if (threads != S::threads || smem != S::n * static_cast<int>(sizeof(uint32_t))) {
+  using S = RadixShape<LOGN, THREADS>;
+  if (threads != S::threads ||
+      smem != NBUF * S::n * static_cast<int>(sizeof(uint32_t))) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
   cudaError_t err = allow_smem(kernel, smem);

@@ -1,0 +1,220 @@
+// K6 tensor_mul4: the kernel template, shared by the two translation units
+// that instantiate it (csrc/tensor_mul4_cuda.cu: the entry point and the
+// instances without a source basis and from 4 source primes, the BFV P
+// basis; csrc/tensor_mul4_generic_cuda.cu: the generic source count), so
+// that their instances compile in parallel.  tensor_mul4_cuda.cu's header
+// describes the kernel.
+#pragma once
+
+#include <cstdint>
+
+#include "modarith.cuh"
+#include "radix_chain.cuh"
+
+namespace fhe {
+namespace {
+
+constexpr int kMul4Threads = 512;
+constexpr int kMul4Buffers = 3;
+// LS of the instance whose operands are over the destination basis already;
+// LS = 4 (the BFV P basis from Q) and the generic LS = 0 convert.
+constexpr int kNoSrc = -1;
+
+// Word i of an operand row under destination prime p: the word itself, or
+// its conversion from the source rows, sl words apart.
+template <int LS>
+__device__ __forceinline__ uint32_t mul4_word(const uint32_t* row,
+                                              long long sl, int i,
+                                              const ExtTable& e, int p) {
+  if constexpr (LS == kNoSrc) {
+    return __ldg(row + i);
+  } else {
+    return ext_coeff<LS>(row + i, static_cast<size_t>(sl), e, p);
+  }
+}
+
+// Word J = 0 .. 15 of the virtual thread whose pass holds bits [C, C + 4)
+// from sb = swizzle(base), as f(J) computes it, stored as it comes (no
+// register array).
+template <int C, int J = 0, typename F>
+__device__ __forceinline__ void store_each(uint32_t* a, int sb, F f) {
+  if constexpr (J < kRadix) {
+    a[radix_word<C, J>(sb)] = f(J);
+    store_each<C, J + 1>(a, sb, f);
+  }
+}
+
+template <int LOGN, int LS>
+__global__ void __launch_bounds__(kMul4Threads, 1)
+tensor_mul4_kernel(const uint32_t* __restrict__ x0,
+                   const uint32_t* __restrict__ x1,
+                   const uint32_t* __restrict__ y0,
+                   const uint32_t* __restrict__ y1, Strides st,
+                   uint32_t* __restrict__ out,
+                   const uint32_t* __restrict__ ext,
+                   const uint32_t* __restrict__ tw,
+                   const uint32_t* __restrict__ tw_sh,
+                   const uint32_t* __restrict__ twinv,
+                   const uint32_t* __restrict__ twinv_sh,
+                   const uint32_t* __restrict__ cons, int Ls, int Ld, int B) {
+  using S = RadixShape<LOGN, kMul4Threads>;
+  constexpr int n = S::n;
+  constexpr int last = S::passes - 1;
+  constexpr int c0 = S::fwd_c(0);
+  constexpr int cl = S::inv_c(last);
+  extern __shared__ uint32_t a[];            // buffers 0, 1, 2 at a + k * n
+  uint32_t* const a2 = a + 2 * n;
+  const int p = blockIdx.x % Ld;
+  const int b = blockIdx.x / Ld;
+  const uint32_t q = cons[4 * p], nq = cons[4 * p + 1];
+  const uint32_t* w = tw + static_cast<size_t>(p) * n;
+  const uint32_t* wsh = tw_sh + static_cast<size_t>(p) * n;
+  // row p of each operand, or its source rows from row 0
+  const long long row = LS == kNoSrc ? p : 0;
+  // 1-2. the forward chains: k = 0, 1, 2, 3 -> y0, y1, x0, x1.  The
+  // pointers each iteration reads through are made opaque in it, so that no
+  // twiddle or table word is hoisted out of the loop (it would hold a
+  // register across all four chains).
+  uint32_t x0e[S::groups][kRadix];
+#pragma unroll 1
+  for (int k = 0; k < 4; ++k) {
+    // operand k's rows and their stride (selects: no run-time index into
+    // the parameters)
+    const long long sl = k == 0 ? st.l[2] : (k == 1 ? st.l[3] :
+                                             (k == 2 ? st.l[0] : st.l[1]));
+    const long long sb = k == 0 ? st.b[2] : (k == 1 ? st.b[3] :
+                                             (k == 2 ? st.b[0] : st.b[1]));
+    const uint32_t* src =
+        (k == 0 ? y0 : (k == 1 ? y1 : (k == 2 ? x0 : x1))) + row * sl + b * sb;
+    uint32_t* buf = a + (k < 2 ? k : 2) * n;
+    const uint32_t* wk = radix_opaque(w);
+    const uint32_t* wshk = radix_opaque(wsh);
+    const ExtTable e{radix_opaque(ext), LS > 0 ? LS : Ls, Ld};
+    if (k == 3) {                       // x0 leaves buffer 2 for registers
+#pragma unroll
+      for (int g = 0; g < S::groups; ++g) {
+        radix_load<0>(x0e[g], a2, (threadIdx.x + g * S::threads)
+                                      << kRadixBits);
+      }
+      __syncthreads();
+    }
+    if constexpr (LS == 0) {
+      // the generic conversion is a loop a word: each word goes to shared
+      // memory as it is converted and pass 0 runs from there, so that the
+      // loops never sit beside a pass's 16 words in registers
+#pragma unroll 1
+      for (int g = 0; g < S::groups; ++g) {
+        const int base = threadIdx.x + g * S::threads;  // radix_base(v, c0)
+        store_each<c0>(buf, radix_swizzle(base), [&](int j) {
+          return ext_coeff<0>(src + base + (j << c0), sl, e, p);
+        });
+      }
+      __syncthreads();
+      RadixPasses<LOGN, 0, last, false, kMul4Threads>::run(buf, wk, wshk, q);
+    } else {
+#pragma unroll 1
+      for (int g = 0; g < S::groups; ++g) {
+        const int base = threadIdx.x + g * S::threads;  // radix_base(v, c0)
+        uint32_t r[kRadix];
+#pragma unroll
+        for (int j = 0; j < kRadix; ++j) {
+          r[j] = mul4_word<LS>(src, sl, base + (j << c0), e, p);
+        }
+        radix_pass<LOGN, 0, false>(r, base, radix_opaque(wk),
+                                   radix_opaque(wshk), q);
+        radix_store<c0>(buf, r, base);
+      }
+      __syncthreads();
+      RadixPasses<LOGN, 1, last, false, kMul4Threads>::run(buf, wk, wshk, q);
+    }
+    if (k < 3) {
+#pragma unroll 1
+      for (int g = 0; g < S::groups; ++g) {
+        const int base = (threadIdx.x + g * S::threads) << kRadixBits;
+        uint32_t r[kRadix];
+        radix_load<0>(r, buf, base);
+        radix_pass<LOGN, last, false>(r, base, wk, wshk, q);
+        radix_store<0>(buf, r, base);
+      }
+      __syncthreads();
+    }
+  }
+  // 3. x1's last pass; the products one at a time, each through the first
+  // inverse pass (the group loop is unrolled: x0e stays in registers).  The
+  // inverse chain's pointers are formed only now, out of the loop's
+  // registers.
+  const uint32_t* w3 = radix_opaque(w);
+  const uint32_t* wsh3 = radix_opaque(wsh);
+  const uint32_t* wi = radix_opaque(twinv) + static_cast<size_t>(p) * n;
+  const uint32_t* wish = radix_opaque(twinv_sh) + static_cast<size_t>(p) * n;
+#pragma unroll
+  for (int g = 0; g < S::groups; ++g) {
+    const int base = (threadIdx.x + g * S::threads) << kRadixBits;
+    uint32_t x[kRadix];
+    radix_load<0>(x, a2, base);
+    radix_pass<LOGN, last, false>(x, base, w3, wsh3, q);
+#pragma unroll 1
+    for (int k = 2; k >= 0; --k) {      // x1 y1, x0 y1 + x1 y0, x0 y0
+      uint32_t u[kRadix], pr[kRadix];
+      radix_load<0>(u, k == 0 ? a : a + n, base);
+#pragma unroll
+      for (int j = 0; j < kRadix; ++j) {
+        pr[j] = mont_mul(k == 2 ? x[j] : x0e[g][j], u[j], q, nq);
+      }
+      if (k == 1) {
+        radix_load<0>(u, a, base);
+#pragma unroll
+        for (int j = 0; j < kRadix; ++j) {
+          pr[j] = addmod(pr[j], mont_mul(x[j], u[j], q, nq), q);
+        }
+      }
+      radix_pass<LOGN, 0, true>(pr, base, wi, wish, q);
+      radix_store<0>(a + k * n, pr, base);
+    }
+  }
+  __syncthreads();
+  // 4. the rest of the three inverse chains
+  wi = radix_opaque(wi);
+  wish = radix_opaque(wish);
+  RadixPasses<LOGN, 1, last, true, kMul4Threads, 3>::run(a, wi, wish, q);
+  const uint32_t fin = cons[4 * p + 2], fin_sh = cons[4 * p + 3];
+  uint32_t* out3 = out + (static_cast<size_t>(p) * B + b) * 3 * n;
+#pragma unroll 1
+  for (int g = 0; g < S::groups; ++g) {
+    const int base = radix_base(threadIdx.x + g * S::threads, cl);
+#pragma unroll 1
+    for (int k = 0; k < 3; ++k) {
+      uint32_t r[kRadix];
+      radix_load<cl>(r, a + k * n, base);
+      radix_pass<LOGN, last, true>(r, base, wi, wish, q);
+#pragma unroll
+      for (int j = 0; j < kRadix; ++j) {
+        out3[k * n + base + (j << cl)] =
+            shoup_mul(r[j], fin, fin_sh, q);
+      }
+    }
+  }
+}
+
+template <int LS>
+struct TensorMul4Launch {
+  template <int LOGN, typename... Args>
+  static int run(Args... args) {
+    return radix_launch<LOGN, kMul4Threads, kMul4Buffers>(
+        tensor_mul4_kernel<LOGN, LS>, args...);
+  }
+};
+
+}  // namespace
+
+// The generic instances' launch (csrc/tensor_mul4_generic_cuda.cu).
+int tensor_mul4_generic(int logn, int threads, int smem, int blocks,
+                        cudaStream_t stream, const uint32_t* x0,
+                        const uint32_t* x1, const uint32_t* y0,
+                        const uint32_t* y1, Strides st, uint32_t* out,
+                        const uint32_t* ext, const uint32_t* tw,
+                        const uint32_t* tw_sh, const uint32_t* twinv,
+                        const uint32_t* twinv_sh, const uint32_t* cons,
+                        int Ls, int Ld, int B);
+
+}  // namespace fhe

@@ -1,0 +1,91 @@
+// K6: the Hopper kernel of the degree-2 tensor of coefficient-domain
+// ciphertexts,
+//   fhe_tensor_mul4 <- fhe_study_tpu/ops/ntt_pallas.py::tensor_mul4_u32
+//                      (_tensor4_kernel), and through operand strides
+//                      tensor_mul_u32 (_tensor_kernel_multi)
+// (x0 y0, x0 y1 + x1 y0, x1 y1) = INTT(NTT(x_i) * NTT(y_j)) times scale,
+// with the optional unsigned HPS conversion src -> dst of every operand on
+// its way in (the BFV tensor over P from ciphertexts over Q).
+//
+// Layout: one block per (dst prime, polynomial), the prime fastest so that
+// the blocks converting one polynomial's source rows run side by side and
+// share them in L2.  Seven transforms on the register-resident chain of
+// radix_chain.cuh in one launch, with every evaluation-domain value on chip.
+// Four operands each enter two products, so three n-word buffers must be
+// live (192 KB at n = 2^14: one block an SM); the block runs 512 threads,
+// two virtual threads each at n = 2^14, with up to 128 registers a thread.
+//   1. the forward chains of y0, y1 and x0 into buffers 0, 1, 2, and of x1
+//      into buffer 2 but for its last pass, one operand after another in a
+//      run-time loop (one copy of the chain's code); the first pass reads
+//      the operand row (strided views allowed) with lanes on consecutive
+//      words, converting each word with ext_coeff<LS> when there is a
+//      source basis;
+//   2. before x1 enters buffer 2, each thread takes its own 16 words a
+//      virtual thread of x0's transform into registers;
+//   3. x1's last pass holds bits 0..3, as the inverse chain's first pass
+//      does, so a thread owns the same 16 elements in both: it forms x1 y1,
+//      x0 y1 + x1 y0 and x0 y0 one after another as Montgomery products (a
+//      factor 2^-32 each) from its registers and its own words of buffers 0
+//      and 1, runs the first inverse pass on each in registers and stores it
+//      into buffer 2, 1 or 0 at the same words (no other thread touches them
+//      in that pass): the products need no exchange through shared memory;
+//   4. the remaining inverse passes on the three buffers, the last times
+//      n^-1 * 2^32 * scale, stored with lanes on consecutive words of the
+//      [Ld, B, 3, n] output.
+// Carrying x0 (16 words a virtual thread) rather than x0 y0 and x0 y1 (32)
+// across x1's chain does the same four products in half the registers.  The
+// code is kept short on purpose: on an H100 the same schedule with the three
+// chains side by side in registers (sharing each twiddle load, but with
+// much longer code) ran slower and took minutes to build (PERF.md).
+// What bounds it: 7 words a coefficient through device memory (more with a
+// source basis) against 7 log n / 2 butterflies of 13 instructions and the
+// products: the issue rate.  With one block an SM no other block hides its
+// barriers.
+//
+// The kernel template is in csrc/tensor_mul4.cuh; this unit instantiates it
+// without a source basis and from 4 source primes, csrc/
+// tensor_mul4_generic_cuda.cu for the other source counts (so that the two
+// halves of the 21 instances compile in parallel).  The entry launches on
+// the given stream and returns cudaGetLastError(); a refused launch never
+// runs, so the caller raises.
+
+#include <climits>
+#include <cstdint>
+
+#include "tensor_mul4.cuh"
+
+using namespace fhe;
+
+// Ls = 0: the operands are [Ld, B, n] rows over dst; Ls = 1 .. 15: [Ls, B, n]
+// rows over src, converted on the way in.
+extern "C" int fhe_tensor_mul4(const uint32_t* x0, const uint32_t* x1,
+                               const uint32_t* y0, const uint32_t* y1,
+                               long long sl0, long long sb0, long long sl1,
+                               long long sb1, long long sl2, long long sb2,
+                               long long sl3, long long sb3, uint32_t* out,
+                               const uint32_t* ext, const uint32_t* tw,
+                               const uint32_t* tw_sh, const uint32_t* twinv,
+                               const uint32_t* twinv_sh, const uint32_t* cons,
+                               int Ls, int Ld, int B, int logn, int threads,
+                               int smem, cudaStream_t stream) {
+  const long long blocks = static_cast<long long>(Ld) * B;
+  if (Ls < 0 || Ls > kMaxSrc || Ld < 1 || B < 1 || blocks > INT_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Strides st{{sl0, sl1, sl2, sl3}, {sb0, sb1, sb2, sb3}};
+  const int nb = static_cast<int>(blocks);
+  switch (Ls) {
+    case 0:
+      return by_logn<TensorMul4Launch<kNoSrc>>(
+          logn, threads, smem, nb, stream, x0, x1, y0, y1, st, out, ext, tw,
+          tw_sh, twinv, twinv_sh, cons, Ls, Ld, B);
+    case 4:
+      return by_logn<TensorMul4Launch<4>>(
+          logn, threads, smem, nb, stream, x0, x1, y0, y1, st, out, ext, tw,
+          tw_sh, twinv, twinv_sh, cons, Ls, Ld, B);
+    default:
+      return tensor_mul4_generic(logn, threads, smem, nb, stream, x0, x1, y0,
+                                 y1, st, out, ext, tw, tw_sh, twinv, twinv_sh,
+                                 cons, Ls, Ld, B);
+  }
+}

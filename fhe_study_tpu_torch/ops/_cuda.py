@@ -151,17 +151,18 @@ def ptxas_report(log: str) -> list:
 
 def _kernel_label(mangled: str) -> str:
     """The innermost name of an Itanium-mangled function and its integer
-    template arguments."""
+    template arguments (a negative one is mangled with an ``n``)."""
     pos = 3 if mangled.startswith("_ZN") else 2
     name = mangled
     while (m := re.match(r"\d+", mangled[pos:])):
         start = pos + m.end()
         name = mangled[start:start + int(m.group())]
         pos = start + int(m.group())
-    args = re.match(r"I((?:Li-?\d+E)+)E", mangled[pos:])
+    args = re.match(r"I((?:Lin?\d+E)+)E", mangled[pos:])
     if not args:
         return name
-    return f"{name}<{', '.join(re.findall(r'Li(-?\d+)E', args.group(1)))}>"
+    values = re.findall(r"Li(n?\d+)E", args.group(1))
+    return f"{name}<{', '.join(v.replace('n', '-') for v in values)}>"
 
 
 PTR = ctypes.c_void_p
@@ -212,9 +213,10 @@ TENSOR_EVAL4 = Kernel("tensor_eval4", "fhe_tensor_eval4", _NTT_CU,
                       "fhe_study_tpu/ops/ntt_pallas.py:794",
                       PTR, PTR, PTR, PTR, *([I64] * 8),
                       PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT)
-KS_CONTRACT = Kernel("ks_contract", "fhe_ks_contract", _NTT_CU,
+KS_CONTRACT = Kernel("ks_contract", "fhe_ks_contract",
+                     "fhe_study_tpu_torch/csrc/ks_contract_cuda.cu",
                      "fhe_study_tpu/ops/ntt_pallas.py:1273",
-                     PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT)
+                     *([PTR] * 7), *([INT] * 7))
 BASE_EXTEND = Kernel("base_extend", "fhe_base_extend", _EXT_CU,
                      "fhe_study_tpu/ops/ext_pallas.py:133",
                      PTR, PTR, PTR, PTR, INT, INT, I64, INT, INT)
@@ -222,13 +224,14 @@ EXT_NTT = Kernel("ext_ntt", "fhe_ext_ntt",
                  "fhe_study_tpu_torch/csrc/ext_ntt_cuda.cu",
                  "fhe_study_tpu/ops/ntt_pallas.py:905",
                  PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT)
-_TENSOR_MUL4_ARGS = (PTR, PTR, PTR, PTR, *([I64] * 8), PTR, PTR, PTR, PTR, PTR,
-                     PTR, PTR, INT, INT, INT, INT)
-TENSOR_MUL4 = Kernel("tensor_mul4", "fhe_tensor_mul4", _NTT_CU,
+_MUL4_CU = "fhe_study_tpu_torch/csrc/tensor_mul4_cuda.cu"
+_TENSOR_MUL4_ARGS = (PTR, PTR, PTR, PTR, *([I64] * 8), *([PTR] * 7),
+                     *([INT] * 6))
+TENSOR_MUL4 = Kernel("tensor_mul4", "fhe_tensor_mul4", _MUL4_CU,
                      "fhe_study_tpu/ops/ntt_pallas.py:677",
                      *_TENSOR_MUL4_ARGS)
 # the stacked-operand form: the same __global__ function, fed row strides
-TENSOR_MUL = Kernel("tensor_mul", "fhe_tensor_mul4", _NTT_CU,
+TENSOR_MUL = Kernel("tensor_mul", "fhe_tensor_mul4", _MUL4_CU,
                     "fhe_study_tpu/ops/ntt_pallas.py:604",
                     *_TENSOR_MUL4_ARGS)
 KS_FUSED = Kernel("ks_fused", "fhe_ks_fused", _NTT_CU,

@@ -1,5 +1,7 @@
-"""The transform kernels of the main path — ``csrc/ntt_cuda.cu`` — with their
-host tables, launch wrappers and plain PyTorch versions; the counterpart of
+"""The transform kernels of the main path — ``csrc/ntt_cuda.cu``, with K1,
+K3, K5 and K6 in ``csrc/ntt_multi_cuda.cu``, ``ks_contract_cuda.cu``,
+``ext_ntt_cuda.cu`` and ``tensor_mul4_cuda.cu`` — with their host tables,
+launch wrappers and plain PyTorch versions; the counterpart of
 fhe_study_tpu/ops/ntt_pallas.py.
 
   K1 ntt_multi     <- ntt_pallas.ntt_multi_u32
@@ -91,10 +93,12 @@ def _tensor_fin(dst: tuple, n: int, scale: tuple | None) -> tuple:
                  for j, q in enumerate(dst))
 
 
-# -- the register-resident chains of K1, K2 and K5 --------------------------
+# -- the register-resident chains of K1-K6 ---------------------------------
 
 RADIX_BITS = 4          # kRadixBits of csrc/radix_chain.cuh: 16 words a thread
 RADIX_THREADS = 256     # kRadixThreads: the most threads a block runs
+MUL4_THREADS = 512      # kMul4Threads of csrc/tensor_mul4_cuda.cu (K6) ...
+MUL4_BUFFERS = 3        # ... which holds three polynomials in shared memory
 
 
 class RadixPass(NamedTuple):
@@ -106,18 +110,21 @@ class RadixPlan(NamedTuple):
     logn: int
     threads: int        # a block
     groups: int         # virtual threads a thread plays one after the other
-    smem_bytes: int     # the polynomial, swizzled, in shared memory
+    smem_bytes: int     # the polynomials, swizzled, in shared memory
     forward: tuple      # RadixPass per pass: stage bits log n - 1 .. 0
     inverse: tuple      # RadixPass per pass: stage bits 0 .. log n - 1
 
 
 @lru_cache(maxsize=None)
-def _radix_plan(logn: int) -> RadixPlan:
-    """The pass structure of csrc/radix_chain.cuh's RadixShape<logn>: the
-    forward chain's passes at c = log n - 4, log n - 8, .., then c = 0 over
-    the bits left; the inverse chain's at c = 0, 4, .., then c = log n - 4
-    over the bits left.  The wrappers hand the kernels ``threads`` and
-    ``smem_bytes``, which the kernels check against their own."""
+def _radix_plan(logn: int, max_threads: int = RADIX_THREADS,
+                buffers: int = 1) -> RadixPlan:
+    """The pass structure of csrc/radix_chain.cuh's RadixShape<logn,
+    max_threads> for a kernel that holds ``buffers`` polynomials in shared
+    memory: the forward chain's passes at c = log n - 4, log n - 8, .., then
+    c = 0 over the bits left; the inverse chain's at c = 0, 4, .., then
+    c = log n - 4 over the bits left.  The wrappers hand the kernels
+    ``threads`` and ``smem_bytes``, which the kernels check against their
+    own."""
     r = RADIX_BITS
     fwd, inv = [], []
     for p in range(-(-logn // r)):
@@ -126,8 +133,8 @@ def _radix_plan(logn: int) -> RadixPlan:
         c = min(r * p, logn - r)
         inv.append(RadixPass(c, tuple(range(r * p - c, r))))
     vthreads = 1 << (logn - r)
-    threads = min(vthreads, RADIX_THREADS)
-    return RadixPlan(logn, threads, vthreads // threads, 4 << logn,
+    threads = min(vthreads, max_threads)
+    return RadixPlan(logn, threads, vthreads // threads, buffers * 4 << logn,
                      tuple(fwd), tuple(inv))
 
 
@@ -356,7 +363,10 @@ def tensor_eval4_kernel(x0, x1, y0, y1, dst: tuple, scale=None):
 
 
 def ks_contract_kernel(edm, kb, ka, primes: tuple):
-    """K3: one block per (prime, polynomial, key half)."""
+    """K3: one block per (prime, polynomial, key half), the contraction in
+    the first pass of the register-resident inverse chain (``_radix_plan``);
+    the rows are read as uint4 when edm, kb and ka are 16-byte aligned and
+    word by word otherwise."""
     dev = edm.device
     R, Lp, n = edm.shape[0], edm.shape[1], edm.shape[-1]
     logn = _cuda.log2_degree(n)
@@ -375,10 +385,13 @@ def ks_contract_kernel(edm, kb, ka, primes: tuple):
     if B > 0:
         tw = _twiddles(primes, n, True, dev)
         cons = _prime_rows(primes, _default_fin(primes, n, True, None), dev)
+        vec = all(_cuda.aligned(t) for t in (edm, kb, ka))
+        plan = _radix_plan(logn)
         _cuda.KS_CONTRACT.launch(dev, edm.data_ptr(), kb.data_ptr(),
                                  ka.data_ptr(), out.data_ptr(),
                                  tw[0].data_ptr(), tw[1].data_ptr(),
-                                 cons.data_ptr(), R, Lp, B, logn)
+                                 cons.data_ptr(), R, Lp, B, logn, int(vec),
+                                 plan.threads, plan.smem_bytes)
     return out[0], out[1]
 
 
@@ -425,18 +438,22 @@ def _tensor_mul4_launch(kernel, x0, x1, y0, y1, dst: tuple, scale, src):
     tab = None if src is None else ext_cuda.kernel_table(src, dst, None, dev)
     tw, twinv = _twiddles(dst, n, False, dev), _twiddles(dst, n, True, dev)
     cons = _prime_rows(dst, _tensor_fin(dst, n, scale), dev)
+    plan = _radix_plan(logn, MUL4_THREADS, MUL4_BUFFERS)
     kernel.launch(dev, *(v.data_ptr() for v in views), *_row_strides(views),
                   out.data_ptr(), None if tab is None else tab.data_ptr(),
                   tw[0].data_ptr(), tw[1].data_ptr(), twinv[0].data_ptr(),
                   twinv[1].data_ptr(), cons.data_ptr(),
-                  0 if src is None else len(src), Ld, B, logn)
+                  0 if src is None else len(src), Ld, B, logn, plan.threads,
+                  plan.smem_bytes)
     return out
 
 
 def tensor_mul4_kernel(x0, x1, y0, y1, dst: tuple, scale=None, src=None):
-    """K6: one block per (dst prime, polynomial).  Operands [Ld, B.., n], or
-    [Ls, B.., n] over ``src`` with the extension src -> dst run in the
-    kernel; they may be strided views."""
+    """K6: one block per (dst prime, polynomial), seven transforms on the
+    register-resident chain (``_radix_plan`` at MUL4_THREADS threads and
+    three buffers).  Operands [Ld, B.., n], or [Ls, B.., n] over ``src`` with
+    the extension src -> dst run in the kernel; they may be strided
+    views."""
     return _tensor_mul4_launch(_cuda.TENSOR_MUL4, x0, x1, y0, y1, dst, scale,
                                src)
 

@@ -286,11 +286,15 @@ EXT_SWEEP_LS = (1, 2, 3, 4, 5, 15)      # K4's source counts in the sweep
 EXT_SWEEP_LD = (1, 4, 5)                # and its destination counts
 
 
+KS_SWEEP_R = (1, 2, 4, 9)               # K3's digit rows in the sweep
+KS_SWEEP_LP = (2, 6)                    # and its prime counts
+
+
 def radix_cases(logn: int, batch: int, device, gen: torch.Generator) -> list:
     """The redesigned kernels at ring degree 2^logn on a small batch
-    (compared only, not timed): K1, K2 and K5 on the register-resident
-    chains, whose pass structure differs with log n, and K4, whose instance
-    differs with the source count.
+    (compared only, not timed): K1, K2, K3, K5 and K6 on the
+    register-resident chains, whose pass structure differs with log n, and
+    K4, whose instance differs with the source count.
 
       K1: forward (without fin, and with the Montgomery 2^32) and inverse
           (the default n^-1, and an explicit fin), each on a contiguous
@@ -298,8 +302,14 @@ def radix_cases(logn: int, batch: int, device, gen: torch.Generator) -> list:
           inverse's word-by-word first pass);
       K2: contiguous operands, the strided views of a stacked pair, and rows
           that are not 16-byte aligned (its word-by-word load);
+      K3: KS_SWEEP_R digit rows over each of KS_SWEEP_LP primes, and the
+          word-by-word form (edm one word off the alignment) at R = 2;
       K5: from 2 and 4 source primes (the counts it instantiates) and from
           1, 3 and 5 (its generic form) to 5 destination primes;
+      K6: over Q with a scale and without, the stacked operand of
+          tensor_mul (row strides), rows that are not 16-byte aligned, and
+          from 1 to 5 source primes (4: its own instance; the others: the
+          generic one) to 5 destination primes;
       K4: from each of EXT_SWEEP_LS to each of EXT_SWEEP_LD primes, unsigned
           and centered, with and without the (w - ext) * c epilogue, on
           [Ls, batch, n] (the vector form); per source count also on a row
@@ -344,6 +354,37 @@ def radix_cases(logn: int, batch: int, device, gen: torch.Generator) -> list:
         out.append(compared("ext_ntt", f"{ls} -> {len(ps)} primes",
                             nc.ext_ntt_kernel, nc.ext_ntt_plain,
                             res(src, (batch, n)), src, ps))
+    for lp in KS_SWEEP_LP:
+        basis = primes[:lp]
+        for R in KS_SWEEP_R:
+            edm = torch.stack([res(basis, (batch, n)) for _ in range(R)])
+            kb, ka = (torch.stack([res(basis, (n,)) for _ in range(R)])
+                      for _ in range(2))
+            out.append(compared("ks_contract", f"R={R} over {lp} primes",
+                                nc.ks_contract_kernel, nc.ks_contract_plain,
+                                edm, kb, ka, basis))
+            if R == 2:
+                out.append(compared(
+                    "ks_contract", f"R={R} over {lp} primes, edm one word "
+                    "off", nc.ks_contract_kernel, nc.ks_contract_plain,
+                    _offset_word(edm), kb, ka, basis))
+    quad = res(qs, (batch, 4, n))                    # tensor_mul's operand
+    for label, ops in operands.items():
+        out.append(compared("tensor_mul4", f"{label}, scale",
+                            nc.tensor_mul4_kernel, nc.tensor_mul4_plain,
+                            *ops, qs, scale=scale))
+    out.append(compared("tensor_mul4", "contiguous, no scale",
+                        nc.tensor_mul4_kernel, nc.tensor_mul4_plain,
+                        *operands["contiguous"], qs))
+    out.append(compared("tensor_mul", "stacked, scale", nc.tensor_mul_kernel,
+                        nc.tensor_mul_plain, quad, qs, scale=scale))
+    scale_p = tuple(range(7, 7 + len(ps)))
+    for ls in (1, 2, 3, 4, 5):
+        src = (qs + primes[9:])[:ls]
+        out.append(compared("tensor_mul4", f"{ls} -> {len(ps)} primes, scale",
+                            nc.tensor_mul4_kernel, nc.tensor_mul4_plain,
+                            *(res(src, (batch, n)) for _ in range(4)), ps,
+                            scale=scale_p, src=src))
     for ls in EXT_SWEEP_LS:
         src = primes[24 - ls:]                       # apart from ps
         x = res(src, (batch, n))

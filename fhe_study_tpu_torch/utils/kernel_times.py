@@ -14,7 +14,13 @@ kernel.  Each case is timed twice: as called (``--reps`` calls back to
 back, so the device waits whenever the host's launch path is slower than
 the kernel) and on the device alone (the same calls queued behind device
 work that outlasts their enqueueing), beside the host's seconds to enqueue a
-call.  ``--tree`` names another checkout whose ``fhe_study_tpu_torch`` is
+call and the device-alone time's share of the case's bound (as chip_smoke.py
+computes it: the larger of its bytes over 3.35 TB/s and its integer
+instructions over 128 a clock on each SM at the card's maximum SM clock).
+Beside K6 (tensor_mul4) it times, as a yardstick, the redesigned kernels
+that give the same output: K1's forward of the four operands (stacked
+beforehand, as tensor_mul takes them) then K2 over Q, and K5's Q -> P
+forward of the four then K2 over P, each first held equal to K6.  ``--tree`` names another checkout whose ``fhe_study_tpu_torch`` is
 timed instead of this one, so two commits can be compared on one card in
 one go: run it on the parent, the change, the change and the parent.
 Run it as a file, not with -m, so that the package it imports is the one
@@ -74,6 +80,11 @@ def main() -> None:
                   if c.timed]
         cases += kernel_check.bench_cases(1 << 14, 64, dev, gen, reps=8,
                                           rounds=1024)
+    props = torch.cuda.get_device_properties(dev)
+    sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    ops_per_ms = props.multi_processor_count * 128 * sm_mhz * 1e3
     busy = torch.zeros(1 << 28, dtype=torch.int32, device=dev)    # 1 GiB
     sums, alone = {}, {}
     for case in cases:
@@ -82,9 +93,17 @@ def main() -> None:
         device_ms, host_ms = events_ms(case.kernel, args.reps, busy)
         sums[case.name] = sums.get(case.name, 0.0) + ms
         alone[case.name] = alone.get(case.name, 0.0) + device_ms
+        bound_ms = max(case.bytes / 3.35e9, case.ops / ops_per_ms)
         print(f"{case.name:13s} {case.label:48s} {ms:8.4f} ms; on the device "
-              f"alone {device_ms:8.4f} ms; host enqueue {host_ms:.4f} ms a "
-              "call", flush=True)
+              f"alone {device_ms:8.4f} ms, {bound_ms / device_ms:.3f} of its "
+              f"bound {bound_ms:.4f} ms; host enqueue {host_ms:.4f} ms a call",
+              flush=True)
+    for label, fn in yardsticks(param, args.batch, dev, gen):
+        ms = events_ms(fn, args.reps)
+        device_ms, host_ms = events_ms(fn, args.reps, busy)
+        print(f"yardstick     {label:48s} {ms:8.4f} ms; on the device alone "
+              f"{device_ms:8.4f} ms; host enqueue {host_ms:.4f} ms a call",
+              flush=True)
     del busy
     for label, by in (("", sums), (" (device alone)", alone)):
         print(f"tree {args.tree}{label} [{card}]: "
@@ -94,6 +113,39 @@ def main() -> None:
     print(f"chains {args.tree} [{card}]: "
           + ", ".join(f"{k} {v:.4f}" for k, v in per_op.items())
           + " ms an op", flush=True)
+
+
+def yardsticks(param, batch: int, dev, gen) -> list:
+    """(label, call) pairs: K6 over Q and over P (Q -> P inside) on the
+    path's four [L, B, n] operands, each followed by the composition of
+    redesigned kernels that gives the same output from the same values
+    stacked as [L, B, 4, n] (the stacking is not timed); each composition
+    is held equal to K6 first."""
+    from fhe_study_tpu_torch.ops import ntt_cuda as nc
+    from fhe_study_tpu_torch.utils import prng
+    qs, ps, n = param.qs, param.ps, param.n
+    t_q, t_p = (param.t,) * len(qs), (param.t,) * len(ps)
+    x4 = prng.uniform_mod_multi(gen, (batch, 4, n), qs, dev)
+    ct = [x4[..., i, :].contiguous() for i in range(4)]
+
+    def eval4(e, dst, scale):
+        return nc.tensor_eval4_kernel(*(e[..., i, :] for i in range(4)), dst,
+                                      scale=scale)
+
+    rows = [
+        ("Q: K6 tensor_mul4", lambda: nc.tensor_mul4_kernel(*ct, qs,
+                                                            scale=t_q)),
+        ("Q: K1 forward of the four + K2",
+         lambda: eval4(nc.ntt_multi_kernel(x4, qs), qs, t_q)),
+        ("P, Q->P inside: K6 tensor_mul4",
+         lambda: nc.tensor_mul4_kernel(*ct, ps, scale=t_p, src=qs)),
+        ("P: K5 Q->P of the four + K2",
+         lambda: eval4(nc.ext_ntt_kernel(x4, qs, ps), ps, t_p)),
+    ]
+    for (_, k6), (label, comp) in ((rows[0], rows[1]), (rows[2], rows[3])):
+        if not torch.equal(k6(), comp()):
+            raise RuntimeError(f"yardstick {label}: output != K6's")
+    return rows
 
 
 def events_ms(fn, reps: int, busy=None):

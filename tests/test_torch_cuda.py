@@ -45,16 +45,20 @@ def test_kernels_match_plain(cuda, n):
 
 @pytest.mark.parametrize("logn", range(_cuda.MIN_LOG_N, _cuda.MAX_LOG_N + 1))
 def test_radix_kernels_match_plain_at_every_degree(cuda, logn):
-    """The redesigned kernels: K1, K2 and K5 on the register-resident
-    chains, where each log n has its own pass structure (K1 both ways, with
-    and without fin, on aligned and word-offset rows; K2 on contiguous,
-    strided and unaligned rows; K5 from every source count it instantiates
-    and its generic form), and K4 from 1..5 and 15 source primes in its
-    vector and word forms."""
+    """The redesigned kernels: K1, K2, K3, K5 and K6 on the
+    register-resident chains, where each log n has its own pass structure
+    (K1 both ways, with and without fin, on aligned and word-offset rows; K2
+    on contiguous, strided and unaligned rows; K3 from 1, 2, 4 and 9 digit
+    rows over 2 and 6 primes, aligned and not; K5 from every source count it
+    instantiates and its generic form; K6 with and without a scale, on
+    strided, stacked and unaligned rows, from 1..5 source primes), and K4
+    from 1..5 and 15 source primes in its vector and word forms."""
     gen = torch.Generator(device=cuda).manual_seed(11)
     cases = kernel_check.radix_cases(logn, 3, cuda, gen)
     assert {c.name for c in cases} == {"ntt_multi", "tensor_eval4",
-                                       "ext_ntt", "base_extend"}
+                                       "ks_contract", "ext_ntt",
+                                       "base_extend", "tensor_mul4",
+                                       "tensor_mul"}
     for case in cases:
         got, want = case.kernel(), case.plain()
         torch.cuda.synchronize()
@@ -62,11 +66,12 @@ def test_radix_kernels_match_plain_at_every_degree(cuda, logn):
 
 
 def test_radix_kernels_have_no_stack_frame_or_spills(cuda):
-    """Every instance of the redesigned kernels: K2 and K1 (both ways) per
-    log n, K5 per log n and source count form, K4 per source count and
-    form."""
+    """Every instance of the redesigned kernels: K2 and K3 per log n, K1
+    (both ways) per log n, K5 and K6 per log n and source count form, K4 per
+    source count and form."""
     report = _cuda.ptxas_report(_cuda.build_log())
-    counts = {"tensor_eval4_kernel": 7, "ext_ntt_kernel": 7 * 3,
+    counts = {"tensor_eval4_kernel": 7, "ks_contract_kernel": 7,
+              "ext_ntt_kernel": 7 * 3, "tensor_mul4_kernel": 7 * 3,
               "ntt_multi_kernel": 7 * 2, "base_extend_kernel": 15 * 2}
     radix = [r for r in report if r["kernel"].split("<")[0] in counts]
     for name, count in counts.items():

@@ -314,13 +314,14 @@ def test_build_is_one_command_over_every_source(bare_loader, monkeypatch):
     log = (_cuda.build_dir() / "build.log").read_text().splitlines()
     cus = sorted(p.name for p in _cuda.CSRC.iterdir() if p.suffix == ".cu")
     cmds = [line for line in log if not line.startswith("-- ")]
-    assert len(cus) == 6 and len(cmds) == 7
+    k = len(cus)
+    assert k == 9 and len(cmds) == k + 1
     assert all(line.endswith(" s") for line in log if line.startswith("-- "))
-    assert [line.rsplit("/", 1)[-1] for line in cmds[:6]] == cus
+    assert [line.rsplit("/", 1)[-1] for line in cmds[:k]] == cus
     assert all(" -c " in line and " -shared " not in line
-               for line in cmds[:6])
-    link = cmds[6].split()
-    assert " -shared " in cmds[6] and " -c " not in cmds[6]
-    assert [w.rsplit("/", 1)[-1].split(".")[0] for w in link[-6:]] == \
+               for line in cmds[:k])
+    link = cmds[k].split()
+    assert " -shared " in cmds[k] and " -c " not in cmds[k]
+    assert [w.rsplit("/", 1)[-1].split(".")[0] for w in link[-k:]] == \
         [c.removesuffix(".cu") for c in cus]
     assert not list(_cuda.build_dir().glob("*.o"))     # objects cleaned up

@@ -1,26 +1,36 @@
 """The pass plan of the register-resident chains that K1 (ntt_multi), K2
-(tensor_eval4) and K5 (ext_ntt) run on the card (csrc/radix_chain.cuh,
-mirrored by ops/ntt_cuda.py::_radix_plan), checked on the CPU at every ring
-degree the kernels take: every stage is run once and in order, a block fits
-the H100, a torch emulation of the plan's element, twiddle and shared-memory
-maps equals the plain transform bit for bit in both directions, K1's own
-maps (its first pass from a row in device memory, the forward's uint4
-read-out and the inverse's stores, each with fin) equal ntt_multi_plain,
-and every warp's shared-memory access hits 32 distinct banks.  Also the
-parser of ptxas's register report that chip_smoke.py reads.  Tolerance 0
-throughout.
+(tensor_eval4), K3 (ks_contract), K5 (ext_ntt) and K6 (tensor_mul4) run on
+the card (csrc/radix_chain.cuh, mirrored by ops/ntt_cuda.py::_radix_plan),
+checked on the CPU at every ring degree the kernels take: every stage is run
+once and in order, a block fits the H100 (256 threads and one polynomial,
+or K6's 512 threads and three), a torch emulation of the plan's element,
+twiddle and shared-memory maps equals the plain transform bit for bit in
+both directions, K1's own maps (its first pass from a row in device memory,
+the forward's uint4 read-out and the inverse's stores, each with fin) equal
+ntt_multi_plain, K3's schedule (the contraction into the first inverse
+pass) equals ks_contract_plain, K6's (four forward chains, x0's transform
+kept per virtual thread, the products between x1's last forward pass and
+the first inverse pass, three inverse chains) equals tensor_mul4_plain with
+and without a source basis, and every warp's
+shared-memory access hits 32 distinct banks.  Also the parser of ptxas's
+register report that chip_smoke.py reads.  Tolerance 0 throughout.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from fhe_study_tpu_torch.ops import _cuda
+from fhe_study_tpu_torch.ops import _cuda, ext_cuda
 from fhe_study_tpu_torch.ops import ntt_cuda as nc
 from fhe_study_tpu_torch.ops.primes import ntt_primes
 
 LOGNS = range(_cuda.MIN_LOG_N, _cuda.MAX_LOG_N + 1)
 PRIMES = ntt_primes(3, 30, 1 << 15)           # 2n-th roots up to n = 2^14
+CPU = torch.device("cpu")
+# the plans the kernels run: K1-K5 on 256 threads and one buffer, K6 on 512
+# threads and three
+PLANS = {"radix": (nc.RADIX_THREADS, 1),
+         "tensor_mul4": (nc.MUL4_THREADS, nc.MUL4_BUFFERS)}
 
 
 # The kernel's index maps (csrc/radix_chain.cuh), written out in torch.
@@ -111,7 +121,8 @@ def _lanes_consecutive(addr) -> bool:
     return bool((warps[:, 1:] - warps[:, :-1] == 1).all())
 
 
-def _emulate(x, q: int, logn: int, inverse: bool, fin: int = 1):
+def _emulate(x, q: int, logn: int, inverse: bool, fin: int = 1,
+             first=None):
     """The kernels' data flow on one row x of device memory: each pass runs
     its stages on [n/16, 16] registers, passes exchange through a swizzled
     shared-memory buffer.  The forward's first pass reads word
@@ -120,7 +131,8 @@ def _emulate(x, q: int, logn: int, inverse: bool, fin: int = 1):
     words of 4i .. 4i + 3) times fin; the inverse's first pass reads the 16
     contiguous words from base = 16 v (K1; K2 forms its products there), and
     its last pass stores its registers times fin to base + (j << c), lanes
-    on consecutive words."""
+    on consecutive words.  ``first``, where given, forms the first pass's
+    registers from its element addresses instead of reading x (K3)."""
     n = 1 << logn
     plan = nc._radix_plan(logn)
     roots = nc._roots_plain((q,), n, inverse, torch.device("cpu"))[0]
@@ -138,7 +150,7 @@ def _emulate(x, q: int, logn: int, inverse: bool, fin: int = 1):
                 assert bool((addr[:, ::4] % 4 == 0).all())
             else:
                 assert _lanes_consecutive(addr)
-            regs = x[addr]
+            regs = x[addr] if first is None else first(addr)
         else:
             regs = smem[_swizzle(el)]
         _run_pass(regs, el, ps, roots, q, logn, inverse)
@@ -200,6 +212,168 @@ def test_shared_memory_accesses_hit_distinct_banks(logn):
     assert _banks_hit(out.permute(0, 2, 1).reshape(-1, 32)) == 1
 
 
+@pytest.mark.parametrize("logn", LOGNS)
+def test_tensor_mul4_plan_covers_every_stage_and_fits_an_sm(logn):
+    """K6's plan: the same passes on 512 threads, three buffers, one block
+    an SM (512 threads of up to 128 registers, 192 KB at n = 2^14)."""
+    plan = nc._radix_plan(logn, nc.MUL4_THREADS, nc.MUL4_BUFFERS)
+    assert _stage_bits(plan.forward) == list(range(logn - 1, -1, -1))
+    assert _stage_bits(plan.inverse) == list(range(logn))
+    assert (plan.forward, plan.inverse) == (nc._radix_plan(logn).forward,
+                                            nc._radix_plan(logn).inverse)
+    assert plan.threads == min(nc.MUL4_THREADS, 1 << (logn - 4))
+    assert plan.threads * plan.groups << nc.RADIX_BITS == 1 << logn
+    assert plan.smem_bytes == nc.MUL4_BUFFERS * 4 << logn
+    assert plan.smem_bytes + 1024 <= 233472 and plan.threads * 128 <= 65536
+    # the forward chain's last pass and the inverse chain's first hold the
+    # same bits, so a virtual thread owns the same elements in both
+    assert plan.forward[-1].c == plan.inverse[0].c == 0
+
+
+@pytest.mark.parametrize("kind", PLANS)
+@pytest.mark.parametrize("logn", LOGNS)
+def test_warps_of_each_thread_count_hit_distinct_banks(kind, logn):
+    """Warp w of group g runs virtual threads g * threads + 32 w .. + 31."""
+    plan = nc._radix_plan(logn, *PLANS[kind])
+    for ps in plan.forward + plan.inverse:
+        el = _elements(logn, ps.c)
+        for g in range(plan.groups):
+            for lane0 in range(0, plan.threads, 32):
+                vt = g * plan.threads + torch.arange(
+                    lane0, min(lane0 + 32, plan.threads))
+                assert _banks_hit(_swizzle(el[vt]).T) == 1
+
+
+def _mont(a, b, q: int):
+    """The kernels' Montgomery product a * b * 2^-32 mod q, exactly."""
+    return a * b % q * pow(1 << 32, -1, q) % q
+
+
+@pytest.mark.parametrize("logn", LOGNS)
+def test_k3_schedule_equals_plain(logn):
+    """K3: the R Montgomery products of each digit and key row summed into
+    the first inverse pass's registers (16 contiguous words a virtual
+    thread), the rest of the chain as K2's, n^-1 in the last pass."""
+    n = 1 << logn
+    rng = np.random.default_rng(200 + logn)
+    for q, R in zip(PRIMES, (1, 4, 3)):
+        edm = torch.from_numpy(rng.integers(0, q, (R, n)))
+        keys = [torch.from_numpy(rng.integers(0, q, (R, n)))
+                for _ in range(2)]
+        want = nc.ks_contract_plain(edm[:, None, None].int(),
+                                    keys[0][:, None].int(),
+                                    keys[1][:, None].int(), (q,))
+        for key, half in zip(keys, want):
+            def contract(addr, key=key):
+                acc = torch.zeros_like(addr)
+                for r in range(R):
+                    acc = (acc + _mont(edm[r][addr], key[r][addr], q)) % q
+                return acc
+            got = _emulate(None, q, logn, True, pow(n, -1, q), first=contract)
+            assert torch.equal(got, half[0, 0].long())
+
+
+def _emulate_k6(x0, x1, y0, y1, q: int, logn: int, fin: int):
+    """K6's data flow on four operand rows over q (a source basis converted
+    word by word as the first pass reads it), three shared-memory buffers:
+    y0, y1, x0 forward into buffers 0, 1, 2, one after another; each virtual
+    thread takes its own words of x0's transform into registers; x1 forward
+    in buffer 2 but for its last pass, which forms x1 y1, x0 y1 + x1 y0 and
+    x0 y0 in registers from x1, x0 and its own words of buffers 0 and 1, runs
+    the first inverse pass on each and stores it into buffer 2, 1, 0 at the
+    same words; the rest of the three inverse chains, the last pass times
+    fin, lanes on consecutive words."""
+    n = 1 << logn
+    plan = nc._radix_plan(logn, nc.MUL4_THREADS, nc.MUL4_BUFFERS)
+    fwd = nc._roots_plain((q,), n, False, CPU)[0]
+    inv = nc._roots_plain((q,), n, True, CPU)[0]
+    smem = torch.full((nc.MUL4_BUFFERS, n), -1, dtype=torch.int64)
+    v = torch.arange(n >> nc.RADIX_BITS)[:, None]
+    first = v + (torch.arange(16)[None] << (logn - 4))
+    f0, fl, i0, il = (plan.forward[0], plan.forward[-1], plan.inverse[0],
+                      plan.inverse[-1])
+
+    def run(regs, ps, roots, inverse):
+        """One pass on [polynomials, virtual threads, 16] registers."""
+        for r in regs:
+            _run_pass(r, _elements(logn, ps.c), ps, roots, q, logn, inverse)
+
+    def through_smem(bufs, passes, roots, inverse):
+        for ps in passes:
+            sw = _swizzle(_elements(logn, ps.c))
+            regs = torch.stack([smem[b][sw] for b in bufs])
+            run(regs, ps, roots, inverse)
+            for b, r in zip(bufs, regs):
+                smem[b][sw] = r
+
+    def forward_head(row, buf):
+        """First pass from the row in device memory, then the passes through
+        shared memory but the last."""
+        regs = row[first][None]
+        run(regs, f0, fwd, False)
+        smem[buf][_swizzle(first)] = regs[0]
+        through_smem([buf], plan.forward[1:-1], fwd, False)
+
+    assert torch.equal(first, _elements(logn, f0.c))
+    assert _lanes_consecutive(first)
+    for row, buf in ((y0, 0), (y1, 1), (x0, 2)):
+        forward_head(row, buf)
+        through_smem([buf], [fl], fwd, False)
+    own = _elements(logn, fl.c)
+    assert fl.c == i0.c == 0 and torch.equal(own, 16 * v + torch.arange(16))
+    sw = _swizzle(own)
+    x0e = smem[2][sw].clone()                 # per virtual thread
+    smem[2].fill_(-1)                         # x0 never goes back
+    forward_head(x1, 2)
+    x = smem[2][sw][None]
+    run(x, fl, fwd, False)
+    u0, u1 = smem[0][sw], smem[1][sw]
+    prods = torch.stack([_mont(x0e, u0, q),
+                         (_mont(x0e, u1, q) + _mont(x[0], u0, q)) % q,
+                         _mont(x[0], u1, q)])
+    run(prods, i0, inv, True)
+    for b in range(3):
+        smem[b][sw] = prods[b]
+    through_smem([0, 1, 2], plan.inverse[1:-1], inv, True)
+    el = _elements(logn, il.c)
+    assert _lanes_consecutive(el)
+    regs = torch.stack([smem[b][_swizzle(el)] for b in range(3)])
+    run(regs, il, inv, True)
+    out = torch.full((3, n), -1, dtype=torch.int64)
+    for b in range(3):
+        out[b][el] = regs[b] * fin % q
+    assert int(out.min()) >= 0
+    return out
+
+
+SRC_PRIMES = ntt_primes(5, 30, 1 << 15, skip=len(PRIMES))
+
+
+@pytest.mark.parametrize("logn", LOGNS)
+def test_k6_schedule_equals_plain(logn):
+    """Over the destination prime, and from source bases of 4 primes (the
+    BFV P basis's instance) and of 1 + log n mod 5 (the generic one)."""
+    n = 1 << logn
+    rng = np.random.default_rng(300 + logn)
+    q = PRIMES[logn % len(PRIMES)]
+    scale = int(rng.integers(1, 1 << 16))
+    fin = nc._tensor_fin((q,), n, (scale,))[0]
+    ops = [torch.from_numpy(rng.integers(0, q, (1, n))) for _ in range(4)]
+    want = nc.tensor_mul4_plain(*(o.int() for o in ops), (q,),
+                                scale=(scale,))[0]
+    got = _emulate_k6(*(o[0] for o in ops), q, logn, fin)
+    assert torch.equal(got, want.long())
+    for ls in (4, 1 + logn % 5):
+        src = SRC_PRIMES[:ls]
+        rows = [torch.from_numpy(np.stack([rng.integers(0, s, n)
+                                           for s in src])).int()
+                for _ in range(4)]
+        want = nc.tensor_mul4_plain(*rows, (q,), scale=(scale,), src=src)[0]
+        words = [ext_cuda.base_extend_fused_plain(r, src, (q,))[0].long()
+                 for r in rows]
+        assert torch.equal(_emulate_k6(*words, q, logn, fin), want.long())
+
+
 PTXAS_LOG = """nvcc -gencode arch=compute_90a,code=sm_90a ...
 ptxas info    : 0 bytes gmem
 ptxas info    : Compiling entry function '_ZN3fhe12_GLOBAL__N_114ext_ntt_kernelILi14ELi4EEEvPKjPjS3_S3_S3_iii' for 'sm_90a'
@@ -225,3 +399,15 @@ def test_ptxas_report_reads_registers_stack_and_spills():
     assert [tuple(r[f] for f in fields) for r in rep] == [
         (58, 0, 0, 0), (64, 16, 8, 4), (24, 0, 0, 0)]
     assert rep[0]["name"].startswith("_ZN3fhe12_GLOBAL__N_114ext_ntt")
+
+
+def test_ptxas_report_reads_negative_template_arguments():
+    """K6's instance without a source basis has LS = -1, which the Itanium
+    ABI mangles as ``Lin1E``."""
+    log = ("ptxas info    : Compiling entry function '_ZN3fhe12_GLOBAL__N_118"
+           "tensor_mul4_kernelILi14ELin1EEEvPKjS3_S3_S3_NS_7StridesEPjS3_S3_"
+           "S3_S3_S3_S3_iii' for 'sm_90a'\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+           "loads\n")
+    assert [r["kernel"] for r in _cuda.ptxas_report(log)] == [
+        "tensor_mul4_kernel<14, -1>"]
