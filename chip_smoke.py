@@ -27,8 +27,12 @@ Phases, each of which raises (and so exits non-zero) on any failure:
      on unaligned rows; K3 from 1, 2, 4 and 9 digit rows over 2 and 6
      primes, aligned and word-offset; K6 (and tensor_mul) with and without a
      scale on contiguous, strided, stacked and unaligned rows and from 1 to
-     5 source primes; ptxas's registers, stack frame and spills of every
-     kernel (phase 1), which must show neither for K1-K6;
+     5 source primes; K10 on its two-block clusters at every n its plan
+     takes, C = 2 and 3, l = 1, 2 and 3, over 1, 2 and 17 steps on 1, 3,
+     64, 67 and 133 ciphertexts (kernel_check.blind_rotate_sweep), staged
+     and direct key planes and planes one word off; ptxas's registers, stack
+     frame and spills of every kernel (phase 1), which must show neither for
+     K1-K6 and K10;
   3. the eval-resident path: keygen -> hybrid relin key -> encrypt 128
      plaintext pairs -> to_evals -> mul_e -> from_evals -> decrypt;
   4. the coefficient-domain and gadget paths on the same ciphertexts: mul
@@ -119,12 +123,12 @@ CEILING_REPS, ALU_ROUNDS = 64, 1 << 16
 MEMORY_BYTES_PER_S = 3.35e12
 INSTR_PER_SM_CLOCK = 128
 ALU_SHORT_ROUNDS = 1024      # the timed alu_rate launch is held in such pieces
-# the redesigned kernels: K1, K2, K3, K5 and K6 (tensor_mul4 and, on row
-# strides, tensor_mul) on csrc/radix_chain.cuh, K4 (and K5, K6) with the
-# source count at compile time; ptxas must give no instance of them a stack
-# frame or spills
+# the redesigned kernels: K1, K2, K3, K5, K6 (tensor_mul4 and, on row
+# strides, tensor_mul) and K10 (blind_rotate) on csrc/radix_chain.cuh, K4
+# (and K5, K6) with the source count at compile time; ptxas must give no
+# instance of them a stack frame or spills
 RADIX_KERNELS = {"ntt_multi", "tensor_eval4", "ks_contract", "ext_ntt",
-                 "base_extend", "tensor_mul4", "tensor_mul"}
+                 "base_extend", "tensor_mul4", "tensor_mul", "blind_rotate"}
 RADIX_BATCH = 3              # the small odd batch of their every-degree sweep
 
 
@@ -223,12 +227,15 @@ def main() -> None:
         say(f"  ptxas: {r['kernel']}: {r.get('registers')} registers, "
             f"{r.get('stack')} bytes stack frame, {r.get('spill_stores')} "
             f"bytes spill stores, {r.get('spill_loads')} bytes spill loads")
-    if spilled or not radix_entries:
+    k10_entries = [r for r in radix_entries
+                   if r["kernel"].startswith("blind_rotate_kernel<")]
+    if spilled or not radix_entries or not k10_entries:
         raise RuntimeError(f"ptxas gave a stack frame or spills to {spilled}: "
                            "the redesigned kernels must keep their words "
                            "in registers")
     say(f"ptxas: no stack frame and no spills in the {len(radix_entries)} "
-        f"instances of {sorted(RADIX_KERNELS)}")
+        f"instances of {sorted(RADIX_KERNELS)} ({len(k10_entries)} of "
+        f"blind_rotate)")
 
     # 2. kernels against their plain versions ------------------------------
     err = {k.name: 0 for k in _cuda.KERNELS}
@@ -283,6 +290,20 @@ def main() -> None:
         f"without the epilogue, vector and word forms) == plain (torch.equal) "
         f"at every n = 2^{_cuda.MIN_LOG_N} .. 2^{_cuda.MAX_LOG_N}, batch "
         f"{RADIX_BATCH}: {radix_checked} variants")
+    # K10 on two-block clusters at every ring degree its plan takes, on
+    # batches beyond the clusters the card holds at once
+    k10_checked = 0
+    for case in kernel_check.blind_rotate_sweep(dev, gen):
+        got, want = case.kernel(), case.plain()
+        torch.cuda.synchronize()
+        check(case, got, want)
+        k10_checked += 1
+    say(f"parity: blind_rotate == plain (torch.equal) for C in "
+        f"{kernel_check.BR_SWEEP_C}, l in {kernel_check.BR_SWEEP_L}, every n "
+        f"its plan takes from 2^{_cuda.MIN_LOG_N}, steps in "
+        f"{kernel_check.BR_SWEEP_STEPS}, B in {kernel_check.BR_SWEEP_B} "
+        f"(staged and direct key planes), and the key planes one word off: "
+        f"{k10_checked} variants")
     del tfhe_parity, case, got, want
     say(f"parity: kernel == plain (torch.equal) for "
         f"{sum(checked.values())} variants at n={N} and n=256 (batch "

@@ -151,17 +151,18 @@ def ptxas_report(log: str) -> list:
 
 def _kernel_label(mangled: str) -> str:
     """The innermost name of an Itanium-mangled function and its integer
-    template arguments (a negative one is mangled with an ``n``)."""
+    and bool template arguments (a negative one is mangled with an ``n``;
+    a bool reads 0 or 1)."""
     pos = 3 if mangled.startswith("_ZN") else 2
     name = mangled
     while (m := re.match(r"\d+", mangled[pos:])):
         start = pos + m.end()
         name = mangled[start:start + int(m.group())]
         pos = start + int(m.group())
-    args = re.match(r"I((?:Lin?\d+E)+)E", mangled[pos:])
+    args = re.match(r"I((?:L[ib]n?\d+E)+)E", mangled[pos:])
     if not args:
         return name
-    values = re.findall(r"Li(n?\d+)E", args.group(1))
+    values = re.findall(r"L[ib](n?\d+)E", args.group(1))
     return f"{name}<{', '.join(v.replace('n', '-') for v in values)}>"
 
 
@@ -249,7 +250,7 @@ NTT = Kernel("ntt", "fhe_ntt", _NTT_CU,
 BLIND_ROTATE = Kernel("blind_rotate", "fhe_blind_rotate",
                       "fhe_study_tpu_torch/csrc/blind_rotate_cuda.cu",
                       "fhe_study_tpu/ops/blind_rotate_pallas.py:392",
-                      *([PTR] * 12), *([INT] * 6))
+                      *([PTR] * 12), *([INT] * 9))
 BASE_EXTEND_SUM = Kernel("base_extend_sum", "fhe_base_extend_sum", _EXT_CU,
                          "fhe_study_tpu/ops/ext_pallas.py:207",
                          PTR, PTR, PTR, PTR, INT, INT, I64)

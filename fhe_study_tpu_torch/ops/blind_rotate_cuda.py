@@ -12,6 +12,9 @@ walk the chain step by step in int64 torch (``blind_rotate_plain``, which
 also is what the kernel is held against on the card).
 """
 
+from functools import lru_cache
+from typing import NamedTuple
+
 import torch
 
 from ..arith import tn
@@ -21,12 +24,44 @@ from .modops32 import qvec
 
 # dynamic shared memory one block may use on sm_90
 _SMEM_LIMIT = 232448
+BR_THREADS = 256        # kBrThreads of csrc/blind_rotate_cuda.cu
+BR_CLUSTER = 2          # kBrCluster: one block per CRT prime
+_BARRIER_BYTES = 32     # kBrBarrierBytes: the mbarriers of the key copies
+                        # and of the peer's columns
 
 
-def _smem_bytes(C: int, l: int, n: int) -> int:
-    """The kernel's shared memory: the 64-bit accumulator, the digit polys
-    of both primes and the contracted columns of both primes."""
-    return C * n * 8 + (2 * C * l + 4 * C) * n * 4
+class BlindRotatePlan(NamedTuple):
+    logn: int
+    threads: int        # a block
+    cluster: int        # blocks a ciphertext, one per CRT prime
+    staged: bool        # the step's key planes copied into shared memory
+    smem_bytes: int     # a block's dynamic shared memory
+    forward_polys: int  # C*l digit polynomials side by side ...
+    inverse_polys: int  # ... and 2C contracted columns
+    radix: ntt_cuda.RadixPlan   # the pass structure of one polynomial
+
+
+def _smem(C: int, l: int, n: int, staged: bool) -> int:
+    """br_smem_bytes: the mbarriers, the 64-bit accumulator, the digit
+    evaluations of the block's prime, its 2C columns, two exchange buffers
+    for the peer's 2C columns and, staged, the step's two key planes of the
+    prime."""
+    return (_BARRIER_BYTES + 8 * C * n + 4 * C * l * n + 3 * 4 * 2 * C * n
+            + (2 * 4 * C * l * 2 * C * n if staged else 0))
+
+
+@lru_cache(maxsize=None)
+def _plan(C: int, l: int, n: int, aligned: bool = True) -> BlindRotatePlan:
+    """The kernel's launch at (C, l, n): the key planes are staged in shared
+    memory by bulk copies where they fit beside the working set and the
+    planes are 16-byte aligned, and read from device memory otherwise.  The
+    wrapper hands the kernel ``threads``, ``smem_bytes`` and ``staged``,
+    which it checks against its own."""
+    logn = n.bit_length() - 1
+    staged = aligned and _smem(C, l, n, True) <= _SMEM_LIMIT
+    return BlindRotatePlan(logn, BR_THREADS, BR_CLUSTER, staged,
+                           _smem(C, l, n, staged), C * l, 2 * C,
+                           ntt_cuda._radix_plan(logn, BR_THREADS))
 
 
 def supported(param, beta: int, l: int) -> bool:
@@ -43,7 +78,7 @@ def supported(param, beta: int, l: int) -> bool:
             and (param.k + 1) * l * n * beta < (1 << 26)
             # a primitive 2n-th root under both primes
             and all((p - 1) % (2 * n) == 0 for p in (p1, p2))
-            and _smem_bytes(param.k + 1, l, n) <= _SMEM_LIMIT)
+            and _plan(param.k + 1, l, n, False).smem_bytes <= _SMEM_LIMIT)
 
 
 def _check_shapes(shifts, acc0, ev1, ev1s, ev2, ev2s, n: int, w: int):
@@ -86,9 +121,10 @@ def blind_rotate_plain(shifts, acc0, ev1, ev1s, ev2, ev2s, n: int, w: int):
 
 
 def blind_rotate_kernel(shifts, acc0, ev1, ev1s, ev2, ev2s, n: int, w: int):
-    """K10: one block per ciphertext, the whole chain in one launch.
-    shifts int32 [steps, B] in [0, 2n); acc0 int64 [B, C, n]; ev1, ev1s,
-    ev2, ev2s int32 [steps, C, l, C, 2, n].  Returns int64 [B, C, n]."""
+    """K10: one cluster of two blocks per ciphertext (one CRT prime each),
+    the whole chain in one launch.  shifts int32 [steps, B] in [0, 2n); acc0
+    int64 [B, C, n]; ev1, ev1s, ev2, ev2s int32 [steps, C, l, C, 2, n].
+    Returns int64 [B, C, n]."""
     dev = acc0.device
     _cuda.check(shifts, "shifts", dev)
     _cuda.check(acc0, "acc0", dev, dtype=torch.int64)
@@ -97,8 +133,10 @@ def blind_rotate_kernel(shifts, acc0, ev1, ev1s, ev2, ev2s, n: int, w: int):
         _cuda.check(e, name, dev)
     steps, B, C, l = _check_shapes(shifts, acc0, ev1, ev1s, ev2, ev2s, n, w)
     logn = _cuda.log2_degree(n)
-    if _smem_bytes(C, l, n) > _SMEM_LIMIT:
-        raise ValueError(f"C={C}, l={l}, n={n} needs {_smem_bytes(C, l, n)} "
+    plan = _plan(C, l, n, all(_cuda.aligned(e) for e in (ev1, ev1s, ev2,
+                                                          ev2s)))
+    if plan.smem_bytes > _SMEM_LIMIT:
+        raise ValueError(f"C={C}, l={l}, n={n} needs {plan.smem_bytes} "
                          f"bytes of shared memory (limit {_SMEM_LIMIT})")
     out = torch.empty_like(acc0)
     if B == 0:
@@ -114,7 +152,8 @@ def blind_rotate_kernel(shifts, acc0, ev1, ev1s, ev2, ev2s, n: int, w: int):
         dev, shifts.data_ptr(), acc0.data_ptr(), ev1.data_ptr(),
         ev1s.data_ptr(), ev2.data_ptr(), ev2s.data_ptr(), out.data_ptr(),
         tw[0].data_ptr(), tw[1].data_ptr(), twinv[0].data_ptr(),
-        twinv[1].data_ptr(), cons.data_ptr(), steps, B, C, l, w, logn)
+        twinv[1].data_ptr(), cons.data_ptr(), steps, B, C, l, w, logn,
+        plan.threads, plan.smem_bytes, int(plan.staged))
     return out
 
 

@@ -10,8 +10,10 @@ its own parameter set, and ``tfhe_cases`` for the two kernels of the TFHE
 bootstrap (the single-prime transform at the shapes of key generation, the
 whole-chain blind rotation), ``ckks_cases`` for the variants that RNS-CKKS
 and the hybrid rotations (``models/ckks/ckks_rns.py``, ``models/hybrid_ks.py``)
-launch, ``ext_sum_cases`` for the contraction-only base extension and
-``bench_cases`` for the two measuring loops of ``ops/alu_bench.py``.
+launch, ``ext_sum_cases`` for the contraction-only base extension,
+``bench_cases`` for the two measuring loops of ``ops/alu_bench.py`` and
+``blind_rotate_sweep`` for the blind rotation across ring degrees, gadget
+shapes, chain lengths and batches.
 ``chip_smoke.py`` and the card-marked tests run them on the card and require
 equal outputs.
 
@@ -481,9 +483,9 @@ def ntt_cases(n: int, k: int, l: int, steps: int, device,
     ]
 
 
-def blind_rotate_case(n: int, k: int, beta: int, l: int, steps: int,
-                      batch: int, device, gen: torch.Generator) -> Case:
-    """The whole-chain blind rotation of ``batch`` ciphertexts over
+def blind_rotate_inputs(n: int, k: int, beta: int, l: int, steps: int,
+                        batch: int, device, gen: torch.Generator) -> tuple:
+    """The arguments of the blind rotation of ``batch`` ciphertexts over
     ``steps`` CMux steps, on random keys, shifts and accumulators (any
     eval-domain residues do: the arithmetic is exact)."""
     C, w = k + 1, beta.bit_length() - 1
@@ -495,15 +497,69 @@ def blind_rotate_case(n: int, k: int, beta: int, l: int, steps: int,
                   for e, p in ((ev1, p1), (ev2, p2)))
     shifts = prng.uniform_mod(gen, (steps, batch), 2 * n, device).int()
     acc0 = prng.uniform_u64(gen, (batch, C, n), device)
+    return shifts, acc0, ev1.int(), ev1s, ev2.int(), ev2s, n, w
+
+
+def blind_rotate_case(n: int, k: int, beta: int, l: int, steps: int,
+                      batch: int, device, gen: torch.Generator) -> Case:
+    """The whole-chain blind rotation on blind_rotate_inputs."""
+    args = blind_rotate_inputs(n, k, beta, l, steps, batch, device, gen)
+    shifts, acc0, ev1 = args[:3]
     # the plain chain takes seconds at full width: timed once, no warm-up
     return _pair(
         "blind_rotate", f"steps={steps} B={batch} n={n} beta={beta} l={l}",
         4 * 4 * ev1.numel() + 2 * 8 * acc0.numel() + 4 * shifts.numel()
         + 4 * 4 * 2 * n,
-        steps * batch * sum(cmux_step_ops(n, C, l).values()),
-        brc.blind_rotate_kernel, brc.blind_rotate_plain,
-        shifts, acc0, ev1.int(), ev1s, ev2.int(), ev2s, n, w)._replace(
+        steps * batch * sum(cmux_step_ops(n, k + 1, l).values()),
+        brc.blind_rotate_kernel, brc.blind_rotate_plain, *args)._replace(
             kernel_reps=3, plain_reps=1, plain_warmup=0)
+
+
+BR_SWEEP_C = (2, 3)              # K10's component counts in the sweep,
+BR_SWEEP_L = (1, 2, 3)           # its gadget levels,
+BR_SWEEP_STEPS = (1, 2, 17)      # chain lengths
+BR_SWEEP_B = (1, 3, 64, 67, 133)  # and batches (67 and 133: more clusters
+                                 # than the card holds at once)
+
+
+def blind_rotate_sweep(device, gen: torch.Generator):
+    """K10 against its plain version (compared only, not timed) at every
+    ring degree its plan takes from 2^8, for each C in BR_SWEEP_C and l in
+    BR_SWEEP_L, over BR_SWEEP_STEPS steps on BR_SWEEP_B ciphertexts, on
+    random keys, shifts and accumulators (digits of w = 20, 12 or 21 bits);
+    and, at each shape, the key planes one word off their 16-byte alignment
+    (read from device memory word by word, not staged).  Yields the cases
+    one at a time, so that only one case's tensors live at once."""
+    for C in BR_SWEEP_C:
+        for l in BR_SWEEP_L:
+            w = {1: 20, 2: 12, 3: 21}[l]
+            for logn in range(8, 15):
+                n = 1 << logn
+                plan = brc._plan(C, l, n, False)
+                if plan.smem_bytes > brc._SMEM_LIMIT:
+                    continue
+                staged = brc._plan(C, l, n).staged
+                for steps in BR_SWEEP_STEPS:
+                    for B in BR_SWEEP_B:
+                        (shifts, acc0, ev1, ev1s, ev2, ev2s, _,
+                         _) = blind_rotate_inputs(n, C - 1, 1 << w, l, steps,
+                                                  B, device, gen)
+                        label = (f"C={C} l={l} w={w} steps={steps} B={B} "
+                                 f"n={n} {'staged' if staged else 'direct'}")
+                        yield (_pair(
+                            "blind_rotate", label, 0, 0,
+                            brc.blind_rotate_kernel, brc.blind_rotate_plain,
+                            shifts, acc0, ev1, ev1s, ev2, ev2s, n,
+                            w)._replace(timed=False))
+                    if steps == 2:
+                        off = [_offset_word(e) for e in (ev1, ev1s, ev2, ev2s)]
+                        yield (_pair(
+                            "blind_rotate", f"C={C} l={l} w={w} steps={steps}"
+                            f" B=3 n={n}, key planes one word off",
+                            0, 0, brc.blind_rotate_kernel,
+                            brc.blind_rotate_plain, shifts[:, :3].contiguous(),
+                            acc0[:3].contiguous(), *off, n,
+                            w)._replace(timed=False))
 
 
 def tfhe_cases(n: int, k: int, beta: int, l: int, steps: int, batch: int,

@@ -30,7 +30,10 @@ checkout's kernels and prints the build's seconds.
 Then it times the BFV chains of chip_smoke.py's phase 6 the same way (a
 chain of 4 of ``mul_e`` and ``mul`` with either relin key at B = 128, and of
 the linear step at N = 2^12, B = 1024; best of 3 after a warm-up), on keys
-and ciphertexts drawn from one seed, and prints ms an op.
+and ciphertexts drawn from one seed, and prints ms an op; and the TFHE
+chains of phase 9 (a chain of 3 of ``bootstrap`` and of
+``bootstrap_short`` at N = 1024, B = 64, each decrypt-checked first), as ms
+a batch and bootstraps/s.
 """
 
 import argparse
@@ -113,6 +116,10 @@ def main() -> None:
     print(f"chains {args.tree} [{card}]: "
           + ", ".join(f"{k} {v:.4f}" for k, v in per_op.items())
           + " ms an op", flush=True)
+    per_batch = tfhe_chains(dev, 3)
+    print(f"tfhe {args.tree} [{card}]: "
+          + ", ".join(f"{k} {v:.4f} ms a batch of 64 = {64e3 / v:.1f}/s"
+                      for k, v in per_batch.items()), flush=True)
 
 
 def yardsticks(param, batch: int, dev, gen) -> list:
@@ -170,6 +177,64 @@ def events_ms(fn, reps: int, busy=None):
     return ms if busy is None else (ms, host)
 
 
+def best_of_3(run) -> float:
+    """Least device ms of three calls of run after a warm-up."""
+    run()
+    runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        begin = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        begin.record()
+        run()
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(begin.elapsed_time(end))
+    return min(runs)
+
+
+def tfhe_chains(dev, chain: int) -> dict:
+    """ms a batch of each TFHE pipeline of chip_smoke.py's phase 9 (N = 1024,
+    K = 1, t = 8, B = 64, beta = 4096, l = 2, beta_ks = 16, l_ks = 8): a
+    chain of ``chain`` bootstraps, each fed the last one's output, best of
+    3; keys and messages from one seed."""
+    from fhe_study_tpu_torch.arith.params import TORUS_Q, RingParam
+    from fhe_study_tpu_torch.models.gfhe.glwe import ERR_SIGMA, Param
+    from fhe_study_tpu_torch.models.tfhe import bootstrap, tglwe, tlwe
+    gen = torch.Generator(device=dev).manual_seed(8)
+    tp = Param(ERR_SIGMA, RingParam(TORUS_Q, 1024), 1, 8)
+    kw = dict(beta=4096, l=2, beta_ks=16, l_ks=8)
+    s, _ = tglwe.new_key(gen, tp, dev)
+    s_flat = tglwe.sk_to_tlwe(s)
+    btk, _ = bootstrap.new_bootstrapping_key(gen, tp, s, s_lwe_out=s_flat,
+                                             **kw)
+    evals = bootstrap.precompute_btk_evals(tp, btk)
+    sbtk = bootstrap.new_short_bootstrapping_key(gen, tp, s, n_lwe=700, **kw)
+    sevals = bootstrap.precompute_short_btk_evals(tp, sbtk)
+    table = bootstrap.compute_lookup_table_standard(tp, dev)
+    msgs = torch.arange(64, device=dev) % 4
+    ct = tlwe.encrypt_uniform(gen, tp.lwe(), s_flat, tlwe.encode(tp, msgs),
+                              batch=(64,))
+    steps = {
+        "bootstrap": lambda c: bootstrap.bootstrap(
+            tp, btk, table, c, mode="standard", btk_evals=evals, **kw),
+        "bootstrap_short": lambda c: bootstrap.bootstrap_short(
+            tp, sbtk, table, c, btk_evals=sevals, **kw),
+    }
+    out = {}
+    for label, step in steps.items():
+        def run():
+            c = ct
+            for _ in range(chain):
+                c = step(c)
+            return c
+        got = tlwe.decode(tp, tlwe.decrypt(tp.lwe(), s_flat, run()))
+        if not torch.equal(got, msgs):
+            raise RuntimeError(f"{label}: a chain of {chain} decrypts wrong")
+        out[label] = best_of_3(run) / chain
+    return out
+
+
 def bfv_chains(R, dev, chain: int) -> dict:
     """ms an op of each BFV chain of chip_smoke.py's phase 6, best of 3."""
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -200,18 +265,7 @@ def bfv_chains(R, dev, chain: int) -> dict:
             c = start
             for _ in range(chain):
                 c = step(c)
-        run()
-        runs = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            begin = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            begin.record()
-            run()
-            end.record()
-            torch.cuda.synchronize()
-            runs.append(begin.elapsed_time(end))
-        out[label] = min(runs) / chain
+        out[label] = best_of_3(run) / chain
     return out
 
 

@@ -208,7 +208,8 @@ def test_supported():
     assert not brc.supported(big, 1 << 14, 2)           # CRT capacity
     wide = G.Param(G.ERR_SIGMA, RingParam(TORUS_Q, 1 << 14), 1, T)
     assert not brc.supported(wide, 16, 2)               # shared memory
-    assert brc._smem_bytes(2, 2, 1024) == 80 * 1024
+    # one prime's buffers a block, the step's key planes staged beside them
+    assert brc._plan(2, 2, 1024).smem_bytes == 208 * 1024 + 32
 
 
 @pytest.mark.parametrize("mode", ["standard", "standard_own_evals",

@@ -68,11 +68,12 @@ def test_radix_kernels_match_plain_at_every_degree(cuda, logn):
 def test_radix_kernels_have_no_stack_frame_or_spills(cuda):
     """Every instance of the redesigned kernels: K2 and K3 per log n, K1
     (both ways) per log n, K5 and K6 per log n and source count form, K4 per
-    source count and form."""
+    source count and form, K10 per log n, staged and direct."""
     report = _cuda.ptxas_report(_cuda.build_log())
     counts = {"tensor_eval4_kernel": 7, "ks_contract_kernel": 7,
               "ext_ntt_kernel": 7 * 3, "tensor_mul4_kernel": 7 * 3,
-              "ntt_multi_kernel": 7 * 2, "base_extend_kernel": 15 * 2}
+              "ntt_multi_kernel": 7 * 2, "base_extend_kernel": 15 * 2,
+              "blind_rotate_kernel": 7 * 2}
     radix = [r for r in report if r["kernel"].split("<")[0] in counts]
     for name, count in counts.items():
         assert sum(r["kernel"].split("<")[0] == name for r in radix) == count
@@ -105,6 +106,51 @@ def test_redesigned_kernels_refuse_another_plan(cuda):
             _cuda.BASE_EXTEND.launch(cuda, src.data_ptr(), None,
                                      out.data_ptr(), tab.data_ptr(), 4, 2,
                                      total, 0, 1)
+
+
+def test_blind_rotate_clusters_match_plain(cuda):
+    """K10 on its two-block clusters at n = 2^8 and 2^9 (the shapes of
+    kernel_check.blind_rotate_sweep there: C = 2, 3; l = 1, 2, 3; 1, 2 and
+    17 steps; 1 to 133 ciphertexts; staged, direct and unaligned key
+    planes), bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    done = 0
+    for case in kernel_check.blind_rotate_sweep(cuda, gen):
+        if "n=1024" in case.label or "n=2048" in case.label:
+            continue
+        got, want = case.kernel(), case.plain()
+        torch.cuda.synchronize()
+        assert kernel_check.equal(got, want), case.label
+        done += 1
+    assert done > 100
+
+
+def test_blind_rotate_refuses_another_plan(cuda):
+    """K10 refuses a block size, shared memory or staging other than its
+    plan's, and staging from planes that are not 16-byte aligned."""
+    n, C, l = 256, 2, 2
+    shifts = torch.zeros((2, 1), dtype=torch.int32, device=cuda)
+    acc0 = torch.zeros((1, C, n), dtype=torch.int64, device=cuda)
+    ev = torch.zeros((2, C, l, C, 2, n), dtype=torch.int32, device=cuda)
+    tw = ntt_cuda._twiddles((998244353, 754974721), n, False, cuda)
+    cons = ntt_cuda._prime_rows((998244353, 754974721, 754974721), None, cuda)
+    plan = blind_rotate_cuda._plan(C, l, n)
+    assert plan.staged
+    direct = blind_rotate_cuda._plan(C, l, n, False)
+    off = ev.view(-1)[1:].view(-1)
+    for key, threads, smem, staged in (
+            (ev, plan.threads // 2, plan.smem_bytes, 1),
+            (ev, plan.threads, plan.smem_bytes + 16, 1),
+            (ev, plan.threads, direct.smem_bytes, 1),
+            (ev, plan.threads, plan.smem_bytes, 0),
+            (off, plan.threads, plan.smem_bytes, 1)):
+        with pytest.raises(RuntimeError, match="fhe_blind_rotate"):
+            _cuda.BLIND_ROTATE.launch(
+                cuda, shifts.data_ptr(), acc0.data_ptr(), key.data_ptr(),
+                key.data_ptr(), key.data_ptr(), key.data_ptr(),
+                acc0.data_ptr(), tw[0].data_ptr(), tw[1].data_ptr(),
+                tw[0].data_ptr(), tw[1].data_ptr(), cons.data_ptr(), 2, 1, C,
+                l, 12, 8, threads, smem, staged)
 
 
 def test_linear_kernels_match_plain(cuda):
