@@ -27,12 +27,15 @@ Phases, each of which raises (and so exits non-zero) on any failure:
      on unaligned rows; K3 from 1, 2, 4 and 9 digit rows over 2 and 6
      primes, aligned and word-offset; K6 (and tensor_mul) with and without a
      scale on contiguous, strided, stacked and unaligned rows and from 1 to
-     5 source primes; K10 on its two-block clusters at every n its plan
-     takes, C = 2 and 3, l = 1, 2 and 3, over 1, 2 and 17 steps on 1, 3,
-     64, 67 and 133 ciphertexts (kernel_check.blind_rotate_sweep), staged
-     and direct key planes and planes one word off; ptxas's registers, stack
-     frame and spills of every kernel (phase 1), which must show neither for
-     K1-K6 and K10;
+     5 source primes; K7 and K8 from 1, 2, 4 and 9 limb rows over 30-bit
+     primes to 2 and 6 primes of 28 bits (reps >= 2), 39 rows to 2 primes
+     at n = 2^11, R = L = 4 on the paths' strided views (K8's adds too) and
+     every operand one word off; K10 on its two-block clusters at every n
+     its plan takes, C = 2 and 3, l = 1, 2 and 3, over 1, 2 and 17 steps on
+     1, 3, 64, 67 and 133 ciphertexts (kernel_check.blind_rotate_sweep),
+     staged and direct key planes and planes one word off; ptxas's
+     registers, stack frame and spills of every kernel (phase 1), which must
+     show neither for K1-K8 and K10;
   3. the eval-resident path: keygen -> hybrid relin key -> encrypt 128
      plaintext pairs -> to_evals -> mul_e -> from_evals -> decrypt;
   4. the coefficient-domain and gadget paths on the same ciphertexts: mul
@@ -124,11 +127,13 @@ MEMORY_BYTES_PER_S = 3.35e12
 INSTR_PER_SM_CLOCK = 128
 ALU_SHORT_ROUNDS = 1024      # the timed alu_rate launch is held in such pieces
 # the redesigned kernels: K1, K2, K3, K5, K6 (tensor_mul4 and, on row
-# strides, tensor_mul) and K10 (blind_rotate) on csrc/radix_chain.cuh, K4
-# (and K5, K6) with the source count at compile time; ptxas must give no
-# instance of them a stack frame or spills
+# strides, tensor_mul), K7, K8 (ks_fused, ks_fused_eval) and K10
+# (blind_rotate) on csrc/radix_chain.cuh, K4 (and K5, K6) with the source
+# count at compile time; ptxas must give no instance of them a stack frame
+# or spills
 RADIX_KERNELS = {"ntt_multi", "tensor_eval4", "ks_contract", "ext_ntt",
-                 "base_extend", "tensor_mul4", "tensor_mul", "blind_rotate"}
+                 "base_extend", "tensor_mul4", "tensor_mul", "ks_fused",
+                 "ks_fused_eval", "blind_rotate"}
 RADIX_BATCH = 3              # the small odd batch of their every-degree sweep
 
 
@@ -282,6 +287,10 @@ def main() -> None:
         f"contiguous and word-offset rows), tensor_eval4 (contiguous, strided, "
         f"unaligned rows), ks_contract ({kernel_check.KS_SWEEP_R} digit rows "
         f"over {kernel_check.KS_SWEEP_LP} primes, aligned and word-offset), "
+        f"ks_fused and ks_fused_eval ({kernel_check.KS_SWEEP_R} limb rows over "
+        f"{kernel_check.KS_SWEEP_LP} narrower primes, "
+        f"{kernel_check.KS_BOOT_R} rows at n = 2^{kernel_check.KS_BOOT_LOGN}, "
+        f"strided and word-offset), "
         f"tensor_mul4 and tensor_mul (with and without a scale; contiguous, "
         f"strided, stacked and unaligned rows; from 1 to 5 source primes), "
         f"ext_ntt (from 1 to 5 source primes) and "

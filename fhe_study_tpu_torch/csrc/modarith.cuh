@@ -1,7 +1,7 @@
 // Device code shared by the RNS kernels: exact arithmetic mod q < 2^31 on
 // 32-bit lanes, the negacyclic NTT stage chains of one polynomial held in
-// shared memory (one stage a barrier: K7, K8, K9 and K12 run them; K1-K6 run
-// the register-resident regrouping of radix_chain.cuh), and the
+// shared memory (one stage a barrier: K9 and K12 run them; K1-K3, K5-K8
+// and K10 run the register-resident regrouping of radix_chain.cuh), and the
 // per-coefficient HPS base conversion.
 //
 // Every residue is canonical in [0, q) with q < 2^31 (the package stores
@@ -22,12 +22,6 @@ constexpr int kMaxSrc = 15;
 constexpr int kMinLogN = 8;
 constexpr int kMaxLogN = 14;
 constexpr int kChainThreads = 512;
-// The fused key-switching kernels (K7, K8) keep per-thread partial results
-// (one or two words per coefficient a thread owns) in registers across a
-// stage chain, so they run wider blocks: at n = 2^14 a thread owns
-// n / kFusedThreads coefficients.
-constexpr int kFusedThreads = 1024;
-constexpr int kFusedPer = (1 << kMaxLogN) / kFusedThreads;
 
 __device__ __forceinline__ uint32_t addmod(uint32_t a, uint32_t b, uint32_t q) {
   const uint32_t s = a + b;

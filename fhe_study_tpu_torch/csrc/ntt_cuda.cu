@@ -1,19 +1,19 @@
 // Hopper kernels of the negacyclic transforms on the RNS-BFV main path.
 //
 // Each kernel replaces one Pallas kernel of fhe_study_tpu/ops/ntt_pallas.py.
-// Five live in translation units of their own, so that their unrolled
+// Seven live in translation units of their own, so that their unrolled
 // instances compile in parallel: K1 fhe_ntt_multi <- ntt_multi_u32
 // (csrc/ntt_multi_cuda.cu), K3 fhe_ks_contract <- ks_contract_u32
 // (csrc/ks_contract_cuda.cu), K5 fhe_ext_ntt <- ext_ntt_u32
-// (csrc/ext_ntt_cuda.cu) and K6 fhe_tensor_mul4 <- tensor_mul4_u32 and
-// tensor_mul_u32 (csrc/tensor_mul4_cuda.cu).  Here:
+// (csrc/ext_ntt_cuda.cu), K6 fhe_tensor_mul4 <- tensor_mul4_u32 and
+// tensor_mul_u32 (csrc/tensor_mul4_cuda.cu), K7 fhe_ks_fused <- ks_fused_u32
+// (csrc/ks_fused_cuda.cu) and K8 fhe_ks_fused_eval <- ks_fused_eval_u32
+// (csrc/ks_fused_eval_cuda.cu).  Here:
 //   fhe_tensor_eval4   <- tensor_eval4_u32  (_tensor_eval_kernel)
-//   fhe_ks_fused       <- ks_fused_u32      (_ks_kernel_multi, fwd=True)
-//   fhe_ks_fused_eval  <- ks_fused_eval_u32 (_ks_eval_kernel)
 //   fhe_ntt            <- ntt_u32           (_ntt_kernel): one scalar prime,
 //                         a flat batch, 64-bit words in and out
 //
-// fhe_tensor_eval4 (K2), like K1, K3, K5 and K6, runs the register-resident
+// fhe_tensor_eval4 (K2), like K1, K3 and K5-K8, runs the register-resident
 // chain of radix_chain.cuh: four stages a pass on 16 words a thread in
 // registers, ceil(log n / 4) - 1 exchanges through swizzled shared memory
 // (3 barriers at n = 2^14 where the one-stage chain takes 14), the twiddles
@@ -25,26 +25,17 @@
 // (shared-memory words and their addresses, twiddle loads) and the latency
 // around the barriers.
 //
-// fhe_ntt (K9), fhe_ks_fused (K7) and fhe_ks_fused_eval (K8) run the
-// one-stage chains of modarith.cuh (forward_chain / inverse_chain): a block
-// holds its whole length-n polynomial (n = 2^8 .. 2^14, at most 64 KB) in
-// dynamic shared memory and runs all log n butterfly stages there, a barrier
-// a stage, so device memory sees one read of the operands and one write of
-// the result.  Twiddles come from per-prime [L, n] bit-reversed tables with
-// Shoup companions (no per-stage tables: the TPU needed those only to avoid
-// gathers under its (8, 128) tiling).  What bounds them: each butterfly's two
-// shared-memory loads and stores, two twiddle loads and 13 integer
-// instructions, and a barrier a stage; on the H100 such a chain reaches a
-// third of the butterfly's issue rate (K12 measures it).
-//
-// K7 and K8 start from limb residues and run R forward chains, the key
-// contraction and the inverse chains in one launch, one block per (prime,
-// polynomial).  A block cannot hold all of its polynomials in shared memory
-// at once (64 KB each at n = 2^14 against 227 KB), so each thread keeps the
-// running sums of the coefficients it owns in registers (at most kFusedPer
-// words per array) while shared memory is reused for the next forward chain;
-// 1024 threads a block, one block an SM.  They are the next to move onto the
-// register-resident chain.
+// fhe_ntt (K9) runs the one-stage chains of modarith.cuh (forward_chain /
+// inverse_chain): a block holds its whole length-n polynomial (n = 2^8 ..
+// 2^14, at most 64 KB) in dynamic shared memory and runs all log n
+// butterfly stages there, a barrier a stage, so device memory sees one read
+// of the operands and one write of the result.  Twiddles come from
+// per-prime [L, n] bit-reversed tables with Shoup companions (no per-stage
+// tables: the TPU needed those only to avoid gathers under its (8, 128)
+// tiling).  What bounds it: each butterfly's two shared-memory loads and
+// stores, two twiddle loads and 13 integer instructions, and a barrier a
+// stage; on the H100 such a chain reaches a third of the butterfly's issue
+// rate (K12 measures it).
 //
 // Every entry point launches on the given stream and returns
 // cudaGetLastError(); a refused launch never runs, so the caller raises.
@@ -167,147 +158,6 @@ tensor_eval4_kernel(const uint32_t* __restrict__ x0,
   }
 }
 
-// The coefficients thread t owns for the pointwise passes of the fused
-// kernels: i = t + j * blockDim.x for j < n / blockDim.x <= kFusedPer.  The
-// loops over j are fully unrolled so the per-thread arrays stay in registers.
-#define FHE_OWNED(j, i, n)                                          \
-  _Pragma("unroll") for (int j = 0; j < kFusedPer; ++j)             \
-    for (int i = threadIdx.x + j * blockDim.x; i < (n); i = (n))
-
-// The gadget contraction shared by K7 and K8, for one (b, p): digit row r is
-// limb r of the ciphertext reduced mod this prime by `reps` conditional
-// subtractions (as the reference does; reps covers max(src) / min(primes)),
-// transformed forward in `work`, and multiplied into the two accumulators
-// against the key rows kb[r, p] and ka[r, p] (canonical eval-domain
-// residues, so each Montgomery product carries a factor 2^-32).  c points at
-// limb 0 of polynomial b; limb r starts r * sl words on.
-__device__ __forceinline__ void ks_accumulate(
-    const uint32_t* c, long long sl, const uint32_t* kb, const uint32_t* ka,
-    int R, int Lp, int p, int reps, uint32_t* work, int logn,
-    const uint32_t* w, const uint32_t* wsh, const PrimeRow& pr,
-    uint32_t (&acc0)[kFusedPer], uint32_t (&acc1)[kFusedPer]) {
-  const int n = 1 << logn;
-#pragma unroll
-  for (int j = 0; j < kFusedPer; ++j) acc0[j] = acc1[j] = 0;
-  for (int r = 0; r < R; ++r) {
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      uint32_t v = c[r * sl + i];
-      for (int k = 0; k < reps; ++k) v = v >= pr.q ? v - pr.q : v;
-      work[i] = v;
-    }
-    __syncthreads();
-    forward_chain(work, logn, w, wsh, pr.q);
-    const size_t krow = (static_cast<size_t>(r) * Lp + p) * n;
-    FHE_OWNED(j, i, n) {
-      const uint32_t d = work[i];
-      acc0[j] = addmod(acc0[j], mont_mul(d, kb[krow + i], pr.q, pr.nq), pr.q);
-      acc1[j] = addmod(acc1[j], mont_mul(d, ka[krow + i], pr.q, pr.nq), pr.q);
-    }
-    __syncthreads();
-  }
-}
-
-// K7: gadget key switch from limb residues, one block per (b, p): the
-// contraction above, then for each key half the inverse chain and the final
-// multiply by n^-1 * 2^32.  Output [2, Lp, B, n].
-__global__ void __launch_bounds__(kFusedThreads)
-ks_fused_kernel(const uint32_t* __restrict__ c, long long sl, long long sb,
-                const uint32_t* __restrict__ kb,
-                const uint32_t* __restrict__ ka, uint32_t* __restrict__ out,
-                const uint32_t* __restrict__ tw,
-                const uint32_t* __restrict__ tw_sh,
-                const uint32_t* __restrict__ twinv,
-                const uint32_t* __restrict__ twinv_sh,
-                const uint32_t* __restrict__ cons, int R, int Lp, int B,
-                int logn, int reps) {
-  extern __shared__ uint32_t a[];
-  const int n = 1 << logn;
-  const int b = blockIdx.x;
-  const int p = blockIdx.y;
-  const PrimeRow pr = prime_row(cons, p);
-  uint32_t acc0[kFusedPer], acc1[kFusedPer];
-  ks_accumulate(c + b * sb, sl, kb, ka, R, Lp, p, reps, a, logn,
-                tw + static_cast<size_t>(p) * n,
-                tw_sh + static_cast<size_t>(p) * n, pr, acc0, acc1);
-  for (int h = 0; h < 2; ++h) {
-    FHE_OWNED(j, i, n) a[i] = h == 0 ? acc0[j] : acc1[j];
-    __syncthreads();
-    inverse_chain(a, logn, twinv + static_cast<size_t>(p) * n,
-                  twinv_sh + static_cast<size_t>(p) * n, pr.q);
-    const size_t orow = ((static_cast<size_t>(h) * Lp + p) * B + b) * n;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      out[orow + i] = shoup_mul(a[i], pr.fin, pr.fin_sh, pr.q);
-    }
-    __syncthreads();
-  }
-}
-
-// K8: gadget relinearization of an eval-resident ciphertext, one block per
-// (b, p): the contraction above; then for each half the forward chain of
-// the add operand (c0 or c1), e = acc * (2^32 mod q) + NTT(add) — the
-// re-lift undoes the Montgomery products' 2^-32 before the eval-domain add
-// — written out as the eval-domain result, and its inverse chain times the
-// plain n^-1 as the coefficient-domain result.  Output [4, Lp, B, n]:
-// (e0, e1, r0, r1).  `lift` holds 2^32 mod q as its final multiplier.
-__global__ void __launch_bounds__(kFusedThreads)
-ks_fused_eval_kernel(const uint32_t* __restrict__ c, long long sl,
-                     long long sb, const uint32_t* __restrict__ kb,
-                     const uint32_t* __restrict__ ka,
-                     const uint32_t* __restrict__ add0, long long al0,
-                     long long ab0, const uint32_t* __restrict__ add1,
-                     long long al1, long long ab1,
-                     uint32_t* __restrict__ out,
-                     const uint32_t* __restrict__ tw,
-                     const uint32_t* __restrict__ tw_sh,
-                     const uint32_t* __restrict__ twinv,
-                     const uint32_t* __restrict__ twinv_sh,
-                     const uint32_t* __restrict__ cons,
-                     const uint32_t* __restrict__ lift, int R, int Lp, int B,
-                     int logn, int reps) {
-  extern __shared__ uint32_t a[];
-  const int n = 1 << logn;
-  const int b = blockIdx.x;
-  const int p = blockIdx.y;
-  const PrimeRow pr = prime_row(cons, p);
-  const PrimeRow rl = prime_row(lift, p);
-  const uint32_t* w = tw + static_cast<size_t>(p) * n;
-  const uint32_t* wsh = tw_sh + static_cast<size_t>(p) * n;
-  uint32_t acc0[kFusedPer], acc1[kFusedPer];
-  ks_accumulate(c + b * sb, sl, kb, ka, R, Lp, p, reps, a, logn, w, wsh, pr,
-                acc0, acc1);
-  const size_t plane = static_cast<size_t>(Lp) * B * n;
-  const size_t row = (static_cast<size_t>(p) * B + b) * n;
-  for (int h = 0; h < 2; ++h) {
-    const uint32_t* add = h == 0 ? add0 + p * al0 + b * ab0
-                                 : add1 + p * al1 + b * ab1;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) a[i] = add[i];
-    __syncthreads();
-    forward_chain(a, logn, w, wsh, pr.q);
-    FHE_OWNED(j, i, n) {
-      const uint32_t acc = h == 0 ? acc0[j] : acc1[j];
-      const uint32_t ev =
-          addmod(shoup_mul(acc, rl.fin, rl.fin_sh, pr.q), a[i], pr.q);
-      out[h * plane + row + i] = ev;
-      a[i] = ev;
-    }
-    __syncthreads();
-    inverse_chain(a, logn, twinv + static_cast<size_t>(p) * n,
-                  twinv_sh + static_cast<size_t>(p) * n, pr.q);
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      out[(2 + h) * plane + row + i] =
-          shoup_mul(a[i], pr.fin, pr.fin_sh, pr.q);
-    }
-    __syncthreads();
-  }
-}
-
-#undef FHE_OWNED
-
-int fused_threads(int logn) {
-  const int half = 1 << (logn - 1);
-  return half < kFusedThreads ? half : kFusedThreads;
-}
-
 bool bad_logn(int logn) { return logn < kMinLogN || logn > kMaxLogN; }
 
 struct TensorEval4Launch {
@@ -357,42 +207,4 @@ extern "C" int fhe_tensor_eval4(const uint32_t* x0, const uint32_t* x1,
                                     static_cast<int>(blocks), stream, x0, x1,
                                     y0, y1, st, out, twinv, twinv_sh, cons, B,
                                     static_cast<int>(vec));
-}
-
-extern "C" int fhe_ks_fused(const uint32_t* c, long long sl, long long sb,
-                            const uint32_t* kb, const uint32_t* ka,
-                            uint32_t* out, const uint32_t* tw,
-                            const uint32_t* tw_sh, const uint32_t* twinv,
-                            const uint32_t* twinv_sh, const uint32_t* cons,
-                            int R, int Lp, int B, int logn, int reps,
-                            cudaStream_t stream) {
-  if (bad_logn(logn) || R < 1 || reps < 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t smem = sizeof(uint32_t) << logn;
-  cudaError_t err = allow_smem(ks_fused_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ks_fused_kernel<<<dim3(B, Lp), fused_threads(logn), smem, stream>>>(
-      c, sl, sb, kb, ka, out, tw, tw_sh, twinv, twinv_sh, cons, R, Lp, B,
-      logn, reps);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int fhe_ks_fused_eval(
-    const uint32_t* c, long long sl, long long sb, const uint32_t* kb,
-    const uint32_t* ka, const uint32_t* add0, long long al0, long long ab0,
-    const uint32_t* add1, long long al1, long long ab1, uint32_t* out,
-    const uint32_t* tw, const uint32_t* tw_sh, const uint32_t* twinv,
-    const uint32_t* twinv_sh, const uint32_t* cons, const uint32_t* lift,
-    int R, int Lp, int B, int logn, int reps, cudaStream_t stream) {
-  if (bad_logn(logn) || R < 1 || reps < 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t smem = sizeof(uint32_t) << logn;
-  cudaError_t err = allow_smem(ks_fused_eval_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ks_fused_eval_kernel<<<dim3(B, Lp), fused_threads(logn), smem, stream>>>(
-      c, sl, sb, kb, ka, add0, al0, ab0, add1, al1, ab1, out, tw, tw_sh,
-      twinv, twinv_sh, cons, lift, R, Lp, B, logn, reps);
-  return static_cast<int>(cudaGetLastError());
 }

@@ -4,9 +4,10 @@
 // kRadix = 16 coefficients held in registers between two exchanges through
 // shared memory.  K1 (ntt_multi, csrc/ntt_multi_cuda.cu), K2 (tensor_eval4,
 // csrc/ntt_cuda.cu), K3 (ks_contract, csrc/ks_contract_cuda.cu), K5
-// (ext_ntt, csrc/ext_ntt_cuda.cu) and K6 (tensor_mul4 and tensor_mul,
-// csrc/tensor_mul4_cuda.cu) run them; the one-stage-a-barrier chains of
-// modarith.cuh stay for K7-K9 and K12.
+// (ext_ntt, csrc/ext_ntt_cuda.cu), K6 (tensor_mul4 and tensor_mul,
+// csrc/tensor_mul4_cuda.cu), K7 and K8 (ks_fused and ks_fused_eval,
+// csrc/ks_fused.cuh) and K10 (blind_rotate, csrc/blind_rotate_cuda.cu) run
+// them; the one-stage-a-barrier chains of modarith.cuh stay for K9 and K12.
 //
 // Element a of the polynomial has log n bits.  A pass holds bits
 // [c, c + 4) of a in registers: virtual thread v owns the 16 elements
@@ -50,8 +51,9 @@ constexpr int kRadix = 1 << kRadixBits;
 // 16 coefficients are live in its registers at a time; kRadixBlocks such
 // blocks fit an SM (3 x 64 KB of shared memory at n = 2^14, and up to 85
 // registers a thread, which K5's conversion needs beside its 16 words).  A
-// kernel that holds more polynomials on chip (K6: three buffers, 192 KB at
-// n = 2^14, one block an SM) names its own thread count in RadixShape.
+// kernel that holds more polynomials on chip (K6, K7 and K8: three buffers,
+// 192 KB at n = 2^14, one block an SM) names its own thread count in
+// RadixShape.
 constexpr int kRadixThreads = 256;
 constexpr int kRadixBlocks = 3;
 

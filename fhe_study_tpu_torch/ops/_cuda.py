@@ -235,15 +235,16 @@ TENSOR_MUL4 = Kernel("tensor_mul4", "fhe_tensor_mul4", _MUL4_CU,
 TENSOR_MUL = Kernel("tensor_mul", "fhe_tensor_mul4", _MUL4_CU,
                     "fhe_study_tpu/ops/ntt_pallas.py:604",
                     *_TENSOR_MUL4_ARGS)
-KS_FUSED = Kernel("ks_fused", "fhe_ks_fused", _NTT_CU,
+KS_FUSED = Kernel("ks_fused", "fhe_ks_fused",
+                  "fhe_study_tpu_torch/csrc/ks_fused_cuda.cu",
                   "fhe_study_tpu/ops/ntt_pallas.py:1103",
                   PTR, I64, I64, PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR,
-                  INT, INT, INT, INT, INT)
-KS_FUSED_EVAL = Kernel("ks_fused_eval", "fhe_ks_fused_eval", _NTT_CU,
+                  *([INT] * 7))
+KS_FUSED_EVAL = Kernel("ks_fused_eval", "fhe_ks_fused_eval",
+                       "fhe_study_tpu_torch/csrc/ks_fused_eval_cuda.cu",
                        "fhe_study_tpu/ops/ntt_pallas.py:1216",
                        PTR, I64, I64, PTR, PTR, PTR, I64, I64, PTR, I64, I64,
-                       PTR, PTR, PTR, PTR, PTR, PTR, PTR,
-                       INT, INT, INT, INT, INT)
+                       PTR, PTR, PTR, PTR, PTR, PTR, PTR, *([INT] * 7))
 NTT = Kernel("ntt", "fhe_ntt", _NTT_CU,
              "fhe_study_tpu/ops/ntt_pallas.py:1296",
              PTR, PTR, PTR, PTR, PTR, INT, INT, INT)

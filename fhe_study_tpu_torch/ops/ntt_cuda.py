@@ -1,6 +1,7 @@
 """The transform kernels of the main path — ``csrc/ntt_cuda.cu``, with K1,
-K3, K5 and K6 in ``csrc/ntt_multi_cuda.cu``, ``ks_contract_cuda.cu``,
-``ext_ntt_cuda.cu`` and ``tensor_mul4_cuda.cu`` — with their host tables,
+K3, K5, K6, K7 and K8 in ``csrc/ntt_multi_cuda.cu``, ``ks_contract_cuda.cu``,
+``ext_ntt_cuda.cu``, ``tensor_mul4_cuda.cu``, ``ks_fused_cuda.cu`` and
+``ks_fused_eval_cuda.cu`` — with their host tables,
 launch wrappers and plain PyTorch versions; the counterpart of
 fhe_study_tpu/ops/ntt_pallas.py.
 
@@ -93,12 +94,13 @@ def _tensor_fin(dst: tuple, n: int, scale: tuple | None) -> tuple:
                  for j, q in enumerate(dst))
 
 
-# -- the register-resident chains of K1-K6 ---------------------------------
+# -- the register-resident chains of K1-K3 and K5-K8 ------------------------
 
 RADIX_BITS = 4          # kRadixBits of csrc/radix_chain.cuh: 16 words a thread
 RADIX_THREADS = 256     # kRadixThreads: the most threads a block runs
-MUL4_THREADS = 512      # kMul4Threads of csrc/tensor_mul4_cuda.cu (K6) ...
-MUL4_BUFFERS = 3        # ... which holds three polynomials in shared memory
+MUL4_THREADS = 512      # kMul4Threads of csrc/tensor_mul4.cuh (K6) and
+                        # kKsThreads of csrc/ks_fused.cuh (K7, K8) ...
+MUL4_BUFFERS = 3        # ... which hold three polynomials in shared memory
 
 
 class RadixPass(NamedTuple):
@@ -481,8 +483,10 @@ def _ks_operands(c_limbs, kb, ka, primes: tuple):
 
 
 def ks_fused_kernel(c_limbs, kb, ka, primes: tuple, src_primes: tuple):
-    """K7: one block per (prime, polynomial).  c_limbs [R, B.., n] may be a
-    strided view; kb/ka [R, Lp, n]."""
+    """K7: one block per (prime, polynomial), R + 2 transforms on the
+    register-resident chain (``_radix_plan`` at MUL4_THREADS threads and
+    three buffers).  c_limbs [R, B.., n] may be a strided view; kb/ka
+    [R, Lp, n] are read as uint4 when both are 16-byte aligned."""
     dev = c_limbs.device
     primes = tuple(primes)
     Lp, n = len(primes), c_limbs.shape[-1]
@@ -494,20 +498,23 @@ def ks_fused_kernel(c_limbs, kb, ka, primes: tuple, src_primes: tuple):
     if B > 0:
         tw, twinv = (_twiddles(primes, n, inv, dev) for inv in (False, True))
         cons = _prime_rows(primes, _tensor_fin(primes, n, None), dev)
+        plan = _radix_plan(logn, MUL4_THREADS, MUL4_BUFFERS)
         _cuda.KS_FUSED.launch(dev, c.data_ptr(), c.stride(0), c.stride(1),
                               kb.data_ptr(), ka.data_ptr(), out.data_ptr(),
                               tw[0].data_ptr(), tw[1].data_ptr(),
                               twinv[0].data_ptr(), twinv[1].data_ptr(),
                               cons.data_ptr(), R, Lp, B, logn,
-                              digit_reps(primes, src_primes))
+                              digit_reps(primes, src_primes), plan.threads,
+                              plan.smem_bytes)
     return out[0], out[1]
 
 
 def ks_fused_eval_kernel(c_limbs, kb, ka, primes: tuple, src_primes: tuple,
                          adds):
-    """K8: one block per (prime, polynomial).  c_limbs [R, B.., n] and the
-    two ``adds`` [Lp, B.., n] may be strided views.  Returns (e0, e1, r0, r1),
-    each [Lp, B.., n]."""
+    """K8: K7's kernel with the two ``adds`` transformed in it too (R + 4
+    transforms a block).  c_limbs [R, B.., n] and the two ``adds``
+    [Lp, B.., n] may be strided views.  Returns (e0, e1, r0, r1), each
+    [Lp, B.., n]."""
     dev = c_limbs.device
     primes = tuple(primes)
     Lp, n = len(primes), c_limbs.shape[-1]
@@ -524,11 +531,13 @@ def ks_fused_eval_kernel(c_limbs, kb, ka, primes: tuple, src_primes: tuple,
         tw, twinv = (_twiddles(primes, n, inv, dev) for inv in (False, True))
         cons = _prime_rows(primes, _default_fin(primes, n, True, None), dev)
         lift = _prime_rows(primes, tuple(R32 % q for q in primes), dev)
+        plan = _radix_plan(logn, MUL4_THREADS, MUL4_BUFFERS)
         _cuda.KS_FUSED_EVAL.launch(
             dev, c.data_ptr(), c.stride(0), c.stride(1), kb.data_ptr(),
             ka.data_ptr(), a0.data_ptr(), a0.stride(0), a0.stride(1),
             a1.data_ptr(), a1.stride(0), a1.stride(1), out.data_ptr(),
             tw[0].data_ptr(), tw[1].data_ptr(), twinv[0].data_ptr(),
             twinv[1].data_ptr(), cons.data_ptr(), lift.data_ptr(), R, Lp, B,
-            logn, digit_reps(primes, src_primes))
+            logn, digit_reps(primes, src_primes), plan.threads,
+            plan.smem_bytes)
     return out[0], out[1], out[2], out[3]

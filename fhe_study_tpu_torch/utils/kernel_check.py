@@ -288,13 +288,14 @@ EXT_SWEEP_LS = (1, 2, 3, 4, 5, 15)      # K4's source counts in the sweep
 EXT_SWEEP_LD = (1, 4, 5)                # and its destination counts
 
 
-KS_SWEEP_R = (1, 2, 4, 9)               # K3's digit rows in the sweep
-KS_SWEEP_LP = (2, 6)                    # and its prime counts
+KS_SWEEP_R = (1, 2, 4, 9)               # K3's, K7's and K8's digit rows in
+KS_SWEEP_LP = (2, 6)                    # the sweep, and their prime counts
+KS_BOOT_R, KS_BOOT_LOGN = 39, 11        # K7/K8 at the CKKS-bootstrap rows
 
 
 def radix_cases(logn: int, batch: int, device, gen: torch.Generator) -> list:
     """The redesigned kernels at ring degree 2^logn on a small batch
-    (compared only, not timed): K1, K2, K3, K5 and K6 on the
+    (compared only, not timed): K1, K2, K3 and K5-K8 on the
     register-resident chains, whose pass structure differs with log n, and
     K4, whose instance differs with the source count.
 
@@ -312,6 +313,12 @@ def radix_cases(logn: int, batch: int, device, gen: torch.Generator) -> list:
           tensor_mul (row strides), rows that are not 16-byte aligned, and
           from 1 to 5 source primes (4: its own instance; the others: the
           generic one) to 5 destination primes;
+      K7, K8: KS_SWEEP_R limb rows over 30-bit source primes to each of
+          KS_SWEEP_LP 28-bit primes (reps >= 2), plus KS_BOOT_R rows to 2
+          primes at n = 2^KS_BOOT_LOGN; the paths' form (R = L = 4 over the
+          same primes, c_limbs and K8's adds strided views of one [L, B, 3,
+          n] tensor); and c_limbs, kb and ka one word off the 16-byte
+          alignment (the keys' word-by-word reads);
       K4: from each of EXT_SWEEP_LS to each of EXT_SWEEP_LD primes, unsigned
           and centered, with and without the (w - ext) * c epilogue, on
           [Ls, batch, n] (the vector form); per source count also on a row
@@ -370,6 +377,39 @@ def radix_cases(logn: int, batch: int, device, gen: torch.Generator) -> list:
                     "ks_contract", f"R={R} over {lp} primes, edm one word "
                     "off", nc.ks_contract_kernel, nc.ks_contract_plain,
                     _offset_word(edm), kb, ka, basis))
+    narrow = ntt_primes(6, 28, 1 << 16)
+    wide = ntt_primes(KS_BOOT_R, 30, 1 << 16)
+
+    def ks_pair(label, c, kb, ka, dst, src, adds):
+        return [compared("ks_fused", label, nc.ks_fused_kernel,
+                         nc.ks_fused_plain, c, kb, ka, dst, src),
+                compared("ks_fused_eval", label, nc.ks_fused_eval_kernel,
+                         nc.ks_fused_eval_plain, c, kb, ka, dst, src, adds)]
+
+    def ks_keys(R, dst):
+        return [torch.stack([res(dst, (n,)) for _ in range(R)])
+                for _ in range(2)]
+
+    for lp in KS_SWEEP_LP:
+        dst = narrow[:lp]
+        rows = KS_SWEEP_R + ((KS_BOOT_R,) if lp == 2 and logn == KS_BOOT_LOGN
+                             else ())
+        for R in rows:
+            src = wide[:R]
+            c = torch.stack([res((s,), (batch, n))[0] for s in src])
+            adds = tuple(res(dst, (batch, n)) for _ in range(2))
+            out += ks_pair(f"R={R} over {lp} primes, reps="
+                           f"{nc.digit_reps(dst, src)}", c, *ks_keys(R, dst),
+                           dst, src, adds)
+    out3 = res(qs, (batch, 3, n))                    # _scale_to_q's output
+    kb, ka = ks_keys(len(qs), qs)
+    out += ks_pair(f"R={len(qs)} over Q, strided c_limbs", out3[..., 2, :],
+                   kb, ka, qs, qs, (out3[..., 0, :], out3[..., 1, :]))
+    out += ks_pair(f"R={len(qs)} over Q, every operand one word off",
+                   _offset_word(res(qs, (batch, n))), _offset_word(kb),
+                   _offset_word(ka), qs, qs,
+                   tuple(_offset_word(res(qs, (batch, n)))
+                         for _ in range(2)))
     quad = res(qs, (batch, 4, n))                    # tensor_mul's operand
     for label, ops in operands.items():
         out.append(compared("tensor_mul4", f"{label}, scale",

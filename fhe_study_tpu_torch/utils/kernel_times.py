@@ -20,7 +20,9 @@ instructions over 128 a clock on each SM at the card's maximum SM clock).
 Beside K6 (tensor_mul4) it times, as a yardstick, the redesigned kernels
 that give the same output: K1's forward of the four operands (stacked
 beforehand, as tensor_mul takes them) then K2 over Q, and K5's Q -> P
-forward of the four then K2 over P, each first held equal to K6.  ``--tree`` names another checkout whose ``fhe_study_tpu_torch`` is
+forward of the four then K2 over P; beside K7 (ks_fused) K1's forward
+(fin = 2^32) of the reduced digit rows then K3 over R rows; each first held
+equal to the kernel it stands beside.  ``--tree`` names another checkout whose ``fhe_study_tpu_torch`` is
 timed instead of this one, so two commits can be compared on one card in
 one go: run it on the parent, the change, the change and the parent.
 Run it as a file, not with -m, so that the package it imports is the one
@@ -126,11 +128,15 @@ def yardsticks(param, batch: int, dev, gen) -> list:
     """(label, call) pairs: K6 over Q and over P (Q -> P inside) on the
     path's four [L, B, n] operands, each followed by the composition of
     redesigned kernels that gives the same output from the same values
-    stacked as [L, B, 4, n] (the stacking is not timed); each composition
-    is held equal to K6 first."""
+    stacked as [L, B, 4, n] (the stacking is not timed); then K7 on the
+    path's strided c2 and [L, L, n] gadget key, followed by K1's forward
+    with fin = 2^32 mod q of the digit rows (c2's limbs reduced mod each
+    prime, laid out [R, L, B, n] as K3 reads them: neither is timed) over
+    the primes repeated R times, then K3.  Each composition is held equal
+    to the kernel before it first."""
     from fhe_study_tpu_torch.ops import ntt_cuda as nc
-    from fhe_study_tpu_torch.utils import prng
-    qs, ps, n = param.qs, param.ps, param.n
+    from fhe_study_tpu_torch.utils import kernel_check, prng
+    qs, ps, n, L = param.qs, param.ps, param.n, param.L
     t_q, t_p = (param.t,) * len(qs), (param.t,) * len(ps)
     x4 = prng.uniform_mod_multi(gen, (batch, 4, n), qs, dev)
     ct = [x4[..., i, :].contiguous() for i in range(4)]
@@ -149,9 +155,26 @@ def yardsticks(param, batch: int, dev, gen) -> list:
         ("P: K5 Q->P of the four + K2",
          lambda: eval4(nc.ext_ntt_kernel(x4, qs, ps), ps, t_p)),
     ]
-    for (_, k6), (label, comp) in ((rows[0], rows[1]), (rows[2], rows[3])):
-        if not torch.equal(k6(), comp()):
-            raise RuntimeError(f"yardstick {label}: output != K6's")
+    c3 = prng.uniform_mod_multi(gen, (batch, 3, n), qs, dev)
+    gb, ga = (torch.stack([prng.uniform_mod_multi(gen, (n,), qs, dev)
+                           for _ in range(L)]) for _ in range(2))
+    qv = torch.tensor(qs, dtype=torch.int64, device=dev).view(1, L, 1, 1)
+    d = c3[..., 2, :].long()[:, None].expand(L, L, batch, n)
+    for _ in range(nc.digit_reps(qs, qs)):
+        d = torch.where(d >= qv, d - qv, d)
+    d = d.int().contiguous().view(L * L, batch, n)
+    mont = tuple((1 << 32) % q for q in qs) * L
+    rows += [
+        ("Q: K7 ks_fused, R=L, strided c2",
+         lambda: nc.ks_fused_kernel(c3[..., 2, :], gb, ga, qs, qs)),
+        ("Q: K1 forward of the R reduced rows + K3",
+         lambda: nc.ks_contract_kernel(
+             nc.ntt_multi_kernel(d, qs * L, fin=mont).view(L, L, batch, n),
+             gb, ga, qs)),
+    ]
+    for (_, kern), (label, comp) in zip(rows[::2], rows[1::2]):
+        if not kernel_check.equal(kern(), comp()):
+            raise RuntimeError(f"yardstick {label}: output != the kernel's")
     return rows
 
 

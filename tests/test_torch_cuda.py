@@ -45,20 +45,23 @@ def test_kernels_match_plain(cuda, n):
 
 @pytest.mark.parametrize("logn", range(_cuda.MIN_LOG_N, _cuda.MAX_LOG_N + 1))
 def test_radix_kernels_match_plain_at_every_degree(cuda, logn):
-    """The redesigned kernels: K1, K2, K3, K5 and K6 on the
+    """The redesigned kernels: K1, K2, K3 and K5-K8 on the
     register-resident chains, where each log n has its own pass structure
     (K1 both ways, with and without fin, on aligned and word-offset rows; K2
     on contiguous, strided and unaligned rows; K3 from 1, 2, 4 and 9 digit
     rows over 2 and 6 primes, aligned and not; K5 from every source count it
     instantiates and its generic form; K6 with and without a scale, on
-    strided, stacked and unaligned rows, from 1..5 source primes), and K4
-    from 1..5 and 15 source primes in its vector and word forms."""
+    strided, stacked and unaligned rows, from 1..5 source primes; K7 and K8
+    from 1, 2, 4 and 9 limb rows (39 at n = 2^11) over 2 and 6 narrower
+    primes, on the paths' strided views and one word off), and K4 from 1..5
+    and 15 source primes in its vector and word forms."""
     gen = torch.Generator(device=cuda).manual_seed(11)
     cases = kernel_check.radix_cases(logn, 3, cuda, gen)
     assert {c.name for c in cases} == {"ntt_multi", "tensor_eval4",
                                        "ks_contract", "ext_ntt",
                                        "base_extend", "tensor_mul4",
-                                       "tensor_mul"}
+                                       "tensor_mul", "ks_fused",
+                                       "ks_fused_eval"}
     for case in cases:
         got, want = case.kernel(), case.plain()
         torch.cuda.synchronize()
@@ -66,11 +69,12 @@ def test_radix_kernels_match_plain_at_every_degree(cuda, logn):
 
 
 def test_radix_kernels_have_no_stack_frame_or_spills(cuda):
-    """Every instance of the redesigned kernels: K2 and K3 per log n, K1
-    (both ways) per log n, K5 and K6 per log n and source count form, K4 per
-    source count and form, K10 per log n, staged and direct."""
+    """Every instance of the redesigned kernels: K2, K3, K7 and K8 per log
+    n, K1 (both ways) per log n, K5 and K6 per log n and source count form,
+    K4 per source count and form, K10 per log n, staged and direct."""
     report = _cuda.ptxas_report(_cuda.build_log())
     counts = {"tensor_eval4_kernel": 7, "ks_contract_kernel": 7,
+              "ks_fused_kernel": 7, "ks_fused_eval_kernel": 7,
               "ext_ntt_kernel": 7 * 3, "tensor_mul4_kernel": 7 * 3,
               "ntt_multi_kernel": 7 * 2, "base_extend_kernel": 15 * 2,
               "blind_rotate_kernel": 7 * 2}
@@ -84,7 +88,9 @@ def test_radix_kernels_have_no_stack_frame_or_spills(cuda):
 def test_redesigned_kernels_refuse_another_plan(cuda):
     """K1 refuses a block size or shared memory other than its build's and
     uint4 loads from an unaligned row; K4 its vector form on a row length
-    that is no multiple of 4 or an unaligned row.  Each refusal raises."""
+    that is no multiple of 4 or an unaligned row; K7 another block size or
+    shared memory, K8 an output off the 16-byte alignment.  Each refusal
+    raises."""
     qs = R.RnsParam(n=256, t=256, L=4, M=5).qs
     x = torch.zeros((4, 2, 256), dtype=torch.int32, device=cuda)
     tw = ntt_cuda._twiddles(qs, 256, True, cuda)
@@ -106,6 +112,27 @@ def test_redesigned_kernels_refuse_another_plan(cuda):
             _cuda.BASE_EXTEND.launch(cuda, src.data_ptr(), None,
                                      out.data_ptr(), tab.data_ptr(), 4, 2,
                                      total, 0, 1)
+    # K7 and K8 on limbs x [4, 2, 256] and keys [4, 4, 256]
+    keys = torch.zeros((4, 4, 256), dtype=torch.int32, device=cuda)
+    out4 = torch.zeros(4 * 4 * 2 * 256 + 1, dtype=torch.int32, device=cuda)
+    fwd = ntt_cuda._twiddles(qs, 256, False, cuda)
+    tables = (fwd[0].data_ptr(), fwd[1].data_ptr(), tw[0].data_ptr(),
+              tw[1].data_ptr(), cons.data_ptr())
+    ks = ntt_cuda._radix_plan(8, ntt_cuda.MUL4_THREADS, ntt_cuda.MUL4_BUFFERS)
+    for threads, smem in ((ks.threads * 2, ks.smem_bytes),
+                          (ks.threads, ks.smem_bytes // 3)):
+        with pytest.raises(RuntimeError, match="fhe_ks_fused"):
+            _cuda.KS_FUSED.launch(cuda, x.data_ptr(), 512, 256,
+                                  keys.data_ptr(), keys.data_ptr(),
+                                  out4.data_ptr(), *tables, 4, 4, 2, 8, 1,
+                                  threads, smem)
+    with pytest.raises(RuntimeError, match="fhe_ks_fused_eval"):
+        _cuda.KS_FUSED_EVAL.launch(cuda, x.data_ptr(), 512, 256,
+                                   keys.data_ptr(), keys.data_ptr(),
+                                   x.data_ptr(), 512, 256, x.data_ptr(), 512,
+                                   256, out4[1:].data_ptr(), *tables,
+                                   cons.data_ptr(), 4, 4, 2, 8, 1, ks.threads,
+                                   ks.smem_bytes)
 
 
 def test_blind_rotate_clusters_match_plain(cuda):

@@ -1,19 +1,25 @@
 """The pass plan of the register-resident chains that K1 (ntt_multi), K2
-(tensor_eval4), K3 (ks_contract), K5 (ext_ntt) and K6 (tensor_mul4) run on
-the card (csrc/radix_chain.cuh, mirrored by ops/ntt_cuda.py::_radix_plan),
-checked on the CPU at every ring degree the kernels take: every stage is run
-once and in order, a block fits the H100 (256 threads and one polynomial,
-or K6's 512 threads and three), a torch emulation of the plan's element,
-twiddle and shared-memory maps equals the plain transform bit for bit in
+(tensor_eval4), K3 (ks_contract), K5 (ext_ntt), K6 (tensor_mul4), K7
+(ks_fused) and K8 (ks_fused_eval) run on the card (csrc/radix_chain.cuh,
+mirrored by ops/ntt_cuda.py::_radix_plan), checked on the CPU at every ring
+degree the kernels take: every stage is run once and in order, a block fits
+the H100 (256 threads and one polynomial, or the 512 threads and three of
+K6, K7 and K8), a torch emulation of the plan's element, twiddle and
+shared-memory maps equals the plain transform bit for bit in
 both directions, K1's own maps (its first pass from a row in device memory,
 the forward's uint4 read-out and the inverse's stores, each with fin) equal
 ntt_multi_plain, K3's schedule (the contraction into the first inverse
 pass) equals ks_contract_plain, K6's (four forward chains, x0's transform
 kept per virtual thread, the products between x1's last forward pass and
 the first inverse pass, three inverse chains) equals tensor_mul4_plain with
-and without a source basis, and every warp's
-shared-memory access hits 32 distinct banks.  Also the parser of ptxas's
-register report that chip_smoke.py reads.  Tolerance 0 throughout.
+and without a source basis, K7's and K8's (the digit rows reduced in the
+first forward pass, the contraction summed in the last into two
+accumulators, K8's add chains, lift and eval-domain store, the first
+inverse pass in registers, two inverse chains) equal ks_fused_plain and
+ks_fused_eval_plain from 1, 3 and 4 limb rows and with reps >= 2, and
+every warp's shared-memory access hits 32 distinct banks.  Also the parser
+of ptxas's register report that chip_smoke.py reads.  Tolerance 0
+throughout.
 """
 
 import numpy as np
@@ -273,6 +279,24 @@ def test_k3_schedule_equals_plain(logn):
             assert torch.equal(got, half[0, 0].long())
 
 
+def _run_regs(regs, ps, roots, q: int, logn: int, inverse: bool):
+    """One pass on [polynomials, virtual threads, 16] registers."""
+    for r in regs:
+        _run_pass(r, _elements(logn, ps.c), ps, roots, q, logn, inverse)
+
+
+def _through_smem(smem, bufs, passes, roots, q: int, logn: int,
+                  inverse: bool):
+    """Passes from the swizzled buffers ``bufs`` of smem through registers
+    back to the same words, each buffer in turn."""
+    for ps in passes:
+        sw = _swizzle(_elements(logn, ps.c))
+        regs = torch.stack([smem[b][sw] for b in bufs])
+        _run_regs(regs, ps, roots, q, logn, inverse)
+        for b, r in zip(bufs, regs):
+            smem[b][sw] = r
+
+
 def _emulate_k6(x0, x1, y0, y1, q: int, logn: int, fin: int):
     """K6's data flow on four operand rows over q (a source basis converted
     word by word as the first pass reads it), three shared-memory buffers:
@@ -294,17 +318,10 @@ def _emulate_k6(x0, x1, y0, y1, q: int, logn: int, fin: int):
                       plan.inverse[-1])
 
     def run(regs, ps, roots, inverse):
-        """One pass on [polynomials, virtual threads, 16] registers."""
-        for r in regs:
-            _run_pass(r, _elements(logn, ps.c), ps, roots, q, logn, inverse)
+        _run_regs(regs, ps, roots, q, logn, inverse)
 
     def through_smem(bufs, passes, roots, inverse):
-        for ps in passes:
-            sw = _swizzle(_elements(logn, ps.c))
-            regs = torch.stack([smem[b][sw] for b in bufs])
-            run(regs, ps, roots, inverse)
-            for b, r in zip(bufs, regs):
-                smem[b][sw] = r
+        _through_smem(smem, bufs, passes, roots, q, logn, inverse)
 
     def forward_head(row, buf):
         """First pass from the row in device memory, then the passes through
@@ -411,3 +428,134 @@ def test_ptxas_report_reads_negative_template_arguments():
            "loads\n")
     assert [r["kernel"] for r in _cuda.ptxas_report(log)] == [
         "tensor_mul4_kernel<14, -1>"]
+
+
+def _emulate_ks(limbs, keys, q: int, logn: int, reps: int, fin: int,
+                adds=None, lift: int = 0):
+    """K7's data flow (adds None) or K8's for one (prime, polynomial), three
+    shared-memory buffers (work, acc_0, acc_1): each digit row r of limbs
+    [R, n] forward in the work buffer, its first pass read from the limb
+    (lanes on consecutive words) with ``reps`` conditional subtractions;
+    its last pass (the 16 contiguous words of a virtual thread) forms the
+    Montgomery products with keys[h][r] and adds them into acc_h at the same
+    words (row 0 writes them: the buffers start unwritten, -1).  K7 runs the
+    first inverse pass on the last row's sums in registers.  K8 then runs
+    adds[h] forward in the work buffer, and its last pass forms e_h = acc_h *
+    lift + NTT(add_h), stores it to the eval-domain output and runs the first
+    inverse pass on it in registers into acc_h.  Then the rest of the two
+    inverse chains, the last pass times fin, lanes on consecutive words.
+    Returns [2, n] (K7) or [4, n] (K8: e_0, e_1, then the two inverses)."""
+    n = 1 << logn
+    R = limbs.shape[0]
+    plan = nc._radix_plan(logn, nc.MUL4_THREADS, nc.MUL4_BUFFERS)
+    fwd = nc._roots_plain((q,), n, False, CPU)[0]
+    inv = nc._roots_plain((q,), n, True, CPU)[0]
+    smem = torch.full((nc.MUL4_BUFFERS, n), -1, dtype=torch.int64)
+    v = torch.arange(n >> nc.RADIX_BITS)[:, None]
+    first = v + (torch.arange(16)[None] << (logn - 4))
+    f0, fl, i0, il = (plan.forward[0], plan.forward[-1], plan.inverse[0],
+                      plan.inverse[-1])
+    assert torch.equal(first, _elements(logn, f0.c))
+    assert _lanes_consecutive(first)
+    own = _elements(logn, fl.c)
+    assert fl.c == i0.c == 0 and torch.equal(own, 16 * v + torch.arange(16))
+    sw = _swizzle(own)
+    # uint4 words of the key rows and of the eval-domain stores
+    assert bool((own[:, ::4] % 4 == 0).all())
+    evals = torch.full((2, n), -1, dtype=torch.int64)
+    rows = [(limbs[r], reps) for r in range(R)]
+    rows += [] if adds is None else [(a, 0) for a in adds]
+    for k, (row, subs) in enumerate(rows):
+        regs = row[first].clone()
+        for _ in range(subs):
+            regs = torch.where(regs >= q, regs - q, regs)
+        _run_pass(regs, first, f0, fwd, q, logn, False)
+        smem[0][_swizzle(first)] = regs
+        _through_smem(smem, [0], plan.forward[1:-1], fwd, q, logn, False)
+        x = smem[0][sw].clone()
+        _run_pass(x, own, fl, fwd, q, logn, False)
+        smem[0].fill_(-1)                     # the next row overwrites it
+        digit = k < R
+        in_regs = k == R - 1 if adds is None else not digit
+        for h in (0, 1) if digit else (k - R,):
+            if digit:
+                y = _mont(x, keys[h][k][own], q)
+                if k > 0:
+                    y = (y + smem[1 + h][sw]) % q
+            else:
+                y = (smem[1 + h][sw] * lift % q + x) % q
+                evals[h][own] = y
+            if in_regs:
+                _run_pass(y, own, i0, inv, q, logn, True)
+            assert int(y.min()) >= 0
+            smem[1 + h][sw] = y
+    _through_smem(smem, [1, 2], plan.inverse[1:-1], inv, q, logn, True)
+    el = _elements(logn, il.c)
+    assert _lanes_consecutive(el)
+    out = torch.full((2, n), -1, dtype=torch.int64)
+    for h in range(2):
+        regs = smem[1 + h][_swizzle(el)]
+        _run_pass(regs, el, il, inv, q, logn, True)
+        out[h][el] = regs * fin % q
+    assert int(out.min()) >= 0
+    return out if adds is None else torch.cat([evals, out])
+
+
+# a destination prime of 26 bits against 30-bit source primes: reps >= 2
+NARROW = ntt_primes(1, 26, 1 << 15)[0]
+
+
+def _ks_inputs(rng, logn: int, q: int, R: int, wide: bool):
+    """Limb rows [R, n] over SRC_PRIMES (wide) or below q, and the keys
+    [2, R, n] over q."""
+    n = 1 << logn
+    bound = max(SRC_PRIMES) if wide else q
+    limbs = torch.from_numpy(rng.integers(0, bound, (R, n)))
+    keys = torch.from_numpy(rng.integers(0, q, (2, R, n)))
+    return limbs, keys, (SRC_PRIMES if wide else (q,))
+
+
+# (prime, R, wide source primes): R = 1, 3 and 4, one case with reps >= 2
+KS_CASES = ((PRIMES[0], 1, False), (PRIMES[1], 3, False), (NARROW, 4, True))
+
+
+@pytest.mark.parametrize("logn", LOGNS)
+def test_k7_schedule_equals_plain(logn):
+    n = 1 << logn
+    rng = np.random.default_rng(400 + logn)
+    for q, R, wide in KS_CASES:
+        limbs, keys, src = _ks_inputs(rng, logn, q, R, wide)
+        reps = nc.digit_reps((q,), src)
+        assert reps >= 2 or not wide
+        want = nc.ks_fused_plain(limbs[:, None].int(), keys[0][:, None].int(),
+                                 keys[1][:, None].int(), (q,), src)
+        fin = nc._tensor_fin((q,), n, None)[0]
+        got = _emulate_ks(limbs, keys, q, logn, reps, fin)
+        assert torch.equal(got, torch.stack([w[0, 0] for w in want]).long())
+
+
+@pytest.mark.parametrize("logn", LOGNS)
+def test_k8_schedule_equals_plain(logn):
+    n = 1 << logn
+    rng = np.random.default_rng(500 + logn)
+    for q, R, wide in KS_CASES:
+        limbs, keys, src = _ks_inputs(rng, logn, q, R, wide)
+        adds = torch.from_numpy(rng.integers(0, q, (2, n)))
+        reps = nc.digit_reps((q,), src)
+        want = nc.ks_fused_eval_plain(
+            limbs[:, None].int(), keys[0][:, None].int(),
+            keys[1][:, None].int(), (q,), src,
+            tuple(a[None].int() for a in adds))
+        got = _emulate_ks(limbs, keys, q, logn, reps, pow(n, -1, q), adds,
+                          (1 << 32) % q)
+        assert torch.equal(got, torch.stack([w[0, 0] for w in want]).long())
+
+
+@pytest.mark.parametrize("logn", LOGNS)
+def test_ks_fused_plan_fits_an_sm(logn):
+    """K7 and K8 run K6's plan: 512 threads of up to 128 registers and three
+    buffers in the 227 KB a block may take, at every log n."""
+    plan = nc._radix_plan(logn, nc.MUL4_THREADS, nc.MUL4_BUFFERS)
+    assert plan.smem_bytes == 3 * 4 << logn
+    assert plan.smem_bytes <= 232448 and plan.threads * 128 <= 65536
+    assert plan.threads * plan.groups << nc.RADIX_BITS == 1 << logn
