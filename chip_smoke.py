@@ -20,7 +20,9 @@ Phases, each of which raises (and so exits non-zero) on any failure:
      version on the card, bit for bit, at the paths' shapes (batch 8) and at
      n = 256; the redesigned kernels at every n from 2^8 to 2^14 on a batch
      of 3 (kernel_check.radix_cases): K1 forward and inverse, with and
-     without fin, on contiguous and word-offset rows; K2 on contiguous,
+     without fin, on contiguous and word-offset rows; K9 forward and inverse
+     under a 30-bit and a 31-bit prime, on aligned and word-offset int64
+     rows; K12 over 0, 1 and 3 transforms; K2 on contiguous,
      strided and unaligned rows; K5 from 1 to 5 source primes; K4 from 1, 2,
      3, 4, 5 and 15 source primes to 1, 4 and 5, unsigned and centered, with
      and without the epilogue, on a row length that is no multiple of 4 and
@@ -35,7 +37,7 @@ Phases, each of which raises (and so exits non-zero) on any failure:
      1, 3, 64, 67 and 133 ciphertexts (kernel_check.blind_rotate_sweep),
      staged and direct key planes and planes one word off; ptxas's
      registers, stack frame and spills of every kernel (phase 1), which must
-     show neither for K1-K8 and K10;
+     show neither for K1-K10 and K12;
   3. the eval-resident path: keygen -> hybrid relin key -> encrypt 128
      plaintext pairs -> to_evals -> mul_e -> from_evals -> decrypt;
   4. the coefficient-domain and gadget paths on the same ciphertexts: mul
@@ -79,17 +81,21 @@ Phases, each of which raises (and so exits non-zero) on any failure:
      exact); mul_hybrid2 at L = 7, delta = q_6 q_5, through the 3-limb
      decrypt;
  12. the NTT mode: the chain of 8 ntt_multi, 3 times, as butterflies/s
-     (utils/profiling.ntt_roofline) beside the shared-memory ceiling at
-     B = 64 and on a full card, and the alu_rate operations' issue rates;
-     the last timed launch of every one of these is held against the plain
-     version (the ceiling's on four polynomials, an alu_rate launch as 64
-     shorter ones, the first of which is held against plain); a link's
-     share of its issue bound beside its share of the ceiling (K1 runs the
-     register-resident chain, which that ceiling does not bound), the
-     host's enqueue time a link, and a link's time on the device alone;
+     (utils/profiling.ntt_roofline) beside the shared-memory ceiling (K12:
+     the register-resident chain of every NTT kernel, on resident
+     polynomials; its SASS loop held to one transform's loads) at
+     B = 64 and on a full card at n = 2^14, 2^13 and 1024, and the alu_rate
+     operations' issue rates; the last timed launch of every one of these
+     is held against the plain version (the ceiling's on four polynomials,
+     an alu_rate launch as 64 shorter ones, the first of which is held
+     against plain); a link's share of its issue bound beside its share of
+     the ceiling, the host's enqueue time a link, and a link's time on the
+     device alone;
  13. timing: the CKKS step as a chain (add + mul_hybrid, 3 iterations, the
      padded output fed back) as ops/s, eight rotations hoisted against
-     eight unhoisted, and every variant of phase 10 beside plain and bound.
+     eight unhoisted, and every variant of phase 10 beside plain and bound;
+     each pure transform's share of the ceiling at its n (K1's link, K9's
+     variants at the shapes of TFHE key generation).
 
 It prints each finding on a line of its own, then the kernels' JSON record,
 the card's name and power limit, and as its last line
@@ -127,13 +133,13 @@ MEMORY_BYTES_PER_S = 3.35e12
 INSTR_PER_SM_CLOCK = 128
 ALU_SHORT_ROUNDS = 1024      # the timed alu_rate launch is held in such pieces
 # the redesigned kernels: K1, K2, K3, K5, K6 (tensor_mul4 and, on row
-# strides, tensor_mul), K7, K8 (ks_fused, ks_fused_eval) and K10
-# (blind_rotate) on csrc/radix_chain.cuh, K4 (and K5, K6) with the source
-# count at compile time; ptxas must give no instance of them a stack frame
-# or spills
+# strides, tensor_mul), K7, K8 (ks_fused, ks_fused_eval), K9 (ntt), K10
+# (blind_rotate) and K12 (ntt_smem_ceiling) on csrc/radix_chain.cuh, K4
+# (and K5, K6) with the source count at compile time; ptxas must give no
+# instance of them a stack frame or spills
 RADIX_KERNELS = {"ntt_multi", "tensor_eval4", "ks_contract", "ext_ntt",
                  "base_extend", "tensor_mul4", "tensor_mul", "ks_fused",
-                 "ks_fused_eval", "blind_rotate"}
+                 "ks_fused_eval", "ntt", "blind_rotate", "ntt_smem_ceiling"}
 RADIX_BATCH = 3              # the small odd batch of their every-degree sweep
 
 
@@ -284,7 +290,9 @@ def main() -> None:
             check(case, got, want)
             radix_checked += 1
     say(f"parity: ntt_multi (forward and inverse, with and without fin, "
-        f"contiguous and word-offset rows), tensor_eval4 (contiguous, strided, "
+        f"contiguous and word-offset rows), ntt (forward and inverse under a "
+        f"30-bit and a 31-bit prime, aligned and word-offset int64 rows), "
+        f"ntt_smem_ceiling (reps 0, 1, 3), tensor_eval4 (contiguous, strided, "
         f"unaligned rows), ks_contract ({kernel_check.KS_SWEEP_R} digit rows "
         f"over {kernel_check.KS_SWEEP_LP} primes, aligned and word-offset), "
         f"ks_fused and ks_fused_eval ({kernel_check.KS_SWEEP_R} limb rows over "
@@ -706,8 +714,19 @@ def main() -> None:
         f"base_extend_sum (also == the whole conversion, unsigned and "
         f"centered) and the measuring loops at n={CK_N} (loops: n={2 * CK_N})"
         f" and n=256, batch {PARITY_BATCH}: {checked}")
-    sass = sass_counts.loop_counts(sass_counts.disassemble())
+    listing = sass_counts.disassemble()
+    sass = sass_counts.loop_counts(listing)
     sass_per = {op: sass[op]["per_word_round"] for op in alu_bench.OPS}
+    # the ceiling's reps loop must load what one transform loads: a twiddle
+    # load hoisted out of it would make the ceiling do less than the kernels
+    loops = sass_counts.ceiling_loops(listing)
+    chain = {logn: sass_counts.chain_loads(logn)
+             for logn in range(_cuda.MIN_LOG_N, _cuda.MAX_LOG_N + 1)}
+    if loops != chain:
+        raise RuntimeError(f"ntt_smem_ceiling's loops (global loads, "
+                           f"barriers) {loops} != one transform's {chain}")
+    say(f"sass: the reps loop of ntt_smem_ceiling_kernel holds one forward "
+        f"transform's (global loads, barriers) at every log n: {loops}")
     for op in alu_bench.OPS:
         same = ("as recorded" if sass_per[op] == alu_bench.OP_COUNTS[op] else
                 f"NOT the recorded {alu_bench.OP_COUNTS[op]}: another "
@@ -896,7 +915,8 @@ def main() -> None:
     nqs = ntt_primes(NTT_L, 30, 1 << 16)
     a0 = prng.uniform_mod_multi(gen, (NTT_B, N), nqs, dev)
     busy = torch.zeros(1 << 28, dtype=torch.int32, device=dev)   # 1 GiB
-    resident = {n: alu_bench.resident_blocks(dev, n=n) for n in (N, CK_N)}
+    resident = {n: alu_bench.resident_blocks(dev, n=n)
+                for n in (N, CK_N, TFHE_N)}
     alu_shape = {op: (sms * alu_bench.resident_blocks(dev, op=op)[0], 1024)
                  for op in alu_bench.OPS}
     nb = {}
@@ -935,7 +955,7 @@ def main() -> None:
             dev, n=N, B=NTT_B, reps=CEILING_REPS)
         nb["ceiling"] = {n: alu_bench.ntt_smem_ceiling(
             dev, n=n, B=resident[n][0] * sms, reps=CEILING_REPS)
-            for n in (N, CK_N)}
+            for n in resident}
         nb["alu"] = {op: alu_bench.alu_rate(op, dev, rounds=ALU_ROUNDS,
                                             shape=alu_shape[op])
                      for op in alu_bench.OPS}
@@ -990,8 +1010,9 @@ def main() -> None:
              f"{list(x.shape)} == {r['rounds'] // ALU_SHORT_ROUNDS} launches "
              f"of {ALU_SHORT_ROUNDS}", r["out"], cur)
     say(f"verify: the timed launches of the measuring loops: the ceiling's "
-        f"(reps={CEILING_REPS}) == plain on 4 polynomials of each of 3 "
-        f"configurations; every alu_rate's (rounds={ALU_ROUNDS}) == "
+        f"(reps={CEILING_REPS}) == plain on 4 polynomials of each of "
+        f"{1 + len(nb['ceiling'])} configurations; every alu_rate's "
+        f"(rounds={ALU_ROUNDS}) == "
         f"{ALU_ROUNDS // ALU_SHORT_ROUNDS} launches of {ALU_SHORT_ROUNDS} "
         f"rounds, whose first == plain on the first and last block")
     roof = profiling.ntt_roofline(NTT_L * NTT_B * NTT_CHAIN * NTT_ITERS, N,
@@ -1020,19 +1041,22 @@ def main() -> None:
         f"{link_bound:.4f} ms (instructions {link_op_ms:.4f}, bytes "
         f"{link_byte_ms:.4f}): {link_bound / link_ms:.3f} of the issue bound, "
         f"{roof.butterflies_per_sec / ceil_bf[N]:.3f} of the shared-memory "
-        f"ceiling, which bounds the one-stage chain and no longer K1's; the "
-        f"host took {nb['host'] * 1e3 / links:.4f} ms to enqueue a link; on "
+        f"ceiling of its own chain; the host took "
+        f"{nb['host'] * 1e3 / links:.4f} ms to enqueue a link; on "
         f"the device alone (queued behind device work) a link takes "
         f"{device_ms:.4f} ms, {link_bound / device_ms:.3f} of the issue "
         f"bound [{card}]")
-    say(f"ceiling: forward_chain resident in shared memory, reps="
-        f"{CEILING_REPS}, n={N}: B={NTT_B} (64 of {sms} SMs busy) "
+    say(f"ceiling: the register-resident forward chain on polynomials "
+        f"resident in shared memory, reps={CEILING_REPS}, n={N}: B={NTT_B} "
+        f"(64 of {sms} SMs busy) "
         f"{nb['ceiling_64']['butterflies_per_sec']:.4e} butterflies/s; "
-        f"B={resident[N][0] * sms} ({resident[N][0]} resident blocks x {sms} "
-        f"SMs) {ceil_bf[N]:.4e}; at n={CK_N}, B={resident[CK_N][0] * sms}: "
-        f"{ceil_bf[CK_N]:.4e}.  This is the ceiling of the package's "
-        f"one-stage chain (K7-K9), not of the card: the register-resident "
-        f"chain of K1-K3, K5 and K6 is not bound by it [{card}]")
+        + "; ".join(f"n={n}, B={resident[n][0] * sms} ({resident[n][0]} "
+                    f"resident blocks x {sms} SMs) {ceil_bf[n]:.4e}"
+                    for n in resident)
+        + f".  This is the ceiling of the chain that K1-K10 run (its "
+        f"butterflies, shared-memory exchanges, twiddle loads and barriers), "
+        f"not of the card: fewer instructions a butterfly would raise it "
+        f"[{card}]")
     clock = sm_mhz * 1e6
     for op in alu_bench.OPS:
         r = nb["alu"][op]
@@ -1142,19 +1166,16 @@ def main() -> None:
             time_case(case)
         else:                                    # kernel against kernel
             check(case, case.kernel(), case.plain())
-    # each kernel on the one-stage chain: its butterflies/s against that
-    # chain's ceiling at its n (K1-K3, K5 and K6 run the register-resident
-    # chain, which that ceiling does not bound: their share of the bound is
-    # above)
-    for case in timed_chains:
-        if case.name in RADIX_KERNELS:
-            continue
-        n = case.n
-        say(f"ceiling: {case.name:13s} {case.label:48s} "
-            f"{case.butterflies / (case_ms[case.label] / 1e3):.4e} "
-            f"butterflies/s = "
-            f"{case.butterflies / (case_ms[case.label] / 1e3) / ceil_bf[n]:.3f}"
-            f" of the shared-memory ceiling at n={n}")
+    # each pure transform against the ceiling of its chain at its n: K1's
+    # link of the NTT mode and K9's variants at the shapes of key generation
+    pure = [("ntt_multi", f"NTT-mode link [{NTT_L},{NTT_B},{N}]",
+             roof.butterflies_per_sec, N)]
+    pure += [(c.name, c.label, c.butterflies / (case_ms[c.label] / 1e3), c.n)
+             for c in timed_chains if c.name == "ntt"]
+    for name, label, rate, n in pure:
+        say(f"ceiling: {name:13s} {label:48s} {rate:.4e} butterflies/s = "
+            f"{rate / ceil_bf[n]:.3f} of the shared-memory ceiling at n={n} "
+            f"[{card}]")
 
     say(f"parity: kernel == plain (torch.equal) for all "
         f"{sum(checked.values())} variants, those at the full batch of each "

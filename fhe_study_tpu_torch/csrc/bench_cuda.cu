@@ -3,13 +3,17 @@
 // ::alu_rate (_alu_kernel).  Neither is on an FHE path: they measure what the
 // card gives the instruction sequences that the other kernels issue.
 //
-//   fhe_ntt_smem_ceiling (K12): `reps` forward stage chains on a polynomial
+//   fhe_ntt_smem_ceiling (K12): `reps` forward transforms of a polynomial
 //     that stays in shared memory: one load, one store, device memory out of
-//     the way.  The loop calls forward_chain of modarith.cuh, the function
-//     K1 calls, at K1's block size, so the rate is the ceiling of the
-//     package's own chain (shared-memory traffic, integer issue and the
-//     log n barriers of a chain), not of the card: a chain that keeps
-//     several stages in registers would beat it.
+//     the way.  Each transform is the forward chain of radix_chain.cuh
+//     (RadixPasses over the swizzled buffer, the passes that K1-K8 run), at
+//     K1's block shape (kRadixThreads threads, kRadixBlocks blocks an SM),
+//     so its rate is the ceiling of the chain those kernels run: integer
+//     issue, each pass's shared-memory words and twiddle loads, and its
+//     ceil(log n / 4) barriers.  The loop over reps holds one copy of the
+//     chain's code (unrolled, chains ran slower and built for minutes); its
+//     body keeps every twiddle load of a transform (the SASS shows them
+//     there: ptxas hoists none out of the loop), as the kernels load them.
 //   fhe_alu_rate (K13): each thread keeps kAluPer independent words in
 //     registers and applies one operation `iters * kAluUnroll` times, each
 //     round feeding the next, then stores once.  What bounds it is the issue
@@ -19,23 +23,58 @@
 //     back from the built library.
 
 #include "modarith.cuh"
+#include "radix_chain.cuh"
 
 namespace fhe {
 namespace {
 
-__global__ void ntt_repeat_kernel(const uint32_t* __restrict__ x,
-                                  uint32_t* __restrict__ out,
-                                  const uint32_t* __restrict__ tw,
-                                  const uint32_t* __restrict__ tw_sh,
-                                  uint32_t q, int logn, int reps) {
+template <int LOGN>
+__global__ void __launch_bounds__(kRadixThreads, kRadixBlocks)
+ntt_smem_ceiling_kernel(const uint32_t* __restrict__ x,
+                        uint32_t* __restrict__ out,
+                        const uint32_t* __restrict__ tw,
+                        const uint32_t* __restrict__ tw_sh, uint32_t q,
+                        int reps) {
+  using S = RadixShape<LOGN>;
+  constexpr int n = S::n;
   extern __shared__ uint32_t a[];
-  const int n = 1 << logn;
-  const size_t row = static_cast<size_t>(blockIdx.x) * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) a[i] = x[row + i];
+  const uint32_t* row = x + static_cast<size_t>(blockIdx.x) * n;
+  for (int i = threadIdx.x; i < n; i += S::threads) {
+    a[radix_swizzle(i)] = __ldg(row + i);
+  }
   __syncthreads();
-  for (int r = 0; r < reps; ++r) forward_chain(a, logn, tw, tw_sh, q);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) out[row + i] = a[i];
+#pragma unroll 1
+  for (int r = 0; r < reps; ++r) {
+    RadixPasses<LOGN, 0, S::passes, false>::run(a, tw, tw_sh, q);
+  }
+  uint4* o4 =
+      reinterpret_cast<uint4*>(out + static_cast<size_t>(blockIdx.x) * n);
+  for (int i = threadIdx.x; i < n / 4; i += S::threads) {
+    const int sw = radix_swizzle(4 * i);
+    o4[i] = make_uint4(a[sw], a[sw ^ 1], a[sw ^ 2], a[sw ^ 3]);
+  }
 }
+
+struct CeilingLaunch {
+  template <int LOGN, typename... Args>
+  static int run(Args... args) {
+    return radix_launch<LOGN>(ntt_smem_ceiling_kernel<LOGN>, args...);
+  }
+};
+
+// Blocks of the ceiling kernel an SM holds at its plan's threads and shared
+// memory.
+struct CeilingResident {
+  template <int LOGN>
+  static int run(int* per_sm) {
+    using S = RadixShape<LOGN>;
+    const int smem = S::n * static_cast<int>(sizeof(uint32_t));
+    cudaError_t err = allow_smem(ntt_smem_ceiling_kernel<LOGN>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        per_sm, ntt_smem_ceiling_kernel<LOGN>, S::threads, smem));
+  }
+};
 
 constexpr int kAluThreads = 256;
 constexpr int kAluPer = 4;      // ALU_PER_THREAD of ops/alu_bench.py
@@ -123,26 +162,23 @@ AluKernel alu_entry(int op) {
   }
 }
 
-bool bad_logn(int logn) { return logn < kMinLogN || logn > kMaxLogN; }
-
 }  // namespace
 }  // namespace fhe
 
 using namespace fhe;
 
+// threads and smem: the plan of ops/ntt_cuda.py::_radix_plan; out 16-byte
+// aligned (the read-out's uint4 stores).
 extern "C" int fhe_ntt_smem_ceiling(const uint32_t* x, uint32_t* out,
                                     const uint32_t* tw, const uint32_t* tw_sh,
                                     unsigned q, int B, int logn, int reps,
+                                    int threads, int smem,
                                     cudaStream_t stream) {
-  if (bad_logn(logn) || B < 1 || reps < 0) {
+  if (B < 1 || reps < 0 || misaligned(out)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = sizeof(uint32_t) << logn;
-  cudaError_t err = allow_smem(ntt_repeat_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ntt_repeat_kernel<<<B, chain_threads(logn), smem, stream>>>(
-      x, out, tw, tw_sh, q, logn, reps);
-  return static_cast<int>(cudaGetLastError());
+  return by_logn<CeilingLaunch>(logn, threads, smem, B, stream, x, out, tw,
+                                tw_sh, static_cast<uint32_t>(q), reps);
 }
 
 // `threads` must be a multiple of kAluThreads; the wrapper sees to it.
@@ -176,11 +212,5 @@ extern "C" int fhe_bench_resident(int op, int logn, int* per_sm, int* sms) {
                                                         kAluThreads, 0);
     return static_cast<int>(err);
   }
-  if (bad_logn(logn)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(uint32_t) << logn;
-  err = allow_smem(ntt_repeat_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      per_sm, ntt_repeat_kernel, chain_threads(logn), smem);
-  return static_cast<int>(err);
+  return by_logn<CeilingResident>(logn, per_sm);
 }

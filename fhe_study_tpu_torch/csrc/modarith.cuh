@@ -1,14 +1,9 @@
 // Device code shared by the RNS kernels: exact arithmetic mod q < 2^31 on
-// 32-bit lanes, the negacyclic NTT stage chains of one polynomial held in
-// shared memory (one stage a barrier: K9 and K12 run them; K1-K3, K5-K8
-// and K10 run the register-resident regrouping of radix_chain.cuh), and the
+// 32-bit lanes (the butterflies of every NTT chain, radix_chain.cuh) and the
 // per-coefficient HPS base conversion.
 //
 // Every residue is canonical in [0, q) with q < 2^31 (the package stores
-// them as int32; the kernels read the same bits as uint32_t).  The stage
-// chains follow fhe_study_tpu/ops/ntt.py exactly (Cooley-Tukey forward and
-// Gentleman-Sande inverse over bit-reversed root tables), so every
-// intermediate value equals the reference's.
+// them as int32; the kernels read the same bits as uint32_t).
 #pragma once
 
 #include <cstdint>
@@ -19,9 +14,6 @@ namespace fhe {
 // Largest source basis of a base conversion: the 2^59 fixed-point sum of
 // alpha stays below 2^64 (and, in the plain int64 version, below 2^63).
 constexpr int kMaxSrc = 15;
-constexpr int kMinLogN = 8;
-constexpr int kMaxLogN = 14;
-constexpr int kChainThreads = 512;
 
 __device__ __forceinline__ uint32_t addmod(uint32_t a, uint32_t b, uint32_t q) {
   const uint32_t s = a + b;
@@ -62,51 +54,6 @@ struct PrimeRow {
 __device__ __forceinline__ PrimeRow prime_row(const uint32_t* cons, int p) {
   return PrimeRow{cons[4 * p], cons[4 * p + 1], cons[4 * p + 2],
                   cons[4 * p + 3]};
-}
-
-// Forward negacyclic NTT of a[0, 2^logn) in shared memory, in place: stage
-// s has m = 2^s groups of 2t lanes (t = n >> (s+1)); group i multiplies its
-// second half by w[m + i].  Ends with a barrier.
-__device__ inline void forward_chain(uint32_t* a, int logn, const uint32_t* w,
-                                     const uint32_t* wsh, uint32_t q) {
-  const int half = 1 << (logn - 1);
-  for (int s = 0; s < logn; ++s) {
-    const int lt = logn - 1 - s;
-    const int t = 1 << lt;
-    const int m = 1 << s;
-    for (int k = threadIdx.x; k < half; k += blockDim.x) {
-      const int i = k >> lt;
-      const int idx = (i << (lt + 1)) | (k & (t - 1));
-      const uint32_t u = a[idx];
-      const uint32_t v = shoup_mul(a[idx + t], w[m + i], wsh[m + i], q);
-      a[idx] = addmod(u, v, q);
-      a[idx + t] = submod(u, v, q);
-    }
-    __syncthreads();
-  }
-}
-
-// Inverse (Gentleman-Sande) chain without the n^-1 scale: stage s has
-// t = 2^s and m = n >> (s+1) groups; the difference of group i is
-// multiplied by winv[m + i].  Ends with a barrier.
-__device__ inline void inverse_chain(uint32_t* a, int logn,
-                                     const uint32_t* winv,
-                                     const uint32_t* winvsh, uint32_t q) {
-  const int half = 1 << (logn - 1);
-  for (int s = 0; s < logn; ++s) {
-    const int lt = s;
-    const int t = 1 << lt;
-    const int m = half >> s;
-    for (int k = threadIdx.x; k < half; k += blockDim.x) {
-      const int i = k >> lt;
-      const int idx = (i << (lt + 1)) | (k & (t - 1));
-      const uint32_t u = a[idx];
-      const uint32_t v = a[idx + t];
-      a[idx] = addmod(u, v, q);
-      a[idx + t] = shoup_mul(submod(u, v, q), winv[m + i], winvsh[m + i], q);
-    }
-    __syncthreads();
-  }
 }
 
 // Constants of one HPS conversion src -> dst, packed by the host
@@ -182,13 +129,6 @@ __device__ __forceinline__ uint32_t ext_coeff(const uint32_t* x, size_t stride,
   }
   const uint32_t alpha = static_cast<uint32_t>(acc >> 59);
   return submod(sum, shoup_mul(alpha, e.dst(j, 1), e.dst(j, 2), d), d);
-}
-
-// Threads of a block that runs one stage chain: one a butterfly, at most
-// kChainThreads.
-inline int chain_threads(int logn) {
-  const int half = 1 << (logn - 1);
-  return half < kChainThreads ? half : kChainThreads;
 }
 
 // p is not on a 16-byte boundary (no uint4 words there).

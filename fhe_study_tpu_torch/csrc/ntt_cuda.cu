@@ -1,43 +1,28 @@
 // Hopper kernels of the negacyclic transforms on the RNS-BFV main path.
 //
 // Each kernel replaces one Pallas kernel of fhe_study_tpu/ops/ntt_pallas.py.
-// Seven live in translation units of their own, so that their unrolled
-// instances compile in parallel: K1 fhe_ntt_multi <- ntt_multi_u32
-// (csrc/ntt_multi_cuda.cu), K3 fhe_ks_contract <- ks_contract_u32
-// (csrc/ks_contract_cuda.cu), K5 fhe_ext_ntt <- ext_ntt_u32
+// Eight live in translation units of their own, so that their unrolled
+// instances compile in parallel: K1 fhe_ntt_multi <- ntt_multi_u32 and K9
+// fhe_ntt <- ntt_u32 (csrc/ntt_multi_cuda.cu), K3 fhe_ks_contract <-
+// ks_contract_u32 (csrc/ks_contract_cuda.cu), K5 fhe_ext_ntt <- ext_ntt_u32
 // (csrc/ext_ntt_cuda.cu), K6 fhe_tensor_mul4 <- tensor_mul4_u32 and
 // tensor_mul_u32 (csrc/tensor_mul4_cuda.cu), K7 fhe_ks_fused <- ks_fused_u32
 // (csrc/ks_fused_cuda.cu) and K8 fhe_ks_fused_eval <- ks_fused_eval_u32
 // (csrc/ks_fused_eval_cuda.cu).  Here:
 //   fhe_tensor_eval4   <- tensor_eval4_u32  (_tensor_eval_kernel)
-//   fhe_ntt            <- ntt_u32           (_ntt_kernel): one scalar prime,
-//                         a flat batch, 64-bit words in and out
 //
-// fhe_tensor_eval4 (K2), like K1, K3 and K5-K8, runs the register-resident
-// chain of radix_chain.cuh: four stages a pass on 16 words a thread in
-// registers, ceil(log n / 4) - 1 exchanges through swizzled shared memory
-// (3 barriers at n = 2^14 where the one-stage chain takes 14), the twiddles
-// of a pass in vector loads, its products straight into the registers of the
-// first pass.  One block of at most 256 threads per polynomial, each thread
-// playing up to 4 virtual threads, 3 blocks an SM at n = 2^14.  K2 and K5
-// read 41-50% of their issue bound on an H100 80GB HBM3 at 700 W (PERF.md);
-// what is left is the instructions beyond the counted butterflies
-// (shared-memory words and their addresses, twiddle loads) and the latency
-// around the barriers.
+// fhe_tensor_eval4 (K2), like the others, runs the register-resident chain
+// of radix_chain.cuh: four stages a pass on 16 words a thread in registers,
+// ceil(log n / 4) - 1 exchanges through swizzled shared memory (3 barriers
+// at n = 2^14), the twiddles of a pass in vector loads, its products
+// straight into the registers of the first pass.  One block of at most 256
+// threads per polynomial, each thread playing up to 4 virtual threads, 3
+// blocks an SM at n = 2^14.  K2 and K5 read 41-50% of their issue bound on
+// an H100 80GB HBM3 at 700 W (PERF.md); what is left is the instructions
+// beyond the counted butterflies (shared-memory words and their addresses,
+// twiddle loads) and the latency around the barriers.
 //
-// fhe_ntt (K9) runs the one-stage chains of modarith.cuh (forward_chain /
-// inverse_chain): a block holds its whole length-n polynomial (n = 2^8 ..
-// 2^14, at most 64 KB) in dynamic shared memory and runs all log n
-// butterfly stages there, a barrier a stage, so device memory sees one read
-// of the operands and one write of the result.  Twiddles come from
-// per-prime [L, n] bit-reversed tables with Shoup companions (no per-stage
-// tables: the TPU needed those only to avoid gathers under its (8, 128)
-// tiling).  What bounds it: each butterfly's two shared-memory loads and
-// stores, two twiddle loads and 13 integer instructions, and a barrier a
-// stage; on the H100 such a chain reaches a third of the butterfly's issue
-// rate (K12 measures it).
-//
-// Every entry point launches on the given stream and returns
+// The entry point launches on the given stream and returns
 // cudaGetLastError(); a refused launch never runs, so the caller raises.
 
 #include <climits>
@@ -48,38 +33,6 @@
 
 namespace fhe {
 namespace {
-
-// K9: forward or inverse transform (the inverse times n^-1) of a flat batch
-// [B, n] under one prime, one block per polynomial.  The torus code keeps
-// its residues in 64-bit words, so the kernel reads and writes int64 (the
-// value is the low word; the high word of the output is zero): no cast
-// passes over device memory around it.  It runs the one-stage chains, so it
-// is bound by shared-memory traffic and barriers, not the 16 bytes a
-// coefficient.
-__global__ void ntt_kernel(const long long* __restrict__ x,
-                           long long* __restrict__ out,
-                           const uint32_t* __restrict__ tw,
-                           const uint32_t* __restrict__ tw_sh,
-                           const uint32_t* __restrict__ cons, int logn,
-                           int inverse) {
-  extern __shared__ uint32_t a[];
-  const int n = 1 << logn;
-  const size_t row = static_cast<size_t>(blockIdx.x) * n;
-  const PrimeRow c = prime_row(cons, 0);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    a[i] = static_cast<uint32_t>(x[row + i]);
-  }
-  __syncthreads();
-  if (inverse) {
-    inverse_chain(a, logn, tw, tw_sh, c.q);
-  } else {
-    forward_chain(a, logn, tw, tw_sh, c.q);
-  }
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const uint32_t v = inverse ? shoup_mul(a[i], c.fin, c.fin_sh, c.q) : a[i];
-    out[row + i] = static_cast<long long>(v);
-  }
-}
 
 // K2: product k of the degree-2 tensor of eval-domain operands, one block
 // per (p, b, k), k fastest so that the three blocks reading one row pair run
@@ -158,8 +111,6 @@ tensor_eval4_kernel(const uint32_t* __restrict__ x0,
   }
 }
 
-bool bad_logn(int logn) { return logn < kMinLogN || logn > kMaxLogN; }
-
 struct TensorEval4Launch {
   template <int LOGN, typename... Args>
   static int run(Args... args) {
@@ -171,18 +122,6 @@ struct TensorEval4Launch {
 }  // namespace fhe
 
 using namespace fhe;
-
-extern "C" int fhe_ntt(const long long* x, long long* out, const uint32_t* tw,
-                       const uint32_t* tw_sh, const uint32_t* cons, int B,
-                       int logn, int inverse, cudaStream_t stream) {
-  if (bad_logn(logn) || B < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(uint32_t) << logn;
-  cudaError_t err = allow_smem(ntt_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ntt_kernel<<<B, chain_threads(logn), smem, stream>>>(x, out, tw, tw_sh, cons,
-                                                       logn, inverse);
-  return static_cast<int>(cudaGetLastError());
-}
 
 extern "C" int fhe_tensor_eval4(const uint32_t* x0, const uint32_t* x1,
                                 const uint32_t* y0, const uint32_t* y1,

@@ -1,28 +1,26 @@
-// K1: the Hopper kernel of the multi-prime negacyclic transform,
+// K1 and K9: the Hopper kernels of the negacyclic transforms,
 //   fhe_ntt_multi <- fhe_study_tpu/ops/ntt_pallas.py::ntt_multi_u32
-//                    (_ntt_kernel_multi)
-// rows [L, B, n] of residues, one prime per row; the forward or the inverse
-// transform of every row, then an optional per-prime final Shoup multiply
-// (the inverse's n^-1, t/n, the Montgomery 2^32, ...).
+//   fhe_ntt       <- fhe_study_tpu/ops/ntt_pallas.py::ntt_u32
+// K1 transforms rows [L, B, n], one prime a row, then applies an optional
+// per-prime final Shoup multiply (n^-1, t/n, the Montgomery 2^32, ...).  K9
+// runs the same body on a flat batch [B, n] under one prime in int64 words
+// (the torus code's residues): it reads each word's low half and writes the
+// high half zero, so no cast passes over device memory; n^-1 is the fin of
+// its inverse, its forward has none.
 //
-// Layout: one block per (prime, polynomial) runs the register-resident chain
-// of radix_chain.cuh (16 words a thread, four stages a pass, ceil(log n / 4)
-// - 1 exchanges through swizzled shared memory: 3 barriers at n = 2^14 where
-// the one-stage chain of modarith.cuh takes 14), as K2 and K5 do.
-//   forward: the first pass (stage bits log n - 1 .. log n - 4) reads its 16
-//     words straight from device memory, lanes on consecutive words (K5's
-//     first pass without the conversion); the last pass leaves the result in
-//     shared memory, read out as coalesced uint4 rows with fin applied.
-//   inverse: the first pass (stage bits 0..3) reads 16 contiguous words, as
-//     uint4 when the rows are 16-byte aligned (`vec`) and word by word
-//     otherwise (K2's first pass with a plain load for its products); the
-//     last pass stores lanes on consecutive words with fin folded in.
-// What bounds it: device memory sees 8 bytes a coefficient, against
-// (log n) / 2 butterflies of 13 instructions, so the issue rate; beside the
-// counted butterflies a pass issues its shared-memory words, their address
-// XORs and the twiddle loads, and the block waits at its barriers.
+// One block per (prime, polynomial) runs the register-resident chain of
+// radix_chain.cuh.  The forward's first pass reads its 16 words straight
+// from device memory, lanes on consecutive words; the result leaves shared
+// memory in coalesced 16-byte stores (4 words of K1, 2 of K9) with fin
+// applied.  The inverse's first pass reads 16 contiguous words, in 16-byte
+// vectors when the rows are 16-byte aligned (`vec`) and word by word
+// otherwise; its last pass stores lanes on consecutive words, fin folded in.
+// What bounds it: K1 moves 8 bytes a coefficient against (log n) / 2
+// butterflies of 13 instructions, so the issue rate; K9 moves 16, which at
+// the H100's data-sheet rates outlasts its butterflies at every log n (4.8
+// against 1.9 ps a coefficient at n = 1024), so device memory.
 //
-// The entry launches on the given stream and returns cudaGetLastError(); a
+// Each entry launches on the given stream and returns cudaGetLastError(); a
 // refused launch never runs, so the caller raises.
 
 #include <climits>
@@ -34,13 +32,46 @@
 namespace fhe {
 namespace {
 
-template <int LOGN, int INV>
-__global__ void __launch_bounds__(kRadixThreads, kRadixBlocks)
-ntt_multi_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
-                 const uint32_t* __restrict__ tw,
-                 const uint32_t* __restrict__ tw_sh,
-                 const uint32_t* __restrict__ cons, int B, int use_fin,
-                 int vec) {
+// Word i of a row as a residue: an int64 word holds it in its low half,
+// which is loaded alone (the card is little-endian).  Callers pass the
+// thread's base into the pointer and a constant i, so the 16 loads of a
+// pass take immediate offsets from one address.
+template <typename Word>
+__device__ __forceinline__ uint32_t row_word(const Word* row, int i) {
+  if constexpr (sizeof(Word) == 8) {
+    return __ldg(reinterpret_cast<const uint32_t*>(row) + 2 * i);
+  } else {
+    return __ldg(row + i);
+  }
+}
+
+// Four consecutive words at p as residues: 16-byte loads when p is 16-byte
+// aligned (vec), word loads otherwise.
+template <typename Word>
+__device__ __forceinline__ void row_words(uint32_t (&d)[4], const Word* p,
+                                          bool vec) {
+  if constexpr (sizeof(Word) == 8) {
+    if (vec) {
+      const uint4* v = reinterpret_cast<const uint4*>(p);
+      const uint4 lo = __ldg(v);
+      const uint4 hi = __ldg(v + 1);
+      d[0] = lo.x; d[1] = lo.z; d[2] = hi.x; d[3] = hi.z;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) d[j] = row_word(p, j);
+    }
+  } else {
+    operand_words(d, p, vec);
+  }
+}
+
+template <int LOGN, int INV, typename Word>
+__device__ __forceinline__ void ntt_rows(const Word* __restrict__ x,
+                                         Word* __restrict__ out,
+                                         const uint32_t* __restrict__ tw,
+                                         const uint32_t* __restrict__ tw_sh,
+                                         const uint32_t* __restrict__ cons,
+                                         int B, int use_fin, int vec) {
   using S = RadixShape<LOGN>;
   constexpr int n = S::n;
   extern __shared__ uint32_t a[];
@@ -48,8 +79,8 @@ ntt_multi_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
   const PrimeRow c = prime_row(cons, p);
   const uint32_t* w = tw + static_cast<size_t>(p) * n;
   const uint32_t* wsh = tw_sh + static_cast<size_t>(p) * n;
-  const uint32_t* row = x + static_cast<size_t>(blockIdx.x) * n;
-  uint32_t* o = out + static_cast<size_t>(blockIdx.x) * n;
+  const Word* row = x + static_cast<size_t>(blockIdx.x) * n;
+  Word* o = out + static_cast<size_t>(blockIdx.x) * n;
   if constexpr (INV != 0) {
     constexpr int last = S::passes - 1;
     constexpr int cl = S::inv_c(last);
@@ -60,7 +91,7 @@ ntt_multi_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
 #pragma unroll
       for (int j = 0; j < kRadix; j += 4) {
         uint32_t d[4];
-        operand_words(d, row + base + j, vec != 0);
+        row_words(d, row + base + j, vec != 0);
 #pragma unroll
         for (int i = 0; i < 4; ++i) r[j + i] = d[i];
       }
@@ -88,25 +119,51 @@ ntt_multi_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
       const int base = threadIdx.x + g * S::threads;  // radix_base(v, c0)
       uint32_t r[kRadix];
 #pragma unroll
-      for (int j = 0; j < kRadix; ++j) r[j] = __ldg(row + base + (j << c0));
+      for (int j = 0; j < kRadix; ++j) r[j] = row_word(row + base, j << c0);
       radix_pass<LOGN, 0, false>(r, base, w, wsh, c.q);
       radix_store<c0>(a, r, base);
     }
     __syncthreads();
     RadixPasses<LOGN, 1, S::passes, false>::run(a, w, wsh, c.q);
-    uint4* o4 = reinterpret_cast<uint4*>(o);
-    for (int i = threadIdx.x; i < n / 4; i += S::threads) {
-      const int sw = radix_swizzle(4 * i);
-      uint32_t v[4] = {a[sw], a[sw ^ 1], a[sw ^ 2], a[sw ^ 3]};
+    // lane i stores the kv words from kv * i: 16 bytes
+    constexpr int kv = 16 / static_cast<int>(sizeof(Word));
+    for (int i = threadIdx.x; i < n / kv; i += S::threads) {
+      const int sw = radix_swizzle(kv * i);
+      uint32_t v[kv];
+#pragma unroll
+      for (int t = 0; t < kv; ++t) v[t] = a[sw ^ t];
       if (use_fin) {
 #pragma unroll
-        for (int t = 0; t < 4; ++t) {
+        for (int t = 0; t < kv; ++t) {
           v[t] = shoup_mul(v[t], c.fin, c.fin_sh, c.q);
         }
       }
-      o4[i] = make_uint4(v[0], v[1], v[2], v[3]);
+      if constexpr (kv == 4) {
+        reinterpret_cast<uint4*>(o)[i] = make_uint4(v[0], v[1], v[2], v[3]);
+      } else {
+        reinterpret_cast<longlong2*>(o)[i] = make_longlong2(v[0], v[1]);
+      }
     }
   }
+}
+
+template <int LOGN, int INV>
+__global__ void __launch_bounds__(kRadixThreads, kRadixBlocks)
+ntt_multi_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
+                 const uint32_t* __restrict__ tw,
+                 const uint32_t* __restrict__ tw_sh,
+                 const uint32_t* __restrict__ cons, int B, int use_fin,
+                 int vec) {
+  ntt_rows<LOGN, INV>(x, out, tw, tw_sh, cons, B, use_fin, vec);
+}
+
+template <int LOGN, int INV>
+__global__ void __launch_bounds__(kRadixThreads, kRadixBlocks)
+ntt_kernel(const long long* __restrict__ x, long long* __restrict__ out,
+           const uint32_t* __restrict__ tw,
+           const uint32_t* __restrict__ tw_sh,
+           const uint32_t* __restrict__ cons, int B, int vec) {
+  ntt_rows<LOGN, INV>(x, out, tw, tw_sh, cons, B, INV, vec);
 }
 
 template <int INV>
@@ -114,6 +171,14 @@ struct NttMultiLaunch {
   template <int LOGN, typename... Args>
   static int run(Args... args) {
     return radix_launch<LOGN>(ntt_multi_kernel<LOGN, INV>, args...);
+  }
+};
+
+template <int INV>
+struct NttLaunch {
+  template <int LOGN, typename... Args>
+  static int run(Args... args) {
+    return radix_launch<LOGN>(ntt_kernel<LOGN, INV>, args...);
   }
 };
 
@@ -141,4 +206,21 @@ extern "C" int fhe_ntt_multi(const uint32_t* x, uint32_t* out,
   }
   return by_logn<NttMultiLaunch<0>>(logn, threads, smem, nb, stream, x, out,
                                     tw, tw_sh, cons, B, use_fin, vec);
+}
+
+// K9 on [B, n] int64 words under the one prime of cons (its fin n^-1 for
+// the inverse); vec as for fhe_ntt_multi.
+extern "C" int fhe_ntt(const long long* x, long long* out, const uint32_t* tw,
+                       const uint32_t* tw_sh, const uint32_t* cons, int B,
+                       int logn, int inverse, int vec, int threads, int smem,
+                       cudaStream_t stream) {
+  if (B < 1 || misaligned(out) || (vec && misaligned(x))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (inverse) {
+    return by_logn<NttLaunch<1>>(logn, threads, smem, B, stream, x, out, tw,
+                                 tw_sh, cons, B, vec);
+  }
+  return by_logn<NttLaunch<0>>(logn, threads, smem, B, stream, x, out, tw,
+                               tw_sh, cons, B, vec);
 }

@@ -1,13 +1,15 @@
-// Register-resident stage chains of the negacyclic NTT: the forward
-// (Cooley-Tukey) and inverse (Gentleman-Sande, without n^-1) chains of
-// modarith.cuh, regrouped so that a thread runs kRadixBits stages on
-// kRadix = 16 coefficients held in registers between two exchanges through
-// shared memory.  K1 (ntt_multi, csrc/ntt_multi_cuda.cu), K2 (tensor_eval4,
-// csrc/ntt_cuda.cu), K3 (ks_contract, csrc/ks_contract_cuda.cu), K5
-// (ext_ntt, csrc/ext_ntt_cuda.cu), K6 (tensor_mul4 and tensor_mul,
-// csrc/tensor_mul4_cuda.cu), K7 and K8 (ks_fused and ks_fused_eval,
-// csrc/ks_fused.cuh) and K10 (blind_rotate, csrc/blind_rotate_cuda.cu) run
-// them; the one-stage-a-barrier chains of modarith.cuh stay for K9 and K12.
+// The stage chains of the negacyclic NTT that every kernel of the package
+// runs: the forward (Cooley-Tukey) and the inverse (Gentleman-Sande, without
+// n^-1) over bit-reversed root tables, butterfly for butterfly those of
+// fhe_study_tpu/ops/ntt.py, grouped so that a thread runs kRadixBits stages
+// on kRadix = 16 coefficients held in registers between two exchanges
+// through shared memory.  K1 and K9 (ntt_multi and ntt,
+// csrc/ntt_multi_cuda.cu), K2 (tensor_eval4, csrc/ntt_cuda.cu), K3
+// (ks_contract, csrc/ks_contract_cuda.cu), K5 (ext_ntt, csrc/ext_ntt_cuda.cu),
+// K6 (tensor_mul4 and tensor_mul, csrc/tensor_mul4_cuda.cu), K7 and K8
+// (ks_fused and ks_fused_eval, csrc/ks_fused.cuh), K10 (blind_rotate,
+// csrc/blind_rotate_cuda.cu) and the measuring loop K12 (ntt_smem_ceiling,
+// csrc/bench_cuda.cu) run them.
 //
 // Element a of the polynomial has log n bits.  A pass holds bits
 // [c, c + 4) of a in registers: virtual thread v owns the 16 elements
@@ -19,9 +21,10 @@
 // at c = 0 over the bits left), the inverse chain from 0 up (c = 0, 4, ...,
 // the last at c = log n - 4 over the bits left), so every log n from 8 to 14
 // takes ceil(log n / 4) passes and ceil(log n / 4) - 1 exchanges, against the
-// log n barriers of the one-stage chain.  The forward chain's last pass and
-// the inverse chain's first both hold bits 0..3, so a virtual thread owns the
-// same 16 elements in the two (K6 forms its products there, in registers).
+// log n barriers of a chain that runs one stage between two.  The forward
+// chain's last pass and the inverse chain's first both hold bits 0..3, so a
+// virtual thread owns the same 16 elements in the two (K6 forms its products
+// there, in registers).
 //
 // Twiddles: stage bit j of either chain multiplies by w[(n >> (j + 1)) +
 // (a >> (j + 1))] of the bit-reversed [L, n] table (roots or inverse roots,
@@ -31,9 +34,9 @@
 //
 // Shared memory holds the n words under a XOR swizzle of the low 5 bits by
 // bits 5..8 (radix_swizzle); every access of every pass, and the coalesced
-// read-out of K1's and K5's forward chains, then hits 32 distinct banks (ops/ntt_cuda.py::_radix_plan
-// and its CPU test check the maps; the swizzle is a bijection on every
-// aligned block of 512 words).
+// read-out of the forward chains of K1, K5, K9 and K12, then hits 32
+// distinct banks (ops/ntt_cuda.py::_radix_plan and its CPU test check the
+// maps; the swizzle is a bijection on every aligned block of 512 words).
 //
 // The butterfly stays the fully reduced one of modarith.cuh (shoup_mul,
 // addmod, submod on canonical residues), so every output equals the plain

@@ -245,9 +245,9 @@ KS_FUSED_EVAL = Kernel("ks_fused_eval", "fhe_ks_fused_eval",
                        "fhe_study_tpu/ops/ntt_pallas.py:1216",
                        PTR, I64, I64, PTR, PTR, PTR, I64, I64, PTR, I64, I64,
                        PTR, PTR, PTR, PTR, PTR, PTR, PTR, *([INT] * 7))
-NTT = Kernel("ntt", "fhe_ntt", _NTT_CU,
+NTT = Kernel("ntt", "fhe_ntt", "fhe_study_tpu_torch/csrc/ntt_multi_cuda.cu",
              "fhe_study_tpu/ops/ntt_pallas.py:1296",
-             PTR, PTR, PTR, PTR, PTR, INT, INT, INT)
+             PTR, PTR, PTR, PTR, PTR, *([INT] * 6))
 BLIND_ROTATE = Kernel("blind_rotate", "fhe_blind_rotate",
                       "fhe_study_tpu_torch/csrc/blind_rotate_cuda.cu",
                       "fhe_study_tpu/ops/blind_rotate_pallas.py:392",
@@ -258,7 +258,7 @@ BASE_EXTEND_SUM = Kernel("base_extend_sum", "fhe_base_extend_sum", _EXT_CU,
 _BENCH_CU = "fhe_study_tpu_torch/csrc/bench_cuda.cu"
 NTT_SMEM_CEILING = Kernel("ntt_smem_ceiling", "fhe_ntt_smem_ceiling",
                           _BENCH_CU, "fhe_study_tpu/ops/vpu_bench.py:168",
-                          PTR, PTR, PTR, PTR, U32, INT, INT, INT)
+                          PTR, PTR, PTR, PTR, U32, *([INT] * 5))
 ALU_RATE = Kernel("alu_rate", "fhe_alu_rate", _BENCH_CU,
                   "fhe_study_tpu/ops/vpu_bench.py:86",
                   PTR, PTR, PTR, PTR, I64, INT, INT, U32, U32)
@@ -311,7 +311,7 @@ def aligned(t: torch.Tensor) -> bool:
     return t.data_ptr() % 16 == 0
 
 
-MIN_LOG_N, MAX_LOG_N = 8, 14      # kMinLogN, kMaxLogN of csrc/modarith.cuh
+MIN_LOG_N, MAX_LOG_N = 8, 14      # by_logn's range, csrc/radix_chain.cuh
 
 
 def log2_degree(n: int) -> int:

@@ -5,11 +5,12 @@ versions — the counterpart of fhe_study_tpu/ops/vpu_bench.py.
   K12 ntt_smem_ceiling <- vpu_bench.ntt_vmem_ceiling (_ntt_repeat_kernel)
   K13 alu_rate         <- vpu_bench.alu_rate         (_alu_kernel)
 
-``ntt_smem_ceiling`` loops the package's own forward stage chain (the device
-function that K1 calls, fully reduced after every butterfly) on polynomials
-that stay in shared memory: butterflies/s with device memory out of the way.
-It is the ceiling of THIS chain, not of the card: a chain that kept several
-stages in registers would beat it.  ``alu_rate`` iterates one 32-bit
+``ntt_smem_ceiling`` loops the package's own forward chain (the
+register-resident passes of csrc/radix_chain.cuh that K1-K8 run, fully
+reduced after every butterfly, at K1's block shape) on polynomials that stay
+in shared memory: butterflies/s with device memory out of the way.  It is
+the ceiling of THIS chain, not of the card: a chain with fewer instructions
+a butterfly (lazy reduction) would beat it.  ``alu_rate`` iterates one 32-bit
 operation on words that stay in registers: the reference's four (``add``,
 ``mul``, ``addmod``, ``shoup_lazy``) and the three that the package's kernels
 are made of (``shoup_mul``, ``mont_mul`` and one whole ``butterfly`` of
@@ -166,7 +167,8 @@ def alu_rate_kernel(x, y, yp, op: str, rounds: int):
 
 def resident_blocks(device, op: str | None = None, n: int | None = None):
     """(blocks per SM, SMs) of a measuring kernel on the card: an
-    ``alu_rate`` operation, or the ceiling loop at ring degree n."""
+    ``alu_rate`` operation, or the ceiling loop at ring degree n (at its
+    plan's threads and shared memory)."""
     per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
     fn = _cuda.library().fhe_bench_resident
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
@@ -254,8 +256,9 @@ def ntt_smem_ceiling_plain(x, q: int, reps: int):
 
 
 def ntt_smem_ceiling_kernel(x, q: int, reps: int):
-    """K12: one block per polynomial of x int32 [B, n], the polynomial in
-    shared memory for all ``reps`` chains."""
+    """K12: one block per polynomial of x int32 [B, n] on K1's plan
+    (``ntt_cuda._radix_plan``), the polynomial in shared memory for all
+    ``reps`` chains."""
     _check_q(q)
     dev = x.device
     _cuda.check(x, "x", dev)
@@ -268,9 +271,10 @@ def ntt_smem_ceiling_kernel(x, q: int, reps: int):
     if B == 0:
         return out
     tw = ntt_cuda._twiddles((q,), n, False, dev)
+    plan = ntt_cuda._radix_plan(logn)
     _cuda.NTT_SMEM_CEILING.launch(dev, x.data_ptr(), out.data_ptr(),
                                   tw[0].data_ptr(), tw[1].data_ptr(), q, B,
-                                  logn, reps)
+                                  logn, reps, plan.threads, plan.smem_bytes)
     return out
 
 

@@ -1,7 +1,7 @@
-"""The transform kernels of the main path — ``csrc/ntt_cuda.cu``, with K1,
-K3, K5, K6, K7 and K8 in ``csrc/ntt_multi_cuda.cu``, ``ks_contract_cuda.cu``,
-``ext_ntt_cuda.cu``, ``tensor_mul4_cuda.cu``, ``ks_fused_cuda.cu`` and
-``ks_fused_eval_cuda.cu`` — with their host tables,
+"""The transform kernels of the main path — ``csrc/ntt_cuda.cu``, with K1
+and K9, K3, K5, K6, K7 and K8 in ``csrc/ntt_multi_cuda.cu``,
+``ks_contract_cuda.cu``, ``ext_ntt_cuda.cu``, ``tensor_mul4_cuda.cu``,
+``ks_fused_cuda.cu`` and ``ks_fused_eval_cuda.cu`` — with their host tables,
 launch wrappers and plain PyTorch versions; the counterpart of
 fhe_study_tpu/ops/ntt_pallas.py.
 
@@ -94,7 +94,7 @@ def _tensor_fin(dst: tuple, n: int, scale: tuple | None) -> tuple:
                  for j, q in enumerate(dst))
 
 
-# -- the register-resident chains of K1-K3 and K5-K8 ------------------------
+# -- the register-resident chains of K1-K3, K5-K9 and K12 -------------------
 
 RADIX_BITS = 4          # kRadixBits of csrc/radix_chain.cuh: 16 words a thread
 RADIX_THREADS = 256     # kRadixThreads: the most threads a block runs
@@ -299,8 +299,10 @@ def ntt_multi_kernel(x, qs: tuple, inverse: bool = False, fin=None):
 
 
 def ntt_kernel(x, q: int, inverse: bool = False):
-    """K9: one block per polynomial of the flat batch; x int64 [..., n] with
-    values in [0, q), q < 2^31.  Returns int64 of the same shape."""
+    """K9: K1's kernel on int64 words, one block per polynomial of the flat
+    batch (``_radix_plan``); x int64 [..., n] with values in [0, q), q <
+    2^31, read as 16-byte vectors by the inverse when x is 16-byte aligned
+    and word by word otherwise.  Returns int64 of the same shape."""
     dev = x.device
     _cuda.check(x, "x", dev, dtype=torch.int64)
     if not 1 < q < (1 << 31):
@@ -313,8 +315,10 @@ def ntt_kernel(x, q: int, inverse: bool = False):
         return out
     tw = _twiddles((q,), n, inverse, dev)
     cons = _prime_rows((q,), _default_fin((q,), n, inverse, None), dev)
+    plan = _radix_plan(logn)
     _cuda.NTT.launch(dev, x.data_ptr(), out.data_ptr(), tw[0].data_ptr(),
-                     tw[1].data_ptr(), cons.data_ptr(), B, logn, int(inverse))
+                     tw[1].data_ptr(), cons.data_ptr(), B, logn, int(inverse),
+                     int(_cuda.aligned(x)), plan.threads, plan.smem_bytes)
     return out
 
 

@@ -295,7 +295,7 @@ KS_BOOT_R, KS_BOOT_LOGN = 39, 11        # K7/K8 at the CKKS-bootstrap rows
 
 def radix_cases(logn: int, batch: int, device, gen: torch.Generator) -> list:
     """The redesigned kernels at ring degree 2^logn on a small batch
-    (compared only, not timed): K1, K2, K3 and K5-K8 on the
+    (compared only, not timed): K1-K3, K5-K9 and K12 on the
     register-resident chains, whose pass structure differs with log n, and
     K4, whose instance differs with the source count.
 
@@ -303,6 +303,10 @@ def radix_cases(logn: int, batch: int, device, gen: torch.Generator) -> list:
           (the default n^-1, and an explicit fin), each on a contiguous
           batch and on a contiguous tensor offset by one word (the
           inverse's word-by-word first pass);
+      K9: forward and inverse under a 30-bit prime (the TFHE pair's) and a
+          31-bit one (the CRT pair's), on int64 rows that are 16-byte
+          aligned and one int64 word off;
+      K12: reps 0, 1 and 3;
       K2: contiguous operands, the strided views of a stacked pair, and rows
           that are not 16-byte aligned (its word-by-word load);
       K3: KS_SWEEP_R digit rows over each of KS_SWEEP_LP primes, and the
@@ -348,6 +352,20 @@ def radix_cases(logn: int, batch: int, device, gen: torch.Generator) -> list:
             out.append(compared("ntt_multi", f"{label}, {layout}",
                                 nc.ntt_multi_kernel, nc.ntt_multi_plain, x,
                                 qs, **kw))
+    for p in (ntt_mod.CRT_PRIMES_TFHE[0], ntt_mod.CRT_PRIMES[0]):
+        x = prng.uniform_mod(gen, (batch, n), p, device)
+        for layout, row in (("aligned", x), ("one word off", _offset_word(x))):
+            for inverse in (False, True):
+                out.append(compared(
+                    "ntt", f"{'inverse' if inverse else 'forward'} q={p} "
+                    f"({p.bit_length()} bits), {layout}", nc.ntt_kernel,
+                    nc.ntt_plain, row, p, inverse=inverse))
+    q = ntt_mod.CRT_PRIMES_TFHE[0]
+    x = prng.uniform_mod(gen, (batch, n), q, device).int()
+    out += [compared("ntt_smem_ceiling", f"reps={reps}",
+                     alu_bench.ntt_smem_ceiling_kernel,
+                     alu_bench.ntt_smem_ceiling_plain, x, q, reps)
+            for reps in (0, 1, 3)]
     pair = res(qs, (batch, 2, n))
     ragged = res(qs, (batch, n + 1))[..., 1:]        # rows at odd offsets
     operands = {"contiguous": [res(qs, (batch, n)) for _ in range(4)],
@@ -498,7 +516,8 @@ def ntt_cases(n: int, k: int, l: int, steps: int, device,
     gives it: ``precompute_evals`` under the two 30-bit primes, forward;
     ``TorusRing._contract_crt`` under the two 31-bit primes, forward on both
     operands and inverse on the contracted sums; and ``tn.mul_crt`` of one
-    ciphertext's polynomials, forward on the four 16-bit limbs."""
+    ciphertext's polynomials, forward on the four 16-bit limbs.  Each case
+    carries its butterflies."""
     C = k + 1
 
     def case(label, p, shp, inverse):
@@ -508,7 +527,9 @@ def ntt_cases(n: int, k: int, l: int, steps: int, device,
                      2 * 8 * polys * n + 8 * n,
                      _ntt_ops(n, polys) + (polys * n * SHOUP_OPS
                                            if inverse else 0),
-                     nc.ntt_kernel, nc.ntt_plain, x, p, inverse=inverse)
+                     nc.ntt_kernel, nc.ntt_plain, x, p,
+                     inverse=inverse)._replace(
+                         butterflies=_butterflies(n, polys), n=n)
 
     p1, p2 = ntt_mod.CRT_PRIMES_TFHE
     c1, c2 = ntt_mod.CRT_PRIMES[:2]

@@ -29,13 +29,24 @@ Run it as a file, not with -m, so that the package it imports is the one
 under ``--tree``.  Needs one CUDA card and nvcc.  It first builds that
 checkout's kernels and prints the build's seconds.
 
+It also measures the shared-memory ceiling (K12) on the whole card at
+N = 2^14 (as many blocks as the card holds at once, 64 transforms each), as
+butterflies/s, and the single-prime transform (K9) forward and inverse at
+every n from 2^8 to 2^14 on 2^22 coefficients, on the device alone beside
+its byte bound.
+
 Then it times the BFV chains of chip_smoke.py's phase 6 the same way (a
 chain of 4 of ``mul_e`` and ``mul`` with either relin key at B = 128, and of
 the linear step at N = 2^12, B = 1024; best of 3 after a warm-up), on keys
-and ciphertexts drawn from one seed, and prints ms an op; and the TFHE
-chains of phase 9 (a chain of 3 of ``bootstrap`` and of
-``bootstrap_short`` at N = 1024, B = 64, each decrypt-checked first), as ms
-a batch and bootstraps/s.
+and ciphertexts drawn from one seed, and prints ms an op; the TFHE chains
+of phase 9 (a chain of 3 of ``bootstrap`` and of ``bootstrap_short`` at
+N = 1024, B = 64, each decrypt-checked first), as ms a batch and
+bootstraps/s; and the paths of the single-prime transform (K9), as ms an
+op: TFHE key generation (``new_bootstrapping_key`` and
+``precompute_btk_evals`` at N = 1024, K = 1, beta = 4096, l = 2, 1024
+steps; best of 3, the key first checked by bootstrapping 64 messages with
+it) and ``bfv_batch.batch_encode`` and ``batch_decode`` at n = 2^13,
+t = 65537, B = 32 (round-trip checked first).
 """
 
 import argparse
@@ -110,6 +121,16 @@ def main() -> None:
               f"{device_ms:8.4f} ms; host enqueue {host_ms:.4f} ms a call",
               flush=True)
     del busy
+    from fhe_study_tpu_torch.ops import alu_bench
+    per_sm, sms = alu_bench.resident_blocks(dev, n=1 << 14)
+    ceiling = alu_bench.ntt_smem_ceiling(dev, n=1 << 14, B=per_sm * sms,
+                                         reps=64)
+    print(f"ceiling {args.tree} [{card}]: n=2^14, B={per_sm * sms} "
+          f"({per_sm} blocks x {sms} SMs), reps=64: "
+          f"{ceiling['butterflies_per_sec']:.4e} butterflies/s", flush=True)
+    print(f"ntt degrees {args.tree} [{card}]: " + "; ".join(
+        f"n={n} {d} {ms:.4f} ms ({bound / ms:.3f} of its bound {bound:.4f})"
+        for n, d, ms, bound in ntt_degrees(dev, gen)), flush=True)
     for label, by in (("", sums), (" (device alone)", alone)):
         print(f"tree {args.tree}{label} [{card}]: "
               + ", ".join(f"{k} {v:.4f}" for k, v in by.items())
@@ -122,6 +143,12 @@ def main() -> None:
     print(f"tfhe {args.tree} [{card}]: "
           + ", ".join(f"{k} {v:.4f} ms a batch of 64 = {64e3 / v:.1f}/s"
                       for k, v in per_batch.items()), flush=True)
+    times, shapes = ntt_paths(dev)
+    print(f"ntt paths {args.tree} [{card}]: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+          + " ms an op; K9 launches in one key generation: "
+          + ", ".join(f"{c} x {list(shp)} q={q} {'inv' if inv else 'fwd'}"
+                      for (shp, q, inv), c in shapes.items()), flush=True)
 
 
 def yardsticks(param, batch: int, dev, gen) -> list:
@@ -256,6 +283,86 @@ def tfhe_chains(dev, chain: int) -> dict:
             raise RuntimeError(f"{label}: a chain of {chain} decrypts wrong")
         out[label] = best_of_3(run) / chain
     return out
+
+
+def ntt_degrees(dev, gen) -> list:
+    """(n, direction, device ms, byte-bound ms) of K9 on [2^22 / n, n] int64
+    words under a 30-bit prime, at every n from 2^8 to 2^14."""
+    from fhe_study_tpu_torch.ops import ntt as ntt_mod
+    from fhe_study_tpu_torch.ops import ntt_cuda as nc
+    from fhe_study_tpu_torch.utils import prng
+    q = ntt_mod.CRT_PRIMES_TFHE[0]
+    busy = torch.zeros(1 << 26, dtype=torch.int32, device=dev)
+    rows = []
+    for logn in range(8, 15):
+        n = 1 << logn
+        x = prng.uniform_mod(gen, ((1 << 22) >> logn, n), q, dev)
+        bound = (16 * x.numel() + 8 * n) / 3.35e9
+        for inverse in (False, True):
+            def call():
+                return nc.ntt_kernel(x, q, inverse=inverse)
+            call()                      # the tables go to the card first
+            ms, _ = events_ms(call, 20, busy)
+            rows.append((n, "inv" if inverse else "fwd", ms, bound))
+    return rows
+
+
+def ntt_paths(dev) -> tuple:
+    """ms an op of the user paths that launch K9: TFHE key generation at
+    N = 1024, K = 1, beta = 4096, l = 2 (1024 steps; best of 3), and the
+    batched BFV encode and decode at n = 2^13, t = 65537, B = 32 (mean of 20
+    calls as called); each checked first.  Also K9's launches in one key
+    generation, counted by (shape, prime, inverse)."""
+    from fhe_study_tpu_torch.arith.params import TORUS_Q, RingParam
+    from fhe_study_tpu_torch.models import bfv_batch
+    from fhe_study_tpu_torch.models.gfhe.glwe import ERR_SIGMA, Param
+    from fhe_study_tpu_torch.models.tfhe import bootstrap, tglwe, tlwe
+    from fhe_study_tpu_torch.ops import ntt_cuda as nc
+    gen = torch.Generator(device=dev).manual_seed(9)
+    tp = Param(ERR_SIGMA, RingParam(TORUS_Q, 1024), 1, 8)
+    kw = dict(beta=4096, l=2, beta_ks=16, l_ks=8)
+    s, _ = tglwe.new_key(gen, tp, dev)
+    s_flat = tglwe.sk_to_tlwe(s)
+
+    def keygen():
+        btk, _ = bootstrap.new_bootstrapping_key(gen, tp, s, s_lwe_out=s_flat,
+                                                 **kw)
+        return btk, bootstrap.precompute_btk_evals(tp, btk)
+
+    shapes, kernel = {}, nc.ntt_kernel
+
+    def counted(x, q, inverse=False):
+        key = (tuple(x.shape), q, inverse)
+        shapes[key] = shapes.get(key, 0) + 1
+        return kernel(x, q, inverse=inverse)
+
+    nc.ntt_kernel = counted
+    try:
+        btk, evals = keygen()
+    finally:
+        nc.ntt_kernel = kernel
+    msgs = torch.arange(64, device=dev) % 4
+    ct = tlwe.encrypt_uniform(gen, tp.lwe(), s_flat, tlwe.encode(tp, msgs),
+                              batch=(64,))
+    table = bootstrap.compute_lookup_table_standard(tp, dev)
+    out = bootstrap.bootstrap(tp, btk, table, ct, mode="standard",
+                              btk_evals=evals, **kw)
+    if not torch.equal(tlwe.decode(tp, tlwe.decrypt(tp.lwe(), s_flat, out)),
+                       msgs):
+        raise RuntimeError("key generation: a bootstrap under the new key "
+                           "decrypts wrong")
+    del btk, evals, out
+    times = {"key generation": best_of_3(keygen)}
+    t, n = 65537, 1 << 13
+    slots = torch.randint(0, t, (32, 2, n // 2), generator=gen, device=dev)
+    m = bfv_batch.batch_encode(t, n, slots)
+    if not torch.equal(bfv_batch.batch_decode(t, n, m), slots):
+        raise RuntimeError("batch_decode(batch_encode(slots)) != slots")
+    times["batch_encode"] = events_ms(
+        lambda: bfv_batch.batch_encode(t, n, slots), 20)
+    times["batch_decode"] = events_ms(
+        lambda: bfv_batch.batch_decode(t, n, m), 20)
+    return times, shapes
 
 
 def bfv_chains(R, dev, chain: int) -> dict:

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Count the SASS instructions in the loop of each ``alu_rate`` kernel.
+"""Count the SASS instructions in the loop of each ``alu_rate`` kernel, and
+the loads and barriers in the loop of each shared-memory ceiling kernel.
 
     python3 -m fhe_study_tpu_torch.utils.sass_counts
 
@@ -12,8 +13,12 @@ the branch), and prints the loop's instructions by mnemonic and their number
 per word and round: the loop body holds ALU_UNROLL rounds on ALU_PER_THREAD
 words, plus the counter's add (on the uniform datapath), compare and branch,
 which are left out.  These are the counts
-that ``ops/alu_bench.OP_COUNTS`` records.  Needs nvcc and cuobjdump (the CUDA
-toolkit); no card.
+that ``ops/alu_bench.OP_COUNTS`` records.  In every instantiation of
+``ntt_smem_ceiling_kernel`` it counts the global loads and barriers of the
+``reps`` loop, against those of one forward transform (``chain_loads``): equal
+counts mean ptxas hoisted no twiddle load out of the loop, so the ceiling
+loads what the kernels load.  Needs nvcc and cuobjdump (the CUDA toolkit); no
+card.
 """
 
 import json
@@ -24,6 +29,7 @@ import subprocess
 from collections import Counter
 
 from ..ops import _cuda, alu_bench
+from ..ops import ntt_cuda as nc
 
 _INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)"
                     r"([^;]*);")
@@ -85,8 +91,36 @@ def loop_counts(sass: str) -> dict:
     return out
 
 
+def chain_loads(logn: int) -> tuple:
+    """(global loads, barriers) of one forward transform on the plan at
+    2^logn: each stage u of a pass loads its 2^(3 - u) twiddles and their
+    companions, in two uint4 words at u = 0 and one word otherwise; a
+    barrier ends each pass."""
+    fwd = nc._radix_plan(logn).forward
+    return (2 * sum(2 if u == 0 else 1 for p in fwd for u in p.stages),
+            len(fwd))
+
+
+def ceiling_loops(sass: str) -> dict:
+    """{log n: (global loads, barriers)} in the loop of every
+    ``ntt_smem_ceiling_kernel`` instantiation."""
+    out = {}
+    for block in sass.split("Function : ")[1:]:
+        m = re.search(r"ntt_smem_ceiling_kernelILi(\d+)E",
+                      block.split("\n", 1)[0])
+        if m:
+            names = [name for name, _ in loop_of(block)]
+            out[int(m.group(1))] = (sum(n.startswith("LDG") for n in names),
+                                    sum(n.startswith("BAR") for n in names))
+    return out
+
+
 def main() -> None:
     sass = disassemble()
+    for logn, got in sorted(ceiling_loops(sass).items()):
+        print(f"ntt_smem_ceiling_kernel<{logn}>: {got[0]} global loads and "
+              f"{got[1]} barriers in its loop; one transform: "
+              f"{chain_loads(logn)}", flush=True)
     counts = loop_counts(sass)
     for op in alu_bench.OPS:
         c = counts.get(op)

@@ -45,9 +45,11 @@ def test_kernels_match_plain(cuda, n):
 
 @pytest.mark.parametrize("logn", range(_cuda.MIN_LOG_N, _cuda.MAX_LOG_N + 1))
 def test_radix_kernels_match_plain_at_every_degree(cuda, logn):
-    """The redesigned kernels: K1, K2, K3 and K5-K8 on the
+    """The redesigned kernels: K1-K3, K5-K9 and K12 on the
     register-resident chains, where each log n has its own pass structure
-    (K1 both ways, with and without fin, on aligned and word-offset rows; K2
+    (K1 both ways, with and without fin, on aligned and word-offset rows; K9
+    both ways under a 30-bit and a 31-bit prime, on aligned and word-offset
+    int64 rows; K12 over 0, 1 and 3 transforms; K2
     on contiguous, strided and unaligned rows; K3 from 1, 2, 4 and 9 digit
     rows over 2 and 6 primes, aligned and not; K5 from every source count it
     instantiates and its generic form; K6 with and without a scale, on
@@ -61,7 +63,8 @@ def test_radix_kernels_match_plain_at_every_degree(cuda, logn):
                                        "ks_contract", "ext_ntt",
                                        "base_extend", "tensor_mul4",
                                        "tensor_mul", "ks_fused",
-                                       "ks_fused_eval"}
+                                       "ks_fused_eval", "ntt",
+                                       "ntt_smem_ceiling"}
     for case in cases:
         got, want = case.kernel(), case.plain()
         torch.cuda.synchronize()
@@ -69,15 +72,17 @@ def test_radix_kernels_match_plain_at_every_degree(cuda, logn):
 
 
 def test_radix_kernels_have_no_stack_frame_or_spills(cuda):
-    """Every instance of the redesigned kernels: K2, K3, K7 and K8 per log
-    n, K1 (both ways) per log n, K5 and K6 per log n and source count form,
-    K4 per source count and form, K10 per log n, staged and direct."""
+    """Every instance of the redesigned kernels: K2, K3, K7, K8 and K12 per
+    log n, K1 and K9 (both ways) per log n, K5 and K6 per log n and source
+    count form, K4 per source count and form, K10 per log n, staged and
+    direct."""
     report = _cuda.ptxas_report(_cuda.build_log())
     counts = {"tensor_eval4_kernel": 7, "ks_contract_kernel": 7,
               "ks_fused_kernel": 7, "ks_fused_eval_kernel": 7,
               "ext_ntt_kernel": 7 * 3, "tensor_mul4_kernel": 7 * 3,
               "ntt_multi_kernel": 7 * 2, "base_extend_kernel": 15 * 2,
-              "blind_rotate_kernel": 7 * 2}
+              "blind_rotate_kernel": 7 * 2, "ntt_kernel": 7 * 2,
+              "ntt_smem_ceiling_kernel": 7}
     radix = [r for r in report if r["kernel"].split("<")[0] in counts]
     for name, count in counts.items():
         assert sum(r["kernel"].split("<")[0] == name for r in radix) == count
@@ -86,11 +91,11 @@ def test_radix_kernels_have_no_stack_frame_or_spills(cuda):
 
 
 def test_redesigned_kernels_refuse_another_plan(cuda):
-    """K1 refuses a block size or shared memory other than its build's and
-    uint4 loads from an unaligned row; K4 its vector form on a row length
-    that is no multiple of 4 or an unaligned row; K7 another block size or
-    shared memory, K8 an output off the 16-byte alignment.  Each refusal
-    raises."""
+    """K1 and K9 refuse a block size or shared memory other than their
+    build's and 16-byte loads from an unaligned row, K12 another block size
+    or shared memory; K4 its vector form on a row length that is no multiple
+    of 4 or an unaligned row; K7 another block size or shared memory, K8 an
+    output off the 16-byte alignment.  Each refusal raises."""
     qs = R.RnsParam(n=256, t=256, L=4, M=5).qs
     x = torch.zeros((4, 2, 256), dtype=torch.int32, device=cuda)
     tw = ntt_cuda._twiddles(qs, 256, True, cuda)
@@ -105,6 +110,25 @@ def test_redesigned_kernels_refuse_another_plan(cuda):
                                    tw[0].data_ptr(), tw[1].data_ptr(),
                                    cons.data_ptr(), 4, 1, 8, 1, 1, vec,
                                    threads, smem)
+    x64 = torch.zeros((2, 256), dtype=torch.int64, device=cuda)
+    for threads, smem, vec, src in ((plan.threads * 2, plan.smem_bytes, 1,
+                                     x64),
+                                    (plan.threads, plan.smem_bytes * 2, 1,
+                                     x64),
+                                    (plan.threads, plan.smem_bytes, 1,
+                                     x64.view(-1)[1:])):
+        with pytest.raises(RuntimeError, match="fhe_ntt"):
+            _cuda.NTT.launch(cuda, src.data_ptr(), x64.data_ptr(),
+                             tw[0].data_ptr(), tw[1].data_ptr(),
+                             cons.data_ptr(), 1, 8, 1, vec, threads, smem)
+    fwd0 = ntt_cuda._twiddles(qs[:1], 256, False, cuda)
+    for threads, smem in ((plan.threads * 2, plan.smem_bytes),
+                          (plan.threads, plan.smem_bytes // 2)):
+        with pytest.raises(RuntimeError, match="fhe_ntt_smem_ceiling"):
+            _cuda.NTT_SMEM_CEILING.launch(cuda, x.data_ptr(), x.data_ptr(),
+                                          fwd0[0].data_ptr(),
+                                          fwd0[1].data_ptr(), qs[0], 2, 8, 1,
+                                          threads, smem)
     tab = ext_cuda.kernel_table(qs, qs[:2], None, cuda)
     out = torch.zeros((2, 2, 256), dtype=torch.int32, device=cuda)
     for src, total in ((x, 511), (x.view(-1)[1:], 508)):

@@ -1,6 +1,7 @@
 """The pass plan of the register-resident chains that K1 (ntt_multi), K2
 (tensor_eval4), K3 (ks_contract), K5 (ext_ntt), K6 (tensor_mul4), K7
-(ks_fused) and K8 (ks_fused_eval) run on the card (csrc/radix_chain.cuh,
+(ks_fused), K8 (ks_fused_eval), K9 (ntt) and K12 (ntt_smem_ceiling) run on
+the card (csrc/radix_chain.cuh,
 mirrored by ops/ntt_cuda.py::_radix_plan), checked on the CPU at every ring
 degree the kernels take: every stage is run once and in order, a block fits
 the H100 (256 threads and one polynomial, or the 512 threads and three of
@@ -8,7 +9,10 @@ K6, K7 and K8), a torch emulation of the plan's element, twiddle and
 shared-memory maps equals the plain transform bit for bit in
 both directions, K1's own maps (its first pass from a row in device memory,
 the forward's uint4 read-out and the inverse's stores, each with fin) equal
-ntt_multi_plain, K3's schedule (the contraction into the first inverse
+ntt_multi_plain, K9's (the same on int64 words: 16-byte vectors of two
+words, n^-1 on the inverse) equal ntt_plain under a 30-bit and a 31-bit
+prime, K12's (reps forward chains through the resident buffer) equals
+ntt_smem_ceiling_plain, K3's schedule (the contraction into the first inverse
 pass) equals ks_contract_plain, K6's (four forward chains, x0's transform
 kept per virtual thread, the products between x1's last forward pass and
 the first inverse pass, three inverse chains) equals tensor_mul4_plain with
@@ -26,9 +30,11 @@ import numpy as np
 import pytest
 import torch
 
-from fhe_study_tpu_torch.ops import _cuda, ext_cuda
+from fhe_study_tpu_torch.ops import _cuda, alu_bench, ext_cuda
+from fhe_study_tpu_torch.ops import ntt as ntt_mod
 from fhe_study_tpu_torch.ops import ntt_cuda as nc
 from fhe_study_tpu_torch.ops.primes import ntt_primes
+from fhe_study_tpu_torch.utils import sass_counts
 
 LOGNS = range(_cuda.MIN_LOG_N, _cuda.MAX_LOG_N + 1)
 PRIMES = ntt_primes(3, 30, 1 << 15)           # 2n-th roots up to n = 2^14
@@ -128,17 +134,19 @@ def _lanes_consecutive(addr) -> bool:
 
 
 def _emulate(x, q: int, logn: int, inverse: bool, fin: int = 1,
-             first=None):
+             first=None, vec: int = 4):
     """The kernels' data flow on one row x of device memory: each pass runs
     its stages on [n/16, 16] registers, passes exchange through a swizzled
     shared-memory buffer.  The forward's first pass reads word
     base + (j << c0) of the row, base = v (K1; K5 converts the same words),
-    and its result leaves shared memory as uint4 rows (row i: the swizzled
-    words of 4i .. 4i + 3) times fin; the inverse's first pass reads the 16
-    contiguous words from base = 16 v (K1; K2 forms its products there), and
-    its last pass stores its registers times fin to base + (j << c), lanes
-    on consecutive words.  ``first``, where given, forms the first pass's
-    registers from its element addresses instead of reading x (K3)."""
+    and its result leaves shared memory as 16-byte rows of ``vec`` words
+    (row i: the swizzled words of vec i .. vec i + vec - 1; 4 int32 words,
+    or 2 int64 of K9) times fin; the inverse's first pass reads the 16
+    contiguous words from base = 16 v in 16-byte vectors (K1, K9; K2 forms
+    its products there), and its last pass stores its registers times fin
+    to base + (j << c), lanes on consecutive words.  ``first``, where given,
+    forms the first pass's registers from its element addresses instead of
+    reading x (K3)."""
     n = 1 << logn
     plan = nc._radix_plan(logn)
     roots = nc._roots_plain((q,), n, inverse, torch.device("cpu"))[0]
@@ -152,8 +160,8 @@ def _emulate(x, q: int, logn: int, inverse: bool, fin: int = 1,
         if i == 0:
             addr = 16 * v + k if inverse else v + (k << (logn - 4))
             assert torch.equal(addr, el)
-            if inverse:                               # uint4-aligned words
-                assert bool((addr[:, ::4] % 4 == 0).all())
+            if inverse:                               # 16-byte vectors
+                assert bool((addr[:, ::vec] % vec == 0).all())
             else:
                 assert _lanes_consecutive(addr)
             regs = x[addr] if first is None else first(addr)
@@ -166,11 +174,16 @@ def _emulate(x, q: int, logn: int, inverse: bool, fin: int = 1,
         else:
             smem[_swizzle(el)] = regs
     if not inverse:
-        sw = _swizzle(4 * torch.arange(n // 4))
-        rows = torch.stack([smem[sw ^ t] for t in range(4)], dim=1)
-        out = (rows * fin % q).reshape(n)
+        out = _read_out(smem, n, vec) * fin % q
     assert int(out.min()) >= 0
     return out
+
+
+def _read_out(smem, n: int, vec: int):
+    """The forward's coalesced read-out of a swizzled buffer: lane i takes
+    the ``vec`` words from vec i (one 16-byte store)."""
+    sw = _swizzle(vec * torch.arange(n // vec))
+    return torch.stack([smem[sw ^ t] for t in range(vec)], dim=1).reshape(n)
 
 
 @pytest.mark.parametrize("logn", LOGNS)
@@ -196,6 +209,53 @@ def test_k1_maps_with_fin_equal_plain(logn):
             want = nc.ntt_multi_plain(x, (q,), inverse=inverse,
                                       fin=(fin,)).long()[0]
             assert torch.equal(_emulate(x[0], q, logn, inverse, fin), want)
+
+
+# K9's primes: the TFHE pair's 30-bit one and the CRT pair's 31-bit one
+K9_PRIMES = (ntt_mod.CRT_PRIMES_TFHE[0], ntt_mod.CRT_PRIMES[0])
+
+
+@pytest.mark.parametrize("logn", LOGNS)
+def test_k9_schedule_equals_plain(logn):
+    """K9: K1's schedule on int64 words, 2 a 16-byte vector (the inverse's
+    first pass, the forward's read-out), the inverse with n^-1, the
+    forward without fin; and its read-out hits 32 distinct banks."""
+    n = 1 << logn
+    rng = np.random.default_rng(600 + logn)
+    assert [q.bit_length() for q in K9_PRIMES] == [30, 31]
+    for q in K9_PRIMES:
+        x = torch.from_numpy(rng.integers(0, q, n))
+        assert torch.equal(_emulate(x, q, logn, False, vec=2),
+                           nc.ntt_plain(x, q))
+        assert torch.equal(_emulate(x, q, logn, True, pow(n, -1, q), vec=2),
+                           nc.ntt_plain(x, q, inverse=True))
+    lanes = _swizzle(2 * torch.arange(n // 2)).reshape(-1, min(32, n // 2))
+    assert _banks_hit(lanes) == 1 and _banks_hit(lanes ^ 1) == 1
+
+
+def _emulate_k12(x, q: int, logn: int, reps: int):
+    """K12's data flow on one row x: loaded into the swizzled buffer word by
+    word, ``reps`` forward chains through it (every pass from shared memory
+    back to it), then K1's uint4 read-out."""
+    n = 1 << logn
+    plan = nc._radix_plan(logn)
+    roots = nc._roots_plain((q,), n, False, CPU)[0]
+    smem = torch.full((1, n), -1, dtype=torch.int64)
+    smem[0][_swizzle(torch.arange(n))] = x
+    for _ in range(reps):
+        _through_smem(smem, [0], plan.forward, roots, q, logn, False)
+    return _read_out(smem[0], n, 4)
+
+
+@pytest.mark.parametrize("logn", LOGNS)
+def test_k12_schedule_equals_plain(logn):
+    n = 1 << logn
+    rng = np.random.default_rng(700 + logn)
+    q = PRIMES[logn % len(PRIMES)]
+    x = torch.from_numpy(rng.integers(0, q, (1, n)))
+    for reps in (0, 1, 3):
+        want = alu_bench.ntt_smem_ceiling_plain(x.int(), q, reps)[0]
+        assert torch.equal(_emulate_k12(x[0], q, logn, reps), want.long())
 
 
 def _banks_hit(words) -> int:
@@ -428,6 +488,28 @@ def test_ptxas_report_reads_negative_template_arguments():
            "loads\n")
     assert [r["kernel"] for r in _cuda.ptxas_report(log)] == [
         "tensor_mul4_kernel<14, -1>"]
+
+
+def test_ceiling_loop_counts_read_from_sass():
+    """sass_counts.ceiling_loops counts the global loads and barriers of the
+    longest loop of each ntt_smem_ceiling_kernel (one outside it, a shorter
+    loop beside it); at n = 2^8 one forward transform holds 20 loads (two
+    passes of four stages: 2 x (2 + 1 + 1 + 1) each) and 2 barriers."""
+    lines = ["        Function : _ZN3fhe12_GLOBAL__N_123ntt_smem_ceiling_"
+             "kernelILi8EEEvPKjPjS3_S3_ji",
+             "        /*0000*/                   LDG.E R2, desc[UR4][R2.64] ;",
+             "        /*0010*/                   IADD3 R2, R2, 0x1, RZ ;",
+             "        /*0020*/              @P0 BRA 0x10 ;"]
+    loop = (["LDG.E.128.CONSTANT R4, desc[UR4][R6.64]"] * 20
+            + ["BAR.SYNC.DEFER_BLOCKING 0x0"] * 2 + ["IADD3 R8, R8, 0x1, RZ"])
+    for i, ins in enumerate(loop):
+        lines.append(f"        /*{0x30 + 16 * i:04x}*/                   "
+                     f"{ins} ;")
+    lines.append(f"        /*{0x30 + 16 * len(loop):04x}*/              "
+                 f"@P1 BRA 0x30 ;")
+    got = sass_counts.ceiling_loops("\n".join(lines) + "\n")
+    assert got == {8: (20, 2)} == {8: sass_counts.chain_loads(8)}
+    assert sass_counts.chain_loads(14) == (36, 4)
 
 
 def _emulate_ks(limbs, keys, q: int, logn: int, reps: int, fin: int,
