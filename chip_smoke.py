@@ -11,8 +11,11 @@ N = 1024, K = 1, t = 8, a batch of 64, blind-rotation gadget 4096^2,
 key-switch gadget 16^8 (the full chain of 1024 CMux steps and the
 keyswitch-first pipeline over a short key of 700), RNS-CKKS
 (models/ckks/ckks_rns.py with models/hybrid_ks.py and models/galois.py) at
-N = 2^13, L = 4 primes of 30 bits, delta = 2^28, K = 2, a batch of 32, and
-the NTT mode: a chain of 8 ntt_multi over 9 primes, B = 64, N = 2^14.
+N = 2^13, L = 4 primes of 30 bits, delta = 2^28, K = 2, a batch of 32, the
+NTT mode: a chain of 8 ntt_multi over 9 primes, B = 64, N = 2^14, and the
+CKKS linear maps and polynomial evaluation (models/ckks/eval.py, poly.py) at
+the n = 2^12 bootstrap's ring and prime count: N = 4096, L = 43, S = 2
+stages, h = 64, a batch of 8.
 Phases, each of which raises (and so exits non-zero) on any failure:
 
   1. toolchain and card: torch, CUDA, nvcc; the kernels built from csrc/;
@@ -32,12 +35,15 @@ Phases, each of which raises (and so exits non-zero) on any failure:
      5 source primes; K7 and K8 from 1, 2, 4 and 9 limb rows over 30-bit
      primes to 2 and 6 primes of 28 bits (reps >= 2), 39 rows to 2 primes
      at n = 2^11, R = L = 4 on the paths' strided views (K8's adds too) and
-     every operand one word off; K10 on its two-block clusters at every n
+     every operand one word off; K3, K7 and K8 at R = 43 over the 45 primes
+     of Q u P at n = 2^12 (the CKKS maps' shape); K11 from every source
+     count 1 .. 15 to 5 primes, unsigned and centered, in its vector and
+     word forms; K10 on its two-block clusters at every n
      its plan takes, C = 2 and 3, l = 1, 2 and 3, over 1, 2 and 17 steps on
      1, 3, 64, 67 and 133 ciphertexts (kernel_check.blind_rotate_sweep),
      staged and direct key planes and planes one word off; ptxas's
      registers, stack frame and spills of every kernel (phase 1), which must
-     show neither for K1-K10 and K12;
+     show neither for K1-K12;
   3. the eval-resident path: keygen -> hybrid relin key -> encrypt 128
      plaintext pairs -> to_evals -> mul_e -> from_evals -> decrypt;
   4. the coefficient-domain and gadget paths on the same ciphertexts: mul
@@ -51,7 +57,11 @@ Phases, each of which raises (and so exits non-zero) on any failure:
      negacyclic product for every coefficient;
   6. timing with CUDA events: chains of 4 (hybrid mul_e, gadget mul_e, mul,
      the linear step) and each kernel variant against its plain version at
-     the paths' shapes, beside the least time the card could take (bound);
+     the paths' shapes, beside the least time the card could take (its
+     bound, utils/kernel_check.bound: bytes over 3.35 TB/s, all integer
+     instructions over 128 a clock and SM, each integer pipe's issue slots
+     over 64; a kernel under it fails the run) and the issue-only bound of
+     earlier runs;
   7. the TFHE full-chain path: tglwe.new_key -> new_bootstrapping_key ->
      precompute_btk_evals -> encrypt_uniform of 64 messages -> bootstrap ->
      decrypt and decode, all 64 held against the messages; the fused chain
@@ -88,14 +98,30 @@ Phases, each of which raises (and so exits non-zero) on any failure:
      operations' issue rates; the last timed launch of every one of these
      is held against the plain version (the ceiling's on four polynomials,
      an alu_rate launch as 64 shorter ones, the first of which is held
-     against plain); a link's share of its issue bound beside its share of
-     the ceiling, the host's enqueue time a link, and a link's time on the
-     device alone;
+     against plain); each alu_rate loop must issue at 0.85-1.05 of its own
+     pipe-aware bound (the pipe model's check); a link's share of its bound
+     beside its share of the ceiling, the host's enqueue time a link, and a
+     link's time on the device alone;
  13. timing: the CKKS step as a chain (add + mul_hybrid, 3 iterations, the
      padded output fed back) as ops/s, eight rotations hoisted against
      eight unhoisted, and every variant of phase 10 beside plain and bound;
      each pure transform's share of the ceiling at its n (K1's link, K9's
-     variants at the shapes of TFHE key generation).
+     variants at the shapes of TFHE key generation);
+ 14. the CKKS linear maps: a fresh encryption at N = 4096, L = 43, scale
+     2^60 through the two c2s_stage_maps(4096, 2) stages, then the two
+     s2c_stage_maps(4096, 2) stages (build_rmap_plan at two primes a
+     diagonal scale -> apply_rmap_plan), each stage's Galois keys drawn on
+     the card at its level only, each stage's output decrypted and held
+     against numpy's application of the same maps (5e-2), and the chains
+     added at the end against 2z; then poly_eval (degree 7, delta = 2^28,
+     L = 8) and poly_eval2 (0.5 + z - 0.25z^3 at the double-prime scale,
+     L = 9; 1e-9) at N = 4096, each also held bit for bit against the same
+     call on the CPU (poly_eval's slots are reported against the 5e-3 that
+     the reference test holds at n = 32: at n = 4096 its noise exceeds it);
+     each stage's launches by kernel, its
+     ms (CUDA events, best of 3), key bytes and peak memory; the kernel
+     variants of the maps at L = 43 beside plain and bound.  Each phase
+     prints its wall time.
 
 It prints each finding on a line of its own, then the kernels' JSON record,
 the card's name and power limit, and as its last line
@@ -120,26 +146,28 @@ CK_N, CK_L, CK_K, CK_DELTA, CK_BATCH, CK_ITERS = 1 << 13, 4, 2, 2.0 ** 28, 32, 3
 CK_STEPS = (1, 2, 3, 5, 7, 11, 13, 17)       # the eight hoisted rotations
 CK2_L, CK2_BATCH = 7, 4                      # the double-prime scale
 CK_GADGET_DELTA, CK_GADGET_BATCH, BATCH_T = 2.0 ** 55, 4, 65537
+# the n = 2^12 CKKS bootstrap of the JAX bench (bench.py, bench_ckks_boot):
+# S = 2 radix-split stages, sparse secret h = 64, suggest_K_r(4096, 64) =
+# (K, r) = (12, 5), so L = 29 + 2r + 4(S - 1) = 43 primes; the linear maps
+# run at the working scale 2^60 with two primes per diagonal scale
+BOOT_N, BOOT_S, BOOT_H, BOOT_B, BOOT_DELTA = 1 << 12, 2, 64, 8, 2.0 ** 60
+BOOT_L = 29 + 2 * 5 + 4 * (BOOT_S - 1)
 NTT_L, NTT_B, NTT_CHAIN, NTT_ITERS = 9, 64, 8, 3
 CEILING_REPS, ALU_ROUNDS = 64, 1 << 16
-# the bound's denominators: device memory rate of the H100 SXM data sheet,
-# and the SM's issue rate, 128 thread-instructions a clock (one
-# warp-instruction a clock in each of 4 partitions; the data sheet's float32
-# rate is the same 128 multiply-adds), times the SM count and the maximum SM
-# clock that the card in hand reports.  The two integer pipes together (64
-# lanes each: IMAD on one, IADD3/LOP3/ISETP/SEL on the other) can take no
-# more, so no mix of 32-bit integer instructions issues faster
-MEMORY_BYTES_PER_S = 3.35e12
-INSTR_PER_SM_CLOCK = 128
+# the bound (utils/kernel_check.bound) takes the SM count and the maximum SM
+# clock that the card in hand reports; each alu_rate loop must issue at
+# ALU_SHARE of its own pipe-aware bound, or the pipe model is wrong
+ALU_SHARE = (0.85, 1.05)
 ALU_SHORT_ROUNDS = 1024      # the timed alu_rate launch is held in such pieces
 # the redesigned kernels: K1, K2, K3, K5, K6 (tensor_mul4 and, on row
 # strides, tensor_mul), K7, K8 (ks_fused, ks_fused_eval), K9 (ntt), K10
 # (blind_rotate) and K12 (ntt_smem_ceiling) on csrc/radix_chain.cuh, K4
-# (and K5, K6) with the source count at compile time; ptxas must give no
-# instance of them a stack frame or spills
+# and K11 (and K5, K6) with the source count at compile time; ptxas must
+# give no instance of them a stack frame or spills
 RADIX_KERNELS = {"ntt_multi", "tensor_eval4", "ks_contract", "ext_ntt",
                  "base_extend", "tensor_mul4", "tensor_mul", "ks_fused",
-                 "ks_fused_eval", "ntt", "blind_rotate", "ntt_smem_ceiling"}
+                 "ks_fused_eval", "ntt", "blind_rotate", "ntt_smem_ceiling",
+                 "base_extend_sum"}
 RADIX_BATCH = 3              # the small odd batch of their every-degree sweep
 
 
@@ -205,6 +233,11 @@ def main() -> None:
                                            sass_counts)
 
     dev = torch.device("cuda", 0)
+    marks = [wall0]
+
+    def phase_done(label: str) -> None:
+        marks.append(time.perf_counter())
+        say(f"wall: phase {label} took {marks[-1] - marks[-2]:.1f} s")
 
     # 1. toolchain and card ------------------------------------------------
     name_limit = smi("name,power.limit")
@@ -215,14 +248,21 @@ def main() -> None:
     say(f"card: {card}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     sm_mhz = float(smi("clocks.max.sm").split()[0])
-    int_ops_per_s = sms * INSTR_PER_SM_CLOCK * sm_mhz * 1e6
-    say(f"bound: bytes over {MEMORY_BYTES_PER_S / 1e12} TB/s, integer "
-        f"instructions (SASS counts of the primitives: "
+    clock = sm_mhz * 1e6
+
+    def bound(nbytes, work):
+        return kernel_check.bound(nbytes, work, sms, clock)
+
+    say(f"bound: the largest of bytes over "
+        f"{kernel_check.MEMORY_BYTES_PER_S / 1e12} TB/s, all integer "
+        f"instructions over {kernel_check.ISSUE_PER_SM_CLOCK} a clock and SM, "
+        f"and each integer pipe's issue slots (ALU; FMA, IMAD.HI and "
+        f"IMAD.WIDE two slots and one ALU slot each) over "
+        f"{kernel_check.PIPE_PER_SM_CLOCK} a clock and SM, on {sms} SMs at "
+        f"{sm_mhz:.0f} MHz; the primitives' SASS counts (ALU, FMA, wide): "
         f"{kernel_check.BUTTERFLY_OPS} a butterfly, {kernel_check.MONT_OPS} a "
         f"Montgomery product, {kernel_check.SHOUP_OPS} a Shoup product, "
-        f"{kernel_check.ADD_OPS} a modular add) over {sms} SMs x "
-        f"{INSTR_PER_SM_CLOCK} issued a clock x {sm_mhz:.0f} MHz = "
-        f"{int_ops_per_s / 1e12:.2f} T/s")
+        f"{kernel_check.ADD_OPS} a modular add")
     t0 = time.perf_counter()
     _cuda.library()
     build_s = time.perf_counter() - t0
@@ -247,6 +287,8 @@ def main() -> None:
     say(f"ptxas: no stack frame and no spills in the {len(radix_entries)} "
         f"instances of {sorted(RADIX_KERNELS)} ({len(k10_entries)} of "
         f"blind_rotate)")
+
+    phase_done("1 (toolchain and build)")
 
     # 2. kernels against their plain versions ------------------------------
     err = {k.name: 0 for k in _cuda.KERNELS}
@@ -301,8 +343,12 @@ def main() -> None:
         f"strided and word-offset), "
         f"tensor_mul4 and tensor_mul (with and without a scale; contiguous, "
         f"strided, stacked and unaligned rows; from 1 to 5 source primes), "
-        f"ext_ntt (from 1 to 5 source primes) and "
-        f"base_extend (from {kernel_check.EXT_SWEEP_LS} to "
+        f"ext_ntt (from 1 to 5 source primes), "
+        f"ks_contract, ks_fused and ks_fused_eval at R="
+        f"{kernel_check.KS_MAPS_R} over {kernel_check.KS_MAPS_LP} primes at "
+        f"n = 2^{kernel_check.KS_MAPS_LOGN}, base_extend_sum (from 1 to 15 "
+        f"source primes to {kernel_check.EXT_SUM_SWEEP_LD}, vector and word "
+        f"forms) and base_extend (from {kernel_check.EXT_SWEEP_LS} to "
         f"{kernel_check.EXT_SWEEP_LD} primes, unsigned and centered, with and "
         f"without the epilogue, vector and word forms) == plain (torch.equal) "
         f"at every n = 2^{_cuda.MIN_LOG_N} .. 2^{_cuda.MAX_LOG_N}, batch "
@@ -326,6 +372,8 @@ def main() -> None:
         f"{sum(checked.values())} variants at n={N} and n=256 (batch "
         f"{PARITY_BATCH}) and, for the TFHE kernels, at n={TFHE_N} over "
         f"{TFHE_N} and {TFHE_N_LWE} steps and at n=256: {checked}")
+
+    phase_done("2 (kernels against plain)")
 
     # 3-5. the paths at full width -----------------------------------------
     path_launches = {}
@@ -455,6 +503,8 @@ def main() -> None:
     verify("linear step (m1 + m2) * m2", rec, product,
            f"the numpy FFT negacyclic product (rounding error {fft_err:.2e})")
 
+    phase_done("3-5 (BFV paths)")
+
     # 6. timing ------------------------------------------------------------
     def chain_of(step, start):
         def chain():
@@ -511,23 +561,22 @@ def main() -> None:
         if case.butterflies:
             timed_chains.append(case)
         p_ms = time_ms(case.plain, case.plain_reps, warmup=case.plain_warmup)
-        b_ms = case.bytes / MEMORY_BYTES_PER_S * 1e3
-        o_ms = case.ops / int_ops_per_s * 1e3
-        if k_ms < max(b_ms, o_ms):
+        b = bound(case.bytes, case.ops)
+        if k_ms < b.ms:
             raise RuntimeError(
                 f"{case.name} [{case.label}]: the kernel's {k_ms:.4f} ms is "
-                f"under its bound (bytes {b_ms:.4f} ms, instructions "
-                f"{o_ms:.4f} ms): the bound is no bound")
+                f"under its bound {b}: the bound is no bound")
         ms[case.name] += k_ms
         plain_ms[case.name] += p_ms
-        byte_ms[case.name] += b_ms
-        op_ms[case.name] += o_ms
-        bound_ms[case.name] += max(b_ms, o_ms)
+        byte_ms[case.name] += b.bytes_ms
+        op_ms[case.name] += b.ops_ms
+        bound_ms[case.name] += b.ms
         say(f"timing: {case.name:13s} {case.label:48s} kernel {k_ms:8.3f} ms"
-            f"  plain {p_ms:9.3f} ms  bound {max(b_ms, o_ms):7.4f} ms "
-            f"(bytes {b_ms:.4f}, instructions {o_ms:.4f}; "
-            f"the kernel at {max(b_ms, o_ms) / k_ms:.3f} of the bound)  "
-            f"[{card}]")
+            f"  plain {p_ms:9.3f} ms  bound {b.ms:7.4f} ms by {b.term} "
+            f"(bytes {b.bytes_ms:.4f}, issue {b.issue_ms:.4f}, ALU "
+            f"{b.alu_ms:.4f}, FMA {b.fma_ms:.4f}; the kernel at "
+            f"{b.ms / k_ms:.3f} of the bound, {b.issue_only_ms / k_ms:.3f} of "
+            f"the issue-only bound {b.issue_only_ms:.4f})  [{card}]")
 
     for case in (kernel_check.cases(param, BATCH, dev, gen)
                  + kernel_check.linear_cases(lin, LIN_BATCH, dev, gen)):
@@ -538,6 +587,8 @@ def main() -> None:
     del x, y, ce, rec, stacked, x4
     st.clear()
     torch.cuda.empty_cache()
+
+    phase_done("6 (BFV timing)")
 
     # 7. TFHE: the full chain ------------------------------------------------
     tp = Param(ERR_SIGMA, RingParam(TORUS_Q, TFHE_N), TFHE_K, TFHE_T)
@@ -603,6 +654,8 @@ def main() -> None:
         f"(torch.equal) on the {TFHE_BATCH} ciphertexts")
     del stepwise, fused
 
+    phase_done("7 (TFHE full chain)")
+
     # 8. TFHE: the keyswitch-first pipeline ---------------------------------
     def short_path():
         ts["sbtk"] = bootstrap.new_short_bootstrapping_key(
@@ -621,6 +674,8 @@ def main() -> None:
     verify_messages(f"bootstrap_short ({TFHE_N_LWE} CMux steps)", got1)
     verify_messages("bootstrap_short of its own output", got2)
     sbtk, sevals = ts["sbtk"], ts["sevals"]
+
+    phase_done("8 (TFHE short pipeline)")
 
     # 9. TFHE timing ---------------------------------------------------------
     def chain_of_bootstraps(step):
@@ -693,6 +748,8 @@ def main() -> None:
     del sbtk, sevals, btk, evals, ct, ts
     torch.cuda.empty_cache()
 
+    phase_done("9 (TFHE timing)")
+
     # 10. the last three kernels and the CKKS variants, against plain --------
     cp = C.Param(n=CK_N, L=CK_L, delta=CK_DELTA)
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
@@ -717,6 +774,7 @@ def main() -> None:
     listing = sass_counts.disassemble()
     sass = sass_counts.loop_counts(listing)
     sass_per = {op: sass[op]["per_word_round"] for op in alu_bench.OPS}
+    sass_pipes = {op: sass[op]["pipes"] for op in alu_bench.OPS}
     # the ceiling's reps loop must load what one transform loads: a twiddle
     # load hoisted out of it would make the ceiling do less than the kernels
     loops = sass_counts.ceiling_loops(listing)
@@ -728,12 +786,15 @@ def main() -> None:
     say(f"sass: the reps loop of ntt_smem_ceiling_kernel holds one forward "
         f"transform's (global loads, barriers) at every log n: {loops}")
     for op in alu_bench.OPS:
-        same = ("as recorded" if sass_per[op] == alu_bench.OP_COUNTS[op] else
-                f"NOT the recorded {alu_bench.OP_COUNTS[op]}: another "
-                f"compiler; this build's count is used below")
+        same = ("as recorded" if sass_pipes[op] == alu_bench.OP_PIPES[op]
+                else f"NOT the recorded {alu_bench.OP_PIPES[op]}: another "
+                f"compiler; this build's counts are used below")
         say(f"sass: alu_rate {op:10s} {sass_per[op]:.4f} instructions a "
             f"{'butterfly' if op == 'butterfly' else 'word'} and round in "
-            f"this build ({same}): {sass[op]['loop']}")
+            f"this build, (ALU, FMA, wide) {sass_pipes[op]} ({same}): "
+            f"{sass[op]['loop']}")
+
+    phase_done("10 (last kernels and CKKS variants)")
 
     # 11. RNS-CKKS at full width ---------------------------------------------
     cshape = (f"N={CK_N} L={CK_L} K={CK_K} "
@@ -911,6 +972,8 @@ def main() -> None:
         raise RuntimeError(f"mul_hybrid2 parameters: {p5}")
     verify_slots("mul_hybrid2", got, (za * zb).astype(complex), 1e-9)
 
+    phase_done("11 (RNS-CKKS)")
+
     # 12. the NTT mode -------------------------------------------------------
     nqs = ntt_primes(NTT_L, 30, 1 << 16)
     a0 = prng.uniform_mod_multi(gen, (NTT_B, N), nqs, dev)
@@ -1032,20 +1095,21 @@ def main() -> None:
     links = NTT_ITERS * NTT_CHAIN
     link_ms = nb["dt"] * 1e3 / links
     device_ms = nb["device_dt"] * 1e3 / links
-    link_op_ms = (NTT_L * NTT_B * (N // 2) * (N.bit_length() - 1)
-                  * kernel_check.BUTTERFLY_OPS / int_ops_per_s * 1e3)
-    link_byte_ms = (4 * (2 * NTT_L * NTT_B * N + 2 * NTT_L * N)
-                    / MEMORY_BYTES_PER_S * 1e3)
-    link_bound = max(link_op_ms, link_byte_ms)
+    lb = bound(4 * (2 * NTT_L * NTT_B * N + 2 * NTT_L * N),
+               NTT_L * NTT_B * (N // 2) * (N.bit_length() - 1)
+               * kernel_check.BUTTERFLY_OPS)
+    link_bound = lb.ms
     say(f"ntt mode: a link {link_ms:.4f} ms against its bound "
-        f"{link_bound:.4f} ms (instructions {link_op_ms:.4f}, bytes "
-        f"{link_byte_ms:.4f}): {link_bound / link_ms:.3f} of the issue bound, "
+        f"{link_bound:.4f} ms by {lb.term} (issue {lb.issue_ms:.4f}, ALU "
+        f"{lb.alu_ms:.4f}, FMA {lb.fma_ms:.4f}, bytes {lb.bytes_ms:.4f}): "
+        f"{link_bound / link_ms:.3f} of the bound "
+        f"({lb.issue_only_ms / link_ms:.3f} of the issue-only bound), "
         f"{roof.butterflies_per_sec / ceil_bf[N]:.3f} of the shared-memory "
         f"ceiling of its own chain; the host took "
         f"{nb['host'] * 1e3 / links:.4f} ms to enqueue a link; on "
         f"the device alone (queued behind device work) a link takes "
-        f"{device_ms:.4f} ms, {link_bound / device_ms:.3f} of the issue "
-        f"bound [{card}]")
+        f"{device_ms:.4f} ms, {link_bound / device_ms:.3f} of the bound "
+        f"[{card}]")
     say(f"ceiling: the register-resident forward chain on polynomials "
         f"resident in shared memory, reps={CEILING_REPS}, n={N}: B={NTT_B} "
         f"(64 of {sms} SMs busy) "
@@ -1057,30 +1121,45 @@ def main() -> None:
         f"butterflies, shared-memory exchanges, twiddle loads and barriers), "
         f"not of the card: fewer instructions a butterfly would raise it "
         f"[{card}]")
-    clock = sm_mhz * 1e6
+    # each loop against its own pipe-aware bound: one word (butterfly) a
+    # round has the work of this build's loop, so the bound of one second's
+    # worth of clocks is the most that the model lets it issue
+    off_model = {}
     for op in alu_bench.OPS:
         r = nb["alu"][op]
         per_clk = r["elems_per_s"] / (sms * clock)
+        unit = bound(0, kernel_check.Work(*sass_pipes[op]))
+        most = 1e3 / unit.ms                   # words (butterflies) a second
+        share = r["elems_per_s"] / most
+        if not ALU_SHARE[0] <= share <= ALU_SHARE[1]:
+            off_model[op] = share
         say(f"alu_rate: {op:10s} {r['elems_per_s']:.4e} "
             f"{'butterflies' if op == 'butterfly' else 'words'}/s on "
             f"{list(alu_shape[op])} words, rounds={r['rounds']}: "
             f"{per_clk:.2f} a clock and SM at {sm_mhz:.0f} MHz = "
-            f"{per_clk * sass_per[op]:.1f} SASS instructions "
-            f"({sass_per[op]:.4f} each in this build) of the "
-            f"{INSTR_PER_SM_CLOCK} an SM can issue [{card}]")
+            f"{per_clk * sass_per[op]:.1f} SASS instructions of the "
+            f"{kernel_check.ISSUE_PER_SM_CLOCK} an SM can issue; "
+            f"{share:.3f} of its pipe-aware bound of {most:.4e} (by "
+            f"{unit.term}; (ALU, FMA, wide) {sass_pipes[op]} a unit) "
+            f"[{card}]")
+    if off_model:
+        raise RuntimeError(f"alu_rate loops outside {ALU_SHARE} of their "
+                           f"pipe-aware bound: {off_model}; the pipe model "
+                           f"(utils/sass_counts.PIPES) is wrong")
+    say(f"alu_rate: every loop issues at {ALU_SHARE[0]}-{ALU_SHARE[1]} of its "
+        f"pipe-aware bound")
     bf_issue = nb["alu"]["butterfly"]["elems_per_s"]
-    bf_bound = int_ops_per_s / kernel_check.BUTTERFLY_OPS
+    bf_unit = bound(0, kernel_check.BUTTERFLY_OPS)
+    bf_bound = 1e3 / bf_unit.ms
     say(f"ceiling: the butterfly alone, in registers, issues at "
         f"{bf_issue:.4e} butterflies/s, {bf_issue / bf_bound:.3f} of the "
-        f"bound's {bf_bound:.4e} ({kernel_check.BUTTERFLY_OPS} instructions "
-        f"at {INSTR_PER_SM_CLOCK} a clock and SM); the shared-memory chain "
-        f"reaches {ceil_bf[N] / bf_issue:.3f} of the butterfly's rate")
+        f"bound's {bf_bound:.4e} ({kernel_check.BUTTERFLY_OPS} a butterfly, "
+        f"by {bf_unit.term}; {bf_issue * bf_unit.issue_only_ms * 1e-3:.3f} of "
+        f"the issue-only {1e3 / bf_unit.issue_only_ms:.4e}); the "
+        f"shared-memory chain reaches {ceil_bf[N] / bf_issue:.3f} of the "
+        f"butterfly's rate and {ceil_bf[N] / bf_bound:.3f} of the bound")
 
-    launches = {k.name: sum(c[k.name] for c in path_launches.values())
-                for k in _cuda.KERNELS}
-    never = [k for k, v in launches.items() if v == 0]
-    if never:
-        raise RuntimeError(f"kernels launched on no path: {never}")
+    phase_done("12 (NTT mode)")
 
     # 13. CKKS timing --------------------------------------------------------
     def pad(a):
@@ -1161,7 +1240,7 @@ def main() -> None:
     for case in (kernel_check.ext_sum_cases(CK_N, CK_BATCH, dev, gen)
                  + kernel_check.bench_cases(N, NTT_B, dev, gen, reps=8,
                                             rounds=ALU_SHORT_ROUNDS,
-                                            counts=sass_per)):
+                                            counts=sass_pipes)):
         if case.timed:
             time_case(case)
         else:                                    # kernel against kernel
@@ -1176,6 +1255,184 @@ def main() -> None:
         say(f"ceiling: {name:13s} {label:48s} {rate:.4e} butterflies/s = "
             f"{rate / ceil_bf[n]:.3f} of the shared-memory ceiling at n={n} "
             f"[{card}]")
+
+    phase_done("13 (CKKS timing)")
+
+    # 14. slice 7a: CKKS linear maps and polynomial evaluation ---------------
+    # the radix-split CoeffToSlot and SlotToCoeff stages of the n = 2^12
+    # bootstrap at their level and working scale, each stage's plans built
+    # and its Galois keys drawn just before it and freed after it
+    from fhe_study_tpu_torch.models.ckks import eval as E
+    from fhe_study_tpu_torch.models.ckks import poly as P
+    bp = C.Param(n=BOOT_N, L=BOOT_L, delta=BOOT_DELTA)
+    bshape = (f"N={BOOT_N} L={BOOT_L} S={BOOT_S} K={CK_K} h={BOOT_H} "
+              f"delta=2^{round(np.log2(BOOT_DELTA))} B={BOOT_B}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    zb = (rng.uniform(-1, 1, (BOOT_B, BOOT_N // 2))
+          + 1j * rng.uniform(-1, 1, (BOOT_B, BOOT_N // 2)))
+    t0 = time.perf_counter()
+    stage_maps = ([("C2S", m) for m in E.c2s_stage_maps(BOOT_N, BOOT_S)]
+                  + [("S2C", m) for m in E.s2c_stage_maps(BOOT_N, BOOT_S)])
+    say(f"host: c2s_stage_maps and s2c_stage_maps({BOOT_N}, {BOOT_S}) in "
+        f"{time.perf_counter() - t0:.1f} s (numpy)")
+    bsk, bpk = C.new_key(gen, bp, dev, h=BOOT_H)
+    cts = [C.encrypt(gen, bp, bpk, C.encode(bp, on_card(zb.real.copy()),
+                                            on_card(zb.imag.copy())),
+                     batch=(BOOT_B,))]
+    want = [zb]
+
+    def numpy_map(m, z):
+        A, B = m
+        out = np.zeros_like(z)
+        if A is not None and np.any(A):
+            out = out + z @ A.T
+        if B is not None and np.any(B):
+            out = out + z.conj() @ B.T
+        return out
+
+    L_cur = BOOT_L
+    for s, (kind, (m1, m2)) in enumerate(stage_maps):
+        tag = f"{kind} stage {s % BOOT_S}"
+        pL = C.Param(n=BOOT_N, L=L_cur, delta=BOOT_DELTA)
+        t0 = time.perf_counter()
+        if s == 0:                       # one plan emits both chains
+            jobs = [(E.build_rmap_plan(pL, [m1, m2], dev, pt_levels=2), 0)]
+        else:
+            same = all(np.array_equal(a, b) for a, b in zip(m1, m2))
+            p1 = E.build_rmap_plan(pL, [m1], dev, pt_levels=2)
+            p2 = p1 if same else E.build_rmap_plan(pL, [m2], dev, pt_levels=2)
+            jobs = [(p1, 0), (p2, 1)]
+        plans = {id(p): p for p, _ in jobs}.values()
+        steps = sorted({j for p in plans for j in p.need_d | p.need_e if j}
+                       | {gi for p in plans for m in p.maps for gi, _ in m
+                          if gi})
+        conj = any(p.need_e for p in plans)
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rk = E.RotKeys.build(gen, pL, bsk, steps=steps, conj=conj, K=CK_K,
+                             levels=[L_cur])
+        torch.cuda.synchronize()
+        key_s = time.perf_counter() - t0
+        em_bytes = sum(p.em.numel() * 4 for p in plans)
+        say(f"ckks maps: {tag} at L={L_cur}: {len(plans)} plan(s), "
+            f"{sum(len(p.need_d) for p in plans)} + "
+            f"{sum(len(p.need_e) for p in plans)} babies (z, z_c), "
+            f"{sum(len(m) for p in plans for m in p.maps)} giant blocks, "
+            f"{len(rk.keys)} Galois keys of {rk.nbytes() / 2**30:.3f} GiB "
+            f"drawn on the card in {key_s:.1f} s, em "
+            f"{em_bytes / 2**30:.3f} GiB; plans built in {host_s:.1f} s")
+
+        def stage(inputs=cts, jobs=jobs, rk=rk, pL=pL):
+            outs = []
+            for plan, i in jobs:
+                got, _ = E.apply_rmap_plan(pL, rk, inputs[i], plan)
+                outs += got
+            return outs
+
+        label = (f"ckks maps: {tag}: apply_rmap_plan at "
+                 f"{bshape.replace(f'L={BOOT_L}', f'L={L_cur}')}")
+        outs = drive(label, ("ntt_multi", "ks_contract", "base_extend",
+                             "ks_fused"), stage)
+        want = ([numpy_map(m1, want[0]), numpy_map(m2, want[0])] if s == 0
+                else [numpy_map(m1, want[0]), numpy_map(m2, want[1])])
+        L_cur -= 2
+        pout = C.Param(n=BOOT_N, L=L_cur, delta=BOOT_DELTA)
+        for chain, (c, w) in enumerate(zip(outs, want)):
+            if c.c0.shape[0] != L_cur:
+                raise RuntimeError(f"{tag}: output at {c.c0.shape[0]} limbs, "
+                                   f"expected {L_cur}")
+            verify_slots(f"ckks maps: {tag}, chain {chain + 1}",
+                         slots_of(pout, bsk, c), w, 5e-2)
+        runs = [time_ms(stage, 1, warmup=0) for _ in range(3)]
+        say(f"timing: ckks maps: {tag} at L={L_cur + 2}, B={BOOT_B}: runs "
+            f"{[round(r, 3) for r in runs]} ms, best {min(runs):.3f} ms; "
+            f"peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+            f"{ {k: v for k, v in path_launches[label].items() if v} } "
+            f"[{card}]")
+        cts = outs
+        del rk, jobs, plans, stage
+        torch.cuda.empty_cache()
+    # the two chains of C2S then S2C give 2z (the real extraction's
+    # y + conj(y) at fold 1)
+    pout = C.Param(n=BOOT_N, L=L_cur, delta=BOOT_DELTA)
+    verify_slots("ckks maps: C2S then S2C, the two chains added",
+                 slots_of(pout, bsk, C.add(pout, *cts)), 2 * zb, 5e-2)
+    del cts, outs, bsk, bpk
+    torch.cuda.empty_cache()
+
+    # poly_eval and poly_eval2 at n = 2^12, at the reference tests' levels
+    zr = rng.uniform(-1, 1, (BOOT_B, BOOT_N // 2))
+    coeffs = [1.0, -2.0, 0.0, 0.5, 0.0, 0.0, 0.0, -0.25]
+    p8 = C.Param(n=BOOT_N, L=8, delta=2.0 ** 28)
+    p9 = C.Param(n=BOOT_N, L=9, delta=1.0)
+    p9 = C.Param(n=BOOT_N, L=9, delta=C.delta2(p9))
+    coeffs2 = [0.5, 1.0, 0.0, -0.25]
+
+    def poly_path(param, z, fn, cs):
+        sk, pk = C.new_key(gen, param, dev)
+        rlks = P.rlk_keys_all_levels(gen, param, sk, K=CK_K)
+        c = C.encrypt(gen, param, pk, C.encode(param, on_card(z.real.copy()),
+                                               on_card(z.imag.copy())),
+                      batch=(BOOT_B,))
+        return sk, rlks, c, *fn(rlks, c, param, cs)
+
+    def on_cpu(t):
+        return type(t)(*(v.cpu() for v in t))
+
+    def poly_check(label, param, z, fn, cs):
+        """fn on the card, decoded against numpy; and the same call on the
+        CPU (the plain versions, which tier-1 holds to the reference bit
+        for bit) on the same keys and ciphertext, bit for bit."""
+        sk, rlks, c, out, pout = drive(
+            f"ckks poly: new_key -> rlk_keys_all_levels -> encrypt -> "
+            f"{label} -> decode at N={BOOT_N} L={param.L} B={BOOT_B}",
+            ("ntt_multi", "tensor_mul4", "ks_fused", "base_extend"),
+            lambda: poly_path(param, z, fn, cs))
+        cpu_out, cpu_p = fn({k: on_cpu(v) for k, v in rlks.items()},
+                            on_cpu(c), param, cs)
+        if (not all(torch.equal(a.cpu(), b) for a, b in zip(out, cpu_out))
+                or cpu_p != pout):
+            raise RuntimeError(f"{label}: the card's output != the same call "
+                               "on the CPU")
+        say(f"verify: {label}: the card's output == the same call on the CPU "
+            f"(torch.equal, all {out.c0.shape[0]} x {BOOT_B} x {BOOT_N} "
+            f"residues of both components)")
+        return pout, slots_of(pout, sk, out)
+
+    pout, got = poly_check("poly_eval (degree 7, delta=2^28)", p8,
+                           zr.astype(complex), P.poly_eval, coeffs)
+    want = sum(c * zr ** k for k, c in enumerate(coeffs)).astype(complex)
+    worst = float(np.abs(got - want).max())
+    if not np.isfinite(got).all() or got.shape != want.shape:
+        raise RuntimeError(f"poly_eval: decoded {got.shape}, not finite")
+    # at delta = 2^28 on 30-bit primes the ladder's scale falls to 2^16 at
+    # z^7, and the slot error grows with n (PERF.md §6): the reference
+    # test's 5e-3 at n = 32 is reported here, not held
+    say(f"verify: poly_eval 1 - 2z + 0.5z^3 - 0.25z^7 at N={BOOT_N}: decoded "
+        f"against numpy in all {BOOT_B} x {BOOT_N // 2} slots: max |diff| "
+        f"{worst:.3e}, {'within' if worst <= 5e-3 else 'NOT within'} the "
+        f"5e-3 that tests/test_ckks_poly.py holds at n=32")
+    pout2, got = poly_check("poly_eval2 (delta=q8*q7)", p9, zb,
+                            P.poly_eval2, coeffs2)
+    if pout2.delta != p9.delta:
+        raise RuntimeError(f"poly_eval2 output scale {pout2.delta} != "
+                           f"{p9.delta}")
+    verify_slots("poly_eval2 0.5 + z - 0.25z^3", got,
+                 0.5 + zb - 0.25 * zb ** 3, 1e-9)
+    # the kernel variants of the maps at their widest level
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    for case in kernel_check.ckks_cases(bp, BOOT_B, CK_K, dev, gen):
+        time_case(case)
+    phase_done("14 (CKKS maps and polynomials, n = 2^12)")
+
+    launches = {k.name: sum(c[k.name] for c in path_launches.values())
+                for k in _cuda.KERNELS}
+    never = [k for k, v in launches.items() if v == 0]
+    if never:
+        raise RuntimeError(f"kernels launched on no path: {never}")
 
     say(f"parity: kernel == plain (torch.equal) for all "
         f"{sum(checked.values())} variants, those at the full batch of each "

@@ -1,6 +1,6 @@
 // Hopper kernels of the RNS fast base extension (HPS conversion): K4 replaces
 // fhe_study_tpu/ops/ext_pallas.py::base_extend_fused (_ext_fused_kernel), K11
-// (further down) base_extend_sum.
+// (further down, on K4's structure) base_extend_sum.
 //
 // out_j = sum_i y_i * (S/s_i) - alpha * S  (mod d_j),
 //   y_i = x_i * (S/s_i)^-1 mod s_i,
@@ -26,6 +26,7 @@
 // alpha; 2^58 added to its sum when centered), bit for bit.
 
 #include <cstdint>
+#include <type_traits>
 
 #include "modarith.cuh"
 
@@ -62,6 +63,41 @@ __device__ __forceinline__ void store_coeffs(uint32_t* p,
   }
 }
 
+// The table of one block: the packed constants staged into shared memory.
+__device__ __forceinline__ ExtTable stage_table(uint32_t* tab,
+                                                const uint32_t* ext, int ls,
+                                                int ld) {
+  for (int i = threadIdx.x; i < ext_words(ls, ld); i += blockDim.x) {
+    tab[i] = ext[i];
+  }
+  __syncthreads();
+  return ExtTable{tab, ls, ld};
+}
+
+// v = sum_i y_i * (S/s_i) - alpha * S mod d_j, for K coefficients at once.
+template <int LS, int K>
+__device__ __forceinline__ void ext_sum(const uint32_t (&y)[LS][K],
+                                        const uint32_t (&alpha)[K],
+                                        const ExtTable& e, int j,
+                                        uint32_t (&v)[K]) {
+  const uint32_t d = e.dst(j, 0);
+#pragma unroll
+  for (int k = 0; k < K; ++k) v[k] = 0;
+#pragma unroll
+  for (int i = 0; i < LS; ++i) {
+    const uint32_t t = e.tab(i, j, 0), tsh = e.tab(i, j, 1);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      v[k] = addmod(v[k], shoup_mul(y[i][k], t, tsh, d), d);
+    }
+  }
+  const uint32_t sm = e.dst(j, 1), smsh = e.dst(j, 2);
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    v[k] = submod(v[k], shoup_mul(alpha[k], sm, smsh, d), d);
+  }
+}
+
 template <int LS, int VEC>
 __global__ void __launch_bounds__(kThreads)
 base_extend_kernel(const uint32_t* __restrict__ x,
@@ -71,11 +107,7 @@ base_extend_kernel(const uint32_t* __restrict__ x,
                    int centered) {
   constexpr int K = VEC != 0 ? kExtVec : 1;
   extern __shared__ uint32_t tab[];
-  for (int i = threadIdx.x; i < ext_words(LS, Ld); i += blockDim.x) {
-    tab[i] = ext[i];
-  }
-  __syncthreads();
-  const ExtTable e{tab, LS, Ld};
+  const ExtTable e = stage_table(tab, ext, LS, Ld);
   const long long units = total / K;             // VEC: total % 4 == 0
   const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long u = static_cast<long long>(blockIdx.x) * blockDim.x +
@@ -102,24 +134,10 @@ base_extend_kernel(const uint32_t* __restrict__ x,
 #pragma unroll
     for (int k = 0; k < K; ++k) alpha[k] = static_cast<uint32_t>(acc[k] >> 59);
     for (int j = 0; j < Ld; ++j) {
-      const uint32_t d = e.dst(j, 0);
       uint32_t v[K];
-#pragma unroll
-      for (int k = 0; k < K; ++k) v[k] = 0;
-#pragma unroll
-      for (int i = 0; i < LS; ++i) {
-        const uint32_t t = e.tab(i, j, 0), tsh = e.tab(i, j, 1);
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-          v[k] = addmod(v[k], shoup_mul(y[i][k], t, tsh, d), d);
-        }
-      }
-      const uint32_t sm = e.dst(j, 1), smsh = e.dst(j, 2);
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        v[k] = submod(v[k], shoup_mul(alpha[k], sm, smsh, d), d);
-      }
+      ext_sum<LS, K>(y, alpha, e, j, v);
       if (w != nullptr) {
+        const uint32_t d = e.dst(j, 0);
         uint32_t wv[K];
         load_coeffs<K>(wv, w + j * total + c);
         const uint32_t cm = e.dst(j, 3), cmsh = e.dst(j, 4);
@@ -133,58 +151,73 @@ base_extend_kernel(const uint32_t* __restrict__ x,
   }
 }
 
+// K11 — replaces ext_pallas.py::base_extend_sum (_ext_kernel): the second
+// half of the conversion alone, for a caller that holds (ys, alpha) already:
+// out_j = sum_i ys_i * (S/s_i) - alpha * S  (mod d_j).  K4's structure: one
+// instance per source count (the ys of a thread in LS registers), the table
+// staged in shared memory, and in its vector form 4 consecutive coefficients
+// a thread, one uint4 load from each of the LS rows of ys and from alpha and
+// one uint4 store to each of the Ld output rows.  Ls + 1 words in and Ld out
+// per coefficient against Ls * Ld Shoup products and modular adds: about 4
+// instructions a byte at Ls = 4, Ld = 5, where the H100 issues 10 for each
+// byte its memory moves, so bytes bound it.
+template <int LS, int VEC>
+__global__ void __launch_bounds__(kThreads)
+base_extend_sum_kernel(const uint32_t* __restrict__ ys,
+                       const uint32_t* __restrict__ alpha,
+                       uint32_t* __restrict__ out,
+                       const uint32_t* __restrict__ ext, int Ld,
+                       long long total) {
+  constexpr int K = VEC != 0 ? kExtVec : 1;
+  extern __shared__ uint32_t tab[];
+  const ExtTable e = stage_table(tab, ext, LS, Ld);
+  const long long units = total / K;             // VEC: total % 4 == 0
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long u = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       u < units; u += step) {
+    const long long c = u * K;
+    uint32_t y[LS][K], al[K];
+#pragma unroll
+    for (int i = 0; i < LS; ++i) load_coeffs<K>(y[i], ys + i * total + c);
+    load_coeffs<K>(al, alpha + c);
+    for (int j = 0; j < Ld; ++j) {
+      uint32_t v[K];
+      ext_sum<LS, K>(y, al, e, j, v);
+      store_coeffs<K>(out + j * total + c, v);
+    }
+  }
+}
+
 unsigned grid_for(long long threads) {
   const long long blocks = (threads + kThreads - 1) / kThreads;
   return static_cast<unsigned>(blocks > kMaxBlocks ? kMaxBlocks : blocks);
 }
 
-// The instance of K4 for Ls source primes (LS = 1 .. kMaxSrc).
-template <int LS = 1>
-int base_extend_launch(int Ls, int vec, const uint32_t* x, const uint32_t* w,
-                       uint32_t* out, const uint32_t* ext, int Ld,
-                       long long total, int centered, cudaStream_t stream) {
+// launch(std::integral_constant<int, Ls>{}): the instance for Ls source
+// primes (1 .. kMaxSrc), by recursion over the compile-time counts.
+template <int LS = 1, typename Launch>
+int by_src_count(int Ls, Launch&& launch) {
   if constexpr (LS > kMaxSrc) {
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
-    if (Ls != LS) {
-      return base_extend_launch<LS + 1>(Ls, vec, x, w, out, ext, Ld, total,
-                                        centered, stream);
-    }
-    const size_t smem = sizeof(uint32_t) * ext_words(LS, Ld);
-    if (vec) {
-      base_extend_kernel<LS, 1><<<grid_for(total / kExtVec), kThreads, smem,
-                                  stream>>>(x, w, out, ext, Ld, total,
-                                            centered);
-    } else {
-      base_extend_kernel<LS, 0><<<grid_for(total), kThreads, smem, stream>>>(
-          x, w, out, ext, Ld, total, centered);
-    }
+    if (Ls != LS) return by_src_count<LS + 1>(Ls, launch);
+    launch(std::integral_constant<int, LS>{});
     return static_cast<int>(cudaGetLastError());
   }
 }
 
-// K11 — replaces ext_pallas.py::base_extend_sum (_ext_kernel): the second
-// half of the conversion alone, for a caller that holds (ys, alpha) already:
-// out_j = sum_i ys_i * (S/s_i) - alpha * S  (mod d_j).  K4's layout before its
-// redesign: one thread per coefficient, the table read from device memory,
-// the y_i in an array indexed by the run-time Ls (ptxas puts it in local
-// memory).  Ls + 1 words in and Ld out per coefficient against Ls * Ld Shoup
-// products, so bytes bound it while Ld stays small.
-__global__ void base_extend_sum_kernel(const uint32_t* __restrict__ ys,
-                                       const uint32_t* __restrict__ alpha,
-                                       uint32_t* __restrict__ out,
-                                       const uint32_t* __restrict__ ext,
-                                       int Ls, int Ld, long long total) {
-  const ExtTable e{ext, Ls, Ld};
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long c = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       c < total; c += step) {
-    uint32_t y[kMaxSrc];
-    for (int i = 0; i < Ls; ++i) y[i] = ys[i * total + c];
-    const uint32_t al = alpha[c];
-    for (int j = 0; j < Ld; ++j) out[j * total + c] = ext_to(y, al, j, e);
-  }
+// The packed table fits the 48 KB of dynamic shared memory a block gets
+// without opting in, and the vector form's operands are 4-word rows on
+// 16-byte boundaries.
+bool bad_shape(int Ls, int Ld, long long total) {
+  return Ls < 1 || Ls > kMaxSrc || Ld < 1 || total < 1 ||
+         sizeof(uint32_t) * ext_words(Ls, Ld) > 48 * 1024;
+}
+
+bool bad_vec(long long total, const void* a, const void* b, const void* c) {
+  return total % kExtVec != 0 || misaligned(a) || misaligned(b) ||
+         (c != nullptr && misaligned(c));
 }
 
 }  // namespace
@@ -198,28 +231,44 @@ extern "C" int fhe_base_extend(const uint32_t* x, const uint32_t* w,
                                uint32_t* out, const uint32_t* ext, int Ls,
                                int Ld, long long total, int centered, int vec,
                                cudaStream_t stream) {
-  if (Ls < 1 || Ls > kMaxSrc || Ld < 1 || total < 1 ||
-      sizeof(uint32_t) * ext_words(Ls, Ld) > 48 * 1024) {
+  if (bad_shape(Ls, Ld, total) || (vec && bad_vec(total, x, out, w))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (vec && (total % kExtVec != 0 || misaligned(x) || misaligned(out) ||
-              (w != nullptr && misaligned(w)))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return base_extend_launch(Ls, vec, x, w, out, ext, Ld, total, centered,
-                            stream);
+  const size_t smem = sizeof(uint32_t) * ext_words(Ls, Ld);
+  return by_src_count(Ls, [&](auto ls) {
+    constexpr int LS = decltype(ls)::value;
+    if (vec) {
+      base_extend_kernel<LS, 1><<<grid_for(total / kExtVec), kThreads, smem,
+                                  stream>>>(x, w, out, ext, Ld, total,
+                                            centered);
+    } else {
+      base_extend_kernel<LS, 0><<<grid_for(total), kThreads, smem, stream>>>(
+          x, w, out, ext, Ld, total, centered);
+    }
+  });
 }
 
+// vec: as fhe_base_extend's, on ys, alpha and out.
 extern "C" int fhe_base_extend_sum(const uint32_t* ys, const uint32_t* alpha,
                                    uint32_t* out, const uint32_t* ext, int Ls,
-                                   int Ld, long long total,
+                                   int Ld, long long total, int vec,
                                    cudaStream_t stream) {
-  if (Ls < 1 || Ls > kMaxSrc || total < 1) {
+  if (bad_shape(Ls, Ld, total) || (vec && bad_vec(total, ys, alpha, out))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  base_extend_sum_kernel<<<grid_for(total), kThreads, 0, stream>>>(
-      ys, alpha, out, ext, Ls, Ld, total);
-  return static_cast<int>(cudaGetLastError());
+  const size_t smem = sizeof(uint32_t) * ext_words(Ls, Ld);
+  return by_src_count(Ls, [&](auto ls) {
+    constexpr int LS = decltype(ls)::value;
+    if (vec) {
+      base_extend_sum_kernel<LS, 1><<<grid_for(total / kExtVec), kThreads,
+                                      smem, stream>>>(ys, alpha, out, ext, Ld,
+                                                      total);
+    } else {
+      base_extend_sum_kernel<LS, 0><<<grid_for(total), kThreads, smem,
+                                      stream>>>(ys, alpha, out, ext, Ld,
+                                                total);
+    }
+  });
 }
 
 extern "C" const char* fhe_error_string(int err) {

@@ -76,24 +76,12 @@ struct ExtTable {
   }
 };
 
-// Second half of the conversion, for destination prime j, from the y_i of
-// one coefficient: sum_i y_i * (S/s_i) - alpha * S mod d_j.
-__device__ __forceinline__ uint32_t ext_to(const uint32_t* ys, uint32_t alpha,
-                                           int j, const ExtTable& e) {
-  const uint32_t d = e.dst(j, 0);
-  uint32_t acc = 0;
-  for (int i = 0; i < e.ls; ++i) {
-    acc = addmod(acc, shoup_mul(ys[i], e.tab(i, j, 0), e.tab(i, j, 1), d), d);
-  }
-  return submod(acc, shoup_mul(alpha, e.dst(j, 1), e.dst(j, 2), d), d);
-}
-
 // The unsigned conversion of one coefficient (source row i at x[i * stride])
 // to destination prime j: y_i = x_i * Qhat_i^-1 mod s_i, alpha = (sum_i y_i
 // * floor(2^59/s_i)) >> 59 (the reference's 2^59 fixed point, bit for bit),
-// then as ext_to.  With LS > 0 the y_i stay in LS registers (the source
-// count at compile time: no run-time-indexed array, so no local memory); the
-// generic form (LS = 0, any e.ls up to kMaxSrc) keeps no per-thread array:
+// then sum_i y_i * (S/s_i) - alpha * S mod d_j.  With LS > 0 the y_i stay in
+// LS registers (the source count at compile time: no run-time-indexed array,
+// so no local memory); the generic form (LS = 0, any e.ls up to kMaxSrc) keeps no per-thread array:
 // one loop takes each y_i into both sums, and stays a loop (short code where
 // it is inlined many times).  K5 and K6 run it on their way into the
 // forward chain.

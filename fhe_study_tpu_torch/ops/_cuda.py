@@ -254,7 +254,7 @@ BLIND_ROTATE = Kernel("blind_rotate", "fhe_blind_rotate",
                       *([PTR] * 12), *([INT] * 9))
 BASE_EXTEND_SUM = Kernel("base_extend_sum", "fhe_base_extend_sum", _EXT_CU,
                          "fhe_study_tpu/ops/ext_pallas.py:207",
-                         PTR, PTR, PTR, PTR, INT, INT, I64)
+                         PTR, PTR, PTR, PTR, INT, INT, I64, INT)
 _BENCH_CU = "fhe_study_tpu_torch/csrc/bench_cuda.cu"
 NTT_SMEM_CEILING = Kernel("ntt_smem_ceiling", "fhe_ntt_smem_ceiling",
                           _BENCH_CU, "fhe_study_tpu/ops/vpu_bench.py:168",

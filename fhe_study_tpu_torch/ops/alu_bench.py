@@ -43,9 +43,8 @@ OPS = ("add", "mul", "addmod", "shoup_lazy", "shoup_mul", "mont_mul",
 # SASS instructions per word and round in the loop of csrc/bench_cuda.cu
 # (per butterfly for "butterfly"), counted from the built library by
 # utils/sass_counts.py (nvcc 12.9, sm_90a): they turn a word rate into an
-# instruction rate, and utils/kernel_check.py counts the work of every
-# kernel's bound in them.  chip_smoke.py reads the counts of its own build
-# and uses those.  What the compiler made of each operation:
+# instruction rate.  chip_smoke.py reads the counts of its own build and uses
+# those.  What the compiler made of each operation:
 #   add         half an IADD3: two dependent adds fold into one three-input add
 #   mul         IMAD
 #   addmod      ISETP, SEL, IADD3 (x + y - (x + y >= q ? q : 0)), and 4 adds
@@ -63,6 +62,52 @@ OP_COUNTS = {
     "shoup_mul": 6.0,
     "mont_mul": 8.0,
     "butterfly": 13.0,
+}
+
+# The same instructions by integer pipe (utils/sass_counts.PIPES): (ALU, FMA,
+# wide) per word and round, ALU + FMA = OP_COUNTS; "wide" counts the
+# IMAD.HI / IMAD.WIDE among the FMA instructions, which take two FMA issue
+# slots and one ALU slot each.  The compiler moves some adds to the FMA pipe
+# (IMAD.IADD, VIADD) to balance the two:
+#   add         (0.5, 0, 0)             IADD3
+#   mul         (0, 1, 0)               IMAD
+#   addmod      (2.9375, 0.125, 0)      60 IADD3 + 8 IMAD.IADD of 68 adds
+#   shoup_lazy  (0, 3, 1)
+#   shoup_mul   (2.734375, 3.265625, 1) 47 IADD3 + 17 IMAD.IADD of 64 adds
+#   mont_mul    (3.8125, 4.1875, 2)     116 IADD3 + 54 VIADD + 22 IMAD.IADD
+#   butterfly   (7, 6, 1)               1 IADD3 + 3 IMAD.IADD a butterfly
+# These are the work units of every kernel's bound (utils/kernel_check.py).
+OP_PIPES = {
+    "add": (0.5, 0.0, 0.0),
+    "mul": (0.0, 1.0, 0.0),
+    "addmod": (2.9375, 0.125, 0.0),
+    "shoup_lazy": (0.0, 3.0, 1.0),
+    "shoup_mul": (2.734375, 3.265625, 1.0),
+    "mont_mul": (3.8125, 4.1875, 2.0),
+    "butterfly": (7.0, 6.0, 1.0),
+}
+
+# The loops themselves, by mnemonic (cuobjdump -sass of the same build; a
+# body holds ALU_UNROLL rounds on ALU_PER_THREAD words, with the loop
+# counter's UIADD3, ISETP.LE.AND and BRA): tests hold OP_PIPES to these
+# through sass_counts.pipe_counts.
+LOOP_SASS = {
+    "add": {"IADD3": 32, "UIADD3": 1, "ISETP.LE.AND": 1, "BRA": 1},
+    "mul": {"IMAD": 64, "UIADD3": 1, "ISETP.LE.AND": 1, "BRA": 1},
+    "addmod": {"IMAD.IADD": 8, "UIADD3": 1, "ISETP.GE.U32.AND": 64,
+               "SEL": 64, "IADD3": 60, "ISETP.LE.AND": 1, "BRA": 1},
+    "shoup_lazy": {"IMAD.HI.U32": 64, "UIADD3": 1, "ISETP.LE.AND": 1,
+                   "IMAD": 128, "BRA": 1},
+    "shoup_mul": {"IMAD.HI.U32": 64, "UIADD3": 1, "ISETP.LE.AND": 1,
+                  "IMAD": 128, "ISETP.GE.U32.AND": 64, "SEL": 64,
+                  "IMAD.IADD": 17, "IADD3": 47, "BRA": 1},
+    "mont_mul": {"IMAD.WIDE.U32": 64, "UMOV": 7, "IADD3": 116, "IMAD": 64,
+                 "UIADD3": 1, "VIADD": 54, "ISETP.LE.AND": 1,
+                 "IMAD.HI.U32": 64, "ISETP.GE.U32.AND": 64, "SEL": 64,
+                 "IMAD.IADD": 22, "BRA": 1},
+    "butterfly": {"IMAD.HI.U32": 32, "UIADD3": 1, "ISETP.LE.AND": 1,
+                  "IMAD": 64, "ISETP.GE.U32.AND": 96, "SEL": 96,
+                  "IMAD.IADD": 96, "IADD3": 32, "BRA": 1},
 }
 
 

@@ -136,10 +136,11 @@ EXT_VEC = 4        # kExtVec of csrc/ext_cuda.cu: coefficients a thread (vec)
 
 
 def _ext_vec(total: int, *tensors) -> bool:
-    """Whether K4 takes its vector form (4 coefficients a thread in uint4
-    words) for ``total`` coefficients a row: total % 4 == 0 and every row of
-    x, w and out on a 16-byte boundary; the kernel refuses it otherwise and
-    runs its word form on any shape.  Its instance is the source count."""
+    """Whether K4 (K11) takes its vector form (4 coefficients a thread in
+    uint4 words) for ``total`` coefficients a row: total % 4 == 0 and every
+    row of x, w and out (ys, alpha and out) on a 16-byte boundary; the kernel
+    refuses it otherwise and runs its word form on any shape.  Its instance
+    is the source count."""
     return total % EXT_VEC == 0 and all(_cuda.aligned(t) for t in tensors)
 
 
@@ -185,7 +186,9 @@ def base_extend_fused(x, src: tuple, dst: tuple, centered: bool = False,
 
 
 def base_extend_sum_kernel(ys, alpha, src: tuple, dst: tuple):
-    """K11 on CUDA int32 tensors: one thread per coefficient."""
+    """K11 on CUDA int32 tensors: K4's structure (one instance per source
+    count, 4 consecutive coefficients a thread where ``_ext_vec`` allows
+    it)."""
     _check_src(src)
     dev = ys.device
     _cuda.check(ys, "ys", dev)
@@ -202,7 +205,8 @@ def base_extend_sum_kernel(ys, alpha, src: tuple, dst: tuple):
     tab = kernel_table(tuple(src), tuple(dst), None, dev)
     _cuda.BASE_EXTEND_SUM.launch(dev, ys.data_ptr(), alpha.data_ptr(),
                                  out.data_ptr(), tab.data_ptr(), len(src),
-                                 len(dst), total)
+                                 len(dst), total,
+                                 int(_ext_vec(total, ys, alpha, out)))
     return out
 
 

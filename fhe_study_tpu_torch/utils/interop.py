@@ -17,6 +17,10 @@ the TLWE ``KSK``, ``BootstrappingKey``, ``ShortBootstrappingKey``) hold u64
 torus words and, in ``TGGSWEvals``, u32 words that span the whole range (the
 Shoup planes): ``bits_to_tensor`` carries those bit for bit (uint64 -> int64,
 uint32 -> int32, a numpy ``view``), and ``bits_to_numpy`` brings them back.
+
+The CKKS evaluation state crosses by ``rot_keys_to_port`` (a ``RotKeys``),
+``rlks_to_port`` (a per-level relinearization key dict) and
+``rmap_plan_to_port`` (an ``RmapPlan`` with its em).
 """
 
 import numpy as np
@@ -24,6 +28,7 @@ import torch
 
 from ..models import bfv_rns, hybrid_ks
 from ..models.ckks import ckks_rns
+from ..models.ckks import eval as ckks_eval
 from ..models.gfhe import glwe
 from ..models.tfhe import bootstrap, tggsw, tlwe
 
@@ -100,3 +105,26 @@ def to_numpy(x):
             raise ValueError("negative value in a residue tensor")
         return a.astype(np.uint32)
     return tuple(to_numpy(f) for f in x)
+
+
+def rot_keys_to_port(rk, device) -> "ckks_eval.RotKeys":
+    """A reference ``eval.RotKeys`` ((L, g) -> HybridKSK) -> the port's."""
+    return ckks_eval.RotKeys({lg: to_port(k, device)
+                              for lg, k in rk.keys.items()})
+
+
+def rlks_to_port(rlks: dict, device) -> dict:
+    """A per-level relinearization key dict (``poly.rlk_keys_all_levels``)
+    -> the same dict of the port's HybridKSK."""
+    return {L: to_port(k, device) for L, k in rlks.items()}
+
+
+def rmap_plan_to_port(plan, device) -> "ckks_eval.RmapPlan":
+    """A reference ``eval.RmapPlan`` -> the port's, its em (u32
+    [L, num + 1, n]) as int32 on ``device``; the host tables and the
+    integer source of em are carried as they are."""
+    out = ckks_eval.RmapPlan(plan.n1, set(plan.need_d), set(plan.need_e),
+                             plan.maps, to_tensor(plan.em, device),
+                             plan.pt_levels)
+    out.src_m, out.src_L = np.asarray(plan.src_m), plan.src_L
+    return out

@@ -20,13 +20,15 @@ equal outputs.
 Each case also carries the least work its function needs on these inputs,
 for a lower bound on its time: ``bytes`` moved through device memory (every
 input and table read once, every output written once) and ``ops``, 32-bit
-integer instructions: the fewest transforms and products the function can do,
-each counted as the SASS instructions that the compiler makes of the
-primitives of ``csrc/modarith.cuh`` (the *_OPS constants, read from the
-``alu_rate`` loops by ``utils/sass_counts.py``).  Divided by the card's issue
-rate (128 thread-instructions a clock and SM: one warp-instruction a clock in
-each of the four partitions, which is also the float32 rate of the data
-sheet), that is a time no kernel made of these primitives can beat.
+integer instructions by pipe (a ``Work``): the fewest transforms and
+products the function can do, each counted as the SASS instructions that
+the compiler makes of the primitives of ``csrc/modarith.cuh`` (the *_OPS
+constants, read from the ``alu_rate`` loops by ``utils/sass_counts.py``).
+``bound`` turns them into the least time: the bytes over the memory rate,
+all instructions over the SM's dispatch rate (128 thread-instructions a
+clock: one warp-instruction in each of its four partitions), and each
+integer pipe's issue slots over its 64 lanes a clock, the largest of the
+four; no kernel made of these primitives can beat it.
 """
 
 import math
@@ -45,18 +47,110 @@ from ..ops.primes import ntt_primes
 from . import prng
 
 
-# SASS instructions of each primitive, as ops/alu_bench.OP_COUNTS records them
-# from the built loops (a test holds the two together) ...
-BUTTERFLY_OPS = 13      # a Shoup product, the sum's and the difference's
-                        # compare, select and add, one add more
-MONT_OPS = 8            # 3 multiplies (one wide), 3 adds, compare, select
-SHOUP_OPS = 6           # mul.hi, 2 mul.lo (one with the subtract), compare,
-                        # select, add
-ADD_OPS = 3             # addmod or submod: compare, select, three-input add
+class Work:
+    """32-bit integer instructions by pipe: ``alu`` on the ALU pipe, ``fma``
+    on the FMA pipe, of which ``wide`` are IMAD.HI / IMAD.WIDE (two FMA
+    issue slots and one ALU slot each; utils/sass_counts.py).  Adds and
+    scales like a number."""
+
+    __slots__ = ("alu", "fma", "wide")
+
+    def __init__(self, alu: float = 0.0, fma: float = 0.0,
+                 wide: float = 0.0):
+        self.alu, self.fma, self.wide = alu, fma, wide
+
+    def __add__(self, other):
+        if isinstance(other, (int, float)) and other == 0:
+            return self
+        return Work(self.alu + other.alu, self.fma + other.fma,
+                    self.wide + other.wide)
+
+    __radd__ = __add__
+
+    def __mul__(self, k):
+        return Work(self.alu * k, self.fma * k, self.wide * k)
+
+    __rmul__ = __mul__
+
+    def __eq__(self, other):
+        return (isinstance(other, Work) and (self.alu, self.fma, self.wide)
+                == (other.alu, other.fma, other.wide))
+
+    def __repr__(self):
+        return f"Work(alu={self.alu:g}, fma={self.fma:g}, wide={self.wide:g})"
+
+    @property
+    def instructions(self) -> float:
+        return self.alu + self.fma
+
+    @property
+    def alu_slots(self) -> float:
+        return self.alu + self.wide
+
+    @property
+    def fma_slots(self) -> float:
+        return self.fma + self.wide
+
+
+# SASS instructions of each primitive by pipe, as ops/alu_bench.OP_PIPES
+# records them from the built loops (a test holds the two together) ...
+BUTTERFLY_OPS = Work(*alu_bench.OP_PIPES["butterfly"])  # a Shoup product,
+                        # the sum's and the difference's compare, select and
+                        # add, one add more
+MONT_OPS = Work(*alu_bench.OP_PIPES["mont_mul"])  # 3 multiplies (one wide,
+                        # one high), 3 adds, compare, select
+SHOUP_OPS = Work(*alu_bench.OP_PIPES["shoup_mul"])  # mul.hi, 2 mul.lo (one
+                        # with the subtract), compare, select, add
+ADD_OPS = Work(*alu_bench.OP_PIPES["addmod"])  # addmod or submod: compare,
+                        # select, three-input add
 # ... and of the two that no loop measures, counted by hand at their least
-WIDE_MAC_OPS = 2        # 32 x 64-bit multiply-add of the fixed-point alpha:
-                        # two wide multiply-adds
-ADD64_OPS = 2           # 64-bit add, subtract or negate: two 32-bit ops
+WIDE_MAC_OPS = Work(0, 2, 1)  # 32 x 64-bit multiply-add of the fixed-point
+                              # alpha: an IMAD.WIDE.U32 and an IMAD
+ADD64_OPS = Work(2, 0, 0)     # 64-bit add, subtract or negate: two ALU ops
+
+MEMORY_BYTES_PER_S = 3.35e12  # device memory rate of the H100 SXM data sheet
+ISSUE_PER_SM_CLOCK = 128      # thread-instructions dispatched a clock and SM
+PIPE_PER_SM_CLOCK = 64        # lanes of each integer pipe a clock and SM
+
+
+class Bound(NamedTuple):
+    """The least time of a case on a card, in ms, and its four terms."""
+    bytes_ms: float
+    issue_ms: float             # all instructions at 128 a clock and SM
+    alu_ms: float               # ALU issue slots at 64
+    fma_ms: float               # FMA issue slots at 64
+
+    @property
+    def ops_ms(self) -> float:
+        return max(self.issue_ms, self.alu_ms, self.fma_ms)
+
+    @property
+    def ms(self) -> float:
+        return max(self.bytes_ms, self.ops_ms)
+
+    @property
+    def term(self) -> str:
+        """The largest term: "bytes", "issue", "ALU" or "FMA"."""
+        terms = {"bytes": self.bytes_ms, "issue": self.issue_ms,
+                 "ALU": self.alu_ms, "FMA": self.fma_ms}
+        return max(terms, key=terms.get)
+
+    @property
+    def issue_only_ms(self) -> float:
+        """The bound before the pipes were counted: bytes, or all
+        instructions at 128 a clock and SM."""
+        return max(self.bytes_ms, self.issue_ms)
+
+
+def bound(nbytes: float, work: Work, sms: int, clock_hz: float) -> Bound:
+    """The least time of ``work`` and ``nbytes`` on ``sms`` SMs at
+    ``clock_hz``: the one definition of the bound that chip_smoke.py and
+    kernel_times.py print."""
+    per_ms = sms * clock_hz * 1e-3          # SM clocks a millisecond
+    return Bound(nbytes / MEMORY_BYTES_PER_S * 1e3,
+                 work.instructions / (ISSUE_PER_SM_CLOCK * per_ms),
+                 work.alu_slots / (PIPE_PER_SM_CLOCK * per_ms),
+                 work.fma_slots / (PIPE_PER_SM_CLOCK * per_ms))
 
 
 class Case(NamedTuple):
@@ -65,7 +159,7 @@ class Case(NamedTuple):
     kernel: Callable[[], object]
     plain: Callable[[], object]
     bytes: int                  # least device-memory traffic
-    ops: int                    # least integer operations
+    ops: Work                   # least integer instructions by pipe
     kernel_reps: int = 10       # timed repetitions of the kernel ...
     plain_reps: int = 3         # ... and of the plain version
     plain_warmup: int = 1       # untimed calls of the plain version first
@@ -78,7 +172,7 @@ def _butterflies(n: int, transforms: int) -> int:
     return transforms * (n // 2) * (n.bit_length() - 1)
 
 
-def _ntt_ops(n: int, transforms: int) -> int:
+def _ntt_ops(n: int, transforms: int) -> Work:
     return _butterflies(n, transforms) * BUTTERFLY_OPS
 
 
@@ -90,7 +184,7 @@ def _with_butterflies(cases: list, n: int, transforms: list) -> list:
             for c, t in zip(cases, transforms)]
 
 
-def _ext_ops(coeffs: int, ls: int, ld: int, epilogue: bool = False) -> int:
+def _ext_ops(coeffs: int, ls: int, ld: int, epilogue: bool = False) -> Work:
     """HPS conversion of ``coeffs`` coefficients from ls to ld primes."""
     per = (ls * (SHOUP_OPS + WIDE_MAC_OPS)
            + ld * (ls * (SHOUP_OPS + ADD_OPS) + SHOUP_OPS + ADD_OPS)
@@ -99,11 +193,11 @@ def _ext_ops(coeffs: int, ls: int, ld: int, epilogue: bool = False) -> int:
 
 
 def _ks_ops(n: int, polys: int, R: int, Lp: int, reps: int,
-            fused_eval: bool) -> int:
+            fused_eval: bool) -> Work:
     """Gadget key switch of ``polys`` ciphertexts from limb residues."""
     rows = polys * Lp
     ops = (_ntt_ops(n, rows * (R + 2))
-           + rows * n * (R * 2 * reps + 2 * R * (MONT_OPS + ADD_OPS)
+           + rows * n * (R * reps * Work(2) + 2 * R * (MONT_OPS + ADD_OPS)
                          + 2 * SHOUP_OPS))
     if fused_eval:
         ops += _ntt_ops(n, rows * 2) + rows * n * 2 * (SHOUP_OPS + ADD_OPS)
@@ -291,6 +385,10 @@ EXT_SWEEP_LD = (1, 4, 5)                # and its destination counts
 KS_SWEEP_R = (1, 2, 4, 9)               # K3's, K7's and K8's digit rows in
 KS_SWEEP_LP = (2, 6)                    # the sweep, and their prime counts
 KS_BOOT_R, KS_BOOT_LOGN = 39, 11        # K7/K8 at the CKKS-bootstrap rows
+# K3, K7 and K8 at the CKKS linear maps' shape (models/ckks/eval.py at
+# n = 2^12, L = 43, K = 2): R = L digit rows over the L + K primes of Q u P
+KS_MAPS_R, KS_MAPS_LP, KS_MAPS_LOGN = 43, 45, 12
+EXT_SUM_SWEEP_LD = 5                    # K11's destination count in the sweep
 
 
 def radix_cases(logn: int, batch: int, device, gen: torch.Generator) -> list:
@@ -310,7 +408,8 @@ def radix_cases(logn: int, batch: int, device, gen: torch.Generator) -> list:
       K2: contiguous operands, the strided views of a stacked pair, and rows
           that are not 16-byte aligned (its word-by-word load);
       K3: KS_SWEEP_R digit rows over each of KS_SWEEP_LP primes, and the
-          word-by-word form (edm one word off the alignment) at R = 2;
+          word-by-word form (edm one word off the alignment) at R = 2; at
+          n = 2^KS_MAPS_LOGN also KS_MAPS_R rows over KS_MAPS_LP primes;
       K5: from 2 and 4 source primes (the counts it instantiates) and from
           1, 3 and 5 (its generic form) to 5 destination primes;
       K6: over Q with a scale and without, the stacked operand of
@@ -319,7 +418,9 @@ def radix_cases(logn: int, batch: int, device, gen: torch.Generator) -> list:
           generic one) to 5 destination primes;
       K7, K8: KS_SWEEP_R limb rows over 30-bit source primes to each of
           KS_SWEEP_LP 28-bit primes (reps >= 2), plus KS_BOOT_R rows to 2
-          primes at n = 2^KS_BOOT_LOGN; the paths' form (R = L = 4 over the
+          primes at n = 2^KS_BOOT_LOGN and KS_MAPS_R rows of its first
+          primes to the KS_MAPS_LP 30-bit primes of Q u P at
+          n = 2^KS_MAPS_LOGN; the paths' form (R = L = 4 over the
           same primes, c_limbs and K8's adds strided views of one [L, B, 3,
           n] tensor); and c_limbs, kb and ka one word off the 16-byte
           alignment (the keys' word-by-word reads);
@@ -327,7 +428,11 @@ def radix_cases(logn: int, batch: int, device, gen: torch.Generator) -> list:
           and centered, with and without the (w - ext) * c epilogue, on
           [Ls, batch, n] (the vector form); per source count also on a row
           length of n - 1 (total % 4 != 0) and on an unaligned x and w (both
-          the word form)."""
+          the word form);
+      K11: from each source count 1 .. MAX_SRC to EXT_SUM_SWEEP_LD primes
+          on the (ys, alpha) of [Ls, batch, n] residues, unsigned and
+          centered (the vector form), and on rows of n - 1 and on an
+          unaligned ys and alpha (the word form)."""
     n = 1 << logn
     primes = ntt_primes(24, 30, 1 << 16)
     qs, ps = primes[:4], primes[4:9]
@@ -395,6 +500,15 @@ def radix_cases(logn: int, batch: int, device, gen: torch.Generator) -> list:
                     "ks_contract", f"R={R} over {lp} primes, edm one word "
                     "off", nc.ks_contract_kernel, nc.ks_contract_plain,
                     _offset_word(edm), kb, ka, basis))
+    maps = ntt_primes(KS_MAPS_LP, 30, 1 << 16)       # Q u P of the maps
+    if logn == KS_MAPS_LOGN:
+        R = KS_MAPS_R
+        edm = torch.stack([res(maps, (batch, n)) for _ in range(R)])
+        kb, ka = (torch.stack([res(maps, (n,)) for _ in range(R)])
+                  for _ in range(2))
+        out.append(compared("ks_contract", f"R={R} over {KS_MAPS_LP} primes",
+                            nc.ks_contract_kernel, nc.ks_contract_plain,
+                            edm, kb, ka, maps))
     narrow = ntt_primes(6, 28, 1 << 16)
     wide = ntt_primes(KS_BOOT_R, 30, 1 << 16)
 
@@ -419,6 +533,13 @@ def radix_cases(logn: int, batch: int, device, gen: torch.Generator) -> list:
             out += ks_pair(f"R={R} over {lp} primes, reps="
                            f"{nc.digit_reps(dst, src)}", c, *ks_keys(R, dst),
                            dst, src, adds)
+    if logn == KS_MAPS_LOGN:
+        src = maps[:KS_MAPS_R]
+        c = torch.stack([res((s,), (batch, n))[0] for s in src])
+        adds = tuple(res(maps, (batch, n)) for _ in range(2))
+        out += ks_pair(f"R={KS_MAPS_R} over {KS_MAPS_LP} primes (Q u P), "
+                       f"reps={nc.digit_reps(maps, src)}", c,
+                       *ks_keys(KS_MAPS_R, maps), maps, src, adds)
     out3 = res(qs, (batch, 3, n))                    # _scale_to_q's output
     kb, ka = ks_keys(len(qs), qs)
     out += ks_pair(f"R={len(qs)} over Q, strided c_limbs", out3[..., 2, :],
@@ -475,12 +596,33 @@ def radix_cases(logn: int, batch: int, device, gen: torch.Generator) -> list:
             ext.base_extend_fused_plain, _offset_word(x), src, dst,
             w=_offset_word(res(dst, (batch, n))),
             sub_mul=tuple(range(5, 5 + len(dst)))))
+    dst = ps[:EXT_SUM_SWEEP_LD]
+    for ls in range(1, ext.MAX_SRC + 1):
+        src = primes[24 - ls:]
+        for centered in (False, True):
+            ys, alpha = (t.int() for t in ext.lift_plain(
+                res(src, (batch, n)), src, centered))
+            out.append(compared(
+                "base_extend_sum", f"{ls} -> {len(dst)} primes, "
+                f"{'centered' if centered else 'unsigned'}",
+                ext.base_extend_sum_kernel, ext.base_extend_sum_plain, ys,
+                alpha, src, dst))
+        out.append(compared(
+            "base_extend_sum", f"{ls} -> {len(dst)} primes, rows of n - 1",
+            ext.base_extend_sum_kernel, ext.base_extend_sum_plain,
+            ys[..., 1:].contiguous(), alpha[..., 1:].contiguous(), src, dst))
+        out.append(compared(
+            "base_extend_sum", f"{ls} -> {len(dst)} primes, unaligned ys "
+            "and alpha", ext.base_extend_sum_kernel,
+            ext.base_extend_sum_plain, _offset_word(ys), _offset_word(alpha),
+            src, dst))
     return out
 
 
 def cmux_step_ops(n: int, C: int, l: int) -> dict:
-    """32-bit integer operations of ONE CMux step of the blind rotation on
-    one ciphertext (C = K + 1 polynomials, l digits each), by part:
+    """32-bit integer instructions (Work) of ONE CMux step of the blind
+    rotation on one ciphertext (C = K + 1 polynomials, l digits each), by
+    part:
 
       rotate   C*n words: negate and subtract in 64 bits, then l digits of a
                shift (two words) and a mask;
@@ -495,12 +637,13 @@ def cmux_step_ops(n: int, C: int, l: int) -> dict:
                64-bit accumulate.
     """
     return {
-        "rotate": C * n * (2 * ADD64_OPS + l * 3),
+        "rotate": C * n * (2 * ADD64_OPS + l * Work(3)),
         "forward": _ntt_ops(n, 2 * C * l),
         "contract": 2 * 2 * C * n * C * l * (SHOUP_OPS + ADD_OPS),
         "inverse": _ntt_ops(n, 2 * 2 * C),
-        "crt": C * n * (2 * (3 * SHOUP_OPS + 2 + ADD_OPS + WIDE_MAC_OPS
-                             + 2 * ADD64_OPS + ADD64_OPS) + ADD64_OPS),
+        "crt": C * n * (2 * (3 * SHOUP_OPS + Work(2) + ADD_OPS
+                             + WIDE_MAC_OPS + 2 * ADD64_OPS + ADD64_OPS)
+                        + ADD64_OPS),
     }
 
 
@@ -731,10 +874,11 @@ def bench_cases(n: int, batch: int, device, gen: torch.Generator,
     """The two measuring loops against their plain versions: the ceiling
     loop on [batch, n] over ``reps`` chains, and every ``alu_rate`` operation
     over ``rounds`` rounds on the reference's [256, 1024] words.  ``counts``
-    are the instructions a word and round of each operation's loop (those of
-    the build in hand, from ``utils/sass_counts.py``; by default the recorded
-    ``alu_bench.OP_COUNTS``)."""
-    counts = alu_bench.OP_COUNTS if counts is None else counts
+    are the (ALU, FMA, wide) instructions a word and round of each
+    operation's loop (those of the build in hand, from
+    ``utils/sass_counts.py``; by default the recorded
+    ``alu_bench.OP_PIPES``)."""
+    counts = alu_bench.OP_PIPES if counts is None else counts
     q = alu_bench.ALU_Q
     x = prng.uniform_mod(gen, (batch, n), q, device).int()
     shape = (256, 1024)
@@ -752,7 +896,7 @@ def bench_cases(n: int, batch: int, device, gen: torch.Generator,
         units = words // 2 if op == "butterfly" else words
         out.append(_pair(
             "alu_rate", f"{op} rounds={rounds} on {list(shape)}",
-            4 * 4 * words, int(units * rounds * counts[op]),
+            4 * 4 * words, units * rounds * Work(*counts[op]),
             alu_bench.alu_rate_kernel, alu_bench.alu_rate_plain, ax, ay, ayp,
             op, rounds)._replace(plain_reps=1, plain_warmup=0))
     return out

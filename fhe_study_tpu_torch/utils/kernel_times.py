@@ -8,15 +8,21 @@ L = 4, M = 5, t = 256), of ``linear_cases`` (N = 2^12, L = 2, M = 3, 1024
 ciphertexts) and, where the checkout has them, of
 ``utils/kernel_check.tfhe_cases`` (N = 1024, K = 1, beta = 4096, l = 2,
 1024 steps, 64 ciphertexts, and the blind rotation over 700 steps),
-``ckks_cases`` (N = 2^13, L = 4, K = 2, 32 ciphertexts), ``ext_sum_cases`` and
-``bench_cases`` with CUDA events and prints one line a case and the sum a
-kernel.  Each case is timed twice: as called (``--reps`` calls back to
-back, so the device waits whenever the host's launch path is slower than
-the kernel) and on the device alone (the same calls queued behind device
+``ckks_cases`` (N = 2^13, L = 4, K = 2, 32 ciphertexts), ``ext_sum_cases``
+(and K11 at a BFV width, Q -> P on [4, 128, 2^14]) and ``bench_cases``
+with CUDA events and prints one line a case and the sum a kernel.  Each
+case is timed twice: as called (``--reps`` calls back to back, so the
+device waits whenever the host's launch path is slower than the kernel) and
+on the device alone (the same calls queued behind device
 work that outlasts their enqueueing), beside the host's seconds to enqueue a
-call and the device-alone time's share of the case's bound (as chip_smoke.py
-computes it: the larger of its bytes over 3.35 TB/s and its integer
-instructions over 128 a clock on each SM at the card's maximum SM clock).
+call and the device-alone time's share of the case's bound
+(``kernel_check.bound``, as chip_smoke.py computes it: the largest of its
+bytes over 3.35 TB/s, its integer instructions over 128 a clock and SM, and
+each integer pipe's issue slots over 64 a clock and SM, at the card's
+maximum SM clock) and of the issue-only bound (bytes or all instructions at
+128, the bound before the pipes were counted).  A tree from before the
+pipe-aware bound gets its times only: its cases do the same work as this
+tree's of the same label.
 Beside K6 (tensor_mul4) it times, as a yardstick, the redesigned kernels
 that give the same output: K1's forward of the four operands (stacked
 beforehand, as tensor_mul takes them) then K2 over Q, and K5's Q -> P
@@ -94,13 +100,22 @@ def main() -> None:
             C.Param(n=1 << 13, L=4, delta=2.0 ** 28), 32, 2, dev, gen)
         cases += [c for c in kernel_check.ext_sum_cases(1 << 13, 32, dev, gen)
                   if c.timed]
+        cases += ext_sum_bfv(kernel_check, dev, gen)
         cases += kernel_check.bench_cases(1 << 14, 64, dev, gen, reps=8,
                                           rounds=1024)
     props = torch.cuda.get_device_properties(dev)
     sm_mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.split()[0])
-    ops_per_ms = props.multi_processor_count * 128 * sm_mhz * 1e3
+
+    def bound_of(case):
+        """The tree's kernel_check.bound of the case, or None for a tree
+        from before it (whose work is one number of instructions)."""
+        if not hasattr(kernel_check, "bound"):
+            return None
+        return kernel_check.bound(case.bytes, case.ops,
+                                  props.multi_processor_count, sm_mhz * 1e6)
+
     busy = torch.zeros(1 << 28, dtype=torch.int32, device=dev)    # 1 GiB
     sums, alone = {}, {}
     for case in cases:
@@ -109,11 +124,14 @@ def main() -> None:
         device_ms, host_ms = events_ms(case.kernel, args.reps, busy)
         sums[case.name] = sums.get(case.name, 0.0) + ms
         alone[case.name] = alone.get(case.name, 0.0) + device_ms
-        bound_ms = max(case.bytes / 3.35e9, case.ops / ops_per_ms)
+        b = bound_of(case)
+        share = ("" if b is None else
+                 f", {b.ms / device_ms:.3f} of its bound {b.ms:.4f} ms by "
+                 f"{b.term} ({b.issue_only_ms / device_ms:.3f} of the "
+                 f"issue-only bound {b.issue_only_ms:.4f})")
         print(f"{case.name:13s} {case.label:48s} {ms:8.4f} ms; on the device "
-              f"alone {device_ms:8.4f} ms, {bound_ms / device_ms:.3f} of its "
-              f"bound {bound_ms:.4f} ms; host enqueue {host_ms:.4f} ms a call",
-              flush=True)
+              f"alone {device_ms:8.4f} ms{share}; host enqueue "
+              f"{host_ms:.4f} ms a call", flush=True)
     for label, fn in yardsticks(param, args.batch, dev, gen):
         ms = events_ms(fn, args.reps)
         device_ms, host_ms = events_ms(fn, args.reps, busy)
@@ -149,6 +167,21 @@ def main() -> None:
           + " ms an op; K9 launches in one key generation: "
           + ", ".join(f"{c} x {list(shp)} q={q} {'inv' if inv else 'fwd'}"
                       for (shp, q, inv), c in shapes.items()), flush=True)
+
+
+def ext_sum_bfv(kernel_check, dev, gen) -> list:
+    """K11 at a BFV width: Q -> P on [4, 128, 2^14] residues of the bench's
+    primes, unsigned and centered (kernel_check._ext_sum_pair, which trees
+    since K11 was ported have)."""
+    from fhe_study_tpu_torch.ops.primes import ntt_primes
+    from fhe_study_tpu_torch.utils import prng
+    primes = ntt_primes(9, 30, 1 << 16)
+    qs, ps = primes[:4], primes[4:]
+    x = prng.uniform_mod_multi(gen, (128, 1 << 14), qs, dev)
+    return [c for centered in (False, True)
+            for c in kernel_check._ext_sum_pair(x, qs, ps, centered,
+                                                "Q->P [4, 128, 16384]")
+            if c.timed]
 
 
 def yardsticks(param, batch: int, dev, gen) -> list:

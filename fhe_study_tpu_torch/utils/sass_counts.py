@@ -12,13 +12,13 @@ the one loop (the instructions from the target of the backward branch to
 the branch), and prints the loop's instructions by mnemonic and their number
 per word and round: the loop body holds ALU_UNROLL rounds on ALU_PER_THREAD
 words, plus the counter's add (on the uniform datapath), compare and branch,
-which are left out.  These are the counts
-that ``ops/alu_bench.OP_COUNTS`` records.  In every instantiation of
-``ntt_smem_ceiling_kernel`` it counts the global loads and barriers of the
-``reps`` loop, against those of one forward transform (``chain_loads``): equal
-counts mean ptxas hoisted no twiddle load out of the loop, so the ceiling
-loads what the kernels load.  Needs nvcc and cuobjdump (the CUDA toolkit); no
-card.
+which are left out, and the same by integer pipe (``PIPES``).  These are
+the counts that ``ops/alu_bench.OP_COUNTS`` and ``OP_PIPES`` record.  In
+every instantiation of ``ntt_smem_ceiling_kernel`` it counts the global
+loads and barriers of the ``reps`` loop, against those of one forward
+transform (``chain_loads``): equal counts mean ptxas hoisted no twiddle load
+out of the loop, so the ceiling loads what the kernels load.  Needs nvcc
+and cuobjdump (the CUDA toolkit); no card.
 """
 
 import json
@@ -68,9 +68,52 @@ def loop_of(function_sass: str) -> list:
     return [(name, rest) for addr, name, rest in instrs if lo <= addr <= hi]
 
 
+# The integer pipes of an sm_90 SM, 64 lanes a clock each (16 in each of
+# the four partitions), by the mnemonic's opcode: the ALU pipe takes adds,
+# logic, compares, selects, shifts; the FMA pipe takes the IMAD family and
+# VIADD.  IMAD.HI and IMAD.WIDE ("wide") take two FMA issue slots and one
+# ALU slot each.  The evidence is the alu_rate loops' own rates (PERF.md):
+# shoup_lazy (one IMAD.HI and two IMAD a word) issues 16 words a clock and
+# SM, which is 4 FMA slots a word; a loop of one IMAD.HI and four ALU
+# instructions a word issues 16 words a clock (4 + 1 ALU slots), not the 21
+# of 4 ALU slots; VIADD's loops fit the FMA pipe and beat a bound that puts
+# it on the ALU pipe.  What runs on the uniform datapath (U*) and the
+# branch are left out.
+PIPES = {"IADD3": "alu", "LOP3": "alu", "ISETP": "alu", "SEL": "alu",
+         "SHF": "alu", "LEA": "alu", "IMNMX": "alu", "PRMT": "alu",
+         "IMAD": "fma", "VIADD": "fma"}
+WIDE = ("IMAD.HI", "IMAD.WIDE")
+
+
+def pipe_of(mnemonic: str) -> str | None:
+    """"alu" or "fma" for an integer instruction, None for the branch and
+    the uniform datapath; any other mnemonic raises (it is not guessed)."""
+    if mnemonic.startswith(("BRA", "U")):
+        return None
+    pipe = PIPES.get(mnemonic.split(".")[0])
+    if pipe is None:
+        raise ValueError(f"SASS mnemonic {mnemonic}: no pipe assigned in "
+                         "sass_counts.PIPES")
+    return pipe
+
+
+def pipe_counts(hist: dict) -> tuple:
+    """(ALU, FMA, wide) instructions of an alu_kernel loop's histogram,
+    less the loop counter's compare (its one ISETP on the ALU pipe)."""
+    count = {"alu": 0, "fma": 0}
+    wide = 0
+    for mnemonic, n in hist.items():
+        pipe = pipe_of(mnemonic)
+        if pipe is not None:
+            count[pipe] += n
+            wide += n if mnemonic.startswith(WIDE) else 0
+    return count["alu"] - 1, count["fma"], wide
+
+
 def loop_counts(sass: str) -> dict:
-    """{op: {"per_word_round": x, "loop": {mnemonic: count}}} for every
-    ``alu_kernel`` instantiation found in the disassembly."""
+    """{op: {"per_word_round": x, "pipes": (alu, fma, wide), "loop":
+    {mnemonic: count}}} for every ``alu_kernel`` instantiation found in the
+    disassembly, per word and round (per butterfly)."""
     out = {}
     for block in sass.split("Function : ")[1:]:
         head = block.split("\n", 1)[0]
@@ -79,15 +122,13 @@ def loop_counts(sass: str) -> dict:
             continue
         op = alu_bench.OPS[int(m.group(1))]
         hist = Counter(name for name, _ in loop_of(block))
-        # not the operation's: the branch, the loop counter's compare (the
-        # one ISETP.LE/NE on it) and whatever runs on the uniform datapath
-        # (the counter's own add, constants)
-        work = sum(v for k, v in hist.items()
-                   if not k.startswith(("BRA", "U"))) - 1
         units = alu_bench.ALU_UNROLL * alu_bench.ALU_PER_THREAD
         if op == "butterfly":
             units //= 2
-        out[op] = {"per_word_round": work / units, "loop": dict(hist)}
+        alu, fma, wide = pipe_counts(hist)
+        out[op] = {"per_word_round": (alu + fma) / units,
+                   "pipes": (alu / units, fma / units, wide / units),
+                   "loop": dict(hist)}
     return out
 
 
@@ -128,10 +169,10 @@ def main() -> None:
             raise SystemExit(f"no alu_kernel for {op} in the disassembly")
         print(f"{op:11s} {c['per_word_round']:7.3f} instructions a "
               f"{'butterfly' if op == 'butterfly' else 'word'} and round "
-              f"(OP_COUNTS {alu_bench.OP_COUNTS[op]}); loop {c['loop']}",
-              flush=True)
-    print(json.dumps({op: counts[op]["per_word_round"]
-                      for op in alu_bench.OPS}))
+              f"(OP_COUNTS {alu_bench.OP_COUNTS[op]}), (ALU, FMA, wide) "
+              f"{c['pipes']} (OP_PIPES {alu_bench.OP_PIPES[op]}); loop "
+              f"{c['loop']}", flush=True)
+    print(json.dumps({op: counts[op]["pipes"] for op in alu_bench.OPS}))
 
 
 if __name__ == "__main__":

@@ -192,30 +192,68 @@ def test_measuring_entry_points_need_a_card():
 
 
 def test_bound_counts_are_the_recorded_sass_counts():
-    """The primitives' instruction counts that every bound is made of are the
-    ones read from the built loops, and the alu_rate cases carry them."""
-    from fhe_study_tpu_torch.utils import kernel_check
-    rec = alu_bench.OP_COUNTS
-    assert kernel_check.BUTTERFLY_OPS == rec["butterfly"]
-    assert kernel_check.MONT_OPS == rec["mont_mul"]
-    assert kernel_check.SHOUP_OPS == rec["shoup_mul"]
-    assert kernel_check.ADD_OPS == int(rec["addmod"])
+    """The primitives' instruction counts by pipe that every bound is made
+    of are the ones read from the built loops, and the alu_rate cases carry
+    them."""
+    from fhe_study_tpu_torch.utils import kernel_check as kc
+    rec = alu_bench.OP_PIPES
+    assert kc.BUTTERFLY_OPS == kc.Work(*rec["butterfly"])
+    assert kc.MONT_OPS == kc.Work(*rec["mont_mul"])
+    assert kc.SHOUP_OPS == kc.Work(*rec["shoup_mul"])
+    assert kc.ADD_OPS == kc.Work(*rec["addmod"])
     gen = torch.Generator().manual_seed(3)
-    cases = kernel_check.bench_cases(256, 2, CPU, gen, rounds=32)
+    cases = kc.bench_cases(256, 2, CPU, gen, rounds=32)
     ceiling, alu = cases[0], cases[1:]
     assert (ceiling.n, ceiling.timed) == (256, True)
-    assert ceiling.ops == ceiling.butterflies * rec["butterfly"]
+    assert ceiling.ops == ceiling.butterflies * kc.BUTTERFLY_OPS
     words = 256 * 1024
     for op, case in zip(alu_bench.OPS, alu):
         units = words // 2 if op == "butterfly" else words
-        assert case.ops == int(units * 32 * rec[op]), op
-    halved = kernel_check.bench_cases(256, 2, CPU, gen, rounds=32,
-                                      counts={op: 0.5 for op in rec})
-    assert halved[1].ops == words * 32 // 2
-    whole = [c for c in kernel_check.ext_sum_cases(256, 2, CPU, gen)
+        assert case.ops == units * 32 * kc.Work(*rec[op]), op
+    halved = kc.bench_cases(256, 2, CPU, gen, rounds=32,
+                            counts={op: (0.5, 0, 0) for op in rec})
+    assert halved[1].ops == kc.Work(words * 32 // 2)
+    whole = [c for c in kc.ext_sum_cases(256, 2, CPU, gen)
              if not c.timed]
     assert len(whole) == 4 and all("whole conversion" in c.label
                                    for c in whole)
+
+
+@pytest.mark.parametrize("op", alu_bench.OPS)
+def test_pipe_table_on_the_recorded_loops(op):
+    """utils/sass_counts' mnemonic -> pipe table splits each recorded loop
+    into the (ALU, FMA, wide) counts that OP_PIPES records, and each pair
+    sums to the loop's scalar count (OP_COUNTS)."""
+    from fhe_study_tpu_torch.utils import sass_counts
+    units = alu_bench.ALU_UNROLL * alu_bench.ALU_PER_THREAD
+    units //= 2 if op == "butterfly" else 1
+    alu, fma, wide = sass_counts.pipe_counts(alu_bench.LOOP_SASS[op])
+    assert (alu / units, fma / units, wide / units) == alu_bench.OP_PIPES[op]
+    assert (alu + fma) / units == alu_bench.OP_COUNTS[op]
+    assert wide <= fma
+    with pytest.raises(ValueError, match="no pipe"):
+        sass_counts.pipe_counts({"FFMA": 1, **alu_bench.LOOP_SASS[op]})
+
+
+def test_bound_takes_the_slowest_term():
+    """kernel_check.bound: bytes over 3.35 TB/s, all instructions over 128
+    a clock and SM, each pipe's slots (wide = 2 FMA + 1 ALU) over 64."""
+    from fhe_study_tpu_torch.utils import kernel_check as kc
+    sms, clock = 132, 1.98e9
+    per_ms = sms * clock * 1e-3
+    b = kc.bound(0, kc.Work(64, 0), sms, clock)
+    assert b.term == "ALU"
+    assert b.ms == pytest.approx(1 / per_ms)
+    assert b.issue_only_ms == pytest.approx(0.5 / per_ms)
+    b = kc.bound(0, kc.Work(0, 48, 16), sms, clock)
+    assert b.term == "FMA" and b.ms == pytest.approx(1 / per_ms)
+    assert b.alu_ms == pytest.approx(0.25 / per_ms)
+    b = kc.bound(0, kc.Work(64, 64), sms, clock)
+    assert b.issue_ms == b.alu_ms == b.fma_ms == pytest.approx(1 / per_ms)
+    b = kc.bound(3.35e9, kc.Work(1, 1), sms, clock)
+    assert (b.term, b.ms) == ("bytes", pytest.approx(1.0))
+    assert sum([kc.Work(1, 2, 1), kc.Work(3)]) == kc.Work(4, 2, 1)
+    assert 2 * kc.Work(1, 2, 1) == kc.Work(2, 4, 2)
 
 
 def test_ntt_roofline_matches_jax():

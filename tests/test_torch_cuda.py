@@ -55,8 +55,10 @@ def test_radix_kernels_match_plain_at_every_degree(cuda, logn):
     instantiates and its generic form; K6 with and without a scale, on
     strided, stacked and unaligned rows, from 1..5 source primes; K7 and K8
     from 1, 2, 4 and 9 limb rows (39 at n = 2^11) over 2 and 6 narrower
-    primes, on the paths' strided views and one word off), and K4 from 1..5
-    and 15 source primes in its vector and word forms."""
+    primes, on the paths' strided views and one word off; K3, K7 and K8 at
+    R = 43 over the 45 primes of Q u P at n = 2^12), K4 from 1..5 and 15
+    source primes and K11 from every source count 1..15, each in its vector
+    and word forms."""
     gen = torch.Generator(device=cuda).manual_seed(11)
     cases = kernel_check.radix_cases(logn, 3, cuda, gen)
     assert {c.name for c in cases} == {"ntt_multi", "tensor_eval4",
@@ -64,7 +66,7 @@ def test_radix_kernels_match_plain_at_every_degree(cuda, logn):
                                        "base_extend", "tensor_mul4",
                                        "tensor_mul", "ks_fused",
                                        "ks_fused_eval", "ntt",
-                                       "ntt_smem_ceiling"}
+                                       "ntt_smem_ceiling", "base_extend_sum"}
     for case in cases:
         got, want = case.kernel(), case.plain()
         torch.cuda.synchronize()
@@ -74,13 +76,14 @@ def test_radix_kernels_match_plain_at_every_degree(cuda, logn):
 def test_radix_kernels_have_no_stack_frame_or_spills(cuda):
     """Every instance of the redesigned kernels: K2, K3, K7, K8 and K12 per
     log n, K1 and K9 (both ways) per log n, K5 and K6 per log n and source
-    count form, K4 per source count and form, K10 per log n, staged and
-    direct."""
+    count form, K4 and K11 per source count and form, K10 per log n, staged
+    and direct."""
     report = _cuda.ptxas_report(_cuda.build_log())
     counts = {"tensor_eval4_kernel": 7, "ks_contract_kernel": 7,
               "ks_fused_kernel": 7, "ks_fused_eval_kernel": 7,
               "ext_ntt_kernel": 7 * 3, "tensor_mul4_kernel": 7 * 3,
               "ntt_multi_kernel": 7 * 2, "base_extend_kernel": 15 * 2,
+              "base_extend_sum_kernel": 15 * 2,
               "blind_rotate_kernel": 7 * 2, "ntt_kernel": 7 * 2,
               "ntt_smem_ceiling_kernel": 7}
     radix = [r for r in report if r["kernel"].split("<")[0] in counts]
@@ -433,6 +436,53 @@ def test_ckks_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(rr.cpu().numpy(), rr_cpu.numpy(), atol=1e-9)
     np.testing.assert_allclose(rr_cpu.numpy(),
                                ((z[0] + z[1]) * z[0]).numpy(), atol=1e-2)
+
+
+def _maps(device, n=256, L=6):
+    """Two radix-split stage maps of n through build_rmap_plan +
+    apply_rmap_plan at the double-prime scale, keys and plans made on the
+    CPU and carried to ``device``: the first stage's plan holds both chains'
+    maps (babies on z, giants), the last C2S stage's has an antilinear
+    part (babies on z_c too)."""
+    from fhe_study_tpu_torch.models.ckks import eval as E
+    cpu = torch.device("cpu")
+    param = C.Param(n=n, L=L, delta=2.0 ** 60)
+    gen = torch.Generator().manual_seed(7)
+    sk, pk = C.new_key(gen, param, cpu, h=16)
+    rng = np.random.default_rng(8)
+    z = torch.from_numpy(rng.uniform(-1, 1, (2, n // 2)))
+    ct = C.encrypt(gen, param, pk, C.encode(param, z, -z), batch=(2,))
+    outs = []
+    for s, maps in ((0, E.c2s_stage_maps(n, 2)[0]),
+                    (1, E.c2s_stage_maps(n, 2)[1][:1])):
+        pL = C.Param(n=n, L=L - 2 * s, delta=param.delta)
+        plan = E.build_rmap_plan(pL, list(maps), cpu, pt_levels=2)
+        steps = sorted({j for j in plan.need_d | plan.need_e if j}
+                       | {gi for m in plan.maps for gi, _ in m if gi})
+        rk = E.RotKeys.build(gen, pL, sk, steps, conj=bool(plan.need_e),
+                             levels=[pL.L])
+        plan.em = plan.em.to(device)
+        rk = E.RotKeys({k: H.HybridKSK(*(t.to(device) for t in v))
+                        for k, v in rk.keys.items()})
+        got, _ = E.apply_rmap_plan(pL, rk, C.CT(*(c.to(device) for c in ct)),
+                                   plan)
+        outs += got
+        ct = C.CT(*(c.cpu() for c in got[0]))
+    return outs
+
+
+def test_ckks_maps_on_card_match_cpu(cuda):
+    """apply_rmap_plan on the card (K1, K3 over R = L rows, K7, K4 and the
+    plain-torch contraction) == the same call on the CPU, n = 256."""
+    _cuda.reset_launches()
+    outs = _maps(cuda)
+    torch.cuda.synchronize()
+    counts = _cuda.launches()
+    for name in ("ntt_multi", "ks_contract", "ks_fused", "base_extend"):
+        assert counts[name] > 0, counts
+    for got, want in zip(outs, _maps(torch.device("cpu"))):
+        assert torch.equal(got.c0.cpu(), want.c0)
+        assert torch.equal(got.c1.cpu(), want.c1)
 
 
 def test_bench_wrappers_check_and_measure(cuda):
