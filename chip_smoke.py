@@ -15,7 +15,8 @@ N = 2^13, L = 4 primes of 30 bits, delta = 2^28, K = 2, a batch of 32, the
 NTT mode: a chain of 8 ntt_multi over 9 primes, B = 64, N = 2^14, and the
 CKKS linear maps and polynomial evaluation (models/ckks/eval.py, poly.py) at
 the n = 2^12 bootstrap's ring and prime count: N = 4096, L = 43, S = 2
-stages, h = 64, a batch of 8.
+stages, h = 64, a batch of 8, and that bootstrap itself
+(models/ckks/bootstrap.py) in the JAX bench's production configuration.
 Phases, each of which raises (and so exits non-zero) on any failure:
 
   1. toolchain and card: torch, CUDA, nvcc; the kernels built from csrc/;
@@ -120,14 +121,32 @@ Phases, each of which raises (and so exits non-zero) on any failure:
      the reference test holds at n = 32: at n = 4096 its noise exceeds it);
      each stage's launches by kernel, its
      ms (CUDA events, best of 3), key bytes and peak memory; the kernel
-     variants of the maps at L = 43 beside plain and bound.  Each phase
-     prints its wall time.
+     variants of the maps at L = 43 beside plain and bound;
+ 15. CKKS bootstrapping at N = 4096, L = 43, S = 2 radix stages a side,
+     h = 64, (K, r) = suggest_K_r(4096, 64) = (12, 5), double-base ModRaise,
+     delta0 = 2^55, working scale 2^60, cosine degree 30, four arcsin
+     terms, B = 8 (bench.py, bench_ckks_boot): precompute_keys on the card
+     (key bytes by level, seconds), pack_seeded -> expand_seeded on the card
+     with every a plane, b plane and em torch.equal to the built set, the
+     pack under 0.62 of the set's bytes and holding the mask seeds alone (no
+     master or noise seed); encrypt -> level_drop to 2 -> make_staged on the
+     expanded set -> decrypt_to_coeffs(crt_limbs=3) -> decode, every slot
+     within 2^-18 (the bench's decrypt gate), the refreshed bits and
+     boot_probe's stage errors (C2S w, EvalMod, final) printed; the same
+     pipeline at n = 256, B = 1 on the card and on the CPU, the outputs
+     torch.equal; a chain of 3
+     bootstraps (each output dropped to 2 limbs and fed back) timed as
+     bootstraps/s, the ms of each stage, launches by kernel per bootstrap
+     and peak memory; every distinct kernel argument shape the refresh
+     launched held against its plain version.  Each phase prints its wall
+     time.
 
 It prints each finding on a line of its own, then the kernels' JSON record,
 the card's name and power limit, and as its last line
 {"ok": true, "device": {...}}.  Without a CUDA card it exits non-zero.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -152,6 +171,11 @@ CK_GADGET_DELTA, CK_GADGET_BATCH, BATCH_T = 2.0 ** 55, 4, 65537
 # run at the working scale 2^60 with two primes per diagonal scale
 BOOT_N, BOOT_S, BOOT_H, BOOT_B, BOOT_DELTA = 1 << 12, 2, 64, 8, 2.0 ** 60
 BOOT_L = 29 + 2 * 5 + 4 * (BOOT_S - 1)
+# the bootstrap itself: messages at delta0 = 2^55 over the double base
+# q0*q1, EvalMod's cosine to degree 30 and four arcsin terms; a chain of 3
+# refreshes is timed; card against CPU at the smallest ring the kernels take
+BOOT_DELTA0, BOOT_DEG, BOOT_ARCSIN, BOOT_CHAIN = 2.0 ** 55, 30, 4, 3
+BOOT_SMALL_N = 256
 NTT_L, NTT_B, NTT_CHAIN, NTT_ITERS = 9, 64, 8, 3
 CEILING_REPS, ALU_ROUNDS = 64, 1 << 16
 # the bound (utils/kernel_check.bound) takes the SM count and the maximum SM
@@ -198,6 +222,55 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+@contextlib.contextmanager
+def record_calls(store: dict, seen: dict):
+    """While active, the first call of each distinct argument signature
+    (shapes, strides, word offsets, dtypes and the other arguments) of the
+    five kernels a CKKS bootstrap launches is kept in ``store`` as
+    (name, signature) -> (kernel, plain, args, kwargs), the arguments by
+    reference, to be held against the plain version afterwards; ``seen``
+    counts the launches each kernel's counter took inside those calls, for
+    the caller to hold against the path's counts (a launch that did not go
+    through a recorded call would leave its shape unchecked)."""
+    from fhe_study_tpu_torch.ops import _cuda, ext_cuda, ntt_cuda
+    wrapped = [("ntt_multi", ntt_cuda, "ntt_multi"),
+               ("ks_contract", ntt_cuda, "ks_contract"),
+               ("tensor_mul4", ntt_cuda, "tensor_mul4"),
+               ("ks_fused", ntt_cuda, "ks_fused"),
+               ("base_extend", ext_cuda, "base_extend_fused")]
+
+    def sig(x):
+        if isinstance(x, torch.Tensor):
+            return (tuple(x.shape), x.stride(), x.storage_offset() % 4,
+                    str(x.dtype))
+        if isinstance(x, (tuple, list)):
+            return tuple(sig(v) for v in x)
+        return x
+
+    def recorder(name, kern, plain):
+        def call(*args, **kwargs):
+            key = (name, sig(args), sig(sorted(kwargs.items())))
+            store.setdefault(key, (kern, plain, args, kwargs))
+            before = _cuda.launches()[name]
+            out = kern(*args, **kwargs)
+            seen[name] = (seen.get(name, 0) + _cuda.launches()[name]
+                          - before)
+            return out
+        return call
+
+    saved = [(mod, f"{fn}_kernel", getattr(mod, f"{fn}_kernel"))
+             for _, mod, fn in wrapped]
+    try:
+        for name, mod, fn in wrapped:
+            setattr(mod, f"{fn}_kernel",
+                    recorder(name, getattr(mod, f"{fn}_kernel"),
+                             getattr(mod, f"{fn}_plain")))
+        yield store
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
 
 
 def negacyclic_reference(a: np.ndarray, b: np.ndarray, t: int):
@@ -1427,6 +1500,211 @@ def main() -> None:
     for case in kernel_check.ckks_cases(bp, BOOT_B, CK_K, dev, gen):
         time_case(case)
     phase_done("14 (CKKS maps and polynomials, n = 2^12)")
+
+    # 15. slice 7b: the n = 2^12 bootstrap on the card -----------------------
+    # the JAX bench's production configuration (bench.py, bench_ckks_boot):
+    # double-base ModRaise, delta0 = 2^55, working scale 2^60, deg 30, four
+    # arcsin terms, S = 2 radix stages each side
+    from fhe_study_tpu_torch.models.ckks import bootstrap as BB
+    from fhe_study_tpu_torch.utils import boot_probe
+    kr = BB.suggest_K_r(BOOT_N, BOOT_H)
+    if kr != (12, 5):
+        raise RuntimeError(f"suggest_K_r({BOOT_N}, {BOOT_H}) = {kr}, the "
+                           "bench's configuration needs (12, 5)")
+    cfg = boot_probe.config(BOOT_N, L=BOOT_L, delta0=BOOT_DELTA0,
+                            delta_w=BOOT_DELTA, deg=BOOT_DEG, K=kr[0],
+                            r=kr[1], arcsin_terms=BOOT_ARCSIN, h=BOOT_H,
+                            stages=BOOT_S)
+    kw = boot_probe.pipeline_kw(cfg)
+    bp = C.Param(n=BOOT_N, L=BOOT_L, delta=BOOT_DELTA0)
+    b7shape = (f"N={BOOT_N} L={BOOT_L} S={BOOT_S} h={BOOT_H} K,r={kr} "
+               f"delta0=2^{round(np.log2(BOOT_DELTA0))} "
+               f"delta_w=2^{round(np.log2(BOOT_DELTA))} deg={BOOT_DEG} "
+               f"arcsin={BOOT_ARCSIN} B={BOOT_B}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    bsk, bpk = C.new_key(gen, bp, dev, h=BOOT_H)
+    master = SEED + 10
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    arrays, static, pout, em_src = BB.precompute_keys(
+        master, bp, bsk, BOOT_DELTA0, with_em_src=True, **kw)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    by_level = {}
+    for L_, k in arrays["rlk"].items():
+        by_level.setdefault(L_, [0, 0, 0])[0] += BB.nbytes(k)
+    for (L_, _), k in arrays["rot"].items():
+        by_level.setdefault(L_, [0, 0, 0])[1] += BB.nbytes(k)
+    for em in arrays["em"].values():
+        by_level.setdefault(em.shape[0], [0, 0, 0])[2] += BB.nbytes(em)
+    full_bytes = BB.nbytes(arrays)
+    say(f"boot keys: precompute_keys at {b7shape} in {build_s:.1f} s (one "
+        f"bootstrap of a zero ciphertext with lazy keys, then freeze): "
+        f"{len(arrays['rlk'])} relinearization keys at L="
+        f"{sorted(arrays['rlk'])}, {len(arrays['rot'])} Galois keys at L="
+        f"{sorted({L_ for L_, _ in arrays['rot']})}, {len(static)} plans "
+        f"{sorted(static, key=str)}; {full_bytes / 2**30:.3f} GiB in all, "
+        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; pout "
+        f"L={pout.L} delta={pout.delta!r} [{card}]")
+    for L_ in sorted(by_level, reverse=True):
+        rl, ro, em = by_level[L_]
+        say(f"boot keys:   L={L_}: relinearization {rl / 2**20:.1f} MiB, "
+            f"Galois {ro / 2**20:.1f} MiB, plan em {em / 2**20:.1f} MiB")
+    pack = BB.pack_seeded(arrays, master, em_src=em_src)
+    pack_bytes = BB.nbytes(pack)
+    t0 = time.perf_counter()
+    expanded = BB.expand_seeded(pack, bp)
+    torch.cuda.synchronize()
+    expand_s = time.perf_counter() - t0
+    pairs = ([(f"rlk L={L_} {f}", getattr(k, f),
+               getattr(expanded["rlk"][L_], f))
+              for L_, k in arrays["rlk"].items() for f in ("a", "b")]
+             + [(f"rot {lg} {f}", getattr(k, f),
+                 getattr(expanded["rot"][lg], f))
+                for lg, k in arrays["rot"].items() for f in ("a", "b")]
+             + [(f"em {pk_}", em, expanded["em"][pk_])
+                for pk_, em in arrays["em"].items()])
+    bad = [lbl for lbl, x, y in pairs if not torch.equal(x, y)]
+    if bad or set(expanded["em"]) != set(arrays["em"]):
+        raise RuntimeError(f"expand_seeded != the built key set at {bad[:5]}")
+    if pack_bytes >= 0.62 * full_bytes:
+        raise RuntimeError(f"the seeded pack holds {pack_bytes} bytes, not "
+                           f"under 0.62 of the set's {full_bytes}")
+    stored = ({s_ for _, s_ in pack["rlk"].values()}
+              | {s_ for _, s_ in pack["rot"].values()})
+    seeds = ([BB._rlk_subkey(master, L_) for L_ in arrays["rlk"]]
+             + [BB._rot_subkey(master, *lg) for lg in arrays["rot"]])
+    forbidden = {master} | {ke for _, ke in seeds}
+    if (stored != {ka for ka, _ in seeds} or stored & forbidden
+            or len(stored) != len(seeds)):
+        raise RuntimeError("the seeded pack holds a seed other than the "
+                           "mask seeds, or two keys share a mask seed")
+    say(f"boot keys: pack_seeded {pack_bytes / 2**30:.3f} GiB = "
+        f"{pack_bytes / full_bytes:.3f} of the set (bound 0.62), "
+        f"{len(stored)} mask seeds, none equal to the master seed or a "
+        f"noise seed; expand_seeded on the card in {expand_s:.1f} s: all "
+        f"{len(pairs)} a planes, b planes and em torch.equal to the built "
+        f"set [{card}]")
+    del arrays, pack, em_src, pairs
+    torch.cuda.empty_cache()
+
+    zb = rng.uniform(-1, 1, (BOOT_B, BOOT_N // 2))
+    zt = on_card(zb)
+    ct = C.encrypt(gen, bp, bpk, C.encode(bp, zt, torch.zeros_like(zt)),
+                   batch=(BOOT_B,))
+    ct2, _ = P.level_drop(bp, ct, 2)
+    boot_run = BB.make_staged(bp, static, BOOT_DELTA0, **kw)
+    shapes, seen = {}, {}
+    boot_label = (f"ckks bootstrap: make_staged (ModRaise + C2S x {BOOT_S}, "
+                  f"EvalMod x 2, S2C x {BOOT_S}) on the expanded keys, "
+                  f"input dropped to 2 limbs, at {b7shape}")
+    with record_calls(shapes, seen):
+        out, pout2 = drive(boot_label, ("ntt_multi", "ks_contract",
+                                        "base_extend", "tensor_mul4",
+                                        "ks_fused"),
+                           lambda: boot_run(expanded, ct2.c0, ct2.c1))
+    boot_launches = {k: v for k, v in path_launches[boot_label].items() if v}
+    if boot_launches != {k: v for k, v in seen.items() if v}:
+        raise RuntimeError(f"bootstrap: the recorded calls launched {seen}, "
+                           f"the path {boot_launches}: some launches went "
+                           "round the recorder and their shapes would go "
+                           "unchecked")
+    if pout2 != pout or boot_run.pout != pout:
+        raise RuntimeError(f"make_staged's output Param {pout2} != "
+                           f"precompute_keys' {pout}")
+    # the real parts, as the bench's gate reads them
+    got = slots_of(pout, bsk, out).real
+    if got.shape != zb.shape or not np.isfinite(got).all():
+        raise RuntimeError(f"bootstrap: decoded {got.shape}, not finite")
+    err_b = float(np.abs(got - zb).max())
+    if not err_b < 2.0 ** -18:
+        raise RuntimeError(f"bootstrap: max slot error {err_b:.3e} is not "
+                           "under the bench's decrypt gate 2^-18")
+    say(f"verify: bootstrap at {b7shape}: output L={pout.L}, decoded "
+        f"against z in all {BOOT_B} x {BOOT_N // 2} slots: max |diff| "
+        f"{err_b:.3e} < 2^-18 = {-np.log2(err_b):.1f} refreshed bits (the "
+        f"JAX package's record: 20.3-28.2 bits)")
+    frozen = BB.FrozenKeys(expanded, static)
+    errs, out_p = boot_probe.stage_errors(
+        bp, bsk, ct2, zb, boot_run, frozen, pout, K=kr[0], r=kr[1],
+        delta_w=BOOT_DELTA, arcsin_terms=BOOT_ARCSIN, base_limbs=2,
+        c2s_stages=BOOT_S)
+    if not all(torch.equal(x, y) for x, y in zip(out_p, out)):
+        raise RuntimeError("the staged bootstrap run step by step != run()")
+    say("boot probe: max errors against the secret key's ground truth: "
+        + ", ".join(f"{k} {e:.3e} ({-np.log2(max(e, 1e-300)):.1f} bits)"
+                    for k, e in errs.items()))
+
+    # the same pipeline at n = 256, B = 1, on the card and on the CPU
+    cfg_s = dict(cfg, n=BOOT_SMALL_N)
+    outs = {}
+    for where in (dev, torch.device("cpu")):
+        t0 = time.perf_counter()
+        pr = boot_probe.setup(cfg_s, 1, where, seed=SEED + 11)
+        outs[where.type] = pr["run"](pr["arrays"], *pr["ct_low"])
+        if where.type == "cuda":
+            torch.cuda.synchronize()
+        outs[where.type + " s"] = time.perf_counter() - t0
+    if not (all(torch.equal(x.cpu(), y) for x, y in zip(outs["cuda"][0],
+                                                         outs["cpu"][0]))
+            and outs["cuda"][1] == outs["cpu"][1]):
+        raise RuntimeError(f"bootstrap at n={BOOT_SMALL_N}: the card's "
+                           "output != the CPU's")
+    say(f"verify: bootstrap at n={BOOT_SMALL_N}, L={BOOT_L}, K,r={kr}, "
+        f"h={BOOT_H}, B=1: the card's output == the CPU's (torch.equal, "
+        f"both components, {outs['cuda'][0].c0.shape[0]} limbs); keys + "
+        f"bootstrap {outs['cuda s']:.1f} s on the card, "
+        f"{outs['cpu s']:.1f} s on the CPU")
+    del outs, pr
+
+    # timing: a chain of BOOT_CHAIN, each output dropped to 2 limbs and
+    # bootstrapped again (bench.py's loop)
+    def boot_chain():
+        cur = ct2
+        for _ in range(BOOT_CHAIN):
+            o, _ = boot_run(expanded, cur.c0, cur.c1)
+            cur, _ = P.level_drop(pout, o, 2)
+        return cur
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    chain_ms = time_ms(boot_chain, 1, warmup=0)
+    peak = torch.cuda.max_memory_allocated()
+    stage_ms = {}
+    for _ in range(2):
+        halves = [(C.CT(ct2.c0, ct2.c1), None)] * 2
+        for label, step in boot_run.stages:
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            halves = step(frozen, halves)
+            e1.record()
+            torch.cuda.synchronize()
+            stage_ms[label] = min(stage_ms.get(label, 1e30),
+                                  e0.elapsed_time(e1))
+    say(f"timing: ckks bootstrap at {b7shape}: a chain of {BOOT_CHAIN} in "
+        f"{chain_ms:.1f} ms (CUDA events) = "
+        f"{BOOT_B * BOOT_CHAIN / (chain_ms / 1e3):.2f} bootstraps/s; peak "
+        f"device memory {peak / 2**30:.2f} GiB (keys resident); stage ms "
+        f"(best of 2): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in stage_ms.items())
+        + f"; launches a bootstrap {boot_launches} [{card}]")
+
+    # every distinct (kernel, argument shape) the refresh launched, held
+    # against its plain version on the arguments it was given
+    for (name, *_), (kern, plain, args, kwargs) in shapes.items():
+        hold(name, "bootstrap shape", kern(*args, **kwargs),
+             plain(*args, **kwargs))
+    torch.cuda.synchronize()
+    say(f"parity: the bootstrap's {len(shapes)} distinct kernel argument "
+        f"shapes, seen in all {sum(seen.values())} of its launches ("
+        + ", ".join(f"{k} {sum(1 for n_, *_ in shapes if n_ == k)}"
+                    for k in sorted({n_ for n_, *_ in shapes}))
+        + ") == plain (torch.equal)")
+    del shapes, frozen, expanded, out, out_p, ct, ct2, bsk, bpk
+    torch.cuda.empty_cache()
+    phase_done("15 (CKKS bootstrap, n = 2^12)")
 
     launches = {k.name: sum(c[k.name] for c in path_launches.values())
                 for k in _cuda.KERNELS}

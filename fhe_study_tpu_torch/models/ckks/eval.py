@@ -74,6 +74,13 @@ class RotKeys:
             raise KeyError(f"missing Galois key (L={L}, g={g})")
         return self.keys[(L, g)]
 
+    def aux_count(self, L: int) -> int:
+        """The auxiliary prime count K of the keys at level L."""
+        for (lv, _), k in self.keys.items():
+            if lv == L:
+                return k.b.shape[1] - L
+        raise KeyError(f"no Galois key at level L={L}")
+
     def nbytes(self) -> int:
         return sum(k.b.numel() * k.b.element_size()
                    + k.a.numel() * k.a.element_size()
@@ -307,21 +314,13 @@ def realize_em(param, m, device):
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
 
-def _key_K(rk: RotKeys, L: int) -> int:
-    """The auxiliary prime count of the keys at level L."""
-    for (lv, _), k in rk.keys.items():
-        if lv == L:
-            return k.b.shape[1] - L
-    raise KeyError(f"no Galois key at level L={L}")
-
-
 def apply_rmap_plan(param, rk: RotKeys, ct, plan: RmapPlan):
     """Execute a plan: (n1-1) hoisted baby rotations of z (+ of z_c if any
     map has an antilinear part) shared across all maps; per (map, giant
     block) one eval-domain pointwise contraction + one full rotation.  One
     rescale per pt_level and map.  Returns ([ct_m...], param')."""
     n, qs, L = param.n, param.qs, param.L
-    K = _key_K(rk, L)
+    K = rk.aux_count(L)
     edm = hybrid_ks.hoist_digits(param, ct.c1, K)
     zc = edm_c = None
     if plan.need_e:

@@ -15,10 +15,12 @@ digits); the P-division is one pass of K4 (centered extension P -> Q with its
 ``(w - ext) * c`` epilogue), the same residues as the reference's
 extend-subtract-multiply.
 
-Not ported here: ``seed_of`` / ``expand_a`` (regenerating a key's mask from
-its PRNG subkey), which wait for a decision on how key parity across the two
-packages' generators goes.  K is an argument everywhere; there is no
-environment override.
+``seed_of`` / ``expand_a`` regenerate a seeded key's mask from its mask
+seed (``key_seeds``: the mask and the noise each on a stream of its own,
+keyed by a hash of a master seed and the key's labels), on the port's own
+streams (the reference's are threefry): a key that the JAX package built
+cannot be expanded here, only carried across whole (utils/interop.py).
+K is an argument everywhere; there is no environment override.
 """
 
 import math
@@ -107,6 +109,48 @@ def hybrid_ksk(gen: torch.Generator, param, s_old_evals, s_new_evals,
     return hybrid_ksk_with(param, s_old_evals, s_new_evals,
                            *_ksk_draws(gen, param, K, s_new_evals.device),
                            K=K)
+
+
+def key_seeds(master: int, tag: str, *labels: int) -> tuple:
+    """(mask seed, noise seed) of the key labelled (tag, *labels) under the
+    master seed: two keyed hashes of their own (prng.derive_seed), not two
+    draws of one generator, so the mask seed, which a seeded pack ships,
+    tells nothing of the noise seed, whose noise would give the secret key
+    away."""
+    return (prng.derive_seed(master, tag + "/a", *labels),
+            prng.derive_seed(master, tag + "/e", *labels))
+
+
+def seed_of(master: int, tag: str, *labels: int) -> int:
+    """The mask seed of the key labelled (tag, *labels): a packer keeps it
+    instead of the key's ``a`` plane (seeded-key compression: half the key
+    bytes); expand_a redraws the plane from it."""
+    return key_seeds(master, tag, *labels)[0]
+
+
+def _seeded_mask(param, ka_seed: int, K: int, device):
+    """The mask draw of a seeded key, [L+K, L_rows, n] (see _ksk_draws)."""
+    return prng.seeded_uniform_mod_multi(
+        ka_seed, (param.L, param.n), param.qs + ks_ext_primes(param, K),
+        device)
+
+
+def seeded_draws(param, seeds: tuple, K: int, device):
+    """(a, e) of a hybrid key from its (mask, noise) seeds (key_seeds), each
+    a stream keyed by all of its bits: as _ksk_draws lays them out."""
+    ka_seed, ke_seed = seeds
+    return (_seeded_mask(param, ka_seed, K, device).transpose(0, 1),
+            prng.seeded_gaussian_int(ke_seed, (param.L, param.n),
+                                     bfv_rns.ERR_SIGMA, device))
+
+
+def expand_a(param, ka_seed: int, K: int, device):
+    """Regenerate a seeded HybridKSK's ``a`` plane (NTT domain, int32
+    [L, L+K, n]) bit for bit from its mask seed: the host draw of
+    seeded_draws, then K1 over Q u P on ``device``."""
+    both = param.qs + ks_ext_primes(param, K)
+    a = _seeded_mask(param, ka_seed, K, device)
+    return ntt_multi(a, both).transpose(0, 1).contiguous()
 
 
 def _div_by_P_round(param, acc, ps: tuple):

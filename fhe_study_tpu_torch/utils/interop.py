@@ -19,8 +19,10 @@ Shoup planes): ``bits_to_tensor`` carries those bit for bit (uint64 -> int64,
 uint32 -> int32, a numpy ``view``), and ``bits_to_numpy`` brings them back.
 
 The CKKS evaluation state crosses by ``rot_keys_to_port`` (a ``RotKeys``),
-``rlks_to_port`` (a per-level relinearization key dict) and
-``rmap_plan_to_port`` (an ``RmapPlan`` with its em).
+``rlks_to_port`` (a per-level relinearization key dict),
+``rmap_plan_to_port`` (an ``RmapPlan`` with its em) and
+``boot_arrays_to_port`` (the arrays of a frozen bootstrap key set, for the
+port's ``bootstrap.FrozenKeys`` beside the same static).
 """
 
 import numpy as np
@@ -128,3 +130,16 @@ def rmap_plan_to_port(plan, device) -> "ckks_eval.RmapPlan":
                              plan.pt_levels)
     out.src_m, out.src_L = np.asarray(plan.src_m), plan.src_L
     return out
+
+
+def boot_arrays_to_port(arrays, device) -> dict:
+    """The arrays of a reference bootstrap key set (``bootstrap.freeze`` or
+    ``precompute_keys``: relinearization keys by level, Galois keys by
+    (level, element), plan em by plan key) -> the same dicts of the port's
+    HybridKSK and int32 em on ``device``.  The static half is plain Python
+    and serves both packages as it is."""
+    return {"rlk": rlks_to_port(arrays["rlk"], device),
+            "rot": {lg: to_port(k, device)
+                    for lg, k in arrays["rot"].items()},
+            "em": {k: to_tensor(em, device)
+                   for k, em in arrays["em"].items()}}

@@ -16,8 +16,24 @@ differ: threefry there, the generator's own here):
 
 Draws happen on the generator's device and land on ``device``; so a CPU
 generator gives the same numbers whatever card the data goes to.
+
+Seeds: ``split`` draws child seeds from a generator (the order of calls
+matters); ``derive_seed`` is the order-free counterpart of the reference's
+``jax.random.fold_in`` chains: a keyed hash of a master seed and a tuple of
+labels, so a key set built lazily in any order gets the same subkeys.
+
+A torch CPU generator keeps only the low 32 bits of its seed (mt19937's
+seeding), so whatever a ``torch.Generator`` draws has at most 2^32 streams.
+The ``seeded_*`` samplers draw from a numpy PCG64 stream keyed by every bit
+of an int seed instead: the per-key mask and noise of a seeded key set
+(models/ckks/bootstrap.py), whose mask seeds are shipped and must not let
+anyone search for the noise seed.
 """
 
+import hashlib
+import json
+
+import numpy as np
 import torch
 
 from .rounding import round_half_away
@@ -92,3 +108,38 @@ def split(gen: torch.Generator, n: int) -> list:
         g.manual_seed(s)
         out.append(g)
     return out
+
+
+def _wide(seed: int) -> np.random.Generator:
+    # SeedSequence takes every bit of the int: no two seeds share a stream
+    if seed < 0:
+        raise ValueError(f"seed must be non-negative, got {seed}")
+    return np.random.Generator(np.random.PCG64(seed))
+
+
+def seeded_uniform_mod_multi(seed: int, shape, qs: tuple, device):
+    """uniform_mod_multi on the stream of ``seed`` (all its bits), drawn on
+    the host: the same residues whatever device they land on."""
+    rng = _wide(seed)
+    return torch.stack([torch.from_numpy(rng.integers(0, q, tuple(shape),
+                                                      dtype=np.int64))
+                        for q in qs]).int().to(device)
+
+
+def seeded_gaussian_int(seed: int, shape, sigma: float, device):
+    """gaussian_int on the stream of ``seed`` (all its bits)."""
+    g = sigma * torch.from_numpy(_wide(seed).standard_normal(tuple(shape)))
+    return round_half_away(g).long().to(device)
+
+
+def derive_seed(master: int, tag: str, *labels: int) -> int:
+    """A 63-bit seed: BLAKE2b keyed with ``master`` over the JSON text of
+    [tag, *labels].  That text differs for any two label tuples, so two
+    distinct (tag, labels) meet only by a hash collision (the reference's
+    two chained fold_ins give the same injectivity in (L, g))."""
+    if not 0 <= master < 1 << 256:
+        raise ValueError(f"master seed must lie in [0, 2^256), got {master}")
+    msg = json.dumps([tag, *(int(x) for x in labels)]).encode()
+    h = hashlib.blake2b(msg, key=master.to_bytes(32, "little"),
+                        digest_size=8)
+    return int.from_bytes(h.digest(), "little") >> 1
