@@ -16,7 +16,9 @@ NTT mode: a chain of 8 ntt_multi over 9 primes, B = 64, N = 2^14, and the
 CKKS linear maps and polynomial evaluation (models/ckks/eval.py, poly.py) at
 the n = 2^12 bootstrap's ring and prime count: N = 4096, L = 43, S = 2
 stages, h = 64, a batch of 8, and that bootstrap itself
-(models/ckks/bootstrap.py) in the JAX bench's production configuration.
+(models/ckks/bootstrap.py) in the JAX bench's production configuration,
+and the Rq layer's schemes with the graft entry (fhe_study_tpu_torch/
+entry.py: single-modulus BFV at q = 2^16 + 1, n = 1024, B = 4).
 Phases, each of which raises (and so exits non-zero) on any failure:
 
   1. toolchain and card: torch, CUDA, nvcc; the kernels built from csrc/;
@@ -138,7 +140,23 @@ Phases, each of which raises (and so exits non-zero) on any failure:
      bootstraps (each output dropped to 2 limbs and fed back) timed as
      bootstraps/s, the ms of each stage, launches by kernel per bootstrap
      and peak memory; every distinct kernel argument shape the refresh
-     launched held against its plain version.  Each phase prints its wall
+     launched held against its plain version;
+ 16. slice 4, the Rq layer and the graft entry: ``entry.setup`` on the
+     card at the entry's configuration (q = 2^16 + 1, n = 1024, t = 4,
+     p = q^2, B = 4): encrypt, add and add_const decrypt exactly; the
+     entry's ``bfv.mul(fast=True)`` through K9 (48 launches of [4, 1024]),
+     equal to the same call on the CPU bit for bit; ``polymul_i64_crt`` at
+     the entry's shapes against the exact product in Python integers; the
+     product's noise beside Delta/2 (at this q it does not decrypt, as in
+     the reference: printed, not held); then the reference tests'
+     configurations: ``bfv.mul`` at n = 64, t = 2, B = 64 (plain
+     transforms) decrypts, GLWE over Z_q at n = 128, k = 16: encrypt and
+     encrypt_s decrypt and ``key_switch`` (beta = 2, l = 16, B = 32, K9 at
+     n = 128) decrypts under the new key, single-modulus CKKS at n = 16
+     round-trips every slot; K9 held against plain at every argument
+     signature the phase launched; the entry mul's ms (CUDA events, best of
+     3) and K9 beside its bound at [4, 1024] and at the key switch's
+     [32, 256, 128], also on the device alone.  Each phase prints its wall
      time.
 
 It prints each finding on a line of its own, then the kernels' JSON record,
@@ -224,22 +242,28 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+BOOT_KERNELS = ("ntt_multi", "ks_contract", "tensor_mul4", "ks_fused",
+                "base_extend")
+
+
 @contextlib.contextmanager
-def record_calls(store: dict, seen: dict):
+def record_calls(store: dict, seen: dict, names: tuple = BOOT_KERNELS):
     """While active, the first call of each distinct argument signature
     (shapes, strides, word offsets, dtypes and the other arguments) of the
-    five kernels a CKKS bootstrap launches is kept in ``store`` as
-    (name, signature) -> (kernel, plain, args, kwargs), the arguments by
-    reference, to be held against the plain version afterwards; ``seen``
-    counts the launches each kernel's counter took inside those calls, for
-    the caller to hold against the path's counts (a launch that did not go
-    through a recorded call would leave its shape unchecked)."""
+    kernels ``names`` (by default the five a CKKS bootstrap launches) is
+    kept in ``store`` as (name, signature) -> (kernel, plain, args, kwargs),
+    the arguments by reference, to be held against the plain version
+    afterwards; ``seen`` counts the launches each kernel's counter took
+    inside those calls, for the caller to hold against the path's counts (a
+    launch that did not go through a recorded call would leave its shape
+    unchecked)."""
     from fhe_study_tpu_torch.ops import _cuda, ext_cuda, ntt_cuda
-    wrapped = [("ntt_multi", ntt_cuda, "ntt_multi"),
-               ("ks_contract", ntt_cuda, "ks_contract"),
-               ("tensor_mul4", ntt_cuda, "tensor_mul4"),
-               ("ks_fused", ntt_cuda, "ks_fused"),
-               ("base_extend", ext_cuda, "base_extend_fused")]
+    wrapped = [w for w in [("ntt_multi", ntt_cuda, "ntt_multi"),
+                           ("ks_contract", ntt_cuda, "ks_contract"),
+                           ("tensor_mul4", ntt_cuda, "tensor_mul4"),
+                           ("ks_fused", ntt_cuda, "ks_fused"),
+                           ("base_extend", ext_cuda, "base_extend_fused"),
+                           ("ntt", ntt_cuda, "ntt")] if w[0] in names]
 
     def sig(x):
         if isinstance(x, torch.Tensor):
@@ -285,6 +309,34 @@ def negacyclic_reference(a: np.ndarray, b: np.ndarray, t: int):
         raise RuntimeError(f"FFT reference not exact: rounding error {err}")
     r = r.astype(np.int64)
     return (r[..., :n] - r[..., n:]) % t, err
+
+
+def negacyclic_exact(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """a * b mod (X^n + 1) over Z, row by row in Python integers."""
+    n = a.shape[-1]
+    out = np.empty(a.shape, dtype=object)
+    for idx in np.ndindex(a.shape[:-1]):
+        full = np.append(np.convolve(a[idx].astype(object),
+                                     b[idx].astype(object)), 0)
+        out[idx] = full[:n] - full[n:]
+    return out
+
+
+def queued_ms(fn, reps: int, busy: torch.Tensor) -> float:
+    """Device ms a call of fn on the device alone: ``reps`` calls queued
+    behind 16 passes over ``busy``, so the host has enqueued them all before
+    the first one runs, timed by CUDA events around the calls."""
+    torch.cuda.synchronize()
+    for _ in range(16):
+        busy.add_(1)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def main() -> None:
@@ -378,7 +430,7 @@ def main() -> None:
     def check(case, got, want) -> None:
         hold(case.name, case.label, got, want)
 
-    gen = torch.Generator(device=dev).manual_seed(SEED)
+    gen = prng.Gen(SEED)
     for n in (N, 256):
         param = R.RnsParam(n=n, t=T, L=L, M=M)
         for case in kernel_check.cases(param, PARITY_BATCH, dev, gen):
@@ -480,7 +532,7 @@ def main() -> None:
             f"{ref.shape[1]} coefficients")
 
     param = R.RnsParam(n=N, t=T, L=L, M=M)
-    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    gen = prng.Gen(SEED + 1)
     st = {}
 
     def eval_path():
@@ -623,7 +675,7 @@ def main() -> None:
     # at the paths' shapes, summed
     ms = {k.name: 0.0 for k in _cuda.KERNELS}
     plain_ms, byte_ms, op_ms, bound_ms = dict(ms), dict(ms), dict(ms), dict(ms)
-    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    gen = prng.Gen(SEED + 2)
 
     case_ms, timed_chains = {}, []
 
@@ -670,7 +722,7 @@ def main() -> None:
     tshape = (f"N={TFHE_N} K={TFHE_K} t={TFHE_T} B={TFHE_BATCH} "
               f"beta={TFHE_BETA} l={TFHE_L} beta_ks={TFHE_BETA_KS} "
               f"l_ks={TFHE_L_KS}")
-    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    gen = prng.Gen(SEED + 3)
     table = bootstrap.compute_lookup_table_standard(tp, dev)
     msgs = torch.arange(TFHE_BATCH, device=dev) % (TFHE_T // 2)
     ts = {}
@@ -806,7 +858,7 @@ def main() -> None:
             f"ms; peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
     del rotated, extracted, parts, pipelines
-    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    gen = prng.Gen(SEED + 4)
     for case in kernel_check.ntt_cases(TFHE_N, TFHE_K, TFHE_L, TFHE_N, dev,
                                        gen):
         time_case(case)
@@ -825,7 +877,7 @@ def main() -> None:
 
     # 10. the last three kernels and the CKKS variants, against plain --------
     cp = C.Param(n=CK_N, L=CK_L, delta=CK_DELTA)
-    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    gen = prng.Gen(SEED + 5)
     for n in (CK_N, 256):
         small = C.Param(n=n, L=CK_L, delta=CK_DELTA)
         for case in (kernel_check.ckks_cases(small, PARITY_BATCH, CK_K, dev,
@@ -1298,7 +1350,7 @@ def main() -> None:
             f"runs {[round(r, 3) for r in runs]} ms, best {min(runs):.3f} ms "
             f"= {min(runs) / len(gs):.3f} ms a rotation; launches "
             f"{per_op_launches(fn)} [{card}]")
-    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    gen = prng.Gen(SEED + 6)
     before = dict(ms)
     ckks_cases = kernel_check.ckks_cases(cp, CK_BATCH, CK_K, dev, gen)
     for case in ckks_cases:
@@ -1340,7 +1392,7 @@ def main() -> None:
     bp = C.Param(n=BOOT_N, L=BOOT_L, delta=BOOT_DELTA)
     bshape = (f"N={BOOT_N} L={BOOT_L} S={BOOT_S} K={CK_K} h={BOOT_H} "
               f"delta=2^{round(np.log2(BOOT_DELTA))} B={BOOT_B}")
-    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    gen = prng.Gen(SEED + 7)
     zb = (rng.uniform(-1, 1, (BOOT_B, BOOT_N // 2))
           + 1j * rng.uniform(-1, 1, (BOOT_B, BOOT_N // 2)))
     t0 = time.perf_counter()
@@ -1394,7 +1446,7 @@ def main() -> None:
             f"{sum(len(p.need_e) for p in plans)} babies (z, z_c), "
             f"{sum(len(m) for p in plans for m in p.maps)} giant blocks, "
             f"{len(rk.keys)} Galois keys of {rk.nbytes() / 2**30:.3f} GiB "
-            f"drawn on the card in {key_s:.1f} s, em "
+            f"drawn on the host in {key_s:.1f} s, em "
             f"{em_bytes / 2**30:.3f} GiB; plans built in {host_s:.1f} s")
 
         def stage(inputs=cts, jobs=jobs, rk=rk, pL=pL):
@@ -1496,7 +1548,7 @@ def main() -> None:
     verify_slots("poly_eval2 0.5 + z - 0.25z^3", got,
                  0.5 + zb - 0.25 * zb ** 3, 1e-9)
     # the kernel variants of the maps at their widest level
-    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    gen = prng.Gen(SEED + 8)
     for case in kernel_check.ckks_cases(bp, BOOT_B, CK_K, dev, gen):
         time_case(case)
     phase_done("14 (CKKS maps and polynomials, n = 2^12)")
@@ -1521,7 +1573,7 @@ def main() -> None:
                f"delta0=2^{round(np.log2(BOOT_DELTA0))} "
                f"delta_w=2^{round(np.log2(BOOT_DELTA))} deg={BOOT_DEG} "
                f"arcsin={BOOT_ARCSIN} B={BOOT_B}")
-    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    gen = prng.Gen(SEED + 9)
     bsk, bpk = C.new_key(gen, bp, dev, h=BOOT_H)
     master = SEED + 10
     torch.cuda.synchronize()
@@ -1705,6 +1757,186 @@ def main() -> None:
     del shapes, frozen, expanded, out, out_p, ct, ct2, bsk, bpk
     torch.cuda.empty_cache()
     phase_done("15 (CKKS bootstrap, n = 2^12)")
+
+    # 16. slice 4: the Rq layer, single-modulus BFV, GLWE over Z_q, CKKS ---
+    # the graft entry (__graft_entry__.entry's configuration: q = 2^16 +
+    # 1, n = 1024, t = 4, p = q^2, B = 4, bfv.mul with fast=True), keys and
+    # encryption on the card; then the reference tests' configurations
+    from fhe_study_tpu_torch import entry as EN
+    from fhe_study_tpu_torch.arith import rn, rq
+    from fhe_study_tpu_torch.models import bfv as SB
+    from fhe_study_tpu_torch.models import bfv_noise
+    from fhe_study_tpu_torch.models.ckks import Encoder
+    from fhe_study_tpu_torch.models.ckks import ckks as SC
+    from fhe_study_tpu_torch.models.gfhe import glwe as G
+    cpu = torch.device("cpu")
+    k9_shapes, k9_seen = {}, {}
+    eshape = (f"q={EN.Q} n={EN.N} t={EN.T} p=q^2 B={EN.BATCH} (the "
+              f"graft entry)")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with record_calls(k9_shapes, k9_seen, ("ntt",)):
+        es = EN.setup(dev)
+        torch.cuda.synchronize()
+        entry_setup_s = time.perf_counter() - t0
+        ep, em = es.param, es.m
+        for what, ct, want in (
+                ("encrypt", es.c2, em),
+                ("add", SB.add(es.c1, es.c2, ep), 2 * em % EN.T),
+                ("add_const", SB.add_const(ep, es.c1, em), 2 * em % EN.T)):
+            if not torch.equal(SB.decrypt(ep, es.sk, ct), want):
+                raise RuntimeError(f"entry: {what} does not decrypt")
+    say(f"verify: entry at {eshape}: keys, rlk and two encryptions on the "
+        f"card in {entry_setup_s:.2f} s (host clock); encrypt, add and "
+        f"add_const decrypt exactly in all {em.numel()} coefficients")
+    efn = EN.multiply(ep)
+    eargs = (*es.c1, *es.c2, *es.rlk)
+    entry_label = f"entry: bfv.mul (fast=True) at {eshape}"
+    seen_before = k9_seen.get("ntt", 0)
+    with record_calls(k9_shapes, k9_seen, ("ntt",)):
+        eout = drive(entry_label, ("ntt",), lambda: efn(*eargs))
+    entry_k9 = path_launches[entry_label]["ntt"]
+    if entry_k9 != k9_seen["ntt"] - seen_before:
+        raise RuntimeError("entry: a K9 launch went round the recorder")
+    eout_cpu = efn(*(a.cpu() for a in eargs))
+    if not all(torch.equal(x.cpu(), y) for x, y in zip(eout, eout_cpu)):
+        raise RuntimeError("entry: mul on the card != mul on the CPU")
+    say(f"verify: entry mul on the card == the same call on the CPU "
+        f"(torch.equal, both components, {eout[0].numel()} coefficients "
+        f"each) on the same inputs")
+    # polymul_i64_crt at the entry's shapes: the tensor's centered operands
+    # and the relinearization's c2 by the key's high limb
+    t3 = SB.tensor(ep, es.c1, es.c2, fast=True)
+    for what, a, b in (
+            ("tensor c1.c0 x c2.c0", rq.to_centered_i64(es.c1.c0, EN.Q),
+             rq.to_centered_i64(es.c2.c0, EN.Q)),
+            ("relinearize c2 x rlk.r0 >> 28", rq.to_centered_i64(t3[2], EN.Q),
+             es.rlk.r0 >> 28)):
+        got = ntt.polymul_i64_crt(a, b).cpu().numpy().astype(object)
+        want = negacyclic_exact(a.cpu().numpy(), b.cpu().numpy())
+        bad = int((got != want).sum())
+        if bad:
+            raise RuntimeError(f"polymul_i64_crt {what}: {bad} coefficients "
+                               "differ from the exact product")
+        say(f"verify: polymul_i64_crt {what} {list(a.shape)}: every "
+            f"coefficient == the exact negacyclic product in Python integers "
+            f"(largest |c| = 2^{np.log2(float(np.abs(want).max())):.1f})")
+    prod = rn.naive_poly_mul(em.cpu(), em.cpu()) % EN.T
+    noise = bfv_noise.measure_noise(ep, es.sk, SB.RLWE(*eout), prod.to(dev))
+    wrong = int((SB.decrypt(ep, es.sk, SB.RLWE(*eout)).cpu() != prod).sum())
+    say(f"noise: entry mul at {eshape}: |v|_inf by ciphertext "
+        f"{noise.tolist()} against Delta/2 = {ep.delta // 2}; the product "
+        f"decrypts wrong in {wrong} of {prod.numel()} coefficients (the "
+        f"configuration's noise: the reference's own entry does the same; "
+        f"not a check)")
+    efn(*eargs)
+    entry_runs = [time_ms(lambda: efn(*eargs), 1, warmup=0) for _ in range(3)]
+    entry_ms = min(entry_runs)
+
+    # the reference tests' configurations on the card
+    mp = SB.Param(RingParam(EN.Q, 64), 2, EN.Q * EN.Q)
+    g16 = prng.Gen(SEED + 12)
+    sk64, pk64 = SB.new_key(g16, mp, dev, batch=(64,))
+    rlk64 = SB.rlk_key(g16, mp, sk64, batch=(64,))
+    mm = [prng.uniform_mod(g16, (64, 64), 2, dev) for _ in range(2)]
+    cm = [SB.encrypt(g16, mp, pk64, x, batch=(64,)) for x in mm]
+    rec = SB.decrypt(mp, sk64, SB.mul(mp, rlk64, *cm, fast=True))
+    want = rn.naive_poly_mul(mm[0].cpu(), mm[1].cpu()) % 2
+    if not torch.equal(rec.cpu(), want):
+        raise RuntimeError("bfv mul at n=64 does not decrypt")
+    say("verify: bfv.mul (fast=True) at q=65537 n=64 t=2 B=64 (the "
+        "reference test's): decrypted == the exact product in all 64 x 64 "
+        "coefficients (plain transforms: below the kernels' n, in both "
+        "packages)")
+    gp = G.Param(G.ERR_SIGMA, RingParam(EN.Q, 128), 16, 32)
+    gshape = "q=65537 n=128 k=16"
+    with record_calls(k9_shapes, k9_seen, ("ntt",)):
+        gsk, gpk = G.new_key(g16, gp, dev, batch=(32,))
+        gm = prng.uniform_mod(g16, (32, 128), 32, dev)
+        for what, ct in (("encrypt", G.encrypt(g16, gp, gpk, G.encode(gp, gm),
+                                               batch=(32,))),
+                         ("encrypt_s", G.encrypt_s(g16, gp, gsk,
+                                                   G.encode(gp, gm),
+                                                   batch=(32,)))):
+            if not torch.equal(G.decode(gp, G.decrypt(gp, gsk, ct)), gm):
+                raise RuntimeError(f"glwe {what} at {gshape} does not "
+                                   "decrypt")
+        kp = G.Param(G.ERR_SIGMA, RingParam(EN.Q, 128), 16, 2)
+        s1, p1 = G.new_key(g16, kp, dev)
+        s2, _ = G.new_key(g16, kp, dev)
+        ksk = G.new_ksk(g16, kp, 2, 16, s1, s2)
+        km = prng.uniform_mod(g16, (32, 128), 2, dev)
+        kc = G.encrypt(g16, kp, p1, G.encode(kp, km), batch=(32,))
+    ks_label = f"glwe key_switch beta=2 l=16 at {gshape} t=2 B=32"
+    seen_before = k9_seen["ntt"]
+    with record_calls(k9_shapes, k9_seen, ("ntt",)):
+        kout = drive(ks_label, ("ntt",),
+                     lambda: G.key_switch(kp, 2, 16, ksk, kc))
+    if path_launches[ks_label]["ntt"] != k9_seen["ntt"] - seen_before:
+        raise RuntimeError("key_switch: a K9 launch went round the recorder")
+    if not torch.equal(G.decode(kp, G.decrypt(kp, s2, kout)), km):
+        raise RuntimeError("glwe key_switch does not decrypt under the new "
+                           "key")
+    say(f"verify: glwe at {gshape} t=32 B=32: encrypt and encrypt_s decrypt "
+        f"exactly; key_switch (beta=2, l=16, B=32, K9 at n=128) decrypts "
+        f"under the new key in all 32 x 128 coefficients")
+    cp16 = SC.Param(RingParam(EN.Q, 16), 8)
+    enc16 = Encoder(16, 512.0)
+    csk, cpk = SC.new_key(g16, cp16, dev, batch=(200,))
+    rng16 = np.random.default_rng(SEED + 13)
+    z16 = (rng16.integers(0, 8, (200, 8))
+           + 1j * rng16.integers(0, 8, (200, 8)))
+    cct = SC.encrypt(g16, cp16, cpk, torch.from_numpy(enc16.encode(z16)),
+                     batch=(200,))
+    zd = enc16.decode(SC.decrypt(cp16, csk, cct).cpu().numpy())
+    if not (np.array_equal(np.round(zd.real), z16.real)
+            and np.array_equal(np.round(zd.imag), z16.imag)):
+        raise RuntimeError("ckks encode -> encrypt -> decrypt -> decode at "
+                           "n=16 does not round to the slots")
+    say("verify: single-modulus ckks at q=65537 n=16 t=8 delta=512 B=200 "
+        "(the reference test's): encode -> encrypt -> decrypt -> decode "
+        "rounds to every slot")
+
+    # K9 against plain at every (shape, prime, direction) this phase
+    # launched, then its times at the entry's shape and the n = 128 one
+    for (name, *_), (kern, plain, args, kwargs) in k9_shapes.items():
+        hold(name, "slice 4 shape", kern(*args, **kwargs),
+             plain(*args, **kwargs))
+    torch.cuda.synchronize()
+    k9_sigs = sorted({(tuple(a[0].shape), a[1], kw.get("inverse", False))
+                      for kern, plain, a, kw in k9_shapes.values()})
+    say(f"parity: K9 == plain (torch.equal) at all {len(k9_shapes)} "
+        f"argument signatures this phase launched, {sum(k9_seen.values())} "
+        f"launches: (shape, q, inverse) {k9_sigs}")
+    busy = torch.zeros(1 << 28, dtype=torch.int32, device=dev)
+    k9_alone = {}
+    for what, shp, qs in (
+            ("entry [4, 1024]", (EN.BATCH, EN.N),
+             (EN.Q,) + ntt.CRT_PRIMES[:2]),
+            ("key_switch digits [32, 256, 128]", (32, 256, 128), (EN.Q,))):
+        for q in qs:
+            for inverse in (False, True):
+                x = prng.uniform_mod(g16, shp, q, dev)
+                case = kernel_check.ntt_case(
+                    f"slice 4 {what} q={q} {'inv' if inverse else 'fwd'}",
+                    x, q, inverse)
+                time_case(case)
+                a_ms = queued_ms(case.kernel, 20, busy)
+                b = bound(case.bytes, case.ops)
+                k9_alone[case.label] = (a_ms, b)
+                say(f"timing: ntt {case.label}: on the device alone "
+                    f"{a_ms:.4f} ms = {b.ms / a_ms:.4f} of its bound "
+                    f"{b.ms:.5f} ms by {b.term} [{card}]")
+    del busy
+    say(f"timing: entry mul at {eshape}: runs "
+        f"{[round(r, 3) for r in entry_runs]} ms (CUDA events), best "
+        f"{entry_ms:.3f} ms; {entry_k9} K9 launches of "
+        f"[{EN.BATCH}, {EN.N}] ({entry_k9 / max(entry_ms, 1e-9):.1f} a ms) "
+        f"[{card}]")
+    del es, eargs, eout, eout_cpu, t3, sk64, pk64, rlk64, cm, gsk, gpk, ksk
+    del kc, kout, csk, cpk, cct, k9_shapes
+    torch.cuda.empty_cache()
+    phase_done("16 (slice 4: Rq, BFV, GLWE over Z_q, CKKS, the entry)")
 
     launches = {k.name: sum(c[k.name] for c in path_launches.values())
                 for k in _cuda.KERNELS}

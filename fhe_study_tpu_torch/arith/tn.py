@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import modops, ntt
+from ..ops.modops import shr  # noqa: F401  (the torus code's logical shift)
 from ..utils.rounding import round_half_away
 
 _MASK32 = 0xFFFFFFFF
@@ -39,13 +40,6 @@ def as_torus(x, device=None):
         a = a.view(np.int64) if a.dtype == np.uint64 else a.astype(np.int64)
         t = torch.from_numpy(np.array(a))
     return t if device is None else t.to(device)
-
-
-def shr(a, k: int):
-    """Logical (unsigned) right shift of the u64 bits by a static 0 <= k < 64."""
-    if k == 0:
-        return a
-    return (a >> k) & ((1 << (64 - k)) - 1)
 
 
 # -- basic wrapping ops -----------------------------------------------------

@@ -208,6 +208,15 @@ extern "C" int fhe_ntt_multi(const uint32_t* x, uint32_t* out,
                                     tw, tw_sh, cons, B, use_fin, vec);
 }
 
+// K9 at n = 2^logn under the inverse flag: by_logn's degrees, and n = 2^7,
+// the least degree of the reference's ntt_u32, which K9 alone takes (a block
+// of 8 threads, two passes of 4 and 3 stages).
+template <int INV, typename... Args>
+int ntt_by_logn(int logn, Args... args) {
+  if (logn == 7) return NttLaunch<INV>::template run<7>(args...);
+  return by_logn<NttLaunch<INV>>(logn, args...);
+}
+
 // K9 on [B, n] int64 words under the one prime of cons (its fin n^-1 for
 // the inverse); vec as for fhe_ntt_multi.
 extern "C" int fhe_ntt(const long long* x, long long* out, const uint32_t* tw,
@@ -218,9 +227,9 @@ extern "C" int fhe_ntt(const long long* x, long long* out, const uint32_t* tw,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (inverse) {
-    return by_logn<NttLaunch<1>>(logn, threads, smem, B, stream, x, out, tw,
-                                 tw_sh, cons, B, vec);
+    return ntt_by_logn<1>(logn, threads, smem, B, stream, x, out, tw, tw_sh,
+                          cons, B, vec);
   }
-  return by_logn<NttLaunch<0>>(logn, threads, smem, B, stream, x, out, tw,
-                               tw_sh, cons, B, vec);
+  return ntt_by_logn<0>(logn, threads, smem, B, stream, x, out, tw, tw_sh,
+                        cons, B, vec);
 }

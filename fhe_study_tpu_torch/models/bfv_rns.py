@@ -8,7 +8,7 @@ modulus drop.
 Residues are int32 tensors [L, ..., N] with the limb axis leading, row i
 modulo qs[i] (every prime is below 2^30, so the bits equal the reference's
 u32).  Each random function is a deterministic core (``*_with``) fed with its
-draws, and a sampling wrapper on an explicit ``torch.Generator``; the cores
+draws, and a sampling wrapper on an explicit ``prng.Gen``; the cores
 reproduce the reference bit for bit on the same draws.
 
 Divergences kept from the reference (the port reproduces them):
@@ -153,7 +153,7 @@ def new_key_with(param: RnsParam, s, a, e):
     return SecretKey(s_evals), PublicKey(b=b, a=a)
 
 
-def new_key(gen: torch.Generator, param: RnsParam, device):
+def new_key(gen: prng.Gen, param: RnsParam, device):
     k_s, k_a, k_e = prng.split(gen, 3)
     shp = (param.n,)
     return new_key_with(param, prng.binary(k_s, shp, device),
@@ -183,7 +183,7 @@ def _gadget_key(param: RnsParam, target, s, a, e) -> RLK:
     return RLK(b=b, a=ea)
 
 
-def _gadget_draws(gen: torch.Generator, param: RnsParam, device):
+def _gadget_draws(gen: prng.Gen, param: RnsParam, device):
     """(a, e) of a gadget key: the reference draws a as [L_primes, L_rows,
     n] in one sampler call and swaps the two leading axes."""
     k_a, k_e = prng.split(gen, 2)
@@ -200,7 +200,7 @@ def rlk_key_with(param: RnsParam, sk: SecretKey, a, e) -> RLK:
     return _gadget_key(param, mulmod_v(sq, sq, qv), sq, a, e)
 
 
-def rlk_key(gen: torch.Generator, param: RnsParam, sk: SecretKey) -> RLK:
+def rlk_key(gen: prng.Gen, param: RnsParam, sk: SecretKey) -> RLK:
     return rlk_key_with(param, sk,
                         *_gadget_draws(gen, param, sk.s_evals.device))
 
@@ -213,7 +213,7 @@ def ksk_key_with(param: RnsParam, sk_old: SecretKey, sk_new: SecretKey, a,
     return _gadget_key(param, sk_old.s_evals[:L], sk_new.s_evals[:L], a, e)
 
 
-def ksk_key(gen: torch.Generator, param: RnsParam, sk_old: SecretKey,
+def ksk_key(gen: prng.Gen, param: RnsParam, sk_old: SecretKey,
             sk_new: SecretKey) -> RLK:
     return ksk_key_with(param, sk_old, sk_new,
                         *_gadget_draws(gen, param, sk_new.s_evals.device))
@@ -238,7 +238,7 @@ def hybrid_rlk1_with(param: RnsParam, sk: SecretKey, a, e, K: int = 2):
     return HRLK(b=b, a=ea)
 
 
-def hybrid_rlk1(gen: torch.Generator, param: RnsParam, sk: SecretKey,
+def hybrid_rlk1(gen: prng.Gen, param: RnsParam, sk: SecretKey,
                 K: int = 2) -> HRLK:
     device = sk.s_evals.device
     both = param.qs + H.ks_ext_primes(param, K)
@@ -276,7 +276,7 @@ def encrypt_with(param: RnsParam, pk: PublicKey, m, u, e0, e1) -> CT:
     return CT(c0, c1)
 
 
-def encrypt(gen: torch.Generator, param: RnsParam, pk: PublicKey, m,
+def encrypt(gen: prng.Gen, param: RnsParam, pk: PublicKey, m,
             batch=()) -> CT:
     device = pk.b.device
     shp = tuple(batch) + (param.n,)

@@ -1,4 +1,5 @@
-"""CKKS: the host encoder, the device encoder and RNS-CKKS — the ported part
-of fhe_study_tpu/models/ckks/."""
+"""CKKS: the host encoder, the device encoder, single-modulus CKKS
+(``ckks``) and RNS-CKKS — the counterpart of fhe_study_tpu/models/ckks/."""
 
 from .encoder import Encoder  # noqa: F401
+from . import ckks  # noqa: F401

@@ -9,7 +9,7 @@ first limbs, decode back through the FFT.
 
 Residues are int32 tensors [L, ..., N]; slots and coefficients float64 /
 int64.  Each function that draws has a deterministic core (``*_with``) fed
-with its draws and a sampling wrapper on an explicit ``torch.Generator``;
+with its draws and a sampling wrapper on an explicit ``prng.Gen``;
 the cores reproduce the reference bit for bit on the same draws.  The scale
 ``delta`` is a Python float updated by the reference's own expressions.
 """
@@ -76,7 +76,7 @@ def new_key_with(param: Param, s, a, e):
             PublicKey(b=_submod_v(_to_residues(e, qs), a_s, qv), a=a))
 
 
-def new_key(gen: torch.Generator, param: Param, device, batch=(),
+def new_key(gen: prng.Gen, param: Param, device, batch=(),
             h: int | None = None):
     """h: optional secret Hamming weight (sparse ternary, the CKKS
     bootstrapping convention, see prng.sparse_ternary).  Default: dense
@@ -113,7 +113,7 @@ def encrypt_with(param: Param, pk: PublicKey, m_res, u, e0, e1) -> CT:
     return CT(c0, c1)
 
 
-def encrypt(gen: torch.Generator, param: Param, pk: PublicKey, m_res,
+def encrypt(gen: prng.Gen, param: Param, pk: PublicKey, m_res,
             batch=()) -> CT:
     device = pk.b.device
     shp = tuple(batch) + (param.n,)
@@ -212,7 +212,7 @@ def hybrid_rlk_with(param: Param, sk: SecretKey, a, e, K: int = 2):
     return hybrid_ks.hybrid_ksk_with(param, *_s2(param, sk), a, e, K=K)
 
 
-def hybrid_rlk(gen: torch.Generator, param: Param, sk: SecretKey, K: int = 2):
+def hybrid_rlk(gen: prng.Gen, param: Param, sk: SecretKey, K: int = 2):
     """P-extended relinearization key: encrypts P*g_i*s^2 under s.  Noise
     after the switch is ~1 unit (against ~2^36 for the plain RNS gadget at
     30-bit primes): required for chained multiplications at delta ~ 2^30."""
@@ -287,7 +287,7 @@ def rlk_key_with(param: Param, sk: SecretKey, a, e):
     return bfv_rns.rlk_key_with(_bfv_param(param), sk, a, e)
 
 
-def rlk_key(gen: torch.Generator, param: Param, sk: SecretKey):
+def rlk_key(gen: prng.Gen, param: Param, sk: SecretKey):
     """RNS-gadget relinearization key (shared machinery with RNS-BFV)."""
     return bfv_rns.rlk_key(gen, _bfv_param(param), sk)
 

@@ -36,6 +36,7 @@ import torch
 
 from ...ops import modops32
 from ...ops.ntt import _addmod_v, _qvec, intt_multi, ntt_multi
+from ...utils import prng
 from .. import galois, hybrid_ks
 from ..bfv_rns import _to_residues
 from . import ckks_rns, encoder_device
@@ -50,7 +51,7 @@ class RotKeys:
         self.keys = dict(keys)        # (L, g) -> HybridKSK
 
     @classmethod
-    def build(cls, gen: torch.Generator, param, sk, steps, conj: bool = True,
+    def build(cls, gen: prng.Gen, param, sk, steps, conj: bool = True,
               K: int = 2, min_L: int = 2, levels=None):
         """Keys for every level in ``levels`` (default min_L .. param.L),
         each drawn from ``gen`` in turn."""

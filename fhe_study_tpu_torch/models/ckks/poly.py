@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ...ops.ntt import _addmod_v, _qvec
+from ...utils import prng
 from ..bfv_rns import _bcast_mid, _to_residues
 from . import ckks_rns, encoder_device
 
@@ -37,7 +38,7 @@ def level_drop(param, ct, L2: int):
     return ckks_rns.CT(ct.c0[:L2], ct.c1[:L2]), p2
 
 
-def rlk_keys_all_levels(gen: torch.Generator, param, sk, min_L: int = 2,
+def rlk_keys_all_levels(gen: prng.Gen, param, sk, min_L: int = 2,
                         K: int = 2) -> dict:
     """HYBRID relinearization keys for every level L in [min_L, param.L]
     (the RNS gadget is basis-dependent; the dropped primes above each level

@@ -135,7 +135,7 @@ def galois_key_with(param, sk, g: int, a, e) -> "bfv_rns.RLK":
         bfv_rns.SecretKey(sk.s_evals[:param.L]), a, e)
 
 
-def galois_key(gen: torch.Generator, param, sk, g: int) -> "bfv_rns.RLK":
+def galois_key(gen: prng.Gen, param, sk, g: int) -> "bfv_rns.RLK":
     """Key-switching key phi_g(s) -> s (a "Galois key").
 
     ``param`` needs .qs/.L/.n (bfv_rns.RnsParam and ckks_rns.Param both fit);
@@ -188,7 +188,7 @@ class GaloisKeys:
         self.keys = dict(keys)
 
     @classmethod
-    def for_rotations(cls, gen: torch.Generator, param, sk, steps=None,
+    def for_rotations(cls, gen: prng.Gen, param, sk, steps=None,
                       conj: bool = False):
         """Build keys for the given rotation steps (default: +/- powers of
         two — enough to compose any rotation)."""

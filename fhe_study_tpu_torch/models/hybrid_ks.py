@@ -94,7 +94,7 @@ def hybrid_ksk_with(param, s_old_evals, s_new_evals, a, e,
     return HybridKSK(b=b.contiguous(), a=ea.contiguous())
 
 
-def _ksk_draws(gen: torch.Generator, param, K: int, device):
+def _ksk_draws(gen: prng.Gen, param, K: int, device):
     """(a, e) of a hybrid key: as the reference, a is drawn [L+K, L_rows, n]
     in one sampler call and its two leading axes are swapped."""
     both = param.qs + ks_ext_primes(param, K)
@@ -104,7 +104,7 @@ def _ksk_draws(gen: torch.Generator, param, K: int, device):
             prng.gaussian_int(k_e, shp, bfv_rns.ERR_SIGMA, device))
 
 
-def hybrid_ksk(gen: torch.Generator, param, s_old_evals, s_new_evals,
+def hybrid_ksk(gen: prng.Gen, param, s_old_evals, s_new_evals,
                K: int = 2) -> HybridKSK:
     return hybrid_ksk_with(param, s_old_evals, s_new_evals,
                            *_ksk_draws(gen, param, K, s_new_evals.device),
@@ -130,9 +130,9 @@ def seed_of(master: int, tag: str, *labels: int) -> int:
 
 def _seeded_mask(param, ka_seed: int, K: int, device):
     """The mask draw of a seeded key, [L+K, L_rows, n] (see _ksk_draws)."""
-    return prng.seeded_uniform_mod_multi(
-        ka_seed, (param.L, param.n), param.qs + ks_ext_primes(param, K),
-        device)
+    return prng.uniform_mod_multi(
+        prng.Gen(ka_seed), (param.L, param.n),
+        param.qs + ks_ext_primes(param, K), device)
 
 
 def seeded_draws(param, seeds: tuple, K: int, device):
@@ -140,8 +140,8 @@ def seeded_draws(param, seeds: tuple, K: int, device):
     a stream keyed by all of its bits: as _ksk_draws lays them out."""
     ka_seed, ke_seed = seeds
     return (_seeded_mask(param, ka_seed, K, device).transpose(0, 1),
-            prng.seeded_gaussian_int(ke_seed, (param.L, param.n),
-                                     bfv_rns.ERR_SIGMA, device))
+            prng.gaussian_int(prng.Gen(ke_seed), (param.L, param.n),
+                              bfv_rns.ERR_SIGMA, device))
 
 
 def expand_a(param, ka_seed: int, K: int, device):
@@ -223,7 +223,7 @@ def galois_key_hybrid_with(param, sk, g: int, a, e, K: int = 2) -> HybridKSK:
     return hybrid_ksk_with(param, *_rotated_evals(param, sk, g), a, e, K=K)
 
 
-def galois_key_hybrid(gen: torch.Generator, param, sk, g: int,
+def galois_key_hybrid(gen: prng.Gen, param, sk, g: int,
                       K: int = 2) -> HybridKSK:
     """Hybrid Galois key: phi_g(s) -> s with P-suppressed noise."""
     return hybrid_ksk(gen, param, *_rotated_evals(param, sk, g), K=K)

@@ -92,7 +92,7 @@ def new_bootstrapping_key_with(param: Param, s_tglwe, s_lwe_out, btk_draws,
         ksk_draws, beta, l, beta_ks, l_ks))
 
 
-def new_bootstrapping_key(gen: torch.Generator, param: Param, s_tglwe,
+def new_bootstrapping_key(gen: prng.Gen, param: Param, s_tglwe,
                           beta: int = 2, l: int = 64,
                           beta_ks: int = 2, l_ks: int = 64,
                           s_lwe_out=None):
@@ -203,7 +203,7 @@ def new_short_bootstrapping_key_with(param: Param, s_tglwe, s_short,
         beta_ks, l_ks))
 
 
-def new_short_bootstrapping_key(gen: torch.Generator, param: Param, s_tglwe,
+def new_short_bootstrapping_key(gen: prng.Gen, param: Param, s_tglwe,
                                 n_lwe: int, beta: int = 256, l: int = 3,
                                 beta_ks: int = 16, l_ks: int = 8
                                 ) -> ShortBootstrappingKey:

@@ -19,6 +19,7 @@ from ...arith import tn
 from ...arith.ring import TorusRing
 from ...ops import modops, ntt
 from ...ops.modops32 import qvec
+from ...utils import prng
 from ..gfhe import glwe as G
 from ..gfhe.glwe import GLWE, Param
 from .tlwe import TORUS_MAX, _tlev_scales
@@ -49,14 +50,14 @@ def _tglev_msgs(beta: int, l: int, m, device):
     return tn.as_torus(m, device)[..., None, :] * scales[:, None]  # [.., l, N]
 
 
-def tglev_encrypt_s(gen: torch.Generator, param: Param, beta: int, l: int, s,
+def tglev_encrypt_s(gen: prng.Gen, param: Param, beta: int, l: int, s,
                     m, batch=()) -> TGLev:
     ct = G.encrypt_s(gen, param, s, _tglev_msgs(beta, l, m, s.device),
                      batch=tuple(batch) + (l,))
     return TGLev(a=ct.a, b=ct.b)
 
 
-def tglev_encrypt(gen: torch.Generator, param: Param, beta: int, l: int, pk,
+def tglev_encrypt(gen: prng.Gen, param: Param, beta: int, l: int, pk,
                   m, batch=()) -> TGLev:
     ct = G.encrypt(gen, param, pk, _tglev_msgs(beta, l, m, pk.b.device),
                    batch=tuple(batch) + (l,))
@@ -96,7 +97,7 @@ def encrypt_s_with(param: Param, beta: int, l: int, s, m, a, e) -> TGGSW:
     return TGGSW(a=ct.a, b=ct.b)
 
 
-def encrypt_s(gen: torch.Generator, param: Param, beta: int, l: int, s, m,
+def encrypt_s(gen: prng.Gen, param: Param, beta: int, l: int, s, m,
               batch=()) -> TGGSW:
     """One batched GLWE encryption over the (K+1, l) grid."""
     ct = G.encrypt_s(gen, param, s, _row_msgs(param, beta, l, s, m),

@@ -11,6 +11,7 @@ import torch
 
 from ...arith import tn
 from ...ops import modops
+from ...utils import prng
 from ..gfhe import glwe as G
 from ..gfhe.glwe import GLWE, Param
 from . import tlwe as tlwe_mod
@@ -29,7 +30,7 @@ def sk_to_tglwe(s, k: int, n: int):
     return s.reshape(s.shape[:-1] + (k, n))
 
 
-def new_key(gen: torch.Generator, param: Param, device, batch=()):
+def new_key(gen: prng.Gen, param: Param, device, batch=()):
     """Sample a TLWE key of length K·N, reinterpret it as K polys, derive
     the public key."""
     s_flat, _ = tlwe_mod.new_key(gen, param.lwe(), device, batch=batch)
@@ -56,11 +57,11 @@ def from_plaintext(param: Param, p):
     return G.from_plaintext(param, p)
 
 
-def encrypt_s(gen: torch.Generator, param: Param, s, p, batch=()):
+def encrypt_s(gen: prng.Gen, param: Param, s, p, batch=()):
     return G.encrypt_s(gen, param, s, p, batch=batch)
 
 
-def encrypt(gen: torch.Generator, param: Param, pk, p, batch=()):
+def encrypt(gen: prng.Gen, param: Param, pk, p, batch=()):
     return G.encrypt(gen, param, pk, p, batch=batch)
 
 

@@ -35,7 +35,7 @@ def encrypt_s_with(param: Param, beta: int, l: int, s, m, a, e) -> TGSW:
     return TGSW(a=a, b=b)
 
 
-def encrypt_s(gen: torch.Generator, param: Param, beta: int, l: int, s, m,
+def encrypt_s(gen: prng.Gen, param: Param, beta: int, l: int, s, m,
               batch=()) -> TGSW:
     """One batched encryption over the (kn+1, l) grid."""
     shape = tuple(batch) + (param.kn + 1, l)

@@ -13,6 +13,7 @@ import torch
 
 from ...arith import tn
 from ...ops import modops
+from ...utils import prng
 from ..gfhe.glwe import Param
 from . import tlwe as tlwe_mod
 from .tlwe import TLWE, TORUS_MAX, _tlev_scales
@@ -39,14 +40,14 @@ def _encrypt_impl(enc, l, beta, m, batch, device):
     return TLev(a=ct.a, b=ct.b)
 
 
-def encrypt(gen: torch.Generator, param: Param, beta: int, l: int, pk, m,
+def encrypt(gen: prng.Gen, param: Param, beta: int, l: int, pk, m,
             batch=()) -> TLev:
     return _encrypt_impl(
         lambda p, sh: tlwe_mod.encrypt(gen, param, pk, p, batch=sh),
         l, beta, m, batch, pk.b.device)
 
 
-def encrypt_s(gen: torch.Generator, param: Param, beta: int, l: int, s, m,
+def encrypt_s(gen: prng.Gen, param: Param, beta: int, l: int, s, m,
               batch=()) -> TLev:
     return _encrypt_impl(
         lambda p, sh: tlwe_mod.encrypt_s(gen, param, s, p, batch=sh),

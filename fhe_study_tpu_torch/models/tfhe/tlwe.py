@@ -58,7 +58,7 @@ def new_key_with(param: Param, s, a, e):
     return s, PublicKey(b=(a * s).sum(-1) + e, a=a)
 
 
-def new_key(gen: torch.Generator, param: Param, device, batch=()):
+def new_key(gen: prng.Gen, param: Param, device, batch=()):
     """s <- bits^kn; pk = (a·s + e, a)."""
     shape = tuple(batch) + (param.kn,)
     s = prng.binary(gen, shape, device)
@@ -90,7 +90,7 @@ def _encrypt_with(s, p, a, e) -> TLWE:
     return TLWE(a=a, b=(a * s).sum(-1) + _torus(p, s) + e)
 
 
-def encrypt_s(gen: torch.Generator, param: Param, s, p, batch=()) -> TLWE:
+def encrypt_s(gen: prng.Gen, param: Param, s, p, batch=()) -> TLWE:
     """Secret-key encrypt with the reference's BINARY mask quirk; see
     encrypt_uniform for the standard LWE encryption."""
     a = prng.binary(gen, tuple(batch) + (param.kn,), s.device)
@@ -103,7 +103,7 @@ def encrypt_uniform_with(param: Param, s, p, a, e) -> TLWE:
     return _encrypt_with(s, p, a, e)
 
 
-def encrypt_uniform(gen: torch.Generator, param: Param, s, p,
+def encrypt_uniform(gen: prng.Gen, param: Param, s, p,
                     batch=()) -> TLWE:
     """Standard LWE secret-key encryption: a <- U(T^kn)."""
     a = prng.uniform_u64(gen, tuple(batch) + (param.kn,), s.device)
@@ -111,7 +111,7 @@ def encrypt_uniform(gen: torch.Generator, param: Param, s, p,
     return _encrypt_with(s, p, a, e)
 
 
-def encrypt(gen: torch.Generator, param: Param, pk: PublicKey, p,
+def encrypt(gen: prng.Gen, param: Param, pk: PublicKey, p,
             batch=()) -> TLWE:
     """Public-key encrypt: u a scalar bit, b = pk.b*u + p + e0,
     a = pk.a*u + e1."""
@@ -167,7 +167,7 @@ def new_ksk_with(param: Param, beta: int, l: int, s_src, s_dst, a, e) -> KSK:
     return KSK(a=a, b=b)
 
 
-def new_ksk(gen: torch.Generator, param: Param, beta: int, l: int, s_src,
+def new_ksk(gen: prng.Gen, param: Param, beta: int, l: int, s_src,
             s_dst, batch=(), uniform_mask: bool = False) -> KSK:
     """KSK[i] = TLev_s_dst(s_src_i), levels i=1..l, as ONE batched
     encryption over the (kn_src, l) grid.  Source and destination dimensions

@@ -312,12 +312,13 @@ def aligned(t: torch.Tensor) -> bool:
 
 
 MIN_LOG_N, MAX_LOG_N = 8, 14      # by_logn's range, csrc/radix_chain.cuh
+K9_MIN_LOG_N = 7                  # K9 alone also takes n = 2^7 (fhe_ntt)
 
 
-def log2_degree(n: int) -> int:
-    """log2 n for the ring degrees the kernels support (2^8 .. 2^14)."""
+def log2_degree(n: int, min_logn: int = MIN_LOG_N) -> int:
+    """log2 n for the ring degrees a kernel supports (2^min_logn .. 2^14)."""
     logn = n.bit_length() - 1
-    if n != 1 << logn or not MIN_LOG_N <= logn <= MAX_LOG_N:
-        raise ValueError(f"ring degree {n}: the CUDA kernels support "
-                         "n = 2^8 .. 2^14")
+    if n != 1 << logn or not min_logn <= logn <= MAX_LOG_N:
+        raise ValueError(f"ring degree {n}: the CUDA kernel supports "
+                         f"n = 2^{min_logn} .. 2^{MAX_LOG_N}")
     return logn

@@ -12,7 +12,13 @@ launch the kernels of ops/ntt_cuda.py, CPU tensors run their plain PyTorch
 versions there.  Names and return contracts are the reference's.
 
 The single-prime ``ntt`` / ``intt`` / ``negacyclic_mul`` take int64 [..., n]
-values in [0, q) and return the same, like the reference's u64 functions.
+values in [0, q), any q < 2^63, and return the same, like the reference's
+u64 functions.  They launch K9 on the card exactly where the reference
+launches its Pallas kernel (``k9_gate``); elsewhere both devices run the
+reference's stage loop on the wide modular product of ops/modops.py.  The
+cyclic transforms (``ntt_cyclic``, the four-step building block) and the
+exact integer products by CRT (``polymul_i64_crt``,
+``negacyclic_conv_crt_u64``) sit on them.
 """
 
 from functools import lru_cache
@@ -20,7 +26,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from . import _cuda, ntt_cuda
+from . import _cuda, modops, ntt_cuda
 from .modops32 import (addmod as _addmod_v, qvec as _qvec,  # noqa: F401
                        submod as _submod_v)
 
@@ -82,13 +88,58 @@ CRT_PRIMES = (2013265921, 1811939329, 469762049)
 CRT_PRIMES_TFHE = (998244353, 754974721)
 
 
+def k9_gate(q: int, n: int) -> bool:
+    """Whether the reference sends a single-prime transform to its Pallas
+    kernel (``_pallas_ok`` of fhe_study_tpu/ops/ntt.py): q < 2^31 and n a
+    multiple of 128.  The port launches K9 there (up to n = 2^14; above it
+    the card raises)."""
+    return q < (1 << 31) and n >= 128 and n % 128 == 0
+
+
+@lru_cache(maxsize=None)
+def _stage_roots(q: int, n: int, inverse: bool, device) -> torch.Tensor:
+    plan = get_plan(q, n)
+    return torch.from_numpy((plan.roots_inv if inverse else plan.roots)
+                            .astype(np.int64)).to(device)
+
+
+def _stage_loop(a, q: int, inverse: bool):
+    """The reference's XLA stage loop on int64 [..., n] with the modular
+    product of ops/modops.py (any q < 2^63); the inverse times n^-1."""
+    plan = get_plan(q, a.shape[-1])
+    roots = _stage_roots(q, a.shape[-1], inverse, a.device)
+    n, batch = a.shape[-1], tuple(a.shape[:-1])
+    r = a
+    t, m = (1, n // 2) if inverse else (n // 2, 1)
+    while (m > 0) if inverse else (m < n):
+        r = r.reshape(batch + (m, 2, t))
+        u, v = r[..., 0, :], r[..., 1, :]
+        s = roots[m:2 * m, None]
+        if inverse:
+            r = torch.stack([modops.addmod(u, v, q),
+                             modops.mulmod(modops.submod(u, v, q), s, q)], -2)
+            t, m = t * 2, m // 2
+        else:
+            v = modops.mulmod(v, s, q)
+            r = torch.stack([modops.addmod(u, v, q),
+                             modops.submod(u, v, q)], -2)
+            t, m = t // 2, m * 2
+    r = r.reshape(a.shape)
+    return modops.mulmod(r, plan.n_inv, q) if inverse else r
+
+
 def _single(a, q: int, inverse: bool):
-    if a.shape[-1] == 1:
+    n = a.shape[-1]
+    if n == 1:
         return a
-    if _cuda.on_cuda(a):
-        # raises for q >= 2^31 or n outside 2^8 .. 2^14, as every kernel does
+    if k9_gate(q, n) and _cuda.on_cuda(a):
+        # raises for n above 2^14, as every kernel does
         return ntt_cuda.ntt_kernel(a.contiguous(), q, inverse=inverse)
-    return ntt_cuda.ntt_plain(a, q, inverse=inverse)
+    # Everywhere else the plain stage loop: K9's plain version on the CPU,
+    # and outside the gate, where the reference runs XLA's stage loop, the
+    # counterpart on both devices, not a fallback: the rule is fixed by
+    # (q, n) and the device, never by an error.
+    return _stage_loop(a.long(), q, inverse)
 
 
 def ntt(a, q: int):
@@ -104,18 +155,22 @@ def intt(a, q: int):
 
 def negacyclic_mul(a, b, q: int):
     """Polynomial product in Z_q[X]/(X^n+1): NTT, pointwise, INTT."""
-    return intt(ntt(a, q) * ntt(b, q) % q, q)
+    return intt(modops.mulmod(ntt(a, q), ntt(b, q), q), q)
 
 
 def crt_lift_centered(r1, r2, p1: int, p2: int):
     """The integer in (-p1*p2/2, p1*p2/2] with residues r1 mod p1 and r2 mod
     p2 (Garner), as int64 (p1*p2 < 2^62).  Every value is below 2^62, so the
     signed compare is the reference's unsigned one."""
-    inv = pow(p1, -1, p2)
-    delta = (r2 - r1 % p2) % p2 * inv % p2
-    g = r1 + p1 * delta                       # in [0, p1*p2)
+    g = garner(r1, r2, p1, p2)
     m = p1 * p2
     return torch.where(g > m // 2, g - m, g)
+
+
+def garner(r1, r2, p1: int, p2: int):
+    """The integer in [0, p1*p2) with residues r1 mod p1 and r2 mod p2."""
+    delta = (r2 - r1 % p2) % p2 * pow(p1, -1, p2) % p2
+    return r1 + p1 * delta
 
 
 def mulmod_v(a, b, qv):
@@ -217,3 +272,96 @@ def ks_fused_eval(c_limbs, kb, ka, primes: tuple, src_primes: tuple, adds):
           if _cuda.on_cuda(c_limbs, kb, ka, *adds)
           else ntt_cuda.ks_fused_eval_plain)
     return fn(c_limbs, kb, ka, primes, src_primes, adds)
+
+
+# -- the cyclic NTT, natural order (the four-step NTT's building block: the
+# negacyclic transform is a psi twist and a cyclic transform) --------------
+
+class CyclicPlan:
+    """Tables of a natural-order iterative cyclic NTT of size n over Z_q:
+    stage s (length 2^(s+1)) multiplies by w^((n / 2^(s+1)) j), j < 2^s."""
+
+    def __init__(self, q: int, n: int, w: int | None = None):
+        assert n & (n - 1) == 0, "n must be a power of two"
+        self.q, self.n = q, n
+        self.w = w if w is not None else _primitive_root_of_unity(q, n)
+        logn = n.bit_length() - 1
+        self.bitrev = _bit_reverse_perm(logn)
+        w_inv = pow(self.w, q - 2, q)
+        self.tw, self.tw_inv = (
+            [np.array([pow(r, (n >> (s + 1)) * j, q) for j in range(1 << s)],
+                      np.uint64) for s in range(logn)]
+            for r in (self.w, w_inv))
+        self.n_inv = pow(n, q - 2, q)
+
+
+@lru_cache(maxsize=None)
+def get_cyclic_plan(q: int, n: int, w: int | None = None) -> CyclicPlan:
+    """w: an explicit n-th root (the four-step decomposition needs the inner
+    transforms on powers of the outer root)."""
+    return CyclicPlan(q, n, w)
+
+
+def _ntt_cyclic_stages(a, q: int, tws):
+    """Iterative DIT on bit-reversed input, natural-order output."""
+    n, batch = a.shape[-1], tuple(a.shape[:-1])
+    r = a
+    for s in range(n.bit_length() - 1):
+        half = 1 << s
+        r = r.reshape(batch + (n // (2 * half), 2, half))
+        u = r[..., 0, :]
+        tw = torch.from_numpy(tws[s].astype(np.int64)).to(a.device)
+        v = modops.mulmod(r[..., 1, :], tw, q)
+        r = torch.stack([modops.addmod(u, v, q), modops.submod(u, v, q)],
+                        -2).reshape(batch + (n // (2 * half), 2 * half))
+    return r.reshape(a.shape)
+
+
+def ntt_cyclic(a, q: int, w: int | None = None):
+    """Cyclic DFT over Z_q in natural index order (the points of X^n - 1);
+    a int64 [..., n] in [0, q).  Plain torch on every device: the
+    reference has no kernel for it."""
+    n = a.shape[-1]
+    if n == 1:
+        return a
+    plan = get_cyclic_plan(q, n, w)
+    return _ntt_cyclic_stages(a[..., torch.from_numpy(plan.bitrev)], q,
+                              plan.tw)
+
+
+def intt_cyclic(a, q: int, w: int | None = None):
+    """The inverse of ntt_cyclic, times n^-1."""
+    n = a.shape[-1]
+    if n == 1:
+        return a
+    plan = get_cyclic_plan(q, n, w)
+    r = _ntt_cyclic_stages(a[..., torch.from_numpy(plan.bitrev)], q,
+                           plan.tw_inv)
+    return modops.mulmod(r, plan.n_inv, q)
+
+
+# -- exact integer negacyclic products by CRT over CRT_PRIMES[:2] ------------
+
+def negacyclic_conv_crt_u64(a, b, num_primes: int = 2):
+    """Exact negacyclic convolution of non-negative u64 values (int64 bits)
+    whose result lies in [0, p1 p2); returns int64."""
+    if num_primes != 2:
+        raise ValueError("the CRT convolution takes two primes")
+    p1, p2 = CRT_PRIMES[:2]
+    r1 = negacyclic_mul(modops.coerce_u64(a, p1), modops.coerce_u64(b, p1),
+                        p1)
+    r2 = negacyclic_mul(modops.coerce_u64(a, p2), modops.coerce_u64(b, p2),
+                        p2)
+    return garner(r1, r2, p1, p2)
+
+
+def polymul_i64_crt(a, b):
+    """Exact negacyclic product of signed int64 coefficient tensors by the
+    2-prime CRT; |c_k| < p1 p2 / 2 ~ 2^60.7 is the caller's.  Returns int64,
+    centered."""
+    p1, p2 = CRT_PRIMES[:2]
+    r1 = negacyclic_mul(modops.coerce_i64(a, p1), modops.coerce_i64(b, p1),
+                        p1)
+    r2 = negacyclic_mul(modops.coerce_i64(a, p2), modops.coerce_i64(b, p2),
+                        p2)
+    return crt_lift_centered(r1, r2, p1, p2)

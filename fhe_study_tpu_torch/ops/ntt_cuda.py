@@ -300,15 +300,16 @@ def ntt_multi_kernel(x, qs: tuple, inverse: bool = False, fin=None):
 
 def ntt_kernel(x, q: int, inverse: bool = False):
     """K9: K1's kernel on int64 words, one block per polynomial of the flat
-    batch (``_radix_plan``); x int64 [..., n] with values in [0, q), q <
-    2^31, read as 16-byte vectors by the inverse when x is 16-byte aligned
-    and word by word otherwise.  Returns int64 of the same shape."""
+    batch (``_radix_plan``); x int64 [..., n], n = 2^7 .. 2^14, with values
+    in [0, q), q < 2^31, read as 16-byte vectors by the inverse when x is
+    16-byte aligned and word by word otherwise.  Returns int64 of the same
+    shape."""
     dev = x.device
     _cuda.check(x, "x", dev, dtype=torch.int64)
     if not 1 < q < (1 << 31):
         raise ValueError(f"modulus {q}: the kernel needs q < 2^31")
     n = x.shape[-1]
-    logn = _cuda.log2_degree(n)
+    logn = _cuda.log2_degree(n, _cuda.K9_MIN_LOG_N)
     out = torch.empty_like(x)
     B = x.numel() // n
     if B == 0:

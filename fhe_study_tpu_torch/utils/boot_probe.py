@@ -29,6 +29,7 @@ from ..models.ckks import bootstrap as BB
 from ..models.ckks import ckks_rns as C
 from ..models.ckks import eval as ev
 from ..models.ckks import poly as P
+from . import prng
 
 
 def config(n: int, *, L=None, delta0=2.0 ** 45, delta_w=2.0 ** 60, deg=30,
@@ -55,7 +56,7 @@ def setup(cfg: dict, batch: int, device, seed: int = 0) -> dict:
     base_limbs limbs, the key set and the staged bootstrap."""
     n = cfg["n"]
     param = C.Param(n=n, L=cfg["L"], delta=cfg["delta0"])
-    gen = torch.Generator().manual_seed(seed)
+    gen = prng.Gen(seed)
     sk, pk = C.new_key(gen, param, device, h=cfg["h"])
     z = np.random.default_rng(seed).uniform(-1, 1, (batch, n // 2))
     zt = torch.from_numpy(z).to(device)

@@ -15,8 +15,12 @@ are), so the int32 bits equal the u32 ones; anything else raises.
 The torus schemes' tuples (``TLWE``, ``GLWE``, ``TGGSW``, ``TGGSWEvals``,
 the TLWE ``KSK``, ``BootstrappingKey``, ``ShortBootstrappingKey``) hold u64
 torus words and, in ``TGGSWEvals``, u32 words that span the whole range (the
-Shoup planes): ``bits_to_tensor`` carries those bit for bit (uint64 -> int64,
-uint32 -> int32, a numpy ``view``), and ``bits_to_numpy`` brings them back.
+Shoup planes); the single-modulus schemes' (``bfv.SecretKey``,
+``PublicKey``, ``RLK``, ``RLWE``; ``ckks.SecretKey``, ``PublicKey``, ``CT``;
+the Z_q ``glwe.GLev`` and ``KSK``) hold u64 residues, the relinearization
+key's above 2^31.  ``bits_to_tensor`` carries all of those bit for bit
+(uint64 -> int64, uint32 -> int32, a numpy ``view``), and ``bits_to_numpy``
+brings them back.
 
 The CKKS evaluation state crosses by ``rot_keys_to_port`` (a ``RotKeys``),
 ``rlks_to_port`` (a per-level relinearization key dict),
@@ -28,8 +32,8 @@ port's ``bootstrap.FrozenKeys`` beside the same static).
 import numpy as np
 import torch
 
-from ..models import bfv_rns, hybrid_ks
-from ..models.ckks import ckks_rns
+from ..models import bfv, bfv_rns, hybrid_ks
+from ..models.ckks import ckks, ckks_rns
 from ..models.ckks import eval as ckks_eval
 from ..models.gfhe import glwe
 from ..models.tfhe import bootstrap, tggsw, tlwe
@@ -44,10 +48,13 @@ KINDS = {_key(k): k for k in (
     bfv_rns.SecretKey, bfv_rns.PublicKey, bfv_rns.RLK, bfv_rns.HRLK,
     bfv_rns.CT, bfv_rns.CTE, ckks_rns.SecretKey, ckks_rns.PublicKey,
     ckks_rns.CT, hybrid_ks.HybridKSK)}
-# carried bit for bit: the fields are torus words or full-range u32 words
-BIT_KINDS = {k.__name__: k for k in (
-    tlwe.TLWE, glwe.GLWE, tggsw.TGGSW, tggsw.TGGSWEvals, tlwe.KSK,
-    bootstrap.BootstrappingKey, bootstrap.ShortBootstrappingKey)}
+# carried bit for bit: the fields are torus words, u64 residues or
+# full-range u32 words
+BIT_KINDS = {_key(k): k for k in (
+    tlwe.TLWE, glwe.GLWE, glwe.GLev, glwe.KSK, tggsw.TGGSW, tggsw.TGGSWEvals,
+    tlwe.KSK, bootstrap.BootstrappingKey, bootstrap.ShortBootstrappingKey,
+    bfv.SecretKey, bfv.PublicKey, bfv.RLK, bfv.RLWE, ckks.SecretKey,
+    ckks.PublicKey, ckks.CT)}
 _SIGNED = {np.dtype(np.uint64): np.int64, np.dtype(np.uint32): np.int32}
 _UNSIGNED = {torch.int64: np.uint64, torch.int32: np.uint32}
 
@@ -87,15 +94,14 @@ def bits_to_numpy(x):
 
 
 def to_port(obj, device):
-    """A reference NamedTuple -> the port's of the same name (and module):
-    residues for the RNS kinds, bit for bit for the torus kinds."""
-    name = type(obj).__name__
-    kind, carry = ((KINDS[_key(type(obj))], to_tensor)
-                   if _key(type(obj)) in KINDS else
-                   (BIT_KINDS.get(name), bits_to_tensor))
+    """A reference NamedTuple -> the port's of the same name and module:
+    int32 residues for the RNS kinds, bit for bit for the others."""
+    key = _key(type(obj))
+    kind, carry = ((KINDS[key], to_tensor) if key in KINDS else
+                   (BIT_KINDS.get(key), bits_to_tensor))
     if kind is None or len(obj) != len(kind._fields):
-        raise TypeError(f"cannot carry {name} across; known: "
-                        f"{sorted(['.'.join(k) for k in KINDS] + [*BIT_KINDS])}")
+        raise TypeError(f"cannot carry {type(obj).__name__} across; known: "
+                        f"{sorted('.'.join(k) for k in [*KINDS, *BIT_KINDS])}")
     return kind(*(carry(f, device) for f in obj))
 
 

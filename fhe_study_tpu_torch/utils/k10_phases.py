@@ -26,7 +26,7 @@ from ..ops import _cuda
 from ..ops import blind_rotate_cuda as brc
 from ..ops import ntt as ntt_mod
 from ..ops import ntt_cuda
-from . import kernel_check
+from . import kernel_check, prng
 
 PHASES = ("forward pass 0 (digits)", "forward passes 1..", "key wait",
           "contraction + inverse pass 0", "inverse passes 1..",
@@ -100,7 +100,7 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    gen = torch.Generator(device=dev).manual_seed(3)
+    gen = prng.Gen(3)
     inputs = kernel_check.blind_rotate_inputs(1024, 1, 4096, 2, args.steps,
                                               args.batch, dev, gen)
     shifts, acc0, ev1, ev1s, ev2, ev2s, n, w = inputs

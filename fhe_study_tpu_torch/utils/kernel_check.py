@@ -220,7 +220,7 @@ def equal(a, b) -> bool:
                                       for x, y in zip(fa, fb))
 
 
-def cases(param, batch: int, device, gen: torch.Generator) -> list:
+def cases(param, batch: int, device, gen: prng.Gen) -> list:
     """One Case per kernel variant that the main path launches."""
     qs, ps, L, n = param.qs, param.ps, param.L, param.n
     ks = ks_ext_primes(param)
@@ -333,7 +333,7 @@ def cases(param, batch: int, device, gen: torch.Generator) -> list:
         7 * M, 7 * L, (L + 2) * L, (L + 4) * L)])
 
 
-def linear_cases(param, batch: int, device, gen: torch.Generator) -> list:
+def linear_cases(param, batch: int, device, gen: prng.Gen) -> list:
     """One Case per kernel variant of the linear pipeline (``to_evals``,
     ``pt_to_evals``, ``from_evals``): it launches only the transform and the
     fused extension, at its own ring degree, basis sizes and batch."""
@@ -391,7 +391,7 @@ KS_MAPS_R, KS_MAPS_LP, KS_MAPS_LOGN = 43, 45, 12
 EXT_SUM_SWEEP_LD = 5                    # K11's destination count in the sweep
 
 
-def radix_cases(logn: int, batch: int, device, gen: torch.Generator) -> list:
+def radix_cases(logn: int, batch: int, device, gen: prng.Gen) -> list:
     """The redesigned kernels at ring degree 2^logn on a small batch
     (compared only, not timed): K1-K3, K5-K9 and K12 on the
     register-resident chains, whose pass structure differs with log n, and
@@ -652,8 +652,22 @@ def _pair(name, label, nbytes, ops, kern, plain, *args, **kw) -> Case:
                 lambda: plain(*args, **kw), nbytes, ops)
 
 
+def ntt_case(label: str, x, q: int, inverse: bool) -> Case:
+    """K9 on int64 rows x [..., n] under q: every word read and written once
+    (8 bytes each) with the root table and its companions (8 bytes a
+    coefficient), the transforms' butterflies and, on the inverse, n^-1."""
+    n = x.shape[-1]
+    polys = x.numel() // n
+    return _pair("ntt", label, 2 * 8 * polys * n + 8 * n,
+                 _ntt_ops(n, polys) + (polys * n * SHOUP_OPS
+                                       if inverse else 0),
+                 nc.ntt_kernel, nc.ntt_plain, x, q,
+                 inverse=inverse)._replace(
+                     butterflies=_butterflies(n, polys), n=n)
+
+
 def ntt_cases(n: int, k: int, l: int, steps: int, device,
-              gen: torch.Generator) -> list:
+              gen: prng.Gen) -> list:
     """The single-prime transform at the shapes that generating and
     pre-transforming ``steps`` TGGSW keys (ring degree n, K = k, l levels)
     gives it: ``precompute_evals`` under the two 30-bit primes, forward;
@@ -665,14 +679,7 @@ def ntt_cases(n: int, k: int, l: int, steps: int, device,
 
     def case(label, p, shp, inverse):
         x = prng.uniform_mod(gen, shp + (n,), p, device)
-        polys = x.numel() // n
-        return _pair("ntt", f"{label} {list(shp)} n={n} p={p}",
-                     2 * 8 * polys * n + 8 * n,
-                     _ntt_ops(n, polys) + (polys * n * SHOUP_OPS
-                                           if inverse else 0),
-                     nc.ntt_kernel, nc.ntt_plain, x, p,
-                     inverse=inverse)._replace(
-                         butterflies=_butterflies(n, polys), n=n)
+        return ntt_case(f"{label} {list(shp)} n={n} p={p}", x, p, inverse)
 
     p1, p2 = ntt_mod.CRT_PRIMES_TFHE
     c1, c2 = ntt_mod.CRT_PRIMES[:2]
@@ -688,7 +695,7 @@ def ntt_cases(n: int, k: int, l: int, steps: int, device,
 
 
 def blind_rotate_inputs(n: int, k: int, beta: int, l: int, steps: int,
-                        batch: int, device, gen: torch.Generator) -> tuple:
+                        batch: int, device, gen: prng.Gen) -> tuple:
     """The arguments of the blind rotation of ``batch`` ciphertexts over
     ``steps`` CMux steps, on random keys, shifts and accumulators (any
     eval-domain residues do: the arithmetic is exact)."""
@@ -705,7 +712,7 @@ def blind_rotate_inputs(n: int, k: int, beta: int, l: int, steps: int,
 
 
 def blind_rotate_case(n: int, k: int, beta: int, l: int, steps: int,
-                      batch: int, device, gen: torch.Generator) -> Case:
+                      batch: int, device, gen: prng.Gen) -> Case:
     """The whole-chain blind rotation on blind_rotate_inputs."""
     args = blind_rotate_inputs(n, k, beta, l, steps, batch, device, gen)
     shifts, acc0, ev1 = args[:3]
@@ -726,7 +733,7 @@ BR_SWEEP_B = (1, 3, 64, 67, 133)  # and batches (67 and 133: more clusters
                                  # than the card holds at once)
 
 
-def blind_rotate_sweep(device, gen: torch.Generator):
+def blind_rotate_sweep(device, gen: prng.Gen):
     """K10 against its plain version (compared only, not timed) at every
     ring degree its plan takes from 2^8, for each C in BR_SWEEP_C and l in
     BR_SWEEP_L, over BR_SWEEP_STEPS steps on BR_SWEEP_B ciphertexts, on
@@ -767,7 +774,7 @@ def blind_rotate_sweep(device, gen: torch.Generator):
 
 
 def tfhe_cases(n: int, k: int, beta: int, l: int, steps: int, batch: int,
-               device, gen: torch.Generator) -> list:
+               device, gen: prng.Gen) -> list:
     """One Case per variant of the two TFHE kernels at the shapes a
     bootstrap gives them."""
     return [*ntt_cases(n, k, l, steps, device, gen),
@@ -775,7 +782,7 @@ def tfhe_cases(n: int, k: int, beta: int, l: int, steps: int, batch: int,
 
 
 def ckks_cases(param, batch: int, K: int, device,
-               gen: torch.Generator) -> list:
+               gen: prng.Gen) -> list:
     """One Case per kernel variant that ``mul_hybrid``, ``hoist_digits``,
     ``rotate_hybrid`` and ``rotate_hoisted`` launch and the BFV paths do not:
     ``param`` is a ckks_rns.Param (L primes), K the number of auxiliary
@@ -849,7 +856,7 @@ def _ext_sum_pair(x, src: tuple, dst: tuple, centered: bool,
     ]
 
 
-def ext_sum_cases(n: int, batch: int, device, gen: torch.Generator,
+def ext_sum_cases(n: int, batch: int, device, gen: prng.Gen,
                   L: int = 4, M: int = 5, K: int = 2) -> list:
     """The contraction-only base extension at the hoisting shapes (src = the
     K auxiliary primes, dst = Q, [K, batch, n]) and at the BFV shapes (Q ->
@@ -868,7 +875,7 @@ def ext_sum_cases(n: int, batch: int, device, gen: torch.Generator,
     return out
 
 
-def bench_cases(n: int, batch: int, device, gen: torch.Generator,
+def bench_cases(n: int, batch: int, device, gen: prng.Gen,
                 reps: int = 2, rounds: int = 64, counts: dict | None = None
                 ) -> list:
     """The two measuring loops against their plain versions: the ceiling

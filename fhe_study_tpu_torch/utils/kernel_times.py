@@ -75,7 +75,7 @@ def main() -> None:
     sys.path.insert(0, args.tree)
     from fhe_study_tpu_torch.models import bfv_rns as R
     from fhe_study_tpu_torch.ops import _cuda
-    from fhe_study_tpu_torch.utils import kernel_check
+    from fhe_study_tpu_torch.utils import kernel_check, prng
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -85,7 +85,7 @@ def main() -> None:
     print(f"build {args.tree}: {time.perf_counter() - t0:.1f} s -> "
           f"{_cuda.build_dir()}", flush=True)
     dev = torch.device("cuda", 0)
-    gen = torch.Generator(device=dev).manual_seed(1)
+    gen = prng.Gen(1)
     param = R.RnsParam(n=1 << 14, t=256, L=4, M=5)
     cases = kernel_check.cases(param, args.batch, dev, gen)
     cases += kernel_check.linear_cases(R.RnsParam(n=1 << 12, t=256, L=2, M=3),
@@ -284,7 +284,8 @@ def tfhe_chains(dev, chain: int) -> dict:
     from fhe_study_tpu_torch.arith.params import TORUS_Q, RingParam
     from fhe_study_tpu_torch.models.gfhe.glwe import ERR_SIGMA, Param
     from fhe_study_tpu_torch.models.tfhe import bootstrap, tglwe, tlwe
-    gen = torch.Generator(device=dev).manual_seed(8)
+    from fhe_study_tpu_torch.utils import prng
+    gen = prng.Gen(8)
     tp = Param(ERR_SIGMA, RingParam(TORUS_Q, 1024), 1, 8)
     kw = dict(beta=4096, l=2, beta_ks=16, l_ks=8)
     s, _ = tglwe.new_key(gen, tp, dev)
@@ -351,7 +352,8 @@ def ntt_paths(dev) -> tuple:
     from fhe_study_tpu_torch.models.gfhe.glwe import ERR_SIGMA, Param
     from fhe_study_tpu_torch.models.tfhe import bootstrap, tglwe, tlwe
     from fhe_study_tpu_torch.ops import ntt_cuda as nc
-    gen = torch.Generator(device=dev).manual_seed(9)
+    from fhe_study_tpu_torch.utils import prng
+    gen = prng.Gen(9)
     tp = Param(ERR_SIGMA, RingParam(TORUS_Q, 1024), 1, 8)
     kw = dict(beta=4096, l=2, beta_ks=16, l_ks=8)
     s, _ = tglwe.new_key(gen, tp, dev)
@@ -387,7 +389,7 @@ def ntt_paths(dev) -> tuple:
     del btk, evals, out
     times = {"key generation": best_of_3(keygen)}
     t, n = 65537, 1 << 13
-    slots = torch.randint(0, t, (32, 2, n // 2), generator=gen, device=dev)
+    slots = prng.uniform_mod(gen, (32, 2, n // 2), t, dev)
     m = bfv_batch.batch_encode(t, n, slots)
     if not torch.equal(bfv_batch.batch_decode(t, n, m), slots):
         raise RuntimeError("batch_decode(batch_encode(slots)) != slots")
@@ -400,7 +402,8 @@ def ntt_paths(dev) -> tuple:
 
 def bfv_chains(R, dev, chain: int) -> dict:
     """ms an op of each BFV chain of chip_smoke.py's phase 6, best of 3."""
-    gen = torch.Generator(device=dev).manual_seed(7)
+    from fhe_study_tpu_torch.utils import prng
+    gen = prng.Gen(7)
     param = R.RnsParam(n=1 << 14, t=256, L=4, M=5)
     lin = R.RnsParam(n=1 << 12, t=256, L=2, M=3)
     sk, pk = R.new_key(gen, param, dev)

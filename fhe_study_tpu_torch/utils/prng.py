@@ -1,33 +1,32 @@
-"""Samplers for keys, masks and noise on an explicit ``torch.Generator``.
+"""Samplers for keys, masks and noise on an explicit generator, ``Gen``.
 
 They draw the distributions of fhe_study_tpu/utils/prng.py (the streams
-differ: threefry there, the generator's own here):
+differ: threefry there, numpy's PCG64 here):
 
   * binary: uniform bits {0, 1};
   * ternary: round-half-away of U[-1, 1), i.e. {-1, 0, 1} with probabilities
     (.25, .5, .25), the reference's distribution;
   * sparse_ternary: exactly h nonzeros with random signs on the last axis;
   * gaussian_int: Normal(0, sigma) in float64, rounded half away from zero;
-  * uniform_mod / uniform_mod_multi: uniform residues in [0, q);
-  * uniform_u64: uniform over the whole torus, as int64 holding the u64 bits
-    (two 32-bit draws, high and low);
+    gaussian_mod: the same reduced into [0, q);
+  * uniform_mod / uniform_mod_multi: uniform residues in [0, q), q < 2^63;
+  * uniform_u64: uniform over the whole torus, as int64 holding the u64 bits;
   * gaussian_torus: gaussian_int wrapped mod 2^64 (the int64 value is
     already the two's-complement bits).
 
-Draws happen on the generator's device and land on ``device``; so a CPU
-generator gives the same numbers whatever card the data goes to.
+A ``Gen`` is a numpy PCG64 stream keyed by every bit of a non-negative int
+seed (numpy's SeedSequence takes the whole int), so no two seeds share a
+stream.  It is stateful: each draw moves it on, so the order of the draws
+on one generator is part of what they give.  Every draw is made on the host
+and lands on ``device``, so one seed gives the same numbers whatever card
+the data goes to.
 
-Seeds: ``split`` draws child seeds from a generator (the order of calls
-matters); ``derive_seed`` is the order-free counterpart of the reference's
-``jax.random.fold_in`` chains: a keyed hash of a master seed and a tuple of
-labels, so a key set built lazily in any order gets the same subkeys.
-
-A torch CPU generator keeps only the low 32 bits of its seed (mt19937's
-seeding), so whatever a ``torch.Generator`` draws has at most 2^32 streams.
-The ``seeded_*`` samplers draw from a numpy PCG64 stream keyed by every bit
-of an int seed instead: the per-key mask and noise of a seeded key set
-(models/ckks/bootstrap.py), whose mask seeds are shipped and must not let
-anyone search for the noise seed.
+Seeds: ``split`` draws 63-bit child seeds from a generator (the order of
+calls matters); ``derive_seed`` is the order-free counterpart of the
+reference's ``jax.random.fold_in`` chains: a keyed hash of a master seed and
+a tuple of labels, so a key set built lazily in any order gets the same
+subkeys (models/ckks/bootstrap.py draws each key's mask and noise from
+``Gen(seed)`` of such seeds).
 """
 
 import hashlib
@@ -39,30 +38,49 @@ import torch
 from .rounding import round_half_away
 
 
-def uniform_mod(gen: torch.Generator, shape, q: int, device):
-    """Uniform over [0, q) as int64."""
-    return torch.randint(0, q, tuple(shape), generator=gen,
-                         dtype=torch.int64, device=gen.device).to(device)
+class Gen:
+    """A stream of random draws: numpy's PCG64 keyed by all bits of
+    ``seed``, a non-negative int."""
+
+    def __init__(self, seed: int):
+        if not isinstance(seed, (int, np.integer)) or seed < 0:
+            raise ValueError(f"seed must be a non-negative int, got {seed!r}")
+        self.seed = int(seed)
+        self.rng = np.random.Generator(np.random.PCG64(self.seed))
+
+    def __repr__(self) -> str:
+        return f"Gen({self.seed})"
 
 
-def uniform_mod_multi(gen: torch.Generator, shape, qs: tuple, device):
-    """Uniform residues over a prime basis: int32 [len(qs), *shape]."""
-    return torch.stack([uniform_mod(gen, shape, q, device) for q in qs]).int()
+def _to(a: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(a).to(device)
 
 
-def binary(gen: torch.Generator, shape, device):
+def uniform_mod(gen: Gen, shape, q: int, device):
+    """Uniform over [0, q) as int64 (q < 2^63)."""
+    return _to(gen.rng.integers(0, q, tuple(shape), dtype=np.int64), device)
+
+
+def uniform_mod_multi(gen: Gen, shape, qs: tuple, device):
+    """Uniform residues over a prime basis (each q < 2^31): int32
+    [len(qs), *shape], drawn prime by prime as int32 on the host (the same
+    numbers as int64 draws) and copied to ``device`` once."""
+    return _to(np.stack([gen.rng.integers(0, q, tuple(shape), dtype=np.int32)
+                         for q in qs]), device)
+
+
+def binary(gen: Gen, shape, device):
     """Uniform bits {0, 1} as int64."""
     return uniform_mod(gen, shape, 2, device)
 
 
-def ternary(gen: torch.Generator, shape, device):
+def ternary(gen: Gen, shape, device):
     """{-1, 0, 1} with probabilities (.25, .5, .25), as int64."""
-    u = torch.rand(tuple(shape), generator=gen, dtype=torch.float64,
-                   device=gen.device) * 2.0 - 1.0
+    u = torch.from_numpy(gen.rng.random(tuple(shape))) * 2.0 - 1.0
     return round_half_away(u).long().to(device)
 
 
-def sparse_ternary(gen: torch.Generator, shape, h: int, device):
+def sparse_ternary(gen: Gen, shape, h: int, device):
     """{-1, 0, 1} with EXACTLY h nonzeros (random signs) along the last axis,
     as int64: the sparse-secret distribution of the CKKS bootstrapping
     literature (Hamming weight h, typically 64)."""
@@ -72,64 +90,37 @@ def sparse_ternary(gen: torch.Generator, shape, h: int, device):
     k_perm, k_sign = split(gen, 2)
     # the ranks of uniform draws are a uniform permutation of each row, so
     # exactly h of them lie below h
-    perm = torch.rand(tuple(shape), generator=k_perm, dtype=torch.float64,
-                      device=gen.device).argsort(dim=-1)
-    signs = 2 * uniform_mod(k_sign, shape, 2, gen.device) - 1
+    perm = torch.from_numpy(k_perm.rng.random(tuple(shape))).argsort(dim=-1)
+    signs = 2 * uniform_mod(k_sign, shape, 2, "cpu") - 1
     return torch.where(perm < h, signs, torch.zeros_like(signs)).to(device)
 
 
-def gaussian_int(gen: torch.Generator, shape, sigma: float, device):
+def gaussian_int(gen: Gen, shape, sigma: float, device):
     """Normal(0, sigma) rounded to the nearest integer (int64)."""
-    g = sigma * torch.randn(tuple(shape), generator=gen, dtype=torch.float64,
-                            device=gen.device)
+    g = sigma * torch.from_numpy(gen.rng.standard_normal(tuple(shape)))
     return round_half_away(g).long().to(device)
 
 
-def uniform_u64(gen: torch.Generator, shape, device):
+def gaussian_mod(gen: Gen, shape, sigma: float, q: int, device):
+    """Rounded gaussian reduced into [0, q) (int64)."""
+    return torch.remainder(gaussian_int(gen, shape, sigma, device), q)
+
+
+def uniform_u64(gen: Gen, shape, device):
     """Uniform over the full u64 range, as the int64 of the same bits."""
-    hi, lo = (torch.randint(0, 1 << 32, tuple(shape), generator=gen,
-                            dtype=torch.int64, device=gen.device)
-              for _ in range(2))
-    return (hi * (1 << 32) + lo).to(device)   # the multiply wraps, as u64 does
+    a = gen.rng.integers(0, 1 << 64, tuple(shape), dtype=np.uint64)
+    return _to(a.view(np.int64), device)
 
 
-def gaussian_torus(gen: torch.Generator, shape, sigma: float, device):
+def gaussian_torus(gen: Gen, shape, sigma: float, device):
     """Rounded gaussian wrapped mod 2^64 (torus noise), int64 bits."""
     return gaussian_int(gen, shape, sigma, device)
 
 
-def split(gen: torch.Generator, n: int) -> list:
-    """n independent generators on gen's device, seeded from gen."""
-    seeds = torch.randint(0, 1 << 62, (n,), generator=gen,
-                          dtype=torch.int64, device=gen.device).tolist()
-    out = []
-    for s in seeds:
-        g = torch.Generator(device=gen.device)
-        g.manual_seed(s)
-        out.append(g)
-    return out
-
-
-def _wide(seed: int) -> np.random.Generator:
-    # SeedSequence takes every bit of the int: no two seeds share a stream
-    if seed < 0:
-        raise ValueError(f"seed must be non-negative, got {seed}")
-    return np.random.Generator(np.random.PCG64(seed))
-
-
-def seeded_uniform_mod_multi(seed: int, shape, qs: tuple, device):
-    """uniform_mod_multi on the stream of ``seed`` (all its bits), drawn on
-    the host: the same residues whatever device they land on."""
-    rng = _wide(seed)
-    return torch.stack([torch.from_numpy(rng.integers(0, q, tuple(shape),
-                                                      dtype=np.int64))
-                        for q in qs]).int().to(device)
-
-
-def seeded_gaussian_int(seed: int, shape, sigma: float, device):
-    """gaussian_int on the stream of ``seed`` (all its bits)."""
-    g = sigma * torch.from_numpy(_wide(seed).standard_normal(tuple(shape)))
-    return round_half_away(g).long().to(device)
+def split(gen: Gen, n: int) -> list:
+    """n generators keyed by 63-bit seeds drawn from gen."""
+    return [Gen(int(s)) for s in gen.rng.integers(0, 1 << 63, n,
+                                                  dtype=np.int64)]
 
 
 def derive_seed(master: int, tag: str, *labels: int) -> int:

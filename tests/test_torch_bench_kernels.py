@@ -22,7 +22,7 @@ from fhe_study_tpu.utils import profiling as jprof
 
 from fhe_study_tpu_torch.ops import _cuda, alu_bench, ext_cuda
 from fhe_study_tpu_torch.ops.primes import ntt_primes
-from fhe_study_tpu_torch.utils import profiling
+from fhe_study_tpu_torch.utils import prng, profiling
 
 CPU = torch.device("cpu")
 Q = alu_bench.ALU_Q
@@ -201,7 +201,7 @@ def test_bound_counts_are_the_recorded_sass_counts():
     assert kc.MONT_OPS == kc.Work(*rec["mont_mul"])
     assert kc.SHOUP_OPS == kc.Work(*rec["shoup_mul"])
     assert kc.ADD_OPS == kc.Work(*rec["addmod"])
-    gen = torch.Generator().manual_seed(3)
+    gen = prng.Gen(3)
     cases = kc.bench_cases(256, 2, CPU, gen, rounds=32)
     ceiling, alu = cases[0], cases[1:]
     assert (ceiling.n, ceiling.timed) == (256, True)

@@ -19,7 +19,7 @@ from fhe_study_tpu.models import hybrid_ks as JH
 from fhe_study_tpu.utils import prng as jprng
 
 from fhe_study_tpu_torch.models import bfv_rns as R
-from fhe_study_tpu_torch.utils import interop
+from fhe_study_tpu_torch.utils import interop, prng
 
 N, T, B = 256, 256, 2
 JP = J.RnsParam(n=N, t=T, L=3, M=4)
@@ -151,11 +151,11 @@ def test_round_trip_on_port_samplers():
     """keygen -> encrypt -> to_evals -> mul_e -> from_evals -> decrypt on the
     port's own samplers at the main path's basis sizes (L=4, M=5, K=2)."""
     param = R.RnsParam(n=N, t=T, L=4, M=5)
-    gen = torch.Generator().manual_seed(11)
+    gen = prng.Gen(11)
     sk, pk = R.new_key(gen, param, CPU)
     hk = R.hybrid_rlk1(gen, param, sk)
     assert tuple(hk.b.shape) == (param.L + 2, N)
-    m1, m2 = (torch.randint(0, T, (B, N), generator=gen) for _ in range(2))
+    m1, m2 = (prng.uniform_mod(gen, (B, N), T, CPU) for _ in range(2))
     c1, c2 = (R.encrypt(gen, param, pk, m, batch=(B,)) for m in (m1, m2))
     assert torch.equal(R.decrypt(param, sk, c1), m1)
     ce = R.mul_e(param, hk, R.to_evals(param, c1), R.to_evals(param, c2))

@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from fhe_study_tpu_torch.models import bfv_rns as R
+from fhe_study_tpu_torch.utils import prng
 
 N, B = 256, 2
 CPU = torch.device("cpu")
@@ -23,9 +24,9 @@ def negacyclic(a, b, t):
 
 
 def setup(param, seed, count=2):
-    gen = torch.Generator().manual_seed(seed)
+    gen = prng.Gen(seed)
     sk, pk = R.new_key(gen, param, CPU)
-    ms = [torch.randint(0, param.t, (B, N), generator=gen)
+    ms = [prng.uniform_mod(gen, (B, N), param.t, CPU)
           for _ in range(count)]
     cts = [R.encrypt(gen, param, pk, m, batch=(B,)) for m in ms]
     return gen, sk, pk, [m.numpy() for m in ms], cts

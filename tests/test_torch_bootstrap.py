@@ -4,7 +4,7 @@ samplers' draws replayed through the ``*_with`` forms), the whole-chain
 blind rotation in plain torch against the Pallas kernel in interpret mode and
 against the JAX step-by-step chain, ``blind_rotation`` in every mode,
 ``bootstrap`` and ``bootstrap_short``; then the port alone on keys from a
-``torch.Generator``.  Both gadgets occur: beta = 256 / l = 3 and
+``prng.Gen``.  Both gadgets occur: beta = 256 / l = 3 and
 beta = 4096 / l = 2; the short pipeline runs n_lwe = 64 steps.  Tolerance 0.
 """
 
@@ -31,7 +31,7 @@ from fhe_study_tpu_torch.models.gfhe import glwe as G
 from fhe_study_tpu_torch.models.tfhe import bootstrap, tglwe, tlwe
 from fhe_study_tpu_torch.ops import _cuda
 from fhe_study_tpu_torch.ops import blind_rotate_cuda as brc
-from fhe_study_tpu_torch.utils import interop
+from fhe_study_tpu_torch.utils import interop, prng
 
 N, K, T, B, N_LWE = 128, 1, 8, 4, 64
 BETA_KS, L_KS = 16, 8
@@ -279,11 +279,11 @@ def test_bootstrap_short_matches_reference(gadget):
     same(rec, r["m"])
 
 
-# -- the port alone, keys from a torch.Generator ----------------------------------
+# -- the port alone, keys from a prng.Gen ------------------------------------
 
 @lru_cache(maxsize=None)
 def own():
-    gen = torch.Generator().manual_seed(11)
+    gen = prng.Gen(11)
     table = bootstrap.compute_lookup_table_standard(P, CPU)
     s, _ = tglwe.new_key(gen, P, CPU)
     s_flat = tglwe.sk_to_tlwe(s)

@@ -136,7 +136,7 @@ def test_stage_evalmod_bit_exact(mode):
     L, double = EVALMOD[mode]
     param = C.Param(n=n, L=L, delta=1.0)
     param = C.Param(n=n, L=L, delta=C.delta2(param) if double else 2.0 ** 30)
-    gen = torch.Generator().manual_seed(31 + L)
+    gen = prng.Gen(31 + L)
     sk, pk = C.new_key(gen, param, CPU)
     rlks = P.rlk_keys_all_levels(gen, param, sk)
     w = np.random.default_rng(L).uniform(-1, 1, n // 2)
@@ -165,7 +165,7 @@ def test_stage_evalmod_bit_exact(mode):
 def stage_keys():
     """A key set at n = 16, L = 4 and two ciphertexts at full level."""
     param = C.Param(n=16, L=4, delta=2.0 ** 45)
-    gen = torch.Generator().manual_seed(41)
+    gen = prng.Gen(41)
     sk, pk = C.new_key(gen, param, CPU)
     rng = np.random.default_rng(42)
     cts = [encrypt(gen, param, pk, rng.uniform(-1, 1, 8)
@@ -274,7 +274,7 @@ def built():
         if name not in cache:
             L, delta0, kw, _ = CONFIGS[name]
             param = C.Param(n=32, L=L, delta=delta0)
-            gen = torch.Generator().manual_seed(len(cache) + 51)
+            gen = prng.Gen(len(cache) + 51)
             sk, pk = C.new_key(gen, param, CPU)
             rng = np.random.default_rng(L)
             z = rng.uniform(-1, 1, 16) + 1j * rng.uniform(-1, 1, 16)
@@ -344,7 +344,7 @@ def _seeded_key(param, sk, master, K=3):
 
 def test_expand_a_rebuilds_the_mask():
     param = C.Param(n=32, L=5, delta=2.0 ** 30)
-    sk, _ = C.new_key(torch.Generator().manual_seed(61), param, CPU)
+    sk, _ = C.new_key(prng.Gen(61), param, CPU)
     for master in (0, 2 ** 62 + 7):
         key = _seeded_key(param, sk, master)
         a = H.expand_a(param, H.seed_of(master, "rot", param.L, 5), 3, CPU)
@@ -352,19 +352,20 @@ def test_expand_a_rebuilds_the_mask():
 
 
 def test_seeds_equal_in_their_low_32_bits_give_different_keys():
-    """The seeded draws use every bit of a seed (a torch CPU generator keeps
-    only the low 32): two masters, and four mask or noise seeds, that agree
-    in their low 32 bits give different keys, masks and noise."""
+    """The seeded draws use every bit of a seed: two masters, and four mask
+    or noise seeds, that agree in their low 32 bits give different keys,
+    masks and noise."""
     param = C.Param(n=32, L=5, delta=2.0 ** 30)
-    sk, _ = C.new_key(torch.Generator().manual_seed(62), param, CPU)
+    sk, _ = C.new_key(prng.Gen(62), param, CPU)
     master = 2 ** 40 + 12345
     k1, k2 = (_seeded_key(param, sk, m) for m in (master, master + 2 ** 32))
     assert not torch.equal(k1.a, k2.a) and not torch.equal(k1.b, k2.b)
     seeds = [master + (j << 32) for j in range(4)]
-    masks = {tuple(prng.seeded_uniform_mod_multi(
-        s, (4, 32), param.qs, CPU).flatten().tolist()) for s in seeds}
-    noise = {tuple(prng.seeded_gaussian_int(
-        s, (4, 32), 3.2, CPU).flatten().tolist()) for s in seeds}
+    masks = {tuple(prng.uniform_mod_multi(
+        prng.Gen(s), (4, 32), param.qs, CPU).flatten().tolist())
+        for s in seeds}
+    noise = {tuple(prng.gaussian_int(
+        prng.Gen(s), (4, 32), 3.2, CPU).flatten().tolist()) for s in seeds}
     assert len(masks) == len(noise) == 4
 
 

@@ -26,7 +26,7 @@ from fhe_study_tpu.models.ckks import eval as JE
 from fhe_study_tpu_torch.models import galois
 from fhe_study_tpu_torch.models.ckks import ckks_rns as C
 from fhe_study_tpu_torch.models.ckks import eval as E
-from fhe_study_tpu_torch.utils import interop
+from fhe_study_tpu_torch.utils import interop, prng
 
 N, L = 16, 4
 HALF = N // 2
@@ -128,7 +128,7 @@ def _setup(n: int, seed: int):
     every step and conjugation at L and L - 1, drawn by the port; the keys
     also as the JAX package's."""
     param = C.Param(n=n, L=L, delta=PARAM.delta)
-    gen = torch.Generator().manual_seed(seed)
+    gen = prng.Gen(seed)
     sk, pk = C.new_key(gen, param, CPU)
     z = _rand(np.random.default_rng(seed), n // 2)
     ct = C.encrypt(gen, param, pk, C.encode(param, torch.from_numpy(z.real),

@@ -4,8 +4,9 @@ Keys and ciphertexts are drawn by the port (one secret key over 9 primes;
 hybrid relinearization keys at every level 2..9, which serve both the
 single-prime scale at L = 8 and the double-prime one at L = 9: a key at
 level L depends on the first L primes only) and carried into the JAX
-package as its u32 keys and u64 residues; the JAX functions run under
-jax.jit.  Integer outputs are held bit for bit (tolerance 0), the constant
+package as its u32 keys and u64 residues; the three chained squarings
+run on the reference test's own keys and input, carried the other way.
+The JAX functions run under jax.jit.  Integer outputs are held bit for bit (tolerance 0), the constant
 encodings too, and the port's decoded results against numpy at the
 reference tests' tolerances (tests/test_ckks_poly.py, test_ckks_poly2.py).
 """
@@ -21,10 +22,11 @@ import jax.numpy as jnp
 from fhe_study_tpu.models import hybrid_ks as JH
 from fhe_study_tpu.models.ckks import ckks_rns as JC
 from fhe_study_tpu.models.ckks import poly as JP
+from fhe_study_tpu.utils import prng as jprng
 
 from fhe_study_tpu_torch.models.ckks import ckks_rns as C
 from fhe_study_tpu_torch.models.ckks import poly as P
-from fhe_study_tpu_torch.utils import interop
+from fhe_study_tpu_torch.utils import interop, prng
 
 N = 32
 CPU = torch.device("cpu")
@@ -60,7 +62,7 @@ def decoded(param, sk, ct):
 
 @pytest.fixture(scope="module")
 def ref():
-    gen = torch.Generator().manual_seed(11)
+    gen = prng.Gen(11)
     sk, pk = C.new_key(gen, P9, CPU)
     rlks = P.rlk_keys_all_levels(gen, P9, sk)
     jrlks = {L: JH.HybridKSK(b=jnp.asarray(interop.to_numpy(k.b)),
@@ -177,20 +179,49 @@ def test_mul_ct2_and_poly_eval2_match_jax(ref):
                                0.5 + z - 0.25 * z ** 3, atol=1e-12)
 
 
+def _reference_chain():
+    """tests/test_ckks_poly.py::test_mul_hybrid_chain's own keys and input
+    (its _setup at seed 0) and its three chained squarings, under one
+    jax.jit."""
+    z = np.random.default_rng(1).uniform(-1, 1, N // 2)
+
+    def run(key, zz):
+        ks = jprng.split(key, 3)
+        jsk, jpk = JC.new_key(ks[0], J8)
+        jct = JC.encrypt(ks[1], J8, jpk, JC.encode(J8, zz,
+                                                   jnp.zeros(N // 2)))
+        # the chain's levels 8, 7, 6; each key is the reference test's
+        # (fold_in of its level)
+        jrlks = JP.rlk_keys_all_levels(ks[2], J8, jsk, min_L=6)
+        x, px = jct, J8
+        for _ in range(3):
+            x, px = JP.mul_ct(jrlks, x, px, x, px)
+        return jsk, jct, jrlks, tuple(x)
+
+    return z, *jax.jit(run)(jax.random.PRNGKey(0), jnp.asarray(z))
+
+
 def test_degree7_and_chains_decode_to_numpy(ref):
     """The reference tests' own checks on the port: the degree-7
-    polynomial (5e-3), three chained squarings (3e-3) and a mul_ct2 chain
-    at the double-prime scale (1e-12)."""
+    polynomial (5e-3) and a mul_ct2 chain at the double-prime scale
+    (1e-12) on the port's draws, and three chained squarings (3e-3) on the
+    reference test's own keys and input, carried across and held bit for
+    bit against the reference's chain."""
     rlks, sk, z = ref["rlks"], ref["sk"], ref["z"]
     out, pout = P.poly_eval(rlks, ref["ct"], P8, COEFFS7)
     got = decoded(pout, sk, out)
     np.testing.assert_allclose(got.real, sum(c * z ** k for k, c in
                                              enumerate(COEFFS7)), atol=5e-3)
     np.testing.assert_allclose(got.imag, 0, atol=5e-3)
-    x, px = ref["ct"], P8
+    z8, jsk, jct, jrlks, want = _reference_chain()
+    crlks = interop.rlks_to_port(jrlks, CPU)
+    x, px = interop.to_port(jct, CPU), P8
     for _ in range(3):
-        x, px = P.mul_ct(rlks, x, px, x, px)
-    np.testing.assert_allclose(decoded(px, sk, x), z ** 8, atol=3e-3)
+        x, px = P.mul_ct(crlks, x, px, x, px)
+    same(x, want)
+    got = decoded(px, interop.to_port(jsk, CPU), x)
+    np.testing.assert_allclose(got.real, z8 ** 8, atol=3e-3)
+    np.testing.assert_allclose(got.imag, 0, atol=3e-3)
     y2, p2 = P.mul_ct2(rlks, ref["ct2"], P9, ref["ct2"], P9)
     y3, p3 = P.mul_ct2(rlks, y2, p2, ref["ct2"], P9)
     assert p3.L == 5 and 0.5 < p3.delta / P9.delta < 2.0

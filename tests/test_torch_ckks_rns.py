@@ -92,7 +92,7 @@ def test_new_key_core_matches_jax(ref):
 
 @pytest.mark.parametrize("h", [None, 16])
 def test_new_key_draws_a_working_key(h):
-    gen = torch.Generator().manual_seed(1)
+    gen = prng.Gen(1)
     sk, pk = C.new_key(gen, P, CPU, h=h)
     s = C.hybrid_ks._centered_coeffs(P, sk.s_evals)
     assert set(s.unique().tolist()) <= {-1, 0, 1}
@@ -107,7 +107,7 @@ def test_new_key_draws_a_working_key(h):
 
 
 def test_sparse_ternary_has_exactly_h_nonzeros():
-    gen = torch.Generator().manual_seed(3)
+    gen = prng.Gen(3)
     s = prng.sparse_ternary(gen, (5, 3, 128), 16, CPU)
     assert s.dtype == torch.int64 and tuple(s.shape) == (5, 3, 128)
     assert set(s.unique().tolist()) == {-1, 0, 1}
@@ -287,7 +287,7 @@ def test_slice_keygen_to_decode():
     add and mul_hybrid, and z1 * z2 through the gadget mul, to the reference
     tests' tolerances (1e-2 for the hybrid multiply at delta = 2^28, 3e-2
     for the gadget one at delta = 2^25)."""
-    gen = torch.Generator().manual_seed(11)
+    gen = prng.Gen(11)
     (z1r, z1i), (z2r, z2i) = slots(30), slots(31)
     z1, z2 = z1r + 1j * z1i, z2r + 1j * z2i
     sk, pk = C.new_key(gen, P, CPU)

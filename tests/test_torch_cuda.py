@@ -21,7 +21,7 @@ from fhe_study_tpu_torch.models.gfhe.glwe import ERR_SIGMA, Param
 from fhe_study_tpu_torch.models.tfhe import bootstrap, tglwe, tlwe
 from fhe_study_tpu_torch.ops import (_cuda, alu_bench, blind_rotate_cuda,
                                      ext_cuda, ntt, ntt_cuda)
-from fhe_study_tpu_torch.utils import kernel_check
+from fhe_study_tpu_torch.utils import kernel_check, prng
 
 pytestmark = pytest.mark.cuda
 
@@ -36,7 +36,7 @@ def cuda():
 @pytest.mark.parametrize("n", [256, 1 << 14])
 def test_kernels_match_plain(cuda, n):
     param = R.RnsParam(n=n, t=256, L=4, M=5)
-    gen = torch.Generator(device=cuda).manual_seed(5)
+    gen = prng.Gen(5)
     for case in kernel_check.cases(param, 2, cuda, gen):
         got, want = case.kernel(), case.plain()
         torch.cuda.synchronize()
@@ -59,7 +59,7 @@ def test_radix_kernels_match_plain_at_every_degree(cuda, logn):
     R = 43 over the 45 primes of Q u P at n = 2^12), K4 from 1..5 and 15
     source primes and K11 from every source count 1..15, each in its vector
     and word forms."""
-    gen = torch.Generator(device=cuda).manual_seed(11)
+    gen = prng.Gen(11)
     cases = kernel_check.radix_cases(logn, 3, cuda, gen)
     assert {c.name for c in cases} == {"ntt_multi", "tensor_eval4",
                                        "ks_contract", "ext_ntt",
@@ -75,7 +75,8 @@ def test_radix_kernels_match_plain_at_every_degree(cuda, logn):
 
 def test_radix_kernels_have_no_stack_frame_or_spills(cuda):
     """Every instance of the redesigned kernels: K2, K3, K7, K8 and K12 per
-    log n, K1 and K9 (both ways) per log n, K5 and K6 per log n and source
+    log n, K1 and K9 (both ways) per log n (K9 also at log n = 7), K5 and
+    K6 per log n and source
     count form, K4 and K11 per source count and form, K10 per log n, staged
     and direct."""
     report = _cuda.ptxas_report(_cuda.build_log())
@@ -84,7 +85,7 @@ def test_radix_kernels_have_no_stack_frame_or_spills(cuda):
               "ext_ntt_kernel": 7 * 3, "tensor_mul4_kernel": 7 * 3,
               "ntt_multi_kernel": 7 * 2, "base_extend_kernel": 15 * 2,
               "base_extend_sum_kernel": 15 * 2,
-              "blind_rotate_kernel": 7 * 2, "ntt_kernel": 7 * 2,
+              "blind_rotate_kernel": 7 * 2, "ntt_kernel": 8 * 2,
               "ntt_smem_ceiling_kernel": 7}
     radix = [r for r in report if r["kernel"].split("<")[0] in counts]
     for name, count in counts.items():
@@ -167,7 +168,7 @@ def test_blind_rotate_clusters_match_plain(cuda):
     kernel_check.blind_rotate_sweep there: C = 2, 3; l = 1, 2, 3; 1, 2 and
     17 steps; 1 to 133 ciphertexts; staged, direct and unaligned key
     planes), bit for bit."""
-    gen = torch.Generator(device=cuda).manual_seed(12)
+    gen = prng.Gen(12)
     done = 0
     for case in kernel_check.blind_rotate_sweep(cuda, gen):
         if "n=1024" in case.label or "n=2048" in case.label:
@@ -209,7 +210,7 @@ def test_blind_rotate_refuses_another_plan(cuda):
 
 def test_linear_kernels_match_plain(cuda):
     param = R.RnsParam(n=256, t=256, L=2, M=3)
-    gen = torch.Generator(device=cuda).manual_seed(6)
+    gen = prng.Gen(6)
     for case in kernel_check.linear_cases(param, 4, cuda, gen):
         got, want = case.kernel(), case.plain()
         torch.cuda.synchronize()
@@ -217,10 +218,10 @@ def test_linear_kernels_match_plain(cuda):
 
 
 def _slice(param, device, seed=3, batch=2):
-    gen = torch.Generator().manual_seed(seed)      # same draws on any device
+    gen = prng.Gen(seed)      # same draws on any device
     sk, pk = R.new_key(gen, param, device)
     hk = R.hybrid_rlk1(gen, param, sk)
-    m = [torch.randint(0, param.t, (batch, param.n), generator=gen)
+    m = [prng.uniform_mod(gen, (batch, param.n), param.t, "cpu")
          for _ in range(2)]
     c = [R.encrypt(gen, param, pk, mi.to(device), batch=(batch,))
          for mi in m]
@@ -251,12 +252,12 @@ def test_slice_on_card_matches_cpu(cuda):
 def _paths(param, device, seed=4, batch=2):
     """mul with both relin keys, the gadget mul_e, a key switch and one step
     of the linear pipeline, on draws that are the same on any device."""
-    gen = torch.Generator().manual_seed(seed)
+    gen = prng.Gen(seed)
     sk, pk = R.new_key(gen, param, device)
     sk2, _ = R.new_key(gen, param, device)
     rlk, hk = R.rlk_key(gen, param, sk), R.hybrid_rlk1(gen, param, sk)
     ksk = R.ksk_key(gen, param, sk, sk2)
-    m = [torch.randint(0, param.t, (batch, param.n), generator=gen)
+    m = [prng.uniform_mod(gen, (batch, param.n), param.t, "cpu")
          for _ in range(2)]
     c = [R.encrypt(gen, param, pk, mi.to(device), batch=(batch,))
          for mi in m]
@@ -307,7 +308,7 @@ def test_wrappers_check_dtype_and_layout(cuda):
                                               (1024, 1, 256, 3, 16),
                                               (256, 2, 256, 2, 24)])
 def test_tfhe_kernels_match_plain(cuda, n, k, beta, l, steps):
-    gen = torch.Generator(device=cuda).manual_seed(7)
+    gen = prng.Gen(7)
     for case in kernel_check.tfhe_cases(n, k, beta, l, steps, 3, cuda, gen):
         got, want = case.kernel(), case.plain()
         torch.cuda.synchronize()
@@ -317,7 +318,7 @@ def test_tfhe_kernels_match_plain(cuda, n, k, beta, l, steps):
 def _bootstraps(param, device, seed=8, batch=4, n_lwe=160):
     """bootstrap and two composed bootstrap_short on draws that are the same
     on any device; returns the ciphertexts and the decoded messages."""
-    gen = torch.Generator().manual_seed(seed)
+    gen = prng.Gen(seed)
     kw = dict(beta=4096, l=2, beta_ks=16, l_ks=8)
     table = bootstrap.compute_lookup_table_standard(param, device)
     s, _ = tglwe.new_key(gen, param, device)
@@ -361,13 +362,21 @@ def test_tfhe_wrappers_check_dtype_and_layout(cuda):
         ntt_cuda.ntt_kernel(x.transpose(0, 1), q)
     with pytest.raises(ValueError, match="2\\^31"):
         ntt_cuda.ntt_kernel(x, (1 << 31) + 11)
-    with pytest.raises(ValueError, match="2\\^8 .. 2\\^14"):
-        ntt_cuda.ntt_kernel(x[..., :128].contiguous(), q)
-    # the dispatching transform raises too: no plain version on the card
-    with pytest.raises(ValueError, match="2\\^8 .. 2\\^14"):
-        ntt.ntt(x[..., :128].contiguous(), q)
-    with pytest.raises(ValueError, match="2\\^31"):
-        ntt.intt(x, (1 << 31) + 11)
+    with pytest.raises(ValueError, match="2\\^7 .. 2\\^14"):
+        ntt_cuda.ntt_kernel(x[..., :64].contiguous(), q)
+    # the dispatching transform raises too inside the reference's kernel
+    # gate (q < 2^31, n a multiple of 128): no plain version there
+    with pytest.raises(ValueError, match="2\\^7 .. 2\\^14"):
+        ntt.ntt(torch.zeros((1, 1 << 15), dtype=torch.int64, device=cuda), q)
+    # outside it (q >= 2^31 or n < 128) both devices run the plain
+    # transform, as the reference runs XLA there
+    wide = 1099511922689                 # a 41-bit prime, 1 mod 2^15
+    y = prng.uniform_mod(prng.Gen(17), (2, 256), wide, "cpu")
+    _cuda.reset_launches()
+    assert torch.equal(ntt.intt(ntt.ntt(y.to(cuda), wide), wide).cpu(), y)
+    yq = y[:, :64] % q
+    assert torch.equal(ntt.ntt(yq.to(cuda), q).cpu(), ntt.ntt(yq, q))
+    assert _cuda.launches()["ntt"] == 0
     shifts = torch.zeros((3, 1), dtype=torch.int32, device=cuda)
     acc0 = torch.zeros((1, 2, 256), dtype=torch.int64, device=cuda)
     ev = torch.zeros((3, 2, 2, 2, 2, 256), dtype=torch.int32, device=cuda)
@@ -387,7 +396,7 @@ def test_ckks_and_bench_kernels_match_plain(cuda, n):
     """The variants RNS-CKKS launches, base_extend_sum (also against the
     whole conversion) and the two measuring loops, bit for bit."""
     param = C.Param(n=n, L=4, delta=2.0 ** 28)
-    gen = torch.Generator(device=cuda).manual_seed(9)
+    gen = prng.Gen(9)
     for case in (kernel_check.ckks_cases(param, 2, 2, cuda, gen)
                  + kernel_check.ext_sum_cases(n, 2, cuda, gen)
                  + kernel_check.bench_cases(n, 3, cuda, gen)):
@@ -399,9 +408,8 @@ def test_ckks_and_bench_kernels_match_plain(cuda, n):
 def _ckks(param, device, seed=10, batch=2):
     """Path A on draws that are the same on any device: multiply, a hybrid
     and a hoisted rotation, the gadget keyring's conjugation."""
-    gen = torch.Generator().manual_seed(seed)
-    z = torch.rand((2, batch, param.n // 2), generator=gen,
-                   dtype=torch.float64) * 2 - 1
+    gen = prng.Gen(seed)
+    z = torch.from_numpy(gen.rng.random((2, batch, param.n // 2))) * 2 - 1
     sk, pk = C.new_key(gen, param, device)
     hrlk = C.hybrid_rlk(gen, param, sk)
     zero = torch.zeros_like(z[0]).to(device)
@@ -447,7 +455,7 @@ def _maps(device, n=256, L=6):
     from fhe_study_tpu_torch.models.ckks import eval as E
     cpu = torch.device("cpu")
     param = C.Param(n=n, L=L, delta=2.0 ** 60)
-    gen = torch.Generator().manual_seed(7)
+    gen = prng.Gen(7)
     sk, pk = C.new_key(gen, param, cpu, h=16)
     rng = np.random.default_rng(8)
     z = torch.from_numpy(rng.uniform(-1, 1, (2, n // 2)))
@@ -501,3 +509,53 @@ def test_bench_wrappers_check_and_measure(cuda):
     assert r["butterflies_per_sec"] > 0 and "cpu" not in r["device"]
     r = alu_bench.alu_rate("butterfly", cuda, rounds=64)
     assert r["elems_per_s"] > 0 and r["rounds"] == 64
+
+
+@pytest.mark.parametrize("q", [2 ** 16 + 1, 2013265921, 1811939329])
+@pytest.mark.parametrize("shape", [(3, 128), (32, 256, 128), (4, 1024)])
+def test_k9_matches_plain_at_the_slice_shapes(cuda, q, shape):
+    """K9 at n = 2^7 (its own instance) and at the graft entry shape,
+    both ways, on aligned and word-offset rows."""
+    x = prng.uniform_mod(prng.Gen(14), shape, q, cuda)
+    off = prng.uniform_mod(prng.Gen(15), (x.numel() + 1,), q, cuda)[1:]
+    for rows in (x, off.view(shape)):
+        for inverse in (False, True):
+            got = ntt_cuda.ntt_kernel(rows, q, inverse=inverse)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ntt_cuda.ntt_plain(rows, q,
+                                                       inverse=inverse))
+
+
+def test_entry_on_card_matches_cpu(cuda):
+    """The graft entry at its full width: the same seed gives the same
+    keys and ciphertexts on the card and the CPU, and the multiply on the
+    card (48 launches of K9) equals the one on the CPU bit for bit."""
+    from fhe_study_tpu_torch import entry
+    fn, args = entry.entry(cuda)
+    fn_cpu, args_cpu = entry.entry("cpu")
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(args, args_cpu))
+    _cuda.reset_launches()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    assert _cuda.launches()["ntt"] == 48
+    assert all(torch.equal(a.cpu(), b)
+               for a, b in zip(out, fn_cpu(*args_cpu)))
+
+
+def test_glwe_key_switch_on_card_matches_cpu(cuda):
+    """GLWE over Z_q at the reference test's n = 128, k = 16: the key
+    switch (K9 at n = 128) on the card equals the CPU's and decrypts."""
+    from fhe_study_tpu_torch.models.gfhe import glwe as G
+    p = G.Param(G.ERR_SIGMA, RingParam(2 ** 16 + 1, 128), 16, 2)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        gen = prng.Gen(16)
+        s1, pk = G.new_key(gen, p, dev)
+        s2, _ = G.new_key(gen, p, dev)
+        ksk = G.new_ksk(gen, p, 2, 16, s1, s2)
+        m = prng.uniform_mod(gen, (4, 128), 2, dev)
+        c = G.encrypt(gen, p, pk, G.encode(p, m), batch=(4,))
+        out[dev.type] = G.key_switch(p, 2, 16, ksk, c)
+        assert torch.equal(G.decode(p, G.decrypt(p, s2, out[dev.type])), m)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(out["cuda"],
+                                                       out["cpu"]))

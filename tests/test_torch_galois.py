@@ -24,7 +24,7 @@ from fhe_study_tpu_torch.models import bfv_batch, bfv_rns, galois
 from fhe_study_tpu_torch.models import hybrid_ks as H
 from fhe_study_tpu_torch.models.ckks import ckks_rns as C
 from fhe_study_tpu_torch.ops import ntt as ntt_mod
-from fhe_study_tpu_torch.utils import interop
+from fhe_study_tpu_torch.utils import interop, prng
 
 N, L, B, K = 256, 3, 2, 2
 DELTA = 2.0 ** 25
@@ -236,7 +236,7 @@ def test_ckks_keyring_rotation_and_conjugation():
     test_ckks_rotation setting (delta = 2^45, |z| <= 10, atol 0.5), composed
     hops and the conjugation."""
     p = C.Param(n=N, L=L, delta=2.0 ** 45)
-    gen = torch.Generator().manual_seed(3)
+    gen = prng.Gen(3)
     sk, pk = C.new_key(gen, p, CPU)
     rng = np.random.default_rng(4)
     z = rng.uniform(-10, 10, (B, N // 2)) + 1j * rng.uniform(-10, 10,
@@ -272,7 +272,7 @@ def test_bfv_batched_rotation_end_to_end():
     decrypt -> decode; slots move like SEAL's rotate_rows (exact)."""
     n, t = 64, 65537
     p = bfv_rns.RnsParam(n=n, t=t, L=3, M=4)
-    gen = torch.Generator().manual_seed(7)
+    gen = prng.Gen(7)
     sk, pk = bfv_rns.new_key(gen, p, CPU)
     slots = np.arange(2 * n).reshape(2, 2, n // 2) % t
     m = bfv_batch.batch_encode(t, n, i64(slots))

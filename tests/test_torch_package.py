@@ -220,7 +220,7 @@ def test_round_half_away_matches_reference():
 
 
 def test_samplers_have_the_reference_distributions():
-    gen = torch.Generator().manual_seed(0)
+    gen = prng.Gen(0)
     shape = (64, 1024)
     t = prng.ternary(gen, shape, "cpu")
     freq = [float((t == v).double().mean()) for v in (-1, 0, 1)]
@@ -240,7 +240,7 @@ def test_samplers_have_the_reference_distributions():
 
 def test_samplers_are_determined_by_the_seed():
     def draw(seed):
-        g = torch.Generator().manual_seed(seed)
+        g = prng.Gen(seed)
         a, b = prng.split(g, 2)
         return prng.ternary(a, (8,), "cpu"), prng.gaussian_int(b, (8,), 3.2,
                                                                "cpu")
@@ -295,8 +295,12 @@ def test_interop_carries_torus_words_and_shoup_planes_bit_for_bit():
     with pytest.raises(TypeError, match="int64 or int32"):
         interop.bits_to_numpy(torch.zeros(2))
     assert set(interop.BIT_KINDS) == {
-        "TLWE", "GLWE", "TGGSW", "TGGSWEvals", "KSK", "BootstrappingKey",
-        "ShortBootstrappingKey"}
+        ("tlwe", "TLWE"), ("glwe", "GLWE"), ("glwe", "GLev"), ("glwe", "KSK"),
+        ("tggsw", "TGGSW"), ("tggsw", "TGGSWEvals"), ("tlwe", "KSK"),
+        ("bootstrap", "BootstrappingKey"),
+        ("bootstrap", "ShortBootstrappingKey"), ("bfv", "SecretKey"),
+        ("bfv", "PublicKey"), ("bfv", "RLK"), ("bfv", "RLWE"),
+        ("ckks", "SecretKey"), ("ckks", "PublicKey"), ("ckks", "CT")}
 
 
 def test_build_is_one_command_over_every_source(bare_loader, monkeypatch):

@@ -233,6 +233,29 @@ def test_k9_schedule_equals_plain(logn):
     assert _banks_hit(lanes) == 1 and _banks_hit(lanes ^ 1) == 1
 
 
+def test_k9_plan_at_n_128():
+    """K9 alone takes n = 2^7 (the reference's ntt_u32 takes it): 8 threads
+    of 16 words, one group, two passes each way (4 and 3 stages), 512
+    bytes of shared memory; its schedule on int64 words equals ntt_plain
+    under both primes, and so does the 65537 of the graft entry."""
+    plan = nc._radix_plan(7)
+    assert (plan.threads, plan.groups, plan.smem_bytes) == (8, 1, 512)
+    assert [p.stages for p in plan.forward] == [(3, 2, 1, 0), (2, 1, 0)]
+    assert [p.c for p in plan.forward] == [3, 0]
+    assert [p.c for p in plan.inverse] == [0, 3]
+    assert _stage_bits(plan.forward) == list(range(6, -1, -1))
+    assert _stage_bits(plan.inverse) == list(range(7))
+    rng = np.random.default_rng(607)
+    for q in K9_PRIMES + (2 ** 16 + 1,):
+        x = torch.from_numpy(rng.integers(0, q, 128))
+        assert torch.equal(_emulate(x, q, 7, False, vec=2),
+                           nc.ntt_plain(x, q))
+        assert torch.equal(_emulate(x, q, 7, True, pow(128, -1, q), vec=2),
+                           nc.ntt_plain(x, q, inverse=True))
+    sw = _swizzle(torch.arange(128))
+    assert torch.equal(torch.sort(sw).values, torch.arange(128))
+
+
 def _emulate_k12(x, q: int, logn: int, reps: int):
     """K12's data flow on one row x: loaded into the swizzled buffer word by
     word, ``reps`` forward chains through it (every pass from shared memory

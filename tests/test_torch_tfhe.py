@@ -28,7 +28,7 @@ from fhe_study_tpu.utils import prng as jprng
 from fhe_study_tpu_torch.arith.params import RingParam
 from fhe_study_tpu_torch.models.gfhe import glwe as G
 from fhe_study_tpu_torch.models.tfhe import tggsw, tglwe, tgsw, tlev, tlwe
-from fhe_study_tpu_torch.utils import interop
+from fhe_study_tpu_torch.utils import interop, prng
 
 N, K, T, B = 128, 1, 8, 3
 JP = JG.Param(JG.ERR_SIGMA, JRingParam(TORUS_Q, N), K, T)
@@ -128,10 +128,10 @@ def test_glwe_homomorphic_ops(glwe_ref, op):
 
 
 def test_glwe_port_keys_and_encryptions_decrypt():
-    gen = torch.Generator().manual_seed(4)
+    gen = prng.Gen(4)
     s, pk = G.new_key(gen, P, CPU)
     assert set(s.unique().tolist()) == {0, 1}
-    m = torch.randint(0, T, (B, N), generator=gen)
+    m = prng.uniform_mod(gen, (B, N), T, CPU)
     for ct in (G.encrypt_s(gen, P, s, tglwe.encode(P, m), batch=(B,)),
                G.encrypt(gen, P, pk, tglwe.encode(P, m), batch=(B,))):
         assert torch.equal(tglwe.decode(P, G.decrypt(P, s, ct)), m)
@@ -200,7 +200,7 @@ def test_tlwe_ops(tlwe_ref, op):
 
 
 def test_tlwe_binary_mask_and_public_key_encryptions_decrypt():
-    gen = torch.Generator().manual_seed(6)
+    gen = prng.Gen(6)
     lwe = P.lwe()
     s, pk = tlwe.new_key(gen, lwe, CPU)
     m = torch.arange(T)
@@ -240,7 +240,7 @@ def test_tlwe_new_ksk_with_and_key_switch(tlwe_ref, uniform):
 def test_tlwe_key_switch_in_chunks(tlwe_ref, monkeypatch):
     """The chunked contraction gives the same words whatever the chunk."""
     r = tlwe_ref
-    gen = torch.Generator().manual_seed(7)
+    gen = prng.Gen(7)
     ksk = tlwe.new_ksk(gen, P.lwe(), 16, 8, tt(r["s"]), tt(r["s2"]))
     whole = tlwe.key_switch(P.lwe(), 16, 8, ksk, port(r["c"]))
     monkeypatch.setattr(tlwe, "_KS_CHUNK_WORDS", 5 * B * 8 * N)
@@ -279,7 +279,7 @@ def test_tlev(scalar_ref):
 
 
 def test_tlev_port_encryptions_decrypt():
-    gen = torch.Generator().manual_seed(8)
+    gen = prng.Gen(8)
     s, pk = tlwe.new_key(gen, PS, CPU)
     m = torch.tensor([1, 2, 3, 1])   # 0 with negative noise decrypts to beta
     for lev in (tlev.encrypt_s(gen, PS, 4, 6, s, m, batch=(4,)),
@@ -306,7 +306,7 @@ def test_tgsw_encrypt_s_with_and_products(scalar_ref):
     jc2 = jtlwe.TLWE(r["c"].a[::-1], r["c"].b[::-1])
     same(tgsw.cmux(PS, 4, 6, g, c, c2),
          jtgsw.cmux(JS, 4, 6, r["g"], r["c"], jc2))
-    gen = torch.Generator().manual_seed(9)
+    gen = prng.Gen(9)
     mine = tgsw.encrypt_s(gen, PS, 4, 6, tt(r["s"]), torch.tensor(3))
     assert int(tgsw.decrypt(PS, tt(r["s"]), mine, 4)) == 3
 
@@ -314,7 +314,7 @@ def test_tgsw_encrypt_s_with_and_products(scalar_ref):
 # -- TGLWE ---------------------------------------------------------------------------
 
 def test_tglwe_key_reshapes_and_encodings():
-    gen = torch.Generator().manual_seed(10)
+    gen = prng.Gen(10)
     s, pk = tglwe.new_key(gen, P, CPU)
     assert tuple(s.shape) == (K, N) and tuple(pk.a.shape) == (K, N)
     flat = tglwe.sk_to_tlwe(s)
@@ -326,7 +326,7 @@ def test_tglwe_key_reshapes_and_encodings():
     p = torus(11, (2, N))
     same(tglwe.decode(P, tt(p)), jtglwe.decode(JP, jnp.asarray(p)))
     same(tglwe.new_const(P, [1, 2]), jtglwe.new_const(JP, [1, 2]))
-    msg = torch.randint(0, T, (2, N), generator=gen)
+    msg = prng.uniform_mod(gen, (2, N), T, CPU)
     for ct in (tglwe.encrypt_s(gen, P, s, tglwe.encode(P, msg), batch=(2,)),
                tglwe.encrypt(gen, P, pk, tglwe.encode(P, msg), batch=(2,))):
         assert torch.equal(tglwe.decode(P, tglwe.decrypt(P, s, ct)), msg)
@@ -457,7 +457,7 @@ def test_tglev(glwe_ref):
     same(tggsw.tglev_decode(P, tt(torus(14, (9,)))),
          jtggsw.tglev_decode(JP, jnp.asarray(torus(14, (9,)))))
     same(tggsw.tglev_encode(P, [4, 5]), jtggsw.tglev_encode(JP, [4, 5]))
-    gen = torch.Generator().manual_seed(15)
+    gen = prng.Gen(15)
     sk, pk = tglwe.new_key(gen, P, CPU)
     msg = torch.from_numpy(m.astype(np.int64))
     for own in (tggsw.tglev_encrypt_s(gen, P, 16, 4, sk, msg),
