@@ -17,8 +17,9 @@ CKKS linear maps and polynomial evaluation (models/ckks/eval.py, poly.py) at
 the n = 2^12 bootstrap's ring and prime count: N = 4096, L = 43, S = 2
 stages, h = 64, a batch of 8, and that bootstrap itself
 (models/ckks/bootstrap.py) in the JAX bench's production configuration,
-and the Rq layer's schemes with the graft entry (fhe_study_tpu_torch/
-entry.py: single-modulus BFV at q = 2^16 + 1, n = 1024, B = 4).
+the Rq layer's schemes with the graft entry (fhe_study_tpu_torch/
+entry.py: single-modulus BFV at q = 2^16 + 1, n = 1024, B = 4), and the
+parallel layer (fhe_study_tpu_torch/parallel/) in 8 ranks on the card.
 Phases, each of which raises (and so exits non-zero) on any failure:
 
   1. toolchain and card: torch, CUDA, nvcc; the kernels built from csrc/;
@@ -156,7 +157,25 @@ Phases, each of which raises (and so exits non-zero) on any failure:
      round-trips every slot; K9 held against plain at every argument
      signature the phase launched; the entry mul's ms (CUDA events, best of
      3) and K9 beside its bound at [4, 1024] and at the key switch's
-     [32, 256, 128], also on the device alone.  Each phase prints its wall
+     [32, 256, 128], also on the device alone;
+ 17. slice 8, the parallel layer: ``entry.dryrun_multichip`` in 8 ranks on
+     this one card over gloo (NCCL refuses two ranks on one card; gloo
+     moves host memory, so every CUDA tensor of a collective is staged
+     through the host, and the bytes are counted), factor_mesh(8) = dp1 x
+     ep2 x sp2 x tp2 as in the reference's dryrun: (a) the dp/ep/sp/tp step
+     at q = 65537, n = 64; (b) the RNS ct-mul at N = 2^12, L = 4, M = 5,
+     t = 16 on dp4 x ep2 (simulate_hosts = 2) and the four-step product at
+     N = 2^12 on dp4 x sp2; (c) bootstrap_short at N = 1024, n_lwe = 32 on
+     dp x tp; (d) CKKS rotate + mul + rescale at n = 4096, L = 4 on dp x tp;
+     (e) at full width: mul_e HRLK at N = 2^14, L = 4, M = 5, t = 256,
+     B = 128 on dp4 x ep2, equal in every rank to phase 3's single-rank
+     result (sha256), TFHE bootstrap at N = 1024, B = 64 on dp8 (K10), and
+     polymul_i64_crt_ep at the entry's [4, 1024] (K9); each sharded result
+     bit-equal to the unsharded call in the rank and decrypt-verified; each
+     rank holds every kernel argument signature it launched against plain;
+     each program's ms (CUDA events) and staged bytes, and the launches by
+     kernel summed over the ranks, which the kernels' record counts; then
+     the same programs in one rank over NCCL.  Each phase prints its wall
      time.
 
 It prints each finding on a line of its own, then the kernels' JSON record,
@@ -164,7 +183,6 @@ the card's name and power limit, and as its last line
 {"ok": true, "device": {...}}.  Without a CUDA card it exits non-zero.
 """
 
-import contextlib
 import json
 import subprocess
 import sys
@@ -195,6 +213,13 @@ BOOT_L = 29 + 2 * 5 + 4 * (BOOT_S - 1)
 BOOT_DELTA0, BOOT_DEG, BOOT_ARCSIN, BOOT_CHAIN = 2.0 ** 55, 30, 4, 3
 BOOT_SMALL_N = 256
 NTT_L, NTT_B, NTT_CHAIN, NTT_ITERS = 9, 64, 8, 3
+# phase 17: (ranks, backend) of each dryrun_multichip run, its time limit,
+# and the kernels its paths must launch (mul_e HRLK; the gadget R.mul;
+# bootstrap; the CRT products)
+P17_RUNS = ((8, "gloo"), (1, "nccl"))
+P17_TIMEOUT_S = 600.0
+P17_KERNELS = ("ntt_multi", "tensor_eval4", "ks_contract", "base_extend",
+               "ext_ntt", "tensor_mul4", "ks_fused", "ntt", "blind_rotate")
 CEILING_REPS, ALU_ROUNDS = 64, 1 << 16
 # the bound (utils/kernel_check.bound) takes the SM count and the maximum SM
 # clock that the card in hand reports; each alu_rate loop must issue at
@@ -244,57 +269,6 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
 
 BOOT_KERNELS = ("ntt_multi", "ks_contract", "tensor_mul4", "ks_fused",
                 "base_extend")
-
-
-@contextlib.contextmanager
-def record_calls(store: dict, seen: dict, names: tuple = BOOT_KERNELS):
-    """While active, the first call of each distinct argument signature
-    (shapes, strides, word offsets, dtypes and the other arguments) of the
-    kernels ``names`` (by default the five a CKKS bootstrap launches) is
-    kept in ``store`` as (name, signature) -> (kernel, plain, args, kwargs),
-    the arguments by reference, to be held against the plain version
-    afterwards; ``seen`` counts the launches each kernel's counter took
-    inside those calls, for the caller to hold against the path's counts (a
-    launch that did not go through a recorded call would leave its shape
-    unchecked)."""
-    from fhe_study_tpu_torch.ops import _cuda, ext_cuda, ntt_cuda
-    wrapped = [w for w in [("ntt_multi", ntt_cuda, "ntt_multi"),
-                           ("ks_contract", ntt_cuda, "ks_contract"),
-                           ("tensor_mul4", ntt_cuda, "tensor_mul4"),
-                           ("ks_fused", ntt_cuda, "ks_fused"),
-                           ("base_extend", ext_cuda, "base_extend_fused"),
-                           ("ntt", ntt_cuda, "ntt")] if w[0] in names]
-
-    def sig(x):
-        if isinstance(x, torch.Tensor):
-            return (tuple(x.shape), x.stride(), x.storage_offset() % 4,
-                    str(x.dtype))
-        if isinstance(x, (tuple, list)):
-            return tuple(sig(v) for v in x)
-        return x
-
-    def recorder(name, kern, plain):
-        def call(*args, **kwargs):
-            key = (name, sig(args), sig(sorted(kwargs.items())))
-            store.setdefault(key, (kern, plain, args, kwargs))
-            before = _cuda.launches()[name]
-            out = kern(*args, **kwargs)
-            seen[name] = (seen.get(name, 0) + _cuda.launches()[name]
-                          - before)
-            return out
-        return call
-
-    saved = [(mod, f"{fn}_kernel", getattr(mod, f"{fn}_kernel"))
-             for _, mod, fn in wrapped]
-    try:
-        for name, mod, fn in wrapped:
-            setattr(mod, f"{fn}_kernel",
-                    recorder(name, getattr(mod, f"{fn}_kernel"),
-                             getattr(mod, f"{fn}_plain")))
-        yield store
-    finally:
-        for mod, attr, fn in saved:
-            setattr(mod, attr, fn)
 
 
 def negacyclic_reference(a: np.ndarray, b: np.ndarray, t: int):
@@ -354,8 +328,10 @@ def main() -> None:
     from fhe_study_tpu_torch.ops import (_cuda, alu_bench, ext_cuda, ntt,
                                          ntt_cuda)
     from fhe_study_tpu_torch.ops.primes import ntt_primes
+    from fhe_study_tpu_torch.parallel import pipeline
     from fhe_study_tpu_torch.utils import (kernel_check, profiling, prng,
                                            sass_counts)
+    from fhe_study_tpu_torch.utils.kernel_check import record_calls
 
     dev = torch.device("cuda", 0)
     marks = [wall0]
@@ -558,6 +534,7 @@ def main() -> None:
         if tuple(v.shape) != want or v.dtype != torch.int32:
             raise RuntimeError(f"CTE.{name}: {tuple(v.shape)} {v.dtype}")
     sk, hk, (c1, c2), (x, y) = st["sk"], st["hk"], st["c"], st["e"]
+    mul_e_digest = pipeline.digest(ce)      # phase 17 holds its ranks to it
     m1, m2 = (m.cpu().numpy() for m in st["m"])
     product, fft_err = negacyclic_reference(m1, m2, T)
     fft = f"the numpy FFT negacyclic product (rounding error {fft_err:.2e})"
@@ -1651,7 +1628,7 @@ def main() -> None:
     boot_label = (f"ckks bootstrap: make_staged (ModRaise + C2S x {BOOT_S}, "
                   f"EvalMod x 2, S2C x {BOOT_S}) on the expanded keys, "
                   f"input dropped to 2 limbs, at {b7shape}")
-    with record_calls(shapes, seen):
+    with record_calls(shapes, seen, BOOT_KERNELS):
         out, pout2 = drive(boot_label, ("ntt_multi", "ks_contract",
                                         "base_extend", "tensor_mul4",
                                         "ks_fused"),
@@ -1937,6 +1914,62 @@ def main() -> None:
     del kc, kout, csk, cpk, cct, k9_shapes
     torch.cuda.empty_cache()
     phase_done("16 (slice 4: Rq, BFV, GLWE over Z_q, CKKS, the entry)")
+
+    # 17. slice 8: the parallel layer in several ranks on this card --------
+    # 8 ranks on cuda:0 over gloo (NCCL refuses two ranks on one card; gloo
+    # stages CUDA tensors through the host, parallel/comm.py), factor_mesh(8)
+    # = dp1 x ep2 x sp2 x tp2 as in the reference's dryrun; then the same
+    # programs in one rank over NCCL, the route of one rank a card
+    full = (N, L, M, T, BATCH, SEED + 1)     # phase 3's paths and draws
+    for world, backend in P17_RUNS:
+        label = f"phase 17: dryrun_multichip in {world} ranks over {backend}"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reports = EN.dryrun_multichip(world, "cuda", backend, P17_TIMEOUT_S,
+                                      full)
+        seconds = time.perf_counter() - t0
+        counts = {k.name: sum(r["launches"].get(k.name, 0) for r in reports)
+                  for k in _cuda.KERNELS}
+        path_launches[label] = counts
+        unlaunched = [k for k in P17_KERNELS if counts[k] == 0]
+        if unlaunched:
+            raise RuntimeError(f"{label}: never launched {unlaunched}")
+        say(f"path: {label} in {seconds:.1f} s (host clock, spawn to the "
+            f"last result); launches summed over ranks "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        for what in reports[0]["programs"]:
+            got = [r["programs"][what] for r in reports]
+            if not isinstance(got[0], dict):
+                say(f"verify: {label}: {what}: {got[0]} in every rank")
+                continue
+            ms_ = [g["ms"] for g in got]
+            say(f"timing: {label}: {what}: {min(ms_):.3f}-{max(ms_):.3f} ms "
+                f"over the ranks (CUDA events, one call, rank 0 "
+                f"{ms_[0]:.3f}); staged through the host "
+                f"{sum(g['staged_bytes'] for g in got)} bytes in all ranks "
+                f"[{card}]")
+            if "digest" in got[0]:
+                if {g["digest"] for g in got} != {mul_e_digest}:
+                    raise RuntimeError(f"{label}: {what} != phase 3's "
+                                       "single-rank mul_e")
+                say(f"verify: {label}: {what} == phase 3's single-rank mul_e "
+                    f"in every rank (sha256 of all four components)")
+        held = {}
+        for r in reports:
+            for name, (n_sig, diff) in r["held"].items():
+                held[name] = held.get(name, 0) + n_sig
+                err[name] = max(err[name], diff)
+                checked[name] += n_sig
+        missing = [k for k, v in counts.items() if v and k not in held]
+        if missing:
+            raise RuntimeError(f"{label}: launched {missing} at no held "
+                               "signature")
+        say(f"parity: {label}: every rank held each distinct kernel argument "
+            f"signature it launched against plain (torch.equal): {held} "
+            f"signatures over the ranks")
+    torch.cuda.empty_cache()
+    phase_done("17 (slice 8: the parallel layer, 8 gloo ranks and 1 NCCL "
+               "rank on one card)")
 
     launches = {k.name: sum(c[k.name] for c in path_launches.values())
                 for k in _cuda.KERNELS}

@@ -11,6 +11,12 @@ and messages out for the noise probe (models/bfv_noise.py).
 
     fn, args = entry("cuda")      # the card is the default
     c0, c1 = fn(*args)
+
+``dryrun_multichip(n_devices)`` is the counterpart of
+``__graft_entry__.dryrun_multichip``: parallel/pipeline.py's ``dryrun`` in
+n_devices ranks (parallel/launch.py), the dp/ep/sp/tp step and the
+sharded BFV, TFHE and CKKS stages, each bit-equal to the unsharded call and
+decrypt-verified.
 """
 
 from typing import NamedTuple
@@ -63,3 +69,15 @@ def entry(device="cuda", n: int = N, batch: int = BATCH):
     s = setup(device, n, batch)
     return multiply(s.param), (s.c1.c0, s.c1.c1, s.c2.c0, s.c2.c1, s.rlk.r0,
                                s.rlk.r1)
+
+
+def dryrun_multichip(n_devices: int, device="cuda", backend=None,
+                     timeout_s: float = 600.0,
+                     full_width: tuple | None = None) -> list:
+    """``pipeline.dryrun`` in ``n_devices`` ranks; returns each rank's
+    report.  ``backend`` None: NCCL on CUDA (one card a rank), gloo on the
+    CPU; several ranks on one card take ``backend="gloo"``.
+    ``full_width`` = (n, L, M, t, B, seed) adds the full-width paths."""
+    from .parallel import launch, pipeline
+    return launch.spawn(pipeline.dryrun, n_devices, str(device), backend,
+                        timeout_s, (n_devices, str(device), full_width))

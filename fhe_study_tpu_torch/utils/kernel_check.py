@@ -31,6 +31,7 @@ integer pipe's issue slots over its 64 lanes a clock, the largest of the
 four; no kernel made of these primitives can beat it.
 """
 
+import contextlib
 import math
 from typing import Callable, NamedTuple
 
@@ -38,7 +39,7 @@ import torch
 
 from ..models.hybrid_ks import ks_ext_primes
 from ..models.tfhe.tggsw import _u32_bits
-from ..ops import alu_bench
+from ..ops import _cuda, alu_bench
 from ..ops import blind_rotate_cuda as brc
 from ..ops import ext_cuda as ext
 from ..ops import ntt as ntt_mod
@@ -907,3 +908,80 @@ def bench_cases(n: int, batch: int, device, gen: prng.Gen,
             alu_bench.alu_rate_kernel, alu_bench.alu_rate_plain, ax, ay, ayp,
             op, rounds)._replace(plain_reps=1, plain_warmup=0))
     return out
+
+
+# the wrappers ``record_calls`` can wrap: (counter name, module, function),
+# the module's ``<function>_kernel`` and ``<function>_plain``
+WRAPPERS = (("ntt_multi", nc, "ntt_multi"),
+            ("tensor_eval4", nc, "tensor_eval4"),
+            ("ks_contract", nc, "ks_contract"),
+            ("ext_ntt", nc, "ext_ntt"),
+            ("base_extend", ext, "base_extend_fused"),
+            ("tensor_mul4", nc, "tensor_mul4"),
+            ("tensor_mul", nc, "tensor_mul"),
+            ("ks_fused", nc, "ks_fused"),
+            ("ks_fused_eval", nc, "ks_fused_eval"),
+            ("ntt", nc, "ntt"),
+            ("blind_rotate", brc, "blind_rotate"),
+            ("base_extend_sum", ext, "base_extend_sum"))
+
+
+def _sig(x):
+    if isinstance(x, torch.Tensor):
+        return (tuple(x.shape), x.stride(), x.storage_offset() % 4,
+                str(x.dtype))
+    if isinstance(x, (tuple, list)):
+        return tuple(_sig(v) for v in x)
+    return x
+
+
+@contextlib.contextmanager
+def record_calls(store: dict, seen: dict, names: tuple):
+    """While active, the first call of each distinct argument signature
+    (shapes, strides, word offsets, dtypes and the other arguments) of the
+    kernels ``names`` is kept in ``store`` as (name, signature) -> (kernel,
+    plain, args, kwargs), the arguments by reference, to be held against
+    the plain version afterwards (``hold_recorded``); ``seen`` counts the
+    launches each kernel's counter took inside those calls, for the caller
+    to hold against the path's counts (a launch that did not go through a
+    recorded call would leave its shape unchecked)."""
+    wrapped = [w for w in WRAPPERS if w[0] in names]
+
+    def recorder(name, kern, plain):
+        def call(*args, **kwargs):
+            key = (name, _sig(args), _sig(sorted(kwargs.items())))
+            store.setdefault(key, (kern, plain, args, kwargs))
+            before = _cuda.launches()[name]
+            out = kern(*args, **kwargs)
+            seen[name] = (seen.get(name, 0) + _cuda.launches()[name]
+                          - before)
+            return out
+        return call
+
+    saved = [(mod, f"{fn}_kernel", getattr(mod, f"{fn}_kernel"))
+             for _, mod, fn in wrapped]
+    try:
+        for name, mod, fn in wrapped:
+            setattr(mod, f"{fn}_kernel",
+                    recorder(name, getattr(mod, f"{fn}_kernel"),
+                             getattr(mod, f"{fn}_plain")))
+        yield store
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def hold_recorded(store: dict) -> dict:
+    """Each recorded call's kernel against its plain version on the same
+    arguments, bit for bit; raises on the first difference.  Returns
+    {kernel name: (signatures held, largest |kernel - plain|)}."""
+    held = {}
+    for (name, *_), (kern, plain, args, kwargs) in store.items():
+        got, want = kern(*args, **kwargs), plain(*args, **kwargs)
+        diff = max_abs_err(got, want)
+        if not equal(got, want):
+            raise RuntimeError(f"{name}: kernel != plain at a recorded "
+                               f"signature (max |diff| {diff})")
+        n, err = held.get(name, (0, 0))
+        held[name] = (n + 1, max(err, diff))
+    return held

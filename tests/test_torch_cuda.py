@@ -559,3 +559,31 @@ def test_glwe_key_switch_on_card_matches_cpu(cuda):
         assert torch.equal(G.decode(p, G.decrypt(p, s2, out[dev.type])), m)
     assert all(torch.equal(a.cpu(), b) for a, b in zip(out["cuda"],
                                                        out["cpu"]))
+
+
+def test_parallel_ranks_on_the_card_stage_through_the_host(cuda):
+    """Two gloo ranks on the card: the four-step product over sp and the
+    CRT product over ep equal the unsharded calls on the CPU, and every
+    collective's CUDA tensors went through the host (counted)."""
+    from fhe_study_tpu_torch.arith import rq
+    from fhe_study_tpu_torch.parallel import (comm, launch, mesh,
+                                              ntt_sharded, pipeline)
+    rng = np.random.default_rng(17)
+    q = 65537
+    a, b = (rng.integers(0, q, size=(3, 1024)) for _ in range(2))
+    x, y = (rng.integers(-2 ** 20, 2 ** 20, size=(4, 1024)) for _ in range(2))
+    steps = (
+        (ntt_sharded.negacyclic_mul_sharded,
+         (a, b, q, launch.MeshOf(mesh.make_mesh, (2, 1, 1, 2)), "sp")),
+        (pipeline.polymul_i64_crt_ep,
+         (x, y, launch.MeshOf(pipeline.factor_mesh, (2,)))),
+        (comm.staged_bytes, ()),
+    )
+    out = launch.spawn(launch.calls, 2, "cuda", "gloo", 300, steps)
+    want_sp = rq.mul(torch.from_numpy(a), torch.from_numpy(b), q).numpy()
+    want_ep = ntt.polymul_i64_crt(torch.from_numpy(x),
+                                  torch.from_numpy(y)).numpy()
+    for sp, ep, staged in out:
+        np.testing.assert_array_equal(sp, want_sp)
+        np.testing.assert_array_equal(ep, want_ep)
+        assert staged > 0
