@@ -18,14 +18,20 @@ the n = 2^12 bootstrap's ring and prime count: N = 4096, L = 43, S = 2
 stages, h = 64, a batch of 8, and that bootstrap itself
 (models/ckks/bootstrap.py) in the JAX bench's production configuration,
 the Rq layer's schemes with the graft entry (fhe_study_tpu_torch/
-entry.py: single-modulus BFV at q = 2^16 + 1, n = 1024, B = 4), and the
-parallel layer (fhe_study_tpu_torch/parallel/) in 8 ranks on the card.
+entry.py: single-modulus BFV at q = 2^16 + 1, n = 1024, B = 4), the
+parallel layer (fhe_study_tpu_torch/parallel/) in 8 ranks on the card, and
+RNS-BFV's mul_e with the hybrid key at ring degree 2^15: N = 2^15, L = 14,
+M = 15, K = 15, t = 256, B = 128 (the Homomorphic Encryption Standard's
+n = 32768 row allows log q <= 881 at 128-bit classical security, as does
+SEAL's BFVDefault(32768); the key modulus Q P_K here is 29 primes of 30
+bits, 870 bits).
 Phases, each of which raises (and so exits non-zero) on any failure:
 
   1. toolchain and card: torch, CUDA, nvcc; the kernels built from csrc/;
   2. each of the first eleven kernel entries against its plain PyTorch
      version on the card, bit for bit, at the paths' shapes (batch 8) and at
-     n = 256; the redesigned kernels at every n from 2^8 to 2^14 on a batch
+     n = 256; the redesigned kernels at every n from 2^8 to 2^15 that each
+     takes (K6, K7, K8 to 2^14) on a batch
      of 3 (kernel_check.radix_cases): K1 forward and inverse, with and
      without fin, on contiguous and word-offset rows; K9 forward and inverse
      under a 30-bit and a 31-bit prime, on aligned and word-offset int64
@@ -175,8 +181,22 @@ Phases, each of which raises (and so exits non-zero) on any failure:
      rank holds every kernel argument signature it launched against plain;
      each program's ms (CUDA events) and staged bytes, and the launches by
      kernel summed over the ranks, which the kernels' record counts; then
-     the same programs in one rank over NCCL.  Each phase prints its wall
-     time.
+     the same programs in one rank over NCCL;
+ 18. slice 10, ring degree 2^15: keygen -> hybrid_rlk1(K = 15) -> encrypt
+     128 plaintext pairs -> to_evals -> mul_e -> from_evals -> decrypt at
+     N = 2^15, L = 14, M = 15, t = 256, held against the numpy FFT
+     negacyclic product in all 128 x 32768 coefficients; the launches of
+     one mul_e by kernel held to K2 2, K4 5, K1 2, K3 1, K5 1, every one at
+     n = 2^15, each launched signature held against plain; a chain of 4
+     mul_e timed (CUDA events, best of 3) as ms an op and ct-mul/s and its
+     output decrypted against the numpy chain; K1, K2, K3, K4 and K5 at the
+     path's shapes (kernel_check.cases at n = 2^15, K = 15), K9 on
+     [8, 2^15] under a 30-bit and a 31-bit prime and K12 at n = 2^15, each
+     against its plain version at batch 8; each kernel at the path's shape
+     on the device alone beside its bound; K12's full-card ceiling at
+     n = 2^15 beside K1's rate; the 2^15 instances' registers; peak device
+     memory.  Each phase prints its wall time and the device memory
+     still held as it ends.
 
 It prints each finding on a line of its own, then the kernels' JSON record,
 the card's name and power limit, and as its last line
@@ -220,6 +240,17 @@ P17_RUNS = ((8, "gloo"), (1, "nccl"))
 P17_TIMEOUT_S = 600.0
 P17_KERNELS = ("ntt_multi", "tensor_eval4", "ks_contract", "base_extend",
                "ext_ntt", "tensor_mul4", "ks_fused", "ntt", "blind_rotate")
+# phase 18, slice 10: mul_e HRLK at ring degree 2^15 with the most primes
+# the kernels take there: L = 14 Q-primes and M = L + 1 = 15 P-primes (K4
+# converts from at most 15 sources), K = 15 hybrid primes so that P_K > Q
+# (Q P_K: 29 primes of 30 bits, 870 bits, within the HE Standard's 881 for
+# n = 32768); the launches of one mul_e by kernel, and the one-buffer
+# kernels whose n = 2^15 instances ptxas must report
+W_N, W_L, W_M, W_K = 1 << 15, 14, 15, 15
+W_PER_OP = {"tensor_eval4": 2, "base_extend": 5, "ntt_multi": 2,
+            "ks_contract": 1, "ext_ntt": 1}
+W_INSTANCES = {"ntt_multi": 2, "tensor_eval4": 1, "ks_contract": 1,
+               "ext_ntt": 3, "ntt": 2, "ntt_smem_ceiling": 1}
 CEILING_REPS, ALU_ROUNDS = 64, 1 << 16
 # the bound (utils/kernel_check.bound) takes the SM count and the maximum SM
 # clock that the card in hand reports; each alu_rate loop must issue at
@@ -338,7 +369,9 @@ def main() -> None:
 
     def phase_done(label: str) -> None:
         marks.append(time.perf_counter())
-        say(f"wall: phase {label} took {marks[-1] - marks[-2]:.1f} s")
+        say(f"wall: phase {label} took {marks[-1] - marks[-2]:.1f} s; "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB held on the "
+            f"card")
 
     # 1. toolchain and card ------------------------------------------------
     name_limit = smi("name,power.limit")
@@ -424,9 +457,10 @@ def main() -> None:
         torch.cuda.synchronize()
         check(case, got, want)
     # the kernels on the register-resident chains, at every ring degree they
-    # take: each log n has its own pass structure
+    # take: each log n has its own pass structure (radix_cases leaves out a
+    # kernel at a degree it does not take: K6-K8 at 2^15)
     radix_checked = 0
-    for logn in range(_cuda.MIN_LOG_N, _cuda.MAX_LOG_N + 1):
+    for logn in _cuda.NTT_MULTI.degrees:
         for case in kernel_check.radix_cases(logn, RADIX_BATCH, dev, gen):
             got, want = case.kernel(), case.plain()
             torch.cuda.synchronize()
@@ -452,7 +486,9 @@ def main() -> None:
         f"forms) and base_extend (from {kernel_check.EXT_SWEEP_LS} to "
         f"{kernel_check.EXT_SWEEP_LD} primes, unsigned and centered, with and "
         f"without the epilogue, vector and word forms) == plain (torch.equal) "
-        f"at every n = 2^{_cuda.MIN_LOG_N} .. 2^{_cuda.MAX_LOG_N}, batch "
+        f"at every n each takes, 2^{_cuda.NTT_MULTI.logn[0]} .. "
+        f"2^{_cuda.NTT_MULTI.logn[1]} (tensor_mul4, tensor_mul, ks_fused and "
+        f"ks_fused_eval to 2^{_cuda.TENSOR_MUL4.logn[1]}), batch "
         f"{RADIX_BATCH}: {radix_checked} variants")
     # K10 on two-block clusters at every ring degree its plan takes, on
     # batches beyond the clusters the card holds at once
@@ -464,7 +500,7 @@ def main() -> None:
         k10_checked += 1
     say(f"parity: blind_rotate == plain (torch.equal) for C in "
         f"{kernel_check.BR_SWEEP_C}, l in {kernel_check.BR_SWEEP_L}, every n "
-        f"its plan takes from 2^{_cuda.MIN_LOG_N}, steps in "
+        f"its plan takes from 2^{_cuda.BLIND_ROTATE.logn[0]}, steps in "
         f"{kernel_check.BR_SWEEP_STEPS}, B in {kernel_check.BR_SWEEP_B} "
         f"(staged and direct key planes), and the key planes one word off: "
         f"{k10_checked} variants")
@@ -881,7 +917,7 @@ def main() -> None:
     # load hoisted out of it would make the ceiling do less than the kernels
     loops = sass_counts.ceiling_loops(listing)
     chain = {logn: sass_counts.chain_loads(logn)
-             for logn in range(_cuda.MIN_LOG_N, _cuda.MAX_LOG_N + 1)}
+             for logn in _cuda.NTT_SMEM_CEILING.degrees}
     if loops != chain:
         raise RuntimeError(f"ntt_smem_ceiling's loops (global loads, "
                            f"barriers) {loops} != one transform's {chain}")
@@ -1698,6 +1734,7 @@ def main() -> None:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    boot_held = torch.cuda.memory_allocated()
     chain_ms = time_ms(boot_chain, 1, warmup=0)
     peak = torch.cuda.max_memory_allocated()
     stage_ms = {}
@@ -1715,7 +1752,8 @@ def main() -> None:
     say(f"timing: ckks bootstrap at {b7shape}: a chain of {BOOT_CHAIN} in "
         f"{chain_ms:.1f} ms (CUDA events) = "
         f"{BOOT_B * BOOT_CHAIN / (chain_ms / 1e3):.2f} bootstraps/s; peak "
-        f"device memory {peak / 2**30:.2f} GiB (keys resident); stage ms "
+        f"device memory {peak / 2**30:.2f} GiB (keys resident; "
+        f"{boot_held / 2**30:.2f} GiB held as the chain began); stage ms "
         f"(best of 2): "
         + ", ".join(f"{k} {v:.1f}" for k, v in stage_ms.items())
         + f"; launches a bootstrap {boot_launches} [{card}]")
@@ -1970,6 +2008,169 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_done("17 (slice 8: the parallel layer, 8 gloo ranks and 1 NCCL "
                "rank on one card)")
+
+    # 18. slice 10: ring degree 2^15 ------------------------------------------
+    w_param = R.RnsParam(n=W_N, t=T, L=W_L, M=W_M)
+    w_shape = f"N={W_N} L={W_L} M={W_M} K={W_K} t={T} B={BATCH}"
+    w_logn = W_N.bit_length() - 1
+    wide = [r for r in radix_entries
+            if r["kernel"].split("<")[0].removesuffix("_kernel")
+            in W_INSTANCES
+            and r["kernel"].split("<")[1].split(",")[0].rstrip(">")
+            == str(w_logn)]
+    got_inst = {k: sum(r["kernel"].startswith(k + "_kernel<") for r in wide)
+                for k in W_INSTANCES}
+    if got_inst != W_INSTANCES:
+        raise RuntimeError(f"the n = 2^{w_logn} instances {got_inst} != "
+                           f"{W_INSTANCES}")
+    say(f"ptxas: the {len(wide)} instances at n = 2^{w_logn} (no stack frame "
+        f"or spills, phase 1): "
+        + "; ".join(f"{r['kernel']} {r['registers']} registers" for r in wide))
+    gen = prng.Gen(SEED + 20)
+    w = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()
+
+    def wide_path():
+        w["sk"], pk = R.new_key(gen, w_param, dev)
+        w["hk"] = R.hybrid_rlk1(gen, w_param, w["sk"], K=W_K)
+        w["m"] = [prng.uniform_mod(gen, (BATCH, W_N), T, dev)
+                  for _ in range(2)]
+        w["e"] = [R.to_evals(w_param, R.encrypt(gen, w_param, pk, m,
+                                                batch=(BATCH,)))
+                  for m in w["m"]]
+        ce = R.mul_e(w_param, w["hk"], *w["e"])
+        return R.decrypt(w_param, w["sk"], R.from_evals(w_param, ce))
+
+    rec = drive(f"slice 10: keygen -> hybrid_rlk1 -> encrypt -> to_evals -> "
+                f"mul_e (HRLK) -> from_evals -> decrypt at {w_shape}",
+                tuple(W_PER_OP), wide_path)
+    path_peak = torch.cuda.max_memory_allocated()
+    wm1, wm2 = (m.cpu().numpy() for m in w["m"])
+    product, fft_err = negacyclic_reference(wm1, wm2, T)
+    verify(f"slice 10 mul_e (HRLK) at {w_shape}", rec, product,
+           f"the numpy FFT negacyclic product (rounding error "
+           f"{fft_err:.2e})")
+    (wx, wy), whk = w["e"], w["hk"]
+    w_sigs, w_seen = {}, {}
+    with record_calls(w_sigs, w_seen, tuple(W_PER_OP)):
+        w_per_op = per_op_launches(lambda: R.mul_e(w_param, whk, wx, wy))
+    if w_per_op != W_PER_OP or w_seen != W_PER_OP:
+        raise RuntimeError(f"slice 10: launches of one mul_e {w_per_op} "
+                           f"(through the recorded wrappers {w_seen}) != "
+                           f"{W_PER_OP}")
+    degrees = {a.shape[-1] for (_, _, args, kw) in w_sigs.values()
+               for a in (*args, *kw.values()) if isinstance(a, torch.Tensor)}
+    if degrees != {W_N}:
+        raise RuntimeError(f"slice 10: mul_e launched at last axes {degrees}")
+    w_held = kernel_check.hold_recorded(w_sigs)
+    for name, (n_sig, diff) in w_held.items():
+        err[name] = max(err[name], diff)
+        checked[name] += n_sig
+    say(f"verify: slice 10: one mul_e launches {w_per_op}, every launch at "
+        f"n = {W_N}; each of its {len(w_sigs)} argument signatures (B="
+        f"{BATCH}) == plain (torch.equal): {w_held}")
+
+    def w_chain():
+        c = wx
+        for _ in range(CHAIN):
+            c = R.mul_e(w_param, whk, c, wy)
+        return c
+
+    cout = w_chain()                   # warm up; its output is decrypted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs = [time_ms(w_chain, 1, warmup=0) for _ in range(3)]
+    chain_peak = torch.cuda.max_memory_allocated()
+    best = min(runs)
+    rec = R.decrypt(w_param, w["sk"], R.from_evals(w_param, cout))
+    want, fft_errs = wm1, []
+    for _ in range(CHAIN):
+        want, e = negacyclic_reference(want, wm2, T)
+        fft_errs.append(e)
+    verify(f"slice 10 chain of {CHAIN} mul_e (HRLK), m1 * m2^{CHAIN}", rec,
+           want, f"the numpy FFT negacyclic products of the same chain "
+           f"(rounding error at most {max(fft_errs):.2e})")
+    say(f"timing: slice 10 chain of {CHAIN} mul_e (HRLK) at {w_shape}: runs "
+        f"{[round(r, 3) for r in runs]} ms, best {best:.3f} ms = "
+        f"{best / CHAIN:.3f} ms per op = "
+        f"{BATCH * CHAIN / (best / 1e3):.1f} ct-mul/s; peak device memory "
+        f"{chain_peak / 2**30:.2f} GiB over the chain, {path_peak / 2**30:.2f}"
+        f" GiB over the path (of which {held_before / 2**30:.2f} GiB were "
+        f"held before the phase); launches per op {w_per_op} [{card}]")
+    del rec, cout, want, product
+    # each widened kernel against plain at the path's shapes, batch 8; K9 on
+    # [8, 2^15] under a 30-bit and a 31-bit prime; K12 at n = 2^15
+    gen = prng.Gen(SEED + 21)
+    w_cases = kernel_check.cases(w_param, PARITY_BATCH, dev, gen, K=W_K)
+    for q in (ntt.CRT_PRIMES_TFHE[0], ntt.CRT_PRIMES[0]):
+        x9 = prng.uniform_mod(gen, (PARITY_BATCH, W_N), q, dev)
+        w_cases += [kernel_check.ntt_case(
+            f"slice 10 [{PARITY_BATCH}, {W_N}] q={q} "
+            f"{'inverse' if inv else 'forward'}", x9, q, inv)
+            for inv in (False, True)]
+    w_cases += [c for c in kernel_check.bench_cases(W_N, PARITY_BATCH, dev,
+                                                    gen)
+                if c.name == "ntt_smem_ceiling"]
+    for case in w_cases:
+        got, want = case.kernel(), case.plain()
+        torch.cuda.synchronize()
+        check(case, got, want)
+    say(f"parity: slice 10 at n = {W_N}, batch {PARITY_BATCH}: "
+        f"{len(w_cases)} variants of {sorted({c.name for c in w_cases})} == "
+        f"plain (torch.equal)")
+    del w_cases, case, got, want, x9
+    # each at the path's shape (B = 128, operands drawn on the card), and K9
+    # on [128, 2^15], on the device alone, beside its bound
+    t_cases = kernel_check.cases(
+        w_param, BATCH, dev, gen, K=W_K,
+        res=prng.device_residues(SEED + 22, dev))
+    q9 = ntt.CRT_PRIMES[0]
+    x9 = prng.uniform_mod(gen, (BATCH, W_N), q9, dev)
+    t_cases += [kernel_check.ntt_case(
+        f"[{BATCH}, {W_N}] q={q9} {'inverse' if inv else 'forward'}", x9, q9,
+        inv) for inv in (False, True)]
+    busy = torch.zeros(1 << 28, dtype=torch.int32, device=dev)
+    w_ms = {}
+    for case in t_cases:
+        case.kernel()
+        a_ms = queued_ms(case.kernel, 10, busy)
+        b = bound(case.bytes, case.ops)
+        if a_ms < b.ms:
+            raise RuntimeError(f"slice 10 {case.name} [{case.label}]: "
+                               f"{a_ms:.4f} ms is under its bound {b}")
+        w_ms[case.label] = a_ms
+        say(f"timing: slice 10 {case.name:13s} {case.label:44s} on the "
+            f"device alone {a_ms:8.4f} ms, bound {b.ms:.4f} ms by {b.term} "
+            f"(bytes {b.bytes_ms:.4f}, issue {b.issue_ms:.4f}, ALU "
+            f"{b.alu_ms:.4f}, FMA {b.fma_ms:.4f}): {b.ms / a_ms:.3f} of it; "
+            f"{w_per_op.get(case.name, 0)} launches of {case.name} per "
+            f"mul_e [{card}]")
+    del busy
+    per_sm = alu_bench.resident_blocks(dev, n=W_N)[0]
+    ceil = alu_bench.ntt_smem_ceiling(dev, n=W_N, B=per_sm * sms,
+                                      reps=CEILING_REPS)
+    (xin,), rows = ceil["operands"], [0, 1, ceil["B"] - 2, ceil["B"] - 1]
+    hold("ntt_smem_ceiling", f"slice 10: the timed launch, reps="
+         f"{ceil['reps']} B={ceil['B']} n={W_N}", ceil["out"][rows],
+         alu_bench.ntt_smem_ceiling_plain(xin[rows], ceil["q"],
+                                          ceil["reps"]))
+    k1 = next(c for c in t_cases if c.name == "ntt_multi"
+              and c.label.startswith("forward Q "))
+    k1_rate = k1.butterflies / (w_ms[k1.label] * 1e-3)
+    bf_bound = 1e3 / bound(0, kernel_check.BUTTERFLY_OPS).ms
+    say(f"ceiling: slice 10, n = {W_N}: B={ceil['B']} ({per_sm} resident "
+        f"block(s) x {sms} SMs), reps={CEILING_REPS}: "
+        f"{ceil['butterflies_per_sec']:.4e} butterflies/s = "
+        f"{ceil['butterflies_per_sec'] / bf_bound:.3f} of the bound's "
+        f"{bf_bound:.4e} (its timed launch == plain on 4 polynomials); K1's "
+        f"forward Q at the path's shape {k1_rate:.4e} butterflies/s = "
+        f"{k1_rate / ceil['butterflies_per_sec']:.3f} of it [{card}]")
+    del t_cases, k1, ceil, xin, x9, w, wx, wy, whk, w_sigs
+    torch.cuda.empty_cache()
+    phase_done(f"18 (slice 10: ring degree 2^15, mul_e HRLK at {w_shape}) "
+               f"[{card}]")
 
     launches = {k.name: sum(c[k.name] for c in path_launches.values())
                 for k in _cuda.KERNELS}

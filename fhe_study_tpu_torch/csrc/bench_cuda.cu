@@ -7,7 +7,8 @@
 //     that stays in shared memory: one load, one store, device memory out of
 //     the way.  Each transform is the forward chain of radix_chain.cuh
 //     (RadixPasses over the swizzled buffer, the passes that K1-K8 run), at
-//     K1's block shape (kRadixThreads threads, kRadixBlocks blocks an SM),
+//     K1's block shape (radix_chain.cuh's OneBuffer: kRadixThreads threads
+//     and kRadixBlocks blocks an SM, 512 threads and one block at 2^15),
 //     so its rate is the ceiling of the chain those kernels run: integer
 //     issue, each pass's shared-memory words and twiddle loads, and its
 //     ceil(log n / 4) barriers.  The loop over reps holds one copy of the
@@ -29,13 +30,14 @@ namespace fhe {
 namespace {
 
 template <int LOGN>
-__global__ void __launch_bounds__(kRadixThreads, kRadixBlocks)
+__global__ void __launch_bounds__(OneBuffer<LOGN>::threads,
+                                  OneBuffer<LOGN>::blocks)
 ntt_smem_ceiling_kernel(const uint32_t* __restrict__ x,
                         uint32_t* __restrict__ out,
                         const uint32_t* __restrict__ tw,
                         const uint32_t* __restrict__ tw_sh, uint32_t q,
                         int reps) {
-  using S = RadixShape<LOGN>;
+  using S = typename OneBuffer<LOGN>::Shape;
   constexpr int n = S::n;
   extern __shared__ uint32_t a[];
   const uint32_t* row = x + static_cast<size_t>(blockIdx.x) * n;
@@ -45,7 +47,7 @@ ntt_smem_ceiling_kernel(const uint32_t* __restrict__ x,
   __syncthreads();
 #pragma unroll 1
   for (int r = 0; r < reps; ++r) {
-    RadixPasses<LOGN, 0, S::passes, false>::run(a, tw, tw_sh, q);
+    RadixPasses<LOGN, 0, S::passes, false, S::threads>::run(a, tw, tw_sh, q);
   }
   uint4* o4 =
       reinterpret_cast<uint4*>(out + static_cast<size_t>(blockIdx.x) * n);
@@ -58,7 +60,7 @@ ntt_smem_ceiling_kernel(const uint32_t* __restrict__ x,
 struct CeilingLaunch {
   template <int LOGN, typename... Args>
   static int run(Args... args) {
-    return radix_launch<LOGN>(ntt_smem_ceiling_kernel<LOGN>, args...);
+    return one_buffer_launch<LOGN>(ntt_smem_ceiling_kernel<LOGN>, args...);
   }
 };
 
@@ -67,7 +69,7 @@ struct CeilingLaunch {
 struct CeilingResident {
   template <int LOGN>
   static int run(int* per_sm) {
-    using S = RadixShape<LOGN>;
+    using S = typename OneBuffer<LOGN>::Shape;
     const int smem = S::n * static_cast<int>(sizeof(uint32_t));
     cudaError_t err = allow_smem(ntt_smem_ceiling_kernel<LOGN>, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -177,8 +179,9 @@ extern "C" int fhe_ntt_smem_ceiling(const uint32_t* x, uint32_t* out,
   if (B < 1 || reps < 0 || misaligned(out)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return by_logn<CeilingLaunch>(logn, threads, smem, B, stream, x, out, tw,
-                                tw_sh, static_cast<uint32_t>(q), reps);
+  return by_logn_wide<CeilingLaunch>(logn, threads, smem, B, stream, x, out,
+                                     tw, tw_sh, static_cast<uint32_t>(q),
+                                     reps);
 }
 
 // `threads` must be a multiple of kAluThreads; the wrapper sees to it.
@@ -212,5 +215,5 @@ extern "C" int fhe_bench_resident(int op, int logn, int* per_sm, int* sms) {
                                                         kAluThreads, 0);
     return static_cast<int>(err);
   }
-  return by_logn<CeilingResident>(logn, per_sm);
+  return by_logn_wide<CeilingResident>(logn, per_sm);
 }

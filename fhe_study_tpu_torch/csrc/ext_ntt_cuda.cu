@@ -4,8 +4,9 @@
 //                  (_ext_ntt_kernel)
 // on the register-resident chain of radix_chain.cuh; ntt_cuda.cu's header
 // says what bounds the chain kernels.  Its own translation unit, so that its
-// 21 unrolled instances (per log n and source count) compile beside the
-// others.
+// 24 unrolled instances (per log n, 2^8 .. 2^15, and source count) compile
+// beside the others; at 2^15 one block of 512 threads an SM (radix_chain.cuh's
+// OneBuffer).
 //
 // The entry launches on the given stream and returns cudaGetLastError(); a
 // refused launch never runs, so the caller raises.
@@ -32,12 +33,13 @@ namespace {
 // alpha: sharing them would keep (Ls + 1) n words per polynomial on chip
 // (320 KB at n = 2^14, Ls = 4) or send them through device memory.
 template <int LOGN, int LS>
-__global__ void __launch_bounds__(kRadixThreads, kRadixBlocks)
+__global__ void __launch_bounds__(OneBuffer<LOGN>::threads,
+                                  OneBuffer<LOGN>::blocks)
 ext_ntt_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
                const uint32_t* __restrict__ ext,
                const uint32_t* __restrict__ tw,
                const uint32_t* __restrict__ tw_sh, int Ls, int Ld, int B) {
-  using S = RadixShape<LOGN>;
+  using S = typename OneBuffer<LOGN>::Shape;
   constexpr int n = S::n;
   constexpr int c0 = S::fwd_c(0);
   extern __shared__ uint32_t a[];
@@ -61,7 +63,7 @@ ext_ntt_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
     radix_store<c0>(a, r, base);
   }
   __syncthreads();
-  RadixPasses<LOGN, 1, S::passes, false>::run(a, w, wsh, q);
+  RadixPasses<LOGN, 1, S::passes, false, S::threads>::run(a, w, wsh, q);
   uint4* o = reinterpret_cast<uint4*>(out + (static_cast<size_t>(p) * B + b) * n);
   for (int i = threadIdx.x; i < n / 4; i += S::threads) {
     const int sw = radix_swizzle(4 * i);
@@ -74,7 +76,7 @@ struct ExtNttLaunch {
   struct F {
     template <int LOGN, typename... Args>
     static int run(Args... args) {
-      return radix_launch<LOGN>(ext_ntt_kernel<LOGN, LS>, args...);
+      return one_buffer_launch<LOGN>(ext_ntt_kernel<LOGN, LS>, args...);
     }
   };
 };
@@ -96,13 +98,16 @@ extern "C" int fhe_ext_ntt(const uint32_t* x, uint32_t* out,
   const int nb = static_cast<int>(blocks);
   switch (Ls) {
     case 2:
-      return by_logn<ExtNttLaunch<2>::F>(logn, threads, smem, nb, stream, x,
-                                         out, ext, tw, tw_sh, Ls, Ld, B);
+      return by_logn_wide<ExtNttLaunch<2>::F>(logn, threads, smem, nb, stream,
+                                              x, out, ext, tw, tw_sh, Ls, Ld,
+                                              B);
     case 4:
-      return by_logn<ExtNttLaunch<4>::F>(logn, threads, smem, nb, stream, x,
-                                         out, ext, tw, tw_sh, Ls, Ld, B);
+      return by_logn_wide<ExtNttLaunch<4>::F>(logn, threads, smem, nb, stream,
+                                              x, out, ext, tw, tw_sh, Ls, Ld,
+                                              B);
     default:
-      return by_logn<ExtNttLaunch<0>::F>(logn, threads, smem, nb, stream, x,
-                                         out, ext, tw, tw_sh, Ls, Ld, B);
+      return by_logn_wide<ExtNttLaunch<0>::F>(logn, threads, smem, nb, stream,
+                                              x, out, ext, tw, tw_sh, Ls, Ld,
+                                              B);
   }
 }

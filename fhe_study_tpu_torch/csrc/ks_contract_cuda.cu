@@ -20,7 +20,8 @@
 // half finds them in L2; the key rows are shared by the batch) and one word
 // out, against log n / 2 butterflies of 13 instructions and R Montgomery
 // products with their adds (8 + 3): the issue rate, at every R the paths
-// use.
+// use.  n = 2^8 .. 2^15, at radix_chain.cuh's one-buffer block shape
+// (OneBuffer).
 //
 // The entry launches on the given stream and returns cudaGetLastError(); a
 // refused launch never runs, so the caller raises.
@@ -35,7 +36,8 @@ namespace fhe {
 namespace {
 
 template <int LOGN>
-__global__ void __launch_bounds__(kRadixThreads, kRadixBlocks)
+__global__ void __launch_bounds__(OneBuffer<LOGN>::threads,
+                                  OneBuffer<LOGN>::blocks)
 ks_contract_kernel(const uint32_t* __restrict__ edm,
                    const uint32_t* __restrict__ kb,
                    const uint32_t* __restrict__ ka,
@@ -44,7 +46,7 @@ ks_contract_kernel(const uint32_t* __restrict__ edm,
                    const uint32_t* __restrict__ twinv_sh,
                    const uint32_t* __restrict__ cons, int R, int Lp, int B,
                    int vec) {
-  using S = RadixShape<LOGN>;
+  using S = typename OneBuffer<LOGN>::Shape;
   constexpr int n = S::n;
   constexpr int last = S::passes - 1;
   constexpr int cl = S::inv_c(last);
@@ -88,7 +90,7 @@ ks_contract_kernel(const uint32_t* __restrict__ edm,
     radix_store<0>(a, x, base);
   }
   __syncthreads();
-  RadixPasses<LOGN, 1, last, true>::run(a, w, wsh, c.q);
+  RadixPasses<LOGN, 1, last, true, S::threads>::run(a, w, wsh, c.q);
   uint32_t* o = out + (static_cast<size_t>(h) * Lp * B + pb) * n;
 #pragma unroll 1
   for (int g = 0; g < S::groups; ++g) {
@@ -106,7 +108,7 @@ ks_contract_kernel(const uint32_t* __restrict__ edm,
 struct KsContractLaunch {
   template <int LOGN, typename... Args>
   static int run(Args... args) {
-    return radix_launch<LOGN>(ks_contract_kernel<LOGN>, args...);
+    return one_buffer_launch<LOGN>(ks_contract_kernel<LOGN>, args...);
   }
 };
 
@@ -128,8 +130,8 @@ extern "C" int fhe_ks_contract(const uint32_t* edm, const uint32_t* kb,
       (vec && (misaligned(edm) || misaligned(kb) || misaligned(ka)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return by_logn<KsContractLaunch>(logn, threads, smem,
-                                   static_cast<int>(blocks), stream, edm, kb,
-                                   ka, out, twinv, twinv_sh, cons, R, Lp, B,
-                                   vec);
+  return by_logn_wide<KsContractLaunch>(logn, threads, smem,
+                                        static_cast<int>(blocks), stream, edm,
+                                        kb, ka, out, twinv, twinv_sh, cons, R,
+                                        Lp, B, vec);
 }

@@ -17,7 +17,8 @@
 // at n = 2^14), the twiddles of a pass in vector loads, its products
 // straight into the registers of the first pass.  One block of at most 256
 // threads per polynomial, each thread playing up to 4 virtual threads, 3
-// blocks an SM at n = 2^14.  K2 and K5 read 41-50% of their issue bound on
+// blocks an SM at n = 2^14; at n = 2^15 one block of 512 threads an SM
+// (radix_chain.cuh's OneBuffer).  K2 and K5 read 41-50% of their issue bound on
 // an H100 80GB HBM3 at 700 W (PERF.md); what is left is the instructions
 // beyond the counted butterflies (shared-memory words and their addresses,
 // twiddle loads) and the latency around the barriers.
@@ -44,7 +45,8 @@ namespace {
 // memory, and the final multiply by n^-1 * 2^32 * scale folded into the last
 // pass, whose stores are coalesced (lanes on consecutive words).
 template <int LOGN>
-__global__ void __launch_bounds__(kRadixThreads, kRadixBlocks)
+__global__ void __launch_bounds__(OneBuffer<LOGN>::threads,
+                                  OneBuffer<LOGN>::blocks)
 tensor_eval4_kernel(const uint32_t* __restrict__ x0,
                     const uint32_t* __restrict__ x1,
                     const uint32_t* __restrict__ y0,
@@ -53,7 +55,7 @@ tensor_eval4_kernel(const uint32_t* __restrict__ x0,
                     const uint32_t* __restrict__ twinv,
                     const uint32_t* __restrict__ twinv_sh,
                     const uint32_t* __restrict__ cons, int B, int vec) {
-  using S = RadixShape<LOGN>;
+  using S = typename OneBuffer<LOGN>::Shape;
   constexpr int n = S::n;
   constexpr int last = S::passes - 1;
   constexpr int cl = S::inv_c(last);
@@ -96,7 +98,7 @@ tensor_eval4_kernel(const uint32_t* __restrict__ x0,
     radix_store<0>(a, x, base);
   }
   __syncthreads();
-  RadixPasses<LOGN, 1, last, true>::run(a, w, wsh, c.q);
+  RadixPasses<LOGN, 1, last, true, S::threads>::run(a, w, wsh, c.q);
   uint32_t* o = out + static_cast<size_t>(blockIdx.x) * n;
 #pragma unroll 1
   for (int g = 0; g < S::groups; ++g) {
@@ -114,7 +116,7 @@ tensor_eval4_kernel(const uint32_t* __restrict__ x0,
 struct TensorEval4Launch {
   template <int LOGN, typename... Args>
   static int run(Args... args) {
-    return radix_launch<LOGN>(tensor_eval4_kernel<LOGN>, args...);
+    return one_buffer_launch<LOGN>(tensor_eval4_kernel<LOGN>, args...);
   }
 };
 
@@ -142,8 +144,8 @@ extern "C" int fhe_tensor_eval4(const uint32_t* x0, const uint32_t* x1,
   }
   const long long blocks = 3LL * Ld * B;
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  return by_logn<TensorEval4Launch>(logn, threads, smem,
-                                    static_cast<int>(blocks), stream, x0, x1,
-                                    y0, y1, st, out, twinv, twinv_sh, cons, B,
-                                    static_cast<int>(vec));
+  return by_logn_wide<TensorEval4Launch>(logn, threads, smem,
+                                         static_cast<int>(blocks), stream, x0,
+                                         x1, y0, y1, st, out, twinv, twinv_sh,
+                                         cons, B, static_cast<int>(vec));
 }

@@ -18,7 +18,9 @@
 // What bounds it: K1 moves 8 bytes a coefficient against (log n) / 2
 // butterflies of 13 instructions, so the issue rate; K9 moves 16, which at
 // the H100's data-sheet rates outlasts its butterflies at every log n (4.8
-// against 1.9 ps a coefficient at n = 1024), so device memory.
+// against 1.9 ps a coefficient at n = 1024), so device memory.  Both take
+// n = 2^8 .. 2^15 (K9 also 2^7) at radix_chain.cuh's one-buffer block shape
+// (OneBuffer: 512 threads and one block an SM at 2^15).
 //
 // Each entry launches on the given stream and returns cudaGetLastError(); a
 // refused launch never runs, so the caller raises.
@@ -72,7 +74,7 @@ __device__ __forceinline__ void ntt_rows(const Word* __restrict__ x,
                                          const uint32_t* __restrict__ tw_sh,
                                          const uint32_t* __restrict__ cons,
                                          int B, int use_fin, int vec) {
-  using S = RadixShape<LOGN>;
+  using S = typename OneBuffer<LOGN>::Shape;
   constexpr int n = S::n;
   extern __shared__ uint32_t a[];
   const int p = blockIdx.x / B;              // block p * B + b: row p * B + b
@@ -99,7 +101,7 @@ __device__ __forceinline__ void ntt_rows(const Word* __restrict__ x,
       radix_store<0>(a, r, base);
     }
     __syncthreads();
-    RadixPasses<LOGN, 1, last, true>::run(a, w, wsh, c.q);
+    RadixPasses<LOGN, 1, last, true, S::threads>::run(a, w, wsh, c.q);
 #pragma unroll 1
     for (int g = 0; g < S::groups; ++g) {
       const int base = radix_base(threadIdx.x + g * S::threads, cl);
@@ -124,7 +126,7 @@ __device__ __forceinline__ void ntt_rows(const Word* __restrict__ x,
       radix_store<c0>(a, r, base);
     }
     __syncthreads();
-    RadixPasses<LOGN, 1, S::passes, false>::run(a, w, wsh, c.q);
+    RadixPasses<LOGN, 1, S::passes, false, S::threads>::run(a, w, wsh, c.q);
     // lane i stores the kv words from kv * i: 16 bytes
     constexpr int kv = 16 / static_cast<int>(sizeof(Word));
     for (int i = threadIdx.x; i < n / kv; i += S::threads) {
@@ -148,7 +150,8 @@ __device__ __forceinline__ void ntt_rows(const Word* __restrict__ x,
 }
 
 template <int LOGN, int INV>
-__global__ void __launch_bounds__(kRadixThreads, kRadixBlocks)
+__global__ void __launch_bounds__(OneBuffer<LOGN>::threads,
+                                  OneBuffer<LOGN>::blocks)
 ntt_multi_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
                  const uint32_t* __restrict__ tw,
                  const uint32_t* __restrict__ tw_sh,
@@ -158,7 +161,8 @@ ntt_multi_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
 }
 
 template <int LOGN, int INV>
-__global__ void __launch_bounds__(kRadixThreads, kRadixBlocks)
+__global__ void __launch_bounds__(OneBuffer<LOGN>::threads,
+                                  OneBuffer<LOGN>::blocks)
 ntt_kernel(const long long* __restrict__ x, long long* __restrict__ out,
            const uint32_t* __restrict__ tw,
            const uint32_t* __restrict__ tw_sh,
@@ -170,7 +174,7 @@ template <int INV>
 struct NttMultiLaunch {
   template <int LOGN, typename... Args>
   static int run(Args... args) {
-    return radix_launch<LOGN>(ntt_multi_kernel<LOGN, INV>, args...);
+    return one_buffer_launch<LOGN>(ntt_multi_kernel<LOGN, INV>, args...);
   }
 };
 
@@ -178,7 +182,7 @@ template <int INV>
 struct NttLaunch {
   template <int LOGN, typename... Args>
   static int run(Args... args) {
-    return radix_launch<LOGN>(ntt_kernel<LOGN, INV>, args...);
+    return one_buffer_launch<LOGN>(ntt_kernel<LOGN, INV>, args...);
   }
 };
 
@@ -201,20 +205,22 @@ extern "C" int fhe_ntt_multi(const uint32_t* x, uint32_t* out,
   }
   const int nb = static_cast<int>(blocks);
   if (inverse) {
-    return by_logn<NttMultiLaunch<1>>(logn, threads, smem, nb, stream, x, out,
-                                      tw, tw_sh, cons, B, use_fin, vec);
+    return by_logn_wide<NttMultiLaunch<1>>(logn, threads, smem, nb, stream,
+                                           x, out, tw, tw_sh, cons, B,
+                                           use_fin, vec);
   }
-  return by_logn<NttMultiLaunch<0>>(logn, threads, smem, nb, stream, x, out,
-                                    tw, tw_sh, cons, B, use_fin, vec);
+  return by_logn_wide<NttMultiLaunch<0>>(logn, threads, smem, nb, stream, x,
+                                         out, tw, tw_sh, cons, B, use_fin,
+                                         vec);
 }
 
-// K9 at n = 2^logn under the inverse flag: by_logn's degrees, and n = 2^7,
-// the least degree of the reference's ntt_u32, which K9 alone takes (a block
-// of 8 threads, two passes of 4 and 3 stages).
+// K9 at n = 2^logn under the inverse flag: by_logn_wide's degrees, and
+// n = 2^7, the least degree of the reference's ntt_u32, which K9 alone takes
+// (a block of 8 threads, two passes of 4 and 3 stages).
 template <int INV, typename... Args>
 int ntt_by_logn(int logn, Args... args) {
   if (logn == 7) return NttLaunch<INV>::template run<7>(args...);
-  return by_logn<NttLaunch<INV>>(logn, args...);
+  return by_logn_wide<NttLaunch<INV>>(logn, args...);
 }
 
 // K9 on [B, n] int64 words under the one prime of cons (its fin n^-1 for

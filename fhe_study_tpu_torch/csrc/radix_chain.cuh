@@ -19,7 +19,7 @@
 // [c, c + 4) and that no earlier pass ran: the forward chain walks the bits
 // from log n - 1 down to 0 (passes at c = log n - 4, log n - 8, ..., the last
 // at c = 0 over the bits left), the inverse chain from 0 up (c = 0, 4, ...,
-// the last at c = log n - 4 over the bits left), so every log n from 8 to 14
+// the last at c = log n - 4 over the bits left), so every log n from 8 to 15
 // takes ceil(log n / 4) passes and ceil(log n / 4) - 1 exchanges, against the
 // log n barriers of a chain that runs one stage between two.  The forward
 // chain's last pass and the inverse chain's first both hold bits 0..3, so a
@@ -59,6 +59,15 @@ constexpr int kRadix = 1 << kRadixBits;
 // RadixShape.
 constexpr int kRadixThreads = 256;
 constexpr int kRadixBlocks = 3;
+// The kernels that hold one polynomial in shared memory (K1-K3, K5, K9 and
+// K12) also take n = 2^kWideLogN = 2^15, where the polynomial alone takes
+// 128 KB: one block an SM.  There a block runs kWideThreads threads, each
+// playing 4 virtual threads with up to 128 registers, so that the SM keeps
+// 16 warps in flight where kRadixThreads would leave it 8 (OneBuffer).  The
+// kernels with three buffers (K6, K7, K8: 384 KB at 2^15) and K10 stop at
+// 2^14 (by_logn).
+constexpr int kWideLogN = 15;
+constexpr int kWideThreads = 512;
 
 __host__ __device__ constexpr int radix_min(int a, int b) {
   return a < b ? a : b;
@@ -91,6 +100,17 @@ struct RadixShape {
   __host__ __device__ static constexpr int inv_ulo(int p) {
     return kRadixBits * p - inv_c(p);
   }
+};
+
+// Block shape of a one-buffer kernel at n = 2^LOGN: its threads, blocks an
+// SM (__launch_bounds__) and pass structure (mirrored by the default
+// max_threads of ops/ntt_cuda.py::_radix_plan).
+template <int LOGN>
+struct OneBuffer {
+  static constexpr int threads =
+      LOGN < kWideLogN ? kRadixThreads : kWideThreads;
+  static constexpr int blocks = LOGN < kWideLogN ? kRadixBlocks : 1;
+  using Shape = RadixShape<LOGN, threads>;
 };
 
 // Shared-memory word of element a: bits 0..4 XORed with h ^ (h << 1),
@@ -289,7 +309,16 @@ int radix_launch(Kernel kernel, int threads, int smem, int blocks,
   return static_cast<int>(cudaGetLastError());
 }
 
-// F::run<logn>(args...) for the ring degrees the kernels take.
+// radix_launch of a one-buffer kernel at its block shape (OneBuffer).
+template <int LOGN, typename Kernel, typename... Args>
+int one_buffer_launch(Kernel kernel, int threads, int smem, int blocks,
+                      cudaStream_t stream, Args... args) {
+  return radix_launch<LOGN, OneBuffer<LOGN>::threads>(kernel, threads, smem,
+                                                      blocks, stream, args...);
+}
+
+// F::run<logn>(args...) for the ring degrees that every radix-chain kernel
+// takes, 2^8 .. 2^14.
 template <typename F, typename... Args>
 int by_logn(int logn, Args... args) {
   switch (logn) {
@@ -302,6 +331,14 @@ int by_logn(int logn, Args... args) {
     case 14: return F::template run<14>(args...);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// F::run<logn>(args...) for the ring degrees of the one-buffer kernels:
+// by_logn's and 2^kWideLogN.
+template <typename F, typename... Args>
+int by_logn_wide(int logn, Args... args) {
+  if (logn == kWideLogN) return F::template run<kWideLogN>(args...);
+  return by_logn<F>(logn, args...);
 }
 
 }  // namespace fhe

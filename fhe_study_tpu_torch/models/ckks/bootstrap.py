@@ -91,36 +91,39 @@ def _rot_subkey(master: int, L: int, g: int) -> tuple:
 
 
 class _LazyRlk(dict):
+    # holds bk's seed, param and sk, not bk: a reference back to the
+    # BootstrapKeys that holds this cache would make a cycle, which keeps
+    # every key alive until Python's cyclic collector happens to run
     def __init__(self, bk):
         super().__init__()
-        self.bk = bk
+        self.seed, self.param, self.sk = bk.seed, bk.param, bk.sk
 
     def __missing__(self, L):
-        pL = _level(self.bk.param, L)
-        s_evals = self.bk.sk.s_evals[:L]
+        pL = _level(self.param, L)
+        s_evals = self.sk.s_evals[:L]
         self[L] = ckks_rns.hybrid_rlk_with(
             pL, ckks_rns.SecretKey(s_evals),
-            *hybrid_ks.seeded_draws(pL, _rlk_subkey(self.bk.seed, L),
+            *hybrid_ks.seeded_draws(pL, _rlk_subkey(self.seed, L),
                                     AUX_PRIMES, s_evals.device),
             K=AUX_PRIMES)
         return self[L]
 
 
 class _LazyRot(ev.RotKeys):
-    def __init__(self, bk):
+    def __init__(self, bk):                       # no cycle, as _LazyRlk
         super().__init__({})
-        self.bk = bk
+        self.seed, self.param, self.sk = bk.seed, bk.param, bk.sk
 
     def aux_count(self, L: int) -> int:
         return AUX_PRIMES
 
     def get(self, L: int, g: int):
         if (L, g) not in self.keys:
-            pL = _level(self.bk.param, L)
-            s_evals = self.bk.sk.s_evals[:L]
+            pL = _level(self.param, L)
+            s_evals = self.sk.s_evals[:L]
             self.keys[(L, g)] = hybrid_ks.galois_key_hybrid_with(
                 pL, ckks_rns.SecretKey(s_evals), g,
-                *hybrid_ks.seeded_draws(pL, _rot_subkey(self.bk.seed, L, g),
+                *hybrid_ks.seeded_draws(pL, _rot_subkey(self.seed, L, g),
                                         AUX_PRIMES, s_evals.device),
                 K=AUX_PRIMES)
         return self.keys[(L, g)]

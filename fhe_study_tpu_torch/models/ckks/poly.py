@@ -130,22 +130,25 @@ def mul_ct2(rlks: dict, x, px, y, py):
 def powers(rlks: dict, ct, param, ks: set, mul=mul_ct) -> dict:
     """{k: (ct, param)} for every k in ks (binary decomposition, memoized)."""
     memo = {1: (ct, param)}
-
-    def get(k):
-        if k not in memo:
-            hi = 1 << (k.bit_length() - 1)
-            if hi == k:
-                a, pa = get(k // 2)
-                memo[k] = mul(rlks, a, pa, a, pa)
-            else:
-                a, pa = get(hi)
-                b, pb = get(k - hi)
-                memo[k] = mul(rlks, a, pa, b, pb)
-        return memo[k]
-
     for k in sorted(ks):
-        get(k)
+        _power(memo, rlks, mul, k)
     return memo
+
+
+def _power(memo: dict, rlks: dict, mul, k: int):
+    # a module function, not a closure that calls itself: such a closure is
+    # a reference cycle, which would hold rlks and every power until Python's
+    # cyclic collector runs
+    if k not in memo:
+        hi = 1 << (k.bit_length() - 1)
+        if hi == k:
+            a, pa = _power(memo, rlks, mul, k // 2)
+            memo[k] = mul(rlks, a, pa, a, pa)
+        else:
+            a, pa = _power(memo, rlks, mul, hi)
+            b, pb = _power(memo, rlks, mul, k - hi)
+            memo[k] = mul(rlks, a, pa, b, pb)
+    return memo[k]
 
 
 def _nonconstant(coeffs) -> set:

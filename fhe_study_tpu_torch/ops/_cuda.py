@@ -172,22 +172,39 @@ U32 = ctypes.c_uint
 I64 = ctypes.c_longlong
 
 
+# The ring degrees (log2 n, both ends included) that a kernel of the radix
+# chain takes: the kernels that hold one polynomial in shared memory reach
+# 2^15 (csrc/radix_chain.cuh, by_logn_wide; K9 also 2^7), those that hold
+# three (K6, K7, K8) and K10's clusters stop at 2^14 (by_logn).
+ONE_BUFFER_LOGN = (8, 15)
+K9_LOGN = (7, 15)
+NARROW_LOGN = (8, 14)
+
+
 class Kernel:
     """One C entry point of the kernel library and its count of launches.
 
     ``launches`` grows by one per launch of the kernel and nowhere else.
     ``source`` is the CUDA file and ``replaces`` the TPU kernel it ports
-    (file:line of the function that reaches ``pl.pallas_call``)."""
+    (file:line of the function that reaches ``pl.pallas_call``).  ``logn``
+    is the range of ring degrees it takes (``log2_degree``), None for a
+    kernel without one."""
 
     def __init__(self, name: str, symbol: str, source: str, replaces: str,
-                 *argtypes):
+                 *argtypes, logn: tuple | None = None):
         self.name = name
         self.symbol = symbol
         self.source = source
         self.replaces = replaces
         self.argtypes = [*argtypes, PTR]          # + the CUDA stream
+        self.logn = logn
         self.launches = 0
         self._fn = None
+
+    @property
+    def degrees(self) -> range:
+        """The log2 n this kernel takes, in order."""
+        return range(self.logn[0], self.logn[1] + 1)
 
     def launch(self, device: torch.device, *args) -> None:
         if self._fn is None:
@@ -209,56 +226,61 @@ _EXT_CU = "fhe_study_tpu_torch/csrc/ext_cuda.cu"
 NTT_MULTI = Kernel("ntt_multi", "fhe_ntt_multi",
                    "fhe_study_tpu_torch/csrc/ntt_multi_cuda.cu",
                    "fhe_study_tpu/ops/ntt_pallas.py:404",
-                   PTR, PTR, PTR, PTR, PTR, *([INT] * 8))
+                   PTR, PTR, PTR, PTR, PTR, *([INT] * 8),
+                   logn=ONE_BUFFER_LOGN)
 TENSOR_EVAL4 = Kernel("tensor_eval4", "fhe_tensor_eval4", _NTT_CU,
                       "fhe_study_tpu/ops/ntt_pallas.py:794",
                       PTR, PTR, PTR, PTR, *([I64] * 8),
-                      PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT)
+                      PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT,
+                      logn=ONE_BUFFER_LOGN)
 KS_CONTRACT = Kernel("ks_contract", "fhe_ks_contract",
                      "fhe_study_tpu_torch/csrc/ks_contract_cuda.cu",
                      "fhe_study_tpu/ops/ntt_pallas.py:1273",
-                     *([PTR] * 7), *([INT] * 7))
+                     *([PTR] * 7), *([INT] * 7), logn=ONE_BUFFER_LOGN)
 BASE_EXTEND = Kernel("base_extend", "fhe_base_extend", _EXT_CU,
                      "fhe_study_tpu/ops/ext_pallas.py:133",
                      PTR, PTR, PTR, PTR, INT, INT, I64, INT, INT)
 EXT_NTT = Kernel("ext_ntt", "fhe_ext_ntt",
                  "fhe_study_tpu_torch/csrc/ext_ntt_cuda.cu",
                  "fhe_study_tpu/ops/ntt_pallas.py:905",
-                 PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT)
+                 PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT,
+                 logn=ONE_BUFFER_LOGN)
 _MUL4_CU = "fhe_study_tpu_torch/csrc/tensor_mul4_cuda.cu"
 _TENSOR_MUL4_ARGS = (PTR, PTR, PTR, PTR, *([I64] * 8), *([PTR] * 7),
                      *([INT] * 6))
 TENSOR_MUL4 = Kernel("tensor_mul4", "fhe_tensor_mul4", _MUL4_CU,
                      "fhe_study_tpu/ops/ntt_pallas.py:677",
-                     *_TENSOR_MUL4_ARGS)
+                     *_TENSOR_MUL4_ARGS, logn=NARROW_LOGN)
 # the stacked-operand form: the same __global__ function, fed row strides
 TENSOR_MUL = Kernel("tensor_mul", "fhe_tensor_mul4", _MUL4_CU,
                     "fhe_study_tpu/ops/ntt_pallas.py:604",
-                    *_TENSOR_MUL4_ARGS)
+                    *_TENSOR_MUL4_ARGS, logn=NARROW_LOGN)
 KS_FUSED = Kernel("ks_fused", "fhe_ks_fused",
                   "fhe_study_tpu_torch/csrc/ks_fused_cuda.cu",
                   "fhe_study_tpu/ops/ntt_pallas.py:1103",
                   PTR, I64, I64, PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR,
-                  *([INT] * 7))
+                  *([INT] * 7), logn=NARROW_LOGN)
 KS_FUSED_EVAL = Kernel("ks_fused_eval", "fhe_ks_fused_eval",
                        "fhe_study_tpu_torch/csrc/ks_fused_eval_cuda.cu",
                        "fhe_study_tpu/ops/ntt_pallas.py:1216",
                        PTR, I64, I64, PTR, PTR, PTR, I64, I64, PTR, I64, I64,
-                       PTR, PTR, PTR, PTR, PTR, PTR, PTR, *([INT] * 7))
+                       PTR, PTR, PTR, PTR, PTR, PTR, PTR, *([INT] * 7),
+                       logn=NARROW_LOGN)
 NTT = Kernel("ntt", "fhe_ntt", "fhe_study_tpu_torch/csrc/ntt_multi_cuda.cu",
              "fhe_study_tpu/ops/ntt_pallas.py:1296",
-             PTR, PTR, PTR, PTR, PTR, *([INT] * 6))
+             PTR, PTR, PTR, PTR, PTR, *([INT] * 6), logn=K9_LOGN)
 BLIND_ROTATE = Kernel("blind_rotate", "fhe_blind_rotate",
                       "fhe_study_tpu_torch/csrc/blind_rotate_cuda.cu",
                       "fhe_study_tpu/ops/blind_rotate_pallas.py:392",
-                      *([PTR] * 12), *([INT] * 9))
+                      *([PTR] * 12), *([INT] * 9), logn=NARROW_LOGN)
 BASE_EXTEND_SUM = Kernel("base_extend_sum", "fhe_base_extend_sum", _EXT_CU,
                          "fhe_study_tpu/ops/ext_pallas.py:207",
                          PTR, PTR, PTR, PTR, INT, INT, I64, INT)
 _BENCH_CU = "fhe_study_tpu_torch/csrc/bench_cuda.cu"
 NTT_SMEM_CEILING = Kernel("ntt_smem_ceiling", "fhe_ntt_smem_ceiling",
                           _BENCH_CU, "fhe_study_tpu/ops/vpu_bench.py:168",
-                          PTR, PTR, PTR, PTR, U32, *([INT] * 5))
+                          PTR, PTR, PTR, PTR, U32, *([INT] * 5),
+                          logn=ONE_BUFFER_LOGN)
 ALU_RATE = Kernel("alu_rate", "fhe_alu_rate", _BENCH_CU,
                   "fhe_study_tpu/ops/vpu_bench.py:86",
                   PTR, PTR, PTR, PTR, I64, INT, INT, U32, U32)
@@ -311,14 +333,12 @@ def aligned(t: torch.Tensor) -> bool:
     return t.data_ptr() % 16 == 0
 
 
-MIN_LOG_N, MAX_LOG_N = 8, 14      # by_logn's range, csrc/radix_chain.cuh
-K9_MIN_LOG_N = 7                  # K9 alone also takes n = 2^7 (fhe_ntt)
-
-
-def log2_degree(n: int, min_logn: int = MIN_LOG_N) -> int:
-    """log2 n for the ring degrees a kernel supports (2^min_logn .. 2^14)."""
+def log2_degree(n: int, kernel: Kernel) -> int:
+    """log2 n for a ring degree that ``kernel`` takes (its ``logn``);
+    raises, naming the kernel and its range, for any other."""
+    lo, hi = kernel.logn
     logn = n.bit_length() - 1
-    if n != 1 << logn or not min_logn <= logn <= MAX_LOG_N:
-        raise ValueError(f"ring degree {n}: the CUDA kernel supports "
-                         f"n = 2^{min_logn} .. 2^{MAX_LOG_N}")
+    if n != 1 << logn or not lo <= logn <= hi:
+        raise ValueError(f"ring degree {n}: the CUDA kernel {kernel.name} "
+                         f"takes n = 2^{lo} .. 2^{hi}")
     return logn

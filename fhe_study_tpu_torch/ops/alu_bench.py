@@ -221,7 +221,8 @@ def resident_blocks(device, op: str | None = None, n: int | None = None):
     fn.restype = ctypes.c_int
     with torch.cuda.device(device):
         err = fn(-1 if op is None else OPS.index(op),
-                 0 if n is None else _cuda.log2_degree(n),
+                 0 if n is None
+                 else _cuda.log2_degree(n, _cuda.NTT_SMEM_CEILING),
                  ctypes.byref(per_sm), ctypes.byref(sms))
     if err != 0:
         raise RuntimeError(f"fhe_bench_resident: CUDA error {err}")
@@ -301,9 +302,9 @@ def ntt_smem_ceiling_plain(x, q: int, reps: int):
 
 
 def ntt_smem_ceiling_kernel(x, q: int, reps: int):
-    """K12: one block per polynomial of x int32 [B, n] on K1's plan
-    (``ntt_cuda._radix_plan``), the polynomial in shared memory for all
-    ``reps`` chains."""
+    """K12: one block per polynomial of x int32 [B, n], n = 2^8 .. 2^15, on
+    K1's plan (``ntt_cuda._radix_plan``), the polynomial in shared memory for
+    all ``reps`` chains."""
     _check_q(q)
     dev = x.device
     _cuda.check(x, "x", dev)
@@ -311,7 +312,7 @@ def ntt_smem_ceiling_kernel(x, q: int, reps: int):
         raise ValueError(f"x has shape {tuple(x.shape)}, reps={reps}: need "
                          "[B, n] and reps >= 0")
     B, n = x.shape
-    logn = _cuda.log2_degree(n)
+    logn = _cuda.log2_degree(n, _cuda.NTT_SMEM_CEILING)
     out = torch.empty_like(x)
     if B == 0:
         return out

@@ -72,7 +72,7 @@ def supported(param, beta: int, l: int) -> bool:
     p1, p2 = ntt_mod.CRT_PRIMES_TFHE
     w = beta.bit_length() - 1
     return (n & (n - 1) == 0
-            and _cuda.MIN_LOG_N <= n.bit_length() - 1 <= _cuda.MAX_LOG_N
+            and n.bit_length() - 1 in _cuda.BLIND_ROTATE.degrees
             and beta == (1 << w) and 1 <= w and w * l <= 64
             and beta <= min(p1, p2)
             and (param.k + 1) * l * n * beta < (1 << 26)
@@ -132,7 +132,7 @@ def blind_rotate_kernel(shifts, acc0, ev1, ev1s, ev2, ev2s, n: int, w: int):
                     ("ev2s", ev2s)):
         _cuda.check(e, name, dev)
     steps, B, C, l = _check_shapes(shifts, acc0, ev1, ev1s, ev2, ev2s, n, w)
-    logn = _cuda.log2_degree(n)
+    logn = _cuda.log2_degree(n, _cuda.BLIND_ROTATE)
     plan = _plan(C, l, n, all(_cuda.aligned(e) for e in (ev1, ev1s, ev2,
                                                           ev2s)))
     if plan.smem_bytes > _SMEM_LIMIT:

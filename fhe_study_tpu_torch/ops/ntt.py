@@ -91,7 +91,7 @@ CRT_PRIMES_TFHE = (998244353, 754974721)
 def k9_gate(q: int, n: int) -> bool:
     """Whether the reference sends a single-prime transform to its Pallas
     kernel (``_pallas_ok`` of fhe_study_tpu/ops/ntt.py): q < 2^31 and n a
-    multiple of 128.  The port launches K9 there (up to n = 2^14; above it
+    multiple of 128.  The port launches K9 there (up to n = 2^15; above it
     the card raises)."""
     return q < (1 << 31) and n >= 128 and n % 128 == 0
 
@@ -133,7 +133,7 @@ def _single(a, q: int, inverse: bool):
     if n == 1:
         return a
     if k9_gate(q, n) and _cuda.on_cuda(a):
-        # raises for n above 2^14, as every kernel does
+        # raises for n above 2^15, as every kernel does outside its range
         return ntt_cuda.ntt_kernel(a.contiguous(), q, inverse=inverse)
     # Everywhere else the plain stage loop: K9's plain version on the CPU,
     # and outside the gate, where the reference runs XLA's stage loop, the

@@ -97,7 +97,9 @@ def _tensor_fin(dst: tuple, n: int, scale: tuple | None) -> tuple:
 # -- the register-resident chains of K1-K3, K5-K9 and K12 -------------------
 
 RADIX_BITS = 4          # kRadixBits of csrc/radix_chain.cuh: 16 words a thread
-RADIX_THREADS = 256     # kRadixThreads: the most threads a block runs
+RADIX_THREADS = 256     # kRadixThreads: the most threads a block runs ...
+WIDE_LOGN = 15          # ... below n = 2^kWideLogN; there the one-buffer
+WIDE_THREADS = 512      # kernels run kWideThreads (OneBuffer)
 MUL4_THREADS = 512      # kMul4Threads of csrc/tensor_mul4.cuh (K6) and
                         # kKsThreads of csrc/ks_fused.cuh (K7, K8) ...
 MUL4_BUFFERS = 3        # ... which hold three polynomials in shared memory
@@ -118,15 +120,18 @@ class RadixPlan(NamedTuple):
 
 
 @lru_cache(maxsize=None)
-def _radix_plan(logn: int, max_threads: int = RADIX_THREADS,
+def _radix_plan(logn: int, max_threads: int | None = None,
                 buffers: int = 1) -> RadixPlan:
     """The pass structure of csrc/radix_chain.cuh's RadixShape<logn,
     max_threads> for a kernel that holds ``buffers`` polynomials in shared
-    memory: the forward chain's passes at c = log n - 4, log n - 8, .., then
-    c = 0 over the bits left; the inverse chain's at c = 0, 4, .., then
-    c = log n - 4 over the bits left.  The wrappers hand the kernels
-    ``threads`` and ``smem_bytes``, which the kernels check against their
-    own."""
+    memory (max_threads None: the one-buffer kernels' block shape,
+    OneBuffer<logn>): the forward chain's passes at c = log n - 4,
+    log n - 8, .., then c = 0 over the bits left; the inverse chain's at
+    c = 0, 4, .., then c = log n - 4 over the bits left.  The wrappers hand
+    the kernels ``threads`` and ``smem_bytes``, which the kernels check
+    against their own."""
+    if max_threads is None:
+        max_threads = WIDE_THREADS if logn >= WIDE_LOGN else RADIX_THREADS
     r = RADIX_BITS
     fwd, inv = [], []
     for p in range(-(-logn // r)):
@@ -278,7 +283,7 @@ def ntt_multi_kernel(x, qs: tuple, inverse: bool = False, fin=None):
     dev = x.device
     _cuda.check(x, "x", dev)
     L, n = x.shape[0], x.shape[-1]
-    logn = _cuda.log2_degree(n)
+    logn = _cuda.log2_degree(n, _cuda.NTT_MULTI)
     if L != len(qs):
         raise ValueError(f"x has {L} rows for {len(qs)} primes")
     qs = tuple(qs)
@@ -300,7 +305,7 @@ def ntt_multi_kernel(x, qs: tuple, inverse: bool = False, fin=None):
 
 def ntt_kernel(x, q: int, inverse: bool = False):
     """K9: K1's kernel on int64 words, one block per polynomial of the flat
-    batch (``_radix_plan``); x int64 [..., n], n = 2^7 .. 2^14, with values
+    batch (``_radix_plan``); x int64 [..., n], n = 2^7 .. 2^15, with values
     in [0, q), q < 2^31, read as 16-byte vectors by the inverse when x is
     16-byte aligned and word by word otherwise.  Returns int64 of the same
     shape."""
@@ -309,7 +314,7 @@ def ntt_kernel(x, q: int, inverse: bool = False):
     if not 1 < q < (1 << 31):
         raise ValueError(f"modulus {q}: the kernel needs q < 2^31")
     n = x.shape[-1]
-    logn = _cuda.log2_degree(n, _cuda.K9_MIN_LOG_N)
+    logn = _cuda.log2_degree(n, _cuda.NTT)
     out = torch.empty_like(x)
     B = x.numel() // n
     if B == 0:
@@ -350,7 +355,7 @@ def tensor_eval4_kernel(x0, x1, y0, y1, dst: tuple, scale=None):
     strided views ([Ld, B.., n] with a contiguous last axis)."""
     dev = x0.device
     Ld, n = len(dst), x0.shape[-1]
-    logn = _cuda.log2_degree(n)
+    logn = _cuda.log2_degree(n, _cuda.TENSOR_EVAL4)
     views = _row_views(_OPERANDS, (x0, x1, y0, y1), Ld, dev)
     B = views[0].shape[1]
     out = torch.empty((Ld,) + tuple(x0.shape[1:-1]) + (3, n),
@@ -376,7 +381,7 @@ def ks_contract_kernel(edm, kb, ka, primes: tuple):
     word by word otherwise."""
     dev = edm.device
     R, Lp, n = edm.shape[0], edm.shape[1], edm.shape[-1]
-    logn = _cuda.log2_degree(n)
+    logn = _cuda.log2_degree(n, _cuda.KS_CONTRACT)
     _cuda.check(edm, "edm", dev)
     for name, k in (("kb", kb), ("ka", ka)):
         _cuda.check(k, name, dev)
@@ -409,7 +414,7 @@ def ext_ntt_kernel(x, src: tuple, dst: tuple):
     _cuda.check(x, "x", dev)
     ext_cuda._check_src(src)
     Ls, Ld, n = len(src), len(dst), x.shape[-1]
-    logn = _cuda.log2_degree(n)
+    logn = _cuda.log2_degree(n, _cuda.EXT_NTT)
     if x.shape[0] != Ls:
         raise ValueError(f"x has {x.shape[0]} rows for {Ls} primes")
     out = torch.empty((Ld,) + tuple(x.shape[1:]), dtype=torch.int32,
@@ -428,10 +433,10 @@ def ext_ntt_kernel(x, src: tuple, dst: tuple):
 
 
 def _tensor_mul4_launch(kernel, x0, x1, y0, y1, dst: tuple, scale, src):
+    logn = _cuda.log2_degree(x0.shape[-1], kernel)
     dev = x0.device
     dst = tuple(dst)
     Ld, n = len(dst), x0.shape[-1]
-    logn = _cuda.log2_degree(n)
     if src is not None:
         src = tuple(src)
         ext_cuda._check_src(src)
@@ -492,10 +497,10 @@ def ks_fused_kernel(c_limbs, kb, ka, primes: tuple, src_primes: tuple):
     register-resident chain (``_radix_plan`` at MUL4_THREADS threads and
     three buffers).  c_limbs [R, B.., n] may be a strided view; kb/ka
     [R, Lp, n] are read as uint4 when both are 16-byte aligned."""
+    logn = _cuda.log2_degree(c_limbs.shape[-1], _cuda.KS_FUSED)
     dev = c_limbs.device
     primes = tuple(primes)
     Lp, n = len(primes), c_limbs.shape[-1]
-    logn = _cuda.log2_degree(n)
     c = _ks_operands(c_limbs, kb, ka, primes)
     R, B = c.shape[0], c.shape[1]
     out = torch.empty((2, Lp) + tuple(c_limbs.shape[1:]), dtype=torch.int32,
@@ -520,10 +525,10 @@ def ks_fused_eval_kernel(c_limbs, kb, ka, primes: tuple, src_primes: tuple,
     transforms a block).  c_limbs [R, B.., n] and the two ``adds``
     [Lp, B.., n] may be strided views.  Returns (e0, e1, r0, r1), each
     [Lp, B.., n]."""
+    logn = _cuda.log2_degree(c_limbs.shape[-1], _cuda.KS_FUSED_EVAL)
     dev = c_limbs.device
     primes = tuple(primes)
     Lp, n = len(primes), c_limbs.shape[-1]
-    logn = _cuda.log2_degree(n)
     c = _ks_operands(c_limbs, kb, ka, primes)
     R, B = c.shape[0], c.shape[1]
     a0, a1 = _row_views(("adds[0]", "adds[1]"), adds, Lp, dev)

@@ -221,14 +221,29 @@ def equal(a, b) -> bool:
                                       for x, y in zip(fa, fb))
 
 
-def cases(param, batch: int, device, gen: prng.Gen) -> list:
-    """One Case per kernel variant that the main path launches."""
-    qs, ps, L, n = param.qs, param.ps, param.L, param.n
-    ks = ks_ext_primes(param)
-    both = qs + ks
+def takes(name: str, n: int) -> bool:
+    """Kernel ``name`` (of ops/_cuda.KERNELS) takes ring degree n: it has no
+    ring degree, or n lies in its range."""
+    k = next(k for k in _cuda.KERNELS if k.name == name)
+    return k.logn is None or (n.bit_length() - 1 in k.degrees
+                              and n & (n - 1) == 0)
 
-    def res(primes, shape):
-        return prng.uniform_mod_multi(gen, shape, primes, device)
+
+def cases(param, batch: int, device, gen: prng.Gen, K: int = 2,
+          res=None) -> list:
+    """One Case per kernel variant that the main path launches, with K
+    auxiliary primes for the hybrid key; the kernels that hold three
+    polynomials (K6, K7, K8) only where they take param's ring degree.
+    ``res(primes, shape)`` draws the operands (by default uniform residues
+    from gen on the host; ``prng.device_residues`` on the card)."""
+    qs, ps, L, n = param.qs, param.ps, param.L, param.n
+    ks = ks_ext_primes(param, K)
+    both = qs + ks
+    three = takes("tensor_mul4", n)
+
+    if res is None:
+        def res(primes, shape):
+            return prng.uniform_mod_multi(gen, shape, primes, device)
 
     x2q = res(qs, (batch, 2, n))                 # a CT stacked as in to_evals
     eq = [res(qs, (batch, 2, n)) for _ in range(2)]
@@ -246,11 +261,12 @@ def cases(param, batch: int, device, gen: prng.Gen) -> list:
     acc = res(both, (batch, n))
     qinv = tuple(pow(math.prod(qs), -1, p) for p in ps)
     pinv = tuple(pow(math.prod(ks), -1, q) for q in qs)
-    ct = [res(qs, (batch, n)) for _ in range(4)]     # two CTs' components
-    x4 = res(qs, (batch, 4, n))
-    out3 = res(qs, (batch, 3, n))                    # _scale_to_q's output
-    gb, ga = (torch.stack([res(qs, (n,)) for _ in range(L)])
-              for _ in range(2))                     # gadget key [L, L, n]
+    if three:
+        ct = [res(qs, (batch, n)) for _ in range(4)]  # two CTs' components
+        x4 = res(qs, (batch, 4, n))
+        out3 = res(qs, (batch, 3, n))                 # _scale_to_q's output
+        gb, ga = (torch.stack([res(qs, (n,)) for _ in range(L)])
+                  for _ in range(2))                  # gadget key [L, L, n]
     reps = nc.digit_reps(qs, qs)
     shape = f"B={batch} n={n}"
     M, K, LK = len(ps), len(ks), len(both)
@@ -270,7 +286,7 @@ def cases(param, batch: int, device, gen: prng.Gen) -> list:
                + (0 if ls is None else _ext_ops(4 * rows, ls, ld)))
         return words, ops
 
-    return _with_butterflies([
+    one = [
         pair("ntt_multi", "forward Q", 2 * 2 * L * rows + tw * L,
              _ntt_ops(n, 2 * L * batch), nc.ntt_multi_kernel,
              nc.ntt_multi_plain, x2q, qs),
@@ -311,7 +327,11 @@ def cases(param, batch: int, device, gen: prng.Gen) -> list:
              acc[L:], ks, qs, centered=True, w=acc[:L], sub_mul=pinv),
         pair("ext_ntt", "Q->P", 2 * (L + M) * rows + tw * M,
              _ext_ops(2 * rows, L, M) + _ntt_ops(n, 2 * M * batch),
-             nc.ext_ntt_kernel, nc.ext_ntt_plain, x2q, qs, ps),
+             nc.ext_ntt_kernel, nc.ext_ntt_plain, x2q, qs, ps)]
+    transforms = [2 * L, 2 * L, LK, 3 * L, 3 * M, 2 * LK, 0, 0, 0, 0, 2 * M]
+    if not three:
+        return _with_butterflies(one, n, [t * batch for t in transforms])
+    return _with_butterflies(one + [
         pair("tensor_mul4", "Q basis", *tensor_work(L),
              nc.tensor_mul4_kernel, nc.tensor_mul4_plain, *ct, qs,
              scale=t_q),
@@ -329,9 +349,8 @@ def cases(param, batch: int, device, gen: prng.Gen) -> list:
              _ks_ops(n, batch, L, L, reps, True), nc.ks_fused_eval_kernel,
              nc.ks_fused_eval_plain, out3[..., 2, :], gb, ga, qs, qs,
              (out3[..., 0, :], out3[..., 1, :])),
-    ], n, [b * batch for b in (
-        2 * L, 2 * L, LK, 3 * L, 3 * M, 2 * LK, 0, 0, 0, 0, 2 * M, 7 * L,
-        7 * M, 7 * L, (L + 2) * L, (L + 4) * L)])
+    ], n, [t * batch for t in transforms + [
+        7 * L, 7 * M, 7 * L, (L + 2) * L, (L + 4) * L]])
 
 
 def linear_cases(param, batch: int, device, gen: prng.Gen) -> list:
@@ -396,7 +415,8 @@ def radix_cases(logn: int, batch: int, device, gen: prng.Gen) -> list:
     """The redesigned kernels at ring degree 2^logn on a small batch
     (compared only, not timed): K1-K3, K5-K9 and K12 on the
     register-resident chains, whose pass structure differs with log n, and
-    K4, whose instance differs with the source count.
+    K4, whose instance differs with the source count; each kernel only where
+    it takes 2^logn (K6-K8 up to 2^14).
 
       K1: forward (without fin, and with the Montgomery 2^32) and inverse
           (the default n^-1, and an explicit fin), each on a contiguous
@@ -510,63 +530,67 @@ def radix_cases(logn: int, batch: int, device, gen: prng.Gen) -> list:
         out.append(compared("ks_contract", f"R={R} over {KS_MAPS_LP} primes",
                             nc.ks_contract_kernel, nc.ks_contract_plain,
                             edm, kb, ka, maps))
-    narrow = ntt_primes(6, 28, 1 << 16)
-    wide = ntt_primes(KS_BOOT_R, 30, 1 << 16)
+    if takes("tensor_mul4", n):                   # K6-K8 to 2^14
+        narrow = ntt_primes(6, 28, 1 << 16)
+        wide = ntt_primes(KS_BOOT_R, 30, 1 << 16)
 
-    def ks_pair(label, c, kb, ka, dst, src, adds):
-        return [compared("ks_fused", label, nc.ks_fused_kernel,
-                         nc.ks_fused_plain, c, kb, ka, dst, src),
-                compared("ks_fused_eval", label, nc.ks_fused_eval_kernel,
-                         nc.ks_fused_eval_plain, c, kb, ka, dst, src, adds)]
+        def ks_pair(label, c, kb, ka, dst, src, adds):
+            return [compared("ks_fused", label, nc.ks_fused_kernel,
+                             nc.ks_fused_plain, c, kb, ka, dst, src),
+                    compared("ks_fused_eval", label, nc.ks_fused_eval_kernel,
+                             nc.ks_fused_eval_plain, c, kb, ka, dst, src,
+                             adds)]
 
-    def ks_keys(R, dst):
-        return [torch.stack([res(dst, (n,)) for _ in range(R)])
-                for _ in range(2)]
+        def ks_keys(R, dst):
+            return [torch.stack([res(dst, (n,)) for _ in range(R)])
+                    for _ in range(2)]
 
-    for lp in KS_SWEEP_LP:
-        dst = narrow[:lp]
-        rows = KS_SWEEP_R + ((KS_BOOT_R,) if lp == 2 and logn == KS_BOOT_LOGN
-                             else ())
-        for R in rows:
-            src = wide[:R]
+        for lp in KS_SWEEP_LP:
+            dst = narrow[:lp]
+            boot = lp == 2 and logn == KS_BOOT_LOGN
+            rows = KS_SWEEP_R + ((KS_BOOT_R,) if boot else ())
+            for R in rows:
+                src = wide[:R]
+                c = torch.stack([res((s,), (batch, n))[0] for s in src])
+                adds = tuple(res(dst, (batch, n)) for _ in range(2))
+                out += ks_pair(f"R={R} over {lp} primes, reps="
+                               f"{nc.digit_reps(dst, src)}", c,
+                               *ks_keys(R, dst), dst, src, adds)
+        if logn == KS_MAPS_LOGN:
+            src = maps[:KS_MAPS_R]
             c = torch.stack([res((s,), (batch, n))[0] for s in src])
-            adds = tuple(res(dst, (batch, n)) for _ in range(2))
-            out += ks_pair(f"R={R} over {lp} primes, reps="
-                           f"{nc.digit_reps(dst, src)}", c, *ks_keys(R, dst),
-                           dst, src, adds)
-    if logn == KS_MAPS_LOGN:
-        src = maps[:KS_MAPS_R]
-        c = torch.stack([res((s,), (batch, n))[0] for s in src])
-        adds = tuple(res(maps, (batch, n)) for _ in range(2))
-        out += ks_pair(f"R={KS_MAPS_R} over {KS_MAPS_LP} primes (Q u P), "
-                       f"reps={nc.digit_reps(maps, src)}", c,
-                       *ks_keys(KS_MAPS_R, maps), maps, src, adds)
-    out3 = res(qs, (batch, 3, n))                    # _scale_to_q's output
-    kb, ka = ks_keys(len(qs), qs)
-    out += ks_pair(f"R={len(qs)} over Q, strided c_limbs", out3[..., 2, :],
-                   kb, ka, qs, qs, (out3[..., 0, :], out3[..., 1, :]))
-    out += ks_pair(f"R={len(qs)} over Q, every operand one word off",
-                   _offset_word(res(qs, (batch, n))), _offset_word(kb),
-                   _offset_word(ka), qs, qs,
-                   tuple(_offset_word(res(qs, (batch, n)))
-                         for _ in range(2)))
-    quad = res(qs, (batch, 4, n))                    # tensor_mul's operand
-    for label, ops in operands.items():
-        out.append(compared("tensor_mul4", f"{label}, scale",
+            adds = tuple(res(maps, (batch, n)) for _ in range(2))
+            out += ks_pair(f"R={KS_MAPS_R} over {KS_MAPS_LP} primes (Q u P), "
+                           f"reps={nc.digit_reps(maps, src)}", c,
+                           *ks_keys(KS_MAPS_R, maps), maps, src, adds)
+        out3 = res(qs, (batch, 3, n))                # _scale_to_q's output
+        kb, ka = ks_keys(len(qs), qs)
+        out += ks_pair(f"R={len(qs)} over Q, strided c_limbs", out3[..., 2, :],
+                       kb, ka, qs, qs, (out3[..., 0, :], out3[..., 1, :]))
+        out += ks_pair(f"R={len(qs)} over Q, every operand one word off",
+                       _offset_word(res(qs, (batch, n))), _offset_word(kb),
+                       _offset_word(ka), qs, qs,
+                       tuple(_offset_word(res(qs, (batch, n)))
+                             for _ in range(2)))
+        quad = res(qs, (batch, 4, n))                # tensor_mul's operand
+        for label, ops in operands.items():
+            out.append(compared("tensor_mul4", f"{label}, scale",
+                                nc.tensor_mul4_kernel, nc.tensor_mul4_plain,
+                                *ops, qs, scale=scale))
+        out.append(compared("tensor_mul4", "contiguous, no scale",
                             nc.tensor_mul4_kernel, nc.tensor_mul4_plain,
-                            *ops, qs, scale=scale))
-    out.append(compared("tensor_mul4", "contiguous, no scale",
-                        nc.tensor_mul4_kernel, nc.tensor_mul4_plain,
-                        *operands["contiguous"], qs))
-    out.append(compared("tensor_mul", "stacked, scale", nc.tensor_mul_kernel,
-                        nc.tensor_mul_plain, quad, qs, scale=scale))
-    scale_p = tuple(range(7, 7 + len(ps)))
-    for ls in (1, 2, 3, 4, 5):
-        src = (qs + primes[9:])[:ls]
-        out.append(compared("tensor_mul4", f"{ls} -> {len(ps)} primes, scale",
-                            nc.tensor_mul4_kernel, nc.tensor_mul4_plain,
-                            *(res(src, (batch, n)) for _ in range(4)), ps,
-                            scale=scale_p, src=src))
+                            *operands["contiguous"], qs))
+        out.append(compared("tensor_mul", "stacked, scale",
+                            nc.tensor_mul_kernel, nc.tensor_mul_plain, quad,
+                            qs, scale=scale))
+        scale_p = tuple(range(7, 7 + len(ps)))
+        for ls in (1, 2, 3, 4, 5):
+            src = (qs + primes[9:])[:ls]
+            out.append(compared("tensor_mul4",
+                                f"{ls} -> {len(ps)} primes, scale",
+                                nc.tensor_mul4_kernel, nc.tensor_mul4_plain,
+                                *(res(src, (batch, n)) for _ in range(4)), ps,
+                                scale=scale_p, src=src))
     for ls in EXT_SWEEP_LS:
         src = primes[24 - ls:]                       # apart from ps
         x = res(src, (batch, n))
@@ -745,7 +769,7 @@ def blind_rotate_sweep(device, gen: prng.Gen):
     for C in BR_SWEEP_C:
         for l in BR_SWEEP_L:
             w = {1: 20, 2: 12, 3: 21}[l]
-            for logn in range(8, 15):
+            for logn in _cuda.BLIND_ROTATE.degrees:
                 n = 1 << logn
                 plan = brc._plan(C, l, n, False)
                 if plan.smem_bytes > brc._SMEM_LIMIT:

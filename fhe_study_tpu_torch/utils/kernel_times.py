@@ -2,6 +2,7 @@
 """Time each CUDA kernel of the PyTorch port at the paths' shapes.
 
     python3 fhe_study_tpu_torch/utils/kernel_times.py [--tree DIR] [--batch 128]
+        [--degree15]
 
 Times one call of every case of ``utils/kernel_check.cases`` (N = 2^14,
 L = 4, M = 5, t = 256), of ``linear_cases`` (N = 2^12, L = 2, M = 3, 1024
@@ -38,7 +39,7 @@ checkout's kernels and prints the build's seconds.
 It also measures the shared-memory ceiling (K12) on the whole card at
 N = 2^14 (as many blocks as the card holds at once, 64 transforms each), as
 butterflies/s, and the single-prime transform (K9) forward and inverse at
-every n from 2^8 to 2^14 on 2^22 coefficients, on the device alone beside
+every n from 2^8 to 2^15 on 2^22 coefficients, on the device alone beside
 its byte bound.
 
 Then it times the BFV chains of chip_smoke.py's phase 6 the same way (a
@@ -53,6 +54,13 @@ op: TFHE key generation (``new_bootstrapping_key`` and
 steps; best of 3, the key first checked by bootstrapping 64 messages with
 it) and ``bfv_batch.batch_encode`` and ``batch_decode`` at n = 2^13,
 t = 65537, B = 32 (round-trip checked first).
+
+``--degree15`` times chip_smoke.py's phase 18 configuration instead (ring
+degree 2^15, L = 14, M = 15, K = 15, t = 256, B = ``--batch``): every case
+of ``kernel_check.cases`` there (the one-buffer kernels and K4, operands
+drawn on the card), K12's full-card ceiling at n = 2^15, and a chain of 4
+``mul_e`` with the hybrid key (best of 3, its output decrypt-checked), as ms
+an op and ct-mul/s.
 """
 
 import argparse
@@ -61,6 +69,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 
@@ -69,6 +78,7 @@ def main() -> None:
     ap.add_argument("--tree", default=str(pathlib.Path(__file__).parents[2]))
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--degree15", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("kernel_times: no CUDA card")
@@ -86,6 +96,9 @@ def main() -> None:
           f"{_cuda.build_dir()}", flush=True)
     dev = torch.device("cuda", 0)
     gen = prng.Gen(1)
+    if args.degree15:
+        degree15(args, card)
+        return
     param = R.RnsParam(n=1 << 14, t=256, L=4, M=5)
     cases = kernel_check.cases(param, args.batch, dev, gen)
     cases += kernel_check.linear_cases(R.RnsParam(n=1 << 12, t=256, L=2, M=3),
@@ -103,35 +116,9 @@ def main() -> None:
         cases += ext_sum_bfv(kernel_check, dev, gen)
         cases += kernel_check.bench_cases(1 << 14, 64, dev, gen, reps=8,
                                           rounds=1024)
-    props = torch.cuda.get_device_properties(dev)
-    sm_mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.split()[0])
-
-    def bound_of(case):
-        """The tree's kernel_check.bound of the case, or None for a tree
-        from before it (whose work is one number of instructions)."""
-        if not hasattr(kernel_check, "bound"):
-            return None
-        return kernel_check.bound(case.bytes, case.ops,
-                                  props.multi_processor_count, sm_mhz * 1e6)
-
+    bound_of = card_bound(kernel_check, dev)
     busy = torch.zeros(1 << 28, dtype=torch.int32, device=dev)    # 1 GiB
-    sums, alone = {}, {}
-    for case in cases:
-        case.kernel()
-        ms = events_ms(case.kernel, args.reps)
-        device_ms, host_ms = events_ms(case.kernel, args.reps, busy)
-        sums[case.name] = sums.get(case.name, 0.0) + ms
-        alone[case.name] = alone.get(case.name, 0.0) + device_ms
-        b = bound_of(case)
-        share = ("" if b is None else
-                 f", {b.ms / device_ms:.3f} of its bound {b.ms:.4f} ms by "
-                 f"{b.term} ({b.issue_only_ms / device_ms:.3f} of the "
-                 f"issue-only bound {b.issue_only_ms:.4f})")
-        print(f"{case.name:13s} {case.label:48s} {ms:8.4f} ms; on the device "
-              f"alone {device_ms:8.4f} ms{share}; host enqueue "
-              f"{host_ms:.4f} ms a call", flush=True)
+    sums, alone = time_cases(cases, args.reps, busy, bound_of)
     for label, fn in yardsticks(param, args.batch, dev, gen):
         ms = events_ms(fn, args.reps)
         device_ms, host_ms = events_ms(fn, args.reps, busy)
@@ -167,6 +154,92 @@ def main() -> None:
           + " ms an op; K9 launches in one key generation: "
           + ", ".join(f"{c} x {list(shp)} q={q} {'inv' if inv else 'fwd'}"
                       for (shp, q, inv), c in shapes.items()), flush=True)
+
+
+def time_cases(cases, reps: int, busy, bound_of) -> tuple:
+    """Each case's kernel as called and on the device alone, printed with
+    its share of its bound; returns the two sums by kernel name."""
+    sums, alone = {}, {}
+    for case in cases:
+        case.kernel()
+        ms = events_ms(case.kernel, reps)
+        device_ms, host_ms = events_ms(case.kernel, reps, busy)
+        sums[case.name] = sums.get(case.name, 0.0) + ms
+        alone[case.name] = alone.get(case.name, 0.0) + device_ms
+        b = bound_of(case)
+        share = ("" if b is None else
+                 f", {b.ms / device_ms:.3f} of its bound {b.ms:.4f} ms by "
+                 f"{b.term} ({b.issue_only_ms / device_ms:.3f} of the "
+                 f"issue-only bound {b.issue_only_ms:.4f})")
+        print(f"{case.name:13s} {case.label:48s} {ms:8.4f} ms; on the device "
+              f"alone {device_ms:8.4f} ms{share}; host enqueue "
+              f"{host_ms:.4f} ms a call", flush=True)
+    return sums, alone
+
+
+def card_bound(kernel_check, dev):
+    """case -> kernel_check.bound of the case on this card (its SMs and
+    maximum SM clock), or None for a tree from before the bound."""
+    if not hasattr(kernel_check, "bound"):
+        return lambda case: None
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    return lambda case: kernel_check.bound(case.bytes, case.ops, sms,
+                                           sm_mhz * 1e6)
+
+
+def degree15(args, card: str) -> None:
+    """The --degree15 run: the cases, the ceiling and the mul_e chain at
+    chip_smoke.py's phase 18 configuration."""
+    from fhe_study_tpu_torch.models import bfv_rns as R
+    from fhe_study_tpu_torch.ops import alu_bench
+    from fhe_study_tpu_torch.ops import ntt_cuda as nc
+    from fhe_study_tpu_torch.utils import kernel_check, prng
+    dev = torch.device("cuda", 0)
+    n, K, B = 1 << 15, 15, args.batch
+    param = R.RnsParam(n=n, t=256, L=14, M=15)
+    print(f"degree15 {args.tree} [{card}]: N={n} L=14 M=15 K={K} B={B}, "
+          f"{nc.WIDE_THREADS} threads a block at n = 2^15", flush=True)
+    cases = kernel_check.cases(param, B, dev, prng.Gen(1), K=K,
+                               res=prng.device_residues(1, dev))
+    busy = torch.zeros(1 << 28, dtype=torch.int32, device=dev)
+    _, alone = time_cases(cases, args.reps, busy,
+                          card_bound(kernel_check, dev))
+    del cases, busy
+    print(f"degree15 {args.tree} (device alone) [{card}]: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in alone.items())
+          + f"; all {sum(alone.values()):.4f} ms", flush=True)
+    per_sm, sms = alu_bench.resident_blocks(dev, n=n)
+    ceiling = alu_bench.ntt_smem_ceiling(dev, n=n, B=per_sm * sms, reps=64)
+    print(f"degree15 ceiling {args.tree} [{card}]: n=2^15, B={per_sm * sms} "
+          f"({per_sm} blocks x {sms} SMs), reps=64: "
+          f"{ceiling['butterflies_per_sec']:.4e} butterflies/s", flush=True)
+    del ceiling
+    gen = prng.Gen(7)
+    sk, pk = R.new_key(gen, param, dev)
+    hk = R.hybrid_rlk1(gen, param, sk, K=K)
+    m = [torch.randint(0, 256, (B, n), device=dev) for _ in range(2)]
+    x, y = (R.to_evals(param, R.encrypt(gen, param, pk, mi, batch=(B,)))
+            for mi in m)
+
+    def run():
+        c = x
+        for _ in range(4):
+            c = R.mul_e(param, hk, c, y)
+        return c
+
+    got = R.decrypt(param, sk, R.from_evals(param, R.mul_e(param, hk, x, y)))
+    a, b = (v.cpu().numpy().astype(np.float64) for v in m)
+    lin = np.rint(np.fft.irfft(np.fft.rfft(a, 2 * n) * np.fft.rfft(b, 2 * n),
+                               2 * n)).astype(np.int64)
+    if not np.array_equal(got.cpu().numpy(), (lin[:, :n] - lin[:, n:]) % 256):
+        raise RuntimeError("degree15: mul_e does not decrypt to the product")
+    ms = best_of_3(run) / 4
+    print(f"degree15 chain {args.tree} [{card}]: mul_e (HRLK) {ms:.4f} ms an "
+          f"op = {B * 1e3 / ms:.1f} ct-mul/s (a chain of 4, best of 3; one "
+          f"op decrypt-checked)", flush=True)
 
 
 def ext_sum_bfv(kernel_check, dev, gen) -> list:
@@ -321,14 +394,17 @@ def tfhe_chains(dev, chain: int) -> dict:
 
 def ntt_degrees(dev, gen) -> list:
     """(n, direction, device ms, byte-bound ms) of K9 on [2^22 / n, n] int64
-    words under a 30-bit prime, at every n from 2^8 to 2^14."""
+    words under a 30-bit prime, at every n from 2^8 that the tree's K9
+    takes (to 2^15 since that degree was added, to 2^14 before)."""
+    from fhe_study_tpu_torch.ops import _cuda
     from fhe_study_tpu_torch.ops import ntt as ntt_mod
     from fhe_study_tpu_torch.ops import ntt_cuda as nc
     from fhe_study_tpu_torch.utils import prng
     q = ntt_mod.CRT_PRIMES_TFHE[0]
     busy = torch.zeros(1 << 26, dtype=torch.int32, device=dev)
     rows = []
-    for logn in range(8, 15):
+    top = _cuda.NTT.logn[1] if hasattr(_cuda.NTT, "logn") else 14
+    for logn in range(8, top + 1):
         n = 1 << logn
         x = prng.uniform_mod(gen, ((1 << 22) >> logn, n), q, dev)
         bound = (16 * x.numel() + 8 * n) / 3.35e9

@@ -19,7 +19,8 @@ seed (numpy's SeedSequence takes the whole int), so no two seeds share a
 stream.  It is stateful: each draw moves it on, so the order of the draws
 on one generator is part of what they give.  Every draw is made on the host
 and lands on ``device``, so one seed gives the same numbers whatever card
-the data goes to.
+the data goes to.  The one exception is ``device_residues``, which draws
+kernel operands for timing on the card with torch's generator there.
 
 Seeds: ``split`` draws 63-bit child seeds from a generator (the order of
 calls matters); ``derive_seed`` is the order-free counterpart of the
@@ -67,6 +68,24 @@ def uniform_mod_multi(gen: Gen, shape, qs: tuple, device):
     numbers as int64 draws) and copied to ``device`` once."""
     return _to(np.stack([gen.rng.integers(0, q, tuple(shape), dtype=np.int32)
                          for q in qs]), device)
+
+
+def device_residues(seed: int, device):
+    """A drawer of kernel operands made on the card: (primes, shape) ->
+    int32 [len(primes), *shape] uniform residues (up to a bias of 2^-32),
+    from torch's generator on ``device`` seeded with ``seed``.  Its stream
+    is the card's, not a ``Gen``'s: it draws the operands that
+    utils/kernel_check.py times at full batch (gigabytes at n = 2^15, tens
+    of seconds on the host), and never a key, a mask or noise."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+
+    def res(primes, shape):
+        qv = torch.tensor(primes, dtype=torch.int64, device=device)
+        raw = torch.randint(0, 1 << 62, (len(primes), *shape), generator=g,
+                            device=device, dtype=torch.int64)
+        return (raw % qv.view(-1, *([1] * len(shape)))).int()
+    return res
 
 
 def binary(gen: Gen, shape, device):

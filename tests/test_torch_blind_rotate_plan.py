@@ -189,7 +189,7 @@ def test_schedule_equals_plain(logn, C, l):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("logn", range(_cuda.MIN_LOG_N, _cuda.MAX_LOG_N + 1))
+@pytest.mark.parametrize("logn", _cuda.BLIND_ROTATE.degrees)
 @pytest.mark.parametrize("C,l", SHAPES)
 def test_plan_maps_cover_every_word_once(logn, C, l):
     """Every pass loop of the plan reaches each (polynomial, coefficient)
@@ -222,7 +222,7 @@ def test_plan_maps_cover_every_word_once(logn, C, l):
                        idx)
 
 
-@pytest.mark.parametrize("logn", range(_cuda.MIN_LOG_N, _cuda.MAX_LOG_N + 1))
+@pytest.mark.parametrize("logn", _cuda.BLIND_ROTATE.degrees)
 def test_plan_fits_a_block_and_stages_the_bench_shape(logn):
     n = 1 << logn
     for C in (2, 3, 4):
@@ -253,7 +253,7 @@ def _old_supported(n: int, k: int, beta: int, l: int) -> bool:
     w = beta.bit_length() - 1
     C = k + 1
     return (n & (n - 1) == 0
-            and _cuda.MIN_LOG_N <= n.bit_length() - 1 <= _cuda.MAX_LOG_N
+            and 8 <= n.bit_length() - 1 <= 14
             and beta == (1 << w) and 1 <= w and w * l <= 64
             and beta <= min(P0, P1) and C * l * n * beta < (1 << 26)
             and all((p - 1) % (2 * n) == 0 for p in (P0, P1))
@@ -275,7 +275,7 @@ def test_supported_accepts_every_shape_it_accepted_before():
     assert more > 0          # a block now holds one prime's buffers
 
 
-@pytest.mark.parametrize("logn", range(_cuda.MIN_LOG_N, _cuda.MAX_LOG_N + 1))
+@pytest.mark.parametrize("logn", _cuda.BLIND_ROTATE.degrees)
 def test_contraction_reads_hit_distinct_banks(logn):
     """Warp w of the contraction loop runs t = 32 w .. 32 w + 31 (column
     t >> (log n - 4), virtual thread t mod n/16).  Its scalar digit reads

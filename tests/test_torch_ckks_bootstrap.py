@@ -16,6 +16,8 @@ bootstrap to the JAX tests' decrypt tolerances (tests/test_ckks_bootstrap.py:
 which the reference's tier marks slow and this file keeps).
 """
 
+import gc
+import weakref
 from types import SimpleNamespace
 
 import numpy as np
@@ -340,6 +342,28 @@ def _seeded_key(param, sk, master, K=3):
     seeds = H.key_seeds(master, "rot", param.L, 5)
     return H.galois_key_hybrid_with(
         param, sk, 5, *H.seeded_draws(param, seeds, K, CPU), K=K)
+
+
+def test_precompute_keys_leaves_no_reference_cycle():
+    """The key set that precompute_keys discovers is freed as soon as the
+    last reference to it goes: no cycle (the lazy caches and their
+    BootstrapKeys, or powers' memo) holds it until Python's cyclic
+    collector happens to run, which on a card keeps gigabytes alive."""
+    L, delta0, kw, _ = CONFIGS["single"]
+    param = C.Param(n=32, L=L, delta=delta0)
+    sk, _ = C.new_key(prng.Gen(64), param, CPU)
+    gc.collect()
+    gc.disable()
+    try:
+        arrays, _, _ = B.precompute_keys(MASTER, param, sk, delta0, **kw)
+        refs = ([weakref.ref(k.a) for k in arrays["rlk"].values()]
+                + [weakref.ref(k.a) for k in arrays["rot"].values()]
+                + [weakref.ref(em) for em in arrays["em"].values()])
+        del arrays
+        alive = sum(r() is not None for r in refs)
+    finally:
+        gc.enable()
+    assert alive == 0, f"{alive} of {len(refs)} key tensors outlive the set"
 
 
 def test_expand_a_rebuilds_the_mask():

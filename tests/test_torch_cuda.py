@@ -33,7 +33,7 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n", [256, 1 << 14])
+@pytest.mark.parametrize("n", [256, 1 << 14, 1 << 15])
 def test_kernels_match_plain(cuda, n):
     param = R.RnsParam(n=n, t=256, L=4, M=5)
     gen = prng.Gen(5)
@@ -43,7 +43,7 @@ def test_kernels_match_plain(cuda, n):
         assert kernel_check.equal(got, want), (case.name, case.label)
 
 
-@pytest.mark.parametrize("logn", range(_cuda.MIN_LOG_N, _cuda.MAX_LOG_N + 1))
+@pytest.mark.parametrize("logn", _cuda.NTT_MULTI.degrees)
 def test_radix_kernels_match_plain_at_every_degree(cuda, logn):
     """The redesigned kernels: K1-K3, K5-K9 and K12 on the
     register-resident chains, where each log n has its own pass structure
@@ -58,15 +58,13 @@ def test_radix_kernels_match_plain_at_every_degree(cuda, logn):
     primes, on the paths' strided views and one word off; K3, K7 and K8 at
     R = 43 over the 45 primes of Q u P at n = 2^12), K4 from 1..5 and 15
     source primes and K11 from every source count 1..15, each in its vector
-    and word forms."""
+    and word forms; at n = 2^15 the one-buffer kernels, K4 and K11 only."""
     gen = prng.Gen(11)
     cases = kernel_check.radix_cases(logn, 3, cuda, gen)
-    assert {c.name for c in cases} == {"ntt_multi", "tensor_eval4",
-                                       "ks_contract", "ext_ntt",
-                                       "base_extend", "tensor_mul4",
-                                       "tensor_mul", "ks_fused",
-                                       "ks_fused_eval", "ntt",
-                                       "ntt_smem_ceiling", "base_extend_sum"}
+    one = {"ntt_multi", "tensor_eval4", "ks_contract", "ext_ntt",
+           "base_extend", "ntt", "ntt_smem_ceiling", "base_extend_sum"}
+    three = {"tensor_mul4", "tensor_mul", "ks_fused", "ks_fused_eval"}
+    assert {c.name for c in cases} == (one if logn == 15 else one | three)
     for case in cases:
         got, want = case.kernel(), case.plain()
         torch.cuda.synchronize()
@@ -74,19 +72,19 @@ def test_radix_kernels_match_plain_at_every_degree(cuda, logn):
 
 
 def test_radix_kernels_have_no_stack_frame_or_spills(cuda):
-    """Every instance of the redesigned kernels: K2, K3, K7, K8 and K12 per
-    log n, K1 and K9 (both ways) per log n (K9 also at log n = 7), K5 and
-    K6 per log n and source
-    count form, K4 and K11 per source count and form, K10 per log n, staged
-    and direct."""
+    """Every instance of the redesigned kernels: K2, K3 and K12 per log n
+    2^8 .. 2^15, K7 and K8 per log n to 2^14, K1 and K9 (both ways) per log
+    n (K9 also at log n = 7), K5 per log n and source count form, K6 per log
+    n to 2^14 and form, K4 and K11 per source count and form, K10 per log n
+    to 2^14, staged and direct."""
     report = _cuda.ptxas_report(_cuda.build_log())
-    counts = {"tensor_eval4_kernel": 7, "ks_contract_kernel": 7,
+    counts = {"tensor_eval4_kernel": 8, "ks_contract_kernel": 8,
               "ks_fused_kernel": 7, "ks_fused_eval_kernel": 7,
-              "ext_ntt_kernel": 7 * 3, "tensor_mul4_kernel": 7 * 3,
-              "ntt_multi_kernel": 7 * 2, "base_extend_kernel": 15 * 2,
+              "ext_ntt_kernel": 8 * 3, "tensor_mul4_kernel": 7 * 3,
+              "ntt_multi_kernel": 8 * 2, "base_extend_kernel": 15 * 2,
               "base_extend_sum_kernel": 15 * 2,
-              "blind_rotate_kernel": 7 * 2, "ntt_kernel": 8 * 2,
-              "ntt_smem_ceiling_kernel": 7}
+              "blind_rotate_kernel": 7 * 2, "ntt_kernel": 9 * 2,
+              "ntt_smem_ceiling_kernel": 8}
     radix = [r for r in report if r["kernel"].split("<")[0] in counts]
     for name, count in counts.items():
         assert sum(r["kernel"].split("<")[0] == name for r in radix) == count
@@ -249,6 +247,41 @@ def test_slice_on_card_matches_cpu(cuda):
     np.testing.assert_array_equal(rec_cpu.numpy(), want)
 
 
+def test_slice_at_n_2_15_on_card_matches_cpu(cuda):
+    """mul_e HRLK at N = 2^15 (L = 2, M = 3, K = 3, B = 2): the one-buffer
+    kernels at 2^15 on the card equal the plain versions on the CPU, and the
+    product decrypts."""
+    param = R.RnsParam(n=1 << 15, t=256, L=2, M=3)
+
+    def run(device):
+        gen = prng.Gen(15)
+        sk, pk = R.new_key(gen, param, device)
+        hk = R.hybrid_rlk1(gen, param, sk, K=3)
+        m = [prng.uniform_mod(gen, (2, param.n), param.t, device)
+             for _ in range(2)]
+        x, y = (R.to_evals(param, R.encrypt(gen, param, pk, mi, batch=(2,)))
+                for mi in m)
+        ce = R.mul_e(param, hk, x, y)
+        return m, ce, R.decrypt(param, sk, R.from_evals(param, ce))
+
+    _cuda.reset_launches()
+    m, ce, rec = run(cuda)
+    torch.cuda.synchronize()
+    counts = _cuda.launches()
+    for name in ("ntt_multi", "tensor_eval4", "ks_contract", "base_extend",
+                 "ext_ntt"):
+        assert counts[name] > 0, counts
+    _, ce_cpu, rec_cpu = run(torch.device("cpu"))
+    for got, want in zip(ce, ce_cpu):
+        assert torch.equal(got.cpu(), want)
+    assert torch.equal(rec.cpu(), rec_cpu)
+    a, b = (x.cpu().numpy() for x in m)
+    n = param.n
+    lin = np.stack([np.convolve(x, y) for x, y in zip(a, b)])
+    want = (lin[:, :n] - np.pad(lin[:, n:], ((0, 0), (0, 1)))) % param.t
+    np.testing.assert_array_equal(rec_cpu.numpy(), want)
+
+
 def _paths(param, device, seed=4, batch=2):
     """mul with both relin keys, the gadget mul_e, a key switch and one step
     of the linear pipeline, on draws that are the same on any device."""
@@ -362,12 +395,12 @@ def test_tfhe_wrappers_check_dtype_and_layout(cuda):
         ntt_cuda.ntt_kernel(x.transpose(0, 1), q)
     with pytest.raises(ValueError, match="2\\^31"):
         ntt_cuda.ntt_kernel(x, (1 << 31) + 11)
-    with pytest.raises(ValueError, match="2\\^7 .. 2\\^14"):
+    with pytest.raises(ValueError, match="2\\^7 .. 2\\^15"):
         ntt_cuda.ntt_kernel(x[..., :64].contiguous(), q)
     # the dispatching transform raises too inside the reference's kernel
     # gate (q < 2^31, n a multiple of 128): no plain version there
-    with pytest.raises(ValueError, match="2\\^7 .. 2\\^14"):
-        ntt.ntt(torch.zeros((1, 1 << 15), dtype=torch.int64, device=cuda), q)
+    with pytest.raises(ValueError, match="2\\^7 .. 2\\^15"):
+        ntt.ntt(torch.zeros((1, 1 << 16), dtype=torch.int64, device=cuda), q)
     # outside it (q >= 2^31 or n < 128) both devices run the plain
     # transform, as the reference runs XLA there
     wide = 1099511922689                 # a 41-bit prime, 1 mod 2^15
@@ -499,7 +532,7 @@ def test_bench_wrappers_check_and_measure(cuda):
         alu_bench.alu_rate_kernel(x.long(), x, x, "add", 16)
     with pytest.raises(ValueError, match="multiples of 16"):
         alu_bench.alu_rate_kernel(x, x, x, "add", 8)
-    with pytest.raises(ValueError, match="2\\^8 .. 2\\^14"):
+    with pytest.raises(ValueError, match="2\\^8 .. 2\\^15"):
         alu_bench.ntt_smem_ceiling_kernel(x[:, :128].contiguous(), 12289, 1)
     with pytest.raises(ValueError, match="alpha"):
         ext_cuda.base_extend_sum_kernel(x, x, (12289, 40961), (65537,))

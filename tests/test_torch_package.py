@@ -152,10 +152,16 @@ def test_every_kernel_names_its_plain_version_and_its_pallas_kernel():
 
 
 def test_kernels_refuse_unsupported_ring_degrees():
+    """Each kernel names its own range: the one-buffer chains 2^8 .. 2^15,
+    the three-buffer ones and K10 2^8 .. 2^14."""
+    for n in (128, 1 << 16, 384):
+        with pytest.raises(ValueError, match="2\\^8 .. 2\\^15"):
+            _cuda.log2_degree(n, _cuda.NTT_MULTI)
     for n in (128, 1 << 15, 384):
         with pytest.raises(ValueError, match="2\\^8 .. 2\\^14"):
-            _cuda.log2_degree(n)
-    assert _cuda.log2_degree(1 << 14) == 14
+            _cuda.log2_degree(n, _cuda.TENSOR_MUL4)
+    assert _cuda.log2_degree(1 << 14, _cuda.TENSOR_MUL4) == 14
+    assert _cuda.log2_degree(1 << 15, _cuda.NTT_MULTI) == 15
 
 
 @pytest.fixture

@@ -3,9 +3,12 @@
 (ks_fused), K8 (ks_fused_eval), K9 (ntt) and K12 (ntt_smem_ceiling) run on
 the card (csrc/radix_chain.cuh,
 mirrored by ops/ntt_cuda.py::_radix_plan), checked on the CPU at every ring
-degree the kernels take: every stage is run once and in order, a block fits
-the H100 (256 threads and one polynomial, or the 512 threads and three of
-K6, K7 and K8), a torch emulation of the plan's element, twiddle and
+degree each kernel takes (the one-buffer kernels K1-K3, K5, K9 and K12 at
+2^8 .. 2^15, K6-K8 at 2^8 .. 2^14): every stage is run once and in order, a
+block fits the H100 (256 threads and one polynomial, three blocks an SM, or
+at n = 2^15 512 threads and one block; or the 512 threads and three
+polynomials of K6, K7 and K8), a torch emulation of the plan's element,
+twiddle and
 shared-memory maps equals the plain transform bit for bit in
 both directions, K1's own maps (its first pass from a row in device memory,
 the forward's uint4 read-out and the inverse's stores, each with fin) equal
@@ -36,13 +39,20 @@ from fhe_study_tpu_torch.ops import ntt_cuda as nc
 from fhe_study_tpu_torch.ops.primes import ntt_primes
 from fhe_study_tpu_torch.utils import sass_counts
 
-LOGNS = range(_cuda.MIN_LOG_N, _cuda.MAX_LOG_N + 1)
+LOGNS = _cuda.NTT_MULTI.degrees              # the one-buffer kernels' ...
+THREE_LOGNS = _cuda.TENSOR_MUL4.degrees      # ... and K6-K8's
 PRIMES = ntt_primes(3, 30, 1 << 15)           # 2n-th roots up to n = 2^14
+WIDE_PRIMES = ntt_primes(3, 30, 1 << 16)      # and at n = 2^15
 CPU = torch.device("cpu")
-# the plans the kernels run: K1-K5 on 256 threads and one buffer, K6 on 512
-# threads and three
-PLANS = {"radix": (nc.RADIX_THREADS, 1),
+# the plans the kernels run: K1-K5 on one buffer (256 threads, 512 at
+# n = 2^15: max_threads None), K6 on 512 threads and three
+PLANS = {"radix": (None, 1),
          "tensor_mul4": (nc.MUL4_THREADS, nc.MUL4_BUFFERS)}
+
+
+def _primes(logn: int) -> tuple:
+    """Three 30-bit primes with 2n-th roots of unity at n = 2^logn."""
+    return PRIMES if logn < nc.WIDE_LOGN else WIDE_PRIMES
 
 
 # The kernel's index maps (csrc/radix_chain.cuh), written out in torch.
@@ -97,10 +107,19 @@ def test_plan_fits_a_block(logn):
     # 1024 threads and 227 KB of shared memory a block on the H100
     assert plan.threads <= 1024 and plan.smem_bytes <= 232448
     assert plan.smem_bytes == 4 << logn
-    # three blocks of 64 KB fit an SM at n = 2^14, at 256 threads of up to
-    # 85 registers
-    assert plan.threads <= nc.RADIX_THREADS
-    assert 3 * (plan.smem_bytes + 1024) <= 233472 and 3 * plan.threads <= 2048
+    if logn < nc.WIDE_LOGN:
+        # three blocks of 64 KB fit an SM at n = 2^14, at 256 threads of up
+        # to 85 registers
+        assert plan.threads <= nc.RADIX_THREADS
+        assert 3 * (plan.smem_bytes + 1024) <= 233472
+        assert 3 * plan.threads <= 2048 and 3 * plan.threads * 85 <= 65536
+    else:
+        # one block of 128 KB an SM at n = 2^15: 512 threads of up to 128
+        # registers, 4 virtual threads each (16 warps an SM, not 8)
+        assert (plan.threads, plan.groups) == (nc.WIDE_THREADS, 4)
+        assert plan.smem_bytes + 1024 <= 233472
+        assert 2 * (plan.smem_bytes + 1024) > 233472
+        assert plan.threads * 128 <= 65536
 
 
 def _run_pass(regs, el, ps, roots, q: int, logn: int, inverse: bool):
@@ -190,7 +209,7 @@ def _read_out(smem, n: int, vec: int):
 def test_emulated_plan_equals_plain_both_ways(logn):
     n = 1 << logn
     rng = np.random.default_rng(logn)
-    for q in PRIMES:
+    for q in _primes(logn):
         x = torch.from_numpy(rng.integers(0, q, (1, n)))
         fwd = nc.ntt_multi_plain(x, (q,)).long()[0]
         assert torch.equal(_emulate(x[0], q, logn, False), fwd)
@@ -202,7 +221,7 @@ def test_emulated_plan_equals_plain_both_ways(logn):
 def test_k1_maps_with_fin_equal_plain(logn):
     n = 1 << logn
     rng = np.random.default_rng(100 + logn)
-    for q in PRIMES:
+    for q in _primes(logn):
         x = torch.from_numpy(rng.integers(0, q, (1, n)))
         fin = int(rng.integers(1, q))
         for inverse in (False, True):
@@ -274,7 +293,7 @@ def _emulate_k12(x, q: int, logn: int, reps: int):
 def test_k12_schedule_equals_plain(logn):
     n = 1 << logn
     rng = np.random.default_rng(700 + logn)
-    q = PRIMES[logn % len(PRIMES)]
+    q = _primes(logn)[logn % len(PRIMES)]
     x = torch.from_numpy(rng.integers(0, q, (1, n)))
     for reps in (0, 1, 3):
         want = alu_bench.ntt_smem_ceiling_plain(x.int(), q, reps)[0]
@@ -301,7 +320,7 @@ def test_shared_memory_accesses_hit_distinct_banks(logn):
     assert _banks_hit(out.permute(0, 2, 1).reshape(-1, 32)) == 1
 
 
-@pytest.mark.parametrize("logn", LOGNS)
+@pytest.mark.parametrize("logn", THREE_LOGNS)
 def test_tensor_mul4_plan_covers_every_stage_and_fits_an_sm(logn):
     """K6's plan: the same passes on 512 threads, three buffers, one block
     an SM (512 threads of up to 128 registers, 192 KB at n = 2^14)."""
@@ -319,9 +338,11 @@ def test_tensor_mul4_plan_covers_every_stage_and_fits_an_sm(logn):
     assert plan.forward[-1].c == plan.inverse[0].c == 0
 
 
-@pytest.mark.parametrize("kind", PLANS)
-@pytest.mark.parametrize("logn", LOGNS)
-def test_warps_of_each_thread_count_hit_distinct_banks(kind, logn):
+@pytest.mark.parametrize(
+    "logn,kind", [(logn, kind) for kind in PLANS
+                  for logn in (LOGNS if kind == "radix" else THREE_LOGNS)],
+    ids=lambda v: str(v))
+def test_warps_of_each_thread_count_hit_distinct_banks(logn, kind):
     """Warp w of group g runs virtual threads g * threads + 32 w .. + 31."""
     plan = nc._radix_plan(logn, *PLANS[kind])
     for ps in plan.forward + plan.inverse:
@@ -345,7 +366,7 @@ def test_k3_schedule_equals_plain(logn):
     thread), the rest of the chain as K2's, n^-1 in the last pass."""
     n = 1 << logn
     rng = np.random.default_rng(200 + logn)
-    for q, R in zip(PRIMES, (1, 4, 3)):
+    for q, R in zip(_primes(logn), (1, 4, 3)):
         edm = torch.from_numpy(rng.integers(0, q, (R, n)))
         keys = [torch.from_numpy(rng.integers(0, q, (R, n)))
                 for _ in range(2)]
@@ -449,7 +470,7 @@ def _emulate_k6(x0, x1, y0, y1, q: int, logn: int, fin: int):
 SRC_PRIMES = ntt_primes(5, 30, 1 << 15, skip=len(PRIMES))
 
 
-@pytest.mark.parametrize("logn", LOGNS)
+@pytest.mark.parametrize("logn", THREE_LOGNS)
 def test_k6_schedule_equals_plain(logn):
     """Over the destination prime, and from source bases of 4 primes (the
     BFV P basis's instance) and of 1 + log n mod 5 (the generic one)."""
@@ -624,7 +645,7 @@ def _ks_inputs(rng, logn: int, q: int, R: int, wide: bool):
 KS_CASES = ((PRIMES[0], 1, False), (PRIMES[1], 3, False), (NARROW, 4, True))
 
 
-@pytest.mark.parametrize("logn", LOGNS)
+@pytest.mark.parametrize("logn", THREE_LOGNS)
 def test_k7_schedule_equals_plain(logn):
     n = 1 << logn
     rng = np.random.default_rng(400 + logn)
@@ -639,7 +660,7 @@ def test_k7_schedule_equals_plain(logn):
         assert torch.equal(got, torch.stack([w[0, 0] for w in want]).long())
 
 
-@pytest.mark.parametrize("logn", LOGNS)
+@pytest.mark.parametrize("logn", THREE_LOGNS)
 def test_k8_schedule_equals_plain(logn):
     n = 1 << logn
     rng = np.random.default_rng(500 + logn)
@@ -656,7 +677,7 @@ def test_k8_schedule_equals_plain(logn):
         assert torch.equal(got, torch.stack([w[0, 0] for w in want]).long())
 
 
-@pytest.mark.parametrize("logn", LOGNS)
+@pytest.mark.parametrize("logn", THREE_LOGNS)
 def test_ks_fused_plan_fits_an_sm(logn):
     """K7 and K8 run K6's plan: 512 threads of up to 128 registers and three
     buffers in the 227 KB a block may take, at every log n."""
