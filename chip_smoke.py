@@ -24,30 +24,33 @@ RNS-BFV's mul_e with the hybrid key at ring degree 2^15: N = 2^15, L = 14,
 M = 15, K = 15, t = 256, B = 128 (the Homomorphic Encryption Standard's
 n = 32768 row allows log q <= 881 at 128-bit classical security, as does
 SEAL's BFVDefault(32768); the key modulus Q P_K here is 29 primes of 30
-bits, 870 bits).
+bits, 870 bits), also its mul with the hybrid key, and the gadget keyring
+at the same degree with that whole modulus in Q: N = 2^15, L = 29, M = 30,
+t = 256, B = 128.
 Phases, each of which raises (and so exits non-zero) on any failure:
 
   1. toolchain and card: torch, CUDA, nvcc; the kernels built from csrc/;
   2. each of the first eleven kernel entries against its plain PyTorch
      version on the card, bit for bit, at the paths' shapes (batch 8) and at
-     n = 256; the redesigned kernels at every n from 2^8 to 2^15 that each
-     takes (K6, K7, K8 to 2^14) on a batch
+     n = 256; the redesigned kernels at every n from 2^8 to 2^15 (K6, K7,
+     K8 at 2^15 on two-block clusters) on a batch
      of 3 (kernel_check.radix_cases): K1 forward and inverse, with and
      without fin, on contiguous and word-offset rows; K9 forward and inverse
      under a 30-bit and a 31-bit prime, on aligned and word-offset int64
      rows; K12 over 0, 1 and 3 transforms; K2 on contiguous,
-     strided and unaligned rows; K5 from 1 to 5 source primes; K4 from 1, 2,
-     3, 4, 5 and 15 source primes to 1, 4 and 5, unsigned and centered, with
-     and without the epilogue, on a row length that is no multiple of 4 and
-     on unaligned rows; K3 from 1, 2, 4 and 9 digit rows over 2 and 6
-     primes, aligned and word-offset; K6 (and tensor_mul) with and without a
-     scale on contiguous, strided, stacked and unaligned rows and from 1 to
-     5 source primes; K7 and K8 from 1, 2, 4 and 9 limb rows over 30-bit
-     primes to 2 and 6 primes of 28 bits (reps >= 2), 39 rows to 2 primes
-     at n = 2^11, R = L = 4 on the paths' strided views (K8's adds too) and
-     every operand one word off; K3, K7 and K8 at R = 43 over the 45 primes
+     strided and unaligned rows; K5 from 1 to 5 and 16 to 31 source primes;
+     K4 from 1, 2, 3, 4, 5 and 15 source primes to 1, 4 and 5, unsigned and
+     centered, with and without the epilogue, on a row length that is no
+     multiple of 4 and on unaligned rows, and from 16 to 31 to 5 (both
+     forms); K3 from 1, 2, 4 and 9 digit rows over 2 and 6 primes, aligned
+     and word-offset; K6 (and tensor_mul) with and without a scale on
+     contiguous, strided, stacked and unaligned rows and from 1 to 5 and
+     16 to 31 source primes; K7 and K8 from 1, 2, 4 and 9 limb rows over
+     30-bit primes to 2 and 6 primes of 28 bits (reps >= 2), 39 rows to 2
+     primes at n = 2^11, R = L = 4 on the paths' strided views (K8's adds
+     too) and every operand one word off; K3, K7 and K8 at R = 43 over the 45 primes
      of Q u P at n = 2^12 (the CKKS maps' shape); K11 from every source
-     count 1 .. 15 to 5 primes, unsigned and centered, in its vector and
+     count 1 .. 31 to 5 primes, unsigned and centered, in its vector and
      word forms; K10 on its two-block clusters at every n
      its plan takes, C = 2 and 3, l = 1, 2 and 3, over 1, 2 and 17 steps on
      1, 3, 64, 67 and 133 ciphertexts (kernel_check.blind_rotate_sweep),
@@ -195,8 +198,25 @@ Phases, each of which raises (and so exits non-zero) on any failure:
      against its plain version at batch 8; each kernel at the path's shape
      on the device alone beside its bound; K12's full-card ceiling at
      n = 2^15 beside K1's rate; the 2^15 instances' registers; peak device
-     memory.  Each phase prints its wall time and the device memory
-     still held as it ends.
+     memory; then mul with the hybrid key on the same keys (K6 over Q and
+     over P from 14 sources, K4, K1, K3 at n = 2^15, the three-buffer
+     kernels on two-block clusters): decrypt-verified after one op and after
+     a timed chain of 4, its launches per op, each signature at batch 8
+     against plain; K6, tensor_mul, K7 and K8 at the path's shapes against
+     plain and on the device alone beside their bounds;
+ 19. slice 11, the gadget keyring at N = 2^15, L = 29, M = 30, t = 256,
+     B = 128 (the whole 870 bits of the modulus in Q, so the tensor's
+     conversions run from 29 and 30 source primes): keygen -> rlk_key (29
+     digit rows) -> encrypt -> mul -> decrypt; to_evals -> mul_e ->
+     from_evals -> decrypt; ksk_key to a fresh key -> key_switch ->
+     decrypt under it; each decrypt-verified in all 128 x 32768
+     coefficients, mul and mul_e also after a chain of 4 (CUDA events,
+     best of 3), key_switch timed over 4 calls; launches per op; every
+     argument signature of each op at batch 8 held against plain; peak
+     device memory; K4 (from 29 and 30), K5 (from 29), K6 (from 29), K7,
+     K8 (R = 29) and K11 (from 29) at the path's shapes on the device alone
+     beside their bounds.  Each phase prints its wall time and the device
+     memory still held as it ends.
 
 It prints each finding on a line of its own, then the kernels' JSON record,
 the card's name and power limit, and as its last line
@@ -250,7 +270,21 @@ W_N, W_L, W_M, W_K = 1 << 15, 14, 15, 15
 W_PER_OP = {"tensor_eval4": 2, "base_extend": 5, "ntt_multi": 2,
             "ks_contract": 1, "ext_ntt": 1}
 W_INSTANCES = {"ntt_multi": 2, "tensor_eval4": 1, "ks_contract": 1,
-               "ext_ntt": 3, "ntt": 2, "ntt_smem_ceiling": 1}
+               "ext_ntt": 3, "ntt": 2, "ntt_smem_ceiling": 1,
+               "tensor_mul4": 3, "ks_fused": 1, "ks_fused_eval": 1}
+# slice 11 at ring degree 2^15: mul with the hybrid key on phase 18's keys;
+# then the gadget keyring with the whole modulus in Q: L = 29 Q-primes of 30
+# bits (870 bits, the HE Standard's 881 for n = 32768 less one prime) and
+# M = 30 P-primes, the least that holds the tensor's capacity (P above
+# t n Q 4); the launches of one op by kernel
+W_MUL_PER_OP = {"tensor_mul4": 2, "base_extend": 5, "ntt_multi": 1,
+                "ks_contract": 1}
+G_N, G_L, G_M = 1 << 15, 29, 30
+G_PER_OP = {
+    "mul (RLK)": {"tensor_mul4": 2, "base_extend": 2, "ks_fused": 1},
+    "mul_e (RLK)": {"tensor_eval4": 2, "base_extend": 2,
+                    "ks_fused_eval": 1, "ext_ntt": 1},
+    "key_switch": {"ks_fused": 1}}
 CEILING_REPS, ALU_ROUNDS = 64, 1 << 16
 # the bound (utils/kernel_check.bound) takes the SM count and the maximum SM
 # clock that the card in hand reports; each alu_rate loop must issue at
@@ -457,8 +491,8 @@ def main() -> None:
         torch.cuda.synchronize()
         check(case, got, want)
     # the kernels on the register-resident chains, at every ring degree they
-    # take: each log n has its own pass structure (radix_cases leaves out a
-    # kernel at a degree it does not take: K6-K8 at 2^15)
+    # take: each log n has its own pass structure (K6-K8 at 2^15 on two-block
+    # clusters)
     radix_checked = 0
     for logn in _cuda.NTT_MULTI.degrees:
         for case in kernel_check.radix_cases(logn, RADIX_BATCH, dev, gen):
@@ -477,18 +511,21 @@ def main() -> None:
         f"{kernel_check.KS_BOOT_R} rows at n = 2^{kernel_check.KS_BOOT_LOGN}, "
         f"strided and word-offset), "
         f"tensor_mul4 and tensor_mul (with and without a scale; contiguous, "
-        f"strided, stacked and unaligned rows; from 1 to 5 source primes), "
-        f"ext_ntt (from 1 to 5 source primes), "
+        f"strided, stacked and unaligned rows; from 1 to 5 and 16 to "
+        f"{ext_cuda.MAX_SRC} source primes), ext_ntt (from 1 to 5 and 16 to "
+        f"{ext_cuda.MAX_SRC} source primes), "
         f"ks_contract, ks_fused and ks_fused_eval at R="
         f"{kernel_check.KS_MAPS_R} over {kernel_check.KS_MAPS_LP} primes at "
-        f"n = 2^{kernel_check.KS_MAPS_LOGN}, base_extend_sum (from 1 to 15 "
-        f"source primes to {kernel_check.EXT_SUM_SWEEP_LD}, vector and word "
-        f"forms) and base_extend (from {kernel_check.EXT_SWEEP_LS} to "
+        f"n = 2^{kernel_check.KS_MAPS_LOGN}, base_extend_sum (from 1 to "
+        f"{ext_cuda.MAX_SRC} source primes to "
+        f"{kernel_check.EXT_SUM_SWEEP_LD}, vector and word forms) and "
+        f"base_extend (from {kernel_check.EXT_SWEEP_LS} to "
         f"{kernel_check.EXT_SWEEP_LD} primes, unsigned and centered, with and "
-        f"without the epilogue, vector and word forms) == plain (torch.equal) "
-        f"at every n each takes, 2^{_cuda.NTT_MULTI.logn[0]} .. "
-        f"2^{_cuda.NTT_MULTI.logn[1]} (tensor_mul4, tensor_mul, ks_fused and "
-        f"ks_fused_eval to 2^{_cuda.TENSOR_MUL4.logn[1]}), batch "
+        f"without the epilogue, vector and word forms; from 16 to "
+        f"{ext_cuda.MAX_SRC} to 5) == plain (torch.equal) at every n each "
+        f"takes, 2^{_cuda.NTT_MULTI.logn[0]} .. 2^{_cuda.NTT_MULTI.logn[1]} "
+        f"(tensor_mul4, tensor_mul, ks_fused and ks_fused_eval at "
+        f"2^{_cuda.TENSOR_MUL4.logn[1]} on two-block clusters), batch "
         f"{RADIX_BATCH}: {radix_checked} variants")
     # K10 on two-block clusters at every ring degree its plan takes, on
     # batches beyond the clusters the card holds at once
@@ -2009,6 +2046,61 @@ def main() -> None:
     phase_done("17 (slice 8: the parallel layer, 8 gloo ranks and 1 NCCL "
                "rank on one card)")
 
+    def slice_op(tag: str, shape: str, n: int, per_op: dict, op, small_op,
+                 chain, decrypt, want_chain, what: str,
+                 held_at: int = PARITY_BATCH):
+        """One op of a slice beyond its driven path: its launches per op at
+        full batch (``op``) == per_op, and through the recorded wrappers on
+        the same op at batch held_at (``small_op``), every launch at ring
+        degree n and every argument signature held against plain;
+        ``chain`` (CHAIN ops) timed by CUDA events, best of 3, its output
+        decrypt-verified against want_chain where given; the chain's peak
+        device memory.  Returns the best ms an op."""
+        got = per_op_launches(op)
+        sigs, seen = {}, {}
+        with record_calls(sigs, seen, tuple(per_op)):
+            small_op()
+        if got != per_op or seen != per_op:
+            raise RuntimeError(f"{tag}: launches of one op {got} (at batch "
+                               f"{held_at} through the recorded wrappers "
+                               f"{seen}) != {per_op}")
+        degrees = {a.shape[-1] for (_, _, args, kw) in sigs.values()
+                   for a in (*args, *kw.values())
+                   if isinstance(a, torch.Tensor)}
+        if degrees != {n}:
+            raise RuntimeError(f"{tag}: launched at last axes {degrees}")
+        held = kernel_check.hold_recorded(sigs)
+        for name, (n_sig, diff) in held.items():
+            err[name] = max(err[name], diff)
+            checked[name] += n_sig
+        say(f"verify: {tag}: one op launches {got}, every launch at n = {n}; "
+            f"each of its {len(sigs)} argument signatures at batch "
+            f"{held_at} == plain (torch.equal): {held}")
+        del sigs
+        out = chain()                      # warm up; its output is decrypted
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        runs = [time_ms(chain, 1, warmup=0) for _ in range(3)]
+        peak = torch.cuda.max_memory_allocated()
+        best = min(runs)
+        if want_chain is not None:
+            verify(f"{tag}, chain of {CHAIN}", decrypt(out), want_chain, what)
+        say(f"timing: {tag} at {shape}, {CHAIN} ops: runs "
+            f"{[round(r, 3) for r in runs]} ms, best {best:.3f} ms = "
+            f"{best / CHAIN:.3f} ms per op = "
+            f"{BATCH * CHAIN / (best / 1e3):.1f} ops/s; peak device memory "
+            f"{peak / 2**30:.2f} GiB over the chain; launches per op "
+            f"{got} [{card}]")
+        return best / CHAIN
+
+    def chain_product(m1, m2):
+        """m1 * m2^CHAIN mod (X^n + 1, t): the plaintext of a chain."""
+        want, errs = m1, []
+        for _ in range(CHAIN):
+            want, e = negacyclic_reference(want, m2, T)
+            errs.append(e)
+        return want, max(errs)
+
     # 18. slice 10: ring degree 2^15 ------------------------------------------
     w_param = R.RnsParam(n=W_N, t=T, L=W_L, M=W_M)
     w_shape = f"N={W_N} L={W_L} M={W_M} K={W_K} t={T} B={BATCH}"
@@ -2037,9 +2129,11 @@ def main() -> None:
         w["hk"] = R.hybrid_rlk1(gen, w_param, w["sk"], K=W_K)
         w["m"] = [prng.uniform_mod(gen, (BATCH, W_N), T, dev)
                   for _ in range(2)]
-        w["e"] = [R.to_evals(w_param, R.encrypt(gen, w_param, pk, m,
-                                                batch=(BATCH,)))
+        w["c"] = [R.encrypt(gen, w_param, pk, m, batch=(BATCH,))
                   for m in w["m"]]
+        w["small"] = [R.encrypt(gen, w_param, pk, m[:PARITY_BATCH],
+                                batch=(PARITY_BATCH,)) for m in w["m"]]
+        w["e"] = [R.to_evals(w_param, c) for c in w["c"]]
         ce = R.mul_e(w_param, w["hk"], *w["e"])
         return R.decrypt(w_param, w["sk"], R.from_evals(w_param, ce))
 
@@ -2053,24 +2147,12 @@ def main() -> None:
            f"the numpy FFT negacyclic product (rounding error "
            f"{fft_err:.2e})")
     (wx, wy), whk = w["e"], w["hk"]
-    w_sigs, w_seen = {}, {}
-    with record_calls(w_sigs, w_seen, tuple(W_PER_OP)):
-        w_per_op = per_op_launches(lambda: R.mul_e(w_param, whk, wx, wy))
-    if w_per_op != W_PER_OP or w_seen != W_PER_OP:
-        raise RuntimeError(f"slice 10: launches of one mul_e {w_per_op} "
-                           f"(through the recorded wrappers {w_seen}) != "
-                           f"{W_PER_OP}")
-    degrees = {a.shape[-1] for (_, _, args, kw) in w_sigs.values()
-               for a in (*args, *kw.values()) if isinstance(a, torch.Tensor)}
-    if degrees != {W_N}:
-        raise RuntimeError(f"slice 10: mul_e launched at last axes {degrees}")
-    w_held = kernel_check.hold_recorded(w_sigs)
-    for name, (n_sig, diff) in w_held.items():
-        err[name] = max(err[name], diff)
-        checked[name] += n_sig
-    say(f"verify: slice 10: one mul_e launches {w_per_op}, every launch at "
-        f"n = {W_N}; each of its {len(w_sigs)} argument signatures (B="
-        f"{BATCH}) == plain (torch.equal): {w_held}")
+    say(f"path: slice 10 peak device memory {path_peak / 2**30:.2f} GiB over "
+        f"the path (of which {held_before / 2**30:.2f} GiB were held before "
+        f"the phase)")
+    want, err_c = chain_product(wm1, wm2)
+    chain_what = (f"the numpy FFT negacyclic products of the same chain "
+                  f"(rounding error at most {err_c:.2e})")
 
     def w_chain():
         c = wx
@@ -2078,28 +2160,33 @@ def main() -> None:
             c = R.mul_e(w_param, whk, c, wy)
         return c
 
-    cout = w_chain()                   # warm up; its output is decrypted
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    runs = [time_ms(w_chain, 1, warmup=0) for _ in range(3)]
-    chain_peak = torch.cuda.max_memory_allocated()
-    best = min(runs)
-    rec = R.decrypt(w_param, w["sk"], R.from_evals(w_param, cout))
-    want, fft_errs = wm1, []
-    for _ in range(CHAIN):
-        want, e = negacyclic_reference(want, wm2, T)
-        fft_errs.append(e)
-    verify(f"slice 10 chain of {CHAIN} mul_e (HRLK), m1 * m2^{CHAIN}", rec,
-           want, f"the numpy FFT negacyclic products of the same chain "
-           f"(rounding error at most {max(fft_errs):.2e})")
-    say(f"timing: slice 10 chain of {CHAIN} mul_e (HRLK) at {w_shape}: runs "
-        f"{[round(r, 3) for r in runs]} ms, best {best:.3f} ms = "
-        f"{best / CHAIN:.3f} ms per op = "
-        f"{BATCH * CHAIN / (best / 1e3):.1f} ct-mul/s; peak device memory "
-        f"{chain_peak / 2**30:.2f} GiB over the chain, {path_peak / 2**30:.2f}"
-        f" GiB over the path (of which {held_before / 2**30:.2f} GiB were "
-        f"held before the phase); launches per op {w_per_op} [{card}]")
-    del rec, cout, want, product
+    slice_op("slice 10 mul_e (HRLK)", w_shape, W_N, W_PER_OP,
+             lambda: R.mul_e(w_param, whk, wx, wy),
+             lambda: R.mul_e(w_param, whk, wx, wy), w_chain,
+             lambda c: R.decrypt(w_param, w["sk"], R.from_evals(w_param, c)),
+             want, chain_what, held_at=BATCH)
+    # slice 11: mul with the hybrid key at 2^15 on the same keys: K6 over Q
+    # and over P from 14 sources on two-block clusters, K4, K1, K3
+    (wc1, wc2), (ws1, ws2) = w["c"], w["small"]
+    rec = drive(f"slice 11: mul (HRLK) -> decrypt at {w_shape}",
+                tuple(W_MUL_PER_OP),
+                lambda: R.decrypt(w_param, w["sk"], R.mul(w_param, whk, wc1,
+                                                          wc2)))
+    verify(f"slice 11 mul (HRLK) at {w_shape}", rec, product,
+           f"the numpy FFT negacyclic product (rounding error "
+           f"{fft_err:.2e})")
+
+    def w_mul_chain():
+        c = wc1
+        for _ in range(CHAIN):
+            c = R.mul(w_param, whk, c, wc2)
+        return c
+
+    slice_op("slice 11 mul (HRLK)", w_shape, W_N, W_MUL_PER_OP,
+             lambda: R.mul(w_param, whk, wc1, wc2),
+             lambda: R.mul(w_param, whk, ws1, ws2), w_mul_chain,
+             lambda c: R.decrypt(w_param, w["sk"], c), want, chain_what)
+    del rec, want, product, wc1, wc2, ws1, ws2
     # each widened kernel against plain at the path's shapes, batch 8; K9 on
     # [8, 2^15] under a 30-bit and a 31-bit prime; K12 at n = 2^15
     gen = prng.Gen(SEED + 21)
@@ -2145,8 +2232,9 @@ def main() -> None:
             f"device alone {a_ms:8.4f} ms, bound {b.ms:.4f} ms by {b.term} "
             f"(bytes {b.bytes_ms:.4f}, issue {b.issue_ms:.4f}, ALU "
             f"{b.alu_ms:.4f}, FMA {b.fma_ms:.4f}): {b.ms / a_ms:.3f} of it; "
-            f"{w_per_op.get(case.name, 0)} launches of {case.name} per "
-            f"mul_e [{card}]")
+            f"{W_PER_OP.get(case.name, 0)} launches of {case.name} per "
+            f"mul_e, {W_MUL_PER_OP.get(case.name, 0)} per mul (HRLK) "
+            f"[{card}]")
     del busy
     per_sm = alu_bench.resident_blocks(dev, n=W_N)[0]
     ceil = alu_bench.ntt_smem_ceiling(dev, n=W_N, B=per_sm * sms,
@@ -2167,10 +2255,141 @@ def main() -> None:
         f"{bf_bound:.4e} (its timed launch == plain on 4 polynomials); K1's "
         f"forward Q at the path's shape {k1_rate:.4e} butterflies/s = "
         f"{k1_rate / ceil['butterflies_per_sec']:.3f} of it [{card}]")
-    del t_cases, k1, ceil, xin, x9, w, wx, wy, whk, w_sigs
+    del t_cases, k1, ceil, xin, x9, w, wx, wy, whk
     torch.cuda.empty_cache()
     phase_done(f"18 (slice 10: ring degree 2^15, mul_e HRLK at {w_shape}) "
                f"[{card}]")
+
+    # 19. slice 11: the gadget keyring at the whole modulus ------------------
+    g_param = R.RnsParam(n=G_N, t=T, L=G_L, M=G_M)
+    g_shape = f"N={G_N} L={G_L} M={G_M} t={T} B={BATCH}"
+    gen = prng.Gen(SEED + 30)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()
+    g = {}
+
+    def gadget_path():
+        g["sk"], g["pk"] = R.new_key(gen, g_param, dev)
+        g["rlk"] = R.rlk_key(gen, g_param, g["sk"])
+        g["m"] = [prng.uniform_mod(gen, (BATCH, G_N), T, dev)
+                  for _ in range(2)]
+        g["c"] = [R.encrypt(gen, g_param, g["pk"], m, batch=(BATCH,))
+                  for m in g["m"]]
+        return R.decrypt(g_param, g["sk"], R.mul(g_param, g["rlk"],
+                                                  *g["c"]))
+
+    t0 = time.perf_counter()
+    rec = drive(f"slice 11: keygen -> rlk_key -> encrypt -> mul (RLK) -> "
+                f"decrypt at {g_shape}", tuple(G_PER_OP["mul (RLK)"]),
+                gadget_path)
+    path_peak = torch.cuda.max_memory_allocated()
+    rlk_bytes = sum(t.numel() * t.element_size() for t in g["rlk"])
+    gm1, gm2 = (m.cpu().numpy() for m in g["m"])
+    product, fft_err = negacyclic_reference(gm1, gm2, T)
+    fft = (f"the numpy FFT negacyclic product (rounding error "
+           f"{fft_err:.2e})")
+    verify(f"slice 11 mul (RLK) at {g_shape}", rec, product, fft)
+    say(f"path: slice 11 keys and ciphertexts at {g_shape} in "
+        f"{time.perf_counter() - t0:.1f} s (host clock, the op and decrypt "
+        f"included); rlk {rlk_bytes / 2**20:.1f} MiB ({G_L} digit rows); "
+        f"peak device memory {path_peak / 2**30:.2f} GiB over the path (of "
+        f"which {held_before / 2**30:.2f} GiB were held before the phase)")
+    grlk, (gc1, gc2) = g["rlk"], g["c"]
+    gs1, gs2 = (R.encrypt(gen, g_param, g["pk"], m[:PARITY_BATCH],
+                          batch=(PARITY_BATCH,)) for m in g["m"])
+    want, err_c = chain_product(gm1, gm2)
+    chain_what = (f"the numpy FFT negacyclic products of the same chain "
+                  f"(rounding error at most {err_c:.2e})")
+
+    def g_decrypt(c):
+        return R.decrypt(g_param, g["sk"], c)
+
+    def g_mul_chain():
+        c = gc1
+        for _ in range(CHAIN):
+            c = R.mul(g_param, grlk, c, gc2)
+        return c
+
+    g_ms = {"mul (RLK)": slice_op(
+        "slice 11 mul (RLK)", g_shape, G_N, G_PER_OP["mul (RLK)"],
+        lambda: R.mul(g_param, grlk, gc1, gc2),
+        lambda: R.mul(g_param, grlk, gs1, gs2), g_mul_chain, g_decrypt,
+        want, chain_what)}
+    rec = drive(f"slice 11: to_evals -> mul_e (RLK) -> from_evals -> "
+                f"decrypt at {g_shape}",
+                ("ntt_multi", "ext_ntt", *G_PER_OP["mul_e (RLK)"]),
+                lambda: g_decrypt(R.from_evals(g_param, R.mul_e(
+                    g_param, grlk, R.to_evals(g_param, gc1),
+                    R.to_evals(g_param, gc2)))))
+    verify(f"slice 11 mul_e (RLK) at {g_shape}", rec, product, fft)
+    gx, gy = (R.to_evals(g_param, c) for c in (gc1, gc2))
+    gsx, gsy = (R.to_evals(g_param, c) for c in (gs1, gs2))
+
+    def g_mul_e_chain():
+        c = gx
+        for _ in range(CHAIN):
+            c = R.mul_e(g_param, grlk, c, gy)
+        return c
+
+    g_ms["mul_e (RLK)"] = slice_op(
+        "slice 11 mul_e (RLK)", g_shape, G_N, G_PER_OP["mul_e (RLK)"],
+        lambda: R.mul_e(g_param, grlk, gx, gy),
+        lambda: R.mul_e(g_param, grlk, gsx, gsy), g_mul_e_chain,
+        lambda c: g_decrypt(R.from_evals(g_param, c)), want, chain_what)
+    del gx, gy, gsx, gsy, g["rlk"], grlk
+    g["sk2"], _ = R.new_key(gen, g_param, dev)
+    gksk = R.ksk_key(gen, g_param, g["sk"], g["sk2"])
+    rec = drive(f"slice 11: ksk_key -> key_switch -> decrypt under the new "
+                f"key at {g_shape}", tuple(G_PER_OP["key_switch"]),
+                lambda: R.decrypt(g_param, g["sk2"],
+                                  R.key_switch(g_param, gksk, gc1)))
+    verify(f"slice 11 key_switch at {g_shape}", rec, gm1,
+           "the plaintext that was encrypted")
+
+    def g_ks_calls():
+        for _ in range(CHAIN):
+            c = R.key_switch(g_param, gksk, gc1)
+        return c
+
+    g_ms["key_switch"] = slice_op(
+        "slice 11 key_switch", g_shape, G_N, G_PER_OP["key_switch"],
+        lambda: R.key_switch(g_param, gksk, gc1),
+        lambda: R.key_switch(g_param, gksk, gs1), g_ks_calls, None, None,
+        "")
+    del rec, want, product, gksk, gs1, gs2
+    # each kernel of the slice at the path's shapes (B = 128, operands drawn
+    # on the card) on the device alone beside its bound: K6, K7, K8 at R = L
+    # over Q and the conversions from 29 and 30 sources (kernel_check.cases
+    # at this param), and K11 from 29 sources to 30
+    res = prng.device_residues(SEED + 31, dev)
+    g_cases = [c for c in kernel_check.cases(g_param, BATCH, dev, gen,
+                                             res=res)
+               if c.name in ("tensor_mul4", "ks_fused", "ks_fused_eval",
+                             "ext_ntt")
+               or c.label.startswith(("Q->P (w - ext)", "P->Q centered"))]
+    g_cases.append(kernel_check._ext_sum_pair(
+        res(g_param.qs, (BATCH, G_N)), g_param.qs, g_param.ps, True,
+        f"Q->P [{G_L}, {BATCH}, {G_N}]")[0])
+    busy = torch.zeros(1 << 28, dtype=torch.int32, device=dev)
+    for case in g_cases:
+        case.kernel()
+        a_ms = queued_ms(case.kernel, 3, busy)
+        b = bound(case.bytes, case.ops)
+        if a_ms < b.ms:
+            raise RuntimeError(f"slice 11 {case.name} [{case.label}]: "
+                               f"{a_ms:.4f} ms is under its bound {b}")
+        per = {tag: ops.get(case.name, 0) for tag, ops in G_PER_OP.items()}
+        say(f"timing: slice 11 {case.name:13s} {case.label:44s} on the "
+            f"device alone {a_ms:8.4f} ms, bound {b.ms:.4f} ms by {b.term} "
+            f"(bytes {b.bytes_ms:.4f}, issue {b.issue_ms:.4f}, ALU "
+            f"{b.alu_ms:.4f}, FMA {b.fma_ms:.4f}): {b.ms / a_ms:.3f} of it; "
+            f"launches per op {per} [{card}]")
+    del g_cases, case, busy, res, g, gc1, gc2
+    torch.cuda.empty_cache()
+    say(f"timing: slice 11 at {g_shape}: ms an op "
+        f"{ {k: round(v, 3) for k, v in g_ms.items()} } [{card}]")
+    phase_done(f"19 (slice 11: the gadget keyring at {g_shape}) [{card}]")
 
     launches = {k.name: sum(c[k.name] for c in path_launches.values())
                 for k in _cuda.KERNELS}

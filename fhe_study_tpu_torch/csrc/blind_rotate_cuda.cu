@@ -128,15 +128,6 @@ __device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
       : "memory");
 }
 
-// The shared::cluster address of p in the shared memory of block `rank`.
-__device__ __forceinline__ uint32_t peer_addr(const void* p, uint32_t rank) {
-  uint32_t a;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(a)
-               : "r"(smem_addr(p)), "r"(rank));
-  return a;
-}
-
 // An asynchronous store of one word into the peer's shared memory that
 // completes 4 bytes of the transaction count of the peer's mbarrier.
 __device__ __forceinline__ void st_peer(uint32_t addr, uint32_t v,
@@ -265,8 +256,8 @@ __global__ void __cluster_dims__(kBrCluster, 1, 1)
   // both blocks run and their barriers are set up before any store to the
   // peer
   cluster.sync();
-  const uint32_t peer_xch = peer_addr(xch, rank ^ 1);
-  const uint32_t peer_xbar = peer_addr(xbar, rank ^ 1);
+  const uint32_t peer_xch = cluster_addr(xch, rank ^ 1);
+  const uint32_t peer_xbar = cluster_addr(xbar, rank ^ 1);
 
   int h_next = shifts[b];
 #pragma unroll 1

@@ -18,7 +18,11 @@
 // the prime fastest so that the Lp blocks reading one polynomial's R limbs
 // run side by side and share them in L2; 512 threads of up to 128
 // registers, three n-word buffers in shared memory (the work buffer and the
-// two accumulators: 192 KB at n = 2^14, one block an SM).
+// two accumulators: 192 KB at n = 2^14, one block an SM).  At n = 2^15 a
+// cluster of two such blocks per (prime, polynomial), each holding one half
+// of the three buffers (radix_chain.cuh's Split): the first forward stage
+// from both halves of each row in the first pass, the last inverse stage
+// from the peer's half through distributed shared memory after the chains.
 //   1. each digit row r runs the register-resident forward chain of
 //      radix_chain.cuh in the work buffer.  Its first pass reads limb r with
 //      lanes on consecutive words and makes the subtractions in registers;
@@ -74,17 +78,28 @@ __device__ __forceinline__ void ks_body(
     const uint32_t* __restrict__ twinv_sh, const uint32_t* __restrict__ cons,
     const uint32_t* __restrict__ lift, int R, int Lp, int B, int reps,
     bool vec) {
-  using S = RadixShape<LOGN, kKsThreads>;
-  constexpr int n = S::n;
+  // at n = 2^15 one half of each buffer a block, on a two-block cluster
+  // (radix_chain.cuh's Split): the chains below are those of h words, and
+  // the block's words of the rows in device memory start r h on
+  constexpr bool split = Split<LOGN>::on;
+  constexpr int LOGH = Split<LOGN>::logh;
+  using S = RadixShape<LOGH, kKsThreads>;
+  constexpr int n = 1 << LOGN;
+  constexpr int h = S::n;
   constexpr int last = S::passes - 1;
   constexpr int c0 = S::fwd_c(0);
   constexpr int cl = S::inv_c(last);
-  extern __shared__ uint32_t a[];      // work buffer; acc_h at a + (1 + h) n
-  const int p = blockIdx.x % Lp;
-  const int b = blockIdx.x / Lp;
+  extern __shared__ uint32_t a[];      // work buffer; acc_0, acc_1 at a + h,
+                                       // a + 2 h
+  const int r = split ? cluster_rank() : 0;
+  const unsigned blk = blockIdx.x / Split<LOGN>::blocks;
+  const int p = blk % Lp;
+  const int b = blk / Lp;
   const PrimeRow pr = prime_row(cons, p);
   const uint32_t q = pr.q;
-  const size_t prow = static_cast<size_t>(p) * n;
+  // the root tables' row of this prime (and, split, of this half)
+  const size_t prow = (static_cast<size_t>(p) * Split<LOGN>::blocks + r) * h;
+  const size_t half = static_cast<size_t>(r) * h;
   // rows 0 .. R - 1: the digits; K8's rows R and R + 1: add_0 and add_1
 #pragma unroll 1
   for (int k = 0; k < (EVAL ? R + 2 : R); ++k) {
@@ -99,18 +114,33 @@ __device__ __forceinline__ void ks_body(
     for (int g = 0; g < S::groups; ++g) {
       const int base = threadIdx.x + g * S::threads;  // radix_base(v, c0)
       uint32_t x[kRadix];
-#pragma unroll
-      for (int j = 0; j < kRadix; ++j) x[j] = __ldg(src + base + (j << c0));
+      if constexpr (split) {
+        // each word of both halves reduced, then the top stage
+        const uint32_t w1 = w[0], w1sh = wsh[0];
+        const auto word = [&](int i) {
+          uint32_t v = __ldg(src + i);
 #pragma unroll 1
-      for (int s = 0; s < subs; ++s) {
+          for (int s = 0; s < subs; ++s) v = v >= q ? v - q : v;
+          return v;
+        };
 #pragma unroll
-        for (int j = 0; j < kRadix; ++j) x[j] = x[j] >= q ? x[j] - q : x[j];
+        for (int j = 0; j < kRadix; ++j) {
+          x[j] = split_word(word, base + (j << c0), h, r, w1, w1sh, q);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < kRadix; ++j) x[j] = __ldg(src + base + (j << c0));
+#pragma unroll 1
+        for (int s = 0; s < subs; ++s) {
+#pragma unroll
+          for (int j = 0; j < kRadix; ++j) x[j] = x[j] >= q ? x[j] - q : x[j];
+        }
       }
-      radix_pass<LOGN, 0, false>(x, base, w, wsh, q);
+      radix_pass<LOGH, 0, false>(x, base, w, wsh, q);
       radix_store<c0>(a, x, base);
     }
     __syncthreads();
-    RadixPasses<LOGN, 1, last, false, kKsThreads>::run(a, w, wsh, q);
+    RadixPasses<LOGH, 1, last, false, kKsThreads>::run(a, w, wsh, q);
     // the last forward pass: K7's last row and K8's add rows end in the
     // first inverse pass, on the same 16 words a virtual thread
     const bool inv = EVAL ? !digit : k == R - 1;
@@ -123,10 +153,10 @@ __device__ __forceinline__ void ks_body(
       const int base = (threadIdx.x + g * S::threads) << kRadixBits;
       uint32_t x[kRadix];
       radix_load<0>(x, a, base);
-      radix_pass<LOGN, last, false>(x, base, w, wsh, q);
+      radix_pass<LOGH, last, false>(x, base, w, wsh, q);
 #pragma unroll 1
-      for (int h = h0; h < h1; ++h) {
-        uint32_t* acc = a + (1 + h) * n;
+      for (int hh = h0; hh < h1; ++hh) {
+        uint32_t* acc = a + (1 + hh) * h;
         uint32_t y[kRadix];
         if (digit) {
           if (k > 0) {
@@ -135,8 +165,9 @@ __device__ __forceinline__ void ks_body(
 #pragma unroll
             for (int j = 0; j < kRadix; ++j) y[j] = 0;
           }
-          const uint32_t* key = radix_opaque(h == 0 ? kb : ka) +
-                                (static_cast<size_t>(k) * Lp + p) * n + base;
+          const uint32_t* key = radix_opaque(hh == 0 ? kb : ka) +
+                                (static_cast<size_t>(k) * Lp + p) * n + half +
+                                base;
 #pragma unroll
           for (int j = 0; j < kRadix; j += 4) {
             uint32_t kw[4];
@@ -155,14 +186,15 @@ __device__ __forceinline__ void ks_body(
             y[j] = addmod(shoup_mul(y[j], rl.fin, rl.fin_sh, q), x[j], q);
           }
           uint4* e = reinterpret_cast<uint4*>(
-              out + ((static_cast<size_t>(h) * Lp + p) * B + b) * n + base);
+              out + ((static_cast<size_t>(hh) * Lp + p) * B + b) * n + half +
+              base);
 #pragma unroll
           for (int j = 0; j < kRadix; j += 4) {
             e[j >> 2] = make_uint4(y[j], y[j + 1], y[j + 2], y[j + 3]);
           }
         }
         if (inv) {
-          radix_pass<LOGN, 0, true>(y, base, radix_opaque(wi),
+          radix_pass<LOGH, 0, true>(y, base, radix_opaque(wi),
                                     radix_opaque(wish), q);
         }
         radix_store<0>(acc, y, base);
@@ -173,20 +205,33 @@ __device__ __forceinline__ void ks_body(
   // the rest of the two inverse chains
   const uint32_t* wi = radix_opaque(twinv) + prow;
   const uint32_t* wish = radix_opaque(twinv_sh) + prow;
-  RadixPasses<LOGN, 1, last, true, kKsThreads, 2>::run(a + n, wi, wish, q);
+  if constexpr (split) {
+    // the last pass back to shared memory, then the top stage across the
+    // cluster, times fin, into element r h + i of each output row
+    RadixPasses<LOGH, 1, last + 1, true, kKsThreads, 2>::run(a + h, wi, wish,
+                                                             q);
+    split_inverse_top<kKsThreads>(
+        a + h, h, 2, r, wi[0], wish[0], pr.fin, pr.fin_sh, q,
+        [&](int hh, int i, uint32_t v) {
+          out[((static_cast<size_t>(EVAL ? 2 + hh : hh) * Lp + p) * B + b) *
+                  n + half + i] = v;
+        });
+  } else {
+    RadixPasses<LOGH, 1, last, true, kKsThreads, 2>::run(a + h, wi, wish, q);
 #pragma unroll 1
-  for (int g = 0; g < S::groups; ++g) {
-    const int base = radix_base(threadIdx.x + g * S::threads, cl);
+    for (int g = 0; g < S::groups; ++g) {
+      const int base = radix_base(threadIdx.x + g * S::threads, cl);
 #pragma unroll 1
-    for (int h = 0; h < 2; ++h) {
-      uint32_t x[kRadix];
-      radix_load<cl>(x, a + (1 + h) * n, base);
-      radix_pass<LOGN, last, true>(x, base, wi, wish, q);
-      uint32_t* o = out + ((static_cast<size_t>(EVAL ? 2 + h : h) * Lp + p) *
-                               B + b) * n;
+      for (int hh = 0; hh < 2; ++hh) {
+        uint32_t x[kRadix];
+        radix_load<cl>(x, a + (1 + hh) * h, base);
+        radix_pass<LOGH, last, true>(x, base, wi, wish, q);
+        uint32_t* o = out + ((static_cast<size_t>(EVAL ? 2 + hh : hh) * Lp +
+                              p) * B + b) * n;
 #pragma unroll
-      for (int j = 0; j < kRadix; ++j) {
-        o[base + (j << cl)] = shoup_mul(x[j], pr.fin, pr.fin_sh, q);
+        for (int j = 0; j < kRadix; ++j) {
+          o[base + (j << cl)] = shoup_mul(x[j], pr.fin, pr.fin_sh, q);
+        }
       }
     }
   }

@@ -18,8 +18,8 @@ namespace {
 struct KsFusedLaunch {
   template <int LOGN, typename... Args>
   static int run(Args... args) {
-    return radix_launch<LOGN, kKsThreads, kKsBuffers>(ks_fused_kernel<LOGN>,
-                                                      args...);
+    return split_launch<LOGN, kKsThreads, kKsBuffers>(ks_fused_kernel<LOGN>,
+                                                     args...);
   }
 };
 
@@ -41,8 +41,8 @@ extern "C" int fhe_ks_fused(const uint32_t* c, long long sl, long long sb,
   if (R < 1 || Lp < 1 || B < 1 || reps < 0 || blocks > INT_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return by_logn<KsFusedLaunch>(logn, threads, smem, static_cast<int>(blocks),
-                                stream, c, sl, sb, kb, ka, out, tw, tw_sh,
-                                twinv, twinv_sh, cons, R, Lp, B, reps,
-                                static_cast<int>(ks_vec(kb, ka)));
+  return by_logn_wide<KsFusedLaunch>(
+      logn, threads, smem, static_cast<int>(blocks), stream, c, sl, sb, kb,
+      ka, out, tw, tw_sh, twinv, twinv_sh, cons, R, Lp, B, reps,
+      static_cast<int>(ks_vec(kb, ka)));
 }

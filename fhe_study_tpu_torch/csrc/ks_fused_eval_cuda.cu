@@ -19,7 +19,7 @@ namespace {
 struct KsFusedEvalLaunch {
   template <int LOGN, typename... Args>
   static int run(Args... args) {
-    return radix_launch<LOGN, kKsThreads, kKsBuffers>(
+    return split_launch<LOGN, kKsThreads, kKsBuffers>(
         ks_fused_eval_kernel<LOGN>, args...);
   }
 };
@@ -46,7 +46,7 @@ extern "C" int fhe_ks_fused_eval(
       misaligned(out)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return by_logn<KsFusedEvalLaunch>(
+  return by_logn_wide<KsFusedEvalLaunch>(
       logn, threads, smem, static_cast<int>(blocks), stream, c, sl, sb, kb,
       ka, add0, al0, ab0, add1, al1, ab1, out, tw, tw_sh, twinv, twinv_sh,
       cons, lift, R, Lp, B, reps, static_cast<int>(ks_vec(kb, ka)));

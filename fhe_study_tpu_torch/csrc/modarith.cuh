@@ -11,9 +11,11 @@
 
 namespace fhe {
 
-// Largest source basis of a base conversion: the 2^59 fixed-point sum of
-// alpha stays below 2^64 (and, in the plain int64 version, below 2^63).
-constexpr int kMaxSrc = 15;
+// Largest source basis of a base conversion: each term of the 2^59
+// fixed-point sum of alpha is below 2^59, so the sum (with 2^58 when
+// centered) stays below 2^64, the reference's bound (the plain version adds
+// in int64, which wraps as u64 does, and reads bits 59 .. 63).
+constexpr int kMaxSrc = 31;
 
 __device__ __forceinline__ uint32_t addmod(uint32_t a, uint32_t b, uint32_t q) {
   const uint32_t s = a + b;
@@ -81,10 +83,10 @@ struct ExtTable {
 // * floor(2^59/s_i)) >> 59 (the reference's 2^59 fixed point, bit for bit),
 // then sum_i y_i * (S/s_i) - alpha * S mod d_j.  With LS > 0 the y_i stay in
 // LS registers (the source count at compile time: no run-time-indexed array,
-// so no local memory); the generic form (LS = 0, any e.ls up to kMaxSrc) keeps no per-thread array:
-// one loop takes each y_i into both sums, and stays a loop (short code where
-// it is inlined many times).  K5 and K6 run it on their way into the
-// forward chain.
+// so no local memory); the generic form (LS = 0, any e.ls up to kMaxSrc)
+// keeps no per-thread array: one loop takes each y_i into both sums, and
+// stays a loop (short code where it is inlined many times).  K5 and K6 run
+// it on their way into the forward chain.
 template <int LS>
 __device__ __forceinline__ uint32_t ext_coeff(const uint32_t* x, size_t stride,
                                               const ExtTable& e, int j) {

@@ -64,8 +64,9 @@ constexpr int kRadixBlocks = 3;
 // 128 KB: one block an SM.  There a block runs kWideThreads threads, each
 // playing 4 virtual threads with up to 128 registers, so that the SM keeps
 // 16 warps in flight where kRadixThreads would leave it 8 (OneBuffer).  The
-// kernels with three buffers (K6, K7, K8: 384 KB at 2^15) and K10 stop at
-// 2^14 (by_logn).
+// kernels with three buffers (K6, K7, K8: 384 KB at 2^15) take 2^15 on a
+// cluster of two blocks, each holding one half of every buffer (Split); K10
+// stops at 2^14 (by_logn).
 constexpr int kWideLogN = 15;
 constexpr int kWideThreads = 512;
 
@@ -111,6 +112,28 @@ struct OneBuffer {
       LOGN < kWideLogN ? kRadixThreads : kWideThreads;
   static constexpr int blocks = LOGN < kWideLogN ? kRadixBlocks : 1;
   using Shape = RadixShape<LOGN, threads>;
+};
+
+// A kernel with three buffers at n = 2^LOGN: at kWideLogN on a cluster of
+// kSplitBlocks blocks split on the top bit.  Block r of the pair holds the
+// elements whose bit LOGN - 1 is r, h = n / 2 words of each buffer, and runs
+// the chains of 2^logh = h words: the forward chain's first stage (bit
+// LOGN - 1) pairs element i with i + h, so each block forms it for its own
+// half from both halves of the row in device memory (split_word), and bits
+// logh - 1 .. 0 never leave the block; the inverse chain's last stage reads
+// the peer's half through distributed shared memory (split_inverse_top).
+// The half's stage at bit j takes root (n >> (j + 1)) + (i' >> (j + 1)) of
+// element i' = r h + i, which the host's split tables put at
+// (h >> (j + 1)) + (i >> (j + 1)) of row (prime, r), and the top stage's
+// root at word 0 of both rows (ops/ntt_cuda.py::_split_index): the chain
+// code of 2^logh runs unchanged.
+constexpr int kSplitBlocks = 2;
+
+template <int LOGN>
+struct Split {
+  static constexpr bool on = LOGN == kWideLogN;
+  static constexpr int logh = on ? LOGN - 1 : LOGN;
+  static constexpr int blocks = on ? kSplitBlocks : 1;
 };
 
 // Shared-memory word of element a: bits 0..4 XORed with h ^ (h << 1),
@@ -309,6 +332,130 @@ int radix_launch(Kernel kernel, int threads, int smem, int blocks,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The block's rank in its cluster (0 without clusters); a pure read, which
+// the compiler may repeat rather than hold in a register.
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+// Every thread of the cluster arrives and waits; the shared-memory writes
+// made before it are visible to the cluster after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The shared::cluster address of p in the shared memory of block `rank`
+// (K10's exchange and the split's last stage).
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, int rank) {
+  const uint32_t local =
+      static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a)
+               : "r"(local), "r"(rank));
+  return a;
+}
+
+__device__ __forceinline__ uint32_t cluster_load(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared::cluster.u32 %0, [%1];\n"
+               : "=r"(v)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// Element i of block r's half after the forward chain's first stage of a
+// split (Split): x[i] + w1 x[i + h] (r = 0) or x[i] - w1 x[i + h] (r = 1),
+// from the words f(i) and f(i + h) of the whole row.
+template <typename F>
+__device__ __forceinline__ uint32_t split_word(F f, int i, int h, int r,
+                                               uint32_t w1, uint32_t w1sh,
+                                               uint32_t q) {
+  const uint32_t v = shoup_mul(f(i + h), w1, w1sh, q);
+  const uint32_t lo = f(i);
+  return r != 0 ? submod(lo, v, q) : addmod(lo, v, q);
+}
+
+// The inverse chain's last stage of a split (Split), once both blocks have
+// run bits 0 .. logh - 1 of each of their nbuf buffers a + k h: block 0
+// forms lo + hi, block 1 (lo - hi) t, the peer's word read through
+// distributed shared memory, and out(k, i, v times fin) stores element
+// r h + i of buffer k (lanes on consecutive i).  Cluster barriers before
+// (the peer's chains are done) and after (the peer has read this block's
+// words: a block's shared memory must outlive the peer's reads).
+template <int THREADS, typename Out>
+__device__ __forceinline__ void split_inverse_top(const uint32_t* a, int h,
+                                                  int nbuf, int r, uint32_t t,
+                                                  uint32_t tsh, uint32_t fin,
+                                                  uint32_t fin_sh, uint32_t q,
+                                                  Out out) {
+  cluster_sync();
+  const uint32_t peer = cluster_addr(a, r ^ 1);
+#pragma unroll 1
+  for (int i = threadIdx.x; i < h; i += THREADS) {
+    const int sw = radix_swizzle(i);
+#pragma unroll 1
+    for (int k = 0; k < nbuf; ++k) {
+      const int word = k * h + sw;
+      const uint32_t own = a[word];
+      const uint32_t other = cluster_load(peer + 4u * word);
+      const uint32_t v =
+          r != 0 ? shoup_mul(submod(other, own, q), t, tsh, q)
+                 : addmod(own, other, q);
+      out(k, i, shoup_mul(v, fin, fin_sh, q));
+    }
+  }
+  cluster_sync();
+}
+
+// radix_launch of a three-buffer kernel at n = 2^LOGN: below kWideLogN as
+// it is; at kWideLogN a cluster of kSplitBlocks blocks for each of the
+// `blocks` (prime, polynomial) pairs, each block on the chain of one half
+// (Split), the plan's threads and bytes those of the half and SIDE words
+// more.
+template <int LOGN, int THREADS, int NBUF, int SIDE = 0, typename Kernel,
+          typename... Args>
+int split_launch(Kernel kernel, int threads, int smem, int blocks,
+                 cudaStream_t stream, Args... args) {
+  if constexpr (!Split<LOGN>::on) {
+    return radix_launch<LOGN, THREADS, NBUF>(kernel, threads, smem, blocks,
+                                             stream, args...);
+  } else {
+    using S = RadixShape<Split<LOGN>::logh, THREADS>;
+    if (threads != S::threads ||
+        smem != (NBUF * S::n + SIDE) * static_cast<int>(sizeof(uint32_t))) {
+      return static_cast<int>(cudaErrorInvalidConfiguration);
+    }
+    if (blocks > 0x7fffffff / kSplitBlocks) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (blocks > 0) {
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3(static_cast<unsigned>(blocks) * kSplitBlocks);
+      cfg.blockDim = dim3(threads);
+      cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+      cfg.stream = stream;
+      cudaLaunchAttribute attr[1];
+      attr[0].id = cudaLaunchAttributeClusterDimension;
+      attr[0].val.clusterDim.x = kSplitBlocks;
+      attr[0].val.clusterDim.y = 1;
+      attr[0].val.clusterDim.z = 1;
+      cfg.attrs = attr;
+      cfg.numAttrs = 1;
+      err = cudaLaunchKernelEx(&cfg, kernel, args...);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+}
+
 // radix_launch of a one-buffer kernel at its block shape (OneBuffer).
 template <int LOGN, typename Kernel, typename... Args>
 int one_buffer_launch(Kernel kernel, int threads, int smem, int blocks,
@@ -318,7 +465,7 @@ int one_buffer_launch(Kernel kernel, int threads, int smem, int blocks,
 }
 
 // F::run<logn>(args...) for the ring degrees that every radix-chain kernel
-// takes, 2^8 .. 2^14.
+// takes, 2^8 .. 2^14 (K10's).
 template <typename F, typename... Args>
 int by_logn(int logn, Args... args) {
   switch (logn) {
@@ -333,8 +480,8 @@ int by_logn(int logn, Args... args) {
   }
 }
 
-// F::run<logn>(args...) for the ring degrees of the one-buffer kernels:
-// by_logn's and 2^kWideLogN.
+// F::run<logn>(args...) for the ring degrees of the one-buffer kernels and
+// of the three-buffer ones (split at kWideLogN): by_logn's and 2^kWideLogN.
 template <typename F, typename... Args>
 int by_logn_wide(int logn, Args... args) {
   if (logn == kWideLogN) return F::template run<kWideLogN>(args...);

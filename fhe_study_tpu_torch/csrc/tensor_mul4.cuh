@@ -16,6 +16,15 @@ namespace {
 
 constexpr int kMul4Threads = 512;
 constexpr int kMul4Buffers = 3;
+// Words beside the three buffers of a split block: x0's transform for the
+// groups of virtual threads past the first (32 KB at n = 2^15; 224 KB in
+// all, of the 227 KB a block may take).
+template <int LOGN>
+constexpr int kMul4Side =
+    Split<LOGN>::on
+        ? (RadixShape<Split<LOGN>::logh, kMul4Threads>::groups - 1) *
+              kMul4Threads * kRadix
+        : 0;
 // LS of the instance whose operands are over the destination basis already;
 // LS = 4 (the BFV P basis from Q) and the generic LS = 0 convert.
 constexpr int kNoSrc = -1;
@@ -57,25 +66,40 @@ tensor_mul4_kernel(const uint32_t* __restrict__ x0,
                    const uint32_t* __restrict__ twinv,
                    const uint32_t* __restrict__ twinv_sh,
                    const uint32_t* __restrict__ cons, int Ls, int Ld, int B) {
-  using S = RadixShape<LOGN, kMul4Threads>;
-  constexpr int n = S::n;
+  // at n = 2^15 one half of each buffer a block, on a two-block cluster
+  // (radix_chain.cuh's Split): the chains below are those of h words
+  constexpr bool split = Split<LOGN>::on;
+  constexpr int LOGH = Split<LOGN>::logh;
+  using S = RadixShape<LOGH, kMul4Threads>;
+  constexpr int n = 1 << LOGN;
+  constexpr int h = S::n;
   constexpr int last = S::passes - 1;
   constexpr int c0 = S::fwd_c(0);
   constexpr int cl = S::inv_c(last);
-  extern __shared__ uint32_t a[];            // buffers 0, 1, 2 at a + k * n
-  uint32_t* const a2 = a + 2 * n;
-  const int p = blockIdx.x % Ld;
-  const int b = blockIdx.x / Ld;
+  extern __shared__ uint32_t a[];            // buffers 0, 1, 2 at a + k * h
+  uint32_t* const a2 = a + 2 * h;
+  // x0's transform rides across x1's chain in registers, a virtual thread's
+  // 16 words for each of the `kept` first groups; split, the block has room
+  // beside its three half buffers for the other groups' words (kMul4Side),
+  // which frees 16 registers a group
+  constexpr int kept = split ? 1 : S::groups;
+  uint32_t* const side = a + 3 * h;          // [group - kept][j][thread]
+  const int r = split ? cluster_rank() : 0;
+  const unsigned blk = blockIdx.x / Split<LOGN>::blocks;
+  const int p = blk % Ld;
+  const int b = blk / Ld;
   const uint32_t q = cons[4 * p], nq = cons[4 * p + 1];
-  const uint32_t* w = tw + static_cast<size_t>(p) * n;
-  const uint32_t* wsh = tw_sh + static_cast<size_t>(p) * n;
+  // the root tables' row of this prime (and, split, of this half)
+  const size_t trow = (static_cast<size_t>(p) * Split<LOGN>::blocks + r) * h;
+  const uint32_t* w = tw + trow;
+  const uint32_t* wsh = tw_sh + trow;
   // row p of each operand, or its source rows from row 0
   const long long row = LS == kNoSrc ? p : 0;
   // 1-2. the forward chains: k = 0, 1, 2, 3 -> y0, y1, x0, x1.  The
   // pointers each iteration reads through are made opaque in it, so that no
   // twiddle or table word is hoisted out of the loop (it would hold a
   // register across all four chains).
-  uint32_t x0e[S::groups][kRadix];
+  uint32_t x0e[kept][kRadix];
 #pragma unroll 1
   for (int k = 0; k < 4; ++k) {
     // operand k's rows and their stride (selects: no run-time index into
@@ -86,19 +110,43 @@ tensor_mul4_kernel(const uint32_t* __restrict__ x0,
                                              (k == 2 ? st.b[0] : st.b[1]));
     const uint32_t* src =
         (k == 0 ? y0 : (k == 1 ? y1 : (k == 2 ? x0 : x1))) + row * sl + b * sb;
-    uint32_t* buf = a + (k < 2 ? k : 2) * n;
+    uint32_t* buf = a + (k < 2 ? k : 2) * h;
     const uint32_t* wk = radix_opaque(w);
     const uint32_t* wshk = radix_opaque(wsh);
     const ExtTable e{radix_opaque(ext), LS > 0 ? LS : Ls, Ld};
     if (k == 3) {                       // x0 leaves buffer 2 for registers
 #pragma unroll
       for (int g = 0; g < S::groups; ++g) {
-        radix_load<0>(x0e[g], a2, (threadIdx.x + g * S::threads)
-                                      << kRadixBits);
+        const int base = (threadIdx.x + g * S::threads) << kRadixBits;
+        if (g < kept) {
+          radix_load<0>(x0e[split ? 0 : g], a2, base);
+        } else {
+          uint32_t t[kRadix];
+          radix_load<0>(t, a2, base);
+#pragma unroll
+          for (int j = 0; j < kRadix; ++j) {
+            side[((g - kept) * kRadix + j) * S::threads + threadIdx.x] = t[j];
+          }
+        }
       }
       __syncthreads();
     }
-    if constexpr (LS == 0) {
+    if constexpr (split) {
+      // the first forward stage (bit 14) from both halves of the row, word
+      // by word with lanes on consecutive words, into this block's half;
+      // then the chain of the half from shared memory (nothing of the
+      // stage sits in registers beside x0's words)
+      const uint32_t w1 = radix_opaque(wk)[0];
+      const uint32_t w1sh = radix_opaque(wshk)[0];
+#pragma unroll 1
+      for (int i = threadIdx.x; i < h; i += S::threads) {
+        buf[radix_swizzle(i)] = split_word(
+            [&](int t) { return mul4_word<LS>(src, sl, t, e, p); }, i, h, r,
+            w1, w1sh, q);
+      }
+      __syncthreads();
+      RadixPasses<LOGH, 0, last, false, kMul4Threads>::run(buf, wk, wshk, q);
+    } else if constexpr (LS == 0) {
       // the generic conversion is a loop a word: each word goes to shared
       // memory as it is converted and pass 0 runs from there, so that the
       // loops never sit beside a pass's 16 words in registers
@@ -110,56 +158,67 @@ tensor_mul4_kernel(const uint32_t* __restrict__ x0,
         });
       }
       __syncthreads();
-      RadixPasses<LOGN, 0, last, false, kMul4Threads>::run(buf, wk, wshk, q);
+      RadixPasses<LOGH, 0, last, false, kMul4Threads>::run(buf, wk, wshk, q);
     } else {
 #pragma unroll 1
       for (int g = 0; g < S::groups; ++g) {
         const int base = threadIdx.x + g * S::threads;  // radix_base(v, c0)
-        uint32_t r[kRadix];
+        uint32_t x[kRadix];
 #pragma unroll
         for (int j = 0; j < kRadix; ++j) {
-          r[j] = mul4_word<LS>(src, sl, base + (j << c0), e, p);
+          x[j] = mul4_word<LS>(src, sl, base + (j << c0), e, p);
         }
-        radix_pass<LOGN, 0, false>(r, base, radix_opaque(wk),
+        radix_pass<LOGH, 0, false>(x, base, radix_opaque(wk),
                                    radix_opaque(wshk), q);
-        radix_store<c0>(buf, r, base);
+        radix_store<c0>(buf, x, base);
       }
       __syncthreads();
-      RadixPasses<LOGN, 1, last, false, kMul4Threads>::run(buf, wk, wshk, q);
+      RadixPasses<LOGH, 1, last, false, kMul4Threads>::run(buf, wk, wshk, q);
     }
     if (k < 3) {
 #pragma unroll 1
       for (int g = 0; g < S::groups; ++g) {
         const int base = (threadIdx.x + g * S::threads) << kRadixBits;
-        uint32_t r[kRadix];
-        radix_load<0>(r, buf, base);
-        radix_pass<LOGN, last, false>(r, base, wk, wshk, q);
-        radix_store<0>(buf, r, base);
+        uint32_t x[kRadix];
+        radix_load<0>(x, buf, base);
+        radix_pass<LOGH, last, false>(x, base, wk, wshk, q);
+        radix_store<0>(buf, x, base);
       }
       __syncthreads();
     }
   }
   // 3. x1's last pass; the products one at a time, each through the first
-  // inverse pass (the group loop is unrolled: x0e stays in registers).  The
-  // inverse chain's pointers are formed only now, out of the loop's
-  // registers.
+  // inverse pass.  The inverse chain's pointers are formed only now, out of
+  // the loop's registers.
   const uint32_t* w3 = radix_opaque(w);
   const uint32_t* wsh3 = radix_opaque(wsh);
-  const uint32_t* wi = radix_opaque(twinv) + static_cast<size_t>(p) * n;
-  const uint32_t* wish = radix_opaque(twinv_sh) + static_cast<size_t>(p) * n;
-#pragma unroll
+  const uint32_t* wi = radix_opaque(twinv) + trow;
+  const uint32_t* wish = radix_opaque(twinv_sh) + trow;
+  // unrolled, x0e's groups stay in registers; split, x0e holds one group
+  // and the loop stays rolled (unrolled, its schedule spilled at 128
+  // registers)
+  constexpr int unroll_g = split ? 1 : S::groups;
+#pragma unroll unroll_g
   for (int g = 0; g < S::groups; ++g) {
     const int base = (threadIdx.x + g * S::threads) << kRadixBits;
-    uint32_t x[kRadix];
+    uint32_t x[kRadix], xs[kRadix];
+    if (g >= kept) {                    // x0's words from beside the buffers,
+      const uint32_t* sd = radix_opaque(side);  // not before this group
+#pragma unroll
+      for (int j = 0; j < kRadix; ++j) {
+        xs[j] = sd[((g - kept) * kRadix + j) * S::threads + threadIdx.x];
+      }
+    }
     radix_load<0>(x, a2, base);
-    radix_pass<LOGN, last, false>(x, base, w3, wsh3, q);
+    radix_pass<LOGH, last, false>(x, base, w3, wsh3, q);
 #pragma unroll 1
     for (int k = 2; k >= 0; --k) {      // x1 y1, x0 y1 + x1 y0, x0 y0
       uint32_t u[kRadix], pr[kRadix];
-      radix_load<0>(u, k == 0 ? a : a + n, base);
+      radix_load<0>(u, k == 0 ? a : a + h, base);
 #pragma unroll
       for (int j = 0; j < kRadix; ++j) {
-        pr[j] = mont_mul(k == 2 ? x[j] : x0e[g][j], u[j], q, nq);
+        const uint32_t x0j = g < kept ? x0e[split ? 0 : g][j] : xs[j];
+        pr[j] = mont_mul(k == 2 ? x[j] : x0j, u[j], q, nq);
       }
       if (k == 1) {
         radix_load<0>(u, a, base);
@@ -168,29 +227,40 @@ tensor_mul4_kernel(const uint32_t* __restrict__ x0,
           pr[j] = addmod(pr[j], mont_mul(x[j], u[j], q, nq), q);
         }
       }
-      radix_pass<LOGN, 0, true>(pr, base, wi, wish, q);
-      radix_store<0>(a + k * n, pr, base);
+      radix_pass<LOGH, 0, true>(pr, base, wi, wish, q);
+      radix_store<0>(a + k * h, pr, base);
     }
   }
   __syncthreads();
   // 4. the rest of the three inverse chains
   wi = radix_opaque(wi);
   wish = radix_opaque(wish);
-  RadixPasses<LOGN, 1, last, true, kMul4Threads, 3>::run(a, wi, wish, q);
-  const uint32_t fin = cons[4 * p + 2], fin_sh = cons[4 * p + 3];
-  uint32_t* out3 = out + (static_cast<size_t>(p) * B + b) * 3 * n;
+  if constexpr (split) {
+    // the last pass back to shared memory, then the top stage across the
+    // cluster, times fin, into element r h + i of each product
+    RadixPasses<LOGH, 1, last + 1, true, kMul4Threads, 3>::run(a, wi, wish,
+                                                               q);
+    const uint32_t fin = cons[4 * p + 2], fin_sh = cons[4 * p + 3];
+    uint32_t* out3 = out + (static_cast<size_t>(p) * B + b) * 3 * n;
+    split_inverse_top<kMul4Threads>(
+        a, h, 3, r, wi[0], wish[0], fin, fin_sh, q,
+        [&](int k, int i, uint32_t v) { out3[k * n + r * h + i] = v; });
+  } else {
+    RadixPasses<LOGH, 1, last, true, kMul4Threads, 3>::run(a, wi, wish, q);
+    const uint32_t fin = cons[4 * p + 2], fin_sh = cons[4 * p + 3];
+    uint32_t* out3 = out + (static_cast<size_t>(p) * B + b) * 3 * n;
 #pragma unroll 1
-  for (int g = 0; g < S::groups; ++g) {
-    const int base = radix_base(threadIdx.x + g * S::threads, cl);
+    for (int g = 0; g < S::groups; ++g) {
+      const int base = radix_base(threadIdx.x + g * S::threads, cl);
 #pragma unroll 1
-    for (int k = 0; k < 3; ++k) {
-      uint32_t r[kRadix];
-      radix_load<cl>(r, a + k * n, base);
-      radix_pass<LOGN, last, true>(r, base, wi, wish, q);
+      for (int k = 0; k < 3; ++k) {
+        uint32_t x[kRadix];
+        radix_load<cl>(x, a + k * n, base);
+        radix_pass<LOGN, last, true>(x, base, wi, wish, q);
 #pragma unroll
-      for (int j = 0; j < kRadix; ++j) {
-        out3[k * n + base + (j << cl)] =
-            shoup_mul(r[j], fin, fin_sh, q);
+        for (int j = 0; j < kRadix; ++j) {
+          out3[k * n + base + (j << cl)] = shoup_mul(x[j], fin, fin_sh, q);
+        }
       }
     }
   }
@@ -200,7 +270,7 @@ template <int LS>
 struct TensorMul4Launch {
   template <int LOGN, typename... Args>
   static int run(Args... args) {
-    return radix_launch<LOGN, kMul4Threads, kMul4Buffers>(
+    return split_launch<LOGN, kMul4Threads, kMul4Buffers, kMul4Side<LOGN>>(
         tensor_mul4_kernel<LOGN, LS>, args...);
   }
 };

@@ -14,6 +14,16 @@
 // Four operands each enter two products, so three n-word buffers must be
 // live (192 KB at n = 2^14: one block an SM); the block runs 512 threads,
 // two virtual threads each at n = 2^14, with up to 128 registers a thread.
+// At n = 2^15 (384 KB) a cluster of two such blocks takes each (dst prime,
+// polynomial), block r holding the elements whose top bit is r
+// (radix_chain.cuh's Split): the first forward stage is formed word by word
+// from both halves of each operand row into the block's half (with a source
+// basis, each block converts the words of both halves), the chain of the
+// half runs from there as below, with x0's words of the second group of
+// virtual threads kept in 32 KB of shared memory beside the buffers (224 KB
+// a block: 128 registers hold only one group beside x1's chain), and the
+// last inverse stage reads the peer's half of the three products through
+// distributed shared memory.
 //   1. the forward chains of y0, y1 and x0 into buffers 0, 1, 2, and of x1
 //      into buffer 2 but for its last pass, one operand after another in a
 //      run-time loop (one copy of the chain's code); the first pass reads
@@ -56,8 +66,8 @@
 
 using namespace fhe;
 
-// Ls = 0: the operands are [Ld, B, n] rows over dst; Ls = 1 .. 15: [Ls, B, n]
-// rows over src, converted on the way in.
+// Ls = 0: the operands are [Ld, B, n] rows over dst; Ls = 1 .. 31: [Ls, B,
+// n] rows over src, converted on the way in.
 extern "C" int fhe_tensor_mul4(const uint32_t* x0, const uint32_t* x1,
                                const uint32_t* y0, const uint32_t* y1,
                                long long sl0, long long sb0, long long sl1,
@@ -76,11 +86,11 @@ extern "C" int fhe_tensor_mul4(const uint32_t* x0, const uint32_t* x1,
   const int nb = static_cast<int>(blocks);
   switch (Ls) {
     case 0:
-      return by_logn<TensorMul4Launch<kNoSrc>>(
+      return by_logn_wide<TensorMul4Launch<kNoSrc>>(
           logn, threads, smem, nb, stream, x0, x1, y0, y1, st, out, ext, tw,
           tw_sh, twinv, twinv_sh, cons, Ls, Ld, B);
     case 4:
-      return by_logn<TensorMul4Launch<4>>(
+      return by_logn_wide<TensorMul4Launch<4>>(
           logn, threads, smem, nb, stream, x0, x1, y0, y1, st, out, ext, tw,
           tw_sh, twinv, twinv_sh, cons, Ls, Ld, B);
     default:

@@ -1,5 +1,5 @@
 // K6 tensor_mul4's instances for the generic source count (LS = 0: any 1 ..
-// 15 source primes but 4), in a translation unit of their own so that they
+// 31 source primes but 4), in a translation unit of their own so that they
 // compile beside the path's instances (csrc/tensor_mul4_cuda.cu, which
 // describes the kernel and holds its entry point).
 
@@ -17,9 +17,9 @@ int tensor_mul4_generic(int logn, int threads, int smem, int blocks,
                         const uint32_t* tw_sh, const uint32_t* twinv,
                         const uint32_t* twinv_sh, const uint32_t* cons,
                         int Ls, int Ld, int B) {
-  return by_logn<TensorMul4Launch<0>>(logn, threads, smem, blocks, stream, x0,
-                                      x1, y0, y1, st, out, ext, tw, tw_sh,
-                                      twinv, twinv_sh, cons, Ls, Ld, B);
+  return by_logn_wide<TensorMul4Launch<0>>(
+      logn, threads, smem, blocks, stream, x0, x1, y0, y1, st, out, ext, tw,
+      tw_sh, twinv, twinv_sh, cons, Ls, Ld, B);
 }
 
 }  // namespace fhe

@@ -173,12 +173,13 @@ I64 = ctypes.c_longlong
 
 
 # The ring degrees (log2 n, both ends included) that a kernel of the radix
-# chain takes: the kernels that hold one polynomial in shared memory reach
-# 2^15 (csrc/radix_chain.cuh, by_logn_wide; K9 also 2^7), those that hold
-# three (K6, K7, K8) and K10's clusters stop at 2^14 (by_logn).
-ONE_BUFFER_LOGN = (8, 15)
+# chain takes: the kernels that hold one polynomial in shared memory, and
+# those that hold three (K6, K7, K8: at 2^15 on two-block clusters, one half
+# a block), reach 2^15 (csrc/radix_chain.cuh, by_logn_wide; K9 also 2^7);
+# K10's clusters stop at 2^14 (by_logn).
+RADIX_LOGN = (8, 15)
 K9_LOGN = (7, 15)
-NARROW_LOGN = (8, 14)
+BLIND_ROTATE_LOGN = (8, 14)
 
 
 class Kernel:
@@ -227,16 +228,16 @@ NTT_MULTI = Kernel("ntt_multi", "fhe_ntt_multi",
                    "fhe_study_tpu_torch/csrc/ntt_multi_cuda.cu",
                    "fhe_study_tpu/ops/ntt_pallas.py:404",
                    PTR, PTR, PTR, PTR, PTR, *([INT] * 8),
-                   logn=ONE_BUFFER_LOGN)
+                   logn=RADIX_LOGN)
 TENSOR_EVAL4 = Kernel("tensor_eval4", "fhe_tensor_eval4", _NTT_CU,
                       "fhe_study_tpu/ops/ntt_pallas.py:794",
                       PTR, PTR, PTR, PTR, *([I64] * 8),
                       PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT,
-                      logn=ONE_BUFFER_LOGN)
+                      logn=RADIX_LOGN)
 KS_CONTRACT = Kernel("ks_contract", "fhe_ks_contract",
                      "fhe_study_tpu_torch/csrc/ks_contract_cuda.cu",
                      "fhe_study_tpu/ops/ntt_pallas.py:1273",
-                     *([PTR] * 7), *([INT] * 7), logn=ONE_BUFFER_LOGN)
+                     *([PTR] * 7), *([INT] * 7), logn=RADIX_LOGN)
 BASE_EXTEND = Kernel("base_extend", "fhe_base_extend", _EXT_CU,
                      "fhe_study_tpu/ops/ext_pallas.py:133",
                      PTR, PTR, PTR, PTR, INT, INT, I64, INT, INT)
@@ -244,35 +245,35 @@ EXT_NTT = Kernel("ext_ntt", "fhe_ext_ntt",
                  "fhe_study_tpu_torch/csrc/ext_ntt_cuda.cu",
                  "fhe_study_tpu/ops/ntt_pallas.py:905",
                  PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT,
-                 logn=ONE_BUFFER_LOGN)
+                 logn=RADIX_LOGN)
 _MUL4_CU = "fhe_study_tpu_torch/csrc/tensor_mul4_cuda.cu"
 _TENSOR_MUL4_ARGS = (PTR, PTR, PTR, PTR, *([I64] * 8), *([PTR] * 7),
                      *([INT] * 6))
 TENSOR_MUL4 = Kernel("tensor_mul4", "fhe_tensor_mul4", _MUL4_CU,
                      "fhe_study_tpu/ops/ntt_pallas.py:677",
-                     *_TENSOR_MUL4_ARGS, logn=NARROW_LOGN)
+                     *_TENSOR_MUL4_ARGS, logn=RADIX_LOGN)
 # the stacked-operand form: the same __global__ function, fed row strides
 TENSOR_MUL = Kernel("tensor_mul", "fhe_tensor_mul4", _MUL4_CU,
                     "fhe_study_tpu/ops/ntt_pallas.py:604",
-                    *_TENSOR_MUL4_ARGS, logn=NARROW_LOGN)
+                    *_TENSOR_MUL4_ARGS, logn=RADIX_LOGN)
 KS_FUSED = Kernel("ks_fused", "fhe_ks_fused",
                   "fhe_study_tpu_torch/csrc/ks_fused_cuda.cu",
                   "fhe_study_tpu/ops/ntt_pallas.py:1103",
                   PTR, I64, I64, PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR,
-                  *([INT] * 7), logn=NARROW_LOGN)
+                  *([INT] * 7), logn=RADIX_LOGN)
 KS_FUSED_EVAL = Kernel("ks_fused_eval", "fhe_ks_fused_eval",
                        "fhe_study_tpu_torch/csrc/ks_fused_eval_cuda.cu",
                        "fhe_study_tpu/ops/ntt_pallas.py:1216",
                        PTR, I64, I64, PTR, PTR, PTR, I64, I64, PTR, I64, I64,
                        PTR, PTR, PTR, PTR, PTR, PTR, PTR, *([INT] * 7),
-                       logn=NARROW_LOGN)
+                       logn=RADIX_LOGN)
 NTT = Kernel("ntt", "fhe_ntt", "fhe_study_tpu_torch/csrc/ntt_multi_cuda.cu",
              "fhe_study_tpu/ops/ntt_pallas.py:1296",
              PTR, PTR, PTR, PTR, PTR, *([INT] * 6), logn=K9_LOGN)
 BLIND_ROTATE = Kernel("blind_rotate", "fhe_blind_rotate",
                       "fhe_study_tpu_torch/csrc/blind_rotate_cuda.cu",
                       "fhe_study_tpu/ops/blind_rotate_pallas.py:392",
-                      *([PTR] * 12), *([INT] * 9), logn=NARROW_LOGN)
+                      *([PTR] * 12), *([INT] * 9), logn=BLIND_ROTATE_LOGN)
 BASE_EXTEND_SUM = Kernel("base_extend_sum", "fhe_base_extend_sum", _EXT_CU,
                          "fhe_study_tpu/ops/ext_pallas.py:207",
                          PTR, PTR, PTR, PTR, INT, INT, I64, INT)
@@ -280,7 +281,7 @@ _BENCH_CU = "fhe_study_tpu_torch/csrc/bench_cuda.cu"
 NTT_SMEM_CEILING = Kernel("ntt_smem_ceiling", "fhe_ntt_smem_ceiling",
                           _BENCH_CU, "fhe_study_tpu/ops/vpu_bench.py:168",
                           PTR, PTR, PTR, PTR, U32, *([INT] * 5),
-                          logn=ONE_BUFFER_LOGN)
+                          logn=RADIX_LOGN)
 ALU_RATE = Kernel("alu_rate", "fhe_alu_rate", _BENCH_CU,
                   "fhe_study_tpu/ops/vpu_bench.py:86",
                   PTR, PTR, PTR, PTR, I64, INT, INT, U32, U32)

@@ -12,8 +12,10 @@ and, with (w, sub_mul), out_j = (w_j - out_j) * sub_mul[j] mod d_j.
 
 alpha is the reference's 2^59 fixed point (fhe_study_tpu/models/bfv_rns.py
 explains its exactness margins), never a float: at a boundary a float could
-pick another alpha than the reference.  In int64 the sum stays below 2^63
-while the source basis has at most 15 primes.
+pick another alpha than the reference.  Each term y_i * floor(2^59/s_i) is
+below 2^59, so the sum (plus 2^58 when centered) stays below 2^64 for up to
+31 source primes, the reference's own bound: the plain version adds in int64,
+which wraps as u64 does, and takes bits 59 .. 63 of the result.
 
 The host tables ``_hat_inv`` and ``_ext_table`` are the counterparts of the
 reference's ``bfv_rns._hat_inv_mont`` and ``bfv_rns._ext_table``: the plain
@@ -30,7 +32,7 @@ import torch
 from . import _cuda
 from .modops32 import qvec
 
-MAX_SRC = 15
+MAX_SRC = 31
 
 
 def _check_src(src: tuple) -> None:
@@ -98,7 +100,9 @@ def lift_plain(x, src: tuple, centered: bool = False):
     dev, nd = x.device, x.ndim
     ys = x.long() * qvec(_hat_inv(src), nd, dev) % qvec(src, nd, dev)
     cfix = qvec([(1 << 59) // s for s in src], nd, dev)
-    alpha = ((ys * cfix).sum(0) + ((1 << 58) if centered else 0)) >> 59
+    # a u64 sum in int64 bits: past 2^63 it reads negative, and >> is
+    # arithmetic, so the mask keeps bits 59 .. 63 alone
+    alpha = ((ys * cfix).sum(0) + ((1 << 58) if centered else 0)) >> 59 & 31
     return ys, alpha
 
 

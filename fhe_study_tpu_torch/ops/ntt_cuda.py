@@ -69,6 +69,41 @@ def _twiddles(qs: tuple, n: int, inverse: bool, device) -> torch.Tensor:
 
 
 @lru_cache(maxsize=None)
+def _split_index(n: int) -> np.ndarray:
+    """[2, n/2]: the root-table index that row r of a split table holds at
+    each word (csrc/radix_chain.cuh's Split).  Block r runs the chain of
+    h = n/2 words on the elements r h + i; its stage at bit j takes root
+    (n >> (j + 1)) + ((r h + i) >> (j + 1)) = (2 + r) m + (i >> (j + 1))
+    with m = h >> (j + 1), which the row puts at m + (i >> (j + 1)), where the
+    chain of h words reads it; word 0 holds the top stage's root, index 1."""
+    h = n // 2
+    idx = np.ones((2, h), np.int64)
+    m = 1
+    while m < h:
+        for r in (0, 1):
+            idx[r, m:2 * m] = (2 + r) * m + np.arange(m)
+        m *= 2
+    return idx
+
+
+@lru_cache(maxsize=None)
+def _split_twiddles(qs: tuple, n: int, inverse: bool,
+                    device) -> torch.Tensor:
+    """[2, L, 2, n/2]: the root (or inverse root) tables and their Shoup
+    companions rearranged for the two blocks of a split, row (prime, r)."""
+    host = _twiddles_host(qs, n, inverse)[:, :, _split_index(n)]
+    return _u32_tensor(host, device)
+
+
+def _chain_twiddles(qs: tuple, n: int, inverse: bool, device) -> torch.Tensor:
+    """The tables a three-buffer kernel (K6, K7, K8) reads at n: split at
+    n = 2^WIDE_LOGN, as they are below."""
+    if n == 1 << WIDE_LOGN:
+        return _split_twiddles(qs, n, inverse, device)
+    return _twiddles(qs, n, inverse, device)
+
+
+@lru_cache(maxsize=None)
 def _prime_rows(qs: tuple, fin: tuple | None, device) -> torch.Tensor:
     return _u32_tensor(_prime_rows_host(qs, fin), device)
 
@@ -103,6 +138,8 @@ WIDE_THREADS = 512      # kernels run kWideThreads (OneBuffer)
 MUL4_THREADS = 512      # kMul4Threads of csrc/tensor_mul4.cuh (K6) and
                         # kKsThreads of csrc/ks_fused.cuh (K7, K8) ...
 MUL4_BUFFERS = 3        # ... which hold three polynomials in shared memory
+                        # (at n = 2^WIDE_LOGN one half in each block of a
+                        # two-block cluster)
 
 
 class RadixPass(NamedTuple):
@@ -143,6 +180,21 @@ def _radix_plan(logn: int, max_threads: int | None = None,
     threads = min(vthreads, max_threads)
     return RadixPlan(logn, threads, vthreads // threads, buffers * 4 << logn,
                      tuple(fwd), tuple(inv))
+
+
+def _mul4_plan(logn: int, side: bool = False) -> RadixPlan:
+    """The plan a block of K6, K7 or K8 runs at n = 2^logn: the chains of
+    its n words below 2^WIDE_LOGN; there, one block of a split (a cluster
+    of two), those of its half, and with ``side`` (K6) the words of x0's
+    transform that its threads keep beside the buffers for every group of
+    virtual threads but the first (kMul4Side)."""
+    if logn != WIDE_LOGN:
+        return _radix_plan(logn, MUL4_THREADS, MUL4_BUFFERS)
+    plan = _radix_plan(logn - 1, MUL4_THREADS, MUL4_BUFFERS)
+    if side:
+        extra = 4 * (plan.groups - 1) * plan.threads << RADIX_BITS
+        plan = plan._replace(smem_bytes=plan.smem_bytes + extra)
+    return plan
 
 
 # -- plain versions ---------------------------------------------------------
@@ -409,7 +461,7 @@ def ks_contract_kernel(edm, kb, ka, primes: tuple):
 
 def ext_ntt_kernel(x, src: tuple, dst: tuple):
     """K5: one block per (dst prime, polynomial), on the register-resident
-    forward chain (``_radix_plan``); any source basis of 1 .. 15 primes."""
+    forward chain (``_radix_plan``); any source basis of 1 .. 31 primes."""
     dev = x.device
     _cuda.check(x, "x", dev)
     ext_cuda._check_src(src)
@@ -448,9 +500,9 @@ def _tensor_mul4_launch(kernel, x0, x1, y0, y1, dst: tuple, scale, src):
     if B == 0:
         return out
     tab = None if src is None else ext_cuda.kernel_table(src, dst, None, dev)
-    tw, twinv = _twiddles(dst, n, False, dev), _twiddles(dst, n, True, dev)
+    tw, twinv = (_chain_twiddles(dst, n, inv, dev) for inv in (False, True))
     cons = _prime_rows(dst, _tensor_fin(dst, n, scale), dev)
-    plan = _radix_plan(logn, MUL4_THREADS, MUL4_BUFFERS)
+    plan = _mul4_plan(logn, side=True)
     kernel.launch(dev, *(v.data_ptr() for v in views), *_row_strides(views),
                   out.data_ptr(), None if tab is None else tab.data_ptr(),
                   tw[0].data_ptr(), tw[1].data_ptr(), twinv[0].data_ptr(),
@@ -462,10 +514,10 @@ def _tensor_mul4_launch(kernel, x0, x1, y0, y1, dst: tuple, scale, src):
 
 def tensor_mul4_kernel(x0, x1, y0, y1, dst: tuple, scale=None, src=None):
     """K6: one block per (dst prime, polynomial), seven transforms on the
-    register-resident chain (``_radix_plan`` at MUL4_THREADS threads and
-    three buffers).  Operands [Ld, B.., n], or [Ls, B.., n] over ``src`` with
-    the extension src -> dst run in the kernel; they may be strided
-    views."""
+    register-resident chain (``_mul4_plan``: MUL4_THREADS threads and three
+    buffers; at n = 2^15 a cluster of two blocks, one half each).  Operands
+    [Ld, B.., n], or [Ls, B.., n] over ``src`` with the extension src -> dst
+    run in the kernel; they may be strided views."""
     return _tensor_mul4_launch(_cuda.TENSOR_MUL4, x0, x1, y0, y1, dst, scale,
                                src)
 
@@ -494,9 +546,10 @@ def _ks_operands(c_limbs, kb, ka, primes: tuple):
 
 def ks_fused_kernel(c_limbs, kb, ka, primes: tuple, src_primes: tuple):
     """K7: one block per (prime, polynomial), R + 2 transforms on the
-    register-resident chain (``_radix_plan`` at MUL4_THREADS threads and
-    three buffers).  c_limbs [R, B.., n] may be a strided view; kb/ka
-    [R, Lp, n] are read as uint4 when both are 16-byte aligned."""
+    register-resident chain (``_mul4_plan``: MUL4_THREADS threads and three
+    buffers; at n = 2^15 a cluster of two blocks, one half each).  c_limbs
+    [R, B.., n] may be a strided view; kb/ka [R, Lp, n] are read as uint4
+    when both are 16-byte aligned."""
     logn = _cuda.log2_degree(c_limbs.shape[-1], _cuda.KS_FUSED)
     dev = c_limbs.device
     primes = tuple(primes)
@@ -506,9 +559,10 @@ def ks_fused_kernel(c_limbs, kb, ka, primes: tuple, src_primes: tuple):
     out = torch.empty((2, Lp) + tuple(c_limbs.shape[1:]), dtype=torch.int32,
                       device=dev)
     if B > 0:
-        tw, twinv = (_twiddles(primes, n, inv, dev) for inv in (False, True))
+        tw, twinv = (_chain_twiddles(primes, n, inv, dev)
+                     for inv in (False, True))
         cons = _prime_rows(primes, _tensor_fin(primes, n, None), dev)
-        plan = _radix_plan(logn, MUL4_THREADS, MUL4_BUFFERS)
+        plan = _mul4_plan(logn)
         _cuda.KS_FUSED.launch(dev, c.data_ptr(), c.stride(0), c.stride(1),
                               kb.data_ptr(), ka.data_ptr(), out.data_ptr(),
                               tw[0].data_ptr(), tw[1].data_ptr(),
@@ -538,10 +592,11 @@ def ks_fused_eval_kernel(c_limbs, kb, ka, primes: tuple, src_primes: tuple,
     out = torch.empty((4, Lp) + tuple(c_limbs.shape[1:]), dtype=torch.int32,
                       device=dev)
     if B > 0:
-        tw, twinv = (_twiddles(primes, n, inv, dev) for inv in (False, True))
+        tw, twinv = (_chain_twiddles(primes, n, inv, dev)
+                     for inv in (False, True))
         cons = _prime_rows(primes, _default_fin(primes, n, True, None), dev)
         lift = _prime_rows(primes, tuple(R32 % q for q in primes), dev)
-        plan = _radix_plan(logn, MUL4_THREADS, MUL4_BUFFERS)
+        plan = _mul4_plan(logn)
         _cuda.KS_FUSED_EVAL.launch(
             dev, c.data_ptr(), c.stride(0), c.stride(1), kb.data_ptr(),
             ka.data_ptr(), a0.data_ptr(), a0.stride(0), a0.stride(1),

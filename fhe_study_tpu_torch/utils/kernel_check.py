@@ -400,6 +400,9 @@ def _offset_word(t: torch.Tensor) -> torch.Tensor:
 
 EXT_SWEEP_LS = (1, 2, 3, 4, 5, 15)      # K4's source counts in the sweep
 EXT_SWEEP_LD = (1, 4, 5)                # and its destination counts
+# the source counts past 15 (the 2^59 fixed-point sum of alpha past 2^63):
+# K4, K5 and K6 with a source basis from each, to 5 primes
+WIDE_SWEEP_LS = tuple(range(16, ext.MAX_SRC + 1))
 
 
 KS_SWEEP_R = (1, 2, 4, 9)               # K3's, K7's and K8's digit rows in
@@ -416,7 +419,8 @@ def radix_cases(logn: int, batch: int, device, gen: prng.Gen) -> list:
     (compared only, not timed): K1-K3, K5-K9 and K12 on the
     register-resident chains, whose pass structure differs with log n, and
     K4, whose instance differs with the source count; each kernel only where
-    it takes 2^logn (K6-K8 up to 2^14).
+    it takes 2^logn (all of them take 2^8 .. 2^15; K6-K8 at 2^15 on
+    two-block clusters).
 
       K1: forward (without fin, and with the Montgomery 2^32) and inverse
           (the default n^-1, and an explicit fin), each on a contiguous
@@ -432,11 +436,12 @@ def radix_cases(logn: int, batch: int, device, gen: prng.Gen) -> list:
           word-by-word form (edm one word off the alignment) at R = 2; at
           n = 2^KS_MAPS_LOGN also KS_MAPS_R rows over KS_MAPS_LP primes;
       K5: from 2 and 4 source primes (the counts it instantiates) and from
-          1, 3 and 5 (its generic form) to 5 destination primes;
+          1, 3 and 5 and each of WIDE_SWEEP_LS (its generic form) to 5
+          destination primes;
       K6: over Q with a scale and without, the stacked operand of
           tensor_mul (row strides), rows that are not 16-byte aligned, and
-          from 1 to 5 source primes (4: its own instance; the others: the
-          generic one) to 5 destination primes;
+          from 1 to 5 and each of WIDE_SWEEP_LS source primes (4: its own
+          instance; the others: the generic one) to 5 destination primes;
       K7, K8: KS_SWEEP_R limb rows over 30-bit source primes to each of
           KS_SWEEP_LP 28-bit primes (reps >= 2), plus KS_BOOT_R rows to 2
           primes at n = 2^KS_BOOT_LOGN and KS_MAPS_R rows of its first
@@ -449,14 +454,19 @@ def radix_cases(logn: int, batch: int, device, gen: prng.Gen) -> list:
           and centered, with and without the (w - ext) * c epilogue, on
           [Ls, batch, n] (the vector form); per source count also on a row
           length of n - 1 (total % 4 != 0) and on an unaligned x and w (both
-          the word form);
+          the word form); from each of WIDE_SWEEP_LS to 5 primes, unsigned
+          and centered with the epilogue (the vector form) and centered on
+          rows of n - 1 (the word form);
       K11: from each source count 1 .. MAX_SRC to EXT_SUM_SWEEP_LD primes
           on the (ys, alpha) of [Ls, batch, n] residues, unsigned and
           centered (the vector form), and on rows of n - 1 and on an
           unaligned ys and alpha (the word form)."""
     n = 1 << logn
-    primes = ntt_primes(24, 30, 1 << 16)
+    primes = ntt_primes(9 + ext.MAX_SRC, 30, 1 << 16)
     qs, ps = primes[:4], primes[4:9]
+    # ls source primes apart from qs and ps: the last ls of the pool
+    apart = {ls: primes[len(primes) - ls:]
+             for ls in range(1, ext.MAX_SRC + 1)}
 
     def res(basis, shape):
         return prng.uniform_mod_multi(gen, shape, basis, device)
@@ -502,8 +512,8 @@ def radix_cases(logn: int, batch: int, device, gen: prng.Gen) -> list:
     out += [compared("tensor_eval4", label, nc.tensor_eval4_kernel,
                      nc.tensor_eval4_plain, *ops, qs, scale=scale)
             for label, ops in operands.items()]
-    for ls in (1, 2, 3, 4, 5):
-        src = (qs + primes[9:])[:ls]
+    for ls in (1, 2, 3, 4, 5) + WIDE_SWEEP_LS:
+        src = (qs + primes[9:])[:ls] if ls <= 5 else apart[ls]
         out.append(compared("ext_ntt", f"{ls} -> {len(ps)} primes",
                             nc.ext_ntt_kernel, nc.ext_ntt_plain,
                             res(src, (batch, n)), src, ps))
@@ -530,7 +540,7 @@ def radix_cases(logn: int, batch: int, device, gen: prng.Gen) -> list:
         out.append(compared("ks_contract", f"R={R} over {KS_MAPS_LP} primes",
                             nc.ks_contract_kernel, nc.ks_contract_plain,
                             edm, kb, ka, maps))
-    if takes("tensor_mul4", n):                   # K6-K8 to 2^14
+    if takes("tensor_mul4", n):
         narrow = ntt_primes(6, 28, 1 << 16)
         wide = ntt_primes(KS_BOOT_R, 30, 1 << 16)
 
@@ -584,15 +594,15 @@ def radix_cases(logn: int, batch: int, device, gen: prng.Gen) -> list:
                             nc.tensor_mul_kernel, nc.tensor_mul_plain, quad,
                             qs, scale=scale))
         scale_p = tuple(range(7, 7 + len(ps)))
-        for ls in (1, 2, 3, 4, 5):
-            src = (qs + primes[9:])[:ls]
+        for ls in (1, 2, 3, 4, 5) + WIDE_SWEEP_LS:
+            src = (qs + primes[9:])[:ls] if ls <= 5 else apart[ls]
             out.append(compared("tensor_mul4",
                                 f"{ls} -> {len(ps)} primes, scale",
                                 nc.tensor_mul4_kernel, nc.tensor_mul4_plain,
                                 *(res(src, (batch, n)) for _ in range(4)), ps,
                                 scale=scale_p, src=src))
     for ls in EXT_SWEEP_LS:
-        src = primes[24 - ls:]                       # apart from ps
+        src = apart[ls]
         x = res(src, (batch, n))
         for ld in EXT_SWEEP_LD:
             dst = ps[:ld]
@@ -621,9 +631,25 @@ def radix_cases(logn: int, batch: int, device, gen: prng.Gen) -> list:
             ext.base_extend_fused_plain, _offset_word(x), src, dst,
             w=_offset_word(res(dst, (batch, n))),
             sub_mul=tuple(range(5, 5 + len(dst)))))
+    for ls in WIDE_SWEEP_LS:
+        src, dst = apart[ls], ps
+        x = res(src, (batch, n))
+        w = res(dst, (batch, n))
+        sub_mul = tuple(range(5, 5 + len(dst)))
+        for centered in (False, True):
+            out.append(compared(
+                "base_extend", f"{ls} -> {len(dst)} primes, "
+                f"{'centered' if centered else 'unsigned'}, epilogue",
+                ext.base_extend_fused_kernel, ext.base_extend_fused_plain, x,
+                src, dst, centered=centered, w=w, sub_mul=sub_mul))
+        out.append(compared(
+            "base_extend", f"{ls} -> {len(dst)} primes, rows of n - 1, "
+            "centered", ext.base_extend_fused_kernel,
+            ext.base_extend_fused_plain, res(src, (batch, n - 1)), src, dst,
+            centered=True))
     dst = ps[:EXT_SUM_SWEEP_LD]
     for ls in range(1, ext.MAX_SRC + 1):
-        src = primes[24 - ls:]
+        src = apart[ls]
         for centered in (False, True):
             ys, alpha = (t.int() for t in ext.lift_plain(
                 res(src, (batch, n)), src, centered))

@@ -71,8 +71,9 @@ def test_base_extend_sum_checks_its_operands():
         ext_cuda.base_extend_sum_kernel(ys, ys[0], src, dst)
     with pytest.raises(ValueError, match="devices"):
         ext_cuda.base_extend_sum(ys, ys[0].to("meta"), src, dst)
-    with pytest.raises(ValueError, match="1 .. 15"):
-        ext_cuda.base_extend_sum_plain(ys, ys[0], (), dst)
+    for bad in ((), ntt_primes(32, 30, 1 << 16, skip=4)):
+        with pytest.raises(ValueError, match="1 .. 31"):
+            ext_cuda.base_extend_sum_plain(ys, ys[0], bad, dst)
     assert _cuda.launches() == before
 
 

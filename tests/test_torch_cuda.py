@@ -56,15 +56,16 @@ def test_radix_kernels_match_plain_at_every_degree(cuda, logn):
     strided, stacked and unaligned rows, from 1..5 source primes; K7 and K8
     from 1, 2, 4 and 9 limb rows (39 at n = 2^11) over 2 and 6 narrower
     primes, on the paths' strided views and one word off; K3, K7 and K8 at
-    R = 43 over the 45 primes of Q u P at n = 2^12), K4 from 1..5 and 15
-    source primes and K11 from every source count 1..15, each in its vector
-    and word forms; at n = 2^15 the one-buffer kernels, K4 and K11 only."""
+    R = 43 over the 45 primes of Q u P at n = 2^12), K4 from 1..5, 15 and
+    16..31 source primes and K11 from every source count 1..31, each in its
+    vector and word forms (K5 and K6 also from 16..31); at n = 2^15 K6, K7
+    and K8 on two-block clusters."""
     gen = prng.Gen(11)
     cases = kernel_check.radix_cases(logn, 3, cuda, gen)
     one = {"ntt_multi", "tensor_eval4", "ks_contract", "ext_ntt",
            "base_extend", "ntt", "ntt_smem_ceiling", "base_extend_sum"}
     three = {"tensor_mul4", "tensor_mul", "ks_fused", "ks_fused_eval"}
-    assert {c.name for c in cases} == (one if logn == 15 else one | three)
+    assert {c.name for c in cases} == one | three
     for case in cases:
         got, want = case.kernel(), case.plain()
         torch.cuda.synchronize()
@@ -72,17 +73,16 @@ def test_radix_kernels_match_plain_at_every_degree(cuda, logn):
 
 
 def test_radix_kernels_have_no_stack_frame_or_spills(cuda):
-    """Every instance of the redesigned kernels: K2, K3 and K12 per log n
-    2^8 .. 2^15, K7 and K8 per log n to 2^14, K1 and K9 (both ways) per log
-    n (K9 also at log n = 7), K5 per log n and source count form, K6 per log
-    n to 2^14 and form, K4 and K11 per source count and form, K10 per log n
-    to 2^14, staged and direct."""
+    """Every instance of the redesigned kernels: K2, K3, K7, K8 and K12 per
+    log n 2^8 .. 2^15, K1 and K9 (both ways) per log n (K9 also at log
+    n = 7), K5 and K6 per log n and source count form, K4 and K11 per source
+    count 1 .. 31 and form, K10 per log n to 2^14, staged and direct."""
     report = _cuda.ptxas_report(_cuda.build_log())
     counts = {"tensor_eval4_kernel": 8, "ks_contract_kernel": 8,
-              "ks_fused_kernel": 7, "ks_fused_eval_kernel": 7,
-              "ext_ntt_kernel": 8 * 3, "tensor_mul4_kernel": 7 * 3,
-              "ntt_multi_kernel": 8 * 2, "base_extend_kernel": 15 * 2,
-              "base_extend_sum_kernel": 15 * 2,
+              "ks_fused_kernel": 8, "ks_fused_eval_kernel": 8,
+              "ext_ntt_kernel": 8 * 3, "tensor_mul4_kernel": 8 * 3,
+              "ntt_multi_kernel": 8 * 2, "base_extend_kernel": 31 * 2,
+              "base_extend_sum_kernel": 31 * 2,
               "blind_rotate_kernel": 7 * 2, "ntt_kernel": 9 * 2,
               "ntt_smem_ceiling_kernel": 8}
     radix = [r for r in report if r["kernel"].split("<")[0] in counts]
@@ -280,6 +280,85 @@ def test_slice_at_n_2_15_on_card_matches_cpu(cuda):
     lin = np.stack([np.convolve(x, y) for x, y in zip(a, b)])
     want = (lin[:, :n] - np.pad(lin[:, n:], ((0, 0), (0, 1)))) % param.t
     np.testing.assert_array_equal(rec_cpu.numpy(), want)
+
+
+def test_three_buffer_kernels_at_n_2_15_on_card_match_cpu(cuda):
+    """mul with either relin key, the gadget mul_e and key_switch at
+    N = 2^15 (L = 2, M = 3, K = 3, B = 2): K6, K7 and K8 on their two-block
+    clusters on the card equal the plain versions on the CPU, and decrypt."""
+    param = R.RnsParam(n=1 << 15, t=256, L=2, M=3)
+
+    def run(device):
+        gen = prng.Gen(16)
+        sk, pk = R.new_key(gen, param, device)
+        sk2, _ = R.new_key(gen, param, device)
+        keys = (R.rlk_key(gen, param, sk), R.hybrid_rlk1(gen, param, sk, K=3))
+        ksk = R.ksk_key(gen, param, sk, sk2)
+        m = [prng.uniform_mod(gen, (2, param.n), param.t, device)
+             for _ in range(2)]
+        x, y = (R.encrypt(gen, param, pk, mi, batch=(2,)) for mi in m)
+        outs = [R.mul(param, k, x, y) for k in keys]
+        outs.append(R.from_evals(param, R.mul_e(
+            param, keys[0], R.to_evals(param, x), R.to_evals(param, y))))
+        ks = R.key_switch(param, ksk, x)
+        recs = [R.decrypt(param, sk, c) for c in outs]
+        recs.append(R.decrypt(param, sk2, ks))
+        return m, outs + [ks], recs
+
+    _cuda.reset_launches()
+    m, outs, recs = run(cuda)
+    torch.cuda.synchronize()
+    counts = _cuda.launches()
+    for name in ("tensor_mul4", "ks_fused", "ks_fused_eval", "base_extend"):
+        assert counts[name] > 0, counts
+    _, outs_cpu, recs_cpu = run(torch.device("cpu"))
+    for got, want in zip(outs, outs_cpu):
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+    a, b = (x.cpu().numpy() for x in m)
+    n = param.n
+    lin = np.stack([np.convolve(x, y) for x, y in zip(a, b)])
+    want = (lin[:, :n] - np.pad(lin[:, n:], ((0, 0), (0, 1)))) % param.t
+    for rec, rec_cpu in zip(recs[:3], recs_cpu[:3]):
+        assert torch.equal(rec.cpu(), rec_cpu)
+        np.testing.assert_array_equal(rec_cpu.numpy(), want)
+    assert torch.equal(recs[3].cpu(), m[0].cpu())
+
+
+def test_wide_basis_paths_on_card_match_cpu(cuda):
+    """RNS-BFV at L = 15, M = 16, n = 256 (the tensor's P -> Q conversion
+    from 16 primes, the hybrid key's K = 16 from 16): mul and mul_e with
+    either key on the card equal the CPU's and decrypt; a basis of 32
+    primes raises on the card too."""
+    param = R.RnsParam(n=256, t=256, L=15, M=16)
+
+    def run(device):
+        gen = prng.Gen(17)
+        sk, pk = R.new_key(gen, param, device)
+        keys = (R.rlk_key(gen, param, sk),
+                R.hybrid_rlk1(gen, param, sk, K=16))
+        m = [prng.uniform_mod(gen, (2, param.n), param.t, device)
+             for _ in range(2)]
+        x, y = (R.encrypt(gen, param, pk, mi, batch=(2,)) for mi in m)
+        ex, ey = R.to_evals(param, x), R.to_evals(param, y)
+        outs = [R.mul(param, k, x, y) for k in keys]
+        outs += [R.from_evals(param, R.mul_e(param, k, ex, ey)) for k in keys]
+        return m, outs, [R.decrypt(param, sk, c) for c in outs]
+
+    m, outs, recs = run(cuda)
+    _, outs_cpu, recs_cpu = run(torch.device("cpu"))
+    for got, want in zip(outs, outs_cpu):
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+    a, b = (x.cpu().numpy() for x in m)
+    lin = np.stack([np.convolve(x, y) for x, y in zip(a, b)])
+    want = (lin[:, :256] - np.pad(lin[:, 256:], ((0, 0), (0, 1)))) % 256
+    for rec in recs_cpu:
+        np.testing.assert_array_equal(rec.numpy(), want)
+    src = param.qs + param.ps + H.ks_ext_primes(param, 1)
+    x32 = torch.zeros((32, 2, 256), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="1 \\.\\. 31"):
+        ext_cuda.base_extend_fused(x32, src, param.qs)
 
 
 def _paths(param, device, seed=4, batch=2):

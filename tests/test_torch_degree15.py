@@ -2,18 +2,21 @@
 
 Every RNS prime of both packages is 1 mod 2^16, so both take negacyclic
 transforms up to n = 2^15; the port's one-buffer kernels (K1, K2, K3, K5, K9
-and K12) reach that degree on the card, the three-buffer ones (K6, K7, K8)
-and K10 stop at 2^14.  Here, on the CPU, the port's functions run their
-plain versions and the JAX package its XLA path (its Pallas kernels are
-TPU-only; off the TPU ``_pallas_ok`` sends these degrees to XLA), each
-under ``jax.jit``: the transforms both ways, the eval-domain tensor, the
-fused extension and the hybrid contraction over 2-3 primes at B = 1, and one
+and K12) reach that degree on the card, and so do the three-buffer ones
+(K6, tensor_mul, K7, K8) on two-block clusters; K10 stops at 2^14.  Here,
+on the CPU, the port's functions run their plain versions and the JAX
+package its XLA path (its Pallas kernels are TPU-only; off the TPU
+``_pallas_ok`` sends these degrees to XLA), each under ``jax.jit``: the
+transforms both ways, the eval-domain tensor, the fused extension, the
+hybrid contraction, the coefficient-domain tensor (with and without a
+source basis, and stacked) and the gadget key switches from limbs over 2-3
+primes at B = 1, and one
 ``mul_e`` with the 1-row hybrid relin key at N = 2^15, L = 2, M = 3, K = 3,
 B = 1 on keys and ciphertexts that the port draws and utils/interop.py
 carries into JAX, decrypted against a numpy negacyclic product.  Inputs are
 numpy draws from fixed seeds; tolerance 0 throughout.  Then each kernel's
-range: the one-buffer kernels take 2^15, the others refuse it, naming
-theirs.
+range: K1-K9 and K12 take 2^15 and refuse 2^16, K10 refuses 2^15, each
+naming its range.
 """
 
 import numpy as np
@@ -98,6 +101,49 @@ def test_ks_contract_matches_jax():
     same(got, tuple(want))
 
 
+@pytest.mark.parametrize("src", [None, "Q"])
+def test_tensor_mul4_matches_jax(src):
+    """K6's plain version over two primes, from two source primes too."""
+    basis = QS[:2] if src else PS[:2]
+    ops = [residues(40 + i, basis, (1, N)) for i in range(4)]
+    sc = tuple(range(3, 5))
+    kw = dict(scale=sc, src=QS[:2] if src else None)
+    got = ntt.tensor_mul4(*(tt(o) for o in ops), PS[:2], **kw)
+    want = jax.jit(lambda *o: jntt.tensor_mul4(*o, PS[:2], **kw))(
+        *(jnp.asarray(o) for o in ops))
+    same(got, want)
+
+
+def test_tensor_mul_matches_jax():
+    """The stacked form (K6's kernel on row strides) over two primes."""
+    x4 = residues(50, QS[:2], (1, 4, N))
+    sc = (T, T)
+    got = ntt.tensor_mul_multi(tt(x4), QS[:2], scale=sc)
+    want = jax.jit(lambda a: jntt.tensor_mul_multi(a, QS[:2], scale=sc))(
+        jnp.asarray(x4))
+    same(got, want)
+
+
+def test_ks_fused_pair_matches_jax():
+    """K7 and K8's plain versions: R = 2 limb rows over two primes, limbs
+    over wider primes than the destination (the digit reduction)."""
+    c = residues(60, QS[:2], (1, N))
+    kb, ka = (np.stack([residues(61 + 2 * i + r, PS[:2], (N,))
+                        for r in range(2)]) for i in range(2))
+    adds = tuple(residues(66 + i, PS[:2], (1, N)) for i in range(2))
+    got = ntt.ks_fused_multi(tt(c), tt(kb), tt(ka), PS[:2], QS[:2])
+    want = jax.jit(lambda c, b, a: jntt.ks_fused_multi(c, b, a, PS[:2],
+                                                       QS[:2]))(
+        *(jnp.asarray(v).astype(jnp.uint64) for v in (c, kb, ka)))
+    same(tuple(got), tuple(want))
+    got = ntt.ks_fused_eval(tt(c), tt(kb), tt(ka), PS[:2], QS[:2],
+                            tuple(tt(a) for a in adds))
+    want = jax.jit(lambda c, b, a, a0, a1: jntt.ks_fused_eval(
+        c, b, a, PS[:2], QS[:2], (a0, a1)))(
+        *(jnp.asarray(v) for v in (c, kb, ka, *adds)))
+    same(tuple(got), tuple(want))
+
+
 def test_mul_e_hybrid_matches_jax():
     """The slice's path at N = 2^15 with the smallest bases that hold its
     capacity (L = 2, M = 3) and K = 3 hybrid primes, B = 1: keys and
@@ -134,16 +180,23 @@ KERNELS = {k.name: k for k in _cuda.KERNELS}
 
 @pytest.mark.parametrize("name", ONE_BUFFER + NARROW)
 def test_kernel_range_at_n_2_15(name):
-    """K1, K2, K3, K5, K9 and K12 take n = 2^15 (and refuse 2^16); K6,
-    tensor_mul, K7, K8 and K10 refuse it with a message that names their
+    """K1, K2, K3, K5, K9 and K12 take n = 2^15 (and refuse 2^16), and so
+    do K6, tensor_mul, K7 and K8 (on two-block clusters, one half of their
+    three buffers a block); K10 refuses it with a message that names its
     range 2^8 .. 2^14, on the card as on any device: the check comes before
     the kernel is built or launched."""
     k = KERNELS[name]
-    if name in ONE_BUFFER:
+    if name != "blind_rotate":
         assert _cuda.log2_degree(N, k) == 15
         with pytest.raises(ValueError, match=f"{name} takes n = 2\\^"):
             _cuda.log2_degree(2 * N, k)
-        assert nc._radix_plan(15).threads == nc.WIDE_THREADS
+        if name in ONE_BUFFER:
+            assert nc._radix_plan(15).threads == nc.WIDE_THREADS
+        else:
+            plan = nc._mul4_plan(15)
+            assert (plan.logn, plan.threads) == (14, nc.MUL4_THREADS)
+            assert plan.smem_bytes == nc.MUL4_BUFFERS * 4 * N // 2
+            assert nc._mul4_plan(15, side=True).smem_bytes <= 232448
         return
     with pytest.raises(ValueError, match=f"{name} takes n = 2\\^8 .. 2\\^14"):
         _cuda.log2_degree(N, k)
@@ -151,20 +204,22 @@ def test_kernel_range_at_n_2_15(name):
 
 def test_narrow_wrappers_refuse_n_2_15():
     """The wrappers of K6, tensor_mul, K7 and K8 raise the range error at
-    n = 2^15 before anything else (here on CPU tensors, which they would
-    otherwise refuse for their device); K10's checks its operands first."""
-    x = torch.zeros((2, 1, N), dtype=torch.int32)
-    keys = torch.zeros((2, 2, N), dtype=torch.int32)
-    calls = {
-        "tensor_mul4": lambda: nc.tensor_mul4_kernel(x, x, x, x, QS[:2]),
-        "tensor_mul": lambda: nc.tensor_mul_kernel(
-            torch.zeros((2, 1, 4, N), dtype=torch.int32), QS[:2]),
-        "ks_fused": lambda: nc.ks_fused_kernel(x, keys, keys, QS[:2],
-                                               QS[:2]),
-        "ks_fused_eval": lambda: nc.ks_fused_eval_kernel(
-            x, keys, keys, QS[:2], QS[:2], (x, x)),
-    }
-    for name, call in calls.items():
-        with pytest.raises(ValueError,
-                           match=f"{name} takes n = 2\\^8 .. 2\\^14"):
-            call()
+    n = 2^16 before anything else, naming 2^8 .. 2^15 (here on CPU tensors,
+    which they would otherwise refuse for their device); at n = 2^15 they
+    pass it and refuse the CPU tensors.  K10's checks its operands first."""
+    for n, match in ((2 * N, "takes n = 2\\^8 .. 2\\^15"),
+                     (N, "take CUDA tensors")):
+        x = torch.zeros((2, 1, n), dtype=torch.int32)
+        keys = torch.zeros((2, 2, n), dtype=torch.int32)
+        calls = {
+            "tensor_mul4": lambda: nc.tensor_mul4_kernel(x, x, x, x, QS[:2]),
+            "tensor_mul": lambda: nc.tensor_mul_kernel(
+                torch.zeros((2, 1, 4, n), dtype=torch.int32), QS[:2]),
+            "ks_fused": lambda: nc.ks_fused_kernel(x, keys, keys, QS[:2],
+                                                   QS[:2]),
+            "ks_fused_eval": lambda: nc.ks_fused_eval_kernel(
+                x, keys, keys, QS[:2], QS[:2], (x, x)),
+        }
+        for name, call in calls.items():
+            with pytest.raises(ValueError, match=match):
+                call()

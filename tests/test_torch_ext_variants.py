@@ -1,6 +1,6 @@
 """The host side of K4 (base_extend, csrc/ext_cuda.cu), checked on the CPU:
 the choice of the kernel's form (4 coefficients a thread in uint4 words, or
-one word) for each source count (its instance, 1 .. 15), the
+one word) for each source count (its instance, 1 .. 31), the
 layout of the packed table the kernel stages into shared memory, and the
 plain version that the kernel is held against on the card, against exact
 Python-integer arithmetic at every source count.  Tolerance 0 throughout.
@@ -15,7 +15,7 @@ import torch
 from fhe_study_tpu_torch.ops import ext_cuda
 from fhe_study_tpu_torch.ops.primes import ntt_primes
 
-PRIMES = ntt_primes(20, 30, 1 << 16)
+PRIMES = ntt_primes(36, 30, 1 << 16)   # 5 destination, up to 31 source
 
 
 def _at_word(offset: int, numel: int) -> torch.Tensor:
@@ -45,14 +45,17 @@ def test_kernel_table_layout():
     """ExtTable's layout (csrc/modarith.cuh): per source prime (s_i, Shoup
     pair of (S/s_i)^-1 mod s_i, floor(2^59/s_i) as lo/hi), per destination
     prime (d_j, Shoup pair of S mod d_j, Shoup pair of sub_mul[j]), then the
-    Shoup pairs of (S/s_i) mod d_j, i-major; 5 (Ls + Ld) + 2 Ls Ld words, at
-    most 600 for 15 -> 15 primes (2,400 bytes of shared memory a block)."""
+    Shoup pairs of (S/s_i) mod d_j, i-major; 5 (Ls + Ld) + 2 Ls Ld words:
+    600 for 15 -> 15 primes, at most 2,232 for 31 -> 31 (8,928 bytes of
+    shared memory a block, within the 48 KB a block takes unasked)."""
     src, dst, sub = PRIMES[:3], PRIMES[3:7], (5, 6, 7, 8)
     t = ext_cuda._kernel_table_host(src, dst, sub).astype(np.int64)
     ls, ld = len(src), len(dst)
     assert t.size == 5 * (ls + ld) + 2 * ls * ld
     assert ext_cuda._kernel_table_host(PRIMES[:15], PRIMES[:15], None).size \
         == 600
+    assert ext_cuda._kernel_table_host(PRIMES[:31], PRIMES[5:], None).size \
+        == 2232
     S = prod(src)
     for i, s in enumerate(src):
         h = pow(S // s % s, -1, s)
@@ -96,9 +99,10 @@ def test_plain_equals_python_integers(ls):
     """Odd totals (3 x 5 coefficients a row, the kernel's word form), both
     roundings, with and without the epilogue; the last coefficient has
     y_i = s_i - 1 in every row, where the 2^59 fixed-point sum of alpha is
-    largest (below 15 * 2^59 < 2^63 at Ls = 15)."""
+    largest (past 2^63 from Ls = 17 on, from 16 when centered; below
+    31 * 2^59 + 2^58 < 2^64 at Ls = 31: the int64 sum wraps as u64 does)."""
     rng = np.random.default_rng(ls)
-    src, dst = PRIMES[20 - ls:], PRIMES[:5]
+    src, dst = PRIMES[len(PRIMES) - ls:], PRIMES[:5]
     S = prod(src)
     x = np.stack([rng.integers(0, s, (3, 5)) for s in src])
     for i, s in enumerate(src):             # y_i = x_i * hat_inv_i = s_i - 1

@@ -152,15 +152,18 @@ def test_every_kernel_names_its_plain_version_and_its_pallas_kernel():
 
 
 def test_kernels_refuse_unsupported_ring_degrees():
-    """Each kernel names its own range: the one-buffer chains 2^8 .. 2^15,
-    the three-buffer ones and K10 2^8 .. 2^14."""
+    """Each kernel names its own range: the one-buffer chains and the
+    three-buffer ones (at 2^15 on two-block clusters) 2^8 .. 2^15, K10
+    2^8 .. 2^14."""
     for n in (128, 1 << 16, 384):
-        with pytest.raises(ValueError, match="2\\^8 .. 2\\^15"):
-            _cuda.log2_degree(n, _cuda.NTT_MULTI)
+        for k in (_cuda.NTT_MULTI, _cuda.TENSOR_MUL4):
+            with pytest.raises(ValueError, match="2\\^8 .. 2\\^15"):
+                _cuda.log2_degree(n, k)
     for n in (128, 1 << 15, 384):
         with pytest.raises(ValueError, match="2\\^8 .. 2\\^14"):
-            _cuda.log2_degree(n, _cuda.TENSOR_MUL4)
+            _cuda.log2_degree(n, _cuda.BLIND_ROTATE)
     assert _cuda.log2_degree(1 << 14, _cuda.TENSOR_MUL4) == 14
+    assert _cuda.log2_degree(1 << 15, _cuda.TENSOR_MUL4) == 15
     assert _cuda.log2_degree(1 << 15, _cuda.NTT_MULTI) == 15
 
 
@@ -325,7 +328,7 @@ def test_build_is_one_command_over_every_source(bare_loader, monkeypatch):
     cus = sorted(p.name for p in _cuda.CSRC.iterdir() if p.suffix == ".cu")
     cmds = [line for line in log if not line.startswith("-- ")]
     k = len(cus)
-    assert k == 11 and len(cmds) == k + 1
+    assert k == 12 and len(cmds) == k + 1
     assert all(line.endswith(" s") for line in log if line.startswith("-- "))
     assert [line.rsplit("/", 1)[-1] for line in cmds[:k]] == cus
     assert all(" -c " in line and " -shared " not in line

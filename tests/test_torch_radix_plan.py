@@ -3,11 +3,11 @@
 (ks_fused), K8 (ks_fused_eval), K9 (ntt) and K12 (ntt_smem_ceiling) run on
 the card (csrc/radix_chain.cuh,
 mirrored by ops/ntt_cuda.py::_radix_plan), checked on the CPU at every ring
-degree each kernel takes (the one-buffer kernels K1-K3, K5, K9 and K12 at
-2^8 .. 2^15, K6-K8 at 2^8 .. 2^14): every stage is run once and in order, a
-block fits the H100 (256 threads and one polynomial, three blocks an SM, or
-at n = 2^15 512 threads and one block; or the 512 threads and three
-polynomials of K6, K7 and K8), a torch emulation of the plan's element,
+degree each kernel takes (2^8 .. 2^15): every stage is run once and in
+order, a block fits the H100 (256 threads and one polynomial, three blocks
+an SM, or at n = 2^15 512 threads and one block; or the 512 threads and
+three polynomials of K6, K7 and K8, at n = 2^15 one half of each on a
+two-block cluster), a torch emulation of the plan's element,
 twiddle and
 shared-memory maps equals the plain transform bit for bit in
 both directions, K1's own maps (its first pass from a row in device memory,
@@ -23,8 +23,12 @@ and without a source basis, K7's and K8's (the digit rows reduced in the
 first forward pass, the contraction summed in the last into two
 accumulators, K8's add chains, lift and eval-domain store, the first
 inverse pass in registers, two inverse chains) equal ks_fused_plain and
-ks_fused_eval_plain from 1, 3 and 4 limb rows and with reps >= 2, and
-every warp's shared-memory access hits 32 distinct banks.  Also the parser
+ks_fused_eval_plain from 1, 3 and 4 limb rows and with reps >= 2, the
+cluster split of K6, K7 and K8 at n = 2^15 (the first forward stage formed
+by each block from both halves of the row, bits log n - 2 .. 0 on its own
+half under the split root tables, the last inverse stage from the peer's
+half) equals the plain transforms at n = 2^15 and at smaller n under the
+same split, and every warp's shared-memory access hits 32 distinct banks.  Also the parser
 of ptxas's register report that chip_smoke.py reads.  Tolerance 0
 throughout.
 """
@@ -45,9 +49,9 @@ PRIMES = ntt_primes(3, 30, 1 << 15)           # 2n-th roots up to n = 2^14
 WIDE_PRIMES = ntt_primes(3, 30, 1 << 16)      # and at n = 2^15
 CPU = torch.device("cpu")
 # the plans the kernels run: K1-K5 on one buffer (256 threads, 512 at
-# n = 2^15: max_threads None), K6 on 512 threads and three
-PLANS = {"radix": (None, 1),
-         "tensor_mul4": (nc.MUL4_THREADS, nc.MUL4_BUFFERS)}
+# n = 2^15: max_threads None), K6 on 512 threads and three (at n = 2^15 one
+# half a block)
+PLANS = {"radix": nc._radix_plan, "tensor_mul4": nc._mul4_plan}
 
 
 def _primes(logn: int) -> tuple:
@@ -153,7 +157,7 @@ def _lanes_consecutive(addr) -> bool:
 
 
 def _emulate(x, q: int, logn: int, inverse: bool, fin: int = 1,
-             first=None, vec: int = 4):
+             first=None, vec: int = 4, roots=None):
     """The kernels' data flow on one row x of device memory: each pass runs
     its stages on [n/16, 16] registers, passes exchange through a swizzled
     shared-memory buffer.  The forward's first pass reads word
@@ -165,10 +169,12 @@ def _emulate(x, q: int, logn: int, inverse: bool, fin: int = 1,
     its products there), and its last pass stores its registers times fin
     to base + (j << c), lanes on consecutive words.  ``first``, where given,
     forms the first pass's registers from its element addresses instead of
-    reading x (K3)."""
+    reading x (K3); ``roots``, where given, is the root table (a split
+    row)."""
     n = 1 << logn
     plan = nc._radix_plan(logn)
-    roots = nc._roots_plain((q,), n, inverse, torch.device("cpu"))[0]
+    if roots is None:
+        roots = nc._roots_plain((q,), n, inverse, torch.device("cpu"))[0]
     smem = torch.full((n,), -1, dtype=torch.int64)
     passes = plan.inverse if inverse else plan.forward
     v = torch.arange(n >> nc.RADIX_BITS)[:, None]
@@ -203,6 +209,89 @@ def _read_out(smem, n: int, vec: int):
     the ``vec`` words from vec i (one 16-byte store)."""
     sw = _swizzle(vec * torch.arange(n // vec))
     return torch.stack([smem[sw ^ t] for t in range(vec)], dim=1).reshape(n)
+
+
+# The cluster split of K6, K7 and K8 at n = 2^15 (csrc/radix_chain.cuh's
+# Split), written out in torch at any n.
+
+def _split_roots(q: int, logn: int, inverse: bool):
+    """The root table, the two rows of its split (ops/ntt_cuda.py
+    ::_split_index) and the top stage's root, which both rows hold at word
+    0."""
+    roots = nc._roots_plain((q,), 1 << logn, inverse, CPU)[0]
+    rows = roots[torch.from_numpy(nc._split_index(1 << logn))]
+    assert torch.equal(rows[:, 0], roots[1].expand(2))
+    return roots, rows, int(roots[1])
+
+
+def _top_forward(row, t: int, q: int, r: int):
+    """Block r's half after the forward chain's first stage (bit
+    log n - 1), from both halves of the row (split_word)."""
+    h = row.shape[-1] // 2
+    v = row[..., h:] * t % q
+    return (row[..., :h] + v) % q if r == 0 else (row[..., :h] - v) % q
+
+
+def _top_inverse(lo, hi, t: int, fin: int, q: int):
+    """The inverse chain's last stage (bit log n - 1) from the two
+    blocks' halves, times fin (split_inverse_top): block 0 lo + hi, block 1
+    (lo - hi) t, each reading the peer's word."""
+    return torch.cat([(lo + hi) % q * fin % q,
+                      (lo - hi) % q * t % q * fin % q], dim=-1)
+
+
+def _emulate_split(x, q: int, logn: int, inverse: bool, fin: int = 1):
+    """The transform of x [n] on a two-block cluster: each block runs the
+    chain of n/2 words (the plan at log n - 1) under its split row."""
+    _, rows, t = _split_roots(q, logn, inverse)
+    h = (1 << logn) // 2
+    if not inverse:
+        return torch.cat([
+            _emulate(_top_forward(x, t, q, r), q, logn - 1, False, fin,
+                     roots=rows[r]) for r in (0, 1)])
+    lo, hi = (_emulate(x[r * h:(r + 1) * h], q, logn - 1, True,
+                       roots=rows[r]) for r in (0, 1))
+    return _top_inverse(lo, hi, t, fin, q)
+
+
+@pytest.mark.parametrize("logn", (9, nc.WIDE_LOGN))
+def test_cluster_split_equals_plain_both_ways(logn):
+    """The split at n = 2^15, where K6, K7 and K8 run it, and at n = 2^9
+    under the same maps: the forward's first stage from both halves, bits
+    log n - 2 .. 0 within each half; the inverse's bits 0 .. log n - 2
+    within each half, then the top stage from the peer's half, times fin."""
+    n = 1 << logn
+    rng = np.random.default_rng(600 + logn)
+    for q in _primes(logn)[:2]:
+        x = torch.from_numpy(rng.integers(0, q, (1, n)))
+        fin = int(rng.integers(1, q))
+        assert torch.equal(_emulate_split(x[0], q, logn, False),
+                           nc.ntt_multi_plain(x, (q,)).long()[0])
+        assert torch.equal(_emulate_split(x[0], q, logn, True, fin),
+                           nc.ntt_multi_plain(x, (q,), inverse=True,
+                                              fin=(fin,)).long()[0])
+
+
+def test_split_tables_reorder_each_stage_of_the_roots():
+    """Row r of a split table holds, for each stage of the half's chain,
+    the roots of that stage that block r's elements take, and word 0 the top
+    stage's; each index of the table lies in exactly one row but for 1."""
+    for logn in (8, nc.WIDE_LOGN):
+        n = 1 << logn
+        idx = nc._split_index(n)
+        assert idx.shape == (2, n // 2) and (idx[:, 0] == 1).all()
+        assert sorted(idx[:, 1:].ravel().tolist()) == list(range(2, n))
+        for r in (0, 1):
+            for j in range(logn - 1):           # stage bits of the half
+                i = np.arange(n // 2)
+                assert (idx[r][((n // 2) >> (j + 1)) + (i >> (j + 1))] ==
+                        (n >> (j + 1)) + ((r * n // 2 + i) >> (j + 1))).all()
+    qs = PRIMES[:2]
+    tw = nc._split_twiddles(qs, 512, True, CPU)
+    full = nc._twiddles(qs, 512, True, CPU)
+    assert tw.shape == (2, 2, 2, 256)
+    assert torch.equal(tw, full[:, :, torch.from_numpy(nc._split_index(512))])
+    assert nc._chain_twiddles(qs, 512, True, CPU) is full
 
 
 @pytest.mark.parametrize("logn", LOGNS)
@@ -323,8 +412,20 @@ def test_shared_memory_accesses_hit_distinct_banks(logn):
 @pytest.mark.parametrize("logn", THREE_LOGNS)
 def test_tensor_mul4_plan_covers_every_stage_and_fits_an_sm(logn):
     """K6's plan: the same passes on 512 threads, three buffers, one block
-    an SM (512 threads of up to 128 registers, 192 KB at n = 2^14)."""
-    plan = nc._radix_plan(logn, nc.MUL4_THREADS, nc.MUL4_BUFFERS)
+    an SM (512 threads of up to 128 registers, 192 KB at n = 2^14); at
+    n = 2^15 each block of the split runs the plan of its half, the top
+    stage aside (192 KB again)."""
+    plan = nc._mul4_plan(logn)
+    if logn == nc.WIDE_LOGN:
+        assert plan == nc._mul4_plan(logn - 1)
+        # beside the buffers, x0's transform for the second group of
+        # virtual threads (K6 keeps the first in registers): 224 KB
+        side = nc._mul4_plan(logn, side=True)
+        assert side.smem_bytes - plan.smem_bytes == 4 * 16 * plan.threads
+        assert plan.groups == 2 and side.smem_bytes == 229376 <= 232448
+        logn -= 1
+    else:
+        assert nc._mul4_plan(logn, side=True) == plan
     assert _stage_bits(plan.forward) == list(range(logn - 1, -1, -1))
     assert _stage_bits(plan.inverse) == list(range(logn))
     assert (plan.forward, plan.inverse) == (nc._radix_plan(logn).forward,
@@ -344,9 +445,9 @@ def test_tensor_mul4_plan_covers_every_stage_and_fits_an_sm(logn):
     ids=lambda v: str(v))
 def test_warps_of_each_thread_count_hit_distinct_banks(logn, kind):
     """Warp w of group g runs virtual threads g * threads + 32 w .. + 31."""
-    plan = nc._radix_plan(logn, *PLANS[kind])
+    plan = PLANS[kind](logn)
     for ps in plan.forward + plan.inverse:
-        el = _elements(logn, ps.c)
+        el = _elements(plan.logn, ps.c)
         for g in range(plan.groups):
             for lane0 in range(0, plan.threads, 32):
                 vt = g * plan.threads + torch.arange(
@@ -401,7 +502,7 @@ def _through_smem(smem, bufs, passes, roots, q: int, logn: int,
             smem[b][sw] = r
 
 
-def _emulate_k6(x0, x1, y0, y1, q: int, logn: int, fin: int):
+def _emulate_k6(x0, x1, y0, y1, q: int, logn: int, fin: int, roots=None):
     """K6's data flow on four operand rows over q (a source basis converted
     word by word as the first pass reads it), three shared-memory buffers:
     y0, y1, x0 forward into buffers 0, 1, 2, one after another; each virtual
@@ -410,11 +511,12 @@ def _emulate_k6(x0, x1, y0, y1, q: int, logn: int, fin: int):
     x0 y0 in registers from x1, x0 and its own words of buffers 0 and 1, runs
     the first inverse pass on each and stores it into buffer 2, 1, 0 at the
     same words; the rest of the three inverse chains, the last pass times
-    fin, lanes on consecutive words."""
+    fin, lanes on consecutive words.  ``roots``, where given, is the pair
+    of (forward, inverse) root tables (the rows of a split)."""
     n = 1 << logn
-    plan = nc._radix_plan(logn, nc.MUL4_THREADS, nc.MUL4_BUFFERS)
-    fwd = nc._roots_plain((q,), n, False, CPU)[0]
-    inv = nc._roots_plain((q,), n, True, CPU)[0]
+    plan = nc._mul4_plan(logn)
+    fwd, inv = roots or (nc._roots_plain((q,), n, inv, CPU)[0]
+                         for inv in (False, True))
     smem = torch.full((nc.MUL4_BUFFERS, n), -1, dtype=torch.int64)
     v = torch.arange(n >> nc.RADIX_BITS)[:, None]
     first = v + (torch.arange(16)[None] << (logn - 4))
@@ -467,7 +569,24 @@ def _emulate_k6(x0, x1, y0, y1, q: int, logn: int, fin: int):
     return out
 
 
-SRC_PRIMES = ntt_primes(5, 30, 1 << 15, skip=len(PRIMES))
+def _emulate_k6_split(x0, x1, y0, y1, q: int, logn: int, fin: int):
+    """K6 at n = 2^15 on a two-block cluster: block r forms its half of
+    each operand's first forward stage, runs K6's schedule of n/2 words under
+    its split rows, and the top inverse stage combines the halves."""
+    _, fwd, t = _split_roots(q, logn, False)
+    _, inv, ti = _split_roots(q, logn, True)
+    lo, hi = (_emulate_k6(*(_top_forward(o, t, q, r)
+                            for o in (x0, x1, y0, y1)),
+                          q, logn - 1, 1, roots=(fwd[r], inv[r]))
+              for r in (0, 1))
+    return _top_inverse(lo, hi, ti, fin, q)
+
+
+def _k6(logn: int):
+    return _emulate_k6_split if logn == nc.WIDE_LOGN else _emulate_k6
+
+
+SRC_PRIMES = ntt_primes(5, 30, 1 << 16, skip=len(WIDE_PRIMES))
 
 
 @pytest.mark.parametrize("logn", THREE_LOGNS)
@@ -476,13 +595,13 @@ def test_k6_schedule_equals_plain(logn):
     BFV P basis's instance) and of 1 + log n mod 5 (the generic one)."""
     n = 1 << logn
     rng = np.random.default_rng(300 + logn)
-    q = PRIMES[logn % len(PRIMES)]
+    q = _primes(logn)[logn % 3]
     scale = int(rng.integers(1, 1 << 16))
     fin = nc._tensor_fin((q,), n, (scale,))[0]
     ops = [torch.from_numpy(rng.integers(0, q, (1, n))) for _ in range(4)]
     want = nc.tensor_mul4_plain(*(o.int() for o in ops), (q,),
                                 scale=(scale,))[0]
-    got = _emulate_k6(*(o[0] for o in ops), q, logn, fin)
+    got = _k6(logn)(*(o[0] for o in ops), q, logn, fin)
     assert torch.equal(got, want.long())
     for ls in (4, 1 + logn % 5):
         src = SRC_PRIMES[:ls]
@@ -492,7 +611,7 @@ def test_k6_schedule_equals_plain(logn):
         want = nc.tensor_mul4_plain(*rows, (q,), scale=(scale,), src=src)[0]
         words = [ext_cuda.base_extend_fused_plain(r, src, (q,))[0].long()
                  for r in rows]
-        assert torch.equal(_emulate_k6(*words, q, logn, fin), want.long())
+        assert torch.equal(_k6(logn)(*words, q, logn, fin), want.long())
 
 
 PTXAS_LOG = """nvcc -gencode arch=compute_90a,code=sm_90a ...
@@ -557,7 +676,7 @@ def test_ceiling_loop_counts_read_from_sass():
 
 
 def _emulate_ks(limbs, keys, q: int, logn: int, reps: int, fin: int,
-                adds=None, lift: int = 0):
+                adds=None, lift: int = 0, roots=None):
     """K7's data flow (adds None) or K8's for one (prime, polynomial), three
     shared-memory buffers (work, acc_0, acc_1): each digit row r of limbs
     [R, n] forward in the work buffer, its first pass read from the limb
@@ -570,12 +689,14 @@ def _emulate_ks(limbs, keys, q: int, logn: int, reps: int, fin: int,
     lift + NTT(add_h), stores it to the eval-domain output and runs the first
     inverse pass on it in registers into acc_h.  Then the rest of the two
     inverse chains, the last pass times fin, lanes on consecutive words.
-    Returns [2, n] (K7) or [4, n] (K8: e_0, e_1, then the two inverses)."""
+    Returns [2, n] (K7) or [4, n] (K8: e_0, e_1, then the two inverses).
+    ``roots``, where given, is the pair of (forward, inverse) root tables
+    (the rows of a split)."""
     n = 1 << logn
     R = limbs.shape[0]
-    plan = nc._radix_plan(logn, nc.MUL4_THREADS, nc.MUL4_BUFFERS)
-    fwd = nc._roots_plain((q,), n, False, CPU)[0]
-    inv = nc._roots_plain((q,), n, True, CPU)[0]
+    plan = nc._mul4_plan(logn)
+    fwd, inv = roots or (nc._roots_plain((q,), n, inv, CPU)[0]
+                         for inv in (False, True))
     smem = torch.full((nc.MUL4_BUFFERS, n), -1, dtype=torch.int64)
     v = torch.arange(n >> nc.RADIX_BITS)[:, None]
     first = v + (torch.arange(16)[None] << (logn - 4))
@@ -627,8 +748,36 @@ def _emulate_ks(limbs, keys, q: int, logn: int, reps: int, fin: int,
     return out if adds is None else torch.cat([evals, out])
 
 
+def _emulate_ks_split(limbs, keys, q: int, logn: int, reps: int, fin: int,
+                      adds=None, lift: int = 0):
+    """K7 or K8 at n = 2^15 on a two-block cluster: block r reduces the
+    words of both halves of each limb, forms its half of the first forward
+    stage (of the adds too), runs the schedule of n/2 words under its split
+    rows on its half of the keys; K8's eval-domain rows are the two halves
+    side by side, the inverse outputs the top stage's."""
+    h = (1 << logn) // 2
+    _, fwd, t = _split_roots(q, logn, False)
+    _, inv, ti = _split_roots(q, logn, True)
+    d = limbs
+    for _ in range(reps):
+        d = torch.where(d >= q, d - q, d)
+    halves = [_emulate_ks(_top_forward(d, t, q, r),
+                          keys[..., r * h:(r + 1) * h], q, logn - 1, 0, 1,
+                          None if adds is None
+                          else _top_forward(adds, t, q, r),
+                          lift, roots=(fwd[r], inv[r])) for r in (0, 1)]
+    out = _top_inverse(halves[0][-2:], halves[1][-2:], ti, fin, q)
+    if adds is None:
+        return out
+    return torch.cat([torch.cat([halves[0][:2], halves[1][:2]], dim=-1), out])
+
+
+def _ks(logn: int):
+    return _emulate_ks_split if logn == nc.WIDE_LOGN else _emulate_ks
+
+
 # a destination prime of 26 bits against 30-bit source primes: reps >= 2
-NARROW = ntt_primes(1, 26, 1 << 15)[0]
+NARROW = ntt_primes(1, 26, 1 << 16)[0]
 
 
 def _ks_inputs(rng, logn: int, q: int, R: int, wide: bool):
@@ -642,7 +791,8 @@ def _ks_inputs(rng, logn: int, q: int, R: int, wide: bool):
 
 
 # (prime, R, wide source primes): R = 1, 3 and 4, one case with reps >= 2
-KS_CASES = ((PRIMES[0], 1, False), (PRIMES[1], 3, False), (NARROW, 4, True))
+KS_CASES = ((WIDE_PRIMES[0], 1, False), (WIDE_PRIMES[1], 3, False),
+            (NARROW, 4, True))
 
 
 @pytest.mark.parametrize("logn", THREE_LOGNS)
@@ -656,7 +806,7 @@ def test_k7_schedule_equals_plain(logn):
         want = nc.ks_fused_plain(limbs[:, None].int(), keys[0][:, None].int(),
                                  keys[1][:, None].int(), (q,), src)
         fin = nc._tensor_fin((q,), n, None)[0]
-        got = _emulate_ks(limbs, keys, q, logn, reps, fin)
+        got = _ks(logn)(limbs, keys, q, logn, reps, fin)
         assert torch.equal(got, torch.stack([w[0, 0] for w in want]).long())
 
 
@@ -672,16 +822,18 @@ def test_k8_schedule_equals_plain(logn):
             limbs[:, None].int(), keys[0][:, None].int(),
             keys[1][:, None].int(), (q,), src,
             tuple(a[None].int() for a in adds))
-        got = _emulate_ks(limbs, keys, q, logn, reps, pow(n, -1, q), adds,
-                          (1 << 32) % q)
+        got = _ks(logn)(limbs, keys, q, logn, reps, pow(n, -1, q), adds,
+                        (1 << 32) % q)
         assert torch.equal(got, torch.stack([w[0, 0] for w in want]).long())
 
 
 @pytest.mark.parametrize("logn", THREE_LOGNS)
 def test_ks_fused_plan_fits_an_sm(logn):
     """K7 and K8 run K6's plan: 512 threads of up to 128 registers and three
-    buffers in the 227 KB a block may take, at every log n."""
-    plan = nc._radix_plan(logn, nc.MUL4_THREADS, nc.MUL4_BUFFERS)
-    assert plan.smem_bytes == 3 * 4 << logn
+    buffers in the 227 KB a block may take, at every log n (at n = 2^15 one
+    half of each buffer in each block of the split)."""
+    plan = nc._mul4_plan(logn)
+    held = logn - (logn == nc.WIDE_LOGN)      # the words a block holds
+    assert plan.logn == held and plan.smem_bytes == 3 * 4 << held
     assert plan.smem_bytes <= 232448 and plan.threads * 128 <= 65536
-    assert plan.threads * plan.groups << nc.RADIX_BITS == 1 << logn
+    assert plan.threads * plan.groups << nc.RADIX_BITS == 1 << held
