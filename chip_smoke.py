@@ -26,13 +26,16 @@ n = 32768 row allows log q <= 881 at 128-bit classical security, as does
 SEAL's BFVDefault(32768); the key modulus Q P_K here is 29 primes of 30
 bits, 870 bits), also its mul with the hybrid key, and the gadget keyring
 at the same degree with that whole modulus in Q: N = 2^15, L = 29, M = 30,
-t = 256, B = 128.
+t = 256, B = 128, and the JAX package's own tests' small configurations:
+RNS-BFV at N = 128, t = 16, L = 3, M = 4, B = 128, TFHE at N = 128, K = 1,
+t = 8, gadget 256^3, B = 64, and RNS-BFV and RNS-CKKS at N = 64, below the
+kernels' gate.
 Phases, each of which raises (and so exits non-zero) on any failure:
 
   1. toolchain and card: torch, CUDA, nvcc; the kernels built from csrc/;
   2. each of the first eleven kernel entries against its plain PyTorch
      version on the card, bit for bit, at the paths' shapes (batch 8) and at
-     n = 256; the redesigned kernels at every n from 2^8 to 2^15 (K6, K7,
+     n = 256; the redesigned kernels at every n from 2^7 to 2^15 (K6, K7,
      K8 at 2^15 on two-block clusters) on a batch
      of 3 (kernel_check.radix_cases): K1 forward and inverse, with and
      without fin, on contiguous and word-offset rows; K9 forward and inverse
@@ -215,8 +218,29 @@ Phases, each of which raises (and so exits non-zero) on any failure:
      argument signature of each op at batch 8 held against plain; peak
      device memory; K4 (from 29 and 30), K5 (from 29), K6 (from 29), K7,
      K8 (R = 29) and K11 (from 29) at the path's shapes on the device alone
-     beside their bounds.  Each phase prints its wall time and the device
-     memory still held as it ends.
+     beside their bounds;
+ 20. slice 12, the reference tests' configurations at n = 2^7 and the
+     multi-prime kernels' gate: the n = 2^7 instances' registers; RNS-BFV
+     at N = 128, t = 16, L = 3, M = 4, B = 128 (tests/test_bfv_rns.py):
+     keygen -> hybrid_rlk1 -> encrypt -> to_evals -> mul_e -> from_evals ->
+     decrypt, mul with both keys, the gadget mul_e, key_switch, pt_to_evals
+     -> mul_pt_e(add_e), the stacked tensor, each decrypt-verified; K1-K3
+     and K5-K8 (and tensor_mul) launched; each op's launches and argument
+     signatures at batch 8 held against plain, every launch at n = 128,
+     chains of 4 decrypt-verified and timed (CUDA events, best of 3), the
+     other ops timed; t = 4: from_evals(mul_e) == mul, the round trip, the
+     depth-2 chain; TFHE at N = 128, K = 1, t = 8, beta = 256, l = 3,
+     beta_ks = 16, l_ks = 8, B = 64 (tests/test_bootstrap.py): bootstrap
+     (one blind_rotate a bootstrap, equal to the step-by-step chain) and two
+     bootstrap_short over a short key of 64, every message decoded, chains
+     of 4 timed; the gate at N = 64 (tests/test_galois.py): RNS-BFV at
+     t = 65537 (mul_e with both keys, a rotation by the gadget key) and
+     RNS-CKKS at delta = 2^25 (mul_hybrid, rotate_hybrid), no launch of
+     K1-K3 or K5-K8, every output equal to the CPU's, decrypted or decoded
+     against numpy; every n = 2^7 kernel at these shapes against plain and
+     on the device alone beside its bound, with its launches an op.  Each
+     phase prints its wall time and the device memory still held as it
+     ends.
 
 It prints each finding on a line of its own, then the kernels' JSON record,
 the card's name and power limit, and as its last line
@@ -285,6 +309,21 @@ G_PER_OP = {
     "mul_e (RLK)": {"tensor_eval4": 2, "base_extend": 2,
                     "ks_fused_eval": 1, "ext_ntt": 1},
     "key_switch": {"ks_fused": 1}}
+# phase 20, slice 12: the reference tests' own small configurations
+# (kernel_check.SMALL_BFV and SMALL_TFHE at n = 128; the t = 4 of
+# tests/test_bfv_rns.py:111 on 2 ciphertexts), the radix-chain kernels that
+# must launch there, and their instances at 2^7; the gate at n = 64
+# (tests/test_galois.py: RNS-BFV at t = 65537 with the rotation g = 5,
+# RNS-CKKS at delta = 2^25, L = 3, M = 4, 4 ciphertexts) and the slot
+# tolerances held there: the reference test's 2e-3 for the rotation, 1e-2
+# for the product of slots up to 10
+S_T4, S_T4_BATCH = 4, 2
+S_KERNELS = ("ntt_multi", "tensor_eval4", "ks_contract", "ext_ntt",
+             "tensor_mul4", "tensor_mul", "ks_fused", "ks_fused_eval")
+S_INSTANCES = {**W_INSTANCES, "blind_rotate": 2}
+S_GATE_N, S_GATE_T, S_GALOIS, S_GATE_B = 64, 65537, 5, 4
+S_L, S_M = 3, 4
+S_CK_DELTA, S_CK_MUL_ATOL, S_CK_ROT_ATOL = 2.0 ** 25, 1e-2, 2e-3
 CEILING_REPS, ALU_ROUNDS = 64, 1 << 16
 # the bound (utils/kernel_check.bound) takes the SM count and the maximum SM
 # clock that the card in hand reports; each alu_rate loop must issue at
@@ -2093,11 +2132,11 @@ def main() -> None:
             f"{got} [{card}]")
         return best / CHAIN
 
-    def chain_product(m1, m2):
+    def chain_product(m1, m2, t=T):
         """m1 * m2^CHAIN mod (X^n + 1, t): the plaintext of a chain."""
         want, errs = m1, []
         for _ in range(CHAIN):
-            want, e = negacyclic_reference(want, m2, T)
+            want, e = negacyclic_reference(want, m2, t)
             errs.append(e)
         return want, max(errs)
 
@@ -2390,6 +2429,428 @@ def main() -> None:
     say(f"timing: slice 11 at {g_shape}: ms an op "
         f"{ {k: round(v, 3) for k, v in g_ms.items()} } [{card}]")
     phase_done(f"19 (slice 11: the gadget keyring at {g_shape}) [{card}]")
+
+    # 20. slice 12: the reference tests' small configurations ---------------
+    # (a) RNS-BFV at n = 128, t = 16, L = 3, M = 4 (tests/test_bfv_rns.py:
+    # 149) through K1-K3 and K5-K8 at 2^7: the 2^7 instances, the paths,
+    # each op's launches and argument signatures, chains of 4
+    s_param = R.RnsParam(**kernel_check.SMALL_BFV)
+    s_n, s_t = s_param.n, s_param.t
+    s_shape = (f"N={s_n} L={len(s_param.qs)} M={len(s_param.ps)} K=2 "
+               f"t={s_t} B={BATCH}")
+    s_logn = s_n.bit_length() - 1
+    small = [r for r in radix_entries
+             if r["kernel"].split("<")[0].removesuffix("_kernel")
+             in S_INSTANCES
+             and r["kernel"].split("<")[1].split(",")[0].rstrip(">")
+             == str(s_logn)]
+    got_inst = {k: sum(r["kernel"].startswith(k + "_kernel<") for r in small)
+                for k in S_INSTANCES}
+    if got_inst != S_INSTANCES:
+        raise RuntimeError(f"the n = 2^{s_logn} instances {got_inst} != "
+                           f"{S_INSTANCES}")
+    say(f"ptxas: the {len(small)} instances at n = 2^{s_logn} (no stack "
+        f"frame or spills, phase 1): "
+        + "; ".join(f"{r['kernel']} {r['registers']} registers"
+                    for r in small))
+    gen = prng.Gen(SEED + 40)
+    sb = {}
+    s_per_op = {}
+    launches_before = len(path_launches)
+
+    def small_path():
+        sb["sk"], pk = R.new_key(gen, s_param, dev)
+        sb["hk"] = R.hybrid_rlk1(gen, s_param, sb["sk"])
+        sb["m"] = [prng.uniform_mod(gen, (BATCH, s_n), s_t, dev)
+                   for _ in range(2)]
+        sb["c"] = [R.encrypt(gen, s_param, pk, m, batch=(BATCH,))
+                   for m in sb["m"]]
+        sb["small"] = [R.encrypt(gen, s_param, pk, m[:PARITY_BATCH],
+                                 batch=(PARITY_BATCH,)) for m in sb["m"]]
+        sb["e"] = [R.to_evals(s_param, c) for c in sb["c"]]
+        ce = R.mul_e(s_param, sb["hk"], *sb["e"])
+        return R.decrypt(s_param, sb["sk"], R.from_evals(s_param, ce))
+
+    rec = drive(f"slice 12: keygen -> hybrid_rlk1 -> encrypt -> to_evals -> "
+                f"mul_e (HRLK) -> from_evals -> decrypt at {s_shape}",
+                tuple(W_PER_OP), small_path)
+    sm1, sm2 = (m.cpu().numpy() for m in sb["m"])
+    product, fft_err = negacyclic_reference(sm1, sm2, s_t)
+    fft = f"the numpy FFT negacyclic product (rounding error {fft_err:.2e})"
+    verify(f"slice 12 mul_e (HRLK) at {s_shape}", rec, product, fft)
+    ssk, shk = sb["sk"], sb["hk"]
+    (sc1, sc2), (ss1, ss2), (sx, sy) = sb["c"], sb["small"], sb["e"]
+    srlk = R.rlk_key(gen, s_param, ssk)
+    ssk2, _ = R.new_key(gen, s_param, dev)
+    sksk = R.ksk_key(gen, s_param, ssk, ssk2)
+    s_ops = {"mul (RLK)": G_PER_OP["mul (RLK)"], "mul (HRLK)": W_MUL_PER_OP}
+    for tag, key in (("mul (RLK)", srlk), ("mul (HRLK)", shk)):
+        rec = drive(f"slice 12: {tag} -> decrypt at {s_shape}",
+                    tuple(s_ops[tag]),
+                    lambda: R.decrypt(s_param, ssk, R.mul(s_param, key, sc1,
+                                                          sc2)))
+        verify(f"slice 12 {tag} at {s_shape}", rec, product, fft)
+    rec = drive(f"slice 12: to_evals -> mul_e (RLK) -> from_evals -> decrypt "
+                f"at {s_shape}", ("ntt_multi", "ext_ntt",
+                                  *G_PER_OP["mul_e (RLK)"]),
+                lambda: R.decrypt(s_param, ssk, R.from_evals(s_param, R.mul_e(
+                    s_param, srlk, R.to_evals(s_param, sc1),
+                    R.to_evals(s_param, sc2)))))
+    verify(f"slice 12 mul_e (RLK) at {s_shape}", rec, product, fft)
+    rec = drive(f"slice 12: key_switch -> decrypt under the second key at "
+                f"{s_shape}", tuple(G_PER_OP["key_switch"]),
+                lambda: R.decrypt(s_param, ssk2,
+                                  R.key_switch(s_param, sksk, sc1)))
+    verify(f"slice 12 key_switch at {s_shape}", rec, sm1,
+           "the plaintext that was encrypted")
+    sem = {}
+
+    def s_linear():
+        sem["em"] = R.pt_to_evals(s_param, sb["m"][1])
+        step = R.mul_pt_e(s_param, R.add_e(s_param, sx, sy), sem["em"])
+        return R.decrypt(s_param, ssk, R.from_evals(s_param, step))
+
+    rec = drive(f"slice 12: pt_to_evals, mul_pt_e(add_e) -> from_evals -> "
+                f"decrypt at {s_shape}", ("ntt_multi",), s_linear)
+    want, e_lin = negacyclic_reference((sm1 + sm2) % s_t, sm2, s_t)
+    verify(f"slice 12 linear step (m1 + m2) * m2 at {s_shape}", rec, want,
+           f"the numpy FFT negacyclic product (rounding error {e_lin:.2e})")
+    s_tq = (s_t,) * len(s_param.qs)
+    sx4 = torch.stack([sc1.c0, sc1.c1, sc2.c0, sc2.c1], dim=-2)
+    stacked = drive(f"slice 12: tensor_mul_multi on the stacked pair at "
+                    f"{s_shape}", ("tensor_mul",),
+                    lambda: ntt.tensor_mul_multi(sx4, s_param.qs,
+                                                 scale=s_tq))
+    if not (torch.equal(stacked, ntt_cuda.tensor_mul_plain(
+            sx4, s_param.qs, scale=s_tq))
+            and torch.equal(stacked, ntt.tensor_mul4(*sc1, *sc2, s_param.qs,
+                                                     scale=s_tq))):
+        raise RuntimeError("slice 12: tensor_mul_multi != tensor_mul_plain "
+                           "or tensor_mul4 on the same ciphertexts")
+    say("verify: slice 12 tensor_mul_multi == tensor_mul_plain == "
+        "tensor_mul4 (torch.equal) on the ciphertexts of mul above")
+    s_phase = {}
+    for label in list(path_launches)[launches_before:]:
+        for k, v in path_launches[label].items():
+            s_phase[k] = s_phase.get(k, 0) + v
+    missing = [k for k in S_KERNELS if not s_phase.get(k)]
+    if missing:
+        raise RuntimeError(f"slice 12 at n = {s_n}: never launched {missing}")
+    say(f"verify: slice 12 at n = {s_n}: K1-K3 and K5-K8 launched, by kernel "
+        f"over the paths { {k: s_phase[k] for k in S_KERNELS} }")
+    want, err_c = chain_product(sm1, sm2, s_t)
+    chain_what = (f"the numpy FFT negacyclic products of the same chain "
+                  f"(rounding error at most {err_c:.2e})")
+    s_ms = {}
+
+    def s_dec(c):
+        return R.decrypt(s_param, ssk, c)
+
+    def s_dec_e(c):
+        return s_dec(R.from_evals(s_param, c))
+
+    ssx, ssy = (R.to_evals(s_param, c) for c in (ss1, ss2))
+    for tag, key, per_op in (("mul_e (HRLK)", shk, W_PER_OP),
+                             ("mul_e (RLK)", srlk, G_PER_OP["mul_e (RLK)"])):
+        s_per_op[tag] = per_op
+        s_ms[tag] = slice_op(
+            f"slice 12 {tag}", s_shape, s_n, per_op,
+            lambda: R.mul_e(s_param, key, sx, sy),
+            lambda: R.mul_e(s_param, key, ssx, ssy),
+            chain_of(lambda c: R.mul_e(s_param, key, c, sy), sx), s_dec_e,
+            want, chain_what)
+    for tag, key in (("mul (RLK)", srlk), ("mul (HRLK)", shk)):
+        s_per_op[tag] = s_ops[tag]
+        s_ms[tag] = slice_op(
+            f"slice 12 {tag}", s_shape, s_n, s_ops[tag],
+            lambda: R.mul(s_param, key, sc1, sc2),
+            lambda: R.mul(s_param, key, ss1, ss2),
+            chain_of(lambda c: R.mul(s_param, key, c, sc2), sc1), s_dec,
+            want, chain_what)
+    s_per_op["key_switch"] = G_PER_OP["key_switch"]
+    s_ms["key_switch"] = slice_op(
+        "slice 12 key_switch", s_shape, s_n, G_PER_OP["key_switch"],
+        lambda: R.key_switch(s_param, sksk, sc1),
+        lambda: R.key_switch(s_param, sksk, ss1),
+        chain_of(lambda c: R.key_switch(s_param, sksk, sc1), sc1), None, None,
+        "")
+
+    def best_of_3(fn) -> float:
+        fn()
+        return min(time_ms(fn, 1, warmup=0) for _ in range(3))
+
+    for tag, fn in (("to_evals", lambda: R.to_evals(s_param, sc1)),
+                    ("from_evals", lambda: R.from_evals(s_param, sx)),
+                    ("pt_to_evals", lambda: R.pt_to_evals(s_param,
+                                                          sb["m"][1])),
+                    ("add_e", lambda: R.add_e(s_param, sx, sy)),
+                    ("mul_pt_e", lambda: R.mul_pt_e(s_param, sx,
+                                                    sem["em"]))):
+        s_per_op[tag] = per_op_launches(fn)
+        s_ms[tag] = best_of_3(fn)
+    say(f"timing: slice 12 at {s_shape}, CUDA events, best of 3: ms an op "
+        f"{ {k: round(v, 4) for k, v in s_ms.items()} }; launches an op "
+        f"{s_per_op} [{card}]")
+    # the reference's test at t = 4 (tests/test_bfv_rns.py:111): mul_e on
+    # eval-resident ciphertexts equals mul, the round trip is the identity,
+    # and a depth-2 chain ((m1 m2) + m1) m2 stays eval-resident
+    p4 = R.RnsParam(n=s_n, t=S_T4, L=S_L, M=S_M)
+    sk4, pk4 = R.new_key(gen, p4, dev)
+    rlk4 = R.rlk_key(gen, p4, sk4)
+    m4 = [prng.uniform_mod(gen, (S_T4_BATCH, s_n), S_T4, dev)
+          for _ in range(2)]
+    c4 = [R.encrypt(gen, p4, pk4, m, batch=(S_T4_BATCH,)) for m in m4]
+    ref4 = R.mul(p4, rlk4, *c4)
+    e4 = [R.to_evals(p4, c) for c in c4]
+    ce4 = R.mul_e(p4, rlk4, *e4)
+    got4 = R.from_evals(p4, ce4)
+    rt4 = R.from_evals(p4, e4[0])
+    if not (torch.equal(got4.c0, ref4.c0) and torch.equal(got4.c1, ref4.c1)
+            and torch.equal(rt4.c0, c4[0].c0)
+            and torch.equal(rt4.c1, c4[0].c1)):
+        raise RuntimeError(f"slice 12 at t = {S_T4}: from_evals(mul_e) != "
+                           "mul, or the round trip is not the identity")
+    rec = R.decrypt(p4, sk4, R.from_evals(p4, R.mul_e(
+        p4, rlk4, R.add_e(p4, ce4, e4[0]), e4[1])))
+    a4, b4 = (m.cpu().numpy() for m in m4)
+    w1, _ = negacyclic_reference(a4, b4, S_T4)
+    w2, _ = negacyclic_reference((w1 + a4) % S_T4, b4, S_T4)
+    verify(f"slice 12 at N={s_n} t={S_T4} B={S_T4_BATCH}: mul_e (RLK) == mul "
+           f"(torch.equal), to_evals -> from_evals == id, and the depth-2 "
+           f"chain mul_e(add_e(mul_e, x), y)", rec, w2,
+           "((m1 m2) + m1) m2 by numpy")
+    del sb, rec, product, want, sx4, stacked, ssx, ssy, c4, e4, ce4
+
+    # (b) TFHE at n = 128, K = 1, t = 8, beta = 256, l = 3, beta_ks = 16,
+    # l_ks = 8 (tests/test_bootstrap.py:48-57): bootstrap through K10, and
+    # the keyswitch-first pipeline over a short key of 64
+    sf = kernel_check.SMALL_TFHE
+    s_tp = Param(ERR_SIGMA, RingParam(TORUS_Q, sf["n"]), sf["k"], TFHE_T)
+    s_gadget = dict(beta=sf["beta"], l=sf["l"], beta_ks=TFHE_BETA_KS,
+                    l_ks=TFHE_L_KS)
+    s_tshape = (f"N={sf['n']} K={sf['k']} t={TFHE_T} B={TFHE_BATCH} "
+                f"beta={sf['beta']} l={sf['l']} beta_ks={TFHE_BETA_KS} "
+                f"l_ks={TFHE_L_KS}")
+    gen = prng.Gen(SEED + 41)
+    s_table = bootstrap.compute_lookup_table_standard(s_tp, dev)
+    stf = {}
+
+    def s_decoded(s_key, ct):
+        return tlwe.decode(s_tp, tlwe.decrypt(s_tp.lwe(), s_key, ct))
+
+    def small_tfhe():
+        s, _ = tglwe.new_key(gen, s_tp, dev)
+        stf["s_flat"] = tglwe.sk_to_tlwe(s)
+        stf["btk"], s_out = bootstrap.new_bootstrapping_key(
+            gen, s_tp, s, s_lwe_out=stf["s_flat"], **s_gadget)
+        stf["s"] = s
+        stf["evals"] = bootstrap.precompute_btk_evals(s_tp, stf["btk"])
+        stf["c"] = tlwe.encrypt_uniform(gen, s_tp.lwe(), stf["s_flat"],
+                                        tlwe.encode(s_tp, msgs),
+                                        batch=(TFHE_BATCH,))
+        out = bootstrap.bootstrap(s_tp, stf["btk"], s_table, stf["c"],
+                                  mode="standard", btk_evals=stf["evals"],
+                                  **s_gadget)
+        return s_decoded(s_out, out)
+
+    got = drive(f"slice 12: tglwe.new_key -> new_bootstrapping_key -> "
+                f"precompute_btk_evals -> encrypt_uniform -> bootstrap -> "
+                f"decrypt at {s_tshape}", ("ntt", "blind_rotate"),
+                small_tfhe)
+    verify_messages(f"slice 12 bootstrap ({sf['n']} CMux steps) at "
+                    f"{s_tshape}", got)
+    s_btk, s_evals, s_ct, s_flat = (stf[k] for k in ("btk", "evals", "c",
+                                                     "s_flat"))
+    stepwise = bootstrap.blind_rotation(s_tp, s_btk, s_table, s_ct,
+                                        sf["beta"], sf["l"],
+                                        btk_evals=s_evals, fused=False)
+    fused = bootstrap.blind_rotation(s_tp, s_btk, s_table, s_ct, sf["beta"],
+                                     sf["l"], btk_evals=s_evals)
+    if not (torch.equal(fused.a, stepwise.a)
+            and torch.equal(fused.b, stepwise.b)):
+        raise RuntimeError("slice 12: blind_rotate kernel != the "
+                           "step-by-step chain at n = 128")
+    say(f"verify: slice 12 blind_rotate (one launch) == {sf['n']} steps of "
+        f"cmux_evals (torch.equal) on the {TFHE_BATCH} ciphertexts")
+    del stepwise, fused
+
+    def s_short():
+        stf["sbtk"] = bootstrap.new_short_bootstrapping_key(
+            gen, s_tp, stf["s"], n_lwe=sf["n_lwe"], **s_gadget)
+        stf["sevals"] = bootstrap.precompute_short_btk_evals(s_tp,
+                                                             stf["sbtk"])
+        first = bootstrap.bootstrap_short(s_tp, stf["sbtk"], s_table, s_ct,
+                                          btk_evals=stf["sevals"], **s_gadget)
+        second = bootstrap.bootstrap_short(s_tp, stf["sbtk"], s_table, first,
+                                           btk_evals=stf["sevals"],
+                                           **s_gadget)
+        return s_decoded(s_flat, first), s_decoded(s_flat, second)
+
+    got1, got2 = drive(f"slice 12: new_short_bootstrapping_key(n_lwe="
+                       f"{sf['n_lwe']}) -> bootstrap_short x 2 -> decrypt at "
+                       f"{s_tshape}", ("ntt", "blind_rotate"), s_short)
+    verify_messages(f"slice 12 bootstrap_short ({sf['n_lwe']} CMux steps)",
+                    got1)
+    verify_messages("slice 12 bootstrap_short of its own output", got2)
+    s_sbtk, s_sevals = stf["sbtk"], stf["sevals"]
+    for tag, step in (
+            (f"bootstrap ({sf['n']} steps)",
+             lambda c: bootstrap.bootstrap(s_tp, s_btk, s_table, c,
+                                           mode="standard",
+                                           btk_evals=s_evals, **s_gadget)),
+            (f"bootstrap_short ({sf['n_lwe']} steps)",
+             lambda c: bootstrap.bootstrap_short(s_tp, s_sbtk, s_table, c,
+                                                 btk_evals=s_sevals,
+                                                 **s_gadget))):
+        per_op = per_op_launches(lambda: step(s_ct))
+        if per_op.get("blind_rotate") != 1:
+            raise RuntimeError(f"slice 12 {tag}: launches {per_op}, not one "
+                               "blind_rotate a bootstrap")
+        s_per_op[tag.split(" (")[0]] = per_op
+        chain = chain_of(step, s_ct)
+        verify_messages(f"slice 12 chain of {CHAIN} {tag}",
+                        s_decoded(s_flat, chain()))
+        torch.cuda.synchronize()
+        runs = [time_ms(chain, 1, warmup=0) for _ in range(3)]
+        best = min(runs)
+        s_ms[tag] = best / CHAIN
+        say(f"timing: slice 12 chain of {CHAIN} {tag} at {s_tshape}: runs "
+            f"{[round(r, 3) for r in runs]} ms, best {best:.3f} ms = "
+            f"{best / CHAIN:.3f} ms a batch = "
+            f"{TFHE_BATCH * CHAIN / (best / 1e3):.1f} bootstraps/s; launches "
+            f"a bootstrap {per_op} [{card}]")
+    del stf, s_btk, s_evals, s_sbtk, s_sevals, s_ct
+
+    # (c) the gate at n = 64: RNS-BFV at t = 65537 (tests/test_galois.py:50:
+    # mul_e with both keys, one rotation) and RNS-CKKS at delta = 2^25
+    # (:145: mul_hybrid, one rotation); no multi-prime op passes the gate,
+    # so on the card they run their plain versions (K4 has no degree) and
+    # equal the CPU's bit for bit
+    def gate_bfv(device):
+        gen = prng.Gen(SEED + 42)
+        p = R.RnsParam(n=S_GATE_N, t=S_GATE_T, L=S_L, M=S_M)
+        sk, pk = R.new_key(gen, p, device)
+        rlk, hk = R.rlk_key(gen, p, sk), R.hybrid_rlk1(gen, p, sk)
+        gk = galois.galois_key(gen, p, sk, S_GALOIS)
+        m = [prng.uniform_mod(gen, (S_GATE_B, p.n), p.t, device)
+             for _ in range(2)]
+        c = [R.encrypt(gen, p, pk, mi, batch=(S_GATE_B,)) for mi in m]
+        e = [R.to_evals(p, ci) for ci in c]
+        prods = [R.mul_e(p, k, *e) for k in (rlk, hk)]
+        rot = galois.apply_to_ct(p, gk, c[0], S_GALOIS)
+        recs = [R.decrypt(p, sk, R.from_evals(p, ce)) for ce in prods]
+        recs.append(R.decrypt(p, sk, rot))
+        return ([mi.cpu().numpy() for mi in m],
+                [*prods[0], *prods[1], *rot], recs)
+
+    def gate_ckks(device):
+        gen = prng.Gen(SEED + 43)
+        cp = C.Param(n=S_GATE_N, L=S_L, delta=S_CK_DELTA)
+        sk, pk = C.new_key(gen, cp, device)
+        hr = C.hybrid_rlk(gen, cp, sk)
+        g = galois.rotation_element(cp.n, 1)
+        hgk = H.galois_key_hybrid(gen, cp, sk, g)
+        z = np.random.default_rng(SEED + 43).uniform(
+            -10, 10, (4, S_GATE_B, cp.n // 2))
+        # encoded on the host: the float FFT of the encoder is not bit for
+        # bit the same on both devices, the residues it rounds to are moved
+        m = [C.encode(cp, torch.from_numpy(z[i]), torch.from_numpy(z[i + 1]))
+             .to(device) for i in (0, 2)]
+        c1, c2 = (C.encrypt(gen, cp, pk, mi, batch=(S_GATE_B,)) for mi in m)
+        out, p2 = C.mul_hybrid(cp, hr, c1, c2)
+        rot = H.rotate_hybrid(cp, hgk, c1, g)
+        dec = [C.decode(p2, C.decrypt_to_coeffs(p2, sk, out)),
+               C.decode(cp, C.decrypt_to_coeffs(cp, sk, rot))]
+        return z, g, [*out, *rot], dec
+
+    cpu = torch.device("cpu")
+    gate_kernels = ("ntt_multi", "tensor_eval4", "ks_contract", "ext_ntt",
+                    "tensor_mul4", "tensor_mul", "ks_fused", "ks_fused_eval")
+    for tag, fn in ((f"RNS-BFV at N={S_GATE_N} t={S_GATE_T} L={S_L} M={S_M} "
+                     f"B={S_GATE_B}: mul_e (RLK), mul_e (HRLK), rotation "
+                     f"g={S_GALOIS} (gadget key)", gate_bfv),
+                    (f"RNS-CKKS at N={S_GATE_N} L={S_L} delta=2^"
+                     f"{int(np.log2(S_CK_DELTA))} B={S_GATE_B}: mul_hybrid, "
+                     f"rotate_hybrid by 1", gate_ckks)):
+        on_card = drive(f"slice 12, the gate: {tag}", ("base_extend",),
+                        lambda: fn(dev))
+        counts = path_launches[f"slice 12, the gate: {tag}"]
+        if any(counts[k] for k in gate_kernels):
+            raise RuntimeError(f"slice 12 gate: {tag} launched "
+                               f"{ {k: counts[k] for k in gate_kernels} } "
+                               f"at n = {S_GATE_N}")
+        on_cpu = fn(cpu)
+        outs, outs_cpu = on_card[-2], on_cpu[-2]
+        if not all(torch.equal(a.cpu(), b) for a, b in zip(outs, outs_cpu)):
+            raise RuntimeError(f"slice 12 gate: {tag}: the card's "
+                               "ciphertexts != the CPU's")
+        say(f"verify: slice 12 gate, {tag}: no launch of "
+            f"{list(gate_kernels)}; all {len(outs)} output tensors == the "
+            f"CPU's (torch.equal)")
+        if fn is gate_bfv:
+            (a, b), recs = on_card[0], on_card[2]
+            prod = np.stack([(np.array(r, dtype=np.int64) % S_GATE_T)
+                             for r in negacyclic_exact(a, b)])
+            for label, rec in (("mul_e (RLK)", recs[0]),
+                               ("mul_e (HRLK)", recs[1])):
+                verify(f"slice 12 gate {label} at N={S_GATE_N}", rec, prod,
+                       "the exact negacyclic product mod t")
+            phi = np.zeros_like(a)
+            for i in range(S_GATE_N):
+                e = i * S_GALOIS % (2 * S_GATE_N)
+                sign = 1 if e < S_GATE_N else -1
+                phi[:, e % S_GATE_N] += sign * a[:, i]
+            verify(f"slice 12 gate rotation g={S_GALOIS} at N={S_GATE_N}",
+                   recs[2], phi % S_GATE_T,
+                   "m1(X^g) mod (X^n + 1, t) by numpy")
+        else:
+            z, g, _, dec = on_card
+            zc = [z[0] + 1j * z[1], z[2] + 1j * z[3]]
+            perm, conj = galois.ckks_slot_perm(S_GATE_N, g)
+            zr = zc[0][:, perm]
+            for label, (re, im), want, atol in (
+                    ("mul_hybrid", dec[0], zc[0] * zc[1], S_CK_MUL_ATOL),
+                    ("rotate_hybrid", dec[1], np.where(conj, zr.conj(), zr),
+                     S_CK_ROT_ATOL)):
+                err_z = float(np.abs(re.cpu().numpy() + 1j * im.cpu().numpy()
+                                     - want).max())
+                if not err_z <= atol:
+                    raise RuntimeError(f"slice 12 gate CKKS {label}: slot "
+                                       f"error {err_z} above {atol}")
+                say(f"verify: slice 12 gate CKKS {label} at N={S_GATE_N}: "
+                    f"every slot within {err_z:.3e} of numpy (atol {atol})")
+    del on_card, on_cpu
+
+    # every 2^7 kernel at these shapes (B = 128, TFHE B = 64, operands drawn
+    # on the card), held against plain, then on the device alone beside its
+    # bound and the launches it takes in each op of the phase
+    gen = prng.Gen(SEED + 44)
+    s_cases = kernel_check.small_degree_cases(
+        s_param, BATCH, TFHE_BATCH, dev, gen,
+        res=prng.device_residues(SEED + 45, dev))
+    busy = torch.zeros(1 << 26, dtype=torch.int32, device=dev)
+    for case in s_cases:
+        check(case, case.kernel(), case.plain())
+        p_ms = time_ms(case.plain, 1, warmup=0)
+        a_ms = queued_ms(case.kernel, 10, busy)
+        b = bound(case.bytes, case.ops)
+        if a_ms < b.ms:
+            raise RuntimeError(f"slice 12 {case.name} [{case.label}]: "
+                               f"{a_ms:.4f} ms is under its bound {b}")
+        per = {tag: ops[case.name] for tag, ops in s_per_op.items()
+               if ops.get(case.name)}
+        say(f"timing: slice 12 {case.name:16s} {case.label:44s} on the "
+            f"device alone {a_ms:8.4f} ms, plain {p_ms:8.3f} ms, bound "
+            f"{b.ms:.5f} ms by {b.term} (bytes {b.bytes_ms:.5f}, issue "
+            f"{b.issue_ms:.5f}, ALU {b.alu_ms:.5f}, FMA {b.fma_ms:.5f}): "
+            f"{b.ms / a_ms:.4f} of it; launches an op {per} [{card}]")
+    say(f"parity: slice 12 at n = {s_n}: {len(s_cases)} variants of "
+        f"{sorted({c.name for c in s_cases})} at the phase's shapes == plain "
+        f"(torch.equal)")
+    del s_cases, case, busy
+    torch.cuda.empty_cache()
+    phase_done(f"20 (slice 12: the reference tests' configurations at "
+               f"n = {s_n} and n = {S_GATE_N}) [{card}]")
 
     launches = {k.name: sum(c[k.name] for c in path_launches.values())
                 for k in _cuda.KERNELS}

@@ -4,7 +4,7 @@
 //                  (_ext_ntt_kernel)
 // on the register-resident chain of radix_chain.cuh; ntt_cuda.cu's header
 // says what bounds the chain kernels.  Its own translation unit, so that its
-// 24 unrolled instances (per log n, 2^8 .. 2^15, and source count) compile
+// 27 unrolled instances (per log n, 2^7 .. 2^15, and source count) compile
 // beside the others; at 2^15 one block of 512 threads an SM (radix_chain.cuh's
 // OneBuffer).
 //

@@ -20,7 +20,7 @@
 // half finds them in L2; the key rows are shared by the batch) and one word
 // out, against log n / 2 butterflies of 13 instructions and R Montgomery
 // products with their adds (8 + 3): the issue rate, at every R the paths
-// use.  n = 2^8 .. 2^15, at radix_chain.cuh's one-buffer block shape
+// use.  n = 2^7 .. 2^15, at radix_chain.cuh's one-buffer block shape
 // (OneBuffer).
 //
 // The entry launches on the given stream and returns cudaGetLastError(); a
@@ -118,7 +118,7 @@ struct KsContractLaunch {
 using namespace fhe;
 
 // vec: the digit and key rows are read as uint4 (edm, kb, ka 16-byte
-// aligned; every row starts a multiple of n >= 256 words on).
+// aligned; every row starts a multiple of n >= 128 words on).
 extern "C" int fhe_ks_contract(const uint32_t* edm, const uint32_t* kb,
                                const uint32_t* ka, uint32_t* out,
                                const uint32_t* twinv,

@@ -274,7 +274,7 @@ ks_fused_eval_kernel(const uint32_t* __restrict__ c, long long sl,
                       vec != 0);
 }
 
-// kb and ka 16-byte aligned: every key row starts a multiple of n >= 256
+// kb and ka 16-byte aligned: every key row starts a multiple of n >= 128
 // words on, so each row's uint4 words are aligned too.
 inline bool ks_vec(const uint32_t* kb, const uint32_t* ka) {
   return !misaligned(kb) && !misaligned(ka);

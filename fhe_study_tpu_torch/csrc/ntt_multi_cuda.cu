@@ -19,8 +19,8 @@
 // butterflies of 13 instructions, so the issue rate; K9 moves 16, which at
 // the H100's data-sheet rates outlasts its butterflies at every log n (4.8
 // against 1.9 ps a coefficient at n = 1024), so device memory.  Both take
-// n = 2^8 .. 2^15 (K9 also 2^7) at radix_chain.cuh's one-buffer block shape
-// (OneBuffer: 512 threads and one block an SM at 2^15).
+// n = 2^7 .. 2^15 at radix_chain.cuh's one-buffer block shape (OneBuffer:
+// 8 threads at 2^7, 512 threads and one block an SM at 2^15).
 //
 // Each entry launches on the given stream and returns cudaGetLastError(); a
 // refused launch never runs, so the caller raises.
@@ -214,15 +214,6 @@ extern "C" int fhe_ntt_multi(const uint32_t* x, uint32_t* out,
                                          vec);
 }
 
-// K9 at n = 2^logn under the inverse flag: by_logn_wide's degrees, and
-// n = 2^7, the least degree of the reference's ntt_u32, which K9 alone takes
-// (a block of 8 threads, two passes of 4 and 3 stages).
-template <int INV, typename... Args>
-int ntt_by_logn(int logn, Args... args) {
-  if (logn == 7) return NttLaunch<INV>::template run<7>(args...);
-  return by_logn_wide<NttLaunch<INV>>(logn, args...);
-}
-
 // K9 on [B, n] int64 words under the one prime of cons (its fin n^-1 for
 // the inverse); vec as for fhe_ntt_multi.
 extern "C" int fhe_ntt(const long long* x, long long* out, const uint32_t* tw,
@@ -233,9 +224,9 @@ extern "C" int fhe_ntt(const long long* x, long long* out, const uint32_t* tw,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (inverse) {
-    return ntt_by_logn<1>(logn, threads, smem, B, stream, x, out, tw, tw_sh,
-                          cons, B, vec);
+    return by_logn_wide<NttLaunch<1>>(logn, threads, smem, B, stream, x, out,
+                                      tw, tw_sh, cons, B, vec);
   }
-  return ntt_by_logn<0>(logn, threads, smem, B, stream, x, out, tw, tw_sh,
-                        cons, B, vec);
+  return by_logn_wide<NttLaunch<0>>(logn, threads, smem, B, stream, x, out, tw,
+                                    tw_sh, cons, B, vec);
 }

@@ -19,7 +19,7 @@
 // [c, c + 4) and that no earlier pass ran: the forward chain walks the bits
 // from log n - 1 down to 0 (passes at c = log n - 4, log n - 8, ..., the last
 // at c = 0 over the bits left), the inverse chain from 0 up (c = 0, 4, ...,
-// the last at c = log n - 4 over the bits left), so every log n from 8 to 15
+// the last at c = log n - 4 over the bits left), so every log n from 7 to 15
 // takes ceil(log n / 4) passes and ceil(log n / 4) - 1 exchanges, against the
 // log n barriers of a chain that runs one stage between two.  The forward
 // chain's last pass and the inverse chain's first both hold bits 0..3, so a
@@ -66,7 +66,7 @@ constexpr int kRadixBlocks = 3;
 // 16 warps in flight where kRadixThreads would leave it 8 (OneBuffer).  The
 // kernels with three buffers (K6, K7, K8: 384 KB at 2^15) take 2^15 on a
 // cluster of two blocks, each holding one half of every buffer (Split); K10
-// stops at 2^14 (by_logn).
+// stops at 2^14 (by_logn).  Every kernel starts at 2^7.
 constexpr int kWideLogN = 15;
 constexpr int kWideThreads = 512;
 
@@ -465,10 +465,14 @@ int one_buffer_launch(Kernel kernel, int threads, int smem, int blocks,
 }
 
 // F::run<logn>(args...) for the ring degrees that every radix-chain kernel
-// takes, 2^8 .. 2^14 (K10's).
+// takes, 2^7 .. 2^14 (K10's).  At 2^7, the least degree of the reference's
+// Pallas kernels, a polynomial is 8 virtual threads: a block of 8 threads
+// (a quarter of a warp), one group, two passes of 4 and 3 stages, and no
+// split (Split<7>::on is false).
 template <typename F, typename... Args>
 int by_logn(int logn, Args... args) {
   switch (logn) {
+    case 7: return F::template run<7>(args...);
     case 8: return F::template run<8>(args...);
     case 9: return F::template run<9>(args...);
     case 10: return F::template run<10>(args...);

@@ -55,7 +55,7 @@
 // The kernel template is in csrc/tensor_mul4.cuh; this unit instantiates it
 // without a source basis and from 4 source primes, csrc/
 // tensor_mul4_generic_cuda.cu for the other source counts (so that the two
-// halves of the 21 instances compile in parallel).  The entry launches on
+// halves of the 27 instances compile in parallel).  The entry launches on
 // the given stream and returns cudaGetLastError(); a refused launch never
 // runs, so the caller raises.
 

@@ -173,13 +173,14 @@ I64 = ctypes.c_longlong
 
 
 # The ring degrees (log2 n, both ends included) that a kernel of the radix
-# chain takes: the kernels that hold one polynomial in shared memory, and
-# those that hold three (K6, K7, K8: at 2^15 on two-block clusters, one half
-# a block), reach 2^15 (csrc/radix_chain.cuh, by_logn_wide; K9 also 2^7);
-# K10's clusters stop at 2^14 (by_logn).
-RADIX_LOGN = (8, 15)
-K9_LOGN = (7, 15)
-BLIND_ROTATE_LOGN = (8, 14)
+# chain takes: from 2^7 (a block of 8 threads, two passes of 4 and 3
+# stages), the least degree of the reference's Pallas kernels; the kernels
+# that hold one polynomial in shared memory, and those that hold three (K6,
+# K7, K8: at 2^15 on two-block clusters, one half a block), reach 2^15
+# (csrc/radix_chain.cuh, by_logn_wide); K10's clusters stop at 2^14
+# (by_logn).
+RADIX_LOGN = (7, 15)
+BLIND_ROTATE_LOGN = (7, 14)
 
 
 class Kernel:
@@ -269,7 +270,7 @@ KS_FUSED_EVAL = Kernel("ks_fused_eval", "fhe_ks_fused_eval",
                        logn=RADIX_LOGN)
 NTT = Kernel("ntt", "fhe_ntt", "fhe_study_tpu_torch/csrc/ntt_multi_cuda.cu",
              "fhe_study_tpu/ops/ntt_pallas.py:1296",
-             PTR, PTR, PTR, PTR, PTR, *([INT] * 6), logn=K9_LOGN)
+             PTR, PTR, PTR, PTR, PTR, *([INT] * 6), logn=RADIX_LOGN)
 BLIND_ROTATE = Kernel("blind_rotate", "fhe_blind_rotate",
                       "fhe_study_tpu_torch/csrc/blind_rotate_cuda.cu",
                       "fhe_study_tpu/ops/blind_rotate_pallas.py:392",

@@ -302,7 +302,7 @@ def ntt_smem_ceiling_plain(x, q: int, reps: int):
 
 
 def ntt_smem_ceiling_kernel(x, q: int, reps: int):
-    """K12: one block per polynomial of x int32 [B, n], n = 2^8 .. 2^15, on
+    """K12: one block per polynomial of x int32 [B, n], n = 2^7 .. 2^15, on
     K1's plan (``ntt_cuda._radix_plan``), the polynomial in shared memory for
     all ``reps`` chains."""
     _check_q(q)

@@ -6,10 +6,13 @@ The root tables are computed on the host with Python integers and cached,
 bit-reversed exactly as the reference stores them, so every butterfly — and
 every intermediate value — matches the JAX package bit for bit.
 
-Residue tensors are int32 [L, ..., n], row i modulo qs[i].  Each transform
-dispatches by the device of its inputs (ops/_cuda.on_cuda): CUDA tensors
-launch the kernels of ops/ntt_cuda.py, CPU tensors run their plain PyTorch
-versions there.  Names and return contracts are the reference's.
+Residue tensors are int32 [L, ..., n], row i modulo qs[i].  Each multi-prime
+op launches its kernel of ops/ntt_cuda.py exactly where the reference
+launches its Pallas kernel (``multi_gate`` on its primes and n, and for the
+three key-switch ops keys of [R, Lp, n]) and its tensors lie on the card
+(ops/_cuda.on_cuda); everywhere else it runs its plain PyTorch version on
+the tensors' own device, the counterpart of the reference's XLA path.
+Names and return contracts are the reference's.
 
 The single-prime ``ntt`` / ``intt`` / ``negacyclic_mul`` take int64 [..., n]
 values in [0, q), any q < 2^63, and return the same, like the reference's
@@ -94,6 +97,21 @@ def k9_gate(q: int, n: int) -> bool:
     multiple of 128.  The port launches K9 there (up to n = 2^15; above it
     the card raises)."""
     return q < (1 << 31) and n >= 128 and n % 128 == 0
+
+
+def multi_gate(primes, n: int) -> bool:
+    """Whether the reference sends a multi-prime op over ``primes`` at ring
+    degree n to its Pallas kernel: n > 1 and ``_pallas_ok`` (``k9_gate``)
+    for every prime.  The port launches the op's kernel there; elsewhere
+    (n < 128 above all) both devices run the plain version."""
+    return n > 1 and all(k9_gate(q, n) for q in primes)
+
+
+def _launches(primes, n: int, *tensors) -> bool:
+    """A multi-prime op's rule: its kernel where its tensors lie on the card
+    and the gate holds, its plain version everywhere else.  Inside the gate
+    a kernel that fails to build or launch raises."""
+    return _cuda.on_cuda(*tensors) and multi_gate(primes, n)
 
 
 @lru_cache(maxsize=None)
@@ -181,7 +199,7 @@ def mulmod_v(a, b, qv):
 def _transform(a, qs: tuple, inverse: bool, fin):
     if a.shape[0] != len(qs):
         raise ValueError(f"{a.shape[0]} residue rows for {len(qs)} primes")
-    fn = (ntt_cuda.ntt_multi_kernel if _cuda.on_cuda(a)
+    fn = (ntt_cuda.ntt_multi_kernel if _launches(qs, a.shape[-1], a)
           else ntt_cuda.ntt_multi_plain)
     return fn(a, qs, inverse=inverse, fin=fin)
 
@@ -207,7 +225,8 @@ def tensor_eval4(x0, x1, y0, y1, dst: tuple, scale: tuple | None = None):
     """Degree-2 tensor of EVAL-domain operands ([Ld, ..., n] canonical NTT
     residues): returns [Ld, ..., 3, n] coefficient-domain
     scale * (x0y0, x0y1 + x1y0, x1y1)."""
-    fn = (ntt_cuda.tensor_eval4_kernel if _cuda.on_cuda(x0, x1, y0, y1)
+    fn = (ntt_cuda.tensor_eval4_kernel
+          if _launches(dst, x0.shape[-1], x0, x1, y0, y1)
           else ntt_cuda.tensor_eval4_plain)
     return fn(x0, x1, y0, y1, dst, scale=scale)
 
@@ -220,7 +239,9 @@ def tensor_mul4(x0, x1, y0, y1, dst: tuple, scale: tuple | None = None,
     [Ld, ..., n] residues mod dst; with it they are [Ls, ..., n] over ``src``
     and the unsigned HPS extension src -> dst runs first (inside the kernel
     on the card)."""
-    fn = (ntt_cuda.tensor_mul4_kernel if _cuda.on_cuda(x0, x1, y0, y1)
+    fn = (ntt_cuda.tensor_mul4_kernel
+          if _launches(tuple(dst) + tuple(src or ()), x0.shape[-1], x0, x1,
+                       y0, y1)
           else ntt_cuda.tensor_mul4_plain)
     return fn(x0, x1, y0, y1, dst, scale=scale, src=src)
 
@@ -231,7 +252,7 @@ def tensor_mul_multi(x4, qs: tuple, scale: tuple | None = None):
     if x4.shape[-2] != 4 or x4.shape[0] != len(qs):
         raise ValueError(f"x4 has shape {tuple(x4.shape)} for {len(qs)} "
                          "primes; need [L, ..., 4, n]")
-    fn = (ntt_cuda.tensor_mul_kernel if _cuda.on_cuda(x4)
+    fn = (ntt_cuda.tensor_mul_kernel if _launches(qs, x4.shape[-1], x4)
           else ntt_cuda.tensor_mul_plain)
     return fn(x4, qs, scale=scale)
 
@@ -240,7 +261,8 @@ def ext_ntt(x, src: tuple, dst: tuple):
     """x [Ls, ..., P, n] coefficient residues over src -> [Ld, ..., P, n]
     canonical eval residues over dst: unsigned HPS extension fused with the
     forward transforms."""
-    fn = (ntt_cuda.ext_ntt_kernel if _cuda.on_cuda(x)
+    fn = (ntt_cuda.ext_ntt_kernel
+          if _launches(tuple(dst) + tuple(src), x.shape[-1], x)
           else ntt_cuda.ext_ntt_plain)
     return fn(x, src, dst)
 
@@ -249,7 +271,8 @@ def ks_contract_multi(edm, kb, ka, primes: tuple):
     """Key-switch contraction on hoisted digits: edm [R, Lp, ..., n]
     Montgomery-lifted eval digits, kb/ka [R, Lp, n] eval-domain key rows.
     Returns (r0, r1), each [Lp, ..., n]: r = INTT(sum_i edm_i * k_i)."""
-    fn = (ntt_cuda.ks_contract_kernel if _cuda.on_cuda(edm, kb, ka)
+    fn = (ntt_cuda.ks_contract_kernel
+          if _launches(primes, edm.shape[-1], edm, kb, ka) and kb.ndim == 3
           else ntt_cuda.ks_contract_plain)
     return fn(edm, kb, ka, primes)
 
@@ -259,7 +282,9 @@ def ks_fused_multi(c_limbs, kb, ka, primes: tuple, src_primes: tuple):
     src_primes[i]), kb/ka [R, Lp, n] eval-domain key rows.  Returns (r0, r1),
     each [Lp, ..., n] coefficient domain:
     r = INTT(sum_i NTT([c_i] mod p_j) * k_ij)."""
-    fn = (ntt_cuda.ks_fused_kernel if _cuda.on_cuda(c_limbs, kb, ka)
+    fn = (ntt_cuda.ks_fused_kernel
+          if _launches(primes, c_limbs.shape[-1], c_limbs, kb, ka)
+          and kb.ndim == 3
           else ntt_cuda.ks_fused_plain)
     return fn(c_limbs, kb, ka, primes, src_primes)
 
@@ -269,7 +294,8 @@ def ks_fused_eval(c_limbs, kb, ka, primes: tuple, src_primes: tuple, adds):
     (c0, c1) coefficient-domain [Lp, ..., n].  Returns (e0, e1, r0, r1):
     e = NTT(c) + sum_i NTT(d_i) * k_i (eval domain), r = INTT(e)."""
     fn = (ntt_cuda.ks_fused_eval_kernel
-          if _cuda.on_cuda(c_limbs, kb, ka, *adds)
+          if _launches(primes, c_limbs.shape[-1], c_limbs, kb, ka, *adds)
+          and kb.ndim == 3
           else ntt_cuda.ks_fused_eval_plain)
     return fn(c_limbs, kb, ka, primes, src_primes, adds)
 

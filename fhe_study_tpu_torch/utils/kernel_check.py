@@ -419,7 +419,7 @@ def radix_cases(logn: int, batch: int, device, gen: prng.Gen) -> list:
     (compared only, not timed): K1-K3, K5-K9 and K12 on the
     register-resident chains, whose pass structure differs with log n, and
     K4, whose instance differs with the source count; each kernel only where
-    it takes 2^logn (all of them take 2^8 .. 2^15; K6-K8 at 2^15 on
+    it takes 2^logn (all of them take 2^7 .. 2^15; K6-K8 at 2^15 on
     two-block clusters).
 
       K1: forward (without fin, and with the Montgomery 2^32) and inverse
@@ -786,7 +786,7 @@ BR_SWEEP_B = (1, 3, 64, 67, 133)  # and batches (67 and 133: more clusters
 
 def blind_rotate_sweep(device, gen: prng.Gen):
     """K10 against its plain version (compared only, not timed) at every
-    ring degree its plan takes from 2^8, for each C in BR_SWEEP_C and l in
+    ring degree its plan takes from 2^7, for each C in BR_SWEEP_C and l in
     BR_SWEEP_L, over BR_SWEEP_STEPS steps on BR_SWEEP_B ciphertexts, on
     random keys, shifts and accumulators (digits of w = 20, 12 or 21 bits);
     and, at each shape, the key planes one word off their 16-byte alignment
@@ -830,6 +830,33 @@ def tfhe_cases(n: int, k: int, beta: int, l: int, steps: int, batch: int,
     bootstrap gives them."""
     return [*ntt_cases(n, k, l, steps, device, gen),
             blind_rotate_case(n, k, beta, l, steps, batch, device, gen)]
+
+
+# the reference tests' configurations at ring degree 2^7: RNS-BFV at n = 128,
+# t = 16, L = 3, M = 4 (tests/test_bfv_rns.py) and TFHE at n = 128, K = 1,
+# beta = 256, l = 3 with a short key of 64 (tests/test_bootstrap.py)
+SMALL_BFV = dict(n=128, t=16, L=3, M=4)
+SMALL_TFHE = dict(n=128, k=1, beta=256, l=3, n_lwe=64)
+
+
+def small_degree_cases(param, batch: int, tfhe_batch: int, device,
+                       gen: prng.Gen, res=None) -> list:
+    """Every kernel of the radix chain at n = 2^7 at the shapes that the
+    reference tests' small configurations give it: ``cases`` and
+    ``linear_cases`` at param (RNS-BFV: K1, K2, K3, K4, K5, K6 and its
+    stacked form, K7, K8), ``tfhe_cases`` at SMALL_TFHE over n steps and
+    over n_lwe (K9 at the shapes of key generation, K10 on tfhe_batch
+    ciphertexts), and the ceiling loop K12 on [batch, n]."""
+    n = param.n
+    tf = SMALL_TFHE
+    return [*cases(param, batch, device, gen, res=res),
+            *linear_cases(param, batch, device, gen),
+            *tfhe_cases(n, tf["k"], tf["beta"], tf["l"], n, tfhe_batch,
+                        device, gen),
+            blind_rotate_case(n, tf["k"], tf["beta"], tf["l"], tf["n_lwe"],
+                              tfhe_batch, device, gen),
+            *(c for c in bench_cases(n, batch, device, gen)
+              if c.name == "ntt_smem_ceiling")]
 
 
 def ckks_cases(param, batch: int, K: int, device,

@@ -178,7 +178,7 @@ def _inputs(rng, steps: int, B: int, C: int, l: int, n: int):
     return shifts, acc0, ev1, zeros, ev2, zeros
 
 
-@pytest.mark.parametrize("logn", [8, 9, 10])
+@pytest.mark.parametrize("logn", [7, 8, 9, 10])
 @pytest.mark.parametrize("C,l", SHAPES)
 def test_schedule_equals_plain(logn, C, l):
     n, w = 1 << logn, W[l]

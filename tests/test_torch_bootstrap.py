@@ -202,7 +202,7 @@ def test_blind_rotate_wrappers_check_their_operands():
 def test_supported():
     big = G.Param(G.ERR_SIGMA, RingParam(TORUS_Q, 1024), 1, T)
     assert brc.supported(big, 4096, 2) and brc.supported(big, 256, 3)
-    assert not brc.supported(P, 256, 3)                 # n = 128 < 2^8
+    assert brc.supported(P, 256, 3)                     # n = 128: 2^7 on
     assert not brc.supported(big, 4096, 6)              # w * l > 64
     assert not brc.supported(big, 3000, 2)              # not a power of two
     assert not brc.supported(big, 1 << 14, 2)           # CRT capacity

@@ -74,17 +74,17 @@ def test_radix_kernels_match_plain_at_every_degree(cuda, logn):
 
 def test_radix_kernels_have_no_stack_frame_or_spills(cuda):
     """Every instance of the redesigned kernels: K2, K3, K7, K8 and K12 per
-    log n 2^8 .. 2^15, K1 and K9 (both ways) per log n (K9 also at log
-    n = 7), K5 and K6 per log n and source count form, K4 and K11 per source
-    count 1 .. 31 and form, K10 per log n to 2^14, staged and direct."""
+    log n 2^7 .. 2^15, K1 and K9 (both ways) per log n, K5 and K6 per log n
+    and source count form, K4 and K11 per source count 1 .. 31 and form,
+    K10 per log n 2^7 .. 2^14, staged and direct."""
     report = _cuda.ptxas_report(_cuda.build_log())
-    counts = {"tensor_eval4_kernel": 8, "ks_contract_kernel": 8,
-              "ks_fused_kernel": 8, "ks_fused_eval_kernel": 8,
-              "ext_ntt_kernel": 8 * 3, "tensor_mul4_kernel": 8 * 3,
-              "ntt_multi_kernel": 8 * 2, "base_extend_kernel": 31 * 2,
+    counts = {"tensor_eval4_kernel": 9, "ks_contract_kernel": 9,
+              "ks_fused_kernel": 9, "ks_fused_eval_kernel": 9,
+              "ext_ntt_kernel": 9 * 3, "tensor_mul4_kernel": 9 * 3,
+              "ntt_multi_kernel": 9 * 2, "base_extend_kernel": 31 * 2,
               "base_extend_sum_kernel": 31 * 2,
-              "blind_rotate_kernel": 7 * 2, "ntt_kernel": 9 * 2,
-              "ntt_smem_ceiling_kernel": 8}
+              "blind_rotate_kernel": 8 * 2, "ntt_kernel": 9 * 2,
+              "ntt_smem_ceiling_kernel": 9}
     radix = [r for r in report if r["kernel"].split("<")[0] in counts]
     for name, count in counts.items():
         assert sum(r["kernel"].split("<")[0] == name for r in radix) == count
@@ -162,7 +162,7 @@ def test_redesigned_kernels_refuse_another_plan(cuda):
 
 
 def test_blind_rotate_clusters_match_plain(cuda):
-    """K10 on its two-block clusters at n = 2^8 and 2^9 (the shapes of
+    """K10 on its two-block clusters at n = 2^7, 2^8 and 2^9 (the shapes of
     kernel_check.blind_rotate_sweep there: C = 2, 3; l = 1, 2, 3; 1, 2 and
     17 steps; 1 to 133 ciphertexts; staged, direct and unaligned key
     planes), bit for bit."""
@@ -379,6 +379,57 @@ def _paths(param, device, seed=4, batch=2):
             *R.mul_e(param, rlk, *e), *R.key_switch(param, ksk, c[0]),
             *R.mul_pt_e(param, R.add_e(param, *e), em)]
     return outs, R.decrypt(param, sk, R.mul(param, rlk, *c))
+
+
+def test_small_degree_kernels_match_plain(cuda):
+    """Every radix-chain kernel and K10 at n = 2^7 at the shapes of the
+    reference tests' small configurations (RNS-BFV at n = 128, t = 16,
+    L = 3, M = 4; TFHE at n = 128, beta = 256, l = 3), bit for bit."""
+    param = R.RnsParam(**kernel_check.SMALL_BFV)
+    cases = kernel_check.small_degree_cases(param, 3, 3, cuda, prng.Gen(17))
+    assert {c.name for c in cases} >= {
+        "ntt_multi", "tensor_eval4", "ks_contract", "ext_ntt", "tensor_mul4",
+        "tensor_mul", "ks_fused", "ks_fused_eval", "ntt", "blind_rotate",
+        "ntt_smem_ceiling"}
+    for case in cases:
+        got, want = case.kernel(), case.plain()
+        torch.cuda.synchronize()
+        assert kernel_check.equal(got, want), (case.name, case.label)
+
+
+def test_slice_at_n_128_on_card_matches_cpu(cuda):
+    """mul_e with the hybrid key at the reference's n = 128, t = 16, L = 3,
+    M = 4 goes through the kernels at 2^7 and equals the CPU's."""
+    param = R.RnsParam(**kernel_check.SMALL_BFV)
+    _cuda.reset_launches()
+    _, ce, rec = _slice(param, cuda)
+    torch.cuda.synchronize()
+    counts = _cuda.launches()
+    for name in ("ntt_multi", "tensor_eval4", "ks_contract", "ext_ntt"):
+        assert counts[name] > 0, counts
+    _, ce_cpu, rec_cpu = _slice(param, torch.device("cpu"))
+    for got, want in zip(ce, ce_cpu):
+        assert torch.equal(got.cpu(), want)
+    assert torch.equal(rec.cpu(), rec_cpu)
+
+
+def test_paths_at_n_64_on_card_launch_no_multi_prime_kernel(cuda):
+    """At n = 64 no multi-prime op passes the reference's gate: on the card
+    the paths run the plain versions (K4, which has no ring degree, still
+    launches) and equal the CPU's."""
+    param = R.RnsParam(n=64, t=65537, L=3, M=4)
+    _cuda.reset_launches()
+    outs, rec = _paths(param, cuda)
+    torch.cuda.synchronize()
+    counts = _cuda.launches()
+    for name in ("ntt_multi", "tensor_eval4", "ks_contract", "ext_ntt",
+                 "tensor_mul4", "tensor_mul", "ks_fused", "ks_fused_eval"):
+        assert counts[name] == 0, counts
+    assert counts["base_extend"] > 0, counts
+    outs_cpu, rec_cpu = _paths(param, torch.device("cpu"))
+    for got, want in zip(outs, outs_cpu):
+        assert torch.equal(got.cpu(), want)
+    assert torch.equal(rec.cpu(), rec_cpu)
 
 
 def test_paths_on_card_match_cpu(cuda):
@@ -611,8 +662,8 @@ def test_bench_wrappers_check_and_measure(cuda):
         alu_bench.alu_rate_kernel(x.long(), x, x, "add", 16)
     with pytest.raises(ValueError, match="multiples of 16"):
         alu_bench.alu_rate_kernel(x, x, x, "add", 8)
-    with pytest.raises(ValueError, match="2\\^8 .. 2\\^15"):
-        alu_bench.ntt_smem_ceiling_kernel(x[:, :128].contiguous(), 12289, 1)
+    with pytest.raises(ValueError, match="2\\^7 .. 2\\^15"):
+        alu_bench.ntt_smem_ceiling_kernel(x[:, :64].contiguous(), 12289, 1)
     with pytest.raises(ValueError, match="alpha"):
         ext_cuda.base_extend_sum_kernel(x, x, (12289, 40961), (65537,))
     per_sm, sms = alu_bench.resident_blocks(cuda, n=1 << 14)

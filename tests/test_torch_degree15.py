@@ -183,7 +183,7 @@ def test_kernel_range_at_n_2_15(name):
     """K1, K2, K3, K5, K9 and K12 take n = 2^15 (and refuse 2^16), and so
     do K6, tensor_mul, K7 and K8 (on two-block clusters, one half of their
     three buffers a block); K10 refuses it with a message that names its
-    range 2^8 .. 2^14, on the card as on any device: the check comes before
+    range 2^7 .. 2^14, on the card as on any device: the check comes before
     the kernel is built or launched."""
     k = KERNELS[name]
     if name != "blind_rotate":
@@ -198,16 +198,16 @@ def test_kernel_range_at_n_2_15(name):
             assert plan.smem_bytes == nc.MUL4_BUFFERS * 4 * N // 2
             assert nc._mul4_plan(15, side=True).smem_bytes <= 232448
         return
-    with pytest.raises(ValueError, match=f"{name} takes n = 2\\^8 .. 2\\^14"):
+    with pytest.raises(ValueError, match=f"{name} takes n = 2\\^7 .. 2\\^14"):
         _cuda.log2_degree(N, k)
 
 
 def test_narrow_wrappers_refuse_n_2_15():
     """The wrappers of K6, tensor_mul, K7 and K8 raise the range error at
-    n = 2^16 before anything else, naming 2^8 .. 2^15 (here on CPU tensors,
+    n = 2^16 before anything else, naming 2^7 .. 2^15 (here on CPU tensors,
     which they would otherwise refuse for their device); at n = 2^15 they
     pass it and refuse the CPU tensors.  K10's checks its operands first."""
-    for n, match in ((2 * N, "takes n = 2\\^8 .. 2\\^15"),
+    for n, match in ((2 * N, "takes n = 2\\^7 .. 2\\^15"),
                      (N, "take CUDA tensors")):
         x = torch.zeros((2, 1, n), dtype=torch.int32)
         keys = torch.zeros((2, 2, n), dtype=torch.int32)

@@ -153,15 +153,19 @@ def test_every_kernel_names_its_plain_version_and_its_pallas_kernel():
 
 def test_kernels_refuse_unsupported_ring_degrees():
     """Each kernel names its own range: the one-buffer chains and the
-    three-buffer ones (at 2^15 on two-block clusters) 2^8 .. 2^15, K10
-    2^8 .. 2^14."""
-    for n in (128, 1 << 16, 384):
-        for k in (_cuda.NTT_MULTI, _cuda.TENSOR_MUL4):
-            with pytest.raises(ValueError, match="2\\^8 .. 2\\^15"):
+    three-buffer ones (at 2^15 on two-block clusters) 2^7 .. 2^15, K10
+    2^7 .. 2^14; n = 128, the least degree of the reference's Pallas
+    kernels, is every radix-chain kernel's first."""
+    for n in (64, 1 << 16, 384):
+        for k in (_cuda.NTT_MULTI, _cuda.TENSOR_MUL4, _cuda.NTT):
+            with pytest.raises(ValueError, match="2\\^7 .. 2\\^15"):
                 _cuda.log2_degree(n, k)
-    for n in (128, 1 << 15, 384):
-        with pytest.raises(ValueError, match="2\\^8 .. 2\\^14"):
+    for n in (64, 1 << 15, 384):
+        with pytest.raises(ValueError, match="2\\^7 .. 2\\^14"):
             _cuda.log2_degree(n, _cuda.BLIND_ROTATE)
+    for k in _cuda.KERNELS:
+        if k.logn is not None:
+            assert _cuda.log2_degree(128, k) == 7, k.name
     assert _cuda.log2_degree(1 << 14, _cuda.TENSOR_MUL4) == 14
     assert _cuda.log2_degree(1 << 15, _cuda.TENSOR_MUL4) == 15
     assert _cuda.log2_degree(1 << 15, _cuda.NTT_MULTI) == 15

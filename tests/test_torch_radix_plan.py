@@ -3,7 +3,7 @@
 (ks_fused), K8 (ks_fused_eval), K9 (ntt) and K12 (ntt_smem_ceiling) run on
 the card (csrc/radix_chain.cuh,
 mirrored by ops/ntt_cuda.py::_radix_plan), checked on the CPU at every ring
-degree each kernel takes (2^8 .. 2^15): every stage is run once and in
+degree each kernel takes (2^7 .. 2^15): every stage is run once and in
 order, a block fits the H100 (256 threads and one polynomial, three blocks
 an SM, or at n = 2^15 512 threads and one block; or the 512 threads and
 three polynomials of K6, K7 and K8, at n = 2^15 one half of each on a
@@ -150,7 +150,8 @@ def _run_pass(regs, el, ps, roots, q: int, logn: int, inverse: bool):
 
 def _lanes_consecutive(addr) -> bool:
     """[virtual threads, 16] word addresses: for each of the 16 accesses the
-    lanes of every warp (16 at n = 2^8, where a block is half a warp) touch
+    lanes of every warp (16 at n = 2^8 and 8 at 2^7, where a block is half
+    or a quarter of a warp) touch
     consecutive words (coalesced)."""
     warps = addr.reshape(-1, min(32, addr.shape[0]), 16)
     return bool((warps[:, 1:] - warps[:, :-1] == 1).all())

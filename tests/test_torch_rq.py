@@ -424,14 +424,15 @@ def test_dispatch_follows_the_gate(monkeypatch, q, n):
 
 
 def test_k9_range_on_the_card():
-    """K9's wrapper takes n = 2^7 .. 2^15 (n = 2^7 is K9's alone); the
-    other one-buffer kernels take 2^8 .. 2^15."""
+    """K9's wrapper takes n = 2^7 .. 2^15, the range of every one-buffer
+    kernel (the shared dispatch's, RADIX_LOGN)."""
     assert _cuda.log2_degree(128, _cuda.NTT) == 7
     assert _cuda.log2_degree(1 << 15, _cuda.NTT) == 15
     for n in (64, 1 << 16):
         with pytest.raises(ValueError, match="ntt takes n = 2\\^7 .. 2\\^15"):
             _cuda.log2_degree(n, _cuda.NTT)
-    with pytest.raises(ValueError, match="2\\^8 .. 2\\^15"):
-        _cuda.log2_degree(128, _cuda.NTT_MULTI)
+    assert _cuda.NTT.logn == _cuda.NTT_MULTI.logn == _cuda.RADIX_LOGN
+    with pytest.raises(ValueError, match="ntt_multi takes n = 2\\^7"):
+        _cuda.log2_degree(64, _cuda.NTT_MULTI)
     with pytest.raises(ValueError, match="CUDA"):
         ntt_cuda.ntt_kernel(torch.zeros(2, 128, dtype=torch.long), Q)
