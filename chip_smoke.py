@@ -29,7 +29,9 @@ at the same degree with that whole modulus in Q: N = 2^15, L = 29, M = 30,
 t = 256, B = 128, and the JAX package's own tests' small configurations:
 RNS-BFV at N = 128, t = 16, L = 3, M = 4, B = 128, TFHE at N = 128, K = 1,
 t = 8, gadget 256^3, B = 64, and RNS-BFV and RNS-CKKS at N = 64, below the
-kernels' gate.
+kernels' gate, and TFHE's keyswitch-first bootstrap past a block's shared
+memory: N = 4096, gadget 2^11 x 2, and N = 2^15, gadget 2^8 x 3, over a
+short key of 400, B = 64.
 Phases, each of which raises (and so exits non-zero) on any failure:
 
   1. toolchain and card: torch, CUDA, nvcc; the kernels built from csrc/;
@@ -54,10 +56,13 @@ Phases, each of which raises (and so exits non-zero) on any failure:
      too) and every operand one word off; K3, K7 and K8 at R = 43 over the 45 primes
      of Q u P at n = 2^12 (the CKKS maps' shape); K11 from every source
      count 1 .. 31 to 5 primes, unsigned and centered, in its vector and
-     word forms; K10 on its two-block clusters at every n
-     its plan takes, C = 2 and 3, l = 1, 2 and 3, over 1, 2 and 17 steps on
-     1, 3, 64, 67 and 133 ciphertexts (kernel_check.blind_rotate_sweep),
-     staged and direct key planes and planes one word off; ptxas's
+     word forms; K10 in both its layouts at every n from 2^7 to 2^15, C = 2
+     and 3, l = 1, 2 and 3, over 1, 2 and 17 steps: on its two-block
+     clusters where the plan takes them, on 1, 3, 64, 67 and 133
+     ciphertexts, with its working set in device memory elsewhere, on 1, 3
+     and 67 (1 and 3 at 2^14 and 2^15), and at (n, C, l) = (2^11, 2, 7),
+     (2^9, 4, 32) and C = 1 (kernel_check.blind_rotate_sweep), staged and
+     direct key planes and planes one word off; ptxas's
      registers, stack frame and spills of every kernel (phase 1), which must
      show neither for K1-K12;
   3. the eval-resident path: keygen -> hybrid relin key -> encrypt 128
@@ -238,7 +243,18 @@ Phases, each of which raises (and so exits non-zero) on any failure:
      RNS-CKKS at delta = 2^25 (mul_hybrid, rotate_hybrid), no launch of
      K1-K3 or K5-K8, every output equal to the CPU's, decrypted or decoded
      against numpy; every n = 2^7 kernel at these shapes against plain and
-     on the device alone beside its bound, with its launches an op.  Each
+     on the device alone beside its bound, with its launches an op;
+ 21. slice 13, K10 with its working set in device memory: TFHE
+     bootstrap_short at N = 4096, K = 1, beta = 2^11, l = 2 (configuration
+     a: tests/test_bootstrap.py's t = 128 bootstrap with N doubled, here at
+     t = 64) and at N = 2^15, K = 1, beta = 2^8, l = 3 (configuration b, at
+     t = 16), both over a short key of 400 and the key switch 16^8, B = 64:
+     keys generated on the card, all 64 messages decoded, one blind_rotate
+     launch (in the device-memory layout) a bootstrap, the kernel's
+     rotation == the step-by-step chain's (torch.equal), a chain of 3 timed
+     beside one step-by-step bootstrap, peak device memory with the keys
+     resident; K10 on the device alone beside its bound and its layout's
+     own bound at a, b and N = 1024 in both layouts.  Each
      phase prints its wall time and the device memory still held as it
      ends.
 
@@ -324,6 +340,13 @@ S_INSTANCES = {**W_INSTANCES, "blind_rotate": 2}
 S_GATE_N, S_GATE_T, S_GALOIS, S_GATE_B = 64, 65537, 5, 4
 S_L, S_M = 3, 4
 S_CK_DELTA, S_CK_MUL_ATOL, S_CK_ROT_ATOL = 2.0 ** 25, 1e-2, 2e-3
+# phase 21, slice 13: bootstrap_short past a block's shared memory, (N, t,
+# beta, l) of configurations a and b (n_lwe, beta_ks, l_ks and B those of
+# phase 8 but the short key of 400); t is the largest power of two whose
+# messages all decode with margin (PERF.md §6: the top-bits gadget of
+# w l = 22 and 24 bits leaves a rotation error of about 2^56 and 2^57.6)
+P21_CONFIGS = (("a", 1 << 12, 64, 1 << 11, 2), ("b", 1 << 15, 16, 1 << 8, 3))
+P21_N_LWE = 400
 CEILING_REPS, ALU_ROUNDS = 64, 1 << 16
 # the bound (utils/kernel_check.bound) takes the SM count and the maximum SM
 # clock that the card in hand reports; each alu_rate loop must issue at
@@ -338,7 +361,10 @@ ALU_SHORT_ROUNDS = 1024      # the timed alu_rate launch is held in such pieces
 RADIX_KERNELS = {"ntt_multi", "tensor_eval4", "ks_contract", "ext_ntt",
                  "base_extend", "tensor_mul4", "tensor_mul", "ks_fused",
                  "ks_fused_eval", "ntt", "blind_rotate", "ntt_smem_ceiling",
-                 "base_extend_sum"}
+                 "base_extend_sum", "br_forward", "br_inverse"}
+# the kernels' JSON record has one row per entry of _cuda.KERNELS, K10's
+# (its cluster layout) followed by one for its device-memory layout
+DM_ROW = "blind_rotate_dm"
 RADIX_BATCH = 3              # the small odd batch of their every-degree sweep
 
 
@@ -439,6 +465,12 @@ def main() -> None:
 
     dev = torch.device("cuda", 0)
     marks = [wall0]
+    record_rows = [r for k in _cuda.KERNELS for r in (
+        (k.name, DM_ROW) if k is _cuda.BLIND_ROTATE else (k.name,))]
+
+    def row(case) -> str:
+        """The record's row of a case: K10's by its layout."""
+        return DM_ROW if case.layout == "device" else case.name
 
     def phase_done(label: str) -> None:
         marks.append(time.perf_counter())
@@ -486,20 +518,26 @@ def main() -> None:
             f"{r.get('stack')} bytes stack frame, {r.get('spill_stores')} "
             f"bytes spill stores, {r.get('spill_loads')} bytes spill loads")
     k10_entries = [r for r in radix_entries
-                   if r["kernel"].startswith("blind_rotate_kernel<")]
-    if spilled or not radix_entries or not k10_entries:
+                   if r["kernel"].startswith(("blind_rotate_kernel<",
+                                              "br_forward_kernel<",
+                                              "br_inverse_kernel<"))]
+    k10_layouts = {r["kernel"].split("<")[0] for r in k10_entries}
+    if spilled or not radix_entries or len(k10_layouts) != 3:
         raise RuntimeError(f"ptxas gave a stack frame or spills to {spilled}: "
                            "the redesigned kernels must keep their words "
                            "in registers")
     say(f"ptxas: no stack frame and no spills in the {len(radix_entries)} "
         f"instances of {sorted(RADIX_KERNELS)} ({len(k10_entries)} of "
-        f"blind_rotate)")
+        f"blind_rotate: its clusters' blind_rotate_kernel, and br_forward "
+        f"and br_inverse of its device-memory layout)")
+    say(f"build: seconds a unit (compiled in parallel), then the link: "
+        f"{_cuda.build_seconds(_cuda.build_log())}")
 
     phase_done("1 (toolchain and build)")
 
     # 2. kernels against their plain versions ------------------------------
-    err = {k.name: 0 for k in _cuda.KERNELS}
-    checked = {k.name: 0 for k in _cuda.KERNELS}
+    err = dict.fromkeys(record_rows, 0)
+    checked = dict.fromkeys(record_rows, 0)
 
     def hold(name: str, label: str, got, want) -> None:
         diff = kernel_check.max_abs_err(got, want)
@@ -510,7 +548,7 @@ def main() -> None:
         checked[name] += 1
 
     def check(case, got, want) -> None:
-        hold(case.name, case.label, got, want)
+        hold(row(case), case.label, got, want)
 
     gen = prng.Gen(SEED)
     for n in (N, 256):
@@ -566,20 +604,28 @@ def main() -> None:
         f"(tensor_mul4, tensor_mul, ks_fused and ks_fused_eval at "
         f"2^{_cuda.TENSOR_MUL4.logn[1]} on two-block clusters), batch "
         f"{RADIX_BATCH}: {radix_checked} variants")
-    # K10 on two-block clusters at every ring degree its plan takes, on
-    # batches beyond the clusters the card holds at once
-    k10_checked = 0
+    # K10 in both layouts at every ring degree it takes, on batches beyond
+    # the clusters the card holds at once
+    k10_checked = dict.fromkeys(("cluster", "device"), 0)
+    t0 = time.perf_counter()
     for case in kernel_check.blind_rotate_sweep(dev, gen):
         got, want = case.kernel(), case.plain()
         torch.cuda.synchronize()
         check(case, got, want)
-        k10_checked += 1
+        k10_checked[case.layout] += 1
     say(f"parity: blind_rotate == plain (torch.equal) for C in "
         f"{kernel_check.BR_SWEEP_C}, l in {kernel_check.BR_SWEEP_L}, every n "
-        f"its plan takes from 2^{_cuda.BLIND_ROTATE.logn[0]}, steps in "
-        f"{kernel_check.BR_SWEEP_STEPS}, B in {kernel_check.BR_SWEEP_B} "
-        f"(staged and direct key planes), and the key planes one word off: "
-        f"{k10_checked} variants")
+        f"from 2^{_cuda.BLIND_ROTATE.logn[0]} to "
+        f"2^{_cuda.BLIND_ROTATE.logn[1]}, steps in "
+        f"{kernel_check.BR_SWEEP_STEPS}: on two-block clusters (B in "
+        f"{kernel_check.BR_SWEEP_B}; staged and direct key planes) and with "
+        f"the working set in device memory (B in "
+        f"{kernel_check.BR_DM_SWEEP_B}, 67 left out from "
+        f"2^{kernel_check.BR_DM_WIDE_LOGN}; the widest digit of the "
+        f"reference's gate), at (log n, C, l, w) in "
+        f"{kernel_check.BR_DM_SMALL} and C = 1, and the key planes one word "
+        f"off: {k10_checked} variants by layout in "
+        f"{time.perf_counter() - t0:.1f} s")
     del tfhe_parity, case, got, want
     say(f"parity: kernel == plain (torch.equal) for "
         f"{sum(checked.values())} variants at n={N} and n=256 (batch "
@@ -602,6 +648,7 @@ def main() -> None:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = _cuda.launches()
+        counts[DM_ROW] = _cuda.BLIND_ROTATE.by_layout["device"]
         path_launches[label] = counts
         unlaunched = [k for k in expects if counts[k] == 0]
         if unlaunched:
@@ -762,7 +809,7 @@ def main() -> None:
             f"{peak / 2**30:.2f} GiB; launches per op {per_op} [{card}]")
     # a kernel's ms, plain_ms and bound_ms: one call of each of its variants
     # at the paths' shapes, summed
-    ms = {k.name: 0.0 for k in _cuda.KERNELS}
+    ms = dict.fromkeys(record_rows, 0.0)
     plain_ms, byte_ms, op_ms, bound_ms = dict(ms), dict(ms), dict(ms), dict(ms)
     gen = prng.Gen(SEED + 2)
 
@@ -780,11 +827,11 @@ def main() -> None:
             raise RuntimeError(
                 f"{case.name} [{case.label}]: the kernel's {k_ms:.4f} ms is "
                 f"under its bound {b}: the bound is no bound")
-        ms[case.name] += k_ms
-        plain_ms[case.name] += p_ms
-        byte_ms[case.name] += b.bytes_ms
-        op_ms[case.name] += b.ops_ms
-        bound_ms[case.name] += b.ms
+        ms[row(case)] += k_ms
+        plain_ms[row(case)] += p_ms
+        byte_ms[row(case)] += b.bytes_ms
+        op_ms[row(case)] += b.ops_ms
+        bound_ms[row(case)] += b.ms
         say(f"timing: {case.name:13s} {case.label:48s} kernel {k_ms:8.3f} ms"
             f"  plain {p_ms:9.3f} ms  bound {b.ms:7.4f} ms by {b.term} "
             f"(bytes {b.bytes_ms:.4f}, issue {b.issue_ms:.4f}, ALU "
@@ -2852,8 +2899,176 @@ def main() -> None:
     phase_done(f"20 (slice 12: the reference tests' configurations at "
                f"n = {s_n} and n = {S_GATE_N}) [{card}]")
 
-    launches = {k.name: sum(c[k.name] for c in path_launches.values())
-                for k in _cuda.KERNELS}
+    # 21. slice 13: bootstrap_short past a block's shared memory -----------
+    # (configurations a and b of P21_CONFIGS): keys on the card, all 64
+    # messages, one launch of K10's device-memory layout a bootstrap, the
+    # kernel's rotation == the step-by-step chain's, a chain of 3 beside one
+    # step-by-step bootstrap, the peak memory with the keys resident; then
+    # K10 on the device alone in both layouts beside its bounds
+    dm_logns = {c[1].bit_length() - 1 for c in P21_CONFIGS}
+    dm_inst = [f"{r['kernel']} {r['registers']} registers" for r in k10_entries
+               if r["kernel"].startswith(("br_forward", "br_inverse"))
+               and int(r["kernel"].split("<")[1].rstrip(">")) in dm_logns]
+    if len(dm_inst) != 2 * len(dm_logns):
+        raise RuntimeError(f"phase 21: the device-memory layout's instances "
+                           f"at log n in {dm_logns}: {dm_inst}")
+    say(f"ptxas: phase 21's instances (no stack frame or spills, phase 1): "
+        + "; ".join(dm_inst))
+    p21_cases = []
+    for tag, n21, t21, beta21, l21 in P21_CONFIGS:
+        tp21 = Param(ERR_SIGMA, RingParam(TORUS_Q, n21), TFHE_K, t21)
+        kw21 = dict(beta=beta21, l=l21, beta_ks=TFHE_BETA_KS, l_ks=TFHE_L_KS)
+        shape21 = (f"N={n21} K={TFHE_K} t={t21} B={TFHE_BATCH} "
+                   f"beta=2^{beta21.bit_length() - 1} l={l21} "
+                   f"beta_ks={TFHE_BETA_KS} l_ks={TFHE_L_KS} "
+                   f"n_lwe={P21_N_LWE}")
+        plan21 = kernel_check.brc._plan(TFHE_K + 1, l21, n21)
+        if plan21.layout != "device":
+            raise RuntimeError(f"phase 21 {tag}: plan {plan21}")
+        gen = prng.Gen(SEED + 50 + len(tag) + n21)
+        msgs21 = torch.arange(TFHE_BATCH, device=dev) % (t21 // 2)
+        table21 = bootstrap.compute_lookup_table_standard(tp21, dev)
+        st21 = {}
+
+        def p21_path():
+            s, _ = tglwe.new_key(gen, tp21, dev)
+            st21["s_flat"] = tglwe.sk_to_tlwe(s)
+            st21["sbtk"] = bootstrap.new_short_bootstrapping_key(
+                gen, tp21, s, n_lwe=P21_N_LWE, **kw21)
+            st21["sevals"] = bootstrap.precompute_short_btk_evals(
+                tp21, st21["sbtk"])
+            st21["c"] = tlwe.encrypt_uniform(
+                gen, tp21.lwe(), st21["s_flat"], tlwe.encode(tp21, msgs21),
+                batch=(TFHE_BATCH,))
+            out = bootstrap.bootstrap_short(tp21, st21["sbtk"], table21,
+                                            st21["c"],
+                                            btk_evals=st21["sevals"], **kw21)
+            return tlwe.decrypt(tp21.lwe(), st21["s_flat"], out)
+
+        label21 = (f"slice 13 ({tag}): tglwe.new_key -> "
+                   f"new_short_bootstrapping_key -> precompute_short_btk_evals"
+                   f" -> encrypt_uniform -> bootstrap_short -> decrypt at "
+                   f"{shape21}")
+        phase21 = drive(label21, ("ntt", "blind_rotate", DM_ROW), p21_path)
+        got21 = tlwe.decode(tp21, phase21)
+        bad = int((got21 != msgs21).sum())
+        if bad:
+            raise RuntimeError(f"phase 21 {tag}: {bad} of {TFHE_BATCH} "
+                               "bootstrapped messages differ")
+        # the phase's distance from each message's encoding, against half a
+        # message window (2^63 / t)
+        dist = int((phase21 - tlwe.encode(tp21, msgs21)).abs().max())
+        say(f"verify: slice 13 ({tag}) bootstrap_short ({P21_N_LWE} CMux "
+            f"steps) at {shape21}: decode(decrypt) == m for all {TFHE_BATCH} "
+            f"messages; the largest phase error 2^{np.log2(dist):.2f} = "
+            f"{dist / 2.0 ** (63 - (t21.bit_length() - 1)):.3f} of half a "
+            f"message window")
+        sbtk21, sev21, c21, sflat21 = (st21[k] for k in ("sbtk", "sevals",
+                                                         "c", "s_flat"))
+        c_short = tlwe.key_switch(tp21.lwe(), TFHE_BETA_KS, TFHE_L_KS,
+                                  tlwe.KSK(sbtk21.ksk_a, sbtk21.ksk_b), c21)
+        _cuda.reset_launches()
+        fused21 = bootstrap.blind_rotation(tp21, sbtk21, table21, c_short,
+                                           beta21, l21, btk_evals=sev21)
+        torch.cuda.synchronize()
+        by_layout = dict(_cuda.BLIND_ROTATE.by_layout)
+        stepwise21 = bootstrap.blind_rotation(tp21, sbtk21, table21, c_short,
+                                              beta21, l21, btk_evals=sev21,
+                                              fused=False)
+        if not (torch.equal(fused21.a, stepwise21.a)
+                and torch.equal(fused21.b, stepwise21.b)):
+            raise RuntimeError(f"phase 21 {tag}: blind_rotate kernel != the "
+                               "step-by-step chain")
+        if by_layout != {"cluster": 0, "device": 1}:
+            raise RuntimeError(f"phase 21 {tag}: K10 launches by layout "
+                               f"{by_layout}")
+        say(f"verify: slice 13 ({tag}) blind_rotate (one launch, layout "
+            f"{by_layout}) == {P21_N_LWE} steps of cmux_evals (torch.equal) "
+            f"on the {TFHE_BATCH} ciphertexts")
+        del fused21, stepwise21
+
+        def step21(c, fused=None):
+            return bootstrap.bootstrap_short(tp21, sbtk21, table21, c,
+                                             btk_evals=sev21, fused=fused,
+                                             **kw21)
+
+        per_op = per_op_launches(lambda: step21(c21))
+        if per_op.get("blind_rotate") != 1 or \
+                _cuda.BLIND_ROTATE.by_layout["device"] != 1:
+            raise RuntimeError(f"phase 21 {tag}: launches {per_op}, not one "
+                               "blind_rotate (device layout) a bootstrap")
+        def chain21():
+            c = c21
+            for _ in range(TFHE_CHAIN):
+                c = step21(c)
+            return c
+
+        last = chain21()                                   # and warm up
+        if not torch.equal(tlwe.decode(tp21, tlwe.decrypt(
+                tp21.lwe(), sflat21, last)), msgs21):
+            raise RuntimeError(f"phase 21 {tag}: the chain of {TFHE_CHAIN} "
+                               "bootstraps lost a message")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        runs = [time_ms(chain21, 1, warmup=0) for _ in range(3)]
+        peak = torch.cuda.max_memory_allocated()
+        best = min(runs)
+        step_ms = time_ms(lambda: step21(c21, fused=False), 1, warmup=0)
+        say(f"timing: slice 13 ({tag}) chain of {TFHE_CHAIN} bootstrap_short "
+            f"at {shape21}: runs {[round(r, 3) for r in runs]} ms, best "
+            f"{best:.3f} ms = {best / TFHE_CHAIN:.3f} ms a batch = "
+            f"{TFHE_BATCH * TFHE_CHAIN / (best / 1e3):.1f} bootstraps/s; the "
+            f"step-by-step chain (fused=False), one bootstrap_short: "
+            f"{step_ms:.3f} ms = {TFHE_BATCH / (step_ms / 1e3):.1f} "
+            f"bootstraps/s ({step_ms / (best / TFHE_CHAIN):.1f}x); peak device "
+            f"memory {peak / 2**30:.2f} GiB with the keys resident "
+            f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB held); "
+            f"launches a bootstrap {per_op} [{card}]")
+        p21_cases.append((tag, kernel_check.blind_rotate_case(
+            n21, TFHE_K, beta21, l21, P21_N_LWE, TFHE_BATCH, dev, gen)))
+        del st21, sbtk21, sev21, c21, c_short, chain21, last, phase21
+        torch.cuda.empty_cache()
+    # K10 on the device alone beside its bound (every input read once, the
+    # output written once) and, for the device-memory layout, the bound of
+    # its own traffic a step (kernel_check.cmux_step_bytes); at N = 1024
+    # (phase 9's shape, over phase 8's 700 steps) in both layouts
+    gen = prng.Gen(SEED + 60)
+    args1024 = kernel_check.blind_rotate_inputs(
+        TFHE_N, TFHE_K, TFHE_BETA, TFHE_L, TFHE_N_LWE, TFHE_BATCH, dev, gen)
+    for layout in ("cluster", "device"):
+        p21_cases.append((f"N={TFHE_N}", kernel_check.blind_rotate_case(
+            TFHE_N, TFHE_K, TFHE_BETA, TFHE_L, TFHE_N_LWE, TFHE_BATCH, dev,
+            gen, layout=layout, args=args1024)))
+    for tag, case in p21_cases:
+        time_case(case)
+        k_ms = case_ms[case.label]
+        b = bound(case.bytes, case.ops)
+        n21, l21 = case.args[-2], case.args[2].shape[2]
+        own = (P21_N_LWE * sum(kernel_check.cmux_step_bytes(
+            n21, TFHE_K + 1, l21, TFHE_BATCH).values())
+            if case.layout == "device" else case.bytes)
+        bo = bound(own, case.ops)
+        on_path = ("1 a bootstrap (phase 21)" if not tag.startswith("N=")
+                   else "1 a bootstrap (phases 7-9)"
+                   if case.layout == "cluster" else "0 (forced here)")
+        say(f"timing: slice 13 ({tag}) K10 {case.layout} layout, "
+            f"{case.label}: device {k_ms:.3f} ms, bound {b.ms:.3f} ms by "
+            f"{b.term}, {b.ms / k_ms:.3f} of it; its own traffic "
+            f"{own / 1e9:.3f} GB, bound {bo.ms:.3f} ms by {bo.term}, "
+            f"{bo.ms / k_ms:.3f} of it; {k_ms / P21_N_LWE * 1e3:.2f} us a "
+            f"step; launches on the path: {on_path} [{card}]")
+    del p21_cases, case, args1024
+    torch.cuda.empty_cache()
+    phase_done(f"21 (slice 13: bootstrap_short at N=4096 and N=2^15 through "
+               f"K10's device-memory layout) [{card}]")
+
+    # (phase 17's ranks report K10's launches, not its layouts: they run it
+    # at N = 1024, on clusters)
+    launches = {r: sum(c.get(r, 0) for c in path_launches.values())
+                for r in record_rows}
+    # K10's row counts its cluster layout; its launches in all layouts are
+    # the counter's
+    launches["blind_rotate"] -= launches[DM_ROW]
     never = [k for k, v in launches.items() if v == 0]
     if never:
         raise RuntimeError(f"kernels launched on no path: {never}")
@@ -2864,18 +3079,22 @@ def main() -> None:
         f"B={TFHE_BATCH} at n={TFHE_N}; B={CK_BATCH} at n={CK_N}) included: "
         f"{checked}")
 
+    kernel_of = {k.name: k for k in _cuda.KERNELS}
+    kernel_of[DM_ROW] = _cuda.BLIND_ROTATE
     record = {"kernels": [
-        {"name": k.name, "route": "cuda", "source": k.source,
-         "replaces": k.replaces, "launches": launches[k.name],
-         "max_abs_err": err[k.name], "ms": ms[k.name],
-         "plain_ms": plain_ms[k.name], "bound_ms": bound_ms[k.name],
-         "bound_by": ("operations" if op_ms[k.name] >= byte_ms[k.name]
-                      else "bytes"),
+        {"name": r, "route": "cuda",
+         "source": (kernel_of[r].layouts["device" if r == DM_ROW else
+                                         "cluster"]
+                    if kernel_of[r].layouts else kernel_of[r].source),
+         "replaces": kernel_of[r].replaces, "launches": launches[r],
+         "max_abs_err": err[r], "ms": ms[r],
+         "plain_ms": plain_ms[r], "bound_ms": bound_ms[r],
+         "bound_by": ("operations" if op_ms[r] >= byte_ms[r] else "bytes"),
          # no PyTorch call computes a modular NTT, an RNS base conversion,
          # a gadget contraction or a chain of CMux steps; the measuring
          # loops iterate one operation in registers or shared memory, which
          # no tensor call does
-         "library_ms": None} for k in _cuda.KERNELS]}
+         "library_ms": None} for r in record_rows]}
     say(json.dumps(record))
     say(f"wall: {time.perf_counter() - wall0:.1f} s in all")
     say(name_limit)

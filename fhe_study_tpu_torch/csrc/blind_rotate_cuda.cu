@@ -11,6 +11,11 @@
 // mod 2^64 and the wrapping add — every value equal to the step-by-step
 // chain (models/tfhe/tggsw.py::cmux_evals).
 //
+// This file holds K10's cluster layout, which keeps a ciphertext's working
+// set in shared memory; ops/blind_rotate_cuda.py::_plan takes it wherever
+// that fits (br_smem_bytes) and the device-memory layout of
+// csrc/blind_rotate_dm_cuda.cu elsewhere, through the one entry below.
+//
 // Layout: one cluster of two blocks per ciphertext, one CRT prime per block
 // (the block's rank in the cluster picks the prime, its root tables and its
 // key planes), so a batch of 64 fills 128 SMs.  Each block keeps its own copy
@@ -81,6 +86,9 @@ constexpr int kBrThreads = 256;
 constexpr int kBrCluster = 2;
 constexpr int kBrBarrierBytes = 32;        // three mbarriers, padded
 constexpr int kCrtWords = 8;               // CRT words a thread takes at once
+// The largest log n at which a ciphertext's working set fits a block
+// (br_smem_bytes at C = 1); past it the plan takes the device-memory layout.
+constexpr int kBrMaxLogN = 12;
 
 // Shared-memory bytes of a block: the mbarriers, the accumulator, the digit
 // evaluations, the 2C columns, two exchange buffers of 2C columns (the
@@ -487,31 +495,67 @@ struct BlindRotateLaunch {
   }
 };
 
+// BlindRotateLaunch at the degrees whose working set can fit a block: no
+// instance past 2^kBrMaxLogN is built.
+struct ClusterDegrees {
+  template <int LOGN, typename... Args>
+  static int run(Args... args) {
+    if constexpr (LOGN <= kBrMaxLogN) {
+      return BlindRotateLaunch::run<LOGN>(args...);
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+};
+
 }  // namespace
 }  // namespace fhe
 
 using namespace fhe;
 
-// threads, smem and staged: the host's plan (ops/blind_rotate_cuda.py::
-// _plan), which must be this build's.  staged: the key planes are copied
-// into shared memory by bulk copies (ev1, ev1s, ev2, ev2s 16-byte aligned);
-// otherwise the contraction reads them from device memory, as 16-byte words
-// where they are aligned.
+namespace fhe {
+// K10's device-memory layout (csrc/blind_rotate_dm_cuda.cu).
+int blind_rotate_dm(const int* shifts, const unsigned long long* acc0,
+                    const uint32_t* ev1, const uint32_t* ev1s,
+                    const uint32_t* ev2, const uint32_t* ev2s,
+                    unsigned long long* out, uint32_t* dig,
+                    const uint32_t* tw, const uint32_t* tw_sh,
+                    const uint32_t* twinv, const uint32_t* twinv_sh,
+                    const uint32_t* cons, int steps, int B, int C, int l,
+                    int w, int logn, int threads, int smem, int vec,
+                    cudaStream_t stream);
+}  // namespace fhe
+
+// threads, smem, staged and layout: the host's plan (ops/blind_rotate_cuda.py
+// ::_plan), which must be this build's.  layout 0: the two-block clusters of
+// this file, one a ciphertext, n = 2^7 .. 2^14; staged: the key planes are
+// copied into shared memory by bulk copies (ev1, ev1s, ev2, ev2s 16-byte
+// aligned); otherwise the contraction reads them from device memory, as
+// 16-byte words where they are aligned.  layout 1: the working set in device
+// memory (csrc/blind_rotate_dm_cuda.cu), n = 2^7 .. 2^15, scratch the digit
+// evaluations [B, 2, C*l, n]; staged must be 0.
 extern "C" int fhe_blind_rotate(
     const int* shifts, const unsigned long long* acc0, const uint32_t* ev1,
     const uint32_t* ev1s, const uint32_t* ev2, const uint32_t* ev2s,
     unsigned long long* out, const uint32_t* tw, const uint32_t* tw_sh,
     const uint32_t* twinv, const uint32_t* twinv_sh, const uint32_t* cons,
-    int steps, int B, int C, int l, int w, int logn, int threads, int smem,
-    int staged, cudaStream_t stream) {
+    uint32_t* scratch, int steps, int B, int C, int l, int w, int logn,
+    int threads, int smem, int staged, int layout, cudaStream_t stream) {
   const bool aligned = !(misaligned(ev1) || misaligned(ev1s) ||
                          misaligned(ev2) || misaligned(ev2s));
-  if (steps < 1 || B < 1 || B > (1 << 30) || C < 2 || l < 1 || w < 1 ||
-      w > 31 || w * l > 64 || (staged && !aligned)) {
+  if (steps < 1 || B < 1 || B > (1 << 30) || C < 1 || l < 1 || w < 1 ||
+      w > 31 || w * l > 64 || (staged && !aligned) ||
+      (layout != 0 && (layout != 1 || staged))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return by_logn<BlindRotateLaunch>(logn, threads, smem, staged, B, stream,
-                                    shifts, acc0, ev1, ev1s, ev2, ev2s, out,
-                                    tw, tw_sh, twinv, twinv_sh, cons, steps, C,
-                                    l, w, aligned ? 1 : 0);
+  if (layout == 1) {
+    return blind_rotate_dm(shifts, acc0, ev1, ev1s, ev2, ev2s, out, scratch,
+                           tw, tw_sh, twinv, twinv_sh, cons, steps, B, C, l,
+                           w, logn, threads, smem, aligned ? 1 : 0, stream);
+  }
+  if (logn > kBrMaxLogN) return static_cast<int>(cudaErrorInvalidValue);
+  return by_logn<ClusterDegrees>(logn, threads, smem, staged, B, stream,
+                                 shifts, acc0, ev1, ev1s, ev2, ev2s, out, tw,
+                                 tw_sh, twinv, twinv_sh, cons, steps, C, l, w,
+                                 aligned ? 1 : 0);
 }

@@ -1,0 +1,326 @@
+// K10's second layout: the whole TFHE blind rotation with its working set in
+// device memory — replaces, with csrc/blind_rotate_cuda.cu, fhe_study_tpu/
+// ops/blind_rotate_pallas.py::blind_rotate_fused at the shapes whose working
+// set does not fit one block's shared memory (ops/blind_rotate_cuda.py::
+// _plan picks the layout from C, l and n alone): every n from 2^12 at C = 2,
+// larger l or C below, and n = 2^15.
+//
+//   acc <- acc + BSK_j [x] (acc * X^-h_j - acc)      for j = 0 .. steps-1
+//
+// computed exactly as the cluster layout and the step-by-step chain
+// (models/tfhe/tggsw.py::cmux_evals) compute it: negacyclic rotation by h_j
+// in [0, 2N), wrapping 64-bit subtract, base-2^w digits MSB-first (the top
+// w * l bits, as arith/tn.py::decompose_base_pow2), forward NTTs of the C*l
+// digit polynomials under both CRT primes, the Shoup contraction against the
+// step's eval-domain key planes, 2C inverse NTTs per prime with n^-1 in the
+// last pass, the exact centred CRT lift mod p_0 p_1, the two 32-bit key limbs
+// recombined mod 2^64 and the wrapping add.
+//
+// State in device memory: the accumulator [B, C, n] of 64-bit words (the
+// output tensor, a copy of acc0 first) and a scratch of digit evaluations
+// [B, 2, C*l, n] of 32-bit words that the wrapper allocates.  A step is two
+// launches on the caller's stream, which orders them:
+//
+//   forward  one block per (ciphertext, digit polynomial, prime), 2 B C l
+//            blocks at radix_chain.cuh's one-buffer shape (OneBuffer: 256
+//            threads below 2^15, 512 and 128 KB at 2^15, as K1): the first
+//            pass forms its 16 words from the rotated accumulator in device
+//            memory (lanes on consecutive words), the chain runs in shared
+//            memory, and the evaluations leave in coalesced 16-byte stores
+//            to the scratch row;
+//   inverse  one cluster of two blocks per (ciphertext, output column), one
+//            CRT prime a block, 4 B C blocks: the contraction in the first
+//            inverse pass's registers from the scratch rows of the block's
+//            prime and the step's key planes (16-byte reads where aligned),
+//            the inverse chain, n^-1 in the last pass; then, after a cluster
+//            barrier, block r lifts the elements of half r of the column from
+//            its own words and the peer's (distributed shared memory), and
+//            adds the lifted limb, shifted to its place, into the accumulator
+//            by a 64-bit atomic add (the two limb columns of a component add
+//            into the same words: addition mod 2^64 is exact in any order).
+//
+// The kernel boundaries order everything a step needs: the forward blocks of
+// step j read the accumulator that step j - 1's inverse blocks wrote, and the
+// inverse blocks of step j read the scratch that step j's forward blocks
+// wrote.  The whole chain is one call of the C entry (2 * steps launches
+// queued back to back; no grid-wide barrier, so no co-residency to size).
+//
+// What bounds it: the cluster layout's butterflies and Shoup products (about
+// 83 M counted instructions a step and ciphertext at N = 2^15, C = 2, l = 3:
+// utils/kernel_check.py::cmux_step_ops), the issue rate; its device-memory
+// traffic a step (utils/kernel_check.py::cmux_step_bytes: the scratch written
+// and read back, the accumulator read and added to, the key slice once, as
+// L2 serves it to the batch) stays under the issue time at every shape the
+// layout takes.
+
+#include <climits>
+#include <cstdint>
+
+#include "modarith.cuh"
+#include "radix_chain.cuh"
+
+namespace fhe {
+namespace {
+
+constexpr int kDmPrimes = 2;      // CRT primes: the inverse cluster's blocks
+// Inverse blocks an SM at most: the contraction beside the 16 words and the
+// CRT's 64-bit words take more than the 80 registers a thread that three
+// 256-thread blocks would leave (ptxas spilled at 2^13 and 2^14), so two,
+// with up to 128 (one 512-thread block at 2^15, as OneBuffer).
+constexpr int kDmInverseBlocks = 2;
+
+// Step j's forward blocks: block (b * F + f) * 2 + p takes digit polynomial
+// f = c * l + i of ciphertext b under prime p.  acc [B, C, n]; dig
+// [B, 2, F, n]; tw/tw_sh [2][n] forward root tables; cons as the cluster
+// layout's.
+template <int LOGN>
+__global__ void __launch_bounds__(OneBuffer<LOGN>::threads,
+                                  OneBuffer<LOGN>::blocks)
+    br_forward_kernel(const int* __restrict__ shifts,
+                      const unsigned long long* __restrict__ acc,
+                      uint32_t* __restrict__ dig,
+                      const uint32_t* __restrict__ tw,
+                      const uint32_t* __restrict__ tw_sh,
+                      const uint32_t* __restrict__ cons, int j, int B, int C,
+                      int l, int w) {
+  using S = typename OneBuffer<LOGN>::Shape;
+  constexpr int n = S::n;
+  constexpr int c0 = S::fwd_c(0);
+  extern __shared__ __align__(16) uint32_t a[];
+  const int F = C * l;
+  const int p = blockIdx.x & 1;
+  const int bf = blockIdx.x >> 1;            // b * F + f
+  const int b = bf / F;
+  const int f = bf - b * F;
+  const int cc = f / l;
+  const int shift = 64 - w * (f - cc * l + 1);
+  const uint32_t mask = (1u << w) - 1u;      // w <= 31
+  const PrimeRow pr = prime_row(cons, p);
+  const uint32_t* fw = tw + p * n;
+  const uint32_t* fwsh = tw_sh + p * n;
+  const int h = shifts[static_cast<size_t>(j) * B + b] & (2 * n - 1);
+  const unsigned long long* ac = acc + (static_cast<size_t>(b) * C + cc) * n;
+  // pass 0 from the rotated accumulator: virtual thread v holds elements
+  // v + (k << c0), digit i of acc * X^-h - acc (a digit < 2^w is canonical
+  // under either prime)
+#pragma unroll 1
+  for (int g = 0; g < S::groups; ++g) {
+    const int v = threadIdx.x + g * S::threads;   // radix_base(v, c0)
+    uint32_t x[kRadix];
+#pragma unroll
+    for (int k = 0; k < kRadix; ++k) {
+      const int e = v + (k << c0);
+      const int src = e + h;                 // in [0, 3n)
+      unsigned long long r = __ldg(ac + (src & (n - 1)));
+      if ((src >> LOGN) & 1) r = 0ull - r;
+      x[k] = static_cast<uint32_t>((r - __ldg(ac + e)) >> shift) & mask;
+    }
+    radix_pass<LOGN, 0, false>(x, v, fw, fwsh, pr.q);
+    radix_store<c0>(a, x, v);
+  }
+  __syncthreads();
+  RadixPasses<LOGN, 1, S::passes, false, S::threads>::run(
+      a, radix_opaque(fw), radix_opaque(fwsh), pr.q);
+  // the evaluations in natural order, lane i storing words 4i .. 4i + 3
+  uint4* row = reinterpret_cast<uint4*>(
+      dig + ((static_cast<size_t>(b) * kDmPrimes + p) * F + f) * n);
+  for (int i = threadIdx.x; i < n / 4; i += S::threads) {
+    const int sw = radix_swizzle(4 * i);
+    row[i] = make_uint4(a[sw], a[sw ^ 1], a[sw ^ 2], a[sw ^ 3]);
+  }
+}
+
+// Step j's inverse blocks, in clusters of two: cluster (b * 2C + o) takes
+// output column o = 2 c' + limb of ciphertext b, its block r the prime r.
+// ev1/ev2 (values) and ev1s/ev2s (Shoup companions) [steps, F, 2C, n]; acc
+// [B, C, n] accumulated in place; cons rows (q0, -, n^-1, sh), (q1, -, n^-1,
+// sh), (q1, -, q0^-1 mod q1, sh).
+template <int LOGN>
+__global__ void __launch_bounds__(OneBuffer<LOGN>::threads,
+                                  radix_min(OneBuffer<LOGN>::blocks,
+                                            kDmInverseBlocks))
+    br_inverse_kernel(const uint32_t* __restrict__ dig,
+                      const uint32_t* __restrict__ ev1,
+                      const uint32_t* __restrict__ ev1s,
+                      const uint32_t* __restrict__ ev2,
+                      const uint32_t* __restrict__ ev2s,
+                      unsigned long long* __restrict__ acc,
+                      const uint32_t* __restrict__ twinv,
+                      const uint32_t* __restrict__ twinv_sh,
+                      const uint32_t* __restrict__ cons, int j, int C, int l,
+                      int vec) {
+  using S = typename OneBuffer<LOGN>::Shape;
+  constexpr int n = S::n;
+  constexpr int last = S::passes - 1;
+  constexpr int cl = S::inv_c(last);
+  extern __shared__ __align__(16) uint32_t a[];
+  const int F = C * l;
+  const int cols = 2 * C;
+  const int rank = blockIdx.x & 1;           // the block's rank in its pair
+  const int bo = blockIdx.x >> 1;            // b * cols + o
+  const int b = bo / cols;
+  const int o = bo - b * cols;
+  const PrimeRow pr = prime_row(cons, rank);
+  const uint32_t q = pr.q;
+  const uint32_t* iw = twinv + rank * n;
+  const uint32_t* iwsh = twinv_sh + rank * n;
+  const size_t kj = static_cast<size_t>(j) * F * cols;
+  const uint32_t* kv = (rank ? ev2 : ev1) + ((kj + o) << LOGN);
+  const uint32_t* ks = (rank ? ev2s : ev1s) + ((kj + o) << LOGN);
+  const uint32_t* dr =
+      dig + (static_cast<size_t>(b) * kDmPrimes + rank) * F * n;
+  // the contraction in the first inverse pass's registers: virtual thread v
+  // holds the 16 contiguous words from 16 v of every row
+#pragma unroll 1
+  for (int g = 0; g < S::groups; ++g) {
+    const int base = (threadIdx.x + g * S::threads) << kRadixBits;
+    uint32_t x[kRadix];
+#pragma unroll
+    for (int k = 0; k < kRadix; ++k) x[k] = 0;
+#pragma unroll 1
+    for (int ri = 0; ri < F; ++ri) {
+      const uint32_t* d = dr + (static_cast<size_t>(ri) << LOGN) + base;
+      const size_t at = (static_cast<size_t>(ri) * cols << LOGN) + base;
+#pragma unroll
+      for (int u = 0; u < kRadix; u += 4) {
+        uint32_t D[4], K[4], KS[4];
+        operand_words(D, d + u, true);
+        operand_words(K, kv + at + u, vec != 0);
+        operand_words(KS, ks + at + u, vec != 0);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          x[u + i] = addmod(x[u + i], shoup_mul(D[i], K[i], KS[i], q), q);
+        }
+      }
+    }
+    radix_pass<LOGN, 0, true>(x, base, radix_opaque(iw), radix_opaque(iwsh),
+                              q);
+    radix_store<0>(a, x, base);
+  }
+  __syncthreads();
+  RadixPasses<LOGN, 1, last, true, S::threads>::run(a, iw, iwsh, q);
+#pragma unroll 1
+  for (int g = 0; g < S::groups; ++g) {
+    const int base = radix_base(threadIdx.x + g * S::threads, cl);
+    uint32_t x[kRadix];
+    radix_load<cl>(x, a, base);
+    radix_pass<LOGN, last, true>(x, base, iw, iwsh, q);
+#pragma unroll
+    for (int k = 0; k < kRadix; ++k) {
+      x[k] = shoup_mul(x[k], pr.fin, pr.fin_sh, q);
+    }
+    radix_store<cl>(a, x, base);
+  }
+  // both primes' columns are complete and visible to the pair
+  cluster_sync();
+  const uint32_t peer = cluster_addr(a, rank ^ 1);
+  const PrimeRow c0r = prime_row(cons, 0);
+  const PrimeRow c1r = prime_row(cons, 1);
+  const PrimeRow crt = prime_row(cons, 2);
+  const uint32_t q0 = c0r.q, q1 = c1r.q;
+  const unsigned long long m12 = static_cast<unsigned long long>(q0) * q1;
+  const unsigned long long half12 = m12 >> 1;
+  const int limb = o & 1;
+  unsigned long long* ac = acc + (static_cast<size_t>(b) * C + (o >> 1)) * n;
+  // exact CRT lift of (r_0, r_1) to the centred integer, shifted to its
+  // limb, added mod 2^64; block r takes elements r n/2 .. (r + 1) n/2 - 1
+#pragma unroll 1
+  for (int i = rank * (n / 2) + threadIdx.x; i < (rank + 1) * (n / 2);
+       i += S::threads) {
+    const int sw = radix_swizzle(i);
+    const uint32_t own = a[sw];
+    const uint32_t other = cluster_load(peer + 4u * sw);
+    const uint32_t r0 = rank ? other : own;
+    const uint32_t r1 = rank ? own : other;
+    const uint32_t rp = r0 >= q1 ? r0 - q1 : r0;    // q0 < 2 * q1
+    const uint32_t dm =
+        shoup_mul(submod(r1, rp, q1), crt.fin, crt.fin_sh, q1);
+    unsigned long long gv = r0 + static_cast<unsigned long long>(q0) * dm;
+    if (gv > half12) gv -= m12;
+    atomicAdd(ac + i, gv << (32 * limb));
+  }
+  // the peer has read this block's words before either block exits
+  cluster_sync();
+}
+
+struct BlindRotateDmLaunch {
+  template <int LOGN>
+  static int run(int threads, int smem, int B, cudaStream_t stream,
+                 const int* shifts, const unsigned long long* acc0,
+                 const uint32_t* ev1, const uint32_t* ev1s,
+                 const uint32_t* ev2, const uint32_t* ev2s,
+                 unsigned long long* out, uint32_t* dig, const uint32_t* tw,
+                 const uint32_t* tw_sh, const uint32_t* twinv,
+                 const uint32_t* twinv_sh, const uint32_t* cons, int steps,
+                 int C, int l, int w, int vec) {
+    using S = typename OneBuffer<LOGN>::Shape;
+    if (threads != S::threads ||
+        smem != S::n * static_cast<int>(sizeof(uint32_t))) {
+      return static_cast<int>(cudaErrorInvalidConfiguration);
+    }
+    const long long fwd_blocks = 2LL * B * C * l;
+    const long long inv_blocks = 4LL * B * C;
+    if (fwd_blocks > INT_MAX || inv_blocks > INT_MAX) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    auto fwd = &br_forward_kernel<LOGN>;
+    auto inv = &br_inverse_kernel<LOGN>;
+    cudaError_t err = allow_smem(fwd, smem);
+    if (err == cudaSuccess) err = allow_smem(inv, smem);
+    if (err == cudaSuccess) {
+      err = cudaMemcpyAsync(out, acc0,
+                            sizeof(unsigned long long) * B * C * S::n,
+                            cudaMemcpyDeviceToDevice, stream);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(static_cast<unsigned>(inv_blocks));
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = kDmPrimes;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+#pragma unroll 1
+    for (int j = 0; j < steps; ++j) {
+      fwd<<<static_cast<unsigned>(fwd_blocks), threads, smem, stream>>>(
+          shifts, out, dig, tw, tw_sh, cons, j, B, C, l, w);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+      err = cudaLaunchKernelEx(&cfg, inv, dig, ev1, ev1s, ev2, ev2s, out,
+                               twinv, twinv_sh, cons, j, C, l, vec);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+}  // namespace
+
+// The device-memory layout of K10, called by fhe_blind_rotate
+// (csrc/blind_rotate_cuda.cu) for the plan's layout 1: threads and smem the
+// one-buffer shape of 2^logn (ops/blind_rotate_cuda.py::_plan), dig the
+// scratch of [B, 2, C*l, n] words (16-byte aligned), vec the key planes'
+// 16-byte alignment.
+int blind_rotate_dm(const int* shifts, const unsigned long long* acc0,
+                    const uint32_t* ev1, const uint32_t* ev1s,
+                    const uint32_t* ev2, const uint32_t* ev2s,
+                    unsigned long long* out, uint32_t* dig,
+                    const uint32_t* tw, const uint32_t* tw_sh,
+                    const uint32_t* twinv, const uint32_t* twinv_sh,
+                    const uint32_t* cons, int steps, int B, int C, int l,
+                    int w, int logn, int threads, int smem, int vec,
+                    cudaStream_t stream) {
+  if (dig == nullptr || misaligned(dig)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return by_logn_wide<BlindRotateDmLaunch>(
+      logn, threads, smem, B, stream, shifts, acc0, ev1, ev1s, ev2, ev2s, out,
+      dig, tw, tw_sh, twinv, twinv_sh, cons, steps, C, l, w, vec);
+}
+
+}  // namespace fhe

@@ -65,8 +65,9 @@ constexpr int kRadixBlocks = 3;
 // playing 4 virtual threads with up to 128 registers, so that the SM keeps
 // 16 warps in flight where kRadixThreads would leave it 8 (OneBuffer).  The
 // kernels with three buffers (K6, K7, K8: 384 KB at 2^15) take 2^15 on a
-// cluster of two blocks, each holding one half of every buffer (Split); K10
-// stops at 2^14 (by_logn).  Every kernel starts at 2^7.
+// cluster of two blocks, each holding one half of every buffer (Split); K10's
+// cluster layout stops at 2^14 (by_logn), its device-memory layout runs the
+// one-buffer shape up to 2^15.  Every kernel starts at 2^7.
 constexpr int kWideLogN = 15;
 constexpr int kWideThreads = 512;
 
@@ -465,10 +466,10 @@ int one_buffer_launch(Kernel kernel, int threads, int smem, int blocks,
 }
 
 // F::run<logn>(args...) for the ring degrees that every radix-chain kernel
-// takes, 2^7 .. 2^14 (K10's).  At 2^7, the least degree of the reference's
-// Pallas kernels, a polynomial is 8 virtual threads: a block of 8 threads
-// (a quarter of a warp), one group, two passes of 4 and 3 stages, and no
-// split (Split<7>::on is false).
+// takes, 2^7 .. 2^14 (K10's cluster layout).  At 2^7, the least degree of
+// the reference's Pallas kernels, a polynomial is 8 virtual threads: a
+// block of 8 threads (a quarter of a warp), one group, two passes of 4 and
+// 3 stages, and no split (Split<7>::on is false).
 template <typename F, typename... Args>
 int by_logn(int logn, Args... args) {
   switch (logn) {

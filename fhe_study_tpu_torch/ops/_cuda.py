@@ -119,6 +119,21 @@ def build_log() -> str:
     return (build_dir() / "build.log").read_text()
 
 
+def build_seconds(log: str) -> dict:
+    """The seconds of each command of a build log, by the file it compiles
+    (its last argument) or "link"."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.fullmatch(r"-- ([0-9.]+) s", line)
+        if m and name is not None:
+            out[name] = float(m.group(1))
+            name = None
+        elif " -o " in line and line.split()[0].endswith("nvcc"):
+            name = ("link" if " -shared" in line
+                    else line.split()[-1].rsplit("/", 1)[-1])
+    return out
+
+
 def ptxas_report(log: str) -> list:
     """Per entry function of a build log, in order: its mangled ``name``,
     ``kernel`` (the name with its integer template arguments, as
@@ -177,10 +192,11 @@ I64 = ctypes.c_longlong
 # stages), the least degree of the reference's Pallas kernels; the kernels
 # that hold one polynomial in shared memory, and those that hold three (K6,
 # K7, K8: at 2^15 on two-block clusters, one half a block), reach 2^15
-# (csrc/radix_chain.cuh, by_logn_wide); K10's clusters stop at 2^14
-# (by_logn).
+# (csrc/radix_chain.cuh, by_logn_wide); so does K10, on its two-block
+# clusters up to 2^12 and with its working set in device memory beyond a
+# block (ops/blind_rotate_cuda.py::_plan).
 RADIX_LOGN = (7, 15)
-BLIND_ROTATE_LOGN = (7, 14)
+BLIND_ROTATE_LOGN = (7, 15)
 
 
 class Kernel:
@@ -190,10 +206,13 @@ class Kernel:
     ``source`` is the CUDA file and ``replaces`` the TPU kernel it ports
     (file:line of the function that reaches ``pl.pallas_call``).  ``logn``
     is the range of ring degrees it takes (``log2_degree``), None for a
-    kernel without one."""
+    kernel without one.  A kernel with several layouts (K10) names them in
+    ``layouts`` (layout -> its source); ``by_layout`` counts the launches of
+    each, and ``launches`` all of them."""
 
     def __init__(self, name: str, symbol: str, source: str, replaces: str,
-                 *argtypes, logn: tuple | None = None):
+                 *argtypes, logn: tuple | None = None,
+                 layouts: dict | None = None):
         self.name = name
         self.symbol = symbol
         self.source = source
@@ -201,6 +220,8 @@ class Kernel:
         self.argtypes = [*argtypes, PTR]          # + the CUDA stream
         self.logn = logn
         self.launches = 0
+        self.layouts = layouts or {}
+        self.by_layout = dict.fromkeys(self.layouts, 0)
         self._fn = None
 
     @property
@@ -208,7 +229,12 @@ class Kernel:
         """The log2 n this kernel takes, in order."""
         return range(self.logn[0], self.logn[1] + 1)
 
-    def launch(self, device: torch.device, *args) -> None:
+    def launch(self, device: torch.device, *args,
+               layout: str | None = None) -> None:
+        if (layout is None) != (not self.layouts) or (
+                layout is not None and layout not in self.layouts):
+            raise ValueError(f"{self.name}: layout {layout!r}, expected one "
+                             f"of {list(self.layouts)}")
         if self._fn is None:
             fn = getattr(library(), self.symbol)
             fn.argtypes = self.argtypes
@@ -221,6 +247,8 @@ class Kernel:
             msg = library().fhe_error_string(err).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {err}: {msg}")
         self.launches += 1
+        if layout is not None:
+            self.by_layout[layout] += 1
 
 
 _NTT_CU = "fhe_study_tpu_torch/csrc/ntt_cuda.cu"
@@ -271,10 +299,12 @@ KS_FUSED_EVAL = Kernel("ks_fused_eval", "fhe_ks_fused_eval",
 NTT = Kernel("ntt", "fhe_ntt", "fhe_study_tpu_torch/csrc/ntt_multi_cuda.cu",
              "fhe_study_tpu/ops/ntt_pallas.py:1296",
              PTR, PTR, PTR, PTR, PTR, *([INT] * 6), logn=RADIX_LOGN)
-BLIND_ROTATE = Kernel("blind_rotate", "fhe_blind_rotate",
-                      "fhe_study_tpu_torch/csrc/blind_rotate_cuda.cu",
+_BR_CU = "fhe_study_tpu_torch/csrc/blind_rotate_cuda.cu"
+BLIND_ROTATE = Kernel("blind_rotate", "fhe_blind_rotate", _BR_CU,
                       "fhe_study_tpu/ops/blind_rotate_pallas.py:392",
-                      *([PTR] * 12), *([INT] * 9), logn=BLIND_ROTATE_LOGN)
+                      *([PTR] * 13), *([INT] * 10), logn=BLIND_ROTATE_LOGN,
+                      layouts={"cluster": _BR_CU, "device": (
+                          "fhe_study_tpu_torch/csrc/blind_rotate_dm_cuda.cu")})
 BASE_EXTEND_SUM = Kernel("base_extend_sum", "fhe_base_extend_sum", _EXT_CU,
                          "fhe_study_tpu/ops/ext_pallas.py:207",
                          PTR, PTR, PTR, PTR, INT, INT, I64, INT)
@@ -294,6 +324,7 @@ KERNELS = (NTT_MULTI, TENSOR_EVAL4, KS_CONTRACT, BASE_EXTEND, EXT_NTT,
 def reset_launches() -> None:
     for k in KERNELS:
         k.launches = 0
+        k.by_layout = dict.fromkeys(k.layouts, 0)
 
 
 def launches() -> dict:

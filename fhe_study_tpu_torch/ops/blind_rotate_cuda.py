@@ -1,15 +1,19 @@
 """The whole TFHE blind rotation as one kernel — ``csrc/blind_rotate_cuda.cu``
-— with its launch wrapper and plain PyTorch version; the counterpart of
-fhe_study_tpu/ops/blind_rotate_pallas.py.
+and ``csrc/blind_rotate_dm_cuda.cu`` — with its launch wrapper and plain
+PyTorch version; the counterpart of fhe_study_tpu/ops/blind_rotate_pallas.py.
 
   K10 blind_rotate <- blind_rotate_pallas.blind_rotate_fused
 
     acc <- acc + BSK_j ⊠ (acc · X^{-h_j} - acc)      for every step j
 
 ``blind_rotate_fused`` dispatches by the device of its tensors: CUDA
-tensors launch the kernel (one launch for the whole chain), CPU tensors
+tensors launch the kernel (one call for the whole chain), CPU tensors
 walk the chain step by step in int64 torch (``blind_rotate_plain``, which
-also is what the kernel is held against on the card).
+also is what the kernel is held against on the card).  The kernel has two
+layouts, picked by ``_plan`` from (C, l, n) alone: two-block clusters that
+keep a ciphertext's working set in shared memory where it fits, and the
+working set in device memory (two launches a step) elsewhere, up to
+n = 2^15.
 """
 
 from functools import lru_cache
@@ -28,17 +32,27 @@ BR_THREADS = 256        # kBrThreads of csrc/blind_rotate_cuda.cu
 BR_CLUSTER = 2          # kBrCluster: one block per CRT prime
 _BARRIER_BYTES = 32     # kBrBarrierBytes: the mbarriers of the key copies
                         # and of the peer's columns
+# the ring degrees (log2 n) of the cluster layout's instances (kBrMaxLogN):
+# its working set fits a block up to 2^12 (at C = 1; C = 2 stops at 2^11)
+BR_CLUSTER_LOGN = (7, 12)
 
 
 class BlindRotatePlan(NamedTuple):
     logn: int
     threads: int        # a block
-    cluster: int        # blocks a ciphertext, one per CRT prime
+    cluster: int        # blocks a cluster, one per CRT prime
     staged: bool        # the step's key planes copied into shared memory
     smem_bytes: int     # a block's dynamic shared memory
-    forward_polys: int  # C*l digit polynomials side by side ...
+    forward_polys: int  # C*l digit polynomials ...
     inverse_polys: int  # ... and 2C contracted columns
     radix: ntt_cuda.RadixPlan   # the pass structure of one polynomial
+    layout: str = "cluster"     # "cluster": the working set in shared memory;
+                                # "device": in device memory
+    blocks: tuple = (2,)        # blocks a ciphertext, of each launch of a
+                                # chain ("cluster") or of a step ("device":
+                                # the forward launch, then the inverse one)
+    scratch_bytes: int = 0      # device memory a ciphertext: the digit
+                                # evaluations of a step, both primes
 
 
 def _smem(C: int, l: int, n: int, staged: bool) -> int:
@@ -51,23 +65,42 @@ def _smem(C: int, l: int, n: int, staged: bool) -> int:
 
 
 @lru_cache(maxsize=None)
-def _plan(C: int, l: int, n: int, aligned: bool = True) -> BlindRotatePlan:
-    """The kernel's launch at (C, l, n): the key planes are staged in shared
-    memory by bulk copies where they fit beside the working set and the
-    planes are 16-byte aligned, and read from device memory otherwise.  The
-    wrapper hands the kernel ``threads``, ``smem_bytes`` and ``staged``,
-    which it checks against its own."""
+def _plan(C: int, l: int, n: int, aligned: bool = True,
+          layout: str | None = None) -> BlindRotatePlan:
+    """The kernel's launch at (C, l, n), its layout fixed by the shape: the
+    two-block clusters of csrc/blind_rotate_cuda.cu where a ciphertext's
+    working set fits one block's shared memory (``_smem``), with the key
+    planes staged by bulk copies where they fit beside it and the planes
+    are 16-byte aligned, read from device memory otherwise; elsewhere the
+    working set in device memory (csrc/blind_rotate_dm_cuda.cu): a forward
+    block per (digit polynomial, prime) and a cluster of two inverse blocks
+    per column, each on one polynomial at the one-buffer shape, with a
+    scratch of the step's digit evaluations.  The wrapper hands the kernel
+    ``threads``, ``smem_bytes``, ``staged`` and the layout, which it checks
+    against its own.  ``layout`` names one to measure it where the rule
+    takes the other (the device-memory layout runs at any shape)."""
     logn = n.bit_length() - 1
-    staged = aligned and _smem(C, l, n, True) <= _SMEM_LIMIT
-    return BlindRotatePlan(logn, BR_THREADS, BR_CLUSTER, staged,
-                           _smem(C, l, n, staged), C * l, 2 * C,
-                           ntt_cuda._radix_plan(logn, BR_THREADS))
+    fits = _smem(C, l, n, False) <= _SMEM_LIMIT
+    if layout not in (None, "cluster", "device") or (
+            layout == "cluster" and not fits):
+        raise ValueError(f"layout {layout!r} at C={C}, l={l}, n={n}")
+    if fits and layout != "device":
+        assert logn <= BR_CLUSTER_LOGN[1]
+        staged = aligned and _smem(C, l, n, True) <= _SMEM_LIMIT
+        return BlindRotatePlan(logn, BR_THREADS, BR_CLUSTER, staged,
+                               _smem(C, l, n, staged), C * l, 2 * C,
+                               ntt_cuda._radix_plan(logn, BR_THREADS))
+    radix = ntt_cuda._radix_plan(logn)
+    return BlindRotatePlan(logn, radix.threads, BR_CLUSTER, False,
+                           radix.smem_bytes, C * l, 2 * C, radix, "device",
+                           (2 * C * l, 2 * 2 * C), 2 * 4 * C * l * n)
 
 
 def supported(param, beta: int, l: int) -> bool:
     """Static conditions under which the fused chain applies: the
-    reference's, with the kernel's own range of ring degrees and its shared
-    memory in place of the TPU's lane count."""
+    reference's, with the kernel's own range of ring degrees (2^7 .. 2^15;
+    the reference's Pallas kernel also takes 2^16 .. 2^22) and digits of at
+    least one bit."""
     n = param.ring.n
     p1, p2 = ntt_mod.CRT_PRIMES_TFHE
     w = beta.bit_length() - 1
@@ -77,8 +110,7 @@ def supported(param, beta: int, l: int) -> bool:
             and beta <= min(p1, p2)
             and (param.k + 1) * l * n * beta < (1 << 26)
             # a primitive 2n-th root under both primes
-            and all((p - 1) % (2 * n) == 0 for p in (p1, p2))
-            and _plan(param.k + 1, l, n, False).smem_bytes <= _SMEM_LIMIT)
+            and all((p - 1) % (2 * n) == 0 for p in (p1, p2)))
 
 
 def _check_shapes(shifts, acc0, ev1, ev1s, ev2, ev2s, n: int, w: int):
@@ -120,11 +152,14 @@ def blind_rotate_plain(shifts, acc0, ev1, ev1s, ev2, ev2s, n: int, w: int):
     return acc
 
 
-def blind_rotate_kernel(shifts, acc0, ev1, ev1s, ev2, ev2s, n: int, w: int):
-    """K10: one cluster of two blocks per ciphertext (one CRT prime each),
-    the whole chain in one launch.  shifts int32 [steps, B] in [0, 2n); acc0
-    int64 [B, C, n]; ev1, ev1s, ev2, ev2s int32 [steps, C, l, C, 2, n].
-    Returns int64 [B, C, n]."""
+def blind_rotate_kernel(shifts, acc0, ev1, ev1s, ev2, ev2s, n: int, w: int,
+                        layout: str | None = None):
+    """K10: the whole chain in one call, in the layout of ``_plan``: one
+    cluster of two blocks per ciphertext (one CRT prime each) for the whole
+    chain, or two launches a step over a working set in device memory.
+    shifts int32 [steps, B] in [0, 2n); acc0 int64 [B, C, n]; ev1, ev1s,
+    ev2, ev2s int32 [steps, C, l, C, 2, n].  Returns int64 [B, C, n].
+    ``layout`` forces a layout, for measurement (``_plan``)."""
     dev = acc0.device
     _cuda.check(shifts, "shifts", dev)
     _cuda.check(acc0, "acc0", dev, dtype=torch.int64)
@@ -134,15 +169,14 @@ def blind_rotate_kernel(shifts, acc0, ev1, ev1s, ev2, ev2s, n: int, w: int):
     steps, B, C, l = _check_shapes(shifts, acc0, ev1, ev1s, ev2, ev2s, n, w)
     logn = _cuda.log2_degree(n, _cuda.BLIND_ROTATE)
     plan = _plan(C, l, n, all(_cuda.aligned(e) for e in (ev1, ev1s, ev2,
-                                                          ev2s)))
-    if plan.smem_bytes > _SMEM_LIMIT:
-        raise ValueError(f"C={C}, l={l}, n={n} needs {plan.smem_bytes} "
-                         f"bytes of shared memory (limit {_SMEM_LIMIT})")
+                                                          ev2s)), layout)
     out = torch.empty_like(acc0)
     if B == 0:
         return out
     if steps == 0:
         return out.copy_(acc0)
+    scratch = (torch.empty(B * plan.scratch_bytes // 4, dtype=torch.int32,
+                           device=dev) if plan.scratch_bytes else None)
     p1, p2 = pq = ntt_mod.CRT_PRIMES_TFHE
     tw = ntt_cuda._twiddles(pq, n, False, dev)
     twinv = ntt_cuda._twiddles(pq, n, True, dev)
@@ -152,8 +186,10 @@ def blind_rotate_kernel(shifts, acc0, ev1, ev1s, ev2, ev2s, n: int, w: int):
         dev, shifts.data_ptr(), acc0.data_ptr(), ev1.data_ptr(),
         ev1s.data_ptr(), ev2.data_ptr(), ev2s.data_ptr(), out.data_ptr(),
         tw[0].data_ptr(), tw[1].data_ptr(), twinv[0].data_ptr(),
-        twinv[1].data_ptr(), cons.data_ptr(), steps, B, C, l, w, logn,
-        plan.threads, plan.smem_bytes, int(plan.staged))
+        twinv[1].data_ptr(), cons.data_ptr(),
+        scratch.data_ptr() if scratch is not None else None, steps, B, C, l,
+        w, logn, plan.threads, plan.smem_bytes, int(plan.staged),
+        int(plan.layout == "device"), layout=plan.layout)
     return out
 
 

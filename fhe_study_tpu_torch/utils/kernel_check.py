@@ -33,6 +33,7 @@ four; no kernel made of these primitives can beat it.
 
 import contextlib
 import math
+from functools import partial
 from typing import Callable, NamedTuple
 
 import torch
@@ -167,6 +168,8 @@ class Case(NamedTuple):
     butterflies: int = 0        # those of its stage chains, where it has any
     n: int = 0                  # the ring degree of those chains
     timed: bool = True          # False: kernel against kernel, only compared
+    layout: str = ""            # the kernel's layout, where it has several
+    args: tuple = ()            # its arguments, where a caller reads them
 
 
 def _butterflies(n: int, transforms: int) -> int:
@@ -698,6 +701,28 @@ def cmux_step_ops(n: int, C: int, l: int) -> dict:
     }
 
 
+def cmux_step_bytes(n: int, C: int, l: int, batch: int) -> dict:
+    """Device-memory bytes of ONE CMux step of K10's device-memory layout
+    on ``batch`` ciphertexts (the cluster layout keeps all but the key in
+    shared memory), by part, each at its least, L2 serving every re-read
+    within the step:
+
+      scratch  the digit evaluations [B, 2, C*l, n] of 32-bit words,
+               written by the forward blocks and read back once by the
+               inverse clusters (2C clusters read each row; L2 serves all
+               but the first);
+      acc      the 64-bit accumulator [B, C, n], read once by the forward
+               blocks and read and written once by the atomic adds of the
+               inverse clusters;
+      key      the step's slice, values and Shoup companions under both
+               primes, 4 planes of C*l*2C*n words, read once for the whole
+               batch.
+    """
+    return {"scratch": 2 * batch * 2 * C * l * n * 4,
+            "acc": 3 * batch * C * n * 8,
+            "key": 4 * C * l * 2 * C * n * 4}
+
+
 def _pair(name, label, nbytes, ops, kern, plain, *args, **kw) -> Case:
     return Case(name, label, lambda: kern(*args, **kw),
                 lambda: plain(*args, **kw), nbytes, ops)
@@ -763,65 +788,101 @@ def blind_rotate_inputs(n: int, k: int, beta: int, l: int, steps: int,
 
 
 def blind_rotate_case(n: int, k: int, beta: int, l: int, steps: int,
-                      batch: int, device, gen: prng.Gen) -> Case:
-    """The whole-chain blind rotation on blind_rotate_inputs."""
-    args = blind_rotate_inputs(n, k, beta, l, steps, batch, device, gen)
+                      batch: int, device, gen: prng.Gen,
+                      layout: str | None = None, args=None) -> Case:
+    """The whole-chain blind rotation on blind_rotate_inputs (or ``args``),
+    in the layout the plan takes, or in ``layout`` where given."""
+    if args is None:
+        args = blind_rotate_inputs(n, k, beta, l, steps, batch, device, gen)
     shifts, acc0, ev1 = args[:3]
+    layout = layout or brc._plan(k + 1, l, n).layout
     # the plain chain takes seconds at full width: timed once, no warm-up
     return _pair(
-        "blind_rotate", f"steps={steps} B={batch} n={n} beta={beta} l={l}",
+        "blind_rotate", f"steps={steps} B={batch} n={n} beta={beta} l={l} "
+        f"{layout}",
         4 * 4 * ev1.numel() + 2 * 8 * acc0.numel() + 4 * shifts.numel()
         + 4 * 4 * 2 * n,
         steps * batch * sum(cmux_step_ops(n, k + 1, l).values()),
-        brc.blind_rotate_kernel, brc.blind_rotate_plain, *args)._replace(
-            kernel_reps=3, plain_reps=1, plain_warmup=0)
+        partial(brc.blind_rotate_kernel, layout=layout),
+        brc.blind_rotate_plain, *args)._replace(
+            kernel_reps=3, plain_reps=1, plain_warmup=0, layout=layout,
+            args=args)
 
 
 BR_SWEEP_C = (2, 3)              # K10's component counts in the sweep,
 BR_SWEEP_L = (1, 2, 3)           # its gadget levels,
 BR_SWEEP_STEPS = (1, 2, 17)      # chain lengths
-BR_SWEEP_B = (1, 3, 64, 67, 133)  # and batches (67 and 133: more clusters
-                                 # than the card holds at once)
+BR_SWEEP_B = (1, 3, 64, 67, 133)  # and batches of the cluster layout (67 and
+                                 # 133: more clusters than the card holds at
+                                 # once); of the device-memory layout,
+BR_DM_SWEEP_B = (1, 3, 67)       # 67 left out at 2^14 and 2^15
+BR_DM_WIDE_LOGN = 14
+# shapes over a block's shared memory at small n: (log n, C, l, w)
+BR_DM_SMALL = ((11, 2, 7, 9), (9, 4, 32, 2))
+
+
+def gate_width(n: int, C: int, l: int) -> int:
+    """The widest digit the reference's gate takes at (n, C, l): the
+    largest w with C l n 2^w < 2^26 and w l <= 64 (at least 1)."""
+    w = 1
+    while C * l * n << (w + 1) < 1 << 26 and (w + 1) * l <= 64:
+        w += 1
+    return w
 
 
 def blind_rotate_sweep(device, gen: prng.Gen):
-    """K10 against its plain version (compared only, not timed) at every
-    ring degree its plan takes from 2^7, for each C in BR_SWEEP_C and l in
-    BR_SWEEP_L, over BR_SWEEP_STEPS steps on BR_SWEEP_B ciphertexts, on
-    random keys, shifts and accumulators (digits of w = 20, 12 or 21 bits);
-    and, at each shape, the key planes one word off their 16-byte alignment
-    (read from device memory word by word, not staged).  Yields the cases
-    one at a time, so that only one case's tensors live at once."""
-    for C in BR_SWEEP_C:
-        for l in BR_SWEEP_L:
-            w = {1: 20, 2: 12, 3: 21}[l]
-            for logn in _cuda.BLIND_ROTATE.degrees:
-                n = 1 << logn
-                plan = brc._plan(C, l, n, False)
-                if plan.smem_bytes > brc._SMEM_LIMIT:
-                    continue
-                staged = brc._plan(C, l, n).staged
-                for steps in BR_SWEEP_STEPS:
-                    for B in BR_SWEEP_B:
-                        (shifts, acc0, ev1, ev1s, ev2, ev2s, _,
-                         _) = blind_rotate_inputs(n, C - 1, 1 << w, l, steps,
-                                                  B, device, gen)
-                        label = (f"C={C} l={l} w={w} steps={steps} B={B} "
-                                 f"n={n} {'staged' if staged else 'direct'}")
-                        yield (_pair(
-                            "blind_rotate", label, 0, 0,
-                            brc.blind_rotate_kernel, brc.blind_rotate_plain,
-                            shifts, acc0, ev1, ev1s, ev2, ev2s, n,
-                            w)._replace(timed=False))
-                    if steps == 2:
-                        off = [_offset_word(e) for e in (ev1, ev1s, ev2, ev2s)]
-                        yield (_pair(
-                            "blind_rotate", f"C={C} l={l} w={w} steps={steps}"
-                            f" B=3 n={n}, key planes one word off",
-                            0, 0, brc.blind_rotate_kernel,
-                            brc.blind_rotate_plain, shifts[:, :3].contiguous(),
-                            acc0[:3].contiguous(), *off, n,
-                            w)._replace(timed=False))
+    """K10 against its plain version (compared only, not timed) in both
+    layouts: for each C in BR_SWEEP_C and l in BR_SWEEP_L at every ring
+    degree it takes, over BR_SWEEP_STEPS steps, on BR_SWEEP_B ciphertexts
+    where the plan takes the cluster layout (digits of w = 20, 12 or 21
+    bits) and on BR_DM_SWEEP_B (without 67 from 2^BR_DM_WIDE_LOGN) where it
+    takes the device-memory layout (the widest digit of the reference's
+    gate, ``gate_width``); then the device-memory layout at the small-n
+    shapes of BR_DM_SMALL, and one C = 1 shape in each layout; on random
+    keys, shifts and accumulators; and, at each shape, the key planes one
+    word off their 16-byte alignment (read from device memory word by word,
+    not staged).  Yields the cases one at a time, so that only one case's
+    tensors live at once."""
+    full = [(logn, C, l, None) for C in BR_SWEEP_C for l in BR_SWEEP_L
+            for logn in _cuda.BLIND_ROTATE.degrees]
+    extra = [*BR_DM_SMALL, (10, 1, 2, None), (15, 1, 2, None)]
+    for shape in full + extra:
+        logn, C, l, w = shape
+        n = 1 << logn
+        plan = brc._plan(C, l, n)
+        if plan.layout == "cluster":
+            w = w or {1: 20, 2: 12, 3: 21}[l]
+            batches = BR_SWEEP_B
+            kind = "staged" if plan.staged else "direct"
+        else:
+            w = w or gate_width(n, C, l)
+            batches = tuple(B for B in BR_DM_SWEEP_B
+                            if B != 67 or logn < BR_DM_WIDE_LOGN)
+            kind = "device"
+        # the extra shapes: two steps on three ciphertexts
+        runs = ([(2, 3)] if shape in extra else
+                [(steps, B) for steps in BR_SWEEP_STEPS for B in batches])
+        for steps, B in runs:
+            (shifts, acc0, ev1, ev1s, ev2, ev2s, _,
+             _) = blind_rotate_inputs(n, C - 1, 1 << w, l, steps, B, device,
+                                      gen)
+            yield (_pair(
+                "blind_rotate", f"C={C} l={l} w={w} steps={steps} B={B} "
+                f"n={n} {kind}", 0, 0, brc.blind_rotate_kernel,
+                brc.blind_rotate_plain, shifts, acc0, ev1, ev1s, ev2, ev2s,
+                n, w)._replace(timed=False, layout=plan.layout,
+                               args=(shifts, acc0, ev1, ev1s, ev2, ev2s, n,
+                                     w)))
+            if steps == 2 and B == 3:
+                off = [_offset_word(e) for e in (ev1, ev1s, ev2, ev2s)]
+                yield (_pair(
+                    "blind_rotate", f"C={C} l={l} w={w} steps=2 B=3 n={n} "
+                    f"{kind}, key planes one word off", 0, 0,
+                    brc.blind_rotate_kernel, brc.blind_rotate_plain,
+                    shifts[:, :3].contiguous(), acc0[:3].contiguous(), *off,
+                    n, w)._replace(timed=False, layout=plan.layout,
+                                   args=(shifts[:, :3], acc0[:3], *off, n,
+                                         w)))
 
 
 def tfhe_cases(n: int, k: int, beta: int, l: int, steps: int, batch: int,

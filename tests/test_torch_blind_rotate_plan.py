@@ -1,4 +1,4 @@
-"""The schedule of K10, the blind rotation on the card
+"""The schedule of K10's cluster layout, the blind rotation on the card
 (csrc/blind_rotate_cuda.cu, launched by ops/blind_rotate_cuda.py::_plan),
 emulated in int64 torch on the CPU and held against blind_rotate_plain bit
 for bit (tolerance 0): one "block" per CRT prime, each with its own copy of
@@ -10,7 +10,8 @@ pass's registers; n^-1 in the last inverse pass; the CRT from the two blocks'
 exchange buffers, as the kernel reads them.  Also: the plan's thread and
 virtual-thread maps cover every (polynomial, coefficient) once, a block fits
 the H100, and supported() accepts every shape the first version's shared
-memory rule accepted.
+memory rule accepted.  The device-memory layout has its own file,
+tests/test_torch_blind_rotate_dm.py.
 """
 
 from types import SimpleNamespace
@@ -30,6 +31,7 @@ from test_torch_radix_plan import _elements, _run_pass, _swizzle
 CPU = torch.device("cpu")
 P0, P1 = ntt_mod.CRT_PRIMES_TFHE
 SHAPES = [(C, l) for C in (2, 3) for l in (1, 2, 3)]
+CLUSTER_DEGREES = range(brc.BR_CLUSTER_LOGN[0], brc.BR_CLUSTER_LOGN[1] + 1)
 W = {1: 20, 2: 12, 3: 21}        # digit widths: l = 3 takes w * l = 63
 
 
@@ -194,11 +196,19 @@ def test_schedule_equals_plain(logn, C, l):
 def test_plan_maps_cover_every_word_once(logn, C, l):
     """Every pass loop of the plan reaches each (polynomial, coefficient)
     once; the contraction's virtual threads hold 16 contiguous words; the
-    CRT loop's C n words each once; the passes run every stage in order."""
+    CRT loop's C n words each once; the passes run every stage in order.
+    The device-memory layout runs the same maps on one polynomial a block
+    (its forward and inverse blocks), at the one-buffer block shape."""
     n = 1 << logn
     plan = brc._plan(C, l, n)
-    assert (plan.threads, plan.cluster) == (brc.BR_THREADS, 2)
-    assert plan.threads % 32 == 0 and plan.threads <= 1024
+    if plan.layout == "cluster":
+        assert (plan.threads, plan.cluster) == (brc.BR_THREADS, 2)
+        assert logn in CLUSTER_DEGREES
+    else:
+        assert (plan.threads, plan.cluster) == (nc._radix_plan(logn).threads,
+                                                2)
+        plan = plan._replace(forward_polys=1, inverse_polys=1)
+    assert plan.threads % 8 == 0 and plan.threads <= 1024
     rp = plan.radix
     assert [p.c + u for p in rp.forward for u in p.stages] == \
         list(range(logn - 1, -1, -1))
@@ -224,11 +234,19 @@ def test_plan_maps_cover_every_word_once(logn, C, l):
 
 @pytest.mark.parametrize("logn", _cuda.BLIND_ROTATE.degrees)
 def test_plan_fits_a_block_and_stages_the_bench_shape(logn):
+    """The cluster layout where a ciphertext's working set fits a block, its
+    key planes staged where they fit beside it; elsewhere the device-memory
+    layout, one polynomial a block."""
     n = 1 << logn
     for C in (2, 3, 4):
         for l in range(1, 7):
             staged, direct = brc._plan(C, l, n), brc._plan(C, l, n, False)
             assert not direct.staged
+            if brc._smem(C, l, n, False) > brc._SMEM_LIMIT:
+                assert staged == direct and direct.layout == "device"
+                assert direct.smem_bytes == 4 * n <= brc._SMEM_LIMIT
+                continue
+            assert direct.layout == staged.layout == "cluster"
             assert direct.smem_bytes == brc._smem(C, l, n, False)
             if staged.staged:
                 assert staged.smem_bytes <= brc._SMEM_LIMIT
@@ -275,7 +293,7 @@ def test_supported_accepts_every_shape_it_accepted_before():
     assert more > 0          # a block now holds one prime's buffers
 
 
-@pytest.mark.parametrize("logn", _cuda.BLIND_ROTATE.degrees)
+@pytest.mark.parametrize("logn", CLUSTER_DEGREES)
 def test_contraction_reads_hit_distinct_banks(logn):
     """Warp w of the contraction loop runs t = 32 w .. 32 w + 31 (column
     t >> (log n - 4), virtual thread t mod n/16).  Its scalar digit reads

@@ -207,7 +207,12 @@ def test_supported():
     assert not brc.supported(big, 3000, 2)              # not a power of two
     assert not brc.supported(big, 1 << 14, 2)           # CRT capacity
     wide = G.Param(G.ERR_SIGMA, RingParam(TORUS_Q, 1 << 14), 1, T)
-    assert not brc.supported(wide, 16, 2)               # shared memory
+    assert brc.supported(wide, 16, 2)                   # past shared memory:
+    assert brc._plan(2, 2, 1 << 14).layout == "device"  # in device memory
+    widest = G.Param(G.ERR_SIGMA, RingParam(TORUS_Q, 1 << 15), 1, T)
+    assert brc.supported(widest, 256, 3)
+    assert not brc.supported(G.Param(G.ERR_SIGMA, RingParam(TORUS_Q, 1 << 16),
+                                      1, T), 16, 2)     # 2^16: not yet
     # one prime's buffers a block, the step's key planes staged beside them
     assert brc._plan(2, 2, 1024).smem_bytes == 208 * 1024 + 32
 

@@ -76,14 +76,17 @@ def test_radix_kernels_have_no_stack_frame_or_spills(cuda):
     """Every instance of the redesigned kernels: K2, K3, K7, K8 and K12 per
     log n 2^7 .. 2^15, K1 and K9 (both ways) per log n, K5 and K6 per log n
     and source count form, K4 and K11 per source count 1 .. 31 and form,
-    K10 per log n 2^7 .. 2^14, staged and direct."""
+    K10's clusters per log n 2^7 .. 2^12, staged and direct, and its
+    device-memory layout's forward and inverse kernels per log n 2^7 ..
+    2^15."""
     report = _cuda.ptxas_report(_cuda.build_log())
     counts = {"tensor_eval4_kernel": 9, "ks_contract_kernel": 9,
               "ks_fused_kernel": 9, "ks_fused_eval_kernel": 9,
               "ext_ntt_kernel": 9 * 3, "tensor_mul4_kernel": 9 * 3,
               "ntt_multi_kernel": 9 * 2, "base_extend_kernel": 31 * 2,
               "base_extend_sum_kernel": 31 * 2,
-              "blind_rotate_kernel": 8 * 2, "ntt_kernel": 9 * 2,
+              "blind_rotate_kernel": 6 * 2, "br_forward_kernel": 9,
+              "br_inverse_kernel": 9, "ntt_kernel": 9 * 2,
               "ntt_smem_ceiling_kernel": 9}
     radix = [r for r in report if r["kernel"].split("<")[0] in counts]
     for name, count in counts.items():
@@ -169,7 +172,7 @@ def test_blind_rotate_clusters_match_plain(cuda):
     gen = prng.Gen(12)
     done = 0
     for case in kernel_check.blind_rotate_sweep(cuda, gen):
-        if "n=1024" in case.label or "n=2048" in case.label:
+        if case.layout != "cluster" or case.args[-2] > 512:
             continue
         got, want = case.kernel(), case.plain()
         torch.cuda.synchronize()
@@ -178,9 +181,41 @@ def test_blind_rotate_clusters_match_plain(cuda):
     assert done > 100
 
 
+@pytest.mark.parametrize("n,C,l,w", [(1 << 12, 2, 2, 11), (1 << 15, 2, 3, 8),
+                                     (1 << 11, 2, 7, 9), (1 << 9, 4, 32, 2),
+                                     (256, 2, 2, 12)])
+def test_blind_rotate_device_layout_matches_plain(cuda, n, C, l, w):
+    """K10 with its working set in device memory: configuration a's shape,
+    configuration b's, two shapes over a block's shared memory at small n,
+    and the layout forced at n = 256, where the plan takes the clusters;
+    over 17 steps on 3 ciphertexts, and with key planes one word off, bit
+    for bit; one launch a chain, counted under K10's name and its
+    layout's."""
+    gen = prng.Gen(n + C + l)
+    args = kernel_check.blind_rotate_inputs(n, C - 1, 1 << w, l, 17, 3, cuda,
+                                            gen)
+    layout = "device"
+    assert (blind_rotate_cuda._plan(C, l, n).layout == layout) == (n > 256)
+    _cuda.reset_launches()
+    got = blind_rotate_cuda.blind_rotate_kernel(*args, layout=layout)
+    torch.cuda.synchronize()
+    assert _cuda.launches()["blind_rotate"] == 1
+    assert _cuda.BLIND_ROTATE.by_layout == {"cluster": 0, "device": 1}
+    assert torch.equal(got, blind_rotate_cuda.blind_rotate_plain(*args))
+    off = [kernel_check._offset_word(e) for e in args[2:6]]
+    shifts, acc0 = args[0][:2].contiguous(), args[1]
+    got = blind_rotate_cuda.blind_rotate_kernel(
+        shifts, acc0, *(e[:2] for e in off), n, w, layout=layout)
+    assert torch.equal(got, blind_rotate_cuda.blind_rotate_plain(
+        shifts, acc0, *(e[:2] for e in off), n, w))
+
+
 def test_blind_rotate_refuses_another_plan(cuda):
     """K10 refuses a block size, shared memory or staging other than its
-    plan's, and staging from planes that are not 16-byte aligned."""
+    plan's, and staging from planes that are not 16-byte aligned; in its
+    device-memory layout a block size or shared memory other than the
+    one-buffer shape's, staging, and no scratch; and a cluster past
+    2^12."""
     n, C, l = 256, 2, 2
     shifts = torch.zeros((2, 1), dtype=torch.int32, device=cuda)
     acc0 = torch.zeros((1, C, n), dtype=torch.int64, device=cuda)
@@ -202,8 +237,32 @@ def test_blind_rotate_refuses_another_plan(cuda):
                 cuda, shifts.data_ptr(), acc0.data_ptr(), key.data_ptr(),
                 key.data_ptr(), key.data_ptr(), key.data_ptr(),
                 acc0.data_ptr(), tw[0].data_ptr(), tw[1].data_ptr(),
-                tw[0].data_ptr(), tw[1].data_ptr(), cons.data_ptr(), 2, 1, C,
-                l, 12, 8, threads, smem, staged)
+                tw[0].data_ptr(), tw[1].data_ptr(), cons.data_ptr(), None, 2,
+                1, C, l, 12, 8, threads, smem, staged, 0, layout="cluster")
+    dm = blind_rotate_cuda._plan(C, l, n, layout="device")
+    scratch = torch.empty(dm.scratch_bytes // 4, dtype=torch.int32,
+                          device=cuda)
+    for buf, logn, threads, smem, staged in (
+            (scratch, 8, dm.threads * 2, dm.smem_bytes, 0),
+            (scratch, 8, dm.threads, dm.smem_bytes * 2, 0),
+            (scratch, 8, dm.threads, dm.smem_bytes, 1),
+            (None, 8, dm.threads, dm.smem_bytes, 0),
+            (scratch, 16, dm.threads, dm.smem_bytes, 0)):
+        with pytest.raises(RuntimeError, match="fhe_blind_rotate"):
+            _cuda.BLIND_ROTATE.launch(
+                cuda, shifts.data_ptr(), acc0.data_ptr(), ev.data_ptr(),
+                ev.data_ptr(), ev.data_ptr(), ev.data_ptr(),
+                acc0.data_ptr(), tw[0].data_ptr(), tw[1].data_ptr(),
+                tw[0].data_ptr(), tw[1].data_ptr(), cons.data_ptr(),
+                buf.data_ptr() if buf is not None else None, 2, 1, C, l, 12,
+                logn, threads, smem, staged, 1, layout="device")
+    with pytest.raises(RuntimeError, match="fhe_blind_rotate"):
+        _cuda.BLIND_ROTATE.launch(
+            cuda, shifts.data_ptr(), acc0.data_ptr(), ev.data_ptr(),
+            ev.data_ptr(), ev.data_ptr(), ev.data_ptr(), acc0.data_ptr(),
+            tw[0].data_ptr(), tw[1].data_ptr(), tw[0].data_ptr(),
+            tw[1].data_ptr(), cons.data_ptr(), None, 2, 1, C, l, 12, 13,
+            plan.threads, plan.smem_bytes, 0, 0, layout="cluster")
 
 
 def test_linear_kernels_match_plain(cuda):

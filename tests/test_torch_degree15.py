@@ -30,6 +30,7 @@ from fhe_study_tpu.ops import ntt as jntt
 
 from fhe_study_tpu_torch.models import bfv_rns as R
 from fhe_study_tpu_torch.ops import _cuda, ntt
+from fhe_study_tpu_torch.ops import blind_rotate_cuda as brc
 from fhe_study_tpu_torch.ops import ntt_cuda as nc
 from fhe_study_tpu_torch.ops.primes import ntt_primes
 from fhe_study_tpu_torch.utils import interop, prng
@@ -182,24 +183,26 @@ KERNELS = {k.name: k for k in _cuda.KERNELS}
 def test_kernel_range_at_n_2_15(name):
     """K1, K2, K3, K5, K9 and K12 take n = 2^15 (and refuse 2^16), and so
     do K6, tensor_mul, K7 and K8 (on two-block clusters, one half of their
-    three buffers a block); K10 refuses it with a message that names its
-    range 2^7 .. 2^14, on the card as on any device: the check comes before
-    the kernel is built or launched."""
+    three buffers a block) and K10 (its working set in device memory, one
+    polynomial a block at the one-buffer shape); 2^16 is refused with a
+    message that names the range, on the card as on any device: the check
+    comes before the kernel is built or launched."""
     k = KERNELS[name]
-    if name != "blind_rotate":
-        assert _cuda.log2_degree(N, k) == 15
-        with pytest.raises(ValueError, match=f"{name} takes n = 2\\^"):
-            _cuda.log2_degree(2 * N, k)
-        if name in ONE_BUFFER:
-            assert nc._radix_plan(15).threads == nc.WIDE_THREADS
-        else:
-            plan = nc._mul4_plan(15)
-            assert (plan.logn, plan.threads) == (14, nc.MUL4_THREADS)
-            assert plan.smem_bytes == nc.MUL4_BUFFERS * 4 * N // 2
-            assert nc._mul4_plan(15, side=True).smem_bytes <= 232448
-        return
-    with pytest.raises(ValueError, match=f"{name} takes n = 2\\^7 .. 2\\^14"):
-        _cuda.log2_degree(N, k)
+    assert _cuda.log2_degree(N, k) == 15
+    with pytest.raises(ValueError,
+                       match=f"{name} takes n = 2\\^7 .. 2\\^15"):
+        _cuda.log2_degree(2 * N, k)
+    if name in ONE_BUFFER:
+        assert nc._radix_plan(15).threads == nc.WIDE_THREADS
+    elif name == "blind_rotate":
+        plan = brc._plan(2, 3, N)
+        assert (plan.layout, plan.threads) == ("device", nc.WIDE_THREADS)
+        assert plan.smem_bytes == 4 * N
+    else:
+        plan = nc._mul4_plan(15)
+        assert (plan.logn, plan.threads) == (14, nc.MUL4_THREADS)
+        assert plan.smem_bytes == nc.MUL4_BUFFERS * 4 * N // 2
+        assert nc._mul4_plan(15, side=True).smem_bytes <= 232448
 
 
 def test_narrow_wrappers_refuse_n_2_15():
