@@ -43,14 +43,19 @@ Phases, each of which raises (and so exits non-zero) on any failure:
      without fin, on contiguous and word-offset rows; K9 forward and inverse
      under a 30-bit and a 31-bit prime, on aligned and word-offset int64
      rows; K12 over 0, 1 and 3 transforms; K2 on contiguous,
-     strided and unaligned rows; K5 from 1 to 5 and 16 to 31 source primes;
+     strided and unaligned rows; K5 from every count of 1 to 31 source
+     primes (2 and 4 in its direct instances, the others in its staged
+     layout: the lift first); the lift alone from 1 to 31 source primes,
+     unsigned and centered, on rows of n and n - 1 and one word off (its
+     vector and word forms);
      K4 from 1, 2, 3, 4, 5 and 15 source primes to 1, 4 and 5, unsigned and
      centered, with and without the epilogue, on a row length that is no
      multiple of 4 and on unaligned rows, and from 16 to 31 to 5 (both
      forms); K3 from 1, 2, 4 and 9 digit rows over 2 and 6 primes, aligned
      and word-offset; K6 (and tensor_mul) with and without a scale on
-     contiguous, strided, stacked and unaligned rows and from 1 to 5 and
-     16 to 31 source primes; K7 and K8 from 1, 2, 4 and 9 limb rows over
+     contiguous, strided, stacked and unaligned rows and from every count
+     of 1 to 31 source primes (4 direct, the others staged); K7 and K8
+     from 1, 2, 4 and 9 limb rows over
      30-bit primes to 2 and 6 primes of 28 bits (reps >= 2), 39 rows to 2
      primes at n = 2^11, R = L = 4 on the paths' strided views (K8's adds
      too) and every operand one word off; K3, K7 and K8 at R = 43 over the 45 primes
@@ -211,7 +216,10 @@ Phases, each of which raises (and so exits non-zero) on any failure:
      kernels on two-block clusters): decrypt-verified after one op and after
      a timed chain of 4, its launches per op, each signature at batch 8
      against plain; K6, tensor_mul, K7 and K8 at the path's shapes against
-     plain and on the device alone beside their bounds;
+     plain and on the device alone beside their bounds; K5 (in mul_e) and
+     K6 over P (in mul) convert from 14 sources in their staged layout
+     (counted), and the lift alone on their operands is held against plain
+     at batch 8 and timed at the paths' shapes beside its bound;
  19. slice 11, the gadget keyring at N = 2^15, L = 29, M = 30, t = 256,
      B = 128 (the whole 870 bits of the modulus in Q, so the tensor's
      conversions run from 29 and 30 source primes): keygen -> rlk_key (29
@@ -222,8 +230,10 @@ Phases, each of which raises (and so exits non-zero) on any failure:
      best of 3), key_switch timed over 4 calls; launches per op; every
      argument signature of each op at batch 8 held against plain; peak
      device memory; K4 (from 29 and 30), K5 (from 29), K6 (from 29), K7,
-     K8 (R = 29) and K11 (from 29) at the path's shapes on the device alone
-     beside their bounds;
+     K8 (R = 29), K11 (from 29) and the lift (from 29, on K5's and K6's
+     operands, also held against plain at batch 8) at the path's shapes on
+     the device alone beside their bounds; K5 and K6 over P in their
+     staged layout (counted an op);
  20. slice 12, the reference tests' configurations at n = 2^7 and the
      multi-prime kernels' gate: the n = 2^7 instances' registers; RNS-BFV
      at N = 128, t = 16, L = 3, M = 4, B = 128 (tests/test_bfv_rns.py):
@@ -361,10 +371,15 @@ ALU_SHORT_ROUNDS = 1024      # the timed alu_rate launch is held in such pieces
 RADIX_KERNELS = {"ntt_multi", "tensor_eval4", "ks_contract", "ext_ntt",
                  "base_extend", "tensor_mul4", "tensor_mul", "ks_fused",
                  "ks_fused_eval", "ntt", "blind_rotate", "ntt_smem_ceiling",
-                 "base_extend_sum", "br_forward", "br_inverse"}
+                 "base_extend_sum", "br_forward", "br_inverse", "ext_lift"}
 # the kernels' JSON record has one row per entry of _cuda.KERNELS, K10's
 # (its cluster layout) followed by one for its device-memory layout
 DM_ROW = "blind_rotate_dm"
+# the lift (_cuda.EXT_LIFT), held against plain beside them: K5 and K6
+# launch it in their staged layout and count it as their own launch
+LIFT = "ext_lift"
+LIFT_LAUNCHES = ("its launches count under ext_ntt and tensor_mul4, which "
+                 "queue it in their staged layout")
 RADIX_BATCH = 3              # the small odd batch of their every-degree sweep
 
 
@@ -532,12 +547,22 @@ def main() -> None:
         f"and br_inverse of its device-memory layout)")
     say(f"build: seconds a unit (compiled in parallel), then the link: "
         f"{_cuda.build_seconds(_cuda.build_log())}")
+    lift_entries = [r for r in ptxas if r["kernel"].startswith("ext_lift")]
+    if len(lift_entries) != 2:
+        raise RuntimeError(f"the lift's instances: {lift_entries}")
+    say("ptxas: the lift (ext_lift_kernel, the first launch of K5's and K6's "
+        "staged layout), word and vector forms: " + "; ".join(
+            f"{r['kernel']} {r['registers']} registers, {r['stack']} bytes "
+            f"stack frame, {r['spill_stores']} + {r['spill_loads']} bytes "
+            f"spilled" for r in lift_entries))
 
     phase_done("1 (toolchain and build)")
 
     # 2. kernels against their plain versions ------------------------------
-    err = dict.fromkeys(record_rows, 0)
-    checked = dict.fromkeys(record_rows, 0)
+    # the lift is held against lift_plain beside the record's kernels (its
+    # launches on the paths count under K5 and K6)
+    err = dict.fromkeys(record_rows + [LIFT], 0)
+    checked = dict.fromkeys(record_rows + [LIFT], 0)
 
     def hold(name: str, label: str, got, want) -> None:
         diff = kernel_check.max_abs_err(got, want)
@@ -588,9 +613,12 @@ def main() -> None:
         f"{kernel_check.KS_BOOT_R} rows at n = 2^{kernel_check.KS_BOOT_LOGN}, "
         f"strided and word-offset), "
         f"tensor_mul4 and tensor_mul (with and without a scale; contiguous, "
-        f"strided, stacked and unaligned rows; from 1 to 5 and 16 to "
-        f"{ext_cuda.MAX_SRC} source primes), ext_ntt (from 1 to 5 and 16 to "
-        f"{ext_cuda.MAX_SRC} source primes), "
+        f"strided, stacked and unaligned rows; from 1 to "
+        f"{ext_cuda.MAX_SRC} source primes, 4 direct, the others staged), "
+        f"ext_ntt (from 1 to {ext_cuda.MAX_SRC} source primes, 2 and 4 "
+        f"direct, the others staged), the lift alone (from 1 to "
+        f"{ext_cuda.MAX_SRC} source primes, unsigned and centered, vector "
+        f"and word forms), "
         f"ks_contract, ks_fused and ks_fused_eval at R="
         f"{kernel_check.KS_MAPS_R} over {kernel_check.KS_MAPS_LP} primes at "
         f"n = 2^{kernel_check.KS_MAPS_LOGN}, base_extend_sum (from 1 to "
@@ -2132,17 +2160,38 @@ def main() -> None:
     phase_done("17 (slice 8: the parallel layer, 8 gloo ranks and 1 NCCL "
                "rank on one card)")
 
+    def staged_per_op(L: int, per_op: dict) -> dict:
+        """The launches of one op (per_op) that K5 and K6 make in their
+        staged layout at L Q-primes: K5's conversion Q -> P, and K6's over P
+        from Q (one of its two: the other, over Q, has no source basis)."""
+        out = {}
+        if per_op.get("ext_ntt") and ntt_cuda.lift_plan(
+                _cuda.EXT_NTT, L, 1, N).staged:
+            out["ext_ntt"] = per_op["ext_ntt"]
+        if per_op.get("tensor_mul4") and ntt_cuda.lift_plan(
+                _cuda.TENSOR_MUL4, L, 1, N).staged:
+            out["tensor_mul4"] = per_op["tensor_mul4"] // 2
+        return out
+
     def slice_op(tag: str, shape: str, n: int, per_op: dict, op, small_op,
-                 chain, decrypt, want_chain, what: str,
+                 chain, decrypt, want_chain, what: str, L: int,
                  held_at: int = PARITY_BATCH):
         """One op of a slice beyond its driven path: its launches per op at
-        full batch (``op``) == per_op, and through the recorded wrappers on
+        full batch (``op``) == per_op, those of K5 and K6 in their staged
+        layout == staged_per_op(L, per_op), and through the recorded
+        wrappers on
         the same op at batch held_at (``small_op``), every launch at ring
         degree n and every argument signature held against plain;
         ``chain`` (CHAIN ops) timed by CUDA events, best of 3, its output
         decrypt-verified against want_chain where given; the chain's peak
         device memory.  Returns the best ms an op."""
         got = per_op_launches(op)
+        staged = {k.name: k.by_layout["staged"]
+                  for k in (_cuda.EXT_NTT, _cuda.TENSOR_MUL4)
+                  if k.by_layout["staged"]}
+        if staged != staged_per_op(L, per_op):
+            raise RuntimeError(f"{tag}: staged launches of one op {staged} "
+                               f"!= {staged_per_op(L, per_op)}")
         sigs, seen = {}, {}
         with record_calls(sigs, seen, tuple(per_op)):
             small_op()
@@ -2159,7 +2208,8 @@ def main() -> None:
         for name, (n_sig, diff) in held.items():
             err[name] = max(err[name], diff)
             checked[name] += n_sig
-        say(f"verify: {tag}: one op launches {got}, every launch at n = {n}; "
+        say(f"verify: {tag}: one op launches {got} (of which K5's and K6's "
+            f"in their staged layout {staged}), every launch at n = {n}; "
             f"each of its {len(sigs)} argument signatures at batch "
             f"{held_at} == plain (torch.equal): {held}")
         del sigs
@@ -2250,7 +2300,7 @@ def main() -> None:
              lambda: R.mul_e(w_param, whk, wx, wy),
              lambda: R.mul_e(w_param, whk, wx, wy), w_chain,
              lambda c: R.decrypt(w_param, w["sk"], R.from_evals(w_param, c)),
-             want, chain_what, held_at=BATCH)
+             want, chain_what, W_L, held_at=BATCH)
     # slice 11: mul with the hybrid key at 2^15 on the same keys: K6 over Q
     # and over P from 14 sources on two-block clusters, K4, K1, K3
     (wc1, wc2), (ws1, ws2) = w["c"], w["small"]
@@ -2271,7 +2321,8 @@ def main() -> None:
     slice_op("slice 11 mul (HRLK)", w_shape, W_N, W_MUL_PER_OP,
              lambda: R.mul(w_param, whk, wc1, wc2),
              lambda: R.mul(w_param, whk, ws1, ws2), w_mul_chain,
-             lambda c: R.decrypt(w_param, w["sk"], c), want, chain_what)
+             lambda c: R.decrypt(w_param, w["sk"], c), want, chain_what,
+             W_L)
     del rec, want, product, wc1, wc2, ws1, ws2
     # each widened kernel against plain at the path's shapes, batch 8; K9 on
     # [8, 2^15] under a 30-bit and a 31-bit prime; K12 at n = 2^15
@@ -2286,6 +2337,7 @@ def main() -> None:
     w_cases += [c for c in kernel_check.bench_cases(W_N, PARITY_BATCH, dev,
                                                     gen)
                 if c.name == "ntt_smem_ceiling"]
+    w_cases += kernel_check.lift_cases(w_param, PARITY_BATCH, dev, gen)
     for case in w_cases:
         got, want = case.kernel(), case.plain()
         torch.cuda.synchronize()
@@ -2304,6 +2356,8 @@ def main() -> None:
     t_cases += [kernel_check.ntt_case(
         f"[{BATCH}, {W_N}] q={q9} {'inverse' if inv else 'forward'}", x9, q9,
         inv) for inv in (False, True)]
+    t_cases += kernel_check.lift_cases(
+        w_param, BATCH, dev, gen, res=prng.device_residues(SEED + 23, dev))
     busy = torch.zeros(1 << 28, dtype=torch.int32, device=dev)
     w_ms = {}
     for case in t_cases:
@@ -2318,9 +2372,10 @@ def main() -> None:
             f"device alone {a_ms:8.4f} ms, bound {b.ms:.4f} ms by {b.term} "
             f"(bytes {b.bytes_ms:.4f}, issue {b.issue_ms:.4f}, ALU "
             f"{b.alu_ms:.4f}, FMA {b.fma_ms:.4f}): {b.ms / a_ms:.3f} of it; "
-            f"{W_PER_OP.get(case.name, 0)} launches of {case.name} per "
-            f"mul_e, {W_MUL_PER_OP.get(case.name, 0)} per mul (HRLK) "
-            f"[{card}]")
+            + (LIFT_LAUNCHES if case.name == LIFT else
+               f"{W_PER_OP.get(case.name, 0)} launches of {case.name} per "
+               f"mul_e, {W_MUL_PER_OP.get(case.name, 0)} per mul (HRLK)")
+            + f" [{card}]")
     del busy
     per_sm = alu_bench.resident_blocks(dev, n=W_N)[0]
     ceil = alu_bench.ntt_smem_ceiling(dev, n=W_N, B=per_sm * sms,
@@ -2401,7 +2456,7 @@ def main() -> None:
         "slice 11 mul (RLK)", g_shape, G_N, G_PER_OP["mul (RLK)"],
         lambda: R.mul(g_param, grlk, gc1, gc2),
         lambda: R.mul(g_param, grlk, gs1, gs2), g_mul_chain, g_decrypt,
-        want, chain_what)}
+        want, chain_what, G_L)}
     rec = drive(f"slice 11: to_evals -> mul_e (RLK) -> from_evals -> "
                 f"decrypt at {g_shape}",
                 ("ntt_multi", "ext_ntt", *G_PER_OP["mul_e (RLK)"]),
@@ -2422,7 +2477,8 @@ def main() -> None:
         "slice 11 mul_e (RLK)", g_shape, G_N, G_PER_OP["mul_e (RLK)"],
         lambda: R.mul_e(g_param, grlk, gx, gy),
         lambda: R.mul_e(g_param, grlk, gsx, gsy), g_mul_e_chain,
-        lambda c: g_decrypt(R.from_evals(g_param, c)), want, chain_what)
+        lambda c: g_decrypt(R.from_evals(g_param, c)), want, chain_what,
+        G_L)
     del gx, gy, gsx, gsy, g["rlk"], grlk
     g["sk2"], _ = R.new_key(gen, g_param, dev)
     gksk = R.ksk_key(gen, g_param, g["sk"], g["sk2"])
@@ -2442,7 +2498,7 @@ def main() -> None:
         "slice 11 key_switch", g_shape, G_N, G_PER_OP["key_switch"],
         lambda: R.key_switch(g_param, gksk, gc1),
         lambda: R.key_switch(g_param, gksk, gs1), g_ks_calls, None, None,
-        "")
+        "", G_L)
     del rec, want, product, gksk, gs1, gs2
     # each kernel of the slice at the path's shapes (B = 128, operands drawn
     # on the card) on the device alone beside its bound: K6, K7, K8 at R = L
@@ -2457,6 +2513,11 @@ def main() -> None:
     g_cases.append(kernel_check._ext_sum_pair(
         res(g_param.qs, (BATCH, G_N)), g_param.qs, g_param.ps, True,
         f"Q->P [{G_L}, {BATCH}, {G_N}]")[0])
+    g_cases += kernel_check.lift_cases(g_param, BATCH, dev, gen, res=res)
+    for case in kernel_check.lift_cases(g_param, PARITY_BATCH, dev, gen):
+        check(case, case.kernel(), case.plain())
+    say(f"parity: slice 11 the lift (from {G_L} sources) on K5's and K6's "
+        f"operands at batch {PARITY_BATCH} == plain (torch.equal)")
     busy = torch.zeros(1 << 28, dtype=torch.int32, device=dev)
     for case in g_cases:
         case.kernel()
@@ -2470,7 +2531,8 @@ def main() -> None:
             f"device alone {a_ms:8.4f} ms, bound {b.ms:.4f} ms by {b.term} "
             f"(bytes {b.bytes_ms:.4f}, issue {b.issue_ms:.4f}, ALU "
             f"{b.alu_ms:.4f}, FMA {b.fma_ms:.4f}): {b.ms / a_ms:.3f} of it; "
-            f"launches per op {per} [{card}]")
+            + (LIFT_LAUNCHES if case.name == LIFT else
+               f"launches per op {per}") + f" [{card}]")
     del g_cases, case, busy, res, g, gc1, gc2
     torch.cuda.empty_cache()
     say(f"timing: slice 11 at {g_shape}: ms an op "
@@ -2605,7 +2667,7 @@ def main() -> None:
             lambda: R.mul_e(s_param, key, sx, sy),
             lambda: R.mul_e(s_param, key, ssx, ssy),
             chain_of(lambda c: R.mul_e(s_param, key, c, sy), sx), s_dec_e,
-            want, chain_what)
+            want, chain_what, S_L)
     for tag, key in (("mul (RLK)", srlk), ("mul (HRLK)", shk)):
         s_per_op[tag] = s_ops[tag]
         s_ms[tag] = slice_op(
@@ -2613,14 +2675,14 @@ def main() -> None:
             lambda: R.mul(s_param, key, sc1, sc2),
             lambda: R.mul(s_param, key, ss1, ss2),
             chain_of(lambda c: R.mul(s_param, key, c, sc2), sc1), s_dec,
-            want, chain_what)
+            want, chain_what, S_L)
     s_per_op["key_switch"] = G_PER_OP["key_switch"]
     s_ms["key_switch"] = slice_op(
         "slice 12 key_switch", s_shape, s_n, G_PER_OP["key_switch"],
         lambda: R.key_switch(s_param, sksk, sc1),
         lambda: R.key_switch(s_param, sksk, ss1),
         chain_of(lambda c: R.key_switch(s_param, sksk, sc1), sc1), None, None,
-        "")
+        "", S_L)
 
     def best_of_3(fn) -> float:
         fn()
@@ -3083,9 +3145,8 @@ def main() -> None:
     kernel_of[DM_ROW] = _cuda.BLIND_ROTATE
     record = {"kernels": [
         {"name": r, "route": "cuda",
-         "source": (kernel_of[r].layouts["device" if r == DM_ROW else
-                                         "cluster"]
-                    if kernel_of[r].layouts else kernel_of[r].source),
+         "source": (kernel_of[r].layouts["device"] if r == DM_ROW
+                    else kernel_of[r].source),
          "replaces": kernel_of[r].replaces, "launches": launches[r],
          "max_abs_err": err[r], "ms": ms[r],
          "plain_ms": plain_ms[r], "bound_ms": bound_ms[r],

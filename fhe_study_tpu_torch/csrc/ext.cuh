@@ -175,6 +175,64 @@ base_extend_sum_kernel(const uint32_t* __restrict__ ys,
   }
 }
 
+// The lift of K5 and K6 (ext_lift, modarith.cuh), on K4's structure: 4
+// consecutive coefficients a thread in its vector form (n % 4 == 0, every
+// row on a 16-byte boundary), one in its word form; blockIdx.y is the
+// operand.  The source loop is a run-time one (any 1 .. kMaxSrc primes, one
+// instance a form): each y_i is stored as it is formed, so nothing of Ls
+// words stays in registers, and only the K 64-bit alpha sums do.  Ls words
+// in and Ls + 1 out per coefficient against Ls Shoup products and
+// multiply-adds: the bytes bound it.
+template <int VEC>
+__global__ void __launch_bounds__(kThreads)
+ext_lift_kernel(LiftIn in, uint32_t* __restrict__ lift,
+                const uint32_t* __restrict__ ext, int Ls, int B, int n,
+                int centered) {
+  constexpr int K = VEC != 0 ? kExtVec : 1;
+  extern __shared__ uint32_t tab[];
+  const ExtTable e = stage_table(tab, ext, Ls, 0);    // the source part
+  const int o = blockIdx.y;
+  // selects: no run-time index into the parameters
+  const uint32_t* x = o == 0 ? in.x[0] : (o == 1 ? in.x[1] :
+                                          (o == 2 ? in.x[2] : in.x[3]));
+  const long long sl = o == 0 ? in.sl[0] : (o == 1 ? in.sl[1] :
+                                            (o == 2 ? in.sl[2] : in.sl[3]));
+  const long long sb = o == 0 ? in.sb[0] : (o == 1 ? in.sb[1] :
+                                            (o == 2 ? in.sb[2] : in.sb[3]));
+  const long long total = static_cast<long long>(B) * n;
+  uint32_t* const ys = lift + static_cast<long long>(o) * (Ls + 1) * total;
+  const long long units = total / K;             // VEC: n % 4 == 0
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long u = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       u < units; u += step) {
+    const long long c = u * K;
+    const long long b = c / n;
+    const uint32_t* xc = x + b * sb + (c - b * n);
+    uint64_t acc[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) acc[k] = centered ? (1ull << 58) : 0ull;
+#pragma unroll 4
+    for (int i = 0; i < Ls; ++i) {
+      uint32_t y[K];
+      load_coeffs<K>(y, xc + i * sl);
+      const uint32_t s = e.src(i, 0), h = e.src(i, 1), hsh = e.src(i, 2);
+      const uint64_t cfix = static_cast<uint64_t>(e.src(i, 3)) |
+                            (static_cast<uint64_t>(e.src(i, 4)) << 32);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        y[k] = shoup_mul(y[k], h, hsh, s);
+        acc[k] += static_cast<uint64_t>(y[k]) * cfix;
+      }
+      store_coeffs<K>(ys + i * total + c, y);
+    }
+    uint32_t alpha[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) alpha[k] = static_cast<uint32_t>(acc[k] >> 59);
+    store_coeffs<K>(ys + Ls * total + c, alpha);
+  }
+}
+
 unsigned grid_for(long long threads) {
   const long long blocks = (threads + kThreads - 1) / kThreads;
   return static_cast<unsigned>(blocks > kMaxBlocks ? kMaxBlocks : blocks);

@@ -1,6 +1,10 @@
 // Hopper kernels of the RNS fast base extension (HPS conversion): K4 replaces
 // fhe_study_tpu/ops/ext_pallas.py::base_extend_fused (_ext_fused_kernel), K11
-// (on K4's structure, csrc/ext.cuh) base_extend_sum.
+// (on K4's structure, csrc/ext.cuh) base_extend_sum; and the lift, the
+// first half of the conversion alone (y_i and alpha), which K5 and K6
+// launch before their staged form (ext_lift, modarith.cuh; no TPU kernel
+// of its own: it is the first half of the conversion inside
+// ntt_pallas.py::ext_ntt_u32 and ::tensor_mul4_u32).
 //
 // out_j = sum_i y_i * (S/s_i) - alpha * S  (mod d_j),
 //   y_i = x_i * (S/s_i)^-1 mod s_i,
@@ -49,6 +53,31 @@ bool bad_vec(long long total, const void* a, const void* b, const void* c) {
 }
 
 }  // namespace
+
+int ext_lift(const LiftIn& in, int ops, uint32_t* lift, const uint32_t* ext,
+             int Ls, int B, int n, int centered, cudaStream_t stream) {
+  const long long total = static_cast<long long>(B) * n;
+  if (Ls < 1 || Ls > kMaxSrc || ops < 1 || ops > 4 || B < 1 || n < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  bool vec = n % kExtVec == 0 && !misaligned(lift);
+  for (int o = 0; o < ops; ++o) {
+    vec = vec && !misaligned(in.x[o]) && in.sl[o] % kExtVec == 0 &&
+          in.sb[o] % kExtVec == 0;
+  }
+  const size_t smem = sizeof(uint32_t) * ext_words(Ls, 0);
+  const dim3 grid(grid_for(vec ? total / kExtVec : total),
+                  static_cast<unsigned>(ops));
+  if (vec) {
+    ext_lift_kernel<1><<<grid, kThreads, smem, stream>>>(in, lift, ext, Ls, B,
+                                                          n, centered);
+  } else {
+    ext_lift_kernel<0><<<grid, kThreads, smem, stream>>>(in, lift, ext, Ls, B,
+                                                          n, centered);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace fhe
 
 using namespace fhe;
@@ -84,6 +113,16 @@ extern "C" int fhe_base_extend_sum(const uint32_t* ys, const uint32_t* alpha,
   }
   return base_extend_sum_counts<1, kNarrowSrc>(ys, alpha, out, ext, Ls, Ld,
                                                total, vec, stream);
+}
+
+// The lift alone on contiguous x [Ls, B, n] into lift [Ls + 1, B, n] (row
+// Ls alpha): ext_lift's vector form where n % 4 == 0 and x and lift are
+// 16-byte aligned, its word form otherwise.
+extern "C" int fhe_ext_lift(const uint32_t* x, uint32_t* lift,
+                            const uint32_t* ext, int Ls, int B, int n,
+                            int centered, cudaStream_t stream) {
+  return ext_lift(lift_in(x, B, n), 1, lift, ext, Ls, B, n, centered,
+                  stream);
 }
 
 extern "C" const char* fhe_error_string(int err) {

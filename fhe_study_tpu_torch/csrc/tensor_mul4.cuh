@@ -1,9 +1,9 @@
 // K6 tensor_mul4: the kernel template, shared by the two translation units
 // that instantiate it (csrc/tensor_mul4_cuda.cu: the entry point and the
 // instances without a source basis and from 4 source primes, the BFV P
-// basis; csrc/tensor_mul4_generic_cuda.cu: the generic source count), so
-// that their instances compile in parallel.  tensor_mul4_cuda.cu's header
-// describes the kernel.
+// basis; csrc/tensor_mul4_staged_cuda.cu: the staged form, from any source
+// count), so that their instances compile in parallel.
+// tensor_mul4_cuda.cu's header describes the kernel.
 #pragma once
 
 #include <cstdint>
@@ -26,11 +26,19 @@ constexpr int kMul4Side =
               kMul4Threads * kRadix
         : 0;
 // LS of the instance whose operands are over the destination basis already;
-// LS = 4 (the BFV P basis from Q) and the generic LS = 0 convert.
+// LS = 4 (the BFV P basis from Q) converts each word on its way in, and
+// kStagedSrc (any 1 .. 31 source primes) reads the lift's rows instead
+// (ext_lift, run by the entry first: each operand's y_i and alpha are formed
+// once per polynomial, not once per destination block).
 constexpr int kNoSrc = -1;
+constexpr int kStagedSrc = 0;
+
+// Words of the split's half a thread converts at once in the staged form,
+// each with its partner h words on: 2 x 8 loads issued together a source.
+constexpr int kSplitRun = kRadix / 2;
 
 // Word i of an operand row under destination prime p: the word itself, or
-// its conversion from the source rows, sl words apart.
+// its conversion from the source rows, sl words apart (LS = 4).
 template <int LS>
 __device__ __forceinline__ uint32_t mul4_word(const uint32_t* row,
                                               long long sl, int i,
@@ -39,17 +47,6 @@ __device__ __forceinline__ uint32_t mul4_word(const uint32_t* row,
     return __ldg(row + i);
   } else {
     return ext_coeff<LS>(row + i, static_cast<size_t>(sl), e, p);
-  }
-}
-
-// Word J = 0 .. 15 of the virtual thread whose pass holds bits [C, C + 4)
-// from sb = swizzle(base), as f(J) computes it, stored as it comes (no
-// register array).
-template <int C, int J = 0, typename F>
-__device__ __forceinline__ void store_each(uint32_t* a, int sb, F f) {
-  if constexpr (J < kRadix) {
-    a[radix_word<C, J>(sb)] = f(J);
-    store_each<C, J + 1>(a, sb, f);
   }
 }
 
@@ -77,6 +74,8 @@ tensor_mul4_kernel(const uint32_t* __restrict__ x0,
   constexpr int c0 = S::fwd_c(0);
   constexpr int cl = S::inv_c(last);
   extern __shared__ uint32_t a[];            // buffers 0, 1, 2 at a + k * h
+  // the staged form's table column of this prime (stage_column)
+  __shared__ uint32_t column[LS == kStagedSrc ? 2 * kMaxSrc + 2 : 1];
   uint32_t* const a2 = a + 2 * h;
   // x0's transform rides across x1's chain in registers, a virtual thread's
   // 16 words for each of the `kept` first groups; split, the block has room
@@ -93,8 +92,12 @@ tensor_mul4_kernel(const uint32_t* __restrict__ x0,
   const size_t trow = (static_cast<size_t>(p) * Split<LOGN>::blocks + r) * h;
   const uint32_t* w = tw + trow;
   const uint32_t* wsh = tw_sh + trow;
-  // row p of each operand, or its source rows from row 0
+  // row p of each operand, or its source (lift) rows from row 0
   const long long row = LS == kNoSrc ? p : 0;
+  if constexpr (LS == kStagedSrc) {
+    stage_column(column, ExtTable{ext, Ls, Ld}, p);
+    __syncthreads();
+  }
   // 1-2. the forward chains: k = 0, 1, 2, 3 -> y0, y1, x0, x1.  The
   // pointers each iteration reads through are made opaque in it, so that no
   // twiddle or table word is hoisted out of the loop (it would hold a
@@ -138,24 +141,59 @@ tensor_mul4_kernel(const uint32_t* __restrict__ x0,
       // stage sits in registers beside x0's words)
       const uint32_t w1 = radix_opaque(wk)[0];
       const uint32_t w1sh = radix_opaque(wshk)[0];
+      if constexpr (LS == kStagedSrc) {
+        // kSplitRun words of the half and their partners a run, each
+        // word's sum over the sources formed from the lift's rows (both
+        // blocks of the pair form the sums of the whole row: the y_i and
+        // alpha are the lift's, once per polynomial)
+        constexpr int run = kSplitRun * S::threads;
+        static_assert(h % run == 0, "whole runs of the half");
+        const uint32_t* lrow = radix_opaque(src);
 #pragma unroll 1
-      for (int i = threadIdx.x; i < h; i += S::threads) {
-        buf[radix_swizzle(i)] = split_word(
-            [&](int t) { return mul4_word<LS>(src, sl, t, e, p); }, i, h, r,
-            w1, w1sh, q);
+        for (int i0 = threadIdx.x; i0 < h; i0 += run) {
+          uint32_t v[2 * kSplitRun];
+          ext_from_lift(v, lrow, static_cast<size_t>(sl), column, Ls, q,
+                        [&](int m) {
+                          return i0 + (m % kSplitRun) * S::threads +
+                                 (m / kSplitRun) * h;
+                        });
+#pragma unroll
+          for (int m = 0; m < kSplitRun; ++m) {
+            const uint32_t t = shoup_mul(v[kSplitRun + m], w1, w1sh, q);
+            buf[radix_swizzle(i0 + m * S::threads)] =
+                r != 0 ? submod(v[m], t, q) : addmod(v[m], t, q);
+          }
+        }
+      } else {
+#pragma unroll 1
+        for (int i = threadIdx.x; i < h; i += S::threads) {
+          buf[radix_swizzle(i)] = split_word(
+              [&](int t) { return mul4_word<LS>(src, sl, t, e, p); }, i, h,
+              r, w1, w1sh, q);
+        }
       }
       __syncthreads();
       RadixPasses<LOGH, 0, last, false, kMul4Threads>::run(buf, wk, wshk, q);
-    } else if constexpr (LS == 0) {
-      // the generic conversion is a loop a word: each word goes to shared
-      // memory as it is converted and pass 0 runs from there, so that the
-      // loops never sit beside a pass's 16 words in registers
+    } else if constexpr (LS == kStagedSrc) {
+      // each word's sum from the lift's rows goes to shared memory as it is
+      // formed, 8 words at a time in a rolled loop, and pass 0 runs from
+      // there, so that the sums never sit beside a pass's 16 words in
+      // registers (so placed, or with the runs unrolled, they spilled at
+      // 128 registers beside x0's words at n = 2^7 .. 2^13)
+      constexpr int run = kRadix / 2;
 #pragma unroll 1
       for (int g = 0; g < S::groups; ++g) {
         const int base = threadIdx.x + g * S::threads;  // radix_base(v, c0)
-        store_each<c0>(buf, radix_swizzle(base), [&](int j) {
-          return ext_coeff<0>(src + base + (j << c0), sl, e, p);
-        });
+#pragma unroll 1
+        for (int hf = 0; hf < kRadix / run; ++hf) {
+          uint32_t v[run];
+          ext_from_lift(v, src, static_cast<size_t>(sl), column, Ls, q,
+                        [&](int j) { return base + ((j + hf * run) << c0); });
+#pragma unroll
+          for (int j = 0; j < run; ++j) {
+            buf[radix_swizzle(base + ((j + hf * run) << c0))] = v[j];
+          }
+        }
       }
       __syncthreads();
       RadixPasses<LOGH, 0, last, false, kMul4Threads>::run(buf, wk, wshk, q);
@@ -277,8 +315,8 @@ struct TensorMul4Launch {
 
 }  // namespace
 
-// The generic instances' launch (csrc/tensor_mul4_generic_cuda.cu).
-int tensor_mul4_generic(int logn, int threads, int smem, int blocks,
+// The staged instances' launch (csrc/tensor_mul4_staged_cuda.cu).
+int tensor_mul4_staged(int logn, int threads, int smem, int blocks,
                         cudaStream_t stream, const uint32_t* x0,
                         const uint32_t* x1, const uint32_t* y0,
                         const uint32_t* y1, Strides st, uint32_t* out,

@@ -5,7 +5,15 @@
 //                      tensor_mul_u32 (_tensor_kernel_multi)
 // (x0 y0, x0 y1 + x1 y0, x1 y1) = INTT(NTT(x_i) * NTT(y_j)) times scale,
 // with the optional unsigned HPS conversion src -> dst of every operand on
-// its way in (the BFV tensor over P from ciphertexts over Q).
+// its way in (the BFV tensor over P from ciphertexts over Q): from 4 source
+// primes each word is converted in the first pass (ext_coeff<4>); from any
+// other count the entry first runs the lift (csrc/ext.cuh's
+// ext_lift_kernel, one launch for the four operands, on the same stream and
+// counted as one with the kernel's) into a scratch of each operand's y_i and
+// alpha, and the staged form forms each word's sum from those rows
+// (ext_from_lift of modarith.cuh: the sources in the outer loop, 16
+// independent loads an iteration), so no block recomputes the y_i and alpha
+// that the Ld destination blocks of a polynomial share.
 //
 // Layout: one block per (dst prime, polynomial), the prime fastest so that
 // the blocks converting one polynomial's source rows run side by side and
@@ -18,8 +26,8 @@
 // polynomial), block r holding the elements whose top bit is r
 // (radix_chain.cuh's Split): the first forward stage is formed word by word
 // from both halves of each operand row into the block's half (with a source
-// basis, each block converts the words of both halves), the chain of the
-// half runs from there as below, with x0's words of the second group of
+// basis, each block forms the sums of the words of both halves), the chain
+// of the half runs from there as below, with x0's words of the second group of
 // virtual threads kept in 32 KB of shared memory beside the buffers (224 KB
 // a block: 128 registers hold only one group beside x1's chain), and the
 // last inverse stage reads the peer's half of the three products through
@@ -28,8 +36,8 @@
 //      into buffer 2 but for its last pass, one operand after another in a
 //      run-time loop (one copy of the chain's code); the first pass reads
 //      the operand row (strided views allowed) with lanes on consecutive
-//      words, converting each word with ext_coeff<LS> when there is a
-//      source basis;
+//      words, or with a source basis its conversion (ext_coeff<4>, or the
+//      sums over the lift's rows);
 //   2. before x1 enters buffer 2, each thread takes its own 16 words a
 //      virtual thread of x0's transform into registers;
 //   3. x1's last pass holds bits 0..3, as the inverse chain's first pass
@@ -54,8 +62,8 @@
 //
 // The kernel template is in csrc/tensor_mul4.cuh; this unit instantiates it
 // without a source basis and from 4 source primes, csrc/
-// tensor_mul4_generic_cuda.cu for the other source counts (so that the two
-// halves of the 27 instances compile in parallel).  The entry launches on
+// tensor_mul4_staged_cuda.cu its staged form (so that the two parts of the
+// 27 instances compile in parallel).  The entry launches on
 // the given stream and returns cudaGetLastError(); a refused launch never
 // runs, so the caller raises.
 
@@ -67,23 +75,43 @@
 using namespace fhe;
 
 // Ls = 0: the operands are [Ld, B, n] rows over dst; Ls = 1 .. 31: [Ls, B,
-// n] rows over src, converted on the way in.
+// n] rows over src, converted on the way in: from 4 in the kernel (lift
+// null), from any count staged (lift: a scratch of 4 (Ls + 1) B n words,
+// which ext_lift fills with each operand's Ls + 1 rows and the kernel then
+// reads; ops/ntt_cuda.py::lift_plan decides the form).
 extern "C" int fhe_tensor_mul4(const uint32_t* x0, const uint32_t* x1,
                                const uint32_t* y0, const uint32_t* y1,
                                long long sl0, long long sb0, long long sl1,
                                long long sb1, long long sl2, long long sb2,
-                               long long sl3, long long sb3, uint32_t* out,
-                               const uint32_t* ext, const uint32_t* tw,
-                               const uint32_t* tw_sh, const uint32_t* twinv,
-                               const uint32_t* twinv_sh, const uint32_t* cons,
-                               int Ls, int Ld, int B, int logn, int threads,
-                               int smem, cudaStream_t stream) {
+                               long long sl3, long long sb3, uint32_t* lift,
+                               uint32_t* out, const uint32_t* ext,
+                               const uint32_t* tw, const uint32_t* tw_sh,
+                               const uint32_t* twinv, const uint32_t* twinv_sh,
+                               const uint32_t* cons, int Ls, int Ld, int B,
+                               int logn, int threads, int smem,
+                               cudaStream_t stream) {
   const long long blocks = static_cast<long long>(Ld) * B;
-  if (Ls < 0 || Ls > kMaxSrc || Ld < 1 || B < 1 || blocks > INT_MAX) {
+  if (Ls < 0 || Ls > kMaxSrc || Ld < 1 || B < 1 || blocks > INT_MAX ||
+      logn < 7 || logn > kWideLogN) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Strides st{{sl0, sl1, sl2, sl3}, {sb0, sb1, sb2, sb3}};
   const int nb = static_cast<int>(blocks);
+  if (Ls > 0 && lift != nullptr) {
+    const int n = 1 << logn;
+    const LiftIn in{{x0, x1, y0, y1}, {sl0, sl1, sl2, sl3},
+                    {sb0, sb1, sb2, sb3}};
+    const int err = ext_lift(in, 4, lift, ext, Ls, B, n, 0, stream);
+    if (err != 0) return err;
+    // operand o's lift rows: (Ls + 1) B n words from lift + o (Ls + 1) B n
+    const long long total = static_cast<long long>(B) * n;
+    const long long blk = (Ls + 1) * total;
+    const Strides ls{{total, total, total, total}, {n, n, n, n}};
+    return tensor_mul4_staged(logn, threads, smem, nb, stream, lift,
+                               lift + blk, lift + 2 * blk, lift + 3 * blk, ls,
+                               out, ext, tw, tw_sh, twinv, twinv_sh, cons, Ls,
+                               Ld, B);
+  }
   switch (Ls) {
     case 0:
       return by_logn_wide<TensorMul4Launch<kNoSrc>>(
@@ -94,8 +122,6 @@ extern "C" int fhe_tensor_mul4(const uint32_t* x0, const uint32_t* x1,
           logn, threads, smem, nb, stream, x0, x1, y0, y1, st, out, ext, tw,
           tw_sh, twinv, twinv_sh, cons, Ls, Ld, B);
     default:
-      return tensor_mul4_generic(logn, threads, smem, nb, stream, x0, x1, y0,
-                                 y1, st, out, ext, tw, tw_sh, twinv, twinv_sh,
-                                 cons, Ls, Ld, B);
+      return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,7 +1,8 @@
-// K6 tensor_mul4's instances for the generic source count (LS = 0: any 1 ..
-// 31 source primes but 4), in a translation unit of their own so that they
-// compile beside the path's instances (csrc/tensor_mul4_cuda.cu, which
-// describes the kernel and holds its entry point).
+// K6 tensor_mul4's staged instances (LS = kStagedSrc: any 1 .. 31 source
+// primes, from the lift's rows), in a translation unit of their own so that
+// they compile beside the instances without a source basis and from 4
+// (csrc/tensor_mul4_cuda.cu, which describes the kernel and holds its entry
+// point).
 
 #include <cstdint>
 
@@ -9,7 +10,7 @@
 
 namespace fhe {
 
-int tensor_mul4_generic(int logn, int threads, int smem, int blocks,
+int tensor_mul4_staged(int logn, int threads, int smem, int blocks,
                         cudaStream_t stream, const uint32_t* x0,
                         const uint32_t* x1, const uint32_t* y0,
                         const uint32_t* y1, Strides st, uint32_t* out,
@@ -17,7 +18,7 @@ int tensor_mul4_generic(int logn, int threads, int smem, int blocks,
                         const uint32_t* tw_sh, const uint32_t* twinv,
                         const uint32_t* twinv_sh, const uint32_t* cons,
                         int Ls, int Ld, int B) {
-  return by_logn_wide<TensorMul4Launch<0>>(
+  return by_logn_wide<TensorMul4Launch<kStagedSrc>>(
       logn, threads, smem, blocks, stream, x0, x1, y0, y1, st, out, ext, tw,
       tw_sh, twinv, twinv_sh, cons, Ls, Ld, B);
 }

@@ -206,9 +206,10 @@ class Kernel:
     ``source`` is the CUDA file and ``replaces`` the TPU kernel it ports
     (file:line of the function that reaches ``pl.pallas_call``).  ``logn``
     is the range of ring degrees it takes (``log2_degree``), None for a
-    kernel without one.  A kernel with several layouts (K10) names them in
-    ``layouts`` (layout -> its source); ``by_layout`` counts the launches of
-    each, and ``launches`` all of them."""
+    kernel without one.  A kernel with several layouts (K10; K5 and K6, whose
+    conversion is direct or staged) names them in ``layouts`` (layout -> its
+    source); ``by_layout`` counts the launches of each, and ``launches`` all
+    of them."""
 
     def __init__(self, name: str, symbol: str, source: str, replaces: str,
                  *argtypes, logn: tuple | None = None,
@@ -270,17 +271,25 @@ KS_CONTRACT = Kernel("ks_contract", "fhe_ks_contract",
 BASE_EXTEND = Kernel("base_extend", "fhe_base_extend", _EXT_CU,
                      "fhe_study_tpu/ops/ext_pallas.py:133",
                      PTR, PTR, PTR, PTR, INT, INT, I64, INT, INT)
-EXT_NTT = Kernel("ext_ntt", "fhe_ext_ntt",
-                 "fhe_study_tpu_torch/csrc/ext_ntt_cuda.cu",
+# K5 and K6 convert from a source basis in one of two layouts
+# (ops/ntt_cuda.py::lift_plan): "direct", each word in the kernel from the
+# source rows (the counts with an instance), or "staged", the lift
+# (csrc/ext.cuh's ext_lift_kernel) first into a scratch, then the kernel
+# from its rows; one C call queues both launches, counted as one.
+_EXT_NTT_CU = "fhe_study_tpu_torch/csrc/ext_ntt_cuda.cu"
+EXT_NTT = Kernel("ext_ntt", "fhe_ext_ntt", _EXT_NTT_CU,
                  "fhe_study_tpu/ops/ntt_pallas.py:905",
-                 PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT,
-                 logn=RADIX_LOGN)
+                 PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT,
+                 logn=RADIX_LOGN,
+                 layouts={"direct": _EXT_NTT_CU, "staged": _EXT_NTT_CU})
 _MUL4_CU = "fhe_study_tpu_torch/csrc/tensor_mul4_cuda.cu"
-_TENSOR_MUL4_ARGS = (PTR, PTR, PTR, PTR, *([I64] * 8), *([PTR] * 7),
+_TENSOR_MUL4_ARGS = (PTR, PTR, PTR, PTR, *([I64] * 8), *([PTR] * 8),
                      *([INT] * 6))
 TENSOR_MUL4 = Kernel("tensor_mul4", "fhe_tensor_mul4", _MUL4_CU,
                      "fhe_study_tpu/ops/ntt_pallas.py:677",
-                     *_TENSOR_MUL4_ARGS, logn=RADIX_LOGN)
+                     *_TENSOR_MUL4_ARGS, logn=RADIX_LOGN,
+                     layouts={"direct": _MUL4_CU, "staged": (
+                         "fhe_study_tpu_torch/csrc/tensor_mul4_staged_cuda.cu")})
 # the stacked-operand form: the same __global__ function, fed row strides
 TENSOR_MUL = Kernel("tensor_mul", "fhe_tensor_mul4", _MUL4_CU,
                     "fhe_study_tpu/ops/ntt_pallas.py:604",
@@ -316,6 +325,12 @@ NTT_SMEM_CEILING = Kernel("ntt_smem_ceiling", "fhe_ntt_smem_ceiling",
 ALU_RATE = Kernel("alu_rate", "fhe_alu_rate", _BENCH_CU,
                   "fhe_study_tpu/ops/vpu_bench.py:86",
                   PTR, PTR, PTR, PTR, I64, INT, INT, U32, U32)
+# The lift alone (the first launch of K5's and K6's staged layout), for
+# holding it against ops/ext_cuda.py::lift_plain: no TPU kernel of its own,
+# so not one of KERNELS; K5 and K6 count its launches on their paths.
+EXT_LIFT = Kernel("ext_lift", "fhe_ext_lift", _EXT_CU,
+                  "fhe_study_tpu/ops/ntt_pallas.py:905",
+                  PTR, PTR, PTR, INT, INT, INT, INT)
 KERNELS = (NTT_MULTI, TENSOR_EVAL4, KS_CONTRACT, BASE_EXTEND, EXT_NTT,
            TENSOR_MUL4, TENSOR_MUL, KS_FUSED, KS_FUSED_EVAL, NTT,
            BLIND_ROTATE, BASE_EXTEND_SUM, NTT_SMEM_CEILING, ALU_RATE)

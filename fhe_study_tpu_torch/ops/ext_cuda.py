@@ -106,6 +106,29 @@ def lift_plain(x, src: tuple, centered: bool = False):
     return ys, alpha
 
 
+def lift_kernel(x, src: tuple, centered: bool = False):
+    """The lift (csrc/ext.cuh's ext_lift_kernel, which K5 and K6 launch
+    before their staged layout) alone, on a CUDA int32 x [Ls, ..., n]:
+    lift_plain's (ys, alpha) as int32, views of one [Ls + 1, ..., n] tensor
+    (its last row alpha), bit for bit.  4 consecutive coefficients a
+    thread where n % 4 == 0 and x is 16-byte aligned, one otherwise."""
+    _check_src(src)
+    dev = x.device
+    _cuda.check(x, "x", dev)
+    if x.ndim < 2 or x.shape[0] != len(src):
+        raise ValueError(f"x has shape {tuple(x.shape)}; need [{len(src)}, "
+                         "..., n]")
+    out = torch.empty((len(src) + 1,) + x.shape[1:], dtype=torch.int32,
+                      device=dev)
+    n = x.shape[-1]
+    if x.numel() > 0:
+        tab = kernel_table(tuple(src), (), None, dev)
+        _cuda.EXT_LIFT.launch(dev, x.data_ptr(), out.data_ptr(),
+                              tab.data_ptr(), len(src),
+                              x.numel() // (len(src) * n), n, int(centered))
+    return out[:-1], out[-1]
+
+
 def base_extend_sum_plain(ys, alpha, src: tuple, dst: tuple):
     """Plain int64 version of the second half: ys [Ls, ..., n] (below s_i),
     alpha [..., n] -> sum_i ys_i * (S/s_i) - alpha * S per dst prime,

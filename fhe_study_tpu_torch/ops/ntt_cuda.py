@@ -197,6 +197,45 @@ def _mul4_plan(logn: int, side: bool = False) -> RadixPlan:
     return plan
 
 
+# -- the conversion of K5 and K6 from a source basis -------------------------
+
+# The source counts whose instance converts each word inside the kernel
+# (ext_coeff<LS> of csrc/modarith.cuh, the y_i in registers): K5's (the
+# BFV Q basis's and the linear path's) and K6's (the BFV P basis from Q).
+# Every other count is staged: the lift (csrc/ext.cuh's ext_lift_kernel)
+# forms each operand's y_i and alpha once per polynomial into a scratch, and
+# the kernel forms each destination prime's sums from those rows.
+EXT_NTT_DIRECT = (2, 4)
+MUL4_DIRECT = (4,)
+
+
+class LiftPlan(NamedTuple):
+    staged: bool
+    shape: tuple        # the lift's scratch, int32 [operands, Ls + 1, B, n]
+                        # (rows 0 .. Ls - 1 the y_i, row Ls alpha); () direct
+    bytes: int
+
+
+def lift_plan(kernel, ls: int, batch: int, n: int) -> LiftPlan:
+    """The layout in which K5 (``_cuda.EXT_NTT``, one operand) or K6
+    (``_cuda.TENSOR_MUL4``, four) converts ``batch`` polynomials of n words
+    from ``ls`` source primes, and the scratch its wrapper allocates for the
+    staged layout."""
+    operands, direct = {_cuda.EXT_NTT: (1, EXT_NTT_DIRECT),
+                        _cuda.TENSOR_MUL4: (4, MUL4_DIRECT)}[kernel]
+    if ls in direct:
+        return LiftPlan(False, (), 0)
+    shape = (operands, ls + 1, batch, n)
+    return LiftPlan(True, shape, 4 * operands * (ls + 1) * batch * n)
+
+
+def _lift_scratch(plan: LiftPlan, device):
+    """(layout name, the scratch tensor or None) of a LiftPlan."""
+    if not plan.staged:
+        return "direct", None
+    return "staged", torch.empty(plan.shape, dtype=torch.int32, device=device)
+
+
 # -- plain versions ---------------------------------------------------------
 
 def _chain_plain(x, qs: tuple, inverse: bool):
@@ -461,7 +500,9 @@ def ks_contract_kernel(edm, kb, ka, primes: tuple):
 
 def ext_ntt_kernel(x, src: tuple, dst: tuple):
     """K5: one block per (dst prime, polynomial), on the register-resident
-    forward chain (``_radix_plan``); any source basis of 1 .. 31 primes."""
+    forward chain (``_radix_plan``); any source basis of 1 .. 31 primes,
+    direct or staged (``lift_plan``: the lift into a scratch first, in the
+    same C call)."""
     dev = x.device
     _cuda.check(x, "x", dev)
     ext_cuda._check_src(src)
@@ -478,9 +519,12 @@ def ext_ntt_kernel(x, src: tuple, dst: tuple):
     tab = ext_cuda.kernel_table(src, dst, None, dev)
     tw = _twiddles(dst, n, False, dev)
     plan = _radix_plan(logn)
-    _cuda.EXT_NTT.launch(dev, x.data_ptr(), out.data_ptr(), tab.data_ptr(),
-                         tw[0].data_ptr(), tw[1].data_ptr(), Ls, Ld, B, logn,
-                         plan.threads, plan.smem_bytes)
+    layout, lift = _lift_scratch(lift_plan(_cuda.EXT_NTT, Ls, B, n), dev)
+    _cuda.EXT_NTT.launch(dev, x.data_ptr(),
+                         None if lift is None else lift.data_ptr(),
+                         out.data_ptr(), tab.data_ptr(), tw[0].data_ptr(),
+                         tw[1].data_ptr(), Ls, Ld, B, logn, plan.threads,
+                         plan.smem_bytes, layout=layout)
     return out
 
 
@@ -503,12 +547,15 @@ def _tensor_mul4_launch(kernel, x0, x1, y0, y1, dst: tuple, scale, src):
     tw, twinv = (_chain_twiddles(dst, n, inv, dev) for inv in (False, True))
     cons = _prime_rows(dst, _tensor_fin(dst, n, scale), dev)
     plan = _mul4_plan(logn, side=True)
+    layout, lift = ("direct", None) if src is None else _lift_scratch(
+        lift_plan(kernel, len(src), B, n), dev)
     kernel.launch(dev, *(v.data_ptr() for v in views), *_row_strides(views),
-                  out.data_ptr(), None if tab is None else tab.data_ptr(),
+                  None if lift is None else lift.data_ptr(), out.data_ptr(),
+                  None if tab is None else tab.data_ptr(),
                   tw[0].data_ptr(), tw[1].data_ptr(), twinv[0].data_ptr(),
                   twinv[1].data_ptr(), cons.data_ptr(),
                   0 if src is None else len(src), Ld, B, logn, plan.threads,
-                  plan.smem_bytes)
+                  plan.smem_bytes, layout=layout if kernel.layouts else None)
     return out
 
 
@@ -517,7 +564,8 @@ def tensor_mul4_kernel(x0, x1, y0, y1, dst: tuple, scale=None, src=None):
     register-resident chain (``_mul4_plan``: MUL4_THREADS threads and three
     buffers; at n = 2^15 a cluster of two blocks, one half each).  Operands
     [Ld, B.., n], or [Ls, B.., n] over ``src`` with the extension src -> dst
-    run in the kernel; they may be strided views."""
+    run in the kernel, direct or staged (``lift_plan``); they may be
+    strided views."""
     return _tensor_mul4_launch(_cuda.TENSOR_MUL4, x0, x1, y0, y1, dst, scale,
                                src)
 

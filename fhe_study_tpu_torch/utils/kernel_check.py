@@ -404,8 +404,12 @@ def _offset_word(t: torch.Tensor) -> torch.Tensor:
 EXT_SWEEP_LS = (1, 2, 3, 4, 5, 15)      # K4's source counts in the sweep
 EXT_SWEEP_LD = (1, 4, 5)                # and its destination counts
 # the source counts past 15 (the 2^59 fixed-point sum of alpha past 2^63):
-# K4, K5 and K6 with a source basis from each, to 5 primes
+# K4 from each, to 5 primes
 WIDE_SWEEP_LS = tuple(range(16, ext.MAX_SRC + 1))
+# K5 and K6 with a source basis, and the lift alone, from every count (K5's
+# direct instances 2 and 4 and K6's 4; every other count staged), K5 and K6
+# to 5 primes
+CONV_SWEEP_LS = tuple(range(1, ext.MAX_SRC + 1))
 
 
 KS_SWEEP_R = (1, 2, 4, 9)               # K3's, K7's and K8's digit rows in
@@ -438,13 +442,18 @@ def radix_cases(logn: int, batch: int, device, gen: prng.Gen) -> list:
       K3: KS_SWEEP_R digit rows over each of KS_SWEEP_LP primes, and the
           word-by-word form (edm one word off the alignment) at R = 2; at
           n = 2^KS_MAPS_LOGN also KS_MAPS_R rows over KS_MAPS_LP primes;
-      K5: from 2 and 4 source primes (the counts it instantiates) and from
-          1, 3 and 5 and each of WIDE_SWEEP_LS (its generic form) to 5
+      K5: from each of CONV_SWEEP_LS source primes (2 and 4: its direct
+          instances; the others: its staged layout, the lift first) to 5
           destination primes;
       K6: over Q with a scale and without, the stacked operand of
           tensor_mul (row strides), rows that are not 16-byte aligned, and
-          from 1 to 5 and each of WIDE_SWEEP_LS source primes (4: its own
-          instance; the others: the generic one) to 5 destination primes;
+          from each of CONV_SWEEP_LS source primes (4: its direct instance;
+          the others: its staged layout) to 5 destination primes;
+      the lift alone (ext_lift, which K5 and K6 launch before their staged
+          layout): from each of CONV_SWEEP_LS source primes, unsigned and
+          centered on [Ls, batch, n] (its vector form), and on rows of
+          n - 1 and on an x one word off the 16-byte alignment (its word
+          form);
       K7, K8: KS_SWEEP_R limb rows over 30-bit source primes to each of
           KS_SWEEP_LP 28-bit primes (reps >= 2), plus KS_BOOT_R rows to 2
           primes at n = 2^KS_BOOT_LOGN and KS_MAPS_R rows of its first
@@ -515,11 +524,21 @@ def radix_cases(logn: int, batch: int, device, gen: prng.Gen) -> list:
     out += [compared("tensor_eval4", label, nc.tensor_eval4_kernel,
                      nc.tensor_eval4_plain, *ops, qs, scale=scale)
             for label, ops in operands.items()]
-    for ls in (1, 2, 3, 4, 5) + WIDE_SWEEP_LS:
+    for ls in CONV_SWEEP_LS:
         src = (qs + primes[9:])[:ls] if ls <= 5 else apart[ls]
         out.append(compared("ext_ntt", f"{ls} -> {len(ps)} primes",
                             nc.ext_ntt_kernel, nc.ext_ntt_plain,
                             res(src, (batch, n)), src, ps))
+    for ls in CONV_SWEEP_LS:
+        src = apart[ls]
+        x = res(src, (batch, n))
+        for label, row, centered in (
+                ("unsigned", x, False), ("centered", x, True),
+                ("rows of n - 1", res(src, (batch, n - 1)), False),
+                ("x one word off", _offset_word(x), True)):
+            out.append(compared("ext_lift", f"{ls} primes, {label}",
+                                ext.lift_kernel, _lift_plain32, row, src,
+                                centered))
     for lp in KS_SWEEP_LP:
         basis = primes[:lp]
         for R in KS_SWEEP_R:
@@ -597,7 +616,7 @@ def radix_cases(logn: int, batch: int, device, gen: prng.Gen) -> list:
                             nc.tensor_mul_kernel, nc.tensor_mul_plain, quad,
                             qs, scale=scale))
         scale_p = tuple(range(7, 7 + len(ps)))
-        for ls in (1, 2, 3, 4, 5) + WIDE_SWEEP_LS:
+        for ls in CONV_SWEEP_LS:
             src = (qs + primes[9:])[:ls] if ls <= 5 else apart[ls]
             out.append(compared("tensor_mul4",
                                 f"{ls} -> {len(ps)} primes, scale",
@@ -670,6 +689,42 @@ def radix_cases(logn: int, batch: int, device, gen: prng.Gen) -> list:
             "and alpha", ext.base_extend_sum_kernel,
             ext.base_extend_sum_plain, _offset_word(ys), _offset_word(alpha),
             src, dst))
+    return out
+
+
+def _lift_plain32(x, src: tuple, centered: bool = False) -> tuple:
+    """ext_cuda.lift_plain's (ys, alpha) as int32, the lift kernel's
+    dtype."""
+    return tuple(t.int() for t in ext.lift_plain(x, src, centered))
+
+
+def lift_cases(param, batch: int, device, gen: prng.Gen, res=None) -> list:
+    """The lift alone (ext_cuda.lift_kernel) on the operands that the
+    paths' K5 (to_evals and mul_e: the [L, batch, 2, n] pair Q -> P) and K6
+    (mul: each [L, batch, n] operand Q -> P) convert in their staged layout
+    (ops/ntt_cuda.py::lift_plan), where they take it, against its plain
+    version: L words read and L + 1 written a coefficient, L Shoup products
+    and fixed-point multiply-adds."""
+    qs, n = param.qs, param.n
+    if res is None:
+        def res(primes, shape):
+            return prng.uniform_mod_multi(gen, shape, primes, device)
+    L = len(qs)
+    shapes = []
+    if nc.lift_plan(_cuda.EXT_NTT, L, 2 * batch, n).staged:
+        shapes.append(("K5's Q->P", (batch, 2, n)))
+    if takes("tensor_mul4", n) and nc.lift_plan(_cuda.TENSOR_MUL4, L, batch,
+                                                n).staged:
+        shapes.append(("K6's Q->P, one operand", (batch, n)))
+    out = []
+    for label, shape in shapes:
+        x = res(qs, shape)
+        rows = math.prod(shape)
+        dims = ", ".join(map(str, (L,) + shape))
+        out.append(_pair("ext_lift", f"{label} [{dims}]",
+                         4 * (2 * L + 1) * rows,
+                         rows * L * (SHOUP_OPS + WIDE_MAC_OPS),
+                         ext.lift_kernel, _lift_plain32, x, qs))
     return out
 
 

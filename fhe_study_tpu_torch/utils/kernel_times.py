@@ -2,7 +2,7 @@
 """Time each CUDA kernel of the PyTorch port at the paths' shapes.
 
     python3 fhe_study_tpu_torch/utils/kernel_times.py [--tree DIR] [--batch 128]
-        [--degree15]
+        [--degree15 | --conversion | --paths]
 
 Times one call of every case of ``utils/kernel_check.cases`` (N = 2^14,
 L = 4, M = 5, t = 256), of ``linear_cases`` (N = 2^12, L = 2, M = 3, 1024
@@ -61,6 +61,23 @@ of ``kernel_check.cases`` there (the one-buffer kernels and K4, operands
 drawn on the card), K12's full-card ceiling at n = 2^15, and a chain of 4
 ``mul_e`` with the hybrid key (best of 3, its output decrypt-checked), as ms
 an op and ct-mul/s.
+
+``--conversion`` times K5 (ext_ntt) and K6 (tensor_mul4) converting from a
+wide source basis at N = 2^15, B = ``--batch``: K5 Q -> P on the [L, B, 2,
+n] pair and K6 over P from the four [L, B, n] operands, at L = 14 (M = 15)
+and L = 29 (M = 30), each on the device alone beside its bound (the least
+work of ``kernel_check.cases``) and beside the composition of kernels that
+gives the same output, held equal to it first: K4 (base_extend) then K1
+(ntt_multi), and K4 on the four operands stacked then K6 over P without a
+source basis.  Where the tree has the staged layout
+(``ops/ntt_cuda.py::lift_plan``) it also times the lift alone on K5's
+operand, and K5 and K6 at N = 2^14, L = 4, M = 5 in their direct instance
+and forced into the staged layout (outputs held equal).
+
+``--paths`` times only the BFV chains: those of phase 6 above (N = 2^14)
+and chip_smoke.py's phase 20 ops at N = 128, t = 16, L = 3, M = 4,
+B = 128 (``mul_e`` and ``mul`` with either key, ``key_switch``), as ms an
+op, best of 3.
 """
 
 import argparse
@@ -79,6 +96,8 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--degree15", action="store_true")
+    ap.add_argument("--conversion", action="store_true")
+    ap.add_argument("--paths", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("kernel_times: no CUDA card")
@@ -98,6 +117,15 @@ def main() -> None:
     gen = prng.Gen(1)
     if args.degree15:
         degree15(args, card)
+        return
+    if args.conversion:
+        conversion(args, card)
+        return
+    if args.paths:
+        per_op = {**bfv_chains(R, dev, 4), **small_chains(R, dev, 4)}
+        print(f"paths {args.tree} [{card}]: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in per_op.items())
+              + " ms an op", flush=True)
         return
     param = R.RnsParam(n=1 << 14, t=256, L=4, M=5)
     cases = kernel_check.cases(param, args.batch, dev, gen)
@@ -240,6 +268,111 @@ def degree15(args, card: str) -> None:
     print(f"degree15 chain {args.tree} [{card}]: mul_e (HRLK) {ms:.4f} ms an "
           f"op = {B * 1e3 / ms:.1f} ct-mul/s (a chain of 4, best of 3; one "
           f"op decrypt-checked)", flush=True)
+
+
+CONVERSION_REPS = 3
+
+
+def conversion(args, card: str) -> None:
+    """The --conversion run (see the module docstring)."""
+    from fhe_study_tpu_torch.models import bfv_rns as R
+    from fhe_study_tpu_torch.ops import ext_cuda
+    from fhe_study_tpu_torch.ops import ntt_cuda as nc
+    from fhe_study_tpu_torch.utils import kernel_check as kc
+    from fhe_study_tpu_torch.utils import prng
+    dev = torch.device("cuda", 0)
+    B, reps = args.batch, CONVERSION_REPS
+    bound_of = card_bound(kc, dev)
+    busy = torch.zeros(1 << 28, dtype=torch.int32, device=dev)
+
+    def timed(label, fn, nbytes, ops):
+        fn()
+        ms, _ = events_ms(fn, reps, busy)
+        b = bound_of(kc.Case("", "", fn, fn, nbytes, ops))
+        share = ("" if b is None else f", bound {b.ms:.4f} ms by {b.term}, "
+                 f"{b.ms / ms:.3f} of it")
+        print(f"conversion {args.tree} [{card}]: {label}: on the device "
+              f"alone {ms:.4f} ms{share}", flush=True)
+
+    def held(label, kern, comp):
+        if not kc.equal(kern(), comp()):
+            raise RuntimeError(f"conversion: {label} != the kernel's output")
+
+    for L in (14, 29):
+        param = R.RnsParam(n=1 << 15, t=256, L=L, M=L + 1)
+        qs, ps, n, M = param.qs, param.ps, param.n, L + 1
+        res = prng.device_residues(L, dev)
+        x2 = res(qs, (B, 2, n))
+        ct = [res(qs, (B, n)) for _ in range(4)]
+        t_p = (param.t,) * M
+        rows, tw = B * n, 2 * n
+        shape = f"L={L} M={M} B={B} n={n}"
+
+        def k6_comp():
+            e = ext_cuda.base_extend_fused_kernel(torch.stack(ct, dim=-2),
+                                                  qs, ps)
+            return nc.tensor_mul4_kernel(*(e[..., i, :] for i in range(4)),
+                                         ps, scale=t_p)
+
+        k5 = (lambda: nc.ext_ntt_kernel(x2, qs, ps))
+        k5_comp = (lambda: nc.ntt_multi_kernel(
+            ext_cuda.base_extend_fused_kernel(x2, qs, ps), ps))
+        k6 = (lambda: nc.tensor_mul4_kernel(*ct, ps, scale=t_p, src=qs))
+        held(f"K4 + K1 at {shape}", k5, k5_comp)
+        held(f"K4 + K6 over P at {shape}", k6, k6_comp)
+        # the least work of each (kernel_check.cases's "Q->P" and "P basis,
+        # Q->P inside"), which its composition does too
+        k5_words = 2 * (L + M) * rows + tw * M
+        k5_ops = kc._ext_ops(2 * rows, L, M) + kc._ntt_ops(n, 2 * M * B)
+        timed(f"K5 ext_ntt Q->P [{L}, {B}, 2, {n}]", k5, 4 * k5_words,
+              k5_ops)
+        timed(f"K4 + K1 (the same output) at {shape}", k5_comp,
+              4 * k5_words, k5_ops)
+        k6_words = 4 * L * rows + 3 * M * rows + 2 * tw * M
+        k6_ops = (kc._ntt_ops(n, 7 * M * B) + M * rows * (
+            4 * kc.MONT_OPS + kc.ADD_OPS + 3 * kc.SHOUP_OPS)
+            + kc._ext_ops(4 * rows, L, M))
+        timed(f"K6 tensor_mul4 over P from {L} sources, four [{L}, {B}, "
+              f"{n}]", k6, 4 * k6_words, k6_ops)
+        timed(f"K4 + K6 over P (the same output) at {shape}", k6_comp,
+              4 * k6_words, k6_ops)
+        if hasattr(nc, "lift_plan"):
+            timed(f"the lift alone on K5's [{L}, {B}, 2, {n}]",
+                  lambda: ext_cuda.lift_kernel(x2, qs),
+                  4 * (2 * L + 1) * 2 * rows,
+                  2 * rows * L * (kc.SHOUP_OPS + kc.WIDE_MAC_OPS))
+        del x2, ct, k5, k6, k5_comp
+        torch.cuda.empty_cache()
+    if not hasattr(nc, "lift_plan"):
+        return
+    # the direct instances against the staged layout where both take the
+    # source count: phase 3's L = 4 at N = 2^14
+    param = R.RnsParam(n=1 << 14, t=256, L=4, M=5)
+    qs, ps, n = param.qs, param.ps, param.n
+    res = prng.device_residues(4, dev)
+    x2 = res(qs, (B, 2, n))
+    ct = [res(qs, (B, n)) for _ in range(4)]
+    t_p = (param.t,) * 5
+    want = None
+    for form in ("direct", "staged", "direct again", "staged again"):
+        saved = nc.EXT_NTT_DIRECT, nc.MUL4_DIRECT
+        if form.startswith("staged"):
+            nc.EXT_NTT_DIRECT, nc.MUL4_DIRECT = (), ()
+        try:
+            calls = (("K5 Q->P", lambda: nc.ext_ntt_kernel(x2, qs, ps)),
+                     ("K6 over P from Q", lambda: nc.tensor_mul4_kernel(
+                         *ct, ps, scale=t_p, src=qs)))
+            got = tuple(fn() for _, fn in calls)
+            want = got if want is None else want
+            if not kc.equal(got, want):
+                raise RuntimeError(f"conversion: {form} != direct at L=4")
+            for label, fn in calls:
+                ms, _ = events_ms(fn, 10, busy)
+                print(f"conversion {args.tree} [{card}]: L=4 M=5 B={B} "
+                      f"n={n}: {label}, {form}: on the device alone "
+                      f"{ms:.4f} ms", flush=True)
+        finally:
+            nc.EXT_NTT_DIRECT, nc.MUL4_DIRECT = saved
 
 
 def ext_sum_bfv(kernel_check, dev, gen) -> list:
@@ -501,6 +634,12 @@ def bfv_chains(R, dev, chain: int) -> dict:
         "linear step": (lambda c: R.mul_pt_e(lin, R.add_e(lin, c, le[1]),
                                              lem), le[0]),
     }
+    return _chain_ms(steps, chain)
+
+
+def _chain_ms(steps: dict, chain: int) -> dict:
+    """ms an op of each (step, start) of ``steps`` as a chain of ``chain``,
+    best of 3."""
     out = {}
     for label, (step, start) in steps.items():
         def run():
@@ -509,6 +648,30 @@ def bfv_chains(R, dev, chain: int) -> dict:
                 c = step(c)
         out[label] = best_of_3(run) / chain
     return out
+
+
+def small_chains(R, dev, chain: int) -> dict:
+    """ms an op of chip_smoke.py's phase 20 ops at N = 128, t = 16, L = 3,
+    M = 4, B = 128: mul_e and mul with either key, chained, and key_switch
+    called ``chain`` times on one ciphertext; best of 3."""
+    from fhe_study_tpu_torch.utils import prng
+    gen = prng.Gen(20)
+    param = R.RnsParam(n=128, t=16, L=3, M=4)
+    sk, pk = R.new_key(gen, param, dev)
+    sk2, _ = R.new_key(gen, param, dev)
+    hk, rlk = R.hybrid_rlk1(gen, param, sk), R.rlk_key(gen, param, sk)
+    ksk = R.ksk_key(gen, param, sk, sk2)
+    c1, c2 = (R.encrypt(gen, param, pk,
+                        torch.randint(0, 16, (128, param.n), device=dev),
+                        batch=(128,)) for _ in range(2))
+    x, y = R.to_evals(param, c1), R.to_evals(param, c2)
+    return _chain_ms({
+        "n=128 mul_e (HRLK)": (lambda c: R.mul_e(param, hk, c, y), x),
+        "n=128 mul_e (RLK)": (lambda c: R.mul_e(param, rlk, c, y), x),
+        "n=128 mul (RLK)": (lambda c: R.mul(param, rlk, c, c2), c1),
+        "n=128 mul (HRLK)": (lambda c: R.mul(param, hk, c, c2), c1),
+        "n=128 key_switch": (lambda c: R.key_switch(param, ksk, c1), c1),
+    }, chain)
 
 
 if __name__ == "__main__":

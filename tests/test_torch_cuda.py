@@ -51,19 +51,22 @@ def test_radix_kernels_match_plain_at_every_degree(cuda, logn):
     both ways under a 30-bit and a 31-bit prime, on aligned and word-offset
     int64 rows; K12 over 0, 1 and 3 transforms; K2
     on contiguous, strided and unaligned rows; K3 from 1, 2, 4 and 9 digit
-    rows over 2 and 6 primes, aligned and not; K5 from every source count it
-    instantiates and its generic form; K6 with and without a scale, on
-    strided, stacked and unaligned rows, from 1..5 source primes; K7 and K8
+    rows over 2 and 6 primes, aligned and not; K5 from every source count
+    1..31 (2 and 4 direct, the others staged); K6 with and without a scale,
+    on strided, stacked and unaligned rows, from 1..31 source primes (4
+    direct, the others staged); the lift alone from 1..31, unsigned and
+    centered, in its vector and word forms; K7 and K8
     from 1, 2, 4 and 9 limb rows (39 at n = 2^11) over 2 and 6 narrower
     primes, on the paths' strided views and one word off; K3, K7 and K8 at
     R = 43 over the 45 primes of Q u P at n = 2^12), K4 from 1..5, 15 and
     16..31 source primes and K11 from every source count 1..31, each in its
-    vector and word forms (K5 and K6 also from 16..31); at n = 2^15 K6, K7
-    and K8 on two-block clusters."""
+    vector and word forms; at n = 2^15 K6, K7 and K8 on two-block
+    clusters."""
     gen = prng.Gen(11)
     cases = kernel_check.radix_cases(logn, 3, cuda, gen)
     one = {"ntt_multi", "tensor_eval4", "ks_contract", "ext_ntt",
-           "base_extend", "ntt", "ntt_smem_ceiling", "base_extend_sum"}
+           "base_extend", "ntt", "ntt_smem_ceiling", "base_extend_sum",
+           "ext_lift"}
     three = {"tensor_mul4", "tensor_mul", "ks_fused", "ks_fused_eval"}
     assert {c.name for c in cases} == one | three
     for case in cases:
@@ -75,7 +78,8 @@ def test_radix_kernels_match_plain_at_every_degree(cuda, logn):
 def test_radix_kernels_have_no_stack_frame_or_spills(cuda):
     """Every instance of the redesigned kernels: K2, K3, K7, K8 and K12 per
     log n 2^7 .. 2^15, K1 and K9 (both ways) per log n, K5 and K6 per log n
-    and source count form, K4 and K11 per source count 1 .. 31 and form,
+    and source form (K5: 2, 4, staged; K6: none, 4, staged), the lift in its
+    two forms, K4 and K11 per source count 1 .. 31 and form,
     K10's clusters per log n 2^7 .. 2^12, staged and direct, and its
     device-memory layout's forward and inverse kernels per log n 2^7 ..
     2^15."""
@@ -84,7 +88,7 @@ def test_radix_kernels_have_no_stack_frame_or_spills(cuda):
               "ks_fused_kernel": 9, "ks_fused_eval_kernel": 9,
               "ext_ntt_kernel": 9 * 3, "tensor_mul4_kernel": 9 * 3,
               "ntt_multi_kernel": 9 * 2, "base_extend_kernel": 31 * 2,
-              "base_extend_sum_kernel": 31 * 2,
+              "base_extend_sum_kernel": 31 * 2, "ext_lift_kernel": 2,
               "blind_rotate_kernel": 6 * 2, "br_forward_kernel": 9,
               "br_inverse_kernel": 9, "ntt_kernel": 9 * 2,
               "ntt_smem_ceiling_kernel": 9}

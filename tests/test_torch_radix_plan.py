@@ -593,7 +593,8 @@ SRC_PRIMES = ntt_primes(5, 30, 1 << 16, skip=len(WIDE_PRIMES))
 @pytest.mark.parametrize("logn", THREE_LOGNS)
 def test_k6_schedule_equals_plain(logn):
     """Over the destination prime, and from source bases of 4 primes (the
-    BFV P basis's instance) and of 1 + log n mod 5 (the generic one)."""
+    BFV P basis's direct instance) and of 1 + log n mod 5 (the staged
+    layout, the same words from the lift's rows)."""
     n = 1 << logn
     rng = np.random.default_rng(300 + logn)
     q = _primes(logn)[logn % 3]
