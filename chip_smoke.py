@@ -31,7 +31,9 @@ RNS-BFV at N = 128, t = 16, L = 3, M = 4, B = 128, TFHE at N = 128, K = 1,
 t = 8, gadget 256^3, B = 64, and RNS-BFV and RNS-CKKS at N = 64, below the
 kernels' gate, and TFHE's keyswitch-first bootstrap past a block's shared
 memory: N = 4096, gadget 2^11 x 2, and N = 2^15, gadget 2^8 x 3, over a
-short key of 400, B = 64.
+short key of 400, B = 64, and past one block's polynomial at N = 2^16,
+gadget 2^6 x 5 (the reference's gate there with the widest top-bits gadget
+that decodes), over the same short key, B = 64.
 Phases, each of which raises (and so exits non-zero) on any failure:
 
   1. toolchain and card: torch, CUDA, nvcc; the kernels built from csrc/;
@@ -264,7 +266,23 @@ Phases, each of which raises (and so exits non-zero) on any failure:
      rotation == the step-by-step chain's (torch.equal), a chain of 3 timed
      beside one step-by-step bootstrap, peak device memory with the keys
      resident; K10 on the device alone beside its bound and its layout's
-     own bound at a, b and N = 1024 in both layouts.  Each
+     own bound at a, b and N = 1024 in both layouts;
+ 22. slice 15, past one block's polynomial: TFHE bootstrap_short at
+     N = 2^16, K = 1, beta = 2^6, l = 5, n_lwe = 400, key switch 16^8,
+     B = 64: keys built on the card (K9 at 2^16 across blocks; the key
+     bytes, the peak memory and the build's seconds printed), t the largest
+     power of two from 1024 down whose 64 messages all decode with margin
+     (the largest phase error at most half of half a slot), every message
+     decoded, the fused chain (one launch of K10's grid layout) == the
+     step-by-step chain (K1 at 2^16) bit for bit, no plain version run on
+     the card at 2^16 (the plain functions wrapped and counted), the
+     launches by kernel and by layout, a chain of 3 timed, K10 on the
+     device alone at the path's 400 steps beside its bound and its own
+     traffic, and K1, K9 and K10 at the path's shapes against plain and
+     timed beside their bounds (K10 at 16 steps).  Phase 2 also holds K1
+     and K9 at 2^16, 2^17, 2^20, 2^22 and 2^26 on batches of 1 to 3, and
+     K10's grid layout at every (C, l, w) of the reference's gate at 2^16
+     and one shape at each n from 2^17 to 2^22, against plain.  Each
      phase prints its wall time and the device memory still held as it
      ends.
 
@@ -357,6 +375,14 @@ S_CK_DELTA, S_CK_MUL_ATOL, S_CK_ROT_ATOL = 2.0 ** 25, 1e-2, 2e-3
 # w l = 22 and 24 bits leaves a rotation error of about 2^56 and 2^57.6)
 P21_CONFIGS = (("a", 1 << 12, 64, 1 << 11, 2), ("b", 1 << 15, 16, 1 << 8, 3))
 P21_N_LWE = 400
+# phase 22, slice 15: bootstrap_short past one block's polynomial, (N, beta,
+# l) within the reference's gate ((K+1) l N beta = 2 * 5 * 2^16 * 2^6 <
+# 2^26, the widest top-bits gadget that decodes: w l = 30); the powers of
+# two tried for t, largest first; a CMux step count for the record's K10
+# row, whose plain chain is timed (400 steps take half a minute there)
+P22_N, P22_BETA, P22_L = 1 << 16, 1 << 6, 5
+P22_TS = (1024, 512, 256, 128, 64, 32)
+P22_ROW_STEPS = 16
 CEILING_REPS, ALU_ROUNDS = 64, 1 << 16
 # the bound (utils/kernel_check.bound) takes the SM count and the maximum SM
 # clock that the card in hand reports; each alu_rate loop must issue at
@@ -371,10 +397,21 @@ ALU_SHORT_ROUNDS = 1024      # the timed alu_rate launch is held in such pieces
 RADIX_KERNELS = {"ntt_multi", "tensor_eval4", "ks_contract", "ext_ntt",
                  "base_extend", "tensor_mul4", "tensor_mul", "ks_fused",
                  "ks_fused_eval", "ntt", "blind_rotate", "ntt_smem_ceiling",
-                 "base_extend_sum", "br_forward", "br_inverse", "ext_lift"}
+                 "base_extend_sum", "br_forward", "br_inverse", "ext_lift",
+                 "ntt_top", "ntt_chunk", "brg_top_forward",
+                 "brg_chunk_inverse", "brg_top_inverse", "brg_top_last"}
+# K10's kernels by layout: the clusters', the device-memory layout's and
+# the grid layout's (past 2^15)
+K10_KERNELS = {"blind_rotate_kernel": "cluster", "br_forward_kernel": "device",
+               "br_inverse_kernel": "device",
+               "brg_top_forward_kernel": "grid",
+               "brg_chunk_inverse_kernel": "grid",
+               "brg_top_inverse_kernel": "grid", "brg_top_last_kernel": "grid"}
 # the kernels' JSON record has one row per entry of _cuda.KERNELS, K10's
-# (its cluster layout) followed by one for its device-memory layout
+# (its cluster layout) followed by one for its device-memory layout and one
+# for its grid layout
 DM_ROW = "blind_rotate_dm"
+GRID_ROW = "blind_rotate_grid"
 # the lift (_cuda.EXT_LIFT), held against plain beside them: K5 and K6
 # launch it in their staged layout and count it as their own launch
 LIFT = "ext_lift"
@@ -469,7 +506,7 @@ def main() -> None:
     from fhe_study_tpu_torch.models import hybrid_ks as H
     from fhe_study_tpu_torch.models.ckks import ckks_rns as C
     from fhe_study_tpu_torch.models.gfhe.glwe import ERR_SIGMA, Param
-    from fhe_study_tpu_torch.models.tfhe import bootstrap, tglwe, tlwe
+    from fhe_study_tpu_torch.models.tfhe import bootstrap, tggsw, tglwe, tlwe
     from fhe_study_tpu_torch.ops import (_cuda, alu_bench, ext_cuda, ntt,
                                          ntt_cuda)
     from fhe_study_tpu_torch.ops.primes import ntt_primes
@@ -481,11 +518,13 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     marks = [wall0]
     record_rows = [r for k in _cuda.KERNELS for r in (
-        (k.name, DM_ROW) if k is _cuda.BLIND_ROTATE else (k.name,))]
+        (k.name, DM_ROW, GRID_ROW) if k is _cuda.BLIND_ROTATE
+        else (k.name,))]
 
     def row(case) -> str:
         """The record's row of a case: K10's by its layout."""
-        return DM_ROW if case.layout == "device" else case.name
+        return {"device": DM_ROW, "grid": GRID_ROW}.get(case.layout,
+                                                       case.name)
 
     def phase_done(label: str) -> None:
         marks.append(time.perf_counter())
@@ -533,18 +572,20 @@ def main() -> None:
             f"{r.get('stack')} bytes stack frame, {r.get('spill_stores')} "
             f"bytes spill stores, {r.get('spill_loads')} bytes spill loads")
     k10_entries = [r for r in radix_entries
-                   if r["kernel"].startswith(("blind_rotate_kernel<",
-                                              "br_forward_kernel<",
-                                              "br_inverse_kernel<"))]
+                   if r["kernel"].split("<")[0] in K10_KERNELS]
     k10_layouts = {r["kernel"].split("<")[0] for r in k10_entries}
-    if spilled or not radix_entries or len(k10_layouts) != 3:
-        raise RuntimeError(f"ptxas gave a stack frame or spills to {spilled}: "
+    if spilled or not radix_entries or k10_layouts != set(K10_KERNELS):
+        raise RuntimeError(f"ptxas gave a stack frame or spills to {spilled} "
+                           f"(K10's kernels built: {sorted(k10_layouts)}): "
                            "the redesigned kernels must keep their words "
                            "in registers")
     say(f"ptxas: no stack frame and no spills in the {len(radix_entries)} "
         f"instances of {sorted(RADIX_KERNELS)} ({len(k10_entries)} of "
-        f"blind_rotate: its clusters' blind_rotate_kernel, and br_forward "
-        f"and br_inverse of its device-memory layout)")
+        f"blind_rotate: its clusters' blind_rotate_kernel, br_forward and "
+        f"br_inverse of its device-memory layout, and the four kernels of "
+        f"its grid layout; the transforms past a block: "
+        f"{sum(r['kernel'].startswith(('ntt_top', 'ntt_chunk')) for r in radix_entries)} "
+        f"instances of ntt_top_kernel and ntt_chunk_kernel)")
     say(f"build: seconds a unit (compiled in parallel), then the link: "
         f"{_cuda.build_seconds(_cuda.build_log())}")
     lift_entries = [r for r in ptxas if r["kernel"].startswith("ext_lift")]
@@ -596,7 +637,7 @@ def main() -> None:
     # take: each log n has its own pass structure (K6-K8 at 2^15 on two-block
     # clusters)
     radix_checked = 0
-    for logn in _cuda.NTT_MULTI.degrees:
+    for logn in _cuda.KS_CONTRACT.degrees:
         for case in kernel_check.radix_cases(logn, RADIX_BATCH, dev, gen):
             got, want = case.kernel(), case.plain()
             torch.cuda.synchronize()
@@ -634,17 +675,88 @@ def main() -> None:
         f"{RADIX_BATCH}: {radix_checked} variants")
     # K10 in both layouts at every ring degree it takes, on batches beyond
     # the clusters the card holds at once
-    k10_checked = dict.fromkeys(("cluster", "device"), 0)
+    k10_checked = dict.fromkeys(("cluster", "device", "grid"), 0)
     t0 = time.perf_counter()
     for case in kernel_check.blind_rotate_sweep(dev, gen):
         got, want = case.kernel(), case.plain()
         torch.cuda.synchronize()
         check(case, got, want)
         k10_checked[case.layout] += 1
+    t_block = time.perf_counter() - t0
+    # past 2^15: K10's grid layout at every (C, l, w) of the reference's
+    # gate at 2^16 and one shape at each larger n; K1 and K9 across blocks;
+    # each new shape also timed (its kernel, best of 3) beside its bound and
+    # the bound of its own traffic (the top passes' words; K10's a step,
+    # kernel_check.cmux_step_bytes)
+    shares = {}
+
+    def own_bytes(case) -> tuple:
+        """(n, the bytes of the kernel's own traffic) of a case past one
+        block: K10's steps (kernel_check.cmux_step_bytes), K1's and K9's
+        inputs and outputs and their top passes' words."""
+        if case.name == "blind_rotate":
+            shifts, acc0, ev1 = case.args[:3]
+            n = case.args[6]
+            steps, B = shifts.shape
+            return n, steps * sum(kernel_check.cmux_step_bytes(
+                n, acc0.shape[1], ev1.shape[2], B, layout="grid").values())
+        n = case.n
+        return n, case.bytes + kernel_check.top_pass_bytes(
+            n, case.butterflies // ((n // 2) * (n.bit_length() - 1)))
+
+    def share(case) -> None:
+        k_ms = min(time_ms(case.kernel, 1, warmup=0) for _ in range(3))
+        n, own = own_bytes(case)
+        b, bo = bound(case.bytes, case.ops), bound(own, case.ops)
+        if k_ms < b.ms:
+            raise RuntimeError(f"{case.name} [{case.label}]: the kernel's "
+                               f"{k_ms:.4f} ms is under its bound {b}")
+        shares.setdefault((case.name, n), []).append(
+            (k_ms, b.ms / k_ms, bo.ms / k_ms))
+
+    t1 = time.perf_counter()
+    for case in kernel_check.blind_rotate_grid_sweep(dev, SEED + 70):
+        got, want = case.kernel(), case.plain()
+        torch.cuda.synchronize()
+        check(case, got, want)
+        share(case)
+        k10_checked[case.layout] += 1
+    t2 = time.perf_counter()
+    wide_checked = {}
+    for case in kernel_check.wide_transform_cases(dev, SEED + 71):
+        got, want = case.kernel(), case.plain()
+        torch.cuda.synchronize()
+        check(case, got, want)
+        share(case)
+        wide_checked[case.name] = wide_checked.get(case.name, 0) + 1
+    del case, got, want
+    for (name, n), rs in sorted(shares.items()):
+        ks, bs, os_ = zip(*rs)
+        say(f"timing: {name} at n = {n} (phase 2's shapes, kernel alone, "
+            f"best of 3): {len(rs)} variants, {min(ks):.4f} .. "
+            f"{max(ks):.4f} ms, {min(bs):.3f} .. {max(bs):.3f} of the bound, "
+            f"{min(os_):.3f} .. {max(os_):.3f} of the bound of its own "
+            f"traffic [{card}]")
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    say(f"parity: past one block, ntt_multi (forward with and without fin, "
+        f"inverse with n^-1 and with fin, contiguous and word-offset rows) "
+        f"and ntt (both ways under each prime, aligned and word-offset int64 "
+        f"rows) == plain (torch.equal) at n = 2^"
+        f"{kernel_check.WIDE_SWEEP_LOGNS} on batches "
+        f"{kernel_check.WIDE_SWEEP_B}: {wide_checked} variants in "
+        f"{t3 - t2:.1f} s; blind_rotate's grid layout at "
+        f"every (C, l, w) of the reference's gate at "
+        f"n = 2^{kernel_check.BR_GRID_LOGN} "
+        f"({len(kernel_check.gate_shapes(1 << kernel_check.BR_GRID_LOGN))} "
+        f"shapes; (steps, B) in turn from {kernel_check.BR_GRID_RUNS}) and at "
+        f"(log n, C, l) in {kernel_check.BR_GRID_WIDER} at the gate's widest "
+        f"digit, key planes one word off at the first shape of each (n, C): "
+        f"{k10_checked['grid']} variants in {t2 - t1:.1f} s")
     say(f"parity: blind_rotate == plain (torch.equal) for C in "
         f"{kernel_check.BR_SWEEP_C}, l in {kernel_check.BR_SWEEP_L}, every n "
         f"from 2^{_cuda.BLIND_ROTATE.logn[0]} to "
-        f"2^{_cuda.BLIND_ROTATE.logn[1]}, steps in "
+        f"2^{ntt_cuda.CHUNK_LOGN}, steps in "
         f"{kernel_check.BR_SWEEP_STEPS}: on two-block clusters (B in "
         f"{kernel_check.BR_SWEEP_B}; staged and direct key planes) and with "
         f"the working set in device memory (B in "
@@ -652,9 +764,9 @@ def main() -> None:
         f"2^{kernel_check.BR_DM_WIDE_LOGN}; the widest digit of the "
         f"reference's gate), at (log n, C, l, w) in "
         f"{kernel_check.BR_DM_SMALL} and C = 1, and the key planes one word "
-        f"off: {k10_checked} variants by layout in "
-        f"{time.perf_counter() - t0:.1f} s")
-    del tfhe_parity, case, got, want
+        f"off, with the grid layout's above: {k10_checked} variants by "
+        f"layout in {t_block:.1f} s (the grid's {t2 - t1:.1f} s)")
+    del tfhe_parity
     say(f"parity: kernel == plain (torch.equal) for "
         f"{sum(checked.values())} variants at n={N} and n=256 (batch "
         f"{PARITY_BATCH}) and, for the TFHE kernels, at n={TFHE_N} over "
@@ -677,6 +789,7 @@ def main() -> None:
         seconds = time.perf_counter() - t0
         counts = _cuda.launches()
         counts[DM_ROW] = _cuda.BLIND_ROTATE.by_layout["device"]
+        counts[GRID_ROW] = _cuda.BLIND_ROTATE.by_layout["grid"]
         path_launches[label] = counts
         unlaunched = [k for k in expects if counts[k] == 0]
         if unlaunched:
@@ -3041,7 +3154,7 @@ def main() -> None:
                 and torch.equal(fused21.b, stepwise21.b)):
             raise RuntimeError(f"phase 21 {tag}: blind_rotate kernel != the "
                                "step-by-step chain")
-        if by_layout != {"cluster": 0, "device": 1}:
+        if by_layout != {"cluster": 0, "device": 1, "grid": 0}:
             raise RuntimeError(f"phase 21 {tag}: K10 launches by layout "
                                f"{by_layout}")
         say(f"verify: slice 13 ({tag}) blind_rotate (one launch, layout "
@@ -3124,13 +3237,250 @@ def main() -> None:
     phase_done(f"21 (slice 13: bootstrap_short at N=4096 and N=2^15 through "
                f"K10's device-memory layout) [{card}]")
 
+    # 22. slice 15: bootstrap_short past one block's polynomial ------------
+    # (N = 2^16, beta = 2^6, l = 5): keys built on the card (K9 across
+    # blocks), t chosen, every message decoded, the fused chain (K10's grid
+    # layout) == the step-by-step chain (K1 across blocks), no plain version
+    # on the card at 2^16, a chain of 3 timed, K10 on the device alone,
+    # K1, K9 and K10 at the path's shapes beside plain and their bounds
+    grid_inst = [f"{r['kernel']} {r['registers']} registers" for r in ptxas
+                 if r["kernel"].split("<")[0] in (
+                     "ntt_top_kernel", "ntt_chunk_kernel")
+                 or K10_KERNELS.get(r["kernel"].split("<")[0]) == "grid"]
+    say(f"ptxas: phase 22's instances (no stack frame or spills, phase 1): "
+        + "; ".join(grid_inst))
+    plan22 = kernel_check.brc._plan(TFHE_K + 1, P22_L, P22_N)
+    if plan22.layout != "grid":
+        raise RuntimeError(f"phase 22: plan {plan22}")
+
+    def tp22(t):
+        return Param(ERR_SIGMA, RingParam(TORUS_Q, P22_N), TFHE_K, t)
+
+    kw22 = dict(beta=P22_BETA, l=P22_L, beta_ks=TFHE_BETA_KS,
+                l_ks=TFHE_L_KS)
+    shape22 = (f"N={P22_N} K={TFHE_K} B={TFHE_BATCH} "
+               f"beta=2^{P22_BETA.bit_length() - 1} l={P22_L} "
+               f"beta_ks={TFHE_BETA_KS} l_ks={TFHE_L_KS} n_lwe={P21_N_LWE}")
+    # the plain versions of the path's kernels, wrapped: a call on card
+    # tensors past one block counts (the path must run none)
+    plain_on_card = {}
+
+    def watched(name, fn, degree):
+        def call(*args, **kwargs):
+            if args[0].is_cuda and degree(args) > 1 << ntt_cuda.CHUNK_LOGN:
+                plain_on_card[name] = plain_on_card.get(name, 0) + 1
+            return fn(*args, **kwargs)
+        return call
+
+    plain_fns = [(ntt, "_stage_loop", lambda a: a[0].shape[-1]),
+                 (ntt_cuda, "ntt_multi_plain", lambda a: a[0].shape[-1]),
+                 (ntt_cuda, "ntt_plain", lambda a: a[0].shape[-1]),
+                 (kernel_check.brc, "blind_rotate_plain", lambda a: a[6])]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in plain_fns]
+    for mod, name, degree in plain_fns:
+        setattr(mod, name, watched(name, getattr(mod, name), degree))
+    try:
+        gen = prng.Gen(SEED + 80)
+        st22 = {}
+
+        def p22_path():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            s, _ = tglwe.new_key(gen, tp22(P22_TS[0]), dev)
+            st22["s_flat"] = tglwe.sk_to_tlwe(s)
+            st22["sbtk"] = bootstrap.new_short_bootstrapping_key(
+                gen, tp22(P22_TS[0]), s, n_lwe=P21_N_LWE, **kw22)
+            st22["sevals"] = bootstrap.precompute_short_btk_evals(
+                tp22(P22_TS[0]), st22["sbtk"])
+            torch.cuda.synchronize()
+            st22["key_s"] = time.perf_counter() - t0
+            st22["key_peak"] = torch.cuda.max_memory_allocated()
+            # t: the largest power of two of P22_TS whose messages all
+            # decode with margin (the keys do not depend on t)
+            for t in P22_TS:
+                pt = tp22(t)
+                msgs = torch.arange(TFHE_BATCH, device=dev) % (t // 2)
+                c = tlwe.encrypt_uniform(gen, pt.lwe(), st22["s_flat"],
+                                         tlwe.encode(pt, msgs),
+                                         batch=(TFHE_BATCH,))
+                table = bootstrap.compute_lookup_table_standard(pt, dev)
+                ph = tlwe.decrypt(pt.lwe(), st22["s_flat"],
+                                  bootstrap.bootstrap_short(
+                                      pt, st22["sbtk"], table, c,
+                                      btk_evals=st22["sevals"], **kw22))
+                bad = int((tlwe.decode(pt, ph) != msgs).sum())
+                dist = int((ph - tlwe.encode(pt, msgs)).abs().max())
+                half = 2.0 ** (63 - (t.bit_length() - 1))
+                say(f"verify: slice 15 t={t}: {bad} of {TFHE_BATCH} "
+                    f"messages wrong; the largest phase error 2^"
+                    f"{np.log2(max(dist, 1)):.2f} = {dist / half:.3f} of "
+                    f"half a slot")
+                if bad == 0 and dist <= half / 2:
+                    st22.update(t=t, msgs=msgs, c=c, table=table, ph=ph)
+                    return ph
+            raise RuntimeError(f"phase 22: no t of {P22_TS} decodes with "
+                               "margin")
+
+        label22 = (f"slice 15: tglwe.new_key -> new_short_bootstrapping_key "
+                   f"-> precompute_short_btk_evals -> encrypt_uniform -> "
+                   f"bootstrap_short -> decrypt at {shape22}, t from "
+                   f"{P22_TS}")
+        drive(label22, ("ntt", "blind_rotate", GRID_ROW), p22_path)
+        t22 = st22["t"]
+        p22 = tp22(t22)
+        sbtk22, sev22, c22, table22 = (st22[k] for k in ("sbtk", "sevals",
+                                                         "c", "table"))
+        key_bytes = sum(x.numel() * x.element_size() for x in sbtk22)
+        eval_bytes = sum(x.numel() * x.element_size() for x in sev22)
+        say(f"verify: slice 15 bootstrap_short ({P21_N_LWE} CMux steps) at "
+            f"{shape22} t={t22}: decode(decrypt) == m for all {TFHE_BATCH} "
+            f"messages; keys built on the card in {st22['key_s']:.1f} s: "
+            f"the short key {key_bytes / 2**30:.2f} GiB, its eval-domain "
+            f"planes {eval_bytes / 2**30:.2f} GiB, peak device memory "
+            f"{st22['key_peak'] / 2**30:.2f} GiB while building them "
+            f"(precompute_evals in slices of "
+            f"{tggsw.EVALS_SLICE_WORDS} key words) [{card}]")
+        c_short = tlwe.key_switch(p22.lwe(), TFHE_BETA_KS, TFHE_L_KS,
+                                  tlwe.KSK(sbtk22.ksk_a, sbtk22.ksk_b), c22)
+        rec22, seen22 = {}, {}
+        with record_calls(rec22, seen22, ("blind_rotate", "ntt_multi")):
+            _cuda.reset_launches()
+            fused22 = bootstrap.blind_rotation(p22, sbtk22, table22, c_short,
+                                               P22_BETA, P22_L,
+                                               btk_evals=sev22)
+            torch.cuda.synchronize()
+            by_layout = dict(_cuda.BLIND_ROTATE.by_layout)
+            _cuda.reset_launches()
+            stepwise22 = bootstrap.blind_rotation(
+                p22, sbtk22, table22, c_short, P22_BETA, P22_L,
+                btk_evals=sev22, fused=False)
+            torch.cuda.synchronize()
+            step_launches = {k: v for k, v in _cuda.launches().items() if v}
+        if not (torch.equal(fused22.a, stepwise22.a)
+                and torch.equal(fused22.b, stepwise22.b)):
+            raise RuntimeError("phase 22: blind_rotate kernel != the "
+                               "step-by-step chain")
+        if by_layout != {"cluster": 0, "device": 0, "grid": 1} or \
+                step_launches.get("ntt_multi", 0) < P21_N_LWE:
+            raise RuntimeError(f"phase 22: K10 launches by layout "
+                               f"{by_layout}; the step-by-step chain's "
+                               f"{step_launches}")
+        say(f"verify: slice 15 blind_rotate (one launch, layout {by_layout}) "
+            f"== {P21_N_LWE} steps of cmux_evals (torch.equal; their "
+            f"launches {step_launches}: K1 at n = {P22_N}) on the "
+            f"{TFHE_BATCH} ciphertexts")
+        del fused22, stepwise22
+
+        def step22(c, fused=None):
+            return bootstrap.bootstrap_short(p22, sbtk22, table22, c,
+                                             btk_evals=sev22, fused=fused,
+                                             **kw22)
+
+        per_op = per_op_launches(lambda: step22(c22))
+        if per_op.get("blind_rotate") != 1 or \
+                _cuda.BLIND_ROTATE.by_layout["grid"] != 1:
+            raise RuntimeError(f"phase 22: launches {per_op}, not one "
+                               "blind_rotate (grid layout) a bootstrap")
+
+        def chain22():
+            c = c22
+            for _ in range(TFHE_CHAIN):
+                c = step22(c)
+            return c
+
+        last = chain22()                                   # and warm up
+        if not torch.equal(tlwe.decode(p22, tlwe.decrypt(
+                p22.lwe(), st22["s_flat"], last)), st22["msgs"]):
+            raise RuntimeError(f"phase 22: the chain of {TFHE_CHAIN} "
+                               "bootstraps lost a message")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        runs = [time_ms(chain22, 1, warmup=0) for _ in range(3)]
+        peak = torch.cuda.max_memory_allocated()
+        best = min(runs)
+        say(f"timing: slice 15 chain of {TFHE_CHAIN} bootstrap_short at "
+            f"{shape22} t={t22}: runs {[round(r, 3) for r in runs]} ms, best "
+            f"{best:.3f} ms = {best / TFHE_CHAIN:.3f} ms a batch = "
+            f"{TFHE_BATCH * TFHE_CHAIN / (best / 1e3):.1f} bootstraps/s; "
+            f"peak device memory {peak / 2**30:.2f} GiB with the keys "
+            f"resident ({torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+            f"held); launches a bootstrap {per_op} [{card}]")
+        if plain_on_card:
+            raise RuntimeError(f"phase 22: plain versions ran on the card "
+                               f"past one block: {plain_on_card}")
+        say(f"verify: slice 15: no plain version ran on the card at "
+            f"n = {P22_N} (the plain transforms and blind_rotate_plain "
+            f"watched through the key build, the bootstraps, the "
+            f"step-by-step chain and the timed chain)")
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    # K10 on the device alone at the path's own arguments (400 steps) beside
+    # its bound and its own traffic; the record's rows at the path's shapes:
+    # K10 at P22_ROW_STEPS of its steps, K1's two transforms of the
+    # step-by-step chain, K9's of key generation on 16 keys
+    br_args = next(args for (name, *_), (_, _, args, _) in rec22.items()
+                   if name == "blind_rotate")
+    busy = torch.zeros(1 << 28, dtype=torch.int32, device=dev)
+    k_ms = min(queued_ms(lambda: kernel_check.brc.blind_rotate_kernel(
+        *br_args), 1, busy) for _ in range(2))
+    ops22 = P21_N_LWE * TFHE_BATCH * sum(kernel_check.cmux_step_ops(
+        P22_N, TFHE_K + 1, P22_L).values())
+    b = bound(4 * sum(e.numel() for e in br_args[2:6])
+              + 2 * 8 * br_args[1].numel() + 4 * br_args[0].numel()
+              + 4 * 4 * 2 * P22_N, ops22)
+    own = P21_N_LWE * sum(kernel_check.cmux_step_bytes(
+        P22_N, TFHE_K + 1, P22_L, TFHE_BATCH, layout="grid").values())
+    bo = bound(own, ops22)
+    say(f"timing: slice 15 K10 grid layout, steps={P21_N_LWE} "
+        f"B={TFHE_BATCH} n={P22_N} beta={P22_BETA} l={P22_L} (the path's "
+        f"arguments): device {k_ms:.3f} ms, bound {b.ms:.3f} ms by {b.term}, "
+        f"{b.ms / k_ms:.3f} of it; its own traffic {own / 1e9:.3f} GB, bound "
+        f"{bo.ms:.3f} ms by {bo.term}, {bo.ms / k_ms:.3f} of it; "
+        f"{k_ms / P21_N_LWE * 1e3:.2f} us a step; launches on the path: 1 a "
+        f"bootstrap [{card}]")
+    sl = P22_ROW_STEPS
+    row_args = (br_args[0][:sl].contiguous(), br_args[1],
+                *(e[:sl] for e in br_args[2:6]), *br_args[6:])
+    gen = prng.Gen(SEED + 81)
+    res22 = prng.device_residues(SEED + 82, dev)
+    p22_cases = [kernel_check.blind_rotate_case(
+        P22_N, TFHE_K, P22_BETA, P22_L, sl, TFHE_BATCH, dev, gen,
+        args=row_args)]
+    for (name, *_), (_, _, args, kwargs) in rec22.items():
+        if name == "ntt_multi":
+            x, qs = args[0], tuple(args[1])
+            p22_cases.append(kernel_check.ntt_multi_case(
+                f"cmux_evals {'inverse' if kwargs.get('inverse') else 'fwd'}"
+                f" {list(x.shape)}", res22(qs, tuple(x.shape[1:])), qs,
+                kwargs.get("inverse", False), kwargs.get("fin")))
+    p22_cases += kernel_check.ntt_cases(P22_N, TFHE_K, P22_L, sl, dev, gen)
+    for case in p22_cases:
+        time_case(case)
+        k_ms = case_ms[case.label]
+        bo = bound(own_bytes(case)[1], case.ops)
+        say(f"timing: slice 15 {case.name} {case.label} (the path's shapes"
+            f"{f', {sl} of its {P21_N_LWE} steps' if case.name == 'blind_rotate' else ''}"
+            f"): the bound of its own traffic {bo.ms:.4f} ms by {bo.term}, "
+            f"{bo.ms / k_ms:.3f} of it [{card}]")
+    # (time_case keeps the transforms' cases for phase 12's rates, which ran)
+    done22 = {id(c) for c in p22_cases}
+    timed_chains[:] = [c for c in timed_chains if id(c) not in done22]
+    del (st22, sbtk22, sev22, c22, c_short, table22, last, rec22, br_args,
+         row_args, p22_cases, case, busy)
+    ntt_cuda.drop_tables()
+    torch.cuda.empty_cache()
+    phase_done(f"22 (slice 15: bootstrap_short at N=2^16 through K10's grid "
+               f"layout, t={t22}) [{card}]")
+
     # (phase 17's ranks report K10's launches, not its layouts: they run it
     # at N = 1024, on clusters)
     launches = {r: sum(c.get(r, 0) for c in path_launches.values())
                 for r in record_rows}
     # K10's row counts its cluster layout; its launches in all layouts are
     # the counter's
-    launches["blind_rotate"] -= launches[DM_ROW]
+    launches["blind_rotate"] -= launches[DM_ROW] + launches[GRID_ROW]
     never = [k for k, v in launches.items() if v == 0]
     if never:
         raise RuntimeError(f"kernels launched on no path: {never}")
@@ -3142,10 +3492,11 @@ def main() -> None:
         f"{checked}")
 
     kernel_of = {k.name: k for k in _cuda.KERNELS}
-    kernel_of[DM_ROW] = _cuda.BLIND_ROTATE
+    kernel_of[DM_ROW] = kernel_of[GRID_ROW] = _cuda.BLIND_ROTATE
     record = {"kernels": [
         {"name": r, "route": "cuda",
          "source": (kernel_of[r].layouts["device"] if r == DM_ROW
+                    else kernel_of[r].layouts["grid"] if r == GRID_ROW
                     else kernel_of[r].source),
          "replaces": kernel_of[r].replaces, "launches": launches[r],
          "max_abs_err": err[r], "ms": ms[r],

@@ -13,8 +13,9 @@
 //
 // This file holds K10's cluster layout, which keeps a ciphertext's working
 // set in shared memory; ops/blind_rotate_cuda.py::_plan takes it wherever
-// that fits (br_smem_bytes) and the device-memory layout of
-// csrc/blind_rotate_dm_cuda.cu elsewhere, through the one entry below.
+// that fits (br_smem_bytes), the device-memory layout of
+// csrc/blind_rotate_dm_cuda.cu elsewhere up to 2^15, and past it the grid
+// layout of csrc/blind_rotate_grid_cuda.cu, through the one entry below.
 //
 // Layout: one cluster of two blocks per ciphertext, one CRT prime per block
 // (the block's rank in the cluster picks the prime, its root tables and its
@@ -524,6 +525,16 @@ int blind_rotate_dm(const int* shifts, const unsigned long long* acc0,
                     const uint32_t* cons, int steps, int B, int C, int l,
                     int w, int logn, int threads, int smem, int vec,
                     cudaStream_t stream);
+// K10's grid layout past one block (csrc/blind_rotate_grid_cuda.cu).
+int blind_rotate_grid(const int* shifts, const unsigned long long* acc0,
+                      const uint32_t* ev1, const uint32_t* ev1s,
+                      const uint32_t* ev2, const uint32_t* ev2s,
+                      unsigned long long* out, uint32_t* scratch,
+                      const uint32_t* tw, const uint32_t* tw_sh,
+                      const uint32_t* twinv, const uint32_t* twinv_sh,
+                      const uint32_t* cons, int steps, int B, int C, int l,
+                      int w, int logn, int threads, int smem, int vec,
+                      cudaStream_t stream);
 }  // namespace fhe
 
 // threads, smem, staged and layout: the host's plan (ops/blind_rotate_cuda.py
@@ -533,7 +544,9 @@ int blind_rotate_dm(const int* shifts, const unsigned long long* acc0,
 // aligned); otherwise the contraction reads them from device memory, as
 // 16-byte words where they are aligned.  layout 1: the working set in device
 // memory (csrc/blind_rotate_dm_cuda.cu), n = 2^7 .. 2^15, scratch the digit
-// evaluations [B, 2, C*l, n]; staged must be 0.
+// evaluations [B, 2, C*l, n]; staged must be 0.  layout 2: that past one
+// block (csrc/blind_rotate_grid_cuda.cu), n = 2^16 .. 2^22, the tables the
+// chunk tables, scratch [B, 2, C*l + max(C*l, 2C), n]; staged must be 0.
 extern "C" int fhe_blind_rotate(
     const int* shifts, const unsigned long long* acc0, const uint32_t* ev1,
     const uint32_t* ev1s, const uint32_t* ev2, const uint32_t* ev2s,
@@ -545,8 +558,14 @@ extern "C" int fhe_blind_rotate(
                          misaligned(ev2) || misaligned(ev2s));
   if (steps < 1 || B < 1 || B > (1 << 30) || C < 1 || l < 1 || w < 1 ||
       w > 31 || w * l > 64 || (staged && !aligned) ||
-      (layout != 0 && (layout != 1 || staged))) {
+      (layout != 0 && (layout > 2 || staged))) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (layout == 2) {
+    return blind_rotate_grid(shifts, acc0, ev1, ev1s, ev2, ev2s, out,
+                             scratch, tw, tw_sh, twinv, twinv_sh, cons, steps,
+                             B, C, l, w, logn, threads, smem,
+                             aligned ? 1 : 0, stream);
   }
   if (layout == 1) {
     return blind_rotate_dm(shifts, acc0, ev1, ev1s, ev2, ev2s, out, scratch,

@@ -56,6 +56,7 @@
 #include <climits>
 #include <cstdint>
 
+#include "blind_rotate.cuh"
 #include "modarith.cuh"
 #include "radix_chain.cuh"
 
@@ -101,19 +102,14 @@ __global__ void __launch_bounds__(OneBuffer<LOGN>::threads,
   const int h = shifts[static_cast<size_t>(j) * B + b] & (2 * n - 1);
   const unsigned long long* ac = acc + (static_cast<size_t>(b) * C + cc) * n;
   // pass 0 from the rotated accumulator: virtual thread v holds elements
-  // v + (k << c0), digit i of acc * X^-h - acc (a digit < 2^w is canonical
-  // under either prime)
+  // v + (k << c0), digit i of acc * X^-h - acc
 #pragma unroll 1
   for (int g = 0; g < S::groups; ++g) {
     const int v = threadIdx.x + g * S::threads;   // radix_base(v, c0)
     uint32_t x[kRadix];
 #pragma unroll
     for (int k = 0; k < kRadix; ++k) {
-      const int e = v + (k << c0);
-      const int src = e + h;                 // in [0, 3n)
-      unsigned long long r = __ldg(ac + (src & (n - 1)));
-      if ((src >> LOGN) & 1) r = 0ull - r;
-      x[k] = static_cast<uint32_t>((r - __ldg(ac + e)) >> shift) & mask;
+      x[k] = br_digit(ac, v + (k << c0), h, LOGN, shift, mask);
     }
     radix_pass<LOGN, 0, false>(x, v, fw, fwsh, pr.q);
     radix_store<c0>(a, x, v);
@@ -169,34 +165,8 @@ __global__ void __launch_bounds__(OneBuffer<LOGN>::threads,
   const uint32_t* ks = (rank ? ev2s : ev1s) + ((kj + o) << LOGN);
   const uint32_t* dr =
       dig + (static_cast<size_t>(b) * kDmPrimes + rank) * F * n;
-  // the contraction in the first inverse pass's registers: virtual thread v
-  // holds the 16 contiguous words from 16 v of every row
-#pragma unroll 1
-  for (int g = 0; g < S::groups; ++g) {
-    const int base = (threadIdx.x + g * S::threads) << kRadixBits;
-    uint32_t x[kRadix];
-#pragma unroll
-    for (int k = 0; k < kRadix; ++k) x[k] = 0;
-#pragma unroll 1
-    for (int ri = 0; ri < F; ++ri) {
-      const uint32_t* d = dr + (static_cast<size_t>(ri) << LOGN) + base;
-      const size_t at = (static_cast<size_t>(ri) * cols << LOGN) + base;
-#pragma unroll
-      for (int u = 0; u < kRadix; u += 4) {
-        uint32_t D[4], K[4], KS[4];
-        operand_words(D, d + u, true);
-        operand_words(K, kv + at + u, vec != 0);
-        operand_words(KS, ks + at + u, vec != 0);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          x[u + i] = addmod(x[u + i], shoup_mul(D[i], K[i], KS[i], q), q);
-        }
-      }
-    }
-    radix_pass<LOGN, 0, true>(x, base, radix_opaque(iw), radix_opaque(iwsh),
-                              q);
-    radix_store<0>(a, x, base);
-  }
+  // the contraction in the first inverse pass's registers
+  br_contract_pass<LOGN>(a, dr, n, kv, ks, cols * n, F, q, iw, iwsh, vec);
   __syncthreads();
   RadixPasses<LOGN, 1, last, true, S::threads>::run(a, iw, iwsh, q);
 #pragma unroll 1
@@ -214,12 +184,8 @@ __global__ void __launch_bounds__(OneBuffer<LOGN>::threads,
   // both primes' columns are complete and visible to the pair
   cluster_sync();
   const uint32_t peer = cluster_addr(a, rank ^ 1);
-  const PrimeRow c0r = prime_row(cons, 0);
-  const PrimeRow c1r = prime_row(cons, 1);
+  const uint32_t q0 = prime_row(cons, 0).q, q1 = prime_row(cons, 1).q;
   const PrimeRow crt = prime_row(cons, 2);
-  const uint32_t q0 = c0r.q, q1 = c1r.q;
-  const unsigned long long m12 = static_cast<unsigned long long>(q0) * q1;
-  const unsigned long long half12 = m12 >> 1;
   const int limb = o & 1;
   unsigned long long* ac = acc + (static_cast<size_t>(b) * C + (o >> 1)) * n;
   // exact CRT lift of (r_0, r_1) to the centred integer, shifted to its
@@ -232,12 +198,7 @@ __global__ void __launch_bounds__(OneBuffer<LOGN>::threads,
     const uint32_t other = cluster_load(peer + 4u * sw);
     const uint32_t r0 = rank ? other : own;
     const uint32_t r1 = rank ? own : other;
-    const uint32_t rp = r0 >= q1 ? r0 - q1 : r0;    // q0 < 2 * q1
-    const uint32_t dm =
-        shoup_mul(submod(r1, rp, q1), crt.fin, crt.fin_sh, q1);
-    unsigned long long gv = r0 + static_cast<unsigned long long>(q0) * dm;
-    if (gv > half12) gv -= m12;
-    atomicAdd(ac + i, gv << (32 * limb));
+    atomicAdd(ac + i, br_lift(r0, r1, q0, q1, crt) << (32 * limb));
   }
   // the peer has read this block's words before either block exits
   cluster_sync();
@@ -315,7 +276,9 @@ int blind_rotate_dm(const int* shifts, const unsigned long long* acc0,
                     const uint32_t* cons, int steps, int B, int C, int l,
                     int w, int logn, int threads, int smem, int vec,
                     cudaStream_t stream) {
-  if (dig == nullptr || misaligned(dig)) {
+  // the contraction's 32-bit offsets: F 2C n words of a step's key slice
+  if (dig == nullptr || misaligned(dig) || logn > kWideLogN ||
+      2LL * C * C * l << logn > INT_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return by_logn_wide<BlindRotateDmLaunch>(

@@ -167,18 +167,45 @@ def _u32_bits(x):
     return torch.where(x >= (1 << 31), x - (1 << 32), x).int()
 
 
-def precompute_evals(param: Param, g: TGGSW) -> TGGSWEvals:
-    """Transform a TGGSW (any leading batch dims) into eval-domain 32-bit
-    limbs under both CRT primes, plus the Shoup planes."""
-    p1, p2 = ntt.CRT_PRIMES_TFHE
+# Key words (int64) a slice of precompute_evals transforms at once: its
+# int64 temporaries (the limbs, their residues, the transform's output) take
+# about 8 times the slice, so 2^26 words hold them near 4 GiB where the
+# whole key at N = 2^16, l = 5 would take about 60.
+EVALS_SLICE_WORDS = 1 << 26
+
+
+def _evals_of(g: TGGSW) -> tuple:
+    """(ev1, ev2, ev1s, ev2s) of one slice of keys."""
     ab = torch.cat([g.a, g.b[..., None, :]], dim=-2)   # [.., K+1r, l, K+1c, N]
     limbs = torch.stack([ab & 0xFFFFFFFF, tn.shr(ab, 32)], dim=-2)
     del ab
     out = []
-    for p in (p1, p2):
+    for p in ntt.CRT_PRIMES_TFHE:
         ev = ntt.ntt(limbs % p, p)
         out.append((ev.int(), _u32_bits(ev * (1 << 32) // p)))
-    return TGGSWEvals(out[0][0], out[1][0], out[0][1], out[1][1])
+    return out[0][0], out[1][0], out[0][1], out[1][1]
+
+
+def precompute_evals(param: Param, g: TGGSW) -> TGGSWEvals:
+    """Transform a TGGSW (any leading batch dims) into eval-domain 32-bit
+    limbs under both CRT primes, plus the Shoup planes.  A key with a
+    leading axis of keys (a bootstrapping key's steps) is transformed in
+    slices of that axis into the four planes (each value is its own key's
+    alone, so the planes are the same bit for bit), keeping the int64
+    temporaries to about 8 EVALS_SLICE_WORDS words."""
+    per_key = g.a[:1].numel() + g.b[:1].numel() if g.a.ndim > 4 else 0
+    if not per_key or g.a.numel() + g.b.numel() <= EVALS_SLICE_WORDS:
+        return TGGSWEvals(*_evals_of(g))
+    steps = g.a.shape[0]
+    shape = g.b.shape[:-1] + (g.a.shape[-2] + 1, 2, g.b.shape[-1])
+    planes = [torch.empty(shape, dtype=torch.int32, device=g.a.device)
+              for _ in range(4)]
+    step = max(1, EVALS_SLICE_WORDS // per_key)
+    for i in range(0, steps, step):
+        for plane, part in zip(planes, _evals_of(
+                TGGSW(a=g.a[i:i + step], b=g.b[i:i + step]))):
+            plane[i:i + step] = part
+    return TGGSWEvals(*planes)
 
 
 def external_product_evals(param: Param, gev: TGGSWEvals, c: GLWE,

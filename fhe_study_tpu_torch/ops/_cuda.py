@@ -192,11 +192,15 @@ I64 = ctypes.c_longlong
 # stages), the least degree of the reference's Pallas kernels; the kernels
 # that hold one polynomial in shared memory, and those that hold three (K6,
 # K7, K8: at 2^15 on two-block clusters, one half a block), reach 2^15
-# (csrc/radix_chain.cuh, by_logn_wide); so does K10, on its two-block
-# clusters up to 2^12 and with its working set in device memory beyond a
-# block (ops/blind_rotate_cuda.py::_plan).
+# (csrc/radix_chain.cuh, by_logn_wide).  The transforms K1 and K9 go on
+# across blocks (csrc/ntt_chunks.cuh) to 2^26, the largest degree at which
+# a prime of either package has its 2n-th roots; K10, on its two-block
+# clusters up to 2^12, with its working set in device memory beyond a block
+# and across blocks past 2^15 (ops/blind_rotate_cuda.py::_plan), to 2^22,
+# where the reference's gate ends (its CRT pair's roots).
 RADIX_LOGN = (7, 15)
-BLIND_ROTATE_LOGN = (7, 15)
+TRANSFORM_LOGN = (7, 26)
+BLIND_ROTATE_LOGN = (7, 22)
 
 
 class Kernel:
@@ -257,8 +261,8 @@ _EXT_CU = "fhe_study_tpu_torch/csrc/ext_cuda.cu"
 NTT_MULTI = Kernel("ntt_multi", "fhe_ntt_multi",
                    "fhe_study_tpu_torch/csrc/ntt_multi_cuda.cu",
                    "fhe_study_tpu/ops/ntt_pallas.py:404",
-                   PTR, PTR, PTR, PTR, PTR, *([INT] * 8),
-                   logn=RADIX_LOGN)
+                   PTR, PTR, PTR, PTR, PTR, PTR, *([INT] * 8),
+                   logn=TRANSFORM_LOGN)
 TENSOR_EVAL4 = Kernel("tensor_eval4", "fhe_tensor_eval4", _NTT_CU,
                       "fhe_study_tpu/ops/ntt_pallas.py:794",
                       PTR, PTR, PTR, PTR, *([I64] * 8),
@@ -307,13 +311,18 @@ KS_FUSED_EVAL = Kernel("ks_fused_eval", "fhe_ks_fused_eval",
                        logn=RADIX_LOGN)
 NTT = Kernel("ntt", "fhe_ntt", "fhe_study_tpu_torch/csrc/ntt_multi_cuda.cu",
              "fhe_study_tpu/ops/ntt_pallas.py:1296",
-             PTR, PTR, PTR, PTR, PTR, *([INT] * 6), logn=RADIX_LOGN)
+             PTR, PTR, PTR, PTR, PTR, PTR, *([INT] * 6),
+             logn=TRANSFORM_LOGN)
+# K10's three layouts (ops/blind_rotate_cuda.py::_plan): two-block clusters,
+# the working set in device memory, and that across blocks past 2^15
 _BR_CU = "fhe_study_tpu_torch/csrc/blind_rotate_cuda.cu"
 BLIND_ROTATE = Kernel("blind_rotate", "fhe_blind_rotate", _BR_CU,
                       "fhe_study_tpu/ops/blind_rotate_pallas.py:392",
                       *([PTR] * 13), *([INT] * 10), logn=BLIND_ROTATE_LOGN,
                       layouts={"cluster": _BR_CU, "device": (
-                          "fhe_study_tpu_torch/csrc/blind_rotate_dm_cuda.cu")})
+                          "fhe_study_tpu_torch/csrc/blind_rotate_dm_cuda.cu"),
+                          "grid": ("fhe_study_tpu_torch/csrc/"
+                                   "blind_rotate_grid_cuda.cu")})
 BASE_EXTEND_SUM = Kernel("base_extend_sum", "fhe_base_extend_sum", _EXT_CU,
                          "fhe_study_tpu/ops/ext_pallas.py:207",
                          PTR, PTR, PTR, PTR, INT, INT, I64, INT)

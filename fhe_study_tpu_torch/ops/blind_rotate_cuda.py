@@ -9,11 +9,14 @@ PyTorch version; the counterpart of fhe_study_tpu/ops/blind_rotate_pallas.py.
 ``blind_rotate_fused`` dispatches by the device of its tensors: CUDA
 tensors launch the kernel (one call for the whole chain), CPU tensors
 walk the chain step by step in int64 torch (``blind_rotate_plain``, which
-also is what the kernel is held against on the card).  The kernel has two
+also is what the kernel is held against on the card).  The kernel has three
 layouts, picked by ``_plan`` from (C, l, n) alone: two-block clusters that
-keep a ciphertext's working set in shared memory where it fits, and the
-working set in device memory (two launches a step) elsewhere, up to
-n = 2^15.
+keep a ciphertext's working set in shared memory where it fits, the
+working set in device memory (two launches a step) elsewhere up to
+n = 2^15, and past it, where one polynomial no longer fits a block, the
+transforms across blocks (``grid``: top passes through device memory and
+one block a chunk of 2^15 words, csrc/ntt_chunks.cuh), up to the
+reference's n = 2^22.
 """
 
 from functools import lru_cache
@@ -35,6 +38,8 @@ _BARRIER_BYTES = 32     # kBrBarrierBytes: the mbarriers of the key copies
 # the ring degrees (log2 n) of the cluster layout's instances (kBrMaxLogN):
 # its working set fits a block up to 2^12 (at C = 1; C = 2 stops at 2^11)
 BR_CLUSTER_LOGN = (7, 12)
+# the layout argument of fhe_blind_rotate (csrc/blind_rotate_cuda.cu)
+LAYOUT_CODE = {"cluster": 0, "device": 1, "grid": 2}
 
 
 class BlindRotatePlan(NamedTuple):
@@ -47,12 +52,18 @@ class BlindRotatePlan(NamedTuple):
     inverse_polys: int  # ... and 2C contracted columns
     radix: ntt_cuda.RadixPlan   # the pass structure of one polynomial
     layout: str = "cluster"     # "cluster": the working set in shared memory;
-                                # "device": in device memory
+                                # "device": in device memory; "grid": that,
+                                # each transform across blocks (n > 2^15)
     blocks: tuple = (2,)        # blocks a ciphertext, of each launch of a
                                 # chain ("cluster") or of a step ("device":
-                                # the forward launch, then the inverse one)
+                                # the forward launch, then the inverse one;
+                                # "grid": the top forward passes, the chunk
+                                # chains forward, the contraction's chunk
+                                # chains inverse, the top inverse passes)
     scratch_bytes: int = 0      # device memory a ciphertext: the digit
-                                # evaluations of a step, both primes
+                                # evaluations of a step, both primes ("grid":
+                                # also their top passes' words, which the
+                                # 2C columns' inverse passes reuse)
 
 
 def _smem(C: int, l: int, n: int, staged: bool) -> int:
@@ -78,8 +89,29 @@ def _plan(C: int, l: int, n: int, aligned: bool = True,
     scratch of the step's digit evaluations.  The wrapper hands the kernel
     ``threads``, ``smem_bytes``, ``staged`` and the layout, which it checks
     against its own.  ``layout`` names one to measure it where the rule
-    takes the other (the device-memory layout runs at any shape)."""
+    takes the other (the device-memory layout runs at any shape up to
+    2^15).  Past 2^15 the grid layout (csrc/blind_rotate_grid_cuda.cu):
+    each step's transforms across blocks (ntt_cuda._chunk_plan), the
+    forward's top passes forming the digits, the contraction in the chunk
+    chains' first inverse pass, the CRT and the add in the last top
+    inverse pass; a scratch of the digit evaluations and of the words
+    between passes."""
     logn = n.bit_length() - 1
+    if logn > ntt_cuda.CHUNK_LOGN:
+        if layout not in (None, "grid"):
+            raise ValueError(f"layout {layout!r} at C={C}, l={l}, n={n}")
+        cp = ntt_cuda._chunk_plan(logn)
+        F, cols = C * l, 2 * C
+        top = tuple(2 * F * n // (ntt_cuda.TOP_THREADS << k)
+                    for _, k in cp.top)
+        inv_top = tuple(2 * cols * n // (ntt_cuda.TOP_THREADS << k)
+                        for _, k in cp.top[1:][::-1])
+        last = C * n // (ntt_cuda.TOP_THREADS << cp.top[0][1])
+        return BlindRotatePlan(
+            logn, cp.chain.threads, 1, False, cp.chain.smem_bytes, F, cols,
+            cp.chain, "grid",
+            top + (2 * F * cp.chunks, 2 * cols * cp.chunks) + inv_top
+            + (last,), 2 * 4 * n * (F + max(F, cols)))
     fits = _smem(C, l, n, False) <= _SMEM_LIMIT
     if layout not in (None, "cluster", "device") or (
             layout == "cluster" and not fits):
@@ -98,9 +130,9 @@ def _plan(C: int, l: int, n: int, aligned: bool = True,
 
 def supported(param, beta: int, l: int) -> bool:
     """Static conditions under which the fused chain applies: the
-    reference's, with the kernel's own range of ring degrees (2^7 .. 2^15;
-    the reference's Pallas kernel also takes 2^16 .. 2^22) and digits of at
-    least one bit."""
+    reference's, letter for letter at every ring degree it takes (2^7 ..
+    2^22, where the CRT pair's 2n-th roots end: the kernel's own range) and
+    digits of at least one bit."""
     n = param.ring.n
     p1, p2 = ntt_mod.CRT_PRIMES_TFHE
     w = beta.bit_length() - 1
@@ -159,7 +191,8 @@ def blind_rotate_kernel(shifts, acc0, ev1, ev1s, ev2, ev2s, n: int, w: int,
     chain, or two launches a step over a working set in device memory.
     shifts int32 [steps, B] in [0, 2n); acc0 int64 [B, C, n]; ev1, ev1s,
     ev2, ev2s int32 [steps, C, l, C, 2, n].  Returns int64 [B, C, n].
-    ``layout`` forces a layout, for measurement (``_plan``)."""
+    ``layout`` forces a layout, for measurement (``_plan``).  Past n = 2^15
+    (the grid layout) the tables are the chunk tables of ntt_cuda."""
     dev = acc0.device
     _cuda.check(shifts, "shifts", dev)
     _cuda.check(acc0, "acc0", dev, dtype=torch.int64)
@@ -178,8 +211,8 @@ def blind_rotate_kernel(shifts, acc0, ev1, ev1s, ev2, ev2s, n: int, w: int,
     scratch = (torch.empty(B * plan.scratch_bytes // 4, dtype=torch.int32,
                            device=dev) if plan.scratch_bytes else None)
     p1, p2 = pq = ntt_mod.CRT_PRIMES_TFHE
-    tw = ntt_cuda._twiddles(pq, n, False, dev)
-    twinv = ntt_cuda._twiddles(pq, n, True, dev)
+    tw = ntt_cuda._chunk_tables(pq, n, False, dev)
+    twinv = ntt_cuda._chunk_tables(pq, n, True, dev)
     cons = ntt_cuda._prime_rows(
         (p1, p2, p2), (pow(n, -1, p1), pow(n, -1, p2), pow(p1, -1, p2)), dev)
     _cuda.BLIND_ROTATE.launch(
@@ -189,7 +222,7 @@ def blind_rotate_kernel(shifts, acc0, ev1, ev1s, ev2, ev2s, n: int, w: int,
         twinv[1].data_ptr(), cons.data_ptr(),
         scratch.data_ptr() if scratch is not None else None, steps, B, C, l,
         w, logn, plan.threads, plan.smem_bytes, int(plan.staged),
-        int(plan.layout == "device"), layout=plan.layout)
+        LAYOUT_CODE[plan.layout], layout=plan.layout)
     return out
 
 

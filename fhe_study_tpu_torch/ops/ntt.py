@@ -2,9 +2,10 @@
 multi-prime transforms over RNS residues and the single-prime transform of
 the torus code — the ported subset of fhe_study_tpu/ops/ntt.py.
 
-The root tables are computed on the host with Python integers and cached,
-bit-reversed exactly as the reference stores them, so every butterfly — and
-every intermediate value — matches the JAX package bit for bit.
+The root tables are computed on the host with numpy (powers by doubling,
+exact modular products) and cached, bit-reversed exactly as the reference
+stores them, so every butterfly — and every intermediate value — matches
+the JAX package bit for bit.
 
 Residue tensors are int32 [L, ..., n], row i modulo qs[i].  Each multi-prime
 op launches its kernel of ops/ntt_cuda.py exactly where the reference
@@ -46,17 +47,36 @@ def _primitive_root_of_unity(q: int, m: int) -> int:
 
 
 def _bit_reverse_perm(logn: int) -> np.ndarray:
-    idx = np.arange(1 << logn)
-    rev = np.zeros_like(idx)
-    for b in range(logn):
-        rev |= ((idx >> b) & 1) << (logn - 1 - b)
+    """i -> i with its logn bits reversed, by doubling: the permutation of
+    logn + 1 bits is 2 rev followed by 2 rev + 1."""
+    rev = np.zeros(1, np.int64)
+    for _ in range(logn):
+        rev = np.concatenate([2 * rev, 2 * rev + 1])
     return rev
+
+
+def _powers(w: int, n: int, q: int) -> np.ndarray:
+    """w^k mod q for k < n as uint64, by doubling: the block of powers
+    [k, 2k) is the block [0, k) times w^k.  The products are exact in
+    uint64 for q < 2^32, in Python integers (an object array) above."""
+    small = q < (1 << 32)
+    out = np.empty(n, np.uint64 if small else object)
+    out[0] = 1
+    k = 1
+    while k < n:
+        step = pow(w, k, q)
+        out[k:2 * k] = (out[:k] * np.uint64(step) % np.uint64(q) if small
+                        else out[:k] * step % q)
+        k *= 2
+    return out.astype(np.uint64)
 
 
 class NttPlan:
     """Tables for a negacyclic NTT over Z_q[X]/(X^n+1): ``roots[i]`` =
     w^bitrev(i) and ``roots_inv[i]`` = w^-bitrev(i) for a primitive 2n-th
-    root w (numpy uint64, like the reference's plan)."""
+    root w (numpy uint64, like the reference's plan).  Built with numpy in
+    O(n) vector work, bit for bit the tables of a loop over n (which took
+    about a minute at n = 2^26)."""
 
     def __init__(self, q: int, n: int):
         assert n & (n - 1) == 0, "n must be a power of two"
@@ -64,15 +84,10 @@ class NttPlan:
         self.n = n
         self.log_n = n.bit_length() - 1
         w = _primitive_root_of_unity(q, 2 * n)
-        w_inv = pow(w, q - 2, q)
-        pw, pw_inv = [1] * n, [1] * n
-        for k in range(1, n):
-            pw[k] = pw[k - 1] * w % q
-            pw_inv[k] = pw_inv[k - 1] * w_inv % q
         rev = _bit_reverse_perm(self.log_n)
         self.root = w
-        self.roots = np.array(pw, np.uint64)[rev]
-        self.roots_inv = np.array(pw_inv, np.uint64)[rev]
+        self.roots = _powers(w, n, q)[rev]
+        self.roots_inv = _powers(pow(w, q - 2, q), n, q)[rev]
         self.n_inv = pow(n, q - 2, q)
 
 
@@ -94,8 +109,9 @@ CRT_PRIMES_TFHE = (998244353, 754974721)
 def k9_gate(q: int, n: int) -> bool:
     """Whether the reference sends a single-prime transform to its Pallas
     kernel (``_pallas_ok`` of fhe_study_tpu/ops/ntt.py): q < 2^31 and n a
-    multiple of 128.  The port launches K9 there (up to n = 2^15; above it
-    the card raises)."""
+    multiple of 128.  The port launches K9 there, at every n up to 2^26,
+    the largest degree at which a prime of either package has its 2n-th
+    roots (past 2^15 across blocks: ops/ntt_cuda.py::ntt_kernel)."""
     return q < (1 << 31) and n >= 128 and n % 128 == 0
 
 
@@ -151,7 +167,7 @@ def _single(a, q: int, inverse: bool):
     if n == 1:
         return a
     if k9_gate(q, n) and _cuda.on_cuda(a):
-        # raises for n above 2^15, as every kernel does outside its range
+        # raises outside K9's range (2^7 .. 2^26), as every kernel does
         return ntt_cuda.ntt_kernel(a.contiguous(), q, inverse=inverse)
     # Everywhere else the plain stage loop: K9's plain version on the CPU,
     # and outside the gate, where the reference runs XLA's stage loop, the

@@ -69,30 +69,46 @@ def _twiddles(qs: tuple, n: int, inverse: bool, device) -> torch.Tensor:
 
 
 @lru_cache(maxsize=None)
-def _split_index(n: int) -> np.ndarray:
-    """[2, n/2]: the root-table index that row r of a split table holds at
-    each word (csrc/radix_chain.cuh's Split).  Block r runs the chain of
-    h = n/2 words on the elements r h + i; its stage at bit j takes root
-    (n >> (j + 1)) + ((r h + i) >> (j + 1)) = (2 + r) m + (i >> (j + 1))
-    with m = h >> (j + 1), which the row puts at m + (i >> (j + 1)), where the
-    chain of h words reads it; word 0 holds the top stage's root, index 1."""
-    h = n // 2
-    idx = np.ones((2, h), np.int64)
+def _chunk_index(n: int, c: int) -> np.ndarray:
+    """[n/c, c]: the root-table index that row r of a chunk table holds at
+    each word (csrc/ntt_chunks.cuh; the two-block split of
+    csrc/radix_chain.cuh at c = n/2).  Chunk r of the 2^s = n/c holds the
+    elements r c + i and runs the chain of c words; its stage of m groups
+    takes root (2^s + r) m + (i >> (j + 1)) of the global stage of 2^s m
+    groups, which the row puts at m + (i >> (j + 1)), where the chain of c
+    words reads it.  Word 0 of row r >= 1 holds root r, which the top
+    stages read there (row 0's, unread, root 1: at s = 1 both rows hold
+    the top stage's root 1 at word 0, as the split's tables always have)."""
+    chunks = n // c
+    r = np.arange(chunks, dtype=np.int64)[:, None]
+    idx = np.empty((chunks, c), np.int64)
+    idx[:, 0] = np.maximum(r[:, 0], 1)
     m = 1
-    while m < h:
-        for r in (0, 1):
-            idx[r, m:2 * m] = (2 + r) * m + np.arange(m)
+    while m < c:
+        idx[:, m:2 * m] = (chunks + r) * m + np.arange(m)
         m *= 2
     return idx
 
 
+def _split_index(n: int) -> np.ndarray:
+    """[2, n/2]: the tables of K6-K8's two-block split at n = 2^15
+    (csrc/radix_chain.cuh's Split): the chunk index of two halves."""
+    return _chunk_index(n, n // 2)
+
+
 @lru_cache(maxsize=None)
+def _chunk_twiddles(qs: tuple, n: int, c: int, inverse: bool,
+                    device) -> torch.Tensor:
+    """[2, L, n/c, c]: the root (or inverse root) tables and their Shoup
+    companions rearranged for the chunks of c words, row (prime, r)."""
+    host = _twiddles_host(qs, n, inverse)[:, :, _chunk_index(n, c)]
+    return _u32_tensor(host, device)
+
+
 def _split_twiddles(qs: tuple, n: int, inverse: bool,
                     device) -> torch.Tensor:
-    """[2, L, 2, n/2]: the root (or inverse root) tables and their Shoup
-    companions rearranged for the two blocks of a split, row (prime, r)."""
-    host = _twiddles_host(qs, n, inverse)[:, :, _split_index(n)]
-    return _u32_tensor(host, device)
+    """[2, L, 2, n/2]: the chunk tables of the two blocks of a split."""
+    return _chunk_twiddles(qs, n, n // 2, inverse, device)
 
 
 def _chain_twiddles(qs: tuple, n: int, inverse: bool, device) -> torch.Tensor:
@@ -180,6 +196,56 @@ def _radix_plan(logn: int, max_threads: int | None = None,
     threads = min(vthreads, max_threads)
     return RadixPlan(logn, threads, vthreads // threads, buffers * 4 << logn,
                      tuple(fwd), tuple(inv))
+
+
+# -- the transform past one block (K1 and K9 at n = 2^16 .. 2^26, K10's grid
+# layout; csrc/ntt_chunks.cuh) ---------------------------------------------
+
+CHUNK_LOGN = WIDE_LOGN  # kChunkLogN: a chunk of 2^15 words, one block's chain
+TOP_BITS = 4            # kTopBits: the stages a top pass runs at most
+TOP_THREADS = 256       # kTopThreads
+
+
+class ChunkPlan(NamedTuple):
+    logn: int
+    chunks: int         # 2^s chunks of 2^CHUNK_LOGN words a polynomial
+    top: tuple          # (lo, stages) of each top pass, forward order: bits
+                        # lo .. lo + stages - 1, from log n - 1 down to
+                        # CHUNK_LOGN; the inverse runs them reversed
+    chain: RadixPlan    # a chunk's chain (its threads and shared memory)
+
+
+@lru_cache(maxsize=None)
+def _chunk_plan(logn: int, logc: int = CHUNK_LOGN) -> ChunkPlan:
+    """The schedule of a transform of 2^logn > 2^logc words across blocks
+    (csrc/ntt_chunks.cuh's top_lo / top_bits, where logc = CHUNK_LOGN; the
+    CPU tests also emulate smaller chunks): top passes of up to TOP_BITS
+    stages each through device memory, then one block a chunk on the
+    one-buffer chain of 2^logc words."""
+    if logn <= logc:
+        raise ValueError(f"log n = {logn}: a block holds the polynomial")
+    top, hi = [], logn - 1
+    while hi >= logc:
+        lo = max(hi - TOP_BITS + 1, logc)
+        top.append((lo, hi - lo + 1))
+        hi = lo - 1
+    return ChunkPlan(logn, 1 << (logn - logc), tuple(top), _radix_plan(logc))
+
+
+def _chunk_tables(qs: tuple, n: int, inverse: bool, device) -> torch.Tensor:
+    """The tables a transform at n reads: the chunk tables past a block,
+    the [2, L, n] tables below."""
+    if n > 1 << CHUNK_LOGN:
+        return _chunk_twiddles(qs, n, 1 << CHUNK_LOGN, inverse, device)
+    return _twiddles(qs, n, inverse, device)
+
+
+def drop_tables() -> None:
+    """Forget the cached root tables of every prime and degree (host and
+    device): at n = 2^26 a direction's tables hold 0.5 GB on each."""
+    for f in (ntt_mod.get_plan, ntt_mod._stage_roots, _twiddles_host,
+              _twiddles, _chunk_index, _chunk_twiddles, _roots_plain):
+        f.cache_clear()
 
 
 def _mul4_plan(logn: int, side: bool = False) -> RadixPlan:
@@ -367,10 +433,28 @@ def ks_fused_eval_plain(c_limbs, kb, ka, primes: tuple, src_primes: tuple,
 
 # -- kernel wrappers --------------------------------------------------------
 
+def _transform_plan(logn: int) -> tuple:
+    """(threads, shared-memory bytes) a transform kernel's blocks run at
+    2^logn: the one-buffer plan, past a block a chunk's."""
+    plan = (_chunk_plan(logn).chain if logn > CHUNK_LOGN
+            else _radix_plan(logn))
+    return plan.threads, plan.smem_bytes
+
+
+def _chunk_scratch(logn: int, words: int, device):
+    """The 32-bit scratch of a transform past a block (its top passes'
+    words), None below."""
+    if logn <= CHUNK_LOGN:
+        return None
+    return torch.empty(words, dtype=torch.int32, device=device)
+
+
 def ntt_multi_kernel(x, qs: tuple, inverse: bool = False, fin=None):
     """K1: one block per (prime, polynomial), on the register-resident
-    chain (``_radix_plan``); the inverse reads its rows as uint4 when x is
-    16-byte aligned and word by word otherwise."""
+    chain (``_radix_plan``); past n = 2^15 across blocks (``_chunk_plan``:
+    top passes through a scratch, then one block a chunk).  The inverse
+    reads its rows as uint4 when x is 16-byte aligned and word by word
+    otherwise."""
     dev = x.device
     _cuda.check(x, "x", dev)
     L, n = x.shape[0], x.shape[-1]
@@ -383,23 +467,24 @@ def ntt_multi_kernel(x, qs: tuple, inverse: bool = False, fin=None):
     B = x.numel() // (L * n)
     if B == 0:
         return out
-    tw = _twiddles(qs, n, inverse, dev)
+    tw = _chunk_tables(qs, n, inverse, dev)
     cons = _prime_rows(qs, fin, dev)
-    plan = _radix_plan(logn)
+    tmp = _chunk_scratch(logn, x.numel(), dev)
     _cuda.NTT_MULTI.launch(dev, x.data_ptr(), out.data_ptr(),
+                           None if tmp is None else tmp.data_ptr(),
                            tw[0].data_ptr(), tw[1].data_ptr(),
                            cons.data_ptr(), L, B, logn, int(inverse),
                            int(fin is not None), int(_cuda.aligned(x)),
-                           plan.threads, plan.smem_bytes)
+                           *_transform_plan(logn))
     return out
 
 
 def ntt_kernel(x, q: int, inverse: bool = False):
     """K9: K1's kernel on int64 words, one block per polynomial of the flat
-    batch (``_radix_plan``); x int64 [..., n], n = 2^7 .. 2^15, with values
-    in [0, q), q < 2^31, read as 16-byte vectors by the inverse when x is
-    16-byte aligned and word by word otherwise.  Returns int64 of the same
-    shape."""
+    batch (``_radix_plan``; past n = 2^15 across blocks, ``_chunk_plan``);
+    x int64 [..., n], n = 2^7 .. 2^26, with values in [0, q), q < 2^31,
+    read as 16-byte vectors by the inverse when x is 16-byte aligned and
+    word by word otherwise.  Returns int64 of the same shape."""
     dev = x.device
     _cuda.check(x, "x", dev, dtype=torch.int64)
     if not 1 < q < (1 << 31):
@@ -410,12 +495,14 @@ def ntt_kernel(x, q: int, inverse: bool = False):
     B = x.numel() // n
     if B == 0:
         return out
-    tw = _twiddles((q,), n, inverse, dev)
+    tw = _chunk_tables((q,), n, inverse, dev)
     cons = _prime_rows((q,), _default_fin((q,), n, inverse, None), dev)
-    plan = _radix_plan(logn)
-    _cuda.NTT.launch(dev, x.data_ptr(), out.data_ptr(), tw[0].data_ptr(),
-                     tw[1].data_ptr(), cons.data_ptr(), B, logn, int(inverse),
-                     int(_cuda.aligned(x)), plan.threads, plan.smem_bytes)
+    tmp = _chunk_scratch(logn, x.numel(), dev)
+    _cuda.NTT.launch(dev, x.data_ptr(), out.data_ptr(),
+                     None if tmp is None else tmp.data_ptr(),
+                     tw[0].data_ptr(), tw[1].data_ptr(), cons.data_ptr(), B,
+                     logn, int(inverse), int(_cuda.aligned(x)),
+                     *_transform_plan(logn))
     return out
 
 

@@ -756,7 +756,8 @@ def cmux_step_ops(n: int, C: int, l: int) -> dict:
     }
 
 
-def cmux_step_bytes(n: int, C: int, l: int, batch: int) -> dict:
+def cmux_step_bytes(n: int, C: int, l: int, batch: int,
+                    layout: str = "device") -> dict:
     """Device-memory bytes of ONE CMux step of K10's device-memory layout
     on ``batch`` ciphertexts (the cluster layout keeps all but the key in
     shared memory), by part, each at its least, L2 serving every re-read
@@ -765,15 +766,22 @@ def cmux_step_bytes(n: int, C: int, l: int, batch: int) -> dict:
       scratch  the digit evaluations [B, 2, C*l, n] of 32-bit words,
                written by the forward blocks and read back once by the
                inverse clusters (2C clusters read each row; L2 serves all
-               but the first);
+               but the first); in the grid layout (n > 2^15) also the
+               words between its passes: the digit polynomials' and the
+               2C columns', each written and read once a top pass
+               (ntt_cuda._chunk_plan);
       acc      the 64-bit accumulator [B, C, n], read once by the forward
                blocks and read and written once by the atomic adds of the
-               inverse clusters;
+               inverse clusters (the grid layout's last pass: no atomics);
       key      the step's slice, values and Shoup companions under both
                primes, 4 planes of C*l*2C*n words, read once for the whole
                batch.
     """
-    return {"scratch": 2 * batch * 2 * C * l * n * 4,
+    scratch = 2 * batch * 2 * C * l * n * 4
+    if layout == "grid":
+        passes = len(nc._chunk_plan(n.bit_length() - 1).top)
+        scratch += 2 * passes * batch * 2 * (C * l + 2 * C) * n * 4
+    return {"scratch": scratch,
             "acc": 3 * batch * C * n * 8,
             "key": 4 * C * l * 2 * C * n * 4}
 
@@ -781,6 +789,17 @@ def cmux_step_bytes(n: int, C: int, l: int, batch: int) -> dict:
 def _pair(name, label, nbytes, ops, kern, plain, *args, **kw) -> Case:
     return Case(name, label, lambda: kern(*args, **kw),
                 lambda: plain(*args, **kw), nbytes, ops)
+
+
+def top_pass_bytes(n: int, polys: int) -> int:
+    """The device-memory bytes that a transform of ``polys`` polynomials
+    past one block moves beyond its inputs and outputs
+    (csrc/ntt_chunks.cuh): each top pass writes and reads back its 32-bit
+    words once (0 at n <= 2^15).  Not in a case's ``bytes`` (the least any
+    kernel must move); the bound of the kernel's own traffic adds it."""
+    if n <= 1 << nc.CHUNK_LOGN:
+        return 0
+    return len(nc._chunk_plan(n.bit_length() - 1).top) * 8 * polys * n
 
 
 def ntt_case(label: str, x, q: int, inverse: bool) -> Case:
@@ -795,6 +814,75 @@ def ntt_case(label: str, x, q: int, inverse: bool) -> Case:
                  nc.ntt_kernel, nc.ntt_plain, x, q,
                  inverse=inverse)._replace(
                      butterflies=_butterflies(n, polys), n=n)
+
+
+def ntt_multi_case(label: str, x, qs: tuple, inverse: bool,
+                   fin=None) -> Case:
+    """K1 on int32 rows x [L, ..., n]: every word read and written once (4
+    bytes each) with each prime's root table and companions, the
+    butterflies and the final multiply (n^-1 on the inverse, ``fin`` where
+    given)."""
+    n = x.shape[-1]
+    polys = x.numel() // n
+    return _pair("ntt_multi", label, 2 * 4 * polys * n + 8 * n * len(qs),
+                 _ntt_ops(n, polys) + (polys * n * SHOUP_OPS
+                                       if inverse or fin else 0),
+                 nc.ntt_multi_kernel, nc.ntt_multi_plain, x, qs,
+                 inverse=inverse, fin=fin)._replace(
+                     butterflies=_butterflies(n, polys), n=n)
+
+
+# K1's and K9's degrees past one block that the sweep holds against plain:
+# one top pass at 2^16 and 2^17, two at 2^20 and 2^22, three at 2^26 (the
+# top: only 2013265921 = 15 * 2^27 + 1 has 2n-th roots there)
+WIDE_SWEEP_LOGNS = (16, 17, 20, 22, 26)
+WIDE_SWEEP_B = (1, 2, 3)
+
+
+def wide_transform_cases(device, seed: int):
+    """K1 and K9 past one block (csrc/ntt_chunks.cuh) against their plain
+    versions (compared; chip_smoke.py times each kernel beside its bounds)
+    at each log n of WIDE_SWEEP_LOGNS on batches of WIDE_SWEEP_B: K1 over
+    up to two primes with 2n-th roots (of the TFHE pair and the CRT primes,
+    in that order) forward without and with a final multiplier, inverse
+    with n^-1 and with fin; K9 forward and inverse under each of them; at
+    the last batch K1's inverse also on rows one word off the 16-byte
+    alignment (its word-by-word first pass), K9's on int64 rows one word
+    off.  Operands drawn on the card (``prng.device_residues``).  Yields
+    one case at a time, then forgets the root tables."""
+    res = prng.device_residues(seed, device)
+    pool = ntt_mod.CRT_PRIMES_TFHE + ntt_mod.CRT_PRIMES
+    for logn in WIDE_SWEEP_LOGNS:
+        n = 1 << logn
+        qs = tuple(p for p in pool if (p - 1) % (2 * n) == 0)[:2]
+        fin = tuple(range(3, 3 + len(qs)))
+        for B in WIDE_SWEEP_B:
+            x = res(qs, (B, n))
+            last = B == WIDE_SWEEP_B[-1]
+            rows = [("", x)] + ([(", one word off", _offset_word(x))]
+                                if last else [])
+            for tag, row in rows:
+                for label, inverse, f in (("forward", False, None),
+                                          ("forward fin", False, fin),
+                                          ("inverse", True, None),
+                                          ("inverse fin", True, fin)):
+                    if tag and not inverse:
+                        continue
+                    yield ntt_multi_case(
+                        f"{label} {list(row.shape)} over {qs}{tag}", row, qs,
+                        inverse, f)._replace(timed=False)
+            for i, q in enumerate(qs):
+                y = x[i].long()
+                ys = [("", y)] + ([(", one word off", _offset_word(y))]
+                                  if last else [])
+                for tag, row in ys:
+                    for inverse in (False, True):
+                        yield ntt_case(
+                            f"{'inverse' if inverse else 'forward'} "
+                            f"{list(row.shape)} q={q}{tag}", row, q,
+                            inverse)._replace(timed=False)
+            del x, rows
+    nc.drop_tables()
 
 
 def ntt_cases(n: int, k: int, l: int, steps: int, device,
@@ -842,6 +930,15 @@ def blind_rotate_inputs(n: int, k: int, beta: int, l: int, steps: int,
     return shifts, acc0, ev1.int(), ev1s, ev2.int(), ev2s, n, w
 
 
+def blind_rotate_bytes(shifts, acc0, ev1, ev1s, ev2, ev2s, n: int,
+                       w: int) -> int:
+    """The least device-memory bytes of a blind rotation: the key planes,
+    the accumulator in and out, the shifts and both primes' root tables,
+    each once."""
+    return (4 * 4 * ev1.numel() + 2 * 8 * acc0.numel() + 4 * shifts.numel()
+            + 4 * 4 * 2 * n)
+
+
 def blind_rotate_case(n: int, k: int, beta: int, l: int, steps: int,
                       batch: int, device, gen: prng.Gen,
                       layout: str | None = None, args=None) -> Case:
@@ -854,9 +951,7 @@ def blind_rotate_case(n: int, k: int, beta: int, l: int, steps: int,
     # the plain chain takes seconds at full width: timed once, no warm-up
     return _pair(
         "blind_rotate", f"steps={steps} B={batch} n={n} beta={beta} l={l} "
-        f"{layout}",
-        4 * 4 * ev1.numel() + 2 * 8 * acc0.numel() + 4 * shifts.numel()
-        + 4 * 4 * 2 * n,
+        f"{layout}", blind_rotate_bytes(*args),
         steps * batch * sum(cmux_step_ops(n, k + 1, l).values()),
         partial(brc.blind_rotate_kernel, layout=layout),
         brc.blind_rotate_plain, *args)._replace(
@@ -885,10 +980,73 @@ def gate_width(n: int, C: int, l: int) -> int:
     return w
 
 
+BR_GRID_LOGN = 16    # the grid layout at every (C, l, w) of the gate there,
+BR_GRID_RUNS = ((2, 1), (3, 2), (4, 1), (2, 2))   # (steps, B) in turn,
+# and one (log n, C, l) at each larger degree, at the gate's widest digit
+BR_GRID_WIDER = ((17, 2, 3), (18, 2, 2), (19, 3, 1), (20, 2, 2),
+                 (21, 1, 2), (22, 2, 1))
+
+
+def gate_shapes(n: int) -> list:
+    """Every (C, l, w) that the reference's gate admits at ring degree n
+    (C = K + 1 <= 4, digits of w >= 1 bits below both CRT primes, w l <= 64,
+    C l n 2^w < 2^26)."""
+    top = min(ntt_mod.CRT_PRIMES_TFHE).bit_length() - 1
+    return [(C, l, w) for C in range(1, 5) for l in range(1, 65)
+            for w in range(1, top + 1)
+            if w * l <= 64 and C * l * n << w < 1 << 26]
+
+
+def blind_rotate_grid_sweep(device, seed: int):
+    """K10's grid layout (n > 2^15) against its plain version (compared;
+    chip_smoke.py times each kernel beside its bounds): every (C, l, w) of
+    ``gate_shapes`` at 2^BR_GRID_LOGN, over (steps, B) of BR_GRID_RUNS in
+    turn, and each (log n, C, l) of BR_GRID_WIDER at the gate's widest
+    digit; at the first shape of each (n, C) also the key planes one word
+    off their 16-byte alignment.  Key planes drawn on the card
+    (``prng.device_residues``: a shape's keys run to gigabytes), shifts and
+    accumulators on the host.  Yields one case at a time, then forgets the
+    root tables."""
+    res = prng.device_residues(seed, device)
+    gen = prng.Gen(seed)
+    p1, p2 = ntt_mod.CRT_PRIMES_TFHE
+    shapes = ([(BR_GRID_LOGN, *s) for s in gate_shapes(1 << BR_GRID_LOGN)]
+              + [(logn, C, l, gate_width(1 << logn, C, l))
+                 for logn, C, l in BR_GRID_WIDER])
+    firsts = set()
+    for i, (logn, C, l, w) in enumerate(shapes):
+        n = 1 << logn
+        steps, B = BR_GRID_RUNS[i % len(BR_GRID_RUNS)]
+        key = (steps, C, l, C, 2, n)
+        ev1, ev2 = res((p1,), key)[0], res((p2,), key)[0]
+        ev1s, ev2s = (_u32_bits(e.long() * (1 << 32) // p)
+                      for e, p in ((ev1, p1), (ev2, p2)))
+        shifts = prng.uniform_mod(gen, (steps, B), 2 * n, device).int()
+        acc0 = prng.uniform_u64(gen, (B, C, n), device)
+        label = f"C={C} l={l} w={w} steps={steps} B={B} n={n} grid"
+        ops = steps * B * sum(cmux_step_ops(n, C, l).values())
+        variants = [("", (ev1, ev1s, ev2, ev2s))]
+        if (logn, C) not in firsts:
+            firsts.add((logn, C))
+            variants.append((", key planes one word off",
+                             [_offset_word(e) for e in (ev1, ev1s, ev2,
+                                                        ev2s)]))
+        for tag, planes in variants:
+            args = (shifts, acc0, *planes, n, w)
+            yield _pair("blind_rotate", label + tag,
+                        blind_rotate_bytes(*args), ops,
+                        brc.blind_rotate_kernel, brc.blind_rotate_plain,
+                        *args)._replace(timed=False, layout="grid",
+                                        args=args)
+        del ev1, ev2, ev1s, ev2s, variants, planes, args
+    nc.drop_tables()
+
+
 def blind_rotate_sweep(device, gen: prng.Gen):
-    """K10 against its plain version (compared only, not timed) in both
-    layouts: for each C in BR_SWEEP_C and l in BR_SWEEP_L at every ring
-    degree it takes, over BR_SWEEP_STEPS steps, on BR_SWEEP_B ciphertexts
+    """K10 against its plain version (compared only, not timed) in its
+    two layouts up to 2^15 (past it ``blind_rotate_grid_sweep``): for each
+    C in BR_SWEEP_C and l in BR_SWEEP_L at every ring degree 2^7 .. 2^15,
+    over BR_SWEEP_STEPS steps, on BR_SWEEP_B ciphertexts
     where the plan takes the cluster layout (digits of w = 20, 12 or 21
     bits) and on BR_DM_SWEEP_B (without 67 from 2^BR_DM_WIDE_LOGN) where it
     takes the device-memory layout (the widest digit of the reference's
@@ -899,7 +1057,7 @@ def blind_rotate_sweep(device, gen: prng.Gen):
     not staged).  Yields the cases one at a time, so that only one case's
     tensors live at once."""
     full = [(logn, C, l, None) for C in BR_SWEEP_C for l in BR_SWEEP_L
-            for logn in _cuda.BLIND_ROTATE.degrees]
+            for logn in range(_cuda.BLIND_ROTATE.logn[0], nc.CHUNK_LOGN + 1)]
     extra = [*BR_DM_SMALL, (10, 1, 2, None), (15, 1, 2, None)]
     for shape in full + extra:
         logn, C, l, w = shape

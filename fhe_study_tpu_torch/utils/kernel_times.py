@@ -528,7 +528,8 @@ def tfhe_chains(dev, chain: int) -> dict:
 def ntt_degrees(dev, gen) -> list:
     """(n, direction, device ms, byte-bound ms) of K9 on [2^22 / n, n] int64
     words under a 30-bit prime, at every n from 2^8 that the tree's K9
-    takes (to 2^15 since that degree was added, to 2^14 before)."""
+    takes up to 2^22, where the prime's 2n-th roots end (to 2^14 before
+    2^15 was added, to 2^15 before the transforms crossed blocks)."""
     from fhe_study_tpu_torch.ops import _cuda
     from fhe_study_tpu_torch.ops import ntt as ntt_mod
     from fhe_study_tpu_torch.ops import ntt_cuda as nc
@@ -536,7 +537,7 @@ def ntt_degrees(dev, gen) -> list:
     q = ntt_mod.CRT_PRIMES_TFHE[0]
     busy = torch.zeros(1 << 26, dtype=torch.int32, device=dev)
     rows = []
-    top = _cuda.NTT.logn[1] if hasattr(_cuda.NTT, "logn") else 14
+    top = min(_cuda.NTT.logn[1] if hasattr(_cuda.NTT, "logn") else 14, 22)
     for logn in range(8, top + 1):
         n = 1 << logn
         x = prng.uniform_mod(gen, ((1 << 22) >> logn, n), q, dev)

@@ -32,6 +32,9 @@ CPU = torch.device("cpu")
 P0, P1 = ntt_mod.CRT_PRIMES_TFHE
 SHAPES = [(C, l) for C in (2, 3) for l in (1, 2, 3)]
 CLUSTER_DEGREES = range(brc.BR_CLUSTER_LOGN[0], brc.BR_CLUSTER_LOGN[1] + 1)
+# the degrees whose polynomial a block holds: the cluster and device-memory
+# layouts (past them the grid layout, tests/test_torch_degree16.py)
+BLOCK_DEGREES = range(brc.BR_CLUSTER_LOGN[0], nc.CHUNK_LOGN + 1)
 W = {1: 20, 2: 12, 3: 21}        # digit widths: l = 3 takes w * l = 63
 
 
@@ -191,7 +194,7 @@ def test_schedule_equals_plain(logn, C, l):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("logn", _cuda.BLIND_ROTATE.degrees)
+@pytest.mark.parametrize("logn", BLOCK_DEGREES)
 @pytest.mark.parametrize("C,l", SHAPES)
 def test_plan_maps_cover_every_word_once(logn, C, l):
     """Every pass loop of the plan reaches each (polynomial, coefficient)
@@ -232,7 +235,7 @@ def test_plan_maps_cover_every_word_once(logn, C, l):
                        idx)
 
 
-@pytest.mark.parametrize("logn", _cuda.BLIND_ROTATE.degrees)
+@pytest.mark.parametrize("logn", BLOCK_DEGREES)
 def test_plan_fits_a_block_and_stages_the_bench_shape(logn):
     """The cluster layout where a ciphertext's working set fits a block, its
     key planes staged where they fit beside it; elsewhere the device-memory

@@ -211,8 +211,9 @@ def test_supported():
     assert brc._plan(2, 2, 1 << 14).layout == "device"  # in device memory
     widest = G.Param(G.ERR_SIGMA, RingParam(TORUS_Q, 1 << 15), 1, T)
     assert brc.supported(widest, 256, 3)
-    assert not brc.supported(G.Param(G.ERR_SIGMA, RingParam(TORUS_Q, 1 << 16),
-                                      1, T), 16, 2)     # 2^16: not yet
+    assert brc.supported(G.Param(G.ERR_SIGMA, RingParam(TORUS_Q, 1 << 16),
+                                  1, T), 16, 2)         # 2^16: across blocks
+    assert brc._plan(2, 2, 1 << 16).layout == "grid"
     # one prime's buffers a block, the step's key planes staged beside them
     assert brc._plan(2, 2, 1024).smem_bytes == 208 * 1024 + 32
 

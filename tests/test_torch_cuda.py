@@ -43,7 +43,7 @@ def test_kernels_match_plain(cuda, n):
         assert kernel_check.equal(got, want), (case.name, case.label)
 
 
-@pytest.mark.parametrize("logn", _cuda.NTT_MULTI.degrees)
+@pytest.mark.parametrize("logn", _cuda.KS_CONTRACT.degrees)
 def test_radix_kernels_match_plain_at_every_degree(cuda, logn):
     """The redesigned kernels: K1-K3, K5-K9 and K12 on the
     register-resident chains, where each log n has its own pass structure
@@ -82,7 +82,11 @@ def test_radix_kernels_have_no_stack_frame_or_spills(cuda):
     two forms, K4 and K11 per source count 1 .. 31 and form,
     K10's clusters per log n 2^7 .. 2^12, staged and direct, and its
     device-memory layout's forward and inverse kernels per log n 2^7 ..
-    2^15."""
+    2^15; past 2^15 the chunk chains of K1, K9 and K10's grid layout
+    (K1's both ways, K9's both ways, K10's forward), the top passes of K1
+    and K9 (four stage counts, both ways, K9's first and last on int64
+    words) and K10's grid kernels (four stage counts each; its forward's
+    first pass and the others)."""
     report = _cuda.ptxas_report(_cuda.build_log())
     counts = {"tensor_eval4_kernel": 9, "ks_contract_kernel": 9,
               "ks_fused_kernel": 9, "ks_fused_eval_kernel": 9,
@@ -91,7 +95,10 @@ def test_radix_kernels_have_no_stack_frame_or_spills(cuda):
               "base_extend_sum_kernel": 31 * 2, "ext_lift_kernel": 2,
               "blind_rotate_kernel": 6 * 2, "br_forward_kernel": 9,
               "br_inverse_kernel": 9, "ntt_kernel": 9 * 2,
-              "ntt_smem_ceiling_kernel": 9}
+              "ntt_smem_ceiling_kernel": 9, "ntt_chunk_kernel": 5,
+              "ntt_top_kernel": 4 * 4, "brg_top_forward_kernel": 4 * 2,
+              "brg_chunk_inverse_kernel": 1, "brg_top_inverse_kernel": 4,
+              "brg_top_last_kernel": 4}
     radix = [r for r in report if r["kernel"].split("<")[0] in counts]
     for name, count in counts.items():
         assert sum(r["kernel"].split("<")[0] == name for r in radix) == count
@@ -116,7 +123,7 @@ def test_redesigned_kernels_refuse_another_plan(cuda):
                                      x.view(-1)[1:])):
         with pytest.raises(RuntimeError, match="fhe_ntt_multi"):
             _cuda.NTT_MULTI.launch(cuda, src.data_ptr(), x.data_ptr(),
-                                   tw[0].data_ptr(), tw[1].data_ptr(),
+                                   None, tw[0].data_ptr(), tw[1].data_ptr(),
                                    cons.data_ptr(), 4, 1, 8, 1, 1, vec,
                                    threads, smem)
     x64 = torch.zeros((2, 256), dtype=torch.int64, device=cuda)
@@ -127,7 +134,7 @@ def test_redesigned_kernels_refuse_another_plan(cuda):
                                     (plan.threads, plan.smem_bytes, 1,
                                      x64.view(-1)[1:])):
         with pytest.raises(RuntimeError, match="fhe_ntt"):
-            _cuda.NTT.launch(cuda, src.data_ptr(), x64.data_ptr(),
+            _cuda.NTT.launch(cuda, src.data_ptr(), x64.data_ptr(), None,
                              tw[0].data_ptr(), tw[1].data_ptr(),
                              cons.data_ptr(), 1, 8, 1, vec, threads, smem)
     fwd0 = ntt_cuda._twiddles(qs[:1], 256, False, cuda)
@@ -204,7 +211,8 @@ def test_blind_rotate_device_layout_matches_plain(cuda, n, C, l, w):
     got = blind_rotate_cuda.blind_rotate_kernel(*args, layout=layout)
     torch.cuda.synchronize()
     assert _cuda.launches()["blind_rotate"] == 1
-    assert _cuda.BLIND_ROTATE.by_layout == {"cluster": 0, "device": 1}
+    assert _cuda.BLIND_ROTATE.by_layout == {"cluster": 0, "device": 1,
+                                            "grid": 0}
     assert torch.equal(got, blind_rotate_cuda.blind_rotate_plain(*args))
     off = [kernel_check._offset_word(e) for e in args[2:6]]
     shifts, acc0 = args[0][:2].contiguous(), args[1]
@@ -588,12 +596,12 @@ def test_tfhe_wrappers_check_dtype_and_layout(cuda):
         ntt_cuda.ntt_kernel(x.transpose(0, 1), q)
     with pytest.raises(ValueError, match="2\\^31"):
         ntt_cuda.ntt_kernel(x, (1 << 31) + 11)
-    with pytest.raises(ValueError, match="2\\^7 .. 2\\^15"):
+    with pytest.raises(ValueError, match="2\\^7 .. 2\\^26"):
         ntt_cuda.ntt_kernel(x[..., :64].contiguous(), q)
     # the dispatching transform raises too inside the reference's kernel
     # gate (q < 2^31, n a multiple of 128): no plain version there
-    with pytest.raises(ValueError, match="2\\^7 .. 2\\^15"):
-        ntt.ntt(torch.zeros((1, 1 << 16), dtype=torch.int64, device=cuda), q)
+    with pytest.raises(ValueError, match="2\\^7 .. 2\\^26"):
+        ntt.ntt(torch.zeros((1, 384), dtype=torch.int64, device=cuda), q)
     # outside it (q >= 2^31 or n < 128) both devices run the plain
     # transform, as the reference runs XLA there
     wide = 1099511922689                 # a 41-bit prime, 1 mod 2^15
@@ -813,3 +821,93 @@ def test_parallel_ranks_on_the_card_stage_through_the_host(cuda):
         np.testing.assert_array_equal(sp, want_sp)
         np.testing.assert_array_equal(ep, want_ep)
         assert staged > 0
+
+
+# -- past one block: n = 2^16 and 2^17 ---------------------------------------
+
+@pytest.mark.parametrize("logn", [16, 17])
+def test_transforms_past_a_block_match_plain(cuda, logn):
+    """K1 and K9 across blocks (top passes, then one block a chunk of
+    2^15 words): K1 over the TFHE pair both ways, with and without fin, on
+    aligned and word-offset rows; K9 both ways under each prime; the
+    dispatchers launch them; bit for bit."""
+    n = 1 << logn
+    qs = (998244353, 754974721)
+    res = prng.device_residues(logn, cuda)
+    x = res(qs, (3, n))
+    for rows in (x, kernel_check._offset_word(x)):
+        for kw in ({}, dict(fin=(3, 5)), dict(inverse=True),
+                   dict(inverse=True, fin=(7, 11))):
+            got = ntt_cuda.ntt_multi_kernel(rows, qs, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ntt_cuda.ntt_multi_plain(rows, qs, **kw))
+    for i, q in enumerate(qs):
+        y = x[i].long()
+        for inverse in (False, True):
+            got = ntt_cuda.ntt_kernel(y, q, inverse=inverse)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ntt_cuda.ntt_plain(y, q, inverse=inverse))
+    _cuda.reset_launches()
+    assert torch.equal(ntt.intt(ntt.ntt(x[0].long(), qs[0]), qs[0]),
+                       x[0].long())
+    assert torch.equal(ntt.intt_multi(ntt.ntt_multi(x, qs), qs), x)
+    assert _cuda.launches()["ntt"] == 2 and _cuda.launches()["ntt_multi"] == 2
+
+
+@pytest.mark.parametrize("logn,C,l,w", [(16, 2, 5, 6), (16, 1, 3, 7),
+                                        (17, 2, 2, 6), (17, 3, 1, 6)])
+def test_blind_rotate_grid_layout_matches_plain(cuda, logn, C, l, w):
+    """K10 past 2^15 in its grid layout over 3 steps on 2 ciphertexts, and
+    with key planes one word off, bit for bit; one launch a chain, counted
+    under its layout."""
+    n = 1 << logn
+    gen = prng.Gen(logn + C + l)
+    args = kernel_check.blind_rotate_inputs(n, C - 1, 1 << w, l, 3, 2, cuda,
+                                            gen)
+    assert blind_rotate_cuda._plan(C, l, n).layout == "grid"
+    _cuda.reset_launches()
+    got = blind_rotate_cuda.blind_rotate_kernel(*args)
+    torch.cuda.synchronize()
+    assert _cuda.launches()["blind_rotate"] == 1
+    assert _cuda.BLIND_ROTATE.by_layout == {"cluster": 0, "device": 0,
+                                            "grid": 1}
+    assert torch.equal(got, blind_rotate_cuda.blind_rotate_plain(*args))
+    off = [kernel_check._offset_word(e) for e in args[2:6]]
+    got = blind_rotate_cuda.blind_rotate_kernel(args[0], args[1], *off, n, w)
+    assert torch.equal(got, blind_rotate_cuda.blind_rotate_plain(
+        args[0], args[1], *off, n, w))
+
+
+def test_bootstrap_short_at_n_2_16_on_card_matches_cpu(cuda):
+    """bootstrap_short at N = 2^16, K = 1, beta = 2^6, l = 5 on a 4-step
+    short key: keys, ciphertexts and outputs equal on the card (K9, K10's
+    grid layout) and the CPU (plain versions), and fused == step by step
+    (K1 at 2^16) on the card."""
+    param = Param(ERR_SIGMA, RingParam(TORUS_Q, 1 << 16), 1, 64)
+    kw = dict(beta=1 << 6, l=5, beta_ks=16, l_ks=8)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        gen = prng.Gen(22)
+        s, _ = tglwe.new_key(gen, param, dev)
+        s_flat = tglwe.sk_to_tlwe(s)
+        sbtk = bootstrap.new_short_bootstrapping_key(gen, param, s, n_lwe=4,
+                                                     **kw)
+        evals = bootstrap.precompute_short_btk_evals(param, sbtk)
+        m = torch.arange(4, device=dev) % 32
+        c = tlwe.encrypt_uniform(gen, param.lwe(), s_flat,
+                                 tlwe.encode(param, m), batch=(4,))
+        table = bootstrap.compute_lookup_table_standard(param, dev)
+        _cuda.reset_launches()
+        out[dev.type] = bootstrap.bootstrap_short(param, sbtk, table, c,
+                                                  btk_evals=evals, **kw)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert _cuda.BLIND_ROTATE.by_layout["grid"] == 1
+            step = bootstrap.bootstrap_short(param, sbtk, table, c,
+                                             btk_evals=evals, fused=False,
+                                             **kw)
+            assert _cuda.launches()["ntt_multi"] > 0
+            assert torch.equal(step.a, out["cuda"].a)
+            assert torch.equal(step.b, out["cuda"].b)
+    assert torch.equal(out["cuda"].a.cpu(), out["cpu"].a)
+    assert torch.equal(out["cuda"].b.cpu(), out["cpu"].b)

@@ -181,17 +181,22 @@ KERNELS = {k.name: k for k in _cuda.KERNELS}
 
 @pytest.mark.parametrize("name", ONE_BUFFER + NARROW)
 def test_kernel_range_at_n_2_15(name):
-    """K1, K2, K3, K5, K9 and K12 take n = 2^15 (and refuse 2^16), and so
-    do K6, tensor_mul, K7 and K8 (on two-block clusters, one half of their
-    three buffers a block) and K10 (its working set in device memory, one
-    polynomial a block at the one-buffer shape); 2^16 is refused with a
-    message that names the range, on the card as on any device: the check
-    comes before the kernel is built or launched."""
+    """K1, K2, K3, K5, K9 and K12 take n = 2^15, and so do K6, tensor_mul,
+    K7 and K8 (on two-block clusters, one half of their three buffers a
+    block) and K10 (its working set in device memory, one polynomial a
+    block at the one-buffer shape); the kernels that stop there refuse
+    2^16, K1 and K9 (to 2^26) and K10 (to 2^22) take it and refuse the
+    degree past their top, with a message that names the range, on the
+    card as on any device: the check comes before the kernel is built or
+    launched."""
     k = KERNELS[name]
     assert _cuda.log2_degree(N, k) == 15
+    top = {"ntt_multi": 26, "ntt": 26, "blind_rotate": 22}.get(name, 15)
+    if top > 15:                    # past a block, across blocks
+        assert _cuda.log2_degree(2 * N, k) == 16
     with pytest.raises(ValueError,
-                       match=f"{name} takes n = 2\\^7 .. 2\\^15"):
-        _cuda.log2_degree(2 * N, k)
+                       match=f"{name} takes n = 2\\^7 .. 2\\^{top}"):
+        _cuda.log2_degree(2 << top, k)
     if name in ONE_BUFFER:
         assert nc._radix_plan(15).threads == nc.WIDE_THREADS
     elif name == "blind_rotate":

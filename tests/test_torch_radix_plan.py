@@ -43,7 +43,7 @@ from fhe_study_tpu_torch.ops import ntt_cuda as nc
 from fhe_study_tpu_torch.ops.primes import ntt_primes
 from fhe_study_tpu_torch.utils import sass_counts
 
-LOGNS = _cuda.NTT_MULTI.degrees              # the one-buffer kernels' ...
+LOGNS = _cuda.KS_CONTRACT.degrees            # the one-buffer kernels' ...
 THREE_LOGNS = _cuda.TENSOR_MUL4.degrees      # ... and K6-K8's
 PRIMES = ntt_primes(3, 30, 1 << 15)           # 2n-th roots up to n = 2^14
 WIDE_PRIMES = ntt_primes(3, 30, 1 << 16)      # and at n = 2^15

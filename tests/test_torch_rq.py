@@ -424,14 +424,16 @@ def test_dispatch_follows_the_gate(monkeypatch, q, n):
 
 
 def test_k9_range_on_the_card():
-    """K9's wrapper takes n = 2^7 .. 2^15, the range of every one-buffer
-    kernel (the shared dispatch's, RADIX_LOGN)."""
+    """K9's wrapper takes n = 2^7 .. 2^26, the range of K1, whose body it
+    runs (the shared dispatch's, TRANSFORM_LOGN: past 2^15 across
+    blocks)."""
     assert _cuda.log2_degree(128, _cuda.NTT) == 7
     assert _cuda.log2_degree(1 << 15, _cuda.NTT) == 15
-    for n in (64, 1 << 16):
-        with pytest.raises(ValueError, match="ntt takes n = 2\\^7 .. 2\\^15"):
+    assert _cuda.log2_degree(1 << 26, _cuda.NTT) == 26
+    for n in (64, 1 << 27):
+        with pytest.raises(ValueError, match="ntt takes n = 2\\^7 .. 2\\^26"):
             _cuda.log2_degree(n, _cuda.NTT)
-    assert _cuda.NTT.logn == _cuda.NTT_MULTI.logn == _cuda.RADIX_LOGN
+    assert _cuda.NTT.logn == _cuda.NTT_MULTI.logn == _cuda.TRANSFORM_LOGN
     with pytest.raises(ValueError, match="ntt_multi takes n = 2\\^7"):
         _cuda.log2_degree(64, _cuda.NTT_MULTI)
     with pytest.raises(ValueError, match="CUDA"):
