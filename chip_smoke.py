@@ -282,9 +282,19 @@ Phases, each of which raises (and so exits non-zero) on any failure:
      timed beside their bounds (K10 at 16 steps).  Phase 2 also holds K1
      and K9 at 2^16, 2^17, 2^20, 2^22 and 2^26 on batches of 1 to 3, and
      K10's grid layout at every (C, l, w) of the reference's gate at 2^16
-     and one shape at each n from 2^17 to 2^22, against plain.  Each
-     phase prints its wall time and the device memory still held as it
-     ends.
+     and one shape at each n from 2^17 to 2^22, against plain;
+ 23. slice 16, K2, K3, K5 and K12 past one block's polynomial through the
+     op layer at N = 2^16, B = 128 on phase 18's widths (Q, P and K of 14,
+     15 and 15 primes with 2^17-th roots: no scheme draws such primes):
+     ntt.tensor_eval4 over Q and over P, ntt.ks_contract_multi at R = 1
+     over Q u K, ntt.ext_ntt Q -> P (staged) and 4 -> 5 (direct), and
+     alu_bench.ntt_smem_ceiling on the whole card at 2^15, 2^16 and 2^17;
+     every output == its plain version on the card, the launches by layout
+     held, no plain version run on the card past one block, each kernel on
+     the device alone beside its bound and its own traffic's.  Phase 2 also
+     holds the four at 2^16, 2^17, 2^20, 2^22 and 2^26 against plain.
+     Each phase prints its wall time and the device memory still held as
+     it ends.
 
 It prints each finding on a line of its own, then the kernels' JSON record,
 the card's name and power limit, and as its last line
@@ -383,6 +393,16 @@ P21_N_LWE = 400
 P22_N, P22_BETA, P22_L = 1 << 16, 1 << 6, 5
 P22_TS = (1024, 512, 256, 128, 64, 32)
 P22_ROW_STEPS = 16
+# phase 23, slice 16: K2, K3, K5 and K12 past one block at N = 2^16 on
+# phase 18's widths (Q, P and K of 14, 15 and 15 primes with 2^17-th roots,
+# from the package's prime search: no scheme draws such primes, so the
+# op layer is the path), K5 also from bench_bfv's direct 4 -> 5; K12's
+# ceiling at these degrees on the whole card, and the repetitions of its
+# record row
+P23_N, P23_LOGNS, P23_ROW_REPS = 1 << 16, (15, 16, 17), 8
+P23_LAYOUTS = {"tensor_eval4": {"chunked": 2}, "ks_contract": {"chunked": 1},
+               "ext_ntt": {"chunked direct": 1, "chunked staged": 1},
+               "ntt_smem_ceiling": {"block": 4, "chunked": 8}}
 CEILING_REPS, ALU_ROUNDS = 64, 1 << 16
 # the bound (utils/kernel_check.bound) takes the SM count and the maximum SM
 # clock that the card in hand reports; each alu_rate loop must issue at
@@ -399,7 +419,8 @@ RADIX_KERNELS = {"ntt_multi", "tensor_eval4", "ks_contract", "ext_ntt",
                  "ks_fused_eval", "ntt", "blind_rotate", "ntt_smem_ceiling",
                  "base_extend_sum", "br_forward", "br_inverse", "ext_lift",
                  "ntt_top", "ntt_chunk", "brg_top_forward",
-                 "brg_chunk_inverse", "brg_top_inverse", "brg_top_last"}
+                 "brg_chunk_inverse", "brg_top_inverse", "brg_top_last",
+                 "tensor_eval4_chunk", "ks_contract_chunk", "ext_top"}
 # K10's kernels by layout: the clusters', the device-memory layout's and
 # the grid layout's (past 2^15)
 K10_KERNELS = {"blind_rotate_kernel": "cluster", "br_forward_kernel": "device",
@@ -409,9 +430,11 @@ K10_KERNELS = {"blind_rotate_kernel": "cluster", "br_forward_kernel": "device",
                "brg_top_inverse_kernel": "grid", "brg_top_last_kernel": "grid"}
 # the kernels' JSON record has one row per entry of _cuda.KERNELS, K10's
 # (its cluster layout) followed by one for its device-memory layout and one
-# for its grid layout
+# for its grid layout, and those of K2, K3, K5 and K12 (one block a
+# polynomial) each by one for their chunked layouts past 2^15
 DM_ROW = "blind_rotate_dm"
 GRID_ROW = "blind_rotate_grid"
+CHUNKED_ROW = "{}_chunked"
 # the lift (_cuda.EXT_LIFT), held against plain beside them: K5 and K6
 # launch it in their staged layout and count it as their own launch
 LIFT = "ext_lift"
@@ -517,12 +540,18 @@ def main() -> None:
 
     dev = torch.device("cuda", 0)
     marks = [wall0]
+    chunked = [k for k in _cuda.KERNELS
+               if any(lay.startswith(_cuda.CHUNKED) for lay in k.layouts)]
     record_rows = [r for k in _cuda.KERNELS for r in (
         (k.name, DM_ROW, GRID_ROW) if k is _cuda.BLIND_ROTATE
+        else (k.name, CHUNKED_ROW.format(k.name)) if k in chunked
         else (k.name,))]
 
     def row(case) -> str:
-        """The record's row of a case: K10's by its layout."""
+        """The record's row of a case: K10's by its layout, K2's, K3's,
+        K5's and K12's past one block their chunked row."""
+        if case.layout == _cuda.CHUNKED:
+            return CHUNKED_ROW.format(case.name)
         return {"device": DM_ROW, "grid": GRID_ROW}.get(case.layout,
                                                        case.name)
 
@@ -637,7 +666,7 @@ def main() -> None:
     # take: each log n has its own pass structure (K6-K8 at 2^15 on two-block
     # clusters)
     radix_checked = 0
-    for logn in _cuda.KS_CONTRACT.degrees:
+    for logn in range(_cuda.RADIX_LOGN[0], _cuda.RADIX_LOGN[1] + 1):
         for case in kernel_check.radix_cases(logn, RADIX_BATCH, dev, gen):
             got, want = case.kernel(), case.plain()
             torch.cuda.synchronize()
@@ -669,7 +698,8 @@ def main() -> None:
         f"{kernel_check.EXT_SWEEP_LD} primes, unsigned and centered, with and "
         f"without the epilogue, vector and word forms; from 16 to "
         f"{ext_cuda.MAX_SRC} to 5) == plain (torch.equal) at every n each "
-        f"takes, 2^{_cuda.NTT_MULTI.logn[0]} .. 2^{_cuda.NTT_MULTI.logn[1]} "
+        f"takes in one block, 2^{_cuda.RADIX_LOGN[0]} .. "
+        f"2^{_cuda.RADIX_LOGN[1]} "
         f"(tensor_mul4, tensor_mul, ks_fused and ks_fused_eval at "
         f"2^{_cuda.TENSOR_MUL4.logn[1]} on two-block clusters), batch "
         f"{RADIX_BATCH}: {radix_checked} variants")
@@ -692,17 +722,16 @@ def main() -> None:
 
     def own_bytes(case) -> tuple:
         """(n, the bytes of the kernel's own traffic) of a case past one
-        block: K10's steps (kernel_check.cmux_step_bytes), K1's and K9's
-        inputs and outputs and their top passes' words."""
+        block: K10's steps (kernel_check.cmux_step_bytes), the transform
+        kernels' inputs and outputs and their top passes' words
+        (kernel_check.own_bytes)."""
         if case.name == "blind_rotate":
             shifts, acc0, ev1 = case.args[:3]
             n = case.args[6]
             steps, B = shifts.shape
             return n, steps * sum(kernel_check.cmux_step_bytes(
                 n, acc0.shape[1], ev1.shape[2], B, layout="grid").values())
-        n = case.n
-        return n, case.bytes + kernel_check.top_pass_bytes(
-            n, case.butterflies // ((n // 2) * (n.bit_length() - 1)))
+        return case.n, kernel_check.own_bytes(case)
 
     def share(case) -> None:
         k_ms = min(time_ms(case.kernel, 1, warmup=0) for _ in range(3))
@@ -729,7 +758,16 @@ def main() -> None:
         check(case, got, want)
         share(case)
         wide_checked[case.name] = wide_checked.get(case.name, 0) + 1
-    del case, got, want
+    t_ops = time.perf_counter()
+    ops_checked = {}
+    for case in kernel_check.wide_op_cases(dev, SEED + 72):
+        got, want = case.kernel(), case.plain()
+        torch.cuda.synchronize()
+        check(case, got, want)
+        del got, want
+        share(case)
+        ops_checked[case.name] = ops_checked.get(case.name, 0) + 1
+    del case
     for (name, n), rs in sorted(shares.items()):
         ks, bs, os_ = zip(*rs)
         say(f"timing: {name} at n = {n} (phase 2's shapes, kernel alone, "
@@ -745,7 +783,14 @@ def main() -> None:
         f"rows) == plain (torch.equal) at n = 2^"
         f"{kernel_check.WIDE_SWEEP_LOGNS} on batches "
         f"{kernel_check.WIDE_SWEEP_B}: {wide_checked} variants in "
-        f"{t3 - t2:.1f} s; blind_rotate's grid layout at "
+        f"{t_ops - t2:.1f} s; on their chunked schedules, tensor_eval4 (with "
+        f"and without a scale, on strided views), ks_contract (R in "
+        f"{kernel_check.WIDE_OPS_R}, aligned and edm one word off), ext_ntt "
+        f"(from {kernel_check.WIDE_OPS_LS} source primes: 2 and 4 direct, "
+        f"the others staged) and ntt_smem_ceiling (reps "
+        f"{kernel_check.WIDE_OPS_REPS}) == plain (torch.equal) at the same "
+        f"n, each variant at one of those batches in turn: {ops_checked} "
+        f"variants in {t3 - t_ops:.1f} s; blind_rotate's grid layout at "
         f"every (C, l, w) of the reference's gate at "
         f"n = 2^{kernel_check.BR_GRID_LOGN} "
         f"({len(kernel_check.gate_shapes(1 << kernel_check.BR_GRID_LOGN))} "
@@ -790,6 +835,8 @@ def main() -> None:
         counts = _cuda.launches()
         counts[DM_ROW] = _cuda.BLIND_ROTATE.by_layout["device"]
         counts[GRID_ROW] = _cuda.BLIND_ROTATE.by_layout["grid"]
+        for k in chunked:
+            counts[CHUNKED_ROW.format(k.name)] = _cuda.chunked_launches(k)
         path_launches[label] = counts
         unlaunched = [k for k in expects if counts[k] == 0]
         if unlaunched:
@@ -1181,7 +1228,7 @@ def main() -> None:
     # load hoisted out of it would make the ceiling do less than the kernels
     loops = sass_counts.ceiling_loops(listing)
     chain = {logn: sass_counts.chain_loads(logn)
-             for logn in _cuda.NTT_SMEM_CEILING.degrees}
+             for logn in range(_cuda.RADIX_LOGN[0], _cuda.RADIX_LOGN[1] + 1)}
     if loops != chain:
         raise RuntimeError(f"ntt_smem_ceiling's loops (global loads, "
                            f"barriers) {loops} != one transform's {chain}")
@@ -3265,10 +3312,10 @@ def main() -> None:
     # tensors past one block counts (the path must run none)
     plain_on_card = {}
 
-    def watched(name, fn, degree):
+    def watched(store, name, fn, degree):
         def call(*args, **kwargs):
             if args[0].is_cuda and degree(args) > 1 << ntt_cuda.CHUNK_LOGN:
-                plain_on_card[name] = plain_on_card.get(name, 0) + 1
+                store[name] = store.get(name, 0) + 1
             return fn(*args, **kwargs)
         return call
 
@@ -3278,7 +3325,8 @@ def main() -> None:
                  (kernel_check.brc, "blind_rotate_plain", lambda a: a[6])]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in plain_fns]
     for mod, name, degree in plain_fns:
-        setattr(mod, name, watched(name, getattr(mod, name), degree))
+        setattr(mod, name, watched(plain_on_card, name, getattr(mod, name),
+                                   degree))
     try:
         gen = prng.Gen(SEED + 80)
         st22 = {}
@@ -3474,13 +3522,161 @@ def main() -> None:
     phase_done(f"22 (slice 15: bootstrap_short at N=2^16 through K10's grid "
                f"layout, t={t22}) [{card}]")
 
+    # 23. slice 16: K2, K3, K5 and K12 past one block's polynomial -------
+    # through the op layer's entry points (ops/ntt.py's tensor_eval4,
+    # ks_contract_multi and ext_ntt; alu_bench.ntt_smem_ceiling) at N =
+    # 2^16, B = 128, after phase 22's keys are freed: every output == its
+    # plain version on the card, launches under the chunked layouts, no
+    # plain version on the card on the path, each kernel on the device alone
+    # beside its bound and its own traffic's
+    chunk_inst = [f"{r['kernel']} {r['registers']} registers" for r in ptxas
+                  if r["kernel"].startswith(("tensor_eval4_chunk_kernel",
+                                             "ks_contract_chunk_kernel",
+                                             "ext_top_kernel"))]
+    say(f"ptxas: phase 23's instances (no stack frame or spills, phase 1; "
+        f"with the chunk chains and top passes of phase 22): "
+        + "; ".join(chunk_inst))
+    primes23 = ntt_primes(W_L + W_M + W_K, 30, 2 * P23_N)
+    q23, p23 = primes23[:W_L], primes23[W_L:W_L + W_M]
+    qk23 = q23 + primes23[W_L + W_M:]
+    shape23 = (f"N={P23_N} B={BATCH}, Q {W_L}, P {W_M} and K {W_K} primes "
+               f"of 30 bits with 2^17-th roots")
+    res23 = prng.device_residues(SEED + 90, dev)
+    card_blocks = {}
+    for logn in P23_LOGNS:
+        per_sm = alu_bench.resident_blocks(dev, n=1 << logn)[0]
+        card_blocks[logn] = max(1, per_sm * sms * (1 << ntt_cuda.CHUNK_LOGN)
+                                >> logn)
+    in23, out23, ceil23 = {}, {}, {}
+    plain23 = {}
+
+    def p23_path():
+        eq = [res23(q23, (BATCH, 2, P23_N)) for _ in range(2)]
+        ep = [res23(p23, (BATCH, 2, P23_N)) for _ in range(2)]
+        in23["tensor_eval4 Q"] = (*(e[..., i, :] for e in eq for i in (0, 1)),
+                                  q23, (T,) * W_L)
+        in23["tensor_eval4 P"] = (*(e[..., i, :] for e in ep for i in (0, 1)),
+                                  p23, (T,) * W_M)
+        in23["ks_contract R=1 QK"] = (
+            res23(qk23, (BATCH, P23_N))[None],
+            res23(qk23, (P23_N,))[None], res23(qk23, (P23_N,))[None], qk23)
+        in23["ext_ntt Q->P"] = (res23(q23, (BATCH, 2, P23_N)), q23, p23)
+        in23["ext_ntt 4->5"] = (res23(q23[:L], (BATCH, 2, P23_N)), q23[:L],
+                                p23[:M])
+        for label, args in in23.items():
+            if label.startswith("tensor_eval4"):
+                out23[label] = ntt.tensor_eval4(*args[:5], scale=args[5])
+            elif label.startswith("ks_contract"):
+                out23[label] = ntt.ks_contract_multi(*args)
+            else:
+                out23[label] = ntt.ext_ntt(*args)
+        for logn in P23_LOGNS:
+            ceil23[logn] = alu_bench.ntt_smem_ceiling(
+                dev, n=1 << logn, B=card_blocks[logn], reps=CEILING_REPS)
+        return out23
+
+    plain_fns = [(ntt_cuda, fn, lambda a: a[0].shape[-1]) for fn in (
+        "tensor_eval4_plain", "ks_contract_plain", "ext_ntt_plain",
+        "ntt_multi_plain")] + [(alu_bench, "ntt_smem_ceiling_plain",
+                                lambda a: a[0].shape[-1])]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in plain_fns]
+    for mod, name, degree in plain_fns:
+        setattr(mod, name, watched(plain23, name, getattr(mod, name),
+                                   degree))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        drive(f"slice 16: ntt.tensor_eval4 over Q and P, "
+              f"ntt.ks_contract_multi over Q u K, ntt.ext_ntt Q -> P and "
+              f"{L} -> {M}, alu_bench.ntt_smem_ceiling at n = 2^"
+              f"{P23_LOGNS} at {shape23}",
+              tuple(CHUNKED_ROW.format(k.name) for k in chunked), p23_path)
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    peak23 = torch.cuda.max_memory_allocated()
+    by_layout23 = {k.name: {lay: v for lay, v in k.by_layout.items() if v}
+                   for k in chunked}
+    if plain23:
+        raise RuntimeError(f"phase 23: plain versions ran on the card past "
+                           f"one block: {plain23}")
+    # K12: a warm-up and 3 timed calls at each n, those at 2^15 in a block
+    if by_layout23 != P23_LAYOUTS:
+        raise RuntimeError(f"phase 23: launches by layout {by_layout23}, "
+                           f"not {P23_LAYOUTS}")
+    say(f"verify: slice 16 at {shape23}: no plain version ran on the card "
+        f"past one block on the path; launches by layout {by_layout23}; "
+        f"peak device memory {peak23 / 2**30:.2f} GiB [{card}]")
+    cases23 = {
+        label: (kernel_check.tensor_eval4_case(
+            f"{label} {[len(args[4]), BATCH, P23_N]} strided views",
+            args[:4], args[4], args[5]) if label.startswith("tensor_eval4")
+            else kernel_check.ks_contract_case(
+                f"{label} {list(args[0].shape)}", *args)
+            if label.startswith("ks_contract")
+            else kernel_check.ext_ntt_case(
+                f"{label} {list(args[0].shape)} ("
+                f"{'direct' if len(args[1]) in ntt_cuda.EXT_NTT_DIRECT else 'staged'})",
+                *args))._replace(plain_reps=1, plain_warmup=0)
+        for label, args in in23.items()}
+    for label, case in cases23.items():
+        hold(row(case), f"slice 16 path, {case.label}", out23[label],
+             case.plain())
+    for logn, ceil in ceil23.items():
+        (xin,), rows = ceil["operands"], [0, 1, ceil["B"] - 2, ceil["B"] - 1]
+        hold(CHUNKED_ROW.format("ntt_smem_ceiling")
+             if logn > ntt_cuda.CHUNK_LOGN else "ntt_smem_ceiling",
+             f"slice 16: the timed launch, reps={ceil['reps']} "
+             f"B={ceil['B']} n=2^{logn}", ceil["out"][rows],
+             alu_bench.ntt_smem_ceiling_plain(xin[rows], ceil["q"],
+                                              ceil["reps"]))
+    del out23
+    say(f"verify: slice 16: every output of the path == its plain version "
+        f"on the card (torch.equal; K12's timed launches on 4 of their "
+        f"polynomials) [{card}]")
+    x12 = res23(q23[:1], (card_blocks[16], P23_N))[0]
+    cases23["ntt_smem_ceiling"] = kernel_check.ceiling_case(
+        f"reps={P23_ROW_REPS} [{card_blocks[16]}, {P23_N}] (the whole card)",
+        x12, q23[0], P23_ROW_REPS)
+    busy = torch.zeros(1 << 28, dtype=torch.int32, device=dev)
+    for case in cases23.values():
+        time_case(case)
+        k_ms = min(queued_ms(case.kernel, 1, busy) for _ in range(3))
+        b, bo = bound(case.bytes, case.ops), bound(
+            kernel_check.own_bytes(case), case.ops)
+        if k_ms < b.ms:
+            raise RuntimeError(f"{case.name} [{case.label}]: {k_ms:.4f} ms "
+                               f"is under its bound {b}")
+        say(f"timing: slice 16 {case.name} {case.label}: on the device alone "
+            f"{k_ms:.4f} ms (best of 3), bound {b.ms:.4f} ms by {b.term}, "
+            f"{b.ms / k_ms:.3f} of it; its own traffic's bound {bo.ms:.4f} "
+            f"ms by {bo.term}, {bo.ms / k_ms:.3f} of it; launches on the "
+            f"path by layout "
+            f"{by_layout23[case.name]} [{card}]")
+    bf_bound = 1e3 / bound(0, kernel_check.BUTTERFLY_OPS).ms
+    say("ceiling: slice 16, the whole card (K12, reps="
+        f"{CEILING_REPS}): " + "; ".join(
+            f"n = 2^{logn} B={c['B']}: {c['butterflies_per_sec']:.4e} "
+            f"butterflies/s = {c['butterflies_per_sec'] / bf_bound:.3f} of "
+            f"the bound's {bf_bound:.4e}" for logn, c in ceil23.items())
+        + f"; past 2^15 on the chunked schedule [{card}]")
+    timed_chains[:] = [c for c in timed_chains
+                       if all(c is not d for d in cases23.values())]
+    del in23, cases23, ceil23, busy, x12, case
+    ntt_cuda.drop_tables()
+    torch.cuda.empty_cache()
+    phase_done(f"23 (slice 16: K2, K3, K5 and K12 past one block at "
+               f"{shape23}) [{card}]")
+
     # (phase 17's ranks report K10's launches, not its layouts: they run it
     # at N = 1024, on clusters)
     launches = {r: sum(c.get(r, 0) for c in path_launches.values())
                 for r in record_rows}
-    # K10's row counts its cluster layout; its launches in all layouts are
-    # the counter's
+    # K10's row counts its cluster layout, K2's, K3's, K5's and K12's their
+    # launches up to one block; the counter's are all layouts'
     launches["blind_rotate"] -= launches[DM_ROW] + launches[GRID_ROW]
+    for k in chunked:
+        launches[k.name] -= launches[CHUNKED_ROW.format(k.name)]
     never = [k for k, v in launches.items() if v == 0]
     if never:
         raise RuntimeError(f"kernels launched on no path: {never}")
@@ -3493,11 +3689,16 @@ def main() -> None:
 
     kernel_of = {k.name: k for k in _cuda.KERNELS}
     kernel_of[DM_ROW] = kernel_of[GRID_ROW] = _cuda.BLIND_ROTATE
+    source = {k.name: k.source for k in _cuda.KERNELS}
+    source[DM_ROW] = _cuda.BLIND_ROTATE.layouts["device"]
+    source[GRID_ROW] = _cuda.BLIND_ROTATE.layouts["grid"]
+    for k in chunked:
+        kernel_of[CHUNKED_ROW.format(k.name)] = k
+        source[CHUNKED_ROW.format(k.name)] = next(
+            src for lay, src in k.layouts.items()
+            if lay.startswith(_cuda.CHUNKED))
     record = {"kernels": [
-        {"name": r, "route": "cuda",
-         "source": (kernel_of[r].layouts["device"] if r == DM_ROW
-                    else kernel_of[r].layouts["grid"] if r == GRID_ROW
-                    else kernel_of[r].source),
+        {"name": r, "route": "cuda", "source": source[r],
          "replaces": kernel_of[r].replaces, "launches": launches[r],
          "max_abs_err": err[r], "ms": ms[r],
          "plain_ms": plain_ms[r], "bound_ms": bound_ms[r],

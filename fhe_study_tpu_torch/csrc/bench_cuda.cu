@@ -15,6 +15,9 @@
 //     chain's code (unrolled, chains ran slower and built for minutes); its
 //     body keeps every twiddle load of a transform (the SASS shows them
 //     there: ptxas hoists none out of the loop), as the kernels load them.
+//     Past n = 2^15 no block holds the polynomial: the entry queues `reps`
+//     transforms on the chunked schedule (csrc/forward_chunks_cuda.cu), so
+//     the rate there is the ceiling of that schedule.
 //   fhe_alu_rate (K13): each thread keeps kAluPer independent words in
 //     registers and applies one operation `iters * kAluUnroll` times, each
 //     round feeding the next, then stores once.  What bounds it is the issue
@@ -165,19 +168,35 @@ AluKernel alu_entry(int op) {
 }
 
 }  // namespace
+
+// K12 past one block and its chunk chain's occupancy
+// (csrc/forward_chunks_cuda.cu).
+int ntt_smem_ceiling_chunked(const uint32_t* x, uint32_t* out, uint32_t* tmp,
+                             const uint32_t* tw, const uint32_t* tw_sh,
+                             const uint32_t* cons, int B, int logn, int reps,
+                             int threads, int smem, cudaStream_t stream);
+int ntt_chunk_resident(int* per_sm);
+
 }  // namespace fhe
 
 using namespace fhe;
 
 // threads and smem: the plan of ops/ntt_cuda.py::_radix_plan; out 16-byte
-// aligned (the read-out's uint4 stores).
+// aligned (the read-out's uint4 stores).  Past n = 2^15 tw / tw_sh are the
+// chunk tables, threads and smem a chunk's, cons the prime's row and tmp a
+// scratch of B n words (16-byte aligned); below it neither is read.
 extern "C" int fhe_ntt_smem_ceiling(const uint32_t* x, uint32_t* out,
-                                    const uint32_t* tw, const uint32_t* tw_sh,
-                                    unsigned q, int B, int logn, int reps,
-                                    int threads, int smem,
+                                    uint32_t* tmp, const uint32_t* tw,
+                                    const uint32_t* tw_sh,
+                                    const uint32_t* cons, unsigned q, int B,
+                                    int logn, int reps, int threads, int smem,
                                     cudaStream_t stream) {
   if (B < 1 || reps < 0 || misaligned(out)) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (logn > kWideLogN) {
+    return ntt_smem_ceiling_chunked(x, out, tmp, tw, tw_sh, cons, B, logn,
+                                    reps, threads, smem, stream);
   }
   return by_logn_wide<CeilingLaunch>(logn, threads, smem, B, stream, x, out,
                                      tw, tw_sh, static_cast<uint32_t>(q),
@@ -201,7 +220,8 @@ extern "C" int fhe_alu_rate(const uint32_t* x, const uint32_t* y,
 
 // Blocks of one measuring kernel that the card in use holds at once:
 // op >= 0 names an alu_rate operation, op < 0 the ceiling loop at ring
-// degree 2^logn.  Writes blocks per SM and the SM count.
+// degree 2^logn (past 2^15 its chunk chain's blocks, one a chunk of 2^15
+// words).  Writes blocks per SM and the SM count.
 extern "C" int fhe_bench_resident(int op, int logn, int* per_sm, int* sms) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -215,5 +235,6 @@ extern "C" int fhe_bench_resident(int op, int logn, int* per_sm, int* sms) {
                                                         kAluThreads, 0);
     return static_cast<int>(err);
   }
+  if (logn > kWideLogN) return ntt_chunk_resident(per_sm);
   return by_logn_wide<CeilingResident>(logn, per_sm);
 }

@@ -9,6 +9,8 @@
 // of 512 threads an SM (radix_chain.cuh's OneBuffer).  The lift that the
 // staged form reads is csrc/ext.cuh's ext_lift_kernel, launched by this
 // entry on the same stream (its launch counts as one with the kernel's).
+// Past n = 2^15 the entry queues the chunked form of
+// csrc/forward_chunks_cuda.cu (the extension in the first top pass).
 //
 // The entry launches on the given stream and returns cudaGetLastError(); a
 // refused launch never runs, so the caller raises.
@@ -40,7 +42,6 @@ namespace {
 //     independent loads).  Every y_i and alpha is formed once per
 //     polynomial, not once per destination block, and no dependent load
 //     chain a word is left.
-constexpr int kStagedSrc = 0;
 
 template <int LOGN, int LS>
 __global__ void __launch_bounds__(OneBuffer<LOGN>::threads,
@@ -102,6 +103,14 @@ struct ExtNttLaunch {
 };
 
 }  // namespace
+
+// K5 past one block (csrc/forward_chunks_cuda.cu).
+int ext_ntt_chunked(const uint32_t* x, uint32_t* lift, uint32_t* tmp,
+                    uint32_t* out, const uint32_t* ext, const uint32_t* tw,
+                    const uint32_t* tw_sh, const uint32_t* cons, int Ls,
+                    int Ld, int B, int logn, int threads, int smem,
+                    cudaStream_t stream);
+
 }  // namespace fhe
 
 using namespace fhe;
@@ -109,15 +118,23 @@ using namespace fhe;
 // lift: null for the direct form (Ls = 2 or 4), else the lift's scratch of
 // (Ls + 1) B n words, which the staged form fills (ext_lift) and then reads,
 // both queued on `stream` (ops/ntt_cuda.py::lift_plan decides the form).
-extern "C" int fhe_ext_ntt(const uint32_t* x, uint32_t* lift, uint32_t* out,
-                           const uint32_t* ext, const uint32_t* tw,
-                           const uint32_t* tw_sh, int Ls, int Ld, int B,
+// Past n = 2^15 (csrc/forward_chunks_cuda.cu) tw / tw_sh are the chunk
+// tables, threads and smem a chunk's, cons the destination primes' rows and
+// tmp a scratch of Ld B n words (16-byte aligned); below it neither is read.
+extern "C" int fhe_ext_ntt(const uint32_t* x, uint32_t* lift, uint32_t* tmp,
+                           uint32_t* out, const uint32_t* ext,
+                           const uint32_t* tw, const uint32_t* tw_sh,
+                           const uint32_t* cons, int Ls, int Ld, int B,
                            int logn, int threads, int smem,
                            cudaStream_t stream) {
   const long long blocks = static_cast<long long>(Ld) * B;
   if (Ls < 1 || Ls > kMaxSrc || Ld < 1 || B < 1 || blocks > INT_MAX ||
-      logn < 7 || logn > kWideLogN) {
+      logn < 7) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (logn > kWideLogN) {
+    return ext_ntt_chunked(x, lift, tmp, out, ext, tw, tw_sh, cons, Ls, Ld,
+                           B, logn, threads, smem, stream);
   }
   const int nb = static_cast<int>(blocks);
   if (lift != nullptr) {

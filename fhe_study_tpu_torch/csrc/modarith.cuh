@@ -136,6 +136,11 @@ inline LiftIn lift_in(const uint32_t* x, int B, int n) {
 int ext_lift(const LiftIn& in, int ops, uint32_t* lift, const uint32_t* ext,
              int Ls, int B, int n, int centered, cudaStream_t stream);
 
+// The source-count argument of the instances of K5 and K6 (and of K5's
+// first top pass past one block) that read the lift's rows instead of the
+// sources: any 1 .. kMaxSrc source primes.
+constexpr int kStagedSrc = 0;
+
 // The Shoup pairs of (S/s_i) mod d_p for each source i, then that of
 // S mod d_p: the 2 Ls + 2 words of ext_from_lift's table for destination
 // prime p, staged by the block into `column` (the caller then waits on a

@@ -1,7 +1,10 @@
 // The negacyclic transform of one polynomial across blocks: n = 2^logn
 // words, more than the c = 2^kChunkLogN that one block's chain holds (K1
-// and K9 at n = 2^16 .. 2^26, csrc/ntt_multi_cuda.cu; K10's grid layout at
-// 2^16 .. 2^22, csrc/blind_rotate_grid_cuda.cu), in the reference's order
+// and K9 at n = 2^16 .. 2^26, csrc/ntt_multi_cuda.cu; K2, K3, K5 and K12
+// there too, their own step folded into the first pass,
+// csrc/tensor_eval4_chunks_cuda.cu, ks_contract_chunks_cuda.cu and
+// forward_chunks_cuda.cu; K10's grid layout at 2^16 .. 2^22,
+// csrc/blind_rotate_grid_cuda.cu), in the reference's order
 // (Cooley-Tukey forward, natural in, bit-reversed out; ops/ntt.py::
 // _stage_loop) and butterfly for butterfly its arithmetic, so the output is
 // the plain version's bit for bit, in the same order.
@@ -267,22 +270,22 @@ __device__ __forceinline__ void top_store(Word* p, size_t i, uint32_t v) {
   p[i] = static_cast<Word>(v);
 }
 
-// One top pass over bits [lo, lo + K) of L * B polynomials of 2^logn words
-// (polynomial i under prime i / B), from x into out (the same words, or
-// another buffer): (1 << (logn - K)) / kTopThreads blocks a polynomial,
-// virtual thread v of one holding the 2^K words top_base(v) + (k << lo);
-// with use_fin the final multiplier of the polynomial's prime after the
-// stages.
+// One top pass over bits [lo, lo + K) of polynomials of 2^logn words
+// (polynomial i under prime (i / inner) mod L, as ntt_rows counts them),
+// from x into out (the same words, or another buffer): (1 << (logn - K)) /
+// kTopThreads blocks a polynomial, virtual thread v of one holding the 2^K
+// words top_base(v) + (k << lo); with use_fin the final multiplier of the
+// polynomial's prime after the stages.
 template <int K, bool INV, typename In, typename Out>
 __global__ void __launch_bounds__(kTopThreads)
 ntt_top_kernel(const In* x, Out* out, const uint32_t* __restrict__ tw,
                const uint32_t* __restrict__ tw_sh,
-               const uint32_t* __restrict__ cons, int B, int logn, int lo,
-               int use_fin) {
+               const uint32_t* __restrict__ cons, int inner, int L,
+               int logn, int lo, int use_fin) {
   const int per = (1 << (logn - K)) / kTopThreads;
   const int poly = blockIdx.x / per;
   const int v = (blockIdx.x - poly * per) * kTopThreads + threadIdx.x;
-  const int p = poly / B;
+  const int p = (poly / inner) % L;
   const PrimeRow c = prime_row(cons, p);
   const size_t n = static_cast<size_t>(1) << logn;
   const int base = top_base(v, lo, K);
@@ -339,10 +342,11 @@ struct NttTop {
 template <bool INV, typename In, typename Out>
 int top_launch(int K, const In* x, Out* out, const uint32_t* tw,
                const uint32_t* tw_sh, const uint32_t* cons, long long polys,
-               int B, int logn, int lo, int use_fin, cudaStream_t stream) {
+               int inner, int L, int logn, int lo, int use_fin,
+               cudaStream_t stream) {
   return top_pass_launch<NttTop<INV, In, Out>>(
-      K, top_blocks(polys, logn, K), stream, x, out, tw, tw_sh, cons, B,
-      logn, lo, use_fin);
+      K, top_blocks(polys, logn, K), stream, x, out, tw, tw_sh, cons, inner,
+      L, logn, lo, use_fin);
 }
 
 // The chunk chains of L * B polynomials of 2^logn words (x's rows), one
@@ -362,55 +366,78 @@ int chunk_launch(const In* x, Out* out, const uint32_t* tw,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The whole transform past a block of rows [L, B, 2^logn] (row p B + b
-// under prime p), 2^kChunkLogN < 2^logn <= 2^kMaxLogN, queued on `stream`:
-// the forward's top passes from x into tmp (32-bit words, as many as x
-// has), then the chunk chains from tmp into out, fin applied (use_fin); the
-// inverse's chunk chains from x into tmp, then the top passes, the last
-// from tmp into out with fin.  tw / tw_sh: the chunk tables [L, 2^s, c]
-// (ops/ntt_cuda.py::_chunk_twiddles); threads and smem: the chunk's
-// one-buffer shape (the host's plan), refused otherwise.
+// The forward transform past a block of rows [L, B, 2^logn] (row p B + b
+// under prime p), queued on `stream`: the top passes from x into tmp
+// (32-bit words, as many as x has), then the chunk chains from tmp into
+// out, fin applied (use_fin); x may be out.  On a shape ntt_chunked (or
+// its caller) has checked.
 template <typename Word>
-int ntt_chunked(const Word* x, Word* out, uint32_t* tmp, const uint32_t* tw,
-                const uint32_t* tw_sh, const uint32_t* cons, int L, int B,
-                int logn, int inverse, int use_fin, int vec, int threads,
-                int smem, cudaStream_t stream) {
+int chunked_forward(const Word* x, Word* out, uint32_t* tmp,
+                    const uint32_t* tw, const uint32_t* tw_sh,
+                    const uint32_t* cons, int L, int B, int logn, int use_fin,
+                    int threads, int smem, cudaStream_t stream) {
+  const long long polys = static_cast<long long>(L) * B;
+  int err = 0;
+  for (int t = 0; t < top_passes(logn) && err == 0; ++t) {
+    const int K = top_bits(logn, t), lo = top_lo(logn, t);
+    err = t == 0 ? top_launch<false>(K, x, tmp, tw, tw_sh, cons, polys, B,
+                                     L, logn, lo, 0, stream)
+                 : top_launch<false>(K, tmp, tmp, tw, tw_sh, cons, polys, B,
+                                     L, logn, lo, 0, stream);
+  }
+  if (err == 0) {
+    err = chunk_launch<0>(static_cast<const uint32_t*>(tmp), out, tw, tw_sh,
+                          cons, polys, B, L, logn - kChunkLogN, use_fin, 1,
+                          threads, smem, stream);
+  }
+  return err;
+}
+
+// A schedule past a block's shape: 2^kChunkLogN < 2^logn <= 2^kMaxLogN,
+// and threads and smem the chunk's one-buffer shape (the host's plan).
+inline int chunked_shape(int logn, int threads, int smem) {
   using S = typename OneBuffer<kChunkLogN>::Shape;
-  if (logn <= kChunkLogN || logn > kMaxLogN || tmp == nullptr ||
-      misaligned(tmp)) {
+  if (logn <= kChunkLogN || logn > kMaxLogN) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (threads != S::threads ||
       smem != S::n * static_cast<int>(sizeof(uint32_t))) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
-  const int s = logn - kChunkLogN;
+  return 0;
+}
+
+// The whole transform past a block of rows [L, B, 2^logn] (row p B + b
+// under prime p), 2^kChunkLogN < 2^logn <= 2^kMaxLogN, queued on `stream`:
+// the forward as chunked_forward; the inverse's chunk chains from x into
+// tmp, then the top passes, the last from tmp into out with fin.  tw /
+// tw_sh: the chunk tables [L, 2^s, c] (ops/ntt_cuda.py::_chunk_twiddles);
+// threads and smem: the chunk's one-buffer shape (the host's plan),
+// refused otherwise.
+template <typename Word>
+int ntt_chunked(const Word* x, Word* out, uint32_t* tmp, const uint32_t* tw,
+                const uint32_t* tw_sh, const uint32_t* cons, int L, int B,
+                int logn, int inverse, int use_fin, int vec, int threads,
+                int smem, cudaStream_t stream) {
+  if (tmp == nullptr || misaligned(tmp)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int err = chunked_shape(logn, threads, smem);
+  if (err != 0) return err;
+  if (!inverse) {
+    return chunked_forward(x, out, tmp, tw, tw_sh, cons, L, B, logn, use_fin,
+                           threads, smem, stream);
+  }
   const long long polys = static_cast<long long>(L) * B;
   const int passes = top_passes(logn);
-  int err = 0;
-  if (!inverse) {
-    for (int t = 0; t < passes && err == 0; ++t) {
-      const int K = top_bits(logn, t), lo = top_lo(logn, t);
-      err = t == 0 ? top_launch<false>(K, x, tmp, tw, tw_sh, cons, polys, B,
-                                       logn, lo, 0, stream)
-                   : top_launch<false>(K, tmp, tmp, tw, tw_sh, cons, polys,
-                                       B, logn, lo, 0, stream);
-    }
-    if (err == 0) {
-      err = chunk_launch<0>(static_cast<const uint32_t*>(tmp), out, tw,
-                            tw_sh, cons, polys, B, L, s, use_fin, 1, threads,
-                            smem, stream);
-    }
-    return err;
-  }
-  err = chunk_launch<1>(x, tmp, tw, tw_sh, cons, polys, B, L, s, 0, vec,
-                        threads, smem, stream);
+  err = chunk_launch<1>(x, tmp, tw, tw_sh, cons, polys, B, L,
+                        logn - kChunkLogN, 0, vec, threads, smem, stream);
   for (int t = passes - 1; t >= 0 && err == 0; --t) {
     const int K = top_bits(logn, t), lo = top_lo(logn, t);
     err = t == 0 ? top_launch<true>(K, tmp, out, tw, tw_sh, cons, polys, B,
-                                    logn, lo, use_fin, stream)
+                                    L, logn, lo, use_fin, stream)
                  : top_launch<true>(K, tmp, tmp, tw, tw_sh, cons, polys, B,
-                                    logn, lo, 0, stream);
+                                    L, logn, lo, 0, stream);
   }
   return err;
 }

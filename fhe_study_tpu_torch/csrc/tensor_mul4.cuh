@@ -31,7 +31,6 @@ constexpr int kMul4Side =
 // (ext_lift, run by the entry first: each operand's y_i and alpha are formed
 // once per polynomial, not once per destination block).
 constexpr int kNoSrc = -1;
-constexpr int kStagedSrc = 0;
 
 // Words of the split's half a thread converts at once in the staged form,
 // each with its partner h words on: 2 x 8 loads issued together a source.

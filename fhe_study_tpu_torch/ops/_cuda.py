@@ -187,17 +187,23 @@ U32 = ctypes.c_uint
 I64 = ctypes.c_longlong
 
 
-# The ring degrees (log2 n, both ends included) that a kernel of the radix
-# chain takes: from 2^7 (a block of 8 threads, two passes of 4 and 3
-# stages), the least degree of the reference's Pallas kernels; the kernels
-# that hold one polynomial in shared memory, and those that hold three (K6,
-# K7, K8: at 2^15 on two-block clusters, one half a block), reach 2^15
-# (csrc/radix_chain.cuh, by_logn_wide).  The transforms K1 and K9 go on
-# across blocks (csrc/ntt_chunks.cuh) to 2^26, the largest degree at which
-# a prime of either package has its 2n-th roots; K10, on its two-block
-# clusters up to 2^12, with its working set in device memory beyond a block
-# and across blocks past 2^15 (ops/blind_rotate_cuda.py::_plan), to 2^22,
-# where the reference's gate ends (its CRT pair's roots).
+# The ring degrees (log2 n, both ends included) that each kernel takes.
+# Every kernel of the radix chain starts at 2^7 (a block of 8 threads, two
+# passes of 4 and 3 stages), the least degree of the reference's Pallas
+# kernels.  One block holds the polynomial up to 2^15 (csrc/radix_chain.cuh,
+# by_logn_wide; the three-buffer kernels K6, tensor_mul, K7 and K8 there on
+# two-block clusters, one half a block), and those four stop there
+# (RADIX_LOGN): their forwards, products and inverses on three buffers have
+# no schedule across blocks yet.  The kernels that run one transform
+# direction go on across blocks (csrc/ntt_chunks.cuh: top passes through
+# device memory, then one block a chunk of 2^15 words) to 2^26, the largest
+# degree at which a prime of either package has its 2n-th roots
+# (TRANSFORM_LOGN): K1 and K9, and K2, K3, K5 and K12 with their products,
+# contraction, extension or repetitions folded into the first pass.  K10,
+# on its two-block clusters up to 2^12, with its working set in device
+# memory beyond a block and across blocks past 2^15
+# (ops/blind_rotate_cuda.py::_plan), reaches 2^22, where the reference's
+# gate ends (its CRT pair's roots).
 RADIX_LOGN = (7, 15)
 TRANSFORM_LOGN = (7, 26)
 BLIND_ROTATE_LOGN = (7, 22)
@@ -211,9 +217,10 @@ class Kernel:
     (file:line of the function that reaches ``pl.pallas_call``).  ``logn``
     is the range of ring degrees it takes (``log2_degree``), None for a
     kernel without one.  A kernel with several layouts (K10; K5 and K6, whose
-    conversion is direct or staged) names them in ``layouts`` (layout -> its
-    source); ``by_layout`` counts the launches of each, and ``launches`` all
-    of them."""
+    conversion is direct or staged; K2, K3, K5 and K12 past one block,
+    "chunked") names them in ``layouts`` (layout -> its source);
+    ``by_layout`` counts the launches of each, and ``launches`` all of
+    them."""
 
     def __init__(self, name: str, symbol: str, source: str, replaces: str,
                  *argtypes, logn: tuple | None = None,
@@ -263,15 +270,25 @@ NTT_MULTI = Kernel("ntt_multi", "fhe_ntt_multi",
                    "fhe_study_tpu/ops/ntt_pallas.py:404",
                    PTR, PTR, PTR, PTR, PTR, PTR, *([INT] * 8),
                    logn=TRANSFORM_LOGN)
+# K2, K3, K5 and K12 in two layouts: one block a polynomial up to 2^15
+# ("block"; K5's "direct" and "staged"), and past it on the chunked
+# schedule ("chunked"; K5's "chunked direct" and "chunked staged"), each
+# from its own unit
+CHUNKED = "chunked"
+_K2_CU = "fhe_study_tpu_torch/csrc/tensor_eval4_chunks_cuda.cu"
 TENSOR_EVAL4 = Kernel("tensor_eval4", "fhe_tensor_eval4", _NTT_CU,
                       "fhe_study_tpu/ops/ntt_pallas.py:794",
                       PTR, PTR, PTR, PTR, *([I64] * 8),
                       PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT,
-                      logn=RADIX_LOGN)
-KS_CONTRACT = Kernel("ks_contract", "fhe_ks_contract",
-                     "fhe_study_tpu_torch/csrc/ks_contract_cuda.cu",
+                      logn=TRANSFORM_LOGN,
+                      layouts={"block": _NTT_CU, CHUNKED: _K2_CU})
+_KS_CU = "fhe_study_tpu_torch/csrc/ks_contract_cuda.cu"
+KS_CONTRACT = Kernel("ks_contract", "fhe_ks_contract", _KS_CU,
                      "fhe_study_tpu/ops/ntt_pallas.py:1273",
-                     *([PTR] * 7), *([INT] * 7), logn=RADIX_LOGN)
+                     *([PTR] * 7), *([INT] * 7), logn=TRANSFORM_LOGN,
+                     layouts={"block": _KS_CU, CHUNKED: (
+                         "fhe_study_tpu_torch/csrc/"
+                         "ks_contract_chunks_cuda.cu")})
 BASE_EXTEND = Kernel("base_extend", "fhe_base_extend", _EXT_CU,
                      "fhe_study_tpu/ops/ext_pallas.py:133",
                      PTR, PTR, PTR, PTR, INT, INT, I64, INT, INT)
@@ -279,13 +296,16 @@ BASE_EXTEND = Kernel("base_extend", "fhe_base_extend", _EXT_CU,
 # (ops/ntt_cuda.py::lift_plan): "direct", each word in the kernel from the
 # source rows (the counts with an instance), or "staged", the lift
 # (csrc/ext.cuh's ext_lift_kernel) first into a scratch, then the kernel
-# from its rows; one C call queues both launches, counted as one.
+# from its rows; one C call queues both launches, counted as one.  K5 keeps
+# the two apart past one block too.
 _EXT_NTT_CU = "fhe_study_tpu_torch/csrc/ext_ntt_cuda.cu"
+_FORWARD_CHUNKS_CU = "fhe_study_tpu_torch/csrc/forward_chunks_cuda.cu"
 EXT_NTT = Kernel("ext_ntt", "fhe_ext_ntt", _EXT_NTT_CU,
                  "fhe_study_tpu/ops/ntt_pallas.py:905",
-                 PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT,
-                 logn=RADIX_LOGN,
-                 layouts={"direct": _EXT_NTT_CU, "staged": _EXT_NTT_CU})
+                 *([PTR] * 8), *([INT] * 6), logn=TRANSFORM_LOGN,
+                 layouts={"direct": _EXT_NTT_CU, "staged": _EXT_NTT_CU,
+                          f"{CHUNKED} direct": _FORWARD_CHUNKS_CU,
+                          f"{CHUNKED} staged": _FORWARD_CHUNKS_CU})
 _MUL4_CU = "fhe_study_tpu_torch/csrc/tensor_mul4_cuda.cu"
 _TENSOR_MUL4_ARGS = (PTR, PTR, PTR, PTR, *([I64] * 8), *([PTR] * 8),
                      *([INT] * 6))
@@ -329,8 +349,10 @@ BASE_EXTEND_SUM = Kernel("base_extend_sum", "fhe_base_extend_sum", _EXT_CU,
 _BENCH_CU = "fhe_study_tpu_torch/csrc/bench_cuda.cu"
 NTT_SMEM_CEILING = Kernel("ntt_smem_ceiling", "fhe_ntt_smem_ceiling",
                           _BENCH_CU, "fhe_study_tpu/ops/vpu_bench.py:168",
-                          PTR, PTR, PTR, PTR, U32, *([INT] * 5),
-                          logn=RADIX_LOGN)
+                          *([PTR] * 6), U32, *([INT] * 5),
+                          logn=TRANSFORM_LOGN,
+                          layouts={"block": _BENCH_CU,
+                                   CHUNKED: _FORWARD_CHUNKS_CU})
 ALU_RATE = Kernel("alu_rate", "fhe_alu_rate", _BENCH_CU,
                   "fhe_study_tpu/ops/vpu_bench.py:86",
                   PTR, PTR, PTR, PTR, I64, INT, INT, U32, U32)
@@ -353,6 +375,12 @@ def reset_launches() -> None:
 
 def launches() -> dict:
     return {k.name: k.launches for k in KERNELS}
+
+
+def chunked_launches(kernel: Kernel) -> int:
+    """The launches of ``kernel`` past one block (its "chunked" layouts)."""
+    return sum(v for layout, v in kernel.by_layout.items()
+               if layout.startswith(CHUNKED))
 
 
 def on_cuda(*tensors) -> bool:

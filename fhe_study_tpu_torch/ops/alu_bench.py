@@ -213,7 +213,8 @@ def alu_rate_kernel(x, y, yp, op: str, rounds: int):
 def resident_blocks(device, op: str | None = None, n: int | None = None):
     """(blocks per SM, SMs) of a measuring kernel on the card: an
     ``alu_rate`` operation, or the ceiling loop at ring degree n (at its
-    plan's threads and shared memory)."""
+    plan's threads and shared memory; past 2^15 its chunk chain's, one
+    block a chunk of 2^15 words)."""
     per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
     fn = _cuda.library().fhe_bench_resident
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
@@ -304,7 +305,11 @@ def ntt_smem_ceiling_plain(x, q: int, reps: int):
 def ntt_smem_ceiling_kernel(x, q: int, reps: int):
     """K12: one block per polynomial of x int32 [B, n], n = 2^7 .. 2^15, on
     K1's plan (``ntt_cuda._radix_plan``), the polynomial in shared memory for
-    all ``reps`` chains."""
+    all ``reps`` chains.  Past 2^15 no block holds the polynomial: each of
+    the ``reps`` transforms runs K1's chunked schedule (top passes through
+    a scratch, then one block a chunk of 2^15 words; ``ntt_cuda._chunk_plan``),
+    all queued by the one C call.  Its default prime, the reference's
+    998244353, has 2n-th roots up to n = 2^22; 2013265921 up to 2^26."""
     _check_q(q)
     dev = x.device
     _cuda.check(x, "x", dev)
@@ -316,11 +321,15 @@ def ntt_smem_ceiling_kernel(x, q: int, reps: int):
     out = torch.empty_like(x)
     if B == 0:
         return out
-    tw = ntt_cuda._twiddles((q,), n, False, dev)
-    plan = ntt_cuda._radix_plan(logn)
+    tw = ntt_cuda._chunk_tables((q,), n, False, dev)
+    cons = ntt_cuda._prime_rows((q,), None, dev)
+    tmp = ntt_cuda._chunk_scratch(logn, x.numel(), dev)
     _cuda.NTT_SMEM_CEILING.launch(dev, x.data_ptr(), out.data_ptr(),
-                                  tw[0].data_ptr(), tw[1].data_ptr(), q, B,
-                                  logn, reps, plan.threads, plan.smem_bytes)
+                                  None if tmp is None else tmp.data_ptr(),
+                                  tw[0].data_ptr(), tw[1].data_ptr(),
+                                  cons.data_ptr(), q, B, logn, reps,
+                                  *ntt_cuda._transform_plan(logn),
+                                  layout=ntt_cuda._layout(logn))
     return out
 
 
@@ -332,7 +341,11 @@ def ntt_smem_ceiling(device, q: int | None = None, n: int = 1 << 14, *,
     Returns {"butterflies_per_sec", "dt", "reps", "q", "n", "B", "device",
     "operands", "out"}: ``operands`` is the (x,) of the last timed launch and
     ``out`` what it stored.  B = 64 blocks leave half of a 132-SM card idle;
-    pass a multiple of ``resident_blocks(device, n=n)`` for the whole card."""
+    pass a multiple of ``resident_blocks(device, n=n)`` for the whole card
+    (past n = 2^15 that many chunks of 2^15 words: B = blocks * 2^15 / n).
+    Past 2^15 no block holds the polynomial, so the rate is the ceiling of
+    the chunked schedule (every transform through device memory), not of a
+    resident chain."""
     device = _card(device)
     if q is None:
         q = ntt_mod.CRT_PRIMES_TFHE[0]

@@ -198,8 +198,8 @@ def _radix_plan(logn: int, max_threads: int | None = None,
                      tuple(fwd), tuple(inv))
 
 
-# -- the transform past one block (K1 and K9 at n = 2^16 .. 2^26, K10's grid
-# layout; csrc/ntt_chunks.cuh) ---------------------------------------------
+# -- the transform past one block (K1, K2, K3, K5, K9 and K12 at n = 2^16 ..
+# 2^26, K10's grid layout; csrc/ntt_chunks.cuh) ----------------------------
 
 CHUNK_LOGN = WIDE_LOGN  # kChunkLogN: a chunk of 2^15 words, one block's chain
 TOP_BITS = 4            # kTopBits: the stages a top pass runs at most
@@ -449,6 +449,15 @@ def _chunk_scratch(logn: int, words: int, device):
     return torch.empty(words, dtype=torch.int32, device=device)
 
 
+def _layout(logn: int, below: str = "block") -> str:
+    """The layout a kernel of two schedules counts a launch at 2^logn
+    under: ``below`` up to a block's polynomial, "chunked" past it (K2, K3,
+    K5 and K12; K5's "chunked direct" and "chunked staged")."""
+    if logn <= CHUNK_LOGN:
+        return below
+    return _cuda.CHUNKED if below == "block" else f"{_cuda.CHUNKED} {below}"
+
+
 def ntt_multi_kernel(x, qs: tuple, inverse: bool = False, fin=None):
     """K1: one block per (prime, polynomial), on the register-resident
     chain (``_radix_plan``); past n = 2^15 across blocks (``_chunk_plan``:
@@ -529,8 +538,11 @@ def _row_strides(views) -> list:
 
 def tensor_eval4_kernel(x0, x1, y0, y1, dst: tuple, scale=None):
     """K2: one block per (prime, polynomial, product), on the
-    register-resident inverse chain (``_radix_plan``).  Operands may be
-    strided views ([Ld, B.., n] with a contiguous last axis)."""
+    register-resident inverse chain (``_radix_plan``); past n = 2^15 one
+    block a chunk of it, its product formed in the chain's first pass, then
+    the inverse top passes in place in the output (``_chunk_plan``).
+    Operands may be strided views ([Ld, B.., n] with a contiguous last
+    axis)."""
     dev = x0.device
     Ld, n = len(dst), x0.shape[-1]
     logn = _cuda.log2_degree(n, _cuda.TENSOR_EVAL4)
@@ -541,22 +553,22 @@ def tensor_eval4_kernel(x0, x1, y0, y1, dst: tuple, scale=None):
     if B == 0:
         return out
     dst = tuple(dst)
-    tw = _twiddles(dst, n, True, dev)
+    tw = _chunk_tables(dst, n, True, dev)
     cons = _prime_rows(dst, _tensor_fin(dst, n, scale), dev)
-    plan = _radix_plan(logn)
     _cuda.TENSOR_EVAL4.launch(dev, *(v.data_ptr() for v in views),
                               *_row_strides(views),
                               out.data_ptr(), tw[0].data_ptr(),
                               tw[1].data_ptr(), cons.data_ptr(), Ld, B, logn,
-                              plan.threads, plan.smem_bytes)
+                              *_transform_plan(logn), layout=_layout(logn))
     return out
 
 
 def ks_contract_kernel(edm, kb, ka, primes: tuple):
     """K3: one block per (prime, polynomial, key half), the contraction in
     the first pass of the register-resident inverse chain (``_radix_plan``);
-    the rows are read as uint4 when edm, kb and ka are 16-byte aligned and
-    word by word otherwise."""
+    past n = 2^15 one block a chunk of it, then the inverse top passes in
+    place in the output (``_chunk_plan``).  The rows are read as uint4 when
+    edm, kb and ka are 16-byte aligned and word by word otherwise."""
     dev = edm.device
     R, Lp, n = edm.shape[0], edm.shape[1], edm.shape[-1]
     logn = _cuda.log2_degree(n, _cuda.KS_CONTRACT)
@@ -573,23 +585,25 @@ def ks_contract_kernel(edm, kb, ka, primes: tuple):
                       device=dev)
     B = edm.numel() // (R * Lp * n)
     if B > 0:
-        tw = _twiddles(primes, n, True, dev)
+        tw = _chunk_tables(primes, n, True, dev)
         cons = _prime_rows(primes, _default_fin(primes, n, True, None), dev)
         vec = all(_cuda.aligned(t) for t in (edm, kb, ka))
-        plan = _radix_plan(logn)
         _cuda.KS_CONTRACT.launch(dev, edm.data_ptr(), kb.data_ptr(),
                                  ka.data_ptr(), out.data_ptr(),
                                  tw[0].data_ptr(), tw[1].data_ptr(),
                                  cons.data_ptr(), R, Lp, B, logn, int(vec),
-                                 plan.threads, plan.smem_bytes)
+                                 *_transform_plan(logn),
+                                 layout=_layout(logn))
     return out[0], out[1]
 
 
 def ext_ntt_kernel(x, src: tuple, dst: tuple):
     """K5: one block per (dst prime, polynomial), on the register-resident
-    forward chain (``_radix_plan``); any source basis of 1 .. 31 primes,
-    direct or staged (``lift_plan``: the lift into a scratch first, in the
-    same C call)."""
+    forward chain (``_radix_plan``); past n = 2^15 the extension in the
+    first forward top pass into a 32-bit scratch, the other top passes,
+    then one block a chunk (``_chunk_plan``).  Any source basis of 1 .. 31
+    primes, direct or staged (``lift_plan``: the lift into a scratch first,
+    in the same C call)."""
     dev = x.device
     _cuda.check(x, "x", dev)
     ext_cuda._check_src(src)
@@ -604,14 +618,17 @@ def ext_ntt_kernel(x, src: tuple, dst: tuple):
         return out
     src, dst = tuple(src), tuple(dst)
     tab = ext_cuda.kernel_table(src, dst, None, dev)
-    tw = _twiddles(dst, n, False, dev)
-    plan = _radix_plan(logn)
+    tw = _chunk_tables(dst, n, False, dev)
+    cons = _prime_rows(dst, None, dev)
     layout, lift = _lift_scratch(lift_plan(_cuda.EXT_NTT, Ls, B, n), dev)
+    tmp = _chunk_scratch(logn, out.numel(), dev)
     _cuda.EXT_NTT.launch(dev, x.data_ptr(),
                          None if lift is None else lift.data_ptr(),
+                         None if tmp is None else tmp.data_ptr(),
                          out.data_ptr(), tab.data_ptr(), tw[0].data_ptr(),
-                         tw[1].data_ptr(), Ls, Ld, B, logn, plan.threads,
-                         plan.smem_bytes, layout=layout)
+                         tw[1].data_ptr(), cons.data_ptr(), Ls, Ld, B, logn,
+                         *_transform_plan(logn),
+                         layout=_layout(logn, layout))
     return out
 
 

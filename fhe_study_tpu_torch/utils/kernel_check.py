@@ -802,6 +802,21 @@ def top_pass_bytes(n: int, polys: int) -> int:
     return len(nc._chunk_plan(n.bit_length() - 1).top) * 8 * polys * n
 
 
+def own_bytes(case) -> int:
+    """The device-memory bytes of a transform kernel's own traffic past one
+    block (K1, K2, K3, K5, K9, K12): its least bytes and the top passes of
+    its transforms (``top_pass_bytes``); K12's transforms after the first
+    also read and write the polynomial once more each (each runs its top
+    passes from the last one's output)."""
+    n = case.n
+    transforms = case.butterflies // ((n // 2) * (n.bit_length() - 1))
+    extra = 0
+    if case.name == "ntt_smem_ceiling" and n > 1 << nc.CHUNK_LOGN:
+        x, _, reps = case.args
+        extra = 8 * max(reps - 1, 0) * x.numel()
+    return case.bytes + top_pass_bytes(n, transforms) + extra
+
+
 def ntt_case(label: str, x, q: int, inverse: bool) -> Case:
     """K9 on int64 rows x [..., n] under q: every word read and written once
     (8 bytes each) with the root table and its companions (8 bytes a
@@ -832,11 +847,115 @@ def ntt_multi_case(label: str, x, qs: tuple, inverse: bool,
                      butterflies=_butterflies(n, polys), n=n)
 
 
-# K1's and K9's degrees past one block that the sweep holds against plain:
-# one top pass at 2^16 and 2^17, two at 2^20 and 2^22, three at 2^26 (the
-# top: only 2013265921 = 15 * 2^27 + 1 has 2n-th roots there)
+# The degrees past one block that the sweep holds K1, K9, K2, K3, K5 and
+# K12 against plain at: one top pass at 2^16 and 2^17, two at 2^20 and 2^22,
+# three at 2^26 (the top: only 2013265921 = 15 * 2^27 + 1 has 2n-th roots
+# there)
 WIDE_SWEEP_LOGNS = (16, 17, 20, 22, 26)
 WIDE_SWEEP_B = (1, 2, 3)
+
+
+def _wide_primes(n: int) -> tuple:
+    """Up to two primes with 2n-th roots, of the TFHE pair and the CRT
+    primes, in that order."""
+    pool = ntt_mod.CRT_PRIMES_TFHE + ntt_mod.CRT_PRIMES
+    return tuple(p for p in pool if (p - 1) % (2 * n) == 0)[:2]
+
+
+def _layout_of(n: int) -> str:
+    """The layout a chain kernel of two schedules runs at n (the record's
+    row): "" up to a block's polynomial, "chunked" past it."""
+    return _cuda.CHUNKED if n > 1 << nc.CHUNK_LOGN else ""
+
+
+def tensor_eval4_case(label: str, ops, dst: tuple, scale=None) -> Case:
+    """K2 on the four [Ld, B.., n] operands ``ops`` (possibly strided
+    views, one view standing for two of them): each distinct operand's
+    words read once, the three products written once, the tables; 3 Ld B
+    inverse transforms, 4 Montgomery products, an add and 3 Shoup products
+    (the products' and n^-1 t) a coefficient."""
+    n, ld = ops[0].shape[-1], len(dst)
+    rows = ops[0].numel() // ld
+    distinct = len({(o.data_ptr(), o.stride()) for o in ops})
+    return _pair("tensor_eval4", label,
+                 4 * ((distinct + 3) * ld * rows + 2 * n * ld),
+                 _ntt_ops(n, 3 * rows // n * ld)
+                 + ld * rows * (4 * MONT_OPS + ADD_OPS + 3 * SHOUP_OPS),
+                 nc.tensor_eval4_kernel, nc.tensor_eval4_plain, *ops, dst,
+                 scale=scale)._replace(
+                     butterflies=_butterflies(n, 3 * rows // n * ld), n=n,
+                     layout=_layout_of(n))
+
+
+def ks_contract_case(label: str, edm, kb, ka, primes: tuple) -> Case:
+    """K3 on digit rows edm [R, Lp, B.., n] and key rows [R, Lp, n]: every
+    digit and key word read once, both halves written once, the tables; 2
+    Lp B inverse transforms, per coefficient and half R Montgomery products,
+    R - 1 adds and n^-1."""
+    R, lp, n = edm.shape[0], len(primes), edm.shape[-1]
+    rows = edm[0].numel() // lp
+    return _pair("ks_contract", label,
+                 4 * (R * lp * rows + 2 * R * lp * n + 2 * lp * rows
+                      + 2 * n * lp),
+                 _ntt_ops(n, 2 * lp * rows // n)
+                 + lp * rows * 2 * (R * MONT_OPS + (R - 1) * ADD_OPS
+                                    + SHOUP_OPS),
+                 nc.ks_contract_kernel, nc.ks_contract_plain, edm, kb, ka,
+                 primes)._replace(butterflies=_butterflies(n, 2 * lp * rows
+                                                           // n),
+                                  n=n, layout=_layout_of(n))
+
+
+# source words past which a case holds K5 against its plain version with
+# the extension (per coefficient) taken over slices of this many
+# coefficients: the int64 lift of 31 rows at n = 2^26 would not fit the
+# card beside the kernel's operands
+EXT_PLAIN_WORDS, EXT_PLAIN_SLICE = 1 << 28, 1 << 22
+
+
+def _ext_ntt_plain_sliced(x, src: tuple, dst: tuple):
+    """ntt_cuda.ext_ntt_plain's value, its extension over slices of the
+    last axis."""
+    n = x.shape[-1]
+    return nc.ntt_multi_plain(torch.cat([
+        ext.base_extend_fused_plain(x[..., i:i + EXT_PLAIN_SLICE], src, dst)
+        for i in range(0, n, EXT_PLAIN_SLICE)], dim=-1), dst)
+
+
+def ext_ntt_case(label: str, x, src: tuple, dst: tuple) -> Case:
+    """K5 on x [Ls, B.., n]: every source word read and every output word
+    written once, the tables; the conversion of each coefficient and Ld B
+    forward transforms."""
+    ls, ld, n = len(src), len(dst), x.shape[-1]
+    rows = x.numel() // ls
+    plain = (_ext_ntt_plain_sliced if x.numel() > EXT_PLAIN_WORDS
+             else nc.ext_ntt_plain)
+    return _pair("ext_ntt", label, 4 * ((ls + ld) * rows + 2 * n * ld),
+                 _ext_ops(rows, ls, ld) + _ntt_ops(n, ld * rows // n),
+                 nc.ext_ntt_kernel, plain, x, src, dst)._replace(
+                     butterflies=_butterflies(n, ld * rows // n), n=n,
+                     layout=_layout_of(n))
+
+
+def ceiling_case(label: str, x, q: int, reps: int) -> Case:
+    """K12 on x [B, n] over ``reps`` transforms: the polynomial read and
+    written once, the tables where a transform runs; B reps transforms."""
+    B, n = x.shape
+    return _pair("ntt_smem_ceiling", label,
+                 4 * (2 * B * n + (2 * n if reps else 0)),
+                 _ntt_ops(n, B * reps), alu_bench.ntt_smem_ceiling_kernel,
+                 alu_bench.ntt_smem_ceiling_plain, x, q, reps)._replace(
+                     butterflies=_butterflies(n, B * reps), n=n,
+                     layout=_layout_of(n), args=(x, q, reps))
+
+
+# K2, K3, K5 and K12 past one block in the sweep (their chunked schedules):
+# K2 with and without a scale and on strided views; K3 at R digit rows of
+# WIDE_OPS_R, aligned and one word off; K5 from the source counts of
+# WIDE_OPS_LS (2 and 4 direct, 3 and 31 staged); K12 over WIDE_OPS_REPS
+WIDE_OPS_R = (1, 3)
+WIDE_OPS_LS = (2, 4, 3, ext.MAX_SRC)
+WIDE_OPS_REPS = (0, 1, 3)
 
 
 def wide_transform_cases(device, seed: int):
@@ -849,12 +968,12 @@ def wide_transform_cases(device, seed: int):
     the last batch K1's inverse also on rows one word off the 16-byte
     alignment (its word-by-word first pass), K9's on int64 rows one word
     off.  Operands drawn on the card (``prng.device_residues``).  Yields
-    one case at a time, then forgets the root tables."""
+    one case at a time and leaves the root tables cached for
+    ``wide_op_cases``, which runs at the same degrees and forgets them."""
     res = prng.device_residues(seed, device)
-    pool = ntt_mod.CRT_PRIMES_TFHE + ntt_mod.CRT_PRIMES
     for logn in WIDE_SWEEP_LOGNS:
         n = 1 << logn
-        qs = tuple(p for p in pool if (p - 1) % (2 * n) == 0)[:2]
+        qs = _wide_primes(n)
         fin = tuple(range(3, 3 + len(qs)))
         for B in WIDE_SWEEP_B:
             x = res(qs, (B, n))
@@ -882,7 +1001,76 @@ def wide_transform_cases(device, seed: int):
                             f"{list(row.shape)} q={q}{tag}", row, q,
                             inverse)._replace(timed=False)
             del x, rows
+
+
+def wide_op_cases(device, seed: int):
+    """K2, K3, K5 and K12 past one block against their plain versions
+    (compared; chip_smoke.py times each kernel beside its bounds) at each
+    log n of WIDE_SWEEP_LOGNS over up to two primes with 2n-th roots: each
+    variant at one batch of WIDE_SWEEP_B, in turn, so that every kernel
+    runs each batch at each n (K5 on at most 2^31 source words: from 31
+    sources at 2^26 on one polynomial).  K5's source primes are 30-bit
+    primes apart from those.  Operands drawn on the card
+    (``prng.device_residues``), each case's own, so that only the case in
+    hand holds memory.  Yields one case at a time, then forgets the root
+    tables."""
+    res = prng.device_residues(seed, device)
+    for logn in WIDE_SWEEP_LOGNS:
+        n = 1 << logn
+        qs = _wide_primes(n)
+        src_pool = tuple(p for p in ntt_primes(ext.MAX_SRC + 2, 30, 1 << 16)
+                         if p not in qs)[:ext.MAX_SRC]
+        batch = iter(WIDE_SWEEP_B * 8)
+        for tag, scaled, strided in (("scale", True, False),
+                                     ("no scale", False, False),
+                                     ("scale, strided views", True, True)):
+            yield _wide_k2(res, qs, next(batch), n, tag, scaled, strided)
+        for R in WIDE_OPS_R:
+            for off in (False, True):
+                yield _wide_k3(res, qs, next(batch), n, R, off)
+        for ls in WIDE_OPS_LS:
+            B = min(next(batch), max(1, (1 << 31) // (ls * n)))
+            yield _wide_k5(res, src_pool[:ls], qs, B, n)
+        for reps in WIDE_OPS_REPS:
+            yield _wide_k12(res, qs[0], next(batch), n, reps)
     nc.drop_tables()
+
+
+def _wide_k2(res, qs, B, n, tag, scaled, strided) -> Case:
+    if strided:
+        pair = res(qs, (B, 2, n))
+        ops = [pair[..., 0, :], pair[..., 1, :], pair[..., 1, :],
+               pair[..., 0, :]]
+    else:
+        ops = [res(qs, (B, n)) for _ in range(4)]
+    scale = tuple(range(3, 3 + len(qs))) if scaled else None
+    return tensor_eval4_case(f"{tag} {[len(qs), B, n]} over {qs}", ops, qs,
+                             scale)._replace(timed=False)
+
+
+def _wide_k3(res, qs, B, n, R, off) -> Case:
+    edm = res(qs, (R, B, n)).transpose(0, 1).contiguous()
+    if off:
+        edm = _offset_word(edm)
+    kb, ka = (res(qs, (R, n)).transpose(0, 1).contiguous()
+              for _ in range(2))
+    return ks_contract_case(
+        f"R={R} {list(edm.shape)} over {qs}"
+        f"{', edm one word off' if off else ''}", edm, kb, ka,
+        qs)._replace(timed=False)
+
+
+def _wide_k5(res, src, qs, B, n) -> Case:
+    form = "direct" if len(src) in nc.EXT_NTT_DIRECT else "staged"
+    x = res(src, (B, n))
+    return ext_ntt_case(f"{len(src)} -> {len(qs)} primes {list(x.shape)} "
+                        f"({form})", x, src, qs)._replace(timed=False)
+
+
+def _wide_k12(res, q, B, n, reps) -> Case:
+    x = res((q,), (B, n))[0]
+    return ceiling_case(f"reps={reps} [{B}, {n}] q={q}", x, q,
+                        reps)._replace(timed=False)
 
 
 def ntt_cases(n: int, k: int, l: int, steps: int, device,

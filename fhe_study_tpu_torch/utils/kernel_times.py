@@ -69,7 +69,8 @@ and L = 29 (M = 30), each on the device alone beside its bound (the least
 work of ``kernel_check.cases``) and beside the composition of kernels that
 gives the same output, held equal to it first: K4 (base_extend) then K1
 (ntt_multi), and K4 on the four operands stacked then K6 over P without a
-source basis.  Where the tree has the staged layout
+source basis; where the tree takes K5 past 2^15, also K5 Q -> P at
+N = 2^16, L = 14, M = 15 (chip_smoke.py's phase 23 primes) beside K4 + K1.  Where the tree has the staged layout
 (``ops/ntt_cuda.py::lift_plan``) it also times the lift alone on K5's
 operand, and K5 and K6 at N = 2^14, L = 4, M = 5 in their direct instance
 and forced into the staged layout (outputs held equal).
@@ -276,7 +277,7 @@ CONVERSION_REPS = 3
 def conversion(args, card: str) -> None:
     """The --conversion run (see the module docstring)."""
     from fhe_study_tpu_torch.models import bfv_rns as R
-    from fhe_study_tpu_torch.ops import ext_cuda
+    from fhe_study_tpu_torch.ops import _cuda, ext_cuda
     from fhe_study_tpu_torch.ops import ntt_cuda as nc
     from fhe_study_tpu_torch.utils import kernel_check as kc
     from fhe_study_tpu_torch.utils import prng
@@ -343,6 +344,8 @@ def conversion(args, card: str) -> None:
                   2 * rows * L * (kc.SHOUP_OPS + kc.WIDE_MAC_OPS))
         del x2, ct, k5, k6, k5_comp
         torch.cuda.empty_cache()
+    if _cuda.EXT_NTT.logn[1] > 15:
+        conversion_past_a_block(args, card, timed, held)
     if not hasattr(nc, "lift_plan"):
         return
     # the direct instances against the staged layout where both take the
@@ -373,6 +376,35 @@ def conversion(args, card: str) -> None:
                       f"{ms:.4f} ms", flush=True)
         finally:
             nc.EXT_NTT_DIRECT, nc.MUL4_DIRECT = saved
+
+
+def conversion_past_a_block(args, card: str, timed, held) -> None:
+    """K5 Q -> P past one block (its chunked schedule) at n = 2^16 on
+    chip_smoke.py's phase 23 widths (14 -> 15 primes with 2^17-th roots,
+    staged) beside K4 + K1, which give the same output."""
+    from fhe_study_tpu_torch.ops import ext_cuda
+    from fhe_study_tpu_torch.ops import ntt_cuda as nc
+    from fhe_study_tpu_torch.ops.primes import ntt_primes
+    from fhe_study_tpu_torch.utils import kernel_check as kc
+    from fhe_study_tpu_torch.utils import prng
+    dev = torch.device("cuda", 0)
+    n, L, M, B = 1 << 16, 14, 15, args.batch
+    primes = ntt_primes(L + M, 30, 2 * n)
+    qs, ps = primes[:L], primes[L:]
+    x2 = prng.device_residues(16, dev)(qs, (B, 2, n))
+    shape = f"L={L} M={M} B={B} n={n}"
+    k5 = (lambda: nc.ext_ntt_kernel(x2, qs, ps))
+    k5_comp = (lambda: nc.ntt_multi_kernel(
+        ext_cuda.base_extend_fused_kernel(x2, qs, ps), ps))
+    held(f"K4 + K1 at {shape}", k5, k5_comp)
+    case = kc.ext_ntt_case("", x2, qs, ps)
+    timed(f"K5 ext_ntt Q->P [{L}, {B}, 2, {n}] (chunked)", k5, case.bytes,
+          case.ops)
+    timed(f"K4 + K1 (the same output) at {shape}", k5_comp, case.bytes,
+          case.ops)
+    del x2, k5, k5_comp, case
+    nc.drop_tables()
+    torch.cuda.empty_cache()
 
 
 def ext_sum_bfv(kernel_check, dev, gen) -> list:

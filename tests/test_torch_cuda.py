@@ -21,6 +21,7 @@ from fhe_study_tpu_torch.models.gfhe.glwe import ERR_SIGMA, Param
 from fhe_study_tpu_torch.models.tfhe import bootstrap, tglwe, tlwe
 from fhe_study_tpu_torch.ops import (_cuda, alu_bench, blind_rotate_cuda,
                                      ext_cuda, ntt, ntt_cuda)
+from fhe_study_tpu_torch.ops.primes import ntt_primes
 from fhe_study_tpu_torch.utils import kernel_check, prng
 
 pytestmark = pytest.mark.cuda
@@ -43,7 +44,8 @@ def test_kernels_match_plain(cuda, n):
         assert kernel_check.equal(got, want), (case.name, case.label)
 
 
-@pytest.mark.parametrize("logn", _cuda.KS_CONTRACT.degrees)
+@pytest.mark.parametrize("logn", range(_cuda.RADIX_LOGN[0],
+                                       _cuda.RADIX_LOGN[1] + 1))
 def test_radix_kernels_match_plain_at_every_degree(cuda, logn):
     """The redesigned kernels: K1-K3, K5-K9 and K12 on the
     register-resident chains, where each log n has its own pass structure
@@ -82,10 +84,13 @@ def test_radix_kernels_have_no_stack_frame_or_spills(cuda):
     two forms, K4 and K11 per source count 1 .. 31 and form,
     K10's clusters per log n 2^7 .. 2^12, staged and direct, and its
     device-memory layout's forward and inverse kernels per log n 2^7 ..
-    2^15; past 2^15 the chunk chains of K1, K9 and K10's grid layout
-    (K1's both ways, K9's both ways, K10's forward), the top passes of K1
-    and K9 (four stage counts, both ways, K9's first and last on int64
-    words) and K10's grid kernels (four stage counts each; its forward's
+    2^15; past 2^15 the chunk chains of K1, K9, K10's grid layout and of
+    K5 and K12 (K1's both ways, K9's both ways, K10's forward, K5's and
+    K12's forward), the top passes of K1 and K9 (four stage counts, both
+    ways, K9's first and last on int64 words), of K2 and K3 (inverse, four
+    each) and of K5 and K12 (forward, four), K5's first top pass (four
+    stage counts from 2 and 4 sources and staged), the chunk kernels of K2
+    and K3, and K10's grid kernels (four stage counts each; its forward's
     first pass and the others)."""
     report = _cuda.ptxas_report(_cuda.build_log())
     counts = {"tensor_eval4_kernel": 9, "ks_contract_kernel": 9,
@@ -95,10 +100,11 @@ def test_radix_kernels_have_no_stack_frame_or_spills(cuda):
               "base_extend_sum_kernel": 31 * 2, "ext_lift_kernel": 2,
               "blind_rotate_kernel": 6 * 2, "br_forward_kernel": 9,
               "br_inverse_kernel": 9, "ntt_kernel": 9 * 2,
-              "ntt_smem_ceiling_kernel": 9, "ntt_chunk_kernel": 5,
-              "ntt_top_kernel": 4 * 4, "brg_top_forward_kernel": 4 * 2,
+              "ntt_smem_ceiling_kernel": 9, "ntt_chunk_kernel": 6,
+              "ntt_top_kernel": 4 * 4 + 3 * 4, "brg_top_forward_kernel": 4 * 2,
               "brg_chunk_inverse_kernel": 1, "brg_top_inverse_kernel": 4,
-              "brg_top_last_kernel": 4}
+              "brg_top_last_kernel": 4, "tensor_eval4_chunk_kernel": 1,
+              "ks_contract_chunk_kernel": 1, "ext_top_kernel": 4 * 3}
     radix = [r for r in report if r["kernel"].split("<")[0] in counts]
     for name, count in counts.items():
         assert sum(r["kernel"].split("<")[0] == name for r in radix) == count
@@ -138,13 +144,15 @@ def test_redesigned_kernels_refuse_another_plan(cuda):
                              tw[0].data_ptr(), tw[1].data_ptr(),
                              cons.data_ptr(), 1, 8, 1, vec, threads, smem)
     fwd0 = ntt_cuda._twiddles(qs[:1], 256, False, cuda)
+    cons0 = ntt_cuda._prime_rows(qs[:1], None, cuda)
     for threads, smem in ((plan.threads * 2, plan.smem_bytes),
                           (plan.threads, plan.smem_bytes // 2)):
         with pytest.raises(RuntimeError, match="fhe_ntt_smem_ceiling"):
             _cuda.NTT_SMEM_CEILING.launch(cuda, x.data_ptr(), x.data_ptr(),
-                                          fwd0[0].data_ptr(),
-                                          fwd0[1].data_ptr(), qs[0], 2, 8, 1,
-                                          threads, smem)
+                                          None, fwd0[0].data_ptr(),
+                                          fwd0[1].data_ptr(),
+                                          cons0.data_ptr(), qs[0], 2, 8, 1,
+                                          threads, smem, layout="block")
     tab = ext_cuda.kernel_table(qs, qs[:2], None, cuda)
     out = torch.zeros((2, 2, 256), dtype=torch.int32, device=cuda)
     for src, total in ((x, 511), (x.view(-1)[1:], 508)):
@@ -733,7 +741,7 @@ def test_bench_wrappers_check_and_measure(cuda):
         alu_bench.alu_rate_kernel(x.long(), x, x, "add", 16)
     with pytest.raises(ValueError, match="multiples of 16"):
         alu_bench.alu_rate_kernel(x, x, x, "add", 8)
-    with pytest.raises(ValueError, match="2\\^7 .. 2\\^15"):
+    with pytest.raises(ValueError, match="2\\^7 .. 2\\^26"):
         alu_bench.ntt_smem_ceiling_kernel(x[:, :64].contiguous(), 12289, 1)
     with pytest.raises(ValueError, match="alpha"):
         ext_cuda.base_extend_sum_kernel(x, x, (12289, 40961), (65537,))
@@ -852,6 +860,42 @@ def test_transforms_past_a_block_match_plain(cuda, logn):
                        x[0].long())
     assert torch.equal(ntt.intt_multi(ntt.ntt_multi(x, qs), qs), x)
     assert _cuda.launches()["ntt"] == 2 and _cuda.launches()["ntt_multi"] == 2
+
+
+@pytest.mark.parametrize("logn", [16, 17])
+def test_chunked_ops_past_a_block_match_plain(cuda, logn):
+    """K2 (strided views, a scale), K3 (R = 3, the digit rows one word
+    off), K5 (from 2 sources direct, from 3 staged) and K12 (2 transforms)
+    across blocks on their chunked schedules, bit for bit; each launch
+    counted under its chunked layout."""
+    n = 1 << logn
+    qs = (998244353, 754974721)
+    src = ntt_primes(3, 30, 1 << 16, skip=8)
+    res = prng.device_residues(logn, cuda)
+    pair = res(qs, (2, 2, n))
+    edm = kernel_check._offset_word(
+        res(qs, (3, 2, n)).transpose(0, 1).contiguous())
+    kb, ka = (res(qs, (3, n)).transpose(0, 1).contiguous() for _ in range(2))
+    cases = [
+        kernel_check.tensor_eval4_case(
+            "strided", [pair[..., 0, :], pair[..., 1, :], pair[..., 1, :],
+                        pair[..., 0, :]], qs, (3, 5)),
+        kernel_check.ks_contract_case("R=3", edm, kb, ka, qs),
+        kernel_check.ext_ntt_case("direct", res(src[:2], (3, n)), src[:2],
+                                  qs),
+        kernel_check.ext_ntt_case("staged", res(src, (2, n)), src, qs),
+        kernel_check.ceiling_case("reps=2", res(qs[:1], (3, n))[0], qs[0],
+                                  2)]
+    _cuda.reset_launches()
+    for case in cases:
+        got = case.kernel()
+        torch.cuda.synchronize()
+        assert kernel_check.equal(got, case.plain()), case.label
+    assert {k.name: _cuda.chunked_launches(k) for k in (
+        _cuda.TENSOR_EVAL4, _cuda.KS_CONTRACT, _cuda.EXT_NTT,
+        _cuda.NTT_SMEM_CEILING)} == {"tensor_eval4": 1, "ks_contract": 1,
+                                     "ext_ntt": 2, "ntt_smem_ceiling": 1}
+    assert _cuda.EXT_NTT.by_layout["chunked staged"] == 1
 
 
 @pytest.mark.parametrize("logn,C,l,w", [(16, 2, 5, 6), (16, 1, 3, 7),

@@ -15,8 +15,9 @@ primes at B = 1, and one
 B = 1 on keys and ciphertexts that the port draws and utils/interop.py
 carries into JAX, decrypted against a numpy negacyclic product.  Inputs are
 numpy draws from fixed seeds; tolerance 0 throughout.  Then each kernel's
-range: K1-K9 and K12 take 2^15 and refuse 2^16, K10 refuses 2^15, each
-naming its range.
+range: every kernel takes 2^15; K6, tensor_mul, K7 and K8 refuse 2^16, the
+others take it and refuse the degree past their top, each naming its
+range.
 """
 
 import numpy as np
@@ -184,14 +185,14 @@ def test_kernel_range_at_n_2_15(name):
     """K1, K2, K3, K5, K9 and K12 take n = 2^15, and so do K6, tensor_mul,
     K7 and K8 (on two-block clusters, one half of their three buffers a
     block) and K10 (its working set in device memory, one polynomial a
-    block at the one-buffer shape); the kernels that stop there refuse
-    2^16, K1 and K9 (to 2^26) and K10 (to 2^22) take it and refuse the
-    degree past their top, with a message that names the range, on the
-    card as on any device: the check comes before the kernel is built or
-    launched."""
+    block at the one-buffer shape); the kernels that stop there (K6,
+    tensor_mul, K7, K8) refuse 2^16, K1, K2, K3, K5, K9 and K12 (across
+    blocks to 2^26) and K10 (to 2^22) take it and refuse the degree past
+    their top, with a message that names the range, on the card as on any
+    device: the check comes before the kernel is built or launched."""
     k = KERNELS[name]
     assert _cuda.log2_degree(N, k) == 15
-    top = {"ntt_multi": 26, "ntt": 26, "blind_rotate": 22}.get(name, 15)
+    top = 22 if name == "blind_rotate" else 15 if name in NARROW else 26
     if top > 15:                    # past a block, across blocks
         assert _cuda.log2_degree(2 * N, k) == 16
     with pytest.raises(ValueError,

@@ -55,86 +55,16 @@ from fhe_study_tpu_torch.ops import _cuda, ntt
 from fhe_study_tpu_torch.ops import blind_rotate_cuda as brc
 from fhe_study_tpu_torch.ops import ntt_cuda as nc
 from fhe_study_tpu_torch.utils import interop, prng
+from chunk_emulation import _chunked, _chunks, _table, _top_pass
 from test_torch_blind_rotate_dm import _lift
 from test_torch_blind_rotate_plan import _inputs
-from test_torch_radix_plan import _emulate
 
 CPU = torch.device("cpu")
 N = 1 << 16
 P0, P1 = ntt.CRT_PRIMES_TFHE
 
 
-# -- the chunked schedule, written out ---------------------------------------
-
-def _table(q: int, n: int, logc: int, inverse: bool):
-    """The chunk table [2^s, c] of q at n (ntt_cuda._chunk_index)."""
-    roots = nc._roots_plain((q,), n, inverse, CPU)[0]
-    return roots[torch.from_numpy(nc._chunk_index(n, 1 << logc))]
-
-
-def _top_pass(x, q: int, logn: int, lo: int, K: int, table, logc: int,
-              inverse: bool, fin: int = 1, first=None):
-    """One top pass over bits [lo, lo + K) of x [n] (ntt_top_kernel): virtual
-    thread v holds the words base + (k << lo), base = v's bits below lo
-    and, above lo + K, the others (top_base); ``first`` forms them from
-    their element addresses instead (K10's digits)."""
-    n = 1 << logn
-    v = torch.arange(n >> K)
-    base = (v & ((1 << lo) - 1)) | ((v >> lo) << (lo + K))
-    el = base[:, None] + (torch.arange(1 << K) << lo)[None]
-    assert bool((el[1:, 0] - el[:-1, 0] == 1).reshape(-1)[:31].all())
-    regs = (x[el] if first is None else first(el)).clone()
-    flat = table.reshape(-1)
-    for u in (range(K) if inverse else reversed(range(K))):
-        j = lo + u
-        k = torch.arange(1 << K)
-        klo = k[(k >> u) & 1 == 0]
-        khi = klo | (1 << u)
-        root = (n >> (j + 1)) + (base[:, None] >> (j + 1)) + \
-            (klo >> (u + 1))[None]
-        assert torch.equal(root, (n >> (j + 1)) + (el[:, klo] >> (j + 1)))
-        assert bool((root < n >> logc).all() and (root >= 1).all())
-        w = flat[root << logc]                    # word 0 of row `root`
-        a, b = regs[:, klo], regs[:, khi]
-        if inverse:
-            regs[:, klo], regs[:, khi] = (a + b) % q, (a - b) % q * w % q
-        else:
-            t = b * w % q
-            regs[:, klo], regs[:, khi] = (a + t) % q, (a - t) % q
-    out = torch.full((n,), -1, dtype=torch.int64) if x is None else x.clone()
-    out[el] = regs * fin % q
-    return out
-
-
-def _chunks(x, q: int, logc: int, inverse: bool, table, fin: int = 1,
-            first=None):
-    """Each chunk's chain of c words on its row of the table (ntt_rows)."""
-    c = 1 << logc
-    return torch.cat([
-        _emulate(None if x is None else x[r * c:(r + 1) * c], q, logc,
-                 inverse, fin, roots=table[r],
-                 first=None if first is None else
-                 (lambda addr, r=r: first(r, addr)))
-        for r in range(table.shape[0])])
-
-
-def _chunked(x, q: int, logn: int, logc: int, inverse: bool, fin: int = 1):
-    """ntt_chunked on one polynomial x [n]: forward, the top passes then
-    the chunk chains with fin; inverse, the chunk chains then the top
-    passes in the other order, the last with fin."""
-    plan = nc._chunk_plan(logn, logc)
-    table = _table(q, 1 << logn, logc, inverse)
-    if not inverse:
-        for lo, K in plan.top:
-            x = _top_pass(x, q, logn, lo, K, table, logc, False)
-        return _chunks(x, q, logc, False, table, fin)
-    y = _chunks(x, q, logc, True, table)
-    for i, (lo, K) in enumerate(reversed(plan.top)):
-        last = i == len(plan.top) - 1
-        y = _top_pass(y, q, logn, lo, K, table, logc, True,
-                      fin if last else 1)
-    return y
-
+# -- the chunked schedule, written out (tests/chunk_emulation.py) -------------
 
 @pytest.mark.parametrize("logn,logc", [(10, 7), (16, 15), (17, 15),
                                        (9, 8)])
@@ -341,6 +271,16 @@ def test_vectorised_plan_equals_the_loop(q):
 
 # -- against the JAX package at N = 2^16 --------------------------------------
 
+# XLA's backend optimisation off for the references whose optimised
+# compile outlasts their run (integer programs: exact at any level)
+JAX_FAST = {"xla_backend_optimization_level": 0}
+
+
+def _jitted(f, *args):
+    """f(*args) under ``jax.jit``, compiled with JAX_FAST."""
+    return jax.jit(f).lower(*args).compile(JAX_FAST)(*args)
+
+
 def _u64(seed, shape, q):
     return np.random.default_rng(seed).integers(0, q, shape).astype(np.uint64)
 
@@ -350,35 +290,58 @@ def _same(got, want):
                                   np.asarray(want).astype(np.uint64))
 
 
-@pytest.mark.parametrize("q", ntt.CRT_PRIMES[:2] + ntt.CRT_PRIMES_TFHE)
-def test_ntt_and_intt_match_jax(q):
-    x = _u64(q % 1000, (1, N), q)
-    want = jax.jit(lambda a: (jntt.ntt(a, q), jntt.intt(a, q)))(
-        jnp.asarray(x))
-    t = torch.from_numpy(x.astype(np.int64))
-    _same(ntt.ntt(t, q), want[0])
-    _same(ntt.intt(t, q), want[1])
+NTT_QS = ntt.CRT_PRIMES[:2] + ntt.CRT_PRIMES_TFHE
 
 
-def test_ntt_multi_matches_jax():
+@pytest.fixture(scope="module")
+def jax_refs():
+    """The JAX package's transforms under each prime of NTT_QS (both
+    ways), ``ntt_multi`` / ``intt_multi`` over the TFHE pair and
+    ``tn.mul_crt``, on the operands of the tests below, under one
+    ``jax.jit``: one compile for the module (``_jitted``)."""
     pq = ntt.CRT_PRIMES_TFHE
-    x = np.stack([_u64(7 + i, (1, N), p) for i, p in enumerate(pq)]
-                 ).astype(np.uint32)
-    t = torch.from_numpy(x.astype(np.int64)).int()
-    want = jax.jit(lambda a: (jntt.ntt_multi(a, pq), jntt.intt_multi(a, pq)))(
-        jnp.asarray(x))
-    for got, w in zip((ntt.ntt_multi(t, pq), ntt.intt_multi(t, pq)), want):
+    xs = [_u64(q % 1000, (1, N), q) for q in NTT_QS]
+    xm = np.stack([_u64(7 + i, (1, N), p) for i, p in enumerate(pq)]
+                  ).astype(np.uint32)
+    rng = np.random.default_rng(16)
+    a, b = (rng.integers(0, 1 << 64, (1, N), dtype=np.uint64)
+            for _ in range(2))
+
+    def refs(xs, xm, a, b):
+        return ([(jntt.ntt(x, q), jntt.intt(x, q))
+                 for x, q in zip(xs, NTT_QS)],
+                (jntt.ntt_multi(xm, pq), jntt.intt_multi(xm, pq)),
+                jtn.mul_crt(a, b))
+
+    want = _jitted(refs, [jnp.asarray(x) for x in xs], jnp.asarray(xm),
+                   jnp.asarray(a), jnp.asarray(b))
+    return (xs, xm, a, b), want
+
+
+@pytest.mark.parametrize("i", range(len(NTT_QS)))
+def test_ntt_and_intt_match_jax(i, jax_refs):
+    (xs, _, _, _), want = jax_refs
+    q = NTT_QS[i]
+    t = torch.from_numpy(xs[i].astype(np.int64))
+    _same(ntt.ntt(t, q), want[0][i][0])
+    _same(ntt.intt(t, q), want[0][i][1])
+
+
+def test_ntt_multi_matches_jax(jax_refs):
+    (_, xm, _, _), want = jax_refs
+    pq = ntt.CRT_PRIMES_TFHE
+    t = torch.from_numpy(xm.astype(np.int64)).int()
+    for got, w in zip((ntt.ntt_multi(t, pq), ntt.intt_multi(t, pq)),
+                      want[1]):
         np.testing.assert_array_equal(got.numpy().astype(np.uint32),
                                       np.asarray(w))
 
 
-def test_mul_crt_matches_jax():
-    rng = np.random.default_rng(16)
-    a, b = (rng.integers(0, 1 << 64, (1, N), dtype=np.uint64)
-            for _ in range(2))
+def test_mul_crt_matches_jax(jax_refs):
+    (_, _, a, b), want = jax_refs
     got = tn.mul_crt(interop.bits_to_tensor(a, CPU),
                      interop.bits_to_tensor(b, CPU))
-    _same(got, jax.jit(jtn.mul_crt)(jnp.asarray(a), jnp.asarray(b)))
+    _same(got, want[2])
 
 
 # the reference's gate at N = 2^16 with the widest top-bits gadget that
@@ -388,9 +351,13 @@ K, T, BETA, L, STEPS, B = 1, 64, 1 << 6, 5, 3, 2
 
 @pytest.fixture(scope="module")
 def short_key():
+    """A short bootstrapping key of STEPS steps and its evaluations, from
+    a secret key drawn as ``tglwe.new_key`` draws it (its public key, which
+    nothing here reads, left out)."""
     P = G.Param(G.ERR_SIGMA, RingParam(TORUS_Q, N), K, T)
     gen = prng.Gen(20)
-    s, _ = tglwe.new_key(gen, P, CPU)
+    s_flat, _ = tlwe.new_key(gen, P.lwe(), CPU)
+    s = tglwe.sk_to_tglwe(s_flat, K, N)
     sbtk = bootstrap.new_short_bootstrapping_key(
         gen, P, s, n_lwe=STEPS, beta=BETA, l=L, beta_ks=16, l_ks=8)
     return P, sbtk, bootstrap.precompute_short_btk_evals(P, sbtk)
@@ -401,19 +368,20 @@ def _jx(t):
 
 
 def test_precompute_evals_matches_jax(short_key):
-    """On the first 2 steps' keys; and in slices of one step (the slicing
-    that keeps the card's temporaries small) equal to the whole."""
+    """On the first 2 steps' keys (the port's evaluations of the 3-step
+    key, cut to them); and the port's on the 2-step key in slices of one
+    step (the slicing that keeps the card's temporaries small) equal to
+    them."""
     P, sbtk, evals = short_key
     g = tggsw.TGGSW(a=sbtk.btk_a[:2], b=sbtk.btk_b[:2])
     JP = JG.Param(JG.ERR_SIGMA, JRingParam(TORUS_Q, N), K, T)
-    want = jax.jit(lambda a, b: jtggsw.precompute_evals(
-        JP, jtggsw.TGGSW(a=a, b=b)))(_jx(g.a), _jx(g.b))
-    got = tggsw.precompute_evals(P, g)
+    want = _jitted(lambda a, b: jtggsw.precompute_evals(
+        JP, jtggsw.TGGSW(a=a, b=b)), _jx(g.a), _jx(g.b))
+    got = tggsw.TGGSWEvals(*(e[:2] for e in evals))
     for f in got._fields:
         np.testing.assert_array_equal(
             getattr(got, f).numpy().astype(np.uint32),
             np.asarray(getattr(want, f)))
-        assert torch.equal(getattr(got, f), getattr(evals, f)[:2])
     per_key = g.a[:1].numel() + g.b[:1].numel()
     old = tggsw.EVALS_SLICE_WORDS
     try:

@@ -111,12 +111,12 @@ def test_scratch_at_the_paths_of_degree_2_15(kernel, ls, batch, want):
 
 
 @contextlib.contextmanager
-def _fake_card(calls: dict):
-    """The wrappers of K5 and K6 run on CPU tensors up to their C call,
-    which is recorded (its arguments) instead of made: the launch path, its
-    count and its layout, without a card."""
+def _fake_card(calls: dict, kernels=(_cuda.EXT_NTT, _cuda.TENSOR_MUL4)):
+    """The wrappers of ``kernels`` (by default K5 and K6) run on CPU tensors
+    up to their C call, which is recorded (its arguments) instead of made:
+    the launch path, its count and its layout, without a card."""
     saved = (_cuda.check, torch.cuda.device, torch.cuda.current_stream,
-             {k: k._fn for k in (_cuda.EXT_NTT, _cuda.TENSOR_MUL4)})
+             {k: k._fn for k in kernels})
 
     class _Stream:
         cuda_stream = 0
@@ -161,13 +161,16 @@ def test_one_counted_launch_an_op_with_its_scratch(ls):
     assert (k6[0][12] is not None) == k6_staged and k6[0][20] == ls
     assert k6[1][12] is None and k6[1][20] == 0
     assert _cuda.EXT_NTT.by_layout == {"direct": int(not k5_staged),
-                                       "staged": int(k5_staged)}
+                                       "staged": int(k5_staged),
+                                       "chunked direct": 0,
+                                       "chunked staged": 0}
     assert _cuda.TENSOR_MUL4.by_layout == {"direct": 1 + int(not k6_staged),
                                            "staged": int(k6_staged)}
     _cuda.reset_launches()
 
 
-@pytest.mark.parametrize("logn", _cuda.EXT_NTT.degrees)
+@pytest.mark.parametrize("logn", range(_cuda.RADIX_LOGN[0],
+                                       _cuda.RADIX_LOGN[1] + 1))
 def test_staged_word_maps_cover_each_word_once(logn):
     """K5's staged first pass reads word base + (j << c0) of each lift row
     for the 16 words j of the virtual thread at base (K6's below 2^15 the
