@@ -33,7 +33,9 @@ kernels' gate, and TFHE's keyswitch-first bootstrap past a block's shared
 memory: N = 4096, gadget 2^11 x 2, and N = 2^15, gadget 2^8 x 3, over a
 short key of 400, B = 64, and past one block's polynomial at N = 2^16,
 gadget 2^6 x 5 (the reference's gate there with the widest top-bits gadget
-that decodes), over the same short key, B = 64.
+that decodes), over the same short key, B = 64, and the op layer past one
+block's polynomial at N = 2^16, B = 128 on phase 18's and phase 19's
+widths over primes with 2^17-th roots.
 Phases, each of which raises (and so exits non-zero) on any failure:
 
   1. toolchain and card: torch, CUDA, nvcc; the kernels built from csrc/;
@@ -292,7 +294,20 @@ Phases, each of which raises (and so exits non-zero) on any failure:
      every output == its plain version on the card, the launches by layout
      held, no plain version run on the card past one block, each kernel on
      the device alone beside its bound and its own traffic's.  Phase 2 also
-     holds the four at 2^16, 2^17, 2^20, 2^22 and 2^26 against plain.
+     holds the four at 2^16, 2^17, 2^20, 2^22 and 2^26 against plain;
+ 24. slice 17, K6, tensor_mul, K7 and K8 past one block's polynomial
+     through the op layer at N = 2^16, B = 128 (primes with 2^17-th roots):
+     ntt.tensor_mul4 over Q (14 primes, no source basis), over P from Q
+     (14 -> 15, staged) and 4 -> 5 (direct), ntt.tensor_mul_multi on the
+     stacked operand over Q (phase 18's widths), ntt.ks_fused_multi and
+     ntt.ks_fused_eval at R = L = 29 over 29 primes (phase 19's gadget
+     widths), c_limbs and the adds strided views; every output == its plain
+     version on the card (formed over slices of the batch), the launches by
+     layout held, no plain version run on the card past one block, each
+     kernel on the device alone beside its bound and its own traffic's,
+     peak device memory.  Phase 2 also holds the four, with K6 without a
+     source basis, from 4 direct and from 3 staged, and K7 and K8 at R = 1
+     and 3, at 2^16, 2^17, 2^20, 2^22 and 2^26 against plain.
      Each phase prints its wall time and the device memory still held as
      it ends.
 
@@ -403,6 +418,15 @@ P23_N, P23_LOGNS, P23_ROW_REPS = 1 << 16, (15, 16, 17), 8
 P23_LAYOUTS = {"tensor_eval4": {"chunked": 2}, "ks_contract": {"chunked": 1},
                "ext_ntt": {"chunked direct": 1, "chunked staged": 1},
                "ntt_smem_ceiling": {"block": 4, "chunked": 8}}
+# phase 24, slice 17: K6, tensor_mul, K7 and K8 past one block at N = 2^16
+# through the op layer: phase 18's widths for the tensors (Q 14, P 15
+# primes with 2^17-th roots, from Q staged; bench_bfv's 4 -> 5 direct) and
+# phase 19's gadget widths for the key switches (R = L = 29 limb rows over
+# the 29 primes of Q u P); the launches by layout the path must make
+P24_N = 1 << 16
+P24_LAYOUTS = {"tensor_mul4": {"chunked direct": 2, "chunked staged": 1},
+               "tensor_mul": {"chunked": 1}, "ks_fused": {"chunked": 1},
+               "ks_fused_eval": {"chunked": 1}}
 CEILING_REPS, ALU_ROUNDS = 64, 1 << 16
 # the bound (utils/kernel_check.bound) takes the SM count and the maximum SM
 # clock that the card in hand reports; each alu_rate loop must issue at
@@ -420,7 +444,8 @@ RADIX_KERNELS = {"ntt_multi", "tensor_eval4", "ks_contract", "ext_ntt",
                  "base_extend_sum", "br_forward", "br_inverse", "ext_lift",
                  "ntt_top", "ntt_chunk", "brg_top_forward",
                  "brg_chunk_inverse", "brg_top_inverse", "brg_top_last",
-                 "tensor_eval4_chunk", "ks_contract_chunk", "ext_top"}
+                 "tensor_eval4_chunk", "ks_contract_chunk", "first_top",
+                 "ks_mac_chunk"}
 # K10's kernels by layout: the clusters', the device-memory layout's and
 # the grid layout's (past 2^15)
 K10_KERNELS = {"blind_rotate_kernel": "cluster", "br_forward_kernel": "device",
@@ -430,8 +455,9 @@ K10_KERNELS = {"blind_rotate_kernel": "cluster", "br_forward_kernel": "device",
                "brg_top_inverse_kernel": "grid", "brg_top_last_kernel": "grid"}
 # the kernels' JSON record has one row per entry of _cuda.KERNELS, K10's
 # (its cluster layout) followed by one for its device-memory layout and one
-# for its grid layout, and those of K2, K3, K5 and K12 (one block a
-# polynomial) each by one for their chunked layouts past 2^15
+# for its grid layout, and those of K2, K3, K5-K8 (K6 also as tensor_mul)
+# and K12 (one block a polynomial) each by one for their chunked layouts
+# past 2^15
 DM_ROW = "blind_rotate_dm"
 GRID_ROW = "blind_rotate_grid"
 CHUNKED_ROW = "{}_chunked"
@@ -666,7 +692,7 @@ def main() -> None:
     # take: each log n has its own pass structure (K6-K8 at 2^15 on two-block
     # clusters)
     radix_checked = 0
-    for logn in range(_cuda.RADIX_LOGN[0], _cuda.RADIX_LOGN[1] + 1):
+    for logn in ntt_cuda.BLOCK_LOGNS:
         for case in kernel_check.radix_cases(logn, RADIX_BATCH, dev, gen):
             got, want = case.kernel(), case.plain()
             torch.cuda.synchronize()
@@ -698,10 +724,10 @@ def main() -> None:
         f"{kernel_check.EXT_SWEEP_LD} primes, unsigned and centered, with and "
         f"without the epilogue, vector and word forms; from 16 to "
         f"{ext_cuda.MAX_SRC} to 5) == plain (torch.equal) at every n each "
-        f"takes in one block, 2^{_cuda.RADIX_LOGN[0]} .. "
-        f"2^{_cuda.RADIX_LOGN[1]} "
+        f"takes in one block, 2^{ntt_cuda.BLOCK_LOGNS[0]} .. "
+        f"2^{ntt_cuda.BLOCK_LOGNS[-1]} "
         f"(tensor_mul4, tensor_mul, ks_fused and ks_fused_eval at "
-        f"2^{_cuda.TENSOR_MUL4.logn[1]} on two-block clusters), batch "
+        f"2^{ntt_cuda.WIDE_LOGN} on two-block clusters), batch "
         f"{RADIX_BATCH}: {radix_checked} variants")
     # K10 in both layouts at every ring degree it takes, on batches beyond
     # the clusters the card holds at once
@@ -788,7 +814,11 @@ def main() -> None:
         f"{kernel_check.WIDE_OPS_R}, aligned and edm one word off), ext_ntt "
         f"(from {kernel_check.WIDE_OPS_LS} source primes: 2 and 4 direct, "
         f"the others staged) and ntt_smem_ceiling (reps "
-        f"{kernel_check.WIDE_OPS_REPS}) == plain (torch.equal) at the same "
+        f"{kernel_check.WIDE_OPS_REPS}), tensor_mul4 (from "
+        f"{kernel_check.WIDE_MUL4_LS} source primes: None without a source "
+        f"basis, 4 direct, 3 staged), tensor_mul (stacked), ks_fused and "
+        f"ks_fused_eval (R in {kernel_check.WIDE_OPS_R}, c_limbs and adds "
+        f"strided) == plain (torch.equal) at the same "
         f"n, each variant at one of those batches in turn: {ops_checked} "
         f"variants in {t3 - t_ops:.1f} s; blind_rotate's grid layout at "
         f"every (C, l, w) of the reference's gate at "
@@ -1228,7 +1258,7 @@ def main() -> None:
     # load hoisted out of it would make the ceiling do less than the kernels
     loops = sass_counts.ceiling_loops(listing)
     chain = {logn: sass_counts.chain_loads(logn)
-             for logn in range(_cuda.RADIX_LOGN[0], _cuda.RADIX_LOGN[1] + 1)}
+             for logn in ntt_cuda.BLOCK_LOGNS}
     if loops != chain:
         raise RuntimeError(f"ntt_smem_ceiling's loops (global loads, "
                            f"barriers) {loops} != one transform's {chain}")
@@ -3532,7 +3562,7 @@ def main() -> None:
     chunk_inst = [f"{r['kernel']} {r['registers']} registers" for r in ptxas
                   if r["kernel"].startswith(("tensor_eval4_chunk_kernel",
                                              "ks_contract_chunk_kernel",
-                                             "ext_top_kernel"))]
+                                             "first_top_kernel"))]
     say(f"ptxas: phase 23's instances (no stack frame or spills, phase 1; "
         f"with the chunk chains and top passes of phase 22): "
         + "; ".join(chunk_inst))
@@ -3590,13 +3620,14 @@ def main() -> None:
               f"ntt.ks_contract_multi over Q u K, ntt.ext_ntt Q -> P and "
               f"{L} -> {M}, alu_bench.ntt_smem_ceiling at n = 2^"
               f"{P23_LOGNS} at {shape23}",
-              tuple(CHUNKED_ROW.format(k.name) for k in chunked), p23_path)
+              tuple(CHUNKED_ROW.format(name) for name in P23_LAYOUTS),
+              p23_path)
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
     peak23 = torch.cuda.max_memory_allocated()
     by_layout23 = {k.name: {lay: v for lay, v in k.by_layout.items() if v}
-                   for k in chunked}
+                   for k in chunked if k.name in P23_LAYOUTS}
     if plain23:
         raise RuntimeError(f"phase 23: plain versions ran on the card past "
                            f"one block: {plain23}")
@@ -3667,6 +3698,137 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_done(f"23 (slice 16: K2, K3, K5 and K12 past one block at "
                f"{shape23}) [{card}]")
+
+    # 24. slice 17: K6, tensor_mul, K7 and K8 past one block's polynomial -
+    # through the op layer's entry points (ops/ntt.py's tensor_mul4,
+    # tensor_mul_multi, ks_fused_multi and ks_fused_eval) at N = 2^16,
+    # B = 128, after phase 23's tensors are freed: every output == its plain
+    # version on the card (the plain value over slices of the batch), the
+    # launches by layout held, no plain version on the card on the path,
+    # each kernel on the device alone beside its bound and its own
+    # traffic's
+    inst24 = [f"{r['kernel']} {r['registers']} registers" for r in ptxas
+              if r["kernel"].startswith(("first_top_kernel",
+                                         "ks_mac_chunk_kernel"))]
+    say(f"ptxas: phase 24's instances (no stack frame or spills, phase 1; "
+        f"K6's products and inverses are phase 23's tensor_eval4_chunk_kernel, "
+        f"the chunk chains and top passes phase 22's): " + "; ".join(inst24))
+    g24 = ntt_primes(G_L, 30, 2 * P24_N)         # phase 19's 29 = Q u P
+    q24, p24 = g24[:W_L], g24[W_L:W_L + W_M]
+    shape24 = (f"N={P24_N} B={BATCH}, Q {W_L} and P {W_M} primes, the "
+               f"gadget's R = L = {G_L} rows over {G_L} primes, of 30 bits "
+               f"with 2^17-th roots")
+    res24 = prng.device_residues(SEED + 95, dev)
+    in24, out24, plain24 = {}, {}, {}
+
+    def p24_path():
+        ct = [res24(q24, (BATCH, P24_N)) for _ in range(4)]
+        in24["tensor_mul4 Q"] = (ct, q24, (T,) * W_L, None)
+        in24["tensor_mul4 Q->P"] = (ct, p24, (T,) * W_M, q24)
+        in24["tensor_mul4 4->5"] = ([c[:L] for c in ct], p24[:M], (T,) * M,
+                                    q24[:L])
+        in24["tensor_mul stacked Q"] = (res24(q24, (BATCH, 4, P24_N)), q24,
+                                        (T,) * W_L)
+        out3 = res24(g24, (BATCH, 3, P24_N))     # _scale_to_q's output
+        kb, ka = (res24(g24, (G_L, P24_N)).transpose(0, 1).contiguous()
+                  for _ in range(2))
+        in24[f"ks_fused R={G_L}"] = (out3[..., 2, :], kb, ka, g24, g24)
+        in24[f"ks_fused_eval R={G_L}"] = (out3[..., 2, :], kb, ka, g24, g24,
+                                          (out3[..., 0, :], out3[..., 1, :]))
+        for label, args in in24.items():
+            if label.startswith("tensor_mul4"):
+                out24[label] = ntt.tensor_mul4(*args[0], args[1],
+                                               scale=args[2], src=args[3])
+            elif label.startswith("tensor_mul"):
+                out24[label] = ntt.tensor_mul_multi(args[0], args[1],
+                                                    scale=args[2])
+            elif label.startswith("ks_fused_eval"):
+                out24[label] = ntt.ks_fused_eval(*args)
+            else:
+                out24[label] = ntt.ks_fused_multi(*args)
+        return out24
+
+    plain_fns = [(ntt_cuda, fn, lambda a: a[0].shape[-1]) for fn in (
+        "tensor_mul4_plain", "tensor_mul_plain", "ks_fused_plain",
+        "ks_fused_eval_plain", "ntt_multi_plain")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in plain_fns]
+    for mod, name, degree in plain_fns:
+        setattr(mod, name, watched(plain24, name, getattr(mod, name),
+                                   degree))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        drive(f"slice 17: ntt.tensor_mul4 over Q, over P from Q and {L} -> "
+              f"{M}, ntt.tensor_mul_multi over Q, ntt.ks_fused_multi and "
+              f"ntt.ks_fused_eval at R = {G_L} at {shape24}",
+              tuple(CHUNKED_ROW.format(name) for name in P24_LAYOUTS),
+              p24_path)
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    peak24 = torch.cuda.max_memory_allocated()
+    kernels24 = [k for k in chunked if k.name in P24_LAYOUTS]
+    by_layout24 = {k.name: {lay: v for lay, v in k.by_layout.items() if v}
+                   for k in kernels24}
+    if plain24:
+        raise RuntimeError(f"phase 24: plain versions ran on the card past "
+                           f"one block: {plain24}")
+    if by_layout24 != P24_LAYOUTS:
+        raise RuntimeError(f"phase 24: launches by layout {by_layout24}, "
+                           f"not {P24_LAYOUTS}")
+    say(f"verify: slice 17 at {shape24}: no plain version ran on the card "
+        f"past one block on the path; launches by layout {by_layout24}; "
+        f"peak device memory {peak24 / 2**30:.2f} GiB [{card}]")
+
+    def case24(label, args):
+        if label.startswith("tensor_mul4"):
+            ops, dst, sc, src = args
+            form = ("no source basis" if src is None else
+                    f"{len(src)} -> {len(dst)} primes, "
+                    f"{'direct' if len(src) in ntt_cuda.MUL4_DIRECT else 'staged'}")
+            return kernel_check.tensor_mul4_case(
+                f"{label} [{len(dst)}, {BATCH}, {P24_N}] ({form})", ops, dst,
+                sc, src)
+        if label.startswith("tensor_mul"):
+            return kernel_check.tensor_mul_case(
+                f"{label} {list(args[0].shape)}", *args)
+        make = (kernel_check.ks_fused_eval_case
+                if label.startswith("ks_fused_eval")
+                else kernel_check.ks_fused_case)
+        return make(f"{label} {[G_L, BATCH, P24_N]} over {G_L} primes, "
+                    f"strided c_limbs", *args)
+
+    cases24 = {label: case24(label, args)._replace(plain_reps=1,
+                                                   plain_warmup=0)
+               for label, args in in24.items()}
+    for label, case in cases24.items():
+        hold(row(case), f"slice 17 path, {case.label}", out24[label],
+             case.plain())
+    del out24
+    say(f"verify: slice 17: every output of the path == its plain version "
+        f"on the card (torch.equal; the plain values over slices of the "
+        f"batch, kernel_check.PLAIN_WORDS) [{card}]")
+    busy = torch.zeros(1 << 28, dtype=torch.int32, device=dev)
+    for case in cases24.values():
+        time_case(case)
+        k_ms = min(queued_ms(case.kernel, 1, busy) for _ in range(3))
+        b, bo = bound(case.bytes, case.ops), bound(
+            kernel_check.own_bytes(case), case.ops)
+        if k_ms < b.ms:
+            raise RuntimeError(f"{case.name} [{case.label}]: {k_ms:.4f} ms "
+                               f"is under its bound {b}")
+        say(f"timing: slice 17 {case.name} {case.label}: on the device alone "
+            f"{k_ms:.4f} ms (best of 3), bound {b.ms:.4f} ms by {b.term}, "
+            f"{b.ms / k_ms:.3f} of it; its own traffic's bound {bo.ms:.4f} "
+            f"ms by {bo.term}, {bo.ms / k_ms:.3f} of it; launches on the "
+            f"path by layout {by_layout24[case.name]} [{card}]")
+    timed_chains[:] = [c for c in timed_chains
+                       if all(c is not d for d in cases24.values())]
+    del in24, cases24, busy, case
+    ntt_cuda.drop_tables()
+    torch.cuda.empty_cache()
+    phase_done(f"24 (slice 17: K6, tensor_mul, K7 and K8 past one block at "
+               f"{shape24}) [{card}]")
 
     # (phase 17's ranks report K10's launches, not its layouts: they run it
     # at N = 1024, on clusters)

@@ -12,7 +12,10 @@
 // returns INTT(acc_h) times fin = n^-1 * 2^32, [2, Lp, B, n]; K8 returns
 // e_h = acc_h * 2^32 + NTT(add_h) in the eval domain and INTT(e_h) times
 // n^-1, [4, Lp, B, n] = (e0, e1, r0, r1).  The order of operations is the
-// reference's, so every word equals the plain versions'.
+// reference's, so every word equals the plain versions'.  These kernels take
+// n = 2^7 .. 2^15; past 2^15 the entries queue the chunked form of
+// csrc/ks_fused_chunks_cuda.cu (the same accumulation, the two sums in
+// device memory).
 //
 // Layout: K6's (csrc/tensor_mul4.cuh).  One block per (prime, polynomial),
 // the prime fastest so that the Lp blocks reading one polynomial's R limbs
@@ -281,4 +284,17 @@ inline bool ks_vec(const uint32_t* kb, const uint32_t* ka) {
 }
 
 }  // namespace
+
+// K7 (add0 null) and K8 past one block's polynomial (csrc/
+// ks_fused_chunks_cuda.cu).
+int ks_fused_chunked(const uint32_t* c, long long sl, long long sb,
+                     const uint32_t* kb, const uint32_t* ka,
+                     const uint32_t* add0, long long al0, long long ab0,
+                     const uint32_t* add1, long long al1, long long ab1,
+                     uint32_t* out, uint32_t* tmp, const uint32_t* tw,
+                     const uint32_t* tw_sh, const uint32_t* twinv,
+                     const uint32_t* twinv_sh, const uint32_t* cons,
+                     const uint32_t* lift, int R, int Lp, int B, int logn,
+                     int reps, int threads, int smem, cudaStream_t stream);
+
 }  // namespace fhe

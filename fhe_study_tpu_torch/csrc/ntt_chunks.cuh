@@ -3,8 +3,10 @@
 // and K9 at n = 2^16 .. 2^26, csrc/ntt_multi_cuda.cu; K2, K3, K5 and K12
 // there too, their own step folded into the first pass,
 // csrc/tensor_eval4_chunks_cuda.cu, ks_contract_chunks_cuda.cu and
-// forward_chunks_cuda.cu; K10's grid layout at 2^16 .. 2^22,
-// csrc/blind_rotate_grid_cuda.cu), in the reference's order
+// forward_chunks_cuda.cu; K6-K8, csrc/tensor_mul4_chunks_cuda.cu and
+// ks_fused_chunks_cuda.cu, with first_top.cuh's first top pass; K10's
+// grid layout at 2^16 .. 2^22, csrc/blind_rotate_grid_cuda.cu), in the
+// reference's order
 // (Cooley-Tukey forward, natural in, bit-reversed out; ops/ntt.py::
 // _stage_loop) and butterfly for butterfly its arithmetic, so the output is
 // the plain version's bit for bit, in the same order.
@@ -142,6 +144,31 @@ __device__ __forceinline__ void row_words(uint32_t (&d)[4], const Word* p,
   }
 }
 
+// The forward chain of the 2^LOGN words of row, under the tables w / wsh
+// (their row of the chunk or polynomial), by the block at OneBuffer<LOGN>'s
+// shape: the first pass reads its 16 words straight from device memory,
+// lanes on consecutive words; the result is left in shared memory a
+// (swizzled), past the last pass's barrier.
+template <int LOGN, typename In>
+__device__ __forceinline__ void forward_to_smem(uint32_t* a, const In* row,
+                                                const uint32_t* w,
+                                                const uint32_t* wsh,
+                                                uint32_t q) {
+  using S = typename OneBuffer<LOGN>::Shape;
+  constexpr int c0 = S::fwd_c(0);
+#pragma unroll 1
+  for (int g = 0; g < S::groups; ++g) {
+    const int base = threadIdx.x + g * S::threads;  // radix_base(v, c0)
+    uint32_t r[kRadix];
+#pragma unroll
+    for (int j = 0; j < kRadix; ++j) r[j] = row_word(row + base, j << c0);
+    radix_pass<LOGN, 0, false>(r, base, w, wsh, q);
+    radix_store<c0>(a, r, base);
+  }
+  __syncthreads();
+  RadixPasses<LOGN, 1, S::passes, false, S::threads>::run(a, w, wsh, q);
+}
+
 // The transform of one row of 2^LOGN words by block blockIdx.x, on the
 // register-resident chain.  Rows lie one after another in x and out; row i
 // is chunk r = i mod 2^s of polynomial i >> s, whose prime is
@@ -205,18 +232,7 @@ __device__ __forceinline__ void ntt_rows(const In* __restrict__ x,
       }
     }
   } else {
-    constexpr int c0 = S::fwd_c(0);
-#pragma unroll 1
-    for (int g = 0; g < S::groups; ++g) {
-      const int base = threadIdx.x + g * S::threads;  // radix_base(v, c0)
-      uint32_t r[kRadix];
-#pragma unroll
-      for (int j = 0; j < kRadix; ++j) r[j] = row_word(row + base, j << c0);
-      radix_pass<LOGN, 0, false>(r, base, w, wsh, c.q);
-      radix_store<c0>(a, r, base);
-    }
-    __syncthreads();
-    RadixPasses<LOGN, 1, S::passes, false, S::threads>::run(a, w, wsh, c.q);
+    forward_to_smem<LOGN>(a, row, w, wsh, c.q);
     // lane i stores the kv words from kv * i: 16 bytes
     constexpr int kv = 16 / static_cast<int>(sizeof(Out));
     for (int i = threadIdx.x; i < n / kv; i += S::threads) {

@@ -64,14 +64,6 @@ struct TensorEval4Launch {
 
 }  // namespace
 
-// K2 past one block (csrc/tensor_eval4_chunks_cuda.cu).
-int tensor_eval4_chunked(const uint32_t* x0, const uint32_t* x1,
-                         const uint32_t* y0, const uint32_t* y1, Strides st,
-                         uint32_t* out, const uint32_t* twinv,
-                         const uint32_t* twinv_sh, const uint32_t* cons,
-                         int Ld, int B, int logn, int threads, int smem,
-                         int vec, cudaStream_t stream);
-
 }  // namespace fhe
 
 using namespace fhe;

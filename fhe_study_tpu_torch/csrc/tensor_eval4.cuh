@@ -2,7 +2,8 @@
 // (_tensor_eval_kernel): the block that both of its forms run, one block a
 // polynomial (csrc/ntt_cuda.cu, n = 2^7 .. 2^15) and one block a chunk of
 // 2^15 words past that (csrc/tensor_eval4_chunks_cuda.cu, n = 2^16 ..
-// 2^26, the top passes after it).
+// 2^26, the top passes after it; K6's products past one block run it
+// there too).
 #pragma once
 
 #include <cstdint>
@@ -107,4 +108,14 @@ inline bool operands_vec(const uint32_t* const (&rows)[4], const Strides& st) {
 }
 
 }  // namespace
+
+// K2 past one block (csrc/tensor_eval4_chunks_cuda.cu), also the products
+// and inverses of K6 past one block (csrc/tensor_mul4_chunks_cuda.cu).
+int tensor_eval4_chunked(const uint32_t* x0, const uint32_t* x1,
+                         const uint32_t* y0, const uint32_t* y1, Strides st,
+                         uint32_t* out, const uint32_t* twinv,
+                         const uint32_t* twinv_sh, const uint32_t* cons,
+                         int Ld, int B, int logn, int threads, int smem,
+                         int vec, cudaStream_t stream);
+
 }  // namespace fhe

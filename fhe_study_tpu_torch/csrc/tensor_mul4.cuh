@@ -2,8 +2,9 @@
 // that instantiate it (csrc/tensor_mul4_cuda.cu: the entry point and the
 // instances without a source basis and from 4 source primes, the BFV P
 // basis; csrc/tensor_mul4_staged_cuda.cu: the staged form, from any source
-// count), so that their instances compile in parallel.
-// tensor_mul4_cuda.cu's header describes the kernel.
+// count), so that their instances compile in parallel, up to n = 2^15.
+// tensor_mul4_cuda.cu's header describes the kernel; past 2^15 the entry
+// queues the chunked form of csrc/tensor_mul4_chunks_cuda.cu.
 #pragma once
 
 #include <cstdint>
@@ -313,6 +314,15 @@ struct TensorMul4Launch {
 };
 
 }  // namespace
+
+// K6 past one block's polynomial (csrc/tensor_mul4_chunks_cuda.cu).
+int tensor_mul4_chunked(const uint32_t* const (&ops)[4], const Strides& st,
+                        uint32_t* lift, uint32_t* tmp, uint32_t* out,
+                        const uint32_t* ext, const uint32_t* tw,
+                        const uint32_t* tw_sh, const uint32_t* twinv,
+                        const uint32_t* twinv_sh, const uint32_t* cons,
+                        int Ls, int Ld, int B, int logn, int threads,
+                        int smem, cudaStream_t stream);
 
 // The staged instances' launch (csrc/tensor_mul4_staged_cuda.cu).
 int tensor_mul4_staged(int logn, int threads, int smem, int blocks,

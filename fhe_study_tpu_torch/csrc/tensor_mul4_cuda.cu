@@ -63,7 +63,10 @@
 // The kernel template is in csrc/tensor_mul4.cuh; this unit instantiates it
 // without a source basis and from 4 source primes, csrc/
 // tensor_mul4_staged_cuda.cu its staged form (so that the two parts of the
-// 27 instances compile in parallel).  The entry launches on
+// 27 instances compile in parallel), n = 2^7 .. 2^15.  Past 2^15 the entry
+// queues the chunked form of csrc/tensor_mul4_chunks_cuda.cu: the forwards
+// through an eval scratch in device memory, the products and inverses on
+// K2's chunked schedule.  The entry launches on
 // the given stream and returns cudaGetLastError(); a refused launch never
 // runs, so the caller raises.
 
@@ -78,24 +81,32 @@ using namespace fhe;
 // n] rows over src, converted on the way in: from 4 in the kernel (lift
 // null), from any count staged (lift: a scratch of 4 (Ls + 1) B n words,
 // which ext_lift fills with each operand's Ls + 1 rows and the kernel then
-// reads; ops/ntt_cuda.py::lift_plan decides the form).
+// reads; ops/ntt_cuda.py::lift_plan decides the form).  Past n = 2^15
+// (csrc/tensor_mul4_chunks_cuda.cu) tmp is the eval scratch of 4 Ld B n
+// words (16-byte aligned), tw / tw_sh and twinv / twinv_sh the chunk
+// tables and threads and smem a chunk's; below it tmp is not read.
 extern "C" int fhe_tensor_mul4(const uint32_t* x0, const uint32_t* x1,
                                const uint32_t* y0, const uint32_t* y1,
                                long long sl0, long long sb0, long long sl1,
                                long long sb1, long long sl2, long long sb2,
                                long long sl3, long long sb3, uint32_t* lift,
-                               uint32_t* out, const uint32_t* ext,
-                               const uint32_t* tw, const uint32_t* tw_sh,
-                               const uint32_t* twinv, const uint32_t* twinv_sh,
-                               const uint32_t* cons, int Ls, int Ld, int B,
-                               int logn, int threads, int smem,
-                               cudaStream_t stream) {
+                               uint32_t* tmp, uint32_t* out,
+                               const uint32_t* ext, const uint32_t* tw,
+                               const uint32_t* tw_sh, const uint32_t* twinv,
+                               const uint32_t* twinv_sh, const uint32_t* cons,
+                               int Ls, int Ld, int B, int logn, int threads,
+                               int smem, cudaStream_t stream) {
   const long long blocks = static_cast<long long>(Ld) * B;
   if (Ls < 0 || Ls > kMaxSrc || Ld < 1 || B < 1 || blocks > INT_MAX ||
-      logn < 7 || logn > kWideLogN) {
+      logn < 7) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Strides st{{sl0, sl1, sl2, sl3}, {sb0, sb1, sb2, sb3}};
+  if (logn > kWideLogN) {
+    return tensor_mul4_chunked({x0, x1, y0, y1}, st, lift, tmp, out, ext, tw,
+                               tw_sh, twinv, twinv_sh, cons, Ls, Ld, B, logn,
+                               threads, smem, stream);
+  }
   const int nb = static_cast<int>(blocks);
   if (Ls > 0 && lift != nullptr) {
     const int n = 1 << logn;

@@ -192,19 +192,18 @@ I64 = ctypes.c_longlong
 # passes of 4 and 3 stages), the least degree of the reference's Pallas
 # kernels.  One block holds the polynomial up to 2^15 (csrc/radix_chain.cuh,
 # by_logn_wide; the three-buffer kernels K6, tensor_mul, K7 and K8 there on
-# two-block clusters, one half a block), and those four stop there
-# (RADIX_LOGN): their forwards, products and inverses on three buffers have
-# no schedule across blocks yet.  The kernels that run one transform
-# direction go on across blocks (csrc/ntt_chunks.cuh: top passes through
-# device memory, then one block a chunk of 2^15 words) to 2^26, the largest
-# degree at which a prime of either package has its 2n-th roots
-# (TRANSFORM_LOGN): K1 and K9, and K2, K3, K5 and K12 with their products,
-# contraction, extension or repetitions folded into the first pass.  K10,
-# on its two-block clusters up to 2^12, with its working set in device
-# memory beyond a block and across blocks past 2^15
-# (ops/blind_rotate_cuda.py::_plan), reaches 2^22, where the reference's
-# gate ends (its CRT pair's roots).
-RADIX_LOGN = (7, 15)
+# two-block clusters, one half a block).  Past it every transform kernel
+# goes on across blocks (csrc/ntt_chunks.cuh: top passes through device
+# memory, then one block a chunk of 2^15 words) to 2^26, the largest degree
+# at which a prime of either package has its 2n-th roots (TRANSFORM_LOGN):
+# K1 and K9, K2, K3, K5 and K12 with their products, contraction, extension
+# or repetitions folded into the first pass, K6 and tensor_mul with their
+# four forwards through an eval scratch and K2's products and inverses
+# after them, K7 and K8 with their digit rows' forwards one after another
+# and the gadget sums in device memory.  K10, on its two-block clusters up
+# to 2^12, with its working set in device memory beyond a block and across
+# blocks past 2^15 (ops/blind_rotate_cuda.py::_plan), reaches 2^22, where
+# the reference's gate ends (its CRT pair's roots).
 TRANSFORM_LOGN = (7, 26)
 BLIND_ROTATE_LOGN = (7, 22)
 
@@ -217,7 +216,7 @@ class Kernel:
     (file:line of the function that reaches ``pl.pallas_call``).  ``logn``
     is the range of ring degrees it takes (``log2_degree``), None for a
     kernel without one.  A kernel with several layouts (K10; K5 and K6, whose
-    conversion is direct or staged; K2, K3, K5 and K12 past one block,
+    conversion is direct or staged; K2, K3, K5-K8 and K12 past one block,
     "chunked") names them in ``layouts`` (layout -> its source);
     ``by_layout`` counts the launches of each, and ``launches`` all of
     them."""
@@ -270,10 +269,10 @@ NTT_MULTI = Kernel("ntt_multi", "fhe_ntt_multi",
                    "fhe_study_tpu/ops/ntt_pallas.py:404",
                    PTR, PTR, PTR, PTR, PTR, PTR, *([INT] * 8),
                    logn=TRANSFORM_LOGN)
-# K2, K3, K5 and K12 in two layouts: one block a polynomial up to 2^15
-# ("block"; K5's "direct" and "staged"), and past it on the chunked
-# schedule ("chunked"; K5's "chunked direct" and "chunked staged"), each
-# from its own unit
+# K2, K3, K5-K8 and K12 in two layouts: one block a polynomial up to 2^15
+# ("block"; K5's and K6's "direct" and "staged"), and past it on the
+# chunked schedule ("chunked"; K5's and K6's "chunked direct" and "chunked
+# staged"), each from its own unit
 CHUNKED = "chunked"
 _K2_CU = "fhe_study_tpu_torch/csrc/tensor_eval4_chunks_cuda.cu"
 TENSOR_EVAL4 = Kernel("tensor_eval4", "fhe_tensor_eval4", _NTT_CU,
@@ -296,8 +295,9 @@ BASE_EXTEND = Kernel("base_extend", "fhe_base_extend", _EXT_CU,
 # (ops/ntt_cuda.py::lift_plan): "direct", each word in the kernel from the
 # source rows (the counts with an instance), or "staged", the lift
 # (csrc/ext.cuh's ext_lift_kernel) first into a scratch, then the kernel
-# from its rows; one C call queues both launches, counted as one.  K5 keeps
-# the two apart past one block too.
+# from its rows; one C call queues both launches, counted as one.  Both keep
+# the two apart past one block too (K6 counts its operands without a source
+# basis as "direct").
 _EXT_NTT_CU = "fhe_study_tpu_torch/csrc/ext_ntt_cuda.cu"
 _FORWARD_CHUNKS_CU = "fhe_study_tpu_torch/csrc/forward_chunks_cuda.cu"
 EXT_NTT = Kernel("ext_ntt", "fhe_ext_ntt", _EXT_NTT_CU,
@@ -307,28 +307,40 @@ EXT_NTT = Kernel("ext_ntt", "fhe_ext_ntt", _EXT_NTT_CU,
                           f"{CHUNKED} direct": _FORWARD_CHUNKS_CU,
                           f"{CHUNKED} staged": _FORWARD_CHUNKS_CU})
 _MUL4_CU = "fhe_study_tpu_torch/csrc/tensor_mul4_cuda.cu"
-_TENSOR_MUL4_ARGS = (PTR, PTR, PTR, PTR, *([I64] * 8), *([PTR] * 8),
+_MUL4_CHUNKS_CU = "fhe_study_tpu_torch/csrc/tensor_mul4_chunks_cuda.cu"
+_TENSOR_MUL4_ARGS = (PTR, PTR, PTR, PTR, *([I64] * 8), *([PTR] * 9),
                      *([INT] * 6))
+# K6 and tensor_mul, K7 and K8 past one block run the chunked schedule of
+# their own units: K6's "chunked direct" (no source basis, or from 4) and
+# "chunked staged", the others' "chunked"
 TENSOR_MUL4 = Kernel("tensor_mul4", "fhe_tensor_mul4", _MUL4_CU,
                      "fhe_study_tpu/ops/ntt_pallas.py:677",
-                     *_TENSOR_MUL4_ARGS, logn=RADIX_LOGN,
+                     *_TENSOR_MUL4_ARGS, logn=TRANSFORM_LOGN,
                      layouts={"direct": _MUL4_CU, "staged": (
-                         "fhe_study_tpu_torch/csrc/tensor_mul4_staged_cuda.cu")})
-# the stacked-operand form: the same __global__ function, fed row strides
+                         "fhe_study_tpu_torch/csrc/tensor_mul4_staged_cuda.cu"),
+                         f"{CHUNKED} direct": _MUL4_CHUNKS_CU,
+                         f"{CHUNKED} staged": _MUL4_CHUNKS_CU})
+# the stacked-operand form: the same kernels, fed row strides
 TENSOR_MUL = Kernel("tensor_mul", "fhe_tensor_mul4", _MUL4_CU,
                     "fhe_study_tpu/ops/ntt_pallas.py:604",
-                    *_TENSOR_MUL4_ARGS, logn=RADIX_LOGN)
-KS_FUSED = Kernel("ks_fused", "fhe_ks_fused",
-                  "fhe_study_tpu_torch/csrc/ks_fused_cuda.cu",
+                    *_TENSOR_MUL4_ARGS, logn=TRANSFORM_LOGN,
+                    layouts={"block": _MUL4_CU, CHUNKED: _MUL4_CHUNKS_CU})
+_KS_FUSED_CU = "fhe_study_tpu_torch/csrc/ks_fused_cuda.cu"
+_KS_FUSED_EVAL_CU = "fhe_study_tpu_torch/csrc/ks_fused_eval_cuda.cu"
+_KS_FUSED_CHUNKS_CU = "fhe_study_tpu_torch/csrc/ks_fused_chunks_cuda.cu"
+KS_FUSED = Kernel("ks_fused", "fhe_ks_fused", _KS_FUSED_CU,
                   "fhe_study_tpu/ops/ntt_pallas.py:1103",
-                  PTR, I64, I64, PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR,
-                  *([INT] * 7), logn=RADIX_LOGN)
+                  PTR, I64, I64, *([PTR] * 9), *([INT] * 7),
+                  logn=TRANSFORM_LOGN,
+                  layouts={"block": _KS_FUSED_CU,
+                           CHUNKED: _KS_FUSED_CHUNKS_CU})
 KS_FUSED_EVAL = Kernel("ks_fused_eval", "fhe_ks_fused_eval",
-                       "fhe_study_tpu_torch/csrc/ks_fused_eval_cuda.cu",
+                       _KS_FUSED_EVAL_CU,
                        "fhe_study_tpu/ops/ntt_pallas.py:1216",
                        PTR, I64, I64, PTR, PTR, PTR, I64, I64, PTR, I64, I64,
-                       PTR, PTR, PTR, PTR, PTR, PTR, PTR, *([INT] * 7),
-                       logn=RADIX_LOGN)
+                       *([PTR] * 8), *([INT] * 7), logn=TRANSFORM_LOGN,
+                       layouts={"block": _KS_FUSED_EVAL_CU,
+                                CHUNKED: _KS_FUSED_CHUNKS_CU})
 NTT = Kernel("ntt", "fhe_ntt", "fhe_study_tpu_torch/csrc/ntt_multi_cuda.cu",
              "fhe_study_tpu/ops/ntt_pallas.py:1296",
              PTR, PTR, PTR, PTR, PTR, PTR, *([INT] * 6),

@@ -15,6 +15,9 @@ fhe_study_tpu/ops/ntt_pallas.py.
   K8 ks_fused_eval <- ntt_pallas.ks_fused_eval_u32
   K9 ntt           <- ntt_pallas.ntt_u32 (one prime, int64 words in and out)
 
+Past n = 2^15 each runs the chunked schedule of ``csrc/ntt_chunks.cuh``
+from a unit of its own (``*_chunks_cuda.cu``, ``forward_chunks_cuda.cu``).
+
 Host tables per prime set: the [L, n] bit-reversed roots (forward) or
 inverse roots with their Shoup companions floor(w * 2^32 / q), and one row of
 (q, -q^-1 mod 2^32, fin, fin's Shoup companion) per prime, where ``fin`` is
@@ -113,10 +116,11 @@ def _split_twiddles(qs: tuple, n: int, inverse: bool,
 
 def _chain_twiddles(qs: tuple, n: int, inverse: bool, device) -> torch.Tensor:
     """The tables a three-buffer kernel (K6, K7, K8) reads at n: split at
-    n = 2^WIDE_LOGN, as they are below."""
+    n = 2^WIDE_LOGN, the chunk tables past it (``_chunk_tables``), as they
+    are below."""
     if n == 1 << WIDE_LOGN:
         return _split_twiddles(qs, n, inverse, device)
-    return _twiddles(qs, n, inverse, device)
+    return _chunk_tables(qs, n, inverse, device)
 
 
 @lru_cache(maxsize=None)
@@ -156,6 +160,10 @@ MUL4_THREADS = 512      # kMul4Threads of csrc/tensor_mul4.cuh (K6) and
 MUL4_BUFFERS = 3        # ... which hold three polynomials in shared memory
                         # (at n = 2^WIDE_LOGN one half in each block of a
                         # two-block cluster)
+# the degrees at which one block (K6-K8: a two-block cluster) holds a
+# polynomial, where every chain kernel runs its one-block schedule; past
+# them the chunked one (_chunk_plan)
+BLOCK_LOGNS = range(7, WIDE_LOGN + 1)
 
 
 class RadixPass(NamedTuple):
@@ -198,8 +206,8 @@ def _radix_plan(logn: int, max_threads: int | None = None,
                      tuple(fwd), tuple(inv))
 
 
-# -- the transform past one block (K1, K2, K3, K5, K9 and K12 at n = 2^16 ..
-# 2^26, K10's grid layout; csrc/ntt_chunks.cuh) ----------------------------
+# -- the transform past one block (K1-K3, K5-K9 and K12 at n = 2^16 .. 2^26,
+# K10's grid layout; csrc/ntt_chunks.cuh) ----------------------------------
 
 CHUNK_LOGN = WIDE_LOGN  # kChunkLogN: a chunk of 2^15 words, one block's chain
 TOP_BITS = 4            # kTopBits: the stages a top pass runs at most
@@ -253,7 +261,11 @@ def _mul4_plan(logn: int, side: bool = False) -> RadixPlan:
     its n words below 2^WIDE_LOGN; there, one block of a split (a cluster
     of two), those of its half, and with ``side`` (K6) the words of x0's
     transform that its threads keep beside the buffers for every group of
-    virtual threads but the first (kMul4Side)."""
+    virtual threads but the first (kMul4Side); past it a chunk's chain on
+    the chunked schedule (``_chunk_plan``: one buffer, K2's and the
+    transforms' block shape)."""
+    if logn > WIDE_LOGN:
+        return _chunk_plan(logn).chain
     if logn != WIDE_LOGN:
         return _radix_plan(logn, MUL4_THREADS, MUL4_BUFFERS)
     plan = _radix_plan(logn - 1, MUL4_THREADS, MUL4_BUFFERS)
@@ -452,7 +464,7 @@ def _chunk_scratch(logn: int, words: int, device):
 def _layout(logn: int, below: str = "block") -> str:
     """The layout a kernel of two schedules counts a launch at 2^logn
     under: ``below`` up to a block's polynomial, "chunked" past it (K2, K3,
-    K5 and K12; K5's "chunked direct" and "chunked staged")."""
+    K5-K8 and K12; K5's and K6's "chunked direct" and "chunked staged")."""
     if logn <= CHUNK_LOGN:
         return below
     return _cuda.CHUNKED if below == "block" else f"{_cuda.CHUNKED} {below}"
@@ -651,31 +663,38 @@ def _tensor_mul4_launch(kernel, x0, x1, y0, y1, dst: tuple, scale, src):
     tw, twinv = (_chain_twiddles(dst, n, inv, dev) for inv in (False, True))
     cons = _prime_rows(dst, _tensor_fin(dst, n, scale), dev)
     plan = _mul4_plan(logn, side=True)
-    layout, lift = ("direct", None) if src is None else _lift_scratch(
+    form, lift = ("direct", None) if src is None else _lift_scratch(
         lift_plan(kernel, len(src), B, n), dev)
+    tmp = _chunk_scratch(logn, 4 * Ld * B * n, dev)
     kernel.launch(dev, *(v.data_ptr() for v in views), *_row_strides(views),
-                  None if lift is None else lift.data_ptr(), out.data_ptr(),
+                  None if lift is None else lift.data_ptr(),
+                  None if tmp is None else tmp.data_ptr(), out.data_ptr(),
                   None if tab is None else tab.data_ptr(),
                   tw[0].data_ptr(), tw[1].data_ptr(), twinv[0].data_ptr(),
                   twinv[1].data_ptr(), cons.data_ptr(),
                   0 if src is None else len(src), Ld, B, logn, plan.threads,
-                  plan.smem_bytes, layout=layout if kernel.layouts else None)
+                  plan.smem_bytes,
+                  layout=_layout(logn, form if kernel is _cuda.TENSOR_MUL4
+                                 else "block"))
     return out
 
 
 def tensor_mul4_kernel(x0, x1, y0, y1, dst: tuple, scale=None, src=None):
     """K6: one block per (dst prime, polynomial), seven transforms on the
     register-resident chain (``_mul4_plan``: MUL4_THREADS threads and three
-    buffers; at n = 2^15 a cluster of two blocks, one half each).  Operands
-    [Ld, B.., n], or [Ls, B.., n] over ``src`` with the extension src -> dst
-    run in the kernel, direct or staged (``lift_plan``); they may be
-    strided views."""
+    buffers; at n = 2^15 a cluster of two blocks, one half each); past
+    n = 2^15 the four forwards on the chunked schedule through an eval
+    scratch of 4 Ld B n words, then K2's chunked products and inverses
+    (``_chunk_plan``).  Operands [Ld, B.., n], or [Ls, B.., n] over ``src``
+    with the extension src -> dst run in the kernel, direct or staged
+    (``lift_plan``); they may be strided views."""
     return _tensor_mul4_launch(_cuda.TENSOR_MUL4, x0, x1, y0, y1, dst, scale,
                                src)
 
 
 def tensor_mul_kernel(x4, qs: tuple, scale=None):
-    """The stacked form [L, B.., 4, n]: K6's kernel on the four row views."""
+    """The stacked form [L, B.., 4, n]: K6's kernels on the four row
+    views."""
     if x4.ndim < 3 or x4.shape[-2] != 4:
         raise ValueError(f"x4 has shape {tuple(x4.shape)}; need [L, .., 4, n]")
     return _tensor_mul4_launch(_cuda.TENSOR_MUL,
@@ -699,7 +718,10 @@ def _ks_operands(c_limbs, kb, ka, primes: tuple):
 def ks_fused_kernel(c_limbs, kb, ka, primes: tuple, src_primes: tuple):
     """K7: one block per (prime, polynomial), R + 2 transforms on the
     register-resident chain (``_mul4_plan``: MUL4_THREADS threads and three
-    buffers; at n = 2^15 a cluster of two blocks, one half each).  c_limbs
+    buffers; at n = 2^15 a cluster of two blocks, one half each); past
+    n = 2^15 the digit rows' forwards one after another on the chunked
+    schedule through a scratch of Lp B n words, each adding its products
+    into the two sums in the output, then their inverses in place.  c_limbs
     [R, B.., n] may be a strided view; kb/ka [R, Lp, n] are read as uint4
     when both are 16-byte aligned."""
     logn = _cuda.log2_degree(c_limbs.shape[-1], _cuda.KS_FUSED)
@@ -715,20 +737,24 @@ def ks_fused_kernel(c_limbs, kb, ka, primes: tuple, src_primes: tuple):
                      for inv in (False, True))
         cons = _prime_rows(primes, _tensor_fin(primes, n, None), dev)
         plan = _mul4_plan(logn)
+        tmp = _chunk_scratch(logn, Lp * B * n, dev)
         _cuda.KS_FUSED.launch(dev, c.data_ptr(), c.stride(0), c.stride(1),
                               kb.data_ptr(), ka.data_ptr(), out.data_ptr(),
+                              None if tmp is None else tmp.data_ptr(),
                               tw[0].data_ptr(), tw[1].data_ptr(),
                               twinv[0].data_ptr(), twinv[1].data_ptr(),
                               cons.data_ptr(), R, Lp, B, logn,
                               digit_reps(primes, src_primes), plan.threads,
-                              plan.smem_bytes)
+                              plan.smem_bytes, layout=_layout(logn))
     return out[0], out[1]
 
 
 def ks_fused_eval_kernel(c_limbs, kb, ka, primes: tuple, src_primes: tuple,
                          adds):
     """K8: K7's kernel with the two ``adds`` transformed in it too (R + 4
-    transforms a block).  c_limbs [R, B.., n] and the two ``adds``
+    transforms a block); past n = 2^15 K7's chunked schedule, then each
+    add's forward forming e_h in the output and the inverses of e0 and e1
+    into its last two rows.  c_limbs [R, B.., n] and the two ``adds``
     [Lp, B.., n] may be strided views.  Returns (e0, e1, r0, r1), each
     [Lp, B.., n]."""
     logn = _cuda.log2_degree(c_limbs.shape[-1], _cuda.KS_FUSED_EVAL)
@@ -749,12 +775,14 @@ def ks_fused_eval_kernel(c_limbs, kb, ka, primes: tuple, src_primes: tuple,
         cons = _prime_rows(primes, _default_fin(primes, n, True, None), dev)
         lift = _prime_rows(primes, tuple(R32 % q for q in primes), dev)
         plan = _mul4_plan(logn)
+        tmp = _chunk_scratch(logn, Lp * B * n, dev)
         _cuda.KS_FUSED_EVAL.launch(
             dev, c.data_ptr(), c.stride(0), c.stride(1), kb.data_ptr(),
             ka.data_ptr(), a0.data_ptr(), a0.stride(0), a0.stride(1),
             a1.data_ptr(), a1.stride(0), a1.stride(1), out.data_ptr(),
-            tw[0].data_ptr(), tw[1].data_ptr(), twinv[0].data_ptr(),
-            twinv[1].data_ptr(), cons.data_ptr(), lift.data_ptr(), R, Lp, B,
-            logn, digit_reps(primes, src_primes), plan.threads,
-            plan.smem_bytes)
+            None if tmp is None else tmp.data_ptr(), tw[0].data_ptr(),
+            tw[1].data_ptr(), twinv[0].data_ptr(), twinv[1].data_ptr(),
+            cons.data_ptr(), lift.data_ptr(), R, Lp, B, logn,
+            digit_reps(primes, src_primes), plan.threads, plan.smem_bytes,
+            layout=_layout(logn))
     return out[0], out[1], out[2], out[3]

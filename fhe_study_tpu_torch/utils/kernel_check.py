@@ -170,6 +170,8 @@ class Case(NamedTuple):
     timed: bool = True          # False: kernel against kernel, only compared
     layout: str = ""            # the kernel's layout, where it has several
     args: tuple = ()            # its arguments, where a caller reads them
+    extra: int = 0              # device-memory bytes of its own scratch past
+                                # one block beyond its top passes (own_bytes)
 
 
 def _butterflies(n: int, transforms: int) -> int:
@@ -804,17 +806,14 @@ def top_pass_bytes(n: int, polys: int) -> int:
 
 def own_bytes(case) -> int:
     """The device-memory bytes of a transform kernel's own traffic past one
-    block (K1, K2, K3, K5, K9, K12): its least bytes and the top passes of
-    its transforms (``top_pass_bytes``); K12's transforms after the first
-    also read and write the polynomial once more each (each runs its top
-    passes from the last one's output)."""
+    block (K1-K3, K5-K9, K12): its least bytes, the top passes of its
+    transforms (``top_pass_bytes``) and the round trips of its other
+    scratch (the case's ``extra``: K12's transforms after the first read
+    and write the polynomial once more each; K6's eval scratch and lift;
+    K7's and K8's sums in device memory)."""
     n = case.n
     transforms = case.butterflies // ((n // 2) * (n.bit_length() - 1))
-    extra = 0
-    if case.name == "ntt_smem_ceiling" and n > 1 << nc.CHUNK_LOGN:
-        x, _, reps = case.args
-        extra = 8 * max(reps - 1, 0) * x.numel()
-    return case.bytes + top_pass_bytes(n, transforms) + extra
+    return case.bytes + top_pass_bytes(n, transforms) + case.extra
 
 
 def ntt_case(label: str, x, q: int, inverse: bool) -> Case:
@@ -939,23 +938,149 @@ def ext_ntt_case(label: str, x, src: tuple, dst: tuple) -> Case:
 
 def ceiling_case(label: str, x, q: int, reps: int) -> Case:
     """K12 on x [B, n] over ``reps`` transforms: the polynomial read and
-    written once, the tables where a transform runs; B reps transforms."""
+    written once, the tables where a transform runs; B reps transforms.
+    Past one block each transform after the first reads and writes the
+    polynomial once more (``extra``)."""
     B, n = x.shape
     return _pair("ntt_smem_ceiling", label,
                  4 * (2 * B * n + (2 * n if reps else 0)),
                  _ntt_ops(n, B * reps), alu_bench.ntt_smem_ceiling_kernel,
                  alu_bench.ntt_smem_ceiling_plain, x, q, reps)._replace(
                      butterflies=_butterflies(n, B * reps), n=n,
-                     layout=_layout_of(n), args=(x, q, reps))
+                     layout=_layout_of(n),
+                     extra=(8 * max(reps - 1, 0) * x.numel()
+                            if n > 1 << nc.CHUNK_LOGN else 0))
 
 
-# K2, K3, K5 and K12 past one block in the sweep (their chunked schedules):
-# K2 with and without a scale and on strided views; K3 at R digit rows of
-# WIDE_OPS_R, aligned and one word off; K5 from the source counts of
-# WIDE_OPS_LS (2 and 4 direct, 3 and 31 staged); K12 over WIDE_OPS_REPS
+# int64 words of a plain version's largest intermediate past which a case
+# forms its value over slices of the batch (the plain K7 and K8 hold
+# [R, Lp, B, n]: 56 GiB at R = Lp = 29, B = 128, n = 2^16)
+PLAIN_WORDS = 1 << 28
+
+
+def _by_batch(fn, tensors: tuple, words: int):
+    """fn(*tensors), each [rows, B, ..], formed over slices of the batch
+    axis (1) of at most PLAIN_WORDS // words polynomials (``words``: those
+    of the largest intermediate a polynomial), the outputs joined along
+    it."""
+    B = tensors[0].shape[1]
+    step = max(1, PLAIN_WORDS // words)
+    if step >= B:
+        return fn(*tensors)
+    parts = [_flat(fn(*(t[:, i:i + step] for t in tensors)))
+             for i in range(0, B, step)]
+    out = tuple(torch.cat(p, dim=1) for p in zip(*parts))
+    return out if len(out) > 1 else out[0]
+
+
+def tensor_mul4_case(label: str, ops, dst: tuple, scale=None,
+                     src=None) -> Case:
+    """K6 on the four operands ``ops`` ([Ld, B, n] over dst, or [Ls, B, n]
+    over ``src``; possibly strided views): every operand word read and the
+    three products written once, both directions' tables; 7 Ld B
+    transforms, 4 Montgomery products, an add and 3 Shoup products a
+    coefficient and, with a source basis, the conversion of each operand
+    word.  Past one block its own traffic beyond the top passes
+    (``extra``): the eval scratch of the four forwards written and read
+    once, and the lift's rows when it is staged.  The plain value is formed
+    over slices of the batch (``_by_batch``)."""
+    n, ld = ops[0].shape[-1], len(dst)
+    ls = ld if src is None else len(src)
+    rows = ops[0].numel() // ls                  # B n
+    polys = rows // n
+    extra = 0
+    if n > 1 << nc.CHUNK_LOGN:
+        extra = 2 * 4 * 4 * ld * rows
+        if src is not None and nc.lift_plan(_cuda.TENSOR_MUL4, ls, polys,
+                                            n).staged:
+            extra += 2 * 4 * 4 * (ls + 1) * rows
+    return Case(
+        "tensor_mul4", label,
+        lambda: nc.tensor_mul4_kernel(*ops, dst, scale=scale, src=src),
+        lambda: _by_batch(lambda *o: nc.tensor_mul4_plain(
+            *o, dst, scale=scale, src=src), tuple(ops), 4 * max(ls, ld) * n),
+        4 * (4 * ls * rows + 3 * ld * rows + 4 * n * ld),
+        _ntt_ops(n, 7 * ld * polys)
+        + ld * rows * (4 * MONT_OPS + ADD_OPS + 3 * SHOUP_OPS)
+        + (0 if src is None else _ext_ops(4 * rows, ls, ld)),
+        butterflies=_butterflies(n, 7 * ld * polys), n=n,
+        layout=_layout_of(n), extra=extra)
+
+
+def tensor_mul_case(label: str, x4, qs: tuple, scale=None) -> Case:
+    """tensor_mul on the stacked operand x4 [L, B, 4, n] (K6's kernels on
+    its row strides): K6's work and own traffic."""
+    k6 = tensor_mul4_case(label, [x4[..., i, :] for i in range(4)], qs,
+                          scale)
+    return k6._replace(
+        name="tensor_mul",
+        kernel=lambda: nc.tensor_mul_kernel(x4, qs, scale=scale),
+        plain=lambda: _by_batch(lambda x: nc.tensor_mul_plain(
+            x, qs, scale=scale), (x4,), 4 * len(qs) * x4.shape[-1]))
+
+
+def _ks_case(name: str, label: str, c, kb, ka, primes: tuple,
+             src_primes: tuple, adds=None) -> Case:
+    """K7 (adds None) or K8 on limb rows c [R, B, n], keys [R, Lp, n] and
+    K8's adds [Lp, B, n] (possibly strided views): the limbs, keys and adds
+    read and the 2 (K8: 4) output rows written once, both directions'
+    tables; the key switch's transforms, reductions and products
+    (``_ks_ops``).  Past one block its own traffic beyond the top passes
+    (``extra``): the two sums written and read back by every digit row and
+    the inverse, K8's e_h once more.  The plain value (its [R, Lp, B, n]
+    int64 digits) is formed over slices of the batch (``_by_batch``)."""
+    R, lp, n = c.shape[0], len(primes), c.shape[-1]
+    rows = c[0].numel()                          # B n
+    polys = rows // n
+    evalf = adds is not None
+    extra = 0
+    if n > 1 << nc.CHUNK_LOGN:
+        extra = ((8 * R + 4) if evalf else (8 * R - 4)) * 2 * lp * rows
+    if evalf:
+        kern = partial(nc.ks_fused_eval_kernel, c, kb, ka, primes,
+                       src_primes, adds)
+        plain = partial(_by_batch, lambda c_, a0, a1: nc.ks_fused_eval_plain(
+            c_, kb, ka, primes, src_primes, (a0, a1)), (c, *adds),
+            R * lp * n)
+    else:
+        kern = partial(nc.ks_fused_kernel, c, kb, ka, primes, src_primes)
+        plain = partial(_by_batch, lambda c_: nc.ks_fused_plain(
+            c_, kb, ka, primes, src_primes), (c,), R * lp * n)
+    return Case(name, label, kern, plain,
+                4 * ((R + (6 if evalf else 2) * lp) * rows + 2 * R * lp * n
+                     + 4 * n * lp),
+                _ks_ops(n, polys, R, lp, nc.digit_reps(primes, src_primes),
+                        evalf),
+                butterflies=_butterflies(n, (R + (4 if evalf else 2)) * lp
+                                         * polys),
+                n=n, layout=_layout_of(n), extra=extra)
+
+
+def ks_fused_case(label: str, c, kb, ka, primes: tuple,
+                  src_primes: tuple) -> Case:
+    """K7 (``_ks_case``)."""
+    return _ks_case("ks_fused", label, c, kb, ka, primes, src_primes)
+
+
+def ks_fused_eval_case(label: str, c, kb, ka, primes: tuple,
+                       src_primes: tuple, adds) -> Case:
+    """K8 (``_ks_case``)."""
+    return _ks_case("ks_fused_eval", label, c, kb, ka, primes, src_primes,
+                    adds)
+
+
+# K2, K3, K5-K8 and K12 past one block in the sweep (their chunked
+# schedules): K2 with and without a scale and on strided views; K3 at R
+# digit rows of WIDE_OPS_R, aligned and one word off; K5 from the source
+# counts of WIDE_OPS_LS (2 and 4 direct, 3 and 31 staged); K12 over
+# WIDE_OPS_REPS; K6 from the source counts of WIDE_MUL4_LS (None: without
+# a source basis; 4 direct, 3 staged) and tensor_mul on its stacked
+# operand; K7 and K8 at R digit rows of WIDE_OPS_R, c_limbs and K8's adds
+# strided views
 WIDE_OPS_R = (1, 3)
 WIDE_OPS_LS = (2, 4, 3, ext.MAX_SRC)
 WIDE_OPS_REPS = (0, 1, 3)
+WIDE_MUL4_LS = (None, 4, 3)
 
 
 def wide_transform_cases(device, seed: int):
@@ -1004,13 +1129,14 @@ def wide_transform_cases(device, seed: int):
 
 
 def wide_op_cases(device, seed: int):
-    """K2, K3, K5 and K12 past one block against their plain versions
+    """K2, K3, K5-K8 and K12 past one block against their plain versions
     (compared; chip_smoke.py times each kernel beside its bounds) at each
     log n of WIDE_SWEEP_LOGNS over up to two primes with 2n-th roots: each
     variant at one batch of WIDE_SWEEP_B, in turn, so that every kernel
     runs each batch at each n (K5 on at most 2^31 source words: from 31
-    sources at 2^26 on one polynomial).  K5's source primes are 30-bit
-    primes apart from those.  Operands drawn on the card
+    sources at 2^26 on one polynomial; K6-K8 on one polynomial at 2^26).
+    K5's and K6's source primes, and K7's and K8's limbs' primes, are
+    30-bit primes apart from those.  Operands drawn on the card
     (``prng.device_residues``), each case's own, so that only the case in
     hand holds memory.  Yields one case at a time, then forgets the root
     tables."""
@@ -1033,6 +1159,18 @@ def wide_op_cases(device, seed: int):
             yield _wide_k5(res, src_pool[:ls], qs, B, n)
         for reps in WIDE_OPS_REPS:
             yield _wide_k12(res, qs[0], next(batch), n, reps)
+        cap = max(1, (1 << 26) // n)             # one polynomial at 2^26
+        for ls in WIDE_MUL4_LS:
+            src = None if ls is None else src_pool[:ls]
+            yield _wide_k6(res, src, qs, min(next(batch), cap), n)
+        quad = res(qs, (min(next(batch), cap), 4, n))
+        yield tensor_mul_case(f"stacked {list(quad.shape)} over {qs}", quad,
+                              qs, tuple(range(3, 3 + len(qs))))._replace(
+                                  timed=False)
+        del quad
+        for R in WIDE_OPS_R:
+            yield from _wide_ks(res, src_pool[:R], qs, min(next(batch), cap),
+                                n)
     nc.drop_tables()
 
 
@@ -1065,6 +1203,32 @@ def _wide_k5(res, src, qs, B, n) -> Case:
     x = res(src, (B, n))
     return ext_ntt_case(f"{len(src)} -> {len(qs)} primes {list(x.shape)} "
                         f"({form})", x, src, qs)._replace(timed=False)
+
+
+def _wide_k6(res, src, qs, B, n) -> Case:
+    ls = len(qs) if src is None else len(src)
+    form = ("no source basis" if src is None else
+            f"{ls} -> {len(qs)} primes ("
+            f"{'direct' if ls in nc.MUL4_DIRECT else 'staged'})")
+    ops = [res(qs if src is None else src, (B, n)) for _ in range(4)]
+    return tensor_mul4_case(f"{form} {[ls, B, n]}, scale", ops, qs,
+                            tuple(range(3, 3 + len(qs))), src)._replace(
+                                timed=False)
+
+
+def _wide_ks(res, src, qs, B, n):
+    """K7 and K8 on the same R = len(src) limb rows, c_limbs and K8's adds
+    strided views ([R, B, 3, n] and [Lp, B, 2, n] rows)."""
+    R = len(src)
+    c = torch.stack([res((s,), (B, 3, n))[0] for s in src])[..., 2, :]
+    kb, ka = (res(qs, (R, n)).transpose(0, 1).contiguous() for _ in range(2))
+    pair = res(qs, (B, 2, n))
+    label = (f"R={R} {[len(qs), B, n]} over {qs}, reps="
+             f"{nc.digit_reps(qs, src)}, strided c_limbs")
+    yield ks_fused_case(label, c, kb, ka, qs, src)._replace(timed=False)
+    yield ks_fused_eval_case(f"{label} and adds", c, kb, ka, qs, src,
+                             (pair[..., 0, :], pair[..., 1, :]))._replace(
+                                 timed=False)
 
 
 def _wide_k12(res, q, B, n, reps) -> Case:

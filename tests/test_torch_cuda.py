@@ -44,8 +44,7 @@ def test_kernels_match_plain(cuda, n):
         assert kernel_check.equal(got, want), (case.name, case.label)
 
 
-@pytest.mark.parametrize("logn", range(_cuda.RADIX_LOGN[0],
-                                       _cuda.RADIX_LOGN[1] + 1))
+@pytest.mark.parametrize("logn", ntt_cuda.BLOCK_LOGNS)
 def test_radix_kernels_match_plain_at_every_degree(cuda, logn):
     """The redesigned kernels: K1-K3, K5-K9 and K12 on the
     register-resident chains, where each log n has its own pass structure
@@ -86,12 +85,16 @@ def test_radix_kernels_have_no_stack_frame_or_spills(cuda):
     device-memory layout's forward and inverse kernels per log n 2^7 ..
     2^15; past 2^15 the chunk chains of K1, K9, K10's grid layout and of
     K5 and K12 (K1's both ways, K9's both ways, K10's forward, K5's and
-    K12's forward), the top passes of K1 and K9 (four stage counts, both
-    ways, K9's first and last on int64 words), of K2 and K3 (inverse, four
-    each) and of K5 and K12 (forward, four), K5's first top pass (four
-    stage counts from 2 and 4 sources and staged), the chunk kernels of K2
-    and K3, and K10's grid kernels (four stage counts each; its forward's
-    first pass and the others)."""
+    K12's forward, K6's forward, K7's and K8's inverse), the top passes of
+    K1 and K9 (four stage counts, both ways, K9's first and last on int64
+    words), of K2 and K3 (inverse, four each), of K5 and K12 (forward,
+    four), of K6 (forward, four) and of K7 and K8 (both ways, four each),
+    the first top passes (four stage counts each: K5's from 2 and 4
+    sources and staged, K6's without a source basis, from 4 and staged,
+    K7's and K8's digits and adds), the chunk kernels of K2 and K3, K7's
+    and K8's chunk chains with their gadget products (two), and K10's grid
+    kernels (four stage counts each; its forward's first pass and the
+    others)."""
     report = _cuda.ptxas_report(_cuda.build_log())
     counts = {"tensor_eval4_kernel": 9, "ks_contract_kernel": 9,
               "ks_fused_kernel": 9, "ks_fused_eval_kernel": 9,
@@ -100,11 +103,13 @@ def test_radix_kernels_have_no_stack_frame_or_spills(cuda):
               "base_extend_sum_kernel": 31 * 2, "ext_lift_kernel": 2,
               "blind_rotate_kernel": 6 * 2, "br_forward_kernel": 9,
               "br_inverse_kernel": 9, "ntt_kernel": 9 * 2,
-              "ntt_smem_ceiling_kernel": 9, "ntt_chunk_kernel": 6,
-              "ntt_top_kernel": 4 * 4 + 3 * 4, "brg_top_forward_kernel": 4 * 2,
+              "ntt_smem_ceiling_kernel": 9, "ntt_chunk_kernel": 8,
+              "ntt_top_kernel": 4 * 4 + 3 * 4 + 4 + 2 * 4,
+              "brg_top_forward_kernel": 4 * 2,
               "brg_chunk_inverse_kernel": 1, "brg_top_inverse_kernel": 4,
               "brg_top_last_kernel": 4, "tensor_eval4_chunk_kernel": 1,
-              "ks_contract_chunk_kernel": 1, "ext_top_kernel": 4 * 3}
+              "ks_contract_chunk_kernel": 1, "first_top_kernel": 4 * 7,
+              "ks_mac_chunk_kernel": 2}
     radix = [r for r in report if r["kernel"].split("<")[0] in counts]
     for name, count in counts.items():
         assert sum(r["kernel"].split("<")[0] == name for r in radix) == count
@@ -172,15 +177,15 @@ def test_redesigned_kernels_refuse_another_plan(cuda):
         with pytest.raises(RuntimeError, match="fhe_ks_fused"):
             _cuda.KS_FUSED.launch(cuda, x.data_ptr(), 512, 256,
                                   keys.data_ptr(), keys.data_ptr(),
-                                  out4.data_ptr(), *tables, 4, 4, 2, 8, 1,
-                                  threads, smem)
+                                  out4.data_ptr(), None, *tables, 4, 4, 2, 8,
+                                  1, threads, smem, layout="block")
     with pytest.raises(RuntimeError, match="fhe_ks_fused_eval"):
         _cuda.KS_FUSED_EVAL.launch(cuda, x.data_ptr(), 512, 256,
                                    keys.data_ptr(), keys.data_ptr(),
                                    x.data_ptr(), 512, 256, x.data_ptr(), 512,
-                                   256, out4[1:].data_ptr(), *tables,
+                                   256, out4[1:].data_ptr(), None, *tables,
                                    cons.data_ptr(), 4, 4, 2, 8, 1, ks.threads,
-                                   ks.smem_bytes)
+                                   ks.smem_bytes, layout="block")
 
 
 def test_blind_rotate_clusters_match_plain(cuda):
@@ -896,6 +901,46 @@ def test_chunked_ops_past_a_block_match_plain(cuda, logn):
         _cuda.NTT_SMEM_CEILING)} == {"tensor_eval4": 1, "ks_contract": 1,
                                      "ext_ntt": 2, "ntt_smem_ceiling": 1}
     assert _cuda.EXT_NTT.by_layout["chunked staged"] == 1
+
+
+@pytest.mark.parametrize("logn", [16, 17])
+def test_chunked_mul_past_a_block_matches_plain(cuda, logn):
+    """K6 (without a source basis on strided views, from 4 sources direct,
+    from 3 staged), tensor_mul (stacked), K7 and K8 (R = 3, c_limbs and
+    adds strided views) across blocks on their chunked schedules, bit for
+    bit; each launch counted under its chunked layout."""
+    n = 1 << logn
+    qs = (998244353, 754974721)
+    src = ntt_primes(4, 30, 1 << 16, skip=8)
+    res = prng.device_residues(100 + logn, cuda)
+    pair = res(qs, (2, 2, n))
+    limbs = torch.stack([res((s,), (2, 3, n))[0] for s in src[:3]])
+    kb, ka = (res(qs, (3, n)).transpose(0, 1).contiguous() for _ in range(2))
+    cases = [
+        kernel_check.tensor_mul4_case(
+            "strided", [pair[..., 0, :], pair[..., 1, :], pair[..., 1, :],
+                        pair[..., 0, :]], qs, (3, 5)),
+        kernel_check.tensor_mul4_case(
+            "direct", [res(src, (2, n)) for _ in range(4)], qs, None, src),
+        kernel_check.tensor_mul4_case(
+            "staged", [res(src[:3], (2, n)) for _ in range(4)], qs, (3, 5),
+            src[:3]),
+        kernel_check.tensor_mul_case("stacked", res(qs, (2, 4, n)), qs),
+        kernel_check.ks_fused_case("R=3", limbs[..., 2, :], kb, ka, qs,
+                                   src[:3]),
+        kernel_check.ks_fused_eval_case(
+            "R=3", limbs[..., 2, :], kb, ka, qs, src[:3],
+            (pair[..., 0, :], pair[..., 1, :]))]
+    _cuda.reset_launches()
+    for case in cases:
+        got = case.kernel()
+        torch.cuda.synchronize()
+        assert kernel_check.equal(got, case.plain()), case.label
+    assert {k.name: _cuda.chunked_launches(k) for k in (
+        _cuda.TENSOR_MUL4, _cuda.TENSOR_MUL, _cuda.KS_FUSED,
+        _cuda.KS_FUSED_EVAL)} == {"tensor_mul4": 3, "tensor_mul": 1,
+                                  "ks_fused": 1, "ks_fused_eval": 1}
+    assert _cuda.TENSOR_MUL4.by_layout["chunked staged"] == 1
 
 
 @pytest.mark.parametrize("logn,C,l,w", [(16, 2, 5, 6), (16, 1, 3, 7),

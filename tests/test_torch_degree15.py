@@ -15,9 +15,8 @@ primes at B = 1, and one
 B = 1 on keys and ciphertexts that the port draws and utils/interop.py
 carries into JAX, decrypted against a numpy negacyclic product.  Inputs are
 numpy draws from fixed seeds; tolerance 0 throughout.  Then each kernel's
-range: every kernel takes 2^15; K6, tensor_mul, K7 and K8 refuse 2^16, the
-others take it and refuse the degree past their top, each naming its
-range.
+range: every kernel takes 2^15 and 2^16 and refuses the degree past its
+top (2^26; K10's 2^22), each naming its range.
 """
 
 import numpy as np
@@ -185,16 +184,15 @@ def test_kernel_range_at_n_2_15(name):
     """K1, K2, K3, K5, K9 and K12 take n = 2^15, and so do K6, tensor_mul,
     K7 and K8 (on two-block clusters, one half of their three buffers a
     block) and K10 (its working set in device memory, one polynomial a
-    block at the one-buffer shape); the kernels that stop there (K6,
-    tensor_mul, K7, K8) refuse 2^16, K1, K2, K3, K5, K9 and K12 (across
-    blocks to 2^26) and K10 (to 2^22) take it and refuse the degree past
-    their top, with a message that names the range, on the card as on any
-    device: the check comes before the kernel is built or launched."""
+    block at the one-buffer shape); every one takes 2^16 (across blocks:
+    K6, tensor_mul, K7 and K8 too, on their chunked schedules) and refuses
+    the degree past its top (2^26; K10's 2^22), with a message that names
+    the range, on the card as on any device: the check comes before the
+    kernel is built or launched."""
     k = KERNELS[name]
     assert _cuda.log2_degree(N, k) == 15
-    top = 22 if name == "blind_rotate" else 15 if name in NARROW else 26
-    if top > 15:                    # past a block, across blocks
-        assert _cuda.log2_degree(2 * N, k) == 16
+    top = 22 if name == "blind_rotate" else 26
+    assert _cuda.log2_degree(2 * N, k) == 16      # past a block
     with pytest.raises(ValueError,
                        match=f"{name} takes n = 2\\^7 .. 2\\^{top}"):
         _cuda.log2_degree(2 << top, k)
@@ -213,17 +211,19 @@ def test_kernel_range_at_n_2_15(name):
 
 def test_narrow_wrappers_refuse_n_2_15():
     """The wrappers of K6, tensor_mul, K7 and K8 raise the range error at
-    n = 2^16 before anything else, naming 2^7 .. 2^15 (here on CPU tensors,
-    which they would otherwise refuse for their device); at n = 2^15 they
-    pass it and refuse the CPU tensors.  K10's checks its operands first."""
-    for n, match in ((2 * N, "takes n = 2\\^7 .. 2\\^15"),
-                     (N, "take CUDA tensors")):
-        x = torch.zeros((2, 1, n), dtype=torch.int32)
-        keys = torch.zeros((2, 2, n), dtype=torch.int32)
+    n = 2^27 before anything else, naming 2^7 .. 2^26 (here on CPU tensors,
+    which they would otherwise refuse for their device; views of one word,
+    nothing of that size is allocated); at n = 2^15 and 2^16 they pass it
+    and refuse the CPU tensors.  K10's checks its operands first."""
+    for n, match in ((1 << 27, "takes n = 2\\^7 .. 2\\^26"),
+                     (2 * N, "take CUDA tensors"), (N, "take CUDA tensors")):
+        x = torch.zeros(1, dtype=torch.int32).expand(2, 1, n)
+        keys = torch.zeros(1, dtype=torch.int32).expand(2, 2, n)
         calls = {
             "tensor_mul4": lambda: nc.tensor_mul4_kernel(x, x, x, x, QS[:2]),
             "tensor_mul": lambda: nc.tensor_mul_kernel(
-                torch.zeros((2, 1, 4, n), dtype=torch.int32), QS[:2]),
+                torch.zeros(1, dtype=torch.int32).expand(2, 1, 4, n),
+                QS[:2]),
             "ks_fused": lambda: nc.ks_fused_kernel(x, keys, keys, QS[:2],
                                                    QS[:2]),
             "ks_fused_eval": lambda: nc.ks_fused_eval_kernel(

@@ -155,22 +155,25 @@ def test_one_counted_launch_an_op_with_its_scratch(ls):
     assert _cuda.EXT_NTT.launches == 1 and _cuda.TENSOR_MUL4.launches == 2
     k5_staged = ls not in nc.EXT_NTT_DIRECT
     k6_staged = ls not in nc.MUL4_DIRECT
-    # the lift's scratch (K5's second argument, K6's thirteenth) and the
-    # source count (K6's twenty-first)
+    # the lift's scratch (K5's second argument, K6's thirteenth), the chunk
+    # scratch (K6's fourteenth: none in one block) and the source count
+    # (K6's twenty-second)
     assert (k5[0][1] is not None) == k5_staged
-    assert (k6[0][12] is not None) == k6_staged and k6[0][20] == ls
-    assert k6[1][12] is None and k6[1][20] == 0
+    assert (k6[0][12] is not None) == k6_staged and k6[0][21] == ls
+    assert k6[1][12] is None and k6[1][21] == 0
+    assert k6[0][13] is None and k6[1][13] is None
     assert _cuda.EXT_NTT.by_layout == {"direct": int(not k5_staged),
                                        "staged": int(k5_staged),
                                        "chunked direct": 0,
                                        "chunked staged": 0}
     assert _cuda.TENSOR_MUL4.by_layout == {"direct": 1 + int(not k6_staged),
-                                           "staged": int(k6_staged)}
+                                           "staged": int(k6_staged),
+                                           "chunked direct": 0,
+                                           "chunked staged": 0}
     _cuda.reset_launches()
 
 
-@pytest.mark.parametrize("logn", range(_cuda.RADIX_LOGN[0],
-                                       _cuda.RADIX_LOGN[1] + 1))
+@pytest.mark.parametrize("logn", nc.BLOCK_LOGNS)
 def test_staged_word_maps_cover_each_word_once(logn):
     """K5's staged first pass reads word base + (j << c0) of each lift row
     for the 16 words j of the virtual thread at base (K6's below 2^15 the

@@ -152,19 +152,16 @@ def test_every_kernel_names_its_plain_version_and_its_pallas_kernel():
 
 
 def test_kernels_refuse_unsupported_ring_degrees():
-    """Each kernel names its own range: the three-buffer chains (K6,
-    tensor_mul, K7, K8; at 2^15 on two-block clusters) 2^7 .. 2^15; the
-    kernels of one transform direction (K1, K9, and K2, K3, K5 and K12 with
-    their own step in the first pass) go on across blocks to 2^26, K10
-    (past a block's shared memory in device memory, past 2^15 across
-    blocks) to 2^22; n = 128, the least degree of the reference's Pallas
-    kernels, is every radix-chain kernel's first."""
+    """Each kernel names its own range: every kernel of the radix chain
+    (K1-K3, K5-K9 with tensor_mul, and K12; K6, tensor_mul, K7 and K8 at
+    2^15 on two-block clusters) goes on across blocks to 2^26 and refuses
+    2^27, K10 (past a block's shared memory in device memory, past 2^15
+    across blocks) to 2^22; n = 128, the least degree of the reference's
+    Pallas kernels, is every radix-chain kernel's first."""
     wide = (_cuda.NTT_MULTI, _cuda.NTT, _cuda.TENSOR_EVAL4, _cuda.KS_CONTRACT,
-            _cuda.EXT_NTT, _cuda.NTT_SMEM_CEILING)
-    narrow = (_cuda.TENSOR_MUL4, _cuda.TENSOR_MUL, _cuda.KS_FUSED,
-              _cuda.KS_FUSED_EVAL)
-    tops = {**dict.fromkeys(wide, 26), _cuda.BLIND_ROTATE: 22,
-            **dict.fromkeys(narrow, 15)}
+            _cuda.EXT_NTT, _cuda.NTT_SMEM_CEILING, _cuda.TENSOR_MUL4,
+            _cuda.TENSOR_MUL, _cuda.KS_FUSED, _cuda.KS_FUSED_EVAL)
+    tops = {**dict.fromkeys(wide, 26), _cuda.BLIND_ROTATE: 22}
     for k, top in tops.items():
         for n in (64, 1 << (top + 1), 384):
             with pytest.raises(ValueError, match=f"2\\^7 .. 2\\^{top}"):
@@ -176,9 +173,6 @@ def test_kernels_refuse_unsupported_ring_degrees():
     for k in _cuda.KERNELS:
         if k.logn is not None:
             assert _cuda.log2_degree(128, k) == 7, k.name
-            if k in narrow:
-                with pytest.raises(ValueError, match="2\\^7 .. 2\\^15"):
-                    _cuda.log2_degree(1 << 16, k)
     assert {k for k in _cuda.KERNELS if k.logn is not None} == set(tops)
     assert _cuda.log2_degree(1 << 15, _cuda.BLIND_ROTATE) == 15
     assert _cuda.log2_degree(1 << 14, _cuda.TENSOR_MUL4) == 14
@@ -347,7 +341,7 @@ def test_build_is_one_command_over_every_source(bare_loader, monkeypatch):
     cus = sorted(p.name for p in _cuda.CSRC.iterdir() if p.suffix == ".cu")
     cmds = [line for line in log if not line.startswith("-- ")]
     k = len(cus)
-    assert k == 17 and len(cmds) == k + 1
+    assert k == 19 and len(cmds) == k + 1
     assert all(line.endswith(" s") for line in log if line.startswith("-- "))
     assert [line.rsplit("/", 1)[-1] for line in cmds[:k]] == cus
     assert all(" -c " in line and " -shared " not in line

@@ -43,8 +43,8 @@ from fhe_study_tpu_torch.ops import ntt_cuda as nc
 from fhe_study_tpu_torch.ops.primes import ntt_primes
 from fhe_study_tpu_torch.utils import sass_counts
 
-LOGNS = range(_cuda.RADIX_LOGN[0], _cuda.RADIX_LOGN[1] + 1)  # one block's
-THREE_LOGNS = _cuda.TENSOR_MUL4.degrees      # chains, and K6-K8's
+LOGNS = nc.BLOCK_LOGNS                        # one block's chains, and
+THREE_LOGNS = nc.BLOCK_LOGNS                  # K6-K8's (a split at 2^15)
 PRIMES = ntt_primes(3, 30, 1 << 15)           # 2n-th roots up to n = 2^14
 WIDE_PRIMES = ntt_primes(3, 30, 1 << 16)      # and at n = 2^15
 CPU = torch.device("cpu")
