@@ -275,22 +275,28 @@ Phases, each of which raises (and so exits non-zero) on any failure:
      bytes, the peak memory and the build's seconds printed), t the largest
      power of two from 1024 down whose 64 messages all decode with margin
      (the largest phase error at most half of half a slot), every message
-     decoded, the fused chain (one launch of K10's grid layout) == the
+     decoded, the fused chain (one launch of K10's split layout, slice 18:
+     each polynomial over the shared memory of a cluster's blocks) == the
      step-by-step chain (K1 at 2^16) bit for bit, no plain version run on
      the card at 2^16 (the plain functions wrapped and counted), the
      launches by kernel and by layout, a chain of 3 timed, K10 on the
-     device alone at the path's 400 steps beside its bound and its own
-     traffic, and K1, K9 and K10 at the path's shapes against plain and
-     timed beside their bounds (K10 at 16 steps).  Phase 2 also holds K1
-     and K9 at 2^16, 2^17, 2^20, 2^22 and 2^26 on batches of 1 to 3, and
-     K10's grid layout at every (C, l, w) of the reference's gate at 2^16
-     and one shape at each n from 2^17 to 2^22, against plain;
+     device alone at the path's 400 steps in its split layout and in its
+     grid layout named, in turns, beside its bound and its own traffic,
+     and K1, K9 and K10 (both layouts) at the path's shapes against plain
+     and timed beside their bounds (K10 at 16 steps); then the grid
+     layout's own path, blind_rotation at N = 2^17, beta = 2^6, l = 3 over
+     8 steps of a key built on the card, fused == step by step.  Phase 2
+     also holds K1 and K9 at 2^16, 2^17, 2^20, 2^22 and 2^26 on batches of
+     1 to 3, and K10's split layout at every (C, l, w) of the reference's
+     gate at 2^16, its grid layout at every one at 2^17 and one shape at
+     each n from 2^18 to 2^22, against plain;
  23. slice 16, K2, K3, K5 and K12 past one block's polynomial through the
      op layer at N = 2^16, B = 128 on phase 18's widths (Q, P and K of 14,
      15 and 15 primes with 2^17-th roots: no scheme draws such primes):
      ntt.tensor_eval4 over Q and over P, ntt.ks_contract_multi at R = 1
      over Q u K, ntt.ext_ntt Q -> P (staged) and 4 -> 5 (direct), and
-     alu_bench.ntt_smem_ceiling on the whole card at 2^15, 2^16 and 2^17;
+     alu_bench.ntt_smem_ceiling on the whole card at 2^15, 2^16 (split on
+     two-block clusters, slice 18; and chunked, named) and 2^17;
      every output == its plain version on the card, the launches by layout
      held, no plain version run on the card past one block, each kernel on
      the device alone beside its bound and its own traffic's.  Phase 2 also
@@ -408,16 +414,21 @@ P21_N_LWE = 400
 P22_N, P22_BETA, P22_L = 1 << 16, 1 << 6, 5
 P22_TS = (1024, 512, 256, 128, 64, 32)
 P22_ROW_STEPS = 16
+# phase 22, slice 18: the path that runs K10's grid layout now that 2^16
+# takes the split: blind_rotation at (N, beta, l) = (2^17, 2^6, 3), within
+# the reference's gate there (2 * 3 * 2^17 * 2^6 < 2^26), over a short key
+# of P22_GRID_STEPS steps, on random ciphertexts (fused == step by step)
+P22_GRID_N, P22_GRID_BETA, P22_GRID_L, P22_GRID_STEPS = 1 << 17, 1 << 6, 3, 8
 # phase 23, slice 16: K2, K3, K5 and K12 past one block at N = 2^16 on
 # phase 18's widths (Q, P and K of 14, 15 and 15 primes with 2^17-th roots,
 # from the package's prime search: no scheme draws such primes, so the
 # op layer is the path), K5 also from bench_bfv's direct 4 -> 5; K12's
-# ceiling at these degrees on the whole card, and the repetitions of its
-# record row
+# ceiling at these degrees on the whole card (at 2^16 split, and chunked
+# named beside it), and the repetitions of its record rows
 P23_N, P23_LOGNS, P23_ROW_REPS = 1 << 16, (15, 16, 17), 8
 P23_LAYOUTS = {"tensor_eval4": {"chunked": 2}, "ks_contract": {"chunked": 1},
                "ext_ntt": {"chunked direct": 1, "chunked staged": 1},
-               "ntt_smem_ceiling": {"block": 4, "chunked": 8}}
+               "ntt_smem_ceiling": {"block": 4, "split": 4, "chunked": 4}}
 # phase 24, slice 17: K6, tensor_mul, K7 and K8 past one block at N = 2^16
 # through the op layer: phase 18's widths for the tensors (Q 14, P 15
 # primes with 2^17-th roots, from Q staged; bench_bfv's 4 -> 5 direct) and
@@ -445,22 +456,26 @@ RADIX_KERNELS = {"ntt_multi", "tensor_eval4", "ks_contract", "ext_ntt",
                  "ntt_top", "ntt_chunk", "brg_top_forward",
                  "brg_chunk_inverse", "brg_top_inverse", "brg_top_last",
                  "tensor_eval4_chunk", "ks_contract_chunk", "first_top",
-                 "ks_mac_chunk"}
-# K10's kernels by layout: the clusters', the device-memory layout's and
-# the grid layout's (past 2^15)
+                 "ks_mac_chunk", "brs_forward", "brs_inverse",
+                 "ntt_smem_ceiling_split"}
+# K10's kernels by layout: the clusters', the device-memory layout's, the
+# split layout's (2^16) and the grid layout's (past 2^16)
 K10_KERNELS = {"blind_rotate_kernel": "cluster", "br_forward_kernel": "device",
-               "br_inverse_kernel": "device",
+               "br_inverse_kernel": "device", "brs_forward_kernel": "split",
+               "brs_inverse_kernel": "split",
                "brg_top_forward_kernel": "grid",
                "brg_chunk_inverse_kernel": "grid",
                "brg_top_inverse_kernel": "grid", "brg_top_last_kernel": "grid"}
 # the kernels' JSON record has one row per entry of _cuda.KERNELS, K10's
-# (its cluster layout) followed by one for its device-memory layout and one
-# for its grid layout, and those of K2, K3, K5-K8 (K6 also as tensor_mul)
-# and K12 (one block a polynomial) each by one for their chunked layouts
-# past 2^15
+# (its cluster layout) followed by one for its device-memory layout, one
+# for its split layout and one for its grid layout, and those of K2, K3,
+# K5-K8 (K6 also as tensor_mul) and K12 (one block a polynomial) each by
+# one for their chunked layouts past 2^15, K12's also by one for its split
+# layout at 2^16
 DM_ROW = "blind_rotate_dm"
 GRID_ROW = "blind_rotate_grid"
 CHUNKED_ROW = "{}_chunked"
+SPLIT_ROW = "{}_split"
 # the lift (_cuda.EXT_LIFT), held against plain beside them: K5 and K6
 # launch it in their staged layout and count it as their own launch
 LIFT = "ext_lift"
@@ -568,16 +583,23 @@ def main() -> None:
     marks = [wall0]
     chunked = [k for k in _cuda.KERNELS
                if any(lay.startswith(_cuda.CHUNKED) for lay in k.layouts)]
+    split = [k for k in _cuda.KERNELS if _cuda.SPLIT in k.layouts]
     record_rows = [r for k in _cuda.KERNELS for r in (
-        (k.name, DM_ROW, GRID_ROW) if k is _cuda.BLIND_ROTATE
+        (k.name, DM_ROW, SPLIT_ROW.format(k.name), GRID_ROW)
+        if k is _cuda.BLIND_ROTATE
+        else (k.name, CHUNKED_ROW.format(k.name), SPLIT_ROW.format(k.name))
+        if k in split
         else (k.name, CHUNKED_ROW.format(k.name)) if k in chunked
         else (k.name,))]
 
     def row(case) -> str:
         """The record's row of a case: K10's by its layout, K2's, K3's,
-        K5's and K12's past one block their chunked row."""
+        K5's and K12's past one block their chunked row, K12's split at
+        2^16 its split row."""
         if case.layout == _cuda.CHUNKED:
             return CHUNKED_ROW.format(case.name)
+        if case.layout == _cuda.SPLIT:
+            return SPLIT_ROW.format(case.name)
         return {"device": DM_ROW, "grid": GRID_ROW}.get(case.layout,
                                                        case.name)
 
@@ -637,8 +659,9 @@ def main() -> None:
     say(f"ptxas: no stack frame and no spills in the {len(radix_entries)} "
         f"instances of {sorted(RADIX_KERNELS)} ({len(k10_entries)} of "
         f"blind_rotate: its clusters' blind_rotate_kernel, br_forward and "
-        f"br_inverse of its device-memory layout, and the four kernels of "
-        f"its grid layout; the transforms past a block: "
+        f"br_inverse of its device-memory layout, brs_forward and "
+        f"brs_inverse of its split layout, and the four kernels of its grid "
+        f"layout; the transforms past a block: "
         f"{sum(r['kernel'].startswith(('ntt_top', 'ntt_chunk')) for r in radix_entries)} "
         f"instances of ntt_top_kernel and ntt_chunk_kernel)")
     say(f"build: seconds a unit (compiled in parallel), then the link: "
@@ -731,7 +754,7 @@ def main() -> None:
         f"{RADIX_BATCH}: {radix_checked} variants")
     # K10 in both layouts at every ring degree it takes, on batches beyond
     # the clusters the card holds at once
-    k10_checked = dict.fromkeys(("cluster", "device", "grid"), 0)
+    k10_checked = dict.fromkeys(("cluster", "device", "split", "grid"), 0)
     t0 = time.perf_counter()
     for case in kernel_check.blind_rotate_sweep(dev, gen):
         got, want = case.kernel(), case.plain()
@@ -739,8 +762,9 @@ def main() -> None:
         check(case, got, want)
         k10_checked[case.layout] += 1
     t_block = time.perf_counter() - t0
-    # past 2^15: K10's grid layout at every (C, l, w) of the reference's
-    # gate at 2^16 and one shape at each larger n; K1 and K9 across blocks;
+    # past 2^15: K10's split layout at every (C, l, w) of the reference's
+    # gate at 2^16, its grid layout at every one at 2^17 and one shape at
+    # each larger n; K1 and K9 across blocks;
     # each new shape also timed (its kernel, best of 3) beside its bound and
     # the bound of its own traffic (the top passes' words; K10's a step,
     # kernel_check.cmux_step_bytes)
@@ -756,7 +780,8 @@ def main() -> None:
             n = case.args[6]
             steps, B = shifts.shape
             return n, steps * sum(kernel_check.cmux_step_bytes(
-                n, acc0.shape[1], ev1.shape[2], B, layout="grid").values())
+                n, acc0.shape[1], ev1.shape[2], B,
+                layout=case.layout).values())
         return case.n, kernel_check.own_bytes(case)
 
     def share(case) -> None:
@@ -766,11 +791,11 @@ def main() -> None:
         if k_ms < b.ms:
             raise RuntimeError(f"{case.name} [{case.label}]: the kernel's "
                                f"{k_ms:.4f} ms is under its bound {b}")
-        shares.setdefault((case.name, n), []).append(
+        shares.setdefault((case.name, n, case.layout), []).append(
             (k_ms, b.ms / k_ms, bo.ms / k_ms))
 
     t1 = time.perf_counter()
-    for case in kernel_check.blind_rotate_grid_sweep(dev, SEED + 70):
+    for case in kernel_check.blind_rotate_wide_sweep(dev, SEED + 70):
         got, want = case.kernel(), case.plain()
         torch.cuda.synchronize()
         check(case, got, want)
@@ -794,9 +819,10 @@ def main() -> None:
         share(case)
         ops_checked[case.name] = ops_checked.get(case.name, 0) + 1
     del case
-    for (name, n), rs in sorted(shares.items()):
+    for (name, n, layout), rs in sorted(shares.items()):
         ks, bs, os_ = zip(*rs)
-        say(f"timing: {name} at n = {n} (phase 2's shapes, kernel alone, "
+        say(f"timing: {name} at n = {n} {layout} (phase 2's shapes, kernel "
+            f"alone, "
             f"best of 3): {len(rs)} variants, {min(ks):.4f} .. "
             f"{max(ks):.4f} ms, {min(bs):.3f} .. {max(bs):.3f} of the bound, "
             f"{min(os_):.3f} .. {max(os_):.3f} of the bound of its own "
@@ -820,14 +846,19 @@ def main() -> None:
         f"ks_fused_eval (R in {kernel_check.WIDE_OPS_R}, c_limbs and adds "
         f"strided) == plain (torch.equal) at the same "
         f"n, each variant at one of those batches in turn: {ops_checked} "
-        f"variants in {t3 - t_ops:.1f} s; blind_rotate's grid layout at "
-        f"every (C, l, w) of the reference's gate at "
+        f"variants in {t3 - t_ops:.1f} s (ntt_smem_ceiling at "
+        f"2^{alu_bench.SPLIT_LOGN} split and chunked); blind_rotate's split "
+        f"layout at every (C, l, w) of the reference's gate at "
+        f"n = 2^{kernel_check.BR_SPLIT_LOGN} "
+        f"({len(kernel_check.gate_shapes(1 << kernel_check.BR_SPLIT_LOGN))} "
+        f"shapes), its grid layout at every one at "
         f"n = 2^{kernel_check.BR_GRID_LOGN} "
         f"({len(kernel_check.gate_shapes(1 << kernel_check.BR_GRID_LOGN))} "
         f"shapes; (steps, B) in turn from {kernel_check.BR_GRID_RUNS}) and at "
         f"(log n, C, l) in {kernel_check.BR_GRID_WIDER} at the gate's widest "
         f"digit, key planes one word off at the first shape of each (n, C): "
-        f"{k10_checked['grid']} variants in {t2 - t1:.1f} s")
+        f"{k10_checked['split']} split and {k10_checked['grid']} grid "
+        f"variants in {t2 - t1:.1f} s")
     say(f"parity: blind_rotate == plain (torch.equal) for C in "
         f"{kernel_check.BR_SWEEP_C}, l in {kernel_check.BR_SWEEP_L}, every n "
         f"from 2^{_cuda.BLIND_ROTATE.logn[0]} to "
@@ -839,8 +870,9 @@ def main() -> None:
         f"2^{kernel_check.BR_DM_WIDE_LOGN}; the widest digit of the "
         f"reference's gate), at (log n, C, l, w) in "
         f"{kernel_check.BR_DM_SMALL} and C = 1, and the key planes one word "
-        f"off, with the grid layout's above: {k10_checked} variants by "
-        f"layout in {t_block:.1f} s (the grid's {t2 - t1:.1f} s)")
+        f"off, with the split and grid layouts' above: {k10_checked} "
+        f"variants by layout in {t_block:.1f} s (past 2^15 "
+        f"{t2 - t1:.1f} s)")
     del tfhe_parity
     say(f"parity: kernel == plain (torch.equal) for "
         f"{sum(checked.values())} variants at n={N} and n=256 (batch "
@@ -867,6 +899,8 @@ def main() -> None:
         counts[GRID_ROW] = _cuda.BLIND_ROTATE.by_layout["grid"]
         for k in chunked:
             counts[CHUNKED_ROW.format(k.name)] = _cuda.chunked_launches(k)
+        for k in split:
+            counts[SPLIT_ROW.format(k.name)] = k.by_layout[_cuda.SPLIT]
         path_launches[label] = counts
         unlaunched = [k for k in expects if counts[k] == 0]
         if unlaunched:
@@ -3231,7 +3265,7 @@ def main() -> None:
                 and torch.equal(fused21.b, stepwise21.b)):
             raise RuntimeError(f"phase 21 {tag}: blind_rotate kernel != the "
                                "step-by-step chain")
-        if by_layout != {"cluster": 0, "device": 1, "grid": 0}:
+        if by_layout != {"cluster": 0, "device": 1, "split": 0, "grid": 0}:
             raise RuntimeError(f"phase 21 {tag}: K10 launches by layout "
                                f"{by_layout}")
         say(f"verify: slice 13 ({tag}) blind_rotate (one launch, layout "
@@ -3316,19 +3350,32 @@ def main() -> None:
 
     # 22. slice 15: bootstrap_short past one block's polynomial ------------
     # (N = 2^16, beta = 2^6, l = 5): keys built on the card (K9 across
-    # blocks), t chosen, every message decoded, the fused chain (K10's grid
-    # layout) == the step-by-step chain (K1 across blocks), no plain version
-    # on the card at 2^16, a chain of 3 timed, K10 on the device alone,
-    # K1, K9 and K10 at the path's shapes beside plain and their bounds
+    # blocks), t chosen, every message decoded, the fused chain (K10's split
+    # layout, slice 18) == the step-by-step chain (K1 across blocks), no
+    # plain version on the card at 2^16, a chain of 3 timed, K10 on the
+    # device alone in its split layout and in its grid layout named (A/B in
+    # turns), K1, K9 and K10 in both layouts at the path's shapes beside
+    # plain and their bounds; then the grid layout's own path at 2^17
     grid_inst = [f"{r['kernel']} {r['registers']} registers" for r in ptxas
                  if r["kernel"].split("<")[0] in (
                      "ntt_top_kernel", "ntt_chunk_kernel")
-                 or K10_KERNELS.get(r["kernel"].split("<")[0]) == "grid"]
+                 or K10_KERNELS.get(r["kernel"].split("<")[0]) in (
+                     "split", "grid")]
     say(f"ptxas: phase 22's instances (no stack frame or spills, phase 1): "
         + "; ".join(grid_inst))
     plan22 = kernel_check.brc._plan(TFHE_K + 1, P22_L, P22_N)
-    if plan22.layout != "grid":
+    split_row = SPLIT_ROW.format("blind_rotate")
+    if plan22.layout != _cuda.SPLIT or plan22.cluster != 4:
         raise RuntimeError(f"phase 22: plan {plan22}")
+    clusters22 = kernel_check.brc.split_clusters(dev)
+    say(f"plan: slice 18 K10 at {P22_N} C={TFHE_K + 1} l={P22_L}: layout "
+        f"{plan22.layout}, {plan22.threads} threads and "
+        f"{plan22.smem_bytes // 1024} KB a block; a step "
+        f"{plan22.blocks[0] * TFHE_BATCH} forward blocks and "
+        f"{plan22.blocks[1] * TFHE_BATCH} inverse blocks in clusters of "
+        f"{plan22.cluster} at B={TFHE_BATCH}; the card runs {clusters22} "
+        f"inverse clusters at once ({plan22.cluster * clusters22} of {sms} "
+        f"SMs; cudaOccupancyMaxActiveClusters) [{card}]")
 
     def tp22(t):
         return Param(ERR_SIGMA, RingParam(TORUS_Q, P22_N), TFHE_K, t)
@@ -3404,7 +3451,7 @@ def main() -> None:
                    f"-> precompute_short_btk_evals -> encrypt_uniform -> "
                    f"bootstrap_short -> decrypt at {shape22}, t from "
                    f"{P22_TS}")
-        drive(label22, ("ntt", "blind_rotate", GRID_ROW), p22_path)
+        drive(label22, ("ntt", "blind_rotate", split_row), p22_path)
         t22 = st22["t"]
         p22 = tp22(t22)
         sbtk22, sev22, c22, table22 = (st22[k] for k in ("sbtk", "sevals",
@@ -3439,8 +3486,8 @@ def main() -> None:
                 and torch.equal(fused22.b, stepwise22.b)):
             raise RuntimeError("phase 22: blind_rotate kernel != the "
                                "step-by-step chain")
-        if by_layout != {"cluster": 0, "device": 0, "grid": 1} or \
-                step_launches.get("ntt_multi", 0) < P21_N_LWE:
+        if by_layout != {"cluster": 0, "device": 0, "split": 1, "grid": 0} \
+                or step_launches.get("ntt_multi", 0) < P21_N_LWE:
             raise RuntimeError(f"phase 22: K10 launches by layout "
                                f"{by_layout}; the step-by-step chain's "
                                f"{step_launches}")
@@ -3457,9 +3504,9 @@ def main() -> None:
 
         per_op = per_op_launches(lambda: step22(c22))
         if per_op.get("blind_rotate") != 1 or \
-                _cuda.BLIND_ROTATE.by_layout["grid"] != 1:
+                _cuda.BLIND_ROTATE.by_layout[_cuda.SPLIT] != 1:
             raise RuntimeError(f"phase 22: launches {per_op}, not one "
-                               "blind_rotate (grid layout) a bootstrap")
+                               "blind_rotate (split layout) a bootstrap")
 
         def chain22():
             c = c22
@@ -3495,29 +3542,49 @@ def main() -> None:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
     # K10 on the device alone at the path's own arguments (400 steps) beside
-    # its bound and its own traffic; the record's rows at the path's shapes:
-    # K10 at P22_ROW_STEPS of its steps, K1's two transforms of the
-    # step-by-step chain, K9's of key generation on 16 keys
+    # its bound and its own traffic, in its split layout (the plan's) and
+    # its grid layout (named), best of 3 in turns; the record's rows at the
+    # path's shapes:
+    # K10 at P22_ROW_STEPS of its steps (both layouts), K1's two transforms
+    # of the step-by-step chain, K9's of key generation on 16 keys
     br_args = next(args for (name, *_), (_, _, args, _) in rec22.items()
                    if name == "blind_rotate")
     busy = torch.zeros(1 << 28, dtype=torch.int32, device=dev)
-    k_ms = min(queued_ms(lambda: kernel_check.brc.blind_rotate_kernel(
-        *br_args), 1, busy) for _ in range(2))
+    if not torch.equal(
+            kernel_check.brc.blind_rotate_kernel(*br_args),
+            kernel_check.brc.blind_rotate_kernel(*br_args, layout="grid")):
+        raise RuntimeError("phase 22: K10's split and grid layouts differ "
+                           "at the path's arguments")
+    ab22 = {_cuda.SPLIT: [], "grid": []}
+    for _ in range(3):
+        for layout in ab22:
+            ab22[layout].append(queued_ms(
+                lambda: kernel_check.brc.blind_rotate_kernel(
+                    *br_args, layout=layout), 1, busy))
     ops22 = P21_N_LWE * TFHE_BATCH * sum(kernel_check.cmux_step_ops(
         P22_N, TFHE_K + 1, P22_L).values())
     b = bound(4 * sum(e.numel() for e in br_args[2:6])
               + 2 * 8 * br_args[1].numel() + 4 * br_args[0].numel()
               + 4 * 4 * 2 * P22_N, ops22)
-    own = P21_N_LWE * sum(kernel_check.cmux_step_bytes(
-        P22_N, TFHE_K + 1, P22_L, TFHE_BATCH, layout="grid").values())
-    bo = bound(own, ops22)
-    say(f"timing: slice 15 K10 grid layout, steps={P21_N_LWE} "
-        f"B={TFHE_BATCH} n={P22_N} beta={P22_BETA} l={P22_L} (the path's "
-        f"arguments): device {k_ms:.3f} ms, bound {b.ms:.3f} ms by {b.term}, "
-        f"{b.ms / k_ms:.3f} of it; its own traffic {own / 1e9:.3f} GB, bound "
-        f"{bo.ms:.3f} ms by {bo.term}, {bo.ms / k_ms:.3f} of it; "
-        f"{k_ms / P21_N_LWE * 1e3:.2f} us a step; launches on the path: 1 a "
-        f"bootstrap [{card}]")
+    for layout, runs in ab22.items():
+        k_ms = min(runs)
+        own = P21_N_LWE * sum(kernel_check.cmux_step_bytes(
+            P22_N, TFHE_K + 1, P22_L, TFHE_BATCH, layout=layout).values())
+        bo = bound(own, ops22)
+        say(f"timing: slice 18 K10 {layout} layout"
+            f"{' (the plan)' if layout == _cuda.SPLIT else ' (named)'}, "
+            f"steps={P21_N_LWE} B={TFHE_BATCH} n={P22_N} beta={P22_BETA} "
+            f"l={P22_L} (the path's arguments), on the device alone, runs "
+            f"{[round(r, 3) for r in runs]} ms in turns with the other "
+            f"layout: best {k_ms:.3f} ms, bound {b.ms:.3f} ms by {b.term}, "
+            f"{b.ms / k_ms:.3f} of it; its own traffic {own / 1e9:.3f} GB, "
+            f"bound {bo.ms:.3f} ms by {bo.term}, {bo.ms / k_ms:.3f} of it; "
+            f"{k_ms / P21_N_LWE * 1e3:.2f} us a step [{card}]")
+    say(f"timing: slice 18 K10 at the path's arguments: split "
+        f"{min(ab22[_cuda.SPLIT]):.3f} ms against grid "
+        f"{min(ab22['grid']):.3f} ms, "
+        f"{min(ab22['grid']) / min(ab22[_cuda.SPLIT]):.3f}x; launches on the "
+        f"path: 1 a bootstrap, split [{card}]")
     sl = P22_ROW_STEPS
     row_args = (br_args[0][:sl].contiguous(), br_args[1],
                 *(e[:sl] for e in br_args[2:6]), *br_args[6:])
@@ -3525,7 +3592,7 @@ def main() -> None:
     res22 = prng.device_residues(SEED + 82, dev)
     p22_cases = [kernel_check.blind_rotate_case(
         P22_N, TFHE_K, P22_BETA, P22_L, sl, TFHE_BATCH, dev, gen,
-        args=row_args)]
+        layout=layout, args=row_args) for layout in (_cuda.SPLIT, "grid")]
     for (name, *_), (_, _, args, kwargs) in rec22.items():
         if name == "ntt_multi":
             x, qs = args[0], tuple(args[1])
@@ -3549,7 +3616,58 @@ def main() -> None:
          row_args, p22_cases, case, busy)
     ntt_cuda.drop_tables()
     torch.cuda.empty_cache()
-    phase_done(f"22 (slice 15: bootstrap_short at N=2^16 through K10's grid "
+    # the grid layout's path past 2^16: blind_rotation at N = 2^17 on a
+    # short key built on the card, fused (one launch, grid layout) == step
+    # by step (K1 at 2^17), on random ciphertexts under the short key
+    pg = Param(ERR_SIGMA, RingParam(TORUS_Q, P22_GRID_N), TFHE_K, 16)
+    kwg = dict(beta=P22_GRID_BETA, l=P22_GRID_L)
+    shape_g = (f"N={P22_GRID_N} K={TFHE_K} beta=2^"
+               f"{P22_GRID_BETA.bit_length() - 1} l={P22_GRID_L} "
+               f"steps={P22_GRID_STEPS} B={TFHE_BATCH}")
+    if kernel_check.brc._plan(TFHE_K + 1, P22_GRID_L,
+                              P22_GRID_N).layout != "grid":
+        raise RuntimeError("phase 22: the plan at 2^17 is not the grid")
+    stg = {}
+
+    def p22_grid_path():
+        gen = prng.Gen(SEED + 83)
+        s, _ = tglwe.new_key(gen, pg, dev)
+        sbtk = bootstrap.new_short_bootstrapping_key(
+            gen, pg, s, n_lwe=P22_GRID_STEPS, beta_ks=TFHE_BETA_KS,
+            l_ks=TFHE_L_KS, **kwg)
+        evals = bootstrap.precompute_short_btk_evals(pg, sbtk)
+        rng, i64 = np.random.default_rng(SEED + 84), np.iinfo(np.int64)
+        a, b = (torch.from_numpy(rng.integers(i64.min, i64.max, shape,
+                                              dtype=np.int64)).to(dev)
+                for shape in ((TFHE_BATCH, P22_GRID_STEPS), (TFHE_BATCH,)))
+        table = bootstrap.compute_lookup_table_standard(pg, dev)
+        stg["fused"] = bootstrap.blind_rotation(
+            pg, sbtk, table, tlwe.TLWE(a, b), btk_evals=evals, **kwg)
+        stg["step"] = (pg, sbtk, table, tlwe.TLWE(a, b), evals)
+        return stg["fused"]
+
+    drive(f"slice 18: tglwe.new_key -> new_short_bootstrapping_key -> "
+          f"precompute_short_btk_evals -> blind_rotation at {shape_g}",
+          ("ntt", "blind_rotate", GRID_ROW), p22_grid_path)
+    if dict(_cuda.BLIND_ROTATE.by_layout) != {"cluster": 0, "device": 0,
+                                              "split": 0, "grid": 1}:
+        raise RuntimeError(f"phase 22: K10 at 2^17 by layout "
+                           f"{_cuda.BLIND_ROTATE.by_layout}")
+    pg, sbtk_g, table_g, c_g, ev_g = stg["step"]
+    step_g = bootstrap.blind_rotation(pg, sbtk_g, table_g, c_g,
+                                      btk_evals=ev_g, fused=False, **kwg)
+    if not (torch.equal(stg["fused"].a, step_g.a)
+            and torch.equal(stg["fused"].b, step_g.b)):
+        raise RuntimeError("phase 22: K10's grid layout at 2^17 != the "
+                           "step-by-step chain")
+    say(f"verify: slice 18 blind_rotation at {shape_g}: one launch of K10's "
+        f"grid layout == {P22_GRID_STEPS} steps of cmux_evals (K1 at "
+        f"n = {P22_GRID_N}; torch.equal) on the {TFHE_BATCH} ciphertexts "
+        f"[{card}]")
+    del stg, pg, sbtk_g, table_g, c_g, ev_g, step_g
+    ntt_cuda.drop_tables()
+    torch.cuda.empty_cache()
+    phase_done(f"22 (slice 15: bootstrap_short at N=2^16 through K10's split "
                f"layout, t={t22}) [{card}]")
 
     # 23. slice 16: K2, K3, K5 and K12 past one block's polynomial -------
@@ -3577,6 +3695,9 @@ def main() -> None:
         per_sm = alu_bench.resident_blocks(dev, n=1 << logn)[0]
         card_blocks[logn] = max(1, per_sm * sms * (1 << ntt_cuda.CHUNK_LOGN)
                                 >> logn)
+    # the split ceiling: one polynomial a cluster of two, as many as the
+    # card runs at once
+    split_b23 = alu_bench.split_clusters(dev)
     in23, out23, ceil23 = {}, {}, {}
     plain23 = {}
 
@@ -3602,7 +3723,9 @@ def main() -> None:
                 out23[label] = ntt.ext_ntt(*args)
         for logn in P23_LOGNS:
             ceil23[logn] = alu_bench.ntt_smem_ceiling(
-                dev, n=1 << logn, B=card_blocks[logn], reps=CEILING_REPS)
+                dev, n=1 << logn, reps=CEILING_REPS,
+                B=(split_b23 if logn == alu_bench.SPLIT_LOGN
+                   else card_blocks[logn]))
         return out23
 
     plain_fns = [(ntt_cuda, fn, lambda a: a[0].shape[-1]) for fn in (
@@ -3620,8 +3743,8 @@ def main() -> None:
               f"ntt.ks_contract_multi over Q u K, ntt.ext_ntt Q -> P and "
               f"{L} -> {M}, alu_bench.ntt_smem_ceiling at n = 2^"
               f"{P23_LOGNS} at {shape23}",
-              tuple(CHUNKED_ROW.format(name) for name in P23_LAYOUTS),
-              p23_path)
+              tuple(CHUNKED_ROW.format(name) for name in P23_LAYOUTS)
+              + (SPLIT_ROW.format("ntt_smem_ceiling"),), p23_path)
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
@@ -3653,22 +3776,29 @@ def main() -> None:
     for label, case in cases23.items():
         hold(row(case), f"slice 16 path, {case.label}", out23[label],
              case.plain())
+    # and K12 at 2^16 on the chunked schedule, named, beside the split
+    ceil23["16 chunked"] = alu_bench.ntt_smem_ceiling(
+        dev, n=P23_N, B=card_blocks[16], reps=CEILING_REPS,
+        layout=_cuda.CHUNKED)
     for logn, ceil in ceil23.items():
         (xin,), rows = ceil["operands"], [0, 1, ceil["B"] - 2, ceil["B"] - 1]
-        hold(CHUNKED_ROW.format("ntt_smem_ceiling")
-             if logn > ntt_cuda.CHUNK_LOGN else "ntt_smem_ceiling",
+        hold({_cuda.CHUNKED: CHUNKED_ROW, _cuda.SPLIT: SPLIT_ROW}.get(
+                 ceil["layout"], "{}").format("ntt_smem_ceiling"),
              f"slice 16: the timed launch, reps={ceil['reps']} "
-             f"B={ceil['B']} n=2^{logn}", ceil["out"][rows],
+             f"B={ceil['B']} n={ceil['n']} {ceil['layout']}",
+             ceil["out"][rows],
              alu_bench.ntt_smem_ceiling_plain(xin[rows], ceil["q"],
                                               ceil["reps"]))
     del out23
     say(f"verify: slice 16: every output of the path == its plain version "
         f"on the card (torch.equal; K12's timed launches on 4 of their "
         f"polynomials) [{card}]")
-    x12 = res23(q23[:1], (card_blocks[16], P23_N))[0]
-    cases23["ntt_smem_ceiling"] = kernel_check.ceiling_case(
-        f"reps={P23_ROW_REPS} [{card_blocks[16]}, {P23_N}] (the whole card)",
-        x12, q23[0], P23_ROW_REPS)
+    for layout, B12 in ((_cuda.SPLIT, split_b23),
+                        (_cuda.CHUNKED, card_blocks[16])):
+        x12 = res23(q23[:1], (B12, P23_N))[0]
+        cases23[f"ntt_smem_ceiling {layout}"] = kernel_check.ceiling_case(
+            f"reps={P23_ROW_REPS} [{B12}, {P23_N}] {layout} (the whole "
+            f"card)", x12, q23[0], P23_ROW_REPS, layout)
     busy = torch.zeros(1 << 28, dtype=torch.int32, device=dev)
     for case in cases23.values():
         time_case(case)
@@ -3685,12 +3815,14 @@ def main() -> None:
             f"path by layout "
             f"{by_layout23[case.name]} [{card}]")
     bf_bound = 1e3 / bound(0, kernel_check.BUTTERFLY_OPS).ms
-    say("ceiling: slice 16, the whole card (K12, reps="
+    say("ceiling: slice 16 and 18, the whole card (K12, reps="
         f"{CEILING_REPS}): " + "; ".join(
-            f"n = 2^{logn} B={c['B']}: {c['butterflies_per_sec']:.4e} "
-            f"butterflies/s = {c['butterflies_per_sec'] / bf_bound:.3f} of "
-            f"the bound's {bf_bound:.4e}" for logn, c in ceil23.items())
-        + f"; past 2^15 on the chunked schedule [{card}]")
+            f"n = {c['n']} {c['layout']} B={c['B']}: "
+            f"{c['butterflies_per_sec']:.4e} butterflies/s = "
+            f"{c['butterflies_per_sec'] / bf_bound:.3f} of the bound's "
+            f"{bf_bound:.4e}" for c in ceil23.values())
+        + f"; at 2^16 split {ceil23[16]['butterflies_per_sec'] / ceil23['16 chunked']['butterflies_per_sec']:.3f}x"
+        f" the chunked schedule's rate [{card}]")
     timed_chains[:] = [c for c in timed_chains
                        if all(c is not d for d in cases23.values())]
     del in23, cases23, ceil23, busy, x12, case
@@ -3839,6 +3971,8 @@ def main() -> None:
     launches["blind_rotate"] -= launches[DM_ROW] + launches[GRID_ROW]
     for k in chunked:
         launches[k.name] -= launches[CHUNKED_ROW.format(k.name)]
+    for k in split:
+        launches[k.name] -= launches[SPLIT_ROW.format(k.name)]
     never = [k for k, v in launches.items() if v == 0]
     if never:
         raise RuntimeError(f"kernels launched on no path: {never}")
@@ -3859,6 +3993,9 @@ def main() -> None:
         source[CHUNKED_ROW.format(k.name)] = next(
             src for lay, src in k.layouts.items()
             if lay.startswith(_cuda.CHUNKED))
+    for k in split:
+        kernel_of[SPLIT_ROW.format(k.name)] = k
+        source[SPLIT_ROW.format(k.name)] = k.layouts[_cuda.SPLIT]
     record = {"kernels": [
         {"name": r, "route": "cuda", "source": source[r],
          "replaces": kernel_of[r].replaces, "launches": launches[r],

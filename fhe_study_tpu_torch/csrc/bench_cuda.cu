@@ -17,7 +17,10 @@
 //     there: ptxas hoists none out of the loop), as the kernels load them.
 //     Past n = 2^15 no block holds the polynomial: the entry queues `reps`
 //     transforms on the chunked schedule (csrc/forward_chunks_cuda.cu), so
-//     the rate there is the ceiling of that schedule.
+//     the rate there is the ceiling of that schedule; at n = 2^16 it also
+//     runs split, the polynomial resident on a cluster of two blocks and
+//     the top stage through distributed shared memory, the ceiling of a
+//     2^16 transform on this card (K10's split layout runs its chains).
 //   fhe_alu_rate (K13): each thread keeps kAluPer independent words in
 //     registers and applies one operation `iters * kAluUnroll` times, each
 //     round feeding the next, then stores once.  What bounds it is the issue
@@ -25,6 +28,8 @@
 //     empty asm statement after each round keeps the compiler from folding
 //     rounds together; utils/sass_counts.py reads the loop's instructions
 //     back from the built library.
+
+#include <climits>
 
 #include "modarith.cuh"
 #include "radix_chain.cuh"
@@ -58,6 +63,79 @@ ntt_smem_ceiling_kernel(const uint32_t* __restrict__ x,
     const int sw = radix_swizzle(4 * i);
     o4[i] = make_uint4(a[sw], a[sw ^ 1], a[sw ^ 2], a[sw ^ 3]);
   }
+}
+
+// K12 at n = 2^16 on clusters of two blocks: block r of cluster i holds half
+// r of polynomial i (radix_chain.cuh's Split on one buffer) for all `reps`
+// transforms.  A transform is the top stage (bit 15) between the halves
+// through distributed shared memory (split_top_stage), then each half's
+// chain of 2^15 words under row r of the chunk tables at 2^16, which are
+// the split's (the top stage's root at word 0); a cluster barrier before
+// the first stage (the peer's half is loaded), after each stage (its words
+// are visible) and after each chain (the peer is through the words the
+// next stage reads).
+__global__ void __launch_bounds__(OneBuffer<kWideLogN>::threads,
+                                  OneBuffer<kWideLogN>::blocks)
+ntt_smem_ceiling_split_kernel(const uint32_t* __restrict__ x,
+                              uint32_t* __restrict__ out,
+                              const uint32_t* __restrict__ tw,
+                              const uint32_t* __restrict__ tw_sh, uint32_t q,
+                              int reps) {
+  using S = typename OneBuffer<kWideLogN>::Shape;
+  constexpr int h = S::n;
+  extern __shared__ uint32_t a[];
+  const int r = blockIdx.x & 1;
+  // half r of polynomial blockIdx.x / 2: words (2i + r) h = i n + r h
+  const size_t at = static_cast<size_t>(blockIdx.x) * h;
+  for (int i = threadIdx.x; i < h; i += S::threads) {
+    a[radix_swizzle(i)] = __ldg(x + at + i);
+  }
+  const uint32_t* w = tw + static_cast<size_t>(r) * h;
+  const uint32_t* wsh = tw_sh + static_cast<size_t>(r) * h;
+  const uint32_t t = __ldg(w), tsh = __ldg(wsh);
+  const uint32_t peer = cluster_addr(a, r ^ 1);
+  cluster_sync();
+#pragma unroll 1
+  for (int rep = 0; rep < reps; ++rep) {
+    split_top_stage<kWideLogN, S::threads, false>(a, r, peer, t, tsh, 0, 0,
+                                                  q);
+    cluster_sync();
+    RadixPasses<kWideLogN, 0, S::passes, false, S::threads>::run(a, w, wsh,
+                                                                 q);
+    cluster_sync();
+  }
+  uint4* o4 = reinterpret_cast<uint4*>(out + at);
+  for (int i = threadIdx.x; i < h / 4; i += S::threads) {
+    const int sw = radix_swizzle(4 * i);
+    o4[i] = make_uint4(a[sw], a[sw ^ 1], a[sw ^ 2], a[sw ^ 3]);
+  }
+}
+
+constexpr int kSplitCeilingLogN = kWideLogN + 1;
+
+// The split ceiling on B polynomials of 2^16 words: B clusters of two
+// blocks at a half's one-buffer shape.
+int ceiling_split_launch(const uint32_t* x, uint32_t* out,
+                         const uint32_t* tw, const uint32_t* tw_sh,
+                         uint32_t q, int B, int reps, int threads, int smem,
+                         cudaStream_t stream) {
+  using S = typename OneBuffer<kWideLogN>::Shape;
+  if (threads != S::threads ||
+      smem != S::n * static_cast<int>(sizeof(uint32_t))) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  if (B > INT_MAX / kSplitBlocks) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = &ntt_smem_ceiling_split_kernel;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err == cudaSuccess) {
+    err = cluster_launch(kernel, static_cast<long long>(B) * kSplitBlocks,
+                         kSplitBlocks, threads, smem, stream, x, out, tw,
+                         tw_sh, q, reps);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 struct CeilingLaunch {
@@ -184,15 +262,22 @@ using namespace fhe;
 // threads and smem: the plan of ops/ntt_cuda.py::_radix_plan; out 16-byte
 // aligned (the read-out's uint4 stores).  Past n = 2^15 tw / tw_sh are the
 // chunk tables, threads and smem a chunk's, cons the prime's row and tmp a
-// scratch of B n words (16-byte aligned); below it neither is read.
+// scratch of B n words (16-byte aligned); below it neither is read.  split
+// (n = 2^16 only): each polynomial resident on a two-block cluster for all
+// reps, the chunk tables, neither cons nor tmp read.
 extern "C" int fhe_ntt_smem_ceiling(const uint32_t* x, uint32_t* out,
                                     uint32_t* tmp, const uint32_t* tw,
                                     const uint32_t* tw_sh,
                                     const uint32_t* cons, unsigned q, int B,
                                     int logn, int reps, int threads, int smem,
-                                    cudaStream_t stream) {
-  if (B < 1 || reps < 0 || misaligned(out)) {
+                                    int split, cudaStream_t stream) {
+  if (B < 1 || reps < 0 || misaligned(out) ||
+      (split && logn != kSplitCeilingLogN)) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (split) {
+    return ceiling_split_launch(x, out, tw, tw_sh, static_cast<uint32_t>(q),
+                                B, reps, threads, smem, stream);
   }
   if (logn > kWideLogN) {
     return ntt_smem_ceiling_chunked(x, out, tmp, tw, tw_sh, cons, B, logn,
@@ -201,6 +286,15 @@ extern "C" int fhe_ntt_smem_ceiling(const uint32_t* x, uint32_t* out,
   return by_logn_wide<CeilingLaunch>(logn, threads, smem, B, stream, x, out,
                                      tw, tw_sh, static_cast<uint32_t>(q),
                                      reps);
+}
+
+// The split ceiling's clusters of two that the card in use runs at once.
+extern "C" int fhe_ceiling_split_clusters(int* clusters) {
+  using S = typename OneBuffer<kWideLogN>::Shape;
+  return cluster_occupancy(&ntt_smem_ceiling_split_kernel, kSplitBlocks,
+                           S::threads,
+                           S::n * static_cast<int>(sizeof(uint32_t)),
+                           clusters);
 }
 
 // `threads` must be a multiple of kAluThreads; the wrapper sees to it.

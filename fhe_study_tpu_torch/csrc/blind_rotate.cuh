@@ -32,14 +32,17 @@ __device__ __forceinline__ uint32_t br_digit(const unsigned long long* ac,
 // companions, row stride kstride), summed mod q into the 16 contiguous
 // words from 16 v that virtual thread v holds; then the pass's stages
 // (inverse tables iw / iwsh) and the store into the swizzled buffer a.
-// The offsets are 32-bit (F kstride < 2^31: the callers check), which
-// keeps the loop within 128 registers a thread at 2^15.  The caller waits
-// on a barrier before the next pass.
-template <int LOGN>
+// MONT: Montgomery products against the values alone (nq = -q^-1 mod
+// 2^32; ks unread), each a factor 2^-32 that the caller's final
+// multiplier takes back: two thirds of the bytes a row-word.  The offsets
+// are 32-bit (F kstride < 2^31: the callers check), which keeps the loop
+// within 128 registers a thread at 2^15.  The caller waits on a barrier
+// before the next pass.
+template <int LOGN, bool MONT = false>
 __device__ __forceinline__ void br_contract_pass(
     uint32_t* a, const uint32_t* dr, int dstride, const uint32_t* kv,
     const uint32_t* ks, int kstride, int F, uint32_t q, const uint32_t* iw,
-    const uint32_t* iwsh, int vec) {
+    const uint32_t* iwsh, int vec, uint32_t nq = 0) {
   using S = typename OneBuffer<LOGN>::Shape;
 #pragma unroll 1
   for (int g = 0; g < S::groups; ++g) {
@@ -56,10 +59,16 @@ __device__ __forceinline__ void br_contract_pass(
         uint32_t D[4], K[4], KS[4];
         operand_words(D, d + u, true);
         operand_words(K, kv + at + u, vec != 0);
-        operand_words(KS, ks + at + u, vec != 0);
+        if constexpr (!MONT) operand_words(KS, ks + at + u, vec != 0);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          x[u + i] = addmod(x[u + i], shoup_mul(D[i], K[i], KS[i], q), q);
+          uint32_t prod;
+          if constexpr (MONT) {
+            prod = mont_mul(D[i], K[i], q, nq);
+          } else {
+            prod = shoup_mul(D[i], K[i], KS[i], q);
+          }
+          x[u + i] = addmod(x[u + i], prod, q);
         }
       }
     }

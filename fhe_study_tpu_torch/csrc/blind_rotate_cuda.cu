@@ -14,8 +14,9 @@
 // This file holds K10's cluster layout, which keeps a ciphertext's working
 // set in shared memory; ops/blind_rotate_cuda.py::_plan takes it wherever
 // that fits (br_smem_bytes), the device-memory layout of
-// csrc/blind_rotate_dm_cuda.cu elsewhere up to 2^15, and past it the grid
-// layout of csrc/blind_rotate_grid_cuda.cu, through the one entry below.
+// csrc/blind_rotate_dm_cuda.cu elsewhere up to 2^15, at 2^16 the split
+// layout of csrc/blind_rotate_split_cuda.cu and past it the grid layout of
+// csrc/blind_rotate_grid_cuda.cu, through the one entry below.
 //
 // Layout: one cluster of two blocks per ciphertext, one CRT prime per block
 // (the block's rank in the cluster picks the prime, its root tables and its
@@ -535,6 +536,16 @@ int blind_rotate_grid(const int* shifts, const unsigned long long* acc0,
                       const uint32_t* cons, int steps, int B, int C, int l,
                       int w, int logn, int threads, int smem, int vec,
                       cudaStream_t stream);
+// K10's split layout at n = 2^16 (csrc/blind_rotate_split_cuda.cu).
+int blind_rotate_split(const int* shifts, const unsigned long long* acc0,
+                       const uint32_t* ev1, const uint32_t* ev1s,
+                       const uint32_t* ev2, const uint32_t* ev2s,
+                       unsigned long long* out, uint32_t* dig,
+                       const uint32_t* tw, const uint32_t* tw_sh,
+                       const uint32_t* twinv, const uint32_t* twinv_sh,
+                       const uint32_t* cons, int steps, int B, int C, int l,
+                       int w, int logn, int threads, int smem, int vec,
+                       cudaStream_t stream);
 }  // namespace fhe
 
 // threads, smem, staged and layout: the host's plan (ops/blind_rotate_cuda.py
@@ -547,6 +558,9 @@ int blind_rotate_grid(const int* shifts, const unsigned long long* acc0,
 // evaluations [B, 2, C*l, n]; staged must be 0.  layout 2: that past one
 // block (csrc/blind_rotate_grid_cuda.cu), n = 2^16 .. 2^22, the tables the
 // chunk tables, scratch [B, 2, C*l + max(C*l, 2C), n]; staged must be 0.
+// layout 3: each polynomial split over a cluster's shared memory at
+// n = 2^16 (csrc/blind_rotate_split_cuda.cu), the tables the chunk tables,
+// scratch the digit evaluations [B, 2, C*l, n]; staged must be 0.
 extern "C" int fhe_blind_rotate(
     const int* shifts, const unsigned long long* acc0, const uint32_t* ev1,
     const uint32_t* ev1s, const uint32_t* ev2, const uint32_t* ev2s,
@@ -558,8 +572,14 @@ extern "C" int fhe_blind_rotate(
                          misaligned(ev2) || misaligned(ev2s));
   if (steps < 1 || B < 1 || B > (1 << 30) || C < 1 || l < 1 || w < 1 ||
       w > 31 || w * l > 64 || (staged && !aligned) ||
-      (layout != 0 && (layout > 2 || staged))) {
+      (layout != 0 && (layout > 3 || staged))) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (layout == 3) {
+    return blind_rotate_split(shifts, acc0, ev1, ev1s, ev2, ev2s, out,
+                              scratch, tw, tw_sh, twinv, twinv_sh, cons,
+                              steps, B, C, l, w, logn, threads, smem,
+                              aligned ? 1 : 0, stream);
   }
   if (layout == 2) {
     return blind_rotate_grid(shifts, acc0, ev1, ev1s, ev2, ev2s, out,

@@ -234,26 +234,15 @@ struct BlindRotateDmLaunch {
                             cudaMemcpyDeviceToDevice, stream);
     }
     if (err != cudaSuccess) return static_cast<int>(err);
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(static_cast<unsigned>(inv_blocks));
-    cfg.blockDim = dim3(threads);
-    cfg.dynamicSmemBytes = static_cast<size_t>(smem);
-    cfg.stream = stream;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = kDmPrimes;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
 #pragma unroll 1
     for (int j = 0; j < steps; ++j) {
       fwd<<<static_cast<unsigned>(fwd_blocks), threads, smem, stream>>>(
           shifts, out, dig, tw, tw_sh, cons, j, B, C, l, w);
       err = cudaGetLastError();
       if (err != cudaSuccess) return static_cast<int>(err);
-      err = cudaLaunchKernelEx(&cfg, inv, dig, ev1, ev1s, ev2, ev2s, out,
-                               twinv, twinv_sh, cons, j, C, l, vec);
+      err = cluster_launch(inv, inv_blocks, kDmPrimes, threads, smem, stream,
+                           dig, ev1, ev1s, ev2, ev2s, out, twinv, twinv_sh,
+                           cons, j, C, l, vec);
       if (err != cudaSuccess) return static_cast<int>(err);
     }
     return static_cast<int>(cudaGetLastError());

@@ -370,6 +370,11 @@ __device__ __forceinline__ uint32_t cluster_load(uint32_t addr) {
   return v;
 }
 
+__device__ __forceinline__ void cluster_store(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared::cluster.u32 [%0], %1;\n" ::"r"(addr), "r"(v)
+               : "memory");
+}
+
 // Element i of block r's half after the forward chain's first stage of a
 // split (Split): x[i] + w1 x[i + h] (r = 0) or x[i] - w1 x[i + h] (r = 1),
 // from the words f(i) and f(i + h) of the whole row.
@@ -414,6 +419,107 @@ __device__ __forceinline__ void split_inverse_top(const uint32_t* a, int h,
   cluster_sync();
 }
 
+// The top stage (bit log n - 1) of a polynomial of n = 2h words whose
+// halves stay in the shared memory (swizzled) of two blocks of a cluster,
+// in place, for a polynomial that outlives the stage on the chip (K10's
+// and K12's split at n = 2^16, csrc/blind_rotate_split_cuda.cu and
+// csrc/bench_cuda.cu): pair i (element i of half 0 with element i of
+// half 1) is one butterfly, forward x0 + t x1, x0 - t x1 or inverse
+// (x0 + x1) fin, (x0 - x1) t fin, and the block of half `half` takes the
+// pairs i in [half h/2, (half + 1) h/2), reading and writing the word of
+// its own half in its shared memory and the peer's through distributed
+// shared memory (peer: the peer's shared::cluster address of a; h = 2^LOGH,
+// h / 2 a multiple of four times THREADS).  No
+// word is touched by both blocks, so one stage needs no exchange buffer;
+// the caller brackets it with cluster barriers (the peer's words are
+// final before, and the stage's writes visible to both after).  Four
+// pairs a thread at a time keep four remote loads in flight.
+template <int LOGH, int THREADS, bool INV>
+__device__ __forceinline__ void split_top_stage(uint32_t* a, int half,
+                                                uint32_t peer, uint32_t t,
+                                                uint32_t tsh, uint32_t fin,
+                                                uint32_t fin_sh, uint32_t q) {
+  constexpr int kIn = 4;
+  constexpr int h = 1 << LOGH;
+  static_assert(h / 2 % (kIn * THREADS) == 0, "whole rounds of pairs");
+  const int from = half * (h / 2);
+#pragma unroll 1
+  for (int i0 = from + threadIdx.x; i0 < from + h / 2; i0 += kIn * THREADS) {
+    int sw[kIn];
+    uint32_t mine[kIn], other[kIn];
+#pragma unroll
+    for (int u = 0; u < kIn; ++u) {
+      sw[u] = radix_swizzle(i0 + u * THREADS);
+      other[u] = cluster_load(peer + 4u * sw[u]);
+      mine[u] = a[sw[u]];
+    }
+#pragma unroll
+    for (int u = 0; u < kIn; ++u) {
+      const uint32_t x0 = half ? other[u] : mine[u];
+      const uint32_t x1 = half ? mine[u] : other[u];
+      uint32_t y0, y1;
+      if constexpr (INV) {
+        y0 = shoup_mul(addmod(x0, x1, q), fin, fin_sh, q);
+        y1 = shoup_mul(shoup_mul(submod(x0, x1, q), t, tsh, q), fin, fin_sh,
+                       q);
+      } else {
+        const uint32_t v = shoup_mul(x1, t, tsh, q);
+        y0 = addmod(x0, v, q);
+        y1 = submod(x0, v, q);
+      }
+      a[sw[u]] = half ? y1 : y0;
+      cluster_store(peer + 4u * sw[u], half ? y0 : y1);
+    }
+  }
+}
+
+// The launch configuration of `blocks` blocks (a multiple of `cluster`) in
+// clusters of `cluster` blocks along x, on `stream`; attr holds its one
+// attribute.
+inline cudaLaunchConfig_t cluster_config(cudaLaunchAttribute (&attr)[1],
+                                         long long blocks, int cluster,
+                                         int threads, int smem,
+                                         cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks));
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// kernel over `blocks` blocks in clusters of `cluster` (cluster_config).
+template <typename Kernel, typename... Args>
+cudaError_t cluster_launch(Kernel kernel, long long blocks, int cluster,
+                           int threads, int smem, cudaStream_t stream,
+                           Args... args) {
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      cluster_config(attr, blocks, cluster, threads, smem, stream);
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// The clusters of `cluster` blocks of kernel (its dynamic shared memory
+// allowed first) that the card in use runs at once: on GPCs of 16 or 18
+// SMs a cluster of 4 one-block-an-SM blocks leaves SMs idle.
+template <typename Kernel>
+int cluster_occupancy(Kernel kernel, int cluster, int threads, int smem,
+                      int* clusters) {
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      cluster_config(attr, cluster, cluster, threads, smem, nullptr);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(
+      clusters, reinterpret_cast<const void*>(kernel), &cfg));
+}
+
 // radix_launch of a three-buffer kernel at n = 2^LOGN: below kWideLogN as
 // it is; at kWideLogN a cluster of kSplitBlocks blocks for each of the
 // `blocks` (prime, polynomial) pairs, each block on the chain of one half
@@ -436,23 +542,12 @@ int split_launch(Kernel kernel, int threads, int smem, int blocks,
       return static_cast<int>(cudaErrorInvalidValue);
     }
     cudaError_t err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (blocks > 0) {
-      cudaLaunchConfig_t cfg = {};
-      cfg.gridDim = dim3(static_cast<unsigned>(blocks) * kSplitBlocks);
-      cfg.blockDim = dim3(threads);
-      cfg.dynamicSmemBytes = static_cast<size_t>(smem);
-      cfg.stream = stream;
-      cudaLaunchAttribute attr[1];
-      attr[0].id = cudaLaunchAttributeClusterDimension;
-      attr[0].val.clusterDim.x = kSplitBlocks;
-      attr[0].val.clusterDim.y = 1;
-      attr[0].val.clusterDim.z = 1;
-      cfg.attrs = attr;
-      cfg.numAttrs = 1;
-      err = cudaLaunchKernelEx(&cfg, kernel, args...);
-      if (err != cudaSuccess) return static_cast<int>(err);
+    if (err == cudaSuccess && blocks > 0) {
+      err = cluster_launch(kernel, static_cast<long long>(blocks) *
+                                       kSplitBlocks,
+                           kSplitBlocks, threads, smem, stream, args...);
     }
+    if (err != cudaSuccess) return static_cast<int>(err);
     return static_cast<int>(cudaGetLastError());
   }
 }

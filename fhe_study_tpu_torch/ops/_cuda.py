@@ -200,10 +200,12 @@ I64 = ctypes.c_longlong
 # or repetitions folded into the first pass, K6 and tensor_mul with their
 # four forwards through an eval scratch and K2's products and inverses
 # after them, K7 and K8 with their digit rows' forwards one after another
-# and the gadget sums in device memory.  K10, on its two-block clusters up
-# to 2^12, with its working set in device memory beyond a block and across
-# blocks past 2^15 (ops/blind_rotate_cuda.py::_plan), reaches 2^22, where
-# the reference's gate ends (its CRT pair's roots).
+# and the gadget sums in device memory; K12 at 2^16 also on two-block
+# clusters, the polynomial resident.  K10, on its two-block clusters up to
+# 2^12, with its working set in device memory beyond a block, at 2^16 each
+# polynomial split over a cluster's shared memory and across blocks past
+# it (ops/blind_rotate_cuda.py::_plan), reaches 2^22, where the
+# reference's gate ends (its CRT pair's roots).
 TRANSFORM_LOGN = (7, 26)
 BLIND_ROTATE_LOGN = (7, 22)
 
@@ -345,26 +347,32 @@ NTT = Kernel("ntt", "fhe_ntt", "fhe_study_tpu_torch/csrc/ntt_multi_cuda.cu",
              "fhe_study_tpu/ops/ntt_pallas.py:1296",
              PTR, PTR, PTR, PTR, PTR, PTR, *([INT] * 6),
              logn=TRANSFORM_LOGN)
-# K10's three layouts (ops/blind_rotate_cuda.py::_plan): two-block clusters,
-# the working set in device memory, and that across blocks past 2^15
+# K10's four layouts (ops/blind_rotate_cuda.py::_plan): two-block clusters,
+# the working set in device memory, at 2^16 each polynomial split over a
+# cluster's shared memory, and past it across blocks
 _BR_CU = "fhe_study_tpu_torch/csrc/blind_rotate_cuda.cu"
+SPLIT = "split"
 BLIND_ROTATE = Kernel("blind_rotate", "fhe_blind_rotate", _BR_CU,
                       "fhe_study_tpu/ops/blind_rotate_pallas.py:392",
                       *([PTR] * 13), *([INT] * 10), logn=BLIND_ROTATE_LOGN,
                       layouts={"cluster": _BR_CU, "device": (
                           "fhe_study_tpu_torch/csrc/blind_rotate_dm_cuda.cu"),
+                          SPLIT: ("fhe_study_tpu_torch/csrc/"
+                                  "blind_rotate_split_cuda.cu"),
                           "grid": ("fhe_study_tpu_torch/csrc/"
                                    "blind_rotate_grid_cuda.cu")})
 BASE_EXTEND_SUM = Kernel("base_extend_sum", "fhe_base_extend_sum", _EXT_CU,
                          "fhe_study_tpu/ops/ext_pallas.py:207",
                          PTR, PTR, PTR, PTR, INT, INT, I64, INT)
 _BENCH_CU = "fhe_study_tpu_torch/csrc/bench_cuda.cu"
+# K12 at 2^16 also "split": resident on two-block clusters
 NTT_SMEM_CEILING = Kernel("ntt_smem_ceiling", "fhe_ntt_smem_ceiling",
                           _BENCH_CU, "fhe_study_tpu/ops/vpu_bench.py:168",
-                          *([PTR] * 6), U32, *([INT] * 5),
+                          *([PTR] * 6), U32, *([INT] * 6),
                           logn=TRANSFORM_LOGN,
                           layouts={"block": _BENCH_CU,
-                                   CHUNKED: _FORWARD_CHUNKS_CU})
+                                   CHUNKED: _FORWARD_CHUNKS_CU,
+                                   SPLIT: _BENCH_CU})
 ALU_RATE = Kernel("alu_rate", "fhe_alu_rate", _BENCH_CU,
                   "fhe_study_tpu/ops/vpu_bench.py:86",
                   PTR, PTR, PTR, PTR, I64, INT, INT, U32, U32)
@@ -393,6 +401,20 @@ def chunked_launches(kernel: Kernel) -> int:
     """The launches of ``kernel`` past one block (its "chunked" layouts)."""
     return sum(v for layout, v in kernel.by_layout.items()
                if layout.startswith(CHUNKED))
+
+
+def max_clusters(symbol: str, device) -> int:
+    """The clusters of a cluster launch that the card runs at once
+    (cudaOccupancyMaxActiveClusters through the library's ``symbol``)."""
+    fn = getattr(library(), symbol)
+    fn.argtypes = [ctypes.POINTER(INT)]
+    fn.restype = INT
+    got = INT(0)
+    with torch.cuda.device(device):
+        err = fn(ctypes.byref(got))
+    if err != 0:
+        raise RuntimeError(f"{symbol}: CUDA error {err}")
+    return got.value
 
 
 def on_cuda(*tensors) -> bool:

@@ -302,14 +302,34 @@ def ntt_smem_ceiling_plain(x, q: int, reps: int):
     return r[0]
 
 
-def ntt_smem_ceiling_kernel(x, q: int, reps: int):
+# K12's split layout: at n = 2^16 each polynomial resident on a cluster of
+# two blocks, one half each (csrc/bench_cuda.cu)
+SPLIT_LOGN = ntt_cuda.CHUNK_LOGN + 1
+
+
+def ceiling_layout(logn: int, layout: str | None = None) -> str:
+    """K12's layout at 2^logn: one block a polynomial up to 2^15 ("block"),
+    split at 2^16, chunked past it; at 2^16 ``layout`` may name the
+    chunked schedule, to measure it there."""
+    default = _cuda.SPLIT if logn == SPLIT_LOGN else ntt_cuda._layout(logn)
+    if layout not in (None, default) and not (
+            logn == SPLIT_LOGN and layout == _cuda.CHUNKED):
+        raise ValueError(f"K12 layout {layout!r} at n = 2^{logn}")
+    return layout or default
+
+
+def ntt_smem_ceiling_kernel(x, q: int, reps: int, layout: str | None = None):
     """K12: one block per polynomial of x int32 [B, n], n = 2^7 .. 2^15, on
     K1's plan (``ntt_cuda._radix_plan``), the polynomial in shared memory for
-    all ``reps`` chains.  Past 2^15 no block holds the polynomial: each of
-    the ``reps`` transforms runs K1's chunked schedule (top passes through
-    a scratch, then one block a chunk of 2^15 words; ``ntt_cuda._chunk_plan``),
-    all queued by the one C call.  Its default prime, the reference's
-    998244353, has 2n-th roots up to n = 2^22; 2013265921 up to 2^26."""
+    all ``reps`` chains.  At 2^16 one cluster of two blocks per polynomial,
+    each holding a half for all ``reps`` transforms, the top stage through
+    distributed shared memory (``layout`` "split", the rule there).  Past
+    2^15 no block holds the polynomial: each of the ``reps`` transforms
+    runs K1's chunked schedule (top passes through a scratch, then one
+    block a chunk of 2^15 words; ``ntt_cuda._chunk_plan``), all queued by
+    the one C call (``layout`` "chunked", the rule past 2^16).  Its default
+    prime, the reference's 998244353, has 2n-th roots up to n = 2^22;
+    2013265921 up to 2^26."""
     _check_q(q)
     dev = x.device
     _cuda.check(x, "x", dev)
@@ -318,34 +338,44 @@ def ntt_smem_ceiling_kernel(x, q: int, reps: int):
                          "[B, n] and reps >= 0")
     B, n = x.shape
     logn = _cuda.log2_degree(n, _cuda.NTT_SMEM_CEILING)
+    layout = ceiling_layout(logn, layout)
     out = torch.empty_like(x)
     if B == 0:
         return out
+    split = layout == _cuda.SPLIT
     tw = ntt_cuda._chunk_tables((q,), n, False, dev)
     cons = ntt_cuda._prime_rows((q,), None, dev)
-    tmp = ntt_cuda._chunk_scratch(logn, x.numel(), dev)
+    tmp = None if split else ntt_cuda._chunk_scratch(logn, x.numel(), dev)
     _cuda.NTT_SMEM_CEILING.launch(dev, x.data_ptr(), out.data_ptr(),
                                   None if tmp is None else tmp.data_ptr(),
                                   tw[0].data_ptr(), tw[1].data_ptr(),
                                   cons.data_ptr(), q, B, logn, reps,
-                                  *ntt_cuda._transform_plan(logn),
-                                  layout=ntt_cuda._layout(logn))
+                                  *ntt_cuda._transform_plan(logn), int(split),
+                                  layout=layout)
     return out
 
 
+def split_clusters(device) -> int:
+    """The split ceiling's clusters of two that the card runs at once."""
+    return _cuda.max_clusters("fhe_ceiling_split_clusters", device)
+
+
 def ntt_smem_ceiling(device, q: int | None = None, n: int = 1 << 14, *,
-                     B: int = 64, reps: int = 64, iters: int = 3) -> dict:
+                     B: int = 64, reps: int = 64, iters: int = 3,
+                     layout: str | None = None) -> dict:
     """Butterflies/s of the forward chain on shared-memory-resident
     polynomials on a CUDA card: one load, ``reps`` transforms, one store.
 
-    Returns {"butterflies_per_sec", "dt", "reps", "q", "n", "B", "device",
-    "operands", "out"}: ``operands`` is the (x,) of the last timed launch and
-    ``out`` what it stored.  B = 64 blocks leave half of a 132-SM card idle;
+    Returns {"butterflies_per_sec", "dt", "reps", "q", "n", "B", "layout",
+    "device", "operands", "out"}: ``operands`` is the (x,) of the last
+    timed launch and ``out`` what it stored.  B = 64 blocks leave half of a 132-SM card idle;
     pass a multiple of ``resident_blocks(device, n=n)`` for the whole card
-    (past n = 2^15 that many chunks of 2^15 words: B = blocks * 2^15 / n).
-    Past 2^15 no block holds the polynomial, so the rate is the ceiling of
-    the chunked schedule (every transform through device memory), not of a
-    resident chain."""
+    (past n = 2^15 that many chunks of 2^15 words: B = blocks * 2^15 / n;
+    at 2^16 split, ``split_clusters``).  Past 2^16 no block holds the
+    polynomial, so the rate is the ceiling of the chunked schedule (every
+    transform through device memory), not of a resident chain; at 2^16
+    that of the polynomial resident on a cluster of two blocks, or, with
+    ``layout`` "chunked", of the chunked schedule there."""
     device = _card(device)
     if q is None:
         q = ntt_mod.CRT_PRIMES_TFHE[0]
@@ -353,8 +383,9 @@ def ntt_smem_ceiling(device, q: int | None = None, n: int = 1 << 14, *,
     rng = np.random.default_rng(0)
     x = _bits(rng.integers(0, q, (B, n)), device)
     dt, last, out = _timed(
-        lambda cur: ntt_smem_ceiling_kernel(cur, q, reps), x, iters)
+        lambda cur: ntt_smem_ceiling_kernel(cur, q, reps, layout), x, iters)
     bf = B * reps * iters * logn * (n // 2)
     return {"butterflies_per_sec": bf / dt, "dt": dt, "reps": reps, "q": q,
-            "n": n, "B": B, "device": torch.cuda.get_device_name(device),
+            "n": n, "B": B, "layout": ceiling_layout(logn, layout),
+            "device": torch.cuda.get_device_name(device),
             "operands": (last,), "out": out}

@@ -1,6 +1,8 @@
-"""The whole TFHE blind rotation as one kernel — ``csrc/blind_rotate_cuda.cu``
-and ``csrc/blind_rotate_dm_cuda.cu`` — with its launch wrapper and plain
-PyTorch version; the counterpart of fhe_study_tpu/ops/blind_rotate_pallas.py.
+"""The whole TFHE blind rotation as one kernel —
+``csrc/blind_rotate_cuda.cu`` with ``blind_rotate_dm_cuda.cu``,
+``blind_rotate_split_cuda.cu`` and ``blind_rotate_grid_cuda.cu`` — with its
+launch wrapper and plain PyTorch version; the counterpart of
+fhe_study_tpu/ops/blind_rotate_pallas.py.
 
   K10 blind_rotate <- blind_rotate_pallas.blind_rotate_fused
 
@@ -9,14 +11,16 @@ PyTorch version; the counterpart of fhe_study_tpu/ops/blind_rotate_pallas.py.
 ``blind_rotate_fused`` dispatches by the device of its tensors: CUDA
 tensors launch the kernel (one call for the whole chain), CPU tensors
 walk the chain step by step in int64 torch (``blind_rotate_plain``, which
-also is what the kernel is held against on the card).  The kernel has three
+also is what the kernel is held against on the card).  The kernel has four
 layouts, picked by ``_plan`` from (C, l, n) alone: two-block clusters that
 keep a ciphertext's working set in shared memory where it fits, the
 working set in device memory (two launches a step) elsewhere up to
-n = 2^15, and past it, where one polynomial no longer fits a block, the
-transforms across blocks (``grid``: top passes through device memory and
-one block a chunk of 2^15 words, csrc/ntt_chunks.cuh), up to the
-reference's n = 2^22.
+n = 2^15; where one polynomial no longer fits a block, at n = 2^16 each
+polynomial split over the shared memory of a cluster's blocks (``split``:
+two launches a step, the top stage through distributed shared memory),
+and past it the transforms across blocks (``grid``: top passes through
+device memory and one block a chunk of 2^15 words, csrc/ntt_chunks.cuh),
+up to the reference's n = 2^22.
 """
 
 from functools import lru_cache
@@ -39,27 +43,35 @@ _BARRIER_BYTES = 32     # kBrBarrierBytes: the mbarriers of the key copies
 # its working set fits a block up to 2^12 (at C = 1; C = 2 stops at 2^11)
 BR_CLUSTER_LOGN = (7, 12)
 # the layout argument of fhe_blind_rotate (csrc/blind_rotate_cuda.cu)
-LAYOUT_CODE = {"cluster": 0, "device": 1, "grid": 2}
+LAYOUT_CODE = {"cluster": 0, "device": 1, "grid": 2, _cuda.SPLIT: 3}
+# the split layout's ring degree (two halves of a chunk's 2^15 words) and
+# its inverse launch's cluster: two primes times two halves
+SPLIT_LOGN = ntt_cuda.CHUNK_LOGN + 1
+SPLIT_CLUSTER = 4
 
 
 class BlindRotatePlan(NamedTuple):
     logn: int
     threads: int        # a block
-    cluster: int        # blocks a cluster, one per CRT prime
+    cluster: int        # blocks a cluster, one per CRT prime ("split":
+                        # one per prime and half)
     staged: bool        # the step's key planes copied into shared memory
     smem_bytes: int     # a block's dynamic shared memory
     forward_polys: int  # C*l digit polynomials ...
     inverse_polys: int  # ... and 2C contracted columns
     radix: ntt_cuda.RadixPlan   # the pass structure of one polynomial
     layout: str = "cluster"     # "cluster": the working set in shared memory;
-                                # "device": in device memory; "grid": that,
-                                # each transform across blocks (n > 2^15)
+                                # "device": in device memory; "split" (n =
+                                # 2^16): that, each polynomial over a
+                                # cluster's blocks; "grid": each transform
+                                # across blocks (n > 2^15)
     blocks: tuple = (2,)        # blocks a ciphertext, of each launch of a
-                                # chain ("cluster") or of a step ("device":
-                                # the forward launch, then the inverse one;
-                                # "grid": the top forward passes, the chunk
-                                # chains forward, the contraction's chunk
-                                # chains inverse, the top inverse passes)
+                                # chain ("cluster") or of a step ("device",
+                                # "split": the forward launch, then the
+                                # inverse one; "grid": the top forward
+                                # passes, the chunk chains forward, the
+                                # contraction's chunk chains inverse, the top
+                                # inverse passes)
     scratch_bytes: int = 0      # device memory a ciphertext: the digit
                                 # evaluations of a step, both primes ("grid":
                                 # also their top passes' words, which the
@@ -89,16 +101,28 @@ def _plan(C: int, l: int, n: int, aligned: bool = True,
     scratch of the step's digit evaluations.  The wrapper hands the kernel
     ``threads``, ``smem_bytes``, ``staged`` and the layout, which it checks
     against its own.  ``layout`` names one to measure it where the rule
-    takes the other (the device-memory layout runs at any shape up to
-    2^15).  Past 2^15 the grid layout (csrc/blind_rotate_grid_cuda.cu):
-    each step's transforms across blocks (ntt_cuda._chunk_plan), the
-    forward's top passes forming the digits, the contraction in the chunk
-    chains' first inverse pass, the CRT and the add in the last top
-    inverse pass; a scratch of the digit evaluations and of the words
-    between passes."""
+    takes another (the device-memory layout runs at any shape up to 2^15,
+    the grid layout at 2^16 too).  At 2^16 the split layout
+    (csrc/blind_rotate_split_cuda.cu): a forward block per (digit
+    polynomial, prime, half), a cluster of four inverse blocks per column
+    (two primes, two halves), each on a half's one-buffer shape, and the
+    device-memory layout's scratch; nothing between passes.  Past 2^16 the
+    grid layout (csrc/blind_rotate_grid_cuda.cu): each step's transforms
+    across blocks (ntt_cuda._chunk_plan), the forward's top passes forming
+    the digits, the contraction in the chunk chains' first inverse pass,
+    the CRT and the add in the last top inverse pass; a scratch of the
+    digit evaluations and of the words between passes."""
     logn = n.bit_length() - 1
     if logn > ntt_cuda.CHUNK_LOGN:
-        if layout not in (None, "grid"):
+        layout = layout or (_cuda.SPLIT if logn == SPLIT_LOGN else "grid")
+        if layout == _cuda.SPLIT and logn == SPLIT_LOGN:
+            half = ntt_cuda._radix_plan(logn - 1)
+            F = C * l
+            return BlindRotatePlan(
+                logn, half.threads, SPLIT_CLUSTER, False, half.smem_bytes, F,
+                2 * C, half, _cuda.SPLIT, (4 * F, SPLIT_CLUSTER * 2 * C),
+                2 * 4 * F * n)
+        if layout != "grid":
             raise ValueError(f"layout {layout!r} at C={C}, l={l}, n={n}")
         cp = ntt_cuda._chunk_plan(logn)
         F, cols = C * l, 2 * C
@@ -188,11 +212,13 @@ def blind_rotate_kernel(shifts, acc0, ev1, ev1s, ev2, ev2s, n: int, w: int,
                         layout: str | None = None):
     """K10: the whole chain in one call, in the layout of ``_plan``: one
     cluster of two blocks per ciphertext (one CRT prime each) for the whole
-    chain, or two launches a step over a working set in device memory.
+    chain, or two launches a step over a working set in device memory (at
+    2^16 on clusters of four, the polynomials split), or past 2^16 four.
     shifts int32 [steps, B] in [0, 2n); acc0 int64 [B, C, n]; ev1, ev1s,
     ev2, ev2s int32 [steps, C, l, C, 2, n].  Returns int64 [B, C, n].
     ``layout`` forces a layout, for measurement (``_plan``).  Past n = 2^15
-    (the grid layout) the tables are the chunk tables of ntt_cuda."""
+    (the split and grid layouts) the tables are the chunk tables of
+    ntt_cuda."""
     dev = acc0.device
     _cuda.check(shifts, "shifts", dev)
     _cuda.check(acc0, "acc0", dev, dtype=torch.int64)
@@ -213,8 +239,12 @@ def blind_rotate_kernel(shifts, acc0, ev1, ev1s, ev2, ev2s, n: int, w: int,
     p1, p2 = pq = ntt_mod.CRT_PRIMES_TFHE
     tw = ntt_cuda._chunk_tables(pq, n, False, dev)
     twinv = ntt_cuda._chunk_tables(pq, n, True, dev)
+    # the split layout's Montgomery contraction leaves a factor 2^-32,
+    # which its final multiplier takes back
+    r = ntt_cuda.R32 if plan.layout == _cuda.SPLIT else 1
     cons = ntt_cuda._prime_rows(
-        (p1, p2, p2), (pow(n, -1, p1), pow(n, -1, p2), pow(p1, -1, p2)), dev)
+        (p1, p2, p2), (pow(n, -1, p1) * r % p1, pow(n, -1, p2) * r % p2,
+                       pow(p1, -1, p2)), dev)
     _cuda.BLIND_ROTATE.launch(
         dev, shifts.data_ptr(), acc0.data_ptr(), ev1.data_ptr(),
         ev1s.data_ptr(), ev2.data_ptr(), ev2s.data_ptr(), out.data_ptr(),
@@ -224,6 +254,13 @@ def blind_rotate_kernel(shifts, acc0, ev1, ev1s, ev2, ev2s, n: int, w: int,
         w, logn, plan.threads, plan.smem_bytes, int(plan.staged),
         LAYOUT_CODE[plan.layout], layout=plan.layout)
     return out
+
+
+def split_clusters(device) -> int:
+    """The split layout's inverse clusters of four that the card runs at
+    once (cudaOccupancyMaxActiveClusters; the SMs of a GPC that four does
+    not divide stay idle in that launch)."""
+    return _cuda.max_clusters("fhe_blind_rotate_split_clusters", device)
 
 
 def blind_rotate_fused(shifts, acc0, ev1, ev1s, ev2, ev2s, n: int, w: int):

@@ -763,7 +763,9 @@ def cmux_step_bytes(n: int, C: int, l: int, batch: int,
     """Device-memory bytes of ONE CMux step of K10's device-memory layout
     on ``batch`` ciphertexts (the cluster layout keeps all but the key in
     shared memory), by part, each at its least, L2 serving every re-read
-    within the step:
+    within the step; the split layout (n = 2^16) moves the same but half
+    the key (its forward blocks read their accumulator component at i and
+    i + n/2, and four blocks form each digit: L2 serves those re-reads):
 
       scratch  the digit evaluations [B, 2, C*l, n] of 32-bit words,
                written by the forward blocks and read back once by the
@@ -777,7 +779,8 @@ def cmux_step_bytes(n: int, C: int, l: int, batch: int,
                inverse clusters (the grid layout's last pass: no atomics);
       key      the step's slice, values and Shoup companions under both
                primes, 4 planes of C*l*2C*n words, read once for the whole
-               batch.
+               batch (the split layout's Montgomery contraction reads the
+               2 planes of values alone).
     """
     scratch = 2 * batch * 2 * C * l * n * 4
     if layout == "grid":
@@ -785,7 +788,7 @@ def cmux_step_bytes(n: int, C: int, l: int, batch: int,
         scratch += 2 * passes * batch * 2 * (C * l + 2 * C) * n * 4
     return {"scratch": scratch,
             "acc": 3 * batch * C * n * 8,
-            "key": 4 * C * l * 2 * C * n * 4}
+            "key": (2 if layout == _cuda.SPLIT else 4) * C * l * 2 * C * n * 4}
 
 
 def _pair(name, label, nbytes, ops, kern, plain, *args, **kw) -> Case:
@@ -807,11 +810,14 @@ def top_pass_bytes(n: int, polys: int) -> int:
 def own_bytes(case) -> int:
     """The device-memory bytes of a transform kernel's own traffic past one
     block (K1-K3, K5-K9, K12): its least bytes, the top passes of its
-    transforms (``top_pass_bytes``) and the round trips of its other
-    scratch (the case's ``extra``: K12's transforms after the first read
+    transforms (``top_pass_bytes``; none in K12's split, where the
+    polynomial stays on the chip) and the round trips of its other scratch
+    (the case's ``extra``: K12's chunked transforms after the first read
     and write the polynomial once more each; K6's eval scratch and lift;
     K7's and K8's sums in device memory)."""
     n = case.n
+    if case.layout == _cuda.SPLIT:
+        return case.bytes + case.extra
     transforms = case.butterflies // ((n // 2) * (n.bit_length() - 1))
     return case.bytes + top_pass_bytes(n, transforms) + case.extra
 
@@ -936,20 +942,24 @@ def ext_ntt_case(label: str, x, src: tuple, dst: tuple) -> Case:
                      layout=_layout_of(n))
 
 
-def ceiling_case(label: str, x, q: int, reps: int) -> Case:
+def ceiling_case(label: str, x, q: int, reps: int,
+                 layout: str | None = None) -> Case:
     """K12 on x [B, n] over ``reps`` transforms: the polynomial read and
-    written once, the tables where a transform runs; B reps transforms.
-    Past one block each transform after the first reads and writes the
-    polynomial once more (``extra``)."""
+    written once, the tables where a transform runs; B reps transforms, in
+    ``layout`` (alu_bench.ceiling_layout; at 2^16 split unless named).  On
+    the chunked schedule each transform after the first reads and writes
+    the polynomial once more (``extra``)."""
     B, n = x.shape
+    layout = alu_bench.ceiling_layout(n.bit_length() - 1, layout)
     return _pair("ntt_smem_ceiling", label,
                  4 * (2 * B * n + (2 * n if reps else 0)),
-                 _ntt_ops(n, B * reps), alu_bench.ntt_smem_ceiling_kernel,
+                 _ntt_ops(n, B * reps),
+                 partial(alu_bench.ntt_smem_ceiling_kernel, layout=layout),
                  alu_bench.ntt_smem_ceiling_plain, x, q, reps)._replace(
                      butterflies=_butterflies(n, B * reps), n=n,
-                     layout=_layout_of(n),
+                     layout="" if layout == "block" else layout,
                      extra=(8 * max(reps - 1, 0) * x.numel()
-                            if n > 1 << nc.CHUNK_LOGN else 0))
+                            if layout == _cuda.CHUNKED else 0))
 
 
 # int64 words of a plain version's largest intermediate past which a case
@@ -1157,8 +1167,11 @@ def wide_op_cases(device, seed: int):
         for ls in WIDE_OPS_LS:
             B = min(next(batch), max(1, (1 << 31) // (ls * n)))
             yield _wide_k5(res, src_pool[:ls], qs, B, n)
-        for reps in WIDE_OPS_REPS:
-            yield _wide_k12(res, qs[0], next(batch), n, reps)
+        # K12 at 2^16 split (its rule there) and chunked
+        for layout in ((_cuda.SPLIT, _cuda.CHUNKED)
+                       if logn == alu_bench.SPLIT_LOGN else (None,)):
+            for reps in WIDE_OPS_REPS:
+                yield _wide_k12(res, qs[0], next(batch), n, reps, layout)
         cap = max(1, (1 << 26) // n)             # one polynomial at 2^26
         for ls in WIDE_MUL4_LS:
             src = None if ls is None else src_pool[:ls]
@@ -1231,10 +1244,11 @@ def _wide_ks(res, src, qs, B, n):
                                  timed=False)
 
 
-def _wide_k12(res, q, B, n, reps) -> Case:
+def _wide_k12(res, q, B, n, reps, layout=None) -> Case:
     x = res((q,), (B, n))[0]
-    return ceiling_case(f"reps={reps} [{B}, {n}] q={q}", x, q,
-                        reps)._replace(timed=False)
+    layout = alu_bench.ceiling_layout(n.bit_length() - 1, layout)
+    return ceiling_case(f"reps={reps} [{B}, {n}] q={q} {layout}", x, q,
+                        reps, layout)._replace(timed=False)
 
 
 def ntt_cases(n: int, k: int, l: int, steps: int, device,
@@ -1332,11 +1346,11 @@ def gate_width(n: int, C: int, l: int) -> int:
     return w
 
 
-BR_GRID_LOGN = 16    # the grid layout at every (C, l, w) of the gate there,
+BR_SPLIT_LOGN = 16   # the split layout at every (C, l, w) of the gate there,
+BR_GRID_LOGN = 17    # the grid layout at every (C, l, w) of the gate there,
 BR_GRID_RUNS = ((2, 1), (3, 2), (4, 1), (2, 2))   # (steps, B) in turn,
 # and one (log n, C, l) at each larger degree, at the gate's widest digit
-BR_GRID_WIDER = ((17, 2, 3), (18, 2, 2), (19, 3, 1), (20, 2, 2),
-                 (21, 1, 2), (22, 2, 1))
+BR_GRID_WIDER = ((18, 2, 2), (19, 3, 1), (20, 2, 2), (21, 1, 2), (22, 2, 1))
 
 
 def gate_shapes(n: int) -> list:
@@ -1349,25 +1363,28 @@ def gate_shapes(n: int) -> list:
             if w * l <= 64 and C * l * n << w < 1 << 26]
 
 
-def blind_rotate_grid_sweep(device, seed: int):
-    """K10's grid layout (n > 2^15) against its plain version (compared;
-    chip_smoke.py times each kernel beside its bounds): every (C, l, w) of
-    ``gate_shapes`` at 2^BR_GRID_LOGN, over (steps, B) of BR_GRID_RUNS in
-    turn, and each (log n, C, l) of BR_GRID_WIDER at the gate's widest
-    digit; at the first shape of each (n, C) also the key planes one word
-    off their 16-byte alignment.  Key planes drawn on the card
-    (``prng.device_residues``: a shape's keys run to gigabytes), shifts and
-    accumulators on the host.  Yields one case at a time, then forgets the
-    root tables."""
+def blind_rotate_wide_sweep(device, seed: int):
+    """K10 past 2^15 against its plain version (compared; chip_smoke.py
+    times each kernel beside its bounds), in the layout the plan takes:
+    split at every (C, l, w) of ``gate_shapes`` at 2^BR_SPLIT_LOGN, grid at
+    every one at 2^BR_GRID_LOGN, each over (steps, B) of BR_GRID_RUNS in
+    turn, and grid at each (log n, C, l) of BR_GRID_WIDER at the gate's
+    widest digit; at the first shape of each (n, C) also the key planes
+    one word off their 16-byte alignment.  Key planes drawn on the card
+    (``prng.device_residues``: a shape's keys run to gigabytes), shifts
+    and accumulators on the host.  Yields one case at a time, then forgets
+    the root tables."""
     res = prng.device_residues(seed, device)
     gen = prng.Gen(seed)
     p1, p2 = ntt_mod.CRT_PRIMES_TFHE
-    shapes = ([(BR_GRID_LOGN, *s) for s in gate_shapes(1 << BR_GRID_LOGN)]
+    shapes = ([(logn, *s) for logn in (BR_SPLIT_LOGN, BR_GRID_LOGN)
+               for s in gate_shapes(1 << logn)]
               + [(logn, C, l, gate_width(1 << logn, C, l))
                  for logn, C, l in BR_GRID_WIDER])
     firsts = set()
     for i, (logn, C, l, w) in enumerate(shapes):
         n = 1 << logn
+        layout = brc._plan(C, l, n).layout
         steps, B = BR_GRID_RUNS[i % len(BR_GRID_RUNS)]
         key = (steps, C, l, C, 2, n)
         ev1, ev2 = res((p1,), key)[0], res((p2,), key)[0]
@@ -1375,7 +1392,7 @@ def blind_rotate_grid_sweep(device, seed: int):
                       for e, p in ((ev1, p1), (ev2, p2)))
         shifts = prng.uniform_mod(gen, (steps, B), 2 * n, device).int()
         acc0 = prng.uniform_u64(gen, (B, C, n), device)
-        label = f"C={C} l={l} w={w} steps={steps} B={B} n={n} grid"
+        label = f"C={C} l={l} w={w} steps={steps} B={B} n={n} {layout}"
         ops = steps * B * sum(cmux_step_ops(n, C, l).values())
         variants = [("", (ev1, ev1s, ev2, ev2s))]
         if (logn, C) not in firsts:
@@ -1388,7 +1405,7 @@ def blind_rotate_grid_sweep(device, seed: int):
             yield _pair("blind_rotate", label + tag,
                         blind_rotate_bytes(*args), ops,
                         brc.blind_rotate_kernel, brc.blind_rotate_plain,
-                        *args)._replace(timed=False, layout="grid",
+                        *args)._replace(timed=False, layout=layout,
                                         args=args)
         del ev1, ev2, ev1s, ev2s, variants, planes, args
     nc.drop_tables()
@@ -1396,7 +1413,7 @@ def blind_rotate_grid_sweep(device, seed: int):
 
 def blind_rotate_sweep(device, gen: prng.Gen):
     """K10 against its plain version (compared only, not timed) in its
-    two layouts up to 2^15 (past it ``blind_rotate_grid_sweep``): for each
+    two layouts up to 2^15 (past it ``blind_rotate_wide_sweep``): for each
     C in BR_SWEEP_C and l in BR_SWEEP_L at every ring degree 2^7 .. 2^15,
     over BR_SWEEP_STEPS steps, on BR_SWEEP_B ciphertexts
     where the plan takes the cluster layout (digits of w = 20, 12 or 21

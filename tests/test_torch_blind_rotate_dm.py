@@ -6,7 +6,8 @@ CPU:
     blind_rotate_pallas.py) for every n = 2^7 .. 2^22, K = 0 .. 3, digit
     width w >= 1 and l with w l <= 64; ``_plan`` takes the cluster layout
     exactly where a ciphertext's working set fits a block, the
-    device-memory layout elsewhere up to 2^15 and the grid layout past it;
+    device-memory layout elsewhere up to 2^15, the split layout at 2^16
+    and the grid layout past it;
   * the layout's schedule written out in int64 torch — the forward blocks
     (ciphertext, digit polynomial, prime) into the scratch [B, 2, C l, n],
     the inverse clusters (ciphertext, column) with the contraction from the
@@ -63,8 +64,8 @@ def _shapes(logns):
 def test_supported_equals_the_reference_up_to_n_2_15():
     """Every n from 2^7 to 2^22, where the reference's gate ends (the CRT
     pair's 2n-th roots): the port's gate is the reference's, and at each n
-    the plan's layout is the one its shape takes."""
-    took = dict.fromkeys(("cluster", "device", "grid"), 0)
+    the plan's layout is the one its shape takes (the split at 2^16)."""
+    took = dict.fromkeys(("cluster", "device", "split", "grid"), 0)
     for n, k, w, l in _shapes(range(7, 23)):
         param = SimpleNamespace(ring=SimpleNamespace(n=n), k=k)
         ref = brp.supported(param, 1 << w, l)
@@ -72,10 +73,12 @@ def test_supported_equals_the_reference_up_to_n_2_15():
         if ref:
             plan = brc._plan(k + 1, l, n)
             fits = brc._smem(k + 1, l, n, False) <= brc._SMEM_LIMIT
-            assert plan.layout == ("grid" if n > 1 << 15 else
+            assert plan.layout == ("split" if n == 1 << 16 else
+                                   "grid" if n > 1 << 15 else
                                    "cluster" if fits else "device")
             took[plan.layout] += 1
     assert took["cluster"] + took["device"] > 6000 and took["grid"] > 1000
+    assert took["split"] > 600
     assert _cuda.log2_degree(1 << 22, _cuda.BLIND_ROTATE) == 22
     with pytest.raises(ValueError, match="2\\^7 .. 2\\^22"):
         _cuda.log2_degree(1 << 23, _cuda.BLIND_ROTATE)

@@ -179,7 +179,8 @@ def test_wrappers_queue_the_chunked_schedule_at_n_2_16():
     each wrapper with its argument list, the chunk tables [L, 2, 2^15] of
     its direction, the chunk's block shape (512 threads, 128 KB), K5's and
     K12's 32-bit scratch (K5's lift too from 3 sources), and one launch
-    under the layout past one block."""
+    under the layout past one block (K12's named: its rule at 2^16 is the
+    split)."""
     kernels = (_cuda.TENSOR_EVAL4, _cuda.KS_CONTRACT, _cuda.EXT_NTT,
                _cuda.NTT_SMEM_CEILING)
     B, qs = 3, QS
@@ -194,12 +195,14 @@ def test_wrappers_queue_the_chunked_schedule_at_n_2_16():
         for ls in (2, 3):
             nc.ext_ntt_kernel(torch.zeros((ls, B, N), dtype=torch.int32),
                               SRC[:ls], qs)
-        alu_bench.ntt_smem_ceiling_kernel(ops[0][0], qs[0], 2)
+        alu_bench.ntt_smem_ceiling_kernel(ops[0][0], qs[0], 2, "chunked")
     shape = (nc.WIDE_THREADS, 4 << nc.CHUNK_LOGN)
     for k in kernels:
         for args in calls[k.name]:
             assert len(args) == len(k.argtypes)          # the stream last
-            assert tuple(args[-3:-1]) == shape
+            # K12's split flag follows its shape
+            at = -4 if k is _cuda.NTT_SMEM_CEILING else -3
+            assert tuple(args[at:at + 2]) == shape
         assert _cuda.chunked_launches(k) == k.launches == len(calls[k.name])
     assert _cuda.EXT_NTT.by_layout == {"direct": 0, "staged": 0,
                                        "chunked direct": 1,
@@ -216,6 +219,7 @@ def test_wrappers_queue_the_chunked_schedule_at_n_2_16():
     assert (direct[5], direct[6]) == (fwd[0].data_ptr(), fwd[1].data_ptr())
     (k12,) = calls["ntt_smem_ceiling"]
     assert k12[2] is not None and k12[6:10] == (qs[0], B, 16, 2)
+    assert k12[-2] == 0
     _cuda.reset_launches()
 
 

@@ -92,9 +92,10 @@ def test_radix_kernels_have_no_stack_frame_or_spills(cuda):
     the first top passes (four stage counts each: K5's from 2 and 4
     sources and staged, K6's without a source basis, from 4 and staged,
     K7's and K8's digits and adds), the chunk kernels of K2 and K3, K7's
-    and K8's chunk chains with their gadget products (two), and K10's grid
+    and K8's chunk chains with their gadget products (two), K10's grid
     kernels (four stage counts each; its forward's first pass and the
-    others)."""
+    others), and at 2^16 K10's split forward and inverse kernels and K12's
+    split loop."""
     report = _cuda.ptxas_report(_cuda.build_log())
     counts = {"tensor_eval4_kernel": 9, "ks_contract_kernel": 9,
               "ks_fused_kernel": 9, "ks_fused_eval_kernel": 9,
@@ -107,7 +108,9 @@ def test_radix_kernels_have_no_stack_frame_or_spills(cuda):
               "ntt_top_kernel": 4 * 4 + 3 * 4 + 4 + 2 * 4,
               "brg_top_forward_kernel": 4 * 2,
               "brg_chunk_inverse_kernel": 1, "brg_top_inverse_kernel": 4,
-              "brg_top_last_kernel": 4, "tensor_eval4_chunk_kernel": 1,
+              "brg_top_last_kernel": 4, "brs_forward_kernel": 1,
+              "brs_inverse_kernel": 1, "ntt_smem_ceiling_split_kernel": 1,
+              "tensor_eval4_chunk_kernel": 1,
               "ks_contract_chunk_kernel": 1, "first_top_kernel": 4 * 7,
               "ks_mac_chunk_kernel": 2}
     radix = [r for r in report if r["kernel"].split("<")[0] in counts]
@@ -157,7 +160,7 @@ def test_redesigned_kernels_refuse_another_plan(cuda):
                                           None, fwd0[0].data_ptr(),
                                           fwd0[1].data_ptr(),
                                           cons0.data_ptr(), qs[0], 2, 8, 1,
-                                          threads, smem, layout="block")
+                                          threads, smem, 0, layout="block")
     tab = ext_cuda.kernel_table(qs, qs[:2], None, cuda)
     out = torch.zeros((2, 2, 256), dtype=torch.int32, device=cuda)
     for src, total in ((x, 511), (x.view(-1)[1:], 508)):
@@ -225,7 +228,7 @@ def test_blind_rotate_device_layout_matches_plain(cuda, n, C, l, w):
     torch.cuda.synchronize()
     assert _cuda.launches()["blind_rotate"] == 1
     assert _cuda.BLIND_ROTATE.by_layout == {"cluster": 0, "device": 1,
-                                            "grid": 0}
+                                            "split": 0, "grid": 0}
     assert torch.equal(got, blind_rotate_cuda.blind_rotate_plain(*args))
     off = [kernel_check._offset_word(e) for e in args[2:6]]
     shifts, acc0 = args[0][:2].contiguous(), args[1]
@@ -870,9 +873,10 @@ def test_transforms_past_a_block_match_plain(cuda, logn):
 @pytest.mark.parametrize("logn", [16, 17])
 def test_chunked_ops_past_a_block_match_plain(cuda, logn):
     """K2 (strided views, a scale), K3 (R = 3, the digit rows one word
-    off), K5 (from 2 sources direct, from 3 staged) and K12 (2 transforms)
-    across blocks on their chunked schedules, bit for bit; each launch
-    counted under its chunked layout."""
+    off), K5 (from 2 sources direct, from 3 staged) and K12 (2 transforms;
+    named at 2^16, where its rule is the split) across blocks on their
+    chunked schedules, bit for bit; each launch counted under its chunked
+    layout."""
     n = 1 << logn
     qs = (998244353, 754974721)
     src = ntt_primes(3, 30, 1 << 16, skip=8)
@@ -890,7 +894,7 @@ def test_chunked_ops_past_a_block_match_plain(cuda, logn):
                                   qs),
         kernel_check.ext_ntt_case("staged", res(src, (2, n)), src, qs),
         kernel_check.ceiling_case("reps=2", res(qs[:1], (3, n))[0], qs[0],
-                                  2)]
+                                  2, "chunked")]
     _cuda.reset_launches()
     for case in cases:
         got = case.kernel()
@@ -946,31 +950,83 @@ def test_chunked_mul_past_a_block_matches_plain(cuda, logn):
 @pytest.mark.parametrize("logn,C,l,w", [(16, 2, 5, 6), (16, 1, 3, 7),
                                         (17, 2, 2, 6), (17, 3, 1, 6)])
 def test_blind_rotate_grid_layout_matches_plain(cuda, logn, C, l, w):
-    """K10 past 2^15 in its grid layout over 3 steps on 2 ciphertexts, and
-    with key planes one word off, bit for bit; one launch a chain, counted
-    under its layout."""
+    """K10 past 2^15 in its grid layout (at 2^16 named by the caller, where
+    the plan takes the split) over 3 steps on 2 ciphertexts, and with key
+    planes one word off, bit for bit; one launch a chain, counted under its
+    layout."""
     n = 1 << logn
     gen = prng.Gen(logn + C + l)
     args = kernel_check.blind_rotate_inputs(n, C - 1, 1 << w, l, 3, 2, cuda,
                                             gen)
-    assert blind_rotate_cuda._plan(C, l, n).layout == "grid"
+    assert blind_rotate_cuda._plan(C, l, n).layout == (
+        "split" if logn == 16 else "grid")
     _cuda.reset_launches()
-    got = blind_rotate_cuda.blind_rotate_kernel(*args)
+    got = blind_rotate_cuda.blind_rotate_kernel(*args, layout="grid")
     torch.cuda.synchronize()
     assert _cuda.launches()["blind_rotate"] == 1
     assert _cuda.BLIND_ROTATE.by_layout == {"cluster": 0, "device": 0,
-                                            "grid": 1}
+                                            "split": 0, "grid": 1}
     assert torch.equal(got, blind_rotate_cuda.blind_rotate_plain(*args))
     off = [kernel_check._offset_word(e) for e in args[2:6]]
-    got = blind_rotate_cuda.blind_rotate_kernel(args[0], args[1], *off, n, w)
+    got = blind_rotate_cuda.blind_rotate_kernel(args[0], args[1], *off, n, w,
+                                                layout="grid")
     assert torch.equal(got, blind_rotate_cuda.blind_rotate_plain(
         args[0], args[1], *off, n, w))
+
+
+@pytest.mark.parametrize("C", [1, 2, 3, 4])
+def test_blind_rotate_split_layout_matches_plain(cuda, C):
+    """K10 at 2^16 in its split layout at every (C, l, w) of the
+    reference's gate there (kernel_check.gate_shapes; this C's), over 2
+    steps on 1 to 3 ciphertexts in turn, and the first shape's key planes
+    one word off, bit for bit; one launch a chain, counted under
+    "split"."""
+    n = 1 << 16
+    gen = prng.Gen(160 + C)
+    shapes = [s for s in kernel_check.gate_shapes(n) if s[0] == C]
+    assert shapes
+    for i, (_, l, w) in enumerate(shapes):
+        args = kernel_check.blind_rotate_inputs(n, C - 1, 1 << w, l, 2,
+                                                1 + i % 3, cuda, gen)
+        assert blind_rotate_cuda._plan(C, l, n).layout == "split"
+        _cuda.reset_launches()
+        got = blind_rotate_cuda.blind_rotate_kernel(*args)
+        torch.cuda.synchronize()
+        assert _cuda.BLIND_ROTATE.by_layout["split"] == 1
+        assert torch.equal(got, blind_rotate_cuda.blind_rotate_plain(
+            *args)), (C, l, w)
+        if i == 0:
+            off = [kernel_check._offset_word(e) for e in args[2:6]]
+            got = blind_rotate_cuda.blind_rotate_kernel(args[0], args[1],
+                                                        *off, n, w)
+            assert torch.equal(got, blind_rotate_cuda.blind_rotate_plain(
+                args[0], args[1], *off, n, w))
+    assert blind_rotate_cuda.split_clusters(cuda) >= 1
+
+
+def test_ceiling_split_matches_plain(cuda):
+    """K12 at 2^16 on two-block clusters over 0, 1 and 3 repetitions on 1
+    to 3 polynomials, and on the chunked schedule where named, bit for bit;
+    each launch counted under its layout."""
+    q = 998244353
+    res = prng.device_residues(161, cuda)
+    _cuda.reset_launches()
+    for B, reps in ((1, 0), (2, 1), (3, 3)):
+        x = res((q,), (B, 1 << 16))[0]
+        want = alu_bench.ntt_smem_ceiling_plain(x, q, reps)
+        for layout in (None, "chunked"):
+            got = alu_bench.ntt_smem_ceiling_kernel(x, q, reps, layout)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (B, reps, layout)
+    assert _cuda.NTT_SMEM_CEILING.by_layout == {"block": 0, "chunked": 3,
+                                                "split": 3}
+    assert alu_bench.split_clusters(cuda) >= 1
 
 
 def test_bootstrap_short_at_n_2_16_on_card_matches_cpu(cuda):
     """bootstrap_short at N = 2^16, K = 1, beta = 2^6, l = 5 on a 4-step
     short key: keys, ciphertexts and outputs equal on the card (K9, K10's
-    grid layout) and the CPU (plain versions), and fused == step by step
+    split layout) and the CPU (plain versions), and fused == step by step
     (K1 at 2^16) on the card."""
     param = Param(ERR_SIGMA, RingParam(TORUS_Q, 1 << 16), 1, 64)
     kw = dict(beta=1 << 6, l=5, beta_ks=16, l_ks=8)
@@ -991,7 +1047,7 @@ def test_bootstrap_short_at_n_2_16_on_card_matches_cpu(cuda):
                                                   btk_evals=evals, **kw)
         if dev.type == "cuda":
             torch.cuda.synchronize()
-            assert _cuda.BLIND_ROTATE.by_layout["grid"] == 1
+            assert _cuda.BLIND_ROTATE.by_layout["split"] == 1
             step = bootstrap.bootstrap_short(param, sbtk, table, c,
                                              btk_evals=evals, fused=False,
                                              **kw)

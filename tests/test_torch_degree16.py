@@ -222,12 +222,14 @@ def test_grid_layout_schedule_equals_plain(logn, logc, C, l, w):
 
 
 def test_grid_plan_at_n_2_16():
-    """Past 2^15 the plan takes the grid layout at the chunk's block shape:
-    per step and ciphertext the forward's top pass over the 2F digit
-    polynomials, 2F 2^s chunk blocks forward, 2 2C 2^s inverse, the last
-    top pass over the C components; a scratch of the digit evaluations and
-    of the words between passes."""
-    plan = brc._plan(2, 5, N)
+    """Past 2^15 the grid layout at the chunk's block shape (at 2^16 where
+    the caller names it, the plan's rule being the split there): per step
+    and ciphertext the forward's top pass over the 2F digit polynomials, 2F
+    2^s chunk blocks forward, 2 2C 2^s inverse, the last top pass over the
+    C components; a scratch of the digit evaluations and of the words
+    between passes."""
+    assert brc._plan(2, 5, N).layout == "split"
+    plan = brc._plan(2, 5, N, layout="grid")
     assert plan.layout == "grid" and not plan.staged and plan.cluster == 1
     assert (plan.threads, plan.smem_bytes) == (nc.WIDE_THREADS, 4 << 15)
     assert plan.blocks == (2 * 10 * N // 512, 2 * 10 * 2, 2 * 4 * 2,
@@ -394,13 +396,13 @@ def test_precompute_evals_matches_jax(short_key):
 
 def test_blind_rotation_at_n_2_16_matches_the_jax_chain(short_key):
     """The gate at 2^16 admits the shape in both packages; on the card it
-    takes the grid layout.  The fused entry (blind_rotate_plain on the CPU)
+    takes the split layout.  The fused entry (blind_rotate_plain on the CPU)
     equals the port's step-by-step chain (launching nothing here) and the
     JAX package's, jitted."""
     P, sbtk, evals = short_key
     JP = JG.Param(JG.ERR_SIGMA, JRingParam(TORUS_Q, N), K, T)
     assert brc.supported(P, BETA, L) and brp.supported(JP, BETA, L)
-    assert brc._plan(K + 1, L, N).layout == "grid"
+    assert brc._plan(K + 1, L, N).layout == "split"
     param = SimpleNamespace(ring=SimpleNamespace(n=N), k=K)
     assert brc.supported(param, BETA, L)
     rng = np.random.default_rng(21)

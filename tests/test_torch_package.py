@@ -2,6 +2,7 @@
 back, the kernel loader's failures, and the host-side helpers it copied from
 the JAX package (primes, root tables, rounding, samplers, interop)."""
 
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -25,6 +26,17 @@ from fhe_study_tpu_torch.utils.rounding import round_half_away
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "fhe_study_tpu_torch"
+
+# Where pytest-xdist spreads the test files over several worker processes
+# on one machine, each worker keeps torch's CPU kernels to its share of the
+# cores: torch's default, every core in every worker, sets the workers
+# spinning against one another (a 2^15 chain emulation of
+# tests/test_torch_radix_plan.py took 2.2 s so in a run of six workers on
+# eight cores, 0.06 s alone).  Every worker collects this module, so the
+# setting reaches every test it runs.
+_WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+if _WORKERS > 1:
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // _WORKERS))
 
 
 NO_JAX = """
@@ -341,7 +353,7 @@ def test_build_is_one_command_over_every_source(bare_loader, monkeypatch):
     cus = sorted(p.name for p in _cuda.CSRC.iterdir() if p.suffix == ".cu")
     cmds = [line for line in log if not line.startswith("-- ")]
     k = len(cus)
-    assert k == 19 and len(cmds) == k + 1
+    assert k == 20 and len(cmds) == k + 1
     assert all(line.endswith(" s") for line in log if line.startswith("-- "))
     assert [line.rsplit("/", 1)[-1] for line in cmds[:k]] == cus
     assert all(" -c " in line and " -shared " not in line
