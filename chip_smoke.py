@@ -61,7 +61,8 @@ Phases, each of which raises (and so exits non-zero) on any failure:
      of 1 to 31 source primes (4 direct, the others staged); K7 and K8
      from 1, 2, 4 and 9 limb rows over
      30-bit primes to 2 and 6 primes of 28 bits (reps >= 2), 39 rows to 2
-     primes at n = 2^11, R = L = 4 on the paths' strided views (K8's adds
+     primes at n = 2^11, 29 rows (phase 19's R = L) to both at n = 2^15,
+     R = L = 4 on the paths' strided views (K8's adds
      too) and every operand one word off; K3, K7 and K8 at R = 43 over the 45 primes
      of Q u P at n = 2^12 (the CKKS maps' shape); K11 from every source
      count 1 .. 31 to 5 primes, unsigned and centered, in its vector and
@@ -730,6 +731,7 @@ def main() -> None:
         f"ks_fused and ks_fused_eval ({kernel_check.KS_SWEEP_R} limb rows over "
         f"{kernel_check.KS_SWEEP_LP} narrower primes, "
         f"{kernel_check.KS_BOOT_R} rows at n = 2^{kernel_check.KS_BOOT_LOGN}, "
+        f"{kernel_check.KS_PATH_R} rows at n = 2^{ntt_cuda.WIDE_LOGN}, "
         f"strided and word-offset), "
         f"tensor_mul4 and tensor_mul (with and without a scale; contiguous, "
         f"strided, stacked and unaligned rows; from 1 to "

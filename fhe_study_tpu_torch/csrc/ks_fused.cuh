@@ -23,9 +23,14 @@
 // registers, three n-word buffers in shared memory (the work buffer and the
 // two accumulators: 192 KB at n = 2^14, one block an SM).  At n = 2^15 a
 // cluster of two such blocks per (prime, polynomial), each holding one half
-// of the three buffers (radix_chain.cuh's Split): the first forward stage
-// from both halves of each row in the first pass, the last inverse stage
-// from the peer's half through distributed shared memory after the chains.
+// of the three buffers (radix_chain.cuh's Split): the first
+// forward stage formed by each block for its half from both halves of
+// each row in the first pass (split_words: a virtual thread's 32 words
+// issued before any reduction), the end of a row an arrival on a
+// shared-memory barrier that the next row's first pass waits on only
+// before its first store, and the last inverse stage across the cluster
+// straight to the outputs (split_inverse_out: each block half of the
+// pairs, one word through distributed shared memory, eight in flight).
 //   1. each digit row r runs the register-resident forward chain of
 //      radix_chain.cuh in the work buffer.  Its first pass reads limb r with
 //      lanes on consecutive words and makes the subtractions in registers;
@@ -50,7 +55,10 @@
 // What bounds it: R + 2 transforms a block for K7 and R + 4 for K8, of
 // (n / 2) log n butterflies of 13 instructions, beside 2R Montgomery
 // products and modular adds a coefficient: the issue rate.  With one block
-// an SM no other block hides its barriers.
+// an SM no other block hides its barriers.  At 2^15 the limb and key words
+// through L2 follow (16 R n bytes a (prime, polynomial): each block reads
+// both halves of every limb row); the phases of a block are measured by
+// utils/ks_phases.py.
 #pragma once
 
 #include <cstdint>
@@ -63,6 +71,13 @@ namespace {
 
 constexpr int kKsThreads = 512;
 constexpr int kKsBuffers = 3;
+
+// The split's barrier of a row's readers of the work buffer (ks_body):
+// shared memory only in the instances that call it.
+__device__ __forceinline__ uint64_t* row_read() {
+  __shared__ uint64_t bar;
+  return &bar;
+}
 
 // The kernel body; EVAL selects K8.  Limb r of polynomial b starts at
 // c + r * sl + b * sb, add_h's row (p, b) at add_h + p * al_h + b * ab_h
@@ -94,6 +109,14 @@ __device__ __forceinline__ void ks_body(
   constexpr int cl = S::inv_c(last);
   extern __shared__ uint32_t a[];      // work buffer; acc_0, acc_1 at a + h,
                                        // a + 2 h
+  // split: a row's last pass has read the work buffer (and stored its
+  // sums) when every thread has arrived on row_read; a thread waits on it
+  // only before its next store into the buffer, after the next row's loads
+  // and first stages
+  [[maybe_unused]] uint64_t token = 0;
+  if constexpr (split) {
+    if (threadIdx.x == 0) mbar_init(row_read(), kKsThreads);
+  }
   const int r = split ? cluster_rank() : 0;
   const unsigned blk = blockIdx.x / Split<LOGN>::blocks;
   const int p = blk % Lp;
@@ -118,18 +141,8 @@ __device__ __forceinline__ void ks_body(
       const int base = threadIdx.x + g * S::threads;  // radix_base(v, c0)
       uint32_t x[kRadix];
       if constexpr (split) {
-        // each word of both halves reduced, then the top stage
-        const uint32_t w1 = w[0], w1sh = wsh[0];
-        const auto word = [&](int i) {
-          uint32_t v = __ldg(src + i);
-#pragma unroll 1
-          for (int s = 0; s < subs; ++s) v = v >= q ? v - q : v;
-          return v;
-        };
-#pragma unroll
-        for (int j = 0; j < kRadix; ++j) {
-          x[j] = split_word(word, base + (j << c0), h, r, w1, w1sh, q);
-        }
+        // both halves' words, reduced, then the top stage
+        split_words<c0>(x, src, base, h, r, subs, w[0], wsh[0], q);
       } else {
 #pragma unroll
         for (int j = 0; j < kRadix; ++j) x[j] = __ldg(src + base + (j << c0));
@@ -140,6 +153,9 @@ __device__ __forceinline__ void ks_body(
         }
       }
       radix_pass<LOGH, 0, false>(x, base, w, wsh, q);
+      if constexpr (split) {
+        if (g == 0 && k > 0) mbar_wait(row_read(), token);
+      }
       radix_store<c0>(a, x, base);
     }
     __syncthreads();
@@ -203,21 +219,28 @@ __device__ __forceinline__ void ks_body(
         radix_store<0>(acc, y, base);
       }
     }
-    __syncthreads();               // the next row's first pass reuses a
+    // the next row's first pass reuses a
+    if constexpr (split) {
+      token = mbar_arrive(row_read());
+    } else {
+      __syncthreads();
+    }
   }
   // the rest of the two inverse chains
   const uint32_t* wi = radix_opaque(twinv) + prow;
   const uint32_t* wish = radix_opaque(twinv_sh) + prow;
   if constexpr (split) {
-    // the last pass back to shared memory, then the top stage across the
-    // cluster, times fin, into element r h + i of each output row
+    // every sum stored; the last pass back to shared memory, then the top
+    // stage across the cluster, times fin, into elements i and h + i of
+    // each output row
+    mbar_wait(row_read(), token);
     RadixPasses<LOGH, 1, last + 1, true, kKsThreads, 2>::run(a + h, wi, wish,
                                                              q);
-    split_inverse_top<kKsThreads>(
-        a + h, h, 2, r, wi[0], wish[0], pr.fin, pr.fin_sh, q,
+    split_inverse_out<LOGH, kKsThreads, 2>(
+        a + h, r, wi[0], wish[0], pr.fin, pr.fin_sh, q,
         [&](int hh, int i, uint32_t v) {
           out[((static_cast<size_t>(EVAL ? 2 + hh : hh) * Lp + p) * B + b) *
-                  n + half + i] = v;
+                  n + i] = v;
         });
   } else {
     RadixPasses<LOGH, 1, last, true, kKsThreads, 2>::run(a + h, wi, wish, q);

@@ -120,9 +120,10 @@ struct OneBuffer {
 // elements whose bit LOGN - 1 is r, h = n / 2 words of each buffer, and runs
 // the chains of 2^logh = h words: the forward chain's first stage (bit
 // LOGN - 1) pairs element i with i + h, so each block forms it for its own
-// half from both halves of the row in device memory (split_word), and bits
-// logh - 1 .. 0 never leave the block; the inverse chain's last stage reads
-// the peer's half through distributed shared memory (split_inverse_top).
+// half from both halves of the row in device memory (split_word; K7's and
+// K8's split_words), and bits logh - 1 .. 0 never leave the block; the
+// inverse chain's last stage reads the peer's half through distributed
+// shared memory (split_inverse_top; K7's and K8's split_inverse_out).
 // The half's stage at bit j takes root (n >> (j + 1)) + (i' >> (j + 1)) of
 // element i' = r h + i, which the host's split tables put at
 // (h >> (j + 1)) + (i >> (j + 1)) of row (prime, r), and the top stage's
@@ -349,6 +350,43 @@ __device__ __forceinline__ void cluster_sync() {
       "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
+// A barrier in shared memory whose arrival and wait are apart (mbarrier):
+// a thread arrives once its accesses before the barrier are made and goes
+// on with work that touches none of the words they guard, then waits with
+// the token of its arrival before it touches them again; the wait returns
+// once every one of `count` threads has arrived (release at the arrival,
+// acquire at the wait, as __syncthreads).  Thread 0 initialises it, and a
+// block barrier must lie between that and the first arrival.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ uint64_t mbar_arrive(uint64_t* bar) {
+  uint64_t token;
+  asm volatile("mbarrier.arrive.shared::cta.b64 %0, [%1];\n"
+               : "=l"(token)
+               : "r"(smem_addr(bar))
+               : "memory");
+  return token;
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint64_t token) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "l"(token)
+      : "memory");
+}
+
 // The shared::cluster address of p in the shared memory of block `rank`
 // (K10's exchange and the split's last stage).
 __device__ __forceinline__ uint32_t cluster_addr(const void* p, int rank) {
@@ -385,6 +423,89 @@ __device__ __forceinline__ uint32_t split_word(F f, int i, int h, int r,
   const uint32_t v = shoup_mul(f(i + h), w1, w1sh, q);
   const uint32_t lo = f(i);
   return r != 0 ? submod(lo, v, q) : addmod(lo, v, q);
+}
+
+// The 16 words base + (k << C) of block r's half after the forward chain's
+// first stage of a split (Split), read from the whole row src of 2h words
+// (K7's and K8's first pass): the 32 words of both halves issued before
+// any arithmetic, each reduced by `subs` conditional subtractions, then
+// x[k] = lo + w1 hi (r = 0) or lo - w1 hi (r = 1), split_word's arithmetic.
+template <int C>
+__device__ __forceinline__ void split_words(uint32_t (&x)[kRadix],
+                                            const uint32_t* src, int base,
+                                            int h, int r, int subs,
+                                            uint32_t w1, uint32_t w1sh,
+                                            uint32_t q) {
+  uint32_t hi[kRadix];
+#pragma unroll
+  for (int k = 0; k < kRadix; ++k) {
+    x[k] = __ldg(src + base + (k << C));
+    hi[k] = __ldg(src + h + base + (k << C));
+  }
+#pragma unroll 1
+  for (int s = 0; s < subs; ++s) {
+#pragma unroll
+    for (int k = 0; k < kRadix; ++k) {
+      x[k] = x[k] >= q ? x[k] - q : x[k];
+      hi[k] = hi[k] >= q ? hi[k] - q : hi[k];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kRadix; ++k) {
+    const uint32_t v = shoup_mul(hi[k], w1, w1sh, q);
+    x[k] = r != 0 ? submod(x[k], v, q) : addmod(x[k], v, q);
+  }
+}
+
+// The inverse chain's last stage of a split (Split) straight to device
+// memory, once both blocks have run bits 0 .. logh - 1 of each of their
+// NBUF buffers a + k h (swizzled; h = 2^LOGH): block r takes the pairs i in
+// [r h/2, (r + 1) h/2), element i of both halves, one word its own and one
+// the peer's through distributed shared memory, and out(k, i, v) stores elements i ((lo + hi) fin) and h + i ((lo - hi) t
+// fin) of buffer k (lanes on consecutive i), split_top_stage's inverse
+// arithmetic.  Four pairs of every buffer a thread at a time keep 4 NBUF
+// remote loads in flight, and each block reads h/2 words of the peer's
+// half a buffer (split_inverse_top: h, one at a time).  Cluster barriers
+// before (the peer's chains are done) and after (the peer has read this
+// block's words).
+template <int LOGH, int THREADS, int NBUF, typename Out>
+__device__ __forceinline__ void split_inverse_out(const uint32_t* a, int r,
+                                                  uint32_t t, uint32_t tsh,
+                                                  uint32_t fin,
+                                                  uint32_t fin_sh, uint32_t q,
+                                                  Out out) {
+  constexpr int kIn = 4;
+  constexpr int h = 1 << LOGH;
+  static_assert(h / 2 % (kIn * THREADS) == 0, "whole rounds of pairs");
+  cluster_sync();
+  const uint32_t peer = cluster_addr(a, r ^ 1);
+  const int from = r * (h / 2);
+#pragma unroll 1
+  for (int i0 = from + threadIdx.x; i0 < from + h / 2; i0 += kIn * THREADS) {
+    uint32_t mine[NBUF][kIn], other[NBUF][kIn];
+#pragma unroll
+    for (int u = 0; u < kIn; ++u) {
+      const int sw = radix_swizzle(i0 + u * THREADS);
+#pragma unroll
+      for (int k = 0; k < NBUF; ++k) {
+        other[k][u] = cluster_load(peer + 4u * (k * h + sw));
+        mine[k][u] = a[k * h + sw];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < NBUF; ++k) {
+#pragma unroll
+      for (int u = 0; u < kIn; ++u) {
+        const uint32_t x0 = r != 0 ? other[k][u] : mine[k][u];
+        const uint32_t x1 = r != 0 ? mine[k][u] : other[k][u];
+        const int i = i0 + u * THREADS;
+        out(k, i, shoup_mul(addmod(x0, x1, q), fin, fin_sh, q));
+        out(k, h + i, shoup_mul(shoup_mul(submod(x0, x1, q), t, tsh, q), fin,
+                                fin_sh, q));
+      }
+    }
+  }
+  cluster_sync();
 }
 
 // The inverse chain's last stage of a split (Split), once both blocks have

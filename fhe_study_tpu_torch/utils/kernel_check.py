@@ -417,6 +417,7 @@ CONV_SWEEP_LS = tuple(range(1, ext.MAX_SRC + 1))
 KS_SWEEP_R = (1, 2, 4, 9)               # K3's, K7's and K8's digit rows in
 KS_SWEEP_LP = (2, 6)                    # the sweep, and their prime counts
 KS_BOOT_R, KS_BOOT_LOGN = 39, 11        # K7/K8 at the CKKS-bootstrap rows
+KS_PATH_R = 29                          # and at n = 2^15 at phase 19's R = L
 # K3, K7 and K8 at the CKKS linear maps' shape (models/ckks/eval.py at
 # n = 2^12, L = 43, K = 2): R = L digit rows over the L + K primes of Q u P
 KS_MAPS_R, KS_MAPS_LP, KS_MAPS_LOGN = 43, 45, 12
@@ -458,7 +459,8 @@ def radix_cases(logn: int, batch: int, device, gen: prng.Gen) -> list:
           form);
       K7, K8: KS_SWEEP_R limb rows over 30-bit source primes to each of
           KS_SWEEP_LP 28-bit primes (reps >= 2), plus KS_BOOT_R rows to 2
-          primes at n = 2^KS_BOOT_LOGN and KS_MAPS_R rows of its first
+          primes at n = 2^KS_BOOT_LOGN, KS_PATH_R rows to each at n = 2^15
+          (the instance on two-block clusters) and KS_MAPS_R rows of its first
           primes to the KS_MAPS_LP 30-bit primes of Q u P at
           n = 2^KS_MAPS_LOGN; the paths' form (R = L = 4 over the
           same primes, c_limbs and K8's adds strided views of one [L, B, 3,
@@ -582,7 +584,8 @@ def radix_cases(logn: int, batch: int, device, gen: prng.Gen) -> list:
         for lp in KS_SWEEP_LP:
             dst = narrow[:lp]
             boot = lp == 2 and logn == KS_BOOT_LOGN
-            rows = KS_SWEEP_R + ((KS_BOOT_R,) if boot else ())
+            rows = (KS_SWEEP_R + ((KS_BOOT_R,) if boot else ())
+                    + ((KS_PATH_R,) if logn == nc.WIDE_LOGN else ()))
             for R in rows:
                 src = wide[:R]
                 c = torch.stack([res((s,), (batch, n))[0] for s in src])

@@ -2,7 +2,7 @@
 """Time each CUDA kernel of the PyTorch port at the paths' shapes.
 
     python3 fhe_study_tpu_torch/utils/kernel_times.py [--tree DIR] [--batch 128]
-        [--degree15 | --conversion | --paths]
+        [--degree15 | --conversion | --ks15 | --paths]
 
 Times one call of every case of ``utils/kernel_check.cases`` (N = 2^14,
 L = 4, M = 5, t = 256), of ``linear_cases`` (N = 2^12, L = 2, M = 3, 1024
@@ -75,6 +75,18 @@ N = 2^16, L = 14, M = 15 (chip_smoke.py's phase 23 primes) beside K4 + K1.  Wher
 operand, and K5 and K6 at N = 2^14, L = 4, M = 5 in their direct instance
 and forced into the staged layout (outputs held equal).
 
+``--ks15`` times K7 (ks_fused) and K8 (ks_fused_eval) at ring degree 2^15,
+their instance on two-block clusters, at chip_smoke.py's phase 19 shape
+(R = L = 29 limb rows over Q, B = ``--batch``) and at R = L = 14 (phase
+18's Q), each on the device alone beside its bound and beside K1's
+forward of the reduced digit rows then K3 (``yardsticks``' composition,
+held equal to K7 first); K6 over Q and over P from Q at L = 29 and K10's
+split layout at N = 2^16 (l = 5, 16 steps, 64 ciphertexts), whose code
+the instance shares nothing of; and phase 19's ops at N = 2^15, L = 29,
+M = 30, t = 256, B = ``--batch`` (``mul`` and ``mul_e`` with the gadget
+key as chains of 4, ``key_switch`` over 4 calls; best of 3, each
+decrypt-checked first), as ms an op.
+
 ``--paths`` times only the BFV chains: those of phase 6 above (N = 2^14)
 and chip_smoke.py's phase 20 ops at N = 128, t = 16, L = 3, M = 4,
 B = 128 (``mul_e`` and ``mul`` with either key, ``key_switch``), as ms an
@@ -98,6 +110,7 @@ def main() -> None:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--degree15", action="store_true")
     ap.add_argument("--conversion", action="store_true")
+    ap.add_argument("--ks15", action="store_true")
     ap.add_argument("--paths", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -121,6 +134,9 @@ def main() -> None:
         return
     if args.conversion:
         conversion(args, card)
+        return
+    if args.ks15:
+        ks15(args, card)
         return
     if args.paths:
         per_op = {**bfv_chains(R, dev, 4), **small_chains(R, dev, 4)}
@@ -376,6 +392,127 @@ def conversion(args, card: str) -> None:
                       f"{ms:.4f} ms", flush=True)
         finally:
             nc.EXT_NTT_DIRECT, nc.MUL4_DIRECT = saved
+
+
+KS15_REPS = 3
+
+
+def ks15(args, card: str) -> None:
+    """The --ks15 run (see the module docstring)."""
+    from fhe_study_tpu_torch.models import bfv_rns as R
+    from fhe_study_tpu_torch.ops import ntt_cuda as nc
+    from fhe_study_tpu_torch.utils import kernel_check as kc
+    from fhe_study_tpu_torch.utils import prng
+    dev = torch.device("cuda", 0)
+    B, n = args.batch, 1 << 15
+    bound_of = card_bound(kc, dev)
+    busy = torch.zeros(1 << 28, dtype=torch.int32, device=dev)
+
+    def timed(label, case, fn=None):
+        fn = fn or case.kernel
+        fn()
+        ms, _ = events_ms(fn, KS15_REPS, busy)
+        b = bound_of(case)
+        print(f"ks15 {args.tree} [{card}]: {label}: on the device alone "
+              f"{ms:.4f} ms, bound {b.ms:.4f} ms by {b.term}, "
+              f"{b.ms / ms:.3f} of it", flush=True)
+
+    for L in (29, 14):
+        param = R.RnsParam(n=n, t=256, L=L, M=L + 1)
+        qs = param.qs
+        cases = [c for c in kc.cases(param, B, dev, prng.Gen(1),
+                                     res=prng.device_residues(L, dev))
+                 if c.name in ("ks_fused", "ks_fused_eval")
+                 or (c.name == "tensor_mul4" and L == 29)]
+        for case in cases:
+            timed(f"{case.name} {case.label}", case)
+            if case.name != "ks_fused":
+                continue
+            # the limb and key words the split instance reads through L2:
+            # each block both halves of every limb row, its half of both
+            # key rows
+            print(f"ks15 {args.tree}: {case.name} at R=L={L}: limb and key "
+                  f"words through L2 {16 * L * L * B * n / 1e9:.2f} GB a "
+                  f"call, the bound's bytes {case.bytes / 1e9:.3f} GB",
+                  flush=True)
+        # K1's forward (fin = 2^32) of the reduced digit rows, then K3: the
+        # same output from the same limbs and keys as K7's case
+        res = prng.device_residues(L + 100, dev)
+        c3 = res(qs, (B, 3, n))
+        gb, ga = (res(qs, (L, n)).transpose(0, 1).contiguous()
+                  for _ in range(2))
+        d = torch.empty((L, L, B, n), dtype=torch.int32, device=dev)
+        reps = nc.digit_reps(qs, qs)
+        for j, q in enumerate(qs):
+            x = c3[..., 2, :]
+            for _ in range(reps):
+                x = torch.where(x >= q, x - q, x)
+            d[:, j] = x
+        d = d.view(L * L, B, n)
+        mont = tuple((1 << 32) % q for q in qs) * L
+        kern = (lambda: nc.ks_fused_kernel(c3[..., 2, :], gb, ga, qs, qs))
+        comp = (lambda: nc.ks_contract_kernel(
+            nc.ntt_multi_kernel(d, qs * L, fin=mont).view(L, L, B, n),
+            gb, ga, qs))
+        if not kc.equal(kern(), comp()):
+            raise RuntimeError(f"ks15: K1 + K3 != K7 at R=L={L}")
+        k7case = next(c for c in cases if c.name == "ks_fused")
+        timed(f"K1 forward of the R reduced rows + K3 (K7's output) at "
+              f"R=L={L} B={B} n={n}", k7case, comp)
+        del cases, c3, gb, ga, d, kern, comp, k7case
+        torch.cuda.empty_cache()
+    gen = prng.Gen(2)
+    case = kc.blind_rotate_case(1 << 16, 1, 1 << 6, 5, 16, 64, dev, gen,
+                                layout="split")
+    timed(f"blind_rotate {case.label}", case)
+    del case, busy
+    torch.cuda.empty_cache()
+    per_op = gadget_chains(R, dev, B)
+    print(f"ks15 chains {args.tree} [{card}]: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in per_op.items())
+          + f" ms an op (N={n} L=29 M=30 t=256 B={B})", flush=True)
+
+
+def gadget_chains(R, dev, B: int) -> dict:
+    """ms an op of chip_smoke.py's phase 19 ops at N = 2^15, L = 29,
+    M = 30, t = 256: mul and mul_e with the gadget key as chains of 4,
+    key_switch over 4 calls, best of 3; one op of each decrypt-checked
+    against the numpy FFT negacyclic product (key_switch: against the
+    message) first."""
+    from fhe_study_tpu_torch.utils import prng
+    gen = prng.Gen(19)
+    n, t = 1 << 15, 256
+    param = R.RnsParam(n=n, t=t, L=29, M=30)
+    sk, pk = R.new_key(gen, param, dev)
+    rlk = R.rlk_key(gen, param, sk)
+    m = [torch.randint(0, t, (B, n), device=dev) for _ in range(2)]
+    c1, c2 = (R.encrypt(gen, param, pk, mi, batch=(B,)) for mi in m)
+    a, b = (v.cpu().numpy().astype(np.float64) for v in m)
+    lin = np.rint(np.fft.irfft(np.fft.rfft(a, 2 * n) * np.fft.rfft(b, 2 * n),
+                               2 * n)).astype(np.int64)
+    want = (lin[:, :n] - lin[:, n:]) % t
+    x, y = R.to_evals(param, c1), R.to_evals(param, c2)
+    checks = {
+        "mul (RLK)": R.decrypt(param, sk, R.mul(param, rlk, c1, c2)),
+        "mul_e (RLK)": R.decrypt(param, sk, R.from_evals(
+            param, R.mul_e(param, rlk, x, y)))}
+    for label, got in checks.items():
+        if not np.array_equal(got.cpu().numpy(), want):
+            raise RuntimeError(f"gadget_chains: {label} does not decrypt to "
+                               "the product")
+    out = _chain_ms({"mul (RLK)": (lambda c: R.mul(param, rlk, c, c2), c1),
+                     "mul_e (RLK)": (lambda c: R.mul_e(param, rlk, c, y), x)},
+                    4)
+    del rlk, x, y
+    sk2, _ = R.new_key(gen, param, dev)
+    ksk = R.ksk_key(gen, param, sk, sk2)
+    got = R.decrypt(param, sk2, R.key_switch(param, ksk, c1))
+    if not np.array_equal(got.cpu().numpy(), m[0].cpu().numpy()):
+        raise RuntimeError("gadget_chains: key_switch does not decrypt to "
+                           "the message")
+    out.update(_chain_ms({"key_switch": (
+        lambda c: R.key_switch(param, ksk, c1), c1)}, 4))
+    return out
 
 
 def conversion_past_a_block(args, card: str, timed, held) -> None:

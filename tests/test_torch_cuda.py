@@ -120,6 +120,48 @@ def test_radix_kernels_have_no_stack_frame_or_spills(cuda):
         assert (r["stack"], r["spill_stores"], r["spill_loads"]) == (0, 0, 0), r
 
 
+@pytest.mark.parametrize("R", (1, 3, 29))
+def test_ks_fused_cluster_instance_matches_plain(cuda, R):
+    """K7 and K8 at n = 2^15, their instance on two-block clusters
+    (csrc/ks_fused.cuh's ks_body at Split<15>), from R limb rows over
+    30-bit primes to 6 primes of 28 bits (reps >= 2) on 5 polynomials:
+    c_limbs and K8's adds strided views (as bfv_rns hands them in) with
+    aligned keys, then c_limbs, the keys and the adds one word off the
+    16-byte alignment (the keys' word loads), each equal to the plain
+    versions; and neither instance has a stack frame or spills."""
+    n, B = 1 << 15, 5
+    gen = prng.Gen(24 + R)
+    dst = ntt_primes(6, 28, 1 << 16)
+    src = ntt_primes(R, 30, 1 << 16)
+    limbs = torch.stack([prng.uniform_mod_multi(gen, (B, 3, n), (s,), cuda)[0]
+                         for s in src])
+    pair = prng.uniform_mod_multi(gen, (B, 2, n), dst, cuda)
+    kb, ka = (torch.stack([prng.uniform_mod_multi(gen, (n,), dst, cuda)
+                           for _ in range(R)]) for _ in range(2))
+    off = kernel_check._offset_word
+    forms = {"strided": (limbs[..., 2, :], kb, ka,
+                         (pair[..., 0, :], pair[..., 1, :])),
+             "one word off": (off(limbs[..., 2, :].contiguous()), off(kb),
+                              off(ka), (off(pair[..., 0, :].contiguous()),
+                                        off(pair[..., 1, :].contiguous())))}
+    assert ntt_cuda.digit_reps(dst, src) >= 2
+    for label, (c, b, a, adds) in forms.items():
+        for kern, plain, extra in (
+                (ntt_cuda.ks_fused_kernel, ntt_cuda.ks_fused_plain, ()),
+                (ntt_cuda.ks_fused_eval_kernel, ntt_cuda.ks_fused_eval_plain,
+                 (adds,))):
+            got = kern(c, b, a, dst, src, *extra)
+            want = plain(c, b, a, dst, src, *extra)
+            torch.cuda.synchronize()
+            assert kernel_check.equal(got, want), (kern.__name__, label)
+    report = _cuda.ptxas_report(_cuda.build_log())
+    split = [r for r in report if r["kernel"] in ("ks_fused_kernel<15>",
+                                                  "ks_fused_eval_kernel<15>")]
+    assert len(split) == 2
+    for r in split:
+        assert (r["stack"], r["spill_stores"], r["spill_loads"]) == (0, 0, 0), r
+
+
 def test_redesigned_kernels_refuse_another_plan(cuda):
     """K1 and K9 refuse a block size or shared memory other than their
     build's and 16-byte loads from an unaligned row, K12 another block size

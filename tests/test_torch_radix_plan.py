@@ -24,11 +24,15 @@ first forward pass, the contraction summed in the last into two
 accumulators, K8's add chains, lift and eval-domain store, the first
 inverse pass in registers, two inverse chains) equal ks_fused_plain and
 ks_fused_eval_plain from 1, 3 and 4 limb rows and with reps >= 2, the
-cluster split of K6, K7 and K8 at n = 2^15 (the first forward stage formed
-by each block from both halves of the row, bits log n - 2 .. 0 on its own
-half under the split root tables, the last inverse stage from the peer's
-half) equals the plain transforms at n = 2^15 and at smaller n under the
-same split, and every warp's shared-memory access hits 32 distinct banks.  Also the parser
+cluster split of K6 at n = 2^15 (the first forward stage formed by each
+block from both halves of the row, bits log n - 2 .. 0 on its own half
+under the split root tables, the last inverse stage from the peer's half)
+equals the plain transforms at n = 2^15 and at smaller n under the same
+split, K7's and K8's schedule on the cluster (a virtual thread's words of
+both halves read before the reductions and the top stage, the closing
+stage by pairs, half of them a block, straight to the outputs) equals
+ks_fused_plain and ks_fused_eval_plain at n = 2^15 and 2^9, and every
+warp's shared-memory access hits 32 distinct banks.  Also the parser
 of ptxas's register report that chip_smoke.py reads.  Tolerance 0
 throughout.
 """
@@ -750,32 +754,84 @@ def _emulate_ks(limbs, keys, q: int, logn: int, reps: int, fin: int,
     return out if adds is None else torch.cat([evals, out])
 
 
-def _emulate_ks_split(limbs, keys, q: int, logn: int, reps: int, fin: int,
-                      adds=None, lift: int = 0):
-    """K7 or K8 at n = 2^15 on a two-block cluster: block r reduces the
-    words of both halves of each limb, forms its half of the first forward
-    stage (of the adds too), runs the schedule of n/2 words under its split
-    rows on its half of the keys; K8's eval-domain rows are the two halves
-    side by side, the inverse outputs the top stage's."""
-    h = (1 << logn) // 2
+def _emulate_ks_cluster(limbs, keys, q: int, logn: int, reps: int,
+                        fin: int, adds=None, lift: int = 0):
+    """K7 (adds None) or K8 for one (prime, polynomial) on a two-block
+    cluster, as ks_body's split instance runs it at n = 2^15 (and here at
+    any n): block r holds half r of the three buffers and runs the chains
+    of n/2 words under row r of the split tables.  Each row's first pass
+    (split_words) reads a virtual thread's 16 words of both halves of the
+    row, makes the reductions on all 32, then forms block r's half of the
+    top stage and pass 0; the last pass multiplies by row k's key words of
+    half r into the accumulators; K8's add rows as _emulate_ks, the
+    eval-domain rows written by half.  After the rows
+    each block runs its inverse chains to the end in shared memory, and the
+    closing stage (split_inverse_out) gives block r the pairs i in
+    [r h/2, (r + 1) h/2): its own word and the peer's of both halves, and
+    it writes elements i and h + i of each output, times fin."""
+    n = 1 << logn
+    h, hl = n // 2, logn - 1
+    R = limbs.shape[0]
+    plan = nc._radix_plan(hl, nc.MUL4_THREADS, nc.MUL4_BUFFERS)
+    assert plan == nc._mul4_plan(logn) or logn != nc.WIDE_LOGN
     _, fwd, t = _split_roots(q, logn, False)
     _, inv, ti = _split_roots(q, logn, True)
-    d = limbs
-    for _ in range(reps):
-        d = torch.where(d >= q, d - q, d)
-    halves = [_emulate_ks(_top_forward(d, t, q, r),
-                          keys[..., r * h:(r + 1) * h], q, logn - 1, 0, 1,
-                          None if adds is None
-                          else _top_forward(adds, t, q, r),
-                          lift, roots=(fwd[r], inv[r])) for r in (0, 1)]
-    out = _top_inverse(halves[0][-2:], halves[1][-2:], ti, fin, q)
-    if adds is None:
-        return out
-    return torch.cat([torch.cat([halves[0][:2], halves[1][:2]], dim=-1), out])
+    f0, fl, i0 = plan.forward[0], plan.forward[-1], plan.inverse[0]
+    v = torch.arange(h >> nc.RADIX_BITS)[:, None]
+    first = v + (torch.arange(16)[None] << f0.c)
+    assert torch.equal(first, _elements(hl, f0.c))
+    own = _elements(hl, fl.c)
+    sw = _swizzle(own)
+    smem = torch.full((2, nc.MUL4_BUFFERS, h), -1, dtype=torch.int64)
+    evals = torch.full((2, n), -1, dtype=torch.int64)
+    rows = [(limbs[k], reps) for k in range(R)]
+    rows += [] if adds is None else [(a, 0) for a in adds]
+    for k, (row, subs) in enumerate(rows):
+        digit = k < R
+        in_regs = k == R - 1 if adds is None else not digit
+        for r in (0, 1):
+            lo, hi = row[first].clone(), row[h + first].clone()
+            for _ in range(subs):
+                lo = torch.where(lo >= q, lo - q, lo)
+                hi = torch.where(hi >= q, hi - q, hi)
+            x = hi * t % q
+            x = (lo + x) % q if r == 0 else (lo - x) % q
+            _run_pass(x, first, f0, fwd[r], q, hl, False)
+            smem[r][0][_swizzle(first)] = x
+            _through_smem(smem[r], [0], plan.forward[1:-1], fwd[r], q, hl,
+                          False)
+            x = smem[r][0][sw].clone()
+            _run_pass(x, own, fl, fwd[r], q, hl, False)
+            smem[r][0].fill_(-1)              # the next row overwrites it
+            for hh in (0, 1) if digit else (k - R,):
+                if digit:
+                    y = _mont(x, keys[hh][k][r * h + own], q)
+                    if k > 0:
+                        y = (y + smem[r][1 + hh][sw]) % q
+                else:
+                    y = (smem[r][1 + hh][sw] * lift % q + x) % q
+                    evals[hh][r * h + own] = y
+                if in_regs:
+                    _run_pass(y, own, i0, inv[r], q, hl, True)
+                assert int(y.min()) >= 0
+                smem[r][1 + hh][sw] = y
+    for r in (0, 1):
+        _through_smem(smem[r], [1, 2], plan.inverse[1:], inv[r], q, hl, True)
+    out = torch.full((2, n), -1, dtype=torch.int64)
+    for r in (0, 1):
+        i = torch.arange(r * h // 2, (r + 1) * h // 2)
+        for hh in (0, 1):
+            mine = smem[r][1 + hh][_swizzle(i)]
+            other = smem[r ^ 1][1 + hh][_swizzle(i)]
+            x0, x1 = (other, mine) if r else (mine, other)
+            out[hh][i] = (x0 + x1) % q * fin % q
+            out[hh][h + i] = (x0 - x1) % q * ti % q * fin % q
+    assert int(out.min()) >= 0
+    return out if adds is None else torch.cat([evals, out])
 
 
 def _ks(logn: int):
-    return _emulate_ks_split if logn == nc.WIDE_LOGN else _emulate_ks
+    return _emulate_ks_cluster if logn == nc.WIDE_LOGN else _emulate_ks
 
 
 # a destination prime of 26 bits against 30-bit source primes: reps >= 2
@@ -826,6 +882,36 @@ def test_k8_schedule_equals_plain(logn):
             tuple(a[None].int() for a in adds))
         got = _ks(logn)(limbs, keys, q, logn, reps, pow(n, -1, q), adds,
                         (1 << 32) % q)
+        assert torch.equal(got, torch.stack([w[0, 0] for w in want]).long())
+
+
+# K7 and K8 on the cluster schedule of n = 2^15 from R = 1
+# and 3 limb rows, the second with reps >= 2, at 2^15 and at n = 2^9 split
+# the same way
+KS_CLUSTER_CASES = ((WIDE_PRIMES[2], 1, False), (NARROW, 3, True))
+
+
+@pytest.mark.parametrize("logn", (9, nc.WIDE_LOGN))
+@pytest.mark.parametrize("evalf", (False, True), ids=("k7", "k8"))
+def test_ks_cluster_schedule_equals_plain(logn, evalf):
+    n = 1 << logn
+    rng = np.random.default_rng(700 + logn + 50 * evalf)
+    for q, R, wide in KS_CLUSTER_CASES:
+        limbs, keys, src = _ks_inputs(rng, logn, q, R, wide)
+        reps = nc.digit_reps((q,), src)
+        assert reps >= 2 or not wide
+        kb, ka = (k[:, None].int() for k in keys)
+        if evalf:
+            adds = torch.from_numpy(rng.integers(0, q, (2, n)))
+            want = nc.ks_fused_eval_plain(limbs[:, None].int(), kb, ka, (q,),
+                                          src, tuple(a[None].int()
+                                                     for a in adds))
+            got = _emulate_ks_cluster(limbs, keys, q, logn, reps,
+                                      pow(n, -1, q), adds, (1 << 32) % q)
+        else:
+            want = nc.ks_fused_plain(limbs[:, None].int(), kb, ka, (q,), src)
+            got = _emulate_ks_cluster(limbs, keys, q, logn, reps,
+                                      nc._tensor_fin((q,), n, None)[0])
         assert torch.equal(got, torch.stack([w[0, 0] for w in want]).long())
 
 
