@@ -120,10 +120,12 @@ struct OneBuffer {
 // elements whose bit LOGN - 1 is r, h = n / 2 words of each buffer, and runs
 // the chains of 2^logh = h words: the forward chain's first stage (bit
 // LOGN - 1) pairs element i with i + h, so each block forms it for its own
-// half from both halves of the row in device memory (split_word; K7's and
-// K8's split_words), and bits logh - 1 .. 0 never leave the block; the
+// half from both halves of the row in device memory (split_words), or,
+// where each word costs a conversion (K6 from a source basis), converts
+// only its own half and runs the stage across the cluster
+// (split_top_stage); bits logh - 1 .. 0 never leave the block; the
 // inverse chain's last stage reads the peer's half through distributed
-// shared memory (split_inverse_top; K7's and K8's split_inverse_out).
+// shared memory (split_inverse_out).
 // The half's stage at bit j takes root (n >> (j + 1)) + (i' >> (j + 1)) of
 // element i' = r h + i, which the host's split tables put at
 // (h >> (j + 1)) + (i >> (j + 1)) of row (prime, r), and the top stage's
@@ -415,7 +417,7 @@ __device__ __forceinline__ void cluster_store(uint32_t addr, uint32_t v) {
 
 // Element i of block r's half after the forward chain's first stage of a
 // split (Split): x[i] + w1 x[i + h] (r = 0) or x[i] - w1 x[i + h] (r = 1),
-// from the words f(i) and f(i + h) of the whole row.
+// from the words f(i) and f(i + h) of the whole row (K10's split forward).
 template <typename F>
 __device__ __forceinline__ uint32_t split_word(F f, int i, int h, int r,
                                                uint32_t w1, uint32_t w1sh,
@@ -427,9 +429,10 @@ __device__ __forceinline__ uint32_t split_word(F f, int i, int h, int r,
 
 // The 16 words base + (k << C) of block r's half after the forward chain's
 // first stage of a split (Split), read from the whole row src of 2h words
-// (K7's and K8's first pass): the 32 words of both halves issued before
-// any arithmetic, each reduced by `subs` conditional subtractions, then
-// x[k] = lo + w1 hi (r = 0) or lo - w1 hi (r = 1), split_word's arithmetic.
+// (K6's over its destination basis, K7's and K8's first pass): the 32
+// words of both halves issued before any arithmetic, each reduced by
+// `subs` conditional subtractions, then x[k] = lo + w1 hi (r = 0) or
+// lo - w1 hi (r = 1), split_word's arithmetic.
 template <int C>
 __device__ __forceinline__ void split_words(uint32_t (&x)[kRadix],
                                             const uint32_t* src, int base,
@@ -461,13 +464,14 @@ __device__ __forceinline__ void split_words(uint32_t (&x)[kRadix],
 // memory, once both blocks have run bits 0 .. logh - 1 of each of their
 // NBUF buffers a + k h (swizzled; h = 2^LOGH): block r takes the pairs i in
 // [r h/2, (r + 1) h/2), element i of both halves, one word its own and one
-// the peer's through distributed shared memory, and out(k, i, v) stores elements i ((lo + hi) fin) and h + i ((lo - hi) t
-// fin) of buffer k (lanes on consecutive i), split_top_stage's inverse
+// the peer's through distributed shared memory, and out(k, i, v) stores
+// elements i ((lo + hi) fin) and h + i ((lo - hi) t fin) of buffer k
+// (lanes on consecutive i), split_top_stage's inverse
 // arithmetic.  Four pairs of every buffer a thread at a time keep 4 NBUF
 // remote loads in flight, and each block reads h/2 words of the peer's
-// half a buffer (split_inverse_top: h, one at a time).  Cluster barriers
-// before (the peer's chains are done) and after (the peer has read this
-// block's words).
+// half a buffer.  Cluster barriers before (the peer's chains are done) and
+// after (the peer has read this block's words: a block's shared memory
+// must outlive the peer's reads).
 template <int LOGH, int THREADS, int NBUF, typename Out>
 __device__ __forceinline__ void split_inverse_out(const uint32_t* a, int r,
                                                   uint32_t t, uint32_t tsh,
@@ -508,44 +512,14 @@ __device__ __forceinline__ void split_inverse_out(const uint32_t* a, int r,
   cluster_sync();
 }
 
-// The inverse chain's last stage of a split (Split), once both blocks have
-// run bits 0 .. logh - 1 of each of their nbuf buffers a + k h: block 0
-// forms lo + hi, block 1 (lo - hi) t, the peer's word read through
-// distributed shared memory, and out(k, i, v times fin) stores element
-// r h + i of buffer k (lanes on consecutive i).  Cluster barriers before
-// (the peer's chains are done) and after (the peer has read this block's
-// words: a block's shared memory must outlive the peer's reads).
-template <int THREADS, typename Out>
-__device__ __forceinline__ void split_inverse_top(const uint32_t* a, int h,
-                                                  int nbuf, int r, uint32_t t,
-                                                  uint32_t tsh, uint32_t fin,
-                                                  uint32_t fin_sh, uint32_t q,
-                                                  Out out) {
-  cluster_sync();
-  const uint32_t peer = cluster_addr(a, r ^ 1);
-#pragma unroll 1
-  for (int i = threadIdx.x; i < h; i += THREADS) {
-    const int sw = radix_swizzle(i);
-#pragma unroll 1
-    for (int k = 0; k < nbuf; ++k) {
-      const int word = k * h + sw;
-      const uint32_t own = a[word];
-      const uint32_t other = cluster_load(peer + 4u * word);
-      const uint32_t v =
-          r != 0 ? shoup_mul(submod(other, own, q), t, tsh, q)
-                 : addmod(own, other, q);
-      out(k, i, shoup_mul(v, fin, fin_sh, q));
-    }
-  }
-  cluster_sync();
-}
-
 // The top stage (bit log n - 1) of a polynomial of n = 2h words whose
 // halves stay in the shared memory (swizzled) of two blocks of a cluster,
 // in place, for a polynomial that outlives the stage on the chip (K10's
 // and K12's split at n = 2^16, csrc/blind_rotate_split_cuda.cu and
-// csrc/bench_cuda.cu): pair i (element i of half 0 with element i of
-// half 1) is one butterfly, forward x0 + t x1, x0 - t x1 or inverse
+// csrc/bench_cuda.cu, and K6's forward stage from a source basis at
+// n = 2^15, csrc/tensor_mul4.cuh): pair i (element i of half 0 with
+// element i of half 1) is one butterfly, forward x0 + t x1, x0 - t x1 or
+// inverse
 // (x0 + x1) fin, (x0 - x1) t fin, and the block of half `half` takes the
 // pairs i in [half h/2, (half + 1) h/2), reading and writing the word of
 // its own half in its shared memory and the peer's through distributed

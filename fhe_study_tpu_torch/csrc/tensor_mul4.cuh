@@ -33,10 +33,6 @@ constexpr int kMul4Side =
 // once per polynomial, not once per destination block).
 constexpr int kNoSrc = -1;
 
-// Words of the split's half a thread converts at once in the staged form,
-// each with its partner h words on: 2 x 8 loads issued together a source.
-constexpr int kSplitRun = kRadix / 2;
-
 // Word i of an operand row under destination prime p: the word itself, or
 // its conversion from the source rows, sl words apart (LS = 4).
 template <int LS>
@@ -134,45 +130,57 @@ tensor_mul4_kernel(const uint32_t* __restrict__ x0,
       }
       __syncthreads();
     }
-    if constexpr (split) {
-      // the first forward stage (bit 14) from both halves of the row, word
-      // by word with lanes on consecutive words, into this block's half;
-      // then the chain of the half from shared memory (nothing of the
-      // stage sits in registers beside x0's words)
+    if constexpr (split && LS == kNoSrc) {
+      // a virtual thread's 16 words of both halves of the row, 32 loads in
+      // flight (split_words), the first forward stage (bit 14) into this
+      // block's half and pass 0 in registers
       const uint32_t w1 = radix_opaque(wk)[0];
       const uint32_t w1sh = radix_opaque(wshk)[0];
-      if constexpr (LS == kStagedSrc) {
-        // kSplitRun words of the half and their partners a run, each
-        // word's sum over the sources formed from the lift's rows (both
-        // blocks of the pair form the sums of the whole row: the y_i and
-        // alpha are the lift's, once per polynomial)
-        constexpr int run = kSplitRun * S::threads;
-        static_assert(h % run == 0, "whole runs of the half");
-        const uint32_t* lrow = radix_opaque(src);
 #pragma unroll 1
-        for (int i0 = threadIdx.x; i0 < h; i0 += run) {
-          uint32_t v[2 * kSplitRun];
-          ext_from_lift(v, lrow, static_cast<size_t>(sl), column, Ls, q,
-                        [&](int m) {
-                          return i0 + (m % kSplitRun) * S::threads +
-                                 (m / kSplitRun) * h;
-                        });
-#pragma unroll
-          for (int m = 0; m < kSplitRun; ++m) {
-            const uint32_t t = shoup_mul(v[kSplitRun + m], w1, w1sh, q);
-            buf[radix_swizzle(i0 + m * S::threads)] =
-                r != 0 ? submod(v[m], t, q) : addmod(v[m], t, q);
-          }
-        }
-      } else {
-#pragma unroll 1
-        for (int i = threadIdx.x; i < h; i += S::threads) {
-          buf[radix_swizzle(i)] = split_word(
-              [&](int t) { return mul4_word<LS>(src, sl, t, e, p); }, i, h,
-              r, w1, w1sh, q);
-        }
+      for (int g = 0; g < S::groups; ++g) {
+        const int base = threadIdx.x + g * S::threads;  // radix_base(v, c0)
+        uint32_t x[kRadix];
+        split_words<c0>(x, src, base, h, r, 0, w1, w1sh, q);
+        radix_pass<LOGH, 0, false>(x, base, radix_opaque(wk),
+                                   radix_opaque(wshk), q);
+        radix_store<c0>(buf, x, base);
       }
       __syncthreads();
+      RadixPasses<LOGH, 1, last, false, kMul4Threads>::run(buf, wk, wshk, q);
+    } else if constexpr (split) {
+      // with a source basis each block converts only the words of its own
+      // half, r h + i (from the lift's rows, or each word from 4 sources),
+      // 16 a thread at a time with lanes on consecutive words, into its
+      // buffer; then the first forward stage in place across the cluster
+      // (each block half of the pairs, the peer's words through distributed
+      // shared memory), and the chain of the half from shared memory.  The
+      // first cluster barrier also orders the peer's taking x0 out of
+      // buffer 2 (k = 3) before this block's stage writes into it.
+      constexpr int run = kRadix * S::threads;
+      static_assert(h % run == 0, "whole runs of the half");
+      const uint32_t* half = radix_opaque(src) + r * h;
+#pragma unroll 1
+      for (int i0 = threadIdx.x; i0 < h; i0 += run) {
+        uint32_t v[kRadix];
+        if constexpr (LS == kStagedSrc) {
+          ext_from_lift(v, half, static_cast<size_t>(sl), column, Ls, q,
+                        [&](int m) { return i0 + m * S::threads; });
+        } else {
+#pragma unroll
+          for (int m = 0; m < kRadix; ++m) {
+            v[m] = mul4_word<LS>(half, sl, i0 + m * S::threads, e, p);
+          }
+        }
+#pragma unroll
+        for (int m = 0; m < kRadix; ++m) {
+          buf[radix_swizzle(i0 + m * S::threads)] = v[m];
+        }
+      }
+      cluster_sync();
+      split_top_stage<LOGH, kMul4Threads, false>(
+          buf, r, cluster_addr(buf, r ^ 1), radix_opaque(wk)[0],
+          radix_opaque(wshk)[0], 0, 0, q);
+      cluster_sync();
       RadixPasses<LOGH, 0, last, false, kMul4Threads>::run(buf, wk, wshk, q);
     } else if constexpr (LS == kStagedSrc) {
       // each word's sum from the lift's rows goes to shared memory as it is
@@ -222,7 +230,11 @@ tensor_mul4_kernel(const uint32_t* __restrict__ x0,
         radix_pass<LOGH, last, false>(x, base, wk, wshk, q);
         radix_store<0>(buf, x, base);
       }
-      __syncthreads();
+      // split: no barrier, since the next thread to read these words is the
+      // one that stored them (x0 leaving buffer 2, the products), and the
+      // next operand's first stores go to another buffer or wait on the
+      // barrier after x0 leaves
+      if constexpr (!split) __syncthreads();
     }
   }
   // 3. x1's last pass; the products one at a time, each through the first
@@ -275,14 +287,15 @@ tensor_mul4_kernel(const uint32_t* __restrict__ x0,
   wish = radix_opaque(wish);
   if constexpr (split) {
     // the last pass back to shared memory, then the top stage across the
-    // cluster, times fin, into element r h + i of each product
+    // cluster by pairs, times fin, into elements i and h + i of each
+    // product for this block's half of the pairs
     RadixPasses<LOGH, 1, last + 1, true, kMul4Threads, 3>::run(a, wi, wish,
                                                                q);
     const uint32_t fin = cons[4 * p + 2], fin_sh = cons[4 * p + 3];
     uint32_t* out3 = out + (static_cast<size_t>(p) * B + b) * 3 * n;
-    split_inverse_top<kMul4Threads>(
-        a, h, 3, r, wi[0], wish[0], fin, fin_sh, q,
-        [&](int k, int i, uint32_t v) { out3[k * n + r * h + i] = v; });
+    split_inverse_out<LOGH, kMul4Threads, 3>(
+        a, r, wi[0], wish[0], fin, fin_sh, q,
+        [&](int k, int i, uint32_t v) { out3[k * n + i] = v; });
   } else {
     RadixPasses<LOGH, 1, last, true, kMul4Threads, 3>::run(a, wi, wish, q);
     const uint32_t fin = cons[4 * p + 2], fin_sh = cons[4 * p + 3];

@@ -24,14 +24,21 @@
 // two virtual threads each at n = 2^14, with up to 128 registers a thread.
 // At n = 2^15 (384 KB) a cluster of two such blocks takes each (dst prime,
 // polynomial), block r holding the elements whose top bit is r
-// (radix_chain.cuh's Split): the first forward stage is formed word by word
-// from both halves of each operand row into the block's half (with a source
-// basis, each block forms the sums of the words of both halves), the chain
-// of the half runs from there as below, with x0's words of the second group of
-// virtual threads kept in 32 KB of shared memory beside the buffers (224 KB
-// a block: 128 registers hold only one group beside x1's chain), and the
-// last inverse stage reads the peer's half of the three products through
-// distributed shared memory.
+// (radix_chain.cuh's Split).  Over the destination basis the first pass
+// reads a virtual thread's 16 words of both halves of the operand row (32
+// loads in flight, split_words) and forms the first forward stage and pass
+// 0 in registers; with a source basis each block converts only the words
+// of its own half (half the conversion and half the lift's reads through
+// L2) and the first stage runs in place across the cluster, each block half
+// of the pairs through distributed shared memory (split_top_stage), between
+// two cluster barriers.  The chain of the half runs from there as below,
+// with x0's words of the second group of virtual threads kept in 32 KB of
+// shared memory beside the buffers (224 KB a block: 128 registers hold only
+// one group beside x1's chain), no barrier after a forward chain's last pass
+// (a thread alone reads its words again), and the last inverse stage by
+// pairs, each block half of them with the peer's words through distributed
+// shared memory, both elements of a pair stored (split_inverse_out).  Its
+// phases are measured by utils/ks_phases.py --k6.
 //   1. the forward chains of y0, y1 and x0 into buffers 0, 1, 2, and of x1
 //      into buffer 2 but for its last pass, one operand after another in a
 //      run-time loop (one copy of the chain's code); the first pass reads

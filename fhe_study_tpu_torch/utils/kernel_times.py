@@ -75,17 +75,22 @@ N = 2^16, L = 14, M = 15 (chip_smoke.py's phase 23 primes) beside K4 + K1.  Wher
 operand, and K5 and K6 at N = 2^14, L = 4, M = 5 in their direct instance
 and forced into the staged layout (outputs held equal).
 
-``--ks15`` times K7 (ks_fused) and K8 (ks_fused_eval) at ring degree 2^15,
-their instance on two-block clusters, at chip_smoke.py's phase 19 shape
-(R = L = 29 limb rows over Q, B = ``--batch``) and at R = L = 14 (phase
-18's Q), each on the device alone beside its bound and beside K1's
-forward of the reduced digit rows then K3 (``yardsticks``' composition,
-held equal to K7 first); K6 over Q and over P from Q at L = 29 and K10's
-split layout at N = 2^16 (l = 5, 16 steps, 64 ciphertexts), whose code
-the instance shares nothing of; and phase 19's ops at N = 2^15, L = 29,
-M = 30, t = 256, B = ``--batch`` (``mul`` and ``mul_e`` with the gadget
-key as chains of 4, ``key_switch`` over 4 calls; best of 3, each
-decrypt-checked first), as ms an op.
+``--ks15`` times the three-buffer kernels at ring degree 2^15, their
+instance on two-block clusters, at the BFV paths' shapes
+(``kernel_check.cases`` at N = 2^15, M = L + 1, t = 256, B = ``--batch``,
+for chip_smoke.py's phase 19 L = 29 and phase 18's L = 14), each on the
+device alone beside its bound: K6 (tensor_mul4) over Q and over P from Q
+(staged), ``tensor_mul`` on the stacked operand, K7 (ks_fused) and K8
+(ks_fused_eval) at R = L; beside K6 over P the composition K4 on the four
+operands stacked then K6 over P (held equal to it first) and the lift's
+words the staged instance reads through L2, beside K7 K1's forward of the
+reduced digit rows then K3 (``yardsticks``' composition, held equal to K7
+first); K10's split layout at N = 2^16 (l = 5, 16 steps, 64 ciphertexts),
+whose code the instance shares nothing of; then phase 19's ops at L = 29
+(``mul`` and ``mul_e`` with the gadget key as chains of 4,
+``key_switch`` over 4 calls) and phase 18's ``mul`` with the hybrid key
+at L = 14, K = 15 (a chain of 4); best of 3, each decrypt-checked first,
+as ms an op.
 
 ``--paths`` times only the BFV chains: those of phase 6 above (N = 2^14)
 and chip_smoke.py's phase 20 ops at N = 128, t = 16, L = 3, M = 4,
@@ -400,6 +405,7 @@ KS15_REPS = 3
 def ks15(args, card: str) -> None:
     """The --ks15 run (see the module docstring)."""
     from fhe_study_tpu_torch.models import bfv_rns as R
+    from fhe_study_tpu_torch.ops import ext_cuda
     from fhe_study_tpu_torch.ops import ntt_cuda as nc
     from fhe_study_tpu_torch.utils import kernel_check as kc
     from fhe_study_tpu_torch.utils import prng
@@ -417,13 +423,13 @@ def ks15(args, card: str) -> None:
               f"{ms:.4f} ms, bound {b.ms:.4f} ms by {b.term}, "
               f"{b.ms / ms:.3f} of it", flush=True)
 
+    names = ("tensor_mul4", "tensor_mul", "ks_fused", "ks_fused_eval")
     for L in (29, 14):
         param = R.RnsParam(n=n, t=256, L=L, M=L + 1)
-        qs = param.qs
+        qs, ps, M = param.qs, param.ps, L + 1
         cases = [c for c in kc.cases(param, B, dev, prng.Gen(1),
                                      res=prng.device_residues(L, dev))
-                 if c.name in ("ks_fused", "ks_fused_eval")
-                 or (c.name == "tensor_mul4" and L == 29)]
+                 if c.name in names]
         for case in cases:
             timed(f"{case.name} {case.label}", case)
             if case.name != "ks_fused":
@@ -435,6 +441,31 @@ def ks15(args, card: str) -> None:
                   f"words through L2 {16 * L * L * B * n / 1e9:.2f} GB a "
                   f"call, the bound's bytes {case.bytes / 1e9:.3f} GB",
                   flush=True)
+        # K4 on the four operands stacked, then K6 over P without a source
+        # basis: K6 over P's output from the same operands
+        res = prng.device_residues(L + 200, dev)
+        ct = [res(qs, (B, n)) for _ in range(4)]
+        t_p = (param.t,) * M
+        kern = (lambda: nc.tensor_mul4_kernel(*ct, ps, scale=t_p, src=qs))
+
+        def comp():
+            e = ext_cuda.base_extend_fused_kernel(torch.stack(ct, dim=-2),
+                                                  qs, ps)
+            return nc.tensor_mul4_kernel(*(e[..., i, :] for i in range(4)),
+                                         ps, scale=t_p)
+        if not kc.equal(kern(), comp()):
+            raise RuntimeError(f"ks15: K4 + K6 != K6 over P at L={L}")
+        k6p = next(c for c in cases if c.label.startswith("P basis"))
+        timed(f"K4 + K6 over P (K6 over P's output) at L={L} M={M} B={B} "
+              f"n={n}", k6p, comp)
+        # the lift's rows (L + 1 of each of 4 operands) that the staged
+        # instance's 2 M B blocks read through L2, h = n / 2 words each
+        own = 2 * M * B * 4 * (L + 1) * (n // 2) * 4
+        print(f"ks15 {args.tree}: tensor_mul4 over P from {L}: lift words "
+              f"through L2 {own / 1e9:.2f} GB a call with each block its own "
+              f"half ({2 * own / 1e9:.2f} GB with both halves), the bound's "
+              f"bytes {k6p.bytes / 1e9:.3f} GB", flush=True)
+        del ct, kern, comp, k6p
         # K1's forward (fin = 2^32) of the reduced digit rows, then K3: the
         # same output from the same limbs and keys as K7's case
         res = prng.device_residues(L + 100, dev)
@@ -468,9 +499,35 @@ def ks15(args, card: str) -> None:
     del case, busy
     torch.cuda.empty_cache()
     per_op = gadget_chains(R, dev, B)
+    per_op.update(hybrid_mul_chain(R, dev, B))
     print(f"ks15 chains {args.tree} [{card}]: "
           + ", ".join(f"{k} {v:.4f}" for k, v in per_op.items())
-          + f" ms an op (N={n} L=29 M=30 t=256 B={B})", flush=True)
+          + f" ms an op (N={n} t=256 B={B}; RLK at L=29 M=30, HRLK at "
+          "L=14 M=15 K=15)", flush=True)
+
+
+def hybrid_mul_chain(R, dev, B: int) -> dict:
+    """ms an op of chip_smoke.py's phase 18 ``mul`` with the hybrid key at
+    N = 2^15, L = 14, M = 15, K = 15, t = 256: a chain of 4, best of 3,
+    one op decrypt-checked against the numpy FFT negacyclic product
+    first."""
+    from fhe_study_tpu_torch.utils import prng
+    gen = prng.Gen(18)
+    n, t = 1 << 15, 256
+    param = R.RnsParam(n=n, t=t, L=14, M=15)
+    sk, pk = R.new_key(gen, param, dev)
+    hk = R.hybrid_rlk1(gen, param, sk, K=15)
+    m = [torch.randint(0, t, (B, n), device=dev) for _ in range(2)]
+    c1, c2 = (R.encrypt(gen, param, pk, mi, batch=(B,)) for mi in m)
+    a, b = (v.cpu().numpy().astype(np.float64) for v in m)
+    lin = np.rint(np.fft.irfft(np.fft.rfft(a, 2 * n) * np.fft.rfft(b, 2 * n),
+                               2 * n)).astype(np.int64)
+    got = R.decrypt(param, sk, R.mul(param, hk, c1, c2))
+    if not np.array_equal(got.cpu().numpy(), (lin[:, :n] - lin[:, n:]) % t):
+        raise RuntimeError("hybrid_mul_chain: mul (HRLK) does not decrypt "
+                           "to the product")
+    return _chain_ms({"mul (HRLK)": (lambda c: R.mul(param, hk, c, c2), c1)},
+                     4)
 
 
 def gadget_chains(R, dev, B: int) -> dict:

@@ -162,6 +162,44 @@ def test_ks_fused_cluster_instance_matches_plain(cuda, R):
         assert (r["stack"], r["spill_stores"], r["spill_loads"]) == (0, 0, 0), r
 
 
+@pytest.mark.parametrize("ls", (0, 4, 14, 29, 31))
+def test_tensor_mul4_cluster_instance_matches_plain(cuda, ls):
+    """K6 and tensor_mul at n = 2^15, their instance on two-block clusters
+    (csrc/tensor_mul4.cuh at Split<15>), on 5 polynomials with a scale:
+    over 6 destination primes (ls = 0; tensor_mul on the stacked rows),
+    direct from 4 source primes, staged from 14, 29 and 31; the operands
+    strided views of one [Ls, B, 4, n] tensor, then each one word off the
+    16-byte alignment, each equal to the plain versions; and no
+    tensor_mul4_kernel<15, *> instance has a stack frame or spills."""
+    n, B = 1 << 15, 5
+    dst = ntt_primes(6, 28, 1 << 16)
+    src = ntt_primes(ls, 30, 1 << 16) if ls else None
+    scale = tuple(range(3, 3 + len(dst)))
+    res = prng.device_residues(25 + ls, cuda)
+    four = res(src or dst, (B, 4, n))
+    off = kernel_check._offset_word
+    forms = {"strided": [four[..., i, :] for i in range(4)],
+             "one word off": [off(four[..., i, :].contiguous())
+                              for i in range(4)]}
+    for label, ops in forms.items():
+        got = ntt_cuda.tensor_mul4_kernel(*ops, dst, scale=scale, src=src)
+        want = ntt_cuda.tensor_mul4_plain(*ops, dst, scale=scale, src=src)
+        torch.cuda.synchronize()
+        assert kernel_check.equal(got, want), ("tensor_mul4", label)
+    if src is None:
+        for label, x4 in (("stacked", four), ("one word off", off(four))):
+            got = ntt_cuda.tensor_mul_kernel(x4, dst, scale=scale)
+            want = ntt_cuda.tensor_mul_plain(x4, dst, scale=scale)
+            torch.cuda.synchronize()
+            assert kernel_check.equal(got, want), ("tensor_mul", label)
+    report = _cuda.ptxas_report(_cuda.build_log())
+    split = [r for r in report
+             if r["kernel"].startswith("tensor_mul4_kernel<15,")]
+    assert len(split) == 3
+    for r in split:
+        assert (r["stack"], r["spill_stores"], r["spill_loads"]) == (0, 0, 0), r
+
+
 def test_redesigned_kernels_refuse_another_plan(cuda):
     """K1 and K9 refuse a block size or shared memory other than their
     build's and 16-byte loads from an unaligned row, K12 another block size

@@ -24,14 +24,18 @@ first forward pass, the contraction summed in the last into two
 accumulators, K8's add chains, lift and eval-domain store, the first
 inverse pass in registers, two inverse chains) equal ks_fused_plain and
 ks_fused_eval_plain from 1, 3 and 4 limb rows and with reps >= 2, the
-cluster split of K6 at n = 2^15 (the first forward stage formed by each
-block from both halves of the row, bits log n - 2 .. 0 on its own half
-under the split root tables, the last inverse stage from the peer's half)
-equals the plain transforms at n = 2^15 and at smaller n under the same
-split, K7's and K8's schedule on the cluster (a virtual thread's words of
-both halves read before the reductions and the top stage, the closing
-stage by pairs, half of them a block, straight to the outputs) equals
-ks_fused_plain and ks_fused_eval_plain at n = 2^15 and 2^9, and every
+cluster split of n = 2^15 (the first forward stage formed by each block
+from both halves of the row, bits log n - 2 .. 0 on its own half under the
+split root tables, the last inverse stage from the peer's half) equals the
+plain transforms at n = 2^15 and at smaller n under the same split, K6's
+schedule on the cluster (over the destination prime a virtual thread's
+words of both halves and pass 0 in registers; from a source basis each
+block's own half's words, directly or from the lift's rows, and the first
+stage across the cluster by pairs; the closing stage by pairs) equals
+tensor_mul4_plain, K7's and K8's (a virtual thread's words of both halves
+read before the reductions and the top stage, the closing stage by pairs,
+half of them a block, straight to the outputs) equal ks_fused_plain and
+ks_fused_eval_plain, each at n = 2^15 and 2^9, and every
 warp's shared-memory access hits 32 distinct banks.  Also the parser
 of ptxas's register report that chip_smoke.py reads.  Tolerance 0
 throughout.
@@ -239,7 +243,7 @@ def _top_forward(row, t: int, q: int, r: int):
 
 def _top_inverse(lo, hi, t: int, fin: int, q: int):
     """The inverse chain's last stage (bit log n - 1) from the two
-    blocks' halves, times fin (split_inverse_top): block 0 lo + hi, block 1
+    blocks' halves, times fin: block 0 lo + hi, block 1
     (lo - hi) t, each reading the peer's word."""
     return torch.cat([(lo + hi) % q * fin % q,
                       (lo - hi) % q * t % q * fin % q], dim=-1)
@@ -507,7 +511,7 @@ def _through_smem(smem, bufs, passes, roots, q: int, logn: int,
             smem[b][sw] = r
 
 
-def _emulate_k6(x0, x1, y0, y1, q: int, logn: int, fin: int, roots=None):
+def _emulate_k6(x0, x1, y0, y1, q: int, logn: int, fin: int):
     """K6's data flow on four operand rows over q (a source basis converted
     word by word as the first pass reads it), three shared-memory buffers:
     y0, y1, x0 forward into buffers 0, 1, 2, one after another; each virtual
@@ -516,12 +520,11 @@ def _emulate_k6(x0, x1, y0, y1, q: int, logn: int, fin: int, roots=None):
     x0 y0 in registers from x1, x0 and its own words of buffers 0 and 1, runs
     the first inverse pass on each and stores it into buffer 2, 1, 0 at the
     same words; the rest of the three inverse chains, the last pass times
-    fin, lanes on consecutive words.  ``roots``, where given, is the pair
-    of (forward, inverse) root tables (the rows of a split)."""
+    fin, lanes on consecutive words."""
     n = 1 << logn
     plan = nc._mul4_plan(logn)
-    fwd, inv = roots or (nc._roots_plain((q,), n, inv, CPU)[0]
-                         for inv in (False, True))
+    fwd, inv = (nc._roots_plain((q,), n, inv, CPU)[0]
+                for inv in (False, True))
     smem = torch.full((nc.MUL4_BUFFERS, n), -1, dtype=torch.int64)
     v = torch.arange(n >> nc.RADIX_BITS)[:, None]
     first = v + (torch.arange(16)[None] << (logn - 4))
@@ -574,50 +577,184 @@ def _emulate_k6(x0, x1, y0, y1, q: int, logn: int, fin: int, roots=None):
     return out
 
 
-def _emulate_k6_split(x0, x1, y0, y1, q: int, logn: int, fin: int):
-    """K6 at n = 2^15 on a two-block cluster: block r forms its half of
-    each operand's first forward stage, runs K6's schedule of n/2 words under
-    its split rows, and the top inverse stage combines the halves."""
+def _emulate_k6_cluster(ops, q: int, logn: int, fin: int, convert=None):
+    """K6 for one (prime, polynomial) on a two-block cluster, as
+    tensor_mul4_kernel's split instance runs it at n = 2^15 (and here at any
+    n): block r holds half r of the three buffers and runs the chains of
+    n/2 words under row r of the split tables, the operands in the kernel's
+    order y0, y1, x0, x1.  Over the destination prime (convert None, ops the
+    four rows [n] over q) each operand's first pass (split_words) reads a
+    virtual thread's 16 words of both halves of the row, forms block r's
+    half of the top stage and runs pass 0 in registers.  From a source
+    basis (ops the four operands' rows [.., n] as the kernel reads them,
+    convert(rows) their words over q: the conversion from 4 source rows, or
+    the sums from the lift's rows) block r converts only the words of its
+    own half, r h + i, 16 a thread with lanes on consecutive words, into its
+    buffer; then the top stage by pairs across the cluster (block r takes
+    the pairs i in [r h/2, (r + 1) h/2), its own word and the peer's, and
+    writes both), and the chain of the half from pass 0 in shared memory.
+    Then K6's schedule on each half (_emulate_k6): x0's words into
+    registers before x1 enters buffer 2, x1's last pass forming the three
+    products and the first inverse pass; the inverse chains to their end in
+    shared memory, and the closing stage by pairs (split_inverse_out): block
+    r takes the pairs i in [r h/2, (r + 1) h/2) of each product and writes
+    elements i and h + i, times fin."""
+    n = 1 << logn
+    h, hl = n // 2, logn - 1
+    plan = nc._radix_plan(hl, nc.MUL4_THREADS, nc.MUL4_BUFFERS)
+    assert plan == nc._mul4_plan(logn) or logn != nc.WIDE_LOGN
     _, fwd, t = _split_roots(q, logn, False)
     _, inv, ti = _split_roots(q, logn, True)
-    lo, hi = (_emulate_k6(*(_top_forward(o, t, q, r)
-                            for o in (x0, x1, y0, y1)),
-                          q, logn - 1, 1, roots=(fwd[r], inv[r]))
-              for r in (0, 1))
-    return _top_inverse(lo, hi, ti, fin, q)
+    f0, fl, i0 = plan.forward[0], plan.forward[-1], plan.inverse[0]
+    v = torch.arange(h >> nc.RADIX_BITS)[:, None]
+    first = v + (torch.arange(16)[None] << f0.c)
+    assert torch.equal(first, _elements(hl, f0.c))
+    assert _lanes_consecutive(first)
+    own = _elements(hl, fl.c)
+    assert fl.c == i0.c == 0 and torch.equal(own, 16 * v + torch.arange(16))
+    sw = _swizzle(own)
+    # the own half's words a thread converts: i0 + 16 j threads + m threads
+    runs = torch.arange(0, h, 16 * plan.threads)[:, None, None]
+    words = (runs + torch.arange(plan.threads)[None, :, None]
+             + plan.threads * torch.arange(16)[None, None, :])
+    assert torch.equal(torch.sort(words.flatten()).values, torch.arange(h))
+    assert _lanes_consecutive(words.reshape(-1, 16))
+    smem = torch.full((2, nc.MUL4_BUFFERS, h), -1, dtype=torch.int64)
+    x0e = [None, None]
+    for k, row in enumerate(ops):
+        buf = min(k, 2)
+        if k == 3:                            # x0 leaves buffer 2
+            for r in (0, 1):
+                x0e[r] = smem[r][2][sw].clone()
+                smem[r][2].fill_(-1)
+        if convert is None:
+            for r in (0, 1):
+                lo, hi = row[first], row[h + first]
+                x = hi * t % q
+                x = (lo + x) % q if r == 0 else (lo - x) % q
+                _run_pass(x, first, f0, fwd[r], q, hl, False)
+                smem[r][buf][_swizzle(first)] = x
+            passes = plan.forward[1:-1]
+        else:
+            for r in (0, 1):
+                half = convert(row[..., r * h:(r + 1) * h])
+                smem[r][buf][_swizzle(words)] = half[words]
+            for r in (0, 1):                  # block r's pairs, in place
+                i = _swizzle(torch.arange(r * h // 2, (r + 1) * h // 2))
+                a, b = smem[0][buf][i], smem[1][buf][i] * t % q
+                smem[0][buf][i], smem[1][buf][i] = (a + b) % q, (a - b) % q
+            passes = plan.forward[:-1]
+        for r in (0, 1):
+            _through_smem(smem[r], [buf], passes, fwd[r], q, hl, False)
+            if k < 3:
+                _through_smem(smem[r], [buf], [fl], fwd[r], q, hl, False)
+    for r in (0, 1):
+        x = smem[r][2][sw][None]
+        _run_regs(x, fl, fwd[r], q, hl, False)
+        u0, u1 = smem[r][0][sw], smem[r][1][sw]
+        prods = torch.stack([_mont(x0e[r], u0, q),
+                             (_mont(x0e[r], u1, q) + _mont(x[0], u0, q)) % q,
+                             _mont(x[0], u1, q)])
+        _run_regs(prods, i0, inv[r], q, hl, True)
+        for b in range(3):
+            smem[r][b][sw] = prods[b]
+        _through_smem(smem[r], [0, 1, 2], plan.inverse[1:], inv[r], q, hl,
+                      True)
+    out = torch.full((3, n), -1, dtype=torch.int64)
+    for r in (0, 1):
+        i = torch.arange(r * h // 2, (r + 1) * h // 2)
+        for b in range(3):
+            mine = smem[r][b][_swizzle(i)]
+            other = smem[r ^ 1][b][_swizzle(i)]
+            x0, x1 = (other, mine) if r else (mine, other)
+            out[b][i] = (x0 + x1) % q * fin % q
+            out[b][h + i] = (x0 - x1) % q * ti % q * fin % q
+    assert int(out.min()) >= 0
+    return out
 
 
-def _k6(logn: int):
-    return _emulate_k6_split if logn == nc.WIDE_LOGN else _emulate_k6
+def _k6(logn: int, ops, q: int, fin: int, convert=None, split=None):
+    """K6's schedule at n = 2^logn on the operand rows x0, x1, y0, y1
+    (converted by ``convert`` where given): the cluster's at 2^15, or
+    wherever ``split`` says so."""
+    x0, x1, y0, y1 = ops
+    if logn == nc.WIDE_LOGN if split is None else split:
+        return _emulate_k6_cluster((y0, y1, x0, x1), q, logn, fin, convert)
+    return _emulate_k6(*(o if convert is None else convert(o) for o in ops),
+                       q, logn, fin)
+
+
+def _converts(src: tuple, q: int) -> dict:
+    """The two ways K6 forms an operand's words over q from its source rows
+    [Ls, n]: (the rows the kernel reads, the conversion of any slice of
+    them).  Direct (4 sources): each word converted from the source rows;
+    staged: the lift's rows (ext_lift: the y_i, then alpha), each word's sum
+    formed from them."""
+    def direct(rows):
+        return ext_cuda.base_extend_fused_plain(rows.int(), src,
+                                                (q,))[0].long()
+
+    def lift(rows):
+        ys, alpha = ext_cuda.lift_plain(rows, src)
+        return torch.cat([ys, alpha[None]])
+
+    def staged(rows):
+        return ext_cuda.base_extend_sum_plain(rows[:-1], rows[-1], src,
+                                              (q,))[0].long()
+    return {"direct": (lambda rows: rows, direct), "staged": (lift, staged)}
 
 
 SRC_PRIMES = ntt_primes(5, 30, 1 << 16, skip=len(WIDE_PRIMES))
 
 
-@pytest.mark.parametrize("logn", THREE_LOGNS)
-def test_k6_schedule_equals_plain(logn):
-    """Over the destination prime, and from source bases of 4 primes (the
-    BFV P basis's direct instance) and of 1 + log n mod 5 (the staged
-    layout, the same words from the lift's rows)."""
+def _k6_cases(rng, logn: int, q: int, split=None):
+    """(label, K6's schedule, tensor_mul4_plain) over q and from source
+    bases of 4 primes (the direct instance) and of 1 + log n mod 5 (staged:
+    the same words from the lift's rows), under a random scale."""
     n = 1 << logn
-    rng = np.random.default_rng(300 + logn)
-    q = _primes(logn)[logn % 3]
     scale = int(rng.integers(1, 1 << 16))
     fin = nc._tensor_fin((q,), n, (scale,))[0]
     ops = [torch.from_numpy(rng.integers(0, q, (1, n))) for _ in range(4)]
     want = nc.tensor_mul4_plain(*(o.int() for o in ops), (q,),
                                 scale=(scale,))[0]
-    got = _k6(logn)(*(o[0] for o in ops), q, logn, fin)
-    assert torch.equal(got, want.long())
+    got = _k6(logn, [o[0] for o in ops], q, fin, split=split)
+    yield "over q", got, want
     for ls in (4, 1 + logn % 5):
         src = SRC_PRIMES[:ls]
         rows = [torch.from_numpy(np.stack([rng.integers(0, s, n)
                                            for s in src])).int()
                 for _ in range(4)]
         want = nc.tensor_mul4_plain(*rows, (q,), scale=(scale,), src=src)[0]
-        words = [ext_cuda.base_extend_fused_plain(r, src, (q,))[0].long()
-                 for r in rows]
-        assert torch.equal(_k6(logn)(*words, q, logn, fin), want.long())
+        form = "direct" if ls == 4 else "staged"
+        read, convert = _converts(src, q)[form]
+        got = _k6(logn, [read(r) for r in rows], q, fin, convert, split)
+        yield f"{form} from {ls}", got, want
+
+
+@pytest.mark.parametrize("logn", THREE_LOGNS)
+def test_k6_schedule_equals_plain(logn):
+    """Over the destination prime, and from source bases of 4 primes (the
+    BFV P basis's direct instance) and of 1 + log n mod 5 (the staged
+    layout, the same words from the lift's rows); at n = 2^15 the
+    cluster's schedule."""
+    rng = np.random.default_rng(300 + logn)
+    q = _primes(logn)[logn % 3]
+    for label, got, want in _k6_cases(rng, logn, q):
+        assert torch.equal(got, want.long()), label
+
+
+@pytest.mark.parametrize("logn", (9, nc.WIDE_LOGN))
+def test_k6_cluster_schedule_equals_plain(logn):
+    """K6's schedule on the cluster of n = 2^15, at 2^15 and at n = 2^9
+    split the same way, under another prime and scale: over the
+    destination prime (both halves' words in the first pass, pass 0 in
+    registers), from 4 sources and staged from 1 + log n mod 5 (each block
+    its own half's words, the top stage across the cluster by pairs), the
+    closing stage by pairs."""
+    rng = np.random.default_rng(800 + logn)
+    q = WIDE_PRIMES[(logn + 1) % 3]
+    for label, got, want in _k6_cases(rng, logn, q, split=True):
+        assert torch.equal(got, want.long()), label
 
 
 PTXAS_LOG = """nvcc -gencode arch=compute_90a,code=sm_90a ...
