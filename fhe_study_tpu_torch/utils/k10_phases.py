@@ -2,6 +2,8 @@
 """Where a step of K10 (csrc/blind_rotate_cuda.cu) spends its cycles.
 
     python3 -m fhe_study_tpu_torch.utils.k10_phases [--steps 1024] [--batch 64]
+    python3 -m fhe_study_tpu_torch.utils.k10_phases --device [--steps 400]
+        [--batch 64] [--csrc DIR]
 
 Builds a copy of the kernel with a clock64() reading by thread 0 at each
 phase boundary of a step (each boundary but the key wait and the last pass
@@ -10,10 +12,27 @@ N = 1024, K = 1, beta = 4096, l = 2 on random keys and accumulators, holds
 its output equal to the kernel's, and prints the cycles a step of every phase,
 mean, least and most over the blocks.  The counters cost a few percent of
 the kernel's time.  Needs one CUDA card and nvcc (no torch headers).
+
+``--device`` probes the device-memory layout (csrc/blind_rotate_dm_cuda.cu)
+at the two shapes of chip_smoke.py's phase 21 (N = 4096, beta = 2^11,
+l = 2 and N = 2^15, beta = 2^8, l = 3; K = 1, ``--batch`` ciphertexts,
+``--steps`` CMux steps): a copy of its unit with a clock64() reading by
+thread 0 at each phase boundary of a block (block or cluster barriers but
+the forward's end, which is thread 0's own), swapped in for the package's
+entry and held equal to it, gives the cycles a step of every phase of the
+forward and the inverse blocks; CUDA events give the device time of a
+one-step call (the accumulator's copy and one launch of each) and of the
+whole chain; one ``torch.profiler`` window over the whole chain gives each
+launch's device time by kernel and the idle gaps between the launches.
+``--csrc`` names another checkout's csrc (the parent's schedule, with its
+own marks); the package's wrapper launches it, so it must take the same
+arguments.  ``--group`` names the inverse clusters' ciphertexts (1, 2 or
+4; the plan's by default).
 """
 
 import argparse
 import ctypes
+import json
 import subprocess
 import sys
 import tempfile
@@ -58,6 +77,25 @@ _MARKS = (
 )
 
 
+# the other layouts' entry points, which fhe_blind_rotate names and the
+# probe never takes
+_LAYOUT_STUBS = """
+namespace fhe {
+#define FHE_LAYOUT_STUB(name, ...) \\
+  int name(const int*, const unsigned long long*, const uint32_t*, \\
+           const uint32_t*, const uint32_t*, const uint32_t*, \\
+           unsigned long long*, uint32_t*, const uint32_t*, const uint32_t*, \\
+           const uint32_t*, const uint32_t*, const uint32_t*, int, int, int, \\
+           int, int, int, int, int, __VA_ARGS__ cudaStream_t) { \\
+    return static_cast<int>(cudaErrorInvalidValue); \\
+  }
+FHE_LAYOUT_STUB(blind_rotate_dm, int, int, int,)
+FHE_LAYOUT_STUB(blind_rotate_grid, int,)
+FHE_LAYOUT_STUB(blind_rotate_split, int,)
+}  // namespace fhe
+"""
+
+
 def instrumented_source(src: str) -> str:
     """The kernel's source with the phase counters; raises if a mark is not
     found exactly once (the kernel changed: update _MARKS)."""
@@ -77,7 +115,7 @@ def instrumented_source(src: str) -> str:
 def build(out: Path) -> ctypes.CDLL:
     cu = out / "blind_rotate_phases.cu"
     cu.write_text(instrumented_source(
-        (_cuda.CSRC / "blind_rotate_cuda.cu").read_text()))
+        (_cuda.CSRC / "blind_rotate_cuda.cu").read_text()) + _LAYOUT_STUBS)
     so = out / "libk10_phases.so"
     res = subprocess.run([_cuda._nvcc(), *_cuda.ARCH, "-std=c++17", "-O3",
                           "-Xcompiler", "-fPIC", "-shared",
@@ -90,8 +128,11 @@ def build(out: Path) -> ctypes.CDLL:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--steps", type=int, default=1024)
+    ap.add_argument("--steps", type=int, default=None)
     ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--device", action="store_true")
+    ap.add_argument("--csrc", default=str(_cuda.CSRC))
+    ap.add_argument("--group", type=int, default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("k10_phases: no CUDA card")
@@ -100,6 +141,11 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
+    if args.device:
+        device_layout(args.steps or 400, args.batch, Path(args.csrc), dev,
+                      card, args.group)
+        return
+    args.steps = args.steps or 1024
     gen = prng.Gen(3)
     inputs = kernel_check.blind_rotate_inputs(1024, 1, 4096, 2, args.steps,
                                               args.batch, dev, gen)
@@ -125,8 +171,8 @@ def main() -> None:
                  ev1s.data_ptr(), ev2.data_ptr(), ev2s.data_ptr(),
                  got.data_ptr(), tw[0].data_ptr(), tw[1].data_ptr(),
                  twinv[0].data_ptr(), twinv[1].data_ptr(), cons.data_ptr(),
-                 steps, B, C, l, w, plan.logn, plan.threads,
-                 plan.smem_bytes, int(plan.staged),
+                 None, steps, B, C, l, w, plan.logn, plan.threads,
+                 plan.smem_bytes, int(plan.staged), 0, 1,
                  torch.cuda.current_stream().cuda_stream)
         torch.cuda.synchronize()
         if err or not torch.equal(got, want):
@@ -143,6 +189,289 @@ def main() -> None:
         print(f"  {name:30s} {col.mean():8.1f} ({col.min():.1f}, "
               f"{col.max():.1f})")
     print(f"  {'all':30s} {per.sum(1).mean():8.1f}", flush=True)
+
+
+# -- the device-memory layout ---------------------------------------------
+
+DM_UNIT = "blind_rotate_dm_cuda.cu"
+DM_PHASES = ("forward: digits and pass 0", "forward: passes 1.. and the store",
+             "inverse: contraction (and pass 0 in the parent's)",
+             "inverse: passes before the last (from pass 0 in this one's)",
+             "inverse: last pass (n^-1)", "inverse: cluster wait",
+             "inverse: CRT lift and 64-bit atomics",
+             "inverse: of the contraction, thread 0 on the key ring")
+DM_CONFIGS = ((1 << 12, 1 << 11, 2), (1 << 15, 1 << 8, 3))
+DM_BLOCKS = 4096
+_DM_ARGS = """const int* shifts, const unsigned long long* acc0,
+    const uint32_t* ev1, const uint32_t* ev1s, const uint32_t* ev2,
+    const uint32_t* ev2s, unsigned long long* out, const uint32_t* tw,
+    const uint32_t* tw_sh, const uint32_t* twinv, const uint32_t* twinv_sh,
+    const uint32_t* cons, uint32_t* scratch, int steps, int B, int C, int l,
+    int w, int logn, int threads, int smem, int staged, int layout, %s
+    cudaStream_t stream"""
+# the probe's entry: fhe_blind_rotate's arguments, into the schedule's
+# blind_rotate_dm as fhe_blind_rotate calls it for layout 1
+_DM_ENTRY = """
+extern "C" int fhe_k10dm_probe(%s) {
+  const bool aligned = !(fhe::misaligned(ev1) || fhe::misaligned(ev1s) ||
+                         fhe::misaligned(ev2) || fhe::misaligned(ev2s));
+  if (layout != 1) return static_cast<int>(cudaErrorInvalidValue);
+  return fhe::blind_rotate_dm(shifts, acc0, ev1, ev1s, ev2, ev2s, out,
+                              scratch, tw, tw_sh, twinv, twinv_sh, cons,
+                              steps, B, C, l, w, logn, threads, smem, %s
+                              aligned ? 1 : 0, stream);
+}
+"""
+# (text, what): None the counters after it, a str that string after it, an
+# int a phase boundary before it, ("after", i) one after it
+DM_MARKS = {
+    # the parent's: a cluster of two inverse blocks per (ciphertext, column)
+    "pairs": ((
+        ('#include "radix_chain.cuh"\n', None),
+        ("  const int shift = 64 - w * (f - cc * l + 1);\n",
+         "  long long phase_t = clock64();\n"),
+        ("  RadixPasses<LOGN, 1, S::passes, false, S::threads>::run(\n", 0),
+        ("    row[i] = make_uint4(a[sw], a[sw ^ 1], a[sw ^ 2], a[sw ^ 3]);\n"
+         "  }\n}\n", ("after-brace", 1)),
+        ("  const int cols = 2 * C;\n", "  long long phase_t = clock64();\n"),
+        ("  RadixPasses<LOGN, 1, last, true, S::threads>::run(a, iw, iwsh, q);"
+         "\n", 2),
+        ("#pragma unroll 1\n  for (int g = 0; g < S::groups; ++g) {\n"
+         "    const int base = radix_base(threadIdx.x + g * S::threads, cl);\n",
+         3),
+        ("  // both primes' columns are complete and visible to the pair\n"
+         "  cluster_sync();\n", 4),
+        ("  const uint32_t peer = cluster_addr(a, rank ^ 1);\n", 5),
+        ("  // the peer has read this block's words before either block exits"
+         "\n  cluster_sync();\n", ("after", 6)),
+    ), ""),
+    # this one's: clusters of G ciphertexts x 2 primes on one column, the
+    # key's chunks through a ring in shared memory (thread 0's waits on it
+    # counted apart, slot 7)
+    "key multicast": ((
+        ('#include "radix_chain.cuh"\n', None),
+        ("  const int shift = 64 - w * (f - cc * l + 1);\n",
+         "  long long phase_t = clock64();\n"),
+        ("  RadixPasses<LOGN, 1, S::passes, false, S::threads>::run(\n", 0),
+        ("    row[i] = make_uint4(a[sw], a[sw ^ 1], a[sw ^ 2], a[sw ^ 3]);\n"
+         "  }\n}\n", ("after-brace", 1)),
+        ("  const int cols = 2 * C;\n",
+         "  long long phase_t = clock64(), span_t = 0;\n"),
+        ("        // refill the slot of the chunk before this one, once every "
+         "warp\n", "span"),
+        ("        dm_wait(full + s, static_cast<uint32_t>((k / stages) & 1));\n",
+         ("span-end", 7)),
+        ("  RadixPasses<LOGN, 0, last, true, S::threads>::run(\n", 2),
+        ("#pragma unroll 1\n  for (int gi = 0; gi < S::groups; ++gi) {\n"
+         "    const int base = radix_base(threadIdx.x + gi * S::threads, cl);"
+         "\n", 3),
+        ("  // both primes' columns are complete and visible to the cluster\n"
+         "  cluster_sync();\n", 4),
+        ("  const uint32_t peer = cluster_addr(a, rank ^ G);", 5),
+        ("  // the peer has read this block's words before any block exits\n"
+         "  cluster_sync();\n", ("after", 6)),
+    ), "staged, group,"),
+}
+
+
+def _dm_counters() -> str:
+    slots = len(DM_PHASES)
+    return f"""
+__device__ unsigned long long g_phase[{DM_BLOCKS} * {slots}];
+extern "C" int fhe_k10_phases(unsigned long long* host, int clear) {{
+  static unsigned long long zero[{DM_BLOCKS} * {slots}];
+  return clear ? (int)cudaMemcpyToSymbol(g_phase, zero, sizeof(zero))
+               : (int)cudaMemcpyFromSymbol(host, g_phase, sizeof(zero));
+}}
+#define FHE_PHASE(i) if (threadIdx.x == 0 && blockIdx.x < {DM_BLOCKS}) {{ \\
+  const long long t_ = clock64(); \\
+  g_phase[blockIdx.x * {slots} + (i)] += t_ - phase_t; phase_t = t_; }}
+"""
+
+
+def dm_instrumented(src: str, group_arg: bool = True) -> tuple:
+    """(schedule, the unit's text with the phase counters and the probe's
+    entry, whose arguments are fhe_blind_rotate's, with ``group`` where the
+    package's entry takes it) for the first schedule whose marks are each
+    found exactly once; raises if none is."""
+    for name, (marks, entry) in DM_MARKS.items():
+        if all(src.count(mark) == 1 for mark, _ in marks):
+            break
+    else:
+        raise ValueError(f"k10_phases: no schedule's marks match {DM_UNIT} "
+                         "(the kernel changed: update DM_MARKS)")
+    for mark, what in marks:
+        if what is None:
+            src = src.replace(mark, mark + _dm_counters())
+        elif what == "span":
+            src = src.replace(mark, "        if (threadIdx.x == 0) span_t = "
+                              "clock64();\n" + mark)
+        elif isinstance(what, str):
+            src = src.replace(mark, mark + what)
+        elif isinstance(what, int):
+            src = src.replace(mark, f"  FHE_PHASE({what})\n" + mark)
+        elif what[0] == "span-end":
+            src = src.replace(mark, mark + "        if (threadIdx.x == 0) "
+                              f"g_phase[blockIdx.x * {len(DM_PHASES)} + "
+                              f"{what[1]}] += clock64() - span_t;\n")
+        elif what[0] == "after":
+            src = src.replace(mark, mark + f"  FHE_PHASE({what[1]})\n")
+        else:     # before the closing brace of the kernel
+            src = src.replace(mark, mark[:-2] + f"  FHE_PHASE({what[1]})\n}}\n")
+    args = _DM_ARGS % ("int group," if group_arg else "")
+    return name, src + _DM_ENTRY % (args, entry)
+
+
+def dm_build(csrc: Path, out: Path) -> tuple:
+    """(schedule, CDLL, ptxas's lines) of the instrumented unit."""
+    schedule, text = dm_instrumented(
+        (csrc / DM_UNIT).read_text(),
+        len(_cuda.BLIND_ROTATE.argtypes) == 13 + 11 + 1)
+    cu = out / "blind_rotate_dm_phases.cu"
+    cu.write_text(text)
+    so = out / "libk10dm_phases.so"
+    res = subprocess.run([_cuda._nvcc(), *_cuda.ARCH, "-std=c++17", "-O3",
+                          "-Xptxas=-v", "-Xcompiler", "-fPIC", "-shared",
+                          f"-I{csrc}", "-o", str(so), str(cu)],
+                         capture_output=True, text=True, check=False)
+    if res.returncode:
+        raise _cuda.KernelBuildError(res.stderr)
+    report = [f"{r['kernel']} {r['registers']} registers, {r['stack']} bytes "
+              f"stack, {r['spill_stores']} bytes spill stores"
+              for r in _cuda.ptxas_report(res.stdout + res.stderr)]
+    return schedule, ctypes.CDLL(str(so)), report
+
+
+def launch_gaps(fn) -> dict:
+    """Device time by kernel and the idle gaps between consecutive device
+    activities (kernels and copies) of one call of fn, from a
+    torch.profiler window (its Chrome trace)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        trace = json.loads(path.read_text())
+    evs = sorted((e["ts"], e["dur"], e["name"])
+                 for e in trace.get("traceEvents", [])
+                 if e.get("ph") == "X" and e.get("cat") in (
+                     "kernel", "gpu_memcpy", "gpu_memset"))
+    if not evs:
+        return {}
+    by = {}
+    for _, dur, name in evs:
+        key = ("forward" if "forward" in name else "inverse"
+               if "inverse" in name else "copy")
+        by.setdefault(key, []).append(dur)
+    gaps = np.array([b[0] - (a[0] + a[1]) for a, b in zip(evs, evs[1:])])
+    return {"launches": len(evs),
+            "by_kernel_us": {k: (float(np.mean(v)), float(np.min(v)),
+                                 float(np.max(v)), len(v))
+                             for k, v in by.items()},
+            "span_us": evs[-1][0] + evs[-1][1] - evs[0][0],
+            "busy_us": float(sum(e[1] for e in evs)),
+            "gap_us": (float(gaps.sum()), float(np.mean(gaps)),
+                       float(np.median(gaps)), float(gaps.max()))}
+
+
+def _events_ms(fn, reps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    best = float("inf")
+    for _ in range(3):
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / reps)
+    return best
+
+
+def device_layout(steps: int, B: int, csrc: Path, dev, card: str,
+                  group: int | None = None) -> None:
+    """The --device run (see the module docstring); ``group`` names the
+    inverse clusters' ciphertexts (the plan's where None)."""
+    kernel = _cuda.BLIND_ROTATE
+    with tempfile.TemporaryDirectory() as tmp:
+        schedule, lib, report = dm_build(csrc, Path(tmp))
+        print(f"k10_phases --device ({schedule}) ptxas: " + "; ".join(
+            r for r in report if "<12" in r or "<15" in r), flush=True)
+        probe = lib.fhe_k10dm_probe
+        probe.argtypes = kernel.argtypes
+        probe.restype = ctypes.c_int
+        for n, beta, l in DM_CONFIGS:
+            gen = prng.Gen(26 + n)
+            inputs = kernel_check.blind_rotate_inputs(n, 1, beta, l, steps,
+                                                      B, dev, gen)
+            kw = {} if group is None else {"group": group}
+            plan = brc._plan(2, l, n, **kw)
+            if plan.layout != "device":
+                raise RuntimeError(f"k10_phases: plan {plan}")
+            call = lambda: brc.blind_rotate_kernel(*inputs, **kw)  # noqa: E731
+            want = call()
+            saved = kernel._fn
+            kernel._fn = probe
+            try:
+                lib.fhe_k10_phases(None, 1)
+                got = call()
+                torch.cuda.synchronize()
+            finally:
+                kernel._fn = saved
+            if not torch.equal(got, want):
+                raise RuntimeError("k10_phases: the instrumented device "
+                                   "layout differs from the kernel")
+            cycles = np.zeros(DM_BLOCKS * len(DM_PHASES), dtype=np.uint64)
+            lib.fhe_k10_phases(ctypes.c_void_p(cycles.ctypes.data), 0)
+            per = cycles.reshape(DM_BLOCKS, -1).astype(np.float64) / steps
+            shape = (f"N={n} C=2 l={l} beta=2^{beta.bit_length() - 1} "
+                     f"B={B} steps={steps}")
+            print(f"k10_phases --device ({schedule}) at {shape}, plan "
+                  f"threads={plan.threads} cluster={plan.cluster} "
+                  f"smem={plan.smem_bytes} staged={plan.staged} [{card}]: "
+                  "cycles a step of thread 0, mean (least, most) over the "
+                  "blocks that ran the phase", flush=True)
+            for i, name in enumerate(DM_PHASES):
+                col = per[:, i][per[:, i] > 0]
+                if col.size:
+                    print(f"  {name:40s} {col.mean():10.1f} ({col.min():.1f},"
+                          f" {col.max():.1f}) over {col.size} blocks")
+            fwd = per[:, :2].sum(1)
+            inv = per[:, 2:].sum(1)
+            print(f"  {'forward block, all':40s} {fwd[fwd > 0].mean():10.1f}"
+                  f"\n  {'inverse block, all':40s} {inv[inv > 0].mean():10.1f}",
+                  flush=True)
+            one = (inputs[0][:1].contiguous(), inputs[1],
+                   *(e[:1].contiguous() for e in inputs[2:6]), n,
+                   inputs[7])
+            step_ms = _events_ms(lambda: brc.blind_rotate_kernel(*one, **kw),
+                                 20)
+            chain_ms = _events_ms(call, 1)
+            print(f"  CUDA events: a one-step call {step_ms * 1e3:.2f} us; "
+                  f"the chain of {steps} steps {chain_ms:.3f} ms = "
+                  f"{chain_ms / steps * 1e3:.2f} us a step", flush=True)
+            gaps = launch_gaps(call)
+            if not gaps:
+                print("  torch.profiler recorded no device activity",
+                      flush=True)
+                continue
+            print(f"  torch.profiler, one chain: {gaps['launches']} device "
+                  f"activities over {gaps['span_us'] / 1e3:.3f} ms, busy "
+                  f"{gaps['busy_us'] / 1e3:.3f} ms; " + "; ".join(
+                      f"{k} {m:.2f} us a launch ({lo:.2f}, {hi:.2f}) x {c}"
+                      for k, (m, lo, hi, c) in gaps["by_kernel_us"].items())
+                  + "; idle gaps {:.3f} ms in all, {:.2f} us mean, {:.2f} "
+                  "us median, {:.2f} us most".format(
+                      gaps["gap_us"][0] / 1e3, *gaps["gap_us"][1:]),
+                  flush=True)
+            del inputs, want, got
+            torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -2,7 +2,7 @@
 """Time each CUDA kernel of the PyTorch port at the paths' shapes.
 
     python3 fhe_study_tpu_torch/utils/kernel_times.py [--tree DIR] [--batch 128]
-        [--degree15 | --conversion | --ks15 | --paths]
+        [--degree15 | --conversion | --ks15 | --k10dm | --paths]
 
 Times one call of every case of ``utils/kernel_check.cases`` (N = 2^14,
 L = 4, M = 5, t = 256), of ``linear_cases`` (N = 2^12, L = 2, M = 3, 1024
@@ -92,6 +92,22 @@ whose code the instance shares nothing of; then phase 19's ops at L = 29
 at L = 14, K = 15 (a chain of 4); best of 3, each decrypt-checked first,
 as ms an op.
 
+``--k10dm`` times K10's device-memory layout at chip_smoke.py's phase 21
+shapes (K = 1, 400 CMux steps, B = 64; N = 4096, beta = 2^11, l = 2 and
+N = 2^15, beta = 2^8, l = 3) on the device alone beside its bound, then
+the two ``bootstrap_short`` pipelines of phase 21 at those shapes (t = 64
+and 16, n_lwe = 400, beta_ks = 16, l_ks = 8; a chain of 3, each fed the
+last one's output, decrypt-checked, best of 3) as ms a batch, and as
+controls that share no code with the layout K10's split layout at
+N = 2^16 (l = 5, 16 steps, 64 ciphertexts) and every case of
+``kernel_check.cases`` at N = 2^14, L = 4, M = 5 (K1-K8), each on the
+device alone; the card's SM clock is sampled beside each K10 time.
+Where the tree has them it also times K10 with the key shared through
+the shared-memory ring by inverse clusters of G = 1, 2 and 4 ciphertexts
+(``blind_rotate_kernel(..., group=G)``, held equal to the path's output
+first) and prints the clusters of 2G staged blocks that the card holds at
+once at n = 2^12 .. 2^15.
+
 ``--paths`` times only the BFV chains: those of phase 6 above (N = 2^14)
 and chip_smoke.py's phase 20 ops at N = 128, t = 16, L = 3, M = 4,
 B = 128 (``mul_e`` and ``mul`` with either key, ``key_switch``), as ms an
@@ -103,6 +119,7 @@ import pathlib
 import subprocess
 import sys
 import time
+from functools import partial
 
 import numpy as np
 import torch
@@ -117,6 +134,7 @@ def main() -> None:
     ap.add_argument("--conversion", action="store_true")
     ap.add_argument("--ks15", action="store_true")
     ap.add_argument("--paths", action="store_true")
+    ap.add_argument("--k10dm", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("kernel_times: no CUDA card")
@@ -142,6 +160,9 @@ def main() -> None:
         return
     if args.ks15:
         ks15(args, card)
+        return
+    if args.k10dm:
+        k10dm(args, card)
         return
     if args.paths:
         per_op = {**bfv_chains(R, dev, 4), **small_chains(R, dev, 4)}
@@ -504,6 +525,111 @@ def ks15(args, card: str) -> None:
           + ", ".join(f"{k} {v:.4f}" for k, v in per_op.items())
           + f" ms an op (N={n} t=256 B={B}; RLK at L=29 M=30, HRLK at "
           "L=14 M=15 K=15)", flush=True)
+
+
+# chip_smoke.py's phase 21: (N, t, beta, l) of its two configurations
+K10DM_CONFIGS = ((1 << 12, 64, 1 << 11, 2), (1 << 15, 16, 1 << 8, 3))
+K10DM_STEPS, K10DM_BATCH, K10DM_REPS = 400, 64, 3
+
+
+def k10dm(args, card: str) -> None:
+    """The --k10dm run (see the module docstring)."""
+    from fhe_study_tpu_torch.models import bfv_rns as R
+    from fhe_study_tpu_torch.utils import kernel_check as kc
+    from fhe_study_tpu_torch.utils import prng
+    dev = torch.device("cuda", 0)
+    bound_of = card_bound(kc, dev)
+    busy = torch.zeros(1 << 28, dtype=torch.int32, device=dev)
+
+    def timed(label, case):
+        case.kernel()
+        ms, _ = events_ms(case.kernel, K10DM_REPS, busy)
+        clock = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout.strip()
+        b = bound_of(case)
+        print(f"k10dm {args.tree} [{card}, SM {clock}]: {label}: on the "
+              f"device alone {ms:.4f} ms, bound {b.ms:.4f} ms by {b.term}, "
+              f"{b.ms / ms:.3f} of it", flush=True)
+
+    from fhe_study_tpu_torch.ops import blind_rotate_cuda as brc
+    groups = hasattr(brc, "dm_clusters")          # absent in older trees
+    for n, _, beta, l in K10DM_CONFIGS:
+        case = kc.blind_rotate_case(n, 1, beta, l, K10DM_STEPS, K10DM_BATCH,
+                                    dev, prng.Gen(26 + n))
+        timed(f"blind_rotate {case.label}", case)
+        # the key shared through the ring by clusters of G ciphertexts,
+        # each held equal to the path's output first
+        for group in (1, 2, brc.DM_GROUP) if groups else ():
+            shared = case._replace(kernel=partial(
+                brc.blind_rotate_kernel, *case.args, layout="device",
+                group=group))
+            if not kc.equal(shared.kernel(), case.kernel()):
+                raise RuntimeError(f"k10dm: group {group} != the path's")
+            timed(f"blind_rotate {case.label}, key ring shared by "
+                  f"{group}", shared)
+        del case
+        torch.cuda.empty_cache()
+    if groups:
+        print(f"k10dm {args.tree} [{card}]: inverse clusters of 2G staged "
+              "blocks the card holds at once (G: clusters): " + "; ".join(
+                  f"2^{logn} " + ", ".join(
+                      f"{g}: {brc.dm_clusters(dev, logn, g)}"
+                      for g in (1, 2, brc.DM_GROUP))
+                  for logn in range(12, 16)), flush=True)
+    case = kc.blind_rotate_case(1 << 16, 1, 1 << 6, 5, 16, 64, dev,
+                                prng.Gen(2), layout="split")
+    timed(f"blind_rotate {case.label} (control)", case)
+    del case
+    for case in kc.cases(R.RnsParam(n=1 << 14, t=256, L=4, M=5), 128, dev,
+                         prng.Gen(1)):
+        timed(f"{case.name} {case.label} (control)", case)
+    del busy
+    torch.cuda.empty_cache()
+    per_batch = short_chains(dev, 3)
+    print(f"k10dm chains {args.tree} [{card}]: "
+          + ", ".join(f"{k} {v:.4f} ms a batch of {K10DM_BATCH}"
+                      for k, v in per_batch.items()), flush=True)
+
+
+def short_chains(dev, chain: int) -> dict:
+    """ms a batch of chip_smoke.py's phase 21 ``bootstrap_short`` at each
+    of K10DM_CONFIGS: a chain of ``chain`` bootstraps, each fed the last
+    one's output, decrypt-checked, best of 3; keys drawn on the card."""
+    from fhe_study_tpu_torch.arith.params import TORUS_Q, RingParam
+    from fhe_study_tpu_torch.models.gfhe.glwe import ERR_SIGMA, Param
+    from fhe_study_tpu_torch.models.tfhe import bootstrap, tglwe, tlwe
+    from fhe_study_tpu_torch.utils import prng
+    out = {}
+    for n, t, beta, l in K10DM_CONFIGS:
+        gen = prng.Gen(21 + n)
+        tp = Param(ERR_SIGMA, RingParam(TORUS_Q, n), 1, t)
+        kw = dict(beta=beta, l=l, beta_ks=16, l_ks=8)
+        s, _ = tglwe.new_key(gen, tp, dev)
+        s_flat = tglwe.sk_to_tlwe(s)
+        sbtk = bootstrap.new_short_bootstrapping_key(
+            gen, tp, s, n_lwe=K10DM_STEPS, **kw)
+        sevals = bootstrap.precompute_short_btk_evals(tp, sbtk)
+        table = bootstrap.compute_lookup_table_standard(tp, dev)
+        msgs = torch.arange(K10DM_BATCH, device=dev) % (t // 2)
+        ct = tlwe.encrypt_uniform(gen, tp.lwe(), s_flat,
+                                  tlwe.encode(tp, msgs),
+                                  batch=(K10DM_BATCH,))
+
+        def run():
+            c = ct
+            for _ in range(chain):
+                c = bootstrap.bootstrap_short(tp, sbtk, table, c,
+                                              btk_evals=sevals, **kw)
+            return c
+        got = tlwe.decode(tp, tlwe.decrypt(tp.lwe(), s_flat, run()))
+        if not torch.equal(got, msgs):
+            raise RuntimeError(f"bootstrap_short at N={n}: a chain of "
+                               f"{chain} decrypts wrong")
+        out[f"bootstrap_short N={n} l={l}"] = best_of_3(run) / chain
+        del sbtk, sevals, ct
+        torch.cuda.empty_cache()
+    return out
 
 
 def hybrid_mul_chain(R, dev, B: int) -> dict:
