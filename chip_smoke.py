@@ -3196,10 +3196,8 @@ def main() -> None:
     dm_logns = {c[1].bit_length() - 1 for c in P21_CONFIGS}
     dm_inst = [f"{r['kernel']} {r['registers']} registers" for r in k10_entries
                if r["kernel"].startswith(("br_forward", "br_inverse"))
-               and int(r["kernel"].split("<")[1].split(",")[0].rstrip(">"))
-               in dm_logns]
-    # a forward and two inverse instances (key staged or not) a log n
-    if len(dm_inst) != 3 * len(dm_logns):
+               and int(r["kernel"].split("<")[1].rstrip(">")) in dm_logns]
+    if len(dm_inst) != 2 * len(dm_logns):
         raise RuntimeError(f"phase 21: the device-memory layout's instances "
                            f"at log n in {dm_logns}: {dm_inst}")
     say(f"ptxas: phase 21's instances (no stack frame or spills, phase 1): "

@@ -524,8 +524,8 @@ int blind_rotate_dm(const int* shifts, const unsigned long long* acc0,
                     const uint32_t* tw, const uint32_t* tw_sh,
                     const uint32_t* twinv, const uint32_t* twinv_sh,
                     const uint32_t* cons, int steps, int B, int C, int l,
-                    int w, int logn, int threads, int smem, int staged,
-                    int group, int vec, cudaStream_t stream);
+                    int w, int logn, int threads, int smem, int vec,
+                    cudaStream_t stream);
 // K10's grid layout past one block (csrc/blind_rotate_grid_cuda.cu).
 int blind_rotate_grid(const int* shifts, const unsigned long long* acc0,
                       const uint32_t* ev1, const uint32_t* ev1s,
@@ -548,36 +548,31 @@ int blind_rotate_split(const int* shifts, const unsigned long long* acc0,
                        cudaStream_t stream);
 }  // namespace fhe
 
-// threads, smem, staged, layout and group: the host's plan (ops/
-// blind_rotate_cuda.py::_plan), which must be this build's.  layout 0: the
-// two-block clusters of this file, one a ciphertext, n = 2^7 .. 2^14;
-// staged: the key planes are copied into shared memory by bulk copies (ev1,
-// ev1s, ev2, ev2s 16-byte aligned); otherwise the contraction reads them
-// from device memory, as 16-byte words where they are aligned.  layout 1:
-// the working set in device memory (csrc/blind_rotate_dm_cuda.cu),
-// n = 2^7 .. 2^15, scratch the digit evaluations [B, 2, C*l, n]; staged:
-// the key's value planes come into a ring in shared memory by multicast
-// bulk copies, one for the `group` ciphertexts (1, 2 or 4) of an inverse
-// cluster (the planes 16-byte aligned); otherwise read from device memory.
-// layout 2: that past one block (csrc/blind_rotate_grid_cuda.cu),
-// n = 2^16 .. 2^22, the tables the chunk tables, scratch [B, 2, C*l +
-// max(C*l, 2C), n]; staged must be 0.  layout 3: each polynomial split over
-// a cluster's shared memory at n = 2^16 (csrc/blind_rotate_split_cuda.cu),
-// the tables the chunk tables, scratch the digit evaluations [B, 2, C*l,
-// n]; staged must be 0.  group is 1 but in layout 1.
+// threads, smem, staged and layout: the host's plan (ops/blind_rotate_cuda.py
+// ::_plan), which must be this build's.  layout 0: the two-block clusters of
+// this file, one a ciphertext, n = 2^7 .. 2^14; staged: the key planes are
+// copied into shared memory by bulk copies (ev1, ev1s, ev2, ev2s 16-byte
+// aligned); otherwise the contraction reads them from device memory, as
+// 16-byte words where they are aligned.  layout 1: the working set in device
+// memory (csrc/blind_rotate_dm_cuda.cu), n = 2^7 .. 2^15, scratch the digit
+// evaluations [B, 2, C*l, n]; staged must be 0.  layout 2: that past one
+// block (csrc/blind_rotate_grid_cuda.cu), n = 2^16 .. 2^22, the tables the
+// chunk tables, scratch [B, 2, C*l + max(C*l, 2C), n]; staged must be 0.
+// layout 3: each polynomial split over a cluster's shared memory at
+// n = 2^16 (csrc/blind_rotate_split_cuda.cu), the tables the chunk tables,
+// scratch the digit evaluations [B, 2, C*l, n]; staged must be 0.
 extern "C" int fhe_blind_rotate(
     const int* shifts, const unsigned long long* acc0, const uint32_t* ev1,
     const uint32_t* ev1s, const uint32_t* ev2, const uint32_t* ev2s,
     unsigned long long* out, const uint32_t* tw, const uint32_t* tw_sh,
     const uint32_t* twinv, const uint32_t* twinv_sh, const uint32_t* cons,
     uint32_t* scratch, int steps, int B, int C, int l, int w, int logn,
-    int threads, int smem, int staged, int layout, int group,
-    cudaStream_t stream) {
+    int threads, int smem, int staged, int layout, cudaStream_t stream) {
   const bool aligned = !(misaligned(ev1) || misaligned(ev1s) ||
                          misaligned(ev2) || misaligned(ev2s));
   if (steps < 1 || B < 1 || B > (1 << 30) || C < 1 || l < 1 || w < 1 ||
-      w > 31 || w * l > 64 || (staged && !aligned) || layout < 0 ||
-      layout > 3 || (layout > 1 && staged) || (layout != 1 && group != 1)) {
+      w > 31 || w * l > 64 || (staged && !aligned) ||
+      (layout != 0 && (layout > 3 || staged))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (layout == 3) {
@@ -595,8 +590,7 @@ extern "C" int fhe_blind_rotate(
   if (layout == 1) {
     return blind_rotate_dm(shifts, acc0, ev1, ev1s, ev2, ev2s, out, scratch,
                            tw, tw_sh, twinv, twinv_sh, cons, steps, B, C, l,
-                           w, logn, threads, smem, staged, group,
-                           aligned ? 1 : 0, stream);
+                           w, logn, threads, smem, aligned ? 1 : 0, stream);
   }
   if (logn > kBrMaxLogN) return static_cast<int>(cudaErrorInvalidValue);
   return by_logn<ClusterDegrees>(logn, threads, smem, staged, B, stream,

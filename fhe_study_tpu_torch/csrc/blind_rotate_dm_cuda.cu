@@ -29,34 +29,19 @@
 //            memory (lanes on consecutive words), the chain runs in shared
 //            memory, and the evaluations leave in coalesced 16-byte stores
 //            to the scratch row;
-//   inverse  one cluster of 2G blocks per (G ciphertexts, output column),
-//            the block of rank p G + g on ciphertext g of the G under CRT
-//            prime p (G = 1 on the path: a pair of blocks a column): the
-//            contraction of the scratch rows of its ciphertext and prime
-//            against the column's key under the prime, lanes on consecutive
-//            16-byte words and one row's words ahead, its sums into shared
-//            memory as the forward's read-out leaves it, the inverse chain
-//            from pass 0 there, n^-1 2^32 in the last pass; then, after a
-//            cluster barrier, block (p, g) lifts the elements of half p of
-//            its column from its own words and those of block (p ^ 1, g)
-//            (distributed shared memory, kDmCrtWords reads in flight) and
-//            adds the lifted limb, shifted to its place, into the
-//            accumulator by a 64-bit atomic add (the two limb columns of a
-//            component add into the same words: addition mod 2^64 is exact
-//            in any order).  With a group named (G = 1, 2 or 4, for
-//            measurement) the key comes through a ring in shared memory
-//            instead, a chunk (one group's words of one key row) at a time:
-//            each of the G blocks of a prime copies a G-th of the chunk by a
-//            multicast bulk copy into all G (cp.async.bulk ...
-//            multicast::cluster), so the key slice of a step crosses L2 once
-//            for G ciphertexts; each block's full mbarrier of the slot counts
-//            the chunk's bytes, every warp done with the slot arrives on the
-//            slot's empty mbarrier in each block of its prime, and thread 0
-//            refills the slot with the chunk `stages` on once its G-times-
-//            warps arrivals are in (DmRing: 3 or 4 slots beside the
-//            polynomial).  A cluster past the batch's end (G does not divide
-//            B) computes its padded ciphertexts on the last one's digits and
-//            adds nothing.
+//   inverse  one cluster of two blocks per (ciphertext, output column),
+//            one CRT prime a block, 4 B C blocks: the contraction of the
+//            scratch rows of the block's prime against the column's key
+//            under the prime, lanes on consecutive 16-byte words and one
+//            row's words ahead, its sums into shared memory as the
+//            forward's read-out leaves it, the inverse chain from pass 0
+//            there, n^-1 2^32 in the last pass; then, after a cluster
+//            barrier, block p lifts the elements of half p of the column
+//            from its own words and the peer's (distributed shared memory,
+//            kDmCrtWords reads in flight) and adds the lifted limb, shifted
+//            to its place, into the accumulator by a 64-bit atomic add (the
+//            two limb columns of a component add into the same words:
+//            addition mod 2^64 is exact in any order).
 //
 // The kernel boundaries order everything a step needs: the forward blocks of
 // step j read the accumulator that step j - 1's inverse blocks wrote, and the
@@ -74,10 +59,7 @@
 // read: each lane's 16 contiguous words (64-byte strides across a warp)
 // and the Shoup planes beside the values; read as consecutive 16-byte
 // words, values alone, it runs near L2's rate (utils/k10_phases.py
-// --device, PERF.md).  Sharing the key across the G blocks of a prime
-// divides the key's L2 words by G, but the ring's waits and the larger
-// clusters (120 of 132 SMs hold clusters of 4 or 8 at 2^15) cost more
-// than the words saved on the H100.
+// --device, PERF.md).
 
 #include <climits>
 #include <cstdint>
@@ -93,8 +75,7 @@ constexpr int kDmPrimes = 2;      // CRT primes: the inverse cluster's blocks
 // Inverse blocks an SM at most: the contraction beside the 16 words and the
 // CRT's 64-bit words take more than the 80 registers a thread that three
 // 256-thread blocks would leave (ptxas spilled at 2^13 and 2^14), so two,
-// with up to 128 (one 512-thread block at 2^15, as OneBuffer); the key ring
-// is sized to two blocks an SM (DmRing).
+// with up to 128 (one 512-thread block at 2^15, as OneBuffer).
 constexpr int kDmInverseBlocks = 2;
 
 // Programmatic dependent launch below 2^15 (kDmPdlLogN), where a step is
@@ -103,7 +84,7 @@ constexpr int kDmInverseBlocks = 2;
 // start once all of its own have (launch_dependents), and a block waits
 // for the whole previous launch, its writes visible (wait), before it
 // touches the accumulator or the scratch; what comes before the wait (the
-// inverse's barriers and its first key chunks) overlaps the previous
+// blocks' start and their operands' addresses) overlaps the previous
 // launch's tail.  Without the launch attribute both are no-ops.
 constexpr int kDmPdlLogN = kWideLogN;
 // The CRT's words a thread in flight: each waits for a read of the peer's
@@ -180,93 +161,12 @@ __global__ void __launch_bounds__(OneBuffer<LOGN>::threads,
   }
 }
 
-// The inverse launch's clusters: G ciphertexts x 2 primes on one output
-// column, G = 1, 2 or 4 (the host's group), 2G <= 8 blocks, portable.
-constexpr int kDmMaxGroup = 4;
-// The staged key ring: at most kDmMaxStages chunks of a block's key tile in
-// flight, within kDmBlockBytes a block below 2^15 (two inverse blocks an
-// SM: 228 KB less 1 KB reserved a block, halved) and kDmWideBytes at 2^15
-// (one block an SM).
-constexpr int kDmMaxStages = 4;
-constexpr int kDmBlockBytes = 115712;
-constexpr int kDmWideBytes = 232448;
-
-// The inverse block's shared memory at 2^LOGN (mirrored by ops/
-// blind_rotate_cuda.py::_dm_ring): the polynomial, and, staged, a ring of
-// `stages` chunks of the key, each one group's words of one key row (16 a
-// thread), with a full and an empty mbarrier each.
+// Step j's inverse blocks, in clusters of two: cluster b * 2C + o takes
+// output column o = 2 c' + limb of ciphertext b, its block of rank p the
+// column under prime p.  ev1/ev2 (values) [steps, F, 2C, n]; acc [B, C, n]
+// accumulated in place; cons rows (q0, -q0^-1 mod 2^32, n^-1 2^32, sh),
+// (q1, ...), (q1, -, q0^-1 mod q1, sh).
 template <int LOGN>
-struct DmRing {
-  using S = typename OneBuffer<LOGN>::Shape;
-  static constexpr int words = S::threads * kRadix;
-  static constexpr int budget = LOGN < kWideLogN ? kDmBlockBytes
-                                                 : kDmWideBytes;
-  static constexpr int stages = radix_min(
-      kDmMaxStages, (budget - 4 * S::n - 16 * kDmMaxStages) / (4 * words));
-  static constexpr int warps = (S::threads + 31) / 32;
-  static constexpr int bytes(bool staged) {
-    return 4 * S::n + (staged ? stages * (4 * words + 16) : 0);
-  }
-};
-
-__device__ __forceinline__ void dm_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
-        "%2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One arrival on the mbarrier at shared::cluster address `addr` (a peer's
-// or this block's), releasing this thread's reads before it.
-__device__ __forceinline__ void dm_arrive_cluster(uint32_t addr) {
-  asm volatile(
-      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
-          addr)
-      : "memory");
-}
-
-// One thread: this block's arrival on `bar` expecting `bytes`, then the
-// copy of `part` bytes from src into dst of every block in `mask`, each
-// completing on its own barrier at bar's offset.
-__device__ __forceinline__ void dm_stage(uint32_t* dst, const uint32_t* src,
-                                         uint32_t part, uint32_t bytes,
-                                         uint64_t* bar, uint16_t mask) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes."
-      "multicast::cluster [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(part), "r"(smem_addr(bar)), "h"(mask)
-      : "memory");
-}
-
-// Step j's inverse blocks, in clusters of 2G: cluster bg * 2C + o takes
-// output column o = 2 c' + limb of ciphertexts bg G .. bg G + G - 1, its
-// block of rank p G + g ciphertext bg G + g under prime p (a ciphertext
-// past the batch, in the last cluster when G does not divide B, computes
-// on the last one's digits and adds nothing).  ev1/ev2 (values) [steps, F,
-// 2C, n]; acc [B, C, n] accumulated in place; cons rows (q0, -q0^-1 mod
-// 2^32, n^-1 2^32, sh), (q1, ...), (q1, -, q0^-1 mod q1, sh).
-// STAGED: the key tile of (column, prime) comes into a ring in shared
-// memory, a chunk at a time (group gi's row ri, chunk gi F + ri), each
-// chunk from one L2 read for the G blocks of the prime: block g copies
-// part g by a multicast bulk copy, every block's full barrier counts the
-// whole chunk's bytes; each warp, done with a chunk, arrives on the empty
-// barrier of the chunk's slot in every block of its prime, and thread 0
-// refills a slot once its G warps-times-G arrivals are in (a group named,
-// for measurement).  Otherwise (the path's) the key words come from device
-// memory with the digit words, a row ahead.
-template <int LOGN, bool STAGED>
 __global__ void __launch_bounds__(OneBuffer<LOGN>::threads,
                                   radix_min(OneBuffer<LOGN>::blocks,
                                             kDmInverseBlocks))
@@ -276,29 +176,20 @@ __global__ void __launch_bounds__(OneBuffer<LOGN>::threads,
                       unsigned long long* __restrict__ acc,
                       const uint32_t* __restrict__ twinv,
                       const uint32_t* __restrict__ twinv_sh,
-                      const uint32_t* __restrict__ cons, int j, int B, int C,
-                      int l, int G, int vec) {
+                      const uint32_t* __restrict__ cons, int j, int C, int l,
+                      int vec) {
   using S = typename OneBuffer<LOGN>::Shape;
-  using Ring = DmRing<LOGN>;
   constexpr int n = S::n;
   constexpr int last = S::passes - 1;
   constexpr int cl = S::inv_c(last);
-  constexpr int cw = Ring::words;
-  constexpr int stages = Ring::stages;
+  constexpr int cw = S::threads * kRadix;    // a group's words
   extern __shared__ __align__(16) uint32_t a[];
-  uint32_t* ring = a + n;
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * cw);
-  uint64_t* empty = full + stages;
   const int F = C * l;
   const int cols = 2 * C;
-  const int rank = cluster_rank();
-  const int p = rank >= G;
-  const int g = rank - p * G;
-  const int cid = blockIdx.x / (2 * G);      // bg * cols + o
-  const int bg = cid / cols;
-  const int o = cid - bg * cols;
-  const bool live = bg * G + g < B;
-  const int b = live ? bg * G + g : B - 1;
+  const int p = cluster_rank();
+  const int cid = blockIdx.x / kDmPrimes;    // b * cols + o
+  const int b = cid / cols;
+  const int o = cid - b * cols;
   const PrimeRow pr = prime_row(cons, p);
   const uint32_t q = pr.q;
   const uint32_t* iw = twinv + p * n;
@@ -307,36 +198,6 @@ __global__ void __launch_bounds__(OneBuffer<LOGN>::threads,
       (p ? ev2 : ev1) + ((static_cast<size_t>(j) * F * cols + o) << LOGN);
   const uint32_t* dr =
       dig + (static_cast<size_t>(b) * kDmPrimes + p) * F * n;
-  const int total = S::groups * F;            // chunks of the key tile
-  const uint32_t chunk = 4u * cw;
-  const uint32_t part = chunk / G;
-  const uint16_t mask = static_cast<uint16_t>(((1u << G) - 1u) << (p * G));
-  // chunk k of the tile: group k / F's words of key row k % F
-  const auto issue = [&](int k) {
-    const int s = k % stages;
-    const int gi = k / F;
-    const int ri = k - gi * F;
-    dm_stage(ring + s * cw + g * (cw / G),
-             kv + static_cast<size_t>(ri) * cols * n + gi * cw + g * (cw / G),
-             part, chunk, full + s, mask);
-  };
-  if constexpr (STAGED) {
-    if (threadIdx.x == 0) {
-#pragma unroll 1
-      for (int s = 0; s < stages; ++s) {
-        mbar_init(full + s, 1);
-        mbar_init(empty + s, G * Ring::warps);
-      }
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    }
-    // every block's barriers are set before any copy or arrival reaches
-    // them
-    cluster_sync();
-    if (threadIdx.x == 0) {
-#pragma unroll 1
-      for (int k = 0; k < radix_min(stages, total); ++k) issue(k);
-    }
-  }
   // this step's forward launch has written dig (and the previous inverse
   // launch added into acc)
   dm_grid_wait();
@@ -351,9 +212,8 @@ __global__ void __launch_bounds__(OneBuffer<LOGN>::threads,
   for (int gi = 0; gi < S::groups; ++gi) {
     const uint32_t* dg = dr + gi * cw;
     const uint32_t* kg = kv + gi * cw;
-    // the digit words of row ri (and, not staged, its key words), one row
-    // ahead of the products, so that two rows' device-memory reads are in
-    // flight
+    // the digit and key words of row ri, one row ahead of the products, so
+    // that two rows' device-memory reads are in flight
     const auto words = [&](uint32_t (&D)[kRadix], uint32_t (&K)[kRadix],
                            int ri) {
       const uint32_t* d = dg + static_cast<size_t>(ri) * n;
@@ -365,11 +225,9 @@ __global__ void __launch_bounds__(OneBuffer<LOGN>::threads,
         operand_words(t, d + at, true);
 #pragma unroll
         for (int i = 0; i < 4; ++i) D[4 * u + i] = t[i];
-        if constexpr (!STAGED) {
-          operand_words(t, kr + at, vec != 0);
+        operand_words(t, kr + at, vec != 0);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) K[4 * u + i] = t[i];
-        }
+        for (int i = 0; i < 4; ++i) K[4 * u + i] = t[i];
       }
     };
     uint32_t x[kRadix], nd[kRadix], nk[kRadix];
@@ -382,42 +240,12 @@ __global__ void __launch_bounds__(OneBuffer<LOGN>::threads,
 #pragma unroll
       for (int k = 0; k < kRadix; ++k) {
         D[k] = nd[k];
-        if constexpr (!STAGED) K[k] = nk[k];
+        K[k] = nk[k];
       }
       if (ri + 1 < F) words(nd, nk, ri + 1);
-      const int k = gi * F + ri;
-      const int s = k % stages;
-      if constexpr (STAGED) {
-        // refill the slot of the chunk before this one, once every warp
-        // of the prime's blocks is done with it
-        if (threadIdx.x == 0 && k >= 1 && k - 1 + stages < total) {
-          dm_wait(empty + (k - 1) % stages,
-                  static_cast<uint32_t>(((k - 1) / stages) & 1));
-          issue(k - 1 + stages);
-        }
-        dm_wait(full + s, static_cast<uint32_t>((k / stages) & 1));
-#pragma unroll
-        for (int u = 0; u < vecs; ++u) {
-          const uint4 t = *reinterpret_cast<const uint4*>(
-              ring + s * cw + 4 * (u * S::threads + threadIdx.x));
-          K[4 * u] = t.x; K[4 * u + 1] = t.y;
-          K[4 * u + 2] = t.z; K[4 * u + 3] = t.w;
-        }
-      }
 #pragma unroll
       for (int i = 0; i < kRadix; ++i) {
         x[i] = addmod(x[i], mont_mul(D[i], K[i], q, pr.nq), q);
-      }
-      if constexpr (STAGED) {
-        // this warp is done with the slot: lane t arrives in block t of
-        // the prime (none on the tile's last chunks, which no refill waits
-        // for)
-        __syncwarp(S::threads >= 32 ? 0xffffffffu
-                                    : (1u << (S::threads & 31)) - 1u);
-        const int lane = threadIdx.x & 31;
-        if (lane < G && k + stages < total) {
-          dm_arrive_cluster(cluster_addr(empty + s, p * G + lane));
-        }
       }
     }
 #pragma unroll
@@ -445,34 +273,32 @@ __global__ void __launch_bounds__(OneBuffer<LOGN>::threads,
   }
   // both primes' columns are complete and visible to the cluster
   cluster_sync();
-  const uint32_t peer = cluster_addr(a, rank ^ G);   // prime p ^ 1, same b
+  const uint32_t peer = cluster_addr(a, p ^ 1);
   const uint32_t q0 = prime_row(cons, 0).q, q1 = prime_row(cons, 1).q;
   const PrimeRow crt = prime_row(cons, 2);
   const int limb = o & 1;
   unsigned long long* ac = acc + (static_cast<size_t>(b) * C + (o >> 1)) * n;
   // exact CRT lift of (r_0, r_1) to the centred integer, shifted to its
-  // limb, added mod 2^64; block (p, g) takes elements p n/2 .. (p + 1) n/2
-  // - 1 of ciphertext b, kDmCrtWords a thread at a time, so that as many
-  // reads of the peer's words are in flight (n/2 is a multiple of
-  // kDmCrtWords threads at every n)
-  if (live) {
+  // limb, added mod 2^64; block p takes elements p n/2 .. (p + 1) n/2 - 1,
+  // kDmCrtWords a thread at a time, so that as many reads of the peer's
+  // words are in flight (n/2 is a multiple of kDmCrtWords threads at every
+  // n)
 #pragma unroll 1
-    for (int i0 = p * (n / 2) + threadIdx.x; i0 < (p + 1) * (n / 2);
-         i0 += kDmCrtWords * S::threads) {
-      uint32_t own[kDmCrtWords], other[kDmCrtWords];
+  for (int i0 = p * (n / 2) + threadIdx.x; i0 < (p + 1) * (n / 2);
+       i0 += kDmCrtWords * S::threads) {
+    uint32_t own[kDmCrtWords], other[kDmCrtWords];
 #pragma unroll
-      for (int u = 0; u < kDmCrtWords; ++u) {
-        const int sw = radix_swizzle(i0 + u * S::threads);
-        own[u] = a[sw];
-        other[u] = cluster_load(peer + 4u * sw);
-      }
+    for (int u = 0; u < kDmCrtWords; ++u) {
+      const int sw = radix_swizzle(i0 + u * S::threads);
+      own[u] = a[sw];
+      other[u] = cluster_load(peer + 4u * sw);
+    }
 #pragma unroll
-      for (int u = 0; u < kDmCrtWords; ++u) {
-        const uint32_t r0 = p ? other[u] : own[u];
-        const uint32_t r1 = p ? own[u] : other[u];
-        atomicAdd(ac + i0 + u * S::threads,
-                  br_lift(r0, r1, q0, q1, crt) << (32 * limb));
-      }
+    for (int u = 0; u < kDmCrtWords; ++u) {
+      const uint32_t r0 = p ? other[u] : own[u];
+      const uint32_t r1 = p ? own[u] : other[u];
+      atomicAdd(ac + i0 + u * S::threads,
+                br_lift(r0, r1, q0, q1, crt) << (32 * limb));
     }
   }
   // the peer has read this block's words before any block exits
@@ -487,21 +313,20 @@ struct BlindRotateDmLaunch {
                  unsigned long long* out, uint32_t* dig, const uint32_t* tw,
                  const uint32_t* tw_sh, const uint32_t* twinv,
                  const uint32_t* twinv_sh, const uint32_t* cons, int steps,
-                 int C, int l, int w, int staged, int G, int vec) {
+                 int C, int l, int w, int vec) {
     using S = typename OneBuffer<LOGN>::Shape;
-    constexpr int fwd_smem = S::n * static_cast<int>(sizeof(uint32_t));
-    if (threads != S::threads || smem != DmRing<LOGN>::bytes(staged != 0)) {
+    if (threads != S::threads ||
+        smem != S::n * static_cast<int>(sizeof(uint32_t))) {
       return static_cast<int>(cudaErrorInvalidConfiguration);
     }
     const long long fwd_blocks = 2LL * B * C * l;
-    const long long inv_blocks = (B + G - 1LL) / G * G * kDmPrimes * 2 * C;
+    const long long inv_blocks = 4LL * B * C;
     if (fwd_blocks > INT_MAX || inv_blocks > INT_MAX) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
     auto fwd = &br_forward_kernel<LOGN>;
-    auto inv = staged ? &br_inverse_kernel<LOGN, true>
-                      : &br_inverse_kernel<LOGN, false>;
-    cudaError_t err = allow_smem(fwd, fwd_smem);
+    auto inv = &br_inverse_kernel<LOGN>;
+    cudaError_t err = allow_smem(fwd, smem);
     if (err == cudaSuccess) err = allow_smem(inv, smem);
     if (err == cudaSuccess) {
       err = cudaMemcpyAsync(out, acc0,
@@ -509,13 +334,12 @@ struct BlindRotateDmLaunch {
                             cudaMemcpyDeviceToDevice, stream);
     }
     if (err != cudaSuccess) return static_cast<int>(err);
-    // the forward launch: no cluster; the inverse launch: clusters of 2G;
+    // the forward launch: no cluster; the inverse launch: clusters of two;
     // both programmatic below 2^15
     constexpr bool pdl = LOGN < kDmPdlLogN;
     cudaLaunchAttribute cluster[1], attr[2];
-    cudaLaunchConfig_t icfg = cluster_config(cluster, inv_blocks,
-                                             kDmPrimes * G, threads, smem,
-                                             stream);
+    cudaLaunchConfig_t icfg = cluster_config(cluster, inv_blocks, kDmPrimes,
+                                             threads, smem, stream);
     attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
     attr[0].val.programmaticStreamSerializationAllowed = 1;
     attr[1] = cluster[0];
@@ -523,7 +347,6 @@ struct BlindRotateDmLaunch {
     icfg.numAttrs = pdl ? 2 : 1;
     cudaLaunchConfig_t fcfg = icfg;
     fcfg.gridDim = dim3(static_cast<unsigned>(fwd_blocks));
-    fcfg.dynamicSmemBytes = static_cast<size_t>(fwd_smem);
     fcfg.attrs = attr;
     fcfg.numAttrs = pdl ? 1 : 0;
 #pragma unroll 1
@@ -534,8 +357,7 @@ struct BlindRotateDmLaunch {
       if (err != cudaSuccess) return static_cast<int>(err);
       err = cudaLaunchKernelEx(&icfg, inv,
                                static_cast<const uint32_t*>(dig), ev1, ev2,
-                               out, twinv, twinv_sh, cons, j, B, C, l, G,
-                               vec);
+                               out, twinv, twinv_sh, cons, j, C, l, vec);
       if (err != cudaSuccess) return static_cast<int>(err);
     }
     return static_cast<int>(cudaGetLastError());
@@ -545,13 +367,10 @@ struct BlindRotateDmLaunch {
 }  // namespace
 
 // The device-memory layout of K10, called by fhe_blind_rotate
-// (csrc/blind_rotate_cuda.cu) for the plan's layout 1: threads the
-// one-buffer shape of 2^logn, smem the inverse block's bytes
-// (DmRing::bytes; ops/blind_rotate_cuda.py::_plan), staged whether the key
-// comes through the shared ring (the value planes 16-byte aligned), group
-// the ciphertexts G of an inverse cluster (1, 2 or 4), dig the scratch of
-// [B, 2, C*l, n] words (16-byte aligned), vec the key planes' 16-byte
-// alignment.  The Shoup planes ev1s, ev2s are not read.
+// (csrc/blind_rotate_cuda.cu) for the plan's layout 1: threads and smem the
+// one-buffer shape of 2^logn (ops/blind_rotate_cuda.py::_plan), dig the
+// scratch of [B, 2, C*l, n] words (16-byte aligned), vec the key planes'
+// 16-byte alignment.  The Shoup planes ev1s, ev2s are not read.
 int blind_rotate_dm(const int* shifts, const unsigned long long* acc0,
                     const uint32_t* ev1, const uint32_t* ev1s,
                     const uint32_t* ev2, const uint32_t* ev2s,
@@ -559,40 +378,18 @@ int blind_rotate_dm(const int* shifts, const unsigned long long* acc0,
                     const uint32_t* tw, const uint32_t* tw_sh,
                     const uint32_t* twinv, const uint32_t* twinv_sh,
                     const uint32_t* cons, int steps, int B, int C, int l,
-                    int w, int logn, int threads, int smem, int staged,
-                    int group, int vec, cudaStream_t stream) {
+                    int w, int logn, int threads, int smem, int vec,
+                    cudaStream_t stream) {
   (void)ev1s;
   (void)ev2s;
   // the contraction's 32-bit offsets: F 2C n words of a step's key slice
   if (dig == nullptr || misaligned(dig) || logn > kWideLogN ||
-      2LL * C * C * l << logn > INT_MAX || (staged && !vec) ||
-      (group != 1 && group != 2 && group != kDmMaxGroup)) {
+      2LL * C * C * l << logn > INT_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return by_logn_wide<BlindRotateDmLaunch>(
       logn, threads, smem, B, stream, shifts, acc0, ev1, ev2, out, dig, tw,
-      tw_sh, twinv, twinv_sh, cons, steps, C, l, w, staged, group, vec);
+      tw_sh, twinv, twinv_sh, cons, steps, C, l, w, vec);
 }
-
-namespace {
-struct DmClusters {
-  template <int LOGN>
-  static int run(int group, int* clusters) {
-    return cluster_occupancy(&br_inverse_kernel<LOGN, true>, kDmPrimes * group,
-                             OneBuffer<LOGN>::Shape::threads,
-                             DmRing<LOGN>::bytes(true), clusters);
-  }
-};
-}  // namespace
 
 }  // namespace fhe
-
-// The staged inverse launch's clusters of 2 group blocks at 2^logn that the
-// card in use runs at once.
-extern "C" int fhe_blind_rotate_dm_clusters(int logn, int group,
-                                            int* clusters) {
-  if (logn > fhe::kWideLogN || group < 1 || group > fhe::kDmMaxGroup) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return fhe::by_logn_wide<fhe::DmClusters>(logn, group, clusters);
-}

@@ -354,7 +354,7 @@ _BR_CU = "fhe_study_tpu_torch/csrc/blind_rotate_cuda.cu"
 SPLIT = "split"
 BLIND_ROTATE = Kernel("blind_rotate", "fhe_blind_rotate", _BR_CU,
                       "fhe_study_tpu/ops/blind_rotate_pallas.py:392",
-                      *([PTR] * 13), *([INT] * 11), logn=BLIND_ROTATE_LOGN,
+                      *([PTR] * 13), *([INT] * 10), logn=BLIND_ROTATE_LOGN,
                       layouts={"cluster": _BR_CU, "device": (
                           "fhe_study_tpu_torch/csrc/blind_rotate_dm_cuda.cu"),
                           SPLIT: ("fhe_study_tpu_torch/csrc/"
@@ -403,16 +403,15 @@ def chunked_launches(kernel: Kernel) -> int:
                if layout.startswith(CHUNKED))
 
 
-def max_clusters(symbol: str, device, *args: int) -> int:
+def max_clusters(symbol: str, device) -> int:
     """The clusters of a cluster launch that the card runs at once
-    (cudaOccupancyMaxActiveClusters through the library's ``symbol``, its
-    int arguments ``args`` first)."""
+    (cudaOccupancyMaxActiveClusters through the library's ``symbol``)."""
     fn = getattr(library(), symbol)
-    fn.argtypes = [*([INT] * len(args)), ctypes.POINTER(INT)]
+    fn.argtypes = [ctypes.POINTER(INT)]
     fn.restype = INT
     got = INT(0)
     with torch.cuda.device(device):
-        err = fn(*args, ctypes.byref(got))
+        err = fn(ctypes.byref(got))
     if err != 0:
         raise RuntimeError(f"{symbol}: CUDA error {err}")
     return got.value

@@ -48,30 +48,15 @@ LAYOUT_CODE = {"cluster": 0, "device": 1, "grid": 2, _cuda.SPLIT: 3}
 # its inverse launch's cluster: two primes times two halves
 SPLIT_LOGN = ntt_cuda.CHUNK_LOGN + 1
 SPLIT_CLUSTER = 4
-# the device-memory layout's inverse clusters: G ciphertexts times the two
-# CRT primes on one column; by default G = 1, each block reading its
-# column's key words from device memory; a named group of G = 1, 2 or 4
-# (DM_GROUP = kDmMaxGroup: 2G = 8, a portable cluster) brings the key
-# through a ring in shared memory, each chunk read once from L2 for the G
-# blocks of its prime (measured slower on the H100: PERF.md); the ring
-# (DmRing of csrc/blind_rotate_dm_cuda.cu): at most DM_STAGES chunks,
-# within DM_BLOCK_BYTES a block below 2^15 (two inverse blocks an SM) and
-# _SMEM_LIMIT at 2^15
-DM_GROUP = 4
-DM_STAGES = 4
-DM_BLOCK_BYTES = 115712
 
 
 class BlindRotatePlan(NamedTuple):
     logn: int
     threads: int        # a block
     cluster: int        # blocks a cluster, one per CRT prime ("split":
-                        # one per prime and half; "device": the inverse
-                        # launch's, one per prime and ciphertext of G)
+                        # one per prime and half)
     staged: bool        # the step's key planes copied into shared memory
-                        # ("device": chunk by chunk, shared by G blocks)
-    smem_bytes: int     # a block's dynamic shared memory ("device": the
-                        # inverse block's)
+    smem_bytes: int     # a block's dynamic shared memory
     forward_polys: int  # C*l digit polynomials ...
     inverse_polys: int  # ... and 2C contracted columns
     radix: ntt_cuda.RadixPlan   # the pass structure of one polynomial
@@ -93,18 +78,6 @@ class BlindRotatePlan(NamedTuple):
                                 # 2C columns' inverse passes reuse)
 
 
-def _dm_ring(logn: int) -> tuple:
-    """(stages, words) of the device-memory layout's key ring at 2^logn:
-    chunks of one group's row (16 words a thread of the one-buffer shape)
-    and as many as fit the block's budget beside the polynomial and two
-    mbarriers a chunk, at most DM_STAGES (DmRing)."""
-    radix = ntt_cuda._radix_plan(logn)
-    words = radix.threads * 16
-    budget = DM_BLOCK_BYTES if logn < ntt_cuda.CHUNK_LOGN else _SMEM_LIMIT
-    return min(DM_STAGES, (budget - (4 << logn) - 16 * DM_STAGES)
-               // (4 * words)), words
-
-
 def _smem(C: int, l: int, n: int, staged: bool) -> int:
     """br_smem_bytes: the mbarriers, the 64-bit accumulator, the digit
     evaluations of the block's prime, its 2C columns, two exchange buffers
@@ -116,25 +89,18 @@ def _smem(C: int, l: int, n: int, staged: bool) -> int:
 
 @lru_cache(maxsize=None)
 def _plan(C: int, l: int, n: int, aligned: bool = True,
-          layout: str | None = None,
-          group: int | None = None) -> BlindRotatePlan:
+          layout: str | None = None) -> BlindRotatePlan:
     """The kernel's launch at (C, l, n), its layout fixed by the shape: the
     two-block clusters of csrc/blind_rotate_cuda.cu where a ciphertext's
     working set fits one block's shared memory (``_smem``), with the key
     planes staged by bulk copies where they fit beside it and the planes
     are 16-byte aligned, read from device memory otherwise; elsewhere the
     working set in device memory (csrc/blind_rotate_dm_cuda.cu): a forward
-    block per (digit polynomial, prime) and an inverse cluster per (G
-    ciphertexts, column), a block per ciphertext and prime (``cluster`` =
-    2G, G = 1 unless ``group`` names 1, 2 or 4), each on one
-    polynomial at the one-buffer shape, with a scratch of the step's digit
-    evaluations; with a named group and 16-byte aligned key planes
-    (``staged``) each chunk of a column's key reaches the G blocks of its
-    prime from one read, through a ring in shared memory (``smem_bytes``
-    the inverse block's, with its ring; the forward block takes the
-    polynomial's 4 n).  The wrapper hands the kernel ``threads``,
-    ``smem_bytes``, ``staged``, the layout and G, which it checks against
-    its own.  ``layout`` names one to measure it where the rule
+    block per (digit polynomial, prime) and a cluster of two inverse blocks
+    per column, each on one polynomial at the one-buffer shape, with a
+    scratch of the step's digit evaluations.  The wrapper hands the kernel
+    ``threads``, ``smem_bytes``, ``staged`` and the layout, which it checks
+    against its own.  ``layout`` names one to measure it where the rule
     takes another (the device-memory layout runs at any shape up to 2^15,
     the grid layout at 2^16 too).  At 2^16 the split layout
     (csrc/blind_rotate_split_cuda.cu): a forward block per (digit
@@ -180,16 +146,10 @@ def _plan(C: int, l: int, n: int, aligned: bool = True,
         return BlindRotatePlan(logn, BR_THREADS, BR_CLUSTER, staged,
                                _smem(C, l, n, staged), C * l, 2 * C,
                                ntt_cuda._radix_plan(logn, BR_THREADS))
-    if group not in (None, 1, 2, DM_GROUP):
-        raise ValueError(f"group {group}: 1, 2 or {DM_GROUP}")
     radix = ntt_cuda._radix_plan(logn)
-    stages, words = _dm_ring(logn)
-    staged = aligned and group is not None
-    return BlindRotatePlan(
-        logn, radix.threads, 2 * (group or 1), staged,
-        radix.smem_bytes + (stages * (4 * words + 16) if staged else 0),
-        C * l, 2 * C, radix, "device", (2 * C * l, 2 * 2 * C),
-        2 * 4 * C * l * n)
+    return BlindRotatePlan(logn, radix.threads, BR_CLUSTER, False,
+                           radix.smem_bytes, C * l, 2 * C, radix, "device",
+                           (2 * C * l, 2 * 2 * C), 2 * 4 * C * l * n)
 
 
 def supported(param, beta: int, l: int) -> bool:
@@ -249,16 +209,14 @@ def blind_rotate_plain(shifts, acc0, ev1, ev1s, ev2, ev2s, n: int, w: int):
 
 
 def blind_rotate_kernel(shifts, acc0, ev1, ev1s, ev2, ev2s, n: int, w: int,
-                        layout: str | None = None, group: int | None = None):
+                        layout: str | None = None):
     """K10: the whole chain in one call, in the layout of ``_plan``: one
     cluster of two blocks per ciphertext (one CRT prime each) for the whole
     chain, or two launches a step over a working set in device memory (at
     2^16 on clusters of four, the polynomials split), or past 2^16 four.
     shifts int32 [steps, B] in [0, 2n); acc0 int64 [B, C, n]; ev1, ev1s,
     ev2, ev2s int32 [steps, C, l, C, 2, n].  Returns int64 [B, C, n].
-    ``layout`` forces a layout, and ``group`` the device-memory layout's
-    ciphertexts an inverse cluster sharing its staged key, for measurement
-    (``_plan``).  Past n = 2^15
+    ``layout`` forces a layout, for measurement (``_plan``).  Past n = 2^15
     (the split and grid layouts) the tables are the chunk tables of
     ntt_cuda."""
     dev = acc0.device
@@ -270,8 +228,7 @@ def blind_rotate_kernel(shifts, acc0, ev1, ev1s, ev2, ev2s, n: int, w: int,
     steps, B, C, l = _check_shapes(shifts, acc0, ev1, ev1s, ev2, ev2s, n, w)
     logn = _cuda.log2_degree(n, _cuda.BLIND_ROTATE)
     plan = _plan(C, l, n, all(_cuda.aligned(e) for e in (ev1, ev1s, ev2,
-                                                          ev2s)), layout,
-                 group)
+                                                          ev2s)), layout)
     out = torch.empty_like(acc0)
     if B == 0:
         return out
@@ -295,9 +252,7 @@ def blind_rotate_kernel(shifts, acc0, ev1, ev1s, ev2, ev2s, n: int, w: int,
         twinv[1].data_ptr(), cons.data_ptr(),
         scratch.data_ptr() if scratch is not None else None, steps, B, C, l,
         w, logn, plan.threads, plan.smem_bytes, int(plan.staged),
-        LAYOUT_CODE[plan.layout],
-        plan.cluster // 2 if plan.layout == "device" else 1,
-        layout=plan.layout)
+        LAYOUT_CODE[plan.layout], layout=plan.layout)
     return out
 
 
@@ -306,14 +261,6 @@ def split_clusters(device) -> int:
     once (cudaOccupancyMaxActiveClusters; the SMs of a GPC that four does
     not divide stay idle in that launch)."""
     return _cuda.max_clusters("fhe_blind_rotate_split_clusters", device)
-
-
-def dm_clusters(device, logn: int, group: int) -> int:
-    """The device-memory layout's inverse clusters of 2 ``group`` staged
-    blocks at 2^logn that the card runs at once
-    (cudaOccupancyMaxActiveClusters)."""
-    return _cuda.max_clusters("fhe_blind_rotate_dm_clusters", device, logn,
-                              group)
 
 
 def blind_rotate_fused(shifts, acc0, ev1, ev1s, ev2, ev2s, n: int, w: int):

@@ -3,7 +3,7 @@
 
     python3 -m fhe_study_tpu_torch.utils.k10_phases [--steps 1024] [--batch 64]
     python3 -m fhe_study_tpu_torch.utils.k10_phases --device [--steps 400]
-        [--batch 64] [--csrc DIR]
+        [--batch 64]
 
 Builds a copy of the kernel with a clock64() reading by thread 0 at each
 phase boundary of a step (each boundary but the key wait and the last pass
@@ -24,10 +24,6 @@ forward and the inverse blocks; CUDA events give the device time of a
 one-step call (the accumulator's copy and one launch of each) and of the
 whole chain; one ``torch.profiler`` window over the whole chain gives each
 launch's device time by kernel and the idle gaps between the launches.
-``--csrc`` names another checkout's csrc (the parent's schedule, with its
-own marks); the package's wrapper launches it, so it must take the same
-arguments.  ``--group`` names the inverse clusters' ciphertexts (1, 2 or
-4; the plan's by default).
 """
 
 import argparse
@@ -89,7 +85,7 @@ namespace fhe {
            int, int, int, int, int, __VA_ARGS__ cudaStream_t) { \\
     return static_cast<int>(cudaErrorInvalidValue); \\
   }
-FHE_LAYOUT_STUB(blind_rotate_dm, int, int, int,)
+FHE_LAYOUT_STUB(blind_rotate_dm, int,)
 FHE_LAYOUT_STUB(blind_rotate_grid, int,)
 FHE_LAYOUT_STUB(blind_rotate_split, int,)
 }  // namespace fhe
@@ -131,8 +127,6 @@ def main() -> None:
     ap.add_argument("--steps", type=int, default=None)
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--device", action="store_true")
-    ap.add_argument("--csrc", default=str(_cuda.CSRC))
-    ap.add_argument("--group", type=int, default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("k10_phases: no CUDA card")
@@ -142,8 +136,7 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     if args.device:
-        device_layout(args.steps or 400, args.batch, Path(args.csrc), dev,
-                      card, args.group)
+        device_layout(args.steps or 400, args.batch, dev, card)
         return
     args.steps = args.steps or 1024
     gen = prng.Gen(3)
@@ -172,7 +165,7 @@ def main() -> None:
                  got.data_ptr(), tw[0].data_ptr(), tw[1].data_ptr(),
                  twinv[0].data_ptr(), twinv[1].data_ptr(), cons.data_ptr(),
                  None, steps, B, C, l, w, plan.logn, plan.threads,
-                 plan.smem_bytes, int(plan.staged), 0, 1,
+                 plan.smem_bytes, int(plan.staged), 0,
                  torch.cuda.current_stream().cuda_stream)
         torch.cuda.synchronize()
         if err or not torch.equal(got, want):
@@ -195,83 +188,51 @@ def main() -> None:
 
 DM_UNIT = "blind_rotate_dm_cuda.cu"
 DM_PHASES = ("forward: digits and pass 0", "forward: passes 1.. and the store",
-             "inverse: contraction (and pass 0 in the parent's)",
-             "inverse: passes before the last (from pass 0 in this one's)",
-             "inverse: last pass (n^-1)", "inverse: cluster wait",
-             "inverse: CRT lift and 64-bit atomics",
-             "inverse: of the contraction, thread 0 on the key ring")
+             "inverse: contraction", "inverse: passes before the last",
+             "inverse: last pass (n^-1 2^32)", "inverse: cluster wait",
+             "inverse: CRT lift and 64-bit atomics")
 DM_CONFIGS = ((1 << 12, 1 << 11, 2), (1 << 15, 1 << 8, 3))
 DM_BLOCKS = 4096
-_DM_ARGS = """const int* shifts, const unsigned long long* acc0,
-    const uint32_t* ev1, const uint32_t* ev1s, const uint32_t* ev2,
-    const uint32_t* ev2s, unsigned long long* out, const uint32_t* tw,
-    const uint32_t* tw_sh, const uint32_t* twinv, const uint32_t* twinv_sh,
-    const uint32_t* cons, uint32_t* scratch, int steps, int B, int C, int l,
-    int w, int logn, int threads, int smem, int staged, int layout, %s
-    cudaStream_t stream"""
-# the probe's entry: fhe_blind_rotate's arguments, into the schedule's
-# blind_rotate_dm as fhe_blind_rotate calls it for layout 1
+# the probe's entry: fhe_blind_rotate's arguments, into blind_rotate_dm as
+# fhe_blind_rotate calls it for layout 1
 _DM_ENTRY = """
-extern "C" int fhe_k10dm_probe(%s) {
+extern "C" int fhe_k10dm_probe(
+    const int* shifts, const unsigned long long* acc0, const uint32_t* ev1,
+    const uint32_t* ev1s, const uint32_t* ev2, const uint32_t* ev2s,
+    unsigned long long* out, const uint32_t* tw, const uint32_t* tw_sh,
+    const uint32_t* twinv, const uint32_t* twinv_sh, const uint32_t* cons,
+    uint32_t* scratch, int steps, int B, int C, int l, int w, int logn,
+    int threads, int smem, int staged, int layout, cudaStream_t stream) {
   const bool aligned = !(fhe::misaligned(ev1) || fhe::misaligned(ev1s) ||
                          fhe::misaligned(ev2) || fhe::misaligned(ev2s));
-  if (layout != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (layout != 1 || staged) return static_cast<int>(cudaErrorInvalidValue);
   return fhe::blind_rotate_dm(shifts, acc0, ev1, ev1s, ev2, ev2s, out,
                               scratch, tw, tw_sh, twinv, twinv_sh, cons,
-                              steps, B, C, l, w, logn, threads, smem, %s
+                              steps, B, C, l, w, logn, threads, smem,
                               aligned ? 1 : 0, stream);
 }
 """
-# (text, what): None the counters after it, a str that string after it, an
-# int a phase boundary before it, ("after", i) one after it
-DM_MARKS = {
-    # the parent's: a cluster of two inverse blocks per (ciphertext, column)
-    "pairs": ((
-        ('#include "radix_chain.cuh"\n', None),
-        ("  const int shift = 64 - w * (f - cc * l + 1);\n",
-         "  long long phase_t = clock64();\n"),
-        ("  RadixPasses<LOGN, 1, S::passes, false, S::threads>::run(\n", 0),
-        ("    row[i] = make_uint4(a[sw], a[sw ^ 1], a[sw ^ 2], a[sw ^ 3]);\n"
-         "  }\n}\n", ("after-brace", 1)),
-        ("  const int cols = 2 * C;\n", "  long long phase_t = clock64();\n"),
-        ("  RadixPasses<LOGN, 1, last, true, S::threads>::run(a, iw, iwsh, q);"
-         "\n", 2),
-        ("#pragma unroll 1\n  for (int g = 0; g < S::groups; ++g) {\n"
-         "    const int base = radix_base(threadIdx.x + g * S::threads, cl);\n",
-         3),
-        ("  // both primes' columns are complete and visible to the pair\n"
-         "  cluster_sync();\n", 4),
-        ("  const uint32_t peer = cluster_addr(a, rank ^ 1);\n", 5),
-        ("  // the peer has read this block's words before either block exits"
-         "\n  cluster_sync();\n", ("after", 6)),
-    ), ""),
-    # this one's: clusters of G ciphertexts x 2 primes on one column, the
-    # key's chunks through a ring in shared memory (thread 0's waits on it
-    # counted apart, slot 7)
-    "key multicast": ((
-        ('#include "radix_chain.cuh"\n', None),
-        ("  const int shift = 64 - w * (f - cc * l + 1);\n",
-         "  long long phase_t = clock64();\n"),
-        ("  RadixPasses<LOGN, 1, S::passes, false, S::threads>::run(\n", 0),
-        ("    row[i] = make_uint4(a[sw], a[sw ^ 1], a[sw ^ 2], a[sw ^ 3]);\n"
-         "  }\n}\n", ("after-brace", 1)),
-        ("  const int cols = 2 * C;\n",
-         "  long long phase_t = clock64(), span_t = 0;\n"),
-        ("        // refill the slot of the chunk before this one, once every "
-         "warp\n", "span"),
-        ("        dm_wait(full + s, static_cast<uint32_t>((k / stages) & 1));\n",
-         ("span-end", 7)),
-        ("  RadixPasses<LOGN, 0, last, true, S::threads>::run(\n", 2),
-        ("#pragma unroll 1\n  for (int gi = 0; gi < S::groups; ++gi) {\n"
-         "    const int base = radix_base(threadIdx.x + gi * S::threads, cl);"
-         "\n", 3),
-        ("  // both primes' columns are complete and visible to the cluster\n"
-         "  cluster_sync();\n", 4),
-        ("  const uint32_t peer = cluster_addr(a, rank ^ G);", 5),
-        ("  // the peer has read this block's words before any block exits\n"
-         "  cluster_sync();\n", ("after", 6)),
-    ), "staged, group,"),
-}
+# (text of the unit, what): None the counters after it, a str that string
+# after it, an int a phase boundary before it, ("after", i) one after it,
+# ("after-brace", i) one before the kernel's closing brace
+DM_MARKS = (
+    ('#include "radix_chain.cuh"\n', None),
+    ("  const int shift = 64 - w * (f - cc * l + 1);\n",
+     "  long long phase_t = clock64();\n"),
+    ("  RadixPasses<LOGN, 1, S::passes, false, S::threads>::run(\n", 0),
+    ("    row[i] = make_uint4(a[sw], a[sw ^ 1], a[sw ^ 2], a[sw ^ 3]);\n"
+     "  }\n}\n", ("after-brace", 1)),
+    ("  const int cols = 2 * C;\n", "  long long phase_t = clock64();\n"),
+    ("  RadixPasses<LOGN, 0, last, true, S::threads>::run(\n", 2),
+    ("#pragma unroll 1\n  for (int gi = 0; gi < S::groups; ++gi) {\n"
+     "    const int base = radix_base(threadIdx.x + gi * S::threads, cl);\n",
+     3),
+    ("  // both primes' columns are complete and visible to the cluster\n"
+     "  cluster_sync();\n", 4),
+    ("  const uint32_t peer = cluster_addr(a, p ^ 1);\n", 5),
+    ("  // the peer has read this block's words before any block exits\n"
+     "  cluster_sync();\n", ("after", 6)),
+)
 
 
 def _dm_counters() -> str:
@@ -289,57 +250,42 @@ extern "C" int fhe_k10_phases(unsigned long long* host, int clear) {{
 """
 
 
-def dm_instrumented(src: str, group_arg: bool = True) -> tuple:
-    """(schedule, the unit's text with the phase counters and the probe's
-    entry, whose arguments are fhe_blind_rotate's, with ``group`` where the
-    package's entry takes it) for the first schedule whose marks are each
-    found exactly once; raises if none is."""
-    for name, (marks, entry) in DM_MARKS.items():
-        if all(src.count(mark) == 1 for mark, _ in marks):
-            break
-    else:
-        raise ValueError(f"k10_phases: no schedule's marks match {DM_UNIT} "
-                         "(the kernel changed: update DM_MARKS)")
-    for mark, what in marks:
+def dm_instrumented(src: str) -> str:
+    """The unit's text with the phase counters and the probe's entry, whose
+    arguments are fhe_blind_rotate's; raises if a mark is not found exactly
+    once (the kernel changed: update DM_MARKS)."""
+    for mark, what in DM_MARKS:
+        if src.count(mark) != 1:
+            raise ValueError(f"k10_phases: mark {mark!r} found "
+                             f"{src.count(mark)} times in {DM_UNIT}")
         if what is None:
             src = src.replace(mark, mark + _dm_counters())
-        elif what == "span":
-            src = src.replace(mark, "        if (threadIdx.x == 0) span_t = "
-                              "clock64();\n" + mark)
         elif isinstance(what, str):
             src = src.replace(mark, mark + what)
         elif isinstance(what, int):
             src = src.replace(mark, f"  FHE_PHASE({what})\n" + mark)
-        elif what[0] == "span-end":
-            src = src.replace(mark, mark + "        if (threadIdx.x == 0) "
-                              f"g_phase[blockIdx.x * {len(DM_PHASES)} + "
-                              f"{what[1]}] += clock64() - span_t;\n")
         elif what[0] == "after":
             src = src.replace(mark, mark + f"  FHE_PHASE({what[1]})\n")
         else:     # before the closing brace of the kernel
             src = src.replace(mark, mark[:-2] + f"  FHE_PHASE({what[1]})\n}}\n")
-    args = _DM_ARGS % ("int group," if group_arg else "")
-    return name, src + _DM_ENTRY % (args, entry)
+    return src + _DM_ENTRY
 
 
-def dm_build(csrc: Path, out: Path) -> tuple:
-    """(schedule, CDLL, ptxas's lines) of the instrumented unit."""
-    schedule, text = dm_instrumented(
-        (csrc / DM_UNIT).read_text(),
-        len(_cuda.BLIND_ROTATE.argtypes) == 13 + 11 + 1)
+def dm_build(out: Path) -> tuple:
+    """(CDLL, ptxas's lines) of the instrumented unit."""
     cu = out / "blind_rotate_dm_phases.cu"
-    cu.write_text(text)
+    cu.write_text(dm_instrumented((_cuda.CSRC / DM_UNIT).read_text()))
     so = out / "libk10dm_phases.so"
     res = subprocess.run([_cuda._nvcc(), *_cuda.ARCH, "-std=c++17", "-O3",
                           "-Xptxas=-v", "-Xcompiler", "-fPIC", "-shared",
-                          f"-I{csrc}", "-o", str(so), str(cu)],
+                          f"-I{_cuda.CSRC}", "-o", str(so), str(cu)],
                          capture_output=True, text=True, check=False)
     if res.returncode:
         raise _cuda.KernelBuildError(res.stderr)
     report = [f"{r['kernel']} {r['registers']} registers, {r['stack']} bytes "
               f"stack, {r['spill_stores']} bytes spill stores"
               for r in _cuda.ptxas_report(res.stdout + res.stderr)]
-    return schedule, ctypes.CDLL(str(so)), report
+    return ctypes.CDLL(str(so)), report
 
 
 def launch_gaps(fn) -> dict:
@@ -394,14 +340,12 @@ def _events_ms(fn, reps: int) -> float:
     return best
 
 
-def device_layout(steps: int, B: int, csrc: Path, dev, card: str,
-                  group: int | None = None) -> None:
-    """The --device run (see the module docstring); ``group`` names the
-    inverse clusters' ciphertexts (the plan's where None)."""
+def device_layout(steps: int, B: int, dev, card: str) -> None:
+    """The --device run (see the module docstring)."""
     kernel = _cuda.BLIND_ROTATE
     with tempfile.TemporaryDirectory() as tmp:
-        schedule, lib, report = dm_build(csrc, Path(tmp))
-        print(f"k10_phases --device ({schedule}) ptxas: " + "; ".join(
+        lib, report = dm_build(Path(tmp))
+        print("k10_phases --device ptxas: " + "; ".join(
             r for r in report if "<12" in r or "<15" in r), flush=True)
         probe = lib.fhe_k10dm_probe
         probe.argtypes = kernel.argtypes
@@ -410,11 +354,10 @@ def device_layout(steps: int, B: int, csrc: Path, dev, card: str,
             gen = prng.Gen(26 + n)
             inputs = kernel_check.blind_rotate_inputs(n, 1, beta, l, steps,
                                                       B, dev, gen)
-            kw = {} if group is None else {"group": group}
-            plan = brc._plan(2, l, n, **kw)
+            plan = brc._plan(2, l, n)
             if plan.layout != "device":
                 raise RuntimeError(f"k10_phases: plan {plan}")
-            call = lambda: brc.blind_rotate_kernel(*inputs, **kw)  # noqa: E731
+            call = lambda: brc.blind_rotate_kernel(*inputs)  # noqa: E731
             want = call()
             saved = kernel._fn
             kernel._fn = probe
@@ -432,7 +375,7 @@ def device_layout(steps: int, B: int, csrc: Path, dev, card: str,
             per = cycles.reshape(DM_BLOCKS, -1).astype(np.float64) / steps
             shape = (f"N={n} C=2 l={l} beta=2^{beta.bit_length() - 1} "
                      f"B={B} steps={steps}")
-            print(f"k10_phases --device ({schedule}) at {shape}, plan "
+            print(f"k10_phases --device at {shape}, plan "
                   f"threads={plan.threads} cluster={plan.cluster} "
                   f"smem={plan.smem_bytes} staged={plan.staged} [{card}]: "
                   "cycles a step of thread 0, mean (least, most) over the "
@@ -450,8 +393,7 @@ def device_layout(steps: int, B: int, csrc: Path, dev, card: str,
             one = (inputs[0][:1].contiguous(), inputs[1],
                    *(e[:1].contiguous() for e in inputs[2:6]), n,
                    inputs[7])
-            step_ms = _events_ms(lambda: brc.blind_rotate_kernel(*one, **kw),
-                                 20)
+            step_ms = _events_ms(lambda: brc.blind_rotate_kernel(*one), 20)
             chain_ms = _events_ms(call, 1)
             print(f"  CUDA events: a one-step call {step_ms * 1e3:.2f} us; "
                   f"the chain of {steps} steps {chain_ms:.3f} ms = "

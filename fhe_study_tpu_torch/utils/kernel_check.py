@@ -1339,12 +1339,6 @@ BR_DM_SWEEP_B = (1, 3, 67)       # 67 left out at 2^14 and 2^15
 BR_DM_WIDE_LOGN = 14
 # shapes over a block's shared memory at small n: (log n, C, l, w)
 BR_DM_SMALL = ((11, 2, 7, 9), (9, 4, 32, 2))
-# the device-memory layout's key shared by inverse clusters of a named
-# group, (log n, C, l, B, G): four ciphertexts a cluster on batches that
-# four divides and that it does not, at the two path shapes' degrees, and
-# two on a batch of six
-BR_DM_GROUPS = ((12, 2, 2, 5, 4), (12, 2, 2, 8, 4), (15, 2, 3, 5, 4),
-                (13, 3, 1, 6, 2))
 
 
 def gate_width(n: int, C: int, l: int) -> int:
@@ -1433,10 +1427,7 @@ def blind_rotate_sweep(device, gen: prng.Gen):
     shapes of BR_DM_SMALL, and one C = 1 shape in each layout; on random
     keys, shifts and accumulators; and, at each shape, the key planes one
     word off their 16-byte alignment (read from device memory word by word,
-    not staged); then the device-memory layout with the key staged and
-    shared by inverse clusters of a named group of ciphertexts
-    (BR_DM_GROUPS, two steps; batches that the group does and does not
-    divide).  Yields the cases one at a time, so that only one case's
+    not staged).  Yields the cases one at a time, so that only one case's
     tensors live at once."""
     full = [(logn, C, l, None) for C in BR_SWEEP_C for l in BR_SWEEP_L
             for logn in range(_cuda.BLIND_ROTATE.logn[0], nc.CHUNK_LOGN + 1)]
@@ -1478,16 +1469,6 @@ def blind_rotate_sweep(device, gen: prng.Gen):
                     n, w)._replace(timed=False, layout=plan.layout,
                                    args=(shifts[:, :3], acc0[:3], *off, n,
                                          w)))
-    for logn, C, l, B, G in BR_DM_GROUPS:
-        n = 1 << logn
-        w = gate_width(n, C, l)
-        args = blind_rotate_inputs(n, C - 1, 1 << w, l, 2, B, device, gen)
-        yield (_pair(
-            "blind_rotate", f"C={C} l={l} w={w} steps=2 B={B} n={n} device, "
-            f"clusters of {G} ciphertexts", 0, 0,
-            partial(brc.blind_rotate_kernel, layout="device", group=G),
-            brc.blind_rotate_plain, *args)._replace(
-                timed=False, layout="device", args=args))
 
 
 def tfhe_cases(n: int, k: int, beta: int, l: int, steps: int, batch: int,

@@ -102,11 +102,6 @@ controls that share no code with the layout K10's split layout at
 N = 2^16 (l = 5, 16 steps, 64 ciphertexts) and every case of
 ``kernel_check.cases`` at N = 2^14, L = 4, M = 5 (K1-K8), each on the
 device alone; the card's SM clock is sampled beside each K10 time.
-Where the tree has them it also times K10 with the key shared through
-the shared-memory ring by inverse clusters of G = 1, 2 and 4 ciphertexts
-(``blind_rotate_kernel(..., group=G)``, held equal to the path's output
-first) and prints the clusters of 2G staged blocks that the card holds at
-once at n = 2^12 .. 2^15.
 
 ``--paths`` times only the BFV chains: those of phase 6 above (N = 2^14)
 and chip_smoke.py's phase 20 ops at N = 128, t = 16, L = 3, M = 4,
@@ -119,7 +114,6 @@ import pathlib
 import subprocess
 import sys
 import time
-from functools import partial
 
 import numpy as np
 import torch
@@ -552,31 +546,12 @@ def k10dm(args, card: str) -> None:
               f"device alone {ms:.4f} ms, bound {b.ms:.4f} ms by {b.term}, "
               f"{b.ms / ms:.3f} of it", flush=True)
 
-    from fhe_study_tpu_torch.ops import blind_rotate_cuda as brc
-    groups = hasattr(brc, "dm_clusters")          # absent in older trees
     for n, _, beta, l in K10DM_CONFIGS:
         case = kc.blind_rotate_case(n, 1, beta, l, K10DM_STEPS, K10DM_BATCH,
                                     dev, prng.Gen(26 + n))
         timed(f"blind_rotate {case.label}", case)
-        # the key shared through the ring by clusters of G ciphertexts,
-        # each held equal to the path's output first
-        for group in (1, 2, brc.DM_GROUP) if groups else ():
-            shared = case._replace(kernel=partial(
-                brc.blind_rotate_kernel, *case.args, layout="device",
-                group=group))
-            if not kc.equal(shared.kernel(), case.kernel()):
-                raise RuntimeError(f"k10dm: group {group} != the path's")
-            timed(f"blind_rotate {case.label}, key ring shared by "
-                  f"{group}", shared)
         del case
         torch.cuda.empty_cache()
-    if groups:
-        print(f"k10dm {args.tree} [{card}]: inverse clusters of 2G staged "
-              "blocks the card holds at once (G: clusters): " + "; ".join(
-                  f"2^{logn} " + ", ".join(
-                      f"{g}: {brc.dm_clusters(dev, logn, g)}"
-                      for g in (1, 2, brc.DM_GROUP))
-                  for logn in range(12, 16)), flush=True)
     case = kc.blind_rotate_case(1 << 16, 1, 1 << 6, 5, 16, 64, dev,
                                 prng.Gen(2), layout="split")
     timed(f"blind_rotate {case.label} (control)", case)

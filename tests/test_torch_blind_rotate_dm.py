@@ -10,13 +10,11 @@ CPU:
     and the grid layout past it;
   * the layout's schedule written out in int64 torch — the forward blocks
     (ciphertext, digit polynomial, prime) into the scratch [B, 2, C l, n],
-    the inverse clusters (G ciphertexts, column) with the Montgomery
-    contraction from the scratch and the key ring, the CRT by halves and
-    the limb-shifted adds into the accumulator, the padded tail adding
-    nothing, step after step — equals ``blind_rotate_plain`` at n = 128
-    and 256, C = 2, 3, l = 1 .. 3, on 3 ciphertexts in clusters of one
-    (the path's), on 1, 3, 5 and 8 in clusters of 4 and on 3 in clusters
-    of 2, bit for bit;
+    the inverse clusters (ciphertext, column) with the Montgomery
+    contraction from the scratch, the CRT by halves and the limb-shifted
+    adds into the accumulator, step after step — equals
+    ``blind_rotate_plain`` at n = 128 and 256, C = 2, 3, l = 1 .. 3, on 1,
+    3 and 5 ciphertexts, bit for bit;
   * ``blind_rotation`` of the port (the fused chain's plain version on the
     CPU) equals the JAX package's step-by-step chain under ``jax.jit`` at
     N = 4096, K = 1, beta = 2^11, l = 2 (tests/test_bootstrap.py's t = 128
@@ -40,7 +38,6 @@ from fhe_study_tpu.models.tfhe import tggsw as jtggsw
 from fhe_study_tpu.models.tfhe import tlwe as jtlwe
 from fhe_study_tpu.ops import blind_rotate_pallas as brp
 
-from fhe_study_tpu_torch.arith import tn
 from fhe_study_tpu_torch.arith.params import RingParam
 from fhe_study_tpu_torch.models.gfhe import glwe as G
 from fhe_study_tpu_torch.models.tfhe import bootstrap, tglwe, tlwe
@@ -50,7 +47,7 @@ from fhe_study_tpu_torch.ops import ntt as ntt_mod
 from fhe_study_tpu_torch.ops import ntt_cuda as nc
 from fhe_study_tpu_torch.utils import interop, prng
 from test_torch_blind_rotate_plan import _inputs
-from test_torch_radix_plan import (_elements, _swizzle, _twiddle_index)
+from test_torch_radix_plan import _emulate
 
 CPU = torch.device("cpu")
 P0, P1 = ntt_mod.CRT_PRIMES_TFHE
@@ -90,14 +87,9 @@ def test_supported_equals_the_reference_up_to_n_2_15():
 @pytest.mark.parametrize("logn", [12, 15])
 def test_device_plan_is_the_one_buffer_shape(logn):
     """At C = 2, l = 3 (past a block at 2^12): a forward block per digit
-    polynomial and prime and an inverse cluster of the two primes per
-    (ciphertext, column), each at K1's block shape, the key read from
-    device memory; with a group of G ciphertexts named (1, 2 or 4), inverse
-    clusters of G ciphertexts times the two primes on one column, and, with
-    16-byte aligned key planes, a ring of key chunks beside the polynomial
-    (one group's row each: 16 words a thread), 4 of them at 2^12 and 3 at
-    2^15, with two mbarriers each; the scratch of a ciphertext holds a
-    step's digit evaluations under both primes."""
+    polynomial and prime, a cluster of two inverse blocks per column, each
+    at K1's block shape, the key read from device memory; the scratch of a
+    ciphertext holds a step's digit evaluations under both primes."""
     n = 1 << logn
     plan = brc._plan(2, 3, n)
     radix = nc._radix_plan(logn)
@@ -107,97 +99,35 @@ def test_device_plan_is_the_one_buffer_shape(logn):
     assert plan.blocks == (2 * 6, 2 * 4)
     assert plan.scratch_bytes == 2 * 6 * n * 4
     assert brc._plan(2, 3, n, False) == plan
-    stages, words = brc._dm_ring(logn)
-    assert words == radix.threads * 16 == min(n, 16 * radix.threads)
-    assert stages == {12: 4, 15: 3}[logn]
-    for group in (1, 2, 4):
-        shared = brc._plan(2, 3, n, group=group)
-        assert shared.staged and shared.cluster == 2 * group
-        assert shared.smem_bytes == 4 * n + stages * (4 * words + 16)
-        assert shared.smem_bytes <= (brc._SMEM_LIMIT if logn == 15
-                                     else brc.DM_BLOCK_BYTES)
-        assert shared._replace(staged=False, smem_bytes=4 * n,
-                               cluster=2) == plan
-        assert brc._plan(2, 3, n, False, group=group) == plan._replace(
-            cluster=2 * group)
-    with pytest.raises(ValueError, match="group"):
-        brc._plan(2, 3, n, group=3)
-    assert [brc._dm_ring(k)[0] for k in range(7, 16)] == [4] * 7 + [3, 3]
     assert brc._plan(2, 2, 1024).layout == "cluster"
 
 
-def _chains(first, q: int, logn: int, inverse: bool, fin: int = 1):
-    """The one-buffer chain of R blocks side by side (as
-    tests/test_torch_radix_plan.py::_emulate runs one).  Forward:
-    ``first(addr)`` forms the first pass's [R, n/16, 16] registers from
-    its element addresses v + (k << c0), and the chain leaves the swizzled
-    buffer by the coalesced 16-byte read-out.  Inverse: ``first`` is the
-    [R, n] buffer's words in natural order, which the blocks store into the
-    swizzled buffer as the forward's read-out reads it (lane i the words
-    4 i .. 4 i + 3), and the chain runs from pass 0 there, its last pass
-    storing its registers times fin.  Passes exchange through the swizzled
-    buffer; returns [R, n]."""
-    n = 1 << logn
-    plan = nc._radix_plan(logn)
-    roots = nc._roots_plain((q,), n, inverse, CPU)[0]
-    passes = plan.inverse if inverse else plan.forward
-    v = torch.arange(n >> nc.RADIX_BITS)[:, None]
-    k = torch.arange(16)[None]
-    if inverse:
-        smem = torch.full(first.shape, -1, dtype=torch.int64)
-        sw = _swizzle(4 * torch.arange(n // 4))
-        for t in range(4):
-            smem[:, sw ^ t] = first[:, 4 * torch.arange(n // 4) + t]
-        assert bool((smem >= 0).all())
-    for i, ps in enumerate(passes):
-        el = _elements(logn, ps.c)
-        if i == 0 and not inverse:
-            regs = first(v + (k << (logn - 4)))
-        else:
-            regs = smem[:, _swizzle(el)]
-        for u in ps.stages:
-            lo = torch.arange(16)
-            lo = lo[(lo >> u) & 1 == 0]
-            hi = lo | (1 << u)
-            wt = roots[_twiddle_index(logn, ps.c, u, el)]
-            a, b = regs[..., lo], regs[..., hi]
-            if inverse:
-                regs[..., lo], regs[..., hi] = (a + b) % q, (a - b) % q * wt % q
-            else:
-                t = b * wt % q
-                regs[..., lo], regs[..., hi] = (a + t) % q, (a - t) % q
-        if inverse and i == len(passes) - 1:
-            out = torch.empty((regs.shape[0], n), dtype=torch.int64)
-            out[:, el] = regs * fin % q
-            return out
-        smem = torch.empty((regs.shape[0], n), dtype=torch.int64)
-        smem[:, _swizzle(el)] = regs
-    sw = _swizzle(4 * torch.arange(n // 4))
-    return torch.stack([smem[:, sw ^ t] for t in range(4)], -1).reshape(-1, n)
-
-
-def _device_layout(shifts, acc0, ev1, ev2, n: int, w: int, G: int):
-    """The device-memory layout's schedule, block by block (the chains of
-    a launch's blocks of one prime run side by side, ``_chains``): per
-    step the forward blocks (ciphertext, digit polynomial, prime), their
-    first pass formed from the rotated accumulator, into the scratch; then
-    the inverse clusters of G ciphertexts times the two primes on one
-    column: block (p, g) sums the Montgomery products of its lanes'
-    consecutive 16-byte words, each key word from the ring chunk that the G
-    blocks of prime p copied a part each, into its shared buffer, runs the
-    chain from pass 0 there, n^-1 2^32 in its last pass, and lifts half p
-    from its words and its peer's.  A
-    ciphertext past the batch (the padded tail) computes on the last one's
-    digits and adds nothing."""
+def _device_layout(shifts, acc0, ev1, ev2, n: int, w: int):
+    """The device-memory layout's schedule, launch by launch (a launch's
+    blocks under one prime side by side on the one-buffer chain,
+    tests/test_torch_radix_plan.py::_emulate): per step the forward blocks
+    (ciphertext, digit polynomial, prime), their first pass formed from
+    the rotated accumulator, into the scratch; then the inverse clusters
+    (ciphertext, column) of a block per prime: block p sums the Montgomery
+    products of its lanes' consecutive 16-byte words of the digit and key
+    rows into its shared buffer as the forward's read-out leaves it (pass
+    0 then reads each element's sum, as ``_emulate`` reads a row), runs
+    the chain, n^-1 2^32 in its last pass, and lifts half p from its words
+    and its peer's."""
     steps, B = shifts.shape
     C, l = acc0.shape[1], ev1.shape[2]
     F, cols = C * l, 2 * C
     logn = n.bit_length() - 1
-    _, words = brc._dm_ring(logn)
+    # thread t of a block takes words 4 (u T + t) .. + 3 of each group's
+    # 16 T, u < 4: every word once
+    threads = nc._radix_plan(logn).threads
+    t, u, i = (torch.arange(threads)[:, None, None],
+               torch.arange(4)[None, :, None], torch.arange(4)[None, None])
+    off = (4 * (u * threads + t) + i).reshape(-1)
+    assert torch.equal(torch.sort(off).values, torch.arange(16 * threads))
     acc = acc0.clone()                               # the output, [B, C, n]
     dig = torch.full((B, 2, F, n), -1, dtype=torch.int64)
     ev = torch.stack([ev1, ev2]).long()
-    clusters = -(-B // G) * cols
     for j in range(steps):
         # forward: block (b F + f) 2 + p, digit i of component c of b
         b, f = torch.arange(B * F) // F, torch.arange(B * F) % F
@@ -215,53 +145,22 @@ def _device_layout(shifts, acc0, ev1, ev2, n: int, w: int, G: int):
             return (r >> (64 - w * (i + 1))[:, None, None]) & ((1 << w) - 1)
 
         for p in range(2):
-            dig[b, p, f] = _chains(digits, (P0, P1)[p], logn, False)
-        # inverse: cluster bg cols + o, block p G + g on ciphertext bg G + g
-        bg, o = torch.arange(clusters) // cols, torch.arange(clusters) % cols
+            dig[b, p, f] = _emulate(None, (P0, P1)[p], logn, False,
+                                    first=digits)
+        # inverse: cluster b cols + o, block p under prime p
         res = []
         for p in range(2):
             q = (P0, P1)[p]
-            blk = torch.arange(clusters * G)                  # (cluster, g)
-            cl_, g = blk // G, blk % G
-            b = torch.clamp(bg[cl_] * G + g, max=B - 1)
-            drows = dig[b, p]                                 # [., F, n]
-            key = ev[p, j].reshape(F, cols, n)[:, o].transpose(0, 1)
-            # chunk gi F + ri of cluster c's ring: group gi's words of key
-            # row ri, part t copied by block t of the prime
-            ring = torch.stack([torch.cat([
-                key[:, ri, gi * words + t * (words // G):
-                    gi * words + (t + 1) * (words // G)] for t in range(G)],
-                dim=-1) for gi in range(n // words) for ri in range(F)], 1)
-            kw = ring[cl_]                                    # [., chunks, words]
-            rinv = pow(nc.R32, -1, q)
-            # thread t of a block takes words 4 (u T + t) .. + 3 of each
-            # group's, u < 4: every word once
-            threads = words // 16
-            t, u, i = (torch.arange(threads)[:, None, None],
-                       torch.arange(4)[None, :, None],
-                       torch.arange(4)[None, None])
-            off = (4 * (u * threads + t) + i).reshape(-1)
-            assert torch.equal(torch.sort(off).values, torch.arange(words))
-            sums = torch.empty((len(blk), n), dtype=torch.int64)
-            for gi in range(n // words):
-                addr = gi * words + off
-                keys = kw[:, gi * F + torch.arange(F)[:, None], off]
-                prod = drows[:, :, addr] * keys % q * rinv % q
-                sums[:, addr] = prod.sum(1) % q
-            res.append(_chains(sums, q, logn, True,
-                               fin=pow(n, -1, q) * nc.R32 % q).reshape(
-                                   clusters, G, n))
-        for c in range(clusters):
-            limb, comp = int(o[c]) & 1, int(o[c]) >> 1
-            for g in range(G):
-                b = int(bg[c]) * G + g
-                if b >= B:
-                    continue
-                # block (p, g) lifts half p from its words and its peer's
-                for p in range(2):
-                    idx = torch.arange(p * n // 2, (p + 1) * n // 2)
-                    lifted = _lift(res[0][c, g, idx], res[1][c, g, idx])
-                    acc[b, comp, idx] += lifted * (1 << (32 * limb))
+            key = ev[p, j].reshape(F, cols, n)
+            prod = dig[:, p, :, None] * key[None] % q * pow(nc.R32, -1, q) % q
+            res.append(_emulate(prod.sum(1) % q, q, logn, True,
+                                fin=pow(n, -1, q) * nc.R32 % q))
+        # block p lifts half p from its words and its peer's
+        for p in range(2):
+            idx = torch.arange(p * n // 2, (p + 1) * n // 2)
+            lifted = _lift(res[0][..., idx], res[1][..., idx])  # [B, 2C, .]
+            for o in range(cols):
+                acc[:, o >> 1, idx] += lifted[:, o] * (1 << (32 * (o & 1)))
     return acc
 
 
@@ -273,20 +172,16 @@ def _lift(r0, r1):
     return torch.where(g > P0 * P1 // 2, g - P0 * P1, g)
 
 
-@pytest.mark.parametrize("B,G", [(3, 1), (1, 4), (3, 4), (5, 4), (8, 4),
-                                 (3, 2)])
+@pytest.mark.parametrize("B", [1, 3, 5])
 @pytest.mark.parametrize("logn", [7, 8])
 @pytest.mark.parametrize("C,l", [(2, 1), (2, 2), (2, 3), (3, 1), (3, 2),
                                  (3, 3)])
-def test_device_layout_schedule_equals_plain(logn, C, l, B, G):
-    """The path's clusters of one ciphertext (G = 1), clusters of G = 4
-    on 1, G - 1, G + 1 ciphertexts and a multiple of G, and of G = 2 on
-    3."""
+def test_device_layout_schedule_equals_plain(logn, C, l, B):
     n, w = 1 << logn, {1: 20, 2: 12, 3: 21}[l]
     rng = np.random.default_rng(2000 * logn + 10 * C + l + 100 * B)
     shifts, acc0, ev1, ev1s, ev2, ev2s = _inputs(rng, 2, B, C, l, n)
     want = brc.blind_rotate_plain(shifts, acc0, ev1, ev1s, ev2, ev2s, n, w)
-    assert torch.equal(_device_layout(shifts, acc0, ev1, ev2, n, w, G), want)
+    assert torch.equal(_device_layout(shifts, acc0, ev1, ev2, n, w), want)
 
 
 # -- blind_rotation at N = 4096 against the JAX package ----------------------

@@ -239,8 +239,7 @@ def test_plan_maps_cover_every_word_once(logn, C, l):
 def test_plan_fits_a_block_and_stages_the_bench_shape(logn):
     """The cluster layout where a ciphertext's working set fits a block, its
     key planes staged where they fit beside it; elsewhere the device-memory
-    layout, one polynomial a block and, with a group named, a ring of key
-    chunks within two blocks an SM (one at 2^15)."""
+    layout, one polynomial a block."""
     n = 1 << logn
     for C in (2, 3, 4):
         for l in range(1, 7):
@@ -249,13 +248,6 @@ def test_plan_fits_a_block_and_stages_the_bench_shape(logn):
             if brc._smem(C, l, n, False) > brc._SMEM_LIMIT:
                 assert staged == direct and direct.layout == "device"
                 assert direct.smem_bytes == 4 * n <= brc._SMEM_LIMIT
-                # with a group named, the key ring beside the polynomial
-                stages, words = brc._dm_ring(logn)
-                ring = brc._plan(C, l, n, group=4)
-                assert ring.staged and ring.smem_bytes == 4 * n + stages * (
-                    4 * words + 16)
-                assert ring.smem_bytes <= (
-                    brc._SMEM_LIMIT if logn == 15 else brc.DM_BLOCK_BYTES)
                 continue
             assert direct.layout == staged.layout == "cluster"
             assert direct.smem_bytes == brc._smem(C, l, n, False)
@@ -355,14 +347,8 @@ def test_phase_counters_fit_the_kernel_source():
 
 def test_device_phase_counters_fit_the_layout_source():
     """utils/k10_phases.py --device finds each of its marks once in the
-    device-memory layout's unit, and its probe entry takes the package's
-    entry's arguments (the group among them)."""
+    device-memory layout's unit: the seven phase boundaries and the
+    macro."""
     src = (_cuda.CSRC / k10_phases.DM_UNIT).read_text()
-    schedule, out = k10_phases.dm_instrumented(src)
-    assert schedule == "key multicast"
-    # the seven phase boundaries and the key ring's span
-    assert out.count("FHE_PHASE(") == 7 + 1
-    assert out.count("span_t") == 3
-    assert "int layout, int group," in out
-    assert "int layout, int group," not in k10_phases.dm_instrumented(
-        src, False)[1]
+    out = k10_phases.dm_instrumented(src)
+    assert out.count("FHE_PHASE(") == len(k10_phases.DM_PHASES) + 1

@@ -103,7 +103,7 @@ def test_radix_kernels_have_no_stack_frame_or_spills(cuda):
               "ntt_multi_kernel": 9 * 2, "base_extend_kernel": 31 * 2,
               "base_extend_sum_kernel": 31 * 2, "ext_lift_kernel": 2,
               "blind_rotate_kernel": 6 * 2, "br_forward_kernel": 9,
-              "br_inverse_kernel": 9 * 2, "ntt_kernel": 9 * 2,
+              "br_inverse_kernel": 9, "ntt_kernel": 9 * 2,
               "ntt_smem_ceiling_kernel": 9, "ntt_chunk_kernel": 8,
               "ntt_top_kernel": 4 * 4 + 3 * 4 + 4 + 2 * 4,
               "brg_top_forward_kernel": 4 * 2,
@@ -295,28 +295,21 @@ def test_blind_rotate_device_layout_matches_plain(cuda, n, C, l, w):
     """K10 with its working set in device memory: configuration a's shape,
     configuration b's, two shapes over a block's shared memory at small n,
     and the layout forced at n = 256, where the plan takes the clusters;
-    over 17 steps on 3 ciphertexts (the key read from device memory), on
-    5 and 8 with the key staged and shared by clusters of four and on 5 by
-    two (neither divides five), on 3 staged by clusters of one, and with
-    key planes one word off (not staged), bit for bit; one launch a chain,
-    counted under K10's name and its layout's."""
+    over 17 steps on 3 ciphertexts, and with key planes one word off, bit
+    for bit; one launch a chain, counted under K10's name and its
+    layout's."""
     gen = prng.Gen(n + C + l)
-    args = kernel_check.blind_rotate_inputs(n, C - 1, 1 << w, l, 17, 8, cuda,
+    args = kernel_check.blind_rotate_inputs(n, C - 1, 1 << w, l, 17, 3, cuda,
                                             gen)
     layout = "device"
     assert (blind_rotate_cuda._plan(C, l, n).layout == layout) == (n > 256)
-    for B, group in ((3, None), (5, 4), (8, 4), (5, 2), (3, 1)):
-        sub = (args[0][:, :B].contiguous(), args[1][:B], *args[2:])
-        _cuda.reset_launches()
-        got = blind_rotate_cuda.blind_rotate_kernel(*sub, layout=layout,
-                                                    group=group)
-        torch.cuda.synchronize()
-        assert _cuda.launches()["blind_rotate"] == 1
-        assert _cuda.BLIND_ROTATE.by_layout == {"cluster": 0, "device": 1,
-                                                "split": 0, "grid": 0}
-        assert torch.equal(got, blind_rotate_cuda.blind_rotate_plain(*sub)), (
-            B, group)
-    args = (args[0][:, :3].contiguous(), args[1][:3], *args[2:])
+    _cuda.reset_launches()
+    got = blind_rotate_cuda.blind_rotate_kernel(*args, layout=layout)
+    torch.cuda.synchronize()
+    assert _cuda.launches()["blind_rotate"] == 1
+    assert _cuda.BLIND_ROTATE.by_layout == {"cluster": 0, "device": 1,
+                                            "split": 0, "grid": 0}
+    assert torch.equal(got, blind_rotate_cuda.blind_rotate_plain(*args))
     off = [kernel_check._offset_word(e) for e in args[2:6]]
     shifts, acc0 = args[0][:2].contiguous(), args[1]
     got = blind_rotate_cuda.blind_rotate_kernel(
@@ -328,11 +321,9 @@ def test_blind_rotate_device_layout_matches_plain(cuda, n, C, l, w):
 def test_blind_rotate_refuses_another_plan(cuda):
     """K10 refuses a block size, shared memory or staging other than its
     plan's, and staging from planes that are not 16-byte aligned; in its
-    device-memory layout a block size other than the one-buffer shape's,
-    shared memory other than its inverse block's with or without the key
-    ring, staging from planes that are not 16-byte aligned, a group of
-    ciphertexts other than 1, 2 or 4, and no scratch; a cluster past 2^12;
-    and a group other than 1 outside the device-memory layout."""
+    device-memory layout a block size or shared memory other than the
+    one-buffer shape's, staging, and no scratch; and a cluster past
+    2^12."""
     n, C, l = 256, 2, 2
     shifts = torch.zeros((2, 1), dtype=torch.int32, device=cuda)
     acc0 = torch.zeros((1, C, n), dtype=torch.int64, device=cuda)
@@ -355,39 +346,31 @@ def test_blind_rotate_refuses_another_plan(cuda):
                 key.data_ptr(), key.data_ptr(), key.data_ptr(),
                 acc0.data_ptr(), tw[0].data_ptr(), tw[1].data_ptr(),
                 tw[0].data_ptr(), tw[1].data_ptr(), cons.data_ptr(), None, 2,
-                1, C, l, 12, 8, threads, smem, staged, 0, 1,
-                layout="cluster")
-    dm = blind_rotate_cuda._plan(C, l, n, layout="device", group=4)
-    assert dm.staged and dm.smem_bytes > 4 * n
+                1, C, l, 12, 8, threads, smem, staged, 0, layout="cluster")
+    dm = blind_rotate_cuda._plan(C, l, n, layout="device")
     scratch = torch.empty(dm.scratch_bytes // 4, dtype=torch.int32,
                           device=cuda)
-    for key, buf, logn, threads, smem, staged, group in (
-            (ev, scratch, 8, dm.threads * 2, dm.smem_bytes, 1, 1),
-            (ev, scratch, 8, dm.threads, dm.smem_bytes * 2, 1, 1),
-            (ev, scratch, 8, dm.threads, dm.smem_bytes, 0, 1),
-            (ev, scratch, 8, dm.threads, 4 * n, 1, 1),
-            (ev, scratch, 8, dm.threads, dm.smem_bytes, 1, 3),
-            (ev, scratch, 8, dm.threads, dm.smem_bytes, 1, 8),
-            (off, scratch, 8, dm.threads, dm.smem_bytes, 1, 1),
-            (ev, None, 8, dm.threads, dm.smem_bytes, 1, 1),
-            (ev, scratch, 16, dm.threads, dm.smem_bytes, 1, 1)):
-        with pytest.raises(RuntimeError, match="fhe_blind_rotate"):
-            _cuda.BLIND_ROTATE.launch(
-                cuda, shifts.data_ptr(), acc0.data_ptr(), key.data_ptr(),
-                key.data_ptr(), key.data_ptr(), key.data_ptr(),
-                acc0.data_ptr(), tw[0].data_ptr(), tw[1].data_ptr(),
-                tw[0].data_ptr(), tw[1].data_ptr(), cons.data_ptr(),
-                buf.data_ptr() if buf is not None else None, 2, 1, C, l, 12,
-                logn, threads, smem, staged, 1, group, layout="device")
-    for logn, staged, group in ((13, 0, 1), (8, 1, 2)):
+    for buf, logn, threads, smem, staged in (
+            (scratch, 8, dm.threads * 2, dm.smem_bytes, 0),
+            (scratch, 8, dm.threads, dm.smem_bytes * 2, 0),
+            (scratch, 8, dm.threads, dm.smem_bytes, 1),
+            (None, 8, dm.threads, dm.smem_bytes, 0),
+            (scratch, 16, dm.threads, dm.smem_bytes, 0)):
         with pytest.raises(RuntimeError, match="fhe_blind_rotate"):
             _cuda.BLIND_ROTATE.launch(
                 cuda, shifts.data_ptr(), acc0.data_ptr(), ev.data_ptr(),
-                ev.data_ptr(), ev.data_ptr(), ev.data_ptr(), acc0.data_ptr(),
-                tw[0].data_ptr(), tw[1].data_ptr(), tw[0].data_ptr(),
-                tw[1].data_ptr(), cons.data_ptr(), None, 2, 1, C, l, 12,
-                logn, plan.threads, plan.smem_bytes, staged, 0, group,
-                layout="cluster")
+                ev.data_ptr(), ev.data_ptr(), ev.data_ptr(),
+                acc0.data_ptr(), tw[0].data_ptr(), tw[1].data_ptr(),
+                tw[0].data_ptr(), tw[1].data_ptr(), cons.data_ptr(),
+                buf.data_ptr() if buf is not None else None, 2, 1, C, l, 12,
+                logn, threads, smem, staged, 1, layout="device")
+    with pytest.raises(RuntimeError, match="fhe_blind_rotate"):
+        _cuda.BLIND_ROTATE.launch(
+            cuda, shifts.data_ptr(), acc0.data_ptr(), ev.data_ptr(),
+            ev.data_ptr(), ev.data_ptr(), ev.data_ptr(), acc0.data_ptr(),
+            tw[0].data_ptr(), tw[1].data_ptr(), tw[0].data_ptr(),
+            tw[1].data_ptr(), cons.data_ptr(), None, 2, 1, C, l, 12, 13,
+            plan.threads, plan.smem_bytes, 0, 0, layout="cluster")
 
 
 def test_linear_kernels_match_plain(cuda):

@@ -135,8 +135,8 @@ def test_plan_fits_a_block(logn):
 
 
 def _run_pass(regs, el, ps, roots, q: int, logn: int, inverse: bool):
-    """The stages of one pass on the [n/16, 16] registers of every virtual
-    thread (el: the elements they hold), in place."""
+    """The stages of one pass on the [..., n/16, 16] registers of every
+    virtual thread (el: the elements they hold), in place."""
     n = 1 << logn
     for u in ps.stages:
         j = ps.c + u
@@ -148,12 +148,12 @@ def _run_pass(regs, el, ps, roots, q: int, logn: int, inverse: bool):
         assert torch.equal(ti, (n >> (j + 1)) + (el[:, lo] >> (j + 1)))
         assert bool((ti[:, 0] % (8 >> u) == 0).all())
         w = roots[ti]
-        a, b = regs[:, lo], regs[:, hi]
+        a, b = regs[..., lo], regs[..., hi]
         if inverse:
-            regs[:, lo], regs[:, hi] = (a + b) % q, (a - b) % q * w % q
+            regs[..., lo], regs[..., hi] = (a + b) % q, (a - b) % q * w % q
         else:
             v = b * w % q
-            regs[:, lo], regs[:, hi] = (a + v) % q, (a - v) % q
+            regs[..., lo], regs[..., hi] = (a + v) % q, (a - v) % q
 
 
 def _lanes_consecutive(addr) -> bool:
@@ -167,7 +167,8 @@ def _lanes_consecutive(addr) -> bool:
 
 def _emulate(x, q: int, logn: int, inverse: bool, fin: int = 1,
              first=None, vec: int = 4, roots=None):
-    """The kernels' data flow on one row x of device memory: each pass runs
+    """The kernels' data flow on a row x [..., n] of device memory (the
+    leading dimensions: blocks side by side): each pass runs
     its stages on [n/16, 16] registers, passes exchange through a swizzled
     shared-memory buffer.  The forward's first pass reads word
     base + (j << c0) of the row, base = v (K1; K5 converts the same words),
@@ -177,18 +178,16 @@ def _emulate(x, q: int, logn: int, inverse: bool, fin: int = 1,
     contiguous words from base = 16 v in 16-byte vectors (K1, K9; K2 forms
     its products there), and its last pass stores its registers times fin
     to base + (j << c), lanes on consecutive words.  ``first``, where given,
-    forms the first pass's registers from its element addresses instead of
-    reading x (K3); ``roots``, where given, is the root table (a split
+    forms the first pass's [..., n/16, 16] registers from its element
+    addresses instead of reading x (K3); ``roots``, where given, is the root table (a split
     row)."""
     n = 1 << logn
     plan = nc._radix_plan(logn)
     if roots is None:
         roots = nc._roots_plain((q,), n, inverse, torch.device("cpu"))[0]
-    smem = torch.full((n,), -1, dtype=torch.int64)
     passes = plan.inverse if inverse else plan.forward
     v = torch.arange(n >> nc.RADIX_BITS)[:, None]
     k = torch.arange(16)[None]
-    out = torch.full((n,), -1, dtype=torch.int64)
     for i, ps in enumerate(passes):
         el = _elements(logn, ps.c)
         if i == 0:
@@ -198,15 +197,18 @@ def _emulate(x, q: int, logn: int, inverse: bool, fin: int = 1,
                 assert bool((addr[:, ::vec] % vec == 0).all())
             else:
                 assert _lanes_consecutive(addr)
-            regs = x[addr] if first is None else first(addr)
+            regs = x[..., addr] if first is None else first(addr)
+            lead = regs.shape[:-2]
+            smem = torch.full((*lead, n), -1, dtype=torch.int64)
+            out = torch.full((*lead, n), -1, dtype=torch.int64)
         else:
-            regs = smem[_swizzle(el)]
+            regs = smem[..., _swizzle(el)]
         _run_pass(regs, el, ps, roots, q, logn, inverse)
         if inverse and i == len(passes) - 1:
             assert _lanes_consecutive(el)
-            out[el] = regs * fin % q
+            out[..., el] = regs * fin % q
         else:
-            smem[_swizzle(el)] = regs
+            smem[..., _swizzle(el)] = regs
     if not inverse:
         out = _read_out(smem, n, vec) * fin % q
     assert int(out.min()) >= 0
@@ -214,10 +216,11 @@ def _emulate(x, q: int, logn: int, inverse: bool, fin: int = 1,
 
 
 def _read_out(smem, n: int, vec: int):
-    """The forward's coalesced read-out of a swizzled buffer: lane i takes
-    the ``vec`` words from vec i (one 16-byte store)."""
+    """The forward's coalesced read-out of a swizzled buffer [..., n]: lane
+    i takes the ``vec`` words from vec i (one 16-byte store)."""
     sw = _swizzle(vec * torch.arange(n // vec))
-    return torch.stack([smem[sw ^ t] for t in range(vec)], dim=1).reshape(n)
+    return torch.stack([smem[..., sw ^ t] for t in range(vec)],
+                       dim=-1).reshape(smem.shape)
 
 
 # The cluster split of K6, K7 and K8 at n = 2^15 (csrc/radix_chain.cuh's
