@@ -416,10 +416,16 @@ P22_N, P22_BETA, P22_L = 1 << 16, 1 << 6, 5
 P22_TS = (1024, 512, 256, 128, 64, 32)
 P22_ROW_STEPS = 16
 # phase 22, slice 18: the path that runs K10's grid layout now that 2^16
-# takes the split: blind_rotation at (N, beta, l) = (2^17, 2^6, 3), within
-# the reference's gate there (2 * 3 * 2^17 * 2^6 < 2^26), over a short key
-# of P22_GRID_STEPS steps, on random ciphertexts (fused == step by step)
-P22_GRID_N, P22_GRID_BETA, P22_GRID_L, P22_GRID_STEPS = 1 << 17, 1 << 6, 3, 8
+# takes the split, at N = P22_GRID_N; its fused chain held against the
+# step-by-step chain over P22_GRID_STEPS steps
+P22_GRID_N, P22_GRID_STEPS = 1 << 17, 8
+# phase 22, slice 22: bootstrap_short at N = P22_GRID_N end to end on a key
+# of P21_N_LWE steps generated in slices of steps; the gadgets tried in turn
+# until a t of P22_TS decodes: (2^5, 6), w l = 30 as at 2^16, and (2^5, 7),
+# w l = 35, both within the reference's gate (2 * 7 * 2^17 * 2^5 < 2^26);
+# the 2^16 key build must peak below P22_KEY_PEAK_GIB (53.75 GiB unsliced)
+P22_GRID_GADGETS = ((1 << 5, 6), (1 << 5, 7))
+P22_KEY_PEAK_GIB = 30
 # phase 23, slice 16: K2, K3, K5 and K12 past one block at N = 2^16 on
 # phase 18's widths (Q, P and K of 14, 15 and 15 primes with 2^17-th roots,
 # from the package's prime search: no scheme draws such primes, so the
@@ -3351,13 +3357,15 @@ def main() -> None:
                f"K10's device-memory layout) [{card}]")
 
     # 22. slice 15: bootstrap_short past one block's polynomial ------------
-    # (N = 2^16, beta = 2^6, l = 5): keys built on the card (K9 across
-    # blocks), t chosen, every message decoded, the fused chain (K10's split
-    # layout, slice 18) == the step-by-step chain (K1 across blocks), no
-    # plain version on the card at 2^16, a chain of 3 timed, K10 on the
-    # device alone in its split layout and in its grid layout named (A/B in
-    # turns), K1, K9 and K10 in both layouts at the path's shapes beside
-    # plain and their bounds; then the grid layout's own path at 2^17
+    # (N = 2^16, beta = 2^6, l = 5): keys built on the card in slices of
+    # steps (K9 across blocks; the build's peak held below
+    # P22_KEY_PEAK_GIB), t chosen, every message decoded, the fused chain
+    # (K10's split layout, slice 18) == the step-by-step chain (K1 across
+    # blocks), no plain version on the card at 2^16, a chain of 3 timed,
+    # K10 on the device alone in its split layout and in its grid layout
+    # named (A/B in turns), K1, K9 and K10 in both layouts at the path's
+    # shapes beside plain and their bounds; then the grid layout's own path
+    # end to end, bootstrap_short at 2^17 (slice 22)
     grid_inst = [f"{r['kernel']} {r['registers']} registers" for r in ptxas
                  if r["kernel"].split("<")[0] in (
                      "ntt_top_kernel", "ntt_chunk_kernel")
@@ -3398,6 +3406,56 @@ def main() -> None:
             return fn(*args, **kwargs)
         return call
 
+    def short_keys(st, gen, param_of, kw):
+        """A short bootstrapping key of P21_N_LWE steps at param_of(t) and
+        its eval planes built on the card, into ``st``: the build's seconds
+        and peak device memory, the TGGSW encryption's alone among them."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        st["held"] = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        s, _ = tglwe.new_key(gen, param_of(P22_TS[0]), dev)
+        st["s_flat"] = tglwe.sk_to_tlwe(s)
+        st["sbtk"] = bootstrap.new_short_bootstrapping_key(
+            gen, param_of(P22_TS[0]), s, n_lwe=P21_N_LWE, **kw)
+        torch.cuda.synchronize()
+        st["gen_s"] = time.perf_counter() - t0
+        st["gen_peak"] = torch.cuda.max_memory_allocated()
+        st["sevals"] = bootstrap.precompute_short_btk_evals(
+            param_of(P22_TS[0]), st["sbtk"])
+        torch.cuda.synchronize()
+        st["key_s"] = time.perf_counter() - t0
+        st["key_peak"] = torch.cuda.max_memory_allocated()
+        st["key_ntt"] = _cuda.launches()["ntt"]
+
+    def largest_t(st, gen, param_of, kw, tag):
+        """t: the largest power of two of P22_TS whose messages all decode
+        with margin under st's keys (which do not depend on t), into
+        ``st``; the bootstrap's output phases, or None if no t decodes."""
+        for t in P22_TS:
+            pt = param_of(t)
+            msgs = torch.arange(TFHE_BATCH, device=dev) % (t // 2)
+            c = tlwe.encrypt_uniform(gen, pt.lwe(), st["s_flat"],
+                                     tlwe.encode(pt, msgs),
+                                     batch=(TFHE_BATCH,))
+            table = bootstrap.compute_lookup_table_standard(pt, dev)
+            ph = tlwe.decrypt(pt.lwe(), st["s_flat"],
+                              bootstrap.bootstrap_short(
+                                  pt, st["sbtk"], table, c,
+                                  btk_evals=st["sevals"], **kw))
+            bad = int((tlwe.decode(pt, ph) != msgs).sum())
+            dist = int((ph - tlwe.encode(pt, msgs)).abs().max())
+            half = 2.0 ** (63 - (t.bit_length() - 1))
+            say(f"verify: {tag} t={t}: {bad} of {TFHE_BATCH} messages "
+                f"wrong; the largest phase error 2^"
+                f"{np.log2(max(dist, 1)):.2f} = {dist / half:.3f} of half "
+                f"a slot")
+            if bad == 0 and dist <= half / 2:
+                st.update(t=t, msgs=msgs, c=c, table=table, ph=ph,
+                          err=dist / half)
+                return ph
+        return None
+
     plain_fns = [(ntt, "_stage_loop", lambda a: a[0].shape[-1]),
                  (ntt_cuda, "ntt_multi_plain", lambda a: a[0].shape[-1]),
                  (ntt_cuda, "ntt_plain", lambda a: a[0].shape[-1]),
@@ -3411,43 +3469,12 @@ def main() -> None:
         st22 = {}
 
         def p22_path():
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            s, _ = tglwe.new_key(gen, tp22(P22_TS[0]), dev)
-            st22["s_flat"] = tglwe.sk_to_tlwe(s)
-            st22["sbtk"] = bootstrap.new_short_bootstrapping_key(
-                gen, tp22(P22_TS[0]), s, n_lwe=P21_N_LWE, **kw22)
-            st22["sevals"] = bootstrap.precompute_short_btk_evals(
-                tp22(P22_TS[0]), st22["sbtk"])
-            torch.cuda.synchronize()
-            st22["key_s"] = time.perf_counter() - t0
-            st22["key_peak"] = torch.cuda.max_memory_allocated()
-            # t: the largest power of two of P22_TS whose messages all
-            # decode with margin (the keys do not depend on t)
-            for t in P22_TS:
-                pt = tp22(t)
-                msgs = torch.arange(TFHE_BATCH, device=dev) % (t // 2)
-                c = tlwe.encrypt_uniform(gen, pt.lwe(), st22["s_flat"],
-                                         tlwe.encode(pt, msgs),
-                                         batch=(TFHE_BATCH,))
-                table = bootstrap.compute_lookup_table_standard(pt, dev)
-                ph = tlwe.decrypt(pt.lwe(), st22["s_flat"],
-                                  bootstrap.bootstrap_short(
-                                      pt, st22["sbtk"], table, c,
-                                      btk_evals=st22["sevals"], **kw22))
-                bad = int((tlwe.decode(pt, ph) != msgs).sum())
-                dist = int((ph - tlwe.encode(pt, msgs)).abs().max())
-                half = 2.0 ** (63 - (t.bit_length() - 1))
-                say(f"verify: slice 15 t={t}: {bad} of {TFHE_BATCH} "
-                    f"messages wrong; the largest phase error 2^"
-                    f"{np.log2(max(dist, 1)):.2f} = {dist / half:.3f} of "
-                    f"half a slot")
-                if bad == 0 and dist <= half / 2:
-                    st22.update(t=t, msgs=msgs, c=c, table=table, ph=ph)
-                    return ph
-            raise RuntimeError(f"phase 22: no t of {P22_TS} decodes with "
-                               "margin")
+            short_keys(st22, gen, tp22, kw22)
+            ph = largest_t(st22, gen, tp22, kw22, "slice 15")
+            if ph is None:
+                raise RuntimeError(f"phase 22: no t of {P22_TS} decodes "
+                                   "with margin")
+            return ph
 
         label22 = (f"slice 15: tglwe.new_key -> new_short_bootstrapping_key "
                    f"-> precompute_short_btk_evals -> encrypt_uniform -> "
@@ -3460,14 +3487,22 @@ def main() -> None:
                                                          "c", "table"))
         key_bytes = sum(x.numel() * x.element_size() for x in sbtk22)
         eval_bytes = sum(x.numel() * x.element_size() for x in sev22)
+        if st22["key_peak"] >= P22_KEY_PEAK_GIB * 2**30:
+            raise RuntimeError(f"phase 22: the key build at 2^16 peaked at "
+                               f"{st22['key_peak'] / 2**30:.2f} GiB")
         say(f"verify: slice 15 bootstrap_short ({P21_N_LWE} CMux steps) at "
             f"{shape22} t={t22}: decode(decrypt) == m for all {TFHE_BATCH} "
-            f"messages; keys built on the card in {st22['key_s']:.1f} s: "
-            f"the short key {key_bytes / 2**30:.2f} GiB, its eval-domain "
-            f"planes {eval_bytes / 2**30:.2f} GiB, peak device memory "
-            f"{st22['key_peak'] / 2**30:.2f} GiB while building them "
-            f"(precompute_evals in slices of "
-            f"{tggsw.EVALS_SLICE_WORDS} key words) [{card}]")
+            f"messages; keys built on the card in {st22['key_s']:.1f} s "
+            f"(the TGGSW encryption {st22['gen_s']:.1f} s, peak "
+            f"{st22['gen_peak'] / 2**30:.2f} GiB; K9 launches "
+            f"{st22['key_ntt']}): the short key {key_bytes / 2**30:.2f} GiB, "
+            f"its eval-domain planes {eval_bytes / 2**30:.2f} GiB, peak "
+            f"device memory {st22['key_peak'] / 2**30:.2f} GiB while "
+            f"building them, {(st22['key_peak'] - st22['held']) / 2**30:.2f}"
+            f" GiB over the {st22['held'] / 2**30:.2f} GiB held before (below "
+            f"{P22_KEY_PEAK_GIB} GiB; 53.75 GiB with the encryption in one "
+            f"batch; both in slices of {tggsw.EVALS_SLICE_WORDS} words) "
+            f"[{card}]")
         c_short = tlwe.key_switch(p22.lwe(), TFHE_BETA_KS, TFHE_L_KS,
                                   tlwe.KSK(sbtk22.ksk_a, sbtk22.ksk_b), c22)
         rec22, seen22 = {}, {}
@@ -3618,59 +3653,228 @@ def main() -> None:
          row_args, p22_cases, case, busy)
     ntt_cuda.drop_tables()
     torch.cuda.empty_cache()
-    # the grid layout's path past 2^16: blind_rotation at N = 2^17 on a
-    # short key built on the card, fused (one launch, grid layout) == step
-    # by step (K1 at 2^17), on random ciphertexts under the short key
-    pg = Param(ERR_SIGMA, RingParam(TORUS_Q, P22_GRID_N), TFHE_K, 16)
-    kwg = dict(beta=P22_GRID_BETA, l=P22_GRID_L)
-    shape_g = (f"N={P22_GRID_N} K={TFHE_K} beta=2^"
-               f"{P22_GRID_BETA.bit_length() - 1} l={P22_GRID_L} "
-               f"steps={P22_GRID_STEPS} B={TFHE_BATCH}")
-    if kernel_check.brc._plan(TFHE_K + 1, P22_GRID_L,
+    # slice 22, the grid layout's path past 2^16 end to end: bootstrap_short
+    # at N = 2^17 on a key of P21_N_LWE steps generated on the card in
+    # slices of steps, at the first gadget of P22_GRID_GADGETS at which a t
+    # of P22_TS decodes (the plain versions watched again); one K10 launch a
+    # bootstrap in its grid layout, fused == step by step over the key's
+    # last P22_GRID_STEPS steps (K1 at 2^17; key rows past 2^31 words of
+    # each plane), a chain of 3 timed, K10 on the device alone at the path's
+    # arguments beside its bounds; then, the key freed, K10 over
+    # P22_ROW_STEPS of its steps, K1's transforms of the step-by-step chain
+    # and K9's of key generation beside plain and their bounds
+    if kernel_check.brc._plan(TFHE_K + 1, P22_GRID_GADGETS[0][1],
                               P22_GRID_N).layout != "grid":
         raise RuntimeError("phase 22: the plan at 2^17 is not the grid")
-    stg = {}
 
-    def p22_grid_path():
-        gen = prng.Gen(SEED + 83)
-        s, _ = tglwe.new_key(gen, pg, dev)
-        sbtk = bootstrap.new_short_bootstrapping_key(
-            gen, pg, s, n_lwe=P22_GRID_STEPS, beta_ks=TFHE_BETA_KS,
-            l_ks=TFHE_L_KS, **kwg)
-        evals = bootstrap.precompute_short_btk_evals(pg, sbtk)
-        rng, i64 = np.random.default_rng(SEED + 84), np.iinfo(np.int64)
-        a, b = (torch.from_numpy(rng.integers(i64.min, i64.max, shape,
-                                              dtype=np.int64)).to(dev)
-                for shape in ((TFHE_BATCH, P22_GRID_STEPS), (TFHE_BATCH,)))
-        table = bootstrap.compute_lookup_table_standard(pg, dev)
-        stg["fused"] = bootstrap.blind_rotation(
-            pg, sbtk, table, tlwe.TLWE(a, b), btk_evals=evals, **kwg)
-        stg["step"] = (pg, sbtk, table, tlwe.TLWE(a, b), evals)
-        return stg["fused"]
+    def tpg(t):
+        return Param(ERR_SIGMA, RingParam(TORUS_Q, P22_GRID_N), TFHE_K, t)
 
-    drive(f"slice 18: tglwe.new_key -> new_short_bootstrapping_key -> "
-          f"precompute_short_btk_evals -> blind_rotation at {shape_g}",
-          ("ntt", "blind_rotate", GRID_ROW), p22_grid_path)
-    if dict(_cuda.BLIND_ROTATE.by_layout) != {"cluster": 0, "device": 0,
-                                              "split": 0, "grid": 1}:
-        raise RuntimeError(f"phase 22: K10 at 2^17 by layout "
-                           f"{_cuda.BLIND_ROTATE.by_layout}")
-    pg, sbtk_g, table_g, c_g, ev_g = stg["step"]
-    step_g = bootstrap.blind_rotation(pg, sbtk_g, table_g, c_g,
-                                      btk_evals=ev_g, fused=False, **kwg)
-    if not (torch.equal(stg["fused"].a, step_g.a)
-            and torch.equal(stg["fused"].b, step_g.b)):
-        raise RuntimeError("phase 22: K10's grid layout at 2^17 != the "
-                           "step-by-step chain")
-    say(f"verify: slice 18 blind_rotation at {shape_g}: one launch of K10's "
-        f"grid layout == {P22_GRID_STEPS} steps of cmux_evals (K1 at "
-        f"n = {P22_GRID_N}; torch.equal) on the {TFHE_BATCH} ciphertexts "
-        f"[{card}]")
-    del stg, pg, sbtk_g, table_g, c_g, ev_g, step_g
+    for mod, name, degree in plain_fns:
+        setattr(mod, name, watched(plain_on_card, name, getattr(mod, name),
+                                   degree))
+    tried = []
+    try:
+        for beta_g, l_g in P22_GRID_GADGETS:
+            kwg = dict(beta=beta_g, l=l_g, beta_ks=TFHE_BETA_KS,
+                       l_ks=TFHE_L_KS)
+            shape_g = (f"N={P22_GRID_N} K={TFHE_K} B={TFHE_BATCH} "
+                       f"beta=2^{beta_g.bit_length() - 1} l={l_g} "
+                       f"beta_ks={TFHE_BETA_KS} l_ks={TFHE_L_KS} "
+                       f"n_lwe={P21_N_LWE}")
+            gen = prng.Gen(SEED + 83)
+            stg = {}
+
+            def p22_grid_path():
+                short_keys(stg, gen, tpg, kwg)
+                return largest_t(stg, gen, tpg, kwg, f"slice 22 ({shape_g})")
+
+            ph = drive(f"slice 22: tglwe.new_key -> new_short_bootstrapping_"
+                       f"key (in slices of steps) -> precompute_short_btk_"
+                       f"evals -> encrypt_uniform -> bootstrap_short -> "
+                       f"decrypt at {shape_g}, t from {P22_TS}",
+                       ("ntt", "blind_rotate", GRID_ROW), p22_grid_path)
+            tried.append((shape_g, stg.get("t")))
+            if ph is not None:
+                break
+            del stg
+            torch.cuda.empty_cache()
+        else:
+            raise RuntimeError(f"phase 22: no t of {P22_TS} decodes at 2^17 "
+                               f"with any gadget of {P22_GRID_GADGETS}")
+        tg = stg["t"]
+        pg = tpg(tg)
+        sbtk_g, sev_g, c_g, table_g = (stg[k] for k in ("sbtk", "sevals",
+                                                        "c", "table"))
+        key_bytes = sum(x.numel() * x.element_size() for x in sbtk_g)
+        eval_bytes = sum(x.numel() * x.element_size() for x in sev_g)
+        plane = sev_g.ev1.numel()
+        say(f"verify: slice 22 bootstrap_short ({P21_N_LWE} CMux steps) at "
+            f"{shape_g} t={tg}: decode(decrypt) == m for all {TFHE_BATCH} "
+            f"messages, the largest phase error {stg['err']:.3f} of half a "
+            f"slot (gadgets tried: {tried}); keys built on the card in "
+            f"{stg['key_s']:.1f} s (the TGGSW encryption in slices of "
+            f"{tggsw.EVALS_SLICE_WORDS} mask words {stg['gen_s']:.1f} s, "
+            f"peak {stg['gen_peak'] / 2**30:.2f} GiB; K9 launches "
+            f"{stg['key_ntt']}): the short key {key_bytes / 2**30:.2f} GiB, "
+            f"its eval-domain planes {eval_bytes / 2**30:.2f} GiB (2^"
+            f"{np.log2(plane):.2f} words a plane), peak device memory "
+            f"{stg['key_peak'] / 2**30:.2f} GiB while building them, "
+            f"{(stg['key_peak'] - stg['held']) / 2**30:.2f} GiB over the "
+            f"{stg['held'] / 2**30:.2f} GiB held before [{card}]")
+        # the path needs the eval planes and the key-switching key, not the
+        # coefficient-domain TGGSWs (the step-by-step chain's products take
+        # about 13 GB more)
+        sbtk_g = stg["sbtk"] = sbtk_g._replace(
+            btk_a=sbtk_g.btk_a.new_empty((0, *sbtk_g.btk_a.shape[1:])),
+            btk_b=sbtk_g.btk_b.new_empty((0, *sbtk_g.btk_b.shape[1:])))
+        torch.cuda.empty_cache()
+
+        def stepg(c, fused=None):
+            return bootstrap.bootstrap_short(pg, sbtk_g, table_g, c,
+                                             btk_evals=sev_g, fused=fused,
+                                             **kwg)
+
+        recg, seeng = {}, {}
+        with record_calls(recg, seeng, ("blind_rotate",)):
+            per_op = per_op_launches(lambda: stepg(c_g))
+        if per_op != {"blind_rotate": 1} or dict(
+                _cuda.BLIND_ROTATE.by_layout) != {"cluster": 0, "device": 0,
+                                                  "split": 0, "grid": 1}:
+            raise RuntimeError(f"phase 22: launches {per_op}, by layout "
+                               f"{_cuda.BLIND_ROTATE.by_layout}, not one "
+                               "blind_rotate (grid layout) a bootstrap")
+        br_args = next(args for (name, *_), (_, _, args, _) in recg.items()
+                       if name == "blind_rotate")
+        # fused == step by step over the key's last steps, on the path's own
+        # key-switched ciphertexts
+        tail = P22_GRID_STEPS
+        c_short = tlwe.key_switch(pg.lwe(), TFHE_BETA_KS, TFHE_L_KS,
+                                  tlwe.KSK(sbtk_g.ksk_a, sbtk_g.ksk_b), c_g)
+        c_tail = tlwe.TLWE(a=c_short.a[..., -tail:], b=c_short.b)
+        ev_tail = tggsw.TGGSWEvals(*(e[-tail:] for e in sev_g))
+        recg = {}
+        with record_calls(recg, seeng, ("blind_rotate", "ntt_multi")):
+            _cuda.reset_launches()
+            fused_g = bootstrap.blind_rotation(pg, sbtk_g, table_g, c_tail,
+                                               beta_g, l_g, btk_evals=ev_tail)
+            torch.cuda.synchronize()
+            by_layout = dict(_cuda.BLIND_ROTATE.by_layout)
+            _cuda.reset_launches()
+            step_g = bootstrap.blind_rotation(
+                pg, sbtk_g, table_g, c_tail, beta_g, l_g, btk_evals=ev_tail,
+                fused=False)
+            torch.cuda.synchronize()
+            step_launches = {k: v for k, v in _cuda.launches().items() if v}
+        if not (torch.equal(fused_g.a, step_g.a)
+                and torch.equal(fused_g.b, step_g.b)):
+            raise RuntimeError("phase 22: K10's grid layout at 2^17 != the "
+                               "step-by-step chain")
+        if by_layout["grid"] != 1 or step_launches.get("ntt_multi", 0) < tail:
+            raise RuntimeError(f"phase 22: K10 at 2^17 by layout "
+                               f"{by_layout}; the step-by-step chain's "
+                               f"{step_launches}")
+        say(f"verify: slice 22 blind_rotate (one launch, layout {by_layout})"
+            f" == {tail} steps of cmux_evals (torch.equal; their launches "
+            f"{step_launches}: K1 at n = {P22_GRID_N}) over the key's last "
+            f"{tail} steps (from word 2^"
+            f"{np.log2(plane // P21_N_LWE * (P21_N_LWE - tail)):.2f} of each "
+            f"plane) on the path's {TFHE_BATCH} key-switched ciphertexts "
+            f"[{card}]")
+        del fused_g, step_g, c_short, c_tail, ev_tail
+
+        def chaing():
+            c = c_g
+            for _ in range(TFHE_CHAIN):
+                c = stepg(c)
+            return c
+
+        last = chaing()                                    # and warm up
+        if not torch.equal(tlwe.decode(pg, tlwe.decrypt(
+                pg.lwe(), stg["s_flat"], last)), stg["msgs"]):
+            raise RuntimeError(f"phase 22: the chain of {TFHE_CHAIN} "
+                               "bootstraps at 2^17 lost a message")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        runs = [time_ms(chaing, 1, warmup=0) for _ in range(3)]
+        peak = torch.cuda.max_memory_allocated()
+        best = min(runs)
+        say(f"timing: slice 22 chain of {TFHE_CHAIN} bootstrap_short at "
+            f"{shape_g} t={tg}: runs {[round(r, 3) for r in runs]} ms, best "
+            f"{best:.3f} ms = {best / TFHE_CHAIN:.3f} ms a batch = "
+            f"{TFHE_BATCH * TFHE_CHAIN / (best / 1e3):.1f} bootstraps/s; "
+            f"peak device memory {peak / 2**30:.2f} GiB with the keys "
+            f"resident ({torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+            f"held); launches a bootstrap {per_op} [{card}]")
+        if plain_on_card:
+            raise RuntimeError(f"phase 22: plain versions ran on the card "
+                               f"past one block: {plain_on_card}")
+        say(f"verify: slice 22: no plain version ran on the card at "
+            f"n = {P22_GRID_N} (watched through the key build, the "
+            f"bootstraps, the step-by-step chain and the timed chain)")
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    # K10 on the device alone at the path's own arguments (all its steps)
+    # beside its bound and its own traffic, best of 3
+    busy = torch.zeros(1 << 28, dtype=torch.int32, device=dev)
+    runs = [queued_ms(lambda: kernel_check.brc.blind_rotate_kernel(*br_args),
+                      1, busy) for _ in range(3)]
+    k_ms = min(runs)
+    ops_g = P21_N_LWE * TFHE_BATCH * sum(kernel_check.cmux_step_ops(
+        P22_GRID_N, TFHE_K + 1, l_g).values())
+    b = bound(kernel_check.blind_rotate_bytes(*br_args), ops_g)
+    own = P21_N_LWE * sum(kernel_check.cmux_step_bytes(
+        P22_GRID_N, TFHE_K + 1, l_g, TFHE_BATCH, layout="grid").values())
+    bo = bound(own, ops_g)
+    if k_ms < b.ms:
+        raise RuntimeError(f"phase 22: K10 at 2^17 in {k_ms:.3f} ms is "
+                           f"under its bound {b}")
+    say(f"timing: slice 22 K10 grid layout (the plan), steps={P21_N_LWE} "
+        f"B={TFHE_BATCH} n={P22_GRID_N} beta={beta_g} l={l_g} (the path's "
+        f"arguments), on the device alone, runs "
+        f"{[round(r, 3) for r in runs]} ms: best {k_ms:.3f} ms, bound "
+        f"{b.ms:.3f} ms by {b.term}, {b.ms / k_ms:.3f} of it; its own "
+        f"traffic {own / 1e9:.3f} GB, bound {bo.ms:.3f} ms by {bo.term}, "
+        f"{bo.ms / k_ms:.3f} of it; {k_ms / P21_N_LWE * 1e3:.2f} us a step; "
+        f"launches on the path: 1 a bootstrap, grid [{card}]")
+    sl = P22_ROW_STEPS
+    row_args = (br_args[0][:sl].contiguous(), br_args[1],
+                *(e[:sl].clone() for e in br_args[2:6]), *br_args[6:])
+    # the rows' cases at the path's shapes, the key freed first (the plain
+    # chain's products take about 13 GB at 2^17)
+    k1_shapes = [(tuple(args[0].shape), tuple(args[1]),
+                  kwargs.get("inverse", False), kwargs.get("fin"))
+                 for (name, *_), (_, _, args, kwargs) in recg.items()
+                 if name == "ntt_multi"]
+    del (stg, sbtk_g, sev_g, c_g, table_g, last, recg, br_args, busy)
+    torch.cuda.empty_cache()
+    gen = prng.Gen(SEED + 84)
+    resg = prng.device_residues(SEED + 85, dev)
+    pg_cases = [kernel_check.blind_rotate_case(
+        P22_GRID_N, TFHE_K, beta_g, l_g, sl, TFHE_BATCH, dev, gen,
+        layout="grid", args=row_args)]
+    for shp, qs, inverse, fin in k1_shapes:
+        pg_cases.append(kernel_check.ntt_multi_case(
+            f"cmux_evals {'inverse' if inverse else 'fwd'} {list(shp)}",
+            resg(qs, shp[1:]), qs, inverse, fin))
+    pg_cases += kernel_check.ntt_cases(P22_GRID_N, TFHE_K, l_g, sl, dev, gen)
+    for case in pg_cases:
+        time_case(case)
+        k_ms = case_ms[case.label]
+        bo = bound(own_bytes(case)[1], case.ops)
+        say(f"timing: slice 22 {case.name} {case.label} (the path's shapes"
+            f"{f', {sl} of its {P21_N_LWE} steps' if case.name == 'blind_rotate' else ''}"
+            f"): the bound of its own traffic {bo.ms:.4f} ms by {bo.term}, "
+            f"{bo.ms / k_ms:.3f} of it [{card}]")
+    done22 = {id(c) for c in pg_cases}
+    timed_chains[:] = [c for c in timed_chains if id(c) not in done22]
+    del row_args, pg_cases, case
     ntt_cuda.drop_tables()
     torch.cuda.empty_cache()
     phase_done(f"22 (slice 15: bootstrap_short at N=2^16 through K10's split "
-               f"layout, t={t22}) [{card}]")
+               f"layout, t={t22}; slice 22: at N=2^17 through its grid "
+               f"layout, beta={beta_g} l={l_g} t={tg}) [{card}]")
 
     # 23. slice 16: K2, K3, K5 and K12 past one block's polynomial -------
     # through the op layer's entry points (ops/ntt.py's tensor_eval4,

@@ -79,6 +79,15 @@ def tglev_mul_vec(param: Param, c: TGLev, v) -> GLWE:
 
 # -- TGGSW ------------------------------------------------------------------
 
+# Key words (int64) that a slice of a bootstrapping key's steps takes at
+# once, in encrypt_s_with (mask words) and in precompute_evals (key words):
+# the int64 temporaries of either (the limbs, their residues, the
+# transforms' outputs and scratch) take about 14 times the slice, so 2^25
+# words hold them near 3.5 GiB at any key size (the whole key at N = 2^16,
+# l = 5 encrypted in one batch took 53.75 GiB of the card at its peak).
+EVALS_SLICE_WORDS = 1 << 25
+
+
 def _row_msgs(param: Param, beta: int, l: int, s, m):
     """Rows j < K hold -s_j·m (a polynomial product), row K holds m; each at
     the l gadget scales: [..., K+1, l, N]."""
@@ -90,19 +99,42 @@ def _row_msgs(param: Param, beta: int, l: int, s, m):
     return rows[..., :, None, :] * scales[:, None]
 
 
+def _b_of(param: Param, beta: int, l: int, s, m, a, e):
+    return G.encrypt_s_with(param, s, _row_msgs(param, beta, l, s, m), a,
+                            e).b
+
+
 def encrypt_s_with(param: Param, beta: int, l: int, s, m, a, e) -> TGGSW:
     """encrypt_s from given draws: masks a [..., K+1, l, K, N], noise
-    e [..., K+1, l, N]."""
-    ct = G.encrypt_s_with(param, s, _row_msgs(param, beta, l, s, m), a, e)
-    return TGGSW(a=ct.a, b=ct.b)
+    e [..., K+1, l, N].  Messages along a leading axis of keys under one
+    key s (a bootstrapping key's steps: m [steps, N]) are encrypted in
+    slices of that axis into the output (each key's words are its own
+    alone, so the result is the same bit for bit), about
+    EVALS_SLICE_WORDS mask words a slice."""
+    steps = a.shape[0] if a.ndim > 4 else 0
+    if not (steps and s.ndim == 2 and m.ndim == 2
+            and m.shape[0] == e.shape[0] == steps
+            and a.numel() > EVALS_SLICE_WORDS):
+        return TGGSW(a=a, b=_b_of(param, beta, l, s, m, a, e))
+    b = torch.empty(a.shape[:-2] + a.shape[-1:], dtype=torch.int64,
+                    device=a.device)
+    step = max(1, EVALS_SLICE_WORDS // a[:1].numel())
+    for i in range(0, steps, step):
+        part = slice(i, i + step)
+        b[part] = _b_of(param, beta, l, s, m[part], a[part], e[part])
+    return TGGSW(a=a, b=b)
 
 
 def encrypt_s(gen: prng.Gen, param: Param, beta: int, l: int, s, m,
               batch=()) -> TGGSW:
-    """One batched GLWE encryption over the (K+1, l) grid."""
-    ct = G.encrypt_s(gen, param, s, _row_msgs(param, beta, l, s, m),
-                     batch=tuple(batch) + (param.k + 1, l))
-    return TGGSW(a=ct.a, b=ct.b)
+    """One batched GLWE encryption over the (K+1, l) grid: the mask and
+    then the noise drawn whole, in the order of glwe.encrypt_s, then the
+    arithmetic of ``encrypt_s_with`` (in slices of keys where it slices)."""
+    ring = TorusRing(param.ring.n)
+    grid = tuple(batch) + (param.k + 1, l)
+    a = ring.rand_bin(gen, grid + (param.k,), s.device)
+    e = ring.rand_err(gen, grid, param.err_sigma, s.device)
+    return encrypt_s_with(param, beta, l, s, m, a, e)
 
 
 def decrypt(param: Param, s, c: TGGSW, beta: int):
@@ -167,13 +199,6 @@ def _u32_bits(x):
     return torch.where(x >= (1 << 31), x - (1 << 32), x).int()
 
 
-# Key words (int64) a slice of precompute_evals transforms at once: its
-# int64 temporaries (the limbs, their residues, the transform's output) take
-# about 8 times the slice, so 2^26 words hold them near 4 GiB where the
-# whole key at N = 2^16, l = 5 would take about 60.
-EVALS_SLICE_WORDS = 1 << 26
-
-
 def _evals_of(g: TGGSW) -> tuple:
     """(ev1, ev2, ev1s, ev2s) of one slice of keys."""
     ab = torch.cat([g.a, g.b[..., None, :]], dim=-2)   # [.., K+1r, l, K+1c, N]
@@ -191,8 +216,8 @@ def precompute_evals(param: Param, g: TGGSW) -> TGGSWEvals:
     limbs under both CRT primes, plus the Shoup planes.  A key with a
     leading axis of keys (a bootstrapping key's steps) is transformed in
     slices of that axis into the four planes (each value is its own key's
-    alone, so the planes are the same bit for bit), keeping the int64
-    temporaries to about 8 EVALS_SLICE_WORDS words."""
+    alone, so the planes are the same bit for bit), about
+    EVALS_SLICE_WORDS key words a slice."""
     per_key = g.a[:1].numel() + g.b[:1].numel() if g.a.ndim > 4 else 0
     if not per_key or g.a.numel() + g.b.numel() <= EVALS_SLICE_WORDS:
         return TGGSWEvals(*_evals_of(g))

@@ -18,7 +18,7 @@ from fhe_study_tpu_torch.models import galois
 from fhe_study_tpu_torch.models import hybrid_ks as H
 from fhe_study_tpu_torch.models.ckks import ckks_rns as C
 from fhe_study_tpu_torch.models.gfhe.glwe import ERR_SIGMA, Param
-from fhe_study_tpu_torch.models.tfhe import bootstrap, tglwe, tlwe
+from fhe_study_tpu_torch.models.tfhe import bootstrap, tggsw, tglwe, tlwe
 from fhe_study_tpu_torch.ops import (_cuda, alu_bench, blind_rotate_cuda,
                                      ext_cuda, ntt, ntt_cuda)
 from fhe_study_tpu_torch.ops.primes import ntt_primes
@@ -1136,3 +1136,33 @@ def test_bootstrap_short_at_n_2_16_on_card_matches_cpu(cuda):
             assert torch.equal(step.b, out["cuda"].b)
     assert torch.equal(out["cuda"].a.cpu(), out["cpu"].a)
     assert torch.equal(out["cuda"].b.cpu(), out["cpu"].b)
+
+
+def test_sliced_key_generation_on_card_matches_cpu(cuda, monkeypatch):
+    """new_short_bootstrapping_key (10 steps) and new_bootstrapping_key (256
+    keys) at N = 256, K = 1, beta = 2^8, l = 3 with the TGGSW encryption
+    forced into slices of 3 steps (3 + 3 + 3 + 1; 85 x 3 + 1): the card's
+    keys (K9 at 256) equal the CPU's and the card's unsliced keys, and the
+    eval planes of the sliced short key equal the CPU's."""
+    param = Param(ERR_SIGMA, RingParam(TORUS_Q, 256), 1, 8)
+    kw = dict(beta=1 << 8, l=3, beta_ks=16, l_ks=8)
+
+    def keys(dev):
+        s, _ = tglwe.new_key(prng.Gen(30), param, dev)
+        short = bootstrap.new_short_bootstrapping_key(prng.Gen(31), param, s,
+                                                      n_lwe=10, **kw)
+        full, out = bootstrap.new_bootstrapping_key(prng.Gen(32), param, s,
+                                                    **kw)
+        return (*short, *full, out,
+                *bootstrap.precompute_short_btk_evals(param, short))
+
+    whole = keys(cuda)
+    monkeypatch.setattr(tggsw, "EVALS_SLICE_WORDS", 3 * 2 * 3 * 256)
+    _cuda.reset_launches()
+    sliced = keys(cuda)
+    torch.cuda.synchronize()
+    assert _cuda.launches()["ntt"] > 0
+    cpu = keys(torch.device("cpu"))
+    for got, one, want in zip(sliced, whole, cpu):
+        assert torch.equal(got, one)
+        assert torch.equal(got.cpu(), want)
