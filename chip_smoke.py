@@ -284,13 +284,20 @@ Phases, each of which raises (and so exits non-zero) on any failure:
      device alone at the path's 400 steps in its split layout and in its
      grid layout named, in turns, beside its bound and its own traffic,
      and K1, K9 and K10 (both layouts) at the path's shapes against plain
-     and timed beside their bounds (K10 at 16 steps); then the grid
-     layout's own path, blind_rotation at N = 2^17, beta = 2^6, l = 3 over
-     8 steps of a key built on the card, fused == step by step.  Phase 2
-     also holds K1 and K9 at 2^16, 2^17, 2^20, 2^22 and 2^26 on batches of
-     1 to 3, and K10's split layout at every (C, l, w) of the reference's
-     gate at 2^16, its grid layout at every one at 2^17 and one shape at
-     each n from 2^18 to 2^22, against plain;
+     and timed beside their bounds (K10 at 16 steps); then bootstrap_short
+     at N = 2^17, K = 1, (beta, l) = (2^5, 6), B = 64 on a 400-step key
+     built on the card in slices of steps, every message decoded at t =
+     256, one launch a bootstrap of K10's quarter layout (slice 23: each
+     polynomial in quarters over the shared memory of a cluster of eight),
+     fused == step by step over the key's last 8 steps, a chain of 3
+     timed, K10 at the path's arguments in its quarter layout and in its
+     grid layout named, in turns, beside its bounds; then the grid layout's
+     own path, blind_rotation at N = 2^18, beta = 2^4, l = 7 over 8 steps
+     of a key built on the card, fused == step by step.  Phase 2 also
+     holds K1 and K9 at 2^16, 2^17, 2^20, 2^22 and 2^26 on batches of 1 to
+     3, and K10's split layout at every (C, l, w) of the reference's gate
+     at 2^16, its quarter layout at every one at 2^17 and its grid layout
+     at one shape at each n from 2^18 to 2^22, against plain;
  23. slice 16, K2, K3, K5 and K12 past one block's polynomial through the
      op layer at N = 2^16, B = 128 on phase 18's widths (Q, P and K of 14,
      15 and 15 primes with 2^17-th roots: no scheme draws such primes):
@@ -415,10 +422,15 @@ P21_N_LWE = 400
 P22_N, P22_BETA, P22_L = 1 << 16, 1 << 6, 5
 P22_TS = (1024, 512, 256, 128, 64, 32)
 P22_ROW_STEPS = 16
-# phase 22, slice 18: the path that runs K10's grid layout now that 2^16
-# takes the split, at N = P22_GRID_N; its fused chain held against the
-# step-by-step chain over P22_GRID_STEPS steps
+# phase 22, slice 22: the path past 2^16, at N = P22_GRID_N (K10's quarter
+# layout since slice 23); its fused chain held against the step-by-step
+# chain over the key's last P22_GRID_STEPS steps
 P22_GRID_N, P22_GRID_STEPS = 1 << 17, 8
+# phase 22, slice 23: the path that runs K10's grid layout now that 2^17
+# takes the quarters: blind_rotation at (N, beta, l) = P22_WIDEST within the
+# reference's gate (2 * 7 * 2^18 * 2^4 < 2^26) over a key of P22_GRID_STEPS
+# steps, fused == step by step
+P22_WIDEST = (1 << 18, 1 << 4, 7)
 # phase 22, slice 22: bootstrap_short at N = P22_GRID_N end to end on a key
 # of P21_N_LWE steps generated in slices of steps; the gadgets tried in turn
 # until a t of P22_TS decodes: (2^5, 6), w l = 30 as at 2^16, and (2^5, 7),
@@ -464,22 +476,27 @@ RADIX_KERNELS = {"ntt_multi", "tensor_eval4", "ks_contract", "ext_ntt",
                  "brg_chunk_inverse", "brg_top_inverse", "brg_top_last",
                  "tensor_eval4_chunk", "ks_contract_chunk", "first_top",
                  "ks_mac_chunk", "brs_forward", "brs_inverse",
-                 "ntt_smem_ceiling_split"}
+                 "ntt_smem_ceiling_split", "brq_forward", "brq_inverse"}
 # K10's kernels by layout: the clusters', the device-memory layout's, the
-# split layout's (2^16) and the grid layout's (past 2^16)
+# split layout's (2^16), the quarter layout's (2^17) and the grid layout's
+# (past 2^17)
 K10_KERNELS = {"blind_rotate_kernel": "cluster", "br_forward_kernel": "device",
                "br_inverse_kernel": "device", "brs_forward_kernel": "split",
                "brs_inverse_kernel": "split",
+               "brq_forward_kernel": "quarter",
+               "brq_inverse_kernel": "quarter",
                "brg_top_forward_kernel": "grid",
                "brg_chunk_inverse_kernel": "grid",
                "brg_top_inverse_kernel": "grid", "brg_top_last_kernel": "grid"}
 # the kernels' JSON record has one row per entry of _cuda.KERNELS, K10's
 # (its cluster layout) followed by one for its device-memory layout, one
-# for its split layout and one for its grid layout, and those of K2, K3,
+# for its split layout, one for its quarter layout and one for its grid
+# layout, and those of K2, K3,
 # K5-K8 (K6 also as tensor_mul) and K12 (one block a polynomial) each by
 # one for their chunked layouts past 2^15, K12's also by one for its split
 # layout at 2^16
 DM_ROW = "blind_rotate_dm"
+QUARTER_ROW = "blind_rotate_quarter"
 GRID_ROW = "blind_rotate_grid"
 CHUNKED_ROW = "{}_chunked"
 SPLIT_ROW = "{}_split"
@@ -592,7 +609,7 @@ def main() -> None:
                if any(lay.startswith(_cuda.CHUNKED) for lay in k.layouts)]
     split = [k for k in _cuda.KERNELS if _cuda.SPLIT in k.layouts]
     record_rows = [r for k in _cuda.KERNELS for r in (
-        (k.name, DM_ROW, SPLIT_ROW.format(k.name), GRID_ROW)
+        (k.name, DM_ROW, SPLIT_ROW.format(k.name), QUARTER_ROW, GRID_ROW)
         if k is _cuda.BLIND_ROTATE
         else (k.name, CHUNKED_ROW.format(k.name), SPLIT_ROW.format(k.name))
         if k in split
@@ -607,8 +624,8 @@ def main() -> None:
             return CHUNKED_ROW.format(case.name)
         if case.layout == _cuda.SPLIT:
             return SPLIT_ROW.format(case.name)
-        return {"device": DM_ROW, "grid": GRID_ROW}.get(case.layout,
-                                                       case.name)
+        return {"device": DM_ROW, "grid": GRID_ROW,
+                _cuda.QUARTER: QUARTER_ROW}.get(case.layout, case.name)
 
     def phase_done(label: str) -> None:
         marks.append(time.perf_counter())
@@ -667,8 +684,9 @@ def main() -> None:
         f"instances of {sorted(RADIX_KERNELS)} ({len(k10_entries)} of "
         f"blind_rotate: its clusters' blind_rotate_kernel, br_forward and "
         f"br_inverse of its device-memory layout, brs_forward and "
-        f"brs_inverse of its split layout, and the four kernels of its grid "
-        f"layout; the transforms past a block: "
+        f"brs_inverse of its split layout, brq_forward and brq_inverse of "
+        f"its quarter layout, and the four kernels of its grid layout; the "
+        f"transforms past a block: "
         f"{sum(r['kernel'].startswith(('ntt_top', 'ntt_chunk')) for r in radix_entries)} "
         f"instances of ntt_top_kernel and ntt_chunk_kernel)")
     say(f"build: seconds a unit (compiled in parallel), then the link: "
@@ -762,7 +780,7 @@ def main() -> None:
         f"{RADIX_BATCH}: {radix_checked} variants")
     # K10 in both layouts at every ring degree it takes, on batches beyond
     # the clusters the card holds at once
-    k10_checked = dict.fromkeys(("cluster", "device", "split", "grid"), 0)
+    k10_checked = dict.fromkeys(_cuda.BLIND_ROTATE.layouts, 0)
     t0 = time.perf_counter()
     for case in kernel_check.blind_rotate_sweep(dev, gen):
         got, want = case.kernel(), case.plain()
@@ -771,8 +789,8 @@ def main() -> None:
         k10_checked[case.layout] += 1
     t_block = time.perf_counter() - t0
     # past 2^15: K10's split layout at every (C, l, w) of the reference's
-    # gate at 2^16, its grid layout at every one at 2^17 and one shape at
-    # each larger n; K1 and K9 across blocks;
+    # gate at 2^16, its quarter layout at every one at 2^17 and its grid
+    # layout at one shape at each larger n; K1 and K9 across blocks;
     # each new shape also timed (its kernel, best of 3) beside its bound and
     # the bound of its own traffic (the top passes' words; K10's a step,
     # kernel_check.cmux_step_bytes)
@@ -859,14 +877,15 @@ def main() -> None:
         f"layout at every (C, l, w) of the reference's gate at "
         f"n = 2^{kernel_check.BR_SPLIT_LOGN} "
         f"({len(kernel_check.gate_shapes(1 << kernel_check.BR_SPLIT_LOGN))} "
-        f"shapes), its grid layout at every one at "
-        f"n = 2^{kernel_check.BR_GRID_LOGN} "
-        f"({len(kernel_check.gate_shapes(1 << kernel_check.BR_GRID_LOGN))} "
-        f"shapes; (steps, B) in turn from {kernel_check.BR_GRID_RUNS}) and at "
-        f"(log n, C, l) in {kernel_check.BR_GRID_WIDER} at the gate's widest "
-        f"digit, key planes one word off at the first shape of each (n, C): "
-        f"{k10_checked['split']} split and {k10_checked['grid']} grid "
-        f"variants in {t2 - t1:.1f} s")
+        f"shapes), its quarter layout at every one at "
+        f"n = 2^{kernel_check.BR_QUARTER_LOGN} "
+        f"({len(kernel_check.gate_shapes(1 << kernel_check.BR_QUARTER_LOGN))}"
+        f" shapes; (steps, B) in turn from {kernel_check.BR_GRID_RUNS}) and "
+        f"its grid layout at (log n, C, l) in {kernel_check.BR_GRID_WIDER} "
+        f"at the gate's widest digit, key planes one word off at the first "
+        f"shape of each (n, C): {k10_checked['split']} split, "
+        f"{k10_checked[_cuda.QUARTER]} quarter and {k10_checked['grid']} "
+        f"grid variants in {t2 - t1:.1f} s")
     say(f"parity: blind_rotate == plain (torch.equal) for C in "
         f"{kernel_check.BR_SWEEP_C}, l in {kernel_check.BR_SWEEP_L}, every n "
         f"from 2^{_cuda.BLIND_ROTATE.logn[0]} to "
@@ -878,7 +897,8 @@ def main() -> None:
         f"2^{kernel_check.BR_DM_WIDE_LOGN}; the widest digit of the "
         f"reference's gate), at (log n, C, l, w) in "
         f"{kernel_check.BR_DM_SMALL} and C = 1, and the key planes one word "
-        f"off, with the split and grid layouts' above: {k10_checked} "
+        f"off, with the split, quarter and grid layouts' above: "
+        f"{k10_checked} "
         f"variants by layout in {t_block:.1f} s (past 2^15 "
         f"{t2 - t1:.1f} s)")
     del tfhe_parity
@@ -905,6 +925,7 @@ def main() -> None:
         counts = _cuda.launches()
         counts[DM_ROW] = _cuda.BLIND_ROTATE.by_layout["device"]
         counts[GRID_ROW] = _cuda.BLIND_ROTATE.by_layout["grid"]
+        counts[QUARTER_ROW] = _cuda.BLIND_ROTATE.by_layout[_cuda.QUARTER]
         for k in chunked:
             counts[CHUNKED_ROW.format(k.name)] = _cuda.chunked_launches(k)
         for k in split:
@@ -3273,7 +3294,8 @@ def main() -> None:
                 and torch.equal(fused21.b, stepwise21.b)):
             raise RuntimeError(f"phase 21 {tag}: blind_rotate kernel != the "
                                "step-by-step chain")
-        if by_layout != {"cluster": 0, "device": 1, "split": 0, "grid": 0}:
+        if by_layout != {"cluster": 0, "device": 1, "split": 0, "grid": 0,
+                         _cuda.QUARTER: 0}:
             raise RuntimeError(f"phase 21 {tag}: K10 launches by layout "
                                f"{by_layout}")
         say(f"verify: slice 13 ({tag}) blind_rotate (one launch, layout "
@@ -3364,13 +3386,14 @@ def main() -> None:
     # blocks), no plain version on the card at 2^16, a chain of 3 timed,
     # K10 on the device alone in its split layout and in its grid layout
     # named (A/B in turns), K1, K9 and K10 in both layouts at the path's
-    # shapes beside plain and their bounds; then the grid layout's own path
-    # end to end, bootstrap_short at 2^17 (slice 22)
+    # shapes beside plain and their bounds; then bootstrap_short at 2^17
+    # end to end (slice 22) through the quarter layout (slice 23), and the
+    # grid layout's own path at 2^18
     grid_inst = [f"{r['kernel']} {r['registers']} registers" for r in ptxas
                  if r["kernel"].split("<")[0] in (
                      "ntt_top_kernel", "ntt_chunk_kernel")
                  or K10_KERNELS.get(r["kernel"].split("<")[0]) in (
-                     "split", "grid")]
+                     "split", "quarter", "grid")]
     say(f"ptxas: phase 22's instances (no stack frame or spills, phase 1): "
         + "; ".join(grid_inst))
     plan22 = kernel_check.brc._plan(TFHE_K + 1, P22_L, P22_N)
@@ -3523,7 +3546,8 @@ def main() -> None:
                 and torch.equal(fused22.b, stepwise22.b)):
             raise RuntimeError("phase 22: blind_rotate kernel != the "
                                "step-by-step chain")
-        if by_layout != {"cluster": 0, "device": 0, "split": 1, "grid": 0} \
+        if by_layout != {"cluster": 0, "device": 0, "split": 1, "grid": 0,
+                         _cuda.QUARTER: 0} \
                 or step_launches.get("ntt_multi", 0) < P21_N_LWE:
             raise RuntimeError(f"phase 22: K10 launches by layout "
                                f"{by_layout}; the step-by-step chain's "
@@ -3653,19 +3677,31 @@ def main() -> None:
          row_args, p22_cases, case, busy)
     ntt_cuda.drop_tables()
     torch.cuda.empty_cache()
-    # slice 22, the grid layout's path past 2^16 end to end: bootstrap_short
-    # at N = 2^17 on a key of P21_N_LWE steps generated on the card in
-    # slices of steps, at the first gadget of P22_GRID_GADGETS at which a t
-    # of P22_TS decodes (the plain versions watched again); one K10 launch a
-    # bootstrap in its grid layout, fused == step by step over the key's
-    # last P22_GRID_STEPS steps (K1 at 2^17; key rows past 2^31 words of
-    # each plane), a chain of 3 timed, K10 on the device alone at the path's
-    # arguments beside its bounds; then, the key freed, K10 over
-    # P22_ROW_STEPS of its steps, K1's transforms of the step-by-step chain
-    # and K9's of key generation beside plain and their bounds
-    if kernel_check.brc._plan(TFHE_K + 1, P22_GRID_GADGETS[0][1],
-                              P22_GRID_N).layout != "grid":
-        raise RuntimeError("phase 22: the plan at 2^17 is not the grid")
+    # slice 22, the path past 2^16 end to end: bootstrap_short at N = 2^17
+    # on a key of P21_N_LWE steps generated on the card in slices of steps,
+    # at the first gadget of P22_GRID_GADGETS at which a t of P22_TS decodes
+    # (the plain versions watched again); one K10 launch a bootstrap in its
+    # quarter layout (slice 23), fused == step by step over the key's last
+    # P22_GRID_STEPS steps (K1 at 2^17; key rows past 2^31 words of each
+    # plane), a chain of 3 timed, K10 on the device alone at the path's
+    # arguments in its quarter layout and in its grid layout named, in
+    # turns, beside their bounds; then, the key freed, K10 over
+    # P22_ROW_STEPS of its steps (both layouts), K1's transforms of the
+    # step-by-step chain and K9's of key generation beside plain and their
+    # bounds
+    plan_g = kernel_check.brc._plan(TFHE_K + 1, P22_GRID_GADGETS[0][1],
+                                    P22_GRID_N)
+    if plan_g.layout != _cuda.QUARTER or plan_g.cluster != 8:
+        raise RuntimeError(f"phase 22: the plan at 2^17 {plan_g}")
+    clusters_g = kernel_check.brc.quarter_clusters(dev)
+    say(f"plan: slice 23 K10 at {P22_GRID_N} C={TFHE_K + 1} "
+        f"l={P22_GRID_GADGETS[0][1]}: layout {plan_g.layout}, "
+        f"{plan_g.threads} threads and {plan_g.smem_bytes // 1024} KB a "
+        f"block; a step {plan_g.blocks[0] * TFHE_BATCH} forward blocks and "
+        f"{plan_g.blocks[1] * TFHE_BATCH} inverse blocks in clusters of "
+        f"{plan_g.cluster} at B={TFHE_BATCH}; the card runs {clusters_g} "
+        f"inverse clusters at once ({plan_g.cluster * clusters_g} of {sms} "
+        f"SMs; cudaOccupancyMaxActiveClusters) [{card}]")
 
     def tpg(t):
         return Param(ERR_SIGMA, RingParam(TORUS_Q, P22_GRID_N), TFHE_K, t)
@@ -3693,7 +3729,7 @@ def main() -> None:
                        f"key (in slices of steps) -> precompute_short_btk_"
                        f"evals -> encrypt_uniform -> bootstrap_short -> "
                        f"decrypt at {shape_g}, t from {P22_TS}",
-                       ("ntt", "blind_rotate", GRID_ROW), p22_grid_path)
+                       ("ntt", "blind_rotate", QUARTER_ROW), p22_grid_path)
             tried.append((shape_g, stg.get("t")))
             if ph is not None:
                 break
@@ -3739,11 +3775,12 @@ def main() -> None:
         with record_calls(recg, seeng, ("blind_rotate",)):
             per_op = per_op_launches(lambda: stepg(c_g))
         if per_op != {"blind_rotate": 1} or dict(
-                _cuda.BLIND_ROTATE.by_layout) != {"cluster": 0, "device": 0,
-                                                  "split": 0, "grid": 1}:
+                _cuda.BLIND_ROTATE.by_layout) != {
+                    "cluster": 0, "device": 0, "split": 0, "grid": 0,
+                    _cuda.QUARTER: 1}:
             raise RuntimeError(f"phase 22: launches {per_op}, by layout "
                                f"{_cuda.BLIND_ROTATE.by_layout}, not one "
-                               "blind_rotate (grid layout) a bootstrap")
+                               "blind_rotate (quarter layout) a bootstrap")
         br_args = next(args for (name, *_), (_, _, args, _) in recg.items()
                        if name == "blind_rotate")
         # fused == step by step over the key's last steps, on the path's own
@@ -3768,9 +3805,10 @@ def main() -> None:
             step_launches = {k: v for k, v in _cuda.launches().items() if v}
         if not (torch.equal(fused_g.a, step_g.a)
                 and torch.equal(fused_g.b, step_g.b)):
-            raise RuntimeError("phase 22: K10's grid layout at 2^17 != the "
-                               "step-by-step chain")
-        if by_layout["grid"] != 1 or step_launches.get("ntt_multi", 0) < tail:
+            raise RuntimeError("phase 22: K10's quarter layout at 2^17 != "
+                               "the step-by-step chain")
+        if by_layout[_cuda.QUARTER] != 1 or \
+                step_launches.get("ntt_multi", 0) < tail:
             raise RuntimeError(f"phase 22: K10 at 2^17 by layout "
                                f"{by_layout}; the step-by-step chain's "
                                f"{step_launches}")
@@ -3816,28 +3854,45 @@ def main() -> None:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
     # K10 on the device alone at the path's own arguments (all its steps)
-    # beside its bound and its own traffic, best of 3
+    # in its quarter layout (the plan's) and its grid layout (named), best
+    # of 3 in turns, each beside its bound and its own traffic's
     busy = torch.zeros(1 << 28, dtype=torch.int32, device=dev)
-    runs = [queued_ms(lambda: kernel_check.brc.blind_rotate_kernel(*br_args),
-                      1, busy) for _ in range(3)]
-    k_ms = min(runs)
+    if not torch.equal(
+            kernel_check.brc.blind_rotate_kernel(*br_args),
+            kernel_check.brc.blind_rotate_kernel(*br_args, layout="grid")):
+        raise RuntimeError("phase 22: K10's quarter and grid layouts differ "
+                           "at the path's arguments at 2^17")
+    abg = {_cuda.QUARTER: [], "grid": []}
+    for _ in range(3):
+        for layout in abg:
+            abg[layout].append(queued_ms(
+                lambda: kernel_check.brc.blind_rotate_kernel(
+                    *br_args, layout=layout), 1, busy))
     ops_g = P21_N_LWE * TFHE_BATCH * sum(kernel_check.cmux_step_ops(
         P22_GRID_N, TFHE_K + 1, l_g).values())
     b = bound(kernel_check.blind_rotate_bytes(*br_args), ops_g)
-    own = P21_N_LWE * sum(kernel_check.cmux_step_bytes(
-        P22_GRID_N, TFHE_K + 1, l_g, TFHE_BATCH, layout="grid").values())
-    bo = bound(own, ops_g)
-    if k_ms < b.ms:
-        raise RuntimeError(f"phase 22: K10 at 2^17 in {k_ms:.3f} ms is "
-                           f"under its bound {b}")
-    say(f"timing: slice 22 K10 grid layout (the plan), steps={P21_N_LWE} "
-        f"B={TFHE_BATCH} n={P22_GRID_N} beta={beta_g} l={l_g} (the path's "
-        f"arguments), on the device alone, runs "
-        f"{[round(r, 3) for r in runs]} ms: best {k_ms:.3f} ms, bound "
-        f"{b.ms:.3f} ms by {b.term}, {b.ms / k_ms:.3f} of it; its own "
-        f"traffic {own / 1e9:.3f} GB, bound {bo.ms:.3f} ms by {bo.term}, "
-        f"{bo.ms / k_ms:.3f} of it; {k_ms / P21_N_LWE * 1e3:.2f} us a step; "
-        f"launches on the path: 1 a bootstrap, grid [{card}]")
+    for layout, runs in abg.items():
+        k_ms = min(runs)
+        own = P21_N_LWE * sum(kernel_check.cmux_step_bytes(
+            P22_GRID_N, TFHE_K + 1, l_g, TFHE_BATCH, layout=layout).values())
+        bo = bound(own, ops_g)
+        if k_ms < b.ms:
+            raise RuntimeError(f"phase 22: K10 at 2^17 ({layout}) in "
+                               f"{k_ms:.3f} ms is under its bound {b}")
+        say(f"timing: slice 23 K10 {layout} layout"
+            f"{' (the plan)' if layout == plan_g.layout else ' (named)'}, "
+            f"steps={P21_N_LWE} B={TFHE_BATCH} n={P22_GRID_N} beta={beta_g} "
+            f"l={l_g} (the path's arguments), on the device alone, runs "
+            f"{[round(r, 3) for r in runs]} ms in turns with the other "
+            f"layout: best {k_ms:.3f} ms, bound {b.ms:.3f} ms by {b.term}, "
+            f"{b.ms / k_ms:.3f} of it; its own traffic {own / 1e9:.3f} GB, "
+            f"bound {bo.ms:.3f} ms by {bo.term}, {bo.ms / k_ms:.3f} of it; "
+            f"{k_ms / P21_N_LWE * 1e3:.2f} us a step [{card}]")
+    say(f"timing: slice 23 K10 at the path's arguments at 2^17: quarter "
+        f"{min(abg[_cuda.QUARTER]):.3f} ms against grid "
+        f"{min(abg['grid']):.3f} ms, "
+        f"{min(abg['grid']) / min(abg[_cuda.QUARTER]):.3f}x; launches on "
+        f"the path: 1 a bootstrap, {plan_g.layout} [{card}]")
     sl = P22_ROW_STEPS
     row_args = (br_args[0][:sl].contiguous(), br_args[1],
                 *(e[:sl].clone() for e in br_args[2:6]), *br_args[6:])
@@ -3853,7 +3908,7 @@ def main() -> None:
     resg = prng.device_residues(SEED + 85, dev)
     pg_cases = [kernel_check.blind_rotate_case(
         P22_GRID_N, TFHE_K, beta_g, l_g, sl, TFHE_BATCH, dev, gen,
-        layout="grid", args=row_args)]
+        layout=layout, args=row_args) for layout in (_cuda.QUARTER, "grid")]
     for shp, qs, inverse, fin in k1_shapes:
         pg_cases.append(kernel_check.ntt_multi_case(
             f"cmux_evals {'inverse' if inverse else 'fwd'} {list(shp)}",
@@ -3872,9 +3927,80 @@ def main() -> None:
     del row_args, pg_cases, case
     ntt_cuda.drop_tables()
     torch.cuda.empty_cache()
+    # slice 23, the grid layout's own path past 2^17: blind_rotation at
+    # (N, beta, l) = P22_WIDEST on a short key of P22_GRID_STEPS steps built
+    # on the card, on TFHE_BATCH random LWE ciphertexts; one K10 launch in
+    # its grid layout, fused == step by step (K1 at 2^18), no plain version
+    # on the card
+    n_w, beta_w, l_w = P22_WIDEST
+    if kernel_check.brc._plan(TFHE_K + 1, l_w, n_w).layout != "grid":
+        raise RuntimeError("phase 22: the plan at 2^18 is not the grid")
+    p_w = Param(ERR_SIGMA, RingParam(TORUS_Q, n_w), TFHE_K, 2)
+    kw_w = dict(beta=beta_w, l=l_w, beta_ks=TFHE_BETA_KS, l_ks=TFHE_L_KS)
+    shape_w = (f"N={n_w} K={TFHE_K} B={TFHE_BATCH} "
+               f"beta=2^{beta_w.bit_length() - 1} l={l_w} "
+               f"n_lwe={P22_GRID_STEPS}")
+    gen = prng.Gen(SEED + 86)
+    st_w = {}
+
+    def p22_widest_path():
+        s, _ = tglwe.new_key(gen, p_w, dev)
+        st_w["sbtk"] = bootstrap.new_short_bootstrapping_key(
+            gen, p_w, s, n_lwe=P22_GRID_STEPS, **kw_w)
+        st_w["evals"] = bootstrap.precompute_short_btk_evals(p_w,
+                                                             st_w["sbtk"])
+        st_w["c"] = tlwe.TLWE(
+            a=prng.uniform_u64(gen, (TFHE_BATCH, P22_GRID_STEPS), dev),
+            b=prng.uniform_u64(gen, (TFHE_BATCH,), dev))
+        st_w["table"] = bootstrap.compute_lookup_table_standard(p_w, dev)
+        out = bootstrap.blind_rotation(p_w, st_w["sbtk"], st_w["table"],
+                                       st_w["c"], beta_w, l_w,
+                                       btk_evals=st_w["evals"])
+        st_w["by_layout"] = dict(_cuda.BLIND_ROTATE.by_layout)
+        return out
+
+    for mod, name, degree in plain_fns:
+        setattr(mod, name, watched(plain_on_card, name, getattr(mod, name),
+                                   degree))
+    try:
+        fused_w = drive(f"slice 23: tglwe.new_key -> new_short_bootstrapping"
+                        f"_key -> precompute_short_btk_evals -> "
+                        f"blind_rotation at {shape_w}",
+                        ("ntt", "blind_rotate", GRID_ROW), p22_widest_path)
+        _cuda.reset_launches()
+        step_w = bootstrap.blind_rotation(p_w, st_w["sbtk"], st_w["table"],
+                                          st_w["c"], beta_w, l_w,
+                                          btk_evals=st_w["evals"],
+                                          fused=False)
+        torch.cuda.synchronize()
+        step_launches = {k: v for k, v in _cuda.launches().items() if v}
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    if not (torch.equal(fused_w.a, step_w.a)
+            and torch.equal(fused_w.b, step_w.b)):
+        raise RuntimeError("phase 22: K10's grid layout at 2^18 != the "
+                           "step-by-step chain")
+    if st_w["by_layout"] != {"cluster": 0, "device": 0, "split": 0,
+                             "grid": 1, _cuda.QUARTER: 0} or \
+            step_launches.get("ntt_multi", 0) < P22_GRID_STEPS:
+        raise RuntimeError(f"phase 22: K10 at 2^18 by layout "
+                           f"{st_w['by_layout']}; the step-by-step chain's "
+                           f"{step_launches}")
+    if plain_on_card:
+        raise RuntimeError(f"phase 22: plain versions ran on the card past "
+                           f"one block: {plain_on_card}")
+    say(f"verify: slice 23 blind_rotate (one launch, layout "
+        f"{st_w['by_layout']}) == {P22_GRID_STEPS} steps of cmux_evals "
+        f"(torch.equal; their launches {step_launches}: K1 at n = {n_w}) at "
+        f"{shape_w}; no plain version ran on the card [{card}]")
+    del st_w, fused_w, step_w
+    ntt_cuda.drop_tables()
+    torch.cuda.empty_cache()
     phase_done(f"22 (slice 15: bootstrap_short at N=2^16 through K10's split "
-               f"layout, t={t22}; slice 22: at N=2^17 through its grid "
-               f"layout, beta={beta_g} l={l_g} t={tg}) [{card}]")
+               f"layout, t={t22}; slice 22: at N=2^17 through its quarter "
+               f"layout, beta={beta_g} l={l_g} t={tg}; slice 23: "
+               f"blind_rotation at N=2^18 through its grid layout) [{card}]")
 
     # 23. slice 16: K2, K3, K5 and K12 past one block's polynomial -------
     # through the op layer's entry points (ops/ntt.py's tensor_eval4,
@@ -4174,7 +4300,8 @@ def main() -> None:
                 for r in record_rows}
     # K10's row counts its cluster layout, K2's, K3's, K5's and K12's their
     # launches up to one block; the counter's are all layouts'
-    launches["blind_rotate"] -= launches[DM_ROW] + launches[GRID_ROW]
+    launches["blind_rotate"] -= (launches[DM_ROW] + launches[GRID_ROW]
+                                 + launches[QUARTER_ROW])
     for k in chunked:
         launches[k.name] -= launches[CHUNKED_ROW.format(k.name)]
     for k in split:
@@ -4191,9 +4318,11 @@ def main() -> None:
 
     kernel_of = {k.name: k for k in _cuda.KERNELS}
     kernel_of[DM_ROW] = kernel_of[GRID_ROW] = _cuda.BLIND_ROTATE
+    kernel_of[QUARTER_ROW] = _cuda.BLIND_ROTATE
     source = {k.name: k.source for k in _cuda.KERNELS}
     source[DM_ROW] = _cuda.BLIND_ROTATE.layouts["device"]
     source[GRID_ROW] = _cuda.BLIND_ROTATE.layouts["grid"]
+    source[QUARTER_ROW] = _cuda.BLIND_ROTATE.layouts[_cuda.QUARTER]
     for k in chunked:
         kernel_of[CHUNKED_ROW.format(k.name)] = k
         source[CHUNKED_ROW.format(k.name)] = next(

@@ -546,6 +546,16 @@ int blind_rotate_split(const int* shifts, const unsigned long long* acc0,
                        const uint32_t* cons, int steps, int B, int C, int l,
                        int w, int logn, int threads, int smem, int vec,
                        cudaStream_t stream);
+// K10's quarter layout at n = 2^17 (csrc/blind_rotate_quarter_cuda.cu).
+int blind_rotate_quarter(const int* shifts, const unsigned long long* acc0,
+                         const uint32_t* ev1, const uint32_t* ev1s,
+                         const uint32_t* ev2, const uint32_t* ev2s,
+                         unsigned long long* out, uint32_t* dig,
+                         const uint32_t* tw, const uint32_t* tw_sh,
+                         const uint32_t* twinv, const uint32_t* twinv_sh,
+                         const uint32_t* cons, int steps, int B, int C, int l,
+                         int w, int logn, int threads, int smem, int vec,
+                         cudaStream_t stream);
 }  // namespace fhe
 
 // threads, smem, staged and layout: the host's plan (ops/blind_rotate_cuda.py
@@ -561,6 +571,9 @@ int blind_rotate_split(const int* shifts, const unsigned long long* acc0,
 // layout 3: each polynomial split over a cluster's shared memory at
 // n = 2^16 (csrc/blind_rotate_split_cuda.cu), the tables the chunk tables,
 // scratch the digit evaluations [B, 2, C*l, n]; staged must be 0.
+// layout 4: each polynomial in quarters over a cluster's shared memory at
+// n = 2^17 (csrc/blind_rotate_quarter_cuda.cu), the tables the chunk
+// tables, cons five rows, scratch as layout 3's; staged must be 0.
 extern "C" int fhe_blind_rotate(
     const int* shifts, const unsigned long long* acc0, const uint32_t* ev1,
     const uint32_t* ev1s, const uint32_t* ev2, const uint32_t* ev2s,
@@ -572,8 +585,14 @@ extern "C" int fhe_blind_rotate(
                          misaligned(ev2) || misaligned(ev2s));
   if (steps < 1 || B < 1 || B > (1 << 30) || C < 1 || l < 1 || w < 1 ||
       w > 31 || w * l > 64 || (staged && !aligned) ||
-      (layout != 0 && (layout > 3 || staged))) {
+      (layout != 0 && (layout > 4 || staged))) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (layout == 4) {
+    return blind_rotate_quarter(shifts, acc0, ev1, ev1s, ev2, ev2s, out,
+                                scratch, tw, tw_sh, twinv, twinv_sh, cons,
+                                steps, B, C, l, w, logn, threads, smem,
+                                aligned ? 1 : 0, stream);
   }
   if (layout == 3) {
     return blind_rotate_split(shifts, acc0, ev1, ev1s, ev2, ev2s, out,

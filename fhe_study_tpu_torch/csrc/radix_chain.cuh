@@ -415,6 +415,23 @@ __device__ __forceinline__ void cluster_store(uint32_t addr, uint32_t v) {
                : "memory");
 }
 
+// The four words at a 16-byte aligned shared::cluster address, and their
+// store (K10's quarter layout).
+__device__ __forceinline__ void cluster_load4(uint32_t addr,
+                                              uint32_t (&v)[4]) {
+  asm volatile("ld.shared::cluster.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void cluster_store4(uint32_t addr,
+                                               const uint32_t (&v)[4]) {
+  asm volatile("st.shared::cluster.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   addr), "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3])
+               : "memory");
+}
+
 // Element i of block r's half after the forward chain's first stage of a
 // split (Split): x[i] + w1 x[i + h] (r = 0) or x[i] - w1 x[i + h] (r = 1),
 // from the words f(i) and f(i + h) of the whole row (K10's split forward).

@@ -203,8 +203,9 @@ I64 = ctypes.c_longlong
 # and the gadget sums in device memory; K12 at 2^16 also on two-block
 # clusters, the polynomial resident.  K10, on its two-block clusters up to
 # 2^12, with its working set in device memory beyond a block, at 2^16 each
-# polynomial split over a cluster's shared memory and across blocks past
-# it (ops/blind_rotate_cuda.py::_plan), reaches 2^22, where the
+# polynomial split over a cluster's shared memory (at 2^17 in quarters)
+# and across blocks past it (ops/blind_rotate_cuda.py::_plan), reaches
+# 2^22, where the
 # reference's gate ends (its CRT pair's roots).
 TRANSFORM_LOGN = (7, 26)
 BLIND_ROTATE_LOGN = (7, 22)
@@ -347,11 +348,13 @@ NTT = Kernel("ntt", "fhe_ntt", "fhe_study_tpu_torch/csrc/ntt_multi_cuda.cu",
              "fhe_study_tpu/ops/ntt_pallas.py:1296",
              PTR, PTR, PTR, PTR, PTR, PTR, *([INT] * 6),
              logn=TRANSFORM_LOGN)
-# K10's four layouts (ops/blind_rotate_cuda.py::_plan): two-block clusters,
+# K10's five layouts (ops/blind_rotate_cuda.py::_plan): two-block clusters,
 # the working set in device memory, at 2^16 each polynomial split over a
-# cluster's shared memory, and past it across blocks
+# cluster's shared memory, at 2^17 in quarters over a cluster's, and past
+# it across blocks
 _BR_CU = "fhe_study_tpu_torch/csrc/blind_rotate_cuda.cu"
 SPLIT = "split"
+QUARTER = "quarter"
 BLIND_ROTATE = Kernel("blind_rotate", "fhe_blind_rotate", _BR_CU,
                       "fhe_study_tpu/ops/blind_rotate_pallas.py:392",
                       *([PTR] * 13), *([INT] * 10), logn=BLIND_ROTATE_LOGN,
@@ -360,7 +363,9 @@ BLIND_ROTATE = Kernel("blind_rotate", "fhe_blind_rotate", _BR_CU,
                           SPLIT: ("fhe_study_tpu_torch/csrc/"
                                   "blind_rotate_split_cuda.cu"),
                           "grid": ("fhe_study_tpu_torch/csrc/"
-                                   "blind_rotate_grid_cuda.cu")})
+                                   "blind_rotate_grid_cuda.cu"),
+                          QUARTER: ("fhe_study_tpu_torch/csrc/"
+                                    "blind_rotate_quarter_cuda.cu")})
 BASE_EXTEND_SUM = Kernel("base_extend_sum", "fhe_base_extend_sum", _EXT_CU,
                          "fhe_study_tpu/ops/ext_pallas.py:207",
                          PTR, PTR, PTR, PTR, INT, INT, I64, INT)

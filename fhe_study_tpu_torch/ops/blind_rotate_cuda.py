@@ -1,6 +1,7 @@
 """The whole TFHE blind rotation as one kernel —
 ``csrc/blind_rotate_cuda.cu`` with ``blind_rotate_dm_cuda.cu``,
-``blind_rotate_split_cuda.cu`` and ``blind_rotate_grid_cuda.cu`` — with its
+``blind_rotate_split_cuda.cu``, ``blind_rotate_quarter_cuda.cu`` and
+``blind_rotate_grid_cuda.cu`` — with its
 launch wrapper and plain PyTorch version; the counterpart of
 fhe_study_tpu/ops/blind_rotate_pallas.py.
 
@@ -11,16 +12,18 @@ fhe_study_tpu/ops/blind_rotate_pallas.py.
 ``blind_rotate_fused`` dispatches by the device of its tensors: CUDA
 tensors launch the kernel (one call for the whole chain), CPU tensors
 walk the chain step by step in int64 torch (``blind_rotate_plain``, which
-also is what the kernel is held against on the card).  The kernel has four
+also is what the kernel is held against on the card).  The kernel has five
 layouts, picked by ``_plan`` from (C, l, n) alone: two-block clusters that
 keep a ciphertext's working set in shared memory where it fits, the
 working set in device memory (two launches a step) elsewhere up to
 n = 2^15; where one polynomial no longer fits a block, at n = 2^16 each
 polynomial split over the shared memory of a cluster's blocks (``split``:
 two launches a step, the top stage through distributed shared memory),
-and past it the transforms across blocks (``grid``: top passes through
-device memory and one block a chunk of 2^15 words, csrc/ntt_chunks.cuh),
-up to the reference's n = 2^22.
+at n = 2^17 in four quarters (``quarter``: two launches a step, the two
+top stages through distributed shared memory), and past it the
+transforms across blocks (``grid``: top passes through device memory and
+one block a chunk of 2^15 words, csrc/ntt_chunks.cuh), up to the
+reference's n = 2^22.
 """
 
 from functools import lru_cache
@@ -43,18 +46,24 @@ _BARRIER_BYTES = 32     # kBrBarrierBytes: the mbarriers of the key copies
 # its working set fits a block up to 2^12 (at C = 1; C = 2 stops at 2^11)
 BR_CLUSTER_LOGN = (7, 12)
 # the layout argument of fhe_blind_rotate (csrc/blind_rotate_cuda.cu)
-LAYOUT_CODE = {"cluster": 0, "device": 1, "grid": 2, _cuda.SPLIT: 3}
+LAYOUT_CODE = {"cluster": 0, "device": 1, "grid": 2, _cuda.SPLIT: 3,
+               _cuda.QUARTER: 4}
 # the split layout's ring degree (two halves of a chunk's 2^15 words) and
 # its inverse launch's cluster: two primes times two halves
 SPLIT_LOGN = ntt_cuda.CHUNK_LOGN + 1
 SPLIT_CLUSTER = 4
+# the quarter layout's (four quarters of 2^15 words): two primes times four
+# quarters
+QUARTER_LOGN = ntt_cuda.CHUNK_LOGN + 2
+QUARTER_CLUSTER = 8
 
 
 class BlindRotatePlan(NamedTuple):
     logn: int
     threads: int        # a block
     cluster: int        # blocks a cluster, one per CRT prime ("split":
-                        # one per prime and half)
+                        # one per prime and half; "quarter": per prime
+                        # and quarter)
     staged: bool        # the step's key planes copied into shared memory
     smem_bytes: int     # a block's dynamic shared memory
     forward_polys: int  # C*l digit polynomials ...
@@ -63,12 +72,13 @@ class BlindRotatePlan(NamedTuple):
     layout: str = "cluster"     # "cluster": the working set in shared memory;
                                 # "device": in device memory; "split" (n =
                                 # 2^16): that, each polynomial over a
-                                # cluster's blocks; "grid": each transform
-                                # across blocks (n > 2^15)
+                                # cluster's blocks; "quarter" (n = 2^17): in
+                                # quarters; "grid": each transform across
+                                # blocks (n > 2^15)
     blocks: tuple = (2,)        # blocks a ciphertext, of each launch of a
                                 # chain ("cluster") or of a step ("device",
-                                # "split": the forward launch, then the
-                                # inverse one; "grid": the top forward
+                                # "split", "quarter": the forward launch,
+                                # then the inverse one; "grid": the top forward
                                 # passes, the chunk chains forward, the
                                 # contraction's chunk chains inverse, the top
                                 # inverse passes)
@@ -102,11 +112,15 @@ def _plan(C: int, l: int, n: int, aligned: bool = True,
     ``threads``, ``smem_bytes``, ``staged`` and the layout, which it checks
     against its own.  ``layout`` names one to measure it where the rule
     takes another (the device-memory layout runs at any shape up to 2^15,
-    the grid layout at 2^16 too).  At 2^16 the split layout
+    the grid layout at 2^16 and 2^17 too).  At 2^16 the split layout
     (csrc/blind_rotate_split_cuda.cu): a forward block per (digit
     polynomial, prime, half), a cluster of four inverse blocks per column
     (two primes, two halves), each on a half's one-buffer shape, and the
-    device-memory layout's scratch; nothing between passes.  Past 2^16 the
+    device-memory layout's scratch; nothing between passes.  At 2^17 the
+    quarter layout (csrc/blind_rotate_quarter_cuda.cu): a forward cluster
+    of four blocks per (digit polynomial, prime) and an inverse cluster of
+    eight per column (two primes, four quarters), each block on a
+    quarter's one-buffer shape, and the same scratch.  Elsewhere past 2^15 the
     grid layout (csrc/blind_rotate_grid_cuda.cu): each step's transforms
     across blocks (ntt_cuda._chunk_plan), the forward's top passes forming
     the digits, the contraction in the chunk chains' first inverse pass,
@@ -114,13 +128,18 @@ def _plan(C: int, l: int, n: int, aligned: bool = True,
     digit evaluations and of the words between passes."""
     logn = n.bit_length() - 1
     if logn > ntt_cuda.CHUNK_LOGN:
-        layout = layout or (_cuda.SPLIT if logn == SPLIT_LOGN else "grid")
-        if layout == _cuda.SPLIT and logn == SPLIT_LOGN:
-            half = ntt_cuda._radix_plan(logn - 1)
+        layout = layout or {SPLIT_LOGN: _cuda.SPLIT,
+                            QUARTER_LOGN: _cuda.QUARTER}.get(logn, "grid")
+        parts = {(_cuda.SPLIT, SPLIT_LOGN): SPLIT_CLUSTER,
+                 (_cuda.QUARTER, QUARTER_LOGN): QUARTER_CLUSTER}.get(
+                     (layout, logn))
+        if parts:
+            # blocks of a chunk's one-buffer shape, parts / 2 a polynomial
+            chunk = ntt_cuda._radix_plan(ntt_cuda.CHUNK_LOGN)
             F = C * l
             return BlindRotatePlan(
-                logn, half.threads, SPLIT_CLUSTER, False, half.smem_bytes, F,
-                2 * C, half, _cuda.SPLIT, (4 * F, SPLIT_CLUSTER * 2 * C),
+                logn, chunk.threads, parts, False, chunk.smem_bytes, F,
+                2 * C, chunk, layout, (parts // 2 * 2 * F, parts * 2 * C),
                 2 * 4 * F * n)
         if layout != "grid":
             raise ValueError(f"layout {layout!r} at C={C}, l={l}, n={n}")
@@ -213,12 +232,13 @@ def blind_rotate_kernel(shifts, acc0, ev1, ev1s, ev2, ev2s, n: int, w: int,
     """K10: the whole chain in one call, in the layout of ``_plan``: one
     cluster of two blocks per ciphertext (one CRT prime each) for the whole
     chain, or two launches a step over a working set in device memory (at
-    2^16 on clusters of four, the polynomials split), or past 2^16 four.
+    2^16 on clusters of four, the polynomials split; at 2^17 on clusters of
+    eight, in quarters), or past 2^17 four.
     shifts int32 [steps, B] in [0, 2n); acc0 int64 [B, C, n]; ev1, ev1s,
     ev2, ev2s int32 [steps, C, l, C, 2, n].  Returns int64 [B, C, n].
     ``layout`` forces a layout, for measurement (``_plan``).  Past n = 2^15
-    (the split and grid layouts) the tables are the chunk tables of
-    ntt_cuda."""
+    (the split, quarter and grid layouts) the tables are the chunk tables
+    of ntt_cuda."""
     dev = acc0.device
     _cuda.check(shifts, "shifts", dev)
     _cuda.check(acc0, "acc0", dev, dtype=torch.int64)
@@ -239,9 +259,10 @@ def blind_rotate_kernel(shifts, acc0, ev1, ev1s, ev2, ev2s, n: int, w: int,
     p1, p2 = pq = ntt_mod.CRT_PRIMES_TFHE
     tw = ntt_cuda._chunk_tables(pq, n, False, dev)
     twinv = ntt_cuda._chunk_tables(pq, n, True, dev)
-    # the split and device-memory layouts' Montgomery contraction leaves a
-    # factor 2^-32, which their final multiplier takes back
-    r = ntt_cuda.R32 if plan.layout in (_cuda.SPLIT, "device") else 1
+    # the split, quarter and device-memory layouts' Montgomery contraction
+    # leaves a factor 2^-32, which their final multiplier takes back
+    r = ntt_cuda.R32 if plan.layout in (_cuda.SPLIT, _cuda.QUARTER,
+                                        "device") else 1
     cons = ntt_cuda._prime_rows(
         (p1, p2, p2), (pow(n, -1, p1) * r % p1, pow(n, -1, p2) * r % p2,
                        pow(p1, -1, p2)), dev)
@@ -261,6 +282,13 @@ def split_clusters(device) -> int:
     once (cudaOccupancyMaxActiveClusters; the SMs of a GPC that four does
     not divide stay idle in that launch)."""
     return _cuda.max_clusters("fhe_blind_rotate_split_clusters", device)
+
+
+def quarter_clusters(device) -> int:
+    """The quarter layout's inverse clusters of eight that the card runs at
+    once (cudaOccupancyMaxActiveClusters; the SMs of a GPC that eight does
+    not divide stay idle in that launch)."""
+    return _cuda.max_clusters("fhe_blind_rotate_quarter_clusters", device)
 
 
 def blind_rotate_fused(shifts, acc0, ev1, ev1s, ev2, ev2s, n: int, w: int):

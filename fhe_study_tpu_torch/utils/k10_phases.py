@@ -4,6 +4,10 @@
     python3 -m fhe_study_tpu_torch.utils.k10_phases [--steps 1024] [--batch 64]
     python3 -m fhe_study_tpu_torch.utils.k10_phases --device [--steps 400]
         [--batch 64]
+    python3 -m fhe_study_tpu_torch.utils.k10_phases --grid [--steps 16]
+        [--batch 64]
+    python3 -m fhe_study_tpu_torch.utils.k10_phases --quarter [--steps 16]
+        [--batch 64]
 
 Builds a copy of the kernel with a clock64() reading by thread 0 at each
 phase boundary of a step (each boundary but the key wait and the last pass
@@ -24,6 +28,23 @@ forward and the inverse blocks; CUDA events give the device time of a
 one-step call (the accumulator's copy and one launch of each) and of the
 whole chain; one ``torch.profiler`` window over the whole chain gives each
 launch's device time by kernel and the idle gaps between the launches.
+
+``--grid`` times the grid layout (csrc/blind_rotate_grid_cuda.cu) at
+chip_smoke.py's phase 22 shape at 2^17 (N = 2^17, beta = 2^5, l = 6, K = 1,
+``--batch`` ciphertexts, ``--steps`` CMux steps, 16 by default: a prefix of
+the path's 400, each step alike): CUDA events over the chain, and one
+``torch.profiler`` window's device time by launch kind (the forward's top
+pass, the chunk chains forward, the chunk chains inverse with the
+contraction, the last top pass with the CRT and the add) and the idle gaps.
+
+``--quarter`` probes the quarter layout (csrc/blind_rotate_quarter_cuda.cu)
+at the same shape: the inverse clusters of eight the card runs at once,
+the package's build against the grid layout (CUDA events, in turns) and its
+launches from the profiler; then copies of the unit with a clock64()
+reading by thread 0 at each phase boundary of a block (block or cluster
+barriers but the forward's end), swapped in for the package's entry and
+held equal to the grid layout's output, gives the cycles a step of every
+phase and its launches.
 """
 
 import argparse
@@ -127,6 +148,8 @@ def main() -> None:
     ap.add_argument("--steps", type=int, default=None)
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--device", action="store_true")
+    ap.add_argument("--grid", action="store_true")
+    ap.add_argument("--quarter", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("k10_phases: no CUDA card")
@@ -137,6 +160,12 @@ def main() -> None:
         check=True).stdout.strip()
     if args.device:
         device_layout(args.steps or 400, args.batch, dev, card)
+        return
+    if args.grid:
+        grid_layout(args.steps or 16, args.batch, dev, card)
+        return
+    if args.quarter:
+        quarter_layout(args.steps or 16, args.batch, dev, card)
         return
     args.steps = args.steps or 1024
     gen = prng.Gen(3)
@@ -288,10 +317,15 @@ def dm_build(out: Path) -> tuple:
     return ctypes.CDLL(str(so)), report
 
 
-def launch_gaps(fn) -> dict:
-    """Device time by kernel and the idle gaps between consecutive device
-    activities (kernels and copies) of one call of fn, from a
-    torch.profiler window (its Chrome trace)."""
+# the device-memory layout's launch kinds: (label, text of the kernel's name)
+DM_KINDS = (("forward", "forward"), ("inverse", "inverse"))
+
+
+def launch_gaps(fn, kinds: tuple = DM_KINDS) -> dict:
+    """Device time by launch kind (the first of ``kinds`` whose text the
+    kernel's name holds; "copy" otherwise) and the idle gaps between
+    consecutive device activities (kernels and copies) of one call of fn,
+    from a torch.profiler window (its Chrome trace)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -310,8 +344,7 @@ def launch_gaps(fn) -> dict:
         return {}
     by = {}
     for _, dur, name in evs:
-        key = ("forward" if "forward" in name else "inverse"
-               if "inverse" in name else "copy")
+        key = next((label for label, text in kinds if text in name), "copy")
         by.setdefault(key, []).append(dur)
     gaps = np.array([b[0] - (a[0] + a[1]) for a, b in zip(evs, evs[1:])])
     return {"launches": len(evs),
@@ -414,6 +447,251 @@ def device_layout(steps: int, B: int, dev, card: str) -> None:
                   flush=True)
             del inputs, want, got
             torch.cuda.empty_cache()
+
+
+# -- past one block: the grid layout at 2^17 ----------------------------------
+
+# phase 22's shape at 2^17 (chip_smoke.py): N, beta, l; K = 1
+WIDE_CONFIG = (1 << 17, 1 << 5, 6)
+GRID_KINDS = (("top forward (digits, bits 16..15)", "brg_top_forward"),
+              ("chunk forward", "ntt_chunk_kernel"),
+              ("chunk inverse (contraction)", "brg_chunk_inverse"),
+              ("top inverse", "brg_top_inverse"),
+              ("top last (n^-1, CRT, add)", "brg_top_last"))
+
+
+def wide_inputs(steps: int, B: int, dev, seed: int) -> tuple:
+    """blind_rotate_kernel's arguments at WIDE_CONFIG: the key planes drawn
+    on the card (prng.device_residues), shifts and accumulators on the
+    host."""
+    n, beta, l = WIDE_CONFIG
+    p1, p2 = ntt_mod.CRT_PRIMES_TFHE
+    res = prng.device_residues(seed, dev)
+    gen = prng.Gen(seed)
+    key = (steps, 2, l, 2, 2, n)
+    ev1, ev2 = res((p1,), key)[0], res((p2,), key)[0]
+    ev1s, ev2s = (kernel_check._u32_bits(e.long() * (1 << 32) // p)
+                  for e, p in ((ev1, p1), (ev2, p2)))
+    shifts = prng.uniform_mod(gen, (steps, B), 2 * n, dev).int()
+    acc0 = prng.uniform_u64(gen, (B, 2, n), dev)
+    return shifts, acc0, ev1, ev1s, ev2, ev2s, n, beta.bit_length() - 1
+
+
+def print_launches(label: str, call, steps: int, kinds: tuple) -> None:
+    """CUDA events over the chain, and one torch.profiler window's device
+    time by launch kind (a launch, and a step) and idle gaps."""
+    chain_ms = _events_ms(call, 1)
+    print(f"  {label}: CUDA events, the chain of {steps} steps "
+          f"{chain_ms:.3f} ms = {chain_ms / steps * 1e3:.2f} us a step",
+          flush=True)
+    gaps = launch_gaps(call, kinds)
+    if not gaps:
+        print("  torch.profiler recorded no device activity", flush=True)
+        return
+    print(f"  {label}: torch.profiler, one chain: {gaps['launches']} device "
+          f"activities over {gaps['span_us'] / 1e3:.3f} ms, busy "
+          f"{gaps['busy_us'] / 1e3:.3f} ms; idle gaps "
+          f"{gaps['gap_us'][0] / 1e3:.3f} ms in all "
+          f"({gaps['gap_us'][0] / steps:.2f} us a step), "
+          f"{gaps['gap_us'][1]:.2f} us mean, {gaps['gap_us'][2]:.2f} us "
+          f"median, {gaps['gap_us'][3]:.2f} us most", flush=True)
+    busy = gaps["busy_us"]
+    for kind, (m, lo, hi, c) in gaps["by_kernel_us"].items():
+        print(f"    {kind:36s} {m:9.2f} us a launch ({lo:.2f}, {hi:.2f}) x "
+              f"{c}: {m * c / steps:9.2f} us a step, {m * c / busy:.3f} of "
+              "the busy time", flush=True)
+
+
+def grid_layout(steps: int, B: int, dev, card: str) -> None:
+    """The --grid run (see the module docstring)."""
+    n, beta, l = WIDE_CONFIG
+    inputs = wide_inputs(steps, B, dev, 27 + steps)
+    plan = brc._plan(2, l, n, layout="grid")
+    print(f"k10_phases --grid at N={n} C=2 l={l} beta=2^"
+          f"{beta.bit_length() - 1} B={B} steps={steps}, plan "
+          f"threads={plan.threads} smem={plan.smem_bytes} blocks a "
+          f"ciphertext {plan.blocks} [{card}]", flush=True)
+    print_launches("grid", lambda: brc.blind_rotate_kernel(
+        *inputs, layout="grid"), steps, GRID_KINDS)
+
+
+# -- the quarter layout at 2^17 -----------------------------------------------
+
+QUARTER_UNIT = "blind_rotate_quarter_cuda.cu"
+QUARTER_PHASES = (
+    "forward: digits",
+    "forward: top stages and pass 0 (the bytes across the cluster)",
+    "forward: passes and the store",
+    "inverse: contraction", "inverse: chain (passes 0..)",
+    "inverse: cluster wait (chains)",
+    "inverse: top stages (exchanges, waits)",
+    "inverse: cluster wait (top stages)",
+    "inverse: CRT lift and 64-bit atomics", "inverse: last cluster wait")
+QUARTER_BLOCKS = 8192
+QUARTER_KINDS = (("forward", "brq_forward"), ("inverse", "brq_inverse"))
+_QUARTER_ENTRY = """
+extern "C" int fhe_k10q_probe(
+    const int* shifts, const unsigned long long* acc0, const uint32_t* ev1,
+    const uint32_t* ev1s, const uint32_t* ev2, const uint32_t* ev2s,
+    unsigned long long* out, const uint32_t* tw, const uint32_t* tw_sh,
+    const uint32_t* twinv, const uint32_t* twinv_sh, const uint32_t* cons,
+    uint32_t* scratch, int steps, int B, int C, int l, int w, int logn,
+    int threads, int smem, int staged, int layout, cudaStream_t stream) {
+  const bool aligned = !(fhe::misaligned(ev1) || fhe::misaligned(ev1s) ||
+                         fhe::misaligned(ev2) || fhe::misaligned(ev2s));
+  if (layout != 4 || staged) return static_cast<int>(cudaErrorInvalidValue);
+  return fhe::blind_rotate_quarter(shifts, acc0, ev1, ev1s, ev2, ev2s, out,
+                                   scratch, tw, tw_sh, twinv, twinv_sh, cons,
+                                   steps, B, C, l, w, logn, threads, smem,
+                                   aligned ? 1 : 0, stream);
+}
+"""
+# (text of the unit, what), as DM_MARKS
+QUARTER_MARKS = (
+    ('#include "radix_chain.cuh"\n', None),
+    ("  const int shift = 64 - w * (f - cc * l + 1);\n",
+     "  long long phase_t = clock64();\n"),
+    ("  // every quarter's digits are formed and visible to the cluster\n", 0),
+    ("  // the peers have read this block's bytes (and pass 0's words are "
+     "in)\n  cluster_sync();\n", ("after", 1)),
+    ("    row[i] = make_uint4(a[sw], a[sw ^ 1], a[sw ^ 2], a[sw ^ 3]);\n"
+     "  }\n}\n", ("after-brace", 2)),
+    ("  const int cols = 2 * C;\n", "  long long phase_t = clock64();\n"),
+    ("  __syncthreads();\n  RadixPasses<kWideLogN, 0, S::passes, true, "
+     "S::threads>::run(\n", 3),
+    ("  // the quarters of prime p are through their chains\n", 4),
+    ("  quarter_stages(a, rank", 5),
+    ("  // both primes' columns are complete and visible to the cluster\n", 6),
+    ("  const uint32_t other = cluster_addr(a, rank ^ kQuarters);", 7),
+    ("  // the peers have read this block's words before any block exits\n",
+     8),
+    ("  // the peers have read this block's words before any block exits\n"
+     "  cluster_sync();\n}\n", ("after-brace", 9)),
+)
+
+
+def quarter_instrumented(src: str) -> str:
+    """The quarter unit's text with the phase counters and the probe's
+    entry; raises if a mark is not found exactly once (the kernel changed:
+    update QUARTER_MARKS)."""
+    slots = len(QUARTER_PHASES)
+    counters = f"""
+__device__ unsigned long long g_phase[{QUARTER_BLOCKS} * {slots}];
+extern "C" int fhe_k10_phases(unsigned long long* host, int clear) {{
+  static unsigned long long zero[{QUARTER_BLOCKS} * {slots}];
+  return clear ? (int)cudaMemcpyToSymbol(g_phase, zero, sizeof(zero))
+               : (int)cudaMemcpyFromSymbol(host, g_phase, sizeof(zero));
+}}
+#define FHE_PHASE(i) \\
+  if (threadIdx.x == 0 && blockIdx.x < {QUARTER_BLOCKS}) {{ \\
+  const long long t_ = clock64(); \\
+  g_phase[blockIdx.x * {slots} + (i)] += t_ - phase_t; phase_t = t_; }}
+"""
+    for mark, what in QUARTER_MARKS:
+        if src.count(mark) != 1:
+            raise ValueError(f"k10_phases: mark {mark!r} found "
+                             f"{src.count(mark)} times in {QUARTER_UNIT}")
+        if what is None:
+            src = src.replace(mark, mark + counters)
+        elif isinstance(what, str):
+            src = src.replace(mark, mark + what)
+        elif isinstance(what, int):
+            src = src.replace(mark, f"  FHE_PHASE({what})\n" + mark)
+        elif what[0] == "after":
+            src = src.replace(mark, mark + f"  FHE_PHASE({what[1]})\n")
+        else:     # before the closing brace of the kernel
+            src = src.replace(mark,
+                              mark[:-2] + f"  FHE_PHASE({what[1]})\n}}\n")
+    return src + _QUARTER_ENTRY
+
+
+def quarter_build(out: Path) -> tuple:
+    """(CDLL, ptxas's lines) of the instrumented unit."""
+    cu = out / "blind_rotate_quarter_phases.cu"
+    cu.write_text(quarter_instrumented(
+        (_cuda.CSRC / QUARTER_UNIT).read_text()))
+    so = out / "libk10q_phases.so"
+    res = subprocess.run([_cuda._nvcc(), *_cuda.ARCH, "-std=c++17", "-O3",
+                          "-Xptxas=-v", "-Xcompiler", "-fPIC", "-shared",
+                          f"-I{_cuda.CSRC}", "-o", str(so), str(cu)],
+                         capture_output=True, text=True, check=False)
+    if res.returncode:
+        raise _cuda.KernelBuildError(res.stderr)
+    report = [f"{r['kernel']} {r['registers']} registers, {r['stack']} "
+              f"bytes stack, {r['spill_stores']} bytes spill stores"
+              for r in _cuda.ptxas_report(res.stdout + res.stderr)]
+    return ctypes.CDLL(str(so)), report
+
+
+def quarter_layout(steps: int, B: int, dev, card: str) -> None:
+    """The --quarter run (see the module docstring)."""
+    kernel = _cuda.BLIND_ROTATE
+    n, beta, l = WIDE_CONFIG
+    inputs = wide_inputs(steps, B, dev, 28 + steps)
+    plan = brc._plan(2, l, n, layout=_cuda.QUARTER)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clusters = brc.quarter_clusters(dev)
+    shape = (f"N={n} C=2 l={l} beta=2^{beta.bit_length() - 1} B={B} "
+             f"steps={steps}")
+    print(f"k10_phases --quarter at {shape}, plan threads={plan.threads} "
+          f"smem={plan.smem_bytes} cluster={plan.cluster} blocks a "
+          f"ciphertext {plan.blocks}; inverse clusters of "
+          f"{plan.cluster} at once: {clusters} ({plan.cluster * clusters} "
+          f"of {sms} SMs, {sms - plan.cluster * clusters} idle) [{card}]",
+          flush=True)
+    grid = lambda: brc.blind_rotate_kernel(  # noqa: E731
+        *inputs, layout="grid")
+    quarter = lambda: brc.blind_rotate_kernel(  # noqa: E731
+        *inputs, layout=_cuda.QUARTER)
+    want = grid()
+    if not torch.equal(quarter(), want):
+        raise RuntimeError("k10_phases: the quarter layout differs from the "
+                           "grid layout")
+    runs = {"quarter": [], "grid": []}
+    for _ in range(3):
+        for name, fn in (("quarter", quarter), ("grid", grid)):
+            runs[name].append(_events_ms(fn, 1))
+    print(f"  the package's build, CUDA events in turns (best of 3 of 3): "
+          f"quarter {min(runs['quarter']):.3f} ms, grid "
+          f"{min(runs['grid']):.3f} ms = "
+          f"{min(runs['grid']) / min(runs['quarter']):.3f}x; "
+          f"{min(runs['quarter']) / steps * 1e3:.2f} us a step", flush=True)
+    print_launches("quarter", quarter, steps, QUARTER_KINDS)
+    with tempfile.TemporaryDirectory() as tmp:
+        lib, report = quarter_build(Path(tmp))
+        print("  instrumented build; ptxas: " + "; ".join(report),
+              flush=True)
+        probe = lib.fhe_k10q_probe
+        probe.argtypes = kernel.argtypes
+        probe.restype = ctypes.c_int
+        saved = kernel._fn
+        kernel._fn = probe
+        try:
+            lib.fhe_k10_phases(None, 1)
+            got = quarter()
+            torch.cuda.synchronize()
+            cycles = np.zeros(QUARTER_BLOCKS * len(QUARTER_PHASES),
+                              dtype=np.uint64)
+            lib.fhe_k10_phases(ctypes.c_void_p(cycles.ctypes.data), 0)
+            if not torch.equal(got, want):
+                raise RuntimeError("k10_phases: the instrumented build "
+                                   "differs from the kernel")
+            per = cycles.reshape(QUARTER_BLOCKS, -1).astype(
+                np.float64) / steps
+            for i, name in enumerate(QUARTER_PHASES):
+                col = per[:, i][per[:, i] > 0]
+                if col.size:
+                    print(f"    {name:42s} {col.mean():10.1f} "
+                          f"({col.min():.1f}, {col.max():.1f}) over "
+                          f"{col.size} blocks")
+            fwd, inv = per[:, :3].sum(1), per[:, 3:].sum(1)
+            print(f"    {'forward block, all':42s} "
+                  f"{fwd[fwd > 0].mean():10.1f}\n    "
+                  f"{'inverse block, all':42s} {inv[inv > 0].mean():10.1f}",
+                  flush=True)
+            print_launches("instrumented", quarter, steps, QUARTER_KINDS)
+        finally:
+            kernel._fn = saved
 
 
 if __name__ == "__main__":

@@ -768,7 +768,10 @@ def cmux_step_bytes(n: int, C: int, l: int, batch: int,
     shared memory), by part, each at its least, L2 serving every re-read
     within the step; the split layout (n = 2^16) moves the same but half
     the key (its forward blocks read their accumulator component at i and
-    i + n/2, and four blocks form each digit: L2 serves those re-reads):
+    i + n/2, and four blocks form each digit: L2 serves those re-reads),
+    and so does the quarter layout (n = 2^17: each forward block forms the
+    digits of its own quarter of a component: 2 l blocks read each
+    accumulator word):
 
       scratch  the digit evaluations [B, 2, C*l, n] of 32-bit words,
                written by the forward blocks and read back once by the
@@ -782,8 +785,8 @@ def cmux_step_bytes(n: int, C: int, l: int, batch: int,
                inverse clusters (the grid layout's last pass: no atomics);
       key      the step's slice, values and Shoup companions under both
                primes, 4 planes of C*l*2C*n words, read once for the whole
-               batch (the split and device-memory layouts' Montgomery
-               contraction reads the 2 planes of values alone).
+               batch (the split, quarter and device-memory layouts'
+               Montgomery contraction reads the 2 planes of values alone).
     """
     scratch = 2 * batch * 2 * C * l * n * 4
     if layout == "grid":
@@ -791,7 +794,8 @@ def cmux_step_bytes(n: int, C: int, l: int, batch: int,
         scratch += 2 * passes * batch * 2 * (C * l + 2 * C) * n * 4
     return {"scratch": scratch,
             "acc": 3 * batch * C * n * 8,
-            "key": (2 if layout in (_cuda.SPLIT, "device") else 4)
+            "key": (2 if layout in (_cuda.SPLIT, _cuda.QUARTER, "device")
+                    else 4)
             * C * l * 2 * C * n * 4}
 
 
@@ -1350,8 +1354,8 @@ def gate_width(n: int, C: int, l: int) -> int:
     return w
 
 
-BR_SPLIT_LOGN = 16   # the split layout at every (C, l, w) of the gate there,
-BR_GRID_LOGN = 17    # the grid layout at every (C, l, w) of the gate there,
+BR_SPLIT_LOGN = 16    # the split layout at every (C, l, w) of the gate,
+BR_QUARTER_LOGN = 17  # the quarter layout at every (C, l, w) of the gate,
 BR_GRID_RUNS = ((2, 1), (3, 2), (4, 1), (2, 2))   # (steps, B) in turn,
 # and one (log n, C, l) at each larger degree, at the gate's widest digit
 BR_GRID_WIDER = ((18, 2, 2), (19, 3, 1), (20, 2, 2), (21, 1, 2), (22, 2, 1))
@@ -1369,11 +1373,12 @@ def gate_shapes(n: int) -> list:
 
 def blind_rotate_wide_sweep(device, seed: int):
     """K10 past 2^15 against its plain version (compared; chip_smoke.py
-    times each kernel beside its bounds), in the layout the plan takes:
-    split at every (C, l, w) of ``gate_shapes`` at 2^BR_SPLIT_LOGN, grid at
-    every one at 2^BR_GRID_LOGN, each over (steps, B) of BR_GRID_RUNS in
-    turn, and grid at each (log n, C, l) of BR_GRID_WIDER at the gate's
-    widest digit; at the first shape of each (n, C) also the key planes
+    times each kernel beside its bounds): its split layout at every (C, l,
+    w) of ``gate_shapes`` at 2^BR_SPLIT_LOGN, its quarter layout at every
+    one at 2^BR_QUARTER_LOGN (each named), each over (steps, B) of
+    BR_GRID_RUNS in turn, and the layout the plan takes (grid) at each
+    (log n, C, l) of BR_GRID_WIDER at the gate's widest digit; at the
+    first shape of each (n, C) also the key planes
     one word off their 16-byte alignment.  Key planes drawn on the card
     (``prng.device_residues``: a shape's keys run to gigabytes), shifts
     and accumulators on the host.  Yields one case at a time, then forgets
@@ -1381,14 +1386,15 @@ def blind_rotate_wide_sweep(device, seed: int):
     res = prng.device_residues(seed, device)
     gen = prng.Gen(seed)
     p1, p2 = ntt_mod.CRT_PRIMES_TFHE
-    shapes = ([(logn, *s) for logn in (BR_SPLIT_LOGN, BR_GRID_LOGN)
+    named = {BR_SPLIT_LOGN: _cuda.SPLIT, BR_QUARTER_LOGN: _cuda.QUARTER}
+    shapes = ([(logn, *s) for logn in named
                for s in gate_shapes(1 << logn)]
               + [(logn, C, l, gate_width(1 << logn, C, l))
                  for logn, C, l in BR_GRID_WIDER])
     firsts = set()
     for i, (logn, C, l, w) in enumerate(shapes):
         n = 1 << logn
-        layout = brc._plan(C, l, n).layout
+        layout = named.get(logn) or brc._plan(C, l, n).layout
         steps, B = BR_GRID_RUNS[i % len(BR_GRID_RUNS)]
         key = (steps, C, l, C, 2, n)
         ev1, ev2 = res((p1,), key)[0], res((p2,), key)[0]
@@ -1408,9 +1414,9 @@ def blind_rotate_wide_sweep(device, seed: int):
             args = (shifts, acc0, *planes, n, w)
             yield _pair("blind_rotate", label + tag,
                         blind_rotate_bytes(*args), ops,
-                        brc.blind_rotate_kernel, brc.blind_rotate_plain,
-                        *args)._replace(timed=False, layout=layout,
-                                        args=args)
+                        partial(brc.blind_rotate_kernel, layout=layout),
+                        brc.blind_rotate_plain, *args)._replace(
+                            timed=False, layout=layout, args=args)
         del ev1, ev2, ev1s, ev2s, variants, planes, args
     nc.drop_tables()
 

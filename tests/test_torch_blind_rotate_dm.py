@@ -64,8 +64,10 @@ def _shapes(logns):
 def test_supported_equals_the_reference_up_to_n_2_15():
     """Every n from 2^7 to 2^22, where the reference's gate ends (the CRT
     pair's 2n-th roots): the port's gate is the reference's, and at each n
-    the plan's layout is the one its shape takes (the split at 2^16)."""
-    took = dict.fromkeys(("cluster", "device", "split", "grid"), 0)
+    the plan's layout is the one its shape takes (the split at 2^16, the
+    quarter at 2^17)."""
+    took = dict.fromkeys(("cluster", "device", "split", "quarter", "grid"),
+                         0)
     for n, k, w, l in _shapes(range(7, 23)):
         param = SimpleNamespace(ring=SimpleNamespace(n=n), k=k)
         ref = brp.supported(param, 1 << w, l)
@@ -74,11 +76,13 @@ def test_supported_equals_the_reference_up_to_n_2_15():
             plan = brc._plan(k + 1, l, n)
             fits = brc._smem(k + 1, l, n, False) <= brc._SMEM_LIMIT
             assert plan.layout == ("split" if n == 1 << 16 else
+                                   "quarter" if n == 1 << 17 else
                                    "grid" if n > 1 << 15 else
                                    "cluster" if fits else "device")
             took[plan.layout] += 1
-    assert took["cluster"] + took["device"] > 6000 and took["grid"] > 1000
-    assert took["split"] > 600
+    assert took["cluster"] + took["device"] > 6000
+    assert took["quarter"] + took["grid"] > 1000 and took["grid"] > 800
+    assert took["split"] > 600 and took["quarter"] > 200
     assert _cuda.log2_degree(1 << 22, _cuda.BLIND_ROTATE) == 22
     with pytest.raises(ValueError, match="2\\^7 .. 2\\^22"):
         _cuda.log2_degree(1 << 23, _cuda.BLIND_ROTATE)

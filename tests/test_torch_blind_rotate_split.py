@@ -270,8 +270,8 @@ def test_split_plan_at_n_2_16():
     forward blocks and 4 2C inverse blocks in clusters of four (2,560 and
     1,024 at B = 64, C = 2, l = 5), a half's one-buffer shape (512
     threads, 128 KB), the digit scratch and nothing between passes; the
-    grid layout only when named there, and past 2^16; the device-memory
-    layout refused."""
+    grid layout only when named there, and past 2^17 (the quarter layout
+    at 2^17); the device-memory layout refused."""
     plan = brc._plan(2, 5, N)
     assert plan.layout == "split" and not plan.staged
     assert plan.cluster == 4 and plan.radix == nc._radix_plan(15)
@@ -279,7 +279,10 @@ def test_split_plan_at_n_2_16():
     assert tuple(64 * b for b in plan.blocks) == (2560, 1024)
     assert plan.scratch_bytes == 2 * 4 * 10 * N
     assert brc._plan(2, 5, N, layout="grid").layout == "grid"
-    for logn in range(17, 23):
+    assert brc._plan(2, 1, 2 * N).layout == "quarter"
+    with pytest.raises(ValueError, match="layout"):
+        brc._plan(2, 1, 2 * N, layout="split")
+    for logn in range(18, 23):
         assert brc._plan(2, 1, 1 << logn).layout == "grid"
         with pytest.raises(ValueError, match="layout"):
             brc._plan(2, 1, 1 << logn, layout="split")
@@ -320,7 +323,8 @@ def test_wrappers_queue_the_split_at_n_2_16():
         assert args[19:23] == (nc.WIDE_THREADS, 4 << 15, 0, code)
         assert args[12] is not None
     assert _cuda.BLIND_ROTATE.by_layout == {"cluster": 0, "device": 0,
-                                            "split": 1, "grid": 1}
+                                            "split": 1, "grid": 1,
+                                            "quarter": 0}
     assert k12[2] is None and k12[-2] == 1 and k12c[2] is not None \
         and k12c[-2] == 0
     assert tuple(k12[10:12]) == (nc.WIDE_THREADS, 4 << 15)

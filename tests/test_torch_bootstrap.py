@@ -214,7 +214,8 @@ def test_supported():
     assert brc.supported(G.Param(G.ERR_SIGMA, RingParam(TORUS_Q, 1 << 16),
                                   1, T), 16, 2)         # 2^16: across blocks
     assert brc._plan(2, 2, 1 << 16).layout == "split"    # on clusters
-    assert brc._plan(2, 2, 1 << 17).layout == "grid"
+    assert brc._plan(2, 2, 1 << 17).layout == "quarter"  # in quarters
+    assert brc._plan(2, 2, 1 << 18).layout == "grid"
     # one prime's buffers a block, the step's key planes staged beside them
     assert brc._plan(2, 2, 1024).smem_bytes == 208 * 1024 + 32
 

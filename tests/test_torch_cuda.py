@@ -94,8 +94,8 @@ def test_radix_kernels_have_no_stack_frame_or_spills(cuda):
     K7's and K8's digits and adds), the chunk kernels of K2 and K3, K7's
     and K8's chunk chains with their gadget products (two), K10's grid
     kernels (four stage counts each; its forward's first pass and the
-    others), and at 2^16 K10's split forward and inverse kernels and K12's
-    split loop."""
+    others), at 2^16 K10's split forward and inverse kernels and K12's
+    split loop, and at 2^17 K10's quarter forward and inverse kernels."""
     report = _cuda.ptxas_report(_cuda.build_log())
     counts = {"tensor_eval4_kernel": 9, "ks_contract_kernel": 9,
               "ks_fused_kernel": 9, "ks_fused_eval_kernel": 9,
@@ -110,6 +110,7 @@ def test_radix_kernels_have_no_stack_frame_or_spills(cuda):
               "brg_chunk_inverse_kernel": 1, "brg_top_inverse_kernel": 4,
               "brg_top_last_kernel": 4, "brs_forward_kernel": 1,
               "brs_inverse_kernel": 1, "ntt_smem_ceiling_split_kernel": 1,
+              "brq_forward_kernel": 1, "brq_inverse_kernel": 1,
               "tensor_eval4_chunk_kernel": 1,
               "ks_contract_chunk_kernel": 1, "first_top_kernel": 4 * 7,
               "ks_mac_chunk_kernel": 2}
@@ -308,7 +309,8 @@ def test_blind_rotate_device_layout_matches_plain(cuda, n, C, l, w):
     torch.cuda.synchronize()
     assert _cuda.launches()["blind_rotate"] == 1
     assert _cuda.BLIND_ROTATE.by_layout == {"cluster": 0, "device": 1,
-                                            "split": 0, "grid": 0}
+                                            "split": 0, "grid": 0,
+                                            "quarter": 0}
     assert torch.equal(got, blind_rotate_cuda.blind_rotate_plain(*args))
     off = [kernel_check._offset_word(e) for e in args[2:6]]
     shifts, acc0 = args[0][:2].contiguous(), args[1]
@@ -1030,22 +1032,24 @@ def test_chunked_mul_past_a_block_matches_plain(cuda, logn):
 @pytest.mark.parametrize("logn,C,l,w", [(16, 2, 5, 6), (16, 1, 3, 7),
                                         (17, 2, 2, 6), (17, 3, 1, 6)])
 def test_blind_rotate_grid_layout_matches_plain(cuda, logn, C, l, w):
-    """K10 past 2^15 in its grid layout (at 2^16 named by the caller, where
-    the plan takes the split) over 3 steps on 2 ciphertexts, and with key
+    """K10 past 2^15 in its grid layout (named by the caller, where the
+    plan takes the split at 2^16 and the quarter layout at 2^17) over 3
+    steps on 2 ciphertexts, and with key
     planes one word off, bit for bit; one launch a chain, counted under its
     layout."""
     n = 1 << logn
     gen = prng.Gen(logn + C + l)
     args = kernel_check.blind_rotate_inputs(n, C - 1, 1 << w, l, 3, 2, cuda,
                                             gen)
-    assert blind_rotate_cuda._plan(C, l, n).layout == (
-        "split" if logn == 16 else "grid")
+    assert blind_rotate_cuda._plan(C, l, n).layout == {
+        16: "split", 17: "quarter"}[logn]
     _cuda.reset_launches()
     got = blind_rotate_cuda.blind_rotate_kernel(*args, layout="grid")
     torch.cuda.synchronize()
     assert _cuda.launches()["blind_rotate"] == 1
     assert _cuda.BLIND_ROTATE.by_layout == {"cluster": 0, "device": 0,
-                                            "split": 0, "grid": 1}
+                                            "split": 0, "grid": 1,
+                                            "quarter": 0}
     assert torch.equal(got, blind_rotate_cuda.blind_rotate_plain(*args))
     off = [kernel_check._offset_word(e) for e in args[2:6]]
     got = blind_rotate_cuda.blind_rotate_kernel(args[0], args[1], *off, n, w,
@@ -1082,6 +1086,32 @@ def test_blind_rotate_split_layout_matches_plain(cuda, C):
             assert torch.equal(got, blind_rotate_cuda.blind_rotate_plain(
                 args[0], args[1], *off, n, w))
     assert blind_rotate_cuda.split_clusters(cuda) >= 1
+
+
+@pytest.mark.parametrize("beta,l", [(1 << 5, 6), (1 << 5, 7)])
+def test_blind_rotate_quarter_layout_matches_plain(cuda, beta, l):
+    """K10 at 2^17 in its quarter layout (the plan's there) at both gadgets
+    of chip_smoke.py's phase 22 (K = 1), over 3 steps on 2 ciphertexts,
+    and with key planes one word off, bit for bit; one launch a chain,
+    counted under "quarter"; its inverse clusters of eight schedule."""
+    n = 1 << 17
+    gen = prng.Gen(170 + l)
+    args = kernel_check.blind_rotate_inputs(n, 1, beta, l, 3, 2, cuda, gen)
+    assert blind_rotate_cuda._plan(2, l, n).layout == "quarter"
+    _cuda.reset_launches()
+    got = blind_rotate_cuda.blind_rotate_kernel(*args)
+    torch.cuda.synchronize()
+    assert _cuda.launches()["blind_rotate"] == 1
+    assert _cuda.BLIND_ROTATE.by_layout == {"cluster": 0, "device": 0,
+                                            "split": 0, "grid": 0,
+                                            "quarter": 1}
+    assert torch.equal(got, blind_rotate_cuda.blind_rotate_plain(*args))
+    off = [kernel_check._offset_word(e) for e in args[2:6]]
+    got = blind_rotate_cuda.blind_rotate_kernel(args[0], args[1], *off, n,
+                                                args[7])
+    assert torch.equal(got, blind_rotate_cuda.blind_rotate_plain(
+        args[0], args[1], *off, n, args[7]))
+    assert blind_rotate_cuda.quarter_clusters(cuda) >= 1
 
 
 def test_ceiling_split_matches_plain(cuda):

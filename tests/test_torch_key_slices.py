@@ -16,8 +16,9 @@ and N = 256 (K = 2), n_lwe = 10:
     them, under jax.jit);
   * ``bootstrap_short`` (the plain chain) on the sliced key decodes;
   * at the card's path (N = 2^17, beta = 2^5, l = 6 and 7) the plan takes
-    K10's grid layout and ``supported`` holds, though each eval plane holds
-    more than 2^31 words (nothing runs).
+    K10's quarter layout (the grid layout where named) and ``supported``
+    holds, though each eval plane holds more than 2^31 words (nothing
+    runs).
 
 Tolerance 0.
 """
@@ -223,14 +224,19 @@ def test_bootstrap_short_on_a_sliced_key_decodes(monkeypatch):
 @pytest.mark.parametrize("l", [6, 7])
 def test_the_path_at_n_2_17_takes_the_grid(l):
     """The card's path at N = 2^17 (K = 1, beta = 2^5): the reference's
-    gate admits it, the plan is the grid layout, and each eval plane of a
-    400-step key holds more than 2^31 words, so the kernel's key offsets
-    must be 64-bit (a step's slice, F 2C n words, stays 32-bit)."""
+    gate admits it, the plan is the quarter layout (the grid layout, which
+    the path took before it, where the caller names it), and each eval
+    plane of a 400-step key holds more than 2^31 words, so the kernel's
+    key offsets must be 64-bit (a step's slice, F 2C n words, stays
+    32-bit)."""
     n, beta, steps = 1 << 17, 1 << 5, 400
     p = G.Param(G.ERR_SIGMA, RingParam(TORUS_Q, n), 1, 64)
     assert brc.supported(p, beta, l)
     assert 2 * l * n * beta < 1 << 26
     plan = brc._plan(2, l, n)
+    assert plan.layout == "quarter" and plan.forward_polys == 2 * l
+    assert plan.scratch_bytes == 2 * 4 * n * 2 * l
+    plan = brc._plan(2, l, n, layout="grid")
     assert plan.layout == "grid" and plan.forward_polys == 2 * l
     assert plan.scratch_bytes == 2 * 4 * n * (2 * l + max(2 * l, 4))
     plane_words = steps * 2 * l * 2 * 2 * n

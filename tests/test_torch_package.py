@@ -353,7 +353,7 @@ def test_build_is_one_command_over_every_source(bare_loader, monkeypatch):
     cus = sorted(p.name for p in _cuda.CSRC.iterdir() if p.suffix == ".cu")
     cmds = [line for line in log if not line.startswith("-- ")]
     k = len(cus)
-    assert k == 20 and len(cmds) == k + 1
+    assert k == 21 and len(cmds) == k + 1
     assert all(line.endswith(" s") for line in log if line.startswith("-- "))
     assert [line.rsplit("/", 1)[-1] for line in cmds[:k]] == cus
     assert all(" -c " in line and " -shared " not in line
